@@ -1,0 +1,18 @@
+# The paper's primary contribution: the block-space fractal map lambda(w)
+# and its generalization to block-structured sparse compute domains,
+# plus the GridPlan that binds a domain to a closed-form, lookup-table or
+# bounding-box launch.
+from . import backend, domain, fractal, memo, plan
+from .backend import CPU, CUDA, BackendTarget
+from .domain import (BandDomain, BlockDomain, BoundingBoxDomain,
+                     GeneralizedFractalDomain, SierpinskiDomain,
+                     TriangularDomain, make_attention_domain,
+                     make_fractal_domain)
+from .fractal import (CARPET, FRACTALS, HAUSDORFF, SIERPINSKI, VICSEK,
+                      FractalSpec, deinterleave_linear, gasket_volume,
+                      is_member, lambda_inverse, lambda_map,
+                      lambda_map_linear, membership_grid, orthotope_shape,
+                      scale_level)
+from .plan import (LOWERINGS, STORAGES, GridPlan, LaunchParams,
+                   normalize_lowering, normalize_storage,
+                   registered_domains)

@@ -1,0 +1,435 @@
+"""The paper's SS IV microbenchmark: write (or sum) every member cell of
+an embedded n x n fractal, over a :class:`~repro_torch.core.plan.GridPlan`.
+
+Three lowerings, as in the JAX package:
+
+* ``closed_form`` (alias ``compact``) -- the lambda(w) map: one CTA per
+  member block, the block decoded in registers by the digit loop.
+* ``prefetch_lut`` -- the same enumeration read from a device int32
+  coordinate table: an O(1) decode.
+* ``bounding`` -- the bounding-box baseline: nbx * nby steps, with the
+  run-time discard of non-member blocks.
+
+Each kernel sits beside its plain PyTorch version.  The entry points
+follow the state's device: a CUDA tensor launches the kernel of
+``repro_torch/csrc/sierpinski_write.cu`` (or raises), a CPU tensor runs
+the plain version.  Each CUDA wrapper counts its launches in a plain
+integer attribute, ``launches``.
+
+Storage is embedded only: the state ``m`` is the dense (n, n) array and
+cells outside the fractal keep their contents.  Compact storage,
+``coarsen``, the ``mma`` lowering, ``num_stages``, ``mesh=``, the tuner
+(``grid_mode="auto"``) and ``verify=`` are not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.domain import BlockDomain, make_fractal_domain
+from repro_torch.core.plan import (LOWERING_CODES, GridPlan, LaunchParams,
+                                   normalize_storage)
+
+from . import _cuda
+
+#: dtype -> the kernel's dtype code (csrc/sierpinski_write.cu ``DType``)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+#: cells per chunk of the plain versions (bounds their temporaries)
+PLAIN_CHUNK_CELLS = 1 << 24
+
+
+def resolve_fractal_domain(fractal: str, n: int, block: int) -> BlockDomain:
+    """Validated block-grid domain for an embedded n x n fractal state.
+
+    Raises a clear ValueError when ``block`` does not divide ``n`` (a
+    truncated block grid would silently drop fractal coverage: e.g. a
+    16 x 16 gasket at block=6 only reaches 45 of its 81 member cells) or
+    when the resulting blocks-per-side is not a power of the fractal's
+    subdivision factor.
+    """
+    if n % block:
+        raise ValueError(
+            f"block={block} must divide n={n} (remainder {n % block}): "
+            f"the {n // block}-block grid would silently truncate "
+            f"fractal coverage")
+    n_b = n // block
+    try:
+        return make_fractal_domain(fractal, n_b)
+    except ValueError as e:
+        raise ValueError(
+            f"n/block = {n_b} blocks per side is not a valid scale level "
+            f"of fractal {fractal!r}: {e}") from None
+
+
+def resolve_storage_args(m, block, fractal, storage, n):
+    """Shared entry-point validation for the fractal-state kernels.
+
+    Returns (domain, n, block, storage) with the state ``m`` checked
+    against the embedded layout's (n, n) shape.  Only embedded storage
+    is ported; compact storage raises ``NotImplementedError``."""
+    storage = normalize_storage(storage)
+    if n is None:
+        if m.ndim != 2 or m.shape[0] != m.shape[1]:
+            raise ValueError(f"expected square 2-D state, got {tuple(m.shape)}")
+        n = m.shape[0]
+    block = min(block, n)
+    domain = resolve_fractal_domain(fractal, n, block)
+    nbx, nby = domain.bounding_box
+    want = (nby * block, nbx * block)
+    if tuple(m.shape) != want:
+        raise ValueError(
+            f"{storage} state shape {tuple(m.shape)} does not match the "
+            f"expected {want} for block={block}")
+    return domain, n, block, storage
+
+
+def _check_state(m: torch.Tensor) -> None:
+    if m.dtype not in DTYPES:
+        raise TypeError(
+            f"state dtype {m.dtype} is not supported; expected one of "
+            f"{tuple(DTYPES)}")
+    if not m.is_contiguous():
+        raise ValueError(
+            "the state must be contiguous (the kernels address it as a "
+            "dense row-major (n, n) array); pass m.contiguous()")
+
+
+def prepare_launch(m: torch.Tensor, *, block: int = 128,
+                   grid_mode: str = "compact",
+                   fractal: str = "sierpinski-gasket",
+                   storage: str = "embedded", n: int | None = None,
+                   coarsen: int = 1):
+    """Validate the state and the options of a write/sum; returns
+    ``(plan, n, block)`` for the kernel wrappers and plain versions."""
+    _check_state(m)
+    domain, n, block, storage = resolve_storage_args(m, block, fractal,
+                                                     storage, n)
+    plan = GridPlan(domain, grid_mode, storage=storage, coarsen=coarsen,
+                    backend=m)
+    return plan, n, block
+
+
+def _value_of(value, dtype) -> torch.Tensor:
+    """``value`` converted as ``torch.tensor(value, dtype=dtype)`` does."""
+    return torch.tensor(value, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the lowering's own decode as tensor index math
+# ---------------------------------------------------------------------------
+
+def _tile_chunks(plan: GridPlan, n: int, block: int, device):
+    """Yield ``(flat, mask)`` per chunk of grid steps, in step order:
+    the int64 cell offsets ``gy * n + gx`` of every tile, shaped
+    (steps, block, block), and the cell-membership mask of each tile
+    (all False for a discarded bounding step)."""
+    iy, ix = torch.meshgrid(
+        torch.arange(block, dtype=torch.int64, device=device),
+        torch.arange(block, dtype=torch.int64, device=device),
+        indexing="ij")
+    steps = plan.steps_per_launch
+    per = max(1, PLAIN_CHUNK_CELLS // (block * block))
+    for start in range(0, steps, per):
+        bx, by, valid = plan.step_coords(start, min(steps, start + per),
+                                         device)
+        gx = bx[:, None, None] * block + ix
+        gy = by[:, None, None] * block + iy
+        mask = plan.domain.cell_member(gx, gy, n)
+        if valid is not None:
+            mask = mask & valid[:, None, None]
+        yield gy * n + gx, mask
+
+
+def sierpinski_write_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
+                           block: int) -> torch.Tensor:
+    """Plain version of the write kernel, in place like it: decode every
+    step, mask its tile, scatter ``value`` into the member cells."""
+    v = _value_of(value, m.dtype).item()
+    flat = m.view(-1)
+    for offs, mask in _tile_chunks(plan, n, block, m.device):
+        flat.index_fill_(0, offs[mask], v)
+    return m
+
+
+def sum_partials_plain(m: torch.Tensor, plan: GridPlan, n: int,
+                       block: int) -> torch.Tensor:
+    """Plain version of the tile-reduce kernel: the (steps,) f32 sums of
+    each step's member cells (0 for a discarded bounding step)."""
+    flat = m.view(-1)
+    parts = []
+    for offs, mask in _tile_chunks(plan, n, block, m.device):
+        tiles = torch.where(mask, flat[offs], 0).to(torch.float32)
+        parts.append(tiles.sum(dim=(1, 2)))
+    return torch.cat(parts)
+
+
+def sum_combine_plain(partials: torch.Tensor) -> torch.Tensor:
+    """Plain version of the combine kernel: the partials added one by
+    one in step order, in f32, as a 0-d tensor on their device.
+
+    PyTorch has no sequential f32 scan (its CPU ``cumsum`` accumulates
+    in float64 and its CUDA ``cumsum`` is a parallel scan), so the chain
+    runs in numpy on the host, whose ``add.accumulate`` is a strict
+    left-to-right f32 loop."""
+    host = partials.detach().to("cpu", torch.float32).numpy()
+    total = np.add.accumulate(host, dtype=np.float32)[-1]
+    return torch.tensor(total, dtype=torch.float32, device=partials.device)
+
+
+def sierpinski_sum_plain(m: torch.Tensor, plan: GridPlan, n: int,
+                         block: int) -> torch.Tensor:
+    """Plain version of the sum: partials, then the in-order combine."""
+    return sum_combine_plain(sum_partials_plain(m, plan, n, block))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
+_PARAM_TYPES = [_I, _I, _I, _I, _I, _I, _LL, _I, _LL, _LL, _ULL, _ULL, _ULL]
+_SIGNATURES = {
+    "sw_write": [_P, _I, ctypes.c_uint] + _PARAM_TYPES + [_P, _P],
+    "sw_sum_partials": [_P, _I, _P] + _PARAM_TYPES + [_P, _P],
+    "sw_sum_combine": [_P, _LL, _P, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _cuda.load("sierpinski_write")
+    if not getattr(lib, "_repro_bound", False):
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.sw_error_string.argtypes = [ctypes.c_int]
+        lib.sw_error_string.restype = ctypes.c_char_p
+        lib._repro_bound = True
+    return lib
+
+
+def _raise_on(lib, status: int, what: str) -> None:
+    if status != 0:
+        msg = lib.sw_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def _param_args(p: LaunchParams):
+    """LaunchParams -> the kernels' scalar C arguments."""
+    if p.k > 16 or p.m > 8 or p.n >= 2 ** 31:
+        raise ValueError(
+            f"the kernels take k <= 16 copies, m <= 8 and n < 2**31, "
+            f"got k={p.k}, m={p.m}, n={p.n}")
+    if p.lowering == LOWERING_CODES["closed_form"] and p.steps >= 2 ** 32:
+        raise ValueError(
+            f"closed_form decodes 32-bit step ids, got {p.steps} steps")
+    allow = oxs = oys = 0
+    for c, (ox, oy) in enumerate(p.offsets):
+        allow |= 1 << (oy * p.m + ox)
+        oxs |= ox << (4 * c)
+        oys |= oy << (4 * c)
+    return [p.family, p.lowering, p.r_b, p.k, p.m, p.r_cell, p.n, p.block,
+            p.steps, p.nbx, allow, oxs, oys]
+
+
+def _check_kernel_args(m: torch.Tensor, p: LaunchParams) -> None:
+    """What the kernels take: a contiguous (n, n) state of a supported
+    dtype on a CUDA device, with the LUT on the same device."""
+    if p.lut is not None and p.lut.device != m.device:
+        raise ValueError(
+            f"state on {m.device} but the decode table on {p.lut.device}: "
+            f"both must lie on the same device")
+    if m.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs a CUDA tensor, got one on {m.device}")
+    _check_state(m)
+    if tuple(m.shape) != (p.n, p.n):
+        raise ValueError(f"state shape {tuple(m.shape)} != ({p.n}, {p.n})")
+    if p.lut is not None and (p.lut.dtype != torch.int32
+                              or not p.lut.is_contiguous()
+                              or tuple(p.lut.shape) != (p.steps, 2)):
+        raise ValueError("the decode table must be a contiguous "
+                         f"({p.steps}, 2) int32 tensor")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def write_cuda(m: torch.Tensor, value, p: LaunchParams) -> torch.Tensor:
+    """Launch the write kernel on ``m`` in place (predicated stores of
+    ``value`` into member cells; nothing else is read or written)."""
+    _check_kernel_args(m, p)
+    v = _value_of(value, m.dtype)
+    bits = int(v.view(torch.int32 if m.element_size() == 4 else torch.int16))
+    bits &= (1 << (8 * m.element_size())) - 1
+    lib = _lib()
+    lut = p.lut.data_ptr() if p.lut is not None else None
+    with torch.cuda.device(m.device):
+        status = lib.sw_write(m.data_ptr(), m.element_size(), bits,
+                              *_param_args(p), lut, _stream(m.device))
+    write_cuda.launches += 1
+    _raise_on(lib, status, "sierpinski write kernel")
+    return m
+
+
+write_cuda.launches = 0
+
+
+def sum_partials_cuda(m: torch.Tensor, p: LaunchParams) -> torch.Tensor:
+    """Launch the tile-reduce kernel: (steps,) f32 partial sums."""
+    _check_kernel_args(m, p)
+    partials = torch.empty(p.steps, dtype=torch.float32, device=m.device)
+    lib = _lib()
+    lut = p.lut.data_ptr() if p.lut is not None else None
+    with torch.cuda.device(m.device):
+        status = lib.sw_sum_partials(m.data_ptr(), DTYPES[m.dtype],
+                                     partials.data_ptr(), *_param_args(p),
+                                     lut, _stream(m.device))
+    sum_partials_cuda.launches += 1
+    _raise_on(lib, status, "sierpinski sum partials kernel")
+    return partials
+
+
+sum_partials_cuda.launches = 0
+
+
+def sum_combine_cuda(partials: torch.Tensor) -> torch.Tensor:
+    """Launch the in-order combine kernel: a 0-d f32 tensor."""
+    if partials.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs a CUDA tensor, got one on "
+            f"{partials.device}")
+    if (partials.dtype != torch.float32 or partials.ndim != 1
+            or not partials.is_contiguous()):
+        raise ValueError("partials must be a contiguous 1-D f32 tensor")
+    out = torch.empty((), dtype=torch.float32, device=partials.device)
+    lib = _lib()
+    with torch.cuda.device(partials.device):
+        status = lib.sw_sum_combine(partials.data_ptr(), partials.numel(),
+                                    out.data_ptr(),
+                                    _stream(partials.device))
+    sum_combine_cuda.launches += 1
+    _raise_on(lib, status, "sierpinski sum combine kernel")
+    return out
+
+
+sum_combine_cuda.launches = 0
+
+#: kernel name -> its CUDA wrapper (each carries ``launches``)
+KERNELS = {"sierpinski_write": write_cuda,
+           "sierpinski_sum_partials": sum_partials_cuda,
+           "sierpinski_sum_combine": sum_combine_cuda}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions (chip_smoke.py, the cuda tests)
+# ---------------------------------------------------------------------------
+
+def check_write_against_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
+                              block: int, p: LaunchParams) -> None:
+    """Run the write kernel and its plain version on two copies of ``m``;
+    raise AssertionError unless the results are bit-equal."""
+    got = write_cuda(m.clone(), value, p)
+    want = sierpinski_write_plain(m.clone(), value, plan, n, block)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"write kernel != plain version ({plan.lowering}, n={n}, "
+            f"block={block}, {m.dtype})")
+
+
+def check_sum_against_plain(m: torch.Tensor, plan: GridPlan, n: int,
+                            block: int, p: LaunchParams,
+                            rtol: float | None = None):
+    """Run both sum kernels and their plain versions on ``m``.
+
+    With ``rtol=None`` the state must be integer valued and the partials
+    must be bit-equal, slot by slot.  Otherwise each partial must lie
+    within ``rtol`` of its tile's sum of magnitudes (the in-tile order
+    differs).  The combine of the same partials is bit-equal either way.
+    Raises AssertionError on a disagreement; returns ``({kernel name:
+    max |kernel - plain|}, the plain version's total)``."""
+    what = f"({plan.lowering}, n={n}, block={block}, {m.dtype})"
+    kp = sum_partials_cuda(m, p)
+    pp = sum_partials_plain(m, plan, n, block)
+    diff = (kp - pp).abs()
+    if rtol is None:
+        ok = torch.equal(kp, pp)
+    else:
+        ok = bool((diff <= rtol * sum_partials_plain(m.abs(), plan, n,
+                                                     block)).all())
+    if not ok:
+        raise AssertionError(f"sum partials kernel != plain version {what}: "
+                             f"max |diff| {float(diff.max())}")
+    kc = sum_combine_cuda(pp)
+    pc = sum_combine_plain(pp)
+    if not torch.equal(kc, pc):
+        raise AssertionError(f"sum combine kernel {float(kc)} != plain "
+                             f"version {float(pc)} {what}")
+    return ({"sierpinski_write": 0.0,
+             "sierpinski_sum_partials": float(diff.max()),
+             "sierpinski_sum_combine": 0.0}, pc)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
+                      grid_mode: str = "compact",
+                      fractal: str = "sierpinski-gasket",
+                      storage: str = "embedded", n: int | None = None,
+                      coarsen: int = 1) -> torch.Tensor:
+    """Write ``value`` to every fractal cell of the (n, n) state ``m``,
+    **in place**, and return ``m``.  Cells outside the fractal are not
+    touched.  This is the form the paper times.
+
+    grid_mode: closed_form (alias compact) | prefetch_lut | bounding;
+    fractal: any registered FractalSpec name.  A CUDA ``m`` launches the
+    kernel; a CPU ``m`` runs the plain version."""
+    plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
+                                    fractal=fractal, storage=storage, n=n,
+                                    coarsen=coarsen)
+    if not plan.target.kernels:
+        return sierpinski_write_plain(m, value, plan, n, block)
+    return write_cuda(m, value, plan.launch_params(n, block, m.device))
+
+
+def sierpinski_write(m: torch.Tensor, value=1.0, **kw) -> torch.Tensor:
+    """Functional write, as in the JAX package: a copy of ``m`` with
+    ``value`` in every fractal cell (see :func:`sierpinski_write_` for
+    the options and the in-place form)."""
+    _check_state(m)
+    return sierpinski_write_(m.clone(), value, **kw)
+
+
+def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
+                   grid_mode: str = "compact",
+                   fractal: str = "sierpinski-gasket",
+                   storage: str = "embedded", n: int | None = None,
+                   coarsen: int = 1) -> torch.Tensor:
+    """f32 sum over the fractal cells of ``m``, as a 0-d tensor on its
+    device: each step's tile is reduced, then the tiles are added in
+    grid-step order (lambda order, or row-major over the bounding box),
+    the JAX package's order."""
+    plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
+                                    fractal=fractal, storage=storage, n=n,
+                                    coarsen=coarsen)
+    if not plan.target.kernels:
+        return sierpinski_sum_plain(m, plan, n, block)
+    p = plan.launch_params(n, block, m.device)
+    return sum_combine_cuda(sum_partials_cuda(m, p))

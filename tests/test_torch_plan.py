@@ -1,0 +1,173 @@
+"""The port's GridPlan, target descriptor and memo against the JAX package.
+
+Plan tables (decode LUT, grid, step order, row extents) must be equal
+to ``repro.core.plan.GridPlan``'s for every registered domain under the
+three ported lowerings.
+"""
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as JP
+from repro_torch.core import backend as TB
+from repro_torch.core import domain as TD
+from repro_torch.core import memo as TM
+from repro_torch.core import plan as TP
+
+SIZES = ("small", "medium")
+
+
+def _pairs(size):
+    ref, port = JP.registered_domains(size), TP.registered_domains(size)
+    return [(name, ref[name], port[name]) for name in ref]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("lowering", TP.LOWERINGS)
+@pytest.mark.parametrize("batch_dims", [(), (3,)])
+def test_plan_tables_match(size, lowering, batch_dims):
+    for name, jd, td in _pairs(size):
+        jp = JP.GridPlan(jd, lowering, batch_dims=batch_dims,
+                         backend="tpu-interpret")
+        tp = TP.GridPlan(td, lowering, batch_dims=batch_dims, backend="cpu")
+        assert tp.grid == jp.grid, name
+        assert tp.num_steps == jp.num_steps, name
+        assert tp.domain_dims == jp.domain_dims, name
+        assert tp.steps_per_launch == jp.steps_per_launch, name
+        np.testing.assert_array_equal(tp.lut_host(), jp.lut_host())
+        assert tp.lut_host().dtype == np.int32
+        np.testing.assert_array_equal(tp.row_extents(), jp.row_extents())
+        dom_grid = jp.grid[len(batch_dims):]
+        batch = tuple(d - 1 for d in batch_dims)
+        for ids in itertools.product(*(range(d) for d in dom_grid)):
+            gids = batch + ids
+            lin = tp.linear_step(gids)
+            assert lin == jp.linear_step(gids), (name, gids)
+            assert tp.grid_ids_at(lin, batch) == jp.grid_ids_at(lin, batch)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("lowering", TP.LOWERINGS)
+def test_step_coords_follow_the_lowering(size, lowering):
+    """The plain versions' decode of every step equals the reference's
+    scheduled coords: lambda order, or row-major bounding box with the
+    contains() discard."""
+    for name, jd, td in _pairs(size):
+        tp = TP.GridPlan(td, lowering, backend="cpu")
+        steps = tp.steps_per_launch
+        bx, by, valid = tp.step_coords(0, steps, "cpu")
+        if lowering == "bounding":
+            nbx, nby = jd.bounding_box
+            gy, gx = np.mgrid[0:nby, 0:nbx]
+            np.testing.assert_array_equal(bx.numpy(), gx.ravel())
+            np.testing.assert_array_equal(by.numpy(), gy.ravel())
+            want = np.broadcast_to(jd.contains(gx, gy), gx.shape).ravel()
+            got = (np.ones(steps, bool) if valid is None
+                   else valid.numpy())
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert valid is None
+            coords = jd.coords_host()
+            np.testing.assert_array_equal(bx.numpy(), coords[:, 0])
+            np.testing.assert_array_equal(by.numpy(), coords[:, 1])
+        # a chunk decodes like the same rows of the whole
+        mid = steps // 2
+        cb = tp.step_coords(mid, steps, "cpu")
+        np.testing.assert_array_equal(cb[0].numpy(), bx[mid:].numpy())
+        np.testing.assert_array_equal(cb[1].numpy(), by[mid:].numpy())
+
+
+def test_launch_params():
+    dom = TD.SierpinskiDomain(16)
+    for lowering in TP.LOWERINGS:
+        p = TP.GridPlan(dom, lowering, backend="cpu").launch_params(
+            128, 8, "cpu")
+        assert (p.family, p.r_b, p.k, p.m, p.r_cell) == \
+            (TP.FAMILY_GASKET, 4, 3, 2, 0)
+        assert (p.n, p.block, p.nbx) == (128, 8, 16)
+        assert p.lowering == TP.LOWERING_CODES[lowering]
+        assert p.steps == (256 if lowering == "bounding" else 81)
+        if lowering == "prefetch_lut":
+            assert p.lut.dtype == torch.int32 and p.lut.shape == (81, 2)
+            np.testing.assert_array_equal(p.lut.numpy(), dom.coords_host())
+        else:
+            assert p.lut is None
+    carpet = TD.make_fractal_domain("sierpinski-carpet", 9)
+    p = TP.GridPlan(carpet, "closed_form", backend="cpu").launch_params(
+        81, 9, "cpu")
+    assert (p.family, p.r_b, p.k, p.m, p.r_cell) == (TP.FAMILY_SPEC, 2, 8, 3, 2)
+    assert p.offsets == carpet.spec.offsets
+    with pytest.raises(ValueError, match="power of m"):
+        TP.GridPlan(carpet, backend="cpu").launch_params(90, 10, "cpu")
+    for dom in (TD.TriangularDomain(4), TD.BandDomain(8, 3),
+                TD.BoundingBoxDomain(3, 3)):
+        with pytest.raises(NotImplementedError, match="A6"):
+            TP.GridPlan(dom, backend="cpu").launch_params(32, 8, "cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(lowering="mma"), "A9"),
+    (dict(lowering="auto"), "A8"),
+    (dict(storage="compact"), "A4"),
+    (dict(coarsen=2), "A4"),
+])
+def test_unported_options_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        TP.GridPlan(TD.SierpinskiDomain(8), backend="cpu", **kw)
+
+
+def test_lowering_and_storage_validation():
+    assert TP.normalize_lowering("compact") == "closed_form"
+    for name in TP.LOWERINGS:
+        assert TP.normalize_lowering(name) == JP.normalize_lowering(name)
+    with pytest.raises(ValueError):
+        TP.normalize_lowering("bogus")
+    with pytest.raises(ValueError):
+        TP.normalize_storage("bogus")
+    with pytest.raises(ValueError):
+        TP.GridPlan(TD.SierpinskiDomain(8), coarsen=0, backend="cpu")
+
+
+def test_backend_resolve_follows_the_device():
+    assert TB.resolve(torch.zeros(1)) is TB.CPU
+    assert TB.resolve("cpu") is TB.CPU
+    assert TB.resolve(None) is TB.CUDA
+    assert TB.resolve("cuda:1") is TB.CUDA
+    assert TB.resolve(torch.device("cuda", 0)) is TB.CUDA
+    assert TB.resolve(TB.CPU) is TB.CPU
+    assert TB.CUDA.arch == "sm_90a" and TB.CUDA.kernels
+    assert not TB.CPU.kernels
+    with pytest.raises(ValueError, match="meta"):
+        TB.resolve(torch.empty(1, device="meta"))
+    assert TB.default_device("cpu") == torch.device("cpu")
+    plan = TP.GridPlan(TD.SierpinskiDomain(8), backend=torch.zeros(1))
+    assert plan.target is TB.CPU
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert TB.default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TB.default_device()
+
+
+def test_memo_caches_lut_per_domain_identity():
+    TM.clear()
+    a = TP.GridPlan(TD.SierpinskiDomain(16), "prefetch_lut", backend="cpu")
+    b = TP.GridPlan(TD.SierpinskiDomain(16), "prefetch_lut", backend="cpu")
+    assert a.lut_host() is b.lut_host()
+    assert a.lut("cpu") is b.lut("cpu")
+    assert TM.STATS["hits"] >= 2
+    uncached = TD.BoundingBoxDomain(3, 3, member=lambda x, y: x <= y)
+    assert TM.domain_key(uncached) is None
+    p = TP.GridPlan(uncached, "prefetch_lut", backend="cpu")
+    misses = TM.STATS["misses"]
+    p.lut_host()
+    p.lut_host()
+    assert TM.STATS["misses"] == misses + 2  # every lookup rebuilds
+    assert TM.size() >= 2
+    TM.clear()
+    assert TM.size() == 0 and TM.STATS == {"hits": 0, "misses": 0}
