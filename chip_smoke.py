@@ -1,15 +1,22 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Drives the port's main path -- the paper's SS IV experiment: enumerate
-the member blocks of an n x n Sierpinski gasket with lambda(w), launch
-exactly those blocks, write (and sum) every member cell, and compare
-with the bounding-box launch -- through the hand-written CUDA kernels,
-at the paper's largest size (n = 2**16, a 16 GiB f32 state).
+Drives the port's main paths through the hand-written CUDA kernels at
+the paper's largest size, n = 2**16:
+
+* the paper's SS IV experiment: enumerate the member blocks of an n x n
+  Sierpinski gasket with lambda(w), launch exactly those blocks, write
+  (and sum) every member cell, and compare with the bounding-box launch
+  (a 16 GiB f32 state);
+* the CA application: parity and diffusion steps on the gasket held in
+  compact orthotope storage (two 725.6 MB f32 buffers), fused over
+  several steps per launch;
+* compact write/sum: the SS IV write and sum on the packed state.
 
 Phases, each printing its own lines:
 
 1. card   -- name and power limit (nvidia-smi), torch and CUDA versions;
-2. build  -- nvcc builds every kernel from the sources in the checkout;
+2. build  -- nvcc builds every kernel library from the sources in the
+             checkout, one nvcc per source, all started together;
 3. parity -- every kernel against its plain PyTorch version on the card:
              gasket, carpet and Vicsek x closed_form / prefetch_lut /
              bounding x several (n, rho); writes bit-equal in
@@ -26,7 +33,27 @@ Phases, each printing its own lines:
              the same function (masked_fill_, torch.masked.sum,
              Tensor.sum), and the rho = 1 grids (3**16 and 2**32 steps)
              launched once;
-5. kernels line, then the result line.
+5. parity, compact and CA -- the write/sum kernels under compact storage
+             and coarsening (same rules as phase 3), and the fused CA
+             kernel under gasket / carpet / Vicsek x three lowerings x
+             {embedded, compact} x coarsen {1, s} x fuse {1, 3, span}
+             x both rules (bit-equal), including the large-tile path;
+6. ca     -- launch counts set to 0, then ca_run at n = 2**16, rho = 32,
+             compact f32, T = 32 steps at fuse 1, 8 and 32 under the
+             three lowerings for parity and diffusion; counts read; each
+             result held against a cell-level gather oracle over
+             cell_neighbor_tables(16) (parity bit-equal, diffusion within
+             rtol 1e-5 / atol 1e-6); the plain version at full size for
+             one run; embedded storage (two 16 GiB buffers) for
+             closed_form and bounding at fuse 8, packed and compared bit
+             for bit; CUDA-event timings of the kernel, its plain version
+             and the oracle;
+7. compact write/sum -- counts set to 0, then write and sum on the
+             packed state at rho 8, 16, 32 and rho 32 with coarsen 2
+             under the three lowerings; counts read; the write checked on
+             the packed array itself, the partials slot by slot against
+             the plain version; timings beside masked_fill_;
+8. kernels line, then the result line.
 
 Any failed check raises: the script exits non-zero and prints no
 result line.  It needs one CUDA card and nvcc; full results are written
@@ -52,6 +79,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 N_MAIN = 1 << 16
+R_MAIN = 16
 RHOS = (8, 16, 32)
 REPORT_AT = ("closed_form", 32)   # the (lowering, rho) of the kernels line
 PARITY_CASES = [
@@ -70,6 +98,27 @@ DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 #: magnitudes
 NORMAL_RTOL = 1e-5
 SEED = 0
+
+#: compact/coarsened write-sum parity: (fractal, n, block, s)
+COMPACT_PARITY_CASES = [
+    ("sierpinski-gasket", 1024, 8, 4), ("sierpinski-gasket", 4096, 32, 2),
+    ("sierpinski-gasket", 16384, 32, 2), ("sierpinski-gasket", 256, 1, 8),
+    ("sierpinski-carpet", 729, 9, 3), ("vicsek-cross", 6561, 9, 9),
+]
+#: CA parity: (fractal, n, block, s); fuse runs over {1, 3, span}
+CA_PARITY_CASES = [
+    ("sierpinski-gasket", 1024, 32, 2), ("sierpinski-gasket", 512, 16, 4),
+    ("sierpinski-carpet", 729, 27, 3), ("vicsek-cross", 729, 9, 3),
+]
+#: the large working tiles: (fractal, n, block, coarsen, fuse)
+CA_LARGE_CASES = [("sierpinski-gasket", 512, 128, 1, 128),
+                  ("sierpinski-gasket", 1024, 32, 2, 64)]
+CA_RHO, CA_STEPS, CA_FUSES = 32, 32, (1, 8, 32)
+CA_ALPHA = 0.2
+#: f32 operations per member cell and step: 3 adds for the neighbour sum,
+#: then parity adds and takes the mod, diffusion does mul, sub, mul, add
+CA_OPS = {"parity": 5, "diffusion": 7}
+CA_REPORT_AT = ("closed_form", 8, "parity")  # the kernels line's CA row
 
 
 def check(cond, msg):
@@ -119,8 +168,11 @@ def phase_build(_cuda):
     t0 = time.perf_counter()
     paths = _cuda.build()
     secs = time.perf_counter() - t0
+    print(f"[build] " + ", ".join(
+        f"{name} {_cuda.BUILD_SECONDS.get(name, 0.0):.1f} s"
+        for name in paths) + f" (in parallel, {secs:.1f} s in all)")
     for name, path in paths.items():
-        print(f"[build] {name}: {path.name} in {secs:.1f} s")
+        print(f"[build] {name}: {path.name}")
         for line in _cuda.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
@@ -320,6 +372,431 @@ def phase_main(ops, TW, F, LOWERINGS, dev):
     return rows, launches, err, rho1, peak
 
 
+# ---------------------------------------------------------------------------
+# compact storage, coarsening and the fused CA kernel
+# ---------------------------------------------------------------------------
+
+def member_state(layout, block, n, spec, dev, seed, kind):
+    """An embedded (n, n) f32 state, zero outside the fractal: 'binary'
+    {0, 1}, 'integer' in [-8, 8] or 'normal'; and its packed copy."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "binary":
+        x = torch.randint(0, 2, (n, n), generator=g, device=dev).float()
+    elif kind == "integer":
+        x = torch.randint(-8, 9, (n, n), generator=g, device=dev).float()
+    else:
+        x = torch.randn((n, n), generator=g, device=dev)
+    mask = torch.from_numpy(spec.membership_grid(n).copy()).to(dev)
+    x = torch.where(mask, x, 0)
+    return x, layout.pack(x, block)
+
+
+def phase_parity_compact(TW, F, LOWERINGS, compact_layout, dev):
+    """The write/sum kernels under compact storage and coarsening against
+    their plain versions: writes bit-equal in three dtypes, sums bit-equal
+    on integer states and within the tolerance on normal ones."""
+    err = {name: 0.0 for name in TW.KERNELS}
+    ncmp = 0
+    for ci, (fractal, n, block, s) in enumerate(COMPACT_PARITY_CASES):
+        spec = F.FRACTALS.get(fractal, F.SIERPINSKI)
+        lay = compact_layout(TW.resolve_fractal_domain(fractal, n, block))
+        for gm in LOWERINGS:
+            for storage, coarsen in (("compact", 1), ("compact", s),
+                                     ("embedded", s)):
+                for di, dtype in enumerate(DTYPES + (None,)):
+                    kind = "integer" if dtype is not None else "normal"
+                    emb, packed = member_state(lay, block, n, spec, dev,
+                                               100 * ci + di, kind)
+                    m = (packed if storage == "compact" else emb).to(
+                        dtype or torch.float32)
+                    plan, n_, blk = TW.prepare_launch(
+                        m, block=block, grid_mode=gm, fractal=fractal,
+                        storage=storage, n=n, coarsen=coarsen)
+                    p = plan.launch_params(n_, blk, dev)
+                    if dtype is not None:
+                        TW.check_write_against_plain(m, 7.3, plan, n_, blk,
+                                                     p)
+                        ncmp += 1
+                    errs, _ = TW.check_sum_against_plain(
+                        m, plan, n_, blk, p,
+                        rtol=None if dtype is not None else NORMAL_RTOL)
+                    merge_err(err, errs)
+                    ncmp += 2
+        torch.cuda.synchronize()
+        print(f"[parity-compact] {fractal} n={n} rho={block} s={s}: ok "
+              f"(3 lowerings x compact/coarsened/embedded-coarsened x "
+              f"{len(DTYPES)} dtypes + normal f32)")
+    print(f"[parity-compact] {ncmp} kernel-vs-plain comparisons passed; "
+          f"max |err| {err}")
+    return err
+
+
+def phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev):
+    """The fused CA kernel against its plain version, bit-equal for both
+    rules, over lowering x storage x coarsen x fuse, and the large
+    working tiles that take the global-scratch path."""
+    ncmp = 0
+    cases = [(f, n, b, c, fuse) for (f, n, b, s) in CA_PARITY_CASES
+             for c in (1, s) for fuse in sorted({1, 3, c * b})]
+    cases += CA_LARGE_CASES
+    for ci, (fractal, n, block, coarsen, fuse) in enumerate(cases):
+        spec = F.FRACTALS.get(fractal, F.SIERPINSKI)
+        lay = compact_layout(TW.resolve_fractal_domain(fractal, n, block))
+        for rule in ("parity", "diffusion"):
+            emb, packed = member_state(
+                lay, block, n, spec, dev, 7 * ci,
+                "binary" if rule == "parity" else "normal")
+            for storage in ("embedded", "compact"):
+                a = packed if storage == "compact" else emb
+                b = torch.zeros_like(a)
+                for gm in LOWERINGS:
+                    plan, n_, blk = TC.prepare_run(
+                        a, b, block=block, grid_mode=gm, fractal=fractal,
+                        storage=storage, n=n, coarsen=coarsen)
+                    h = TC.effective_fuse(fuse, fuse, blk, coarsen)
+                    TC.check_ca_against_plain(a, b, plan, n_, blk, h, h,
+                                              rule, CA_ALPHA)
+                    ncmp += 1
+        torch.cuda.synchronize()
+        print(f"[parity-ca] {fractal} n={n} rho={block} coarsen={coarsen} "
+              f"fuse={fuse}: bit-equal (2 rules x 2 storages x 3 "
+              f"lowerings)")
+    print(f"[parity-ca] {ncmp} kernel-vs-plain comparisons passed, all "
+          f"bit-equal")
+    return 0.0
+
+
+def packed_gasket_mask(layout, block, n, F, dev, band=64):
+    """Cell membership of the packed gasket, built on the card in bands
+    of packed block rows (no embedded array)."""
+    scols, srows = layout.grid_shape
+    r_b = layout.domain.r_b
+    mask = torch.empty(layout.array_shape(block), dtype=torch.bool,
+                       device=dev)
+    sx = torch.arange(scols, device=dev)
+    i = torch.arange(block, device=dev)
+    for sy0 in range(0, srows, band):
+        sy = torch.arange(sy0, min(srows, sy0 + band), device=dev)
+        bx, by = F.lambda_map(sx[None, :], sy[:, None], r_b)
+        gx = bx[:, None, :, None] * block + i[None, None, None, :]
+        gy = by[:, None, :, None] * block + i[None, :, None, None]
+        rows = len(sy) * block
+        mask[sy0 * block:sy0 * block + rows] = \
+            ((gx & (n - 1 - gy)) == 0).reshape(rows, scols * block)
+    return mask
+
+
+def lambda_order_index(layout, block, r, F, dev, chunk=1 << 24):
+    """int64 offsets into the packed array of every member cell, in the
+    cell-level lambda-linear order of cell_neighbor_tables(r)."""
+    c = block.bit_length() - 1  # lambda digit levels inside a block
+    r_b = r - c
+    pitch = layout.array_shape(block)[1]
+    out = torch.empty(3 ** r, dtype=torch.int64, device=dev)
+    for start in range(0, 3 ** r, chunk):
+        i = torch.arange(start, min(3 ** r, start + chunk), device=dev)
+        sx, sy = F.deinterleave_linear(i // 3 ** c, 3, r_b)
+        ox, oy = F.lambda_map_linear(i % 3 ** c, c)
+        out[start:start + len(i)] = (sy * block + oy) * pitch \
+            + sx * block + ox
+    return out
+
+
+def oracle_step(state, tables, rule, deg=None):
+    """One cell-level CA step over lambda-ordered member cells (the JAX
+    package's packed_parity_step gather strategy), in the kernel's
+    operation order."""
+    s = torch.cat([state, state.new_zeros(1)])
+    nsum = s[tables[0]] + s[tables[1]] + s[tables[2]] + s[tables[3]]
+    if rule == "parity":
+        r = torch.fmod(state + nsum, 2.0)
+        return torch.where((r != 0) & (r < 0), r + 2.0, r)
+    al = torch.tensor(CA_ALPHA, dtype=state.dtype)
+    return state + al * (nsum - deg * state)
+
+
+def unpack_into(emb, packed, layout, block, chunk=1 << 14):
+    """Scatter the packed member blocks into the embedded tensor ``emb``
+    in place, in chunks of blocks (no second embedded-size temporary)."""
+    nbx, nby = layout.domain.bounding_box
+    scols, srows = layout.grid_shape
+    E = emb.view(nby, block, nbx, block)
+    P = packed.view(srows, block, scols, block)
+    coords = torch.from_numpy(layout.domain.coords_host().astype("int64"))
+    slots = torch.from_numpy(layout.slots_host().astype("int64"))
+    coords, slots = coords.to(emb.device), slots.to(emb.device)
+    for k in range(0, len(coords), chunk):
+        c, sl = coords[k:k + chunk], slots[k:k + chunk]
+        E[c[:, 1], :, c[:, 0], :] = P[sl[:, 1], :, sl[:, 0], :]
+
+
+def phase_ca_main(ops, TC, F, LOWERINGS, compact_layout, cell_tables, TW,
+                  dev):
+    n, rho, T = N_MAIN, CA_RHO, CA_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   rho))
+    shape = lay.array_shape(rho)
+    mbytes = shape[0] * shape[1] * 4
+    print(f"[ca] gasket n={n} rho={rho} compact f32: packed {shape}, "
+          f"{mbytes / 1e6:.1f} MB per buffer")
+    mask = packed_gasket_mask(lay, rho, n, F, dev)
+    check(int(mask.sum()) == F.gasket_volume(n), "packed mask count")
+    t0 = time.perf_counter()
+    tables = cell_tables(R_MAIN, device=dev)
+    lam = lambda_order_index(lay, rho, R_MAIN, F, dev)
+    torch.cuda.synchronize()
+    print(f"[ca] oracle tables: cell_neighbor_tables({R_MAIN}) "
+          f"{tuple(tables.shape)} int32 and the lambda-order index built "
+          f"on the card in {time.perf_counter() - t0:.1f} s")
+    vol = tables.shape[1]
+    deg = sum((t != vol).float() for t in tables)
+    g = torch.Generator(device=dev)
+    init = {
+        "parity": torch.where(mask, torch.randint(
+            0, 2, shape, generator=g.manual_seed(SEED), device=dev).float(),
+            0),
+        "diffusion": torch.where(mask, torch.randn(
+            shape, generator=g.manual_seed(SEED + 1), device=dev), 0)}
+    want = {}
+    for rule, x in init.items():
+        s = x.view(-1)[lam]
+        for _ in range(T):
+            s = oracle_step(s, tables, rule, deg)
+        want[rule] = s
+    a = torch.empty(shape, dtype=torch.float32, device=dev)
+    b = torch.empty_like(a)
+
+    # -- the main path, counted --------------------------------------------
+    results = {}
+    TC.reset_launch_counts()
+    for rule in ("parity", "diffusion"):
+        for fuse in CA_FUSES:
+            for gm in LOWERINGS:
+                a.copy_(init[rule])
+                b.zero_()
+                out = ops.ca_run(a, b, T, fuse=fuse, rule=rule,
+                                 alpha=CA_ALPHA, block=rho, grid_mode=gm,
+                                 storage="compact", n=n)
+                got = out.view(-1)[lam]
+                outside = int(torch.count_nonzero(out.masked_fill(mask, 0)))
+                diff = float((got - want[rule]).abs().max())
+                close = bool(torch.isclose(got, want[rule], rtol=1e-5,
+                                           atol=1e-6).all())
+                results[(rule, fuse, gm)] = (diff, outside, close)
+    torch.cuda.synchronize()
+    launches = TC.launch_counts()
+    print(f"[ca] launches {launches}")
+    check(launches["sierpinski_ca_fused"] > 0,
+          "kernel sierpinski_ca_fused was not launched on the CA path")
+    check(launches["sierpinski_ca_fused"] == 2 * len(LOWERINGS) * sum(
+        len(TC.launch_schedule(T, f)) for f in CA_FUSES),
+        "unexpected CA launch count")
+    oracle_err = {"parity": 0.0, "diffusion": 0.0}
+    for (rule, fuse, gm), (diff, outside, close) in results.items():
+        what = f"ca {rule} fuse={fuse} {gm}"
+        check(outside == 0, f"{what}: {outside} non-member cells are "
+              f"nonzero")
+        if rule == "parity":
+            check(diff == 0.0, f"{what}: differs from the cell-level "
+                  f"oracle by {diff}")
+        check(close, f"{what}: outside rtol 1e-5 / atol 1e-6 of the "
+              f"cell-level oracle (max |err| {diff})")
+        oracle_err[rule] = max(oracle_err[rule], diff)
+    print(f"[ca] {len(results)} runs of T={T} steps match the cell-level "
+          f"oracle: parity bit-equal, diffusion max |err| "
+          f"{oracle_err['diffusion']:.3e} (rtol 1e-5, atol 1e-6); "
+          f"non-member cells all 0")
+
+    # -- the plain version at full size (not counted) -----------------------
+    gm, fuse, rule = CA_REPORT_AT
+    plan, _, blk = TC.prepare_run(a, b, block=rho, grid_mode=gm,
+                                  storage="compact", n=n)
+    a.copy_(init[rule])
+    b.zero_()
+    x, y = a, b
+    t0 = time.perf_counter()
+    for k in TC.launch_schedule(T, fuse):
+        TC.ca_launch_plain(x, y, plan, n, blk, fuse, k, rule, CA_ALPHA)
+        x, y = y, x
+    torch.cuda.synchronize()
+    plain_run_s = time.perf_counter() - t0
+    check(torch.equal(x.view(-1)[lam], want[rule]),
+          "plain version at full size differs from the oracle")
+    a2 = init[rule].clone()
+    kern = ops.ca_run(a2, torch.zeros_like(a2), T, fuse=fuse, rule=rule,
+                      block=rho, grid_mode=gm, storage="compact", n=n)
+    check(torch.equal(kern, x), "kernel != plain version at full size")
+    del a2, kern
+    print(f"[ca] plain version at full size ({gm}, fuse {fuse}, {rule}): "
+          f"bit-equal to the kernel, {plain_run_s:.2f} s for {T} steps")
+
+    # -- embedded storage: two 16 GiB buffers (not counted) -----------------
+    ecount = {"closed_form": None, "bounding": None}
+    for gm in ecount:
+        emb_a = torch.zeros((n, n), dtype=torch.float32, device=dev)
+        unpack_into(emb_a, init["parity"], lay, rho)
+        emb_b = torch.zeros_like(emb_a)
+        out = ops.ca_run(emb_a, emb_b, T, fuse=8, rule="parity", block=rho,
+                         grid_mode=gm)
+        packed_out = lay.pack(out, rho)
+        check(torch.equal(packed_out.view(-1)[lam], want["parity"]),
+              f"embedded ca {gm}: pack(result) differs from the compact run")
+        band = min(2048, n)
+        x_ = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+        for y0 in range(0, n, band):
+            yy = torch.arange(y0, y0 + band, dtype=torch.int32,
+                              device=dev)[:, None]
+            member = (x_ & (n - 1 - yy)) == 0
+            check(int(torch.count_nonzero(out[y0:y0 + band].masked_fill(
+                member, 0))) == 0,
+                f"embedded ca {gm}: rows {y0}.. nonzero outside the gasket")
+        del emb_a, emb_b, out, packed_out
+        torch.cuda.empty_cache()
+        print(f"[ca] embedded storage {gm} fuse 8: pack(result) bit-equal "
+              f"to the compact run; zero outside the gasket in row bands")
+    emb_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # -- timings (not counted) ---------------------------------------------
+    rows = []
+    oracle_ms = time_ms(lambda: oracle_step(init["diffusion"].view(-1)[lam],
+                                            tables, "diffusion", deg), 5)
+    oracle_parity_ms = time_ms(
+        lambda: oracle_step(init["parity"].view(-1)[lam], tables, "parity"),
+        5)
+    print(f"[ca] cell-level oracle: {oracle_parity_ms:.4f} ms per parity "
+          f"step, {oracle_ms:.4f} ms per diffusion step (gather strategy "
+          f"of the JAX package's benchmark)")
+    a.copy_(init["parity"])
+    b.zero_()
+    for rule in ("parity", "diffusion"):
+        for fuse in CA_FUSES:
+            for gm in LOWERINGS:
+                plan, _, blk = TC.prepare_run(a, b, block=rho, grid_mode=gm,
+                                              storage="compact", n=n)
+                p = plan.launch_params(n, blk, dev)
+                ms = time_ms(lambda: TC.ca_cuda(a, b, p, fuse, fuse, rule,
+                                                CA_ALPHA), 10)
+                lut_bytes = 0 if p.lut is None else p.lut.numel() * 4
+                row = {"rule": rule, "fuse": fuse, "lowering": gm,
+                       "launch_ms": ms, "step_ms": ms / fuse}
+                row["bound_ms"], row["bound_by"] = bound(
+                    2 * mbytes + lut_bytes,
+                    fuse * F.gasket_volume(n) * CA_OPS[rule])
+                if (gm, fuse, rule) == CA_REPORT_AT:
+                    row["plain_ms"] = time_ms(
+                        lambda: TC.ca_launch_plain(a, b, plan, n, blk, fuse,
+                                                   fuse, rule, CA_ALPHA), 2)
+                rows.append(row)
+                print(f"[ca] {json.dumps(row)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[ca] peak device memory {peak:.2f} GiB (embedded runs "
+          f"{emb_peak:.2f} GiB)")
+    return {"rows": rows, "launches": launches, "oracle_err": oracle_err,
+            "oracle_ms": {"parity": oracle_parity_ms,
+                          "diffusion": oracle_ms},
+            "plain_run_s": plain_run_s, "peak_gib": peak,
+            "packed_shape": list(shape), "buffer_mb": mbytes / 1e6}
+
+
+def phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev):
+    n = N_MAIN
+    members = F.gasket_volume(n)
+    torch.cuda.empty_cache()
+    cases = [(rho, 1) for rho in RHOS] + [(32, 2)]
+    states, masks = {}, {}
+    for rho, _ in cases:
+        if rho in states:
+            continue
+        lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket",
+                                                       n, rho))
+        masks[rho] = packed_gasket_mask(lay, rho, n, F, dev)
+        states[rho] = torch.empty(lay.array_shape(rho), dtype=torch.float32,
+                                  device=dev)
+        print(f"[compact] rho={rho}: packed {tuple(states[rho].shape)}, "
+              f"{states[rho].numel() * 4 / 1e6:.1f} MB")
+
+    # -- the main path, counted --------------------------------------------
+    sums = {}
+    gen = torch.Generator(device=dev)
+    TW.reset_launch_counts()
+    for rho, s in cases:
+        m, mask = states[rho], masks[rho]
+        for gm in LOWERINGS:
+            m.fill_(2.0)
+            ops.sierpinski_write_(m, 1.0, block=rho, grid_mode=gm,
+                                  storage="compact", n=n, coarsen=s)
+            check(torch.equal(m, torch.where(mask, 1.0, 2.0)),
+                  f"compact write {gm} rho={rho} coarsen={s}: the packed "
+                  f"array differs from value-on-members")
+    for rho, s in cases:
+        m = states[rho]
+        m.random_(-8, 9, generator=gen.manual_seed(SEED + rho))
+        for gm in LOWERINGS:
+            sums[(rho, s, gm)] = ops.sierpinski_sum(
+                m, block=rho, grid_mode=gm, storage="compact", n=n,
+                coarsen=s)
+    torch.cuda.synchronize()
+    launches = TW.launch_counts()
+    print(f"[compact] launches {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the compact "
+              f"write/sum path")
+
+    # -- checks and timings at the main path's shapes (not counted) ---------
+    rows = []
+    err = {name: 0.0 for name in TW.KERNELS}
+    for rho, s in cases:
+        m, mask = states[rho], masks[rho]
+        exact = float(m[mask].double().sum())
+        yard_ms = time_ms(lambda: m.masked_fill_(mask, 1.0), reps=5)
+        m.random_(-8, 9, generator=gen.manual_seed(SEED + rho))
+        for gm in LOWERINGS:
+            plan, _, blk = TW.prepare_launch(m, block=rho, grid_mode=gm,
+                                             storage="compact", n=n,
+                                             coarsen=s)
+            p = plan.launch_params(n, blk, dev)
+            errs, plain_sum = TW.check_sum_against_plain(m, plan, n, blk, p)
+            merge_err(err, errs)
+            check(torch.equal(sums[(rho, s, gm)], plain_sum),
+                  f"compact sum {gm} rho={rho} coarsen={s}: kernel "
+                  f"{float(sums[(rho, s, gm)])} != plain {float(plain_sum)}")
+            parts = TW.sum_partials_cuda(m, p)
+            check(float(parts.double().sum()) == exact,
+                  f"compact partials {gm} rho={rho} coarsen={s}: f64 total "
+                  f"{float(parts.double().sum())} != {exact}")
+            steps = p.steps
+            lut_bytes = 0 if p.lut is None else p.lut.numel() * 4
+            row = {
+                "lowering": gm, "rho": rho, "coarsen": s, "steps": steps,
+                "write_ms": time_ms(lambda: TW.write_cuda(m, 1.0, p), 20),
+                "write_plain_ms": time_ms(
+                    lambda: TW.sierpinski_write_plain(m, 1.0, plan, n, blk),
+                    2),
+                "write_library_ms": yard_ms,
+                "partials_ms": time_ms(lambda: TW.sum_partials_cuda(m, p),
+                                       20),
+                "partials_plain_ms": time_ms(
+                    lambda: TW.sum_partials_plain(m, plan, n, blk), 2),
+                "sum_ms": time_ms(lambda: ops.sierpinski_sum(
+                    m, block=rho, grid_mode=gm, storage="compact", n=n,
+                    coarsen=s), 5),
+            }
+            for key, b in (("write", bound(members * 4 + lut_bytes)),
+                           ("partials", bound(members * 4 + steps * 4
+                                              + lut_bytes, members))):
+                row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = b
+            rows.append(row)
+            print(f"[compact] {json.dumps(row)}")
+            m.random_(-8, 9, generator=gen.manual_seed(SEED + rho))
+    print(f"[compact] integer states: partials bit-equal to the plain "
+          f"version slot by slot, totals equal; max |err| {err}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return {"rows": rows, "launches": launches, "err": err,
+            "peak_gib": peak}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -328,18 +805,27 @@ def main():
     import importlib
 
     from repro_torch.core import fractal as F
+    from repro_torch.core.compact import cell_neighbor_tables, compact_layout
     from repro_torch.core.plan import LOWERINGS
     from repro_torch.kernels import _cuda, ops
     TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
+    TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = phase_card()
     build_s = phase_build(_cuda)
     errs = phase_parity(TW, LOWERINGS, dev)
+    merge_err(errs, phase_parity_compact(TW, F, LOWERINGS, compact_layout,
+                                         dev))
+    ca_err = phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev)
     rows, launches, main_errs, rho1, peak = phase_main(ops, TW, F,
                                                        LOWERINGS, dev)
     merge_err(errs, main_errs)
+    ca = phase_ca_main(ops, TC, F, LOWERINGS, compact_layout,
+                       cell_neighbor_tables, TW, dev)
+    comp = phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev)
+    merge_err(errs, comp["err"])
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -358,12 +844,32 @@ def main():
             "bound_by": at[f"{key}_bound_by"],
             "library_ms": at[f"{key}_library_ms"],
             "at": f"gasket n={N_MAIN} f32 {REPORT_AT[0]} rho={REPORT_AT[1]}",
+            "launches_compact_path": comp["launches"][name],
         })
+    gm, fuse, rule = CA_REPORT_AT
+    ca_at = next(r for r in ca["rows"]
+                 if (r["lowering"], r["fuse"], r["rule"]) == CA_REPORT_AT)
+    kernels.append({
+        "name": "sierpinski_ca_fused", "route": "cuda",
+        "source": "src/repro_torch/csrc/sierpinski_ca.cu",
+        "replaces": "src/repro/kernels/sierpinski_ca.py:212",
+        "launches": ca["launches"]["sierpinski_ca_fused"],
+        "max_abs_err": ca_err, "ms": ca_at["launch_ms"],
+        "plain_ms": ca_at["plain_ms"], "bound_ms": ca_at["bound_ms"],
+        "bound_by": ca_at["bound_by"], "library_ms": None,
+        "yardstick": "no single PyTorch call computes a masked CA step; "
+                     "the cell-level gather oracle (several calls) per "
+                     "launch of the same steps",
+        "yardstick_ms": ca["oracle_ms"][rule] * fuse,
+        "at": f"gasket n={N_MAIN} rho={CA_RHO} compact f32 {gm} fuse={fuse} "
+              f"{rule}, one launch",
+    })
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "parity_max_abs_err": errs, "sweep": rows,
-        "rho1_write_ms": rho1, "peak_gib": peak, "kernels": kernels,
+        "rho1_write_ms": rho1, "peak_gib": peak, "ca": ca,
+        "compact": comp, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "
           f"{OUT.relative_to(ROOT)}")

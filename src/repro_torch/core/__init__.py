@@ -1,9 +1,12 @@
 # The paper's primary contribution: the block-space fractal map lambda(w)
 # and its generalization to block-structured sparse compute domains,
 # plus the GridPlan that binds a domain to a closed-form, lookup-table or
-# bounding-box launch.
-from . import backend, domain, fractal, memo, plan
+# bounding-box launch, and the compact orthotope storage of Lemma 2.
+from . import backend, compact, domain, fractal, memo, plan
 from .backend import CPU, CUDA, BackendTarget
+from .compact import (NEIGHBOR_OFFSETS, NEIGHBOR_OFFSETS8, CompactLayout,
+                      SuperTiling, cell_neighbor_tables, compact_layout,
+                      super_tiling)
 from .domain import (BandDomain, BlockDomain, BoundingBoxDomain,
                      GeneralizedFractalDomain, SierpinskiDomain,
                      TriangularDomain, make_attention_domain,

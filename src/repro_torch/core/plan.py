@@ -22,9 +22,21 @@ scalar launch parameters the CUDA kernels take.
     non-member blocks at run time via ``domain.contains``.
 
 ``"compact"`` is accepted as an alias of ``closed_form``.  The ``mma``
-lowering, compact storage and superblock coarsening are not ported yet
-and raise ``NotImplementedError`` naming the roadmap item that brings
-them.
+lowering and the tuner's ``"auto"`` are not ported yet and raise
+``NotImplementedError`` naming the roadmap item that brings them.
+
+Storage (``storage=``): ``"embedded"`` state is the dense bounding-box
+array; ``"compact"`` state lives in the packed Lemma 2 orthotope of
+:class:`~repro_torch.core.compact.CompactLayout`, and every state access
+goes through the packed slot of its block (lambda^-1, or the 28-column
+LUT under ``prefetch_lut``).
+
+Superblock coarsening (``coarsen=s``): each grid step owns an s x s
+embedded tile of fine blocks (s a power of the fractal's subdivision
+factor), so the grid enumerates the *coarse* domain and the decode is
+amortized over the tile's ``k**j`` member blocks.  Under compact storage
+the members of one superblock are a contiguous sub-rectangle of fine
+slots (a *supertile*), permuted by the static ``tile_map``.
 """
 from __future__ import annotations
 
@@ -37,6 +49,8 @@ import torch
 from . import backend as backend_lib
 from . import fractal as F
 from . import memo
+from .compact import (NEIGHBOR_OFFSETS8, CompactLayout, compact_layout,
+                      super_tiling)
 from .domain import (BandDomain, BlockDomain, BoundingBoxDomain,
                      GeneralizedFractalDomain, SierpinskiDomain,
                      TriangularDomain)
@@ -47,12 +61,25 @@ _ALIASES = {"compact": "closed_form"}
 #: roadmap item that brings each.
 _UNPORTED_LOWERINGS = {"mma": "A9", "auto": "A8"}
 
-STORAGES = ("embedded",)
-_UNPORTED_STORAGES = {"compact": "A4"}
+STORAGES = ("embedded", "compact")
 
-#: kernel-side codes of the launch parameters (csrc/sierpinski_write.cu)
+#: LUT column layout under ``storage="compact"``: the embedded (coarse)
+#: block coords, the block's own packed slot / supertile index, then per
+#: N/S/W/E/NW/NE/SW/SE neighbour (NEIGHBOR_OFFSETS8 order) the
+#: (sx, sy, valid) triple -- 2 + 2 + 8*3 = 28 i32 columns.
+_LUT_BX, _LUT_BY, _LUT_SX, _LUT_SY, _LUT_NBR = 0, 1, 2, 3, 4
+_LUT_COLS = 28
+
+#: kernel-side codes of the launch parameters (csrc/fractal_common.cuh)
 FAMILY_GASKET, FAMILY_SPEC = 0, 1
 LOWERING_CODES = {"closed_form": 0, "prefetch_lut": 1, "bounding": 2}
+STORAGE_CODES = {"embedded": 0, "compact": 1}
+#: order of the integer launch parameters the kernels take as one int64
+#: array (``Param`` in csrc/fractal_common.cuh)
+C_PARAMS = ("family", "lowering", "r_b", "k", "m", "r_cell", "n", "block",
+            "steps", "nbx", "allow", "oxs", "oys", "storage", "pitch",
+            "th", "tw", "bw", "nfine", "coarsen", "swap", "r_fine",
+            "lut_cols")
 
 
 def normalize_lowering(name: str) -> str:
@@ -70,10 +97,6 @@ def normalize_lowering(name: str) -> str:
 
 
 def normalize_storage(name: str) -> str:
-    if name in _UNPORTED_STORAGES:
-        raise NotImplementedError(
-            f"storage {name!r} is not ported yet (ROADMAP "
-            f"{_UNPORTED_STORAGES[name]})")
     if name not in STORAGES:
         raise ValueError(
             f"unknown storage {name!r}; expected one of {STORAGES}")
@@ -82,21 +105,39 @@ def normalize_storage(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchParams:
-    """The scalar launch parameters of a fractal write/sum kernel.
+    """The launch parameters of the fractal kernels (write, sum, CA).
 
     family:   FAMILY_GASKET (bit-test membership, base-3 lambda) or
               FAMILY_SPEC (a FractalSpec: base-k digit decode over
               ``offsets``, base-m digit membership test).
     lowering: a LOWERING_CODES value.
-    r_b, k, m: block scale level, copies per level, subdivision factor.
-    r_cell:   log_m(block), the digit levels inside one tile (FractalSpec
-              membership; 0 for the gasket, whose bit test needs none).
+    r_b, k, m: scale level of the *scheduled* (coarse) block grid, copies
+              per level, subdivision factor.
+    r_cell:   log_m(coarsen * block), the digit levels inside one
+              superblock (FractalSpec membership; 0 for the gasket, whose
+              bit test needs none).
     offsets:  the k (dx, dy) copy offsets.
-    n, block: embedded side in cells, tile side in cells.
-    steps:    grid steps (num_blocks, or nbx * nby under bounding).
-    nbx:      blocks per side of the bounding box.
-    lut:      (num_blocks, 2) int32 device tensor under prefetch_lut,
-              else None.
+    n, block: embedded side in cells, fine tile side in cells.
+    steps:    grid steps (num_blocks of the scheduled domain, or
+              nbx * nby under bounding).
+    nbx:      scheduled blocks per side of the bounding box.
+    storage:  a STORAGE_CODES value.
+    rows, pitch: cell shape of the state array ((n, n) embedded, the
+              packed orthotope's compact).
+    th, tw:   cell shape of one storage supertile.
+    bw, nfine: fine blocks per supertile row and per supertile in
+              storage arrangement.
+    coarsen:  fine blocks per superblock side (1: no coarsening).
+    swap:     1 when the coarse orthotope coordinate lands transposed
+              (compact storage, coarsening by an odd number of levels).
+    r_fine:   scale level of the fine block grid.
+    lut:      under prefetch_lut the int32 device decode table,
+              (steps, 2) embedded or (steps, 28) compact; else None.
+    tile_perm: under compact coarsening a flat int32 device table: the
+              embedded fine-block offset (ey, ex) of each of the
+              ``nfine`` packed fine blocks, then for each of the
+              coarsen**2 embedded fine blocks its packed index (or -1
+              for a non-member); else None (identity arrangement).
     """
 
     family: int
@@ -110,7 +151,44 @@ class LaunchParams:
     block: int
     steps: int
     nbx: int
+    storage: int
+    rows: int
+    pitch: int
+    th: int
+    tw: int
+    bw: int
+    nfine: int
+    coarsen: int
+    swap: int
+    r_fine: int
     lut: Optional[torch.Tensor]
+    tile_perm: Optional[torch.Tensor]
+
+    @property
+    def span(self) -> int:
+        """Embedded side of one superblock in cells."""
+        return self.coarsen * self.block
+
+    @property
+    def lut_cols(self) -> int:
+        return 0 if self.lut is None else int(self.lut.shape[1])
+
+    @property
+    def allow(self) -> int:
+        """Bit (dy * m + dx) set for each copy offset."""
+        return sum(1 << (oy * self.m + ox) for ox, oy in self.offsets)
+
+    @property
+    def oxs(self) -> int:
+        return sum(ox << (4 * c) for c, (ox, _) in enumerate(self.offsets))
+
+    @property
+    def oys(self) -> int:
+        return sum(oy << (4 * c) for c, (_, oy) in enumerate(self.offsets))
+
+    def c_params(self) -> list:
+        """The integer parameters in ``C_PARAMS`` order."""
+        return [int(getattr(self, name)) for name in C_PARAMS]
 
 
 class GridPlan:
@@ -123,9 +201,14 @@ class GridPlan:
                  alias "compact").
     batch_dims:  leading grid dimensions iterated outside the domain
                  (e.g. ``(batch * heads,)`` for attention).
-    storage:     "embedded": state arrays are the dense bounding-box
-                 layout.
-    coarsen:     1 (superblocks are not ported yet).
+    storage:     "embedded" (state arrays are the dense bounding-box
+                 layout) or "compact" (state arrays live in the packed
+                 O(n^H) orthotope layout of
+                 :class:`~repro_torch.core.compact.CompactLayout`).
+    coarsen:     s >= 1 embedded fine blocks per superblock side; s > 1
+                 requires a fractal domain with s a power of its
+                 subdivision factor.  The grid then enumerates the
+                 coarse domain.
     backend:     a :class:`~repro_torch.core.backend.BackendTarget`, a
                  device or a tensor (see ``backend.resolve``).
     """
@@ -137,17 +220,26 @@ class GridPlan:
         self.lowering = normalize_lowering(lowering)
         self.batch_dims = tuple(int(d) for d in batch_dims)
         self.storage = normalize_storage(storage)
+        self.target = backend_lib.resolve(backend)
         self.coarsen = int(coarsen)
         if self.coarsen < 1:
             raise ValueError(f"coarsen must be >= 1, got {coarsen}")
-        if self.coarsen > 1:
-            raise NotImplementedError(
-                "superblock coarsening (coarsen > 1) is not ported yet "
-                "(ROADMAP A4)")
-        self.target = backend_lib.resolve(backend)
-        #: the domain the grid enumerates (the coarse one, once
-        #: coarsening is ported)
-        self.sched_domain: BlockDomain = domain
+        if self.coarsen == 1:
+            self._tiling = None
+            #: the domain the *grid* enumerates (coarse under coarsening)
+            self.sched_domain: BlockDomain = domain
+        else:
+            self._tiling = super_tiling(domain, self.coarsen)
+            self.sched_domain = self._tiling.coarse
+        self._layout = None
+
+    @property
+    def layout(self) -> CompactLayout:
+        """The domain's :class:`CompactLayout` (memoized per domain;
+        available under either storage so callers can pack/unpack)."""
+        if self._layout is None:
+            self._layout = compact_layout(self.domain)
+        return self._layout
 
     # -- grid ---------------------------------------------------------------
 
@@ -170,14 +262,33 @@ class GridPlan:
     # -- decode table -------------------------------------------------------
 
     def lut_host(self) -> np.ndarray:
-        """Host-built (num_blocks, 2) i32 decode table of (bx, by), one
-        row per scheduled block, memoized per (domain, storage,
-        coarsen)."""
+        """Host-built i32 decode table, one row per scheduled (member /
+        coarse) block, memoized per (domain, storage, coarsen).
+
+        embedded storage: (num_blocks, 2) of (bx, by).
+        compact storage:  (num_blocks, 28): (bx, by, sx, sy) plus the
+        eight (sx, sy, valid) neighbour-slot triples (NEIGHBOR_OFFSETS8
+        order).  Under ``coarsen`` the rows are coarse blocks and the
+        slot columns are supertile indices."""
         return memo.cached("gridplan-lut", self.domain,
                            (self.storage, self.coarsen), self._lut_host)
 
     def _lut_host(self) -> np.ndarray:
-        return np.asarray(self.sched_domain.coords_host(), np.int32)
+        coords = np.asarray(self.sched_domain.coords_host(), np.int32)
+        if self.storage == "embedded":
+            return coords
+        if self._tiling is not None:
+            slots = self._tiling.tiles_host()
+            nbrs = self._tiling.neighbor_tiles_host()
+        else:
+            slots = self.layout.slots_host()
+            nbrs = self.layout.neighbor_slots_host()
+        nbrs = nbrs.reshape(len(coords), 24)
+        table = np.concatenate([coords, slots, nbrs],
+                               axis=1).astype(np.int32)
+        assert table.shape[1] == _LUT_COLS
+        table.setflags(write=False)
+        return table
 
     def lut(self, device) -> torch.Tensor:
         """The decode table as an int32 tensor on ``device``, copied
@@ -228,14 +339,15 @@ class GridPlan:
     def step_coords(self, start: int, stop: int, device):
         """Decode linear steps [start, stop) the lowering's own way, as
         tensor index math on ``device``: ``(bx, by, valid)`` int64
-        tensors, ``valid`` None when every step is a member block.
+        tensors of *scheduled* (coarse) block coords, ``valid`` None
+        when every step is a member block.
 
         closed_form runs the digit loop on ``arange``, prefetch_lut
         reads the device table, bounding splits the row-major step id
         and tests ``domain.contains``."""
         if self.lowering == "prefetch_lut":
             rows = self.lut(device)[start:stop].to(torch.int64)
-            return rows[:, 0], rows[:, 1], None
+            return rows[:, _LUT_BX], rows[:, _LUT_BY], None
         t = torch.arange(start, stop, dtype=torch.int64, device=device)
         if self.lowering == "closed_form":
             bx, by = self.sched_domain.block_coords(t)
@@ -247,10 +359,123 @@ class GridPlan:
             valid = self.sched_domain.contains(bx, by)
         return bx, by, valid
 
+    # -- storage addressing (embedded vs compact) ---------------------------
+
+    def supertile_shape(self, block_shape) -> Tuple[int, int]:
+        """Cell shape of one storage supertile for fine ``block_shape``
+        tiles: (s*b0, s*b1) embedded, (bh*b0, bw*b1) packed."""
+        b0, b1 = block_shape
+        if self.storage == "embedded" or self._tiling is None:
+            return (self.coarsen * b0, self.coarsen * b1)
+        bw, bh = self._tiling.sub_shape
+        return (bh * b0, bw * b1)
+
+    def tile_map(self):
+        """Static packed->embedded fine-block permutation of one storage
+        supertile as ``((oy, ox), (ey, ex))`` pairs, or ``None`` when
+        the supertile is already embedded-arranged (embedded storage, or
+        coarsen=1 where the tile is a single block)."""
+        if self.storage == "embedded" or self._tiling is None:
+            return None
+        return self._tiling.tile_map()
+
+    def cell_offset_grids(self, block: int):
+        """(OY, OX) host i32 arrays shaped like the storage supertile:
+        the embedded cell offset of every supertile cell relative to the
+        superblock's embedded origin ``(by*s*block, bx*s*block)``.  For
+        the trivial layouts this is a plain meshgrid; under compact
+        coarsening it bakes the fine-block permutation in, so masks are
+        evaluated directly on the packed arrangement."""
+        tm = self.tile_map()
+        h, w = self.supertile_shape((block, block))
+        if tm is None:
+            oy, ox = np.mgrid[0:h, 0:w]
+            return oy.astype(np.int32), ox.astype(np.int32)
+        oy = np.zeros((h, w), np.int32)
+        ox = np.zeros((h, w), np.int32)
+        cy, cx = np.mgrid[0:block, 0:block]
+        for (py, px), (ey, ex) in tm:
+            oy[py * block:(py + 1) * block,
+               px * block:(px + 1) * block] = ey * block + cy
+            ox[py * block:(py + 1) * block,
+               px * block:(px + 1) * block] = ex * block + cx
+        return oy, ox
+
+    def storage_index(self, start: int, stop: int, device):
+        """(row, col) supertile index of the state array for the steps
+        [start, stop), as int64 tensors: embedded -> the (super)block's
+        (by, bx) in the bounding-box array; compact -> the packed slot
+        (sy, sx) of the layout (the supertile index under coarsening).
+        Under ``prefetch_lut`` the slot is read from the 28-column LUT;
+        the other lowerings evaluate lambda^-1 on the decoded coords."""
+        if self.storage == "compact" and self.lowering == "prefetch_lut":
+            rows = self.lut(device)[start:stop].to(torch.int64)
+            return rows[:, _LUT_SY], rows[:, _LUT_SX]
+        bx, by, _ = self.step_coords(start, stop, device)
+        if self.storage == "embedded":
+            return by, bx
+        if self._tiling is not None:
+            tx, ty = self._tiling.tile_index(bx, by)
+            return ty, tx
+        sx, sy = self.layout.slot(bx, by)
+        return sy, sx
+
+    def neighbor_index(self, j: int, start: int, stop: int, device):
+        """(row, col) supertile index of the j-th halo tile
+        (``NEIGHBOR_OFFSETS8`` order) for the steps [start, stop): the
+        embedded neighbour (super)block clamped into range, or -- under
+        compact storage -- its lambda^-1-resolved packed slot (slot
+        (0, 0) for out-of-range / non-member neighbours; the kernels
+        mask those contributions)."""
+        dx, dy = NEIGHBOR_OFFSETS8[j]
+        if self.storage == "compact" and self.lowering == "prefetch_lut":
+            rows = self.lut(device)[start:stop].to(torch.int64)
+            return (rows[:, _LUT_NBR + 3 * j + 1],
+                    rows[:, _LUT_NBR + 3 * j])
+        bx, by, _ = self.step_coords(start, stop, device)
+        if self.storage == "embedded":
+            nbx, nby = self.sched_domain.bounding_box
+            return (torch.clamp(by + dy, 0, nby - 1),
+                    torch.clamp(bx + dx, 0, nbx - 1))
+        if self._tiling is not None:
+            tx, ty, _ok = self._tiling.neighbor_tile(bx, by, dx, dy)
+            return ty, tx
+        sx, sy, _ok = self.layout.neighbor_slot(bx, by, dx, dy)
+        return sy, sx
+
+    def state_shape(self, block: int) -> Tuple[int, int]:
+        """Cell shape of the state array under this plan's storage."""
+        if self.storage == "compact":
+            return self.layout.array_shape(block)
+        return self.layout.embedded_shape(block)
+
+    # -- kernel launch parameters -------------------------------------------
+
+    def tile_perm(self, device) -> Optional[torch.Tensor]:
+        """The supertile permutation table of :class:`LaunchParams` on
+        ``device`` (None for the identity arrangement), memoized per
+        (domain, storage, coarsen, device)."""
+        tm = self.tile_map()
+        if tm is None:
+            return None
+
+        def build():
+            s = self.coarsen
+            inv = np.full(s * s, -1, np.int32)
+            fwd = np.zeros((len(tm), 2), np.int32)
+            bw = self._tiling.sub_shape[0]
+            for (py, px), (ey, ex) in tm:
+                fwd[py * bw + px] = (ey, ex)
+                inv[ey * s + ex] = py * bw + px
+            flat = np.concatenate([fwd.ravel(), inv])
+            return torch.from_numpy(flat).to(torch.device(device))
+        return memo.cached("gridplan-tile-perm", self.domain,
+                           (self.storage, self.coarsen, str(device)), build)
+
     def launch_params(self, n: int, block: int, device) -> LaunchParams:
-        """The CUDA kernels' launch parameters for an embedded (n, n)
-        state tiled by ``block``.  Only the fractal domains have a
-        device-side decode in this port."""
+        """The CUDA kernels' launch parameters for a state of embedded
+        side ``n`` tiled by ``block`` under this plan's storage.  Only
+        the fractal domains have a device-side decode in this port."""
         dom = self.sched_domain
         if isinstance(dom, SierpinskiDomain):
             family, spec, r_cell = FAMILY_GASKET, F.SIERPINSKI, 0
@@ -264,12 +489,24 @@ class GridPlan:
                 f"(ROADMAP A6)")
         nbx, _ = dom.bounding_box
         lut = self.lut(device) if self.lowering == "prefetch_lut" else None
+        th, tw = self.supertile_shape((block, block))
+        if self._tiling is not None and self.storage == "compact":
+            bw, bh = self._tiling.sub_shape
+            swap = int(self._tiling.swap)
+        else:
+            bw = bh = self.coarsen
+            swap = 0
         return LaunchParams(
             family=family, lowering=LOWERING_CODES[self.lowering],
             r_b=dom.r_b, k=spec.k, m=spec.m, r_cell=r_cell,
             offsets=spec.offsets,
             n=int(n), block=int(block), steps=self.steps_per_launch,
-            nbx=int(nbx), lut=lut)
+            nbx=int(nbx), storage=STORAGE_CODES[self.storage],
+            rows=self.state_shape(block)[0],
+            pitch=self.state_shape(block)[1], th=th, tw=tw, bw=bw,
+            nfine=bw * bh, coarsen=self.coarsen, swap=swap,
+            r_fine=self.domain.r_b, lut=lut,
+            tile_perm=self.tile_perm(device))
 
     # -- host-side geometry helpers ----------------------------------------
 

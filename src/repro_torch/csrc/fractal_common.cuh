@@ -1,0 +1,246 @@
+// Shared device code of the fractal kernels (sierpinski_write.cu,
+// sierpinski_ca.cu): the launch parameters, the three lowerings' decode of
+// a grid step, lambda^-1 to packed slots, and the membership tests.
+//
+// The parameters arrive from Python as one int64 array in the order of
+// repro_torch.core.plan.C_PARAMS (the Param enum below).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fractal {
+
+constexpr int kMaxCopies = 16;
+constexpr long long kMaxGrid = 2147483647LL;  // gridDim.x limit
+
+enum Family { kGasket = 0, kSpec = 1 };
+enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2 };
+enum Storage { kEmbedded = 0, kCompact = 1 };
+// LUT columns (repro_torch.core.plan._LUT_*): bx, by, sx, sy, then per
+// NEIGHBOR_OFFSETS8 neighbour (sx, sy, valid).
+enum LutCol { kLutBx = 0, kLutBy = 1, kLutSx = 2, kLutSy = 3, kLutNbr = 4 };
+
+// Index of each parameter in the int64 array (plan.C_PARAMS order).
+enum Param {
+  kFamily, kLowering, kRb, kK, kM, kRcell, kN, kBlock, kSteps, kNbx,
+  kAllow, kOxs, kOys, kStorage, kPitch, kTh, kTw, kBw, kNfine, kCoarsen,
+  kSwap, kRfine, kLutCols, kNumParams
+};
+
+struct FracParams {
+  int family;
+  int lowering;
+  int r_b;      // scale level of the scheduled (coarse) block grid
+  int k;        // copies per level
+  int m;        // subdivision factor
+  int r_cell;   // log_m(coarsen * block): digit levels inside a superblock
+  int block;    // fine tile side in cells
+  int storage;
+  int th, tw;   // storage supertile, cells
+  int bw;       // fine blocks per supertile row (storage arrangement)
+  int nfine;    // fine blocks per supertile
+  int coarsen;  // fine blocks per superblock side
+  int swap;     // coarse orthotope coordinate transposed
+  int r_fine;   // scale level of the fine block grid
+  int lut_cols;
+  unsigned int n;      // embedded side in cells
+  unsigned int nbx;    // scheduled blocks per side
+  unsigned int span;   // coarsen * block
+  long long pitch;     // row length of the state array
+  long long steps;     // grid steps
+  unsigned long long allow;  // bit (dy * m + dx) set for each copy offset
+  int ox[kMaxCopies];
+  int oy[kMaxCopies];
+};
+
+inline FracParams make_params(const long long* a) {
+  FracParams p;
+  p.family = (int)a[kFamily];
+  p.lowering = (int)a[kLowering];
+  p.r_b = (int)a[kRb];
+  p.k = (int)a[kK];
+  p.m = (int)a[kM];
+  p.r_cell = (int)a[kRcell];
+  p.block = (int)a[kBlock];
+  p.storage = (int)a[kStorage];
+  p.th = (int)a[kTh];
+  p.tw = (int)a[kTw];
+  p.bw = (int)a[kBw];
+  p.nfine = (int)a[kNfine];
+  p.coarsen = (int)a[kCoarsen];
+  p.swap = (int)a[kSwap];
+  p.r_fine = (int)a[kRfine];
+  p.lut_cols = (int)a[kLutCols];
+  p.n = (unsigned)a[kN];
+  p.nbx = (unsigned)a[kNbx];
+  p.span = (unsigned)(p.coarsen * p.block);
+  p.pitch = a[kPitch];
+  p.steps = a[kSteps];
+  p.allow = (unsigned long long)a[kAllow];
+  const unsigned long long oxs = (unsigned long long)a[kOxs];
+  const unsigned long long oys = (unsigned long long)a[kOys];
+  for (int c = 0; c < kMaxCopies; ++c) {
+    p.ox[c] = (int)((oxs >> (4 * c)) & 15ULL);
+    p.oy[c] = (int)((oys >> (4 * c)) & 15ULL);
+  }
+  return p;
+}
+
+inline dim3 grid_of(long long steps) {
+  return dim3((unsigned)(steps < kMaxGrid ? steps : kMaxGrid));
+}
+
+// Does the digit pair (dx, dy) name a copy offset?
+__device__ __forceinline__ bool allowed(const FracParams& p, unsigned dx,
+                                        unsigned dy) {
+  return (p.allow >> (dy * p.m + dx)) & 1ULL;
+}
+
+// Every base-m digit pair of (x, y) over `levels` levels is a copy offset.
+__device__ __forceinline__ bool digits_member(const FracParams& p, unsigned x,
+                                              unsigned y, int levels) {
+  bool ok = true;
+  for (int mu = 0; mu < levels; ++mu) {
+    ok &= allowed(p, x % p.m, y % p.m);
+    x /= p.m;
+    y /= p.m;
+  }
+  return ok;
+}
+
+// Is block (bx, by) of a grid of `side` blocks (scale level `levels`) a
+// member of the fractal?
+__device__ __forceinline__ bool block_member(const FracParams& p, unsigned bx,
+                                             unsigned by, unsigned side,
+                                             int levels) {
+  if (p.family == kGasket) return (bx & (side - 1 - by)) == 0;
+  return digits_member(p, bx, by, levels);
+}
+
+// Grid step -> scheduled block (bx, by); false for a discarded bounding
+// step.
+__device__ __forceinline__ bool decode(const FracParams& p,
+                                      const int* __restrict__ lut,
+                                      long long t, unsigned& bx,
+                                      unsigned& by) {
+  if (p.lowering == kBounding) {
+    bx = (unsigned)(t % p.nbx);
+    by = (unsigned)(t / p.nbx);
+    return block_member(p, bx, by, p.nbx, p.r_b);
+  }
+  if (p.lowering == kPrefetchLut) {
+    bx = (unsigned)lut[t * p.lut_cols + kLutBx];
+    by = (unsigned)lut[t * p.lut_cols + kLutBy];
+    return true;
+  }
+  unsigned i = (unsigned)t;  // num_blocks < 2^32 (checked by the wrapper)
+  unsigned x = 0, y = 0;
+  if (p.family == kGasket) {
+    // lambda_map_linear: base-3 digit b -> Delta = (b / 2, b != 0)
+    for (int mu = 0; mu < p.r_b; ++mu) {
+      unsigned b = i % 3u;
+      i /= 3u;
+      x |= (b >> 1) << mu;
+      y |= (unsigned)(b != 0) << mu;
+    }
+  } else {
+    // FractalSpec.lambda_map_linear: base-k digit c picks offsets[c]
+    unsigned pw = 1;
+    for (int mu = 0; mu < p.r_b; ++mu) {
+      unsigned c = i % (unsigned)p.k;
+      i /= (unsigned)p.k;
+      x += (unsigned)p.ox[c] * pw;
+      y += (unsigned)p.oy[c] * pw;
+      pw *= (unsigned)p.m;
+    }
+  }
+  bx = x;
+  by = y;
+  return true;
+}
+
+// lambda^-1 of the scheduled block (x, y): its packed (orthotope) coords.
+// Odd scale levels fill the digits of wy, even ones those of wx.
+__device__ __forceinline__ void lambda_inverse(const FracParams& p,
+                                               unsigned x, unsigned y,
+                                               unsigned& wx, unsigned& wy) {
+  wx = 0;
+  wy = 0;
+  unsigned px = 1, py = 1;
+  for (int mu = 1; mu <= p.r_b; ++mu) {
+    unsigned c;
+    if (p.family == kGasket) {
+      c = (x & 1u) + (y & 1u);  // (0,0)->0 (0,1)->1 (1,1)->2
+      x >>= 1;
+      y >>= 1;
+    } else {
+      const int dx = (int)(x % (unsigned)p.m), dy = (int)(y % (unsigned)p.m);
+      x /= (unsigned)p.m;
+      y /= (unsigned)p.m;
+      c = 0;  // an unmatched digit pair (a non-member) falls to copy 0
+      for (int j = p.k - 1; j >= 0; --j)
+        if (p.ox[j] == dx && p.oy[j] == dy) c = (unsigned)j;
+    }
+    if (mu & 1) {
+      wy += c * py;
+      py *= (unsigned)p.k;
+    } else {
+      wx += c * px;
+      px *= (unsigned)p.k;
+    }
+  }
+}
+
+// Storage origin (row, col) in cells of the supertile of the member
+// scheduled block (bx, by) of step t.
+__device__ __forceinline__ void tile_origin(const FracParams& p,
+                                           const int* __restrict__ lut,
+                                           long long t, unsigned bx,
+                                           unsigned by, long long& row,
+                                           long long& col) {
+  if (p.storage == kEmbedded) {
+    row = (long long)by * p.span;
+    col = (long long)bx * p.span;
+    return;
+  }
+  unsigned tx, ty;
+  if (p.lowering == kPrefetchLut) {
+    tx = (unsigned)lut[t * p.lut_cols + kLutSx];
+    ty = (unsigned)lut[t * p.lut_cols + kLutSy];
+  } else {
+    unsigned wx, wy;
+    lambda_inverse(p, bx, by, wx, wy);
+    tx = p.swap ? wy : wx;
+    ty = p.swap ? wx : wy;
+  }
+  row = (long long)ty * p.th;
+  col = (long long)tx * p.tw;
+}
+
+// Embedded fine-block offset (ey, ex) inside its superblock of the packed
+// fine block q of a supertile (identity arrangement without a table).
+__device__ __forceinline__ void fine_offset(const FracParams& p,
+                                            const int* __restrict__ perm,
+                                            int q, int& ey, int& ex) {
+  if (perm != nullptr) {
+    ey = perm[2 * q];
+    ex = perm[2 * q + 1];
+  } else {
+    ey = q / p.bw;
+    ex = q % p.bw;
+  }
+}
+
+// Membership of the cell at offset (ox, oy) from the origin of a member
+// superblock, at embedded (gx, gy).
+__device__ __forceinline__ bool cell_member(const FracParams& p, unsigned gx,
+                                            unsigned gy, unsigned ox,
+                                            unsigned oy) {
+  if (p.family == kGasket) return (gx & (p.n - 1 - gy)) == 0;
+  // the superblock's digits were checked by the decode; the low r_cell
+  // digits of the cell are those of its offset inside the superblock
+  return digits_member(p, ox, oy, p.r_cell);
+}
+
+}  // namespace fractal

@@ -12,7 +12,9 @@
 //
 // What bounds them on an H100 (80 GB HBM3 at 3.35 TB/s): bytes.  The write
 // must store every member cell once: 4 * 3^16 B ~ 172 MB for the f32 gasket
-// at n = 2^16, ~51 us.  The sum must read the same cells once.  Neither does
+// at n = 2^16, ~51 us, under either storage (compact storage also holds
+// the non-member cells of member blocks, but the write stores only
+// members).  The sum must read the same cells once.  Neither does
 // arithmetic worth counting (the decode is a few integer ops per block, the
 // membership test a few per cell).  The combine is a serial chain of f32
 // adds, one per grid step: it is bound by the latency of that chain (one
@@ -20,9 +22,14 @@
 // not by bytes.
 //
 // What the design does about it:
-//   * one CTA per scheduled block (grid-stride over steps, so the 2^32 steps
-//     of the bounding box at rho = 1 launch too), min(rho, 32)^2 threads
-//     looping over the rho x rho tile;
+//   * one CTA per scheduled (super)block (grid-stride over steps, so the
+//     2^32 steps of the bounding box at rho = 1 launch too), min(rho, 32)^2
+//     threads looping over the fine rho x rho tiles of the supertile;
+//   * storage: the supertile origin is the embedded superblock (embedded
+//     storage), or its packed slot in the Lemma 2 orthotope (compact
+//     storage): lambda^-1 in registers, or LUT columns 2-3 under
+//     prefetch_lut.  Under compact coarsening the packed fine blocks map to
+//     their embedded offsets through the static permutation table;
 //   * the block is decoded in registers: the base-3 lambda digit loop for
 //     the gasket, the base-k digit loop over the by-value copy offsets for a
 //     FractalSpec; or one row read of the int32 LUT; or, for the bounding
@@ -39,117 +46,80 @@
 //     bounding box), so integer-valued states sum bit-identically;
 //   * cell offsets are 64-bit: an n = 2^16 state has 2^32 cells.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fractal_common.cuh"
 
 namespace {
 
-constexpr int kMaxCopies = 16;
-constexpr long long kMaxGrid = 2147483647LL;  // gridDim.x limit
+using namespace fractal;
 
-enum Family { kGasket = 0, kSpec = 1 };
-enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2 };
 enum DType { kF32 = 0, kBF16 = 1, kI32 = 2 };
 
-struct FracParams {
-  int family;
-  int lowering;
-  int r_b;      // block scale level
-  int k;        // copies per level
-  int m;        // subdivision factor
-  int r_cell;   // log_m(block): digit levels inside one tile
-  int block;    // tile side in cells
-  unsigned int n;          // embedded side in cells
-  unsigned int nbx;        // blocks per side
-  long long steps;         // grid steps
-  unsigned long long allow;  // bit (dy * m + dx) set for each copy offset
-  int ox[kMaxCopies];
-  int oy[kMaxCopies];
+// Both kernels run up to 1024 threads a CTA (rho >= 32); two such CTAs
+// must stay resident on an SM, since the launch is bound by CTA
+// scheduling, not bytes: hence at most 32 registers a thread.
+constexpr int kMaxThreads = 1024, kMinCtasPerSm = 2;
+
+// Where step t's supertile lies: its storage origin (row0, col0) and its
+// superblock's embedded origin (x0, y0).  False for a discarded bounding
+// step (uniform over the CTA).
+struct Tile {
+  long long row0, col0;
+  unsigned x0, y0;
 };
 
-// Does the digit pair (dx, dy) name a copy offset?
-__device__ __forceinline__ bool allowed(const FracParams& p, unsigned dx,
-                                        unsigned dy) {
-  return (p.allow >> (dy * p.m + dx)) & 1ULL;
-}
-
-// Every base-m digit pair of (x, y) over `levels` levels is a copy offset.
-__device__ __forceinline__ bool digits_member(const FracParams& p, unsigned x,
-                                              unsigned y, int levels) {
-  bool ok = true;
-  for (int mu = 0; mu < levels; ++mu) {
-    ok &= allowed(p, x % p.m, y % p.m);
-    x /= p.m;
-    y /= p.m;
-  }
-  return ok;
-}
-
-// Grid step -> embedded block (bx, by); false for a discarded bounding step.
-__device__ __forceinline__ bool decode(const FracParams& p,
-                                      const int* __restrict__ lut,
-                                      long long t, unsigned& bx,
-                                      unsigned& by) {
-  if (p.lowering == kBounding) {
-    bx = (unsigned)(t % p.nbx);
-    by = (unsigned)(t / p.nbx);
-    if (p.family == kGasket) return (bx & (p.nbx - 1 - by)) == 0;
-    return digits_member(p, bx, by, p.r_b);
-  }
-  if (p.lowering == kPrefetchLut) {
-    bx = (unsigned)lut[2 * t];
-    by = (unsigned)lut[2 * t + 1];
-    return true;
-  }
-  unsigned i = (unsigned)t;  // num_blocks < 2^32 (checked by the wrapper)
-  unsigned x = 0, y = 0;
-  if (p.family == kGasket) {
-    // lambda_map_linear: base-3 digit b -> Delta = (b / 2, b != 0)
-    for (int mu = 0; mu < p.r_b; ++mu) {
-      unsigned b = i % 3u;
-      i /= 3u;
-      x |= (b >> 1) << mu;
-      y |= (unsigned)(b != 0) << mu;
-    }
-  } else {
-    // FractalSpec.lambda_map_linear: base-k digit c picks offsets[c]
-    unsigned pw = 1;
-    for (int mu = 0; mu < p.r_b; ++mu) {
-      unsigned c = i % (unsigned)p.k;
-      i /= (unsigned)p.k;
-      x += (unsigned)p.ox[c] * pw;
-      y += (unsigned)p.oy[c] * pw;
-      pw *= (unsigned)p.m;
-    }
-  }
-  bx = x;
-  by = y;
+__device__ __forceinline__ bool step_tile(const FracParams& p,
+                                          const int* __restrict__ lut,
+                                          long long t, Tile& tile) {
+  unsigned bx, by;
+  if (!decode(p, lut, t, bx, by)) return false;
+  tile_origin(p, lut, t, bx, by, tile.row0, tile.col0);
+  tile.x0 = bx * p.span;
+  tile.y0 = by * p.span;
   return true;
 }
 
-// Membership of cell (gx, gy) = (x0 + ix, y0 + iy) of a member block.
-__device__ __forceinline__ bool cell_member(const FracParams& p, unsigned gx,
-                                            unsigned gy, unsigned ix,
-                                            unsigned iy) {
-  if (p.family == kGasket) return (gx & (p.n - 1 - gy)) == 0;
-  // the block digits were checked by the decode; the low r_cell digits
-  // of the cell are those of its in-tile offset
-  return digits_member(p, ix, iy, p.r_cell);
+// Fine block q of a supertile: its storage row/col offset and its cell
+// offset (ox0, oy0) inside the superblock.  kTiled is false when the
+// supertile is one fine block (coarsen 1): then everything is 0 at
+// compile time, and the uncoarsened kernels keep their 32 registers.
+template <bool kTiled>
+__device__ __forceinline__ void fine_block(const FracParams& p,
+                                           const int* __restrict__ perm,
+                                           int q, long long& srow,
+                                           long long& scol, unsigned& ox0,
+                                           unsigned& oy0) {
+  srow = scol = 0;
+  ox0 = oy0 = 0;
+  if (!kTiled) return;
+  int ey, ex;
+  fine_offset(p, perm, q, ey, ex);
+  srow = (long long)(q / p.bw) * p.block;
+  scol = (long long)(q % p.bw) * p.block;
+  oy0 = (unsigned)ey * p.block;
+  ox0 = (unsigned)ex * p.block;
 }
 
-template <typename W>
-__global__ void write_kernel(W* __restrict__ m, W value, FracParams p,
-                             const int* __restrict__ lut) {
+template <bool kTiled, typename W>
+__global__ void __launch_bounds__(kMaxThreads, kMinCtasPerSm)
+write_kernel(W* __restrict__ m, W value, FracParams p,
+             const int* __restrict__ lut, const int* __restrict__ perm) {
+  const int nfine = kTiled ? p.nfine : 1;
   for (long long t = blockIdx.x; t < p.steps; t += gridDim.x) {
-    unsigned bx, by;
-    if (!decode(p, lut, t, bx, by)) continue;  // uniform over the CTA
-    const unsigned x0 = bx * p.block, y0 = by * p.block;
-    for (unsigned iy = threadIdx.y; iy < (unsigned)p.block; iy += blockDim.y) {
-      const unsigned gy = y0 + iy;
-      W* row = m + (long long)gy * p.n + x0;
-      for (unsigned ix = threadIdx.x; ix < (unsigned)p.block;
-           ix += blockDim.x) {
-        if (cell_member(p, x0 + ix, gy, ix, iy)) row[ix] = value;
+    Tile tl;
+    if (!step_tile(p, lut, t, tl)) continue;
+    for (int q = 0; q < nfine; ++q) {
+      long long srow, scol;
+      unsigned ox0, oy0;
+      fine_block<kTiled>(p, perm, q, srow, scol, ox0, oy0);
+      for (unsigned iy = threadIdx.y; iy < (unsigned)p.block;
+           iy += blockDim.y) {
+        W* row = m + (tl.row0 + srow + iy) * p.pitch + tl.col0 + scol;
+        const unsigned gy = tl.y0 + oy0 + iy;
+        for (unsigned ix = threadIdx.x; ix < (unsigned)p.block;
+             ix += blockDim.x) {
+          if (cell_member(p, tl.x0 + ox0 + ix, gy, ox0 + ix, oy0 + iy))
+            row[ix] = value;
+        }
       }
     }
   }
@@ -165,31 +135,38 @@ __device__ __forceinline__ float load_f32(const void* base, long long off) {
   return (float)static_cast<const int*>(base)[off];
 }
 
-template <int DT>
-__global__ void sum_partials_kernel(const void* __restrict__ m,
-                                    float* __restrict__ partials,
-                                    FracParams p,
-                                    const int* __restrict__ lut) {
+template <bool kTiled, int DT>
+__global__ void __launch_bounds__(kMaxThreads, kMinCtasPerSm)
+sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,
+                    FracParams p, const int* __restrict__ lut,
+                    const int* __restrict__ perm) {
   __shared__ float red[1024];
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nfine = kTiled ? p.nfine : 1;
   int top = 1;
   while (top < nthreads) top <<= 1;
   for (long long t = blockIdx.x; t < p.steps; t += gridDim.x) {
-    unsigned bx, by;
-    if (!decode(p, lut, t, bx, by)) {  // uniform over the CTA
-      if (tid == 0) partials[t] = 0.0f;
+    Tile tl;
+    if (!step_tile(p, lut, t, tl)) {
+      if (tid == 0) partials[t] = 0.0f;  // a discarded bounding step
       continue;
     }
-    const unsigned x0 = bx * p.block, y0 = by * p.block;
     float acc = 0.0f;
-    for (unsigned iy = threadIdx.y; iy < (unsigned)p.block; iy += blockDim.y) {
-      const unsigned gy = y0 + iy;
-      const long long row = (long long)gy * p.n + x0;
-      for (unsigned ix = threadIdx.x; ix < (unsigned)p.block;
-           ix += blockDim.x) {
-        if (cell_member(p, x0 + ix, gy, ix, iy))
-          acc += load_f32<DT>(m, row + ix);
+    for (int q = 0; q < nfine; ++q) {
+      long long srow, scol;
+      unsigned ox0, oy0;
+      fine_block<kTiled>(p, perm, q, srow, scol, ox0, oy0);
+      for (unsigned iy = threadIdx.y; iy < (unsigned)p.block;
+           iy += blockDim.y) {
+        const long long row = (tl.row0 + srow + iy) * p.pitch + tl.col0 +
+                              scol;
+        const unsigned gy = tl.y0 + oy0 + iy;
+        for (unsigned ix = threadIdx.x; ix < (unsigned)p.block;
+             ix += blockDim.x) {
+          if (cell_member(p, tl.x0 + ox0 + ix, gy, ox0 + ix, oy0 + iy))
+            acc += load_f32<DT>(m, row + ix);
+        }
       }
     }
     // fixed-order tree over the CTA's threads: deterministic, no atomics
@@ -236,89 +213,75 @@ __global__ void sum_combine_kernel(const float* __restrict__ partials,
   if (threadIdx.x == 0) *out = acc;
 }
 
-FracParams make_params(int family, int lowering, int r_b, int k, int m,
-                       int r_cell, long long n, int block, long long steps,
-                       long long nbx, unsigned long long allow,
-                       unsigned long long oxs, unsigned long long oys) {
-  FracParams p;
-  p.family = family;
-  p.lowering = lowering;
-  p.r_b = r_b;
-  p.k = k;
-  p.m = m;
-  p.r_cell = r_cell;
-  p.block = block;
-  p.n = (unsigned)n;
-  p.nbx = (unsigned)nbx;
-  p.steps = steps;
-  p.allow = allow;
-  for (int c = 0; c < kMaxCopies; ++c) {
-    p.ox[c] = (int)((oxs >> (4 * c)) & 15ULL);
-    p.oy[c] = (int)((oys >> (4 * c)) & 15ULL);
-  }
-  return p;
-}
-
-dim3 grid_of(long long steps) {
-  return dim3((unsigned)(steps < kMaxGrid ? steps : kMaxGrid));
-}
-
 dim3 threads_of(int block) {
   const int t = block < 32 ? block : 32;
   return dim3(t, t);
+}
+
+// One launch of write_kernel, the tiled variant only where a supertile
+// holds more than one fine block.
+template <typename W>
+void launch_write(W* m, W value, const FracParams& p, const int* lut,
+                  const int* perm, cudaStream_t s) {
+  const dim3 g = grid_of(p.steps), th = threads_of(p.block);
+  if (p.nfine > 1)
+    write_kernel<true><<<g, th, 0, s>>>(m, value, p, lut, perm);
+  else
+    write_kernel<false><<<g, th, 0, s>>>(m, value, p, lut, perm);
+}
+
+template <int DT>
+void launch_sum(const void* m, float* partials, const FracParams& p,
+                const int* lut, const int* perm, cudaStream_t s) {
+  const dim3 g = grid_of(p.steps), th = threads_of(p.block);
+  if (p.nfine > 1)
+    sum_partials_kernel<true, DT><<<g, th, 0, s>>>(m, partials, p, lut, perm);
+  else
+    sum_partials_kernel<false, DT><<<g, th, 0, s>>>(m, partials, p, lut,
+                                                     perm);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Write the value bits into every member cell of the (n, n) state m,
-// in place.  elem_bytes is 4 (f32, int32) or 2 (bf16).
-int sw_write(void* m, int elem_bytes, unsigned int value_bits, int family,
-             int lowering, int r_b, int k, int mbase, int r_cell,
-             long long n, int block, long long steps, long long nbx,
-             unsigned long long allow, unsigned long long oxs,
-             unsigned long long oys, const int* lut, void* stream) {
-  FracParams p = make_params(family, lowering, r_b, k, mbase, r_cell, n,
-                             block, steps, nbx, allow, oxs, oys);
+// Write the value bits into every member cell of the state m, in place.
+// elem_bytes is 4 (f32, int32) or 2 (bf16).  params: plan.C_PARAMS order;
+// lut and perm may be null (see LaunchParams).
+int sw_write(void* m, int elem_bytes, unsigned int value_bits,
+             const long long* params, const int* lut, const int* perm,
+             void* stream) {
+  const FracParams p = make_params(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 4) {
-    write_kernel<uint32_t><<<grid_of(steps), threads_of(block), 0, s>>>(
-        static_cast<uint32_t*>(m), (uint32_t)value_bits, p, lut);
+    launch_write(static_cast<uint32_t*>(m), (uint32_t)value_bits, p, lut,
+                 perm, s);
   } else if (elem_bytes == 2) {
-    write_kernel<uint16_t><<<grid_of(steps), threads_of(block), 0, s>>>(
-        static_cast<uint16_t*>(m), (uint16_t)value_bits, p, lut);
+    launch_write(static_cast<uint16_t*>(m), (uint16_t)value_bits, p, lut,
+                 perm, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// partials[t] = f32 sum of the member cells of grid step t (0 for a
-// discarded bounding step).  dtype: 0 f32, 1 bf16, 2 int32.
-int sw_sum_partials(const void* m, int dtype, float* partials, int family,
-                    int lowering, int r_b, int k, int mbase, int r_cell,
-                    long long n, int block, long long steps, long long nbx,
-                    unsigned long long allow, unsigned long long oxs,
-                    unsigned long long oys, const int* lut, void* stream) {
-  FracParams p = make_params(family, lowering, r_b, k, mbase, r_cell, n,
-                             block, steps, nbx, allow, oxs, oys);
+// partials[t] = f32 sum of the member cells of grid step t's supertile (0
+// for a discarded bounding step).  dtype: 0 f32, 1 bf16, 2 int32.
+int sw_sum_partials(const void* m, int dtype, float* partials,
+                    const long long* params, const int* lut, const int* perm,
+                    void* stream) {
+  const FracParams p = make_params(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 g = grid_of(steps), th = threads_of(block);
   if (dtype == kF32) {
-    sum_partials_kernel<kF32><<<g, th, 0, s>>>(m, partials, p, lut);
+    launch_sum<kF32>(m, partials, p, lut, perm, s);
   } else if (dtype == kBF16) {
-    sum_partials_kernel<kBF16><<<g, th, 0, s>>>(m, partials, p, lut);
+    launch_sum<kBF16>(m, partials, p, lut, perm, s);
   } else if (dtype == kI32) {
-    sum_partials_kernel<kI32><<<g, th, 0, s>>>(m, partials, p, lut);
+    launch_sum<kI32>(m, partials, p, lut, perm, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-const char* sw_error_string(int status) {
-  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
 // out[0] = partials[0] + partials[1] + ... in step order, in f32.
@@ -327,6 +290,10 @@ int sw_sum_combine(const float* partials, long long steps, float* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   sum_combine_kernel<<<1, kCombineThreads, 0, s>>>(partials, steps, out);
   return (int)cudaGetLastError();
+}
+
+const char* cuda_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
 }  // extern "C"

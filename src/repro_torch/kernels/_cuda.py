@@ -16,12 +16,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
+from repro_torch.core.plan import C_PARAMS, LOWERING_CODES
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: library name -> its one .cu source (headers: every .cuh in csrc/)
-SOURCES = {"sierpinski_write": "sierpinski_write.cu"}
+SOURCES = {"sierpinski_write": "sierpinski_write.cu",
+           "sierpinski_ca": "sierpinski_ca.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -29,6 +35,9 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 #: per library: nvcc's output of the build this process ran (the ptxas
 #: register / shared-memory report)
 BUILD_LOG: Dict[str, str] = {}
+#: per library: wall seconds from the start of the (parallel) build until
+#: its nvcc finished
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -72,6 +81,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
         return out
     build_dir().mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -81,6 +91,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     failed = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         BUILD_LOG[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
@@ -99,3 +110,54 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LOADED[name] = lib
     return lib
+
+
+def param_array(p) -> ctypes.Array:
+    """A plan's :class:`~repro_torch.core.plan.LaunchParams` as the int64
+    array the kernels read (``C_PARAMS`` order), after checking what the
+    kernels' decode takes."""
+    if p.k > 16 or p.m > 8 or p.n >= 2 ** 31 or p.pitch >= 2 ** 31:
+        raise ValueError(
+            f"the kernels take k <= 16 copies, m <= 8 and sides < 2**31, "
+            f"got k={p.k}, m={p.m}, n={p.n}, pitch={p.pitch}")
+    if p.lowering == LOWERING_CODES["closed_form"] and p.steps >= 2 ** 32:
+        raise ValueError(
+            f"closed_form decodes 32-bit step ids, got {p.steps} steps")
+    vals = [v - (1 << 64) if v >= 1 << 63 else v for v in p.c_params()]
+    return (ctypes.c_longlong * len(C_PARAMS))(*vals)
+
+
+def ptr(t):
+    """A tensor's device address for ctypes, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def raise_on(lib, status: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if status != 0:
+        msg = lib.cuda_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def check_tables(m, p) -> None:
+    """The decode tables of ``p`` must lie on the state's device, as
+    contiguous int32 tensors of the expected size."""
+    for name, t in (("decode table", p.lut), ("tile permutation",
+                                              p.tile_perm)):
+        if t is None:
+            continue
+        if t.device != m.device:
+            raise ValueError(
+                f"state on {m.device} but the {name} on {t.device}: "
+                f"both must lie on the same device")
+    if p.lut is not None and (p.lut.dtype != torch.int32
+                              or not p.lut.is_contiguous()
+                              or p.lut.shape[0] != p.steps):
+        raise ValueError("the decode table must be a contiguous "
+                         f"({p.steps}, {p.lut_cols}) int32 tensor")
+    want = 2 * p.nfine + p.coarsen ** 2
+    if p.tile_perm is not None and (p.tile_perm.dtype != torch.int32
+                                    or not p.tile_perm.is_contiguous()
+                                    or p.tile_perm.numel() != want):
+        raise ValueError("the tile permutation must be a contiguous "
+                         f"int32 tensor of {want} entries")

@@ -1,0 +1,369 @@
+"""Cellular-automaton / diffusion stepping on an embedded fractal, as a
+temporally fused block-space kernel (the application class the paper
+motivates: nearest-neighbour data-parallel simulation over the
+fractal).
+
+One launch advances every (super)block by up to ``fuse`` steps: the
+kernel assembles the block plus a ``fuse``-cell halo ring from the 8
+neighbour supertiles (corners matter from the second step on, when the
+dependency footprint grows past the von-Neumann cross), then advances the
+*shrinking trapezoid* in the CTA -- after k iterations the outer k rings
+of the working tile are stale, and after ``fuse`` iterations the interior
+block is exact.  A launch's step count is a run-time argument, so the
+final launch of a ``steps % fuse`` remainder is the same kernel.
+
+:func:`ca_run` drives T steps as ``ceil(T / fuse)`` launches over two
+rotating buffers; :func:`ca_step` is the one-step case.  Under
+``storage="compact"`` both buffers live in the packed orthotope layout
+and every halo gather resolves the *embedded* neighbour's packed slot
+through lambda^-1 (in registers, or from the 28-column LUT under
+``prefetch_lut``).  Out-of-range and non-member neighbour cells are
+masked at fine-block granularity, values at cell granularity -- the JAX
+package's semantics, so fused and per-step runs are bit-identical.
+
+``coarsen=s`` makes the center tile an s x s superblock (lambda decoded
+once per superblock); under compact storage the supertile arrives in
+packed fine-block arrangement and goes through the plan's static
+``tile_map``.  Every lowering visits the member blocks only, or discards
+the others at run time; the *stale* buffer (zero outside the fractal) is
+written in place, so unvisited blocks stay zero.
+
+The kernel (``repro_torch/csrc/sierpinski_ca.cu``) sits beside its plain
+PyTorch version :func:`ca_launch_plain`.  The entry points follow the
+state's device: a CUDA tensor launches the kernel (or raises), a CPU
+tensor runs the plain version.
+
+Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13), ``domain=``
+for non-fractal domains (A6), the tuner's ``"auto"`` knobs and
+``num_stages`` (A8, which raise ``NotImplementedError``), and CA states
+other than f32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.compact import NEIGHBOR_OFFSETS8
+from repro_torch.core.plan import GridPlan, LaunchParams
+
+from . import _cuda
+from .sierpinski_write import (PLAIN_CHUNK_CELLS, resolve_storage_args,
+                               storage_offsets, supertile_offsets)
+
+RULES = {"parity": 0, "diffusion": 1}
+
+
+def effective_fuse(fuse: int, steps: int, block: int,
+                   coarsen: int = 1) -> int:
+    """The fuse depth :func:`ca_run` actually executes: clamped so the
+    halo ring fits one neighbour supertile (``coarsen * block``) and
+    never exceeds the step count."""
+    return max(1, min(int(fuse), coarsen * block,
+                      steps if steps else 1))
+
+
+def launch_schedule(steps: int, fuse: int) -> list:
+    """Per-launch step counts for T steps at fuse depth k:
+    ``ceil(T/k)`` launches of k steps, the last carrying the
+    remainder."""
+    steps, fuse = int(steps), int(fuse)
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if fuse < 1:
+        raise ValueError(f"fuse must be >= 1, got {fuse}")
+    full, rem = divmod(steps, fuse)
+    return [fuse] * full + ([rem] if rem else [])
+
+
+# ---------------------------------------------------------------------------
+# plain version: the trapezoid over chunks of grid steps, as tensor ops
+# ---------------------------------------------------------------------------
+
+def _floor_mod2(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mod(x, 2)`` on floats: fmod, then + 2 where the sign
+    differs from the divisor's."""
+    r = torch.fmod(x, 2.0)
+    return torch.where((r != 0) & (r < 0), r + 2.0, r)
+
+
+def _nsum(a: torch.Tensor) -> torch.Tensor:
+    """Sum of the 4 neighbours of every cell of a batch of working
+    tiles (zero past the tile's edge), in the order up + down + left +
+    right."""
+    zrow = torch.zeros_like(a[:, :1, :])
+    zcol = torch.zeros_like(a[:, :, :1])
+    up = torch.cat([zrow, a[:, :-1, :]], 1)
+    down = torch.cat([a[:, 1:, :], zrow], 1)
+    left = torch.cat([zcol, a[:, :, :-1]], 2)
+    right = torch.cat([a[:, :, 1:], zcol], 2)
+    return up + down + left + right
+
+
+def ca_launch_plain(src: torch.Tensor, dst: torch.Tensor, plan: GridPlan,
+                    n: int, block: int, halo: int, steps: int, rule: str,
+                    alpha: float) -> torch.Tensor:
+    """Plain version of one fused launch: for every scheduled
+    (super)block gather the center + 8 neighbour supertiles into the
+    (span + 2h)^2 working tile, mask it, advance ``steps`` iterations of
+    the trapezoid, and scatter the span^2 interior into ``dst`` in
+    place (the stale buffer).  Returns ``dst``."""
+    dev = src.device
+    span = plan.coarsen * block
+    h = halo
+    wid = span + 2 * h
+    th, tw = plan.supertile_shape((block, block))
+    oy, ox = supertile_offsets(plan, block, dev)
+    al = torch.tensor(alpha, dtype=src.dtype)
+    # strip geometry: which rows/cols of a neighbour's embedded view land
+    # where in the working tile (relative offset -1/0/+1)
+    spans = {-1: (span - h, 0, h), 0: (0, h, span), 1: (0, span + h, h)}
+    iy = torch.arange(wid, dtype=torch.int64, device=dev)[:, None]
+    ix = torch.arange(wid, dtype=torch.int64, device=dev)[None, :]
+    flat_src, flat_dst = src.view(-1), dst.view(-1)
+    total = plan.steps_per_launch
+    per = max(1, PLAIN_CHUNK_CELLS // (9 * th * tw + 3 * wid * wid))
+    for start in range(0, total, per):
+        stop = min(total, start + per)
+        bx, by, valid = plan.step_coords(start, stop, dev)
+        T = stop - start
+        P = torch.zeros((T, wid, wid), dtype=src.dtype, device=dev)
+        for j, (dx, dy) in [(None, (0, 0))] + list(enumerate(NEIGHBOR_OFFSETS8)):
+            row, col = (plan.storage_index(start, stop, dev) if j is None
+                        else plan.neighbor_index(j, start, stop, dev))
+            tile = flat_src[storage_offsets(plan, row, col, block, dev)]
+            e = torch.zeros((T, span, span), dtype=src.dtype, device=dev)
+            e[:, oy, ox] = tile  # packed -> embedded arrangement
+            r_src, r_dst, nr = spans[dy]
+            c_src, c_dst, nc = spans[dx]
+            P[:, r_dst:r_dst + nr, c_dst:c_dst + nc] = \
+                e[:, r_src:r_src + nr, c_src:c_src + nc]
+        gx = bx[:, None, None] * span - h + ix
+        gy = by[:, None, None] * span - h + iy
+        inr = (gx >= 0) & (gx < n) & (gy >= 0) & (gy < n)
+        gxc = torch.clamp(gx, 0, n - 1)
+        gyc = torch.clamp(gy, 0, n - 1)
+        cell_ok = inr & plan.domain.cell_member(gxc, gyc, n)
+        block_ok = inr & plan.domain.contains(gxc // block, gyc // block)
+        P = torch.where(block_ok, P, 0)
+        if rule == "parity":
+            for _ in range(steps):
+                P = torch.where(cell_ok, _floor_mod2(P + _nsum(P)), 0)
+        else:
+            deg = _nsum(cell_ok.to(P.dtype))
+            for _ in range(steps):
+                P = torch.where(cell_ok, P + al * (_nsum(P) - deg * P), 0)
+        out = P[:, h:h + span, h:h + span][:, oy, ox]  # storage arrangement
+        row, col = plan.storage_index(start, stop, dev)
+        offs = storage_offsets(plan, row, col, block, dev)
+        if valid is not None:
+            offs, out = offs[valid], out[valid]
+        flat_dst[offs.reshape(-1)] = out.reshape(-1)
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _cuda.load("sierpinski_ca")
+    if not getattr(lib, "_repro_bound", False):
+        lib.sc_ca_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
+                                     ctypes.c_float, _P, _P]
+        lib.sc_ca_launch.restype = ctypes.c_int
+        lib.sc_scratch_bytes.argtypes = [_I, _LL]
+        lib.sc_scratch_bytes.restype = _LL
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib._repro_bound = True
+    return lib
+
+
+def _check_buffers(src: torch.Tensor, dst: torch.Tensor,
+                   shape=None) -> None:
+    """Both CA buffers: contiguous f32 tensors of one shape on one
+    device, and not the same memory."""
+    for t in (src, dst):
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f"CA states must be float32, got {t.dtype} (the JAX "
+                f"package's CA runs f32 only)")
+        if not t.is_contiguous():
+            raise ValueError("CA buffers must be contiguous")
+    if src.shape != dst.shape or src.device != dst.device:
+        raise ValueError(
+            f"state {tuple(src.shape)} on {src.device} and stale buffer "
+            f"{tuple(dst.shape)} on {dst.device} must match")
+    if shape is not None and tuple(src.shape) != tuple(shape):
+        raise ValueError(f"state shape {tuple(src.shape)} != {tuple(shape)}")
+    if src.data_ptr() == dst.data_ptr():
+        raise ValueError("the state and the stale buffer must be distinct")
+
+
+def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
+            halo: int, steps: int, rule: str, alpha: float) -> torch.Tensor:
+    """Launch the fused CA kernel once: read ``src``, write the advanced
+    member supertiles into ``dst`` in place.  Returns ``dst``."""
+    if src.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs a CUDA tensor, got one on {src.device}")
+    _check_buffers(src, dst, (p.rows, p.pitch))
+    _cuda.check_tables(src, p)
+    if not 1 <= steps <= halo <= p.span:
+        raise ValueError(
+            f"a launch takes 1 <= steps <= halo <= coarsen * block, got "
+            f"steps={steps}, halo={halo}, span={p.span}")
+    lib = _lib()
+    wid = p.span + 2 * halo
+    with torch.cuda.device(src.device):
+        nbytes = lib.sc_scratch_bytes(wid, p.steps)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=src.device)
+                   if nbytes else None)
+        status = lib.sc_ca_launch(
+            src.data_ptr(), dst.data_ptr(), _cuda.param_array(p),
+            _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), halo, steps,
+            RULES[rule], alpha, _cuda.ptr(scratch),
+            torch.cuda.current_stream(src.device).cuda_stream)
+    ca_cuda.launches += 1
+    _cuda.raise_on(lib, status, "fused CA kernel")
+    return dst
+
+
+ca_cuda.launches = 0
+
+#: kernel name -> its CUDA wrapper (each carries ``launches``)
+KERNELS = {"sierpinski_ca_fused": ca_cuda}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
+                           plan: GridPlan, n: int, block: int, halo: int,
+                           steps: int, rule: str, alpha: float) -> None:
+    """Run one kernel launch and its plain version on copies of the same
+    buffers; raise AssertionError unless the results are bit-equal."""
+    p = plan.launch_params(n, block, src.device)
+    got = ca_cuda(src, dst.clone(), p, halo, steps, rule, alpha)
+    want = ca_launch_plain(src, dst.clone(), plan, n, block, halo, steps,
+                           rule, alpha)
+    if not torch.equal(got, want):
+        diff = (got - want).abs().max()
+        raise AssertionError(
+            f"CA kernel != plain version ({plan.lowering}, {plan.storage}, "
+            f"coarsen={plan.coarsen}, n={n}, block={block}, halo={halo}, "
+            f"steps={steps}, {rule}): max |diff| {float(diff)}")
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _check_schedule(fuse, coarsen, grid_mode, num_stages):
+    """The tuner's knobs are not ported: ``"auto"`` and pipelining
+    raise, naming the roadmap item that brings them."""
+    for name, value in (("fuse", fuse), ("coarsen", coarsen),
+                        ("grid_mode", grid_mode)):
+        if value == "auto":
+            raise NotImplementedError(
+                f"{name}='auto' needs the tuner, which is not ported yet "
+                f"(ROADMAP A8)")
+    if num_stages != 1:
+        raise NotImplementedError(
+            f"num_stages={num_stages!r}: software pipelining is not ported "
+            f"yet (ROADMAP A8; the port runs num_stages=1)")
+
+
+def prepare_run(state: torch.Tensor, stale_buf: torch.Tensor, *,
+                block: int = 128, grid_mode: str = "compact",
+                fractal: str = "sierpinski-gasket",
+                storage: str = "embedded", n: int | None = None,
+                coarsen: int = 1):
+    """Validate the buffers and the options of a CA run; returns
+    ``(plan, n, block)`` for the kernel wrapper and the plain version."""
+    _check_buffers(state, stale_buf)
+    domain, n, block, storage = resolve_storage_args(state, block, fractal,
+                                                     storage, n)
+    plan = GridPlan(domain, grid_mode, storage=storage, coarsen=coarsen,
+                    backend=state)
+    return plan, n, block
+
+
+def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
+           fuse: int = 1, rule: str = "parity", alpha: float = 0.25,
+           block: int = 128, grid_mode: str = "compact",
+           fractal: str = "sierpinski-gasket", storage: str = "embedded",
+           n: int | None = None, coarsen: int = 1, num_stages: int = 1,
+           donate: bool | None = None) -> torch.Tensor:
+    """Advance the CA ``steps`` steps and return the final state.
+
+    ``fuse=k`` executes k steps per kernel launch (one in-CTA trapezoid
+    loop), so the whole run costs ceil(steps/k) launches -- bit-identical
+    to ``steps`` sequential :func:`ca_step` calls.  ``fuse`` is clamped
+    to ``coarsen * block`` and to ``steps`` (:func:`effective_fuse`).
+
+    ``stale_buf`` must be zero outside the fractal (the double-buffer
+    invariant).  With ``donate`` (the default on the card) both buffers
+    are advanced in place and the result is one of them; with
+    ``donate=False`` (the default on the CPU) they are cloned first and
+    left untouched.  Under ``storage="compact"`` both tensors are packed
+    orthotope-resident (pass ``n=``).
+
+    The port's defaults are the JAX package's untuned resolution
+    (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs and
+    ``num_stages`` other than 1 raise ``NotImplementedError`` naming the
+    roadmap item that brings them."""
+    _check_schedule(fuse, coarsen, grid_mode, num_stages)
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}; expected one of "
+                         f"{tuple(RULES)}")
+    plan, n, block = prepare_run(state, stale_buf, block=block,
+                                 grid_mode=grid_mode, fractal=fractal,
+                                 storage=storage, n=n, coarsen=coarsen)
+    fuse = effective_fuse(fuse, steps, block, plan.coarsen)
+    sched = launch_schedule(steps, fuse)
+    if not sched:
+        return state
+    if donate is None:
+        donate = plan.target.kernels
+    a, b = (state, stale_buf) if donate else (state.clone(),
+                                              stale_buf.clone())
+    if plan.target.kernels:
+        p = plan.launch_params(n, block, a.device)
+        for k in sched:
+            ca_cuda(a, b, p, fuse, k, rule, alpha)
+            a, b = b, a
+    else:
+        for k in sched:
+            ca_launch_plain(a, b, plan, n, block, fuse, k, rule, alpha)
+            a, b = b, a
+    return a
+
+
+def ca_step(state: torch.Tensor, stale_buf: torch.Tensor, *,
+            rule: str = "parity", alpha: float = 0.25, block: int = 128,
+            grid_mode: str = "compact", fractal: str = "sierpinski-gasket",
+            storage: str = "embedded", n: int | None = None,
+            coarsen: int = 1, num_stages: int = 1) -> torch.Tensor:
+    """One CA step (the ``steps=1`` case of :func:`ca_run`), functional
+    as in the JAX package: neither argument is modified.
+
+    ``stale_buf`` must be zero outside the fractal (e.g. the state from
+    two steps ago, or zeros); blocks a compact grid never visits keep
+    its contents."""
+    return ca_run(state, stale_buf, 1, fuse=1, rule=rule, alpha=alpha,
+                  block=block, grid_mode=grid_mode, fractal=fractal,
+                  storage=storage, n=n, coarsen=coarsen,
+                  num_stages=num_stages, donate=False)

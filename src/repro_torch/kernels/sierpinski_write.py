@@ -10,16 +10,21 @@ Three lowerings, as in the JAX package:
 * ``bounding`` -- the bounding-box baseline: nbx * nby steps, with the
   run-time discard of non-member blocks.
 
+Two storages: ``embedded`` (the state ``m`` is the dense (n, n) array)
+and ``compact`` (``m`` is the packed Lemma 2 orthotope array of
+:class:`~repro_torch.core.compact.CompactLayout`; pass ``n=``).  Cells
+outside the fractal keep their contents.  ``coarsen=s`` makes each grid
+step own an s x s superblock of fine blocks (the lambda decode runs once
+per superblock); the sum then has one partial per superblock.
+
 Each kernel sits beside its plain PyTorch version.  The entry points
 follow the state's device: a CUDA tensor launches the kernel of
 ``repro_torch/csrc/sierpinski_write.cu`` (or raises), a CPU tensor runs
 the plain version.  Each CUDA wrapper counts its launches in a plain
 integer attribute, ``launches``.
 
-Storage is embedded only: the state ``m`` is the dense (n, n) array and
-cells outside the fractal keep their contents.  Compact storage,
-``coarsen``, the ``mma`` lowering, ``num_stages``, ``mesh=``, the tuner
-(``grid_mode="auto"``) and ``verify=`` are not ported yet.
+The ``mma`` lowering, ``num_stages``, ``mesh=``, the tuner
+(``grid_mode="auto"``), ``verify=`` and ``domain=`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,9 +33,9 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core.compact import compact_layout
 from repro_torch.core.domain import BlockDomain, make_fractal_domain
-from repro_torch.core.plan import (LOWERING_CODES, GridPlan, LaunchParams,
-                                   normalize_storage)
+from repro_torch.core.plan import GridPlan, LaunchParams, normalize_storage
 
 from . import _cuda
 
@@ -66,18 +71,25 @@ def resolve_fractal_domain(fractal: str, n: int, block: int) -> BlockDomain:
 def resolve_storage_args(m, block, fractal, storage, n):
     """Shared entry-point validation for the fractal-state kernels.
 
-    Returns (domain, n, block, storage) with the state ``m`` checked
-    against the embedded layout's (n, n) shape.  Only embedded storage
-    is ported; compact storage raises ``NotImplementedError``."""
+    Returns (domain, n, block, storage) with the state array ``m``
+    checked against the storage layout's expected shape.  ``n`` (the
+    embedded side length) must be passed under compact storage, since
+    the packed array's shape no longer determines it."""
     storage = normalize_storage(storage)
     if n is None:
+        if storage == "compact":
+            raise ValueError(
+                "storage='compact' needs the embedded size n= (or an "
+                "explicit domain=): the packed array shape does not "
+                "determine it")
         if m.ndim != 2 or m.shape[0] != m.shape[1]:
             raise ValueError(f"expected square 2-D state, got {tuple(m.shape)}")
         n = m.shape[0]
     block = min(block, n)
     domain = resolve_fractal_domain(fractal, n, block)
-    nbx, nby = domain.bounding_box
-    want = (nby * block, nbx * block)
+    layout = compact_layout(domain)
+    want = layout.array_shape(block) if storage == "compact" \
+        else layout.embedded_shape(block)
     if tuple(m.shape) != want:
         raise ValueError(
             f"{storage} state shape {tuple(m.shape)} does not match the "
@@ -93,7 +105,7 @@ def _check_state(m: torch.Tensor) -> None:
     if not m.is_contiguous():
         raise ValueError(
             "the state must be contiguous (the kernels address it as a "
-            "dense row-major (n, n) array); pass m.contiguous()")
+            "dense row-major array); pass m.contiguous()")
 
 
 def prepare_launch(m: torch.Tensor, *, block: int = 128,
@@ -120,26 +132,48 @@ def _value_of(value, dtype) -> torch.Tensor:
 # plain versions: the lowering's own decode as tensor index math
 # ---------------------------------------------------------------------------
 
+def supertile_offsets(plan: GridPlan, block: int, device):
+    """(OY, OX) int64 tensors shaped like one storage supertile: the
+    embedded cell offset of each of its cells from the superblock's
+    embedded origin (the fine-block permutation baked in under compact
+    coarsening)."""
+    oy, ox = plan.cell_offset_grids(block)
+    return (torch.from_numpy(oy).to(device, torch.int64),
+            torch.from_numpy(ox).to(device, torch.int64))
+
+
+def storage_offsets(plan: GridPlan, row, col, block: int, device):
+    """int64 flat offsets into the state array of every cell of the
+    storage supertiles at (row, col) (supertile units), shaped
+    (steps, th, tw)."""
+    th, tw = plan.supertile_shape((block, block))
+    pitch = plan.state_shape(block)[1]
+    iy = torch.arange(th, dtype=torch.int64, device=device)[:, None]
+    ix = torch.arange(tw, dtype=torch.int64, device=device)[None, :]
+    return (row[:, None, None] * th + iy) * pitch \
+        + col[:, None, None] * tw + ix
+
+
 def _tile_chunks(plan: GridPlan, n: int, block: int, device):
     """Yield ``(flat, mask)`` per chunk of grid steps, in step order:
-    the int64 cell offsets ``gy * n + gx`` of every tile, shaped
-    (steps, block, block), and the cell-membership mask of each tile
-    (all False for a discarded bounding step)."""
-    iy, ix = torch.meshgrid(
-        torch.arange(block, dtype=torch.int64, device=device),
-        torch.arange(block, dtype=torch.int64, device=device),
-        indexing="ij")
+    the int64 offsets into the state array of every cell of each step's
+    storage supertile, shaped (steps, th, tw), and its cell-membership
+    mask (all False for a discarded bounding step)."""
+    th, tw = plan.supertile_shape((block, block))
+    span = plan.coarsen * block
+    oy, ox = supertile_offsets(plan, block, device)
     steps = plan.steps_per_launch
-    per = max(1, PLAIN_CHUNK_CELLS // (block * block))
+    per = max(1, PLAIN_CHUNK_CELLS // (th * tw))
     for start in range(0, steps, per):
-        bx, by, valid = plan.step_coords(start, min(steps, start + per),
-                                         device)
-        gx = bx[:, None, None] * block + ix
-        gy = by[:, None, None] * block + iy
+        stop = min(steps, start + per)
+        bx, by, valid = plan.step_coords(start, stop, device)
+        row, col = plan.storage_index(start, stop, device)
+        gx = bx[:, None, None] * span + ox
+        gy = by[:, None, None] * span + oy
         mask = plan.domain.cell_member(gx, gy, n)
         if valid is not None:
             mask = mask & valid[:, None, None]
-        yield gy * n + gx, mask
+        yield storage_offsets(plan, row, col, block, device), mask
 
 
 def sierpinski_write_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
@@ -191,11 +225,9 @@ def sierpinski_sum_plain(m: torch.Tensor, plan: GridPlan, n: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_ULL = ctypes.c_ulonglong
-_PARAM_TYPES = [_I, _I, _I, _I, _I, _I, _LL, _I, _LL, _LL, _ULL, _ULL, _ULL]
 _SIGNATURES = {
-    "sw_write": [_P, _I, ctypes.c_uint] + _PARAM_TYPES + [_P, _P],
-    "sw_sum_partials": [_P, _I, _P] + _PARAM_TYPES + [_P, _P],
+    "sw_write": [_P, _I, ctypes.c_uint, _P, _P, _P, _P],
+    "sw_sum_partials": [_P, _I, _P, _P, _P, _P, _P],
     "sw_sum_combine": [_P, _LL, _P, _P],
 }
 
@@ -207,54 +239,24 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.sw_error_string.argtypes = [ctypes.c_int]
-        lib.sw_error_string.restype = ctypes.c_char_p
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
 
 
-def _raise_on(lib, status: int, what: str) -> None:
-    if status != 0:
-        msg = lib.sw_error_string(status).decode()
-        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
-
-
-def _param_args(p: LaunchParams):
-    """LaunchParams -> the kernels' scalar C arguments."""
-    if p.k > 16 or p.m > 8 or p.n >= 2 ** 31:
-        raise ValueError(
-            f"the kernels take k <= 16 copies, m <= 8 and n < 2**31, "
-            f"got k={p.k}, m={p.m}, n={p.n}")
-    if p.lowering == LOWERING_CODES["closed_form"] and p.steps >= 2 ** 32:
-        raise ValueError(
-            f"closed_form decodes 32-bit step ids, got {p.steps} steps")
-    allow = oxs = oys = 0
-    for c, (ox, oy) in enumerate(p.offsets):
-        allow |= 1 << (oy * p.m + ox)
-        oxs |= ox << (4 * c)
-        oys |= oy << (4 * c)
-    return [p.family, p.lowering, p.r_b, p.k, p.m, p.r_cell, p.n, p.block,
-            p.steps, p.nbx, allow, oxs, oys]
-
-
 def _check_kernel_args(m: torch.Tensor, p: LaunchParams) -> None:
-    """What the kernels take: a contiguous (n, n) state of a supported
-    dtype on a CUDA device, with the LUT on the same device."""
-    if p.lut is not None and p.lut.device != m.device:
-        raise ValueError(
-            f"state on {m.device} but the decode table on {p.lut.device}: "
-            f"both must lie on the same device")
+    """What the kernels take: a contiguous state of a supported dtype
+    and of the plan's storage shape on a CUDA device, with the decode
+    tables on the same device."""
+    _cuda.check_tables(m, p)
     if m.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel needs a CUDA tensor, got one on {m.device}")
     _check_state(m)
-    if tuple(m.shape) != (p.n, p.n):
-        raise ValueError(f"state shape {tuple(m.shape)} != ({p.n}, {p.n})")
-    if p.lut is not None and (p.lut.dtype != torch.int32
-                              or not p.lut.is_contiguous()
-                              or tuple(p.lut.shape) != (p.steps, 2)):
-        raise ValueError("the decode table must be a contiguous "
-                         f"({p.steps}, 2) int32 tensor")
+    if tuple(m.shape) != (p.rows, p.pitch):
+        raise ValueError(
+            f"state shape {tuple(m.shape)} != ({p.rows}, {p.pitch})")
 
 
 def _stream(device) -> int:
@@ -269,12 +271,12 @@ def write_cuda(m: torch.Tensor, value, p: LaunchParams) -> torch.Tensor:
     bits = int(v.view(torch.int32 if m.element_size() == 4 else torch.int16))
     bits &= (1 << (8 * m.element_size())) - 1
     lib = _lib()
-    lut = p.lut.data_ptr() if p.lut is not None else None
     with torch.cuda.device(m.device):
         status = lib.sw_write(m.data_ptr(), m.element_size(), bits,
-                              *_param_args(p), lut, _stream(m.device))
+                              _cuda.param_array(p), _cuda.ptr(p.lut),
+                              _cuda.ptr(p.tile_perm), _stream(m.device))
     write_cuda.launches += 1
-    _raise_on(lib, status, "sierpinski write kernel")
+    _cuda.raise_on(lib, status, "sierpinski write kernel")
     return m
 
 
@@ -286,13 +288,13 @@ def sum_partials_cuda(m: torch.Tensor, p: LaunchParams) -> torch.Tensor:
     _check_kernel_args(m, p)
     partials = torch.empty(p.steps, dtype=torch.float32, device=m.device)
     lib = _lib()
-    lut = p.lut.data_ptr() if p.lut is not None else None
     with torch.cuda.device(m.device):
         status = lib.sw_sum_partials(m.data_ptr(), DTYPES[m.dtype],
-                                     partials.data_ptr(), *_param_args(p),
-                                     lut, _stream(m.device))
+                                     partials.data_ptr(),
+                                     _cuda.param_array(p), _cuda.ptr(p.lut),
+                                     _cuda.ptr(p.tile_perm), _stream(m.device))
     sum_partials_cuda.launches += 1
-    _raise_on(lib, status, "sierpinski sum partials kernel")
+    _cuda.raise_on(lib, status, "sierpinski sum partials kernel")
     return partials
 
 
@@ -315,7 +317,7 @@ def sum_combine_cuda(partials: torch.Tensor) -> torch.Tensor:
                                     out.data_ptr(),
                                     _stream(partials.device))
     sum_combine_cuda.launches += 1
-    _raise_on(lib, status, "sierpinski sum combine kernel")
+    _cuda.raise_on(lib, status, "sierpinski sum combine kernel")
     return out
 
 
@@ -340,6 +342,11 @@ def launch_counts() -> dict:
 # kernels against their plain versions (chip_smoke.py, the cuda tests)
 # ---------------------------------------------------------------------------
 
+def _what(plan: GridPlan, n: int, block: int, m: torch.Tensor) -> str:
+    return (f"{plan.lowering}, {plan.storage}, coarsen={plan.coarsen}, "
+            f"n={n}, block={block}, {m.dtype}")
+
+
 def check_write_against_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
                               block: int, p: LaunchParams) -> None:
     """Run the write kernel and its plain version on two copies of ``m``;
@@ -348,8 +355,7 @@ def check_write_against_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
     want = sierpinski_write_plain(m.clone(), value, plan, n, block)
     if not torch.equal(got, want):
         raise AssertionError(
-            f"write kernel != plain version ({plan.lowering}, n={n}, "
-            f"block={block}, {m.dtype})")
+            f"write kernel != plain version ({_what(plan, n, block, m)})")
 
 
 def check_sum_against_plain(m: torch.Tensor, plan: GridPlan, n: int,
@@ -363,7 +369,7 @@ def check_sum_against_plain(m: torch.Tensor, plan: GridPlan, n: int,
     differs).  The combine of the same partials is bit-equal either way.
     Raises AssertionError on a disagreement; returns ``({kernel name:
     max |kernel - plain|}, the plain version's total)``."""
-    what = f"({plan.lowering}, n={n}, block={block}, {m.dtype})"
+    what = f"({_what(plan, n, block, m)})"
     kp = sum_partials_cuda(m, p)
     pp = sum_partials_plain(m, plan, n, block)
     diff = (kp - pp).abs()

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from repro_torch.core import fractal as F
+from repro_torch.core.compact import compact_layout
 from repro_torch.core.plan import LOWERINGS
 from repro_torch.kernels import ops
 
 TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
+TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +93,91 @@ def test_kernel_wrappers_reject_what_they_cannot_take(dev):
         TW.write_cuda(m.double(), 1.0, p)
     with pytest.raises(ValueError, match="shape"):
         TW.sum_partials_cuda(torch.zeros((32, 32), device=dev), p)
+
+
+# ---------------------------------------------------------------------------
+# compact storage and coarsening (write / sum), and the fused CA kernel
+# ---------------------------------------------------------------------------
+
+#: (fractal, n, block, s): s is the coarsening of the coarsened cases
+COMPACT_CASES = [("sierpinski-gasket", 64, 4, 2), ("sierpinski-gasket", 256, 8, 4),
+                 ("sierpinski-gasket", 512, 32, 2), ("sierpinski-carpet", 81, 3, 3),
+                 ("sierpinski-carpet", 243, 9, 3), ("vicsek-cross", 243, 3, 9)]
+
+
+def _packed(fractal, n, block, seed, dev, integer=True, binary=False):
+    """A packed state whose non-member cells are 0 (the CA invariant)."""
+    lay = compact_layout(TW.resolve_fractal_domain(fractal, n, block))
+    spec = F.FRACTALS.get(fractal, F.SIERPINSKI)
+    mask = torch.from_numpy(spec.membership_grid(n).copy()).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if binary:
+        x = torch.randint(0, 2, (n, n), generator=g, device=dev).float()
+    elif integer:
+        x = torch.randint(-8, 9, (n, n), generator=g, device=dev).float()
+    else:
+        x = torch.randn((n, n), generator=g, device=dev)
+    x = torch.where(mask, x, 0)
+    return x, lay.pack(x, block)
+
+
+@pytest.mark.parametrize("fractal,n,block,s", COMPACT_CASES)
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage", ["compact", "embedded"])
+@pytest.mark.parametrize("coarsened", [False, True], ids=["s1", "s"])
+def test_compact_kernels_match_plain(dev, fractal, n, block, s, grid_mode,
+                                     storage, coarsened):
+    emb, packed = _packed(fractal, n, block, n + block, dev)
+    m = packed if storage == "compact" else emb
+    plan, n_, blk = TW.prepare_launch(m, block=block, grid_mode=grid_mode,
+                                      fractal=fractal, storage=storage, n=n,
+                                      coarsen=s if coarsened else 1)
+    p = plan.launch_params(n_, blk, dev)
+    TW.check_write_against_plain(m, 7.3, plan, n_, blk, p)
+    TW.check_sum_against_plain(m, plan, n_, blk, p)
+
+
+#: (fractal, n, block, s, fuse)
+CA_CASES = [("sierpinski-gasket", 64, 8, 2, 3), ("sierpinski-gasket", 256, 16, 4, 16),
+            ("sierpinski-gasket", 1024, 32, 2, 32), ("sierpinski-carpet", 81, 3, 3, 3),
+            ("sierpinski-carpet", 243, 9, 3, 9), ("vicsek-cross", 243, 9, 3, 9),
+            ("sierpinski-gasket", 512, 128, 1, 128), ("sierpinski-gasket", 1024, 32, 2, 64)]
+
+
+@pytest.mark.parametrize("fractal,n,block,s,fuse", CA_CASES)
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage", ["compact", "embedded"])
+@pytest.mark.parametrize("rule", ["parity", "diffusion"])
+def test_ca_kernel_matches_plain(dev, fractal, n, block, s, fuse, grid_mode,
+                                 storage, rule):
+    emb, packed = _packed(fractal, n, block, n + fuse, dev, integer=False,
+                          binary=rule == "parity")
+    a = packed if storage == "compact" else emb
+    b = torch.zeros_like(a)
+    for coarsen in sorted({1, s}):
+        plan, n_, blk = TC.prepare_run(a, b, block=block, grid_mode=grid_mode,
+                                       fractal=fractal, storage=storage, n=n,
+                                       coarsen=coarsen)
+        h = TC.effective_fuse(fuse, fuse, blk, coarsen)
+        for steps in sorted({1, h}):
+            TC.check_ca_against_plain(a, b, plan, n_, blk, h, steps, rule,
+                                      0.2)
+
+
+def test_ca_entry_points_launch_the_kernel(dev):
+    n, block = 256, 16
+    emb, packed = _packed("sierpinski-gasket", n, block, 5, dev, binary=True)
+    TC.reset_launch_counts()
+    got = ops.ca_run(packed.clone(), torch.zeros_like(packed), 10, fuse=4,
+                     block=block, storage="compact", n=n)
+    assert TC.launch_counts() == {"sierpinski_ca_fused": 3}
+    from repro_torch.kernels import ref
+    want = emb
+    for _ in range(10):
+        want = ref.ca_step_ref(want, "parity")
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   block))
+    assert torch.equal(lay.unpack(got, block), want)
+    one = ops.ca_step(packed, torch.zeros_like(packed), block=block,
+                      storage="compact", n=n)
+    assert torch.equal(lay.unpack(one, block), ref.ca_step_ref(emb, "parity"))

@@ -110,12 +110,30 @@ def test_launch_params():
 @pytest.mark.parametrize("kw,item", [
     (dict(lowering="mma"), "A9"),
     (dict(lowering="auto"), "A8"),
-    (dict(storage="compact"), "A4"),
-    (dict(coarsen=2), "A4"),
+    (dict(lowering="mma", storage="compact"), "A9"),
+    (dict(lowering="auto", coarsen=2), "A8"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TP.GridPlan(TD.SierpinskiDomain(8), backend="cpu", **kw)
+
+
+@pytest.mark.parametrize("storage", TP.STORAGES)
+@pytest.mark.parametrize("coarsen", [1, 2, 4])
+def test_compact_and_coarsened_plans_match(storage, coarsen):
+    """Compact storage and coarsening build like the reference: the grid
+    enumerates the coarse domain, the LUT has one row per superblock."""
+    jd, td = JP.registered_domains()["sierpinski"], TP.registered_domains()[
+        "sierpinski"]
+    for lowering in TP.LOWERINGS:
+        jp = JP.GridPlan(jd, lowering, storage=storage, coarsen=coarsen,
+                         backend="tpu-interpret")
+        tp = TP.GridPlan(td, lowering, storage=storage, coarsen=coarsen,
+                         backend="cpu")
+        assert tp.grid == jp.grid and tp.storage == jp.storage
+        assert tp.sched_domain.cache_key == jp.sched_domain.cache_key
+        np.testing.assert_array_equal(tp.lut_host(), jp.lut_host())
+        assert tp.layout.grid_shape == jp.layout.grid_shape
 
 
 def test_lowering_and_storage_validation():
@@ -128,6 +146,16 @@ def test_lowering_and_storage_validation():
         TP.normalize_storage("bogus")
     with pytest.raises(ValueError):
         TP.GridPlan(TD.SierpinskiDomain(8), coarsen=0, backend="cpu")
+    assert TP.STORAGES == JP.STORAGES
+    # tests/test_sched.py's coarsen validation
+    with pytest.raises(ValueError):  # not a fractal domain
+        TP.GridPlan(TD.TriangularDomain(6), coarsen=2, backend="cpu")
+    with pytest.raises(ValueError):  # not a power of m=2
+        TP.GridPlan(TD.SierpinskiDomain(8), coarsen=3, backend="cpu")
+    with pytest.raises(ValueError):  # coarser than the whole grid
+        TP.GridPlan(TD.SierpinskiDomain(8), coarsen=16, backend="cpu")
+    assert TP.GridPlan(TD.TriangularDomain(6), coarsen=1,
+                       backend="cpu").coarsen == 1
 
 
 def test_backend_resolve_follows_the_device():

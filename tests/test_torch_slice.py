@@ -3,7 +3,8 @@
 The quickstart construction runs through ``repro_torch.kernels.ops`` and
 matches the JAX package's; the entry points raise the reference's
 validation errors and name the roadmap item of every option not ported
-yet; and the port never imports ``jax`` or ``repro``.
+yet; and the port (package, examples, chip smoke script) never imports
+``jax`` or ``repro``.
 """
 import ast
 import os
@@ -74,8 +75,8 @@ def test_quickstart_slice_matches_reference(fractal, n, block, spec):
     (dict(grid_mode="bogus"), ValueError, "unknown lowering"),
     (dict(grid_mode="mma"), NotImplementedError, "A9"),
     (dict(grid_mode="auto"), NotImplementedError, "A8"),
-    (dict(storage="compact"), NotImplementedError, "A4"),
-    (dict(coarsen=2), NotImplementedError, "A4"),
+    (dict(storage="compact"), ValueError, "needs the embedded size"),
+    (dict(coarsen=3), ValueError, "must be a power"),
     (dict(shape=(16, 32)), ValueError, "square"),
     (dict(n=8), ValueError, "does not match"),
 ])
@@ -92,7 +93,9 @@ def test_validation_errors(kw, exc, match, entry):
 
 
 def test_reference_raises_the_same_value_errors():
-    for kw in (dict(block=6), dict(block=16, shape=(48, 48))):
+    for kw in (dict(block=6), dict(block=16, shape=(48, 48)),
+               dict(block=4, storage="compact"),
+               dict(block=4, storage="compact", n=16, shape=(16, 16))):
         kw = dict(kw)
         shape = kw.pop("shape", (16, 16))
         with pytest.raises(ValueError) as want:
@@ -125,8 +128,8 @@ def test_state_checks():
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "examples" / "torch_quickstart.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("torch_*.py"))
 
 
 def test_port_never_imports_jax_or_repro_ast():
@@ -151,6 +154,8 @@ def test_port_import_loads_no_jax_or_repro_module():
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.sierpinski_write\n"
+        "import repro_torch.kernels.sierpinski_ca\n"
+        "import repro_torch.core.compact\n"
         "import repro_torch.kernels._cuda\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'jaxlib', 'repro.'))]\n"

@@ -15,7 +15,7 @@ from repro.kernels import ref as JR
 from repro_torch.core import plan as TP
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
-from torch_parity import CASES, TW, as_f32, make_pair
+from torch_parity import COMPACT_CASES, CASES, TW, as_f32, make_pair, pack_pair
 
 
 @pytest.mark.parametrize("fractal,n,block", CASES[:6])
@@ -100,3 +100,62 @@ def test_sum_chunks_agree_with_one_pass(monkeypatch):
     for gm in TP.LOWERINGS:
         assert torch.equal(TO.sierpinski_sum(tm, block=4, grid_mode=gm),
                            want[gm])
+
+
+@pytest.mark.parametrize("fractal,n,block,s", COMPACT_CASES)
+@pytest.mark.parametrize("grid_mode", TP.LOWERINGS)
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "normal"])
+def test_compact_sum_matches_reference(fractal, n, block, s, grid_mode,
+                                       integer):
+    """Compact storage, uncoarsened and coarsened by s: integer states
+    bit-equal; normal ones within 1e-6 of the sum of magnitudes of the
+    JAX package's total at the same coarsening (the order inside a
+    superblock differs, and a total that cancels to a few units is no
+    scale for that), and within 1e-4 between coarsenings (the reduction
+    tile changes, as tests/test_sched.py:131 allows)."""
+    jm, tm = pack_pair(fractal, n, block, "float32", seed=3 * n + s,
+                       integer=integer)
+    kw = dict(block=block, grid_mode=grid_mode, fractal=fractal,
+              storage="compact", n=n)
+    totals = {}
+    mag = float(TO.sierpinski_sum(tm.abs(), **kw))
+    for coarsen in (1, s):
+        got = TO.sierpinski_sum(tm, coarsen=coarsen, **kw)
+        want = JO.sierpinski_sum(jm, coarsen=coarsen,
+                                 backend="tpu-interpret", **kw)
+        assert got.dtype == torch.float32 and got.ndim == 0
+        if integer:
+            assert float(got) == float(want)
+        else:
+            assert abs(float(got) - float(want)) <= 1e-6 * mag
+        totals[coarsen] = float(got)
+    np.testing.assert_allclose(totals[s], totals[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("grid_mode", TP.LOWERINGS)
+def test_coarsened_partials_are_per_superblock(storage, grid_mode):
+    """One partial per scheduled (coarse) step, in the coarse step order,
+    each the sum of its superblock's member cells."""
+    n, block, s = 32, 4, 2
+    if storage == "embedded":
+        _, tm = make_pair(n, "float32", seed=5, integer=True)
+    else:
+        _, tm = pack_pair("sierpinski-gasket", n, block, "float32", seed=5,
+                          integer=True)
+    plan, n_, blk = TW.prepare_launch(tm, block=block, grid_mode=grid_mode,
+                                      storage=storage, n=n, coarsen=s)
+    parts = TW.sum_partials_plain(tm, plan, n_, blk)
+    assert parts.shape == (plan.steps_per_launch,)
+    dense = as_f32(tm if storage == "embedded"
+                   else plan.layout.unpack(tm, block))
+    bx, by, valid = plan.step_coords(0, plan.steps_per_launch, "cpu")
+    span = s * block
+    for t in range(plan.steps_per_launch):
+        x0, y0 = span * int(bx[t]), span * int(by[t])
+        y, x = np.mgrid[y0:y0 + span, x0:x0 + span]
+        member = (x & (n - 1 - y)) == 0
+        if valid is not None and not valid[t]:
+            member[:] = False
+        assert float(parts[t]) == dense[y0:y0 + span, x0:x0 + span][
+            member].sum()

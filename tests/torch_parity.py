@@ -6,6 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.core import fractal as JF
+from repro.core.compact import CompactLayout as JLayout
+from repro.core.domain import make_fractal_domain as j_fractal_domain
+from repro_torch.core.compact import CompactLayout as TLayout
+from repro_torch.core.domain import make_fractal_domain as t_fractal_domain
+
 #: the kernel module (``repro_torch.kernels.sierpinski_write`` the attribute
 #: is the re-exported function, as in the JAX package)
 TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
@@ -15,6 +21,11 @@ CASES = [("sierpinski-gasket", 16, 4), ("sierpinski-gasket", 64, 8),
          ("sierpinski-carpet", 9, 3), ("sierpinski-carpet", 27, 3),
          ("vicsek-cross", 9, 3), ("vicsek-cross", 27, 9),
          ("sierpinski-gasket", 8, 2), ("sierpinski-gasket", 64, 16)]
+#: compact-storage cases (fractal, n, block, s): s is a coarsening the
+#: block grid allows (tests/test_sched.py's n = 32 and 27 cases)
+COMPACT_CASES = [("sierpinski-gasket", 32, 4, 2), ("sierpinski-gasket", 32, 4, 4),
+                 ("sierpinski-gasket", 64, 4, 8), ("sierpinski-carpet", 27, 3, 3),
+                 ("vicsek-cross", 27, 3, 3), ("vicsek-cross", 81, 3, 9)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "int32": (jnp.int32, torch.int32)}
@@ -36,3 +47,47 @@ def as_f32(x):
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32).numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def pack_pair(fractal, n, block, dtype, seed, integer=False):
+    """The same packed (compact-storage) state for both packages."""
+    jm, tm = make_pair(n, dtype, seed, integer)
+    return (JLayout(j_fractal_domain(fractal, n // block)).pack(jm, block),
+            TLayout(t_fractal_domain(fractal, n // block)).pack(tm, block))
+
+
+# ---------------------------------------------------------------------------
+# CA states
+# ---------------------------------------------------------------------------
+
+#: diffusion tolerance against the JAX package: its own tests' (XLA may
+#: contract the update differently; parity is compared bit for bit)
+DIFFUSION_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def fractal_state(fractal, n, binary, seed=0):
+    """A state that is zero outside the fractal (numpy f32): {0, 1} when
+    ``binary``, else normal."""
+    rng = np.random.default_rng(seed)
+    mask = JF.membership_grid(n) if fractal == "sierpinski-gasket" \
+        else JF.FRACTALS[fractal].membership_grid(n)
+    x = rng.integers(0, 2, (n, n)) if binary else rng.normal(size=(n, n))
+    return (x * mask).astype(np.float32)
+
+
+def pair(x, fractal, n, block, storage):
+    """The same state for both packages under ``storage``."""
+    j, t = jnp.asarray(x), torch.from_numpy(x.copy())
+    if storage == "compact":
+        j = JLayout(j_fractal_domain(fractal, n // block)).pack(j, block)
+        t = TLayout(t_fractal_domain(fractal, n // block)).pack(t, block)
+    return j, t
+
+
+def assert_rule_close(got, want, rule):
+    """Parity bit-equal, diffusion within DIFFUSION_TOL."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    if rule == "parity":
+        np.testing.assert_array_equal(got, np.asarray(want))
+    else:
+        np.testing.assert_allclose(got, np.asarray(want), **DIFFUSION_TOL)
