@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Drives the port's main paths through the hand-written CUDA kernels at
-the paper's largest size, n = 2**16:
+Drives the port's main paths through the hand-written CUDA kernels: the
+fractal paths at the paper's largest size, n = 2**16, and the LM's
+serving path at full model width:
 
 * the paper's SS IV experiment: enumerate the member blocks of an n x n
   Sierpinski gasket with lambda(w), launch exactly those blocks, write
@@ -10,7 +11,11 @@ the paper's largest size, n = 2**16:
 * the CA application: parity and diffusion steps on the gasket held in
   compact orthotope storage (two 725.6 MB f32 buffers), fused over
   several steps per launch;
-* compact write/sum: the SS IV write and sum on the packed state.
+* compact write/sum: the SS IV write and sum on the packed state;
+* serving: the contiguous Server (quickstart, and gemma3-12b with 6 of
+  its 48 layers) and the continuous-batching PagedServer (quickstart),
+  greedy, every decode attention through the block-space flash kernel
+  or the paged decode kernel.
 
 Phases, each printing its own lines:
 
@@ -53,7 +58,37 @@ Phases, each printing its own lines:
              under the three lowerings; counts read; the write checked on
              the packed array itself, the partials slot by slot against
              the plain version; timings beside masked_fill_;
-8. kernels line, then the result line.
+8. parity-attn -- flash_attention against its plain version over
+             causal / local / full x three lowerings x {MHA, GQA 16/8,
+             MQA} x D {64, 128, 256} x blocks {64, 128} x f32/bf16 (the
+             lowerings bit-equal to each other), rectangular local with
+             compact KV, seq_pos scalar / vector and full + window; the
+             paged kernel against its plain version and bit-equal to the
+             contiguous seq_pos kernel at block_k == page_size;
+9. attn   -- flash_attention at the widths of quickstart (causal S 4096,
+             B 4, f32) and gemma3-12b (D 256 bf16: causal S 4096, local
+             window 1024 at S 8192) under the three lowerings: kernel vs
+             plain, CUDA-event medians of the kernel, its plain version
+             and scaled_dot_product_attention (a yardstick only);
+10. serve -- launch counts set to 0, then Server.generate greedy on
+             quickstart at full width (batch 8, prompt 128, 32 new,
+             max_len 256) through the flash kernel; counts read and held
+             to layers x decode steps; the same run through the plain
+             decode; step logits compared within SERVE_TOL and the token
+             streams equal wherever the top-2 margin exceeds it; the same
+             for gemma3-12b (6 layers, batch 4, prompt 1536, 16 new,
+             max_len 1664, bf16); timings in turns;
+11. paged -- counts set to 0, then PagedServer.run on quickstart: 16
+             mixed-length requests, 8 slots, 16-token pages, a pool that
+             forces preemptions, the page table verified at every step;
+             counts read and held to layers x paged steps; streams
+             against the single-request Server oracle and the paged
+             plain-decode run; then both kernels timed at their serving
+             shapes beside their plain versions and
+             scaled_dot_product_attention, and the flash kernel held to
+             its plain version at the gemma3-12b decode shape (bf16,
+             cache 1664, window 1024 and none);
+12. kernels line, then the result line.
 
 Any failed check raises: the script exits non-zero and prints no
 result line.  It needs one CUDA card and nvcc; full results are written
@@ -68,6 +103,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -797,6 +833,532 @@ def phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev):
             "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# block-space flash attention, paged decode and the LM servers
+# ---------------------------------------------------------------------------
+
+#: H100 SXM bf16 dense tensor-core peak (NVIDIA's data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
+#: parity-attn: head layouts (H, Hkv), head dims, square block sizes
+ATTN_HEADS = {"MHA": (4, 4), "GQA": (16, 8), "MQA": (8, 1)}
+ATTN_DIMS, ATTN_BLOCKS = (64, 128, 256), (64, 128)
+ATTN_DTYPES = (torch.float32, torch.bfloat16)
+#: attn: (name, B, H, Hkv, S, D, dtype, kind, window) at the widths of
+#: quickstart and gemma3-12b
+ATTN_TIMED = [("quickstart causal", 4, 12, 12, 4096, 64, torch.float32,
+               "causal", 0),
+              ("gemma3-12b causal", 1, 16, 8, 4096, 256, torch.bfloat16,
+               "causal", 0),
+              ("gemma3-12b local", 1, 16, 8, 8192, 256, torch.bfloat16,
+               "local", 1024)]
+#: serve: quickstart at full width, then gemma3-12b at full width cut to
+#: 6 of its 48 layers (one 5:1 local:global period); max_len a multiple
+#: of 128 so every decode attention runs the block-space kernel
+SERVE_RUNS = [("quickstart", dict(), 8, 128, 32, 256),
+              ("gemma3-12b", dict(n_layers=6), 4, 1536, 16, 1664)]
+#: step logits of the kernel decode vs the plain decode.  f32: the two
+#: attention outputs differ by ~1e-6 relative (sequential fma vs a
+#: matmul), a few 1e-6 to 1e-5 after 12 layers.  bf16: the plain decode
+#: rounds p and its output to bf16 where the kernel keeps f32, ~2**-8
+#: relative per layer; logits of magnitude ~4 then differ by a few bf16
+#: ulps (2**-6 each).
+SERVE_TOL = {"float32": 1e-4, "bfloat16": 0.25}
+#: paged: 16 mixed-length requests (prompts of 4..128 tokens from seed
+#: 0), 8 slots, 16-token pages; 48 usable pages force preemptions
+PAGED_REQUESTS, PAGED_PROMPT, PAGED_NEW = 16, 128, 32
+PAGED_SLOTS, PAGED_PS, PAGED_PAGES = 8, 16, 49
+TIMING_KEYS = ("seconds", "tok_per_s", "ms_per_decode_step")
+
+
+def attn_bound(nbytes, nops, dtype):
+    """Least time in ms: bytes over the memory rate, or the operations
+    over the dtype's peak (f32 on the CUDA cores, bf16 on the tensor
+    cores); returns (ms, bound_by, peak name)."""
+    peak, name = ((F32_OPS_PER_S, "f32 67 TFLOP/s") if dtype == torch.float32
+                  else (BF16_OPS_PER_S, "bf16 989 TFLOP/s"))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / peak * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", name
+    return t_ops, "operations", name
+
+
+def attn_inputs(shapes, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes]
+
+
+def paged_copy(k, v, ps, P, dev, seed):
+    """The contiguous caches k, v (B, Hkv, S, D) scattered into a pool
+    of shuffled pages; returns (pool, int32 table)."""
+    b, hkv, s, d = k.shape
+    npg = s // ps
+    perm = torch.randperm(b * npg, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    pool = P.init_pool(b * npg + 1, hkv, ps, d, k.dtype, dev)
+    table = perm.reshape(b, npg).to(torch.int32)
+    for i in range(b):
+        P.write_prefill_pages(pool, table[i].to(dev), k[i], v[i])
+    return pool, table.to(dev)
+
+
+def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
+    """Both attention kernels against their plain versions on the card:
+    kinds x lowerings x {MHA, GQA 16/8, MQA} x D x blocks x dtypes, the
+    lowerings bit-equal to each other; rectangular local with compact
+    KV; seq_pos scalar / vector and full + window; and the paged kernel
+    bit-equal to the contiguous seq_pos kernel at block_k == page_size."""
+    err = {name: 0.0 for name in FA.KERNELS}
+    ncmp = seed = 0
+    for kind in ("causal", "local", "full"):
+        for hname, (h, hkv) in ATTN_HEADS.items():
+            for d in ATTN_DIMS:
+                for blk in ATTN_BLOCKS:
+                    for dtype in ATTN_DTYPES:
+                        seed += 1
+                        s = 512 if kind == "local" else 256
+                        q, k, v = attn_inputs([(2, h, s, d), (2, hkv, s, d),
+                                               (2, hkv, s, d)], dtype, seed,
+                                              dev)
+                        outs = []
+                        for gm in LOWERINGS:
+                            sched = FA.flash_schedule(
+                                q.shape, k.shape, kind=kind,
+                                window=2 * blk if kind == "local" else 0,
+                                block_q=blk, block_k=blk, grid_mode=gm)
+                            e, out = FA.check_flash_against_plain(q, k, v,
+                                                                  sched)
+                            err["flash_attention"] = max(
+                                err["flash_attention"], e)
+                            outs.append(out)
+                            ncmp += 1
+                        check(all(torch.equal(o, outs[0]) for o in outs),
+                              f"flash {kind} {hname} d={d} block={blk} "
+                              f"{dtype}: the lowerings differ")
+        torch.cuda.synchronize()
+        print(f"[parity-attn] {kind}: 3 lowerings x {len(ATTN_HEADS)} head "
+              f"layouts x D {ATTN_DIMS} x blocks {ATTN_BLOCKS} x f32/bf16 "
+              f"within tolerance, lowerings bit-equal")
+    # rectangular local: queries are the last 256 of 1024 positions, the
+    # compact K/V hold only the band's key-block support
+    for dtype in ATTN_DTYPES:
+        q, k, v = attn_inputs([(2, 16, 256, 128), (2, 8, 1024, 128),
+                               (2, 8, 1024, 128)], dtype, 500, dev)
+        for gm in LOWERINGS:
+            emb = FA.flash_schedule(q.shape, k.shape, kind="local",
+                                    window=256, block_q=128, block_k=128,
+                                    grid_mode=gm)
+            kc = pack_kv(k, emb.domain, 128).contiguous()
+            vc = pack_kv(v, emb.domain, 128).contiguous()
+            comp = FA.flash_schedule(q.shape, kc.shape, kind="local",
+                                     window=256, block_q=128, block_k=128,
+                                     grid_mode=gm, storage="compact",
+                                     kv_seq_len=1024)
+            e1, o1 = FA.check_flash_against_plain(q, k, v, emb)
+            e2, o2 = FA.check_flash_against_plain(q, kc, vc, comp)
+            check(torch.equal(o1, o2), f"compact KV {gm} {dtype}: differs "
+                  f"from embedded")
+            err["flash_attention"] = max(err["flash_attention"], e1, e2)
+            ncmp += 2
+    print("[parity-attn] rectangular local (Sq 256 of Sk 1024, window 256) "
+          "with compact KV: within tolerance, bit-equal to embedded KV")
+    # decode: seq_pos scalar and per-row, full + run-time window
+    for dtype in ATTN_DTYPES:
+        for d in (64, 256):
+            q, k, v = attn_inputs([(4, 16, 1, d), (4, 8, 1024, d),
+                                   (4, 8, 1024, d)], dtype, 600 + d, dev)
+            for pos, win in ((700, 0), ([0, 127, 128, 1023], 0),
+                             ([0, 127, 600, 1023], 300)):
+                pv = FA.seq_pos_vector(pos, 4, dev)
+                for gm in LOWERINGS:
+                    sched = FA.flash_schedule(
+                        q.shape, k.shape, kind="full", window=win,
+                        block_q=1, block_k=128, grid_mode=gm, has_pos=True)
+                    e, _ = FA.check_flash_against_plain(q, k, v, sched, pv)
+                    err["flash_attention"] = max(err["flash_attention"], e)
+                    ncmp += 1
+    print("[parity-attn] decode: seq_pos scalar / (B,) vector, full + "
+          "window 300: within tolerance")
+    # paged == contiguous seq_pos decode, bit for bit
+    nbit = 0
+    for dtype in ATTN_DTYPES:
+        for ps, d in ((16, 64), (64, 128), (128, 256)):
+            q, k, v = attn_inputs([(4, 16, 1, d), (4, 8, 1024, d),
+                                   (4, 8, 1024, d)], dtype, 700 + ps, dev)
+            pool, table = paged_copy(k, v, ps, P, dev, ps)
+            pos = torch.tensor([0, 130, 777, 1023], dtype=torch.int32,
+                               device=dev)
+            for win in (0, 300):
+                psched = FA.paged_schedule(q.shape, pool.shape, table.shape,
+                                           window=win)
+                e, paged = FA.check_paged_against_plain(q, pool, table, pos,
+                                                        psched)
+                err["paged_flash_attention"] = max(
+                    err["paged_flash_attention"], e)
+                sched = FA.flash_schedule(q.shape, k.shape, kind="full",
+                                          window=win, block_q=1, block_k=ps,
+                                          has_pos=True)
+                check(torch.equal(paged, FA.flash_cuda(q, k, v, sched, pos)),
+                      f"paged decode ps={ps} d={d} window={win} {dtype}: "
+                      f"not bit-equal to the contiguous seq_pos kernel")
+                ncmp += 1
+                nbit += 1
+    torch.cuda.synchronize()
+    print(f"[parity-attn] paged decode: within tolerance of its plain "
+          f"version and bit-equal to the contiguous seq_pos kernel at "
+          f"block_k == page_size ({nbit} cases)")
+    print(f"[parity-attn] {ncmp} kernel-vs-plain comparisons passed; max "
+          f"|err| {err} (f32 rtol/atol 2e-5, bf16 2e-2)")
+    return err
+
+
+def needed_pairs(kind, s, window):
+    """Unmasked (query, key) pairs of one (batch, head) at Sq = Sk = s:
+    causal keys 0..q, local the min(q + 1, window) keys ending at q."""
+    if kind == "causal" or (kind == "local" and window >= s):
+        return s * (s + 1) // 2
+    if kind == "local":
+        return window * (window + 1) // 2 + (s - window) * window
+    return s * s
+
+
+def phase_attn(FA, LOWERINGS, dev):
+    """flash_attention at the widths of quickstart and gemma3-12b under
+    the three lowerings: kernel vs plain, and CUDA-event medians of the
+    kernel, its plain version and scaled_dot_product_attention."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, b, h, hkv, s, d, dtype, kind, window in ATTN_TIMED:
+        torch.cuda.empty_cache()
+        q, k, v = attn_inputs([(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)],
+                              dtype, 800, dev)
+        plain = None
+        for gm in LOWERINGS:
+            sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                      window=window, grid_mode=gm)
+            out = FA.flash_cuda(q, k, v, sched)
+            if plain is None:  # the lowerings' plain versions are bit-equal
+                plain = FA.flash_attention_plain(q, k, v, sched)
+                plain_ms = time_ms(lambda: FA.flash_attention_plain(
+                    q, k, v, sched), 2, warmup=0)
+            err = FA._compare(out, plain, f"attn {name} {gm}")
+            row = {"case": name, "lowering": gm, "b": b, "h": h, "hkv": hkv,
+                   "s": s, "d": d, "dtype": str(dtype), "kind": kind,
+                   "window": window, "blocks": sched.block_q,
+                   "visited_tiles": sched.domain.num_blocks,
+                   "max_abs_err": err,
+                   "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
+                   "plain_ms": plain_ms}
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            nops = 4 * d * b * h * needed_pairs(kind, s, window)
+            row["bound_ms"], row["bound_by"], row["peak"] = attn_bound(
+                nbytes, nops, dtype)
+            rows.append(row)
+        if kind == "causal":
+            lib = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
+                               enable_gqa=hkv != h)
+        else:
+            qp = torch.arange(s, device=dev)[:, None]
+            kp = torch.arange(s, device=dev)[None, :]
+            mask = (kp <= qp) & (kp > qp - window)
+            lib = lambda: sdpa(q, k, v, attn_mask=mask,  # noqa: E731
+                               enable_gqa=hkv != h)
+        lib_ms = time_ms(lib, 5)
+        lib_err = float((lib().float() - plain.float()).abs().max())
+        for row in rows[-len(LOWERINGS):]:
+            row["library_ms"] = lib_ms
+            row["library_max_abs_err"] = lib_err
+            print(f"[attn] {json.dumps(row)}")
+        del q, k, v, plain
+    return rows
+
+
+def serve_run(S, cfg, model, prompts, max_new, max_len, kernel):
+    """One Server.generate; returns (tokens, step logits (B, T, V) f32,
+    seconds, ms per decode step).  The step time is the host clock
+    between the logits of consecutive steps (each step ends in a
+    device-to-host copy of its tokens)."""
+    steps, stamps = [], []
+
+    def on_step(pos, lg):
+        stamps.append(time.perf_counter())
+        steps.append(lg[:, 0].float())
+
+    srv = S.Server(cfg.replace(attn_decode_kernel=kernel), model,
+                   S.ServeConfig(max_len=max_len))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, max_new, on_step=on_step)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1)
+    return toks, torch.stack(steps, 1), time.perf_counter() - t0, step_ms
+
+
+def margin(logits):
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def compare_streams(ta, la, tb, lb, tol, what):
+    """Streams a and b with their step logits (B, T, V): the logits of
+    every step up to a row's first differing token are compared within
+    ``tol``, and a token may differ only where b's top-2 margin is at
+    most ``tol``.  Returns (max |logit diff|, steps compared, steps with
+    a margin of at most tol, rows that diverged)."""
+    diff, ncmp, small, diverged = 0.0, 0, 0, 0
+    mb = margin(lb)
+    for r in range(ta.shape[0]):
+        neq = (ta[r] != tb[r]).nonzero()[0]
+        last = int(neq[0]) if len(neq) else ta.shape[1] - 1
+        d = float((la[r, :last + 1] - lb[r, :last + 1]).abs().max())
+        check(d <= tol, f"{what} row {r}: step logits differ by {d} > {tol}")
+        diff = max(diff, d)
+        ncmp += last + 1
+        small += int((mb[r, :last + 1] <= tol).sum())
+        if len(neq):
+            m = float(mb[r, last])
+            check(m <= tol, f"{what} row {r}: tokens differ at step "
+                  f"{last} where the top-2 margin is {m} > {tol}")
+            diverged += 1
+    return diff, ncmp, small, diverged
+
+
+def phase_serve(S, TM, get_config, FA, dev):
+    """Server greedy at full width through the block-space decode kernel
+    (counted) and through the plain decode; logits and streams
+    compared."""
+    runs, models = [], {}
+    for arch, cut, batch, plen, max_new, max_len in SERVE_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).replace(**cut)
+        t0 = time.perf_counter()
+        model = TM.init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+        torch.cuda.synchronize()
+        nparams = sum(p.numel() for p in model.parameters())
+        print(f"[serve] {arch}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype} compute; {nparams} {cfg.param_dtype} "
+              f"parameters ({nparams * 4 / 1e9:.1f} GB) from a seeded "
+              f"generator in {time.perf_counter() - t0:.1f} s")
+        prompts = torch.randint(
+            0, cfg.vocab_size, (batch, plen),
+            generator=torch.Generator().manual_seed(SEED)).numpy()
+        FA.reset_launch_counts()
+        tk, lk, secs, step_ms = serve_run(S, cfg, model, prompts, max_new,
+                                          max_len, "blockspace")
+        launches = FA.launch_counts()
+        print(f"[serve] {arch} blockspace: launches {launches}")
+        check(launches["flash_attention"] == cfg.n_layers * (max_new - 1),
+              f"{arch}: {launches['flash_attention']} flash launches, "
+              f"expected layers x decode steps = "
+              f"{cfg.n_layers * (max_new - 1)}")
+        check(launches["paged_flash_attention"] == 0,
+              "the contiguous server launched the paged kernel")
+        tx, lx, xsecs, xstep_ms = serve_run(S, cfg, model, prompts, max_new,
+                                            max_len, "xla")
+        check(FA.launch_counts() == launches,
+              "the plain decode path launched an attention kernel")
+        # timing in turns (kernel, plain, plain, kernel): the first run
+        # also pays the process's first-use costs
+        xsecs2, xstep_ms2 = serve_run(S, cfg, model, prompts, max_new,
+                                      max_len, "xla")[2:]
+        secs2, step_ms2 = serve_run(S, cfg, model, prompts, max_new,
+                                    max_len, "blockspace")[2:]
+        check(tk.shape == (batch, max_new) and bool(torch.isfinite(lk).all()),
+              f"{arch}: bad stream shape {tk.shape} or non-finite logits")
+        tol = SERVE_TOL[cfg.dtype]
+        diff, ncmp, small, diverged = compare_streams(
+            tk, lk, tx, lx, tol, f"serve {arch}")
+        run = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+               "prompt": plen, "max_new": max_new, "max_len": max_len,
+               "dtype": cfg.dtype, "launches": launches,
+               "seconds": [secs, secs2], "xla_seconds": [xsecs, xsecs2],
+               "ms_per_decode_step": [step_ms, step_ms2],
+               "xla_ms_per_decode_step": [xstep_ms, xstep_ms2],
+               "tok_per_s": tk.size / secs2,
+               "xla_tok_per_s": tx.size / xsecs2,
+               "tol": tol, "max_logit_diff": diff,
+               "steps_compared": ncmp, "steps_margin_le_tol": small,
+               "rows_diverged": diverged,
+               "streams_equal": bool((tk == tx).all()),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        runs.append(run)
+        print(f"[serve] {json.dumps(run)}")
+        if arch == "quickstart":
+            models[arch] = (cfg, model, prompts)
+        else:
+            del model
+    return runs, models
+
+
+def paged_requests(vocab):
+    """The JAX package's serve.py mixed-length requests: prompt lengths
+    in [4, PAGED_PROMPT] from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, (int(rng.integers(4, PAGED_PROMPT + 1)),))
+            for _ in range(PAGED_REQUESTS)]
+
+
+def phase_paged(S, FA, cfg, model, dev):
+    """PagedServer on quickstart at full width: 16 mixed requests
+    through 8 slots, a pool small enough to preempt; streams against the
+    single-request Server oracle and the paged plain-decode run."""
+    reqs = paged_requests(cfg.vocab_size)
+    max_len = PAGED_PROMPT + PAGED_NEW
+    scfg = S.PagedServeConfig(max_len=max_len, num_slots=PAGED_SLOTS,
+                              page_size=PAGED_PS, num_pages=PAGED_PAGES,
+                              validate=True)
+    bcfg = cfg.replace(attn_decode_kernel="blockspace")
+    FA.reset_launch_counts()
+    srv = S.PagedServer(bcfg, model, scfg)
+    rep = S.paged_throughput_report(srv, reqs, max_new=PAGED_NEW)
+    launches = FA.launch_counts()
+    print(f"[paged] launches {launches}")
+    check(launches["paged_flash_attention"]
+          == cfg.n_layers * rep["decode_steps"],
+          f"{launches['paged_flash_attention']} paged launches, expected "
+          f"layers x paged steps = {cfg.n_layers * rep['decode_steps']}")
+    check(launches["flash_attention"] == 0,
+          "the paged server launched the contiguous kernel")
+    check(rep["preemptions"] >= 1, "the pool was not small enough to "
+          "preempt")
+    check(srv.alloc.free_pages == PAGED_PAGES - 1, "pages leaked")
+    out = srv.done
+    # the paged plain-decode run, then both again for the timing in turns
+    # (kernel, plain, plain, kernel)
+    xcfg = cfg.replace(attn_decode_kernel="xla")
+    xsrv = S.PagedServer(xcfg, model, scfg)
+    xrep = [S.paged_throughput_report(xsrv, reqs, max_new=PAGED_NEW)]
+    xla = xsrv.done
+    xrep.append(S.paged_throughput_report(S.PagedServer(xcfg, model, scfg),
+                                          reqs, max_new=PAGED_NEW))
+    again = S.paged_throughput_report(S.PagedServer(bcfg, model, scfg), reqs,
+                                      max_new=PAGED_NEW)
+    oracle = S.Server(cfg.replace(attn_decode_kernel="xla"), model,
+                      S.ServeConfig(max_len=max_len))
+    tol = SERVE_TOL[cfg.dtype]
+    small = diverged = 0
+    for rid, prompt in enumerate(reqs):
+        steps = []
+        want = oracle.generate(prompt[None], PAGED_NEW, on_step=lambda p, lg:
+                               steps.append(lg[0, 0].float()))[0]
+        mo = margin(torch.stack(steps))
+        small += int((mo <= tol).sum())
+        for name, got in (("paged blockspace", out[rid]),
+                          ("paged xla", xla[rid])):
+            neq = (got != want).nonzero()[0]
+            if len(neq):
+                m = float(mo[int(neq[0])])
+                check(m <= tol, f"{name} request {rid} differs from the "
+                      f"single-request oracle at step {int(neq[0])} where "
+                      f"the margin is {m} > {tol}")
+                diverged += 1
+    rep.update({"launches": launches, "oracle_steps_margin_le_tol": small,
+                "streams_diverged": diverged,
+                "streams_equal_oracle": diverged == 0,
+                "second_run": {k: again[k] for k in TIMING_KEYS},
+                "xla_runs": [{k: r[k] for k in TIMING_KEYS} for r in xrep]})
+    print(f"[paged] {json.dumps(rep)}")
+    print(f"[paged] {PAGED_REQUESTS} requests: streams equal the "
+          f"single-request oracle and the paged plain-decode run "
+          f"({diverged} divergences, all at top-2 margins <= {tol}); "
+          f"page table verified at every step")
+    return rep
+
+
+def gemma_decode_check(FA, dev):
+    """The flash kernel against its plain version at the decode shape of
+    the gemma3-12b Server (B 4, 16/8 heads of 256, bf16, cache 1664,
+    block_k 128, per-row positions past 1536) with its local layers'
+    window of 1024 and its global layers' full range; returns the max
+    |err|."""
+    arch, cut, b, plen, max_new, max_len = SERVE_RUNS[1]
+    q, k, v = attn_inputs([(b, 16, 1, 256), (b, 8, max_len, 256),
+                           (b, 8, max_len, 256)], torch.bfloat16, 902, dev)
+    pv = torch.tensor([plen, plen + 3, plen + 7, plen + max_new - 1],
+                      dtype=torch.int32, device=dev)
+    err = 0.0
+    for window in (1024, 0):
+        sched = FA.flash_schedule(q.shape, k.shape, kind="full",
+                                  window=window, block_q=1, block_k=128,
+                                  has_pos=True)
+        err = max(err, FA.check_flash_against_plain(q, k, v, sched, pv)[0])
+    print(f"[decode] {arch} decode shape (B {b}, 16/8 heads of 256 bf16, "
+          f"cache {max_len}, positions {pv.tolist()}, window 1024 and 0): "
+          f"kernel within 2e-2 of its plain version, max |err| {err}")
+    return err
+
+
+def decode_timings(FA, P, cfg, prompts, dev):
+    """Both attention kernels at their serving shapes (the kernels
+    line): the contiguous decode of the quickstart Server at position
+    prompt + max_new / 2, and the paged decode of 8 slots."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, plen = prompts.shape
+    pos = plen + SERVE_RUNS[0][4] // 2
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    max_len = SERVE_RUNS[0][5]
+    q, k, v = attn_inputs([(b, h, 1, d), (b, hkv, max_len, d),
+                           (b, hkv, max_len, d)], torch.float32, 900, dev)
+    sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
+                              block_k=128, has_pos=True)
+    pv = FA.seq_pos_vector(pos, b, dev)
+    err, _ = FA.check_flash_against_plain(q, k, v, sched, pv)
+    err = max(err, gemma_decode_check(FA, dev))
+    tiles = pos // 128 + 1
+    out = {"flash_attention": {
+        "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched, pv), 50),
+        "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v, sched,
+                                                             pv), 10),
+        "library_ms": time_ms(lambda: sdpa(q, k[:, :, :pos + 1],
+                                           v[:, :, :pos + 1]), 50),
+        "max_abs_err": err,
+        "at": f"quickstart decode: B={b} H={h} D={d} f32, cache {max_len}, "
+              f"seq_pos {pos}, block_k 128 ({tiles} tiles read)"}}
+    # q read, o written, and the keys and values 0..pos of every row
+    nbytes = 2 * q.numel() * 4 + 2 * b * hkv * (pos + 1) * d * 4
+    nops = 4 * d * b * h * (pos + 1)
+    out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"], \
+        _ = attn_bound(nbytes, nops, torch.float32)
+    # paged: 8 slots at mixed positions
+    ps, slots = PAGED_PS, PAGED_SLOTS
+    smax = PAGED_PROMPT + PAGED_NEW
+    q, k, v = attn_inputs([(slots, h, 1, d), (slots, hkv, smax, d),
+                           (slots, hkv, smax, d)], torch.float32, 901, dev)
+    pool, table = paged_copy(k, v, ps, P, dev, 5)
+    posv = torch.randint(4, smax, (slots,), generator=torch.Generator(
+        ).manual_seed(SEED)).to(dev, torch.int32)
+    psched = FA.paged_schedule(q.shape, pool.shape, table.shape)
+    err, _ = FA.check_paged_against_plain(q, pool, table, posv, psched)
+    mask = (torch.arange(smax, device=dev)[None, :]
+            <= posv[:, None].long())[:, None, None, :]
+    pages = int((posv.long() // ps + 1).sum())
+    out["paged_flash_attention"] = {
+        "ms": time_ms(lambda: FA.paged_cuda(q, pool, table, posv, psched),
+                      50),
+        "plain_ms": time_ms(lambda: FA.paged_attention_plain(
+            q, pool, table, posv, psched), 10),
+        "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=mask), 50),
+        "library_note": "scaled_dot_product_attention on the same K/V "
+                        "gathered into contiguous caches (gather not timed)",
+        "max_abs_err": err,
+        "at": f"quickstart paged decode: {slots} slots H={h} D={d} f32, "
+              f"pages of {ps}, positions {posv.tolist()} ({pages} pages "
+              f"read)"}
+    keys = int((posv.long() + 1).sum())
+    nbytes = 2 * q.numel() * 4 + 2 * hkv * keys * d * 4
+    nops = 4 * d * h * keys
+    out["paged_flash_attention"]["bound_ms"], \
+        out["paged_flash_attention"]["bound_by"], _ = attn_bound(
+            nbytes, nops, torch.float32)
+    for name, row in out.items():
+        print(f"[decode] {name}: {json.dumps(row)}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -804,12 +1366,21 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     import importlib
 
+    from repro_torch.configs import get_config
     from repro_torch.core import fractal as F
-    from repro_torch.core.compact import cell_neighbor_tables, compact_layout
+    from repro_torch.core import paged as P
+    from repro_torch.core.compact import (cell_neighbor_tables,
+                                          compact_layout, pack_kv)
     from repro_torch.core.plan import LOWERINGS
     from repro_torch.kernels import _cuda, ops
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as TM
     TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
     TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    # f32 matmuls of the plain versions and the model in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -826,6 +1397,14 @@ def main():
                        cell_neighbor_tables, TW, dev)
     comp = phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev)
     merge_err(errs, comp["err"])
+    t_attn = time.perf_counter()
+    attn_err = phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev)
+    attn_rows = phase_attn(FA, LOWERINGS, dev)
+    serve_runs, models = phase_serve(S, TM, get_config, FA, dev)
+    qcfg, qmodel, qprompts = models["quickstart"]
+    paged = phase_paged(S, FA, qcfg, qmodel, dev)
+    decode = decode_timings(FA, P, qcfg, qprompts, dev)
+    print(f"[attention phases] {time.perf_counter() - t_attn:.1f} s")
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -864,12 +1443,33 @@ def main():
         "at": f"gasket n={N_MAIN} rho={CA_RHO} compact f32 {gm} fuse={fuse} "
               f"{rule}, one launch",
     })
+    serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
+    serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
+    for name, replaces, launches, extra in [
+            ("flash_attention", "src/repro/kernels/flash_attention.py:103",
+             serve_q["launches"]["flash_attention"],
+             {"launches_gemma3_12b_serve": serve_g["launches"][
+                 "flash_attention"]}),
+            ("paged_flash_attention",
+             "src/repro/kernels/flash_attention.py:654",
+             paged["launches"]["paged_flash_attention"], {})]:
+        row = decode[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(attn_err[name], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "at": row["at"], **extra})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "parity_max_abs_err": errs, "sweep": rows,
         "rho1_write_ms": rho1, "peak_gib": peak, "ca": ca,
-        "compact": comp, "kernels": kernels,
+        "compact": comp, "attn_parity_max_abs_err": attn_err,
+        "attn": attn_rows, "serve": serve_runs, "paged": paged,
+        "decode": decode, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "
           f"{OUT.relative_to(ROOT)}")

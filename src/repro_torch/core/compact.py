@@ -25,8 +25,9 @@ The layout answers three questions:
                               shipped through GridPlan's ``prefetch_lut``
                               table.
 
-``key_block_support`` and ``pack_kv`` (compact KV for attention) come
-with the attention kernels.
+``key_block_support`` and ``pack_kv`` give the compact KV of the
+attention kernels: the 1-D analogue of the packing, a K/V tensor trimmed
+to the key blocks its domain touches.
 """
 from __future__ import annotations
 
@@ -420,6 +421,30 @@ def cell_neighbor_tables(r: int, spec: F.FractalSpec = F.SIERPINSKI,
         hit = ok & (skeys[pos] == nk)
         tables[j] = torch.where(hit, order[pos], vol).to(torch.int32)
     return tables
+
+
+# ---------------------------------------------------------------------------
+# Compact KV support for the attention kernels: the 1-D analogue of the
+# packing above.  An attention block domain touches key blocks [lo, hi);
+# storing only that support is the sliding-window KV-cache truncation
+# (exact for the rectangular decode-convention BandDomain, identity for
+# causal / full / square-band whose support is all of m_k).
+# ---------------------------------------------------------------------------
+
+def key_block_support(domain: BlockDomain) -> Tuple[int, int]:
+    """[lo, hi) key-block (column) support of an attention block domain."""
+    c = domain.coords_host()
+    if len(c) == 0:
+        return 0, 0
+    return int(c[:, 0].min()), int(c[:, 0].max()) + 1
+
+
+def pack_kv(kv: torch.Tensor, domain: BlockDomain, block: int) -> torch.Tensor:
+    """Trim a (..., sk, d) K or V tensor to the domain's key-block
+    support: the compact KV the ``storage='compact'`` flash path reads
+    (a view of ``kv``)."""
+    lo, hi = key_block_support(domain)
+    return kv[..., lo * block:hi * block, :]
 
 
 # ---------------------------------------------------------------------------

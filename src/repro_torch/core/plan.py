@@ -103,6 +103,16 @@ def normalize_storage(name: str) -> str:
     return name
 
 
+def xla_schedule(lowering: str) -> str:
+    """The plain-tensor flash-attention schedule equivalent to a lowering.
+
+    ``closed_form``/``prefetch_lut`` only launch member blocks -- the
+    mirror is the ``triangular`` (compact) schedule; ``bounding``
+    mirrors the ``dense`` masked schedule."""
+    return "dense" if normalize_lowering(lowering) == "bounding" else \
+        "triangular"
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchParams:
     """The launch parameters of the fractal kernels (write, sum, CA).
@@ -486,7 +496,7 @@ class GridPlan:
         else:
             raise NotImplementedError(
                 f"no device-side decode for the {dom.name!r} domain yet "
-                f"(ROADMAP A6)")
+                f"(ROADMAP A15)")
         nbx, _ = dom.bounding_box
         lut = self.lut(device) if self.lowering == "prefetch_lut" else None
         th, tw = self.supertile_shape((block, block))

@@ -27,7 +27,8 @@ from repro_torch.core.plan import C_PARAMS, LOWERING_CODES
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: library name -> its one .cu source (headers: every .cuh in csrc/)
 SOURCES = {"sierpinski_write": "sierpinski_write.cu",
-           "sierpinski_ca": "sierpinski_ca.cu"}
+           "sierpinski_ca": "sierpinski_ca.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,0 +1,725 @@
+"""Block-space flash attention and paged decode.
+
+The (q_block, k_block) pairs of causal attention form a lower-triangular
+block domain -- the 2-simplex case of the block-space program -- and
+local attention a band.  ``flash_attention`` visits exactly the member
+tiles of the domain, one CTA per (batch * head, query-block row) with an
+in-kernel loop over that row's key-block extent (the JAX package's gpu
+structure).  ``grid_mode`` selects where the extent comes from:
+
+* ``closed_form`` (alias ``compact``) -- the row bounds in closed form;
+* ``prefetch_lut`` -- the host-built ``GridPlan.row_extents()`` table,
+  an int32 (m_q, 2) device tensor memoized per domain and device;
+* ``bounding`` -- the full key range, skipping the tiles outside the
+  domain (the JAX package computes and discards them; the result is the
+  same).
+
+Compact KV (``storage="compact"``): ``kind="local"`` with ``sq < sk``
+(queries are the last sq positions) touches only the last key blocks,
+and compact storage reads K/V packed to exactly that support
+(:func:`repro_torch.core.compact.pack_kv`); pass the true key length as
+``kv_seq_len``.  ``seq_pos`` (decode, ``kind="full"`` only) masks keys
+past each batch row's position, truncates the key loop at
+``pos // block_k``, and with ``window=`` gives a run-time sliding window.
+
+``paged_flash_attention`` is the single-token decode over a paged,
+head-interleaved KV pool (:mod:`repro_torch.core.paged`): one CTA per
+(slot, head), the loop resolving each logical key block to its physical
+page through the page table.  At ``block_k == page_size`` it is bit-equal
+to the contiguous ``seq_pos`` decode: both kernels run one shared tile
+update (``csrc/attention_common.cuh``) in the same order.
+
+Each kernel sits beside its plain PyTorch version (the same row bounds,
+tile order and masks as tensor index math, vectorized over rows and
+heads).  The entry points follow the tensors' device: CUDA tensors
+launch the kernels of ``csrc/flash_attention.cu`` (or raise), CPU
+tensors run the plain versions.  Each CUDA wrapper counts its launches
+in ``launches``.
+
+Forward only.  Not ported yet: ``grid_mode="mma"`` (ROADMAP A9), the
+tuner (``"auto"``, ``num_warps``, ``num_stages``: A8), ``mesh=`` and the
+shard balances (A12), ``verify=`` (A13), and the backward (A11).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import backend as backend_lib
+from repro_torch.core import memo
+from repro_torch.core.compact import key_block_support
+from repro_torch.core.domain import BlockDomain, make_attention_domain
+from repro_torch.core.plan import GridPlan, normalize_lowering, normalize_storage
+
+from . import _cuda
+
+NEG_INF = float(-1e30)  # avoid true -inf so exp() stays nan-free
+
+#: the kernels' head dims (csrc/attention_common.cuh); their shared
+#: memory per CTA (``fa_smem_bytes``) must fit the card's opt-in limit.
+MAX_HEAD_DIM = 256
+DTYPES = (torch.float32, torch.bfloat16)
+
+#: order of the integer launch parameters (``Param`` in
+#: csrc/attention_common.cuh)
+ATTN_PARAMS = ("b", "h", "hkv", "sq", "d", "block_q", "block_k", "m_q",
+               "m_k", "kind", "window", "off", "s0", "kv_blocks", "sk_arr",
+               "lowering", "dom", "dom_w", "dom_off", "has_pos")
+KIND_CODES = {"causal": 0, "local": 1, "full": 2}
+LOWERING_CODES = {"closed_form": 0, "prefetch_lut": 1, "bounding": 2}
+DOM_ALL, DOM_TRIANGULAR, DOM_BAND = 0, 1, 2
+
+
+def _unported(num_warps=None, num_stages=None, mesh=None, verify=False,
+              block_q=None, block_k=None) -> None:
+    """Raise NotImplementedError naming the roadmap item of an option
+    the port does not have yet."""
+    if "auto" in (block_q, block_k) or num_warps not in (None,) or \
+            num_stages not in (None, 1):
+        raise NotImplementedError(
+            "the tuner's 'auto' geometry, num_warps and num_stages are "
+            "not ported yet (ROADMAP A8)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sharded flash attention) is not ported yet (ROADMAP "
+            "A12)")
+    if verify:
+        raise NotImplementedError(
+            "verify= (static plan verification) is not ported yet "
+            "(ROADMAP A13)")
+
+
+# ---------------------------------------------------------------------------
+# the schedule: validation and row bounds
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FlashSchedule:
+    """One flash launch after the JAX package's ``_flash_impl``
+    validation: shapes, block geometry, the block domain and its
+    lowering, and the compact-KV shift ``s0``."""
+
+    b: int
+    h: int
+    hkv: int
+    sq: int
+    sk: int
+    sk_arr: int
+    d: int
+    kind: str
+    window: int
+    scale: float
+    block_q: int
+    block_k: int
+    m_q: int
+    m_k: int
+    wb: int
+    off: int
+    s0: int
+    lowering: str
+    domain: BlockDomain
+
+    @property
+    def group(self) -> int:
+        return self.h // self.hkv
+
+    @property
+    def kv_blocks(self) -> int:
+        return self.m_k - self.s0
+
+    def row_bounds(self) -> np.ndarray:
+        """(m_q, 2) int32 [start, end] of every query-block row before
+        the seq_pos clamp, as the lowering computes it."""
+        if self.lowering == "prefetch_lut":
+            return GridPlan(self.domain, "prefetch_lut",
+                            backend="cpu").row_extents()
+        qb = np.arange(self.m_q, dtype=np.int64)
+        if self.lowering == "bounding" or self.kind == "full":
+            lo, hi = np.zeros_like(qb), np.full_like(qb, self.m_k - 1)
+        elif self.kind == "causal":
+            lo, hi = np.zeros_like(qb), qb
+        else:
+            off_b = self.off // self.block_q
+            lo = np.maximum(qb + off_b - (self.wb - 1), 0)
+            hi = qb + off_b
+        return np.stack([lo, hi], -1).astype(np.int32)
+
+    def row_extents(self, device) -> torch.Tensor:
+        """The prefetch_lut extents as an int32 (m_q, 2) tensor on
+        ``device``, memoized per (domain, device)."""
+        device = torch.device(device)
+        return memo.cached(
+            "flash-row-extents", self.domain, (str(device),),
+            lambda: torch.from_numpy(self.row_bounds()).to(device))
+
+    def member(self, kb, qb):
+        """Block-domain membership of key block kb in query row qb (the
+        bounding lowering's skip test)."""
+        if getattr(self.domain, "always_member", False):
+            return torch.ones_like(kb, dtype=torch.bool) \
+                if isinstance(kb, torch.Tensor) else True
+        return self.domain.contains(kb, qb)
+
+    def _dom(self) -> Tuple[int, int, int]:
+        if self.lowering != "bounding" or getattr(
+                self.domain, "always_member", False):
+            return DOM_ALL, 0, 0
+        if self.kind == "causal":
+            return DOM_TRIANGULAR, 0, 0
+        return DOM_BAND, self.domain.w, self.domain.off
+
+    def c_params(self, has_pos: bool) -> ctypes.Array:
+        dom, dom_w, dom_off = self._dom()
+        vals = dict(b=self.b, h=self.h, hkv=self.hkv, sq=self.sq, d=self.d,
+                    block_q=self.block_q, block_k=self.block_k,
+                    m_q=self.m_q, m_k=self.m_k,
+                    kind=KIND_CODES[self.kind], window=self.window,
+                    off=self.off, s0=self.s0, kv_blocks=self.kv_blocks,
+                    sk_arr=self.sk_arr,
+                    lowering=LOWERING_CODES[self.lowering], dom=dom,
+                    dom_w=dom_w, dom_off=dom_off, has_pos=int(has_pos))
+        return (ctypes.c_longlong * len(ATTN_PARAMS))(
+            *[int(vals[name]) for name in ATTN_PARAMS])
+
+
+def flash_schedule(q_shape, k_shape, *, kind: str = "causal",
+                   window: int = 0, scale: Optional[float] = None,
+                   block_q: int = 128, block_k: int = 128,
+                   grid_mode: str = "compact", storage: str = "embedded",
+                   kv_seq_len: Optional[int] = None,
+                   has_pos: bool = False) -> FlashSchedule:
+    """Validate a flash launch exactly as the JAX package's
+    ``_flash_impl`` does (same ``ValueError``\\ s, raised before any
+    launch) and return its :class:`FlashSchedule`."""
+    b, h, sq, d = (int(x) for x in q_shape)
+    _, hkv, sk_arr, _ = (int(x) for x in k_shape)
+    if scale is None:
+        scale = float(1.0 / np.sqrt(d))
+    lowering = normalize_lowering(grid_mode)
+    storage = normalize_storage(storage)
+    sk = kv_seq_len if kv_seq_len is not None else sk_arr
+    if kind == "local":
+        # rectangular local (sq < sk) still needs square blocks: clamp
+        # both to one value instead of letting min(.., sq) / min(.., sk)
+        # diverge
+        block_q = block_k = min(block_q, block_k, sq, sk)
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError("sequence must be divisible by block size")
+    m_q, m_k = sq // block_q, sk // block_k
+
+    wb = 0
+    if kind == "causal" and (sq != sk or block_q != block_k):
+        raise ValueError("causal requires a square block grid")
+    if kind == "local":
+        if block_q != block_k or window % block_k:
+            raise ValueError("local: need block_q == block_k | window")
+        if (sk - sq) % block_k:
+            raise ValueError("local: Sk - Sq must be block-aligned")
+        wb = window // block_k + 1
+    off = sk - sq if kind == "local" else 0
+    if has_pos and kind != "full":
+        raise ValueError(
+            f"seq_pos requires kind='full' (got kind={kind!r}); pass "
+            f"window= for a run-time sliding window anchored at "
+            f"seq_pos")
+
+    domain = make_attention_domain(kind, m_q, m_k, wb)
+    # compact KV: k/v hold only the key blocks in [s0, m_k)
+    s0 = key_block_support(domain)[0] if storage == "compact" else 0
+    if sk_arr != sk - s0 * block_k:
+        raise ValueError(
+            f"{storage} storage expects k/v of {sk - s0 * block_k} key "
+            f"positions (support blocks [{s0}, {m_k}) of sk={sk}), got "
+            f"{sk_arr}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"q heads ({h}) must be a multiple of the kv "
+                         f"heads ({hkv})")
+    return FlashSchedule(b=b, h=h, hkv=hkv, sq=sq, sk=sk, sk_arr=sk_arr,
+                         d=d, kind=kind, window=int(window),
+                         scale=float(scale), block_q=block_q,
+                         block_k=block_k, m_q=m_q, m_k=m_k, wb=wb, off=off,
+                         s0=s0, lowering=lowering, domain=domain)
+
+
+def seq_pos_vector(seq_pos, b: int, device) -> Optional[torch.Tensor]:
+    """seq_pos as a (B,) int32 tensor on ``device``: a scalar (or a
+    1-vector) broadcasts, a (B,) vector carries one position per row."""
+    if seq_pos is None:
+        return None
+    sp = torch.as_tensor(seq_pos).to(device=device, dtype=torch.int32)
+    if sp.ndim == 0 or tuple(sp.shape) == (1,):
+        return sp.reshape(()).expand(b).contiguous()
+    if tuple(sp.shape) != (b,):
+        raise ValueError(
+            f"seq_pos must be a scalar or a ({b},) per-row vector, got "
+            f"shape {tuple(sp.shape)}")
+    return sp.contiguous()
+
+
+def _check_qkv(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(
+            f"expected q (B, H, Sq, D) and k, v (B, Hkv, Sk, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"k/v batch and head dim must match q's: q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the same tiles, masks and order as tensor index math
+# ---------------------------------------------------------------------------
+
+def _attend_plain(qf, tiles, start, end, nsteps, *, kind, window,
+                  block_k, qpos, pos, member=None):
+    """The online-softmax loop shared by both plain versions.
+
+    qf: (B, Hkv, G, R, BQ, D) pre-scaled f32 queries (R query-block
+    rows); start/end: (B, R) key-block extents; ``tiles(kb)`` returns
+    the f32 (K, V) tiles of key blocks kb (B, R), each (B, Hkv, R, BK,
+    D).  Step j updates row r with tile start + j where that lies in
+    [start, end] (and ``member(kb)`` holds).  qpos: (R, BQ) query
+    positions; pos: (B,) decode positions or None.  Returns (acc, l)."""
+    b, hkv, g, rows, bq, d = qf.shape
+    acc = qf.new_zeros((b, hkv, g, rows, bq, d))
+    m = qf.new_full((b, hkv, g, rows, bq, 1), NEG_INF)
+    l = qf.new_zeros((b, hkv, g, rows, bq, 1))
+    kidx = torch.arange(block_k, device=qf.device)
+    for j in range(nsteps):
+        kb = start + j                                    # (B, R)
+        live = kb <= end
+        if member is not None:
+            live = live & member(kb)
+        kt, vt = tiles(kb)
+        s = torch.einsum("bhgrqd,bhrkd->bhgrqk", qf, kt)
+        kpos = (kb[:, :, None] * block_k + kidx)[:, None, None, :, None, :]
+        mask = None
+        if kind in ("causal", "local"):
+            qp = qpos[None, None, None, :, :, None]
+            mask = kpos <= qp
+            if kind == "local":
+                mask = mask & (kpos > qp - window)
+        if pos is not None:
+            pp = pos.long()[:, None, None, None, None, None]
+            pm = kpos <= pp
+            if kind == "full" and window:
+                pm = pm & (kpos > pp - window)
+            mask = pm if mask is None else mask & pm
+        if mask is not None:
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l_new = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * alpha + torch.einsum("bhgrqk,bhrkd->bhgrqd", p, vt)
+        upd = live[:, None, None, :, None, None]
+        acc = torch.where(upd, acc_new, acc)
+        m = torch.where(upd, m_new, m)
+        l = torch.where(upd, l_new, l)
+    return acc, torch.where(l == 0, 1.0, l)
+
+
+def _extents(start, end, pos, kind, window, block_k, cap=None):
+    """Apply the seq_pos clamp to (B, R) extents; returns (start, end,
+    nsteps)."""
+    if pos is not None:
+        p = pos.long()[:, None]
+        end = torch.minimum(end, torch.div(p, block_k, rounding_mode="floor"))
+        if kind == "full" and window:
+            lo = torch.div((p - window + 1).clamp(min=0), block_k,
+                           rounding_mode="floor")
+            start = torch.maximum(start, lo)
+    if cap is not None:
+        end = end.clamp(max=cap)
+    nsteps = int((end - start + 1).max().clamp(min=0)) if end.numel() else 0
+    return start, end, nsteps
+
+
+def flash_attention_plain(q, k, v, sched: FlashSchedule,
+                          pos: Optional[torch.Tensor] = None):
+    """Plain version of the flash kernel: every query-block row walks
+    its key-block extent in step order, all rows and heads at once."""
+    b, h, sq, d = q.shape
+    hkv, g, bq, bk = sched.hkv, sched.group, sched.block_q, sched.block_k
+    dev = q.device
+    qf = (q.to(torch.float32) * sched.scale).reshape(
+        b, hkv, g, sched.m_q, bq, d)
+    kf = k.to(torch.float32).reshape(b, hkv, sched.kv_blocks, bk, d)
+    vf = v.to(torch.float32).reshape(b, hkv, sched.kv_blocks, bk, d)
+    bounds = torch.from_numpy(sched.row_bounds()).to(dev, torch.int64)
+    start = bounds[:, 0].expand(b, sched.m_q)
+    end = bounds[:, 1].expand(b, sched.m_q)
+    start, end, nsteps = _extents(start, end, pos, sched.kind,
+                                  sched.window, bk)
+    bidx = torch.arange(b, device=dev)[:, None]
+
+    def tiles(kb):
+        kv = (kb - sched.s0).clamp(0, sched.kv_blocks - 1)
+        return (kf[bidx, :, kv].permute(0, 2, 1, 3, 4).contiguous(),
+                vf[bidx, :, kv].permute(0, 2, 1, 3, 4).contiguous())
+
+    qb = torch.arange(sched.m_q, device=dev)[None, :]
+    member = None
+    if sched.lowering == "bounding" and not getattr(
+            sched.domain, "always_member", False):
+        member = lambda kb: sched.member(kb, qb)  # noqa: E731
+    qpos = sched.off + torch.arange(sched.m_q, device=dev)[:, None] * bq \
+        + torch.arange(bq, device=dev)[None, :]
+    acc, l = _attend_plain(qf, tiles, start, end, nsteps, kind=sched.kind,
+                           window=sched.window, block_k=bk, qpos=qpos,
+                           pos=pos, member=member)
+    return (acc / l).reshape(b, h, sq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged decode: schedule and plain version
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PagedSchedule:
+    """One paged decode launch after ``_paged_impl``'s validation."""
+
+    b: int
+    h: int
+    hkv: int
+    d: int
+    page_size: int
+    max_pages: int
+    window: int
+    scale: float
+
+    @property
+    def group(self) -> int:
+        return self.h // self.hkv
+
+    def c_params(self) -> ctypes.Array:
+        vals = dict(b=self.b, h=self.h, hkv=self.hkv, sq=1, d=self.d,
+                    block_q=1, block_k=self.page_size, m_q=1,
+                    m_k=self.max_pages, kind=KIND_CODES["full"],
+                    window=self.window, off=0, s0=0,
+                    kv_blocks=self.max_pages, sk_arr=0, lowering=0,
+                    dom=DOM_ALL, dom_w=0, dom_off=0, has_pos=1)
+        return (ctypes.c_longlong * len(ATTN_PARAMS))(
+            *[int(vals[name]) for name in ATTN_PARAMS])
+
+
+def paged_schedule(q_shape, pool_shape, table_shape, *, window: int = 0,
+                   scale: Optional[float] = None) -> PagedSchedule:
+    """Validate a paged decode as the JAX package's ``_paged_impl``."""
+    b, h, sq, d = (int(x) for x in q_shape)
+    if sq != 1:
+        raise ValueError(f"paged decode is single-token: Sq={sq}")
+    num_pages, h2, page_size, dp = (int(x) for x in pool_shape)
+    if h2 % 2 or dp != d:
+        raise ValueError(
+            f"kv_pool must be (P, 2*Hkv, page_size, {d}), got "
+            f"{tuple(pool_shape)}")
+    hkv = h2 // 2
+    if len(table_shape) != 2:
+        raise ValueError(f"page_table must be (slots, max_pages), got "
+                         f"{tuple(table_shape)}")
+    if table_shape[0] != b:
+        raise ValueError(
+            f"page_table rows ({table_shape[0]}) != slots ({b})")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"q heads ({h}) must be a multiple of the kv "
+                         f"heads ({hkv})")
+    if scale is None:
+        scale = float(1.0 / np.sqrt(d))
+    return PagedSchedule(b=b, h=h, hkv=hkv, d=d, page_size=page_size,
+                         max_pages=int(table_shape[1]), window=int(window),
+                         scale=float(scale))
+
+
+def paged_attention_plain(q, kv_pool, page_table, pos,
+                          sched: PagedSchedule):
+    """Plain version of the paged decode kernel: per step, gather each
+    slot's page and run the same online-softmax update as the contiguous
+    ``seq_pos`` decode (bit-equal to it at block_k == page_size)."""
+    b, h, _, d = q.shape
+    hkv, g, ps = sched.hkv, sched.group, sched.page_size
+    dev = q.device
+    qf = (q.to(torch.float32) * sched.scale).reshape(b, hkv, g, 1, 1, d)
+    pool = kv_pool.to(torch.float32).reshape(-1, hkv, 2, ps, d)
+    table = page_table.to(dev, torch.int64)
+    start = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    end = torch.full((b, 1), sched.max_pages - 1, dtype=torch.int64,
+                     device=dev)
+    start, end, nsteps = _extents(start, end, pos, "full", sched.window, ps,
+                                  cap=sched.max_pages - 1)
+    bidx = torch.arange(b, device=dev)[:, None]
+
+    def tiles(kb):
+        page = table[bidx, kb.clamp(0, sched.max_pages - 1)]   # (B, 1)
+        t = pool[page]                                 # (B, 1, Hkv, 2, ps, d)
+        return (t[:, :, :, 0].permute(0, 2, 1, 3, 4).contiguous(),
+                t[:, :, :, 1].permute(0, 2, 1, 3, 4).contiguous())
+
+    qpos = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    acc, l = _attend_plain(qf, tiles, start, end, nsteps, kind="full",
+                           window=sched.window, block_k=ps, qpos=qpos,
+                           pos=pos)
+    return (acc / l).reshape(b, h, 1, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "fa_forward_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
+    "fa_forward_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
+    "fa_paged_decode_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
+    "fa_paged_decode_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _cuda.load("flash_attention")
+    if not getattr(lib, "_repro_bound", False):
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.fa_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fa_smem_bytes.restype = ctypes.c_longlong
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib._repro_bound = True
+    return lib
+
+
+def _check_cuda(what: str, *tensors) -> None:
+    """The kernels take contiguous CUDA tensors of one supported dtype on
+    one device, head dims up to 256."""
+    t0 = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != t0.device:
+            raise ValueError(
+                f"the {what} kernel needs CUDA tensors on one device, got "
+                f"{[str(x.device) for x in tensors]}")
+        if t.dtype != t0.dtype:
+            raise TypeError(f"the {what} kernel needs one dtype, got "
+                            f"{[x.dtype for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"the {what} kernel needs contiguous tensors")
+    if t0.dtype not in DTYPES:
+        raise TypeError(f"dtype {t0.dtype} is not supported; expected one "
+                        f"of {DTYPES}")
+    d = t0.shape[-1]
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside the kernels' [1, "
+                         f"{MAX_HEAD_DIM}]")
+
+
+def _check_smem(lib, device, d: int, block_k: int) -> None:
+    need = lib.fa_smem_bytes(d, block_k)
+    have = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(
+            f"block_k={block_k} at head dim {d} needs {need} B of shared "
+            f"memory per CTA, more than the card's {have}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_cuda(q, k, v, sched: FlashSchedule,
+               pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the flash kernel: (B, H, Sq, D) in q's dtype."""
+    _check_cuda("flash attention", q, k, v)
+    lib = _lib()
+    _check_smem(lib, q.device, sched.d, sched.block_k)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    ext = sched.row_extents(q.device) if sched.lowering == "prefetch_lut" \
+        else None
+    if pos is not None and (pos.device != q.device
+                            or pos.dtype != torch.int32):
+        raise ValueError("seq_pos must be an int32 tensor on q's device")
+    fn = lib.fa_forward_f32 if q.dtype == torch.float32 \
+        else lib.fa_forward_bf16
+    with torch.cuda.device(q.device):
+        status = fn(sched.c_params(pos is not None), sched.scale,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    _cuda.ptr(ext), _cuda.ptr(pos), out.data_ptr(),
+                    _stream(q.device))
+    flash_cuda.launches += 1
+    _cuda.raise_on(lib, status, "flash attention kernel")
+    return out
+
+
+flash_cuda.launches = 0
+
+
+def paged_cuda(q, kv_pool, page_table, pos,
+               sched: PagedSchedule) -> torch.Tensor:
+    """Launch the paged decode kernel: (B, H, 1, D) in q's dtype."""
+    _check_cuda("paged decode", q, kv_pool)
+    lib = _lib()
+    _check_smem(lib, q.device, sched.d, sched.page_size)
+    for name, t in (("page_table", page_table), ("seq_pos", pos)):
+        if (t.device != q.device or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"q's device")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = lib.fa_paged_decode_f32 if q.dtype == torch.float32 \
+        else lib.fa_paged_decode_bf16
+    with torch.cuda.device(q.device):
+        status = fn(sched.c_params(), sched.scale, q.data_ptr(),
+                    kv_pool.data_ptr(), page_table.data_ptr(),
+                    pos.data_ptr(), out.data_ptr(), _stream(q.device))
+    paged_cuda.launches += 1
+    _cuda.raise_on(lib, status, "paged decode kernel")
+    return out
+
+
+paged_cuda.launches = 0
+
+#: kernel name -> its CUDA wrapper (each carries ``launches``)
+KERNELS = {"flash_attention": flash_cuda,
+           "paged_flash_attention": paged_cuda}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions (chip_smoke.py, the cuda tests)
+# ---------------------------------------------------------------------------
+
+#: kernel-vs-plain tolerance per input dtype: the JAX tests' own
+#: (tests/test_kernels.py, f32 and bf16).  The kernel sums each dot
+#: product sequentially over d and the plain version through a matmul.
+TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _compare(got, want, what) -> float:
+    tol = TOLERANCE[want.dtype]
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: kernel != plain version (max |err| "
+                             f"{err}, rtol = atol = {tol})")
+    return err
+
+
+def check_flash_against_plain(q, k, v, sched: FlashSchedule, pos=None):
+    """Run the flash kernel and its plain version on the same inputs;
+    raise AssertionError unless they agree within TOLERANCE.  Returns
+    (max |err|, kernel output)."""
+    got = flash_cuda(q, k, v, sched, pos)
+    want = flash_attention_plain(q, k, v, sched, pos)
+    what = (f"flash {sched.kind} {sched.lowering} q {tuple(q.shape)} "
+            f"k {tuple(k.shape)} blocks {sched.block_q}/{sched.block_k} "
+            f"{q.dtype}")
+    return _compare(got, want, what), got
+
+
+def check_paged_against_plain(q, kv_pool, page_table, pos,
+                              sched: PagedSchedule):
+    """Run the paged kernel and its plain version; raise unless they
+    agree within TOLERANCE.  Returns (max |err|, kernel output)."""
+    got = paged_cuda(q, kv_pool, page_table, pos, sched)
+    want = paged_attention_plain(q, kv_pool, page_table, pos, sched)
+    what = (f"paged decode q {tuple(q.shape)} pool "
+            f"{tuple(kv_pool.shape)} {q.dtype}")
+    return _compare(got, want, what), got
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                    scale: float | None = None, block_q: int = 128,
+                    block_k: int = 128, grid_mode: str = "compact",
+                    storage: str = "embedded",
+                    kv_seq_len: int | None = None, seq_pos=None,
+                    num_warps=None, num_stages=None, mesh=None,
+                    verify: bool = False) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) with Hkv | H.
+
+    kind:      "causal" | "local" (window tokens) | "full"
+    grid_mode: "closed_form" (alias "compact") | "prefetch_lut" |
+               "bounding"
+    storage:   "embedded" (k/v hold the full key sequence) | "compact"
+               (k/v hold only the domain's key-block support; pass the
+               true key length as ``kv_seq_len``)
+    seq_pos:   decode position, a scalar or a (B,) vector (requires
+               ``kind="full"``; ``window=`` then gives a run-time sliding
+               window anchored at seq_pos): keys past it are masked and
+               key blocks past ``seq_pos // block_k`` are not read.
+
+    causal requires Sq == Sk; local accepts Sq < Sk with the decode
+    convention (queries are the last Sq positions).  CUDA tensors launch
+    the kernel, CPU tensors run the plain version."""
+    _unported(num_warps, num_stages, mesh, verify, block_q, block_k)
+    _check_qkv(q, k, v)
+    sched = flash_schedule(q.shape, k.shape, kind=kind, window=window,
+                           scale=scale, block_q=block_q, block_k=block_k,
+                           grid_mode=grid_mode, storage=storage,
+                           kv_seq_len=kv_seq_len,
+                           has_pos=seq_pos is not None)
+    pos = seq_pos_vector(seq_pos, sched.b, q.device)
+    if not backend_lib.resolve(q).kernels:
+        return flash_attention_plain(q, k, v, sched, pos)
+    return flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(), sched,
+                      pos)
+
+
+def paged_flash_attention(q, kv_pool, page_table, seq_pos, *,
+                          window: int = 0, scale: float | None = None,
+                          grid_mode: str = "compact", num_warps=None,
+                          num_stages=None, verify: bool = False):
+    """Paged single-token decode over a fused-KV page pool.
+
+    q:          (B, H, 1, D) -- one query per serving slot.
+    kv_pool:    (P, 2*Hkv, page_size, D) physical pages, K/V heads
+                interleaved ``[K0, V0, K1, V1, ...]``; page 0 is the
+                null page.
+    page_table: (B, max_pages) int logical-block -> physical-page map.
+    seq_pos:    (B,) per-slot decode positions (a scalar broadcasts).
+                Keys past a slot's position are masked; pages past
+                ``pos // page_size`` are never read.
+    window:     optional run-time sliding window anchored at seq_pos.
+
+    ``grid_mode`` is validated and, as on the JAX package's gpu
+    structure, does not change the launch.  Bit-equal to
+    ``flash_attention(..., kind="full", seq_pos=...)`` at
+    ``block_k == page_size`` when the mapped pages hold the same
+    values."""
+    _unported(num_warps, num_stages, None, verify)
+    normalize_lowering(grid_mode)
+    sched = paged_schedule(q.shape, kv_pool.shape, page_table.shape,
+                           window=window, scale=scale)
+    table = torch.as_tensor(page_table).to(q.device, torch.int32)
+    pos = torch.as_tensor(seq_pos).to(q.device, torch.int32).reshape(-1)
+    if pos.numel() not in (1, sched.b):
+        raise ValueError(f"seq_pos must be a scalar or a ({sched.b},) "
+                         f"per-slot vector, got {pos.numel()} values")
+    pos = pos.expand(sched.b).contiguous()
+    if not backend_lib.resolve(q).kernels:
+        return paged_attention_plain(q, kv_pool, table, pos, sched)
+    return paged_cuda(q.contiguous(), kv_pool.contiguous(),
+                      table.contiguous(), pos, sched)

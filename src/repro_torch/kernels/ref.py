@@ -1,12 +1,12 @@
 """Plain-torch oracles for the port's kernels, the counterparts of the
 JAX package's ``kernels/ref.py``.
 
-Deliberately naive: full materialization of the dense membership grid,
-no tiling, no block decode.  The attention oracles come with the
-attention kernels.
+Deliberately naive: full materialization of the dense membership grid
+(or of the whole attention score matrix), no tiling, no block decode.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import fractal as F
@@ -70,3 +70,46 @@ def ca_step_ref(state: torch.Tensor, rule: str = "parity",
     else:
         raise ValueError(rule)
     return torch.where(member, new, 0).to(state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (causal / local / full), GQA-aware
+# ---------------------------------------------------------------------------
+
+def attention_mask(kind: str, sq: int, sk: int, window: int = 0,
+                   device=None) -> torch.Tensor:
+    """(sq, sk) boolean mask. ``window`` is in tokens for kind="local".
+
+    For causal/local with sq != sk the queries are assumed to be the
+    *last* sq positions of the sk-long key sequence (decode convention).
+    """
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    if kind == "full":
+        return torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if kind == "causal":
+        return kpos <= qpos
+    if kind == "local":
+        return (kpos <= qpos) & (kpos > qpos - window)
+    raise ValueError(kind)
+
+
+def attention_ref(q, k, v, kind: str = "causal", window: int = 0,
+                  scale: float | None = None) -> torch.Tensor:
+    """Naive softmax attention. q: (B,H,Sq,D); k,v: (B,Hkv,Sk,D), Hkv | H.
+    Rows with no live key (fully masked) come out 0."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(d))
+    group = h // hkv
+    kk = k.repeat_interleave(group, dim=1).to(torch.float32)
+    vv = v.repeat_interleave(group, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk) * scale
+    mask = attention_mask(kind, sq, sk, window, device=q.device)
+    s = torch.where(mask[None, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)  # fully-masked rows -> 0
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vv)
+    return o.to(q.dtype)

@@ -34,7 +34,7 @@ state's device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version.
 
 Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13), ``domain=``
-for non-fractal domains (A6), the tuner's ``"auto"`` knobs and
+for non-fractal domains (A15), the tuner's ``"auto"`` knobs and
 ``num_stages`` (A8, which raise ``NotImplementedError``), and CA states
 other than f32.
 """

@@ -1,0 +1,553 @@
+"""Batched and continuous-batching serving of the port's LM.
+
+``Server``
+    Fixed-batch serving: prefill, then one decode step per generated
+    token over the contiguous (K, V) caches, with EOS-aware slot
+    masking.  With ``cfg.attn_decode_kernel == "blockspace"`` every
+    decode attention runs the block-space flash kernel (``seq_pos``
+    truncation); with ``"xla"`` the plain masked decode.
+
+``PagedServer``
+    Continuous batching over the paged KV pool: requests stream through
+    a fixed set of slots; admission prefills one request and scatters
+    its KV into freshly allocated pages; every step advances all active
+    slots at their own positions through the paged decode kernel; pages
+    grow on demand, and when the pool runs dry the youngest request is
+    preempted and later replayed (recompute-style preemption).
+
+Sampling: greedy at ``temperature == 0`` (the parity mode against the
+JAX package), else top-k sampling from a ``torch.Generator`` seeded by
+``(seed, slot or request id, position)``, so a replayed step draws the
+same token.  These streams differ from the JAX package's
+``jax.random`` streams.
+
+No guard, retries, degradation ladder, chaos, decode checkpoints or
+substrate spot checks yet (ROADMAP A10): a kernel that fails to build
+or launch raises.  No serving mesh (A12).
+
+Runnable directly:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch quickstart
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import backend as backend_lib
+from repro_torch.core import paged as paged_lib
+from repro_torch.models import ModelConfig, decode_step, prefill
+from repro_torch.models import model as model_lib
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The JAX package's ServeConfig without its robustness fields
+    (``guard``, ``retries``, backoff, deadlines, ``spot_check_every``,
+    ``ckpt_dir``/``ckpt_every``, ``report_dir``), which come with
+    ROADMAP A10."""
+    max_len: int = 256
+    temperature: float = 0.0       # 0 = greedy
+    top_k: int = 40
+    seed: int = 0
+    eos_id: int = -1               # -1 = never stop early
+    # NaN/inf screen of every step's logits (Server); page-table
+    # verification after every scheduler change (PagedServer)
+    validate: bool = True
+
+
+def _sample_row(logits_row: torch.Tensor, scfg: ServeConfig,
+                key: tuple) -> int:
+    """One token from a (V,) logits row: argmax, or top-k sampling from
+    a CPU generator seeded by ``key`` = (seed, slot or request, pos)."""
+    if scfg.temperature <= 0:
+        return int(torch.argmax(logits_row))
+    scaled = logits_row.detach().to("cpu", torch.float32) / scfg.temperature
+    if scfg.top_k:
+        kth = torch.topk(scaled, scfg.top_k).values[-1]
+        scaled = torch.where(scaled < kth, -1e30, scaled)
+    seed = int(np.random.SeedSequence(
+        [int(x) & 0xFFFFFFFF for x in key]).generate_state(1)[0])
+    g = torch.Generator().manual_seed(seed)
+    return int(torch.multinomial(torch.softmax(scaled, -1), 1,
+                                 generator=g))
+
+
+def _check_finite(logits: torch.Tensor, what: str) -> None:
+    if not bool(torch.isfinite(logits).all()):
+        bad = int((~torch.isfinite(logits)).sum())
+        raise ValueError(f"{what}: {bad} non-finite logits")
+
+
+def _unported(mesh=None, chaos=None) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "serving on a mesh is not ported yet (ROADMAP A12)")
+    if chaos is not None:
+        raise NotImplementedError(
+            "chaos injection and the guarded runtime are not ported yet "
+            "(ROADMAP A10)")
+
+
+class Server:
+    """Prefill + decode loop over a fixed batch, on the model's
+    device."""
+
+    def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig,
+                 mesh=None, chaos=None):
+        _unported(mesh, chaos)
+        self.cfg, self.model, self.scfg = cfg, model, scfg
+
+    def check_substrate(self) -> None:
+        raise NotImplementedError(
+            "the substrate spot check is not ported yet (ROADMAP A10)")
+
+    def resume(self):
+        raise NotImplementedError(
+            "decode-state checkpoints and resume are not ported yet "
+            "(ROADMAP A10)")
+
+    def _sample(self, logits, pos: int):
+        """logits (B,1,V) -> tokens (B,1) int64 on the host."""
+        if self.scfg.temperature <= 0:
+            return torch.argmax(logits[:, 0], dim=-1)[:, None].cpu()
+        rows = [_sample_row(logits[i, 0], self.scfg,
+                            (self.scfg.seed, i, pos))
+                for i in range(logits.shape[0])]
+        return torch.tensor(rows, dtype=torch.int64)[:, None]
+
+    def generate(self, prompts, max_new: int = 32,
+                 on_step=None) -> np.ndarray:
+        """prompts: (B, S) int tokens.  Returns the generated (B, T)
+        continuation, T = max_new unless every slot hit ``eos_id``
+        earlier; finished slots pad with ``eos_id``.  ``on_step(pos,
+        logits)``, when given, sees the (B, 1, V) logits of every step
+        (prefill, then each decode) before sampling."""
+        scfg = self.scfg
+        dev = self.model.device
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64)
+        logits, cache = prefill(self.model, prompts.to(dev),
+                                max_len=scfg.max_len, cfg=self.cfg)
+        if scfg.validate:
+            _check_finite(logits, "serve.prefill")
+        if on_step is not None:
+            on_step(prompts.shape[1] - 1, logits)
+        batch, pos = prompts.shape[0], prompts.shape[1] - 1
+        finished = np.zeros((batch,), bool)
+        tok, finished = self._next_token(logits, pos, finished)
+        out = [tok]
+        for _ in range(max_new - 1):
+            if scfg.eos_id >= 0 and finished.all():
+                break
+            pos += 1
+            logits, cache = decode_step(self.model, tok.to(dev), cache, pos,
+                                        self.cfg)
+            if scfg.validate:
+                _check_finite(logits, "serve.decode")
+            if on_step is not None:
+                on_step(pos, logits)
+            tok, finished = self._next_token(logits, pos, finished)
+            out.append(tok)
+        return torch.cat(out, dim=1).numpy()
+
+    def _next_token(self, logits, pos: int, finished: np.ndarray):
+        """Sample, then overwrite finished slots with the EOS pad and
+        fold newly-finished slots into the mask."""
+        tok = self._sample(logits, pos)
+        if self.scfg.eos_id < 0:
+            return tok, finished
+        t = tok.numpy()
+        t = np.where(finished[:, None], self.scfg.eos_id, t)
+        finished = finished | (t[:, 0] == self.scfg.eos_id)
+        return torch.from_numpy(t), finished
+
+
+# ---------------------------------------------------------------------------
+# paged continuous batching
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PagedServeConfig(ServeConfig):
+    """ServeConfig plus the paged-pool knobs.  ``num_pages`` includes
+    the reserved null page, so usable capacity is ``(num_pages - 1) *
+    page_size`` tokens across all slots; ``max_len`` bounds one
+    request's prompt + generation (it sizes the page table width)."""
+    num_slots: int = 4
+    page_size: int = 16
+    num_pages: int = 64
+
+
+@dataclasses.dataclass
+class _PagedRequest:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    out: list = dataclasses.field(default_factory=list)
+    pages: list = dataclasses.field(default_factory=list)
+    next_pos: int = 0       # where the next fed token's KV lands
+    seq: int = -1           # admission order (eviction priority)
+    preemptions: int = 0
+
+
+class PagedServer:
+    """Continuous-batching serving over the paged KV pool.
+
+    The decode batch is a fixed set of ``num_slots`` slots; requests
+    stream through them.  Admission runs an unpadded prefill for one
+    request, allocates ``ceil(len / page_size)`` pages from the free
+    list and scatters the prefill KV into them; every decode step
+    advances all active slots one token at their own positions (the
+    per-slot ``seq_pos`` vector) while inactive slots write to the null
+    page.  Pages are allocated as slots cross page boundaries; when the
+    pool runs dry the youngest active request is preempted -- its pages
+    freed, the request requeued with its generated tokens kept, to be
+    re-admitted by replaying prompt + generated through prefill."""
+
+    def __init__(self, cfg: ModelConfig, model, scfg: PagedServeConfig,
+                 chaos=None):
+        _unported(chaos=chaos)
+        model_lib._check_paged(cfg)
+        self.cfg, self.model, self.scfg = cfg, model, scfg
+        self.events: list = []
+        self.stats_history: list = []
+        self.alloc = paged_lib.PagedKVPool(scfg.num_pages, scfg.page_size)
+        self.max_pages = -(-scfg.max_len // scfg.page_size)
+        self.pools = model_lib.init_paged_cache(
+            cfg, scfg.num_pages, scfg.page_size, model.device)
+        self.table = np.full((scfg.num_slots, self.max_pages),
+                             paged_lib.NULL_PAGE, np.int32)
+        self.slots: list = [None] * scfg.num_slots
+        self.pending: collections.deque = collections.deque()
+        self.done: dict = {}
+        self._admit_seq = 0
+        #: decode steps run, and host seconds spent in them (the decode
+        #: call through the sampled tokens on the host)
+        self.decode_steps = 0
+        self.step_seconds = 0.0
+
+    # -- host bookkeeping ----------------------------------------------------
+
+    def _verify_table(self) -> None:
+        if not self.scfg.validate:
+            return
+        from repro_torch.analysis.verifier import verify_page_table
+        verify_page_table(
+            self.table,
+            seq_lens=[(r.next_pos if r is not None else 0)
+                      for r in self.slots],
+            page_size=self.scfg.page_size,
+            num_pages=self.scfg.num_pages,
+            free_pages=self.alloc._free)
+
+    def pool_stats(self) -> dict:
+        return self.alloc.stats(
+            [r.next_pos for r in self.slots if r is not None])
+
+    # -- request lifecycle ---------------------------------------------------
+
+    def submit(self, rid: int, prompt, max_new: int) -> None:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if len(prompt) + max_new > self.scfg.max_len:
+            raise ValueError(
+                f"request {rid}: prompt {len(prompt)} + max_new "
+                f"{max_new} exceeds max_len {self.scfg.max_len}")
+        self.pending.append(_PagedRequest(
+            rid=int(rid), prompt=prompt, max_new=int(max_new)))
+
+    def _sample_token(self, logits_row, rid: int, pos: int) -> int:
+        """One token from a (V,) logits row, keyed on (seed, request id,
+        position): a preempted and re-admitted request draws the
+        identical stream."""
+        return _sample_row(logits_row, self.scfg, (self.scfg.seed, rid, pos))
+
+    def _admit_one(self) -> bool:
+        """Admit the head-of-line request if a slot and enough pages
+        are free.  Returns True on admission."""
+        if not self.pending:
+            return False
+        free_slots = [i for i, s in enumerate(self.slots) if s is None]
+        if not free_slots:
+            return False
+        req = self.pending[0]
+        tokens = np.concatenate(
+            [req.prompt, np.asarray(req.out, np.int32)])
+        need = paged_lib.pages_for(len(tokens), self.scfg.page_size)
+        if not self.alloc.can_alloc(need):
+            return False
+        self.pending.popleft()
+        pages = self.alloc.alloc(need)
+        slot = free_slots[0]
+        dev = self.model.device
+        logits, caches = prefill(
+            self.model, torch.as_tensor(tokens[None], dtype=torch.int64,
+                                        device=dev), cfg=self.cfg)
+        model_lib.scatter_prefill_pages(
+            self.pools, caches, torch.as_tensor(pages, device=dev),
+            self.cfg)
+        req.pages = list(pages)
+        req.seq = self._admit_seq
+        self._admit_seq += 1
+        req.next_pos = len(tokens)
+        self.table[slot] = paged_lib.NULL_PAGE
+        self.table[slot, :len(pages)] = pages
+        self.slots[slot] = req
+        self._verify_table()
+        tok = self._sample_token(logits[0, 0], req.rid, len(tokens) - 1)
+        req.out.append(tok)
+        if self._finished(slot, tok):
+            return True
+        self.events.append({"kind": "admit", "rid": req.rid,
+                            "slot": slot, "pages": len(pages),
+                            "replayed": len(req.out) - 1})
+        return True
+
+    def _finished(self, slot: int, tok: int) -> bool:
+        req = self.slots[slot]
+        if len(req.out) >= req.max_new or (
+                self.scfg.eos_id >= 0 and tok == self.scfg.eos_id):
+            self.alloc.free(req.pages)
+            self.table[slot] = paged_lib.NULL_PAGE
+            self.slots[slot] = None
+            self.done[req.rid] = np.asarray(req.out, np.int32)
+            self.events.append({"kind": "finish", "rid": req.rid,
+                                "tokens": len(req.out),
+                                "preemptions": req.preemptions})
+            self._verify_table()
+            return True
+        return False
+
+    def _preempt(self, slot: int) -> None:
+        req = self.slots[slot]
+        self.alloc.free(req.pages)
+        req.pages = []
+        req.preemptions += 1
+        self.table[slot] = paged_lib.NULL_PAGE
+        self.slots[slot] = None
+        self.pending.appendleft(req)  # re-admit first
+        self.events.append({"kind": "preempt", "rid": req.rid,
+                            "slot": slot, "generated": len(req.out)})
+        # no _verify_table here: surviving slots may already hold the
+        # look-ahead page grown for this step's write, which the verifier
+        # would flag as tail-null until next_pos advances; step()
+        # verifies once the step is quiescent.
+
+    def _grow(self, slot: int) -> bool:
+        """Ensure the slot owns the page its next KV write lands in."""
+        req = self.slots[slot]
+        while req.next_pos // self.scfg.page_size >= len(req.pages):
+            got = self.alloc.alloc(1)
+            if got is None:
+                return False
+            self.table[slot, len(req.pages)] = got[0]
+            req.pages += got
+        return True
+
+    def step(self) -> bool:
+        """One decode step for every active slot.  Returns False when
+        nothing is active."""
+        active = [i for i in range(len(self.slots))
+                  if self.slots[i] is not None]
+        if not active:
+            return False
+        # on-demand page growth, oldest slots first; preempt the
+        # youngest active request until the survivors fit
+        for i in sorted(active, key=lambda j: self.slots[j].seq):
+            while self.slots[i] is not None and not self._grow(i):
+                victims = [j for j in range(len(self.slots))
+                           if self.slots[j] is not None]
+                victim = max(victims, key=lambda j: self.slots[j].seq)
+                if victim == i and len(victims) == 1:
+                    raise RuntimeError(
+                        f"pool of {self.scfg.num_pages} pages cannot "
+                        f"hold a single request; raise num_pages or "
+                        f"page_size")
+                self._preempt(victim)
+        active = [i for i in range(len(self.slots))
+                  if self.slots[i] is not None]
+        if not active:
+            return False
+        B = self.scfg.num_slots
+        toks = np.zeros((B, 1), np.int64)
+        posv = np.zeros((B,), np.int32)
+        act = np.zeros((B,), bool)
+        for i in active:
+            req = self.slots[i]
+            toks[i, 0] = req.out[-1]
+            posv[i] = req.next_pos
+            act[i] = True
+        dev = self.model.device
+        t0 = time.perf_counter()
+        logits, self.pools = model_lib.decode_step_paged(
+            self.model, torch.from_numpy(toks).to(dev), self.pools,
+            torch.from_numpy(self.table).to(dev),
+            torch.from_numpy(posv).to(dev), torch.from_numpy(act).to(dev),
+            self.cfg)
+        self.decode_steps += 1
+        if self.scfg.temperature <= 0:
+            # one device-to-host copy of the argmaxes for all slots
+            greedy = torch.argmax(logits[:, 0], dim=-1).cpu().tolist()
+        # advance every slot before any finish check: the decode step
+        # already wrote position next_pos for all of them
+        sampled = []
+        for i in active:
+            req = self.slots[i]
+            tok = greedy[i] if self.scfg.temperature <= 0 else \
+                self._sample_token(logits[i, 0], req.rid, req.next_pos)
+            req.next_pos += 1
+            req.out.append(tok)
+            sampled.append((i, tok))
+        self.step_seconds += time.perf_counter() - t0
+        for i, tok in sampled:
+            self._finished(i, tok)
+        self._verify_table()
+        self.stats_history.append(self.pool_stats())
+        return True
+
+    def run(self, requests, max_new: int = 32) -> dict:
+        """Serve ``requests`` (a list of 1-D prompt token arrays) to
+        completion.  Returns {rid: generated np.int32 array}."""
+        for rid, prompt in enumerate(requests):
+            self.submit(rid, prompt, max_new)
+        while self.pending or any(s is not None for s in self.slots):
+            while self._admit_one():
+                pass
+            if not self.step() and self.pending:
+                raise RuntimeError(
+                    "no active slots and the head-of-line request "
+                    "cannot be admitted; pool too small")
+        return self.done
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def paged_throughput_report(server: PagedServer, requests,
+                            max_new: int = 16) -> dict:
+    """Serve ``requests`` and report host-clock throughput (the clock
+    stops after the device finishes)."""
+    steps0, secs0 = server.decode_steps, server.step_seconds
+    t0 = time.perf_counter()
+    out = server.run(requests, max_new=max_new)
+    _sync(server.model.device)
+    dt = time.perf_counter() - t0
+    tokens = int(sum(len(v) for v in out.values()))
+    frag = [s["fragmentation"] for s in server.stats_history] or [0.0]
+    util = [s["utilization"] for s in server.stats_history] or [0.0]
+    return {"tokens": tokens, "seconds": dt, "tok_per_s": tokens / dt,
+            "requests": len(out),
+            "decode_steps": server.decode_steps - steps0,
+            "ms_per_decode_step": 1e3 * (server.step_seconds - secs0)
+            / max(1, server.decode_steps - steps0),
+            "preemptions": sum(1 for e in server.events
+                               if isinstance(e, dict)
+                               and e.get("kind") == "preempt"),
+            "mean_fragmentation": float(np.mean(frag)),
+            "mean_utilization": float(np.mean(util)),
+            "peak_utilization": float(np.max(util))}
+
+
+def throughput_report(server: Server, batch: int, prompt_len: int,
+                      max_new: int = 16):
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, server.cfg.vocab_size, (batch, prompt_len))
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new=max_new)
+    _sync(server.model.device)
+    dt = time.perf_counter() - t0
+    return {"tokens": int(out.size), "seconds": dt,
+            "tok_per_s": out.size / dt}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="quickstart")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="stop a slot early when it samples this token "
+                         "(-1 = never)")
+    ap.add_argument("--grid-lowering", default="",
+                    choices=("", "closed_form", "prefetch_lut", "bounding",
+                             "compact"),
+                    help="GridPlan lowering of the prefill's attention "
+                         "schedule (default: the arch's attn_schedule)")
+    ap.add_argument("--decode-kernel", default="",
+                    choices=("", "xla", "blockspace"),
+                    help="decode attention: 'blockspace' runs the flash "
+                         "kernel with the run-time seq_pos block skip, "
+                         "'xla' the plain masked decode (default: the "
+                         "arch's setting, normally 'xla')")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged KV pool + continuous-"
+                         "batching scheduler (PagedServer); --batch "
+                         "becomes the request count and prompts get "
+                         "mixed lengths in [4, --prompt-len]")
+    ap.add_argument("--num-slots", type=int, default=4,
+                    help="paged: concurrently decoding slots")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged: tokens per KV page")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="paged: physical pages in the pool incl. the "
+                         "reserved null page (0 = enough for num_slots "
+                         "requests at max_len)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' "
+                         "runs the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_config
+    dev = backend_lib.default_device(args.device)
+    cfg = get_config(args.arch, smoke=True)
+    if args.grid_lowering:
+        cfg = cfg.replace(grid_lowering=args.grid_lowering)
+        print(f"grid lowering: {cfg.grid_mode} "
+              f"(schedule: {cfg.attn_schedule_resolved})")
+    if args.decode_kernel:
+        cfg = cfg.replace(attn_decode_kernel=args.decode_kernel)
+        print(f"decode attention: {cfg.attn_decode_kernel}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = model_lib.init(cfg, gen, dev)
+    print(f"device: {dev} ({backend_lib.resolve(dev).name} target)")
+    if args.paged:
+        max_len = args.prompt_len + args.max_new
+        num_pages = args.num_pages or (
+            1 + args.num_slots * paged_lib.pages_for(max_len,
+                                                     args.page_size))
+        server = PagedServer(cfg, model, PagedServeConfig(
+            max_len=max_len, temperature=args.temperature,
+            eos_id=args.eos_id, num_slots=args.num_slots,
+            page_size=args.page_size, num_pages=num_pages))
+        rng = np.random.default_rng(0)
+        requests = [rng.integers(0, cfg.vocab_size,
+                                 (int(rng.integers(4, args.prompt_len
+                                                   + 1)),))
+                    for _ in range(args.batch)]
+        print(f"paged: {args.num_slots} slots, {num_pages} pages of "
+              f"{args.page_size} tokens, {args.batch} mixed-length "
+              f"requests")
+        print(paged_throughput_report(server, requests,
+                                      max_new=args.max_new))
+        return
+    server = Server(cfg, model, ServeConfig(
+        max_len=args.prompt_len + args.max_new,
+        temperature=args.temperature, eos_id=args.eos_id))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (args.batch, args.prompt_len))
+    out = server.generate(prompts, max_new=args.max_new)
+    print("generated shape:", out.shape)
+    print(throughput_report(server, args.batch, args.prompt_len,
+                            args.max_new))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,295 @@
+"""Attention for the model stack, plain PyTorch around the block-space
+kernels.
+
+Strategies, selected by sequence length and config (as in the JAX
+package's ``repro.models.attention``):
+
+* ``simple``  -- full masked attention (prefill up to ``flash_threshold``)
+* ``flash``   -- chunked online softmax (prefill above it), forward only
+* ``decode``  -- one-token query against a KV cache: the plain masked
+                 :func:`decode_attention`, or the block-space flash
+                 kernel (:func:`decode_attention_flash`), or the paged
+                 kernel (:func:`decode_attention_paged`)
+
+The flash path has two *schedules*, the plain-tensor mirror of the
+GridPlan lowerings: ``dense`` computes and masks every (q, k-chunk)
+pair (the bounding box); ``triangular`` loops over q chunks with
+per-row k-extents from the block domain's ``GridPlan.row_extents()``
+(the compact block space).  ``schedule`` also accepts lowering names
+("closed_form", "prefetch_lut", "bounding", "compact"), mapped through
+``plan.xla_schedule``.
+
+GQA groups q heads as (Hkv, G) so K/V are never repeated per q head.
+The flash backward (training) is not ported yet (ROADMAP A11); nor is
+the serving mesh (``set_decode_mesh``, ``mesh=``: A12).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.domain import make_attention_domain
+from repro_torch.core.plan import GridPlan, xla_schedule
+
+NEG_INF = float(-1e30)
+F32 = torch.float32
+
+
+def _schedule_name(schedule: str) -> str:
+    """Normalize: accept schedules and GridPlan lowering names."""
+    if schedule in ("dense", "triangular"):
+        return schedule
+    return xla_schedule(schedule)
+
+
+def _mask(qpos, kpos, kind: str, window: int):
+    if kind == "full":
+        return None
+    m = kpos <= qpos
+    if kind == "local":
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def _apply_mask(s, mask):
+    return s if mask is None else torch.where(mask, s, NEG_INF)
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "the serving mesh (slot-sharded decode) is not ported yet "
+            "(ROADMAP A12)")
+
+
+# ---------------------------------------------------------------------------
+# simple (full materialization)
+# ---------------------------------------------------------------------------
+
+def simple_attention(q, k, v, *, kind="causal", window=0,
+                     scale: Optional[float] = None):
+    """q: (B,H,Sq,D); k,v: (B,Hkv,Sk,D).  f32 scores and softmax,
+    returns q.dtype."""
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dv = v.shape[-1]
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, g, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(F32), k.to(F32)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    s = _apply_mask(s, _mask(qpos, kpos, kind, window))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype), v)
+    return o.reshape(b, h, sq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash: chunked online softmax (forward)
+# ---------------------------------------------------------------------------
+
+def _chunk_fwd_scan(qg, k, v, kind, window, scale, chunk, q_offset):
+    """Online softmax over k chunks.  qg: (B,Hkv,G,Sq,D); k,v:
+    (B,Hkv,Sk,D).  Returns o (f32) and lse, both (B,Hkv,G,Sq,*)."""
+    b, hkv, g, sq, d = qg.shape
+    sk = k.shape[2]
+    dv = v.shape[-1]
+    nc = sk // chunk
+    qpos = torch.arange(sq, device=qg.device)[:, None] + q_offset
+    q32 = qg.to(F32)
+    acc = q32.new_zeros((b, hkv, g, sq, dv))
+    m = q32.new_full((b, hkv, g, sq, 1), NEG_INF)
+    l = q32.new_zeros((b, hkv, g, sq, 1))
+    for ci in range(nc):
+        kci = k[:, :, ci * chunk:(ci + 1) * chunk].to(F32)
+        vci = v[:, :, ci * chunk:(ci + 1) * chunk].to(F32)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", q32, kci) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=qg.device)[None, :]
+        s = _apply_mask(s, _mask(qpos, kpos, kind, window))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vci)
+        m = m_new
+    l = torch.where(l == 0, 1.0, l)
+    return acc / l, m + torch.log(l)
+
+
+def _tri_klen(i: int, chunk: int, sk: int, sq: int, kind: str,
+              window: int) -> tuple[int, int]:
+    """Static (k_start, k_len) for q chunk i under the compact schedule
+    with a q/k offset (cross-attention-style sk > sq)."""
+    hi = min(sk, (i + 1) * chunk + (sk - sq))
+    if kind == "local":
+        lo = max(0, (i * chunk + (sk - sq) - window) // chunk * chunk)
+    else:
+        lo = 0
+    return lo, hi - lo
+
+
+@functools.lru_cache(maxsize=256)
+def _compact_extents(kind: str, window: int, chunk: int, sq: int,
+                     sk: int) -> tuple:
+    """Static per-q-chunk (k_start, k_len) for the compact schedule.
+
+    For square self-attention the extents come from the block domain
+    itself (``GridPlan.row_extents``); the offset case (sk > sq) keeps
+    the token-level closed form."""
+    m_q = sq // chunk
+    if sq != sk:
+        return tuple(_tri_klen(i, chunk, sk, sq, kind, window)
+                     for i in range(m_q))
+    wb = (-(-window // chunk) + 1) if kind == "local" else 0
+    domain = make_attention_domain(kind, m_q, m_q, wb)
+    ext = GridPlan(domain, backend="cpu").row_extents()
+    return tuple((int(lo) * chunk, (int(hi) + 1 - int(lo)) * chunk)
+                 for lo, hi in ext)
+
+
+def _flash_fwd_impl(q, k, v, kind, window, scale, chunk, schedule):
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, sq, d)
+    q_offset = sk - sq
+    if schedule == "dense" or kind == "full":
+        o, lse = _chunk_fwd_scan(qg, k, v, kind, window, scale, chunk,
+                                 q_offset)
+    else:  # triangular / band compact schedule: loop over q chunks
+        nq = sq // chunk
+        extents = _compact_extents(kind, window, chunk, sq, sk)
+        os_, lses = [], []
+        for i in range(nq):
+            lo, ln = extents[i]
+            qi = qg[:, :, :, i * chunk:(i + 1) * chunk]
+            oi, lsei = _chunk_fwd_scan(
+                qi, k[:, :, lo:lo + ln], v[:, :, lo:lo + ln], kind, window,
+                scale, min(chunk, ln), q_offset + i * chunk - lo)
+            os_.append(oi)
+            lses.append(lsei)
+        o = torch.cat(os_, dim=3)
+        lse = torch.cat(lses, dim=3)
+    return o.reshape(b, h, sq, v.shape[-1]).to(q.dtype), lse
+
+
+def flash_attention_xla(q, k, v, *, kind="causal", window=0,
+                        scale: Optional[float] = None, chunk=1024,
+                        schedule="dense"):
+    """Chunked online-softmax attention (forward), the JAX package's
+    ``flash_attention_xla`` without its custom VJP."""
+    schedule = _schedule_name(schedule)
+    if scale is None:
+        scale = float(1.0 / np.sqrt(q.shape[-1]))
+    chunk = min(chunk, k.shape[2])
+    if k.shape[2] % chunk:
+        raise ValueError("Sk must be divisible by chunk")
+    if schedule == "triangular" and q.shape[2] % chunk:
+        raise ValueError("Sq must be divisible by chunk for triangular")
+    o, _ = _flash_fwd_impl(q, k, v, kind, window, float(scale), chunk,
+                           schedule)
+    return o
+
+
+# ---------------------------------------------------------------------------
+# decode: one new token against a KV cache
+# ---------------------------------------------------------------------------
+
+def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
+                           scale: Optional[float] = None,
+                           block_k: int = 128, mesh=None):
+    """Single-token decode through the block-space flash kernel.
+
+    q: (B,H,1,D); k,v: (B,Hkv,Smax,D) caches; pos: () current position
+    or a (B,) vector of per-row positions.  The kernel masks keys past
+    ``pos`` and does not read key blocks past ``pos // block_k``;
+    ``kind='local'`` anchors the sliding window at ``pos``.  A cache
+    length that does not tile ``block_k`` runs the plain
+    :func:`decode_attention` instead (the JAX package's rule)."""
+    _no_mesh(mesh)
+    sk = k.shape[2]
+    block_k = min(block_k, sk)
+    if sk % block_k:
+        return decode_attention(q, k, v, pos, kind=kind, window=window,
+                                scale=scale)
+    from repro_torch.kernels.flash_attention import flash_attention
+    w = window if kind == "local" else 0
+    return flash_attention(q, k, v, kind="full", window=w, scale=scale,
+                           block_q=1, block_k=block_k, seq_pos=pos)
+
+
+def decode_attention(q, k, v, pos, *, kind="causal", window=0,
+                     scale: Optional[float] = None):
+    """q: (B,H,1,D); k,v: (B,Hkv,S,D) cache; pos: () current position
+    or (B,) per-row positions.  Keys at kpos > pos (unfilled cache tail)
+    are masked out."""
+    b, h, _, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    qg = q.reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.to(F32), k.to(F32)) * scale
+    kpos = torch.arange(sk, device=q.device)[None, None, None, :]
+    pos = torch.as_tensor(pos, device=q.device)
+    if pos.ndim:  # (B,) per-row decode positions
+        pos = pos.reshape(b, 1, 1, 1)
+    valid = kpos <= pos
+    if kind == "local":
+        valid = valid & (kpos > pos - window)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p.to(v.dtype), v)
+    return o.reshape(b, h, 1, v.shape[-1]).to(q.dtype)
+
+
+def decode_attention_paged(q, kv_pool, page_table, pos, *,
+                           window: int = 0,
+                           scale: Optional[float] = None,
+                           grid_mode: str = "compact", mesh=None):
+    """Paged single-token decode through the block-space paged kernel.
+
+    q: (B,H,1,D) slot queries; kv_pool: (P, 2*Hkv, page_size, D) fused
+    page pool; page_table: (B, max_pages) int; pos: (B,) per-slot
+    positions (a scalar broadcasts).  See
+    :func:`repro_torch.kernels.flash_attention.paged_flash_attention`."""
+    _no_mesh(mesh)
+    from repro_torch.kernels.flash_attention import paged_flash_attention
+    return paged_flash_attention(q, kv_pool, page_table, pos,
+                                 window=window, scale=scale,
+                                 grid_mode=grid_mode)
+
+
+def decode_attention_paged_xla(q, kv_pool, page_table, pos, *,
+                               window: int = 0,
+                               scale: Optional[float] = None):
+    """Plain paged decode: gather the mapped pages back into contiguous
+    caches, then run :func:`decode_attention` (no kernel in the loop)."""
+    from repro_torch.core.paged import gather_kv
+    k, v = gather_kv(kv_pool, page_table)
+    kind = "local" if window else "causal"
+    return decode_attention(q, k, v, pos, kind=kind, window=window,
+                            scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# dispatcher
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, kind="causal", window=0, scale=None,
+              chunk=1024, schedule="dense", flash_threshold=8192):
+    """schedule: "dense" | "triangular", or any GridPlan lowering name
+    ("closed_form" | "prefetch_lut" | "bounding" | "compact")."""
+    sq, sk = q.shape[2], k.shape[2]
+    if sq == 1:
+        raise ValueError("use decode_attention for single-token queries")
+    if max(sq, sk) <= flash_threshold:
+        return simple_attention(q, k, v, kind=kind, window=window,
+                                scale=scale)
+    return flash_attention_xla(q, k, v, kind=kind, window=window,
+                               scale=scale, chunk=chunk, schedule=schedule)

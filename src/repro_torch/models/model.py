@@ -1,0 +1,300 @@
+"""Model assembly for the dense attention-only LM stack: embeddings ->
+layers -> head, and the serving entry points.
+
+The JAX package groups layers by signature and runs ``lax.scan`` over
+stacked parameters; here the layers are an ``nn.ModuleList`` walked by
+a Python loop, so a layer's cache is one (K, V) pair (or one paged
+pool) per layer.  Layer ``i`` of the list is the JAX package's layer
+``i`` (``prefix_i``, or slot ``s`` of group ``g`` in ``blocks`` with
+``i = prefix + g * period + s``).
+
+Entry points:
+  * ``forward`` / ``logits_fn`` -- full-sequence forward
+  * ``prefill``     -- forward returning per-layer caches + last logits
+  * ``decode_step`` -- one token through all layers, caches updated in
+                       place
+  * ``init_paged_cache`` / ``scatter_prefill_pages`` /
+    ``decode_step_paged`` -- the paged KV pool of continuous batching
+
+MLA, MoE, SSM and shared-attention blocks are not ported yet (ROADMAP
+A11), nor is training (``loss_fn``).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from . import layers as L
+from .config import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# layer signatures and grouping
+# ---------------------------------------------------------------------------
+
+def layer_sig(cfg: ModelConfig, i: int) -> Tuple[str, str, str, bool]:
+    mixer = cfg.layer_mixer(i)
+    akind = cfg.attn_kind(i) if mixer in ("attn", "mla") else ""
+    ffn = cfg.layer_ffn(i) if cfg.d_ff or cfg.moe else "none"
+    if cfg.family == "hybrid":
+        ffn = "none"  # zamba-style: MLP lives in the shared block
+    return (mixer, akind, ffn, cfg.has_shared_attn(i))
+
+
+def _lcm(*xs):
+    out = 1
+    for x in xs:
+        out = math.lcm(out, max(1, x))
+    return out
+
+
+def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """Returns (prefix_len, period, n_groups) of the JAX package's
+    parameter layout (prefix layers are unscanned there)."""
+    period = _lcm(len(cfg.attn_pattern) if cfg.ssm_kind is None else 1,
+                  cfg.moe_period if cfg.moe else 1,
+                  cfg.hybrid_attn_period or 1)
+    prefix = cfg.first_dense
+    rest = cfg.n_layers - prefix
+    if rest % period:
+        prefix += rest % period
+        rest = cfg.n_layers - prefix
+    for s in range(period):
+        sigs = {layer_sig(cfg, prefix + g * period + s)
+                for g in range(rest // period)}
+        assert len(sigs) <= 1, f"slot {s} not scan-invariant: {sigs}"
+    return prefix, period, rest // period
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every layer is a dense attention
+    layer (the stack this port runs)."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"input_mode {cfg.input_mode!r} is not ported yet (ROADMAP "
+            f"A11)")
+    for i in range(cfg.n_layers):
+        mixer, _, ffn, shared = layer_sig(cfg, i)
+        if mixer != "attn" or ffn not in ("dense", "none") or shared:
+            raise NotImplementedError(
+                f"layer {i} ({mixer}, ffn {ffn}"
+                + (", shared block" if shared else "")
+                + ") is not ported yet: MLA, MoE, SSM and shared blocks "
+                  "come with ROADMAP A11")
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class Layer(nn.Module):
+    def __init__(self, cfg: ModelConfig, i: int, device=None):
+        super().__init__()
+        _, _, ffn, _ = layer_sig(cfg, i)
+        dt = cfg.tparam_dtype()
+        self.norm1 = L.RMSNorm(cfg.d_model, dt, device)
+        self.mixer = L.Attention(cfg, device)
+        if ffn != "none":
+            self.norm2 = L.RMSNorm(cfg.d_model, dt, device)
+            self.ffn = L.MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
+class Model(nn.Module):
+    """Parameters of the dense LM; ``cfg`` rides along.  Built empty:
+    fill it with :func:`init` or
+    :func:`repro_torch.models.convert.params_from_jax`."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        dt = cfg.tparam_dtype()
+        self.embed = L.Embed(cfg.padded_vocab, cfg.d_model, dt, device)
+        self.layers = nn.ModuleList(Layer(cfg, i, device)
+                                    for i in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
+        self.lm_head = L.LMHead(cfg.d_model, cfg.padded_vocab, dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
+    """Random weights with the JAX package's shapes and scales
+    (``model.init``): normal matrices scaled by 1/sqrt(fan-in), the
+    embedding by 0.01, norms at 1 and biases at 0, drawn from
+    ``generator`` (which must live on ``device``).  The numbers differ
+    from ``jax.random``'s."""
+    model = Model(cfg, device)
+    L._normal_(model.embed.table, generator, 0.01)
+    for layer in model.layers:
+        layer.norm1.scale.data.fill_(1.0)
+        L.init_attention(layer.mixer, generator)
+        if hasattr(layer, "ffn"):
+            layer.norm2.scale.data.fill_(1.0)
+            L.init_mlp(layer.ffn, generator)
+    model.final_norm.scale.data.fill_(1.0)
+    L._normal_(model.lm_head.w, generator, 1.0 / math.sqrt(cfg.d_model))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(model: Model, inputs, cfg):
+    return L.embed(model.embed, inputs, cfg.tdtype())
+
+
+def _ffn(layer: Layer, h, cfg):
+    if hasattr(layer, "ffn"):
+        h = h + L.mlp(layer.ffn, L.rmsnorm(layer.norm2, h, cfg.norm_eps))
+    return h
+
+
+def _pad_seq(x, axis, max_len):
+    if max_len is None or x.shape[axis] >= max_len:
+        return x
+    pad = [0, 0] * (x.ndim - 1 - axis) + [0, max_len - x.shape[axis]]
+    return torch.nn.functional.pad(x, pad)
+
+
+@torch.no_grad()
+def _run(model: Model, inputs, max_len=None, cfg=None):
+    """Full-sequence forward; returns (final-normed hidden, caches)."""
+    cfg = cfg or model.cfg
+    h = _embed_inputs(model, inputs, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    caches = []
+    for i, layer in enumerate(model.layers):
+        _, akind, _, _ = layer_sig(cfg, i)
+        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
+        out, (k, v) = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
+                                           positions)
+        caches.append((_pad_seq(k, 2, max_len), _pad_seq(v, 2, max_len)))
+        h = _ffn(layer, h + out, cfg)
+    return L.rmsnorm(model.final_norm, h, cfg.norm_eps), caches
+
+
+def forward(model: Model, inputs, cfg: ModelConfig | None = None):
+    """Full-sequence forward -> (hidden (B,S,D), aux_loss 0).  ``cfg``
+    (default: the model's) may change the execution knobs (attention
+    schedule, decode kernel), not the shapes."""
+    h, _ = _run(model, inputs, cfg=cfg)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def logits_fn(model: Model, inputs, cfg: ModelConfig | None = None):
+    h, aux = forward(model, inputs, cfg)
+    return L.lm_head(model.lm_head, h), aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Zero (K, V) caches, one pair per layer."""
+    check_ported(cfg)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return [(torch.zeros(shape, dtype=cfg.tdtype(), device=device),
+             torch.zeros(shape, dtype=cfg.tdtype(), device=device))
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(model: Model, inputs, max_len: int | None = None,
+            cfg: ModelConfig | None = None):
+    """Full-sequence forward returning last-position logits + per-layer
+    caches.  ``max_len`` pre-pads the caches so decode can continue in
+    place."""
+    h, caches = _run(model, inputs, max_len, cfg)
+    return L.lm_head(model.lm_head, h[:, -1:]), caches
+
+
+@torch.no_grad()
+def decode_step(model: Model, inputs, cache, pos,
+                cfg: ModelConfig | None = None):
+    """One token for the whole batch.  inputs: (B,1) tokens; pos: the
+    current position (int).  The caches are written in place.  Returns
+    (logits (B,1,V), cache)."""
+    cfg = cfg or model.cfg
+    pos = int(pos)
+    h = _embed_inputs(model, inputs, cfg)
+    new_cache = []
+    for i, layer in enumerate(model.layers):
+        _, akind, _, _ = layer_sig(cfg, i)
+        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
+        out, c = L.attn_block_decode(layer.mixer, hn, cfg, akind, cache[i],
+                                     pos)
+        new_cache.append(c)
+        h = _ffn(layer, h + out, cfg)
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    return L.lm_head(model.lm_head, h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# serving: paged KV (continuous batching)
+# ---------------------------------------------------------------------------
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """Paged serving covers plain-attention stacks (every mixer 'attn',
+    no shared block): MLA/SSM caches are not (K, V) pages."""
+    for i in range(cfg.n_layers):
+        mixer, _, _, shared = layer_sig(cfg, i)
+        if mixer != "attn" or shared:
+            raise ValueError(
+                f"paged serving needs an attention-only stack; layer "
+                f"{i} is {mixer!r}" + (" + shared block" if shared
+                                       else ""))
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device=None) -> List[torch.Tensor]:
+    """Per-layer fused-KV page pools.  One *shared* (B, max_pages) page
+    table (built by the scheduler) addresses every layer's pool: the
+    layers hold different values at identical page indices."""
+    from repro_torch.core import paged as paged_lib
+
+    _check_paged(cfg)
+    return [paged_lib.init_pool(num_pages, cfg.n_kv_heads, page_size,
+                                cfg.hd, cfg.tdtype(), device)
+            for _ in range(cfg.n_layers)]
+
+
+def scatter_prefill_pages(pools, caches, pages, cfg: ModelConfig):
+    """Admission: scatter one request's prefill KV (the caches of a
+    batch-1 :func:`prefill`) into its allocated pages of every layer
+    pool, in place.  ``pages``: (n,) int physical page ids with
+    ``n * page_size >= S``.  Returns the pools."""
+    from repro_torch.core import paged as paged_lib
+
+    for pool, (k, v) in zip(pools, caches):
+        paged_lib.write_prefill_pages(pool, pages, k[0], v[0])
+    return pools
+
+
+@torch.no_grad()
+def decode_step_paged(model: Model, inputs, pools, page_table, pos,
+                      active, cfg: ModelConfig | None = None):
+    """One token for every serving slot against the paged pools.
+
+    inputs: (B,1) tokens; page_table: (B, max_pages) int32; pos: (B,)
+    per-slot positions; active: (B,) bool (inactive slots write to the
+    null page and their logits are garbage the scheduler ignores).  The
+    pools are written in place.  Returns (logits (B,1,V), pools)."""
+    cfg = cfg or model.cfg
+    _check_paged(cfg)
+    h = _embed_inputs(model, inputs, cfg)
+    for i, layer in enumerate(model.layers):
+        _, akind, _, _ = layer_sig(cfg, i)
+        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
+        out, pools[i] = L.attn_block_decode_paged(
+            layer.mixer, hn, cfg, akind, pools[i], page_table, pos, active)
+        h = _ffn(layer, h + out, cfg)
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    return L.lm_head(model.lm_head, h), pools

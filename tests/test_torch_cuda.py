@@ -18,6 +18,7 @@ from repro_torch.kernels import ops
 
 TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
 TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -181,3 +182,132 @@ def test_ca_entry_points_launch_the_kernel(dev):
     one = ops.ca_step(packed, torch.zeros_like(packed), block=block,
                       storage="compact", n=n)
     assert torch.equal(lay.unpack(one, block), ref.ca_step_ref(emb, "parity"))
+
+
+# ---------------------------------------------------------------------------
+# block-space flash attention and paged decode
+# ---------------------------------------------------------------------------
+
+def _randn(shape, seed, dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+#: (kind, window, (H, Hkv), S, D, block): MHA, GQA and MQA heads
+FLASH_CASES = [("causal", 0, (4, 4), 256, 64, 64),
+               ("causal", 0, (4, 2), 256, 128, 128),
+               ("causal", 0, (8, 1), 256, 32, 64),
+               ("local", 64, (4, 2), 512, 64, 64),
+               ("local", 128, (2, 2), 512, 256, 128),
+               ("full", 0, (4, 1), 256, 256, 64),
+               ("full", 0, (2, 2), 128, 16, 32)]
+
+
+@pytest.mark.parametrize("kind,window,heads,s,d,block", FLASH_CASES)
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(dev, kind, window, heads, s, d, block,
+                                    grid_mode, dtype):
+    h, hkv = heads
+    q = _randn((2, h, s, d), 1, dev, dtype)
+    k = _randn((2, hkv, s, d), 2, dev, dtype)
+    v = _randn((2, hkv, s, d), 3, dev, dtype)
+    sched = FA.flash_schedule(q.shape, k.shape, kind=kind, window=window,
+                              block_q=block, block_k=block,
+                              grid_mode=grid_mode)
+    FA.check_flash_against_plain(q, k, v, sched)
+
+
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+def test_flash_kernel_compact_kv_and_decode(dev, grid_mode):
+    from repro_torch.core.compact import pack_kv
+    # rectangular local with compact KV: the first visited tile of the
+    # first query rows is wholly masked
+    q = _randn((1, 4, 128, 64), 4, dev, torch.float32)
+    k = _randn((1, 2, 512, 64), 5, dev, torch.float32)
+    v = _randn((1, 2, 512, 64), 6, dev, torch.float32)
+    full = FA.flash_schedule(q.shape, k.shape, kind="local", window=128,
+                             block_q=64, block_k=64, grid_mode=grid_mode)
+    kc = pack_kv(k, full.domain, 64).contiguous()
+    vc = pack_kv(v, full.domain, 64).contiguous()
+    sched = FA.flash_schedule(q.shape, kc.shape, kind="local", window=128,
+                              block_q=64, block_k=64, grid_mode=grid_mode,
+                              storage="compact", kv_seq_len=512)
+    _, emb = FA.check_flash_against_plain(q, k, v, full)
+    _, comp = FA.check_flash_against_plain(q, kc, vc, sched)
+    assert torch.equal(emb, comp)
+    # decode: scalar and per-row seq_pos, with and without a window
+    qd = _randn((3, 4, 1, 64), 7, dev, torch.float32)
+    kd = _randn((3, 2, 512, 64), 8, dev, torch.float32)
+    vd = _randn((3, 2, 512, 64), 9, dev, torch.float32)
+    for pos, win in ((300, 0), ([37, 511, 128], 0), ([37, 511, 200], 100)):
+        sched = FA.flash_schedule(qd.shape, kd.shape, kind="full",
+                                  window=win, block_q=1, block_k=128,
+                                  grid_mode=grid_mode, has_pos=True)
+        FA.check_flash_against_plain(
+            qd, kd, vd, sched, FA.seq_pos_vector(pos, 3, dev))
+
+
+@pytest.mark.parametrize("ps,d,dtype", [(16, 64, torch.float32),
+                                        (128, 256, torch.bfloat16),
+                                        (64, 128, torch.float32)])
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, window):
+    from repro_torch.core import paged as P
+    b, h, hkv, smax = 3, 8, 4, 512
+    q = _randn((b, h, 1, d), 10, dev, dtype)
+    k = _randn((b, hkv, smax, d), 11, dev, dtype)
+    v = _randn((b, hkv, smax, d), 12, dev, dtype)
+    npg = smax // ps
+    perm = torch.randperm(b * npg, generator=torch.Generator().manual_seed(3))
+    pool = P.init_pool(b * npg + 1, hkv, ps, d, dtype, dev)
+    table = torch.zeros((b, npg), dtype=torch.int32)
+    for i in range(b):
+        table[i] = perm[i * npg:(i + 1) * npg] + 1
+        P.write_prefill_pages(pool, table[i].to(dev), k[i], v[i])
+    table = table.to(dev)
+    pos = torch.tensor([37, 511, 200], dtype=torch.int32, device=dev)
+    psched = FA.paged_schedule(q.shape, pool.shape, table.shape,
+                               window=window)
+    _, paged = FA.check_paged_against_plain(q, pool, table, pos, psched)
+    sched = FA.flash_schedule(q.shape, k.shape, kind="full", window=window,
+                              block_q=1, block_k=ps, has_pos=True)
+    contiguous = FA.flash_cuda(q, k, v, sched, pos)
+    assert torch.equal(paged, contiguous)
+
+
+def test_attention_entry_points_launch_the_kernels(dev):
+    FA.reset_launch_counts()
+    q = _randn((1, 2, 128, 32), 13, dev, torch.float32)
+    out = ops.flash_attention(q, q, q, kind="causal", block_q=64,
+                              block_k=64)
+    pool = _randn((3, 2, 16, 32), 14, dev, torch.float32)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    dec = ops.paged_flash_attention(q[:, :, :1], pool, table, 20)
+    assert FA.launch_counts() == {"flash_attention": 1,
+                                  "paged_flash_attention": 1}
+    assert out.shape == q.shape and dec.shape == (1, 2, 1, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_cuda(q.transpose(2, 3), q, q, FA.flash_schedule(
+            (1, 2, 32, 128), (1, 2, 32, 128), kind="full", block_q=32,
+            block_k=32))
+
+
+def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
+    # D 256 with 2048-key tiles needs more shared memory per CTA than the
+    # card's opt-in limit; the wrappers raise before launching
+    FA.reset_launch_counts()
+    q = _randn((1, 1, 1, 256), 15, dev, torch.float32)
+    k = _randn((1, 1, 2048, 256), 16, dev, torch.float32)
+    pos = torch.tensor([2047], dtype=torch.int32, device=dev)
+    sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
+                              block_k=2048, has_pos=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.flash_cuda(q, k, k, sched, pos)
+    pool = _randn((2, 2, 2048, 256), 17, dev, torch.float32)
+    table = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    psched = FA.paged_schedule(q.shape, pool.shape, table.shape)
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.paged_cuda(q, pool, table, pos, psched)
+    assert FA.launch_counts() == {"flash_attention": 0,
+                                  "paged_flash_attention": 0}

@@ -1,0 +1,167 @@
+"""The port's LM stack against the JAX package's, on the same weights
+(carried across with params_from_jax): quickstart and gemma3-12b smoke
+configs, full forward, prefill logits and caches, 8 decode steps under
+the plain and the block-space decode, and the paged decode step.
+
+LOGIT_TOL: f32 matmuls and reductions summed in another order, a few
+layers deep; the largest difference seen is ~5e-6 on logits of
+magnitude ~4."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import model as JM
+from repro_torch.configs import get_config
+from repro_torch.core import paged as TP
+from repro_torch.models import init
+from repro_torch.models import model as TM
+from repro_torch.models.convert import params_from_jax, params_to_jax
+from torch_parity import jax_model
+
+LOGIT_TOL = dict(rtol=1e-5, atol=2e-5)
+ARCHS = ["quickstart", "gemma3-12b"]
+
+
+def _close(got, want, tol=LOGIT_TOL):
+    np.testing.assert_allclose(got.numpy() if isinstance(got, torch.Tensor)
+                               else got, np.asarray(want), **tol)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def stacks(request):
+    return jax_model(request.param)
+
+
+def _tokens(cfg, shape, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def test_conversion_round_trip_exact(stacks):
+    jcfg, jp, tcfg, tm = stacks
+    tree = params_to_jax(tm)
+    want = jax.tree.map(np.asarray, jp)
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(want)):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    with pytest.raises(KeyError, match="no 'final_norm.scale'"):
+        params_from_jax({k: v for k, v in want.items()
+                         if k != "final_norm"}, tcfg)
+    with pytest.raises(KeyError, match="extra"):
+        params_from_jax({**want, "extra": {"w": np.zeros(1)}}, tcfg)
+    bad = {**want, "lm_head": {"w": want["lm_head"]["w"][:, :8]}}
+    with pytest.raises(ValueError, match="lm_head.w"):
+        params_from_jax(bad, tcfg)
+
+
+def test_forward_and_prefill_match_jax(stacks):
+    jcfg, jp, tcfg, tm = stacks
+    toks = _tokens(jcfg, (2, 24))
+    jl, _ = JM.logits_fn(jp, jnp.asarray(toks), jcfg)
+    tl, aux = TM.logits_fn(tm, torch.from_numpy(toks))
+    _close(tl, jl)
+    assert float(aux) == 0.0
+    jlog, jcache = JM.prefill(jp, jnp.asarray(toks), jcfg, max_len=32)
+    tlog, tcache = TM.prefill(tm, torch.from_numpy(toks), max_len=32)
+    _close(tlog, jlog)
+    prefix, period, n_groups = JM.group_layout(jcfg)
+    assert prefix == 0 and len(tcache) == period * n_groups
+    zeros = TM.init_cache(tcfg, 2, 32)
+    assert [tuple(k.shape) for k, _ in zeros] == \
+        [tuple(k.shape) for k, _ in tcache]
+    assert not any(bool(k.any()) or bool(v.any()) for k, v in zeros)
+    for i, (k, v) in enumerate(tcache):
+        jk, jv = jcache["blocks"][f"slot_{i % period}"]["mixer"]
+        assert k.shape == (2, tcfg.n_kv_heads, 32, tcfg.hd)
+        _close(k, jk[i // period])
+        _close(v, jv[i // period])
+
+
+@pytest.mark.parametrize("decode_kernel", ["xla", "blockspace"])
+def test_decode_steps_match_jax(stacks, decode_kernel):
+    jcfg, jp, tcfg, tm = stacks
+    jcfg = jcfg.replace(attn_decode_kernel=decode_kernel)
+    tcfg = tcfg.replace(attn_decode_kernel=decode_kernel)
+    toks = _tokens(jcfg, (2, 24), seed=1)
+    jlog, jcache = JM.prefill(jp, jnp.asarray(toks), jcfg, max_len=32)
+    tlog, tcache = TM.prefill(tm, torch.from_numpy(toks), 32, tcfg)
+    tok = np.argmax(np.asarray(jlog), -1)
+    for step in range(8):
+        pos = 24 + step
+        jlog, jcache = JM.decode_step(jp, jnp.asarray(tok), jcache,
+                                      jnp.asarray(pos, jnp.int32), jcfg)
+        tlog, tcache = TM.decode_step(tm, torch.from_numpy(tok), tcache,
+                                      pos, tcfg)
+        _close(tlog, jlog)
+        tok = np.argmax(np.asarray(jlog), -1)
+
+
+@pytest.mark.parametrize("decode_kernel", ["xla", "blockspace"])
+def test_paged_decode_step_matches_jax(stacks, decode_kernel):
+    jcfg, jp, tcfg, tm = stacks
+    jcfg = jcfg.replace(attn_decode_kernel=decode_kernel)
+    tcfg = tcfg.replace(attn_decode_kernel=decode_kernel)
+    ps, lens = 8, [13, 6]
+    jpools = JM.init_paged_cache(jcfg, 8, ps)
+    tpools = TM.init_paged_cache(tcfg, 8, ps)
+    table = np.zeros((2, 3), np.int32)
+    table[0, :2], table[1, :1] = [3, 1], [5]
+    for slot, n in enumerate(lens):
+        toks = _tokens(jcfg, (1, n), seed=slot)
+        pages = table[slot, :TP.pages_for(n, ps)]
+        _, jc = JM.prefill(jp, jnp.asarray(toks), jcfg)
+        jpools = JM.scatter_prefill_pages(jpools, jc, jnp.asarray(pages),
+                                          jcfg)
+        _, tc = TM.prefill(tm, torch.from_numpy(toks), cfg=tcfg)
+        TM.scatter_prefill_pages(tpools, tc, torch.from_numpy(pages), tcfg)
+    table[1, 1] = 2                               # slot 1 grows a page
+    pos = np.asarray(lens, np.int32)
+    act = np.asarray([True, True])
+    tok = _tokens(jcfg, (2, 1), seed=7)
+    for _ in range(3):
+        jlog, jpools = JM.decode_step_paged(
+            jp, jnp.asarray(tok), jpools, jnp.asarray(table),
+            jnp.asarray(pos), jnp.asarray(act), jcfg)
+        tlog, tpools = TM.decode_step_paged(
+            tm, torch.from_numpy(tok), tpools, torch.from_numpy(table),
+            torch.from_numpy(pos), torch.from_numpy(act), tcfg)
+        _close(tlog, jlog)
+        tok, pos = np.argmax(np.asarray(jlog), -1), pos + 1
+    for i, pool in enumerate(tpools):
+        jpool = jpools["blocks"][f"slot_{i % len(jcfg.attn_pattern)}"][
+            "mixer"][i // len(jcfg.attn_pattern)]
+        _close(pool[1:], jpool[1:])               # page 0 is scratch
+
+
+def test_configs_and_init_match_jax():
+    from repro.configs import get_config as j_get_config
+    for arch in ARCHS:
+        for smoke in (True, False):
+            t = get_config(arch, smoke=smoke)
+            j = j_get_config(arch, smoke=smoke)
+            assert {f: getattr(t, f) for f in t.__dataclass_fields__} == \
+                {f: getattr(j, f) for f in j.__dataclass_fields__}
+            assert t.param_count() == j.param_count()
+    with pytest.raises(KeyError, match="A11"):
+        get_config("deepseek-v2-236b")
+    with pytest.raises(KeyError, match="unknown"):
+        get_config("gpt-2")
+    cfg = get_config("quickstart", smoke=True)
+    with pytest.raises(NotImplementedError, match="A11"):
+        TM.Model(cfg.replace(moe=True, n_experts=4))
+    # init: the JAX package's shapes and scales, from a torch generator
+    model = init(cfg, torch.Generator().manual_seed(0), "cpu")
+    jp = jax.eval_shape(lambda: JM.init(jax.random.PRNGKey(0),
+                                        jax_model_cfg("quickstart")))
+    shapes = jax.tree.map(lambda a: a.shape, params_to_jax(model))
+    assert shapes == jax.tree.map(lambda a: a.shape, jp)
+    w = model.layers[0].mixer.wq
+    assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
+    assert abs(float(model.embed.table.std()) - 0.01) < 1e-3
+    assert torch.equal(model.final_norm.scale, torch.ones(cfg.d_model))
+
+
+def jax_model_cfg(arch):
+    from repro.configs import get_config as j_get_config
+    return j_get_config(arch, smoke=True)

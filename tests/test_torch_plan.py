@@ -103,7 +103,7 @@ def test_launch_params():
         TP.GridPlan(carpet, backend="cpu").launch_params(90, 10, "cpu")
     for dom in (TD.TriangularDomain(4), TD.BandDomain(8, 3),
                 TD.BoundingBoxDomain(3, 3)):
-        with pytest.raises(NotImplementedError, match="A6"):
+        with pytest.raises(NotImplementedError, match="A15"):
             TP.GridPlan(dom, backend="cpu").launch_params(32, 8, "cpu")
 
 

@@ -91,3 +91,51 @@ def assert_rule_close(got, want, rule):
         np.testing.assert_array_equal(got, np.asarray(want))
     else:
         np.testing.assert_allclose(got, np.asarray(want), **DIFFUSION_TOL)
+
+
+# ---------------------------------------------------------------------------
+# attention inputs and the LM stack
+# ---------------------------------------------------------------------------
+
+#: kernel parity tolerance per dtype: the JAX tests' own
+#: (tests/test_kernels.py, f32 and bf16)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def attn_pair(shape, seed, dtype="float32"):
+    """The same normal tensor for both packages: (jax array, torch
+    tensor) holding identical values of ``dtype``."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    t = torch.from_numpy(x).to(tdt)
+    return jnp.asarray(t.to(torch.float32).numpy(), jdt), t
+
+
+def qkv_pair(b, h, hkv, sq, sk, d, seed, dtype="float32"):
+    """(jax q, k, v), (torch q, k, v) with identical values."""
+    out = [attn_pair(s, seed + i, dtype) for i, s in enumerate(
+        [(b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)])]
+    return tuple(o[0] for o in out), tuple(o[1] for o in out)
+
+
+def assert_attn_close(got, want, dtype="float32"):
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=tol, atol=tol)
+
+
+def jax_model(arch, seed=0, **replace):
+    """The JAX package's smoke config of ``arch`` (with ``replace``),
+    its init from PRNGKey(seed), and the port's model holding the same
+    weights: (jax cfg, jax params, torch cfg, torch model)."""
+    import jax
+
+    from repro.configs import get_config as j_get_config
+    from repro.models import init as j_init
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.models.convert import params_from_jax
+
+    jcfg = j_get_config(arch, smoke=True).replace(**replace)
+    tcfg = t_get_config(arch, smoke=True).replace(**replace)
+    params = j_init(jax.random.PRNGKey(seed), jcfg)
+    tree = jax.tree.map(np.asarray, params)
+    return jcfg, params, tcfg, params_from_jax(tree, tcfg, "cpu")
