@@ -1,34 +1,53 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
 Drives the port's main paths through the hand-written CUDA kernels: the
-fractal paths at the paper's largest size, n = 2**16, and the LM's
-serving path at full model width:
+fractal paths at the paper's largest size, n = 2**16, the attention
+domains at the same size, and the LM's serving path at full model width:
 
 * the paper's SS IV experiment: enumerate the member blocks of an n x n
   Sierpinski gasket with lambda(w), launch exactly those blocks, write
   (and sum) every member cell, and compare with the bounding-box launch
-  (a 16 GiB f32 state);
+  (a 16 GiB f32 state); the lambda decode also as tensor-core products
+  (the mma lowering);
 * the CA application: parity and diffusion steps on the gasket held in
   compact orthotope storage (two 725.6 MB f32 buffers), fused over
   several steps per launch;
 * compact write/sum: the SS IV write and sum on the packed state;
+* domain=: the write and sum over the causal triangle (packed, 8 GiB)
+  and the gemma3-12b window as a band, under the four lowerings;
 * serving: the contiguous Server (quickstart, and gemma3-12b with 6 of
   its 48 layers) and the continuous-batching PagedServer (quickstart),
   greedy, every decode attention through the block-space flash kernel
   or the paged decode kernel.
 
+The lowerings are closed_form, prefetch_lut, bounding and mma (the
+decode chains of csrc/mma_decode.cuh on the tensor cores); every loop
+over ``LOWERINGS`` below runs all four.
+
 Phases, each printing its own lines:
 
 1. card   -- name and power limit (nvidia-smi), torch and CUDA versions;
 2. build  -- nvcc builds every kernel library from the sources in the
-             checkout, one nvcc per source, all started together;
+             checkout, one nvcc per source, all started together; the
+             ptxas register line of every kernel instantiation;
 3. parity -- every kernel against its plain PyTorch version on the card:
-             gasket, carpet and Vicsek x closed_form / prefetch_lut /
-             bounding x several (n, rho); writes bit-equal in
-             f32/bf16/int32, sums bit-equal on integer-valued states and
-             within a stated tolerance on normal ones;
-4. main   -- launch counts set to 0, then sierpinski_write_ and
-             sierpinski_sum at n = 2**16 under the three lowerings at
+             gasket, carpet and Vicsek x the four lowerings x several
+             (n, rho); writes bit-equal in f32/bf16/int32, sums
+             bit-equal on integer-valued states and within a stated
+             tolerance on normal ones;
+4. parity, compact, CA and domains -- the write/sum kernels under
+             compact storage and coarsening (same rules as phase 3), the
+             fused CA kernel under gasket / carpet / Vicsek x four
+             lowerings x {embedded, compact} x coarsen {1, s} x fuse
+             {1, 3, span} x both rules (bit-equal), including the
+             large-tile path; the write/sum and CA kernels over the
+             triangular, band (square and rectangular) and bounding-box
+             (wide and tall) domains against their plain versions, mma
+             bit-equal to closed_form there; and the fractal kernels
+             under mma bit-equal to closed_form (write, partials, CA;
+             compact and coarsened);
+5. main   -- launch counts set to 0, then sierpinski_write_ and
+             sierpinski_sum at n = 2**16 under the four lowerings at
              rho in {8, 16, 32}, each write checked against the bit test
              in row bands; counts read; then, at the same shapes, the
              sum kernels against their plain versions slot by slot on
@@ -36,16 +55,12 @@ Phases, each printing its own lines:
              state (within the tolerance); CUDA-event timings of every
              kernel beside its plain version and one library call of
              the same function (masked_fill_, torch.masked.sum,
-             Tensor.sum), and the rho = 1 grids (3**16 and 2**32 steps)
-             launched once;
-5. parity, compact and CA -- the write/sum kernels under compact storage
-             and coarsening (same rules as phase 3), and the fused CA
-             kernel under gasket / carpet / Vicsek x three lowerings x
-             {embedded, compact} x coarsen {1, s} x fuse {1, 3, span}
-             x both rules (bit-equal), including the large-tile path;
+             Tensor.sum); the rho = 1 grids (3**16 and 2**32 steps)
+             launched once; rho = 1 under mma (3**16 >= 2**24 blocks)
+             refused with the bound's ValueError before any launch;
 6. ca     -- launch counts set to 0, then ca_run at n = 2**16, rho = 32,
              compact f32, T = 32 steps at fuse 1, 8 and 32 under the
-             three lowerings for parity and diffusion; counts read; each
+             four lowerings for parity and diffusion; counts read; each
              result held against a cell-level gather oracle over
              cell_neighbor_tables(16) (parity bit-equal, diffusion within
              rtol 1e-5 / atol 1e-6); the plain version at full size for
@@ -55,30 +70,40 @@ Phases, each printing its own lines:
              and the oracle;
 7. compact write/sum -- counts set to 0, then write and sum on the
              packed state at rho 8, 16, 32 and rho 32 with coarsen 2
-             under the three lowerings; counts read; the write checked on
+             under the four lowerings; counts read; the write checked on
              the packed array itself, the partials slot by slot against
              the plain version; timings beside masked_fill_;
-8. parity-attn -- flash_attention against its plain version over
-             causal / local / full x three lowerings x {MHA, GQA 16/8,
+8. domains -- for each of the triangle of 2**11 block rows (packed,
+             8 GiB) and the band of 32 blocks (embedded 16 GiB, and
+             packed) at n = 2**16, rho = 32: counts set to 0, write and
+             sum under the four lowerings, each write checked against
+             the domain's membership rule in bands; counts read; the
+             partials against the plain version slot by slot, their f64
+             total against the member total; timings beside
+             masked_fill_ and torch.masked.sum;
+9. parity-attn -- flash_attention against its plain version over
+             causal / local / full x four lowerings x {MHA, GQA 16/8,
              MQA} x D {64, 128, 256} x blocks {64, 128} x f32/bf16 (the
              lowerings bit-equal to each other), rectangular local with
              compact KV, seq_pos scalar / vector and full + window; the
              paged kernel against its plain version and bit-equal to the
              contiguous seq_pos kernel at block_k == page_size;
-9. attn   -- flash_attention at the widths of quickstart (causal S 4096,
+10. attn  -- flash_attention at the widths of quickstart (causal S 4096,
              B 4, f32) and gemma3-12b (D 256 bf16: causal S 4096, local
-             window 1024 at S 8192) under the three lowerings: kernel vs
+             window 1024 at S 8192) under the four lowerings: kernel vs
              plain, CUDA-event medians of the kernel, its plain version
              and scaled_dot_product_attention (a yardstick only);
-10. serve -- launch counts set to 0, then Server.generate greedy on
+11. serve -- launch counts set to 0, then Server.generate greedy on
              quickstart at full width (batch 8, prompt 128, 32 new,
              max_len 256) through the flash kernel; counts read and held
-             to layers x decode steps; the same run through the plain
-             decode; step logits compared within SERVE_TOL and the token
-             streams equal wherever the top-2 margin exceeds it; the same
-             for gemma3-12b (6 layers, batch 4, prompt 1536, 16 new,
-             max_len 1664, bf16); timings in turns;
-11. paged -- counts set to 0, then PagedServer.run on quickstart: 16
+             to layers x decode steps; the same run with
+             grid_lowering="mma", counted on its own, its streams and
+             step logits bit-equal to the first; the same run through
+             the plain decode; step logits compared within SERVE_TOL and
+             the token streams equal wherever the top-2 margin exceeds
+             it; the same for gemma3-12b (6 layers, batch 4, prompt
+             1536, 16 new, max_len 1664, bf16); timings in turns;
+12. paged -- counts set to 0, then PagedServer.run on quickstart: 16
              mixed-length requests, 8 slots, 16-token pages, a pool that
              forces preemptions, the page table verified at every step;
              counts read and held to layers x paged steps; streams
@@ -88,7 +113,11 @@ Phases, each printing its own lines:
              scaled_dot_product_attention, and the flash kernel held to
              its plain version at the gemma3-12b decode shape (bf16,
              cache 1664, window 1024 and none);
-12. kernels line, then the result line.
+13. kernels line (B1-B5 and the mma chains, B7), then the result line.
+
+``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
+result line (to read the register lines of a tree, e.g. of an earlier
+commit unpacked beside this script).
 
 Any failed check raises: the script exits non-zero and prints no
 result line.  It needs one CUDA card and nvcc; full results are written
@@ -207,11 +236,22 @@ def phase_build(_cuda):
     print(f"[build] " + ", ".join(
         f"{name} {_cuda.BUILD_SECONDS.get(name, 0.0):.1f} s"
         for name in paths) + f" (in parallel, {secs:.1f} s in all)")
+    kernels = ("write_kernel", "sum_partials_kernel", "sum_combine_kernel",
+               "ca_fused_kernel", "flash_fwd_kernel", "paged_decode_kernel")
     for name, path in paths.items():
         print(f"[build] {name}: {path.name}")
+        entry = ""
         for line in _cuda.BUILD_LOG.get(name, "").splitlines():
+            if "Compiling entry function" in line:
+                # the kernel and its template arguments, from the mangled
+                # name: <kernel>I<args>E (e.g. write_kernelILi0ELb1ELb0EjE:
+                # domain kind 0, mma, untiled, 4-byte cells)
+                mangled = line.split("'")[1]
+                hit = [k for k in kernels if k in mangled]
+                entry = mangled[mangled.index(hit[0]):].split("EEv")[0] \
+                    if hit else mangled
             if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+                print(f"[build]   {entry}: {line.strip()}")
     return secs
 
 
@@ -254,7 +294,8 @@ def phase_parity(TW, LOWERINGS, dev):
                 ncmp += 2
         torch.cuda.synchronize()
         print(f"[parity] {fractal} n={n} rho={block}: ok "
-              f"(3 lowerings x {len(DTYPES)} dtypes + normal f32)")
+              f"({len(LOWERINGS)} lowerings x {len(DTYPES)} dtypes + normal "
+              f"f32)")
     print(f"[parity] {ncmp} kernel-vs-plain comparisons passed; "
           f"max |err| {err}")
     return err
@@ -403,6 +444,17 @@ def phase_main(ops, TW, F, LOWERINGS, dev):
         check_bands(m, mask, band, f"write {gm} rho=1")
         print(f"[main] rho=1 {gm}: {p.steps} steps, one launch "
               f"{rho1[gm]:.3f} ms, checked against the bit test")
+    # -- rho = 1 under mma: 3**16 >= 2**24 blocks, refused before launch
+    before = TW.launch_counts()
+    try:
+        ops.sierpinski_write_(m, 1.0, block=1, grid_mode="mma")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "2^24" in refused,
+          "rho=1 under mma did not raise the exactness bound's ValueError")
+    check(TW.launch_counts() == before, "rho=1 under mma launched a kernel")
+    print(f"[main] rho=1 mma: refused before any launch ({refused})")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[main] peak device memory {peak:.2f} GiB")
     return rows, launches, err, rho1, peak
@@ -460,7 +512,8 @@ def phase_parity_compact(TW, F, LOWERINGS, compact_layout, dev):
                     ncmp += 2
         torch.cuda.synchronize()
         print(f"[parity-compact] {fractal} n={n} rho={block} s={s}: ok "
-              f"(3 lowerings x compact/coarsened/embedded-coarsened x "
+              f"({len(LOWERINGS)} lowerings x compact/coarsened/"
+              f"embedded-coarsened x "
               f"{len(DTYPES)} dtypes + normal f32)")
     print(f"[parity-compact] {ncmp} kernel-vs-plain comparisons passed; "
           f"max |err| {err}")
@@ -495,8 +548,8 @@ def phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev):
                     ncmp += 1
         torch.cuda.synchronize()
         print(f"[parity-ca] {fractal} n={n} rho={block} coarsen={coarsen} "
-              f"fuse={fuse}: bit-equal (2 rules x 2 storages x 3 "
-              f"lowerings)")
+              f"fuse={fuse}: bit-equal (2 rules x 2 storages x "
+              f"{len(LOWERINGS)} lowerings)")
     print(f"[parity-ca] {ncmp} kernel-vs-plain comparisons passed, all "
           f"bit-equal")
     return 0.0
@@ -834,6 +887,263 @@ def phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev):
 
 
 # ---------------------------------------------------------------------------
+# the row-major domains (domain=) and the mma lowering
+# ---------------------------------------------------------------------------
+
+#: write/sum/CA parity over the attention domains: (name, constructor
+#: arguments, block)
+DOMAIN_PARITY_CASES = [
+    ("triangular", (17,), 1), ("triangular", (17,), 8),
+    ("triangular", (200,), 32), ("band", (24, 5), 8),
+    ("band", (8, 3, 20), 16), ("bounding-box", (7, 5), 8),
+    ("bounding-box", (3, 6), 32)]
+#: mma against closed_form, kernel against kernel: (fractal, n, block, s)
+MMA_EQ_CASES = [("sierpinski-gasket", 1024, 8, 4),
+                ("sierpinski-gasket", 4096, 32, 2),
+                ("sierpinski-carpet", 729, 9, 3), ("vicsek-cross", 6561, 9, 9)]
+#: the n = 2**16, rho = 32 domain cells: the causal triangle of 2**11
+#: block rows (packed: 8 GiB f32) and the gemma3-12b window of 1024
+#: tokens as a band of 32 blocks (embedded 16 GiB, packed 266 MB)
+DOMAIN_MAIN = [("triangular", (2048,), "compact"),
+               ("band", (2048, 32), "embedded"),
+               ("band", (2048, 32), "compact")]
+
+
+def make_domain(D, name, args):
+    return {"triangular": D.TriangularDomain, "band": D.BandDomain,
+            "bounding-box": D.BoundingBoxDomain}[name](*args)
+
+
+def domain_state(lay, block, storage, dtype, seed, kind, dev):
+    shape = lay.array_shape(block) if storage == "compact" \
+        else lay.embedded_shape(block)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "integer":
+        x = torch.randint(-8, 9, shape, generator=g, device=dev)
+    elif kind == "binary":
+        x = torch.randint(0, 2, shape, generator=g, device=dev)
+    else:
+        x = torch.randn(shape, generator=g, device=dev)
+    return x.to(dtype)
+
+
+def phase_parity_domains(TW, TC, D, LOWERINGS, compact_layout, dev):
+    """The write/sum and CA kernels over the row-major domains against
+    their plain versions (every lowering, both storages; writes and
+    integer sums bit-equal, CA bit-equal), mma bit-equal to closed_form
+    there, and the fractal kernels under mma bit-equal to closed_form
+    (write, partials, CA; compact and coarsened)."""
+    err = {name: 0.0 for name in TW.KERNELS}
+    ncmp = 0
+    for ci, (name, args, block) in enumerate(DOMAIN_PARITY_CASES):
+        dom = make_domain(D, name, args)
+        lay = compact_layout(dom)
+        for storage in ("embedded", "compact"):
+            outs = {}
+            for gm in LOWERINGS:
+                for di, dtype in enumerate(DTYPES + (None,)):
+                    integer = dtype is not None
+                    m = domain_state(lay, block, storage,
+                                     dtype or torch.float32, 50 * ci + di,
+                                     "integer" if integer else "normal", dev)
+                    plan, n_, blk = TW.prepare_launch(
+                        m, block=block, grid_mode=gm, storage=storage,
+                        domain=dom)
+                    p = plan.launch_params(n_, blk, dev)
+                    if integer:
+                        TW.check_write_against_plain(m, 7.3, plan, n_, blk,
+                                                     p)
+                        ncmp += 1
+                    errs, _ = TW.check_sum_against_plain(
+                        m, plan, n_, blk, p,
+                        rtol=None if integer else NORMAL_RTOL)
+                    merge_err(err, errs)
+                    ncmp += 2
+                    if dtype == torch.int32:
+                        outs[gm] = (TW.write_cuda(m.clone(), 5, p),
+                                    TW.sum_partials_cuda(m, p))
+            for gm in ("prefetch_lut", "mma"):
+                check(all(torch.equal(a, b) for a, b in
+                          zip(outs[gm], outs["closed_form"])),
+                      f"{name} {args} {storage}: {gm} differs from "
+                      f"closed_form")
+            for rule in ("parity", "diffusion"):
+                a = domain_state(lay, block, storage, torch.float32, ci,
+                                 "binary" if rule == "parity" else "normal",
+                                 dev)
+                b = torch.zeros_like(a)
+                cas = {}
+                for gm in LOWERINGS:
+                    plan, n_, blk = TC.prepare_run(
+                        a, b, block=block, grid_mode=gm, storage=storage,
+                        domain=dom)
+                    for h, steps in sorted({(1, 1), (min(3, blk),) * 2}):
+                        TC.check_ca_against_plain(a, b, plan, n_, blk, h,
+                                                  steps, rule, CA_ALPHA)
+                        ncmp += 1
+                    cas[gm] = TC.ca_cuda(a, torch.zeros_like(a),
+                                         plan.launch_params(n_, blk, dev),
+                                         1, 1, rule, CA_ALPHA)
+                check(torch.equal(cas["mma"], cas["closed_form"]),
+                      f"ca {name} {args} {storage} {rule}: mma differs "
+                      f"from closed_form")
+        torch.cuda.synchronize()
+        print(f"[parity-domains] {name}{args} rho={block}: write/sum and CA "
+              f"kernels == plain ({len(LOWERINGS)} lowerings x 2 storages), "
+              f"mma == closed_form")
+    for ci, (fractal, n, block, s) in enumerate(MMA_EQ_CASES):
+        lay = compact_layout(TW.resolve_fractal_domain(fractal, n, block))
+        for storage in ("embedded", "compact"):
+            for coarsen in (1, s):
+                got = {}
+                for gm in ("closed_form", "mma"):
+                    x = domain_state(lay, block, storage, torch.float32,
+                                     ci, "integer", dev) \
+                        if storage == "compact" else \
+                        random_state(n, torch.float32, ci, True, dev)
+                    plan, n_, blk = TW.prepare_launch(
+                        x, block=block, grid_mode=gm, fractal=fractal,
+                        storage=storage, n=n, coarsen=coarsen)
+                    p = plan.launch_params(n_, blk, dev)
+                    h = min(3, coarsen * blk)
+                    got[gm] = (TW.write_cuda(x.clone(), 7.0, p),
+                               TW.sum_partials_cuda(x, p),
+                               TC.ca_cuda(x, torch.zeros_like(x), p, h, h,
+                                          "diffusion", CA_ALPHA))
+                    ncmp += 3
+                check(all(torch.equal(a, b) for a, b in
+                          zip(got["mma"], got["closed_form"])),
+                      f"{fractal} n={n} rho={block} {storage} coarsen="
+                      f"{coarsen}: mma differs from closed_form")
+        torch.cuda.synchronize()
+        print(f"[parity-domains] {fractal} n={n} rho={block}: the mma "
+              f"kernels (write, partials, CA) == closed_form, embedded / "
+              f"compact x coarsen 1 / {s}")
+    print(f"[parity-domains] {ncmp} comparisons passed; max |err| {err}")
+    return err
+
+
+def domain_member_bands(dom, lay, block, storage, dev, band_rows=64):
+    """Yield (row0, row1, mask) over the state in bands of block rows:
+    the cells of member blocks (embedded) or of the slots that hold
+    member blocks (packed: slot index below num_blocks)."""
+    if storage == "compact":
+        scols, srows = lay.grid_shape
+        sx = torch.arange(scols, device=dev)
+        for r0 in range(0, srows, band_rows):
+            sy = torch.arange(r0, min(srows, r0 + band_rows), device=dev)
+            live = (sy[:, None] * scols + sx[None, :]) < dom.num_blocks
+            yield (r0 * block, (r0 + len(sy)) * block,
+                   live.repeat_interleave(block, 0)
+                   .repeat_interleave(block, 1))
+        return
+    nbx, nby = dom.bounding_box
+    bxs = torch.arange(nbx, device=dev)
+    for r0 in range(0, nby, band_rows):
+        bys = torch.arange(r0, min(nby, r0 + band_rows), device=dev)
+        live = dom.contains(bxs[None, :], bys[:, None])
+        live = torch.broadcast_to(torch.as_tensor(live, device=dev),
+                                  (len(bys), nbx))
+        yield (r0 * block, (r0 + len(bys)) * block,
+               live.repeat_interleave(block, 0).repeat_interleave(block, 1))
+
+
+def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev):
+    """The n = 2**16, rho = 32 domain cells under the four lowerings:
+    counted writes (checked against the membership rule band by band)
+    and sums; then, not counted, the partials against the plain version
+    slot by slot, their f64 total against the member total, and
+    CUDA-event timings beside masked_fill_ / torch.masked.sum."""
+    rho = CA_RHO
+    rows, launches = [], {}
+    for name, args, storage in DOMAIN_MAIN:
+        torch.cuda.empty_cache()
+        dom = make_domain(D, name, args)
+        lay = compact_layout(dom)
+        shape = lay.array_shape(rho) if storage == "compact" \
+            else lay.embedded_shape(rho)
+        members = dom.num_blocks * rho * rho
+        m = torch.full(shape, 2.0, dtype=torch.float32, device=dev)
+        what = f"{name}{args} {storage}"
+        print(f"[domains] {what} rho={rho}: state {tuple(shape)} "
+              f"({m.numel() * 4 / 2 ** 30:.2f} GiB f32), {dom.num_blocks} "
+              f"member blocks, {members} member cells")
+        kw = dict(block=rho, storage=storage, domain=dom)
+
+        # -- the main path, counted ----------------------------------------
+        sums = {}
+        TW.reset_launch_counts()
+        for gm in LOWERINGS:
+            m.fill_(2.0)
+            ops.sierpinski_write_(m, 1.0, grid_mode=gm, **kw)
+            for r0, r1, live in domain_member_bands(dom, lay, rho, storage,
+                                                    dev):
+                check(torch.equal(m[r0:r1], torch.where(live, 1.0, 2.0)),
+                      f"write {what} {gm}: rows {r0}..{r1} differ from "
+                      f"the membership rule")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        m.random_(-8, 9, generator=gen)
+        for gm in LOWERINGS:
+            sums[gm] = ops.sierpinski_sum(m, grid_mode=gm, **kw)
+        torch.cuda.synchronize()
+        counts = TW.launch_counts()
+        launches[what] = counts
+        print(f"[domains] {what}: launches {counts}")
+        for kname, count in counts.items():
+            check(count > 0, f"kernel {kname} was not launched on the "
+                  f"{what} path")
+
+        # -- checks and timings (not counted) ------------------------------
+        exact = 0.0
+        mask = torch.empty(shape, dtype=torch.bool, device=dev)
+        for r0, r1, live in domain_member_bands(dom, lay, rho, storage, dev):
+            exact += float(m[r0:r1][live].double().sum())
+            mask[r0:r1] = live
+        fill_ms = time_ms(lambda: m.masked_fill_(mask, 1.0), 5)
+        msum_ms = time_ms(lambda: torch.masked.sum(m, mask=mask), 5)
+        m.random_(-8, 9, generator=gen.manual_seed(SEED + 7))
+        for gm in LOWERINGS:
+            plan, n_, blk = TW.prepare_launch(m, grid_mode=gm, **kw)
+            p = plan.launch_params(n_, blk, dev)
+            _, plain_sum = TW.check_sum_against_plain(m, plan, n_, blk, p)
+            check(torch.equal(sums[gm], plain_sum),
+                  f"sum {what} {gm}: kernel {float(sums[gm])} != plain "
+                  f"{float(plain_sum)}")
+            parts = TW.sum_partials_cuda(m, p)
+            check(float(parts.double().sum()) == exact,
+                  f"partials {what} {gm}: f64 total "
+                  f"{float(parts.double().sum())} != {exact}")
+            lut_bytes = 0 if p.lut is None else p.lut.numel() * 4
+            row = {"domain": name, "args": list(args), "storage": storage,
+                   "lowering": gm, "rho": rho, "steps": p.steps,
+                   "member_blocks": dom.num_blocks, "sum": float(sums[gm]),
+                   "write_ms": time_ms(lambda: TW.write_cuda(m, 1.0, p), 10),
+                   "partials_ms": time_ms(
+                       lambda: TW.sum_partials_cuda(m, p), 10),
+                   "sum_ms": time_ms(lambda: ops.sierpinski_sum(
+                       m, grid_mode=gm, **kw), 5),
+                   "write_library_ms": fill_ms,
+                   "partials_library_ms": msum_ms}
+            if gm == "mma":
+                row["write_plain_ms"] = time_ms(
+                    lambda: TW.sierpinski_write_plain(m, 1.0, plan, n_, blk),
+                    1, warmup=0)
+            for key, b in (("write", bound(members * 4 + lut_bytes)),
+                           ("partials", bound(members * 4 + p.steps * 4
+                                              + lut_bytes, members))):
+                row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = b
+            rows.append(row)
+            print(f"[domains] {json.dumps(row)}")
+            m.random_(-8, 9, generator=gen.manual_seed(SEED + 7))
+        print(f"[domains] {what}: writes match the membership rule, "
+              f"partials bit-equal to the plain version slot by slot, f64 "
+              f"member total {exact}; masked_fill_ {fill_ms:.4f} ms, "
+              f"torch.masked.sum {msum_ms:.4f} ms")
+        del m, mask
+    return {"rows": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # block-space flash attention, paged decode and the LM servers
 # ---------------------------------------------------------------------------
 
@@ -936,7 +1246,8 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                               f"flash {kind} {hname} d={d} block={blk} "
                               f"{dtype}: the lowerings differ")
         torch.cuda.synchronize()
-        print(f"[parity-attn] {kind}: 3 lowerings x {len(ATTN_HEADS)} head "
+        print(f"[parity-attn] {kind}: {len(LOWERINGS)} lowerings x "
+              f"{len(ATTN_HEADS)} head "
               f"layouts x D {ATTN_DIMS} x blocks {ATTN_BLOCKS} x f32/bf16 "
               f"within tolerance, lowerings bit-equal")
     # rectangular local: queries are the last 256 of 1024 positions, the
@@ -1157,6 +1468,26 @@ def phase_serve(S, TM, get_config, FA, dev):
               f"{cfg.n_layers * (max_new - 1)}")
         check(launches["paged_flash_attention"] == 0,
               "the contiguous server launched the paged kernel")
+        mma_run = None
+        if arch == "quickstart":
+            # the decode kernel under the mma lowering: counted on its own,
+            # its streams and step logits equal to the closed_form run's
+            FA.reset_launch_counts()
+            tm_, lm_, msecs, mstep_ms = serve_run(
+                S, cfg.replace(grid_lowering="mma"), model, prompts,
+                max_new, max_len, "blockspace")
+            mcounts = FA.launch_counts()
+            check(mcounts == launches, f"{arch} mma: launches {mcounts} "
+                  f"!= the closed_form run's {launches}")
+            check(np.array_equal(tm_, tk) and torch.equal(lm_, lk),
+                  f"{arch}: the mma run's streams or step logits differ "
+                  f"from the closed_form run's")
+            mma_run = {"launches": mcounts, "seconds": msecs,
+                       "ms_per_decode_step": mstep_ms,
+                       "streams_equal_closed_form": True}
+            print(f"[serve] {arch} blockspace, grid_lowering=mma: launches "
+                  f"{mcounts}, streams and step logits bit-equal to the "
+                  f"closed_form run")
         tx, lx, xsecs, xstep_ms = serve_run(S, cfg, model, prompts, max_new,
                                             max_len, "xla")
         check(FA.launch_counts() == launches,
@@ -1184,6 +1515,7 @@ def phase_serve(S, TM, get_config, FA, dev):
                "steps_compared": ncmp, "steps_margin_le_tol": small,
                "rows_diverged": diverged,
                "streams_equal": bool((tk == tx).all()),
+               "mma": mma_run,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         runs.append(run)
         print(f"[serve] {json.dumps(run)}")
@@ -1367,6 +1699,7 @@ def main():
     import importlib
 
     from repro_torch.configs import get_config
+    from repro_torch.core import domain as D
     from repro_torch.core import fractal as F
     from repro_torch.core import paged as P
     from repro_torch.core.compact import (cell_neighbor_tables,
@@ -1386,10 +1719,15 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     build_s = phase_build(_cuda)
+    if "--build-only" in sys.argv[1:]:
+        print("[build-only] built and reported; no phase run, no result")
+        return
     errs = phase_parity(TW, LOWERINGS, dev)
     merge_err(errs, phase_parity_compact(TW, F, LOWERINGS, compact_layout,
                                          dev))
     ca_err = phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev)
+    merge_err(errs, phase_parity_domains(TW, TC, D, LOWERINGS,
+                                         compact_layout, dev))
     rows, launches, main_errs, rho1, peak = phase_main(ops, TW, F,
                                                        LOWERINGS, dev)
     merge_err(errs, main_errs)
@@ -1397,6 +1735,7 @@ def main():
                        cell_neighbor_tables, TW, dev)
     comp = phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev)
     merge_err(errs, comp["err"])
+    doms = phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev)
     t_attn = time.perf_counter()
     attn_err = phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev)
     attn_rows = phase_attn(FA, LOWERINGS, dev)
@@ -1410,6 +1749,10 @@ def main():
     source = "src/repro_torch/csrc/sierpinski_write.cu"
     ref = "src/repro/kernels/sierpinski_write.py"
     kernels = []
+    domains = ["sierpinski-gasket", "sierpinski-carpet", "vicsek-cross",
+               "triangular", "band", "bounding-box"]
+    dom_launches = {k: sum(c[k] for c in doms["launches"].values())
+                    for k in TW.KERNELS}
     for name, key, replaces in [
             ("sierpinski_write", "write", f"{ref}:171"),
             ("sierpinski_sum_partials", "partials", f"{ref}:418"),
@@ -1424,6 +1767,8 @@ def main():
             "library_ms": at[f"{key}_library_ms"],
             "at": f"gasket n={N_MAIN} f32 {REPORT_AT[0]} rho={REPORT_AT[1]}",
             "launches_compact_path": comp["launches"][name],
+            "launches_domain_paths": dom_launches[name],
+            "domain": domains,
         })
     gm, fuse, rule = CA_REPORT_AT
     ca_at = next(r for r in ca["rows"]
@@ -1442,6 +1787,34 @@ def main():
         "yardstick_ms": ca["oracle_ms"][rule] * fuse,
         "at": f"gasket n={N_MAIN} rho={CA_RHO} compact f32 {gm} fuse={fuse} "
               f"{rule}, one launch",
+        "domain": domains,
+    })
+    # B7: the mma chains inside the write (B7a at n = 2**16, rho = 32;
+    # B7c on the causal triangle), timed as the write kernel under mma
+    mm = next(r for r in rows if (r["lowering"], r["rho"]) == ("mma", 32))
+    tri = next(r for r in doms["rows"]
+               if (r["domain"], r["lowering"]) == ("triangular", "mma"))
+    tri_cf = next(r for r in doms["rows"]
+                  if (r["domain"], r["lowering"]) == ("triangular",
+                                                      "closed_form"))
+    kernels.append({
+        "name": "mma_decode_chains", "route": "cuda",
+        "source": "src/repro_torch/csrc/mma_decode.cuh",
+        "replaces": "src/repro/core/mma.py:194",
+        "launches": launches["mma_decode_chains"],
+        "max_abs_err": 0.0, "ms": mm["write_ms"],
+        "plain_ms": mm["write_plain_ms"], "bound_ms": mm["write_bound_ms"],
+        "bound_by": mm["write_bound_by"],
+        "library_ms": mm["write_library_ms"],
+        "at": f"the write kernel under mma, gasket n={N_MAIN} f32 rho=32 "
+              f"embedded (B7a)",
+        "closed_form_ms": at["write_ms"],
+        "launches_compact_path": comp["launches"]["mma_decode_chains"],
+        "launches_ca_path": ca["launches"]["mma_decode_chains"],
+        "launches_domain_paths": dom_launches["mma_decode_chains"],
+        "triangular_rows_chain_write_ms": tri["write_ms"],
+        "triangular_closed_form_write_ms": tri_cf["write_ms"],
+        "triangular_bound_ms": tri["write_bound_ms"],
     })
     serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
     serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
@@ -1467,7 +1840,8 @@ def main():
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "parity_max_abs_err": errs, "sweep": rows,
         "rho1_write_ms": rho1, "peak_gib": peak, "ca": ca,
-        "compact": comp, "attn_parity_max_abs_err": attn_err,
+        "compact": comp, "domains": doms,
+        "attn_parity_max_abs_err": attn_err,
         "attn": attn_rows, "serve": serve_runs, "paged": paged,
         "decode": decode, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))

@@ -88,7 +88,7 @@ def main(argv=None):
                     help="superblock side in blocks")
     ap.add_argument("--grid-mode", default="compact",
                     choices=["compact", "closed_form", "prefetch_lut",
-                             "bounding"])
+                             "bounding", "mma"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)

@@ -21,9 +21,23 @@ scalar launch parameters the CUDA kernels take.
     The paper's baseline: launch the full bounding-box grid and discard
     non-member blocks at run time via ``domain.contains``.
 
-``"compact"`` is accepted as an alias of ``closed_form``.  The ``mma``
-lowering and the tuner's ``"auto"`` are not ported yet and raise
-``NotImplementedError`` naming the roadmap item that brings them.
+``mma``
+    The same member-block grid as ``closed_form``, with every decode a
+    digit-basis matrix product (:mod:`repro_torch.core.mma`): the lambda
+    decode, the own compact slot and the neighbour slots of a fractal,
+    or the row-comparison chain of a row-major domain.  On the card the
+    products run on the tensor cores inside the kernels; the plain
+    version evaluates the same chains as tensor contractions.  Exact
+    below 2**24 (a plan beyond that bound raises ``ValueError``).
+
+``"compact"`` is accepted as an alias of ``closed_form``.  The tuner's
+``"auto"`` is not ported yet and raises ``NotImplementedError`` naming
+the roadmap item that brings it.
+
+Domains: the fractals (gasket, any FractalSpec) and the row-major
+domains of attention (triangular, band, bounding box) all have a
+device-side decode, membership test and compact slot; a bounding box
+closed over a membership callable has none.
 
 Storage (``storage=``): ``"embedded"`` state is the dense bounding-box
 array; ``"compact"`` state lives in the packed Lemma 2 orthotope of
@@ -49,17 +63,18 @@ import torch
 from . import backend as backend_lib
 from . import fractal as F
 from . import memo
+from . import mma
 from .compact import (NEIGHBOR_OFFSETS8, CompactLayout, compact_layout,
                       super_tiling)
 from .domain import (BandDomain, BlockDomain, BoundingBoxDomain,
                      GeneralizedFractalDomain, SierpinskiDomain,
                      TriangularDomain)
 
-LOWERINGS = ("closed_form", "prefetch_lut", "bounding")
+LOWERINGS = ("closed_form", "prefetch_lut", "bounding", "mma")
 _ALIASES = {"compact": "closed_form"}
 #: lowerings the JAX package has and this port does not yet, with the
 #: roadmap item that brings each.
-_UNPORTED_LOWERINGS = {"mma": "A9", "auto": "A8"}
+_UNPORTED_LOWERINGS = {"auto": "A8"}
 
 STORAGES = ("embedded", "compact")
 
@@ -72,14 +87,19 @@ _LUT_COLS = 28
 
 #: kernel-side codes of the launch parameters (csrc/fractal_common.cuh)
 FAMILY_GASKET, FAMILY_SPEC = 0, 1
-LOWERING_CODES = {"closed_form": 0, "prefetch_lut": 1, "bounding": 2}
+FAMILY_TRIANGULAR, FAMILY_BAND, FAMILY_BOX = 2, 3, 4
+#: the families whose cells are all live (no intra-block structure)
+GENERIC_FAMILIES = (FAMILY_TRIANGULAR, FAMILY_BAND, FAMILY_BOX)
+LOWERING_CODES = {"closed_form": 0, "prefetch_lut": 1, "bounding": 2,
+                  "mma": 3}
 STORAGE_CODES = {"embedded": 0, "compact": 1}
 #: order of the integer launch parameters the kernels take as one int64
 #: array (``Param`` in csrc/fractal_common.cuh)
 C_PARAMS = ("family", "lowering", "r_b", "k", "m", "r_cell", "n", "block",
             "steps", "nbx", "allow", "oxs", "oys", "storage", "pitch",
             "th", "tw", "bw", "nfine", "coarsen", "swap", "r_fine",
-            "lut_cols")
+            "lut_cols", "nby", "dom_w", "dom_off", "dom_tw", "nblocks",
+            "scols", "mk", "mk2")
 
 
 def normalize_lowering(name: str) -> str:
@@ -106,8 +126,8 @@ def normalize_storage(name: str) -> str:
 def xla_schedule(lowering: str) -> str:
     """The plain-tensor flash-attention schedule equivalent to a lowering.
 
-    ``closed_form``/``prefetch_lut`` only launch member blocks -- the
-    mirror is the ``triangular`` (compact) schedule; ``bounding``
+    ``closed_form``/``prefetch_lut``/``mma`` only launch member blocks
+    -- the mirror is the ``triangular`` (compact) schedule; ``bounding``
     mirrors the ``dense`` masked schedule."""
     return "dense" if normalize_lowering(lowering) == "bounding" else \
         "triangular"
@@ -117,9 +137,13 @@ def xla_schedule(lowering: str) -> str:
 class LaunchParams:
     """The launch parameters of the fractal kernels (write, sum, CA).
 
-    family:   FAMILY_GASKET (bit-test membership, base-3 lambda) or
+    family:   FAMILY_GASKET (bit-test membership, base-3 lambda),
               FAMILY_SPEC (a FractalSpec: base-k digit decode over
-              ``offsets``, base-m digit membership test).
+              ``offsets``, base-m digit membership test), or one of the
+              row-major GENERIC_FAMILIES (every cell of a member block
+              is live): FAMILY_TRIANGULAR (integer-sqrt decode),
+              FAMILY_BAND (triangular head then rows of width w, or the
+              rectangular band), FAMILY_BOX (row-major nbx x nby).
     lowering: a LOWERING_CODES value.
     r_b, k, m: scale level of the *scheduled* (coarse) block grid, copies
               per level, subdivision factor.
@@ -148,6 +172,17 @@ class LaunchParams:
               ``nfine`` packed fine blocks, then for each of the
               coarsen**2 embedded fine blocks its packed index (or -1
               for a non-member); else None (identity arrangement).
+    nby:      scheduled blocks per column of the bounding box.
+    dom_w, dom_off, dom_tw: the band's window w, key-row offset
+              off = m_k - m_q and triangular head T(w) (0 otherwise).
+    nblocks:  member blocks of the scheduled domain.
+    scols:    slot columns of a generic compact layout (the near-square
+              row-major grid; 0 for the fractals).
+    mk, mk2:  under mma the k-steps (of 16) of the primary chain (the
+              digit one-hots, or the block rows of a row-major domain)
+              and of the neighbour chain; 0 otherwise.
+    mma_ops:  under mma a flat int32 device tensor of the chains'
+              tensor-core operands (``mma_operand_tensor``); else None.
     """
 
     family: int
@@ -173,6 +208,15 @@ class LaunchParams:
     r_fine: int
     lut: Optional[torch.Tensor]
     tile_perm: Optional[torch.Tensor]
+    nby: int = 0
+    dom_w: int = 0
+    dom_off: int = 0
+    dom_tw: int = 0
+    nblocks: int = 0
+    scols: int = 0
+    mk: int = 0
+    mk2: int = 0
+    mma_ops: Optional[torch.Tensor] = None
 
     @property
     def span(self) -> int:
@@ -207,8 +251,8 @@ class GridPlan:
     Parameters
     ----------
     domain:      the block domain to enumerate.
-    lowering:    "closed_form" | "prefetch_lut" | "bounding" (or the
-                 alias "compact").
+    lowering:    "closed_form" | "prefetch_lut" | "bounding" | "mma" (or
+                 the alias "compact").
     batch_dims:  leading grid dimensions iterated outside the domain
                  (e.g. ``(batch * heads,)`` for attention).
     storage:     "embedded" (state arrays are the dense bounding-box
@@ -242,6 +286,19 @@ class GridPlan:
             self._tiling = super_tiling(domain, self.coarsen)
             self.sched_domain = self._tiling.coarse
         self._layout = None
+        if self.lowering == "mma":
+            mma.check_domain(self.sched_domain)
+
+    @property
+    def _frac(self):
+        """``(spec, r_b)`` of the scheduled domain when it is a fractal
+        (the digit-basis chains apply), else None (row chains)."""
+        return mma.fractal_of(self.sched_domain)
+
+    @property
+    def _swap(self) -> bool:
+        """The odd-level transpose of the coarse orthotope coordinate."""
+        return self._tiling is not None and self._tiling.j % 2 == 1
 
     @property
     def layout(self) -> CompactLayout:
@@ -309,6 +366,58 @@ class GridPlan:
             (self.storage, self.coarsen, str(device)),
             lambda: torch.from_numpy(self.lut_host().copy()).to(device))
 
+    def mma_table_host(self) -> np.ndarray:
+        """Decode table of the ``mma`` lowering: the same row and column
+        layout as :meth:`lut_host`, but every lambda / lambda^-1 entry
+        is a :mod:`repro_torch.core.mma` chain instead of a host integer
+        loop.  The kernels run the chains themselves; this host copy is
+        what the tests (and a verifier) compare with :meth:`lut_host`.
+        Memoized per (domain, storage, coarsen)."""
+        return memo.cached("gridplan-mma-table", self.domain,
+                           (self.storage, self.coarsen), self._mma_table)
+
+    def mma_table(self, device) -> torch.Tensor:
+        """:meth:`mma_table_host` as an int32 tensor on ``device``."""
+        return torch.from_numpy(self.mma_table_host().copy()).to(device)
+
+    def _mma_decode(self, t: torch.Tensor):
+        """Linear steps -> scheduled (bx, by) int32 via the digit-basis
+        chain (fractal domains) or the row-comparison chain (row-major
+        domains)."""
+        frac = self._frac
+        if frac is not None:
+            return mma.decode_linear(frac[0], frac[1], t)
+        return mma.decode_rows(self.sched_domain, t)
+
+    def _mma_table(self) -> np.ndarray:
+        dom = self.sched_domain
+        t = torch.arange(dom.num_blocks, dtype=torch.int64)
+        frac = self._frac
+        bx, by = self._mma_decode(t)
+        cols = [bx, by]
+        if self.storage == "compact":
+            if frac is not None:
+                sx, sy = mma.slots_of_linear(frac[0], frac[1], t,
+                                             swap=self._swap)
+            else:
+                # generic near-square layouts have no lambda to
+                # accelerate: slots stay the integer row-major slot
+                sx, sy = self.layout.slot(bx.long(), by.long())
+            cols += [sx, sy]
+            for dx, dy in NEIGHBOR_OFFSETS8:
+                if frac is not None:
+                    nsx, nsy, ok = mma.neighbor_slots(
+                        frac[0], frac[1], dom, bx, by, dx, dy,
+                        swap=self._swap)
+                else:
+                    nsx, nsy, ok = self.layout.neighbor_slot(
+                        bx.long(), by.long(), dx, dy)
+                cols += [nsx, nsy, ok]
+        table = torch.stack([c.to(torch.int32) for c in cols], -1).numpy()
+        assert table.shape[1] in (2, _LUT_COLS)
+        table.setflags(write=False)
+        return table
+
     # -- grid-step helpers --------------------------------------------------
 
     @property
@@ -353,8 +462,8 @@ class GridPlan:
         when every step is a member block.
 
         closed_form runs the digit loop on ``arange``, prefetch_lut
-        reads the device table, bounding splits the row-major step id
-        and tests ``domain.contains``."""
+        reads the device table, mma runs the decode chain, bounding
+        splits the row-major step id and tests ``domain.contains``."""
         if self.lowering == "prefetch_lut":
             rows = self.lut(device)[start:stop].to(torch.int64)
             return rows[:, _LUT_BX], rows[:, _LUT_BY], None
@@ -362,6 +471,9 @@ class GridPlan:
         if self.lowering == "closed_form":
             bx, by = self.sched_domain.block_coords(t)
             return bx, by, None
+        if self.lowering == "mma":
+            bx, by = self._mma_decode(t)
+            return bx.long(), by.long(), None
         nbx, _ = self.sched_domain.bounding_box
         bx, by = t % nbx, t // nbx
         valid = None
@@ -417,10 +529,17 @@ class GridPlan:
         (by, bx) in the bounding-box array; compact -> the packed slot
         (sy, sx) of the layout (the supertile index under coarsening).
         Under ``prefetch_lut`` the slot is read from the 28-column LUT;
-        the other lowerings evaluate lambda^-1 on the decoded coords."""
+        under ``mma`` a fractal's slot is the slots chain of the step id
+        (the compact enumeration is lambda-linear); the other cases
+        evaluate lambda^-1 on the decoded coords."""
         if self.storage == "compact" and self.lowering == "prefetch_lut":
             rows = self.lut(device)[start:stop].to(torch.int64)
             return rows[:, _LUT_SY], rows[:, _LUT_SX]
+        if (self.storage == "compact" and self.lowering == "mma"
+                and self._frac is not None):
+            t = torch.arange(start, stop, dtype=torch.int64, device=device)
+            sx, sy = mma.slots_of_linear(*self._frac, t, swap=self._swap)
+            return sy.long(), sx.long()
         bx, by, _ = self.step_coords(start, stop, device)
         if self.storage == "embedded":
             return by, bx
@@ -447,6 +566,11 @@ class GridPlan:
             nbx, nby = self.sched_domain.bounding_box
             return (torch.clamp(by + dy, 0, nby - 1),
                     torch.clamp(bx + dx, 0, nbx - 1))
+        if self.lowering == "mma" and self._frac is not None:
+            sx, sy, _ok = mma.neighbor_slots(
+                *self._frac, self.sched_domain, bx, by, dx, dy,
+                swap=self._swap)
+            return sy.long(), sx.long()
         if self._tiling is not None:
             tx, ty, _ok = self._tiling.neighbor_tile(bx, by, dx, dy)
             return ty, tx
@@ -482,22 +606,51 @@ class GridPlan:
         return memo.cached("gridplan-tile-perm", self.domain,
                            (self.storage, self.coarsen, str(device)), build)
 
-    def launch_params(self, n: int, block: int, device) -> LaunchParams:
-        """The CUDA kernels' launch parameters for a state of embedded
-        side ``n`` tiled by ``block`` under this plan's storage.  Only
-        the fractal domains have a device-side decode in this port."""
+    def mma_operand_tensor(self, device) -> torch.Tensor:
+        """The tensor-core operands of the ``mma`` lowering as one flat
+        int32 tensor on ``device``, memoized per (domain, coarsen,
+        device).  A fractal's holds the B fragments of the coords, slots
+        and neighbour bases (:func:`mma.fractal_operands`), one after
+        the other; a row-major domain's the padded row starts and the
+        (ones, diff) fragments (:func:`mma.rows_operands`)."""
+        def build():
+            frac = self._frac
+            parts = mma.fractal_operands(*frac) if frac is not None \
+                else mma.rows_operands(self.sched_domain)
+            flat = np.concatenate([a.ravel() for a in parts])
+            return torch.from_numpy(flat).to(torch.device(device))
+        return memo.cached("gridplan-mma-operands", self.domain,
+                           (self.coarsen, str(device)), build)
+
+    def _family(self, n: int):
+        """(family, spec or None, r_cell, extra params) of the scheduled
+        domain's device-side decode."""
         dom = self.sched_domain
         if isinstance(dom, SierpinskiDomain):
-            family, spec, r_cell = FAMILY_GASKET, F.SIERPINSKI, 0
-        elif isinstance(dom, GeneralizedFractalDomain):
-            family, spec = FAMILY_SPEC, dom.spec
+            return FAMILY_GASKET, F.SIERPINSKI, 0, {}
+        if isinstance(dom, GeneralizedFractalDomain):
             # the digit test needs n = m**r (raises like spec.is_member)
-            r_cell = spec.scale_level(n) - dom.r_b
-        else:
-            raise NotImplementedError(
-                f"no device-side decode for the {dom.name!r} domain yet "
-                f"(ROADMAP A15)")
-        nbx, _ = dom.bounding_box
+            return (FAMILY_SPEC, dom.spec,
+                    dom.spec.scale_level(n) - dom.r_b, {})
+        scols = self.layout.grid_shape[0]
+        if isinstance(dom, TriangularDomain):
+            return FAMILY_TRIANGULAR, None, 0, dict(scols=scols)
+        if isinstance(dom, BandDomain):
+            return FAMILY_BAND, None, 0, dict(
+                scols=scols, dom_w=dom.w, dom_off=dom.off, dom_tw=dom._tw)
+        if isinstance(dom, BoundingBoxDomain) and dom._member is None:
+            return FAMILY_BOX, None, 0, dict(scols=scols)
+        raise ValueError(
+            f"no device-side decode for the {dom.name!r} domain: a "
+            f"bounding box closed over a membership callable has no "
+            f"kernel form")
+
+    def launch_params(self, n: int, block: int, device) -> LaunchParams:
+        """The CUDA kernels' launch parameters for a state of embedded
+        side ``n`` tiled by ``block`` under this plan's storage."""
+        dom = self.sched_domain
+        family, spec, r_cell, extra = self._family(n)
+        nbx, nby = dom.bounding_box
         lut = self.lut(device) if self.lowering == "prefetch_lut" else None
         th, tw = self.supertile_shape((block, block))
         if self._tiling is not None and self.storage == "compact":
@@ -506,17 +659,29 @@ class GridPlan:
         else:
             bw = bh = self.coarsen
             swap = 0
+        mk = mk2 = 0
+        ops = None
+        if self.lowering == "mma":
+            ops = self.mma_operand_tensor(device)
+            if spec is not None:
+                mk = mma.ksteps(dom.r_b * spec.k)
+                mk2 = mma.ksteps(dom.r_b * spec.m * spec.m)
+            else:
+                mk = mma.ksteps(nby)
         return LaunchParams(
             family=family, lowering=LOWERING_CODES[self.lowering],
-            r_b=dom.r_b, k=spec.k, m=spec.m, r_cell=r_cell,
-            offsets=spec.offsets,
+            r_b=dom.r_b if spec is not None else 0,
+            k=spec.k if spec is not None else 0,
+            m=spec.m if spec is not None else 0, r_cell=r_cell,
+            offsets=spec.offsets if spec is not None else (),
             n=int(n), block=int(block), steps=self.steps_per_launch,
             nbx=int(nbx), storage=STORAGE_CODES[self.storage],
             rows=self.state_shape(block)[0],
             pitch=self.state_shape(block)[1], th=th, tw=tw, bw=bw,
             nfine=bw * bh, coarsen=self.coarsen, swap=swap,
-            r_fine=self.domain.r_b, lut=lut,
-            tile_perm=self.tile_perm(device))
+            r_fine=self.domain.r_b if spec is not None else 0, lut=lut,
+            tile_perm=self.tile_perm(device), nby=int(nby),
+            nblocks=dom.num_blocks, mk=mk, mk2=mk2, mma_ops=ops, **extra)
 
     # -- host-side geometry helpers ----------------------------------------
 

@@ -43,7 +43,9 @@ enum Param {
 };
 
 enum Kind { kCausal = 0, kLocal = 1, kFull = 2 };
-enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2 };
+// kMma reads its extents operand like kPrefetchLut: the table is built on
+// the device by core/mma.py row_extents_chain (membership matmuls).
+enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2, kMma = 3 };
 // Membership of a key block under the bounding lowering: every block,
 // the causal triangle, or the band of a BandDomain.
 enum Dom { kDomAll = 0, kDomTriangular = 1, kDomBand = 2 };

@@ -12,7 +12,8 @@
 // structure's grid; an in-kernel loop over that row's key blocks
 // [start, end] carries the online-softmax state.  The extent comes from
 // the lowering: closed_form computes _row_bounds inline, prefetch_lut reads
-// the host row_extents() table (int32 (m_q, 2) on the device), bounding
+// the host row_extents() table (int32 (m_q, 2) on the device), mma reads
+// the same table built on the device by row_extents_chain, bounding
 // walks [0, m_k - 1] and skips the tiles outside the block domain (the
 // skipped tiles are the ones the JAX structure computes and discards, so
 // the result is the same).  seq_pos[b] clamps end to pos // block_k and,
@@ -83,7 +84,7 @@ flash_fwd_kernel(AttnParams p, const T* __restrict__ q,
   const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
 
   int start, end;
-  if (p.lowering == kPrefetchLut) {
+  if (p.lowering == kPrefetchLut || p.lowering == kMma) {
     start = ext[2 * qb];
     end = ext[2 * qb + 1];
   } else if (p.lowering == kBounding) {

@@ -1,6 +1,7 @@
 // Shared device code of the fractal kernels (sierpinski_write.cu,
-// sierpinski_ca.cu): the launch parameters, the three lowerings' decode of
-// a grid step, lambda^-1 to packed slots, and the membership tests.
+// sierpinski_ca.cu): the launch parameters, the lowerings' decode of a
+// grid step, lambda^-1 to packed slots, the membership tests, and the
+// integer decode, membership and slots of the row-major (generic) domains.
 //
 // The parameters arrive from Python as one int64 array in the order of
 // repro_torch.core.plan.C_PARAMS (the Param enum below).
@@ -14,8 +15,12 @@ namespace fractal {
 constexpr int kMaxCopies = 16;
 constexpr long long kMaxGrid = 2147483647LL;  // gridDim.x limit
 
-enum Family { kGasket = 0, kSpec = 1 };
-enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2 };
+enum Family { kGasket = 0, kSpec = 1, kTriangular = 2, kBand = 3, kBox = 4 };
+enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2, kMma = 3 };
+// The kernels' domain template parameter: the fractal families (runtime
+// gasket / FractalSpec, with intra-block cell structure) or the row-major
+// generic families (every cell of a member block is live).
+enum DomKind { kFractalDom = 0, kGenericDom = 1 };
 enum Storage { kEmbedded = 0, kCompact = 1 };
 // LUT columns (repro_torch.core.plan._LUT_*): bx, by, sx, sy, then per
 // NEIGHBOR_OFFSETS8 neighbour (sx, sy, valid).
@@ -25,8 +30,13 @@ enum LutCol { kLutBx = 0, kLutBy = 1, kLutSx = 2, kLutSy = 3, kLutNbr = 4 };
 enum Param {
   kFamily, kLowering, kRb, kK, kM, kRcell, kN, kBlock, kSteps, kNbx,
   kAllow, kOxs, kOys, kStorage, kPitch, kTh, kTw, kBw, kNfine, kCoarsen,
-  kSwap, kRfine, kLutCols, kNumParams
+  kSwap, kRfine, kLutCols, kNby, kDomW, kDomOff, kDomTw, kNblocks, kScols,
+  kMk, kMk2, kNumParams
 };
+
+// NEIGHBOR_OFFSETS8 order (N S W E NW NE SW SE) as (dx, dy).
+__constant__ int kNbrDx[8] = {0, 0, -1, 1, -1, 1, -1, 1};
+__constant__ int kNbrDy[8] = {-1, 1, 0, 0, -1, -1, 1, 1};
 
 struct FracParams {
   int family;
@@ -52,6 +62,13 @@ struct FracParams {
   unsigned long long allow;  // bit (dy * m + dx) set for each copy offset
   int ox[kMaxCopies];
   int oy[kMaxCopies];
+  // generic families and the mma chains (plan.LaunchParams)
+  unsigned nby;        // scheduled blocks per column
+  int dom_w, dom_off;  // band window and key-row offset
+  long long dom_tw;    // band's triangular head T(w)
+  long long nblocks;   // member blocks
+  long long scols;     // slot columns of a generic compact layout
+  int mk, mk2;         // k-steps of the primary and the neighbour chain
 };
 
 inline FracParams make_params(const long long* a) {
@@ -84,6 +101,14 @@ inline FracParams make_params(const long long* a) {
     p.ox[c] = (int)((oxs >> (4 * c)) & 15ULL);
     p.oy[c] = (int)((oys >> (4 * c)) & 15ULL);
   }
+  p.nby = (unsigned)a[kNby];
+  p.dom_w = (int)a[kDomW];
+  p.dom_off = (int)a[kDomOff];
+  p.dom_tw = a[kDomTw];
+  p.nblocks = a[kNblocks];
+  p.scols = a[kScols];
+  p.mk = (int)a[kMk];
+  p.mk2 = (int)a[kMk2];
   return p;
 }
 
@@ -241,6 +266,138 @@ __device__ __forceinline__ bool cell_member(const FracParams& p, unsigned gx,
   // the superblock's digits were checked by the decode; the low r_cell
   // digits of the cell are those of its offset inside the superblock
   return digits_member(p, ox, oy, p.r_cell);
+}
+
+// ---------------------------------------------------------------------------
+// The row-major (generic) domains: TriangularDomain, BandDomain and
+// BoundingBoxDomain of repro_torch/core/domain.py, in integer math.
+// ---------------------------------------------------------------------------
+
+// floor(sqrt(x)) for x < 2^31: a float sqrt, then two integer correction
+// rounds (domain._isqrt's device form; a bare sqrtf is not exact).
+__device__ __forceinline__ long long isqrt_exact(long long x) {
+  long long s = (long long)floorf(sqrtf((float)x));
+  for (int i = 0; i < 2; ++i) {
+    if ((s + 1) * (s + 1) <= x) s += 1;
+    if (s * s > x) s -= 1;
+  }
+  return s;
+}
+
+// The triangle's row q and column k of linear index i (k <= q).
+__device__ __forceinline__ void tri_decode(long long i, long long& k,
+                                           long long& q) {
+  q = (isqrt_exact(8 * i + 1) - 1) / 2;
+  k = i - q * (q + 1) / 2;
+}
+
+// block_coords: linear index i of a member block -> (bx, by).
+__device__ __forceinline__ void generic_coords(const FracParams& p,
+                                               long long i, unsigned& bx,
+                                               unsigned& by) {
+  long long k, q;
+  if (p.family == kTriangular) {
+    tri_decode(i, k, q);
+  } else if (p.family == kBand) {
+    const long long w = p.dom_w;
+    if (p.dom_off) {  // rectangular: every row a full window
+      q = i / w;
+      k = p.dom_off + q - w + 1 + i % w;
+    } else if (i < p.dom_tw) {  // the triangular head, rows 0..w-1
+      tri_decode(i, k, q);
+    } else {  // then dense rows of width w
+      const long long j = i - p.dom_tw;
+      q = w + j / w;
+      k = q - w + 1 + j % w;
+    }
+  } else {  // kBox
+    k = i % p.nbx;
+    q = i / p.nbx;
+  }
+  bx = (unsigned)k;
+  by = (unsigned)q;
+}
+
+// contains: is block (x, y) a member (any x, y, as the domains take them)?
+__device__ __forceinline__ bool generic_contains(const FracParams& p,
+                                                 long long x, long long y) {
+  if (p.family == kTriangular) return x <= y;
+  if (p.family == kBand)
+    return x <= y + p.dom_off && x > y + p.dom_off - p.dom_w;
+  return true;  // kBox: every block
+}
+
+// linear_index of member block (x, y), clipped into [0, nblocks) as
+// CompactLayout.slot clips it.
+__device__ __forceinline__ long long generic_linear(const FracParams& p,
+                                                    long long x, long long y) {
+  long long i;
+  const long long w = p.dom_w;
+  if (p.family == kTriangular) {
+    i = y * (y + 1) / 2 + x;
+  } else if (p.family == kBand) {
+    if (p.dom_off)
+      i = y * w + (x - (p.dom_off + y - w + 1));
+    else if (y < w)
+      i = y * (y + 1) / 2 + x;
+    else
+      i = p.dom_tw + (y - w) * w + (x - (y - w + 1));
+  } else {
+    i = y * p.nbx + x;
+  }
+  return i < 0 ? 0 : (i >= p.nblocks ? p.nblocks - 1 : i);
+}
+
+// Grid step -> scheduled block under closed_form / prefetch_lut /
+// bounding; false for a discarded bounding step.
+__device__ __forceinline__ bool generic_decode(const FracParams& p,
+                                              const int* __restrict__ lut,
+                                              long long t, unsigned& bx,
+                                              unsigned& by) {
+  if (p.lowering == kBounding) {
+    bx = (unsigned)(t % p.nbx);
+    by = (unsigned)(t / p.nbx);
+    return generic_contains(p, bx, by);
+  }
+  if (p.lowering == kPrefetchLut) {
+    bx = (unsigned)lut[t * p.lut_cols + kLutBx];
+    by = (unsigned)lut[t * p.lut_cols + kLutBy];
+    return true;
+  }
+  generic_coords(p, t, bx, by);
+  return true;
+}
+
+// The packed slot of member block (x, y): the row-major near-square grid
+// position of its linear index.
+__device__ __forceinline__ void generic_slot(const FracParams& p, long long x,
+                                             long long y, unsigned& sx,
+                                             unsigned& sy) {
+  const long long i = generic_linear(p, x, y);
+  sx = (unsigned)(i % p.scols);
+  sy = (unsigned)(i / p.scols);
+}
+
+// Storage origin (row, col) in cells of the member block (bx, by) of step t.
+__device__ __forceinline__ void generic_origin(const FracParams& p,
+                                              const int* __restrict__ lut,
+                                              long long t, unsigned bx,
+                                              unsigned by, long long& row,
+                                              long long& col) {
+  if (p.storage == kEmbedded) {
+    row = (long long)by * p.span;
+    col = (long long)bx * p.span;
+    return;
+  }
+  unsigned sx, sy;
+  if (p.lowering == kPrefetchLut) {
+    sx = (unsigned)lut[t * p.lut_cols + kLutSx];
+    sy = (unsigned)lut[t * p.lut_cols + kLutSy];
+  } else {
+    generic_slot(p, bx, by, sx, sy);
+  }
+  row = (long long)sy * p.th;
+  col = (long long)sx * p.tw;
 }
 
 }  // namespace fractal

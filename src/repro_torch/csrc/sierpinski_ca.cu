@@ -47,9 +47,21 @@
 //     JAX expression's order (no FMA contraction), and parity uses the
 //     floor-mod of jnp.mod, so the kernel is bit-equal to its plain
 //     version;
-//   * cell offsets are 64-bit: an embedded n = 2^16 state has 2^32 cells.
+//   * cell offsets are 64-bit: an embedded n = 2^16 state has 2^32 cells;
+//   * the row-major domains (triangular, band, bounding box) and the mma
+//     lowering run in template instantiations of their own (kDom, kMma):
+//     the fractal kernels without mma are the same code as before.  Under
+//     mma every warp runs the lambda chain of its step (B7a) and warp 0,
+//     converged, resolves the own slot (B7a) and the 8 neighbour slots
+//     (B7b) on the tensor cores into org_row / org_col; a row-major
+//     domain's row chain (B7c) is shared by the CTA's warps.  A generic
+//     domain's halo follows the JAX package's tile semantics exactly: an
+//     embedded neighbour tile index is clamped into the box, an invalid
+//     compact neighbour reads slot (0, 0), and only the in-range test and
+//     the domain's contains() (at block granularity) mask values.
 
 #include "fractal_common.cuh"
+#include "mma_decode.cuh"
 
 namespace {
 
@@ -64,10 +76,6 @@ struct CaArgs {
   float alpha;
   int wid;      // span + 2h
 };
-
-// NEIGHBOR_OFFSETS8 order (N S W E NW NE SW SE) as (dx, dy).
-__constant__ int kNbrDx[8] = {0, 0, -1, 1, -1, 1, -1, 1};
-__constant__ int kNbrDy[8] = {-1, 1, 0, 0, -1, -1, 1, 1};
 
 // Resolve the storage origins of the nine supertiles around scheduled
 // block (bx, by) of step t into org[(dy + 1) * 3 + dx + 1] (compact
@@ -102,11 +110,62 @@ __device__ void resolve_origins(const FracParams& p,
   }
 }
 
-template <bool kShared>
+// The same for a generic domain (thread 0): the own slot, then each
+// neighbour's slot when it is in the box and a member, else slot (0, 0)
+// (CompactLayout.neighbor_slot; the LUT holds the same).
+__device__ void generic_origins(const FracParams& p,
+                                const int* __restrict__ lut, long long t,
+                                unsigned bx, unsigned by, long long* org_row,
+                                long long* org_col) {
+  generic_origin(p, lut, t, bx, by, org_row[4], org_col[4]);
+  for (int j = 0; j < 8; ++j) {
+    const int dx = kNbrDx[j], dy = kNbrDy[j];
+    const int slot = (dy + 1) * 3 + dx + 1;
+    unsigned sx = 0, sy = 0;
+    if (p.lowering == kPrefetchLut) {
+      const int* row = lut + t * p.lut_cols + kLutNbr + 3 * j;
+      sx = (unsigned)row[0];
+      sy = (unsigned)row[1];
+    } else {
+      const long long x = (long long)bx + dx, y = (long long)by + dy;
+      const long long xc = x < 0 ? 0 : (x >= p.nbx ? p.nbx - 1 : x);
+      const long long yc = y < 0 ? 0 : (y >= p.nby ? p.nby - 1 : y);
+      if (x == xc && y == yc && generic_contains(p, xc, yc))
+        generic_slot(p, xc, yc, sx, sy);
+    }
+    org_row[slot] = (long long)sy * p.th;
+    org_col[slot] = (long long)sx * p.tw;
+  }
+}
+
+// Step t -> scheduled block (bx, by), by every thread of the CTA; false
+// for a discarded bounding step (uniform over the CTA).
+template <int kDom, bool kMma>
+__device__ __forceinline__ bool ca_decode(const FracParams& p,
+                                          const int* __restrict__ lut,
+                                          const int* __restrict__ ops,
+                                          long long t, unsigned& bx,
+                                          unsigned& by) {
+  if constexpr (kMma && kDom == kFractalDom) {
+    unsigned sx, sy;
+    fractal_chain(p, ops, (unsigned)t, threadIdx.x & 31, false, bx, by, sx,
+                  sy);
+    return true;
+  } else if constexpr (kMma) {
+    rows_chain_cta(p, ops, t, bx, by);
+    return true;
+  } else if constexpr (kDom == kFractalDom) {
+    return decode(p, lut, t, bx, by);
+  } else {
+    return generic_decode(p, lut, t, bx, by);
+  }
+}
+
+template <bool kShared, int kDom, bool kMma>
 __global__ void __launch_bounds__(512)
 ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 FracParams p, CaArgs ca, const int* __restrict__ lut,
-                const int* __restrict__ perm,
+                const int* __restrict__ perm, const int* __restrict__ ops,
                 unsigned char* __restrict__ scratch,
                 long long scratch_per_cta) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -125,9 +184,24 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
 
   for (long long t = blockIdx.x; t < p.steps; t += gridDim.x) {
     unsigned bx, by;
-    if (!decode(p, lut, t, bx, by)) continue;  // uniform over the CTA
-    if (p.storage == kCompact && tid == 0)
-      resolve_origins(p, lut, t, bx, by, org_row, org_col);
+    if (!ca_decode<kDom, kMma>(p, lut, ops, t, bx, by)) continue;
+    if constexpr (kMma && kDom == kFractalDom) {
+      if (p.storage == kCompact && tid < 32) {  // warp 0, converged
+        unsigned x, y, sx, sy;
+        fractal_chain(p, ops, (unsigned)t, tid, true, x, y, sx, sy);
+        if (tid == 0) {
+          org_row[4] = (long long)sy * p.th;
+          org_col[4] = (long long)sx * p.tw;
+        }
+        fractal_nbrs(p, ops, bx, by, tid, org_row, org_col);
+      }
+    } else if constexpr (kDom == kFractalDom) {
+      if (p.storage == kCompact && tid == 0)
+        resolve_origins(p, lut, t, bx, by, org_row, org_col);
+    } else {
+      if (p.storage == kCompact && tid == 0)
+        generic_origins(p, lut, t, bx, by, org_row, org_col);
+    }
     __syncthreads();
 
     // -- gather the working tile: block_ok at fine-block granularity,
@@ -139,7 +213,25 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
       const long long gx = gx0 + ix, gy = gy0 + iy;
       float v = 0.0f;
       bool cell_ok = false;
-      if (gx >= 0 && gy >= 0 && gx < p.n && gy < p.n) {
+      if constexpr (kDom == kGenericDom) {
+        // every cell of the in-range square is live; values pass where
+        // the fine block is a member, read from its (clamped) tile
+        if (gx >= 0 && gy >= 0 && gx < p.n && gy < p.n) {
+          cell_ok = true;
+          const long long fbx = gx / p.block, fby = gy / p.block;
+          if (generic_contains(p, fbx, fby)) {
+            const long long ox = gx - fbx * p.block, oy = gy - fby * p.block;
+            if (p.storage == kEmbedded) {
+              const long long tx = fbx < p.nbx ? fbx : p.nbx - 1;
+              const long long ty = fby < p.nby ? fby : p.nby - 1;
+              v = src[(ty * p.block + oy) * p.pitch + tx * p.block + ox];
+            } else {
+              const int slot = (int)(fby - by + 1) * 3 + (int)(fbx - bx + 1);
+              v = src[(org_row[slot] + oy) * p.pitch + org_col[slot] + ox];
+            }
+          }
+        }
+      } else if (gx >= 0 && gy >= 0 && gx < p.n && gy < p.n) {
         const unsigned ux = (unsigned)gx, uy = (unsigned)gy;
         cell_ok = block_member(p, ux, uy, p.n, p.r_b + p.r_cell);
         const unsigned fbx = ux / p.block, fby = uy / p.block;
@@ -255,6 +347,31 @@ long long persistent_ctas(long long steps) {
   return steps < want ? steps : want;
 }
 
+// One fused launch of the instantiation of the domain kind and lowering.
+template <int kDom, bool kMma>
+cudaError_t launch_ca(const float* src, float* dst, const FracParams& p,
+                      const CaArgs& ca, const int* lut, const int* perm,
+                      const int* ops, unsigned char* scratch,
+                      cudaStream_t s) {
+  const long long bytes = tile_bytes(ca.wid);
+  const int threads = threads_for(ca.wid);
+  if (fits_shared(bytes)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ca_fused_kernel<true, kDom, kMma>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    ca_fused_kernel<true, kDom, kMma><<<grid_of(p.steps), threads, bytes,
+                                        s>>>(src, dst, p, ca, lut, perm, ops,
+                                             nullptr, 0);
+  } else {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    ca_fused_kernel<false, kDom, kMma>
+        <<<dim3((unsigned)persistent_ctas(p.steps)), threads, 0, s>>>(
+            src, dst, p, ca, lut, perm, ops, scratch, bytes);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -269,12 +386,12 @@ long long sc_scratch_bytes(int wid, long long steps) {
 
 // One fused launch: read the state `src`, write the advanced member
 // supertiles into `dst` (the stale buffer; unvisited blocks keep its
-// contents).  params: plan.C_PARAMS order; lut and perm may be null (see
-// LaunchParams); scratch holds sc_scratch_bytes(wid, steps) bytes, or is
-// null when that is 0.
+// contents).  params: plan.C_PARAMS order; lut, perm and ops may be null
+// (see LaunchParams; ops is mma_ops); scratch holds
+// sc_scratch_bytes(wid, steps) bytes, or is null when that is 0.
 int sc_ca_launch(const float* src, float* dst, const long long* params,
-                 const int* lut, const int* perm, int halo, int nsteps,
-                 int rule, float alpha, unsigned char* scratch,
+                 const int* lut, const int* perm, const int* ops, int halo,
+                 int nsteps, int rule, float alpha, unsigned char* scratch,
                  void* stream) {
   const FracParams p = make_params(params);
   CaArgs ca;
@@ -286,22 +403,21 @@ int sc_ca_launch(const float* src, float* dst, const long long* params,
   if (nsteps < 1 || nsteps > halo || halo > (int)p.span)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long bytes = tile_bytes(ca.wid);
-  const int threads = threads_for(ca.wid);
-  if (fits_shared(bytes)) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ca_fused_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    ca_fused_kernel<true><<<grid_of(p.steps), threads, bytes, s>>>(
-        src, dst, p, ca, lut, perm, nullptr, 0);
-  } else {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    ca_fused_kernel<false>
-        <<<dim3((unsigned)persistent_ctas(p.steps)), threads, 0, s>>>(
-            src, dst, p, ca, lut, perm, scratch, bytes);
-  }
-  return (int)cudaGetLastError();
+  const bool mma = p.lowering == kMma;
+  const bool generic =
+      p.family == kTriangular || p.family == kBand || p.family == kBox;
+  cudaError_t err;
+  if (generic)
+    err = mma ? launch_ca<kGenericDom, true>(src, dst, p, ca, lut, perm, ops,
+                                             scratch, s)
+              : launch_ca<kGenericDom, false>(src, dst, p, ca, lut, perm,
+                                              ops, scratch, s);
+  else
+    err = mma ? launch_ca<kFractalDom, true>(src, dst, p, ca, lut, perm, ops,
+                                             scratch, s)
+              : launch_ca<kFractalDom, false>(src, dst, p, ca, lut, perm,
+                                              ops, scratch, s);
+  return (int)err;
 }
 
 const char* cuda_error_string(int status) {

@@ -44,9 +44,22 @@
 //     combine then adds the partials in step order, which is the JAX
 //     package's order (lambda order, or row-major by * nbx + bx for the
 //     bounding box), so integer-valued states sum bit-identically;
-//   * cell offsets are 64-bit: an n = 2^16 state has 2^32 cells.
+//   * cell offsets are 64-bit: an n = 2^16 state has 2^32 cells;
+//   * the row-major domains (triangular, band, bounding box) and the mma
+//     lowering run in template instantiations of their own (kDom, kMma),
+//     so the fractal closed_form / prefetch_lut / bounding kernels are the
+//     same code as before and keep their registers.  A generic domain's
+//     cells are all live, so its cell loop has no membership test; its
+//     block comes from the integer decode (the triangle's integer sqrt,
+//     the band's two parts, the box's split), the LUT, or the bounding
+//     split with its contains test.  Under mma the block comes from the
+//     tensor-core chains of mma_decode.cuh: every warp runs the fractal
+//     chain of its step (B7a; the own compact slot too) and keeps it in
+//     registers, while a row-major domain's row chain (B7c) is shared by
+//     the CTA's warps.  Under mma the CTA has at least one whole warp.
 
 #include "fractal_common.cuh"
+#include "mma_decode.cuh"
 
 namespace {
 
@@ -67,12 +80,29 @@ struct Tile {
   unsigned x0, y0;
 };
 
+template <int kDom, bool kMma>
 __device__ __forceinline__ bool step_tile(const FracParams& p,
                                           const int* __restrict__ lut,
+                                          const int* __restrict__ ops,
                                           long long t, Tile& tile) {
   unsigned bx, by;
-  if (!decode(p, lut, t, bx, by)) return false;
-  tile_origin(p, lut, t, bx, by, tile.row0, tile.col0);
+  if constexpr (kMma && kDom == kFractalDom) {
+    const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+    const bool compact = p.storage == kCompact;
+    unsigned sx = 0, sy = 0;
+    fractal_chain(p, ops, (unsigned)t, lane, compact, bx, by, sx, sy);
+    tile.row0 = compact ? (long long)sy * p.th : (long long)by * p.span;
+    tile.col0 = compact ? (long long)sx * p.tw : (long long)bx * p.span;
+  } else if constexpr (kDom == kFractalDom) {
+    if (!decode(p, lut, t, bx, by)) return false;
+    tile_origin(p, lut, t, bx, by, tile.row0, tile.col0);
+  } else {
+    if constexpr (kMma)
+      rows_chain_cta(p, ops, t, bx, by);
+    else if (!generic_decode(p, lut, t, bx, by))
+      return false;
+    generic_origin(p, lut, t, bx, by, tile.row0, tile.col0);
+  }
   tile.x0 = bx * p.span;
   tile.y0 = by * p.span;
   return true;
@@ -99,14 +129,15 @@ __device__ __forceinline__ void fine_block(const FracParams& p,
   ox0 = (unsigned)ex * p.block;
 }
 
-template <bool kTiled, typename W>
+template <int kDom, bool kMma, bool kTiled, typename W>
 __global__ void __launch_bounds__(kMaxThreads, kMinCtasPerSm)
 write_kernel(W* __restrict__ m, W value, FracParams p,
-             const int* __restrict__ lut, const int* __restrict__ perm) {
+             const int* __restrict__ lut, const int* __restrict__ perm,
+             const int* __restrict__ ops) {
   const int nfine = kTiled ? p.nfine : 1;
   for (long long t = blockIdx.x; t < p.steps; t += gridDim.x) {
     Tile tl;
-    if (!step_tile(p, lut, t, tl)) continue;
+    if (!step_tile<kDom, kMma>(p, lut, ops, t, tl)) continue;
     for (int q = 0; q < nfine; ++q) {
       long long srow, scol;
       unsigned ox0, oy0;
@@ -117,7 +148,8 @@ write_kernel(W* __restrict__ m, W value, FracParams p,
         const unsigned gy = tl.y0 + oy0 + iy;
         for (unsigned ix = threadIdx.x; ix < (unsigned)p.block;
              ix += blockDim.x) {
-          if (cell_member(p, tl.x0 + ox0 + ix, gy, ox0 + ix, oy0 + iy))
+          if (kDom == kGenericDom ||
+              cell_member(p, tl.x0 + ox0 + ix, gy, ox0 + ix, oy0 + iy))
             row[ix] = value;
         }
       }
@@ -135,11 +167,12 @@ __device__ __forceinline__ float load_f32(const void* base, long long off) {
   return (float)static_cast<const int*>(base)[off];
 }
 
-template <bool kTiled, int DT>
+template <int kDom, bool kMma, bool kTiled, int DT>
 __global__ void __launch_bounds__(kMaxThreads, kMinCtasPerSm)
 sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,
                     FracParams p, const int* __restrict__ lut,
-                    const int* __restrict__ perm) {
+                    const int* __restrict__ perm,
+                    const int* __restrict__ ops) {
   __shared__ float red[1024];
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -148,7 +181,7 @@ sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,
   while (top < nthreads) top <<= 1;
   for (long long t = blockIdx.x; t < p.steps; t += gridDim.x) {
     Tile tl;
-    if (!step_tile(p, lut, t, tl)) {
+    if (!step_tile<kDom, kMma>(p, lut, ops, t, tl)) {
       if (tid == 0) partials[t] = 0.0f;  // a discarded bounding step
       continue;
     }
@@ -164,7 +197,8 @@ sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,
         const unsigned gy = tl.y0 + oy0 + iy;
         for (unsigned ix = threadIdx.x; ix < (unsigned)p.block;
              ix += blockDim.x) {
-          if (cell_member(p, tl.x0 + ox0 + ix, gy, ox0 + ix, oy0 + iy))
+          if (kDom == kGenericDom ||
+              cell_member(p, tl.x0 + ox0 + ix, gy, ox0 + ix, oy0 + iy))
             acc += load_f32<DT>(m, row + ix);
         }
       }
@@ -213,32 +247,86 @@ __global__ void sum_combine_kernel(const float* __restrict__ partials,
   if (threadIdx.x == 0) *out = acc;
 }
 
-dim3 threads_of(int block) {
+// min(rho, 32)^2 threads; under mma whole warps (mma.sync and the warp
+// shuffles need all 32 lanes): the rows of threads rounded up to the
+// least count whose product with the row length is a multiple of 32 (the
+// extra rows find no cells and idle in the cell loop).
+dim3 threads_of(int block, bool whole_warps) {
   const int t = block < 32 ? block : 32;
-  return dim3(t, t);
+  if (!whole_warps) return dim3(t, t);
+  int g = 32, b = t;  // gcd(32, t)
+  while (b) {
+    const int r = g % b;
+    g = b;
+    b = r;
+  }
+  const int step = 32 / g;  // rows per whole number of warps
+  return dim3(t, (t + step - 1) / step * step);
 }
 
-// One launch of write_kernel, the tiled variant only where a supertile
-// holds more than one fine block.
+bool generic_family(const FracParams& p) {
+  return p.family == kTriangular || p.family == kBand || p.family == kBox;
+}
+
+// One launch of write_kernel: the instantiation of the domain kind and the
+// lowering, tiled only where a supertile holds more than one fine block.
+template <int kDom, bool kMma, typename W>
+void launch_write_as(W* m, W value, const FracParams& p, const int* lut,
+                     const int* perm, const int* ops, cudaStream_t s) {
+  const dim3 g = grid_of(p.steps), th = threads_of(p.block, kMma);
+  if (kDom == kFractalDom && p.nfine > 1)
+    write_kernel<kDom, kMma, true><<<g, th, 0, s>>>(m, value, p, lut, perm,
+                                                    ops);
+  else
+    write_kernel<kDom, kMma, false><<<g, th, 0, s>>>(m, value, p, lut, perm,
+                                                     ops);
+}
+
 template <typename W>
 void launch_write(W* m, W value, const FracParams& p, const int* lut,
-                  const int* perm, cudaStream_t s) {
-  const dim3 g = grid_of(p.steps), th = threads_of(p.block);
-  if (p.nfine > 1)
-    write_kernel<true><<<g, th, 0, s>>>(m, value, p, lut, perm);
+                  const int* perm, const int* ops, cudaStream_t s) {
+  const bool mma = p.lowering == kMma;
+  if (generic_family(p)) {
+    if (mma)
+      launch_write_as<kGenericDom, true>(m, value, p, lut, perm, ops, s);
+    else
+      launch_write_as<kGenericDom, false>(m, value, p, lut, perm, ops, s);
+  } else if (mma) {
+    launch_write_as<kFractalDom, true>(m, value, p, lut, perm, ops, s);
+  } else {
+    launch_write_as<kFractalDom, false>(m, value, p, lut, perm, ops, s);
+  }
+}
+
+template <int kDom, bool kMma, int DT>
+void launch_sum_as(const void* m, float* partials, const FracParams& p,
+                   const int* lut, const int* perm, const int* ops,
+                   cudaStream_t s) {
+  const dim3 g = grid_of(p.steps), th = threads_of(p.block, kMma);
+  if (kDom == kFractalDom && p.nfine > 1)
+    sum_partials_kernel<kDom, kMma, true, DT><<<g, th, 0, s>>>(
+        m, partials, p, lut, perm, ops);
   else
-    write_kernel<false><<<g, th, 0, s>>>(m, value, p, lut, perm);
+    sum_partials_kernel<kDom, kMma, false, DT><<<g, th, 0, s>>>(
+        m, partials, p, lut, perm, ops);
 }
 
 template <int DT>
 void launch_sum(const void* m, float* partials, const FracParams& p,
-                const int* lut, const int* perm, cudaStream_t s) {
-  const dim3 g = grid_of(p.steps), th = threads_of(p.block);
-  if (p.nfine > 1)
-    sum_partials_kernel<true, DT><<<g, th, 0, s>>>(m, partials, p, lut, perm);
-  else
-    sum_partials_kernel<false, DT><<<g, th, 0, s>>>(m, partials, p, lut,
-                                                     perm);
+                const int* lut, const int* perm, const int* ops,
+                cudaStream_t s) {
+  const bool mma = p.lowering == kMma;
+  if (generic_family(p)) {
+    if (mma)
+      launch_sum_as<kGenericDom, true, DT>(m, partials, p, lut, perm, ops, s);
+    else
+      launch_sum_as<kGenericDom, false, DT>(m, partials, p, lut, perm, ops,
+                                            s);
+  } else if (mma) {
+    launch_sum_as<kFractalDom, true, DT>(m, partials, p, lut, perm, ops, s);
+  } else {
+    launch_sum_as<kFractalDom, false, DT>(m, partials, p, lut, perm, ops, s);
+  }
 }
 
 }  // namespace
@@ -247,18 +335,18 @@ extern "C" {
 
 // Write the value bits into every member cell of the state m, in place.
 // elem_bytes is 4 (f32, int32) or 2 (bf16).  params: plan.C_PARAMS order;
-// lut and perm may be null (see LaunchParams).
+// lut, perm and ops may be null (see LaunchParams; ops is mma_ops).
 int sw_write(void* m, int elem_bytes, unsigned int value_bits,
              const long long* params, const int* lut, const int* perm,
-             void* stream) {
+             const int* ops, void* stream) {
   const FracParams p = make_params(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 4) {
     launch_write(static_cast<uint32_t*>(m), (uint32_t)value_bits, p, lut,
-                 perm, s);
+                 perm, ops, s);
   } else if (elem_bytes == 2) {
     launch_write(static_cast<uint16_t*>(m), (uint16_t)value_bits, p, lut,
-                 perm, s);
+                 perm, ops, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -269,15 +357,15 @@ int sw_write(void* m, int elem_bytes, unsigned int value_bits,
 // for a discarded bounding step).  dtype: 0 f32, 1 bf16, 2 int32.
 int sw_sum_partials(const void* m, int dtype, float* partials,
                     const long long* params, const int* lut, const int* perm,
-                    void* stream) {
+                    const int* ops, void* stream) {
   const FracParams p = make_params(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    launch_sum<kF32>(m, partials, p, lut, perm, s);
+    launch_sum<kF32>(m, partials, p, lut, perm, ops, s);
   } else if (dtype == kBF16) {
-    launch_sum<kBF16>(m, partials, p, lut, perm, s);
+    launch_sum<kBF16>(m, partials, p, lut, perm, ops, s);
   } else if (dtype == kI32) {
-    launch_sum<kI32>(m, partials, p, lut, perm, s);
+    launch_sum<kI32>(m, partials, p, lut, perm, ops, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

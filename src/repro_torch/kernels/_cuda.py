@@ -128,6 +128,26 @@ def param_array(p) -> ctypes.Array:
     return (ctypes.c_longlong * len(C_PARAMS))(*vals)
 
 
+class LaunchCounter:
+    """A launch count kept beside the wrappers' own ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+#: launches of the fractal kernels (write, sum partials, CA) under the mma
+#: lowering: each runs the tensor-core decode chains of
+#: ``csrc/mma_decode.cuh`` in its prologue
+MMA_CHAINS = LaunchCounter()
+
+
+def count_mma(p) -> None:
+    """Count a launch of ``p``'s kernel toward :data:`MMA_CHAINS` when it
+    runs the mma lowering (call where the wrapper counts its own)."""
+    if p.lowering == LOWERING_CODES["mma"]:
+        MMA_CHAINS.launches += 1
+
+
 def ptr(t):
     """A tensor's device address for ctypes, or None (a null pointer)."""
     return None if t is None else t.data_ptr()
@@ -141,10 +161,11 @@ def raise_on(lib, status: int, what: str) -> None:
 
 
 def check_tables(m, p) -> None:
-    """The decode tables of ``p`` must lie on the state's device, as
-    contiguous int32 tensors of the expected size."""
+    """The decode tables and the mma operands of ``p`` must lie on the
+    state's device, as contiguous int32 tensors of the expected size."""
     for name, t in (("decode table", p.lut), ("tile permutation",
-                                              p.tile_perm)):
+                                              p.tile_perm),
+                    ("mma operand", p.mma_ops)):
         if t is None:
             continue
         if t.device != m.device:
@@ -156,6 +177,13 @@ def check_tables(m, p) -> None:
                               or p.lut.shape[0] != p.steps):
         raise ValueError("the decode table must be a contiguous "
                          f"({p.steps}, {p.lut_cols}) int32 tensor")
+    if p.mma_ops is not None and (p.mma_ops.dtype != torch.int32
+                                  or not p.mma_ops.is_contiguous()):
+        raise ValueError("the mma operands must be a contiguous int32 "
+                         "tensor")
+    if (p.lowering == LOWERING_CODES["mma"]) != (p.mma_ops is not None):
+        raise ValueError("the mma lowering needs its operands, and only "
+                         "it takes them")
     want = 2 * p.nfine + p.coarsen ** 2
     if p.tile_perm is not None and (p.tile_perm.dtype != torch.int32
                                     or not p.tile_perm.is_contiguous()

@@ -12,7 +12,10 @@ structure).  ``grid_mode`` selects where the extent comes from:
   an int32 (m_q, 2) device tensor memoized per domain and device;
 * ``bounding`` -- the full key range, skipping the tiles outside the
   domain (the JAX package computes and discards them; the result is the
-  same).
+  same);
+* ``mma`` -- the extents built on the device by the membership matmuls
+  of :func:`repro_torch.core.mma.row_extents_chain`, memoized per domain
+  and device, and walked like ``prefetch_lut``'s.
 
 Compact KV (``storage="compact"``): ``kind="local"`` with ``sq < sk``
 (queries are the last sq positions) touches only the last key blocks,
@@ -36,9 +39,9 @@ launch the kernels of ``csrc/flash_attention.cu`` (or raise), CPU
 tensors run the plain versions.  Each CUDA wrapper counts its launches
 in ``launches``.
 
-Forward only.  Not ported yet: ``grid_mode="mma"`` (ROADMAP A9), the
-tuner (``"auto"``, ``num_warps``, ``num_stages``: A8), ``mesh=`` and the
-shard balances (A12), ``verify=`` (A13), and the backward (A11).
+Forward only.  Not ported yet: the tuner (``"auto"``, ``num_warps``,
+``num_stages``: ROADMAP A8), ``mesh=`` and the shard balances (A12),
+``verify=`` (A13), and the backward (A11).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import memo
+from repro_torch.core import mma
 from repro_torch.core.compact import key_block_support
 from repro_torch.core.domain import BlockDomain, make_attention_domain
 from repro_torch.core.plan import GridPlan, normalize_lowering, normalize_storage
@@ -70,7 +74,10 @@ ATTN_PARAMS = ("b", "h", "hkv", "sq", "d", "block_q", "block_k", "m_q",
                "m_k", "kind", "window", "off", "s0", "kv_blocks", "sk_arr",
                "lowering", "dom", "dom_w", "dom_off", "has_pos")
 KIND_CODES = {"causal": 0, "local": 1, "full": 2}
-LOWERING_CODES = {"closed_form": 0, "prefetch_lut": 1, "bounding": 2}
+LOWERING_CODES = {"closed_form": 0, "prefetch_lut": 1, "bounding": 2,
+                  "mma": 3}
+#: the lowerings whose kernel reads an extents table
+TABLE_LOWERINGS = ("prefetch_lut", "mma")
 DOM_ALL, DOM_TRIANGULAR, DOM_BAND = 0, 1, 2
 
 
@@ -137,6 +144,8 @@ class FlashSchedule:
         if self.lowering == "prefetch_lut":
             return GridPlan(self.domain, "prefetch_lut",
                             backend="cpu").row_extents()
+        if self.lowering == "mma":
+            return mma.row_extents_chain(self.domain).numpy()
         qb = np.arange(self.m_q, dtype=np.int64)
         if self.lowering == "bounding" or self.kind == "full":
             lo, hi = np.zeros_like(qb), np.full_like(qb, self.m_k - 1)
@@ -149,12 +158,18 @@ class FlashSchedule:
         return np.stack([lo, hi], -1).astype(np.int32)
 
     def row_extents(self, device) -> torch.Tensor:
-        """The prefetch_lut extents as an int32 (m_q, 2) tensor on
-        ``device``, memoized per (domain, device)."""
+        """The extents table of a TABLE_LOWERINGS launch as an int32
+        (m_q, 2) tensor on ``device``, memoized per (domain, lowering,
+        device): prefetch_lut's host table copied over, or mma's built
+        on ``device`` by :func:`mma.row_extents_chain`."""
         device = torch.device(device)
-        return memo.cached(
-            "flash-row-extents", self.domain, (str(device),),
-            lambda: torch.from_numpy(self.row_bounds()).to(device))
+
+        def build():
+            if self.lowering == "mma":
+                return mma.row_extents_chain(self.domain, device)
+            return torch.from_numpy(self.row_bounds()).to(device)
+        return memo.cached("flash-row-extents", self.domain,
+                           (self.lowering, str(device)), build)
 
     def member(self, kb, qb):
         """Block-domain membership of key block kb in query row qb (the
@@ -353,7 +368,10 @@ def flash_attention_plain(q, k, v, sched: FlashSchedule,
         b, hkv, g, sched.m_q, bq, d)
     kf = k.to(torch.float32).reshape(b, hkv, sched.kv_blocks, bk, d)
     vf = v.to(torch.float32).reshape(b, hkv, sched.kv_blocks, bk, d)
-    bounds = torch.from_numpy(sched.row_bounds()).to(dev, torch.int64)
+    if sched.lowering == "mma":
+        bounds = sched.row_extents(dev).to(torch.int64)
+    else:
+        bounds = torch.from_numpy(sched.row_bounds()).to(dev, torch.int64)
     start = bounds[:, 0].expand(b, sched.m_q)
     end = bounds[:, 1].expand(b, sched.m_q)
     start, end, nsteps = _extents(start, end, pos, sched.kind,
@@ -543,8 +561,8 @@ def flash_cuda(q, k, v, sched: FlashSchedule,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    ext = sched.row_extents(q.device) if sched.lowering == "prefetch_lut" \
-        else None
+    ext = sched.row_extents(q.device) \
+        if sched.lowering in TABLE_LOWERINGS else None
     if pos is not None and (pos.device != q.device
                             or pos.dtype != torch.int32):
         raise ValueError("seq_pos must be an int32 tensor on q's device")
@@ -662,7 +680,7 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
 
     kind:      "causal" | "local" (window tokens) | "full"
     grid_mode: "closed_form" (alias "compact") | "prefetch_lut" |
-               "bounding"
+               "bounding" | "mma"
     storage:   "embedded" (k/v hold the full key sequence) | "compact"
                (k/v hold only the domain's key-block support; pass the
                true key length as ``kv_seq_len``)

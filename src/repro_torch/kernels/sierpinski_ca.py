@@ -16,8 +16,9 @@ final launch of a ``steps % fuse`` remainder is the same kernel.
 rotating buffers; :func:`ca_step` is the one-step case.  Under
 ``storage="compact"`` both buffers live in the packed orthotope layout
 and every halo gather resolves the *embedded* neighbour's packed slot
-through lambda^-1 (in registers, or from the 28-column LUT under
-``prefetch_lut``).  Out-of-range and non-member neighbour cells are
+through lambda^-1 (in registers, from the 28-column LUT under
+``prefetch_lut``, or by the digit-basis chains on the tensor cores under
+``mma``).  Out-of-range and non-member neighbour cells are
 masked at fine-block granularity, values at cell granularity -- the JAX
 package's semantics, so fused and per-step runs are bit-identical.
 
@@ -33,10 +34,14 @@ PyTorch version :func:`ca_launch_plain`.  The entry points follow the
 state's device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version.
 
-Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13), ``domain=``
-for non-fractal domains (A15), the tuner's ``"auto"`` knobs and
-``num_stages`` (A8, which raise ``NotImplementedError``), and CA states
-other than f32.
+``domain=`` runs the CA over any block domain with a device-side decode
+(triangular, band, bounding box, or a fractal), with the JAX package's
+tile semantics: every cell of the in-range n x n square is live, and
+values pass at the granularity of the domain's member blocks.
+
+Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13), the tuner's
+``"auto"`` knobs and ``num_stages`` (A8, which raise
+``NotImplementedError``), and CA states other than f32.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import ctypes
 import torch
 
 from repro_torch.core.compact import NEIGHBOR_OFFSETS8
+from repro_torch.core.domain import BlockDomain
 from repro_torch.core.plan import GridPlan, LaunchParams
 
 from . import _cuda
@@ -174,7 +180,7 @@ _LL = ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = _cuda.load("sierpinski_ca")
     if not getattr(lib, "_repro_bound", False):
-        lib.sc_ca_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
+        lib.sc_ca_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      ctypes.c_float, _P, _P]
         lib.sc_ca_launch.restype = ctypes.c_int
         lib.sc_scratch_bytes.argtypes = [_I, _LL]
@@ -227,18 +233,22 @@ def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
                    if nbytes else None)
         status = lib.sc_ca_launch(
             src.data_ptr(), dst.data_ptr(), _cuda.param_array(p),
-            _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), halo, steps,
+            _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), _cuda.ptr(p.mma_ops),
+            halo, steps,
             RULES[rule], alpha, _cuda.ptr(scratch),
             torch.cuda.current_stream(src.device).cuda_stream)
     ca_cuda.launches += 1
+    _cuda.count_mma(p)
     _cuda.raise_on(lib, status, "fused CA kernel")
     return dst
 
 
 ca_cuda.launches = 0
 
-#: kernel name -> its CUDA wrapper (each carries ``launches``)
-KERNELS = {"sierpinski_ca_fused": ca_cuda}
+#: kernel name -> its CUDA wrapper (each carries ``launches``); the mma
+#: lowering's decode chains count the launches that run them
+KERNELS = {"sierpinski_ca_fused": ca_cuda,
+           "mma_decode_chains": _cuda.MMA_CHAINS}
 
 
 def reset_launch_counts() -> None:
@@ -262,7 +272,8 @@ def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
     if not torch.equal(got, want):
         diff = (got - want).abs().max()
         raise AssertionError(
-            f"CA kernel != plain version ({plan.lowering}, {plan.storage}, "
+            f"CA kernel != plain version ({plan.domain.name}, "
+            f"{plan.lowering}, {plan.storage}, "
             f"coarsen={plan.coarsen}, n={n}, block={block}, halo={halo}, "
             f"steps={steps}, {rule}): max |diff| {float(diff)}")
 
@@ -290,12 +301,12 @@ def prepare_run(state: torch.Tensor, stale_buf: torch.Tensor, *,
                 block: int = 128, grid_mode: str = "compact",
                 fractal: str = "sierpinski-gasket",
                 storage: str = "embedded", n: int | None = None,
-                coarsen: int = 1):
+                domain: BlockDomain | None = None, coarsen: int = 1):
     """Validate the buffers and the options of a CA run; returns
     ``(plan, n, block)`` for the kernel wrapper and the plain version."""
     _check_buffers(state, stale_buf)
     domain, n, block, storage = resolve_storage_args(state, block, fractal,
-                                                     storage, n)
+                                                     storage, n, domain)
     plan = GridPlan(domain, grid_mode, storage=storage, coarsen=coarsen,
                     backend=state)
     return plan, n, block
@@ -305,7 +316,8 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
            fuse: int = 1, rule: str = "parity", alpha: float = 0.25,
            block: int = 128, grid_mode: str = "compact",
            fractal: str = "sierpinski-gasket", storage: str = "embedded",
-           n: int | None = None, coarsen: int = 1, num_stages: int = 1,
+           n: int | None = None, domain: BlockDomain | None = None,
+           coarsen: int = 1, num_stages: int = 1,
            donate: bool | None = None) -> torch.Tensor:
     """Advance the CA ``steps`` steps and return the final state.
 
@@ -319,7 +331,8 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     are advanced in place and the result is one of them; with
     ``donate=False`` (the default on the CPU) they are cloned first and
     left untouched.  Under ``storage="compact"`` both tensors are packed
-    orthotope-resident (pass ``n=``).
+    orthotope-resident (pass ``n=`` or ``domain=``).  ``grid_mode`` is
+    closed_form (alias compact), prefetch_lut, bounding or mma.
 
     The port's defaults are the JAX package's untuned resolution
     (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs and
@@ -331,7 +344,8 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
                          f"{tuple(RULES)}")
     plan, n, block = prepare_run(state, stale_buf, block=block,
                                  grid_mode=grid_mode, fractal=fractal,
-                                 storage=storage, n=n, coarsen=coarsen)
+                                 storage=storage, n=n, domain=domain,
+                                 coarsen=coarsen)
     fuse = effective_fuse(fuse, steps, block, plan.coarsen)
     sched = launch_schedule(steps, fuse)
     if not sched:
@@ -356,7 +370,8 @@ def ca_step(state: torch.Tensor, stale_buf: torch.Tensor, *,
             rule: str = "parity", alpha: float = 0.25, block: int = 128,
             grid_mode: str = "compact", fractal: str = "sierpinski-gasket",
             storage: str = "embedded", n: int | None = None,
-            coarsen: int = 1, num_stages: int = 1) -> torch.Tensor:
+            domain: BlockDomain | None = None, coarsen: int = 1,
+            num_stages: int = 1) -> torch.Tensor:
     """One CA step (the ``steps=1`` case of :func:`ca_run`), functional
     as in the JAX package: neither argument is modified.
 
@@ -365,5 +380,5 @@ def ca_step(state: torch.Tensor, stale_buf: torch.Tensor, *,
     its contents."""
     return ca_run(state, stale_buf, 1, fuse=1, rule=rule, alpha=alpha,
                   block=block, grid_mode=grid_mode, fractal=fractal,
-                  storage=storage, n=n, coarsen=coarsen,
+                  storage=storage, n=n, domain=domain, coarsen=coarsen,
                   num_stages=num_stages, donate=False)

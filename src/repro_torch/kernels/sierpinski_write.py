@@ -1,7 +1,7 @@
 """The paper's SS IV microbenchmark: write (or sum) every member cell of
 an embedded n x n fractal, over a :class:`~repro_torch.core.plan.GridPlan`.
 
-Three lowerings, as in the JAX package:
+Four lowerings, as in the JAX package:
 
 * ``closed_form`` (alias ``compact``) -- the lambda(w) map: one CTA per
   member block, the block decoded in registers by the digit loop.
@@ -9,6 +9,9 @@ Three lowerings, as in the JAX package:
   coordinate table: an O(1) decode.
 * ``bounding`` -- the bounding-box baseline: nbx * nby steps, with the
   run-time discard of non-member blocks.
+* ``mma`` -- the closed_form grid, each block decoded by the digit-basis
+  chains on the tensor cores (:mod:`repro_torch.core.mma`): lambda and
+  the own compact slot, or a row-major domain's row chain.
 
 Two storages: ``embedded`` (the state ``m`` is the dense (n, n) array)
 and ``compact`` (``m`` is the packed Lemma 2 orthotope array of
@@ -16,6 +19,9 @@ and ``compact`` (``m`` is the packed Lemma 2 orthotope array of
 outside the fractal keep their contents.  ``coarsen=s`` makes each grid
 step own an s x s superblock of fine blocks (the lambda decode runs once
 per superblock); the sum then has one partial per superblock.
+``domain=`` takes any block domain with a device-side decode instead of
+the fractal: the triangular, band and bounding-box domains of attention
+(every cell of a member block is written), or a fractal domain.
 
 Each kernel sits beside its plain PyTorch version.  The entry points
 follow the state's device: a CUDA tensor launches the kernel of
@@ -23,8 +29,8 @@ follow the state's device: a CUDA tensor launches the kernel of
 the plain version.  Each CUDA wrapper counts its launches in a plain
 integer attribute, ``launches``.
 
-The ``mma`` lowering, ``num_stages``, ``mesh=``, the tuner
-(``grid_mode="auto"``), ``verify=`` and ``domain=`` are not ported yet.
+Not ported yet: ``num_stages`` and the tuner (``grid_mode="auto"``,
+ROADMAP A8), ``mesh=`` (A12) and ``verify=`` (A13).
 """
 from __future__ import annotations
 
@@ -68,25 +74,30 @@ def resolve_fractal_domain(fractal: str, n: int, block: int) -> BlockDomain:
             f"of fractal {fractal!r}: {e}") from None
 
 
-def resolve_storage_args(m, block, fractal, storage, n):
+def resolve_storage_args(m, block, fractal, storage, n, domain=None):
     """Shared entry-point validation for the fractal-state kernels.
 
     Returns (domain, n, block, storage) with the state array ``m``
     checked against the storage layout's expected shape.  ``n`` (the
-    embedded side length) must be passed under compact storage, since
-    the packed array's shape no longer determines it."""
+    embedded side length) must be passed under compact storage when no
+    ``domain`` is given, since the packed array's shape no longer
+    determines it; with a ``domain`` it defaults to ``nby * block``."""
     storage = normalize_storage(storage)
-    if n is None:
-        if storage == "compact":
-            raise ValueError(
-                "storage='compact' needs the embedded size n= (or an "
-                "explicit domain=): the packed array shape does not "
-                "determine it")
-        if m.ndim != 2 or m.shape[0] != m.shape[1]:
-            raise ValueError(f"expected square 2-D state, got {tuple(m.shape)}")
-        n = m.shape[0]
-    block = min(block, n)
-    domain = resolve_fractal_domain(fractal, n, block)
+    if domain is None:
+        if n is None:
+            if storage == "compact":
+                raise ValueError(
+                    "storage='compact' needs the embedded size n= (or an "
+                    "explicit domain=): the packed array shape does not "
+                    "determine it")
+            if m.ndim != 2 or m.shape[0] != m.shape[1]:
+                raise ValueError(
+                    f"expected square 2-D state, got {tuple(m.shape)}")
+            n = m.shape[0]
+        block = min(block, n)
+        domain = resolve_fractal_domain(fractal, n, block)
+    elif n is None:
+        n = domain.bounding_box[1] * block
     layout = compact_layout(domain)
     want = layout.array_shape(block) if storage == "compact" \
         else layout.embedded_shape(block)
@@ -112,12 +123,12 @@ def prepare_launch(m: torch.Tensor, *, block: int = 128,
                    grid_mode: str = "compact",
                    fractal: str = "sierpinski-gasket",
                    storage: str = "embedded", n: int | None = None,
-                   coarsen: int = 1):
+                   domain: BlockDomain | None = None, coarsen: int = 1):
     """Validate the state and the options of a write/sum; returns
     ``(plan, n, block)`` for the kernel wrappers and plain versions."""
     _check_state(m)
     domain, n, block, storage = resolve_storage_args(m, block, fractal,
-                                                     storage, n)
+                                                     storage, n, domain)
     plan = GridPlan(domain, grid_mode, storage=storage, coarsen=coarsen,
                     backend=m)
     return plan, n, block
@@ -226,8 +237,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "sw_write": [_P, _I, ctypes.c_uint, _P, _P, _P, _P],
-    "sw_sum_partials": [_P, _I, _P, _P, _P, _P, _P],
+    "sw_write": [_P, _I, ctypes.c_uint, _P, _P, _P, _P, _P],
+    "sw_sum_partials": [_P, _I, _P, _P, _P, _P, _P, _P],
     "sw_sum_combine": [_P, _LL, _P, _P],
 }
 
@@ -274,8 +285,10 @@ def write_cuda(m: torch.Tensor, value, p: LaunchParams) -> torch.Tensor:
     with torch.cuda.device(m.device):
         status = lib.sw_write(m.data_ptr(), m.element_size(), bits,
                               _cuda.param_array(p), _cuda.ptr(p.lut),
-                              _cuda.ptr(p.tile_perm), _stream(m.device))
+                              _cuda.ptr(p.tile_perm), _cuda.ptr(p.mma_ops),
+                              _stream(m.device))
     write_cuda.launches += 1
+    _cuda.count_mma(p)
     _cuda.raise_on(lib, status, "sierpinski write kernel")
     return m
 
@@ -292,8 +305,10 @@ def sum_partials_cuda(m: torch.Tensor, p: LaunchParams) -> torch.Tensor:
         status = lib.sw_sum_partials(m.data_ptr(), DTYPES[m.dtype],
                                      partials.data_ptr(),
                                      _cuda.param_array(p), _cuda.ptr(p.lut),
-                                     _cuda.ptr(p.tile_perm), _stream(m.device))
+                                     _cuda.ptr(p.tile_perm),
+                                     _cuda.ptr(p.mma_ops), _stream(m.device))
     sum_partials_cuda.launches += 1
+    _cuda.count_mma(p)
     _cuda.raise_on(lib, status, "sierpinski sum partials kernel")
     return partials
 
@@ -323,10 +338,13 @@ def sum_combine_cuda(partials: torch.Tensor) -> torch.Tensor:
 
 sum_combine_cuda.launches = 0
 
-#: kernel name -> its CUDA wrapper (each carries ``launches``)
+#: kernel name -> its CUDA wrapper (each carries ``launches``); the mma
+#: lowering's decode chains count the write and partials launches that
+#: run them
 KERNELS = {"sierpinski_write": write_cuda,
            "sierpinski_sum_partials": sum_partials_cuda,
-           "sierpinski_sum_combine": sum_combine_cuda}
+           "sierpinski_sum_combine": sum_combine_cuda,
+           "mma_decode_chains": _cuda.MMA_CHAINS}
 
 
 def reset_launch_counts() -> None:
@@ -343,8 +361,8 @@ def launch_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 def _what(plan: GridPlan, n: int, block: int, m: torch.Tensor) -> str:
-    return (f"{plan.lowering}, {plan.storage}, coarsen={plan.coarsen}, "
-            f"n={n}, block={block}, {m.dtype}")
+    return (f"{plan.domain.name}, {plan.lowering}, {plan.storage}, "
+            f"coarsen={plan.coarsen}, n={n}, block={block}, {m.dtype}")
 
 
 def check_write_against_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
@@ -399,17 +417,20 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
                       grid_mode: str = "compact",
                       fractal: str = "sierpinski-gasket",
                       storage: str = "embedded", n: int | None = None,
+                      domain: BlockDomain | None = None,
                       coarsen: int = 1) -> torch.Tensor:
     """Write ``value`` to every fractal cell of the (n, n) state ``m``,
     **in place**, and return ``m``.  Cells outside the fractal are not
     touched.  This is the form the paper times.
 
-    grid_mode: closed_form (alias compact) | prefetch_lut | bounding;
-    fractal: any registered FractalSpec name.  A CUDA ``m`` launches the
-    kernel; a CPU ``m`` runs the plain version."""
+    grid_mode: closed_form (alias compact) | prefetch_lut | bounding |
+    mma; fractal: any registered FractalSpec name; domain: an explicit
+    block domain instead (triangular, band, bounding box, or a fractal).
+    A CUDA ``m`` launches the kernel; a CPU ``m`` runs the plain
+    version."""
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
-                                    coarsen=coarsen)
+                                    domain=domain, coarsen=coarsen)
     if not plan.target.kernels:
         return sierpinski_write_plain(m, value, plan, n, block)
     return write_cuda(m, value, plan.launch_params(n, block, m.device))
@@ -427,14 +448,15 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
                    grid_mode: str = "compact",
                    fractal: str = "sierpinski-gasket",
                    storage: str = "embedded", n: int | None = None,
+                   domain: BlockDomain | None = None,
                    coarsen: int = 1) -> torch.Tensor:
     """f32 sum over the fractal cells of ``m``, as a 0-d tensor on its
     device: each step's tile is reduced, then the tiles are added in
     grid-step order (lambda order, or row-major over the bounding box),
-    the JAX package's order."""
+    the JAX package's order.  Options as :func:`sierpinski_write_`."""
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
-                                    coarsen=coarsen)
+                                    domain=domain, coarsen=coarsen)
     if not plan.target.kernels:
         return sierpinski_sum_plain(m, plan, n, block)
     p = plan.launch_params(n, block, m.device)

@@ -477,9 +477,10 @@ def main(argv=None):
                          "(-1 = never)")
     ap.add_argument("--grid-lowering", default="",
                     choices=("", "closed_form", "prefetch_lut", "bounding",
-                             "compact"),
+                             "mma", "compact"),
                     help="GridPlan lowering of the prefill's attention "
-                         "schedule (default: the arch's attn_schedule)")
+                         "schedule and of the blockspace decode kernels "
+                         "(default: the arch's attn_schedule)")
     ap.add_argument("--decode-kernel", default="",
                     choices=("", "xla", "blockspace"),
                     help="decode attention: 'blockspace' runs the flash "

@@ -202,15 +202,18 @@ def flash_attention_xla(q, k, v, *, kind="causal", window=0,
 
 def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
                            scale: Optional[float] = None,
-                           block_k: int = 128, mesh=None):
+                           block_k: int = 128, grid_mode: str = "compact",
+                           mesh=None):
     """Single-token decode through the block-space flash kernel.
 
     q: (B,H,1,D); k,v: (B,Hkv,Smax,D) caches; pos: () current position
     or a (B,) vector of per-row positions.  The kernel masks keys past
     ``pos`` and does not read key blocks past ``pos // block_k``;
-    ``kind='local'`` anchors the sliding window at ``pos``.  A cache
-    length that does not tile ``block_k`` runs the plain
-    :func:`decode_attention` instead (the JAX package's rule)."""
+    ``kind='local'`` anchors the sliding window at ``pos``.
+    ``grid_mode`` is the kernel's lowering (any GridPlan lowering; the
+    result is the same under each).  A cache length that does not tile
+    ``block_k`` runs the plain :func:`decode_attention` instead (the JAX
+    package's rule)."""
     _no_mesh(mesh)
     sk = k.shape[2]
     block_k = min(block_k, sk)
@@ -220,7 +223,8 @@ def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
     from repro_torch.kernels.flash_attention import flash_attention
     w = window if kind == "local" else 0
     return flash_attention(q, k, v, kind="full", window=w, scale=scale,
-                           block_q=1, block_k=block_k, seq_pos=pos)
+                           block_q=1, block_k=block_k, grid_mode=grid_mode,
+                           seq_pos=pos)
 
 
 def decode_attention(q, k, v, pos, *, kind="causal", window=0,
@@ -284,7 +288,7 @@ def decode_attention_paged_xla(q, kv_pool, page_table, pos, *,
 def attention(q, k, v, *, kind="causal", window=0, scale=None,
               chunk=1024, schedule="dense", flash_threshold=8192):
     """schedule: "dense" | "triangular", or any GridPlan lowering name
-    ("closed_form" | "prefetch_lut" | "bounding" | "compact")."""
+    ("closed_form" | "prefetch_lut" | "bounding" | "mma" | "compact")."""
     sq, sk = q.shape[2], k.shape[2]
     if sq == 1:
         raise ValueError("use decode_attention for single-token queries")

@@ -78,7 +78,8 @@ class ModelConfig:
     attn_chunk: int = 1024          # kv-chunk for the flash path
     attn_schedule: str = "dense"    # dense (bounding-box) | triangular (compact)
     # GridPlan lowering knob (repro_torch.core.plan): "closed_form" |
-    # "prefetch_lut" | "bounding" | "" (= derive from attn_schedule).
+    # "prefetch_lut" | "bounding" | "mma" | "" (= derive from
+    # attn_schedule).
     # When set it wins over attn_schedule for the XLA flash path; call
     # sites that invoke the Pallas kernels directly read it as
     # grid_mode via the accessor below.

@@ -207,9 +207,11 @@ def attn_block_decode(a: Attention, x, cfg, kind, cache, pos: int):
     decode = (attn_lib.decode_attention_flash
               if cfg.attn_decode_kernel == "blockspace"
               else attn_lib.decode_attention)
+    kw = ({"grid_mode": cfg.grid_mode}
+          if cfg.attn_decode_kernel == "blockspace" else {})
     o = decode(q, k_cache, v_cache, pos,
                kind=("local" if kind == "local" else "causal"),
-               window=cfg.local_window)
+               window=cfg.local_window, **kw)
     return _out(a, o, cfg, b, 1, x.dtype), (k_cache, v_cache)
 
 
@@ -233,8 +235,10 @@ def attn_block_decode_paged(a: Attention, x, cfg, kind, pool, page_table,
     decode = (attn_lib.decode_attention_paged
               if cfg.attn_decode_kernel == "blockspace"
               else attn_lib.decode_attention_paged_xla)
+    kw = ({"grid_mode": cfg.grid_mode}
+          if cfg.attn_decode_kernel == "blockspace" else {})
     o = decode(q, pool, page_table, pos,
-               window=(cfg.local_window if kind == "local" else 0))
+               window=(cfg.local_window if kind == "local" else 0), **kw)
     return _out(a, o, cfg, b, 1, x.dtype), pool
 
 

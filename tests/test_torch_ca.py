@@ -207,7 +207,9 @@ def test_plain_chunks_agree_with_one_pass(monkeypatch):
     (dict(coarsen="auto"), NotImplementedError, "A8"),
     (dict(grid_mode="auto"), NotImplementedError, "A8"),
     (dict(num_stages=2), NotImplementedError, "A8"),
-    (dict(grid_mode="mma"), NotImplementedError, "A9"),
+    (dict(grid_mode="mma", block=1, fractal="sierpinski-carpet",
+          storage="compact", n=6561, shape=(4096, 4096)), ValueError,
+     "2\\^24"),
     (dict(dtype=torch.bfloat16), TypeError, "float32"),
     (dict(dtype=torch.int32), TypeError, "float32"),
     (dict(rule="life"), ValueError, "unknown rule"),
@@ -254,7 +256,7 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     p = plan.launch_params(n, block, "cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         TCA.ca_cuda(a, torch.zeros(16, 16), p, 1, 1, "parity", 0.25)
-    assert TCA.launch_counts() == {"sierpinski_ca_fused": 0}
+    assert TCA.launch_counts() == {name: 0 for name in TCA.KERNELS}
 
 
 # ---------------------------------------------------------------------------

@@ -74,7 +74,10 @@ def test_entry_points_launch_the_kernels(dev):
     total = ops.sierpinski_sum(out, block=8, grid_mode="bounding")
     assert TW.launch_counts() == {"sierpinski_write": 1,
                                   "sierpinski_sum_partials": 1,
-                                  "sierpinski_sum_combine": 1}
+                                  "sierpinski_sum_combine": 1,
+                                  "mma_decode_chains": 0}
+    ops.sierpinski_sum(out, block=8, grid_mode="mma")
+    assert TW.launch_counts()["mma_decode_chains"] == 1
     mask = torch.from_numpy(F.membership_grid(64)).to(dev)
     assert torch.equal(out, mask.to(torch.float32))
     assert float(total) == F.gasket_volume(64) and total.device == dev
@@ -171,7 +174,8 @@ def test_ca_entry_points_launch_the_kernel(dev):
     TC.reset_launch_counts()
     got = ops.ca_run(packed.clone(), torch.zeros_like(packed), 10, fuse=4,
                      block=block, storage="compact", n=n)
-    assert TC.launch_counts() == {"sierpinski_ca_fused": 3}
+    assert TC.launch_counts() == {"sierpinski_ca_fused": 3,
+                                  "mma_decode_chains": 0}
     from repro_torch.kernels import ref
     want = emb
     for _ in range(10):
@@ -311,3 +315,92 @@ def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
         FA.paged_cuda(q, pool, table, pos, psched)
     assert FA.launch_counts() == {"flash_attention": 0,
                                   "paged_flash_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# the row-major domains (domain=) and the mma lowering's tensor-core chains
+# ---------------------------------------------------------------------------
+
+def _row_domains():
+    from repro_torch.core.domain import (BandDomain, BoundingBoxDomain,
+                                         TriangularDomain)
+    return {"triangular": TriangularDomain(17), "band": BandDomain(24, 5),
+            "band-rect": BandDomain(8, 3, 20),
+            "bounding-box": BoundingBoxDomain(7, 5),
+            "tall-box": BoundingBoxDomain(3, 6),
+            "triangular-k": TriangularDomain(200)}
+
+
+@pytest.mark.parametrize("name", ["triangular", "band", "band-rect",
+                                  "bounding-box", "tall-box",
+                                  "triangular-k"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("block", [1, 8, 32])
+def test_domain_kernels_match_plain(dev, name, grid_mode, storage, block):
+    dom = _row_domains()[name]
+    lay = compact_layout(dom)
+    shape = lay.array_shape(block) if storage == "compact" \
+        else lay.embedded_shape(block)
+    g = torch.Generator(device=dev).manual_seed(block)
+    m = torch.randint(-8, 9, shape, generator=g, device=dev).float()
+    plan, n, blk = TW.prepare_launch(m, block=block, grid_mode=grid_mode,
+                                     storage=storage, domain=dom)
+    p = plan.launch_params(n, blk, dev)
+    TW.check_write_against_plain(m, 7.3, plan, n, blk, p)
+    TW.check_sum_against_plain(m, plan, n, blk, p)
+
+
+@pytest.mark.parametrize("name", ["triangular", "band", "band-rect",
+                                  "bounding-box", "tall-box"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("rule", ["parity", "diffusion"])
+def test_domain_ca_kernel_matches_plain(dev, name, grid_mode, storage, rule):
+    dom = _row_domains()[name]
+    block = 8
+    lay = compact_layout(dom)
+    shape = lay.array_shape(block) if storage == "compact" \
+        else lay.embedded_shape(block)
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = (torch.randint(0, 2, shape, generator=g, device=dev).float()
+         if rule == "parity" else torch.randn(shape, generator=g, device=dev))
+    b = torch.zeros_like(a)
+    plan, n, blk = TC.prepare_run(a, b, block=block, grid_mode=grid_mode,
+                                  storage=storage, domain=dom)
+    for h, steps in ((1, 1), (3, 3), (8, 5)):
+        TC.check_ca_against_plain(a, b, plan, n, blk, h, steps, rule, 0.2)
+
+
+@pytest.mark.parametrize("fractal,n,block,s", COMPACT_CASES)
+@pytest.mark.parametrize("storage", ["compact", "embedded"])
+def test_mma_bit_equal_to_closed_form(dev, fractal, n, block, s, storage):
+    """The tensor-core chains give the closed_form results bit for bit:
+    write, sum partials and CA, coarsened or not."""
+    emb, packed = _packed(fractal, n, block, 3 * n, dev, binary=True)
+    m = packed if storage == "compact" else emb
+    for coarsen in (1, s):
+        outs, parts, cas = [], [], []
+        for gm in ("closed_form", "mma"):
+            plan, n_, blk = TW.prepare_launch(m, block=block, grid_mode=gm,
+                                              fractal=fractal,
+                                              storage=storage, n=n,
+                                              coarsen=coarsen)
+            p = plan.launch_params(n_, blk, dev)
+            outs.append(TW.write_cuda(m.clone(), 7.0, p))
+            parts.append(TW.sum_partials_cuda(m, p))
+            cas.append(TC.ca_cuda(m, torch.zeros_like(m), p, 1, 1, "parity",
+                                  0.2))
+        assert torch.equal(outs[0], outs[1])
+        assert torch.equal(parts[0], parts[1])
+        assert torch.equal(cas[0], cas[1])
+
+
+def test_mma_raises_past_the_bound_before_any_launch(dev):
+    TW.reset_launch_counts()
+    m = torch.zeros((4096, 4096), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="2\\^24"):
+        ops.sierpinski_write_(m, 1.0, block=1, grid_mode="mma",
+                              fractal="sierpinski-carpet", storage="compact",
+                              n=6561)
+    assert TW.launch_counts()["sierpinski_write"] == 0

@@ -99,11 +99,13 @@ def test_flash_compact_kv_matches_jax(grid_mode):
                                               window=128))
 
 
+@pytest.mark.parametrize("grid_mode", ["closed_form", "mma"])
 @pytest.mark.parametrize("pos,window", [(37, 0), ([41, 63, 13], 0),
                                         ([41, 63, 13], 16), (50, 24)])
-def test_flash_decode_seq_pos_matches_jax(pos, window):
+def test_flash_decode_seq_pos_matches_jax(pos, window, grid_mode):
     (jq, jk, jv), (tq, tk, tv) = qkv_pair(3, 4, 2, 1, 64, 16, seed=7)
-    kw = dict(kind="full", window=window, block_q=1, block_k=16)
+    kw = dict(kind="full", window=window, block_q=1, block_k=16,
+              grid_mode=grid_mode)
     got = tops.flash_attention(tq, tk, tv, seq_pos=torch.tensor(pos), **kw)
     want = jops.flash_attention(jq, jk, jv, seq_pos=jnp.asarray(pos), **kw)
     assert_attn_close(got, want)
@@ -146,16 +148,13 @@ def test_flash_raises_the_jax_value_errors(what, kw, shape):
         jops.flash_attention(jq, jk, jv, **kw)
     with pytest.raises(ValueError) as terr:
         tops.flash_attention(tq, tk, tv, **kw)
-    if what == "lowering":  # the list of known lowerings lacks mma (A9)
-        assert str(terr.value).startswith("unknown lowering 'diagonal'")
-    else:
-        assert str(terr.value) == str(jerr.value)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_flash_unported_options_name_their_roadmap_item():
     _, (tq, tk, tv) = qkv_pair(1, 1, 1, 64, 64, 16, seed=10)
-    for kw, item in ((dict(grid_mode="mma"), "A9"),
-                     (dict(grid_mode="auto"), "A8"),
+    for kw, item in ((dict(grid_mode="auto"), "A8"),
+                     (dict(grid_mode="auto", kind="local", window=16), "A8"),
                      (dict(num_stages=2), "A8"), (dict(block_q="auto"), "A8"),
                      (dict(mesh=object()), "A12"), (dict(verify=True), "A13")):
         with pytest.raises(NotImplementedError, match=item):

@@ -101,21 +101,31 @@ def test_launch_params():
     assert p.offsets == carpet.spec.offsets
     with pytest.raises(ValueError, match="power of m"):
         TP.GridPlan(carpet, backend="cpu").launch_params(90, 10, "cpu")
-    for dom in (TD.TriangularDomain(4), TD.BandDomain(8, 3),
-                TD.BoundingBoxDomain(3, 3)):
-        with pytest.raises(NotImplementedError, match="A15"):
-            TP.GridPlan(dom, backend="cpu").launch_params(32, 8, "cpu")
+    # the row-major domains have a device-side decode of their own
+    for dom, fam in ((TD.TriangularDomain(4), TP.FAMILY_TRIANGULAR),
+                     (TD.BandDomain(8, 3), TP.FAMILY_BAND),
+                     (TD.BoundingBoxDomain(3, 3), TP.FAMILY_BOX)):
+        p = TP.GridPlan(dom, backend="cpu").launch_params(32, 8, "cpu")
+        assert p.family == fam and p.nblocks == dom.num_blocks
+        assert (p.nbx, p.nby) == dom.bounding_box
+    with pytest.raises(ValueError, match="membership callable"):
+        TP.GridPlan(TD.BoundingBoxDomain(3, 3, member=lambda x, y: x <= y),
+                    backend="cpu").launch_params(24, 8, "cpu")
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(lowering="mma"), "A9"),
-    (dict(lowering="auto"), "A8"),
-    (dict(lowering="mma", storage="compact"), "A9"),
-    (dict(lowering="auto", coarsen=2), "A8"),
+@pytest.mark.parametrize("kw,exc,match", [
+    # the gasket at n_b = 2^16 has 3^16 >= 2^24 blocks: the mma chains
+    # would stop being exact, and the plan refuses before any launch
+    (dict(lowering="mma", n_b=1 << 16), ValueError, "2\\^24"),
+    (dict(lowering="auto"), NotImplementedError, "A8"),
+    (dict(lowering="mma", storage="compact", n_b=1 << 16), ValueError,
+     "2\\^24"),
+    (dict(lowering="auto", coarsen=2), NotImplementedError, "A8"),
 ])
-def test_unported_options_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TP.GridPlan(TD.SierpinskiDomain(8), backend="cpu", **kw)
+def test_unported_options_name_their_roadmap_item(kw, exc, match):
+    n_b = kw.pop("n_b", 8)
+    with pytest.raises(exc, match=match):
+        TP.GridPlan(TD.SierpinskiDomain(n_b), backend="cpu", **kw)
 
 
 @pytest.mark.parametrize("storage", TP.STORAGES)

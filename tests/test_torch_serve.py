@@ -44,12 +44,19 @@ def _margins(model, cfg, prompts, stream):
     return np.stack(margins, 1)
 
 
-@pytest.mark.parametrize("decode_kernel", ["xla", "blockspace"])
-def test_server_greedy_streams_equal_jax(quickstart, decode_kernel):
+@pytest.mark.parametrize("decode_kernel,lowering", [
+    ("xla", ""), ("blockspace", ""), ("blockspace", "mma")])
+def test_server_greedy_streams_equal_jax(quickstart, decode_kernel,
+                                         lowering):
+    """Greedy streams equal the JAX Server's; with grid_lowering="mma"
+    the decode kernels take the mma lowering (and both prefills its
+    triangular schedule)."""
     from repro.launch.serve import ServeConfig as JServeConfig
     from repro.launch.serve import Server as JServer
     jcfg, jp, tcfg, tm = quickstart
-    tcfg = tcfg.replace(attn_decode_kernel=decode_kernel)
+    jcfg = jcfg.replace(grid_lowering=lowering)
+    tcfg = tcfg.replace(attn_decode_kernel=decode_kernel,
+                        grid_lowering=lowering)
     prompts = _prompts(jcfg, (3, 16), seed=2)
     want = JServer(jcfg, jp, JServeConfig(max_len=32, temperature=0.0,
                                           guard=False)).generate(
@@ -144,6 +151,9 @@ def test_throughput_reports_and_cli(quickstart, capsys):
     assert rep["tokens"] == 8 and rep["tok_per_s"] > 0
     S.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8",
             "--max-new", "3", "--decode-kernel", "blockspace"])
+    S.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8",
+            "--max-new", "3", "--decode-kernel", "blockspace",
+            "--grid-lowering", "mma"])
     S.main(["--device", "cpu", "--paged", "--batch", "3", "--prompt-len",
             "8", "--max-new", "3", "--arch", "gemma3-12b"])
     out = capsys.readouterr().out

@@ -73,7 +73,11 @@ def test_quickstart_slice_matches_reference(fractal, n, block, spec):
      "power of m"),
     (dict(fractal="koch"), ValueError, "unknown fractal"),
     (dict(grid_mode="bogus"), ValueError, "unknown lowering"),
-    (dict(grid_mode="mma"), NotImplementedError, "A9"),
+    # the carpet at n = 3^8, rho = 1 has 8^8 >= 2^24 blocks: beyond the
+    # mma chains' exactness bound, refused before any launch
+    (dict(grid_mode="mma", block=1, fractal="sierpinski-carpet",
+          storage="compact", n=6561, shape=(4096, 4096)), ValueError,
+     "2\\^24"),
     (dict(grid_mode="auto"), NotImplementedError, "A8"),
     (dict(storage="compact"), ValueError, "needs the embedded size"),
     (dict(coarsen=3), ValueError, "must be a power"),
