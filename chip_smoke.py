@@ -84,15 +84,25 @@ Phases, each printing its own lines:
 9. parity-attn -- flash_attention against its plain version over
              causal / local / full x four lowerings x {MHA, GQA 16/8,
              MQA} x D {64, 128, 256} x blocks {64, 128} x f32/bf16 (the
-             lowerings bit-equal to each other), rectangular local with
-             compact KV, seq_pos scalar / vector and full + window; the
-             paged kernel against its plain version and bit-equal to the
-             contiguous seq_pos kernel at block_k == page_size;
+             lowerings bit-equal to each other; bf16 takes the
+             tensor-core kernel, f32 the CUDA-core one, counted per
+             kernel), rectangular local with compact KV (both dtypes,
+             bit-equal to embedded), seq_pos scalar / vector and full +
+             window at block_q 1 and, on the tensor cores, at block_q 64;
+             the paged kernel against its plain version and bit-equal to
+             the contiguous seq_pos kernel at block_k == page_size;
+             every bf16 case also holds each output row to a relative
+             error of ROW_RTOL (its largest printed per kernel);
 10. attn  -- flash_attention at the widths of quickstart (causal S 4096,
-             B 4, f32) and gemma3-12b (D 256 bf16: causal S 4096, local
-             window 1024 at S 8192) under the four lowerings: kernel vs
-             plain, CUDA-event medians of the kernel, its plain version
-             and scaled_dot_product_attention (a yardstick only);
+             B 4, f32: the CUDA-core kernel) and gemma3-12b (D 256 bf16:
+             causal S 4096, local window 1024 at S 8192: the tensor-core
+             kernel) under the four lowerings: counts set to 0, the
+             entry point driven, counts read (each row's kernel launched
+             once, the other not at all); kernel vs plain (bf16 rows
+             also per row within ROW_RTOL: a fault in one 64-key sub-tile
+             of a long row stays inside rtol = atol = 2e-2), CUDA-event
+             medians of the kernel, its plain version and
+             scaled_dot_product_attention (a yardstick only);
 11. serve -- launch counts set to 0, then Server.generate greedy on
              quickstart at full width (batch 8, prompt 128, 32 new,
              max_len 256) through the flash kernel; counts read and held
@@ -113,7 +123,8 @@ Phases, each printing its own lines:
              scaled_dot_product_attention, and the flash kernel held to
              its plain version at the gemma3-12b decode shape (bf16,
              cache 1664, window 1024 and none);
-13. kernels line (B1-B5 and the mma chains, B7), then the result line.
+13. kernels line (B1-B5, the mma chains B7, and B4's tensor-core tile
+             path flash_attention_tc), then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -208,6 +219,24 @@ def time_ms(fn, reps, warmup=1):
     return statistics.median(times)
 
 
+#: the card's highest SM clock (nvidia-smi clocks.max.sm, read by
+#: phase_card) and the latency of one dependent f32 add in cycles: the
+#: in-order combine adds its partials one after another, so its least
+#: time is that chain, not its bytes
+SM_CLOCK_HZ = None
+FADD_CYCLES = 4
+
+
+def chain_bound(steps, nbytes):
+    """Least time in ms of a strict left fold of ``steps`` f32 adds: the
+    chain of dependent adds at the highest SM clock, or the bytes if
+    they take longer."""
+    t_chain = steps * FADD_CYCLES / SM_CLOCK_HZ * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain,
+                                                          "operations")
+
+
 def bound(nbytes, nops=0):
     """Least time in ms for the work: bytes over the memory rate or f32
     operations over the f32 peak, whichever is larger."""
@@ -217,12 +246,19 @@ def bound(nbytes, nops=0):
 
 
 def phase_card():
+    global SM_CLOCK_HZ
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    SM_CLOCK_HZ = float(clk.stdout.strip().splitlines()[0]) * 1e6
+    print(f"[card] highest SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz")
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
@@ -237,7 +273,8 @@ def phase_build(_cuda):
         f"{name} {_cuda.BUILD_SECONDS.get(name, 0.0):.1f} s"
         for name in paths) + f" (in parallel, {secs:.1f} s in all)")
     kernels = ("write_kernel", "sum_partials_kernel", "sum_combine_kernel",
-               "ca_fused_kernel", "flash_fwd_kernel", "paged_decode_kernel")
+               "ca_fused_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
+               "paged_decode_kernel")
     for name, path in paths.items():
         print(f"[build] {name}: {path.name}")
         entry = ""
@@ -410,7 +447,10 @@ def phase_main(ops, TW, F, LOWERINGS, dev):
                                       fast),
                 "combine_plain_ms": time_ms(
                     lambda: TW.sum_combine_plain(parts), 2),
-                "combine_library_ms": time_ms(lambda: parts.sum(), 20),
+                # no PyTorch call adds in the fold's order: parts.sum()
+                # reorders (timed for reference, not a library time)
+                "combine_library_ms": None,
+                "combine_reordered_sum_ms": time_ms(lambda: parts.sum(), 20),
                 "sum_ms": time_ms(
                     lambda: ops.sierpinski_sum(m, block=rho, grid_mode=gm),
                     fast),
@@ -421,7 +461,7 @@ def phase_main(ops, TW, F, LOWERINGS, dev):
             for key, b in (("write", bound(members * 4)),
                            ("partials", bound(members * 4 + steps * 4,
                                               members)),
-                           ("combine", bound(steps * 4 + 4, steps))):
+                           ("combine", chain_bound(steps, steps * 4 + 4))):
                 row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = b
             rows.append(row)
             print(f"[main] {json.dumps(row)}")
@@ -1213,13 +1253,32 @@ def paged_copy(k, v, ps, P, dev, seed):
 
 
 def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
-    """Both attention kernels against their plain versions on the card:
+    """The attention kernels against their plain versions on the card:
     kinds x lowerings x {MHA, GQA 16/8, MQA} x D x blocks x dtypes, the
     lowerings bit-equal to each other; rectangular local with compact
     KV; seq_pos scalar / vector and full + window; and the paged kernel
-    bit-equal to the contiguous seq_pos kernel at block_k == page_size."""
+    bit-equal to the contiguous seq_pos kernel at block_k == page_size.
+    Each flash case is counted and its errors (max |err|, and in bf16 the
+    largest per-row relative error, held to FA.ROW_RTOL) kept under the
+    kernel flash_route sends it to."""
     err = {name: 0.0 for name in FA.KERNELS}
-    ncmp = seed = 0
+    rel = {name: 0.0 for name in FA.ROUTE_KERNELS.values()}
+    cases = {name: 0 for name in FA.ROUTE_KERNELS.values()}
+
+    def flash_check(q, k, v, sched, pos=None):
+        name = FA.ROUTE_KERNELS[FA.flash_route(sched, q.dtype)]
+        out = FA.flash_cuda(q, k, v, sched, pos)
+        want = FA.flash_attention_plain(q, k, v, sched, pos)
+        err[name] = max(err[name], FA._compare(
+            out, want, f"parity-attn {name} {sched.kind} {sched.lowering} "
+            f"q {tuple(q.shape)} k {tuple(k.shape)} blocks "
+            f"{sched.block_q}/{sched.block_k} {q.dtype}"))
+        if q.dtype in FA.ROW_RTOL:
+            rel[name] = max(rel[name], FA.row_rel_err(out, want))
+        cases[name] += 1
+        return out
+
+    seed = 0
     for kind in ("causal", "local", "full"):
         for hname, (h, hkv) in ATTN_HEADS.items():
             for d in ATTN_DIMS:
@@ -1230,18 +1289,11 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                         q, k, v = attn_inputs([(2, h, s, d), (2, hkv, s, d),
                                                (2, hkv, s, d)], dtype, seed,
                                               dev)
-                        outs = []
-                        for gm in LOWERINGS:
-                            sched = FA.flash_schedule(
-                                q.shape, k.shape, kind=kind,
-                                window=2 * blk if kind == "local" else 0,
-                                block_q=blk, block_k=blk, grid_mode=gm)
-                            e, out = FA.check_flash_against_plain(q, k, v,
-                                                                  sched)
-                            err["flash_attention"] = max(
-                                err["flash_attention"], e)
-                            outs.append(out)
-                            ncmp += 1
+                        outs = [flash_check(q, k, v, FA.flash_schedule(
+                            q.shape, k.shape, kind=kind,
+                            window=2 * blk if kind == "local" else 0,
+                            block_q=blk, block_k=blk, grid_mode=gm))
+                            for gm in LOWERINGS]
                         check(all(torch.equal(o, outs[0]) for o in outs),
                               f"flash {kind} {hname} d={d} block={blk} "
                               f"{dtype}: the lowerings differ")
@@ -1265,31 +1317,30 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                                      window=256, block_q=128, block_k=128,
                                      grid_mode=gm, storage="compact",
                                      kv_seq_len=1024)
-            e1, o1 = FA.check_flash_against_plain(q, k, v, emb)
-            e2, o2 = FA.check_flash_against_plain(q, kc, vc, comp)
+            o1 = flash_check(q, k, v, emb)
+            o2 = flash_check(q, kc, vc, comp)
             check(torch.equal(o1, o2), f"compact KV {gm} {dtype}: differs "
                   f"from embedded")
-            err["flash_attention"] = max(err["flash_attention"], e1, e2)
-            ncmp += 2
     print("[parity-attn] rectangular local (Sq 256 of Sk 1024, window 256) "
           "with compact KV: within tolerance, bit-equal to embedded KV")
-    # decode: seq_pos scalar and per-row, full + run-time window
+    # seq_pos: scalar and per-row, full + run-time window, at block_q 1
+    # (decode, the CUDA-core kernel in both dtypes) and block_q 64 (bf16
+    # on the tensor cores)
     for dtype in ATTN_DTYPES:
         for d in (64, 256):
-            q, k, v = attn_inputs([(4, 16, 1, d), (4, 8, 1024, d),
-                                   (4, 8, 1024, d)], dtype, 600 + d, dev)
-            for pos, win in ((700, 0), ([0, 127, 128, 1023], 0),
-                             ([0, 127, 600, 1023], 300)):
-                pv = FA.seq_pos_vector(pos, 4, dev)
-                for gm in LOWERINGS:
-                    sched = FA.flash_schedule(
-                        q.shape, k.shape, kind="full", window=win,
-                        block_q=1, block_k=128, grid_mode=gm, has_pos=True)
-                    e, _ = FA.check_flash_against_plain(q, k, v, sched, pv)
-                    err["flash_attention"] = max(err["flash_attention"], e)
-                    ncmp += 1
-    print("[parity-attn] decode: seq_pos scalar / (B,) vector, full + "
-          "window 300: within tolerance")
+            for sq, bq in ((1, 1), (64, 64)):
+                q, k, v = attn_inputs([(4, 16, sq, d), (4, 8, 1024, d),
+                                       (4, 8, 1024, d)], dtype, 600 + d, dev)
+                for pos, win in ((700, 0), ([0, 127, 128, 1023], 0),
+                                 ([0, 127, 600, 1023], 300)):
+                    pv = FA.seq_pos_vector(pos, 4, dev)
+                    for gm in LOWERINGS:
+                        flash_check(q, k, v, FA.flash_schedule(
+                            q.shape, k.shape, kind="full", window=win,
+                            block_q=bq, block_k=128 if bq == 1 else 64,
+                            grid_mode=gm, has_pos=True), pv)
+    print("[parity-attn] seq_pos scalar / (B,) vector, full + window 300, "
+          "block_q 1 and 64: within tolerance")
     # paged == contiguous seq_pos decode, bit for bit
     nbit = 0
     for dtype in ATTN_DTYPES:
@@ -1309,18 +1360,24 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                 sched = FA.flash_schedule(q.shape, k.shape, kind="full",
                                           window=win, block_q=1, block_k=ps,
                                           has_pos=True)
+                check(FA.flash_route(sched, dtype) == "cuda_core",
+                      "decode routed off the CUDA-core kernel")
                 check(torch.equal(paged, FA.flash_cuda(q, k, v, sched, pos)),
                       f"paged decode ps={ps} d={d} window={win} {dtype}: "
                       f"not bit-equal to the contiguous seq_pos kernel")
-                ncmp += 1
                 nbit += 1
     torch.cuda.synchronize()
     print(f"[parity-attn] paged decode: within tolerance of its plain "
           f"version and bit-equal to the contiguous seq_pos kernel at "
           f"block_k == page_size ({nbit} cases)")
-    print(f"[parity-attn] {ncmp} kernel-vs-plain comparisons passed; max "
-          f"|err| {err} (f32 rtol/atol 2e-5, bf16 2e-2)")
-    return err
+    check(cases["flash_attention_tc"] > 0 and cases["flash_attention"] > 0,
+          f"a flash kernel took no parity case: {cases}")
+    print(f"[parity-attn] flash cases per kernel: {cases}; "
+          f"{sum(cases.values()) + nbit} kernel-vs-plain comparisons "
+          f"passed; max |err| {err} (f32 rtol/atol 2e-5, bf16 2e-2); bf16 "
+          f"max per-row relative error {rel} (bound "
+          f"{FA.ROW_RTOL[torch.bfloat16]})")
+    return err, rel, cases
 
 
 def needed_pairs(kind, s, window):
@@ -1335,29 +1392,48 @@ def needed_pairs(kind, s, window):
 
 def phase_attn(FA, LOWERINGS, dev):
     """flash_attention at the widths of quickstart and gemma3-12b under
-    the three lowerings: kernel vs plain, and CUDA-event medians of the
-    kernel, its plain version and scaled_dot_product_attention."""
+    the four lowerings.  Per case the launch counts are set to 0, the
+    entry point runs once per lowering, and the counts are read: the
+    kernel flash_route names launched once per lowering and no other.
+    Then kernel vs plain (max |err| and the largest per-row relative
+    error, bf16 held to FA.ROW_RTOL), and CUDA-event medians of the
+    kernel, its plain version and scaled_dot_product_attention.  Returns
+    (rows, launches per kernel over the counted runs)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
+    launches = {name: 0 for name in FA.KERNELS}
     for name, b, h, hkv, s, d, dtype, kind, window in ATTN_TIMED:
         torch.cuda.empty_cache()
         q, k, v = attn_inputs([(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)],
                               dtype, 800, dev)
-        plain = None
-        for gm in LOWERINGS:
-            sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
-                                      window=window, grid_mode=gm)
-            out = FA.flash_cuda(q, k, v, sched)
-            if plain is None:  # the lowerings' plain versions are bit-equal
-                plain = FA.flash_attention_plain(q, k, v, sched)
-                plain_ms = time_ms(lambda: FA.flash_attention_plain(
-                    q, k, v, sched), 2, warmup=0)
+        scheds = [FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                    window=window, grid_mode=gm)
+                  for gm in LOWERINGS]
+        route = FA.flash_route(scheds[0], dtype)
+        FA.reset_launch_counts()
+        outs = [FA.flash_attention(q, k, v, kind=kind, window=window,
+                                   grid_mode=gm) for gm in LOWERINGS]
+        torch.cuda.synchronize()
+        counts = FA.launch_counts()
+        want = {n: len(LOWERINGS) if n == FA.ROUTE_KERNELS[route] else 0
+                for n in FA.KERNELS}
+        check(counts == want, f"attn {name}: launches {counts}, expected "
+              f"{want}")
+        for n, c in counts.items():
+            launches[n] += c
+        plain = FA.flash_attention_plain(q, k, v, scheds[0])
+        plain_ms = time_ms(lambda: FA.flash_attention_plain(
+            q, k, v, scheds[0]), 2, warmup=0)
+        for gm, sched, out in zip(LOWERINGS, scheds, outs):
             err = FA._compare(out, plain, f"attn {name} {gm}")
-            row = {"case": name, "lowering": gm, "b": b, "h": h, "hkv": hkv,
-                   "s": s, "d": d, "dtype": str(dtype), "kind": kind,
-                   "window": window, "blocks": sched.block_q,
+            check(torch.equal(out, outs[0]),
+                  f"attn {name}: {gm} differs from {LOWERINGS[0]}")
+            row = {"case": name, "lowering": gm, "kernel": route, "b": b,
+                   "h": h, "hkv": hkv, "s": s, "d": d, "dtype": str(dtype),
+                   "kind": kind, "window": window, "blocks": sched.block_q,
                    "visited_tiles": sched.domain.num_blocks,
                    "max_abs_err": err,
+                   "max_row_rel_err": FA.row_rel_err(out, plain),
                    "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
                    "plain_ms": plain_ms}
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -1380,8 +1456,15 @@ def phase_attn(FA, LOWERINGS, dev):
             row["library_ms"] = lib_ms
             row["library_max_abs_err"] = lib_err
             print(f"[attn] {json.dumps(row)}")
-        del q, k, v, plain
-    return rows
+        del q, k, v, plain, outs
+    tc_rows = [r for r in rows if r["kernel"] == "tc"]
+    print(f"[attn] tc rows ({len(tc_rows)}): max |err| "
+          f"{max(r['max_abs_err'] for r in tc_rows)} (rtol = atol "
+          f"{FA.TOLERANCE[torch.bfloat16]}), max per-row relative error "
+          f"{max(r['max_row_rel_err'] for r in tc_rows)} (bound "
+          f"{FA.ROW_RTOL[torch.bfloat16]})")
+    print(f"[attn] launches of the counted entry-point runs: {launches}")
+    return rows, launches
 
 
 def serve_run(S, cfg, model, prompts, max_new, max_len, kernel):
@@ -1737,8 +1820,9 @@ def main():
     merge_err(errs, comp["err"])
     doms = phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev)
     t_attn = time.perf_counter()
-    attn_err = phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev)
-    attn_rows = phase_attn(FA, LOWERINGS, dev)
+    attn_err, attn_rel, attn_cases = phase_parity_attn(FA, LOWERINGS,
+                                                       pack_kv, P, dev)
+    attn_rows, attn_launches = phase_attn(FA, LOWERINGS, dev)
     serve_runs, models = phase_serve(S, TM, get_config, FA, dev)
     qcfg, qmodel, qprompts = models["quickstart"]
     paged = phase_paged(S, FA, qcfg, qmodel, dev)
@@ -1770,6 +1854,9 @@ def main():
             "launches_domain_paths": dom_launches[name],
             "domain": domains,
         })
+    kernels[-1].update({
+        "library_note": "none: partials.sum() adds in another order",
+        "reordered_sum_ms": at["combine_reordered_sum_ms"]})
     gm, fuse, rule = CA_REPORT_AT
     ca_at = next(r for r in ca["rows"]
                  if (r["lowering"], r["fuse"], r["rule"]) == CA_REPORT_AT)
@@ -1822,7 +1909,8 @@ def main():
             ("flash_attention", "src/repro/kernels/flash_attention.py:103",
              serve_q["launches"]["flash_attention"],
              {"launches_gemma3_12b_serve": serve_g["launches"][
-                 "flash_attention"]}),
+                 "flash_attention"],
+              "launches_attn_phase": attn_launches["flash_attention"]}),
             ("paged_flash_attention",
              "src/repro/kernels/flash_attention.py:654",
              paged["launches"]["paged_flash_attention"], {})]:
@@ -1835,6 +1923,33 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "at": row["at"], **extra})
+    # B4's bf16 tile path on the tensor cores: the gemma3-12b rows of the
+    # attn phase (counted there), timed at the causal row, closed_form
+    tc = {r["case"]: r for r in attn_rows
+          if r["kernel"] == "tc" and r["lowering"] == "closed_form"}
+    tc_at = tc["gemma3-12b causal"]
+    kernels.append({
+        "name": "flash_attention_tc", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+        "launches": attn_launches["flash_attention_tc"],
+        "max_abs_err": max([attn_err["flash_attention_tc"]]
+                           + [r["max_abs_err"] for r in attn_rows
+                              if r["kernel"] == "tc"]),
+        "max_row_rel_err": max([attn_rel["flash_attention_tc"]]
+                               + [r["max_row_rel_err"] for r in attn_rows
+                                  if r["kernel"] == "tc"]),
+        "row_rtol": FA.ROW_RTOL[torch.bfloat16],
+        "ms": tc_at["ms"], "plain_ms": tc_at["plain_ms"],
+        "bound_ms": tc_at["bound_ms"], "bound_by": tc_at["bound_by"],
+        "library_ms": tc_at["library_ms"],
+        "at": f"gemma3-12b causal S {tc_at['s']} B {tc_at['b']} heads "
+              f"{tc_at['h']}/{tc_at['hkv']} D {tc_at['d']} bf16, blocks "
+              f"{tc_at['blocks']}, closed_form",
+        "local_ms": tc["gemma3-12b local"]["ms"],
+        "local_bound_ms": tc["gemma3-12b local"]["bound_ms"],
+        "local_library_ms": tc["gemma3-12b local"]["library_ms"],
+        "parity_cases": attn_cases["flash_attention_tc"]})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1842,6 +1957,8 @@ def main():
         "rho1_write_ms": rho1, "peak_gib": peak, "ca": ca,
         "compact": comp, "domains": doms,
         "attn_parity_max_abs_err": attn_err,
+        "attn_parity_max_row_rel_err": attn_rel,
+        "attn_parity_cases": attn_cases, "attn_launches": attn_launches,
         "attn": attn_rows, "serve": serve_runs, "paged": paged,
         "decode": decode, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))

@@ -1,0 +1,57 @@
+// The async-copy ring of the JAX package's _dma kernels
+// (core/backend.py::stream_tiles) in its Hopper form: 16-byte
+// cp.async.cg copies from global into shared memory, committed one group
+// per ring step and waited on with wait_group.
+//
+// The ring of `stages` slots runs as stream_tiles does: a prologue issues
+// the copies of steps 0 .. stages - 2 (one commit group each, empty groups
+// included, so the count of pending groups stays uniform); step t waits
+// until at most stages - 2 groups are pending (its own has landed),
+// synchronises the CTA (every reader of the slot step t + stages - 1 will
+// overwrite is done), issues that step's copies and commits, then
+// computes on slot t % stages.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace ring {
+
+// 16 bytes global -> shared, cached in L2 only (.cg: the tiles are read
+// once per CTA, by way of shared memory).
+__device__ __forceinline__ void copy16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most kPending of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Copy `rows` rows of `cols` bf16 values (cols % 8 == 0, cols / 8 <=
+// blockDim.x) from a row-major global tile of row stride `src_stride` into
+// shared rows of stride `dst_stride` elements, spread over the CTA's
+// threads: thread i copies piece i % (cols / 8) of every
+// (blockDim.x / (cols / 8))-th row.
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int dst_stride,
+                                          const __nv_bfloat16* src,
+                                          int src_stride, int rows,
+                                          int cols) {
+  const int chunks = cols >> 3;  // 16-byte pieces per row
+  const int sweep = blockDim.x / chunks;
+  const int r0 = threadIdx.x / chunks;
+  const int c = (threadIdx.x - r0 * chunks) << 3;
+  if (r0 >= sweep) return;
+  for (int r = r0; r < rows; r += sweep)
+    copy16(dst + (size_t)r * dst_stride + c,
+           src + (size_t)r * src_stride + c);
+}
+
+}  // namespace ring

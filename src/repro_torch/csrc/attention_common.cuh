@@ -167,6 +167,35 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The masks of the JAX package's _attn_tile_update: whether key position
+// kpos is live for query position qpos.  kind causal / local compare the
+// two positions; with seq_pos (has_pos) keys past pos are masked, and
+// under kind full a nonzero window also masks keys at or before
+// pos - window.  Both flash kernels and the paged decode test keys here.
+__device__ __forceinline__ bool key_live(const AttnParams& p, int qpos,
+                                         int kpos, int pos) {
+  bool live = true;
+  if (p.kind != kFull) {
+    live = kpos <= qpos;
+    if (p.kind == kLocal) live = live && kpos > qpos - p.window;
+  }
+  if (p.has_pos) {
+    bool pm = kpos <= pos;
+    if (p.kind == kFull && p.window) pm = pm && kpos > pos - p.window;
+    live = live && pm;
+  }
+  return live;
+}
+
+// Whether every key of [kmin, kmax] is live for every query of
+// [qmin, qmax]: each mask keeps a key range that moves up with the query,
+// so the two corners decide.
+__device__ __forceinline__ bool keys_all_live(const AttnParams& p, int qmin,
+                                              int qmax, int kmin, int kmax,
+                                              int pos) {
+  return key_live(p, qmin, kmax, pos) && key_live(p, qmax, kmin, pos);
+}
+
 // One online-softmax step over key tile kb for the rows of the current
 // pass (the JAX package's _attn_tile_update):
 //
@@ -175,10 +204,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 //   m_new  = max(m, rowmax(s));  p = exp(s - m_new);  alpha = exp(m - m_new)
 //   l      = alpha l + rowsum(p);  acc = acc alpha + p v
 //
-// mask: kind causal/local compare the key position with the query position
-// qpos0 + row0 + i; with seq_pos (has_pos) keys past pos are masked, and
-// under kind full a nonzero window also masks keys at or before
-// pos - window.  kt and vt point at the tile's (block_k, d) rows.  Called
+// mask: key_live() of the key position and the query position
+// qpos0 + row0 + i.  kt and vt point at the tile's (block_k, d) rows.  Called
 // by every thread of the CTA (it synchronises); rows >= nrows compute
 // nothing that is stored.
 template <typename T, int DPL>
@@ -213,17 +240,7 @@ __device__ __forceinline__ void tile_update(const AttnParams& p, const Smem& sm,
       const int kpos = kb * bk + c0 + lane;
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int qpos = qpos0 + row_base + r;
-        bool live = true;
-        if (p.kind != kFull) {
-          live = kpos <= qpos;
-          if (p.kind == kLocal) live = live && kpos > qpos - p.window;
-        }
-        if (p.has_pos) {
-          bool pm = kpos <= pos;
-          if (p.kind == kFull && p.window) pm = pm && kpos > pos - p.window;
-          live = live && pm;
-        }
+        const bool live = key_live(p, qpos0 + row_base + r, kpos, pos);
         sm.s[(size_t)(row_base + r) * bk + c0 + lane] = live ? s[r] : kNegInf;
       }
     }

@@ -2,14 +2,20 @@
 // plain C interface loaded through ctypes (repro_torch/kernels/_cuda.py).
 //
 // Replaces (JAX package, Pallas):
-//   flash_fwd_kernel    <- kernels/flash_attention.py::_attn_kernel and its
-//                          gpu structure _gpu_flash_call (row bounds
-//                          _row_bounds, tile math _attn_tile_update)
+//   flash_fwd_tc_kernel <- kernels/flash_attention.py::_attn_kernel and its
+//   flash_fwd_kernel       gpu structure _gpu_flash_call (row bounds
+//                          _row_bounds, tile math _attn_tile_update); the
+//                          tc kernel's K/V ring is core/backend.py::
+//                          stream_tiles, the ring of the _dma variants
 //   paged_decode_kernel <- kernels/flash_attention.py::_paged_attn_kernel
 //                          and its gpu structure _gpu_paged_call
 //
-// flash_fwd_kernel: one CTA per (batch * head, query-block row), as the gpu
-// structure's grid; an in-kernel loop over that row's key blocks
+// The wrapper (kernels/flash_attention.py flash_route) sends bf16 calls
+// with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel and
+// every other call (f32, decode at block_q = 1) to flash_fwd_kernel.
+//
+// Both flash kernels: one CTA per (batch * head, query-block row), as the
+// gpu structure's grid; an in-kernel loop over that row's key blocks
 // [start, end] carries the online-softmax state.  The extent comes from
 // the lowering: closed_form computes _row_bounds inline, prefetch_lut reads
 // the host row_extents() table (int32 (m_q, 2) on the device), mma reads
@@ -20,7 +26,8 @@
 // under kind full with a window, raises start to
 // max(pos - window + 1, 0) // block_k.  K/V tile kb is read at
 // clip(kb - s0, 0, kv_blocks - 1) (compact KV).  GQA: q head h reads kv
-// head h / (H / Hkv).
+// head h / (H / Hkv).  Every lowering runs the same tile arithmetic in the
+// same order, so the four are bit-equal to each other.
 //
 // paged_decode_kernel: one CTA per (slot, head); the loop runs from start
 // to pos // page_size, reads page = page_table[slot, kb] and the fused
@@ -31,17 +38,65 @@
 // outside the tensor cores, 989 TFLOP/s bf16 in them): prefill-sized
 // attention is bound by operations (4 d flops per visited (query, key)
 // pair), decode by bytes (each visited K/V tile read once per q head).
-// This first kernel is simple rather than fast: scores and p v run in f32
-// on the CUDA cores (no wgmma, no TMA), 8 warps own 4 query rows each per
+//
+// flash_fwd_tc_kernel (bf16 prefill) moves those operations onto the
+// tensor cores with mma.sync.m16n8k16 (bf16 operands, f32 sums):
+//   * block_q / 16 warps (at most 8; a longer query block runs in passes
+//     of 128 rows), each owning 16 query rows, read from shared memory
+//     with ldmatrix;
+//   * S = Q K^T per 64-key sub-tile, K the B operand by ldmatrix.x4 from
+//     row-major K; the bf16 products are exact and sum in f32, and scale
+//     multiplies the f32 score after the product (pre-scaling Q in bf16
+//     would round it); masks as tile_update (-1e30, not -inf, by
+//     attention_common.cuh's key_live), tested per element only in a
+//     warp-uniform branch for the sub-tiles where the warp's rows meet a
+//     mask edge (keys_all_live), so the other steps only scale;
+//   * the online softmax in registers per 64-key sub-tile: 64 keys are 8
+//     score n-tiles (32 f32 per lane) beside the 128-f32 O accumulator of
+//     d = 256, which keeps the kernel within 255 registers; 32-key
+//     sub-tiles would halve the score registers but double the rescales
+//     of O and the ring's barriers.
+//     Per sub-tile instead of per schedule tile is the same math rounded
+//     in another order; a wholly masked prefix still gives m = -1e30,
+//     p = 1, and the next live sub-tile's alpha = exp(-1e30 - m) = 0
+//     wipes it.  exp runs on the SFU (ex2.approx), and a warp whose row
+//     maxima did not move skips the rescale of O (alpha is exactly 1);
+//   * P rounded to bf16 (the rounding the MXU applies to an f32 dot at
+//     default precision) is the A operand of P V straight from the score
+//     fragments (mma_sync.cuh's C -> A identity), V the B operand by
+//     ldmatrix.x4.trans; O and l sum in f32; out = O / l (l == 0 -> 1)
+//     rounded to bf16;
+//   * K/V sub-tiles stream through a ring of shared-memory slots
+//     (async_ring.cuh, cp.async.cg 16 B, commit/wait groups): 2 stages at
+//     d <= 256 (Q 67.6 KB + 2 x (K + V) 135 KB of the 227 KB opt-in),
+//     3 at d <= 128; rows padded by 16 B so the 8 rows of an ldmatrix
+//     fall in distinct banks;
+//   * CTA order: query-block rows outermost, (batch, head) innermost, so
+//     the q heads of one kv head run side by side (their K/V stay in L2);
+//     under causal and local the longest rows (largest qb) start first and
+//     the short first rows fill the last wave, which shortens the tail on
+//     132 SMs (local: 64 rows x 16 heads are 7.8 waves of one CTA per SM).
+// The head dim rounds up to an instantiation (64, 128, 256); k-steps and
+// output n-tiles past d are skipped, so no padding column is read.  Each
+// k-step loads its fragments before its products (one ldmatrix latency
+// per k-step, not per product).  d <= 64 runs two CTAs per SM.  What
+// still bounds it: every warp reads the whole K/V sub-tile from shared
+// memory for its 16 rows (16 flops per byte, half the tensor cores' rate
+// at the SM's 128 B/clk); wgmma's 64-row warpgroup tiles are the fix.
+//
+// flash_fwd_kernel (f32, decode) is simple rather than fast: scores and
+// p v run in f32 on the CUDA cores, 8 warps own 4 query rows each per
 // pass, K/V tiles are staged through shared memory 32 keys at a time (so
 // d = 256 with 128-key tiles fits: 32 q rows + 32 keys + 32 x 128 scores
 // of f32 = 97 KB), and a query block of more than 32 rows re-reads its K/V
-// tiles once per pass (from L2).  The online softmax still updates once
-// per schedule tile: all block_k scores of a tile are in shared memory
-// before its row max is taken.  Decode (block_q = 1) keeps one warp busy
-// per CTA; split-K is later work.
+// tiles once per pass (from L2).  The online softmax updates once per
+// schedule tile: all block_k scores of a tile are in shared memory before
+// its row max is taken.  Decode (block_q = 1) keeps one warp busy per CTA;
+// split-K is later work.
 
+#include "async_ring.cuh"
 #include "attention_common.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -71,6 +126,30 @@ __device__ __forceinline__ void row_bounds(const AttnParams& p, int qb,
   }
 }
 
+// The key-block extent [start, end] of query-block row qb under the
+// lowering, clamped by batch row b's seq_pos; pos: that position (or 0).
+__device__ __forceinline__ void row_extent(const AttnParams& p, int qb, int b,
+                                           const int* __restrict__ ext,
+                                           const int* __restrict__ pos_vec,
+                                           int& start, int& end, int& pos) {
+  if (p.lowering == kPrefetchLut || p.lowering == kMma) {
+    start = ext[2 * qb];
+    end = ext[2 * qb + 1];
+  } else if (p.lowering == kBounding) {
+    start = 0;
+    end = p.m_k - 1;
+  } else {
+    row_bounds(p, qb, start, end);
+  }
+  pos = 0;
+  if (p.has_pos) {
+    pos = pos_vec[b];
+    end = min(end, floor_div(pos, p.block_k));
+    if (p.kind == kFull && p.window)
+      start = max(start, floor_div(max(pos - p.window + 1, 0), p.block_k));
+  }
+}
+
 template <typename T, int DPL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(AttnParams p, const T* __restrict__ q,
@@ -83,23 +162,8 @@ flash_fwd_kernel(AttnParams p, const T* __restrict__ q,
   const int bh = (int)(cta / p.m_q), qb = (int)(cta % p.m_q);
   const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
 
-  int start, end;
-  if (p.lowering == kPrefetchLut || p.lowering == kMma) {
-    start = ext[2 * qb];
-    end = ext[2 * qb + 1];
-  } else if (p.lowering == kBounding) {
-    start = 0;
-    end = p.m_k - 1;
-  } else {
-    row_bounds(p, qb, start, end);
-  }
-  int pos = 0;
-  if (p.has_pos) {
-    pos = pos_vec[b];
-    end = min(end, floor_div(pos, p.block_k));
-    if (p.kind == kFull && p.window)
-      start = max(start, floor_div(max(pos - p.window + 1, 0), p.block_k));
-  }
+  int start, end, pos;
+  row_extent(p, qb, b, ext, pos_vec, start, end, pos);
 
   const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * p.d;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
@@ -116,6 +180,302 @@ flash_fwd_kernel(AttnParams p, const T* __restrict__ q,
                           p.off + qb * p.block_q + row0, nrows, pos, st);
     }
     store_rows<T, DPL>(o + q_off, row0, nrows, p.d, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_fwd_tc_kernel: the bf16 tile path on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRowsPerWarp = 16;  // one m16 tile of query rows per warp
+constexpr int kTcMaxWarps = 8;
+constexpr int kTcRowsPerPass = kTcRowsPerWarp * kTcMaxWarps;
+constexpr int kTcSub = 64;  // keys per sub-tile: one ring slot of K and V
+constexpr int kTcPad = 8;   // bf16 padding per shared row (16 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The instantiated head dim of d (a multiple of 16 up to 256), its ring
+// depth, and one CTA's dynamic shared memory: the pass's query rows and
+// `stages` slots of a K and a V sub-tile, rows of dt + kTcPad bf16.
+constexpr __host__ __device__ int tc_dt(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+constexpr __host__ __device__ int tc_stages(int dt) {
+  return dt > 128 ? 2 : 3;
+}
+__host__ __device__ inline size_t tc_smem_bytes(int d, int block_q) {
+  const int dt = tc_dt(d);
+  const int rows = block_q < kTcRowsPerPass ? block_q : kTcRowsPerPass;
+  return ((size_t)rows + (size_t)tc_stages(dt) * 2 * kTcSub) *
+         (size_t)(dt + kTcPad) * sizeof(__nv_bfloat16);
+}
+
+// The first key block at or after kb that the row visits (bounding skips
+// the tiles outside the block domain); end + 1 when none is left.
+__device__ __forceinline__ int next_live(const AttnParams& p, int kb, int qb,
+                                         int end) {
+  if (p.lowering == kBounding)
+    while (kb <= end && !in_domain(p, kb, qb)) ++kb;
+  return kb;
+}
+
+// e^x as 2^(x log2 e) on the SFU (ex2.approx: relative error ~2^-22,
+// denormal results flushed to 0; p is rounded to bf16 for p v anyway).
+__device__ __forceinline__ float exp_f32(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, kLog2e)));
+  return y;
+}
+
+// d <= 64 fits two CTAs per SM (at most 128 registers a thread, 74 KB of
+// shared memory each); wider heads run one CTA of up to 255 registers.
+template <int DT>
+__global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
+flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int* __restrict__ ext,
+                    const int* __restrict__ pos_vec,
+                    __nv_bfloat16* __restrict__ o) {
+  constexpr int kStages = tc_stages(DT);
+  constexpr int kStride = DT + kTcPad;  // shared row, bf16 elements
+  constexpr int kNt = kTcSub / 8;       // score n-tiles of a sub-tile
+  constexpr int kOt = DT / 8;           // output n-tiles
+  constexpr size_t kSlot = (size_t)2 * kTcSub * kStride;  // K then V
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* const sq = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* const skv =
+      sq + (size_t)min(p.block_q, kTcRowsPerPass) * kStride;
+
+  // query-block rows outermost (longest first under causal and local),
+  // then (batch, head): the q heads of one kv head are neighbours
+  const int bhs = p.b * p.h;
+  int qb = (int)(blockIdx.x / bhs);
+  const int bh = (int)(blockIdx.x - (unsigned)qb * bhs);
+  if (p.kind != kFull) qb = p.m_q - 1 - qb;
+  const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
+  int start, end, pos;
+  row_extent(p, qb, b, ext, pos_vec, start, end, pos);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int d = p.d, bk = p.block_k;
+  const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
+  const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
+  // ldmatrix row offsets of this lane: A (Q) tiles take matrices
+  // (rows 0-7 | 8-15) x (cols 0-7 | 8-15) in register order, K's B tiles
+  // (keys 0-7 | 8-15) x (d 0-7 | 8-15), V's transposed B tiles
+  // (keys 0-7 | 8-15) x (d 0-7 | 8-15) with the key half first
+  const int lrow = lane & 7, mi = lane >> 3;
+  const int a_row = (mi & 1) * 8 + lrow, a_col = (mi >> 1) * 8;
+  const int k_row = (mi >> 1) * 8 + lrow, k_col = (mi & 1) * 8;
+  const int v_row = (mi & 1) * 8 + lrow, v_col = (mi >> 1) * 8;
+
+  // the ring's step cursor: key block kb, sub-tile offset c within it
+  auto advance = [&](int& kb, int& c) {
+    c += kTcSub;
+    if (c >= bk) {
+      c = 0;
+      kb = next_live(p, kb + 1, qb, end);
+    }
+  };
+  auto issue = [&](int kb, int c, int slot) {
+    const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
+    const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
+    const int rows = min(kTcSub, bk - c);
+    __nv_bfloat16* dst = skv + (size_t)slot * kSlot;
+    ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
+    ring::copy_rows(dst + (size_t)kTcSub * kStride, kStride, v + t_off, d,
+                    rows, d);
+  };
+
+  for (int row0 = 0; row0 < p.block_q; row0 += kTcRowsPerPass) {
+    const int nrows = min(kTcRowsPerPass, p.block_q - row0);
+    const bool busy = warp * kTcRowsPerWarp < nrows;
+    const int qrow = p.off + qb * p.block_q + row0 + warp * kTcRowsPerWarp + g;
+
+    // prologue: Q rides in the first group, then stages - 1 ring steps
+    ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows, d);
+    int kb_c = next_live(p, start, qb, end), c_c = 0;
+    int kb_p = kb_c, c_p = 0;
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (kb_p <= end) {
+        issue(kb_p, c_p, st);
+        advance(kb_p, c_p);
+      }
+      ring::commit();
+    }
+
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    float acc[kOt][4];
+#pragma unroll
+    for (int ot = 0; ot < kOt; ++ot)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ot][e] = 0.0f;
+
+    int slot = 0;
+    while (kb_c <= end) {
+      ring::wait<kStages - 2>();
+      __syncthreads();  // slot `slot` landed; slot - 1 is free again
+      if (kb_p <= end) {
+        issue(kb_p, c_p, slot == 0 ? kStages - 1 : slot - 1);
+        advance(kb_p, c_p);
+      }
+      ring::commit();
+
+      if (busy) {
+        const __nv_bfloat16* sk = skv + (size_t)slot * kSlot;
+        const __nv_bfloat16* sv = sk + (size_t)kTcSub * kStride;
+        const __nv_bfloat16* sqw = sq + (size_t)warp * kTcRowsPerWarp * kStride;
+        const int nkeys = min(kTcSub, bk - c_c);  // a multiple of 16
+
+        // -- S = Q K^T: 16 rows x nkeys, f32 ---------------------------
+        // each k-step loads its A and B fragments before its products, so
+        // one ldmatrix latency is paid per k-step, not per product
+        float s[kNt][4];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < DT / 16; ++ks) {
+          if (ks * 16 < d) {
+            unsigned a[4], kf[kNt / 2][4];
+            tc::ldmatrix_x4(a, sqw + (size_t)a_row * kStride + ks * 16 + a_col);
+#pragma unroll
+            for (int np = 0; np < kNt / 2; ++np)
+              if (np * 16 < nkeys)
+                tc::ldmatrix_x4(kf[np], sk + (size_t)(np * 16 + k_row) *
+                                                 kStride + ks * 16 + k_col);
+#pragma unroll
+            for (int np = 0; np < kNt / 2; ++np) {
+              if (np * 16 < nkeys) {
+                tc::mma_bf16(s[2 * np], a, make_uint2(kf[np][0], kf[np][1]));
+                tc::mma_bf16(s[2 * np + 1], a,
+                             make_uint2(kf[np][2], kf[np][3]));
+              }
+            }
+          }
+        }
+
+        // -- scale after the product, then the masks of tile_update -----
+        // (per element only where the warp's rows and the sub-tile's keys
+        // may meet a mask edge: all_live is uniform across the warp)
+        const int kmin = kb_c * bk + c_c;
+        const int qmin = qrow - g;
+        if (keys_all_live(p, qmin, qmin + kTcRowsPerWarp - 1, kmin,
+                          kmin + nkeys - 1, pos)) {
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[nt][e] = __fmul_rn(s[nt][e], p.scale);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[nt][e] = key_live(p, qrow + (e >> 1) * 8,
+                                  kmin + 2 * t4 + nt * 8 + (e & 1), pos)
+                             ? __fmul_rn(s[nt][e], p.scale)
+                             : kNegInf;
+        }
+
+        // -- online softmax over the sub-tile (rows g and g + 8) ---------
+        // lane partials of l: the quad's four lanes add at the end
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+            if (nt * 8 < nkeys)
+              mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = exp_f32(__fsub_rn(m[i], m_new));
+          float sum = 0.0f;
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+            if (nt * 8 < nkeys) {
+#pragma unroll
+              for (int e = 2 * i; e < 2 * i + 2; ++e) {
+                s[nt][e] = exp_f32(__fsub_rn(s[nt][e], m_new));
+                sum = __fadd_rn(sum, s[nt][e]);
+              }
+            }
+          }
+          l[i] = __fmaf_rn(alpha, l[i], sum);
+          m[i] = m_new;
+          // (no row max of the warp moved: alpha is 1 and O stays)
+          if (!__all_sync(0xffffffffu, alpha == 1.0f)) {
+#pragma unroll
+            for (int ot = 0; ot < kOt; ++ot) {
+              acc[ot][2 * i] = __fmul_rn(acc[ot][2 * i], alpha);
+              acc[ot][2 * i + 1] = __fmul_rn(acc[ot][2 * i + 1], alpha);
+            }
+          }
+        }
+
+        // -- O += P V: P in bf16 from the score fragments (C -> A) -------
+        // V fragments load four at a time ahead of their products
+#pragma unroll
+        for (int kk = 0; kk < kNt / 2; ++kk) {
+          if (kk * 16 < nkeys) {
+            const unsigned a[4] = {
+                tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int n0 = 0; n0 < DT / 16; n0 += 4) {
+              unsigned vf[4][4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if ((n0 + j) * 16 < d)
+                  tc::ldmatrix_x4_trans(
+                      vf[j], sv + (size_t)(kk * 16 + v_row) * kStride +
+                                 (n0 + j) * 16 + v_col);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if ((n0 + j) * 16 < d) {
+                  tc::mma_bf16(acc[2 * (n0 + j)], a,
+                               make_uint2(vf[j][0], vf[j][1]));
+                  tc::mma_bf16(acc[2 * (n0 + j) + 1], a,
+                               make_uint2(vf[j][2], vf[j][3]));
+                }
+              }
+            }
+          }
+        }
+      }
+      advance(kb_c, c_c);
+      slot = slot + 1 == kStages ? 0 : slot + 1;
+    }
+    ring::wait<0>();
+    __syncthreads();  // every reader of sq and the ring is done
+
+    // -- out = O / l (l == 0 -> 1), rounded to bf16 -----------------------
+    if (busy) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float lt = l[i];
+        lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 1));
+        lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 2));
+        if (lt == 0.0f) lt = 1.0f;
+        __nv_bfloat16* dst =
+            o + q_off + (size_t)(row0 + warp * kTcRowsPerWarp + g + 8 * i) * d +
+            2 * t4;
+#pragma unroll
+        for (int ot = 0; ot < kOt; ++ot) {
+          if (ot * 8 < d)
+            *reinterpret_cast<unsigned*>(dst + ot * 8) =
+                tc::pack_bf16(__fdiv_rn(acc[ot][2 * i], lt),
+                              __fdiv_rn(acc[ot][2 * i + 1], lt));
+        }
+      }
+    }
   }
 }
 
@@ -172,6 +532,22 @@ int launch_flash(const AttnParams& p, const T* q, const T* k, const T* v,
   return (int)cudaGetLastError();
 }
 
+template <int DT>
+int launch_flash_tc(const AttnParams& p, const __nv_bfloat16* q,
+                    const __nv_bfloat16* k, const __nv_bfloat16* v,
+                    const int* ext, const int* pos, __nv_bfloat16* o,
+                    cudaStream_t s) {
+  const size_t bytes = tc_smem_bytes(p.d, p.block_q);
+  auto kernel = flash_fwd_tc_kernel<DT>;
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = p.block_q < kTcRowsPerPass ? p.block_q : kTcRowsPerPass;
+  const int warps = rows / kTcRowsPerWarp;
+  const long long ctas = (long long)p.b * p.h * p.m_q;
+  kernel<<<(unsigned)ctas, warps * 32, bytes, s>>>(p, q, k, v, ext, pos, o);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DPL>
 int launch_paged(const AttnParams& p, const T* q, const T* pool,
                  const int* table, const int* pos, T* o, cudaStream_t s) {
@@ -198,6 +574,27 @@ int flash(const long long* params, float scale, const void* q, const void* k,
   if (p.d <= 128) return launch_flash<T, 4>(p, qq, kk, vv, ext, pos, oo, s);
   if (p.d <= 256) return launch_flash<T, 8>(p, qq, kk, vv, ext, pos, oo, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tc kernel takes block_q, block_k and d multiples of 16, d <= 256.
+int flash_tc(const long long* params, float scale, const void* q,
+             const void* k, const void* v, const int* ext, const int* pos,
+             void* o, cudaStream_t s) {
+  const AttnParams p = make_params(params, scale);
+  if (p.block_q % 16 || p.block_k % 16 || p.d % 16 || p.d > 256)
+    return (int)cudaErrorInvalidValue;
+  const auto *qq = static_cast<const __nv_bfloat16*>(q),
+             *kk = static_cast<const __nv_bfloat16*>(k),
+             *vv = static_cast<const __nv_bfloat16*>(v);
+  auto* oo = static_cast<__nv_bfloat16*>(o);
+  switch (tc_dt(p.d)) {
+    case 64:
+      return launch_flash_tc<64>(p, qq, kk, vv, ext, pos, oo, s);
+    case 128:
+      return launch_flash_tc<128>(p, qq, kk, vv, ext, pos, oo, s);
+    default:
+      return launch_flash_tc<256>(p, qq, kk, vv, ext, pos, oo, s);
+  }
 }
 
 template <typename T>
@@ -236,6 +633,15 @@ int fa_forward_bf16(const long long* params, float scale, const void* q,
                               static_cast<cudaStream_t>(stream));
 }
 
+// The same on the tensor cores, bf16 only (flash_fwd_tc_kernel): params
+// as fa_forward_bf16, with block_q, block_k and d multiples of 16.
+int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
+                       const void* k, const void* v, const int* ext,
+                       const int* pos, void* o, void* stream) {
+  return flash_tc(params, scale, q, k, v, ext, pos, o,
+                  static_cast<cudaStream_t>(stream));
+}
+
 // o (B, H, 1, d) = single-token decode of q (B, H, 1, d) through the
 // (B, max_pages) int32 page table into the fused pool
 // (P, 2 Hkv, page_size, d); pos: (B,) int32.
@@ -256,6 +662,11 @@ int fa_paged_decode_bf16(const long long* params, float scale, const void* q,
 // Dynamic shared memory of one CTA of either kernel at (d, block_k).
 long long fa_smem_bytes(int d, int block_k) {
   return (long long)(smem_floats(d, block_k) * sizeof(float));
+}
+
+// Dynamic shared memory of one CTA of the tc kernel at (d, block_q).
+long long fa_tc_smem_bytes(int d, int block_q) {
+  return (long long)tc_smem_bytes(d, block_q);
 }
 
 const char* cuda_error_string(int status) {

@@ -47,6 +47,7 @@
 #pragma once
 
 #include "fractal_common.cuh"
+#include "mma_sync.cuh"
 
 namespace fractal {
 
@@ -57,15 +58,8 @@ __device__ __forceinline__ unsigned pack2(bool lo, bool hi) {
   return (lo ? kBf16One : 0u) | ((hi ? kBf16One : 0u) << 16);
 }
 
-// d += A * B on one 16x8x16 tile (A row-major, B column-major fragments).
-__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
+// d += A * B on one 16x8x16 tile (mma_sync.cuh).
+using tc::mma_bf16;
 
 // Element (kRow, kCol) of the warp's D tile, broadcast to every lane:
 // lane 4 * (row % 8) + col / 2 holds it in register 2 * (row / 8) + col % 2.

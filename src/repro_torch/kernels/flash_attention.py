@@ -32,6 +32,16 @@ page through the page table.  At ``block_k == page_size`` it is bit-equal
 to the contiguous ``seq_pos`` decode: both kernels run one shared tile
 update (``csrc/attention_common.cuh``) in the same order.
 
+Two kernels compute ``flash_attention`` on the card, picked by
+:func:`flash_route` from dtype and shape before any launch:
+``flash_fwd_tc_kernel`` (``"tc"``: bf16 with block_q, block_k and the
+head dim multiples of 16, on the tensor cores, K/V streamed through a
+cp.async ring) and ``flash_fwd_kernel`` (``"cuda_core"``: every other
+call -- f32, decode at block_q = 1, odd head dims, small blocks -- in
+f32 on the CUDA cores).  ``paged_flash_attention`` and the block_q = 1
+decode stay on the CUDA-core tile update, so paged decode stays
+bit-equal to the contiguous one.
+
 Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
 heads).  The entry points follow the tensors' device: CUDA tensors
@@ -495,6 +505,7 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "fa_forward_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
+    "fa_forward_tc_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_paged_decode_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
     "fa_paged_decode_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
 }
@@ -507,8 +518,9 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.fa_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.fa_smem_bytes.restype = ctypes.c_longlong
+        for name in ("fa_smem_bytes", "fa_tc_smem_bytes"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -538,47 +550,102 @@ def _check_cuda(what: str, *tensors) -> None:
                          f"{MAX_HEAD_DIM}]")
 
 
-def _check_smem(lib, device, d: int, block_k: int) -> None:
-    need = lib.fa_smem_bytes(d, block_k)
+def _check_smem(device, need: int, what: str) -> None:
+    """Raise unless ``need`` bytes of shared memory per CTA fit the card's
+    opt-in limit; ``what`` names the geometry."""
     have = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
     if need > have:
         raise ValueError(
-            f"block_k={block_k} at head dim {d} needs {need} B of shared "
-            f"memory per CTA, more than the card's {have}")
+            f"{what} needs {need} B of shared memory per CTA, more than "
+            f"the card's {have}")
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def flash_cuda(q, k, v, sched: FlashSchedule,
-               pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the flash kernel: (B, H, Sq, D) in q's dtype."""
-    _check_cuda("flash attention", q, k, v)
-    lib = _lib()
-    _check_smem(lib, q.device, sched.d, sched.block_k)
+def flash_route(sched: FlashSchedule, dtype, aligned: bool = True) -> str:
+    """The flash kernel a launch takes, from dtype, shape and alignment
+    alone: ``"tc"`` (flash_fwd_tc_kernel, the tensor cores) for bf16 with
+    block_q, block_k and the head dim multiples of 16 and q, k, v on
+    16-byte boundaries (``aligned``: the kernel copies 16-byte pieces),
+    ``"cuda_core"`` (flash_fwd_kernel) for every other call."""
+    if (dtype == torch.bfloat16 and aligned and sched.block_q % 16 == 0
+            and sched.block_k % 16 == 0 and sched.d % 16 == 0):
+        return "tc"
+    return "cuda_core"
+
+
+def _aligned(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
+    """Run one flash kernel's C entry point ``fn``; returns the output."""
+    if pos is not None and (pos.device != q.device
+                            or pos.dtype != torch.int32):
+        raise ValueError("seq_pos must be an int32 tensor on q's device")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     ext = sched.row_extents(q.device) \
         if sched.lowering in TABLE_LOWERINGS else None
-    if pos is not None and (pos.device != q.device
-                            or pos.dtype != torch.int32):
-        raise ValueError("seq_pos must be an int32 tensor on q's device")
-    fn = lib.fa_forward_f32 if q.dtype == torch.float32 \
-        else lib.fa_forward_bf16
     with torch.cuda.device(q.device):
         status = fn(sched.c_params(pos is not None), sched.scale,
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     _cuda.ptr(ext), _cuda.ptr(pos), out.data_ptr(),
                     _stream(q.device))
-    flash_cuda.launches += 1
-    _cuda.raise_on(lib, status, "flash attention kernel")
+    _cuda.raise_on(_lib(), status, what)
+    return out
+
+
+def flash_cuda(q, k, v, sched: FlashSchedule,
+               pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the flash kernel :func:`flash_route` picks: (B, H, Sq, D) in
+    q's dtype.  Counts the CUDA-core kernel's launches; the tensor-core
+    kernel counts its own (:func:`flash_tc_cuda`)."""
+    _check_cuda("flash attention", q, k, v)
+    if flash_route(sched, q.dtype, _aligned(q, k, v)) == "tc":
+        return flash_tc_cuda(q, k, v, sched, pos)
+    lib = _lib()
+    _check_smem(q.device, lib.fa_smem_bytes(sched.d, sched.block_k),
+                f"block_k={sched.block_k} at head dim {sched.d}")
+    fn = lib.fa_forward_f32 if q.dtype == torch.float32 \
+        else lib.fa_forward_bf16
+    out = _launch_flash(fn, q, k, v, sched, pos, "flash attention kernel")
+    if out.numel():
+        flash_cuda.launches += 1
     return out
 
 
 flash_cuda.launches = 0
+
+
+def flash_tc_cuda(q, k, v, sched: FlashSchedule,
+                  pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the tensor-core flash kernel (bf16; block_q, block_k and
+    the head dim multiples of 16, q, k and v 16-byte aligned, as
+    :func:`flash_route` sends them): (B, H, Sq, D) bf16."""
+    _check_cuda("flash attention", q, k, v)
+    if flash_route(sched, q.dtype, _aligned(q, k, v)) != "tc":
+        raise ValueError(
+            f"the tensor-core flash kernel takes 16-byte aligned bf16 with "
+            f"block_q, block_k and head dim multiples of 16, got {q.dtype}, "
+            f"blocks {sched.block_q}/{sched.block_k}, head dim {sched.d}")
+    lib = _lib()
+    _check_smem(q.device, lib.fa_tc_smem_bytes(sched.d, sched.block_q),
+                f"block_q={sched.block_q} at head dim {sched.d} (tensor "
+                f"cores)")
+    out = _launch_flash(lib.fa_forward_tc_bf16, q, k, v, sched, pos,
+                        "flash attention kernel (tensor cores)")
+    if out.numel():
+        flash_tc_cuda.launches += 1
+    return out
+
+
+flash_tc_cuda.launches = 0
 
 
 def paged_cuda(q, kv_pool, page_table, pos,
@@ -586,7 +653,8 @@ def paged_cuda(q, kv_pool, page_table, pos,
     """Launch the paged decode kernel: (B, H, 1, D) in q's dtype."""
     _check_cuda("paged decode", q, kv_pool)
     lib = _lib()
-    _check_smem(lib, q.device, sched.d, sched.page_size)
+    _check_smem(q.device, lib.fa_smem_bytes(sched.d, sched.page_size),
+                f"block_k={sched.page_size} at head dim {sched.d}")
     for name, t in (("page_table", page_table), ("seq_pos", pos)):
         if (t.device != q.device or t.dtype != torch.int32
                 or not t.is_contiguous()):
@@ -610,7 +678,10 @@ paged_cuda.launches = 0
 
 #: kernel name -> its CUDA wrapper (each carries ``launches``)
 KERNELS = {"flash_attention": flash_cuda,
+           "flash_attention_tc": flash_tc_cuda,
            "paged_flash_attention": paged_cuda}
+#: flash_route's answer -> the name of the kernel it launches
+ROUTE_KERNELS = {"tc": "flash_attention_tc", "cuda_core": "flash_attention"}
 
 
 def reset_launch_counts() -> None:
@@ -627,28 +698,61 @@ def launch_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 #: kernel-vs-plain tolerance per input dtype: the JAX tests' own
-#: (tests/test_kernels.py, f32 and bf16).  The kernel sums each dot
-#: product sequentially over d and the plain version through a matmul.
+#: (tests/test_kernels.py, f32 and bf16).  The CUDA-core kernel sums each
+#: dot product sequentially over d and the plain version through a
+#: matmul; the tensor-core kernel also updates the softmax per 64-key
+#: sub-tile and rounds p to bf16 before p v, where the plain version
+#: keeps f32 p.
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: bf16 also holds each output row (one (batch, head, query) over d) to
+#: ||kernel - plain|| / ||plain|| <= ROW_RTOL.  The outputs of randn
+#: inputs over thousands of keys are a few 1e-2, so 2e-2 alone passes a
+#: row that lost one 64-key sub-tile of S keys, which moves the row by
+#: about sqrt(64 / S) of its norm (0.125 at 4096 keys); the sound kernel's
+#: rounding (p and the output to bf16, 2^-9 relative each) leaves ~0.0035
+#: (tests/test_torch_flash_tc.py's emulation against the plain version at
+#: the head dim and lengths of gemma3-12b).
+ROW_RTOL = {torch.bfloat16: 1e-2}
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the output rows (the
+    last dim), in f32; 0 for an empty output."""
+    if not got.numel():
+        return 0.0
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    den = torch.linalg.vector_norm(w, dim=-1).clamp_min(1e-30)
+    return float((torch.linalg.vector_norm(g - w, dim=-1) / den).max())
 
 
 def _compare(got, want, what) -> float:
+    """Raise AssertionError unless the kernel's output ``got`` agrees with
+    the plain version's ``want`` within TOLERANCE (and, in bf16, every row
+    within ROW_RTOL); returns max |err|."""
     tol = TOLERANCE[want.dtype]
     g, w = got.to(torch.float32), want.to(torch.float32)
     err = float((g - w).abs().max()) if g.numel() else 0.0
     if not torch.allclose(g, w, rtol=tol, atol=tol):
         raise AssertionError(f"{what}: kernel != plain version (max |err| "
                              f"{err}, rtol = atol = {tol})")
+    if want.dtype in ROW_RTOL:
+        rel = row_rel_err(got, want)
+        if rel > ROW_RTOL[want.dtype]:
+            raise AssertionError(
+                f"{what}: a row of the kernel's output is {rel} of its norm "
+                f"off the plain version's (bound {ROW_RTOL[want.dtype]})")
     return err
 
 
 def check_flash_against_plain(q, k, v, sched: FlashSchedule, pos=None):
     """Run the flash kernel and its plain version on the same inputs;
-    raise AssertionError unless they agree within TOLERANCE.  Returns
+    raise AssertionError unless they agree (:func:`_compare`).  Returns
     (max |err|, kernel output)."""
     got = flash_cuda(q, k, v, sched, pos)
     want = flash_attention_plain(q, k, v, sched, pos)
-    what = (f"flash {sched.kind} {sched.lowering} q {tuple(q.shape)} "
+    route = flash_route(sched, q.dtype, _aligned(q, k, v))
+    what = (f"flash ({route}) {sched.kind} "
+            f"{sched.lowering} q {tuple(q.shape)} "
             f"k {tuple(k.shape)} blocks {sched.block_q}/{sched.block_k} "
             f"{q.dtype}")
     return _compare(got, want, what), got
@@ -657,7 +761,7 @@ def check_flash_against_plain(q, k, v, sched: FlashSchedule, pos=None):
 def check_paged_against_plain(q, kv_pool, page_table, pos,
                               sched: PagedSchedule):
     """Run the paged kernel and its plain version; raise unless they
-    agree within TOLERANCE.  Returns (max |err|, kernel output)."""
+    agree (:func:`_compare`).  Returns (max |err|, kernel output)."""
     got = paged_cuda(q, kv_pool, page_table, pos, sched)
     want = paged_attention_plain(q, kv_pool, page_table, pos, sched)
     what = (f"paged decode q {tuple(q.shape)} pool "

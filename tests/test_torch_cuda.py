@@ -289,6 +289,7 @@ def test_attention_entry_points_launch_the_kernels(dev):
     table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
     dec = ops.paged_flash_attention(q[:, :, :1], pool, table, 20)
     assert FA.launch_counts() == {"flash_attention": 1,
+                                  "flash_attention_tc": 0,
                                   "paged_flash_attention": 1}
     assert out.shape == q.shape and dec.shape == (1, 2, 1, 32)
     with pytest.raises(ValueError, match="contiguous"):
@@ -314,7 +315,113 @@ def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
     with pytest.raises(ValueError, match="shared memory"):
         FA.paged_cuda(q, pool, table, pos, psched)
     assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_tc": 0,
                                   "paged_flash_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# B4's bf16 tile path on the tensor cores (flash_fwd_tc_kernel)
+# ---------------------------------------------------------------------------
+
+TC_HEADS = {"MHA": (4, 4), "GQA": (8, 4), "MQA": (8, 1)}
+
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("heads", list(TC_HEADS))
+@pytest.mark.parametrize("kind", ["causal", "local", "full"])
+def test_flash_tc_kernel_matches_plain(dev, kind, heads, d, block):
+    # every lowering within the bf16 tolerance of the plain version and
+    # bit-equal to the others, each launch on the tensor cores
+    h, hkv = TC_HEADS[heads]
+    s = 4 * block if kind == "local" else 2 * block
+    q = _randn((2, h, s, d), 21, dev, torch.bfloat16)
+    k = _randn((2, hkv, s, d), 22, dev, torch.bfloat16)
+    v = _randn((2, hkv, s, d), 23, dev, torch.bfloat16)
+    FA.reset_launch_counts()
+    outs = []
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                  window=2 * block if kind == "local" else 0,
+                                  block_q=block, block_k=block, grid_mode=gm)
+        assert FA.flash_route(sched, q.dtype) == "tc"
+        outs.append(FA.check_flash_against_plain(q, k, v, sched)[1])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert FA.launch_counts()["flash_attention_tc"] == len(LOWERINGS)
+    assert FA.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+def test_flash_tc_kernel_compact_kv_and_seq_pos(dev, grid_mode):
+    from repro_torch.core.compact import pack_kv
+    # rectangular local with compact KV: bit-equal to embedded
+    q = _randn((1, 4, 128, 64), 24, dev, torch.bfloat16)
+    k = _randn((1, 2, 512, 64), 25, dev, torch.bfloat16)
+    v = _randn((1, 2, 512, 64), 26, dev, torch.bfloat16)
+    full = FA.flash_schedule(q.shape, k.shape, kind="local", window=128,
+                             block_q=64, block_k=64, grid_mode=grid_mode)
+    kc = pack_kv(k, full.domain, 64).contiguous()
+    vc = pack_kv(v, full.domain, 64).contiguous()
+    sched = FA.flash_schedule(q.shape, kc.shape, kind="local", window=128,
+                              block_q=64, block_k=64, grid_mode=grid_mode,
+                              storage="compact", kv_seq_len=512)
+    FA.reset_launch_counts()
+    _, emb = FA.check_flash_against_plain(q, k, v, full)
+    _, comp = FA.check_flash_against_plain(q, kc, vc, sched)
+    assert torch.equal(emb, comp)
+    # seq_pos at block_q 64: scalar and per-row, with and without a window
+    qs = _randn((3, 4, 64, 64), 27, dev, torch.bfloat16)
+    ks = _randn((3, 2, 512, 64), 28, dev, torch.bfloat16)
+    vs = _randn((3, 2, 512, 64), 29, dev, torch.bfloat16)
+    for pos, win in ((300, 0), ([37, 511, 128], 0), ([37, 511, 200], 100)):
+        sp = FA.flash_schedule(qs.shape, ks.shape, kind="full", window=win,
+                               block_q=64, block_k=64, grid_mode=grid_mode,
+                               has_pos=True)
+        FA.check_flash_against_plain(qs, ks, vs, sp,
+                                     FA.seq_pos_vector(pos, 3, dev))
+    assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_tc": 5,
+                                  "paged_flash_attention": 0}
+
+
+def test_flash_tc_routing_on_the_card(dev):
+    # bf16 prefill takes the tensor-core kernel; f32 and decode do not
+    q = _randn((1, 2, 128, 64), 30, dev, torch.bfloat16)
+    FA.reset_launch_counts()
+    ops.flash_attention(q, q, q, kind="causal", block_q=64, block_k=64)
+    assert FA.launch_counts()["flash_attention_tc"] == 1
+    ops.flash_attention(q.float(), q.float(), q.float(), kind="causal",
+                        block_q=64, block_k=64)
+    qd = q[:, :, :1].contiguous()
+    ops.flash_attention(qd, q, q, kind="full", block_q=1, block_k=64,
+                        seq_pos=100)
+    assert FA.launch_counts() == {"flash_attention": 2,
+                                  "flash_attention_tc": 1,
+                                  "paged_flash_attention": 0}
+    with pytest.raises(ValueError, match="tensor-core"):
+        FA.flash_tc_cuda(q.float(), q.float(), q.float(), FA.flash_schedule(
+            q.shape, q.shape, block_q=64, block_k=64))
+
+
+def test_flash_misaligned_bf16_views_take_the_cuda_core_kernel(dev):
+    # the tc kernel copies 16-byte pieces: a contiguous bf16 view that
+    # starts 2 bytes past a boundary is routed to the CUDA-core kernel
+    # before any launch, and the tc entry point refuses it
+    shape = (1, 2, 128, 64)
+    n = 2 * 128 * 64
+    base = _randn((3 * n + 1,), 31, dev, torch.bfloat16)
+    q, k, v = (base[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    sched = FA.flash_schedule(shape, shape, kind="causal", block_q=64,
+                              block_k=64)
+    assert FA.flash_route(sched, q.dtype) == "tc"
+    FA.reset_launch_counts()
+    FA.check_flash_against_plain(q, k, v, sched)
+    assert FA.launch_counts() == {"flash_attention": 1,
+                                  "flash_attention_tc": 0,
+                                  "paged_flash_attention": 0}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_tc_cuda(q, k, v, sched)
 
 
 # ---------------------------------------------------------------------------
