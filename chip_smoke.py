@@ -84,25 +84,30 @@ Phases, each printing its own lines:
 9. parity-attn -- flash_attention against its plain version over
              causal / local / full x four lowerings x {MHA, GQA 16/8,
              MQA} x D {64, 128, 256} x blocks {64, 128} x f32/bf16 (the
-             lowerings bit-equal to each other; bf16 takes the
-             tensor-core kernel, f32 the CUDA-core one, counted per
-             kernel), rectangular local with compact KV (both dtypes,
-             bit-equal to embedded), seq_pos scalar / vector and full +
-             window at block_q 1 and, on the tensor cores, at block_q 64;
+             lowerings bit-equal to each other; bf16 takes the bf16
+             tensor-core kernel, f32 at D 64 and 128 the 3xTF32 one, f32
+             at D 256 the CUDA-core one, counted per kernel; each takes
+             at least one case), rectangular local with compact KV (both
+             dtypes, bit-equal to embedded), seq_pos scalar / vector and
+             full + window at block_q 1 and, on the tensor cores, at
+             block_q 64;
              the paged kernel against its plain version and bit-equal to
              the contiguous seq_pos kernel at block_k == page_size;
              every bf16 case also holds each output row to a relative
              error of ROW_RTOL (its largest printed per kernel);
 10. attn  -- flash_attention at the widths of quickstart (causal S 4096,
-             B 4, f32: the CUDA-core kernel) and gemma3-12b (D 256 bf16:
-             causal S 4096, local window 1024 at S 8192: the tensor-core
-             kernel) under the four lowerings: counts set to 0, the
-             entry point driven, counts read (each row's kernel launched
-             once, the other not at all); kernel vs plain (bf16 rows
-             also per row within ROW_RTOL: a fault in one 64-key sub-tile
-             of a long row stays inside rtol = atol = 2e-2), CUDA-event
-             medians of the kernel, its plain version and
-             scaled_dot_product_attention (a yardstick only);
+             B 4, f32: the 3xTF32 tensor-core kernel, also timed beside
+             the CUDA-core kernel on the same inputs) and gemma3-12b
+             (D 256 bf16: causal S 4096, local window 1024 at S 8192:
+             the bf16 tensor-core kernel) under the four lowerings:
+             counts set to 0, the entry point driven, counts read (each
+             row's kernel launched once, the others not at all); kernel
+             vs plain (bf16 rows also per row within ROW_RTOL: a fault in
+             one 64-key sub-tile of a long row stays inside rtol = atol =
+             2e-2), CUDA-event medians of the kernel, its plain version
+             and scaled_dot_product_attention (a yardstick only, its
+             device kernels named from a profiler trace); a summary line
+             per tensor-core kernel;
 11. serve -- launch counts set to 0, then Server.generate greedy on
              quickstart at full width (batch 8, prompt 128, 32 new,
              max_len 256) through the flash kernel; counts read and held
@@ -124,11 +129,17 @@ Phases, each printing its own lines:
              its plain version at the gemma3-12b decode shape (bf16,
              cache 1664, window 1024 and none);
 13. kernels line (B1-B5, the mma chains B7, and B4's tensor-core tile
-             path flash_attention_tc), then the result line.
+             paths flash_attention_tc (bf16) and flash_attention_tc_f32
+             (f32, 3xTF32)), then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
-commit unpacked beside this script).
+commit unpacked beside this script).  ``python3 chip_smoke.py --compare
+CHANGE.json [...] --parent PARENT.json [...]`` reads the JSON of runs of
+two trees (written to chiprun_out/chip_smoke.json; runs taken in turns
+on one card) and prints every time the change moved outside 0.94-1.06x
+of the parent's median, with both sides' runs; it needs no card and
+prints no result line.
 
 Any failed check raises: the script exits non-zero and prints no
 result line.  It needs one CUDA card and nvcc; full results are written
@@ -274,7 +285,7 @@ def phase_build(_cuda):
         for name in paths) + f" (in parallel, {secs:.1f} s in all)")
     kernels = ("write_kernel", "sum_partials_kernel", "sum_combine_kernel",
                "ca_fused_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
-               "paged_decode_kernel")
+               "flash_fwd_tf32_kernel", "paged_decode_kernel")
     for name, path in paths.items():
         print(f"[build] {name}: {path.name}")
         entry = ""
@@ -1187,8 +1198,10 @@ def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev):
 # block-space flash attention, paged decode and the LM servers
 # ---------------------------------------------------------------------------
 
-#: H100 SXM bf16 dense tensor-core peak (NVIDIA's data sheet, 700 W)
+#: H100 SXM bf16 and TF32 dense tensor-core peaks (NVIDIA's data sheet,
+#: 700 W)
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 #: parity-attn: head layouts (H, Hkv), head dims, square block sizes
 ATTN_HEADS = {"MHA": (4, 4), "GQA": (16, 8), "MQA": (8, 1)}
 ATTN_DIMS, ATTN_BLOCKS = (64, 128, 256), (64, 128)
@@ -1220,12 +1233,18 @@ PAGED_SLOTS, PAGED_PS, PAGED_PAGES = 8, 16, 49
 TIMING_KEYS = ("seconds", "tok_per_s", "ms_per_decode_step")
 
 
-def attn_bound(nbytes, nops, dtype):
+def attn_bound(nbytes, nops, dtype, route="cuda_core"):
     """Least time in ms: bytes over the memory rate, or the operations
-    over the dtype's peak (f32 on the CUDA cores, bf16 on the tensor
-    cores); returns (ms, bound_by, peak name)."""
-    peak, name = ((F32_OPS_PER_S, "f32 67 TFLOP/s") if dtype == torch.float32
-                  else (BF16_OPS_PER_S, "bf16 989 TFLOP/s"))
+    over the peak of the units that run them -- f32 on the CUDA cores,
+    bf16 on the tensor cores, or for the 3xTF32 kernel (route "tc_f32")
+    three tf32 products for each f32 one on the tensor cores; returns
+    (ms, bound_by, peak name)."""
+    if route == "tc_f32":
+        peak, name = TF32_OPS_PER_S / 3, "tf32 495 TFLOP/s, 3 products each"
+    elif dtype == torch.float32:
+        peak, name = F32_OPS_PER_S, "f32 67 TFLOP/s"
+    else:
+        peak, name = BF16_OPS_PER_S, "bf16 989 TFLOP/s"
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / peak * 1e3
     if t_bytes >= t_ops:
@@ -1324,8 +1343,8 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
     print("[parity-attn] rectangular local (Sq 256 of Sk 1024, window 256) "
           "with compact KV: within tolerance, bit-equal to embedded KV")
     # seq_pos: scalar and per-row, full + run-time window, at block_q 1
-    # (decode, the CUDA-core kernel in both dtypes) and block_q 64 (bf16
-    # on the tensor cores)
+    # (decode, the CUDA-core kernel in both dtypes) and block_q 64 (on the
+    # tensor cores: bf16, and f32 at D 64)
     for dtype in ATTN_DTYPES:
         for d in (64, 256):
             for sq, bq in ((1, 1), (64, 64)):
@@ -1370,7 +1389,7 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
     print(f"[parity-attn] paged decode: within tolerance of its plain "
           f"version and bit-equal to the contiguous seq_pos kernel at "
           f"block_k == page_size ({nbit} cases)")
-    check(cases["flash_attention_tc"] > 0 and cases["flash_attention"] > 0,
+    check(all(c > 0 for c in cases.values()),
           f"a flash kernel took no parity case: {cases}")
     print(f"[parity-attn] flash cases per kernel: {cases}; "
           f"{sum(cases.values()) + nbit} kernel-vs-plain comparisons "
@@ -1390,6 +1409,20 @@ def needed_pairs(kind, s, window):
     return s * s
 
 
+def sdpa_kernels(fn):
+    """The device kernels one call of ``fn`` launches, by name, from a
+    torch.profiler trace (the SDPA backend that ran); empty when the
+    trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if getattr(e, "device_type", None) is not None
+                   and "CUDA" in str(e.device_type)})
+
+
 def phase_attn(FA, LOWERINGS, dev):
     """flash_attention at the widths of quickstart and gemma3-12b under
     the four lowerings.  Per case the launch counts are set to 0, the
@@ -1397,8 +1430,10 @@ def phase_attn(FA, LOWERINGS, dev):
     kernel flash_route names launched once per lowering and no other.
     Then kernel vs plain (max |err| and the largest per-row relative
     error, bf16 held to FA.ROW_RTOL), and CUDA-event medians of the
-    kernel, its plain version and scaled_dot_product_attention.  Returns
-    (rows, launches per kernel over the counted runs)."""
+    kernel, its plain version and scaled_dot_product_attention (whose
+    device kernels are named); rows of the 3xTF32 kernel also time the
+    CUDA-core kernel on the same inputs (``cuda_core_ms``, uncounted).
+    Returns (rows, launches per kernel over the counted runs)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     launches = {name: 0 for name in FA.KERNELS}
@@ -1436,10 +1471,16 @@ def phase_attn(FA, LOWERINGS, dev):
                    "max_row_rel_err": FA.row_rel_err(out, plain),
                    "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
                    "plain_ms": plain_ms}
+            if route == "tc_f32":
+                # the CUDA-core kernel on the same inputs, through its C
+                # entry point (not a counted launch)
+                row["cuda_core_ms"] = time_ms(lambda: FA._launch_flash(
+                    FA._lib().fa_forward_f32, q, k, v, sched, None,
+                    "flash attention kernel"), 5)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             nops = 4 * d * b * h * needed_pairs(kind, s, window)
             row["bound_ms"], row["bound_by"], row["peak"] = attn_bound(
-                nbytes, nops, dtype)
+                nbytes, nops, dtype, route)
             rows.append(row)
         if kind == "causal":
             lib = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
@@ -1452,9 +1493,13 @@ def phase_attn(FA, LOWERINGS, dev):
                                enable_gqa=hkv != h)
         lib_ms = time_ms(lib, 5)
         lib_err = float((lib().float() - plain.float()).abs().max())
+        lib_kernels = sdpa_kernels(lib)
+        print(f"[attn] {name} ({dtype}): scaled_dot_product_attention ran "
+              f"{lib_kernels or 'no device kernel the profiler saw'}")
         for row in rows[-len(LOWERINGS):]:
             row["library_ms"] = lib_ms
             row["library_max_abs_err"] = lib_err
+            row["library_kernels"] = lib_kernels
             print(f"[attn] {json.dumps(row)}")
         del q, k, v, plain, outs
     tc_rows = [r for r in rows if r["kernel"] == "tc"]
@@ -1463,6 +1508,15 @@ def phase_attn(FA, LOWERINGS, dev):
           f"{FA.TOLERANCE[torch.bfloat16]}), max per-row relative error "
           f"{max(r['max_row_rel_err'] for r in tc_rows)} (bound "
           f"{FA.ROW_RTOL[torch.bfloat16]})")
+    f32_rows = [r for r in rows if r["kernel"] == "tc_f32"]
+    print(f"[attn] tc_f32 rows ({len(f32_rows)}): max |err| "
+          f"{max(r['max_abs_err'] for r in f32_rows)} (rtol = atol "
+          f"{FA.TOLERANCE[torch.float32]}), launches "
+          f"{launches['flash_attention_tc_f32']}, ms "
+          f"{[r['ms'] for r in f32_rows]} against the CUDA-core kernel's "
+          f"{[r['cuda_core_ms'] for r in f32_rows]}, bound "
+          f"{f32_rows[0]['bound_ms']} ms ({f32_rows[0]['peak']}), SDPA "
+          f"{f32_rows[0]['library_ms']} ms")
     print(f"[attn] launches of the counted entry-point runs: {launches}")
     return rows, launches
 
@@ -1774,7 +1828,70 @@ def decode_timings(FA, P, cfg, prompts, dev):
     return out
 
 
+#: keys of chip_smoke.json that hold a time (ms, ms per decode step, a
+#: serving run's seconds); throughputs and bounds are not compared
+TIME_KEY_SUFFIXES = ("_ms", "seconds", "ms_per_decode_step")
+TIME_KEYS = ("ms",)
+
+
+def timings(node, path=""):
+    """{path: [values]} of every time in a chip_smoke.json tree (a list
+    of times under one key, as the serving runs keep them, stays one
+    entry); rows of a list are keyed by their case / lowering / rho /
+    fuse / rule / domain fields where they have them."""
+    out = {}
+    if isinstance(node, dict):
+        for key, val in node.items():
+            timed = key in TIME_KEYS or (key.endswith(TIME_KEY_SUFFIXES)
+                                         and not key.startswith("bound"))
+            if timed and isinstance(val, (int, float)):
+                out[f"{path}/{key}"] = [float(val)]
+            elif timed and isinstance(val, list) and val and all(
+                    isinstance(x, (int, float)) for x in val):
+                out[f"{path}/{key}"] = [float(x) for x in val]
+            elif isinstance(val, (dict, list)):
+                out.update(timings(val, f"{path}/{key}"))
+    elif isinstance(node, list):
+        for i, val in enumerate(node):
+            tag = i
+            if isinstance(val, dict):
+                tag = ",".join(str(val[f]) for f in (
+                    "name", "case", "arch", "domain", "storage", "lowering",
+                    "rho", "coarsen", "fuse", "rule") if f in val) or i
+            out.update(timings(val, f"{path}[{tag}]"))
+    return out
+
+
+def compare(change_paths, parent_paths, lo=0.94, hi=1.06):
+    """Print every time whose change median lies outside [lo, hi] x the
+    parent median, with both sides' values; returns the count of times
+    compared and of those outside."""
+    def load(paths):
+        runs = [timings(json.loads(Path(p).read_text())) for p in paths]
+        keys = set.intersection(*(set(r) for r in runs))
+        return {k: [v for r in runs for v in r[k]] for k in keys}
+    change, parent = load(change_paths), load(parent_paths)
+    keys = sorted(set(change) & set(parent))
+    outside = 0
+    for key in keys:
+        c, p = change[key], parent[key]
+        if statistics.median(p) <= 0:
+            continue
+        ratio = statistics.median(c) / statistics.median(p)
+        if not lo <= ratio <= hi:
+            outside += 1
+            print(f"[compare] {key}: {ratio:.4f}x (change {c}, parent {p})")
+    print(f"[compare] {len(keys)} times compared, {outside} outside "
+          f"{lo}-{hi}x of the parent's median")
+    return len(keys), outside
+
+
 def main():
+    if "--compare" in sys.argv[1:]:
+        args = sys.argv[sys.argv.index("--compare") + 1:]
+        cut = args.index("--parent")
+        compare(args[:cut], args[cut + 1:])
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on a CUDA card")
@@ -1950,6 +2067,26 @@ def main():
         "local_bound_ms": tc["gemma3-12b local"]["bound_ms"],
         "local_library_ms": tc["gemma3-12b local"]["library_ms"],
         "parity_cases": attn_cases["flash_attention_tc"]})
+    # B4's f32 prefill on the tensor cores (3xTF32): the quickstart rows of
+    # the attn phase (counted there), timed at closed_form
+    f32 = [r for r in attn_rows if r["kernel"] == "tc_f32"]
+    f32_at = next(r for r in f32 if r["lowering"] == "closed_form")
+    kernels.append({
+        "name": "flash_attention_tc_f32", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+        "launches": attn_launches["flash_attention_tc_f32"],
+        "max_abs_err": max([attn_err["flash_attention_tc_f32"]]
+                           + [r["max_abs_err"] for r in f32]),
+        "ms": f32_at["ms"], "plain_ms": f32_at["plain_ms"],
+        "bound_ms": f32_at["bound_ms"], "bound_by": f32_at["bound_by"],
+        "peak": f32_at["peak"], "library_ms": f32_at["library_ms"],
+        "library_kernels": f32_at["library_kernels"],
+        "cuda_core_ms": f32_at["cuda_core_ms"],
+        "at": f"quickstart causal S {f32_at['s']} B {f32_at['b']} heads "
+              f"{f32_at['h']}/{f32_at['hkv']} D {f32_at['d']} f32, blocks "
+              f"{f32_at['blocks']}, closed_form",
+        "parity_cases": attn_cases["flash_attention_tc_f32"]})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -35,19 +35,21 @@ __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// Copy `rows` rows of `cols` bf16 values (cols % 8 == 0, cols / 8 <=
-// blockDim.x) from a row-major global tile of row stride `src_stride` into
-// shared rows of stride `dst_stride` elements, spread over the CTA's
-// threads: thread i copies piece i % (cols / 8) of every
-// (blockDim.x / (cols / 8))-th row.
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int dst_stride,
-                                          const __nv_bfloat16* src,
-                                          int src_stride, int rows,
-                                          int cols) {
-  const int chunks = cols >> 3;  // 16-byte pieces per row
+// Copy `rows` rows of `cols` values of T (bf16 or f32; cols a whole number
+// of 16-byte pieces, at most blockDim.x of them) from a row-major global
+// tile of row stride `src_stride` into shared rows of stride `dst_stride`
+// elements, spread over the CTA's threads: thread i copies piece
+// i % pieces of every (blockDim.x / pieces)-th row.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dst_stride,
+                                          const T* src, int src_stride,
+                                          int rows, int cols) {
+  constexpr int kShift = sizeof(T) == 2 ? 3 : 2;  // log2 values per piece
+  static_assert(sizeof(T) << kShift == 16, "16-byte pieces of bf16 or f32");
+  const int chunks = cols >> kShift;  // 16-byte pieces per row
   const int sweep = blockDim.x / chunks;
   const int r0 = threadIdx.x / chunks;
-  const int c = (threadIdx.x - r0 * chunks) << 3;
+  const int c = (threadIdx.x - r0 * chunks) << kShift;
   if (r0 >= sweep) return;
   for (int r = r0; r < rows; r += sweep)
     copy16(dst + (size_t)r * dst_stride + c,

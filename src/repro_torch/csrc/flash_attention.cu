@@ -2,19 +2,22 @@
 // plain C interface loaded through ctypes (repro_torch/kernels/_cuda.py).
 //
 // Replaces (JAX package, Pallas):
-//   flash_fwd_tc_kernel <- kernels/flash_attention.py::_attn_kernel and its
-//   flash_fwd_kernel       gpu structure _gpu_flash_call (row bounds
-//                          _row_bounds, tile math _attn_tile_update); the
-//                          tc kernel's K/V ring is core/backend.py::
-//                          stream_tiles, the ring of the _dma variants
-//   paged_decode_kernel <- kernels/flash_attention.py::_paged_attn_kernel
-//                          and its gpu structure _gpu_paged_call
+//   flash_fwd_tc_kernel   <- kernels/flash_attention.py::_attn_kernel and
+//   flash_fwd_tf32_kernel    its gpu structure _gpu_flash_call (row bounds
+//   flash_fwd_kernel         _row_bounds, tile math _attn_tile_update);
+//                            the tile paths' K/V ring is core/backend.py::
+//                            stream_tiles, the ring of the _dma variants
+//   paged_decode_kernel   <- kernels/flash_attention.py::_paged_attn_kernel
+//                            and its gpu structure _gpu_paged_call
 //
 // The wrapper (kernels/flash_attention.py flash_route) sends bf16 calls
-// with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel and
-// every other call (f32, decode at block_q = 1) to flash_fwd_kernel.
+// with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel, f32
+// calls with block_q and block_k multiples of 16 and d a multiple of 8 up
+// to 128 to flash_fwd_tf32_kernel (q, k, v 16-byte aligned for both), and
+// every other call (decode at block_q = 1, f32 at d > 128) to
+// flash_fwd_kernel.
 //
-// Both flash kernels: one CTA per (batch * head, query-block row), as the
+// Every flash kernel: one CTA per (batch * head, query-block row), as the
 // gpu structure's grid; an in-kernel loop over that row's key blocks
 // [start, end] carries the online-softmax state.  The extent comes from
 // the lowering: closed_form computes _row_bounds inline, prefetch_lut reads
@@ -35,9 +38,10 @@
 // the same tile_update() with block_q = 1, block_k = page_size, kind full.
 //
 // What bounds them on an H100 (80 GB HBM3 at 3.35 TB/s; 67 TFLOP/s f32
-// outside the tensor cores, 989 TFLOP/s bf16 in them): prefill-sized
-// attention is bound by operations (4 d flops per visited (query, key)
-// pair), decode by bytes (each visited K/V tile read once per q head).
+// outside the tensor cores, 989 TFLOP/s bf16 and 495 TF32 in them):
+// prefill-sized attention is bound by operations (4 d flops per visited
+// (query, key) pair, three times that in 3xTF32), decode by bytes (each
+// visited K/V tile read once per q head).
 //
 // flash_fwd_tc_kernel (bf16 prefill) moves those operations onto the
 // tensor cores with mma.sync.m16n8k16 (bf16 operands, f32 sums):
@@ -84,15 +88,49 @@
 // memory for its 16 rows (16 flops per byte, half the tensor cores' rate
 // at the SM's 128 B/clk); wgmma's 64-row warpgroup tiles are the fix.
 //
-// flash_fwd_kernel (f32, decode) is simple rather than fast: scores and
-// p v run in f32 on the CUDA cores, 8 warps own 4 query rows each per
-// pass, K/V tiles are staged through shared memory 32 keys at a time (so
-// d = 256 with 128-key tiles fits: 32 q rows + 32 keys + 32 x 128 scores
-// of f32 = 97 KB), and a query block of more than 32 rows re-reads its K/V
-// tiles once per pass (from L2).  The online softmax updates once per
-// schedule tile: all block_k scores of a tile are in shared memory before
-// its row max is taken.  Decode (block_q = 1) keeps one warp busy per CTA;
-// split-K is later work.
+// flash_fwd_tf32_kernel (f32 prefill) is the same tile loop -- warps of
+// 16 rows, 64-key sub-tiles, the ring, the masks, the softmax per
+// sub-tile, the CTA order -- on mma.sync.m16n8k8.tf32 (mma_sync.cuh's
+// fragment maps).  Hopper has no f32 product on the tensor cores, so each
+// f32 operand x is split into tf32 parts hi = rna(x), lo = rna(x - hi)
+// (rounded on the bit pattern: two integer operations each) and a
+// product sums lo·hi + hi·lo + hi·hi in f32 (3xTF32: the dropped lo·lo
+// is ~2^-22 of it, the f32 result good to about 22 bits):
+//   * Q is read raw into shared memory and scaled in f32 as its fragment
+//     is loaded (the plain version pre-scales Q in f32; scaling after the
+//     product would round differently), then split once per k-step for
+//     that step's eight n-tiles; K's fragments by ldmatrix from row-major
+//     K (16-byte rows of 4 f32), split once for their three products;
+//   * P is f32 in the plain version, so it is split too: its A fragment
+//     comes from the score fragments with the keys of each 8-key group
+//     permuted (no C -> A identity at k8), V's B fragment from 32-bit
+//     shared loads at the permuted rows;
+//   * rows padded by 4 f32, a row stride of 4 mod 32 words: the 8 rows
+//     of an ldmatrix and the 32 lanes of a V load fall in distinct banks;
+//   * two ring stages: Q (128 rows) and two slots are 102 KB at d = 64,
+//     two CTAs per SM, and 198 KB at d = 128.  Q is not kept split
+//     (hi and lo planes would take a second 35 KB at d = 64, one CTA per
+//     SM); a lane re-splits 4 Q values per k-step.  d = 256 would need
+//     131 KB for Q and 131 KB for one slot, past the 227 KB a CTA may
+//     have, so f32 at d > 128 stays on flash_fwd_kernel;
+//   * where d is the instantiation's and block_k a multiple of 64 (the
+//     models' shapes), an exact instantiation takes both as constants:
+//     its tile loops unroll without a branch, which lets the scheduler
+//     overlap one n-tile's loads and splits with another's products.
+// Its bound is three tf32 products of 4 d flops per unmasked pair at
+// 495 TFLOP/s (quickstart causal S 4096: 0.625 ms).  What still bounds
+// it: every warp splits the K and V values it reads (the same sub-tile
+// in all 8 warps), so integer and f32 work issues beside each product.
+//
+// flash_fwd_kernel (decode, f32 past d = 128, small blocks) is simple
+// rather than fast: scores and p v run in f32 on the CUDA cores, 8 warps
+// own 4 query rows each per pass, K/V tiles are staged through shared
+// memory 32 keys at a time (so d = 256 with 128-key tiles fits: 32 q rows
+// + 32 keys + 32 x 128 scores of f32 = 97 KB), and a query block of more
+// than 32 rows re-reads its K/V tiles once per pass (from L2).  The
+// online softmax updates once per schedule tile: all block_k scores of a
+// tile are in shared memory before its row max is taken.  Decode
+// (block_q = 1) keeps one warp busy per CTA; split-K is later work.
 
 #include "async_ring.cuh"
 #include "attention_common.cuh"
@@ -184,15 +222,156 @@ flash_fwd_kernel(AttnParams p, const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd_tc_kernel: the bf16 tile path on the tensor cores
+// the tile paths on the tensor cores: shared pieces
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRowsPerWarp = 16;  // one m16 tile of query rows per warp
 constexpr int kTcMaxWarps = 8;
 constexpr int kTcRowsPerPass = kTcRowsPerWarp * kTcMaxWarps;
 constexpr int kTcSub = 64;  // keys per sub-tile: one ring slot of K and V
-constexpr int kTcPad = 8;   // bf16 padding per shared row (16 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The first key block at or after kb that the row visits (bounding skips
+// the tiles outside the block domain); end + 1 when none is left.
+__device__ __forceinline__ int next_live(const AttnParams& p, int kb, int qb,
+                                         int end) {
+  if (p.lowering == kBounding)
+    while (kb <= end && !in_domain(p, kb, qb)) ++kb;
+  return kb;
+}
+
+// e^x as 2^(x log2 e) on the SFU (ex2.approx: relative error ~2^-22,
+// denormal results flushed to 0).
+__device__ __forceinline__ float exp_f32(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, kLog2e)));
+  return y;
+}
+
+// The CTA's query-block row qb and (batch * head) bh: query-block rows
+// outermost (longest first under causal and local), then (batch, head),
+// so the q heads of one kv head are neighbours.
+__device__ __forceinline__ void cta_tile(const AttnParams& p, int& qb,
+                                         int& bh) {
+  const int bhs = p.b * p.h;
+  qb = (int)(blockIdx.x / bhs);
+  bh = (int)(blockIdx.x - (unsigned)qb * bhs);
+  if (p.kind != kFull) qb = p.m_q - 1 - qb;
+}
+
+// The masks of tile_update on a warp's score fragments (s[nt][e]: query
+// qrow + 8 (e >> 1) of lane (g, t4), key kmin + 8 nt + 2 t4 + (e & 1)):
+// -1e30, not -inf, by key_live, tested per element only in a warp-uniform
+// branch for the sub-tiles where the warp's rows meet a mask edge
+// (keys_all_live), so the other steps do no more than scale.  kScale: the
+// live scores are also multiplied by p.scale.
+template <int kNt, bool kScale>
+__device__ __forceinline__ void mask_scores(const AttnParams& p,
+                                            float (&s)[kNt][4], int qrow,
+                                            int g, int t4, int kmin,
+                                            int nkeys, int pos) {
+  const int qmin = qrow - g;
+  if (keys_all_live(p, qmin, qmin + kTcRowsPerWarp - 1, kmin,
+                    kmin + nkeys - 1, pos)) {
+    if (kScale) {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = __fmul_rn(s[nt][e], p.scale);
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = key_live(p, qrow + (e >> 1) * 8,
+                            kmin + 2 * t4 + nt * 8 + (e & 1), pos)
+                       ? (kScale ? __fmul_rn(s[nt][e], p.scale) : s[nt][e])
+                       : kNegInf;
+  }
+}
+
+// The online softmax over one sub-tile (rows g and g + 8 of the lane's
+// quad; n-tiles at or past nkeys are not read): s becomes
+// p = exp(s - m_new), l = alpha l + rowsum(p) with alpha = exp(m - m_new),
+// and O is rescaled by alpha unless no row max of the warp moved (alpha
+// is then exactly 1).  l keeps lane partials: the quad's four lanes add
+// at the end.
+template <int kNt, int kOt>
+__device__ __forceinline__ void softmax_step(float (&s)[kNt][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&acc)[kOt][4],
+                                             int nkeys) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+      if (nt * 8 < nkeys)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    const float alpha = exp_f32(__fsub_rn(m[i], m_new));
+    float sum = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      if (nt * 8 < nkeys) {
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[nt][e] = exp_f32(__fsub_rn(s[nt][e], m_new));
+          sum = __fadd_rn(sum, s[nt][e]);
+        }
+      }
+    }
+    l[i] = __fmaf_rn(alpha, l[i], sum);
+    m[i] = m_new;
+    if (!__all_sync(0xffffffffu, alpha == 1.0f)) {
+#pragma unroll
+      for (int ot = 0; ot < kOt; ++ot) {
+        acc[ot][2 * i] = __fmul_rn(acc[ot][2 * i], alpha);
+        acc[ot][2 * i + 1] = __fmul_rn(acc[ot][2 * i + 1], alpha);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
+                                           float b) {
+  *reinterpret_cast<unsigned*>(dst) = tc::pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+// out = O / l (l == 0 -> 1) for rows `row` and row + 8 of the pass, lane
+// (g, t4) writing columns 8 ot + 2 t4 and + 1 of each output n-tile
+// below d (o: the query block's first row).
+template <int kOt, typename T>
+__device__ __forceinline__ void store_o(T* __restrict__ o, int row, int d,
+                                        int t4, const float (&acc)[kOt][4],
+                                        const float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 1));
+    lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 2));
+    if (lt == 0.0f) lt = 1.0f;
+    T* dst = o + (size_t)(row + 8 * i) * d + 2 * t4;
+#pragma unroll
+    for (int ot = 0; ot < kOt; ++ot) {
+      if (ot * 8 < d)
+        store_pair(dst + ot * 8, __fdiv_rn(acc[ot][2 * i], lt),
+                   __fdiv_rn(acc[ot][2 * i + 1], lt));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_fwd_tc_kernel: the bf16 tile path on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcPad = 8;  // bf16 padding per shared row (16 bytes)
 
 // The instantiated head dim of d (a multiple of 16 up to 256), its ring
 // depth, and one CTA's dynamic shared memory: the pass's query rows and
@@ -208,23 +387,6 @@ __host__ __device__ inline size_t tc_smem_bytes(int d, int block_q) {
   const int rows = block_q < kTcRowsPerPass ? block_q : kTcRowsPerPass;
   return ((size_t)rows + (size_t)tc_stages(dt) * 2 * kTcSub) *
          (size_t)(dt + kTcPad) * sizeof(__nv_bfloat16);
-}
-
-// The first key block at or after kb that the row visits (bounding skips
-// the tiles outside the block domain); end + 1 when none is left.
-__device__ __forceinline__ int next_live(const AttnParams& p, int kb, int qb,
-                                         int end) {
-  if (p.lowering == kBounding)
-    while (kb <= end && !in_domain(p, kb, qb)) ++kb;
-  return kb;
-}
-
-// e^x as 2^(x log2 e) on the SFU (ex2.approx: relative error ~2^-22,
-// denormal results flushed to 0; p is rounded to bf16 for p v anyway).
-__device__ __forceinline__ float exp_f32(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, kLog2e)));
-  return y;
 }
 
 // d <= 64 fits two CTAs per SM (at most 128 registers a thread, 74 KB of
@@ -247,12 +409,8 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* const skv =
       sq + (size_t)min(p.block_q, kTcRowsPerPass) * kStride;
 
-  // query-block rows outermost (longest first under causal and local),
-  // then (batch, head): the q heads of one kv head are neighbours
-  const int bhs = p.b * p.h;
-  int qb = (int)(blockIdx.x / bhs);
-  const int bh = (int)(blockIdx.x - (unsigned)qb * bhs);
-  if (p.kind != kFull) qb = p.m_q - 1 - qb;
+  int qb, bh;
+  cta_tile(p, qb, bh);
   const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
   int start, end, pos;
   row_extent(p, qb, b, ext, pos_vec, start, end, pos);
@@ -359,64 +517,10 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
           }
         }
 
-        // -- scale after the product, then the masks of tile_update -----
-        // (per element only where the warp's rows and the sub-tile's keys
-        // may meet a mask edge: all_live is uniform across the warp)
-        const int kmin = kb_c * bk + c_c;
-        const int qmin = qrow - g;
-        if (keys_all_live(p, qmin, qmin + kTcRowsPerWarp - 1, kmin,
-                          kmin + nkeys - 1, pos)) {
-#pragma unroll
-          for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              s[nt][e] = __fmul_rn(s[nt][e], p.scale);
-        } else {
-#pragma unroll
-          for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              s[nt][e] = key_live(p, qrow + (e >> 1) * 8,
-                                  kmin + 2 * t4 + nt * 8 + (e & 1), pos)
-                             ? __fmul_rn(s[nt][e], p.scale)
-                             : kNegInf;
-        }
-
-        // -- online softmax over the sub-tile (rows g and g + 8) ---------
-        // lane partials of l: the quad's four lanes add at the end
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int nt = 0; nt < kNt; ++nt)
-            if (nt * 8 < nkeys)
-              mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m[i], mx);
-          const float alpha = exp_f32(__fsub_rn(m[i], m_new));
-          float sum = 0.0f;
-#pragma unroll
-          for (int nt = 0; nt < kNt; ++nt) {
-            if (nt * 8 < nkeys) {
-#pragma unroll
-              for (int e = 2 * i; e < 2 * i + 2; ++e) {
-                s[nt][e] = exp_f32(__fsub_rn(s[nt][e], m_new));
-                sum = __fadd_rn(sum, s[nt][e]);
-              }
-            }
-          }
-          l[i] = __fmaf_rn(alpha, l[i], sum);
-          m[i] = m_new;
-          // (no row max of the warp moved: alpha is 1 and O stays)
-          if (!__all_sync(0xffffffffu, alpha == 1.0f)) {
-#pragma unroll
-            for (int ot = 0; ot < kOt; ++ot) {
-              acc[ot][2 * i] = __fmul_rn(acc[ot][2 * i], alpha);
-              acc[ot][2 * i + 1] = __fmul_rn(acc[ot][2 * i + 1], alpha);
-            }
-          }
-        }
+        // -- scale after the product, then the masks ---------------------
+        mask_scores<kNt, true>(p, s, qrow, g, t4, kb_c * bk + c_c, nkeys,
+                               pos);
+        softmax_step<kNt, kOt>(s, m, l, acc, nkeys);
 
         // -- O += P V: P in bf16 from the score fragments (C -> A) -------
         // V fragments load four at a time ahead of their products
@@ -457,25 +561,220 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // every reader of sq and the ring is done
 
     // -- out = O / l (l == 0 -> 1), rounded to bf16 -----------------------
-    if (busy) {
+    if (busy)
+      store_o<kOt>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d, t4, acc,
+                   l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_fwd_tf32_kernel: the f32 tile path on the tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+
+constexpr int kTfPad = 4;     // f32 padding per shared row (16 bytes)
+constexpr int kTfStages = 2;  // ring depth
+
+// The instantiated head dim of d (a multiple of 8 up to 128) and one CTA's
+// dynamic shared memory: the pass's query rows (f32, unscaled) and two
+// slots of a K and a V sub-tile, rows of dt + kTfPad f32.  d = 64: 102 KB,
+// two CTAs per SM; d = 128: 198 KB.  (d = 256 would need 266 KB for Q and
+// one slot alone, past the 227 KB a CTA may have: it stays on
+// flash_fwd_kernel.)
+constexpr __host__ __device__ int tf32_dt(int d) { return d <= 64 ? 64 : 128; }
+__host__ __device__ inline size_t tf32_smem_bytes(int d, int block_q) {
+  const int rows = block_q < kTcRowsPerPass ? block_q : kTcRowsPerPass;
+  return ((size_t)rows + (size_t)kTfStages * 2 * kTcSub) *
+         (size_t)(tf32_dt(d) + kTfPad) * sizeof(float);
+}
+
+// Splits four f32 values (bit patterns) into tf32 hi and lo parts.
+__device__ __forceinline__ void split_frag(const unsigned x[4],
+                                           unsigned hi[4], unsigned lo[4]) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float lt = l[i];
-        lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 1));
-        lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 2));
-        if (lt == 0.0f) lt = 1.0f;
-        __nv_bfloat16* dst =
-            o + q_off + (size_t)(row0 + warp * kTcRowsPerWarp + g + 8 * i) * d +
-            2 * t4;
+  for (int e = 0; e < 4; ++e)
+    tc::split_tf32(__uint_as_float(x[e]), hi[e], lo[e]);
+}
+
+// acc += A B in 3xTF32: the two small products first, then hi x hi.
+__device__ __forceinline__ void mma_3xtf32(float acc[4], const unsigned ahi[4],
+                                           const unsigned alo[4], uint2 bhi,
+                                           uint2 blo) {
+  tc::mma_tf32(acc, alo, bhi);
+  tc::mma_tf32(acc, ahi, blo);
+  tc::mma_tf32(acc, ahi, bhi);
+}
+
+// d <= 64 fits two CTAs per SM (128 registers a thread, 102 KB of shared
+// memory each); d <= 128 runs one CTA of up to 255 registers.  kExact: d
+// is DT and block_k a multiple of 64, so the head dim and the keys of a
+// sub-tile are compile-time and the tile loops run without branches.
+template <int DT, bool kExact>
+__global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
+flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const int* __restrict__ ext,
+                      const int* __restrict__ pos_vec,
+                      float* __restrict__ o) {
+  constexpr int kStride = DT + kTfPad;  // shared row, f32 elements
+  constexpr int kNt = kTcSub / 8;       // score n-tiles (8 keys) of a sub-tile
+  constexpr int kOt = DT / 8;           // output n-tiles
+  constexpr size_t kSlot = (size_t)2 * kTcSub * kStride;  // K then V
+  extern __shared__ __align__(16) unsigned char tf_smem[];
+  float* const sq = reinterpret_cast<float*>(tf_smem);
+  float* const skv = sq + (size_t)min(p.block_q, kTcRowsPerPass) * kStride;
+
+  int qb, bh;
+  cta_tile(p, qb, bh);
+  const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
+  int start, end, pos;
+  row_extent(p, qb, b, ext, pos_vec, start, end, pos);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int d = kExact ? DT : p.d, bk = p.block_k;
+  const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
+  const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
+  // ldmatrix row addresses of this lane (16-byte rows of 4 f32): Q's A
+  // tiles (rows 0-7 | 8-15) x (cols 0-3 | 4-7) in register order, K's B
+  // tiles (keys 0-7 | 8-15) x (dims 0-3 | 4-7) with the dim half first
+  const int lrow = lane & 7, mi = lane >> 3;
+  const int a_row = (mi & 1) * 8 + lrow, a_col = (mi >> 1) * 4;
+  const int k_row = (mi >> 1) * 8 + lrow, k_col = (mi & 1) * 4;
+
+  // the ring's steps, as the bf16 kernel's
+  auto advance = [&](int& kb, int& c) {
+    c += kTcSub;
+    if (c >= bk) {
+      c = 0;
+      kb = next_live(p, kb + 1, qb, end);
+    }
+  };
+  auto issue = [&](int kb, int c, int slot) {
+    const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
+    const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
+    const int rows = min(kTcSub, bk - c);
+    float* dst = skv + (size_t)slot * kSlot;
+    ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
+    ring::copy_rows(dst + (size_t)kTcSub * kStride, kStride, v + t_off, d,
+                    rows, d);
+  };
+
+  for (int row0 = 0; row0 < p.block_q; row0 += kTcRowsPerPass) {
+    const int nrows = min(kTcRowsPerPass, p.block_q - row0);
+    const bool busy = warp * kTcRowsPerWarp < nrows;
+    const int qrow = p.off + qb * p.block_q + row0 + warp * kTcRowsPerWarp + g;
+
+    // prologue: Q and the first ring step in one group
+    ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows, d);
+    int kb_c = next_live(p, start, qb, end), c_c = 0;
+    int kb_p = kb_c, c_p = 0;
+    if (kb_p <= end) {
+      issue(kb_p, c_p, 0);
+      advance(kb_p, c_p);
+    }
+    ring::commit();
+
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    float acc[kOt][4];
 #pragma unroll
-        for (int ot = 0; ot < kOt; ++ot) {
-          if (ot * 8 < d)
-            *reinterpret_cast<unsigned*>(dst + ot * 8) =
-                tc::pack_bf16(__fdiv_rn(acc[ot][2 * i], lt),
-                              __fdiv_rn(acc[ot][2 * i + 1], lt));
+    for (int ot = 0; ot < kOt; ++ot)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ot][e] = 0.0f;
+
+    int slot = 0;
+    while (kb_c <= end) {
+      ring::wait<kTfStages - 2>();
+      __syncthreads();  // slot `slot` landed; the other is free again
+      if (kb_p <= end) {
+        issue(kb_p, c_p, slot ^ 1);
+        advance(kb_p, c_p);
+      }
+      ring::commit();
+
+      if (busy) {
+        const float* sk = skv + (size_t)slot * kSlot;
+        const float* sv = sk + (size_t)kTcSub * kStride;
+        const float* sqw = sq + (size_t)warp * kTcRowsPerWarp * kStride;
+        // a multiple of 16
+        const int nkeys = kExact ? kTcSub : min(kTcSub, bk - c_c);
+
+        // -- S = Q K^T: 16 rows x nkeys in 3xTF32, f32 sums --------------
+        // Q is scaled in f32 before the split (as the plain version
+        // pre-scales it); each k-step splits its A fragment once for its
+        // eight n-tiles, and each K fragment once for its three products
+        float s[kNt][4];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < DT / 8; ++ks) {
+          if (ks * 8 < d) {
+            unsigned a[4], ahi[4], alo[4];
+            tc::ldmatrix_x4(a, sqw + (size_t)a_row * kStride + ks * 8 + a_col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              a[e] = __float_as_uint(__fmul_rn(__uint_as_float(a[e]), p.scale));
+            split_frag(a, ahi, alo);
+#pragma unroll
+            for (int np = 0; np < kNt / 2; ++np) {
+              if (np * 16 < nkeys) {
+                unsigned kf[4], khi[4], klo[4];
+                tc::ldmatrix_x4(kf, sk + (size_t)(np * 16 + k_row) * kStride +
+                                        ks * 8 + k_col);
+                split_frag(kf, khi, klo);
+                mma_3xtf32(s[2 * np], ahi, alo, make_uint2(khi[0], khi[1]),
+                           make_uint2(klo[0], klo[1]));
+                mma_3xtf32(s[2 * np + 1], ahi, alo,
+                           make_uint2(khi[2], khi[3]),
+                           make_uint2(klo[2], klo[3]));
+              }
+            }
+          }
+        }
+
+        mask_scores<kNt, false>(p, s, qrow, g, t4, kb_c * bk + c_c, nkeys,
+                                pos);
+        softmax_step<kNt, kOt>(s, m, l, acc, nkeys);
+
+        // -- O += P V in 3xTF32 ------------------------------------------
+        // per 8-key k-step, keys permuted in the group (A column t is key
+        // 2t, column t + 4 key 2t + 1): the score fragment's d[0], d[2],
+        // d[1], d[3] are P's A fragment, and V's B fragment is read at rows
+        // 2t and 2t + 1 (32-bit loads; row stride 4 mod 32 words puts the
+        // 32 lanes in distinct banks)
+#pragma unroll
+        for (int kk = 0; kk < kNt; ++kk) {
+          if (kk * 8 < nkeys) {
+            const unsigned pf[4] = {
+                __float_as_uint(s[kk][0]), __float_as_uint(s[kk][2]),
+                __float_as_uint(s[kk][1]), __float_as_uint(s[kk][3])};
+            unsigned phi[4], plo[4];
+            split_frag(pf, phi, plo);
+            const float* vr = sv + (size_t)(kk * 8 + 2 * t4) * kStride + g;
+#pragma unroll
+            for (int ot = 0; ot < kOt; ++ot) {
+              if (ot * 8 < d) {
+                unsigned vhi0, vlo0, vhi1, vlo1;
+                tc::split_tf32(vr[ot * 8], vhi0, vlo0);
+                tc::split_tf32(vr[kStride + ot * 8], vhi1, vlo1);
+                mma_3xtf32(acc[ot], phi, plo, make_uint2(vhi0, vhi1),
+                           make_uint2(vlo0, vlo1));
+              }
+            }
+          }
         }
       }
+      advance(kb_c, c_c);
+      slot ^= 1;
     }
+    ring::wait<0>();
+    __syncthreads();  // every reader of sq and the ring is done
+
+    if (busy)
+      store_o<kOt>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d, t4, acc,
+                   l);
   }
 }
 
@@ -532,13 +831,12 @@ int launch_flash(const AttnParams& p, const T* q, const T* k, const T* v,
   return (int)cudaGetLastError();
 }
 
-template <int DT>
-int launch_flash_tc(const AttnParams& p, const __nv_bfloat16* q,
-                    const __nv_bfloat16* k, const __nv_bfloat16* v,
-                    const int* ext, const int* pos, __nv_bfloat16* o,
-                    cudaStream_t s) {
-  const size_t bytes = tc_smem_bytes(p.d, p.block_q);
-  auto kernel = flash_fwd_tc_kernel<DT>;
+// One tile-path kernel (flash_fwd_tc_kernel or flash_fwd_tf32_kernel) at
+// `bytes` of shared memory: block_q / 16 warps, at most 8.
+template <typename T, typename K>
+int launch_tile_path(K kernel, size_t bytes, const AttnParams& p, const T* q,
+                     const T* k, const T* v, const int* ext, const int* pos,
+                     T* o, cudaStream_t s) {
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   const int rows = p.block_q < kTcRowsPerPass ? p.block_q : kTcRowsPerPass;
@@ -587,14 +885,40 @@ int flash_tc(const long long* params, float scale, const void* q,
              *kk = static_cast<const __nv_bfloat16*>(k),
              *vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(o);
+  const size_t bytes = tc_smem_bytes(p.d, p.block_q);
   switch (tc_dt(p.d)) {
     case 64:
-      return launch_flash_tc<64>(p, qq, kk, vv, ext, pos, oo, s);
+      return launch_tile_path(flash_fwd_tc_kernel<64>, bytes, p, qq, kk, vv,
+                              ext, pos, oo, s);
     case 128:
-      return launch_flash_tc<128>(p, qq, kk, vv, ext, pos, oo, s);
+      return launch_tile_path(flash_fwd_tc_kernel<128>, bytes, p, qq, kk, vv,
+                              ext, pos, oo, s);
     default:
-      return launch_flash_tc<256>(p, qq, kk, vv, ext, pos, oo, s);
+      return launch_tile_path(flash_fwd_tc_kernel<256>, bytes, p, qq, kk, vv,
+                              ext, pos, oo, s);
   }
+}
+
+// The tf32 kernel takes block_q and block_k multiples of 16 and d a
+// multiple of 8, d <= 128.
+int flash_tf32(const long long* params, float scale, const void* q,
+               const void* k, const void* v, const int* ext, const int* pos,
+               void* o, cudaStream_t s) {
+  const AttnParams p = make_params(params, scale);
+  if (p.block_q % 16 || p.block_k % 16 || p.d % 8 || p.d > 128)
+    return (int)cudaErrorInvalidValue;
+  const auto *qq = static_cast<const float*>(q),
+             *kk = static_cast<const float*>(k),
+             *vv = static_cast<const float*>(v);
+  auto* oo = static_cast<float*>(o);
+  const size_t bytes = tf32_smem_bytes(p.d, p.block_q);
+  const bool exact = p.d == tf32_dt(p.d) && p.block_k % kTcSub == 0;
+  auto kernel = tf32_dt(p.d) == 64
+                    ? (exact ? flash_fwd_tf32_kernel<64, true>
+                             : flash_fwd_tf32_kernel<64, false>)
+                    : (exact ? flash_fwd_tf32_kernel<128, true>
+                             : flash_fwd_tf32_kernel<128, false>);
+  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s);
 }
 
 template <typename T>
@@ -642,6 +966,16 @@ int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
                   static_cast<cudaStream_t>(stream));
 }
 
+// The same in f32 on the tensor cores (flash_fwd_tf32_kernel, 3xTF32):
+// params as fa_forward_f32, with block_q and block_k multiples of 16 and
+// d a multiple of 8 up to 128.
+int fa_forward_tc_f32(const long long* params, float scale, const void* q,
+                      const void* k, const void* v, const int* ext,
+                      const int* pos, void* o, void* stream) {
+  return flash_tf32(params, scale, q, k, v, ext, pos, o,
+                    static_cast<cudaStream_t>(stream));
+}
+
 // o (B, H, 1, d) = single-token decode of q (B, H, 1, d) through the
 // (B, max_pages) int32 page table into the fused pool
 // (P, 2 Hkv, page_size, d); pos: (B,) int32.
@@ -667,6 +1001,11 @@ long long fa_smem_bytes(int d, int block_k) {
 // Dynamic shared memory of one CTA of the tc kernel at (d, block_q).
 long long fa_tc_smem_bytes(int d, int block_q) {
   return (long long)tc_smem_bytes(d, block_q);
+}
+
+// Dynamic shared memory of one CTA of the tf32 kernel at (d, block_q).
+long long fa_tc_f32_smem_bytes(int d, int block_q) {
+  return (long long)tf32_smem_bytes(d, block_q);
 }
 
 const char* cuda_error_string(int status) {

@@ -32,15 +32,18 @@ page through the page table.  At ``block_k == page_size`` it is bit-equal
 to the contiguous ``seq_pos`` decode: both kernels run one shared tile
 update (``csrc/attention_common.cuh``) in the same order.
 
-Two kernels compute ``flash_attention`` on the card, picked by
-:func:`flash_route` from dtype and shape before any launch:
+Three kernels compute ``flash_attention`` on the card, picked by
+:func:`flash_route` from dtype, shape and alignment before any launch:
+on the tensor cores, with K/V streamed through a cp.async ring,
 ``flash_fwd_tc_kernel`` (``"tc"``: bf16 with block_q, block_k and the
-head dim multiples of 16, on the tensor cores, K/V streamed through a
-cp.async ring) and ``flash_fwd_kernel`` (``"cuda_core"``: every other
-call -- f32, decode at block_q = 1, odd head dims, small blocks -- in
-f32 on the CUDA cores).  ``paged_flash_attention`` and the block_q = 1
-decode stay on the CUDA-core tile update, so paged decode stays
-bit-equal to the contiguous one.
+head dim multiples of 16) and ``flash_fwd_tf32_kernel`` (``"tc_f32"``:
+f32 with block_q and block_k multiples of 16 and a head dim multiple of
+8 up to 128, in 3xTF32); and ``flash_fwd_kernel`` (``"cuda_core"``:
+every other call -- decode at block_q = 1, f32 past head dim 128, odd
+head dims, small blocks -- in f32 on the CUDA cores).
+``paged_flash_attention`` and the block_q = 1 decode stay on the
+CUDA-core tile update, so paged decode stays bit-equal to the contiguous
+one.
 
 Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
@@ -506,6 +509,7 @@ _SIGNATURES = {
     "fa_forward_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
+    "fa_forward_tc_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_paged_decode_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
     "fa_paged_decode_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
 }
@@ -518,7 +522,8 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name in ("fa_smem_bytes", "fa_tc_smem_bytes"):
+        for name in ("fa_smem_bytes", "fa_tc_smem_bytes",
+                     "fa_tc_f32_smem_bytes"):
             getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
             getattr(lib, name).restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -565,15 +570,28 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: the f32 tensor-core kernel's widest head dim: at d = 256 its query
+#: rows and one 64-key K/V slot (rows of 260 f32) would take 266 KB of
+#: shared memory, past the 227 KB a CTA may have, so f32 at d > 128 stays
+#: on the CUDA-core kernel
+TF32_MAX_HEAD_DIM = 128
+
+
 def flash_route(sched: FlashSchedule, dtype, aligned: bool = True) -> str:
     """The flash kernel a launch takes, from dtype, shape and alignment
-    alone: ``"tc"`` (flash_fwd_tc_kernel, the tensor cores) for bf16 with
-    block_q, block_k and the head dim multiples of 16 and q, k, v on
-    16-byte boundaries (``aligned``: the kernel copies 16-byte pieces),
-    ``"cuda_core"`` (flash_fwd_kernel) for every other call."""
-    if (dtype == torch.bfloat16 and aligned and sched.block_q % 16 == 0
-            and sched.block_k % 16 == 0 and sched.d % 16 == 0):
-        return "tc"
+    alone, on the tensor cores when q, k, v start on 16-byte boundaries
+    (``aligned``: the tile paths copy 16-byte pieces) and block_q and
+    block_k are multiples of 16: ``"tc"`` (flash_fwd_tc_kernel) for bf16
+    with a head dim multiple of 16, ``"tc_f32"`` (flash_fwd_tf32_kernel,
+    3xTF32) for f32 with a head dim multiple of 8 up to
+    TF32_MAX_HEAD_DIM; ``"cuda_core"`` (flash_fwd_kernel) for every
+    other call, decode at block_q = 1 included."""
+    if aligned and sched.block_q % 16 == 0 and sched.block_k % 16 == 0:
+        if dtype == torch.bfloat16 and sched.d % 16 == 0:
+            return "tc"
+        if (dtype == torch.float32 and sched.d % 8 == 0
+                and sched.d <= TF32_MAX_HEAD_DIM):
+            return "tc_f32"
     return "cuda_core"
 
 
@@ -605,10 +623,12 @@ def flash_cuda(q, k, v, sched: FlashSchedule,
                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the flash kernel :func:`flash_route` picks: (B, H, Sq, D) in
     q's dtype.  Counts the CUDA-core kernel's launches; the tensor-core
-    kernel counts its own (:func:`flash_tc_cuda`)."""
+    kernels count their own (:func:`flash_tc_cuda`,
+    :func:`flash_tc_f32_cuda`)."""
     _check_cuda("flash attention", q, k, v)
-    if flash_route(sched, q.dtype, _aligned(q, k, v)) == "tc":
-        return flash_tc_cuda(q, k, v, sched, pos)
+    route = flash_route(sched, q.dtype, _aligned(q, k, v))
+    if route != "cuda_core":
+        return _TILE_PATHS[route](q, k, v, sched, pos)
     lib = _lib()
     _check_smem(q.device, lib.fa_smem_bytes(sched.d, sched.block_k),
                 f"block_k={sched.block_k} at head dim {sched.d}")
@@ -623,29 +643,62 @@ def flash_cuda(q, k, v, sched: FlashSchedule,
 flash_cuda.launches = 0
 
 
+def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
+    """Launch the tensor-core kernel of ``route`` ("tc" or "tc_f32") after
+    checking that :func:`flash_route` sends the call there (``takes``
+    says what it takes); returns the output."""
+    _check_cuda("flash attention", q, k, v)
+    if flash_route(sched, q.dtype, _aligned(q, k, v)) != route:
+        raise ValueError(
+            f"the {takes}, got {q.dtype}, blocks "
+            f"{sched.block_q}/{sched.block_k}, head dim {sched.d}, "
+            f"16-byte aligned {_aligned(q, k, v)}")
+    lib = _lib()
+    c_fn, smem_fn = (("fa_forward_tc_bf16", "fa_tc_smem_bytes")
+                     if route == "tc" else
+                     ("fa_forward_tc_f32", "fa_tc_f32_smem_bytes"))
+    _check_smem(q.device, getattr(lib, smem_fn)(sched.d, sched.block_q),
+                f"block_q={sched.block_q} at head dim {sched.d} (tensor "
+                f"cores, {q.dtype})")
+    return _launch_flash(getattr(lib, c_fn), q, k, v, sched, pos,
+                         f"flash attention kernel (tensor cores, {q.dtype})")
+
+
 def flash_tc_cuda(q, k, v, sched: FlashSchedule,
                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the tensor-core flash kernel (bf16; block_q, block_k and
-    the head dim multiples of 16, q, k and v 16-byte aligned, as
+    """Launch the bf16 tensor-core flash kernel (block_q, block_k and the
+    head dim multiples of 16, q, k and v 16-byte aligned, as
     :func:`flash_route` sends them): (B, H, Sq, D) bf16."""
-    _check_cuda("flash attention", q, k, v)
-    if flash_route(sched, q.dtype, _aligned(q, k, v)) != "tc":
-        raise ValueError(
-            f"the tensor-core flash kernel takes 16-byte aligned bf16 with "
-            f"block_q, block_k and head dim multiples of 16, got {q.dtype}, "
-            f"blocks {sched.block_q}/{sched.block_k}, head dim {sched.d}")
-    lib = _lib()
-    _check_smem(q.device, lib.fa_tc_smem_bytes(sched.d, sched.block_q),
-                f"block_q={sched.block_q} at head dim {sched.d} (tensor "
-                f"cores)")
-    out = _launch_flash(lib.fa_forward_tc_bf16, q, k, v, sched, pos,
-                        "flash attention kernel (tensor cores)")
+    out = _launch_tile_path(
+        "tc", q, k, v, sched, pos,
+        "tensor-core flash kernel takes 16-byte aligned bf16 with block_q, "
+        "block_k and head dim multiples of 16")
     if out.numel():
         flash_tc_cuda.launches += 1
     return out
 
 
 flash_tc_cuda.launches = 0
+
+
+def flash_tc_f32_cuda(q, k, v, sched: FlashSchedule,
+                      pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the f32 tensor-core flash kernel (3xTF32; block_q and
+    block_k multiples of 16, a head dim multiple of 8 up to
+    TF32_MAX_HEAD_DIM, q, k and v 16-byte aligned, as :func:`flash_route`
+    sends them): (B, H, Sq, D) f32."""
+    out = _launch_tile_path(
+        "tc_f32", q, k, v, sched, pos,
+        f"f32 tensor-core flash kernel takes 16-byte aligned f32 with "
+        f"block_q and block_k multiples of 16 and a head dim multiple of 8 "
+        f"up to {TF32_MAX_HEAD_DIM}")
+    if out.numel():
+        flash_tc_f32_cuda.launches += 1
+    return out
+
+
+flash_tc_f32_cuda.launches = 0
+_TILE_PATHS = {"tc": flash_tc_cuda, "tc_f32": flash_tc_f32_cuda}
 
 
 def paged_cuda(q, kv_pool, page_table, pos,
@@ -679,9 +732,12 @@ paged_cuda.launches = 0
 #: kernel name -> its CUDA wrapper (each carries ``launches``)
 KERNELS = {"flash_attention": flash_cuda,
            "flash_attention_tc": flash_tc_cuda,
+           "flash_attention_tc_f32": flash_tc_f32_cuda,
            "paged_flash_attention": paged_cuda}
 #: flash_route's answer -> the name of the kernel it launches
-ROUTE_KERNELS = {"tc": "flash_attention_tc", "cuda_core": "flash_attention"}
+ROUTE_KERNELS = {"tc": "flash_attention_tc",
+                 "tc_f32": "flash_attention_tc_f32",
+                 "cuda_core": "flash_attention"}
 
 
 def reset_launch_counts() -> None:
@@ -700,9 +756,12 @@ def launch_counts() -> dict:
 #: kernel-vs-plain tolerance per input dtype: the JAX tests' own
 #: (tests/test_kernels.py, f32 and bf16).  The CUDA-core kernel sums each
 #: dot product sequentially over d and the plain version through a
-#: matmul; the tensor-core kernel also updates the softmax per 64-key
-#: sub-tile and rounds p to bf16 before p v, where the plain version
-#: keeps f32 p.
+#: matmul.  Both tensor-core kernels update the softmax per 64-key
+#: sub-tile and take exp on the SFU (ex2.approx, ~2^-22 relative); the
+#: bf16 one rounds p to bf16 before p v, where the plain version keeps
+#: f32 p; the f32 one (3xTF32) drops the lo x lo term of every product,
+#: ~2^-22 of it (tests/test_torch_flash_tf32.py emulates it against the
+#: plain version within 2e-5 and fails 1xTF32).
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: bf16 also holds each output row (one (batch, head, query) over d) to
 #: ||kernel - plain|| / ||plain|| <= ROW_RTOL.  The outputs of randn

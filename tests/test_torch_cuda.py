@@ -281,6 +281,7 @@ def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, window):
 
 
 def test_attention_entry_points_launch_the_kernels(dev):
+    # f32 prefill takes the 3xTF32 tensor-core kernel
     FA.reset_launch_counts()
     q = _randn((1, 2, 128, 32), 13, dev, torch.float32)
     out = ops.flash_attention(q, q, q, kind="causal", block_q=64,
@@ -288,8 +289,9 @@ def test_attention_entry_points_launch_the_kernels(dev):
     pool = _randn((3, 2, 16, 32), 14, dev, torch.float32)
     table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
     dec = ops.paged_flash_attention(q[:, :, :1], pool, table, 20)
-    assert FA.launch_counts() == {"flash_attention": 1,
+    assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_tc": 0,
+                                  "flash_attention_tc_f32": 1,
                                   "paged_flash_attention": 1}
     assert out.shape == q.shape and dec.shape == (1, 2, 1, 32)
     with pytest.raises(ValueError, match="contiguous"):
@@ -316,6 +318,7 @@ def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
         FA.paged_cuda(q, pool, table, pos, psched)
     assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_tc": 0,
+                                  "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}
 
 
@@ -381,11 +384,13 @@ def test_flash_tc_kernel_compact_kv_and_seq_pos(dev, grid_mode):
                                      FA.seq_pos_vector(pos, 3, dev))
     assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_tc": 5,
+                                  "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}
 
 
 def test_flash_tc_routing_on_the_card(dev):
-    # bf16 prefill takes the tensor-core kernel; f32 and decode do not
+    # bf16 prefill takes the bf16 tensor-core kernel, f32 prefill the
+    # 3xTF32 one, decode neither
     q = _randn((1, 2, 128, 64), 30, dev, torch.bfloat16)
     FA.reset_launch_counts()
     ops.flash_attention(q, q, q, kind="causal", block_q=64, block_k=64)
@@ -395,8 +400,9 @@ def test_flash_tc_routing_on_the_card(dev):
     qd = q[:, :, :1].contiguous()
     ops.flash_attention(qd, q, q, kind="full", block_q=1, block_k=64,
                         seq_pos=100)
-    assert FA.launch_counts() == {"flash_attention": 2,
+    assert FA.launch_counts() == {"flash_attention": 1,
                                   "flash_attention_tc": 1,
+                                  "flash_attention_tc_f32": 1,
                                   "paged_flash_attention": 0}
     with pytest.raises(ValueError, match="tensor-core"):
         FA.flash_tc_cuda(q.float(), q.float(), q.float(), FA.flash_schedule(
@@ -419,9 +425,136 @@ def test_flash_misaligned_bf16_views_take_the_cuda_core_kernel(dev):
     FA.check_flash_against_plain(q, k, v, sched)
     assert FA.launch_counts() == {"flash_attention": 1,
                                   "flash_attention_tc": 0,
+                                  "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}
     with pytest.raises(ValueError, match="16-byte aligned"):
         FA.flash_tc_cuda(q, k, v, sched)
+
+
+# ---------------------------------------------------------------------------
+# B4's f32 prefill on the tensor cores (flash_fwd_tf32_kernel, 3xTF32)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("heads", list(TC_HEADS))
+@pytest.mark.parametrize("kind", ["causal", "local", "full"])
+def test_flash_tc_f32_kernel_matches_plain(dev, kind, heads, d, block):
+    # every lowering within 2e-5 of the plain version (full f32) and
+    # bit-equal to the others, each launch on the 3xTF32 kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, hkv = TC_HEADS[heads]
+    s = 4 * block if kind == "local" else 2 * block
+    q = _randn((2, h, s, d), 41, dev, torch.float32)
+    k = _randn((2, hkv, s, d), 42, dev, torch.float32)
+    v = _randn((2, hkv, s, d), 43, dev, torch.float32)
+    FA.reset_launch_counts()
+    outs = []
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                  window=2 * block if kind == "local" else 0,
+                                  block_q=block, block_k=block, grid_mode=gm)
+        assert FA.flash_route(sched, q.dtype) == "tc_f32"
+        outs.append(FA.check_flash_against_plain(q, k, v, sched)[1])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert FA.launch_counts()["flash_attention_tc_f32"] == len(LOWERINGS)
+    assert FA.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("d,block,s", [(8, 16, 64), (40, 48, 96),
+                                       (96, 256, 512), (128, 16, 48)])
+def test_flash_tc_f32_kernel_odd_heads_and_blocks(dev, d, block, s):
+    # head dims below the instantiation (k-steps and n-tiles skipped),
+    # one-warp and two-pass query blocks, sub-tiles of 16 and 48 keys
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = _randn((2, 4, s, d), 44, dev, torch.float32)
+    k = _randn((2, 2, s, d), 45, dev, torch.float32)
+    for kind in ("causal", "full"):
+        sched = FA.flash_schedule(q.shape, k.shape, kind=kind, block_q=block,
+                                  block_k=block)
+        assert FA.flash_route(sched, q.dtype) == "tc_f32"
+        FA.check_flash_against_plain(q, k, k, sched)
+
+
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+def test_flash_tc_f32_kernel_compact_kv_and_seq_pos(dev, grid_mode):
+    from repro_torch.core.compact import pack_kv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # rectangular local with compact KV: bit-equal to embedded
+    q = _randn((1, 4, 128, 64), 46, dev, torch.float32)
+    k = _randn((1, 2, 512, 64), 47, dev, torch.float32)
+    v = _randn((1, 2, 512, 64), 48, dev, torch.float32)
+    full = FA.flash_schedule(q.shape, k.shape, kind="local", window=128,
+                             block_q=64, block_k=64, grid_mode=grid_mode)
+    kc = pack_kv(k, full.domain, 64).contiguous()
+    vc = pack_kv(v, full.domain, 64).contiguous()
+    sched = FA.flash_schedule(q.shape, kc.shape, kind="local", window=128,
+                              block_q=64, block_k=64, grid_mode=grid_mode,
+                              storage="compact", kv_seq_len=512)
+    FA.reset_launch_counts()
+    _, emb = FA.check_flash_against_plain(q, k, v, full)
+    _, comp = FA.check_flash_against_plain(q, kc, vc, sched)
+    assert torch.equal(emb, comp)
+    # seq_pos at block_q 64: scalar and per-row, with and without a window
+    qs = _randn((3, 4, 64, 128), 49, dev, torch.float32)
+    ks = _randn((3, 2, 512, 128), 50, dev, torch.float32)
+    vs = _randn((3, 2, 512, 128), 51, dev, torch.float32)
+    for pos, win in ((300, 0), ([37, 511, 128], 0), ([37, 511, 200], 100)):
+        sp = FA.flash_schedule(qs.shape, ks.shape, kind="full", window=win,
+                               block_q=64, block_k=64, grid_mode=grid_mode,
+                               has_pos=True)
+        FA.check_flash_against_plain(qs, ks, vs, sp,
+                                     FA.seq_pos_vector(pos, 3, dev))
+    assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_tc": 0,
+                                  "flash_attention_tc_f32": 5,
+                                  "paged_flash_attention": 0}
+
+
+def test_flash_tc_f32_routing_on_the_card(dev):
+    # f32 prefill up to head dim 128 takes the 3xTF32 kernel; head dim 256
+    # and decode stay on the CUDA cores, and the tf32 entry point refuses
+    # them (and bf16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = _randn((1, 2, 128, 128), 52, dev, torch.float32)
+    FA.reset_launch_counts()
+    ops.flash_attention(q, q, q, kind="causal", block_q=64, block_k=64)
+    wide = _randn((1, 2, 128, 256), 53, dev, torch.float32)
+    ops.flash_attention(wide, wide, wide, kind="causal", block_q=64,
+                        block_k=64)
+    ops.flash_attention(q[:, :, :1].contiguous(), q, q, kind="full",
+                        block_q=1, block_k=64, seq_pos=100)
+    assert FA.launch_counts() == {"flash_attention": 2,
+                                  "flash_attention_tc": 0,
+                                  "flash_attention_tc_f32": 1,
+                                  "paged_flash_attention": 0}
+    for t in (wide, q.to(torch.bfloat16)):
+        with pytest.raises(ValueError, match="f32 tensor-core"):
+            FA.flash_tc_f32_cuda(t, t, t, FA.flash_schedule(
+                t.shape, t.shape, block_q=64, block_k=64))
+
+
+def test_flash_misaligned_f32_views_take_the_cuda_core_kernel(dev):
+    # a contiguous f32 view that starts 4 bytes past a 16-byte boundary
+    # is routed to the CUDA-core kernel before any launch, and the tf32
+    # entry point refuses it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (1, 2, 128, 64)
+    n = 2 * 128 * 64
+    base = _randn((3 * n + 1,), 54, dev, torch.float32)
+    q, k, v = (base[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    sched = FA.flash_schedule(shape, shape, kind="causal", block_q=64,
+                              block_k=64)
+    assert FA.flash_route(sched, q.dtype) == "tc_f32"
+    FA.reset_launch_counts()
+    FA.check_flash_against_plain(q, k, v, sched)
+    assert FA.launch_counts() == {"flash_attention": 1,
+                                  "flash_attention_tc": 0,
+                                  "flash_attention_tc_f32": 0,
+                                  "paged_flash_attention": 0}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_tc_f32_cuda(q, k, v, sched)
 
 
 # ---------------------------------------------------------------------------

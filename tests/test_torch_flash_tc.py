@@ -13,7 +13,8 @@ flash_fwd_tc_kernel) without the card:
     kernel tolerance 2e-2, the lowerings bit-equal to each other; and
     the per-row check of ``_compare`` fails an emulated stale ring slot
     that the elementwise tolerance passes;
-(c) ``flash_route``: which calls take the tensor-core kernel.
+(c) ``flash_route``: which calls take the tensor-core kernel (f32 prefill
+    takes the 3xTF32 one, tests/test_torch_flash_tf32.py).
 """
 import importlib
 
@@ -318,7 +319,7 @@ def test_row_check_fails_a_stale_sub_tile_inside_the_elementwise_tolerance():
     (torch.bfloat16, (1, 2, 96, 48), dict(kind="full", block_q=48,
                                           block_k=48), "tc"),
     (torch.bfloat16, (1, 2, 1024, 64), dict(block_q=256, block_k=256), "tc"),
-    (torch.float32, (1, 2, 256, 64), dict(), "cuda_core"),
+    (torch.float32, (1, 2, 256, 64), dict(), "tc_f32"),         # 3xTF32
     (torch.bfloat16, (1, 2, 256, 40), dict(), "cuda_core"),      # d % 16
     (torch.bfloat16, (1, 2, 64, 64), dict(kind="full", block_q=8,
                                           block_k=8), "cuda_core"),
@@ -341,6 +342,7 @@ def test_flash_route_keeps_decode_on_the_cuda_cores():
                                   block_k=128, has_pos=True)
         assert FA.flash_route(sched, dtype) == "cuda_core"
     assert set(FA.KERNELS) == {"flash_attention", "flash_attention_tc",
+                               "flash_attention_tc_f32",
                                "paged_flash_attention"}
 
 
