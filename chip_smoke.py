@@ -1099,14 +1099,23 @@ def domain_member_bands(dom, lay, block, storage, dev, band_rows=64):
                live.repeat_interleave(block, 0).repeat_interleave(block, 1))
 
 
-def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev):
+def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev, comp):
     """The n = 2**16, rho = 32 domain cells under the four lowerings:
     counted writes (checked against the membership rule band by band)
     and sums; then, not counted, the partials against the plain version
     slot by slot, their f64 total against the member total, and
-    CUDA-event timings beside masked_fill_ / torch.masked.sum."""
+    CUDA-event timings beside masked_fill_ / torch.masked.sum; a summary
+    line per cell and lowering, and the packed gasket's masked_fill_
+    (timed in the compact phase) beside them."""
     rho = CA_RHO
     rows, launches = [], {}
+    gasket = {r["lowering"]: r for r in comp["rows"]
+              if (r["rho"], r["coarsen"]) == (rho, 1)}
+    print(f"[domains] packed gasket n={N_MAIN} rho={rho}: masked_fill_ "
+          f"{gasket['closed_form']['write_library_ms']:.4f} ms; write "
+          + ", ".join(f"{gm} {r['write_ms']:.4f}" for gm, r in
+                      gasket.items())
+          + f" ms (bound {gasket['closed_form']['write_bound_ms']:.4f})")
     for name, args, storage in DOMAIN_MAIN:
         torch.cuda.empty_cache()
         dom = make_domain(D, name, args)
@@ -1190,8 +1199,17 @@ def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev):
               f"partials bit-equal to the plain version slot by slot, f64 "
               f"member total {exact}; masked_fill_ {fill_ms:.4f} ms, "
               f"torch.masked.sum {msum_ms:.4f} ms")
+        for row in rows[-len(LOWERINGS):]:
+            print(f"[domains] {what} {row['lowering']:>12}: write "
+                  f"{row['write_ms']:.4f} ms (bound "
+                  f"{row['write_bound_ms']:.4f}, masked_fill_ "
+                  f"{fill_ms:.4f}), partials {row['partials_ms']:.4f} ms "
+                  f"(bound {row['partials_bound_ms']:.4f}, "
+                  f"torch.masked.sum {msum_ms:.4f})")
         del m, mask
-    return {"rows": rows, "launches": launches}
+    return {"rows": rows, "launches": launches,
+            "packed_gasket_masked_fill_ms":
+                gasket["closed_form"]["write_library_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1935,7 +1953,8 @@ def main():
                        cell_neighbor_tables, TW, dev)
     comp = phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev)
     merge_err(errs, comp["err"])
-    doms = phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev)
+    doms = phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev,
+                             comp)
     t_attn = time.perf_counter()
     attn_err, attn_rel, attn_cases = phase_parity_attn(FA, LOWERINGS,
                                                        pack_kv, P, dev)
@@ -1971,6 +1990,13 @@ def main():
             "launches_domain_paths": dom_launches[name],
             "domain": domains,
         })
+    # the packed / embedded domain cells at n = 2**16, rho = 32 (closed_form)
+    for entry, key in zip(kernels, ("write", "partials")):
+        entry["domain_cells_closed_form"] = {
+            f"{r['domain']}{tuple(r['args'])} {r['storage']}": {
+                "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
+                "library_ms": r[f"{key}_library_ms"]}
+            for r in doms["rows"] if r["lowering"] == "closed_form"}
     kernels[-1].update({
         "library_note": "none: partials.sum() adds in another order",
         "reordered_sum_ms": at["combine_reordered_sum_ms"]})

@@ -318,6 +318,32 @@ __device__ __forceinline__ void generic_coords(const FracParams& p,
   by = (unsigned)q;
 }
 
+// The member columns [lo, lo + len) of block row q in block_coords order
+// (generic_coords' rows): a row walk that steps past lo + len - 1 goes on
+// at the next row's lo.
+__device__ __forceinline__ void generic_row(const FracParams& p, long long q,
+                                            long long& lo, long long& len) {
+  const long long w = p.dom_w;
+  if (p.family == kTriangular) {
+    lo = 0;
+    len = q + 1;
+  } else if (p.family == kBand) {
+    if (p.dom_off) {  // rectangular: every row a full window
+      lo = p.dom_off + q - w + 1;
+      len = w;
+    } else if (q < w) {  // the triangular head
+      lo = 0;
+      len = q + 1;
+    } else {
+      lo = q - w + 1;
+      len = w;
+    }
+  } else {  // kBox
+    lo = 0;
+    len = p.nbx;
+  }
+}
+
 // contains: is block (x, y) a member (any x, y, as the domains take them)?
 __device__ __forceinline__ bool generic_contains(const FracParams& p,
                                                  long long x, long long y) {

@@ -37,7 +37,11 @@
 //                   B = (ones, diff): by = count - 1, bx = t + diff.  K is
 //                   the block-row count (2048 for the triangle at n = 2^16,
 //                   rho = 32: 128 k-steps), so the CTA's warps share the
-//                   k-steps and add their exact partials in shared memory.
+//                   k-steps and add their exact partials in shared memory
+//                   (the CA kernel's form);
+//   rows_chain_warp (B7c batched, the write and sum kernels) A rows 2j and
+//                   2j + 1 carry those two one-hots of step t + j * stride,
+//                   j < 8: one warp's chain decodes eight of its steps.
 //
 // What bounds them: latency.  A chain is a few to a few hundred dependent
 // mma.sync per grid step next to a tile of memory traffic; their tensor
@@ -238,6 +242,79 @@ __device__ __forceinline__ void rows_chain_cta(const FracParams& p,
   __syncthreads();  // part is reused by the next step
   by = (unsigned)(c - 1);
   bx = (unsigned)(t + df);
+}
+
+// Steps per batched row chain: A's 16 rows, two per step.
+constexpr int kRowsBatch = 8;
+
+// Element (row, col) of the warp's D tile, each lane naming its own row
+// and col: lane 4 * (row % 8) + col / 2 holds it in register
+// 2 * (row / 8) + col % 2, so the lane reads all four of that lane's
+// registers and keeps one.
+__device__ __forceinline__ float dget_at(const float d[4], int row, int col) {
+  const int src = ((row & 7) << 2) | (col >> 1);
+  const float r0 = __shfl_sync(kFullMask, d[0], src);
+  const float r1 = __shfl_sync(kFullMask, d[1], src);
+  const float r2 = __shfl_sync(kFullMask, d[2], src);
+  const float r3 = __shfl_sync(kFullMask, d[3], src);
+  const bool hi = row >= 8, odd = col & 1;
+  return hi ? (odd ? r3 : r2) : (odd ? r1 : r0);
+}
+
+// B7c batched: the steps t_j = t + j * stride, j < nlive <= kRowsBatch, of
+// a row-major domain -> (bx, by) of step lane % 8, in every lane.  A row
+// 2j is [t_j >= starts[rho]], row 2j + 1 the one-hot row [starts[rho] <=
+// t_j < starts[rho + 1]]; rows of j >= nlive stay 0.  D row 2j, output 0,
+// is step j's count of started rows (by = count - 1), row 2j + 1, output
+// 1, its diff (bx = t_j + diff): one pass over the K = mk * 16 block rows
+// for eight steps.  Called by a whole warp from uniform control flow.
+__device__ __forceinline__ void rows_chain_warp(const FracParams& p,
+                                                const int* __restrict__ ops,
+                                                long long t, int stride,
+                                                int nlive, int lane,
+                                                unsigned& bx, unsigned& by) {
+  const int* starts = ops;
+  const uint2* frag = reinterpret_cast<const uint2*>(ops + p.mk * 16 + 2);
+  const int g = lane >> 2, tq = lane & 3;
+  const bool own = g & 1;  // rows g and g + 8: the own-row one-hot
+  const int ja = g >> 1, jb = ja + 4;  // the steps of rows g and g + 8
+  // step ids below 2^24 (the mma bound); -1 for a row past the batch,
+  // below every start
+  const int ta = ja < nlive ? (int)(t + (long long)ja * stride) : -1;
+  const int tb = jb < nlive ? (int)(t + (long long)jb * stride) : -1;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int ks = 0; ks < p.mk; ++ks) {
+    const int c = ks * 16 + 2 * tq;
+    // starts[c .. c + 2] and starts[c + 8 .. c + 10]; an own row also
+    // needs t below the next row's start, a >= row does not
+    const int s[6] = {starts[c], starts[c + 1], starts[c + 2],
+                      starts[c + 8], starts[c + 9], starts[c + 10]};
+    const int lo[4] = {s[0], s[1], s[3], s[4]};
+    const int hi[4] = {s[1], s[2], s[4], s[5]};
+    bool ha[4], hb[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int top = own ? hi[e] : 0x7fffffff;
+      ha[e] = ta >= lo[e] && ta < top;
+      hb[e] = tb >= lo[e] && tb < top;
+    }
+    unsigned a[4];
+    a[0] = pack2(ha[0], ha[1]);
+    a[1] = pack2(hb[0], hb[1]);
+    a[2] = pack2(ha[2], ha[3]);
+    a[3] = pack2(hb[2], hb[3]);
+    __syncwarp();
+    mma_bf16(d, a, frag[ks * 32 + lane]);
+  }
+  const int j = lane & 7;
+  const int count = recombine(dget_at(d, 2 * j, 0), dget_at(d, 2 * j, 1),
+                              dget_at(d, 2 * j, 2));
+  const int diff = recombine(dget_at(d, 2 * j + 1, 3),
+                             dget_at(d, 2 * j + 1, 4),
+                             dget_at(d, 2 * j + 1, 5));
+  by = (unsigned)(count - 1);
+  bx = (unsigned)(t + (long long)j * stride + diff);
 }
 
 }  // namespace fractal

@@ -3,8 +3,9 @@ an embedded n x n fractal, over a :class:`~repro_torch.core.plan.GridPlan`.
 
 Four lowerings, as in the JAX package:
 
-* ``closed_form`` (alias ``compact``) -- the lambda(w) map: one CTA per
-  member block, the block decoded in registers by the digit loop.
+* ``closed_form`` (alias ``compact``) -- the lambda(w) map: one warp per
+  member block, the block decoded in registers by the digit loop (a
+  row-major domain's blocks walked along their rows).
 * ``prefetch_lut`` -- the same enumeration read from a device int32
   coordinate table: an O(1) decode.
 * ``bounding`` -- the bounding-box baseline: nbx * nby steps, with the

@@ -644,3 +644,169 @@ def test_mma_raises_past_the_bound_before_any_launch(dev):
                               fractal="sierpinski-carpet", storage="compact",
                               n=6561)
     assert TW.launch_counts()["sierpinski_write"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the write and sum kernels' work split: persistent CTAs taking runs of
+# steps, a warp per step walking along the rows, 128-bit chunks
+# ---------------------------------------------------------------------------
+
+def _domain_state(dom, block, storage, dtype, seed, dev):
+    """An integer-valued state of the domain's storage shape."""
+    lay = compact_layout(dom)
+    shape = lay.array_shape(block) if storage == "compact" \
+        else lay.embedded_shape(block)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-8, 9, shape, generator=g, device=dev).to(dtype)
+
+
+def _walk_domains():
+    """Domains of ~10^6 steps (runs of many steps a warp, so the row walk
+    crosses block rows and slot rows) with step counts that are no
+    multiple of a run."""
+    from repro_torch.core.domain import (BandDomain, BoundingBoxDomain,
+                                         TriangularDomain)
+    return {"triangular": TriangularDomain(1499),
+            "band": BandDomain(4001, 251),
+            "band-rect": BandDomain(3001, 331, 3331),
+            "bounding-box": BoundingBoxDomain(1001, 997)}
+
+
+@pytest.mark.parametrize("name", ["triangular", "band", "band-rect",
+                                  "bounding-box"])
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("block", [1, 4])
+def test_domain_runs_cross_block_rows_and_slot_rows(dev, name, storage,
+                                                    grid_mode, block):
+    dom = _walk_domains()[name]
+    m = _domain_state(dom, block, storage, torch.float32, 7, dev)
+    plan, n, blk = TW.prepare_launch(m, block=block, grid_mode=grid_mode,
+                                     storage=storage, domain=dom)
+    p = plan.launch_params(n, blk, dev)
+    TW.check_write_against_plain(m, 7.3, plan, n, blk, p)
+    TW.check_sum_against_plain(m, plan, n, blk, p)
+
+
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+def test_fewer_steps_than_resident_warps(dev, grid_mode, storage):
+    from repro_torch.core.domain import TriangularDomain
+    dom = TriangularDomain(2)  # 3 steps (4 bounding): warps 3/4-7 idle
+    for block in (1, 8, 32):
+        m = _domain_state(dom, block, storage, torch.float32, block, dev)
+        plan, n, blk = TW.prepare_launch(m, block=block, grid_mode=grid_mode,
+                                         storage=storage, domain=dom)
+        p = plan.launch_params(n, blk, dev)
+        assert p.steps == (4 if grid_mode == "bounding" else 3)
+        TW.check_write_against_plain(m, 7.3, plan, n, blk, p)
+        TW.check_sum_against_plain(m, plan, n, blk, p)
+
+
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_pad_slots_keep_their_sentinel(dev, grid_mode, dtype):
+    from repro_torch.core.domain import TriangularDomain
+    dom = TriangularDomain(301)
+    lay = compact_layout(dom)
+    scols, srows = lay.grid_shape
+    assert scols * srows > dom.num_blocks  # the last slot row has pads
+    block = 8
+    m = torch.full(lay.array_shape(block), -3, dtype=dtype, device=dev)
+    plan, n, blk = TW.prepare_launch(m, block=block, grid_mode=grid_mode,
+                                     storage="compact", domain=dom)
+    p = plan.launch_params(n, blk, dev)
+    TW.check_write_against_plain(m, 5, plan, n, blk, p)
+    out = TW.write_cuda(m.clone(), 5, p)
+    slot = torch.arange(scols * srows, device=dev).view(srows, scols)
+    pad = (slot >= dom.num_blocks).repeat_interleave(block, 0) \
+        .repeat_interleave(block, 1)
+    assert bool((out[pad] == -3).all()) and bool((out[~pad] == 5).all())
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("domain", ["gasket", "triangular"])
+def test_misaligned_view_takes_the_scalar_path(dev, grid_mode, domain):
+    """A contiguous state 4 bytes past a 16-byte boundary: the same cells
+    through scalar accesses, in the same lane order, so float partials
+    are bit-equal to the aligned copy's."""
+    from repro_torch.core.domain import TriangularDomain
+    kw = dict(block=32, grid_mode=grid_mode)
+    if domain == "gasket":
+        shape, kw["fractal"] = (1024, 1024), "sierpinski-gasket"
+    else:
+        dom = TriangularDomain(40)
+        shape, kw["domain"] = compact_layout(dom).embedded_shape(32), dom
+    g = torch.Generator(device=dev).manual_seed(3)
+    even = torch.randn(shape, generator=g, device=dev)
+    odd = _misaligned(even)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 4
+    assert even.data_ptr() % 16 == 0
+    plan, n, blk = TW.prepare_launch(odd, **kw)
+    p = plan.launch_params(n, blk, dev)
+    got = TW.write_cuda(_misaligned(odd), 7.3, p)
+    assert torch.equal(got, TW.sierpinski_write_plain(odd.clone(), 7.3, plan,
+                                                      n, blk))
+    assert torch.equal(got, TW.write_cuda(even.clone(), 7.3, p))
+    TW.check_sum_against_plain(odd, plan, n, blk, p, rtol=1e-5)
+    assert torch.equal(TW.sum_partials_cuda(odd, p),
+                       TW.sum_partials_cuda(even, p))
+
+
+@pytest.mark.parametrize("block", [3, 9, 27, 128])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_domain_odd_and_wide_blocks(dev, block, grid_mode, dtype):
+    from repro_torch.core.domain import BandDomain, TriangularDomain
+    for dom in (TriangularDomain(7), BandDomain(9, 4)):
+        for storage in ("embedded", "compact"):
+            m = _domain_state(dom, block, storage, dtype, block, dev)
+            plan, n, blk = TW.prepare_launch(m, block=block,
+                                             grid_mode=grid_mode,
+                                             storage=storage, domain=dom)
+            p = plan.launch_params(n, blk, dev)
+            TW.check_write_against_plain(m, 7.3, plan, n, blk, p)
+            TW.check_sum_against_plain(m, plan, n, blk, p)
+
+
+@pytest.mark.parametrize("name", ["triangular", "band", "band-rect",
+                                  "bounding-box", "tall-box"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32])
+def test_domain_kernels_other_dtypes(dev, name, grid_mode, storage, dtype):
+    dom = _row_domains()[name]
+    for block in (1, 8, 16):
+        m = _domain_state(dom, block, storage, dtype, block, dev)
+        plan, n, blk = TW.prepare_launch(m, block=block, grid_mode=grid_mode,
+                                         storage=storage, domain=dom)
+        p = plan.launch_params(n, blk, dev)
+        TW.check_write_against_plain(m, 7.3, plan, n, blk, p)
+        TW.check_sum_against_plain(m, plan, n, blk, p)
+
+
+@pytest.mark.parametrize("fractal,n,block,s", COMPACT_CASES)
+def test_float_partials_equal_across_lowerings_and_storages(dev, fractal, n,
+                                                            block, s):
+    """The lane order depends only on a cell's offset in its superblock:
+    on a normal f32 state the partials of closed_form, prefetch_lut and
+    mma, embedded and compact, coarsened or not, are bit-equal."""
+    emb, packed = _packed(fractal, n, block, 5 * n, dev, integer=False)
+    for coarsen in (1, s):
+        got = []
+        for storage, m in (("embedded", emb), ("compact", packed)):
+            for gm in ("closed_form", "prefetch_lut", "mma"):
+                plan, n_, blk = TW.prepare_launch(
+                    m, block=block, grid_mode=gm, fractal=fractal,
+                    storage=storage, n=n, coarsen=coarsen)
+                got.append(TW.sum_partials_cuda(
+                    m, plan.launch_params(n_, blk, dev)))
+        assert all(torch.equal(got[0], x) for x in got[1:])
