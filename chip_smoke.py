@@ -17,8 +17,8 @@ domains at the same size, and the LM's serving path at full model width:
   and the gemma3-12b window as a band, under the four lowerings;
 * serving: the contiguous Server (quickstart, and gemma3-12b with 6 of
   its 48 layers) and the continuous-batching PagedServer (quickstart),
-  greedy, every decode attention through the block-space flash kernel
-  or the paged decode kernel.
+  greedy, every decode attention through the split-K decode kernel or
+  the paged decode kernel (one device routine, two front ends).
 
 The lowerings are closed_form, prefetch_lut, bounding and mma (the
 decode chains of csrc/mma_decode.cuh on the tensor cores); every loop
@@ -89,17 +89,20 @@ Phases, each printing its own lines:
              at D 256 the CUDA-core one, counted per kernel; each takes
              at least one case), rectangular local with compact KV (both
              dtypes, bit-equal to embedded), seq_pos scalar / vector and
-             full + window at block_q 1 and, on the tensor cores, at
-             block_q 64;
+             full + window at block_q 1 (the split-K decode kernel) and,
+             on the tensor cores, at block_q 64;
              the paged kernel against its plain version and bit-equal to
-             the contiguous seq_pos kernel at block_k == page_size;
+             the contiguous decode kernel at block_k == page_size (up to
+             gemma3-12b's width: pages of 16, D 256, bf16, GQA 16/8);
              every bf16 case also holds each output row to a relative
              error of ROW_RTOL (its largest printed per kernel);
 10. attn  -- flash_attention at the widths of quickstart (causal S 4096,
              B 4, f32: the 3xTF32 tensor-core kernel, also timed beside
              the CUDA-core kernel on the same inputs) and gemma3-12b
              (D 256 bf16: causal S 4096, local window 1024 at S 8192:
-             the bf16 tensor-core kernel) under the four lowerings:
+             the bf16 tensor-core kernel; causal S 4096 in f32: the
+             CUDA-core kernel, the path f32 takes past D 128) under the
+             four lowerings:
              counts set to 0, the entry point driven, counts read (each
              row's kernel launched once, the others not at all); kernel
              vs plain (bf16 rows also per row within ROW_RTOL: a fault in
@@ -110,8 +113,8 @@ Phases, each printing its own lines:
              per tensor-core kernel;
 11. serve -- launch counts set to 0, then Server.generate greedy on
              quickstart at full width (batch 8, prompt 128, 32 new,
-             max_len 256) through the flash kernel; counts read and held
-             to layers x decode steps; the same run with
+             max_len 256) through the split-K decode kernel; counts read
+             and held to layers x decode steps; the same run with
              grid_lowering="mma", counted on its own, its streams and
              step logits bit-equal to the first; the same run through
              the plain decode; step logits compared within SERVE_TOL and
@@ -123,19 +126,29 @@ Phases, each printing its own lines:
              forces preemptions, the page table verified at every step;
              counts read and held to layers x paged steps; streams
              against the single-request Server oracle and the paged
-             plain-decode run; then both kernels timed at their serving
-             shapes beside their plain versions and
-             scaled_dot_product_attention, and the flash kernel held to
-             its plain version at the gemma3-12b decode shape (bf16,
-             cache 1664, window 1024 and none);
-13. kernels line (B1-B5, the mma chains B7, and B4's tensor-core tile
-             paths flash_attention_tc (bf16) and flash_attention_tc_f32
-             (f32, 3xTF32)), then the result line.
+             plain-decode run; then both decode kernels timed at their
+             quickstart serving shapes and at the gemma3-12b decode shape
+             (B 4, 16/8 heads of 256 bf16, cache 1664, positions
+             1536-1551; contiguous at block_k 128, paged in 16-token
+             pages) beside their plain versions, their byte bounds and
+             scaled_dot_product_attention, each held to its plain version
+             (gemma3-12b: window 1024 and none, paged bit-equal to the
+             contiguous kernel at block_k 16);
+13. kernels line (B1-B5 with B4 as the CUDA-core flash kernel and the
+             split-K decode kernel flash_attention_decode, the mma chains
+             B7, and B4's tensor-core tile paths flash_attention_tc (bf16)
+             and flash_attention_tc_f32 (f32, 3xTF32)), then the result
+             line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
-commit unpacked beside this script).  ``python3 chip_smoke.py --compare
-CHANGE.json [...] --parent PARENT.json [...]`` reads the JSON of runs of
+commit unpacked beside this script).  ``python3 chip_smoke.py
+--decode-only`` runs phases 1 and 2, then only the decode timings of
+phase 12, writes them to chiprun_out/chip_smoke.json and prints no result
+line: a copy of this script run from an earlier tree's root times that
+tree's kernels through the same entry points (flash_cuda, paged_cuda), so
+``--compare`` can pair them with this tree's full runs.
+``python3 chip_smoke.py --compare CHANGE.json [...] --parent PARENT.json [...]`` reads the JSON of runs of
 two trees (written to chiprun_out/chip_smoke.json; runs taken in turns
 on one card) and prints every time the change moved outside 0.94-1.06x
 of the parent's median, with both sides' runs; it needs no card and
@@ -285,7 +298,8 @@ def phase_build(_cuda):
         for name in paths) + f" (in parallel, {secs:.1f} s in all)")
     kernels = ("write_kernel", "sum_partials_kernel", "sum_combine_kernel",
                "ca_fused_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
-               "flash_fwd_tf32_kernel", "paged_decode_kernel")
+               "flash_fwd_tf32_kernel", "flash_decode_kernel",
+               "paged_decode_kernel")
     for name, path in paths.items():
         print(f"[build] {name}: {path.name}")
         entry = ""
@@ -1231,7 +1245,9 @@ ATTN_TIMED = [("quickstart causal", 4, 12, 12, 4096, 64, torch.float32,
               ("gemma3-12b causal", 1, 16, 8, 4096, 256, torch.bfloat16,
                "causal", 0),
               ("gemma3-12b local", 1, 16, 8, 8192, 256, torch.bfloat16,
-               "local", 1024)]
+               "local", 1024),
+              ("gemma3-12b causal f32", 1, 16, 8, 4096, 256, torch.float32,
+               "causal", 0)]
 #: serve: quickstart at full width, then gemma3-12b at full width cut to
 #: 6 of its 48 layers (one 5:1 local:global period); max_len a multiple
 #: of 128 so every decode attention runs the block-space kernel
@@ -1361,8 +1377,8 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
     print("[parity-attn] rectangular local (Sq 256 of Sk 1024, window 256) "
           "with compact KV: within tolerance, bit-equal to embedded KV")
     # seq_pos: scalar and per-row, full + run-time window, at block_q 1
-    # (decode, the CUDA-core kernel in both dtypes) and block_q 64 (on the
-    # tensor cores: bf16, and f32 at D 64)
+    # (decode, the split-K decode kernel in both dtypes) and block_q 64 (on
+    # the tensor cores: bf16, and f32 at D 64)
     for dtype in ATTN_DTYPES:
         for d in (64, 256):
             for sq, bq in ((1, 1), (64, 64)):
@@ -1378,10 +1394,11 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                             grid_mode=gm, has_pos=True), pv)
     print("[parity-attn] seq_pos scalar / (B,) vector, full + window 300, "
           "block_q 1 and 64: within tolerance")
-    # paged == contiguous seq_pos decode, bit for bit
+    # paged == contiguous seq_pos decode, bit for bit (pages of 16 at D 256:
+    # gemma3-12b's width)
     nbit = 0
     for dtype in ATTN_DTYPES:
-        for ps, d in ((16, 64), (64, 128), (128, 256)):
+        for ps, d in ((16, 64), (64, 128), (128, 256), (16, 256)):
             q, k, v = attn_inputs([(4, 16, 1, d), (4, 8, 1024, d),
                                    (4, 8, 1024, d)], dtype, 700 + ps, dev)
             pool, table = paged_copy(k, v, ps, P, dev, ps)
@@ -1397,15 +1414,15 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                 sched = FA.flash_schedule(q.shape, k.shape, kind="full",
                                           window=win, block_q=1, block_k=ps,
                                           has_pos=True)
-                check(FA.flash_route(sched, dtype) == "cuda_core",
-                      "decode routed off the CUDA-core kernel")
+                check(FA.flash_route(sched, dtype) == "decode",
+                      "decode routed off the split-K decode kernel")
                 check(torch.equal(paged, FA.flash_cuda(q, k, v, sched, pos)),
                       f"paged decode ps={ps} d={d} window={win} {dtype}: "
-                      f"not bit-equal to the contiguous seq_pos kernel")
+                      f"not bit-equal to the contiguous decode kernel")
                 nbit += 1
     torch.cuda.synchronize()
     print(f"[parity-attn] paged decode: within tolerance of its plain "
-          f"version and bit-equal to the contiguous seq_pos kernel at "
+          f"version and bit-equal to the contiguous decode kernel at "
           f"block_k == page_size ({nbit} cases)")
     check(all(c > 0 for c in cases.values()),
           f"a flash kernel took no parity case: {cases}")
@@ -1439,6 +1456,41 @@ def sdpa_kernels(fn):
     return sorted({e.key for e in prof.key_averages()
                    if getattr(e, "device_type", None) is not None
                    and "CUDA" in str(e.device_type)})
+
+
+def device_ms(fn, reps=50):
+    """The card's time for one call of ``fn`` in ms: the durations of the
+    device kernels it launches, summed over a torch.profiler trace of
+    ``reps`` calls after a warm-up, over reps; None when the trace holds
+    no device time.  A CUDA-event span around a call as short as a decode
+    also counts the host time between its launches (the wrapper's Python),
+    this does not."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if getattr(e, "device_type", None) is not None
+             and "CUDA" in str(e.device_type))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def device_times(row):
+    """A decode row's kernel and library times for the kernels line: the
+    profiler's device times where it saw them (a decode is shorter than
+    the host time of its call), else the CUDA-event spans; the spans
+    stay beside them as call_ms / library_call_ms."""
+    dev_ok = row.get("device_ms") is not None \
+        and row.get("library_device_ms") is not None
+    return {"ms": row["device_ms"] if dev_ok else row["ms"],
+            "library_ms": row["library_device_ms"] if dev_ok
+            else row["library_ms"],
+            "ms_by": "torch.profiler device time" if dev_ok
+            else "CUDA events around one call",
+            "call_ms": row["ms"], "library_call_ms": row["library_ms"]}
 
 
 def phase_attn(FA, LOWERINGS, dev):
@@ -1617,12 +1669,15 @@ def phase_serve(S, TM, get_config, FA, dev):
                                           max_len, "blockspace")
         launches = FA.launch_counts()
         print(f"[serve] {arch} blockspace: launches {launches}")
-        check(launches["flash_attention"] == cfg.n_layers * (max_new - 1),
-              f"{arch}: {launches['flash_attention']} flash launches, "
-              f"expected layers x decode steps = "
+        check(launches["flash_attention_decode"]
+              == cfg.n_layers * (max_new - 1),
+              f"{arch}: {launches['flash_attention_decode']} decode "
+              f"launches, expected layers x decode steps = "
               f"{cfg.n_layers * (max_new - 1)}")
-        check(launches["paged_flash_attention"] == 0,
-              "the contiguous server launched the paged kernel")
+        check(sum(launches.values())
+              == launches["flash_attention_decode"],
+              f"the contiguous server launched another attention kernel: "
+              f"{launches}")
         mma_run = None
         if arch == "quickstart":
             # the decode kernel under the mma lowering: counted on its own,
@@ -1708,8 +1763,9 @@ def phase_paged(S, FA, cfg, model, dev):
           == cfg.n_layers * rep["decode_steps"],
           f"{launches['paged_flash_attention']} paged launches, expected "
           f"layers x paged steps = {cfg.n_layers * rep['decode_steps']}")
-    check(launches["flash_attention"] == 0,
-          "the paged server launched the contiguous kernel")
+    check(sum(launches.values()) == launches["paged_flash_attention"],
+          f"the paged server launched another attention kernel: "
+          f"{launches}")
     check(rep["preemptions"] >= 1, "the pool was not small enough to "
           "preempt")
     check(srv.alloc.free_pages == PAGED_PAGES - 1, "pages leaked")
@@ -1756,60 +1812,124 @@ def phase_paged(S, FA, cfg, model, dev):
     return rep
 
 
-def gemma_decode_check(FA, dev):
-    """The flash kernel against its plain version at the decode shape of
-    the gemma3-12b Server (B 4, 16/8 heads of 256, bf16, cache 1664,
-    block_k 128, per-row positions past 1536) with its local layers'
-    window of 1024 and its global layers' full range; returns the max
-    |err|."""
+def decode_bound(q, hkv, keys):
+    """(ms, bound_by) of a decode: q read, o written, and the K and V rows
+    of ``keys`` positions summed over the slots read once per kv head; 4 d
+    flops per (q head, key)."""
+    b, h, _, d = q.shape
+    nbytes = (2 * q.numel() + 2 * hkv * keys * d) * q.element_size()
+    return attn_bound(nbytes, 4 * d * h * keys, q.dtype)[:2]
+
+
+def gemma_decode_check(FA, P, dev):
+    """Both decode kernels at the decode shape of the gemma3-12b Server
+    (B 4, 16/8 heads of 256, bf16, cache 1664, per-row positions past
+    1536): the contiguous caches at block_k 128 and the same caches copied
+    into 16-token pages, each held to its plain version under its local
+    layers' window of 1024 and its global layers' full range, the paged
+    kernel bit-equal to the contiguous one at block_k 16; then both timed
+    on the global layers' range beside their plain versions, their byte
+    bounds and scaled_dot_product_attention (enable_gqa, on the caches cut
+    to the longest row, a boolean mask per row).  Returns
+    {"flash_attention": row, "paged_flash_attention": row}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     arch, cut, b, plen, max_new, max_len = SERVE_RUNS[1]
-    q, k, v = attn_inputs([(b, 16, 1, 256), (b, 8, max_len, 256),
-                           (b, 8, max_len, 256)], torch.bfloat16, 902, dev)
+    h, hkv, d, ps = 16, 8, 256, PAGED_PS
+    q, k, v = attn_inputs([(b, h, 1, d), (b, hkv, max_len, d),
+                           (b, hkv, max_len, d)], torch.bfloat16, 902, dev)
     pv = torch.tensor([plen, plen + 3, plen + 7, plen + max_new - 1],
                       dtype=torch.int32, device=dev)
-    err = 0.0
+    pool, table = paged_copy(k, v, ps, P, dev, 902)
+    err = {"flash_attention": 0.0, "paged_flash_attention": 0.0}
     for window in (1024, 0):
         sched = FA.flash_schedule(q.shape, k.shape, kind="full",
                                   window=window, block_q=1, block_k=128,
                                   has_pos=True)
-        err = max(err, FA.check_flash_against_plain(q, k, v, sched, pv)[0])
-    print(f"[decode] {arch} decode shape (B {b}, 16/8 heads of 256 bf16, "
-          f"cache {max_len}, positions {pv.tolist()}, window 1024 and 0): "
-          f"kernel within 2e-2 of its plain version, max |err| {err}")
-    return err
+        err["flash_attention"] = max(err["flash_attention"],
+                                     FA.check_flash_against_plain(
+                                         q, k, v, sched, pv)[0])
+        psched = FA.paged_schedule(q.shape, pool.shape, table.shape,
+                                   window=window)
+        e, paged = FA.check_paged_against_plain(q, pool, table, pv, psched)
+        err["paged_flash_attention"] = max(err["paged_flash_attention"], e)
+        s16 = FA.flash_schedule(q.shape, k.shape, kind="full", window=window,
+                                block_q=1, block_k=ps, has_pos=True)
+        check(torch.equal(paged, FA.flash_cuda(q, k, v, s16, pv)),
+              f"{arch} decode shape, window {window}: paged not bit-equal "
+              f"to the contiguous kernel at block_k {ps}")
+    sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
+                              block_k=128, has_pos=True)
+    psched = FA.paged_schedule(q.shape, pool.shape, table.shape)
+    keys = int((pv.long() + 1).sum())
+    span = int(pv.max()) + 1
+    kc, vc = k[:, :, :span].contiguous(), v[:, :, :span].contiguous()
+    mask = (torch.arange(span, device=dev)[None, :]
+            <= pv[:, None].long())[:, None, None, :]
+    lib_ms = time_ms(lambda: sdpa(q, kc, vc, attn_mask=mask,
+                                  enable_gqa=True), 50)
+    lib_kernels = sdpa_kernels(lambda: sdpa(q, kc, vc, attn_mask=mask,
+                                            enable_gqa=True))
+    lib_dev_ms = device_ms(lambda: sdpa(q, kc, vc, attn_mask=mask,
+                                        enable_gqa=True))
+    bound_ms, bound_by = decode_bound(q, hkv, keys)
+    at = (f"{arch} decode: B={b} H={h}/{hkv} D={d} bf16, cache {max_len}, "
+          f"positions {pv.tolist()} ({keys} K and V rows per kv head over "
+          f"the {b} slots)")
+    out = {}
+    for name, run, plain, how in (
+            ("flash_attention",
+             lambda: FA.flash_cuda(q, k, v, sched, pv),
+             lambda: FA.flash_attention_plain(q, k, v, sched, pv),
+             "block_k 128"),
+            ("paged_flash_attention",
+             lambda: FA.paged_cuda(q, pool, table, pv, psched),
+             lambda: FA.paged_attention_plain(q, pool, table, pv, psched),
+             f"pages of {ps}")):
+        out[name] = {"ms": time_ms(run, 50), "device_ms": device_ms(run),
+                     "plain_ms": time_ms(plain, 5),
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                     "library_kernels": lib_kernels,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": err[name], "at": f"{at}, {how}"}
+        print(f"[decode] {arch} {name}: {json.dumps(out[name])}")
+    print(f"[decode] {arch} decode shape: both kernels within tolerance of "
+          f"their plain versions under window 1024 and 0, paged bit-equal "
+          f"to the contiguous kernel at block_k {ps}")
+    return out
 
 
-def decode_timings(FA, P, cfg, prompts, dev):
-    """Both attention kernels at their serving shapes (the kernels
-    line): the contiguous decode of the quickstart Server at position
-    prompt + max_new / 2, and the paged decode of 8 slots."""
+def decode_timings(FA, P, cfg, dev):
+    """Both decode kernels at their serving shapes: the contiguous decode
+    of the quickstart Server at position prompt + max_new / 2, the paged
+    decode of 8 slots, and the gemma3-12b decode shape
+    (:func:`gemma_decode_check`).  Keyed by entry point: flash_attention
+    (flash_cuda on a decode call) and paged_flash_attention."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, plen = prompts.shape
-    pos = plen + SERVE_RUNS[0][4] // 2
+    _, _, b, plen, max_new, max_len = SERVE_RUNS[0]
+    pos = plen + max_new // 2
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    max_len = SERVE_RUNS[0][5]
     q, k, v = attn_inputs([(b, h, 1, d), (b, hkv, max_len, d),
                            (b, hkv, max_len, d)], torch.float32, 900, dev)
     sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
                               block_k=128, has_pos=True)
     pv = FA.seq_pos_vector(pos, b, dev)
     err, _ = FA.check_flash_against_plain(q, k, v, sched, pv)
-    err = max(err, gemma_decode_check(FA, dev))
     tiles = pos // 128 + 1
     out = {"flash_attention": {
         "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched, pv), 50),
+        "device_ms": device_ms(lambda: FA.flash_cuda(q, k, v, sched, pv)),
         "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v, sched,
                                                              pv), 10),
         "library_ms": time_ms(lambda: sdpa(q, k[:, :, :pos + 1],
                                            v[:, :, :pos + 1]), 50),
+        "library_device_ms": device_ms(lambda: sdpa(
+            q, k[:, :, :pos + 1], v[:, :, :pos + 1])),
         "max_abs_err": err,
+        "kernel": FA.ROUTE_KERNELS[FA.flash_route(sched, q.dtype)],
         "at": f"quickstart decode: B={b} H={h} D={d} f32, cache {max_len}, "
               f"seq_pos {pos}, block_k 128 ({tiles} tiles read)"}}
-    # q read, o written, and the keys and values 0..pos of every row
-    nbytes = 2 * q.numel() * 4 + 2 * b * hkv * (pos + 1) * d * 4
-    nops = 4 * d * b * h * (pos + 1)
-    out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"], \
-        _ = attn_bound(nbytes, nops, torch.float32)
+    out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"] = \
+        decode_bound(q, hkv, b * (pos + 1))
     # paged: 8 slots at mixed positions
     ps, slots = PAGED_PS, PAGED_SLOTS
     smax = PAGED_PROMPT + PAGED_NEW
@@ -1826,23 +1946,25 @@ def decode_timings(FA, P, cfg, prompts, dev):
     out["paged_flash_attention"] = {
         "ms": time_ms(lambda: FA.paged_cuda(q, pool, table, posv, psched),
                       50),
+        "device_ms": device_ms(lambda: FA.paged_cuda(q, pool, table, posv,
+                                                     psched)),
         "plain_ms": time_ms(lambda: FA.paged_attention_plain(
             q, pool, table, posv, psched), 10),
         "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=mask), 50),
+        "library_device_ms": device_ms(lambda: sdpa(q, k, v,
+                                                    attn_mask=mask)),
         "library_note": "scaled_dot_product_attention on the same K/V "
                         "gathered into contiguous caches (gather not timed)",
         "max_abs_err": err,
         "at": f"quickstart paged decode: {slots} slots H={h} D={d} f32, "
               f"pages of {ps}, positions {posv.tolist()} ({pages} pages "
               f"read)"}
-    keys = int((posv.long() + 1).sum())
-    nbytes = 2 * q.numel() * 4 + 2 * hkv * keys * d * 4
-    nops = 4 * d * h * keys
     out["paged_flash_attention"]["bound_ms"], \
-        out["paged_flash_attention"]["bound_by"], _ = attn_bound(
-            nbytes, nops, torch.float32)
+        out["paged_flash_attention"]["bound_by"] = decode_bound(
+            q, hkv, int((posv.long() + 1).sum()))
     for name, row in out.items():
         print(f"[decode] {name}: {json.dumps(row)}")
+    out["gemma3-12b"] = gemma_decode_check(FA, P, dev)
     return out
 
 
@@ -1940,6 +2062,13 @@ def main():
     if "--build-only" in sys.argv[1:]:
         print("[build-only] built and reported; no phase run, no result")
         return
+    if "--decode-only" in sys.argv[1:]:
+        decode = decode_timings(FA, P, get_config("quickstart"), dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "decode": decode}, indent=1))
+        print("[decode-only] decode timings written; no result")
+        return
     errs = phase_parity(TW, LOWERINGS, dev)
     merge_err(errs, phase_parity_compact(TW, F, LOWERINGS, compact_layout,
                                          dev))
@@ -1960,9 +2089,9 @@ def main():
                                                        pack_kv, P, dev)
     attn_rows, attn_launches = phase_attn(FA, LOWERINGS, dev)
     serve_runs, models = phase_serve(S, TM, get_config, FA, dev)
-    qcfg, qmodel, qprompts = models["quickstart"]
+    qcfg, qmodel, _ = models["quickstart"]
     paged = phase_paged(S, FA, qcfg, qmodel, dev)
-    decode = decode_timings(FA, P, qcfg, qprompts, dev)
+    decode = decode_timings(FA, P, qcfg, dev)
     print(f"[attention phases] {time.perf_counter() - t_attn:.1f} s")
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
@@ -2048,24 +2177,50 @@ def main():
     })
     serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
     serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
-    for name, replaces, launches, extra in [
-            ("flash_attention", "src/repro/kernels/flash_attention.py:103",
-             serve_q["launches"]["flash_attention"],
+    # B4 on the CUDA cores (flash_fwd_kernel): the f32 prefill rows at
+    # gemma3-12b's head dim of the attn phase (counted there), closed_form
+    cc = [r for r in attn_rows if r["kernel"] == "cuda_core"]
+    cc_at = next(r for r in cc if r["lowering"] == "closed_form")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+        "launches": attn_launches["flash_attention"],
+        "max_abs_err": max([attn_err["flash_attention"]]
+                           + [r["max_abs_err"] for r in cc]),
+        "ms": cc_at["ms"], "plain_ms": cc_at["plain_ms"],
+        "bound_ms": cc_at["bound_ms"], "bound_by": cc_at["bound_by"],
+        "library_ms": cc_at["library_ms"],
+        "library_kernels": cc_at["library_kernels"],
+        "at": f"{cc_at['case']}: S {cc_at['s']} B {cc_at['b']} heads "
+              f"{cc_at['h']}/{cc_at['hkv']} D {cc_at['d']} f32, blocks "
+              f"{cc_at['blocks']}, closed_form",
+        "parity_cases": attn_cases["flash_attention"]})
+    # the decode kernels (one routine, two front ends): timed at the
+    # quickstart serving shapes, with the gemma3-12b decode shape beside
+    for name, entry, replaces, launches, extra in [
+            ("flash_attention_decode", "flash_attention",
+             "src/repro/kernels/flash_attention.py:103",
+             serve_q["launches"]["flash_attention_decode"],
              {"launches_gemma3_12b_serve": serve_g["launches"][
-                 "flash_attention"],
-              "launches_attn_phase": attn_launches["flash_attention"]}),
-            ("paged_flash_attention",
+                 "flash_attention_decode"],
+              "parity_cases": attn_cases["flash_attention_decode"]}),
+            ("paged_flash_attention", "paged_flash_attention",
              "src/repro/kernels/flash_attention.py:654",
              paged["launches"]["paged_flash_attention"], {})]:
-        row = decode[name]
+        row, gem = decode[entry], decode["gemma3-12b"][entry]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max(attn_err[name], row["max_abs_err"]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "max_abs_err": max(attn_err[name], row["max_abs_err"],
+                               gem["max_abs_err"]),
+            **device_times(row), "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "at": row["at"], **extra})
+            "at": row["at"],
+            "routine": "src/repro_torch/csrc/decode_split.cuh",
+            "gemma3_12b": {**device_times(gem), **{key: gem[key] for key in (
+                "plain_ms", "bound_ms", "bound_by", "at")}}, **extra})
     # B4's bf16 tile path on the tensor cores: the gemma3-12b rows of the
     # attn phase (counted there), timed at the causal row, closed_form
     tc = {r["case"]: r for r in attn_rows

@@ -36,6 +36,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.backend import default_device
+
 #: physical page 0 is never allocated: it is the write target of
 #: inactive slots (masked scatters) and the pad entry of page tables.
 NULL_PAGE = 0
@@ -140,9 +142,10 @@ def split_kv(kv: torch.Tensor):
 
 def init_pool(num_pages: int, kv_heads: int, page_size: int, d: int,
               dtype=torch.float32, device=None) -> torch.Tensor:
-    """Zeroed pool ``(num_pages, 2*Hkv, page_size, d)``."""
+    """Zeroed pool ``(num_pages, 2*Hkv, page_size, d)`` on ``device``
+    (the card unless the caller names another)."""
     return torch.zeros((num_pages, 2 * kv_heads, page_size, d),
-                       dtype=dtype, device=device)
+                       dtype=dtype, device=default_device(device))
 
 
 def gather_kv(pool: torch.Tensor, page_table: torch.Tensor):

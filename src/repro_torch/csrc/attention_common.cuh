@@ -1,13 +1,13 @@
 // Shared pieces of the attention kernels (csrc/flash_attention.cu): the
-// launch parameters, the shared-memory layout and the one online-softmax
-// tile update that both the block-space flash kernel and the paged decode
-// kernel run.
+// launch parameters, the masks, and the shared-memory layout and online-
+// softmax tile update of the CUDA-core flash kernel (flash_fwd_kernel).
+// The decode kernels' routine is decode_split.cuh.
 //
-// Both kernels inline the same tile_update() in the same loop order, and
-// every float operation of the update is an explicit round-to-nearest
+// Every float operation of the update is an explicit round-to-nearest
 // intrinsic (__fmaf_rn, __fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn): nvcc
-// cannot contract them differently in the two kernels, so the paged decode
-// is bit-equal to the contiguous seq_pos decode at block_k == page_size.
+// cannot contract them differently in two kernels that inline the same
+// code, which is what keeps the paged decode bit-equal to the contiguous
+// seq_pos decode at block_k == page_size (decode_split.cuh does the same).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -119,6 +119,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// e^x as 2^(x log2 e) on the SFU (ex2.approx: relative error ~2^-22,
+// denormal results flushed to 0; exactly 1 at x = 0, and 0 at
+// -1e30 - m).
+__device__ __forceinline__ float exp_f32(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, kLog2e)));
+  return y;
+}
+
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
   return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
@@ -171,7 +182,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 // kpos is live for query position qpos.  kind causal / local compare the
 // two positions; with seq_pos (has_pos) keys past pos are masked, and
 // under kind full a nonzero window also masks keys at or before
-// pos - window.  Both flash kernels and the paged decode test keys here.
+// pos - window.  Every flash kernel and both decode kernels test keys here.
 __device__ __forceinline__ bool key_live(const AttnParams& p, int qpos,
                                          int kpos, int pos) {
   bool live = true;

@@ -1,20 +1,24 @@
-// Block-space flash attention and paged decode for Hopper (sm_90a), with a
+// Block-space flash attention and decode for Hopper (sm_90a), with a
 // plain C interface loaded through ctypes (repro_torch/kernels/_cuda.py).
 //
 // Replaces (JAX package, Pallas):
 //   flash_fwd_tc_kernel   <- kernels/flash_attention.py::_attn_kernel and
 //   flash_fwd_tf32_kernel    its gpu structure _gpu_flash_call (row bounds
 //   flash_fwd_kernel         _row_bounds, tile math _attn_tile_update);
-//                            the tile paths' K/V ring is core/backend.py::
-//                            stream_tiles, the ring of the _dma variants
+//   flash_decode_kernel      the tile paths' K/V ring is core/backend.py::
+//                            stream_tiles, the ring of the _dma variants;
+//                            flash_decode_kernel is _attn_kernel at
+//                            block_q = 1 through seq_pos
 //   paged_decode_kernel   <- kernels/flash_attention.py::_paged_attn_kernel
 //                            and its gpu structure _gpu_paged_call
 //
-// The wrapper (kernels/flash_attention.py flash_route) sends bf16 calls
-// with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel, f32
-// calls with block_q and block_k multiples of 16 and d a multiple of 8 up
-// to 128 to flash_fwd_tf32_kernel (q, k, v 16-byte aligned for both), and
-// every other call (decode at block_q = 1, f32 at d > 128) to
+// The wrapper (kernels/flash_attention.py flash_route) sends single-token
+// kind "full" calls with seq_pos (decode) to flash_decode_kernel, bf16
+// calls with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel,
+// f32 calls with block_q and block_k multiples of 16 and d a multiple of 8
+// up to 128 to flash_fwd_tf32_kernel (q, k, v 16-byte aligned for both),
+// and every other call (f32 prefill at d > 128, blocks that are not
+// multiples of 16, block_q = 1 calls that are not decode) to
 // flash_fwd_kernel.
 //
 // Every flash kernel: one CTA per (batch * head, query-block row), as the
@@ -32,16 +36,28 @@
 // head h / (H / Hkv).  Every lowering runs the same tile arithmetic in the
 // same order, so the four are bit-equal to each other.
 //
-// paged_decode_kernel: one CTA per (slot, head); the loop runs from start
-// to pos // page_size, reads page = page_table[slot, kb] and the fused
-// (2, page_size, d) tile at pool rows 2 kvh (K) and 2 kvh + 1 (V), and runs
-// the same tile_update() with block_q = 1, block_k = page_size, kind full.
+// The two decode kernels are front ends of one routine
+// (decode_split.cuh): flash_decode_kernel takes the extent from the
+// lowering as above (bounding's skip and the compact-KV clamp in its tile
+// functor), paged_decode_kernel runs from start to
+// min(pos // page_size, max_pages - 1) and reads logical block kb at page
+// page_table[slot, kb], K at pool row 2 kvh and V at 2 kvh + 1.  Decode is
+// bound by bytes: each K/V row visited is 2 d values against 4 d flops per
+// q head (gemma3-12b's decode: ~51 MB of K/V for 4 slots at 1552 keys,
+// 0.015 ms at 3.35 TB/s).  So a CTA serves a whole GQA group (each K/V
+// byte read once per kv head, in 16-byte loads), one per (slot, kv head,
+// split), split j covering key blocks [j T, j T + T - 1] of the extent
+// with T = dec::kSplitKeys / block_k: the rule sees only the key block,
+// block_k, pos and the window, so paged decode is bit-equal to contiguous
+// decode at block_k == page_size whatever the table's width, and the four
+// lowerings to each other.  Warps keep their own online state over fixed
+// key batches and merge in warp order; the splits merge in split order in
+// the same launch (the last CTA to arrive, by an atomic counter).
 //
-// What bounds them on an H100 (80 GB HBM3 at 3.35 TB/s; 67 TFLOP/s f32
-// outside the tensor cores, 989 TFLOP/s bf16 and 495 TF32 in them):
+// What bounds the others on an H100 (80 GB HBM3 at 3.35 TB/s; 67 TFLOP/s
+// f32 outside the tensor cores, 989 TFLOP/s bf16 and 495 TF32 in them):
 // prefill-sized attention is bound by operations (4 d flops per visited
-// (query, key) pair, three times that in 3xTF32), decode by bytes (each
-// visited K/V tile read once per q head).
+// (query, key) pair, three times that in 3xTF32).
 //
 // flash_fwd_tc_kernel (bf16 prefill) moves those operations onto the
 // tensor cores with mma.sync.m16n8k16 (bf16 operands, f32 sums):
@@ -122,18 +138,21 @@
 // it: every warp splits the K and V values it reads (the same sub-tile
 // in all 8 warps), so integer and f32 work issues beside each product.
 //
-// flash_fwd_kernel (decode, f32 past d = 128, small blocks) is simple
-// rather than fast: scores and p v run in f32 on the CUDA cores, 8 warps
-// own 4 query rows each per pass, K/V tiles are staged through shared
-// memory 32 keys at a time (so d = 256 with 128-key tiles fits: 32 q rows
-// + 32 keys + 32 x 128 scores of f32 = 97 KB), and a query block of more
-// than 32 rows re-reads its K/V tiles once per pass (from L2).  The
-// online softmax updates once per schedule tile: all block_k scores of a
-// tile are in shared memory before its row max is taken.  Decode
-// (block_q = 1) keeps one warp busy per CTA; split-K is later work.
+// flash_fwd_kernel (f32 past d = 128, small blocks) is simple rather
+// than fast: scores and p v run in f32 on the CUDA cores, 8 warps own 4
+// query rows each per pass, K/V tiles are staged through shared memory
+// 32 keys at a time (so d = 256 with 128-key tiles fits: 32 q rows + 32
+// keys + 32 x 128 scores of f32 = 97 KB), and a query block of more than
+// 32 rows re-reads its K/V tiles once per pass (from L2).  The online
+// softmax updates once per schedule tile: all block_k scores of a tile
+// are in shared memory before its row max is taken.
+
+#include <cstdint>
+#include <type_traits>
 
 #include "async_ring.cuh"
 #include "attention_common.cuh"
+#include "decode_split.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -229,7 +248,6 @@ constexpr int kTcRowsPerWarp = 16;  // one m16 tile of query rows per warp
 constexpr int kTcMaxWarps = 8;
 constexpr int kTcRowsPerPass = kTcRowsPerWarp * kTcMaxWarps;
 constexpr int kTcSub = 64;  // keys per sub-tile: one ring slot of K and V
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The first key block at or after kb that the row visits (bounding skips
 // the tiles outside the block domain); end + 1 when none is left.
@@ -238,14 +256,6 @@ __device__ __forceinline__ int next_live(const AttnParams& p, int kb, int qb,
   if (p.lowering == kBounding)
     while (kb <= end && !in_domain(p, kb, qb)) ++kb;
   return kb;
-}
-
-// e^x as 2^(x log2 e) on the SFU (ex2.approx: relative error ~2^-22,
-// denormal results flushed to 0).
-__device__ __forceinline__ float exp_f32(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, kLog2e)));
-  return y;
 }
 
 // The CTA's query-block row qb and (batch * head) bh: query-block rows
@@ -778,36 +788,108 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   }
 }
 
-// p.m_k is the page table's width (max_pages), p.block_k the page size.
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(AttnParams p, const T* __restrict__ q,
+// ---------------------------------------------------------------------------
+// decode: flash_decode_kernel and paged_decode_kernel, two front ends of
+// the split-K routine of decode_split.cuh
+// ---------------------------------------------------------------------------
+
+// Contiguous caches (B, Hkv, sk_arr, d): key block kb at the compact-KV
+// clamp clip(kb - s0, 0, kv_blocks - 1); the bounding lowering visits
+// only the blocks of the domain (query-block row 0).
+template <typename T>
+struct ContigTiles {
+  AttnParams p;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  size_t kv_head;  // first row of this (batch, kv head)
+
+  __device__ __forceinline__ bool member(int kb) const {
+    return p.lowering != kBounding || in_domain(p, kb, 0);
+  }
+  __device__ __forceinline__ void rows(int kb, int off, const T*& krow,
+                                       const T*& vrow) const {
+    const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
+    const size_t r = (kv_head + (size_t)kv * p.block_k + off) * p.d;
+    krow = k + r;
+    vrow = v + r;
+  }
+};
+
+// The fused pool (P, 2 Hkv, page_size, d): logical block kb of the slot at
+// page table_row[kb], K at row 2 kvh of the page and V at row 2 kvh + 1.
+template <typename T>
+struct PagedTiles {
+  AttnParams p;
+  const T* __restrict__ pool;
+  const int* __restrict__ table_row;
+  int kvh;
+
+  __device__ __forceinline__ bool member(int) const { return true; }
+  __device__ __forceinline__ void rows(int kb, int off, const T*& krow,
+                                       const T*& vrow) const {
+    const size_t tile = (size_t)p.block_k * p.d;
+    const int page = table_row[kb];
+    krow = pool + ((size_t)page * 2 * p.hkv + 2 * kvh) * tile +
+           (size_t)off * p.d;
+    vrow = krow + tile;
+  }
+};
+
+// The CTA's (slot, kv head, head chunk): grid (nsplit, Hkv hc, B); the
+// chunk's first q head and its head count.
+__device__ __forceinline__ void decode_cta(const AttnParams& p,
+                                           const dec::DecodeArgs& a, int& b,
+                                           int& kvh, int& h0, int& gn,
+                                           int& pidx) {
+  b = blockIdx.z;
+  kvh = blockIdx.y / a.hc;
+  const int chunk = blockIdx.y - kvh * a.hc;
+  h0 = kvh * a.group + chunk * a.kg;
+  gn = min(a.kg, a.group - chunk * a.kg);
+  pidx = (b * p.hkv + kvh) * a.hc + chunk;
+}
+
+// B4's decode: q (B, H, 1, d) over the caches, the extent from the
+// lowering (ext under prefetch_lut and mma, the closed form, or the
+// bounding walk over [0, m_k - 1]) clamped by seq_pos.
+template <typename T, int kG, int kCpl>
+__global__ void __launch_bounds__(dec::kThreads)
+flash_decode_kernel(AttnParams p, dec::DecodeArgs a, const T* __restrict__ q,
+                    const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ ext,
+                    const int* __restrict__ pos_vec, T* __restrict__ o,
+                    float* __restrict__ part, int* __restrict__ cnt) {
+  int b, kvh, h0, gn, pidx;
+  decode_cta(p, a, b, kvh, h0, gn, pidx);
+  int start, end, pos;
+  row_extent(p, 0, b, ext, pos_vec, start, end, pos);
+  const ContigTiles<T> tiles{p, k, v, ((size_t)b * p.hkv + kvh) * p.sk_arr};
+  const size_t off = ((size_t)b * p.h + h0) * p.d;
+  dec::decode_split<T, kG, kCpl>(p, a, tiles, q + off, o + off, gn, start,
+                                 end, pos, pidx, blockIdx.x, part, cnt);
+}
+
+// B5: p.m_k is the page table's width (max_pages), p.block_k the page size.
+template <typename T, int kG, int kCpl>
+__global__ void __launch_bounds__(dec::kThreads)
+paged_decode_kernel(AttnParams p, dec::DecodeArgs a, const T* __restrict__ q,
                     const T* __restrict__ pool,
                     const int* __restrict__ page_table,
-                    const int* __restrict__ pos_vec, T* __restrict__ o) {
-  extern __shared__ float smem[];
-  const Smem sm = smem_layout(smem, p.d);
-  const int bh = blockIdx.x;
-  const int slot = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
-  const int pos = pos_vec[slot];
+                    const int* __restrict__ pos_vec, T* __restrict__ o,
+                    float* __restrict__ part, int* __restrict__ cnt) {
+  int b, kvh, h0, gn, pidx;
+  decode_cta(p, a, b, kvh, h0, gn, pidx);
+  const int pos = pos_vec[b];
   int start = 0;
   if (p.window)
     start = floor_div(max(pos - p.window + 1, 0), p.block_k);
   // pages past the table's width are never read (a position there is a
   // caller's error; the contiguous kernel clamps the same way at m_k - 1)
   const int end = min(floor_div(pos, p.block_k), p.m_k - 1);
-
-  const size_t q_off = (size_t)bh * p.d;
-  const size_t tile = (size_t)p.block_k * p.d;
-  RowState<DPL> st;
-  load_q(sm, q + q_off, 0, 1, p.d, p.scale);
-  st.reset();
-  for (int kb = start; kb <= end; ++kb) {
-    const int page = page_table[(size_t)slot * p.m_k + kb];
-    const T* kt = pool + ((size_t)page * 2 * p.hkv + 2 * kvh) * tile;
-    tile_update<T, DPL>(p, sm, kt, kt + tile, kb, 0, 1, pos, st);
-  }
-  store_rows<T, DPL>(o + q_off, 0, 1, p.d, st);
+  const PagedTiles<T> tiles{p, pool, page_table + (size_t)b * p.m_k, kvh};
+  const size_t off = ((size_t)b * p.h + h0) * p.d;
+  dec::decode_split<T, kG, kCpl>(p, a, tiles, q + off, o + off, gn, start,
+                                 end, pos, pidx, blockIdx.x, part, cnt);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory once per kernel.
@@ -846,16 +928,78 @@ int launch_tile_path(K kernel, size_t bytes, const AttnParams& p, const T* q,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DPL>
-int launch_paged(const AttnParams& p, const T* q, const T* pool,
-                 const int* table, const int* pos, T* o, cudaStream_t s) {
-  const size_t bytes = smem_floats(p.d, p.block_k) * sizeof(float);
-  auto kernel = paged_decode_kernel<T, DPL>;
-  cudaError_t e = allow_smem(kernel, bytes);
+// One decode kernel: grid (nsplit, Hkv hc, B) of dec::kThreads threads.
+template <typename K, typename... Args>
+int launch_decode(K kernel, const AttnParams& p, const dec::DecodeArgs& a,
+                  cudaStream_t s, Args... args) {
+  const size_t bytes = dec::smem_bytes(a.kg, p.d);
+  // the opt-in also when bytes is near 48 KB: the routine's static
+  // shared memory counts against the same limit
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)(p.b * p.h), kThreads, bytes, s>>>(p, q, pool, table,
-                                                         pos, o);
+  const dim3 grid((unsigned)a.nsplit, (unsigned)(p.hkv * a.hc),
+                  (unsigned)p.b);
+  kernel<<<grid, dec::kThreads, bytes, s>>>(p, a, args...);
   return (int)cudaGetLastError();
+}
+
+// Call go(kG, kCpl) with the instantiation the geometry needs: kG 2 for
+// groups of up to two q heads, else dec::kMaxGroup; kCpl 2 only for f32
+// rows of more than 128 values.
+template <typename T, typename F>
+int by_shape(const dec::DecodeArgs& a, F go) {
+  using G2 = std::integral_constant<int, 2>;
+  using G8 = std::integral_constant<int, dec::kMaxGroup>;
+  using C1 = std::integral_constant<int, 1>;
+  using C2 = std::integral_constant<int, 2>;
+  if (a.cpl > 2 || (sizeof(T) == 2 && a.cpl > 1))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    if (a.cpl == 2) return a.kg == 2 ? go(G2{}, C2{}) : go(G8{}, C2{});
+  }
+  return a.kg == 2 ? go(G2{}, C1{}) : go(G8{}, C1{});
+}
+
+bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+template <typename T>
+int decode(const long long* params, float scale, const void* q,
+           const void* k, const void* v, const int* ext, const int* pos,
+           void* o, float* part, int* cnt, cudaStream_t s) {
+  const AttnParams p = make_params(params, scale);
+  if (p.d > 256 || p.block_q != 1 || p.m_q != 1 || !p.has_pos ||
+      p.kind != kFull || (long long)p.m_k * p.block_k > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  const dec::DecodeArgs a =
+      dec::make_args(p, sizeof(T), aligned16(k) && aligned16(v));
+  const T *qq = static_cast<const T*>(q), *kk = static_cast<const T*>(k),
+          *vv = static_cast<const T*>(v);
+  T* oo = static_cast<T*>(o);
+  return by_shape<T>(a, [&](auto g, auto c) {
+    return launch_decode(flash_decode_kernel<T, decltype(g)::value,
+                                             decltype(c)::value>,
+                         p, a, s, qq, kk, vv, ext, pos, oo, part, cnt);
+  });
+}
+
+template <typename T>
+int paged(const long long* params, float scale, const void* q,
+          const void* pool, const int* table, const int* pos, void* o,
+          float* part, int* cnt, cudaStream_t s) {
+  const AttnParams p = make_params(params, scale);
+  if (p.d > 256 || (long long)p.m_k * p.block_k > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  const dec::DecodeArgs a = dec::make_args(p, sizeof(T), aligned16(pool));
+  const T *qq = static_cast<const T*>(q), *pp = static_cast<const T*>(pool);
+  T* oo = static_cast<T*>(o);
+  return by_shape<T>(a, [&](auto g, auto c) {
+    return launch_decode(paged_decode_kernel<T, decltype(g)::value,
+                                             decltype(c)::value>,
+                         p, a, s, qq, pp, table, pos, oo, part, cnt);
+  });
 }
 
 // The acc columns a lane holds: d <= 32 DPL.
@@ -921,20 +1065,6 @@ int flash_tf32(const long long* params, float scale, const void* q,
   return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s);
 }
 
-template <typename T>
-int paged(const long long* params, float scale, const void* q,
-          const void* pool, const int* table, const int* pos, void* o,
-          cudaStream_t s) {
-  const AttnParams p = make_params(params, scale);
-  const T *qq = static_cast<const T*>(q), *pp = static_cast<const T*>(pool);
-  T* oo = static_cast<T*>(o);
-  if (p.d <= 32) return launch_paged<T, 1>(p, qq, pp, table, pos, oo, s);
-  if (p.d <= 64) return launch_paged<T, 2>(p, qq, pp, table, pos, oo, s);
-  if (p.d <= 128) return launch_paged<T, 4>(p, qq, pp, table, pos, oo, s);
-  if (p.d <= 256) return launch_paged<T, 8>(p, qq, pp, table, pos, oo, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
@@ -976,24 +1106,73 @@ int fa_forward_tc_f32(const long long* params, float scale, const void* q,
                     static_cast<cudaStream_t>(stream));
 }
 
+// o (B, H, 1, d) = single-token decode of q (B, H, 1, d) over the caches
+// k, v (B, Hkv, sk_arr, d) at the (B,) int32 positions pos, split-K
+// (flash_decode_kernel); params as fa_forward_*, with block_q = m_q = 1
+// and has_pos; ext as fa_forward_*.  part, cnt: scratch of
+// fa_decode_scratch(params, sizeof(T), 0 / 1) floats / ints, the counters
+// zero before the first call (every call leaves them zero).
+int fa_decode_f32(const long long* params, float scale, const void* q,
+                  const void* k, const void* v, const int* ext,
+                  const int* pos, void* o, void* part, void* cnt,
+                  void* stream) {
+  return decode<float>(params, scale, q, k, v, ext, pos, o,
+                       static_cast<float*>(part), static_cast<int*>(cnt),
+                       static_cast<cudaStream_t>(stream));
+}
+
+int fa_decode_bf16(const long long* params, float scale, const void* q,
+                   const void* k, const void* v, const int* ext,
+                   const int* pos, void* o, void* part, void* cnt,
+                   void* stream) {
+  return decode<__nv_bfloat16>(params, scale, q, k, v, ext, pos, o,
+                               static_cast<float*>(part),
+                               static_cast<int*>(cnt),
+                               static_cast<cudaStream_t>(stream));
+}
+
 // o (B, H, 1, d) = single-token decode of q (B, H, 1, d) through the
 // (B, max_pages) int32 page table into the fused pool
-// (P, 2 Hkv, page_size, d); pos: (B,) int32.
+// (P, 2 Hkv, page_size, d); pos: (B,) int32; part, cnt as fa_decode_*.
+// The same routine as fa_decode_*: bit-equal to it at
+// block_k == page_size.
 int fa_paged_decode_f32(const long long* params, float scale, const void* q,
                         const void* pool, const int* table, const int* pos,
-                        void* o, void* stream) {
+                        void* o, void* part, void* cnt, void* stream) {
   return paged<float>(params, scale, q, pool, table, pos, o,
+                      static_cast<float*>(part), static_cast<int*>(cnt),
                       static_cast<cudaStream_t>(stream));
 }
 
 int fa_paged_decode_bf16(const long long* params, float scale, const void* q,
                          const void* pool, const int* table, const int* pos,
-                         void* o, void* stream) {
+                         void* o, void* part, void* cnt, void* stream) {
   return paged<__nv_bfloat16>(params, scale, q, pool, table, pos, o,
+                              static_cast<float*>(part),
+                              static_cast<int*>(cnt),
                               static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of one CTA of either kernel at (d, block_k).
+// Scratch of one decode launch at params (either front end) with values
+// of elt_bytes: which 0 -> floats of split parts, 1 -> int counters.
+long long fa_decode_scratch(const long long* params, int elt_bytes,
+                            int which) {
+  const AttnParams p = make_params(params, 1.0f);
+  const dec::DecodeArgs a = dec::make_args(p, elt_bytes, true);
+  return which == 0 ? dec::part_floats(p, a) : dec::counters(p, a);
+}
+
+// Dynamic shared memory of one CTA of either decode kernel.
+long long fa_decode_smem_bytes(const long long* params, int elt_bytes) {
+  const AttnParams p = make_params(params, 1.0f);
+  return (long long)dec::smem_bytes(
+      dec::make_args(p, elt_bytes, true).kg, p.d);
+}
+
+// Keys per split of the decode kernels (dec::kSplitKeys).
+int fa_decode_split_keys() { return dec::kSplitKeys; }
+
+// Dynamic shared memory of one CTA of flash_fwd_kernel at (d, block_k).
 long long fa_smem_bytes(int d, int block_k) {
   return (long long)(smem_floats(d, block_k) * sizeof(float));
 }

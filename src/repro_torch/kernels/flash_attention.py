@@ -26,24 +26,25 @@ past each batch row's position, truncates the key loop at
 ``pos // block_k``, and with ``window=`` gives a run-time sliding window.
 
 ``paged_flash_attention`` is the single-token decode over a paged,
-head-interleaved KV pool (:mod:`repro_torch.core.paged`): one CTA per
-(slot, head), the loop resolving each logical key block to its physical
-page through the page table.  At ``block_k == page_size`` it is bit-equal
-to the contiguous ``seq_pos`` decode: both kernels run one shared tile
-update (``csrc/attention_common.cuh``) in the same order.
+head-interleaved KV pool (:mod:`repro_torch.core.paged`), each logical
+key block resolved to its physical page through the page table.  It and
+the contiguous ``seq_pos`` decode are two front ends of one split-K
+routine (``csrc/decode_split.cuh``: a CTA per (slot, kv head, split)
+serving the whole GQA group, splits of ``DECODE_SPLIT_KEYS`` keys merged
+in split order in the same launch), so at ``block_k == page_size`` paged
+decode is bit-equal to the contiguous one.
 
-Three kernels compute ``flash_attention`` on the card, picked by
-:func:`flash_route` from dtype, shape and alignment before any launch:
-on the tensor cores, with K/V streamed through a cp.async ring,
-``flash_fwd_tc_kernel`` (``"tc"``: bf16 with block_q, block_k and the
-head dim multiples of 16) and ``flash_fwd_tf32_kernel`` (``"tc_f32"``:
-f32 with block_q and block_k multiples of 16 and a head dim multiple of
-8 up to 128, in 3xTF32); and ``flash_fwd_kernel`` (``"cuda_core"``:
-every other call -- decode at block_q = 1, f32 past head dim 128, odd
-head dims, small blocks -- in f32 on the CUDA cores).
-``paged_flash_attention`` and the block_q = 1 decode stay on the
-CUDA-core tile update, so paged decode stays bit-equal to the contiguous
-one.
+Four kernels compute ``flash_attention`` on the card, picked by
+:func:`flash_route` from the call's shape, dtype and alignment before
+any launch: ``flash_decode_kernel`` (``"decode"``: single-token
+``kind="full"`` calls with ``seq_pos``); on the tensor cores, with K/V
+streamed through a cp.async ring, ``flash_fwd_tc_kernel`` (``"tc"``:
+bf16 with block_q, block_k and the head dim multiples of 16) and
+``flash_fwd_tf32_kernel`` (``"tc_f32"``: f32 with block_q and block_k
+multiples of 16 and a head dim multiple of 8 up to 128, in 3xTF32); and
+``flash_fwd_kernel`` (``"cuda_core"``: every other call -- f32 past head
+dim 128, odd head dims, small blocks, block_q = 1 calls that are not
+decode -- in f32 on the CUDA cores).
 
 Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
@@ -142,6 +143,7 @@ class FlashSchedule:
     s0: int
     lowering: str
     domain: BlockDomain
+    has_pos: bool = False
 
     @property
     def group(self) -> int:
@@ -272,7 +274,8 @@ def flash_schedule(q_shape, k_shape, *, kind: str = "causal",
                          d=d, kind=kind, window=int(window),
                          scale=float(scale), block_q=block_q,
                          block_k=block_k, m_q=m_q, m_k=m_k, wb=wb, off=off,
-                         s0=s0, lowering=lowering, domain=domain)
+                         s0=s0, lowering=lowering, domain=domain,
+                         has_pos=bool(has_pos))
 
 
 def seq_pos_vector(seq_pos, b: int, device) -> Optional[torch.Tensor]:
@@ -510,9 +513,15 @@ _SIGNATURES = {
     "fa_forward_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
-    "fa_paged_decode_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
-    "fa_paged_decode_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P],
+    "fa_decode_f32": [_P, ctypes.c_float] + [_P] * 9,
+    "fa_decode_bf16": [_P, ctypes.c_float] + [_P] * 9,
+    "fa_paged_decode_f32": [_P, ctypes.c_float] + [_P] * 8,
+    "fa_paged_decode_bf16": [_P, ctypes.c_float] + [_P] * 8,
 }
+#: keys per split of the decode kernels (``kSplitKeys`` in
+#: csrc/decode_split.cuh; the library's value is checked against it when
+#: it is loaded)
+DECODE_SPLIT_KEYS = 256
 
 
 def _lib() -> ctypes.CDLL:
@@ -526,8 +535,17 @@ def _lib() -> ctypes.CDLL:
                      "fa_tc_f32_smem_bytes"):
             getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
             getattr(lib, name).restype = ctypes.c_longlong
+        lib.fa_decode_scratch.argtypes = [_P, ctypes.c_int, ctypes.c_int]
+        lib.fa_decode_scratch.restype = ctypes.c_longlong
+        lib.fa_decode_smem_bytes.argtypes = [_P, ctypes.c_int]
+        lib.fa_decode_smem_bytes.restype = ctypes.c_longlong
+        lib.fa_decode_split_keys.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
+        if lib.fa_decode_split_keys() != DECODE_SPLIT_KEYS:
+            raise RuntimeError(
+                f"the decode kernels split {lib.fa_decode_split_keys()} "
+                f"keys, the wrapper expects {DECODE_SPLIT_KEYS}")
         lib._repro_bound = True
     return lib
 
@@ -578,14 +596,19 @@ TF32_MAX_HEAD_DIM = 128
 
 
 def flash_route(sched: FlashSchedule, dtype, aligned: bool = True) -> str:
-    """The flash kernel a launch takes, from dtype, shape and alignment
-    alone, on the tensor cores when q, k, v start on 16-byte boundaries
-    (``aligned``: the tile paths copy 16-byte pieces) and block_q and
-    block_k are multiples of 16: ``"tc"`` (flash_fwd_tc_kernel) for bf16
-    with a head dim multiple of 16, ``"tc_f32"`` (flash_fwd_tf32_kernel,
-    3xTF32) for f32 with a head dim multiple of 8 up to
-    TF32_MAX_HEAD_DIM; ``"cuda_core"`` (flash_fwd_kernel) for every
-    other call, decode at block_q = 1 included."""
+    """The flash kernel a launch takes, from shape, dtype and alignment
+    alone: ``"decode"`` (flash_decode_kernel) for single-token
+    ``kind="full"`` calls with seq_pos, whatever the dtype and alignment
+    (it loads 16-byte pieces where it can), so paged decode, which runs
+    the same routine, stays bit-equal to it; on the tensor cores when q,
+    k, v start on 16-byte boundaries (``aligned``: the tile paths copy
+    16-byte pieces) and block_q and block_k are multiples of 16:
+    ``"tc"`` (flash_fwd_tc_kernel) for bf16 with a head dim multiple of
+    16, ``"tc_f32"`` (flash_fwd_tf32_kernel, 3xTF32) for f32 with a head
+    dim multiple of 8 up to TF32_MAX_HEAD_DIM; ``"cuda_core"``
+    (flash_fwd_kernel) for every other call."""
+    if sched.has_pos and sched.sq == 1 and sched.kind == "full":
+        return "decode"
     if aligned and sched.block_q % 16 == 0 and sched.block_k % 16 == 0:
         if dtype == torch.bfloat16 and sched.d % 16 == 0:
             return "tc"
@@ -622,13 +645,13 @@ def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
 def flash_cuda(q, k, v, sched: FlashSchedule,
                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the flash kernel :func:`flash_route` picks: (B, H, Sq, D) in
-    q's dtype.  Counts the CUDA-core kernel's launches; the tensor-core
-    kernels count their own (:func:`flash_tc_cuda`,
+    q's dtype.  Counts the CUDA-core kernel's launches; the others count
+    their own (:func:`decode_cuda`, :func:`flash_tc_cuda`,
     :func:`flash_tc_f32_cuda`)."""
     _check_cuda("flash attention", q, k, v)
     route = flash_route(sched, q.dtype, _aligned(q, k, v))
     if route != "cuda_core":
-        return _TILE_PATHS[route](q, k, v, sched, pos)
+        return _ROUTES[route](q, k, v, sched, pos)
     lib = _lib()
     _check_smem(q.device, lib.fa_smem_bytes(sched.d, sched.block_k),
                 f"block_k={sched.block_k} at head dim {sched.d}")
@@ -698,32 +721,93 @@ def flash_tc_f32_cuda(q, k, v, sched: FlashSchedule,
 
 
 flash_tc_f32_cuda.launches = 0
-_TILE_PATHS = {"tc": flash_tc_cuda, "tc_f32": flash_tc_f32_cuda}
+
+#: the decode kernels' counters, one int32 tensor per (device, stream):
+#: allocated zeroed, grown when a launch needs more, left zero by every
+#: launch (the last CTA of each (slot, kv head, chunk) resets its own)
+_DECODE_COUNTERS: dict = {}
+
+
+def _decode_launch(fn, params, scale, q, ptrs, what: str) -> None:
+    """Run a decode kernel's C entry point ``fn`` (either front end):
+    ``ptrs`` are its pointers after q's, up to the output's; the split
+    parts (``torch.empty``) and the counters follow.  Raises when the
+    launch is refused."""
+    lib = _lib()
+    elt = q.element_size()
+    _check_smem(q.device, lib.fa_decode_smem_bytes(params, elt),
+                f"decode at head dim {q.shape[-1]}")
+    key = (q.device, _stream(q.device))
+    need = lib.fa_decode_scratch(params, elt, 1)
+    cnt = _DECODE_COUNTERS.get(key)
+    if cnt is None or cnt.numel() < need:
+        cnt = torch.zeros(max(need, 1), dtype=torch.int32, device=q.device)
+        _DECODE_COUNTERS[key] = cnt
+    part = torch.empty(max(lib.fa_decode_scratch(params, elt, 0), 1),
+                       dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = fn(params, scale, q.data_ptr(), *ptrs, part.data_ptr(),
+                    cnt.data_ptr(), _stream(q.device))
+    _cuda.raise_on(lib, status, what)
+
+
+def _check_int32(device, **tensors) -> None:
+    for name, t in tensors.items():
+        if (t is None or t.device != device or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"q's device")
+
+
+def decode_cuda(q, k, v, sched: FlashSchedule,
+                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the split-K decode kernel (flash_decode_kernel) on a
+    single-token ``kind="full"`` call with seq_pos, as :func:`flash_route`
+    sends it: (B, H, 1, D) in q's dtype."""
+    _check_cuda("flash attention", q, k, v)
+    if flash_route(sched, q.dtype) != "decode":
+        raise ValueError(
+            f"the decode kernel takes single-token kind='full' calls with "
+            f"seq_pos, got Sq {sched.sq}, kind {sched.kind!r}, seq_pos "
+            f"{sched.has_pos}")
+    _check_int32(q.device, seq_pos=pos)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    ext = sched.row_extents(q.device) \
+        if sched.lowering in TABLE_LOWERINGS else None
+    fn = lib.fa_decode_f32 if q.dtype == torch.float32 \
+        else lib.fa_decode_bf16
+    _decode_launch(fn, sched.c_params(True), sched.scale, q,
+                   (k.data_ptr(), v.data_ptr(), _cuda.ptr(ext),
+                    pos.data_ptr(), out.data_ptr()), "decode kernel")
+    decode_cuda.launches += 1
+    return out
+
+
+decode_cuda.launches = 0
+_ROUTES = {"decode": decode_cuda, "tc": flash_tc_cuda,
+           "tc_f32": flash_tc_f32_cuda}
 
 
 def paged_cuda(q, kv_pool, page_table, pos,
                sched: PagedSchedule) -> torch.Tensor:
-    """Launch the paged decode kernel: (B, H, 1, D) in q's dtype."""
+    """Launch the paged decode kernel (paged_decode_kernel, the routine
+    of :func:`decode_cuda` reading through the page table): (B, H, 1, D)
+    in q's dtype."""
     _check_cuda("paged decode", q, kv_pool)
-    lib = _lib()
-    _check_smem(q.device, lib.fa_smem_bytes(sched.d, sched.page_size),
-                f"block_k={sched.page_size} at head dim {sched.d}")
-    for name, t in (("page_table", page_table), ("seq_pos", pos)):
-        if (t.device != q.device or t.dtype != torch.int32
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"q's device")
+    _check_int32(q.device, page_table=page_table, seq_pos=pos)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    lib = _lib()
     fn = lib.fa_paged_decode_f32 if q.dtype == torch.float32 \
         else lib.fa_paged_decode_bf16
-    with torch.cuda.device(q.device):
-        status = fn(sched.c_params(), sched.scale, q.data_ptr(),
-                    kv_pool.data_ptr(), page_table.data_ptr(),
-                    pos.data_ptr(), out.data_ptr(), _stream(q.device))
+    _decode_launch(fn, sched.c_params(), sched.scale, q,
+                   (kv_pool.data_ptr(), page_table.data_ptr(),
+                    pos.data_ptr(), out.data_ptr()), "paged decode kernel")
     paged_cuda.launches += 1
-    _cuda.raise_on(lib, status, "paged decode kernel")
     return out
 
 
@@ -731,11 +815,13 @@ paged_cuda.launches = 0
 
 #: kernel name -> its CUDA wrapper (each carries ``launches``)
 KERNELS = {"flash_attention": flash_cuda,
+           "flash_attention_decode": decode_cuda,
            "flash_attention_tc": flash_tc_cuda,
            "flash_attention_tc_f32": flash_tc_f32_cuda,
            "paged_flash_attention": paged_cuda}
 #: flash_route's answer -> the name of the kernel it launches
-ROUTE_KERNELS = {"tc": "flash_attention_tc",
+ROUTE_KERNELS = {"decode": "flash_attention_decode",
+                 "tc": "flash_attention_tc",
                  "tc_f32": "flash_attention_tc_f32",
                  "cuda_core": "flash_attention"}
 
@@ -756,7 +842,14 @@ def launch_counts() -> dict:
 #: kernel-vs-plain tolerance per input dtype: the JAX tests' own
 #: (tests/test_kernels.py, f32 and bf16).  The CUDA-core kernel sums each
 #: dot product sequentially over d and the plain version through a
-#: matmul.  Both tensor-core kernels update the softmax per 64-key
+#: matmul.  The decode kernels sum each dot product over a lane's values,
+#: then across the row's lanes, update the softmax once per batch of a
+#: warp's keys (exp on the SFU, ex2.approx, ~2^-22 relative), and merge
+#: the warps and then the splits each as sum_i exp(m_i - M) (l_i, acc_i),
+#: where the plain version walks the tiles in order: the same sums in
+#: another order, a few f32 ulps apart (tests/test_torch_decode_split.py
+#: emulates the order within 2e-5 of the plain version and tpu-interpret
+#: ``repro``).  Both tensor-core kernels update the softmax per 64-key
 #: sub-tile and take exp on the SFU (ex2.approx, ~2^-22 relative); the
 #: bf16 one rounds p to bf16 before p v, where the plain version keeps
 #: f32 p; the f32 one (3xTF32) drops the lo x lo term of every product,

@@ -42,7 +42,7 @@ def _layer_sources(cfg: ModelConfig):
 
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> Model:
     """The port's :class:`~repro_torch.models.model.Model` on ``device``
-    holding the values of the JAX parameter tree ``tree`` (arrays or
+    (the card unless the caller names another) holding the values of the JAX parameter tree ``tree`` (arrays or
     numpy arrays).  Raises ValueError on a shape mismatch and KeyError
     on a missing or an extra key."""
     flat = _flatten(tree)

@@ -27,6 +27,8 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.backend import default_device
+
 from . import layers as L
 from .config import ModelConfig
 
@@ -103,13 +105,15 @@ class Layer(nn.Module):
 
 
 class Model(nn.Module):
-    """Parameters of the dense LM; ``cfg`` rides along.  Built empty:
-    fill it with :func:`init` or
+    """Parameters of the dense LM; ``cfg`` rides along.  Built empty on
+    ``device`` (the card unless the caller names another; raises without
+    one): fill it with :func:`init` or
     :func:`repro_torch.models.convert.params_from_jax`."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_ported(cfg)
+        device = default_device(device)
         self.cfg = cfg
         dt = cfg.tparam_dtype()
         self.embed = L.Embed(cfg.padded_vocab, cfg.d_model, dt, device)
@@ -127,8 +131,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
     """Random weights with the JAX package's shapes and scales
     (``model.init``): normal matrices scaled by 1/sqrt(fan-in), the
     embedding by 0.01, norms at 1 and biases at 0, drawn from
-    ``generator`` (which must live on ``device``).  The numbers differ
-    from ``jax.random``'s."""
+    ``generator`` (which must live on ``device``: the card unless the
+    caller names another).  The numbers differ from ``jax.random``'s."""
     model = Model(cfg, device)
     L._normal_(model.embed.table, generator, 0.01)
     for layer in model.layers:
@@ -199,8 +203,10 @@ def logits_fn(model: Model, inputs, cfg: ModelConfig | None = None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Zero (K, V) caches, one pair per layer."""
+    """Zero (K, V) caches, one pair per layer, on ``device`` (the card
+    unless the caller names another)."""
     check_ported(cfg)
+    device = default_device(device)
     shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     return [(torch.zeros(shape, dtype=cfg.tdtype(), device=device),
              torch.zeros(shape, dtype=cfg.tdtype(), device=device))

@@ -280,6 +280,100 @@ def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, window):
     assert torch.equal(paged, contiguous)
 
 
+#: decode cases (heads (H, Hkv), d, dtype): MHA, GQA 16/8 and 4/2, MQA
+#: 8/1, a group of 16 q heads (two head chunks), and head dims whose rows
+#: are not whole 16-byte pieces (element loads)
+DECODE_CASES = [((4, 4), 64, torch.float32), ((16, 8), 256, torch.bfloat16),
+                ((16, 8), 256, torch.float32), ((4, 2), 128, torch.bfloat16),
+                ((8, 1), 64, torch.bfloat16), ((8, 1), 256, torch.float32),
+                ((16, 1), 32, torch.float32), ((6, 2), 36, torch.bfloat16),
+                ((2, 2), 30, torch.float32)]
+
+
+@pytest.mark.parametrize("heads,d,dtype", DECODE_CASES)
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_kernel_matches_plain(dev, heads, d, dtype, window):
+    # positions at tile and split edges of 64-key blocks (256-key splits),
+    # every lowering bit-equal, compact KV the same launch
+    h, hkv = heads
+    q = _randn((5, h, 1, d), 60, dev, dtype)
+    k = _randn((5, hkv, 1024, d), 61, dev, dtype)
+    v = _randn((5, hkv, 1024, d), 62, dev, dtype)
+    pos = torch.tensor([0, 63, 256, 700, 1023], dtype=torch.int32,
+                       device=dev)
+    FA.reset_launch_counts()
+    outs = []
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(q.shape, k.shape, kind="full",
+                                  window=window, block_q=1, block_k=64,
+                                  grid_mode=gm, has_pos=True)
+        assert FA.flash_route(sched, dtype) == "decode"
+        outs.append(FA.check_flash_against_plain(q, k, v, sched, pos)[1])
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    comp = FA.flash_schedule(q.shape, k.shape, kind="full", window=window,
+                             block_q=1, block_k=64, storage="compact",
+                             kv_seq_len=1024, has_pos=True)
+    assert torch.equal(FA.decode_cuda(q, k, v, comp, pos), outs[0])
+    assert FA.launch_counts()["flash_attention_decode"] == len(LOWERINGS) + 1
+    assert FA.launch_counts()["flash_attention"] == 0
+
+
+def test_decode_launches_are_bit_equal_and_leave_the_counters_zero(dev):
+    # gemma3-12b's decode shape: 7 splits per (slot, kv head) merged by the
+    # last CTA to arrive; every launch gives the same bits and resets the
+    # counters; a misaligned copy of the caches (element loads) too
+    q = _randn((4, 16, 1, 256), 63, dev, torch.bfloat16)
+    k = _randn((4, 8, 1664, 256), 64, dev, torch.bfloat16)
+    v = _randn((4, 8, 1664, 256), 65, dev, torch.bfloat16)
+    pos = torch.tensor([1536, 1539, 1543, 1551], dtype=torch.int32,
+                       device=dev)
+    sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
+                              block_k=128, has_pos=True)
+    first = FA.decode_cuda(q, k, v, sched, pos)
+    for _ in range(5):
+        assert torch.equal(FA.decode_cuda(q, k, v, sched, pos), first)
+    torch.cuda.synchronize()
+    cnt = FA._DECODE_COUNTERS[(q.device, torch.cuda.current_stream(
+        q.device).cuda_stream)]
+    assert not cnt.any()
+    n = k.numel()
+    base = torch.empty(2 * n + 1, dtype=k.dtype, device=dev)
+    km, vm = base[1:n + 1].view(k.shape), base[n + 1:].view(v.shape)
+    km.copy_(k)
+    vm.copy_(v)
+    assert km.data_ptr() % 16 == 2
+    assert torch.equal(FA.decode_cuda(q, km, vm, sched, pos), first)
+    FA.check_flash_against_plain(q, k, v, sched, pos)
+
+
+def test_paged_bit_equal_to_contiguous_at_the_gemma_width(dev):
+    # page 16, d 256, bf16, GQA 16/8 at gemma3-12b's serving positions, a
+    # page table wider than the slots need
+    from repro_torch.core import paged as P
+    b, h, hkv, d, ps, smax = 4, 16, 8, 256, 16, 1664
+    q = _randn((b, h, 1, d), 66, dev, torch.bfloat16)
+    k = _randn((b, hkv, smax, d), 67, dev, torch.bfloat16)
+    v = _randn((b, hkv, smax, d), 68, dev, torch.bfloat16)
+    npg = smax // ps
+    perm = torch.randperm(b * npg, generator=torch.Generator().manual_seed(4))
+    pool = P.init_pool(b * npg + 1, hkv, ps, d, torch.bfloat16, dev)
+    table = torch.zeros((b, npg + 7), dtype=torch.int32)
+    for i in range(b):
+        table[i, :npg] = perm[i * npg:(i + 1) * npg] + 1
+        P.write_prefill_pages(pool, table[i, :npg].to(dev), k[i], v[i])
+    table = table.to(dev)
+    pos = torch.tensor([1536, 1539, 1543, 1551], dtype=torch.int32,
+                       device=dev)
+    for window in (1024, 0):
+        psched = FA.paged_schedule(q.shape, pool.shape, table.shape,
+                                   window=window)
+        _, paged = FA.check_paged_against_plain(q, pool, table, pos, psched)
+        sched = FA.flash_schedule(q.shape, k.shape, kind="full",
+                                  window=window, block_q=1, block_k=ps,
+                                  has_pos=True)
+        assert torch.equal(paged, FA.flash_cuda(q, k, v, sched, pos))
+
+
 def test_attention_entry_points_launch_the_kernels(dev):
     # f32 prefill takes the 3xTF32 tensor-core kernel
     FA.reset_launch_counts()
@@ -290,6 +384,7 @@ def test_attention_entry_points_launch_the_kernels(dev):
     table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
     dec = ops.paged_flash_attention(q[:, :, :1], pool, table, 20)
     assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_tc_f32": 1,
                                   "paged_flash_attention": 1}
@@ -302,24 +397,26 @@ def test_attention_entry_points_launch_the_kernels(dev):
 
 def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
     # D 256 with 2048-key tiles needs more shared memory per CTA than the
-    # card's opt-in limit; the wrappers raise before launching
+    # card's opt-in limit in the CUDA-core kernel (a block_q = 1 call that
+    # is not decode); its wrapper raises before launching.  The decode
+    # kernels stage no tile: the paged one takes 2048-key pages
     FA.reset_launch_counts()
     q = _randn((1, 1, 1, 256), 15, dev, torch.float32)
     k = _randn((1, 1, 2048, 256), 16, dev, torch.float32)
     pos = torch.tensor([2047], dtype=torch.int32, device=dev)
     sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
-                              block_k=2048, has_pos=True)
+                              block_k=2048)
     with pytest.raises(ValueError, match="shared memory"):
-        FA.flash_cuda(q, k, k, sched, pos)
+        FA.flash_cuda(q, k, k, sched)
     pool = _randn((2, 2, 2048, 256), 17, dev, torch.float32)
     table = torch.tensor([[1]], dtype=torch.int32, device=dev)
     psched = FA.paged_schedule(q.shape, pool.shape, table.shape)
-    with pytest.raises(ValueError, match="shared memory"):
-        FA.paged_cuda(q, pool, table, pos, psched)
+    FA.check_paged_against_plain(q, pool, table, pos, psched)
     assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_tc_f32": 0,
-                                  "paged_flash_attention": 0}
+                                  "paged_flash_attention": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +480,7 @@ def test_flash_tc_kernel_compact_kv_and_seq_pos(dev, grid_mode):
         FA.check_flash_against_plain(qs, ks, vs, sp,
                                      FA.seq_pos_vector(pos, 3, dev))
     assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_decode": 0,
                                   "flash_attention_tc": 5,
                                   "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}
@@ -390,7 +488,7 @@ def test_flash_tc_kernel_compact_kv_and_seq_pos(dev, grid_mode):
 
 def test_flash_tc_routing_on_the_card(dev):
     # bf16 prefill takes the bf16 tensor-core kernel, f32 prefill the
-    # 3xTF32 one, decode neither
+    # 3xTF32 one, decode neither (the split-K decode kernel)
     q = _randn((1, 2, 128, 64), 30, dev, torch.bfloat16)
     FA.reset_launch_counts()
     ops.flash_attention(q, q, q, kind="causal", block_q=64, block_k=64)
@@ -400,7 +498,8 @@ def test_flash_tc_routing_on_the_card(dev):
     qd = q[:, :, :1].contiguous()
     ops.flash_attention(qd, q, q, kind="full", block_q=1, block_k=64,
                         seq_pos=100)
-    assert FA.launch_counts() == {"flash_attention": 1,
+    assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_decode": 1,
                                   "flash_attention_tc": 1,
                                   "flash_attention_tc_f32": 1,
                                   "paged_flash_attention": 0}
@@ -424,6 +523,7 @@ def test_flash_misaligned_bf16_views_take_the_cuda_core_kernel(dev):
     FA.reset_launch_counts()
     FA.check_flash_against_plain(q, k, v, sched)
     assert FA.launch_counts() == {"flash_attention": 1,
+                                  "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}
@@ -506,6 +606,7 @@ def test_flash_tc_f32_kernel_compact_kv_and_seq_pos(dev, grid_mode):
         FA.check_flash_against_plain(qs, ks, vs, sp,
                                      FA.seq_pos_vector(pos, 3, dev))
     assert FA.launch_counts() == {"flash_attention": 0,
+                                  "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_tc_f32": 5,
                                   "paged_flash_attention": 0}
@@ -513,8 +614,8 @@ def test_flash_tc_f32_kernel_compact_kv_and_seq_pos(dev, grid_mode):
 
 def test_flash_tc_f32_routing_on_the_card(dev):
     # f32 prefill up to head dim 128 takes the 3xTF32 kernel; head dim 256
-    # and decode stay on the CUDA cores, and the tf32 entry point refuses
-    # them (and bf16)
+    # stays on the CUDA-core kernel and decode takes the split-K decode
+    # kernel, and the tf32 entry point refuses them (and bf16)
     torch.backends.cuda.matmul.allow_tf32 = False
     q = _randn((1, 2, 128, 128), 52, dev, torch.float32)
     FA.reset_launch_counts()
@@ -524,7 +625,8 @@ def test_flash_tc_f32_routing_on_the_card(dev):
                         block_k=64)
     ops.flash_attention(q[:, :, :1].contiguous(), q, q, kind="full",
                         block_q=1, block_k=64, seq_pos=100)
-    assert FA.launch_counts() == {"flash_attention": 2,
+    assert FA.launch_counts() == {"flash_attention": 1,
+                                  "flash_attention_decode": 1,
                                   "flash_attention_tc": 0,
                                   "flash_attention_tc_f32": 1,
                                   "paged_flash_attention": 0}
@@ -550,6 +652,7 @@ def test_flash_misaligned_f32_views_take_the_cuda_core_kernel(dev):
     FA.reset_launch_counts()
     FA.check_flash_against_plain(q, k, v, sched)
     assert FA.launch_counts() == {"flash_attention": 1,
+                                  "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}

@@ -334,14 +334,16 @@ def test_flash_route_picks_the_tensor_core_kernel_by_rule(dtype, shape, kw,
 
 
 def test_flash_route_keeps_decode_on_the_cuda_cores():
-    # decode (block_q = 1) and the paged kernel's shapes never take the
-    # tensor-core kernel, whatever the dtype
+    # decode (block_q = 1 with seq_pos) and the paged kernel's shapes never
+    # take a tensor-core kernel, whatever the dtype: they take the split-K
+    # decode kernel on the CUDA cores, the routine the paged kernel runs
     for dtype in (torch.bfloat16, torch.float32):
         sched = FA.flash_schedule((4, 16, 1, 256), (4, 8, 1664, 256),
                                   kind="full", window=1024, block_q=1,
                                   block_k=128, has_pos=True)
-        assert FA.flash_route(sched, dtype) == "cuda_core"
-    assert set(FA.KERNELS) == {"flash_attention", "flash_attention_tc",
+        assert FA.flash_route(sched, dtype) == "decode"
+    assert set(FA.KERNELS) == {"flash_attention", "flash_attention_decode",
+                               "flash_attention_tc",
                                "flash_attention_tc_f32",
                                "paged_flash_attention"}
 

@@ -369,7 +369,7 @@ def test_flash_route_sends_f32_prefill_to_the_tf32_kernel(shape, kw, route):
 def test_f32_decode_and_misaligned_views_stay_on_the_cuda_cores():
     sched = FA.flash_schedule((4, 16, 1, 64), (4, 8, 1664, 64), kind="full",
                               block_q=1, block_k=128, has_pos=True)
-    assert FA.flash_route(sched, torch.float32) == "cuda_core"
+    assert FA.flash_route(sched, torch.float32) == "decode"
     shape = (1, 2, 256, 64)
     base = torch.zeros(1 + 2 * 256 * 64, dtype=torch.float32)
     assert not FA._aligned(base[1:].view(shape))

@@ -47,12 +47,12 @@ def test_conversion_round_trip_exact(stacks):
         assert a.shape == b.shape and np.array_equal(a, b)
     with pytest.raises(KeyError, match="no 'final_norm.scale'"):
         params_from_jax({k: v for k, v in want.items()
-                         if k != "final_norm"}, tcfg)
+                         if k != "final_norm"}, tcfg, "cpu")
     with pytest.raises(KeyError, match="extra"):
-        params_from_jax({**want, "extra": {"w": np.zeros(1)}}, tcfg)
+        params_from_jax({**want, "extra": {"w": np.zeros(1)}}, tcfg, "cpu")
     bad = {**want, "lm_head": {"w": want["lm_head"]["w"][:, :8]}}
     with pytest.raises(ValueError, match="lm_head.w"):
-        params_from_jax(bad, tcfg)
+        params_from_jax(bad, tcfg, "cpu")
 
 
 def test_forward_and_prefill_match_jax(stacks):
@@ -67,7 +67,7 @@ def test_forward_and_prefill_match_jax(stacks):
     _close(tlog, jlog)
     prefix, period, n_groups = JM.group_layout(jcfg)
     assert prefix == 0 and len(tcache) == period * n_groups
-    zeros = TM.init_cache(tcfg, 2, 32)
+    zeros = TM.init_cache(tcfg, 2, 32, "cpu")
     assert [tuple(k.shape) for k, _ in zeros] == \
         [tuple(k.shape) for k, _ in tcache]
     assert not any(bool(k.any()) or bool(v.any()) for k, v in zeros)
@@ -104,7 +104,7 @@ def test_paged_decode_step_matches_jax(stacks, decode_kernel):
     tcfg = tcfg.replace(attn_decode_kernel=decode_kernel)
     ps, lens = 8, [13, 6]
     jpools = JM.init_paged_cache(jcfg, 8, ps)
-    tpools = TM.init_paged_cache(tcfg, 8, ps)
+    tpools = TM.init_paged_cache(tcfg, 8, ps, "cpu")
     table = np.zeros((2, 3), np.int32)
     table[0, :2], table[1, :1] = [3, 1], [5]
     for slot, n in enumerate(lens):
@@ -165,3 +165,20 @@ def test_configs_and_init_match_jax():
 def jax_model_cfg(arch):
     from repro.configs import get_config as j_get_config
     return j_get_config(arch, smoke=True)
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg: TM.Model(cfg),
+    lambda cfg: init(cfg, torch.Generator().manual_seed(0)),
+    lambda cfg: params_from_jax({}, cfg),
+    lambda cfg: TM.init_cache(cfg, 2, 32),
+    lambda cfg: TP.init_pool(4, cfg.n_kv_heads, 8, cfg.hd),
+], ids=["Model", "init", "params_from_jax", "init_cache", "init_pool"])
+def test_builders_default_to_the_card(monkeypatch, make):
+    # with no device named, the builders take the card (the port's rule,
+    # core/backend.py::default_device) and raise without one instead of
+    # building on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("quickstart", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device available"):
+        make(cfg)

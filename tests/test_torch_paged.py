@@ -49,7 +49,7 @@ def test_layout_helpers_equal_jax():
     pages = [5, 2, 7]
     jpool = JP.write_prefill_pages(JP.init_pool(9, hkv, ps, d),
                                    jnp.asarray(pages, jnp.int32), jk, jv)
-    tpool = TP.write_prefill_pages(TP.init_pool(9, hkv, ps, d),
+    tpool = TP.write_prefill_pages(TP.init_pool(9, hkv, ps, d, device="cpu"),
                                    torch.tensor(pages), tk, tv)
     assert np.array_equal(as_f32(tpool), as_f32(jpool))
     table = [[5, 2, 7], [7, 0, 5]]
@@ -83,7 +83,7 @@ def _paged_case(b, h, hkv, smax, d, ps, lens, seed=0):
     npg = TP.pages_for(smax, ps)
     perm = np.random.default_rng(3).permutation(b * npg) + 1
     jpool = JP.init_pool(b * npg + 1, hkv, ps, d)
-    tpool = TP.init_pool(b * npg + 1, hkv, ps, d)
+    tpool = TP.init_pool(b * npg + 1, hkv, ps, d, device="cpu")
     table = np.zeros((b, npg), np.int32)
     for i in range(b):
         table[i] = perm[i * npg:(i + 1) * npg]
