@@ -39,8 +39,9 @@ Phases, each printing its own lines:
              compact storage and coarsening (same rules as phase 3), the
              fused CA kernel under gasket / carpet / Vicsek x four
              lowerings x {embedded, compact} x coarsen {1, s} x fuse
-             {1, 3, span} x both rules (bit-equal), including the
-             large-tile path; the write/sum and CA kernels over the
+             {1, 3, span} x both rules x ring depth num_stages {1, 2, 3}
+             (bit-equal), including the large-tile (global-scratch)
+             path; the write/sum and CA kernels over the
              triangular, band (square and rectangular) and bounding-box
              (wide and tall) domains against their plain versions, mma
              bit-equal to closed_form there; and the fractal kernels
@@ -60,14 +61,16 @@ Phases, each printing its own lines:
              refused with the bound's ValueError before any launch;
 6. ca     -- launch counts set to 0, then ca_run at n = 2**16, rho = 32,
              compact f32, T = 32 steps at fuse 1, 8 and 32 under the
-             four lowerings for parity and diffusion; counts read; each
+             four lowerings for parity and diffusion, each at ring depth
+             num_stages 1, 2 and 3; counts read; each
              result held against a cell-level gather oracle over
              cell_neighbor_tables(16) (parity bit-equal, diffusion within
              rtol 1e-5 / atol 1e-6); the plain version at full size for
              one run; embedded storage (two 16 GiB buffers) for
              closed_form and bounding at fuse 8, packed and compared bit
-             for bit; CUDA-event timings of the kernel, its plain version
-             and the oracle;
+             for bit; CUDA-event timings of the kernel (parity at every
+             depth, diffusion at depth 1), its plain version and the
+             oracle;
 7. compact write/sum -- counts set to 0, then write and sum on the
              packed state at rho 8, 16, 32 and rho 32 with coarsen 2
              under the four lowerings; counts read; the write checked on
@@ -85,9 +88,11 @@ Phases, each printing its own lines:
              causal / local / full x four lowerings x {MHA, GQA 16/8,
              MQA} x D {64, 128, 256} x blocks {64, 128} x f32/bf16 (the
              lowerings bit-equal to each other; bf16 takes the bf16
-             tensor-core kernel, f32 at D 64 and 128 the 3xTF32 one, f32
-             at D 256 the CUDA-core one, counted per kernel; each takes
-             at least one case), rectangular local with compact KV (both
+             tensor-core kernel, f32 the 3xTF32 one, also at D 200 and
+             136 below its d 256 instantiation; the CUDA-core kernel takes
+             blocks of 8 and 24, bf16 at D 40 and misaligned views;
+             counted per kernel, each takes at least one case),
+             rectangular local with compact KV (both
              dtypes, bit-equal to embedded), seq_pos scalar / vector and
              full + window at block_q 1 (the split-K decode kernel) and,
              on the tensor cores, at block_q 64;
@@ -98,11 +103,13 @@ Phases, each printing its own lines:
              error of ROW_RTOL (its largest printed per kernel);
 10. attn  -- flash_attention at the widths of quickstart (causal S 4096,
              B 4, f32: the 3xTF32 tensor-core kernel, also timed beside
-             the CUDA-core kernel on the same inputs) and gemma3-12b
+             the CUDA-core kernel on the same inputs; causal at S 4104,
+             a prompt length that is a multiple of 8 but not of 16, in
+             57 blocks of 72: the CUDA-core kernel) and gemma3-12b
              (D 256 bf16: causal S 4096, local window 1024 at S 8192:
              the bf16 tensor-core kernel; causal S 4096 in f32: the
-             CUDA-core kernel, the path f32 takes past D 128) under the
-             four lowerings:
+             3xTF32 kernel's d 256 form, beside the CUDA-core kernel)
+             under the four lowerings:
              counts set to 0, the entry point driven, counts read (each
              row's kernel launched once, the others not at all); kernel
              vs plain (bf16 rows also per row within ROW_RTOL: a fault in
@@ -137,8 +144,8 @@ Phases, each printing its own lines:
 13. kernels line (B1-B5 with B4 as the CUDA-core flash kernel and the
              split-K decode kernel flash_attention_decode, the mma chains
              B7, and B4's tensor-core tile paths flash_attention_tc (bf16)
-             and flash_attention_tc_f32 (f32, 3xTF32)), then the result
-             line.
+             and flash_attention_tc_f32 (f32, 3xTF32, with its gemma3-12b
+             D 256 row)), then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -214,11 +221,14 @@ CA_PARITY_CASES = [
 CA_LARGE_CASES = [("sierpinski-gasket", 512, 128, 1, 128),
                   ("sierpinski-gasket", 1024, 32, 2, 64)]
 CA_RHO, CA_STEPS, CA_FUSES = 32, 32, (1, 8, 32)
+#: the ring depths (num_stages) every CA phase runs
+CA_STAGES = (1, 2, 3)
 CA_ALPHA = 0.2
 #: f32 operations per member cell and step: 3 adds for the neighbour sum,
 #: then parity adds and takes the mod, diffusion does mul, sub, mul, add
 CA_OPS = {"parity": 5, "diffusion": 7}
 CA_REPORT_AT = ("closed_form", 8, "parity")  # the kernels line's CA row
+CA_REPORT_STAGES = 1  # ... at the entry points' default depth
 
 
 def check(cond, msg):
@@ -585,10 +595,27 @@ def phase_parity_compact(TW, F, LOWERINGS, compact_layout, dev):
     return err
 
 
+def ca_check_depths(TC, a, b, plan, n, block, halo, steps, rule):
+    """One CA launch at every ring depth of CA_STAGES against one plain
+    run on the same buffers: bit-equal, or raise."""
+    p = plan.launch_params(n, block, a.device)
+    want = TC.ca_launch_plain(a, b.clone(), plan, n, block, halo, steps,
+                              rule, CA_ALPHA)
+    for st in CA_STAGES:
+        got = TC.ca_cuda(a, b.clone(), p, halo, steps, rule, CA_ALPHA, st)
+        check(torch.equal(got, want),
+              f"CA kernel != plain version ({plan.domain.name}, "
+              f"{plan.lowering}, {plan.storage}, coarsen={plan.coarsen}, "
+              f"n={n}, block={block}, halo={halo}, steps={steps}, {rule}, "
+              f"num_stages={st}): max |diff| "
+              f"{float((got - want).abs().max())}")
+    return len(CA_STAGES)
+
+
 def phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev):
     """The fused CA kernel against its plain version, bit-equal for both
-    rules, over lowering x storage x coarsen x fuse, and the large
-    working tiles that take the global-scratch path."""
+    rules, over lowering x storage x coarsen x fuse x ring depth, and the
+    large working tiles that take the global-scratch path."""
     ncmp = 0
     cases = [(f, n, b, c, fuse) for (f, n, b, s) in CA_PARITY_CASES
              for c in (1, s) for fuse in sorted({1, 3, c * b})]
@@ -608,13 +635,15 @@ def phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev):
                         a, b, block=block, grid_mode=gm, fractal=fractal,
                         storage=storage, n=n, coarsen=coarsen)
                     h = TC.effective_fuse(fuse, fuse, blk, coarsen)
-                    TC.check_ca_against_plain(a, b, plan, n_, blk, h, h,
-                                              rule, CA_ALPHA)
-                    ncmp += 1
+                    ncmp += ca_check_depths(TC, a, b, plan, n_, blk, h, h,
+                                            rule)
         torch.cuda.synchronize()
+        p = plan.launch_params(n_, blk, dev)
+        ring = [TC.ring_geometry(p, h, st)[0] for st in CA_STAGES]
         print(f"[parity-ca] {fractal} n={n} rho={block} coarsen={coarsen} "
               f"fuse={fuse}: bit-equal (2 rules x 2 storages x "
-              f"{len(LOWERINGS)} lowerings)")
+              f"{len(LOWERINGS)} lowerings x num_stages {CA_STAGES}; ring "
+              f"slots {ring}{', 0 = global scratch' if 0 in ring else ''})")
     print(f"[parity-ca] {ncmp} kernel-vs-plain comparisons passed, all "
           f"bit-equal")
     return 0.0
@@ -728,28 +757,30 @@ def phase_ca_main(ops, TC, F, LOWERINGS, compact_layout, cell_tables, TW,
     for rule in ("parity", "diffusion"):
         for fuse in CA_FUSES:
             for gm in LOWERINGS:
-                a.copy_(init[rule])
-                b.zero_()
-                out = ops.ca_run(a, b, T, fuse=fuse, rule=rule,
-                                 alpha=CA_ALPHA, block=rho, grid_mode=gm,
-                                 storage="compact", n=n)
-                got = out.view(-1)[lam]
-                outside = int(torch.count_nonzero(out.masked_fill(mask, 0)))
-                diff = float((got - want[rule]).abs().max())
-                close = bool(torch.isclose(got, want[rule], rtol=1e-5,
-                                           atol=1e-6).all())
-                results[(rule, fuse, gm)] = (diff, outside, close)
+                for st in CA_STAGES:
+                    a.copy_(init[rule])
+                    b.zero_()
+                    out = ops.ca_run(a, b, T, fuse=fuse, rule=rule,
+                                     alpha=CA_ALPHA, block=rho, grid_mode=gm,
+                                     storage="compact", n=n, num_stages=st)
+                    got = out.view(-1)[lam]
+                    outside = int(torch.count_nonzero(
+                        out.masked_fill(mask, 0)))
+                    diff = float((got - want[rule]).abs().max())
+                    close = bool(torch.isclose(got, want[rule], rtol=1e-5,
+                                               atol=1e-6).all())
+                    results[(rule, fuse, gm, st)] = (diff, outside, close)
     torch.cuda.synchronize()
     launches = TC.launch_counts()
     print(f"[ca] launches {launches}")
     check(launches["sierpinski_ca_fused"] > 0,
           "kernel sierpinski_ca_fused was not launched on the CA path")
-    check(launches["sierpinski_ca_fused"] == 2 * len(LOWERINGS) * sum(
-        len(TC.launch_schedule(T, f)) for f in CA_FUSES),
+    check(launches["sierpinski_ca_fused"] == 2 * len(LOWERINGS) * len(
+        CA_STAGES) * sum(len(TC.launch_schedule(T, f)) for f in CA_FUSES),
         "unexpected CA launch count")
     oracle_err = {"parity": 0.0, "diffusion": 0.0}
-    for (rule, fuse, gm), (diff, outside, close) in results.items():
-        what = f"ca {rule} fuse={fuse} {gm}"
+    for (rule, fuse, gm, st), (diff, outside, close) in results.items():
+        what = f"ca {rule} fuse={fuse} {gm} num_stages={st}"
         check(outside == 0, f"{what}: {outside} non-member cells are "
               f"nonzero")
         if rule == "parity":
@@ -758,7 +789,8 @@ def phase_ca_main(ops, TC, F, LOWERINGS, compact_layout, cell_tables, TW,
         check(close, f"{what}: outside rtol 1e-5 / atol 1e-6 of the "
               f"cell-level oracle (max |err| {diff})")
         oracle_err[rule] = max(oracle_err[rule], diff)
-    print(f"[ca] {len(results)} runs of T={T} steps match the cell-level "
+    print(f"[ca] {len(results)} runs of T={T} steps (num_stages "
+          f"{CA_STAGES}) match the cell-level "
           f"oracle: parity bit-equal, diffusion max |err| "
           f"{oracle_err['diffusion']:.3e} (rtol 1e-5, atol 1e-6); "
           f"non-member cells all 0")
@@ -830,20 +862,26 @@ def phase_ca_main(ops, TC, F, LOWERINGS, compact_layout, cell_tables, TW,
                 plan, _, blk = TC.prepare_run(a, b, block=rho, grid_mode=gm,
                                               storage="compact", n=n)
                 p = plan.launch_params(n, blk, dev)
-                ms = time_ms(lambda: TC.ca_cuda(a, b, p, fuse, fuse, rule,
-                                                CA_ALPHA), 10)
-                lut_bytes = 0 if p.lut is None else p.lut.numel() * 4
-                row = {"rule": rule, "fuse": fuse, "lowering": gm,
-                       "launch_ms": ms, "step_ms": ms / fuse}
-                row["bound_ms"], row["bound_by"] = bound(
-                    2 * mbytes + lut_bytes,
-                    fuse * F.gasket_volume(n) * CA_OPS[rule])
-                if (gm, fuse, rule) == CA_REPORT_AT:
-                    row["plain_ms"] = time_ms(
-                        lambda: TC.ca_launch_plain(a, b, plan, n, blk, fuse,
-                                                   fuse, rule, CA_ALPHA), 2)
-                rows.append(row)
-                print(f"[ca] {json.dumps(row)}")
+                for st in (CA_STAGES if rule == "parity" else (1,)):
+                    ms = time_ms(lambda: TC.ca_cuda(a, b, p, fuse, fuse,
+                                                    rule, CA_ALPHA, st), 10)
+                    lut_bytes = 0 if p.lut is None else p.lut.numel() * 4
+                    slots, ctas = TC.ring_geometry(p, fuse, st)
+                    row = {"rule": rule, "fuse": fuse, "lowering": gm,
+                           "num_stages": st, "ring_slots": slots,
+                           "ctas": ctas, "launch_ms": ms,
+                           "step_ms": ms / fuse}
+                    row["bound_ms"], row["bound_by"] = bound(
+                        2 * mbytes + lut_bytes,
+                        fuse * F.gasket_volume(n) * CA_OPS[rule])
+                    if (gm, fuse, rule) == CA_REPORT_AT and \
+                            st == CA_REPORT_STAGES:
+                        row["plain_ms"] = time_ms(
+                            lambda: TC.ca_launch_plain(a, b, plan, n, blk,
+                                                       fuse, fuse, rule,
+                                                       CA_ALPHA), 2)
+                    rows.append(row)
+                    print(f"[ca] {json.dumps(row)}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[ca] peak device memory {peak:.2f} GiB (embedded runs "
           f"{emb_peak:.2f} GiB)")
@@ -1238,16 +1276,20 @@ TF32_OPS_PER_S = 495e12
 ATTN_HEADS = {"MHA": (4, 4), "GQA": (16, 8), "MQA": (8, 1)}
 ATTN_DIMS, ATTN_BLOCKS = (64, 128, 256), (64, 128)
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
-#: attn: (name, B, H, Hkv, S, D, dtype, kind, window) at the widths of
-#: quickstart and gemma3-12b
+#: attn: (name, B, H, Hkv, S, D, dtype, kind, window, block) at the widths
+#: of quickstart and gemma3-12b.  A prompt of 4104 tokens (a multiple of 8
+#: but not of 16) is split into 57 blocks of 72: the tile paths take
+#: 16-multiple blocks only, so the CUDA-core kernel serves it
 ATTN_TIMED = [("quickstart causal", 4, 12, 12, 4096, 64, torch.float32,
-               "causal", 0),
+               "causal", 0, 128),
+              ("quickstart causal S 4104", 4, 12, 12, 4104, 64,
+               torch.float32, "causal", 0, 72),
               ("gemma3-12b causal", 1, 16, 8, 4096, 256, torch.bfloat16,
-               "causal", 0),
+               "causal", 0, 128),
               ("gemma3-12b local", 1, 16, 8, 8192, 256, torch.bfloat16,
-               "local", 1024),
+               "local", 1024, 128),
               ("gemma3-12b causal f32", 1, 16, 8, 4096, 256, torch.float32,
-               "causal", 0)]
+               "causal", 0, 128)]
 #: serve: quickstart at full width, then gemma3-12b at full width cut to
 #: 6 of its 48 layers (one 5:1 local:global period); max_len a multiple
 #: of 128 so every decode attention runs the block-space kernel
@@ -1319,7 +1361,8 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
     cases = {name: 0 for name in FA.ROUTE_KERNELS.values()}
 
     def flash_check(q, k, v, sched, pos=None):
-        name = FA.ROUTE_KERNELS[FA.flash_route(sched, q.dtype)]
+        name = FA.ROUTE_KERNELS[FA.flash_route(sched, q.dtype,
+                                               FA._aligned(q, k, v))]
         out = FA.flash_cuda(q, k, v, sched, pos)
         want = FA.flash_attention_plain(q, k, v, sched, pos)
         err[name] = max(err[name], FA._compare(
@@ -1355,6 +1398,41 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
               f"{len(ATTN_HEADS)} head "
               f"layouts x D {ATTN_DIMS} x blocks {ATTN_BLOCKS} x f32/bf16 "
               f"within tolerance, lowerings bit-equal")
+    # f32 below the 3xTF32 kernel's d 256 instantiation (its inexact
+    # form), then the calls the CUDA-core kernel takes: blocks of 8 and
+    # 24, bf16 at D 40, and f32 views 4 bytes past a 16-byte boundary
+    for d in (200, 136):
+        for kind in ("causal", "full"):
+            seed += 1
+            q, k, v = attn_inputs([(2, 16, 256, d), (2, 8, 256, d),
+                                   (2, 8, 256, d)], torch.float32, seed, dev)
+            outs = [flash_check(q, k, v, FA.flash_schedule(
+                q.shape, k.shape, kind=kind, block_q=64, block_k=64,
+                grid_mode=gm)) for gm in LOWERINGS]
+            check(all(torch.equal(o, outs[0]) for o in outs),
+                  f"flash f32 {kind} d={d}: the lowerings differ")
+    for dtype in ATTN_DTYPES:
+        for blk, s, d in ((8, 64, 64), (24, 96, 256), (64, 128, 40)):
+            seed += 1
+            q, k, v = attn_inputs([(2, 8, s, d), (2, 4, s, d),
+                                   (2, 4, s, d)], dtype, seed, dev)
+            for gm in LOWERINGS:
+                flash_check(q, k, v, FA.flash_schedule(
+                    q.shape, k.shape, kind="causal", block_q=blk,
+                    block_k=blk, grid_mode=gm))
+    for d in (64, 256):
+        shape = (1, 4, 128, d)
+        base = attn_inputs([(4 * 128 * d + 1,)] * 3, torch.float32, 550 + d,
+                           dev)
+        q, k, v = (t[1:].view(shape) for t in base)
+        for gm in LOWERINGS:
+            flash_check(q, k, v, FA.flash_schedule(
+                shape, shape, kind="causal", block_q=64, block_k=64,
+                grid_mode=gm))
+    torch.cuda.synchronize()
+    print("[parity-attn] f32 at D 200 / 136 (3xTF32, the inexact d 256 "
+          "form); blocks 8 / 24, bf16 D 40, misaligned f32 views (the "
+          "CUDA-core kernel): within tolerance")
     # rectangular local: queries are the last 256 of 1024 positions, the
     # compact K/V hold only the band's key-block support
     for dtype in ATTN_DTYPES:
@@ -1507,17 +1585,19 @@ def phase_attn(FA, LOWERINGS, dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     launches = {name: 0 for name in FA.KERNELS}
-    for name, b, h, hkv, s, d, dtype, kind, window in ATTN_TIMED:
+    for name, b, h, hkv, s, d, dtype, kind, window, blk in ATTN_TIMED:
         torch.cuda.empty_cache()
         q, k, v = attn_inputs([(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)],
                               dtype, 800, dev)
         scheds = [FA.flash_schedule(q.shape, k.shape, kind=kind,
-                                    window=window, grid_mode=gm)
+                                    window=window, block_q=blk,
+                                    block_k=blk, grid_mode=gm)
                   for gm in LOWERINGS]
         route = FA.flash_route(scheds[0], dtype)
         FA.reset_launch_counts()
         outs = [FA.flash_attention(q, k, v, kind=kind, window=window,
-                                   grid_mode=gm) for gm in LOWERINGS]
+                                   block_q=blk, block_k=blk, grid_mode=gm)
+                for gm in LOWERINGS]
         torch.cuda.synchronize()
         counts = FA.launch_counts()
         want = {n: len(LOWERINGS) if n == FA.ROUTE_KERNELS[route] else 0
@@ -1582,11 +1662,14 @@ def phase_attn(FA, LOWERINGS, dev):
     print(f"[attn] tc_f32 rows ({len(f32_rows)}): max |err| "
           f"{max(r['max_abs_err'] for r in f32_rows)} (rtol = atol "
           f"{FA.TOLERANCE[torch.float32]}), launches "
-          f"{launches['flash_attention_tc_f32']}, ms "
-          f"{[r['ms'] for r in f32_rows]} against the CUDA-core kernel's "
-          f"{[r['cuda_core_ms'] for r in f32_rows]}, bound "
-          f"{f32_rows[0]['bound_ms']} ms ({f32_rows[0]['peak']}), SDPA "
-          f"{f32_rows[0]['library_ms']} ms")
+          f"{launches['flash_attention_tc_f32']}")
+    for case in dict.fromkeys(r["case"] for r in f32_rows):
+        cr = [r for r in f32_rows if r["case"] == case]
+        print(f"[attn] tc_f32 {case} (D {cr[0]['d']}): ms "
+              f"{[r['ms'] for r in cr]} against the CUDA-core kernel's "
+              f"{[r['cuda_core_ms'] for r in cr]}, bound "
+              f"{cr[0]['bound_ms']} ms ({cr[0]['peak']}), SDPA "
+              f"{cr[0]['library_ms']} ms")
     print(f"[attn] launches of the counted entry-point runs: {launches}")
     return rows, launches
 
@@ -1978,7 +2061,8 @@ def timings(node, path=""):
     """{path: [values]} of every time in a chip_smoke.json tree (a list
     of times under one key, as the serving runs keep them, stays one
     entry); rows of a list are keyed by their case / lowering / rho /
-    fuse / rule / domain fields where they have them."""
+    fuse / rule / domain fields where they have them, and by num_stages
+    where it is not 1 (so depth-1 rows pair with an earlier tree's)."""
     out = {}
     if isinstance(node, dict):
         for key, val in node.items():
@@ -1998,6 +2082,8 @@ def timings(node, path=""):
                 tag = ",".join(str(val[f]) for f in (
                     "name", "case", "arch", "domain", "storage", "lowering",
                     "rho", "coarsen", "fuse", "rule") if f in val) or i
+                if val.get("num_stages", 1) != 1:
+                    tag = f"{tag},num_stages={val['num_stages']}"
             out.update(timings(val, f"{path}[{tag}]"))
     return out
 
@@ -2131,7 +2217,10 @@ def main():
         "reordered_sum_ms": at["combine_reordered_sum_ms"]})
     gm, fuse, rule = CA_REPORT_AT
     ca_at = next(r for r in ca["rows"]
-                 if (r["lowering"], r["fuse"], r["rule"]) == CA_REPORT_AT)
+                 if (r["lowering"], r["fuse"], r["rule"]) == CA_REPORT_AT
+                 and r["num_stages"] == CA_REPORT_STAGES)
+    ca_depths = {str(r["num_stages"]): r["launch_ms"] for r in ca["rows"]
+                 if (r["lowering"], r["fuse"], r["rule"]) == CA_REPORT_AT}
     kernels.append({
         "name": "sierpinski_ca_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/sierpinski_ca.cu",
@@ -2145,7 +2234,8 @@ def main():
                      "launch of the same steps",
         "yardstick_ms": ca["oracle_ms"][rule] * fuse,
         "at": f"gasket n={N_MAIN} rho={CA_RHO} compact f32 {gm} fuse={fuse} "
-              f"{rule}, one launch",
+              f"{rule}, one launch, num_stages={CA_REPORT_STAGES}",
+        "ms_by_num_stages": ca_depths, "ctas": ca_at["ctas"],
         "domain": domains,
     })
     # B7: the mma chains inside the write (B7a at n = 2**16, rho = 32;
@@ -2177,10 +2267,13 @@ def main():
     })
     serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
     serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
-    # B4 on the CUDA cores (flash_fwd_kernel): the f32 prefill rows at
-    # gemma3-12b's head dim of the attn phase (counted there), closed_form
+    # B4 on the CUDA cores (flash_fwd_kernel): the quickstart rows of the
+    # attn phase at a prompt length in 72-token blocks (counted there),
+    # closed_form; its gemma3-12b f32 time beside the 3xTF32 kernel's
     cc = [r for r in attn_rows if r["kernel"] == "cuda_core"]
     cc_at = next(r for r in cc if r["lowering"] == "closed_form")
+    g32 = next(r for r in attn_rows if r["case"] == "gemma3-12b causal f32"
+               and r["lowering"] == "closed_form")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2195,6 +2288,7 @@ def main():
         "at": f"{cc_at['case']}: S {cc_at['s']} B {cc_at['b']} heads "
               f"{cc_at['h']}/{cc_at['hkv']} D {cc_at['d']} f32, blocks "
               f"{cc_at['blocks']}, closed_form",
+        "gemma3_12b_causal_f32_ms": g32["cuda_core_ms"],
         "parity_cases": attn_cases["flash_attention"]})
     # the decode kernels (one routine, two front ends): timed at the
     # quickstart serving shapes, with the gemma3-12b decode shape beside
@@ -2267,6 +2361,9 @@ def main():
         "at": f"quickstart causal S {f32_at['s']} B {f32_at['b']} heads "
               f"{f32_at['h']}/{f32_at['hkv']} D {f32_at['d']} f32, blocks "
               f"{f32_at['blocks']}, closed_form",
+        "gemma3_12b": {key: g32[key] for key in (
+            "ms", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")},
         "parity_cases": attn_cases["flash_attention_tc_f32"]})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({

@@ -9,7 +9,10 @@
 // until at most stages - 2 groups are pending (its own has landed),
 // synchronises the CTA (every reader of the slot step t + stages - 1 will
 // overwrite is done), issues that step's copies and commits, then
-// computes on slot t % stages.
+// computes on slot t % stages.  The fused CA kernel runs the same ring at
+// a depth chosen at run time (wait_pending) and gathers its working tiles
+// with zero-filled copies (copy16_zfill / copy4_zfill: src-size 0 for the
+// cells of out-of-range or non-member blocks).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +36,35 @@ __device__ __forceinline__ void commit() {
 template <int kPending>
 __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The same for a ring depth known at run time: at most `pending` groups
+// in flight, 0 <= pending < kMaxPending (deeper counts wait for all).
+constexpr int kMaxPending = 3;
+__device__ __forceinline__ void wait_pending(int pending) {
+  switch (pending) {
+    case 2: wait<2>(); break;
+    case 1: wait<1>(); break;
+    default: wait<0>(); break;
+  }
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src-size 0:
+// nothing is read from gmem, which must still be a valid address).
+__device__ __forceinline__ void copy16_zfill(void* smem, const void* gmem,
+                                             bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared (through L1: .cg takes 16-byte copies only),
+// or 4 zero bytes when !valid.
+__device__ __forceinline__ void copy4_zfill(void* smem, const void* gmem,
+                                            bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 4 : 0));
 }
 
 // Copy `rows` rows of `cols` values of T (bf16 or f32; cols a whole number

@@ -16,9 +16,9 @@
 // kind "full" calls with seq_pos (decode) to flash_decode_kernel, bf16
 // calls with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel,
 // f32 calls with block_q and block_k multiples of 16 and d a multiple of 8
-// up to 128 to flash_fwd_tf32_kernel (q, k, v 16-byte aligned for both),
-// and every other call (f32 prefill at d > 128, blocks that are not
-// multiples of 16, block_q = 1 calls that are not decode) to
+// up to 256 to flash_fwd_tf32_kernel (q, k, v 16-byte aligned for both),
+// and every other call (blocks that are not multiples of 16, misaligned
+// views, block_q = 1 calls that are not decode, bf16 with d % 16 != 0) to
 // flash_fwd_kernel.
 //
 // Every flash kernel: one CTA per (batch * head, query-block row), as the
@@ -126,11 +126,19 @@
 //   * two ring stages: Q (128 rows) and two slots are 102 KB at d = 64,
 //     two CTAs per SM, and 198 KB at d = 128.  Q is not kept split
 //     (hi and lo planes would take a second 35 KB at d = 64, one CTA per
-//     SM); a lane re-splits 4 Q values per k-step.  d = 256 would need
-//     131 KB for Q and 131 KB for one slot, past the 227 KB a CTA may
-//     have, so f32 at d > 128 stays on flash_fwd_kernel;
-//   * where d is the instantiation's and block_k a multiple of 64 (the
-//     models' shapes), an exact instantiation takes both as constants:
+//     SM); a lane re-splits 4 Q values per k-step;
+//   * d = 256 (past d = 128: d % 8 == 0 up to 256) would need 131 KB for
+//     128 Q rows and 131 KB for one 64-key slot, and 128 accumulators a
+//     lane: so a pair of warps shares 16 query rows, each warp owning 128
+//     of the output dims (64 accumulators), 64 rows a pass in 32-key
+//     sub-tiles (Q 65 KB, two slots 130 KB, 16 KB of partial scores).
+//     Each warp of the pair multiplies its half of the head dim; the two
+//     halves meet in shared memory behind a 64-thread named barrier and
+//     are added dims 0-127 first in both warps, so the pair holds one set
+//     of scores, runs one softmax and the four lowerings stay bit-equal;
+//   * where d is the instantiation's and block_k a multiple of the
+//     sub-tile (the models' shapes), an exact instantiation takes both as
+//     constants:
 //     its tile loops unroll without a branch, which lets the scheduler
 //     overlap one n-tile's loads and splits with another's products.
 // Its bound is three tf32 products of 4 d flops per unmasked pair at
@@ -138,7 +146,7 @@
 // it: every warp splits the K and V values it reads (the same sub-tile
 // in all 8 warps), so integer and f32 work issues beside each product.
 //
-// flash_fwd_kernel (f32 past d = 128, small blocks) is simple rather
+// flash_fwd_kernel (small or odd blocks, misaligned views) is simple rather
 // than fast: scores and p v run in f32 on the CUDA cores, 8 warps own 4
 // query rows each per pass, K/V tiles are staged through shared memory
 // 32 keys at a time (so d = 256 with 128-key tiles fits: 32 q rows + 32
@@ -356,10 +364,12 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
 
 // out = O / l (l == 0 -> 1) for rows `row` and row + 8 of the pass, lane
 // (g, t4) writing columns 8 ot + 2 t4 and + 1 of each output n-tile
-// below d (o: the query block's first row).
+// below ncols (o: the query block's first row at the warp's first output
+// column; rows of d values).
 template <int kOt, typename T>
 __device__ __forceinline__ void store_o(T* __restrict__ o, int row, int d,
-                                        int t4, const float (&acc)[kOt][4],
+                                        int ncols, int t4,
+                                        const float (&acc)[kOt][4],
                                         const float (&l)[2]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -370,7 +380,7 @@ __device__ __forceinline__ void store_o(T* __restrict__ o, int row, int d,
     T* dst = o + (size_t)(row + 8 * i) * d + 2 * t4;
 #pragma unroll
     for (int ot = 0; ot < kOt; ++ot) {
-      if (ot * 8 < d)
+      if (ot * 8 < ncols)
         store_pair(dst + ot * 8, __fdiv_rn(acc[ot][2 * i], lt),
                    __fdiv_rn(acc[ot][2 * i + 1], lt));
     }
@@ -572,8 +582,8 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
 
     // -- out = O / l (l == 0 -> 1), rounded to bf16 -----------------------
     if (busy)
-      store_o<kOt>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d, t4, acc,
-                   l);
+      store_o<kOt>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d, d, t4,
+                   acc, l);
   }
 }
 
@@ -584,17 +594,46 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
 constexpr int kTfPad = 4;     // f32 padding per shared row (16 bytes)
 constexpr int kTfStages = 2;  // ring depth
 
-// The instantiated head dim of d (a multiple of 8 up to 128) and one CTA's
-// dynamic shared memory: the pass's query rows (f32, unscaled) and two
-// slots of a K and a V sub-tile, rows of dt + kTfPad f32.  d = 64: 102 KB,
-// two CTAs per SM; d = 128: 198 KB.  (d = 256 would need 266 KB for Q and
-// one slot alone, past the 227 KB a CTA may have: it stays on
-// flash_fwd_kernel.)
-constexpr __host__ __device__ int tf32_dt(int d) { return d <= 64 ? 64 : 128; }
+// The instantiated head dim of d (a multiple of 8 up to 256) and its
+// geometry.  Up to d = 128 a warp owns 16 query rows and every output
+// dim, 128 rows a pass, 64-key sub-tiles.  d = 256 does not fit that
+// form: 128 query rows and one 64-key K/V slot in rows of 260 f32 are
+// 266 KB of shared memory, past the 227 KB a CTA may have, and a warp's
+// 16 x 256 outputs would be 128 accumulators a lane beside the scores and
+// fragments.  So at d = 256 a pair of warps shares 16 query rows, each
+// warp owning 128 of the output dims (64 accumulators a lane), 64 rows a
+// pass, 32-key sub-tiles: each warp of the pair computes the scores over
+// its half of the head dim and the pair adds the two halves in one fixed
+// order (dims 0-127 first) through shared memory, so both hold the same
+// scores and run the same softmax.
+constexpr __host__ __device__ int tf32_dt(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+constexpr __host__ __device__ int tf32_halves(int dt) {
+  return dt > 128 ? 2 : 1;  // warps sharing 16 query rows
+}
+constexpr __host__ __device__ int tf32_sub(int dt) {
+  return dt > 128 ? 32 : kTcSub;  // keys per sub-tile
+}
+constexpr __host__ __device__ int tf32_rows_per_pass(int dt) {
+  return kTcRowsPerPass / tf32_halves(dt);
+}
+// One CTA's dynamic shared memory: the pass's query rows (f32, unscaled),
+// two slots of a K and a V sub-tile, rows of dt + kTfPad f32, and at
+// d = 256 each warp's 16 x 32 partial scores.  d = 64: 102 KB, two CTAs
+// per SM; d = 128: 198 KB; d = 256: 65 KB + 130 KB + 16 KB = 211 KB.
 __host__ __device__ inline size_t tf32_smem_bytes(int d, int block_q) {
-  const int rows = block_q < kTcRowsPerPass ? block_q : kTcRowsPerPass;
-  return ((size_t)rows + (size_t)kTfStages * 2 * kTcSub) *
-         (size_t)(tf32_dt(d) + kTfPad) * sizeof(float);
+  const int dt = tf32_dt(d);
+  const int pass = tf32_rows_per_pass(dt);
+  const int rows = block_q < pass ? block_q : pass;
+  const size_t xchg = tf32_halves(dt) > 1
+                          ? (size_t)(rows / kTcRowsPerWarp) * 2 * 32 *
+                                (tf32_sub(dt) / 2)
+                          : 0;
+  return (((size_t)rows + (size_t)kTfStages * 2 * tf32_sub(dt)) *
+              (size_t)(dt + kTfPad) +
+          xchg) *
+         sizeof(float);
 }
 
 // Splits four f32 values (bit patterns) into tf32 hi and lo parts.
@@ -614,10 +653,17 @@ __device__ __forceinline__ void mma_3xtf32(float acc[4], const unsigned ahi[4],
   tc::mma_tf32(acc, ahi, bhi);
 }
 
+// The two warps of a pair (64 threads) wait for each other on named
+// barrier `id` (1 + the pair's row group; barrier 0 is __syncthreads).
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
 // d <= 64 fits two CTAs per SM (128 registers a thread, 102 KB of shared
-// memory each); d <= 128 runs one CTA of up to 255 registers.  kExact: d
-// is DT and block_k a multiple of 64, so the head dim and the keys of a
-// sub-tile are compile-time and the tile loops run without branches.
+// memory each); wider heads run one CTA of up to 255 registers.  kExact:
+// d is DT and block_k a multiple of the sub-tile, so the head dim and the
+// keys of a sub-tile are compile-time and the tile loops run without
+// branches.
 template <int DT, bool kExact>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
@@ -626,13 +672,20 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
                       const int* __restrict__ ext,
                       const int* __restrict__ pos_vec,
                       float* __restrict__ o) {
+  constexpr int kHalves = tf32_halves(DT);
+  constexpr int kSub = tf32_sub(DT);
+  constexpr int kPass = tf32_rows_per_pass(DT);
+  constexpr int kDw = DT / kHalves;     // output dims a warp owns
   constexpr int kStride = DT + kTfPad;  // shared row, f32 elements
-  constexpr int kNt = kTcSub / 8;       // score n-tiles (8 keys) of a sub-tile
-  constexpr int kOt = DT / 8;           // output n-tiles
-  constexpr size_t kSlot = (size_t)2 * kTcSub * kStride;  // K then V
+  constexpr int kNt = kSub / 8;         // score n-tiles (8 keys) of a sub-tile
+  constexpr int kOt = kDw / 8;          // a warp's output n-tiles
+  constexpr size_t kSlot = (size_t)2 * kSub * kStride;  // K then V
   extern __shared__ __align__(16) unsigned char tf_smem[];
   float* const sq = reinterpret_cast<float*>(tf_smem);
-  float* const skv = sq + (size_t)min(p.block_q, kTcRowsPerPass) * kStride;
+  const int qrows = min(p.block_q, kPass);
+  float* const skv = sq + (size_t)qrows * kStride;
+  // each warp's partial scores (d = 256): lane-major, conflict-free
+  float* const sx = skv + (size_t)kTfStages * kSlot;
 
   int qb, bh;
   cta_tile(p, qb, bh);
@@ -641,6 +694,8 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   row_extent(p, qb, b, ext, pos_vec, start, end, pos);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp / kHalves, half = warp - rg * kHalves;
+  const int dof = half * kDw;  // this warp's first output dim
   const int g = lane >> 2, t4 = lane & 3;
   const int d = kExact ? DT : p.d, bk = p.block_k;
   const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
@@ -654,7 +709,7 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
 
   // the ring's steps, as the bf16 kernel's
   auto advance = [&](int& kb, int& c) {
-    c += kTcSub;
+    c += kSub;
     if (c >= bk) {
       c = 0;
       kb = next_live(p, kb + 1, qb, end);
@@ -663,17 +718,17 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   auto issue = [&](int kb, int c, int slot) {
     const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
     const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
-    const int rows = min(kTcSub, bk - c);
+    const int rows = min(kSub, bk - c);
     float* dst = skv + (size_t)slot * kSlot;
     ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
-    ring::copy_rows(dst + (size_t)kTcSub * kStride, kStride, v + t_off, d,
+    ring::copy_rows(dst + (size_t)kSub * kStride, kStride, v + t_off, d,
                     rows, d);
   };
 
-  for (int row0 = 0; row0 < p.block_q; row0 += kTcRowsPerPass) {
-    const int nrows = min(kTcRowsPerPass, p.block_q - row0);
-    const bool busy = warp * kTcRowsPerWarp < nrows;
-    const int qrow = p.off + qb * p.block_q + row0 + warp * kTcRowsPerWarp + g;
+  for (int row0 = 0; row0 < p.block_q; row0 += kPass) {
+    const int nrows = min(kPass, p.block_q - row0);
+    const bool busy = rg * kTcRowsPerWarp < nrows;
+    const int qrow = p.off + qb * p.block_q + row0 + rg * kTcRowsPerWarp + g;
 
     // prologue: Q and the first ring step in one group
     ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows, d);
@@ -704,25 +759,27 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
 
       if (busy) {
         const float* sk = skv + (size_t)slot * kSlot;
-        const float* sv = sk + (size_t)kTcSub * kStride;
-        const float* sqw = sq + (size_t)warp * kTcRowsPerWarp * kStride;
+        const float* sv = sk + (size_t)kSub * kStride;
+        const float* sqw = sq + (size_t)rg * kTcRowsPerWarp * kStride;
         // a multiple of 16
-        const int nkeys = kExact ? kTcSub : min(kTcSub, bk - c_c);
+        const int nkeys = kExact ? kSub : min(kSub, bk - c_c);
 
         // -- S = Q K^T: 16 rows x nkeys in 3xTF32, f32 sums --------------
-        // Q is scaled in f32 before the split (as the plain version
-        // pre-scales it); each k-step splits its A fragment once for its
-        // eight n-tiles, and each K fragment once for its three products
+        // over this warp's dims; Q is scaled in f32 before the split (as
+        // the plain version pre-scales it); each k-step splits its A
+        // fragment once for its n-tiles, and each K fragment once for its
+        // three products
         float s[kNt][4];
 #pragma unroll
         for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
 #pragma unroll
-        for (int ks = 0; ks < DT / 8; ++ks) {
-          if (ks * 8 < d) {
+        for (int ks = 0; ks < kDw / 8; ++ks) {
+          const int col = dof + ks * 8;
+          if (col < d) {
             unsigned a[4], ahi[4], alo[4];
-            tc::ldmatrix_x4(a, sqw + (size_t)a_row * kStride + ks * 8 + a_col);
+            tc::ldmatrix_x4(a, sqw + (size_t)a_row * kStride + col + a_col);
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               a[e] = __float_as_uint(__fmul_rn(__uint_as_float(a[e]), p.scale));
@@ -732,7 +789,7 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
               if (np * 16 < nkeys) {
                 unsigned kf[4], khi[4], klo[4];
                 tc::ldmatrix_x4(kf, sk + (size_t)(np * 16 + k_row) * kStride +
-                                        ks * 8 + k_col);
+                                        col + k_col);
                 split_frag(kf, khi, klo);
                 mma_3xtf32(s[2 * np], ahi, alo, make_uint2(khi[0], khi[1]),
                            make_uint2(klo[0], klo[1]));
@@ -743,12 +800,31 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
             }
           }
         }
+        if constexpr (kHalves == 2) {
+          // the pair's halves, summed dims 0-127 + dims 128-255 in both
+          // warps (one order, so both hold the same scores)
+          float* mine = sx + (size_t)warp * 32 * kNt * 4;
+          const float* other = sx + (size_t)(warp ^ 1) * 32 * kNt * 4;
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mine[(nt * 4 + e) * 32 + lane] = s[nt][e];
+          pair_sync(1 + rg);
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float x = other[(nt * 4 + e) * 32 + lane];
+              s[nt][e] = half == 0 ? __fadd_rn(s[nt][e], x)
+                                   : __fadd_rn(x, s[nt][e]);
+            }
+        }
 
         mask_scores<kNt, false>(p, s, qrow, g, t4, kb_c * bk + c_c, nkeys,
                                 pos);
         softmax_step<kNt, kOt>(s, m, l, acc, nkeys);
 
-        // -- O += P V in 3xTF32 ------------------------------------------
+        // -- O += P V in 3xTF32, this warp's output dims -------------------
         // per 8-key k-step, keys permuted in the group (A column t is key
         // 2t, column t + 4 key 2t + 1): the score fragment's d[0], d[2],
         // d[1], d[3] are P's A fragment, and V's B fragment is read at rows
@@ -762,10 +838,11 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
                 __float_as_uint(s[kk][1]), __float_as_uint(s[kk][3])};
             unsigned phi[4], plo[4];
             split_frag(pf, phi, plo);
-            const float* vr = sv + (size_t)(kk * 8 + 2 * t4) * kStride + g;
+            const float* vr =
+                sv + (size_t)(kk * 8 + 2 * t4) * kStride + dof + g;
 #pragma unroll
             for (int ot = 0; ot < kOt; ++ot) {
-              if (ot * 8 < d) {
+              if (dof + ot * 8 < d) {
                 unsigned vhi0, vlo0, vhi1, vlo1;
                 tc::split_tf32(vr[ot * 8], vhi0, vlo0);
                 tc::split_tf32(vr[kStride + ot * 8], vhi1, vlo1);
@@ -783,8 +860,8 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
     __syncthreads();  // every reader of sq and the ring is done
 
     if (busy)
-      store_o<kOt>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d, t4, acc,
-                   l);
+      store_o<kOt>(o + q_off + dof, row0 + rg * kTcRowsPerWarp + g, d,
+                   d - dof, t4, acc, l);
   }
 }
 
@@ -914,15 +991,17 @@ int launch_flash(const AttnParams& p, const T* q, const T* k, const T* v,
 }
 
 // One tile-path kernel (flash_fwd_tc_kernel or flash_fwd_tf32_kernel) at
-// `bytes` of shared memory: block_q / 16 warps, at most 8.
+// `bytes` of shared memory: `halves` warps per 16 query rows of a pass of
+// at most `pass` rows (at most 8 warps).
 template <typename T, typename K>
 int launch_tile_path(K kernel, size_t bytes, const AttnParams& p, const T* q,
                      const T* k, const T* v, const int* ext, const int* pos,
-                     T* o, cudaStream_t s) {
+                     T* o, cudaStream_t s, int pass = kTcRowsPerPass,
+                     int halves = 1) {
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
-  const int rows = p.block_q < kTcRowsPerPass ? p.block_q : kTcRowsPerPass;
-  const int warps = rows / kTcRowsPerWarp;
+  const int rows = p.block_q < pass ? p.block_q : pass;
+  const int warps = rows / kTcRowsPerWarp * halves;
   const long long ctas = (long long)p.b * p.h * p.m_q;
   kernel<<<(unsigned)ctas, warps * 32, bytes, s>>>(p, q, k, v, ext, pos, o);
   return (int)cudaGetLastError();
@@ -1044,25 +1123,28 @@ int flash_tc(const long long* params, float scale, const void* q,
 }
 
 // The tf32 kernel takes block_q and block_k multiples of 16 and d a
-// multiple of 8, d <= 128.
+// multiple of 8, d <= 256.
 int flash_tf32(const long long* params, float scale, const void* q,
                const void* k, const void* v, const int* ext, const int* pos,
                void* o, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
-  if (p.block_q % 16 || p.block_k % 16 || p.d % 8 || p.d > 128)
+  if (p.block_q % 16 || p.block_k % 16 || p.d % 8 || p.d > 256)
     return (int)cudaErrorInvalidValue;
   const auto *qq = static_cast<const float*>(q),
              *kk = static_cast<const float*>(k),
              *vv = static_cast<const float*>(v);
   auto* oo = static_cast<float*>(o);
+  const int dt = tf32_dt(p.d);
   const size_t bytes = tf32_smem_bytes(p.d, p.block_q);
-  const bool exact = p.d == tf32_dt(p.d) && p.block_k % kTcSub == 0;
-  auto kernel = tf32_dt(p.d) == 64
-                    ? (exact ? flash_fwd_tf32_kernel<64, true>
-                             : flash_fwd_tf32_kernel<64, false>)
-                    : (exact ? flash_fwd_tf32_kernel<128, true>
-                             : flash_fwd_tf32_kernel<128, false>);
-  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s);
+  const bool exact = p.d == dt && p.block_k % tf32_sub(dt) == 0;
+  auto kernel = dt == 64    ? (exact ? flash_fwd_tf32_kernel<64, true>
+                                     : flash_fwd_tf32_kernel<64, false>)
+                : dt == 128 ? (exact ? flash_fwd_tf32_kernel<128, true>
+                                     : flash_fwd_tf32_kernel<128, false>)
+                            : (exact ? flash_fwd_tf32_kernel<256, true>
+                                     : flash_fwd_tf32_kernel<256, false>);
+  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s,
+                          tf32_rows_per_pass(dt), tf32_halves(dt));
 }
 
 }  // namespace
@@ -1098,7 +1180,7 @@ int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
 
 // The same in f32 on the tensor cores (flash_fwd_tf32_kernel, 3xTF32):
 // params as fa_forward_f32, with block_q and block_k multiples of 16 and
-// d a multiple of 8 up to 128.
+// d a multiple of 8 up to 256.
 int fa_forward_tc_f32(const long long* params, float scale, const void* q,
                       const void* k, const void* v, const int* ext,
                       const int* pos, void* o, void* stream) {

@@ -5,8 +5,9 @@
 // Replaces (JAX package, Pallas):
 //   sc_ca_launch  <- kernels/sierpinski_ca.py::_ca_fused_kernel (:212), with
 //                    its _dma (:232) and _gpu (:268) variants, the shared
-//                    math _trapezoid_update (:117) and one launch of the
-//                    scan in _ca_run_impl (:370)
+//                    math _trapezoid_update (:117), the _dma variant's tile
+//                    ring core/backend.py::stream_tiles (:290) and one
+//                    launch of the scan in _ca_run_impl (:370)
 //
 // What it computes, per scheduled (super)block: gather the center and the
 // 8 neighbour supertiles into a (span + 2h)^2 working tile (embedded
@@ -20,46 +21,70 @@
 // What bounds it on an H100 (80 GB HBM3 at 3.35 TB/s): bytes.  A launch
 // must read every member block once and write it once: at n = 2^16,
 // rho = 32, compact f32 the packed orthotope (23328 x 7776 cells) is
-// 725.6 MB, so 2 x 725.6 MB = 1.45 GB, 0.433 ms.  The arithmetic is a few
-// f32 operations per cell and step, far below the f32 rate; the halo
-// re-reads ((span + 2h)^2 against span^2 cells) and the stencil's
-// shared-memory traffic are what a simple kernel pays above the bound.
+// 725.6 MB, so 2 x 725.6 MB = 1.45 GB, 0.433 ms.  The halo re-reads
+// ((span + 2h)^2 against span^2 cells, mostly from L2) raise the floor to
+// ~0.46 ms at fuse 1 and ~0.70 ms at fuse 8; the trapezoid's arithmetic
+// (a few f32 operations per cell and step, over a shrinking region) is
+// what grows with the fuse depth.
 //
 // What the design does about it:
-//   * one CTA per scheduled (super)block, grid-stride over steps; the
-//     nine supertile origins are resolved once per CTA, the lowering's own
-//     way: lambda in registers then lambda^-1 for the neighbour slots
-//     (closed_form), one read of columns 2-27 of the 28-column LUT row
-//     (prefetch_lut), or a row-major split with an early exit on
-//     non-member blocks (bounding);
-//   * each working cell is gathered once from device memory (neighbouring
-//     threads read neighbouring cells of one fine-block row), through the
-//     static fine-block permutation under compact coarsening; cells of
-//     out-of-range or non-member fine blocks are never read (block_ok);
-//   * the step loop runs in the CTA on two buffers (ping-pong), shrinking
-//     the computed region by one ring per step: only the interior is
-//     stored, and after k steps it depends only on cells within k of it;
-//   * the buffers and the cell mask live in shared memory up to the
-//     227 KB opt-in limit; larger working tiles (e.g. rho = 128 at
-//     fuse 128) keep them in a per-CTA slice of one global scratch buffer
-//     under a persistent grid-stride launch -- the same kernel;
+//   * persistent CTAs, as many as the occupancy calculator lets reside on
+//     the card: CTA c walks grid steps c, c + G, c + 2G, ... (G CTAs), so
+//     the steps in flight at any time are neighbours in lambda order and
+//     their shared halos meet in L2; under bounding a warp tests 32 of the
+//     CTA's steps at a time, the ring only ever holds member blocks, and
+//     G is coprime with the box's width (walk_ctas);
+//   * the working tiles stream through a ring of `stages` shared-memory
+//     slots (async_ring.cuh): while step i's trapezoid runs, the copies of
+//     step i + stages - 1 are in flight (the stream_tiles schedule; one
+//     commit group per step, empty groups past the CTA's last step);
+//     stages = 1 gathers, waits and computes;
+//   * a step's block, its nine supertile origins and its place in the
+//     ring are resolved one ring step ahead by warp 0, one origin a lane
+//     (lambda^-1 in registers, the LUT row's columns under prefetch_lut,
+//     the B7a/B7b chains under mma); a row-major domain's mma row chain
+//     (B7c, rows_chain_cta) is shared by all warps at that same point of
+//     the loop, where the CTA is converged;
+//   * the gather moves 16-byte pieces along fine-block rows: the working
+//     tile's column 0 sits at shared column pad = -h mod 4, so every fine
+//     block of a row starts on a piece boundary in both memories (block
+//     and pitch multiples of 4, 16-byte aligned buffers; else 4-byte
+//     copies).  A piece of an out-of-range or non-member fine block is a
+//     zero-filled copy (src-size 0): nothing is read for it.  Division by
+//     the block side happens once per row and once per piece (a shift
+//     for power-of-two blocks), never per cell.  Rows shorter than a warp
+//     share it: 32 / pieces rows at a time, a lane a piece (RowSplit);
+//   * the cell mask is one bit per cell, four to a byte: the byte of each
+//     16-byte group of a shared row, from the membership bit test, written
+//     with the group's copy when the step is gathered;
+//   * the trapezoid: a lane per 16-byte group of 4 cells (three 16-byte
+//     shared loads and two single ones for its 4 cells and their
+//     neighbours, one mask byte, one 16-byte store), rows packed into a
+//     warp as in the gather, each row's offset computed once; two tiles
+//     ping-pong, the step's ring slot and one more buffer; only the
+//     interior is stored, and after k steps it depends only on cells
+//     within k of it;
+//   * the store moves 16-byte pieces per fine-block row through a table
+//     of the fine blocks' shared and storage offsets built once per CTA
+//     (the static fine-block permutation under compact coarsening);
+//   * working tiles past the 227 KB opt-in limit (e.g. rho = 128 at
+//     fuse 128) keep their slot, buffer and masks in a per-CTA slice of one
+//     global scratch buffer, with the same loop at depth 1 and plain
+//     copies -- the same kernel;
 //   * diffusion is written with __fmul_rn / __fadd_rn / __fsub_rn in the
 //     JAX expression's order (no FMA contraction), and parity uses the
-//     floor-mod of jnp.mod, so the kernel is bit-equal to its plain
-//     version;
+//     floor-mod of jnp.mod (mod2 below), so the kernel is bit-equal to its
+//     plain version at every depth;
 //   * cell offsets are 64-bit: an embedded n = 2^16 state has 2^32 cells;
 //   * the row-major domains (triangular, band, bounding box) and the mma
-//     lowering run in template instantiations of their own (kDom, kMma):
-//     the fractal kernels without mma are the same code as before.  Under
-//     mma every warp runs the lambda chain of its step (B7a) and warp 0,
-//     converged, resolves the own slot (B7a) and the 8 neighbour slots
-//     (B7b) on the tensor cores into org_row / org_col; a row-major
-//     domain's row chain (B7c) is shared by the CTA's warps.  A generic
-//     domain's halo follows the JAX package's tile semantics exactly: an
-//     embedded neighbour tile index is clamped into the box, an invalid
-//     compact neighbour reads slot (0, 0), and only the in-range test and
-//     the domain's contains() (at block granularity) mask values.
+//     lowering run in template instantiations of their own (kDom, kMma).
+//     A generic domain's halo follows the JAX package's tile semantics
+//     exactly: an embedded neighbour tile index is clamped into the box,
+//     an invalid compact neighbour reads slot (0, 0), and only the
+//     in-range test and the domain's contains() (at block granularity)
+//     mask values.
 
+#include "async_ring.cuh"
 #include "fractal_common.cuh"
 #include "mma_decode.cuh"
 
@@ -69,330 +94,702 @@ using namespace fractal;
 
 enum Rule { kParity = 0, kDiffusion = 1 };
 
+constexpr int kMaxStages = ring::kMaxPending + 1;  // the deepest ring
+constexpr int kOriginSlots = 9;  // (dy + 1) * 3 + dx + 1, center 4
+// A CTA: 4 warps for working tiles up to 63 cells wide (8 CTAs, each with
+// a step in flight, fit an SM), 8 for wider ones, at most 64 registers a
+// thread (tighter bounds spill)
+constexpr int kThreads = 256;
+__host__ __device__ inline int threads_for(int wid) {
+  return wid < 64 ? 128 : kThreads;
+}
+
 struct CaArgs {
-  int halo;     // h: halo ring width (the fuse depth of the run)
-  int nsteps;   // steps of this launch, 1 <= nsteps <= h
+  int halo;      // h: halo ring width (the fuse depth of the run)
+  int nsteps;    // steps of this launch, 1 <= nsteps <= h
   int rule;
   float alpha;
-  int wid;      // span + 2h
+  int wid;       // span + 2h
+  int stages;    // ring slots (1: gather, wait, compute)
+  int pc;        // cells per copied piece: 4 (16 bytes) or 1
+  int pad;       // shared column of working column 0 (pc 4: -h mod 4)
+  int stride;    // shared row of a tile, floats (a multiple of 4)
+  int ngr;       // mask bytes per working row: one per 4 shared columns
+  long long tile_floats;  // one tile: wid rows of `stride`
+  int meta_bytes;  // the ring's entries and the CTA's tables
 };
 
-// Resolve the storage origins of the nine supertiles around scheduled
-// block (bx, by) of step t into org[(dy + 1) * 3 + dx + 1] (compact
-// storage; embedded storage addresses cells directly).  Invalid
-// neighbours get no origin: their cells fail block_ok and are not read.
-__device__ void resolve_origins(const FracParams& p,
-                                const int* __restrict__ lut, long long t,
-                                unsigned bx, unsigned by, long long* org_row,
-                                long long* org_col) {
-  tile_origin(p, lut, t, bx, by, org_row[4], org_col[4]);
-  for (int j = 0; j < 8; ++j) {
-    const int dx = kNbrDx[j], dy = kNbrDy[j];
-    const int slot = (dy + 1) * 3 + dx + 1;
-    unsigned tx, ty;
-    bool ok;
-    if (p.lowering == kPrefetchLut) {
-      const int* row = lut + t * p.lut_cols + kLutNbr + 3 * j;
-      tx = (unsigned)row[0];
-      ty = (unsigned)row[1];
-      ok = row[2] != 0;
-    } else {
-      const long long x = (long long)bx + dx, y = (long long)by + dy;
-      ok = x >= 0 && y >= 0 && x < p.nbx && y < p.nbx &&
-           block_member(p, (unsigned)x, (unsigned)y, p.nbx, p.r_b);
-      unsigned wx = 0, wy = 0;
-      if (ok) lambda_inverse(p, (unsigned)x, (unsigned)y, wx, wy);
-      tx = p.swap ? wy : wx;
-      ty = p.swap ? wx : wy;
-    }
-    org_row[slot] = ok ? (long long)ty * p.th : -1;
-    org_col[slot] = ok ? (long long)tx * p.tw : -1;
-  }
+// One ring entry: a step the CTA will compute (t < 0: past its last),
+// its scheduled block and the storage origins of its nine supertiles
+// (compact storage; -1 for a fractal neighbour that is out of range or
+// not a member, whose cells are never read), also as linear offsets.
+struct Entry {
+  long long t;
+  unsigned bx, by;
+  long long org_row[kOriginSlots], org_col[kOriginSlots];
+  long long org_off[kOriginSlots];  // row * pitch + col (embedded: own only)
+};
+
+// log2 of x when x is a power of two, else -1.
+__host__ __device__ inline int pow2_shift(int x) {
+  if (x <= 0 || (x & (x - 1))) return -1;
+  int s = 0;
+  while ((1 << s) < x) ++s;
+  return s;
 }
 
-// The same for a generic domain (thread 0): the own slot, then each
-// neighbour's slot when it is in the box and a member, else slot (0, 0)
-// (CompactLayout.neighbor_slot; the LUT holds the same).
-__device__ void generic_origins(const FracParams& p,
-                                const int* __restrict__ lut, long long t,
-                                unsigned bx, unsigned by, long long* org_row,
-                                long long* org_col) {
-  generic_origin(p, lut, t, bx, by, org_row[4], org_col[4]);
-  for (int j = 0; j < 8; ++j) {
-    const int dx = kNbrDx[j], dy = kNbrDy[j];
-    const int slot = (dy + 1) * 3 + dx + 1;
-    unsigned sx = 0, sy = 0;
-    if (p.lowering == kPrefetchLut) {
-      const int* row = lut + t * p.lut_cols + kLutNbr + 3 * j;
-      sx = (unsigned)row[0];
-      sy = (unsigned)row[1];
-    } else {
-      const long long x = (long long)bx + dx, y = (long long)by + dy;
-      const long long xc = x < 0 ? 0 : (x >= p.nbx ? p.nbx - 1 : x);
-      const long long yc = y < 0 ? 0 : (y >= p.nby ? p.nby - 1 : y);
-      if (x == xc && y == yc && generic_contains(p, xc, yc))
-        generic_slot(p, xc, yc, sx, sy);
-    }
-    org_row[slot] = (long long)sy * p.th;
-    org_col[slot] = (long long)sx * p.tw;
-  }
+// x / d for x >= 0: a shift when d is a power of two (shift >= 0).
+__device__ __forceinline__ int div_by(int x, int d, int shift) {
+  return shift >= 0 ? x >> shift : x / d;
 }
 
-// Step t -> scheduled block (bx, by), by every thread of the CTA; false
-// for a discarded bounding step (uniform over the CTA).
-template <int kDom, bool kMma>
-__device__ __forceinline__ bool ca_decode(const FracParams& p,
-                                          const int* __restrict__ lut,
-                                          const int* __restrict__ ops,
-                                          long long t, unsigned& bx,
-                                          unsigned& by) {
-  if constexpr (kMma && kDom == kFractalDom) {
-    unsigned sx, sy;
-    fractal_chain(p, ops, (unsigned)t, threadIdx.x & 31, false, bx, by, sx,
-                  sy);
-    return true;
-  } else if constexpr (kMma) {
-    rows_chain_cta(p, ops, t, bx, by);
-    return true;
-  } else if constexpr (kDom == kFractalDom) {
-    return decode(p, lut, t, bx, by);
+// A warp's lanes over the items of rows with `per` items each: up to 32
+// items a row give each lane one item of one of 32 / per rows at a time
+// (lanes past rows * per idle); longer rows take a lane every 32 items.
+struct RowSplit {
+  int rows, lr, li, step;
+  __device__ RowSplit(int per, int lane) {
+    if (per >= 32 || per < 1) {
+      rows = 1;
+      lr = 0;
+      li = lane;
+      step = 32;
+    } else {
+      rows = 32 / per;
+      lr = lane / per;
+      li = lane - lr * per;
+      step = per;
+    }
+  }
+};
+
+// jnp.mod(x, 2) on f32, bit-equal to fmodf then + 2 where the sign
+// differs: x - 2 trunc(x / 2) is exact (x / 2 is exact, and the
+// subtraction is exact by Sterbenz), and fmod's result takes the sign of
+// x, zeros included.
+__device__ __forceinline__ float mod2(float x) {
+  float r = copysignf(__fmaf_rn(-2.0f, truncf(__fmul_rn(x, 0.5f)), x), x);
+  if (r < 0.0f) r = __fadd_rn(r, 2.0f);
+  return r;
+}
+
+// Origin `slot` (0..8) of the supertiles around the member block (bx, by)
+// of step t of a fractal domain: lambda^-1 in registers, or the LUT row.
+__device__ __forceinline__ void fractal_origin(const FracParams& p,
+                                               const int* __restrict__ lut,
+                                               long long t, unsigned bx,
+                                               unsigned by, int slot,
+                                               long long& row, long long& col) {
+  if (slot == 4) {
+    tile_origin(p, lut, t, bx, by, row, col);
+    return;
+  }
+  const int dx = slot % 3 - 1, dy = slot / 3 - 1;
+  unsigned tx, ty;
+  bool ok;
+  if (p.lowering == kPrefetchLut) {
+    int j = 0;  // its NEIGHBOR_OFFSETS8 index
+    while (kNbrDx[j] != dx || kNbrDy[j] != dy) ++j;
+    const int* r = lut + t * p.lut_cols + kLutNbr + 3 * j;
+    tx = (unsigned)r[0];
+    ty = (unsigned)r[1];
+    ok = r[2] != 0;
   } else {
-    return generic_decode(p, lut, t, bx, by);
+    const long long x = (long long)bx + dx, y = (long long)by + dy;
+    ok = x >= 0 && y >= 0 && x < p.nbx && y < p.nbx &&
+         block_member(p, (unsigned)x, (unsigned)y, p.nbx, p.r_b);
+    unsigned wx = 0, wy = 0;
+    if (ok) lambda_inverse(p, (unsigned)x, (unsigned)y, wx, wy);
+    tx = p.swap ? wy : wx;
+    ty = p.swap ? wx : wy;
   }
+  row = ok ? (long long)ty * p.th : -1;
+  col = ok ? (long long)tx * p.tw : -1;
+}
+
+// The same for a generic domain: the own slot, then each neighbour's slot
+// when it is in the box and a member, else slot (0, 0)
+// (CompactLayout.neighbor_slot; the LUT holds the same).
+__device__ __forceinline__ void generic_origin_at(const FracParams& p,
+                                                  const int* __restrict__ lut,
+                                                  long long t, unsigned bx,
+                                                  unsigned by, int slot,
+                                                  long long& row,
+                                                  long long& col) {
+  if (slot == 4) {
+    generic_origin(p, lut, t, bx, by, row, col);
+    return;
+  }
+  const int dx = slot % 3 - 1, dy = slot / 3 - 1;
+  unsigned sx = 0, sy = 0;
+  if (p.lowering == kPrefetchLut) {
+    int j = 0;
+    while (kNbrDx[j] != dx || kNbrDy[j] != dy) ++j;
+    const int* r = lut + t * p.lut_cols + kLutNbr + 3 * j;
+    sx = (unsigned)r[0];
+    sy = (unsigned)r[1];
+  } else {
+    const long long x = (long long)bx + dx, y = (long long)by + dy;
+    const long long xc = x < 0 ? 0 : (x >= p.nbx ? p.nbx - 1 : x);
+    const long long yc = y < 0 ? 0 : (y >= p.nby ? p.nby - 1 : y);
+    if (x == xc && y == yc && generic_contains(p, xc, yc))
+      generic_slot(p, xc, yc, sx, sy);
+  }
+  row = (long long)sy * p.th;
+  col = (long long)sx * p.tw;
+}
+
+template <int kDom>
+__device__ __forceinline__ bool decode_step(const FracParams& p,
+                                            const int* __restrict__ lut,
+                                            long long t, unsigned& bx,
+                                            unsigned& by) {
+  if constexpr (kDom == kFractalDom)
+    return decode(p, lut, t, bx, by);
+  else
+    return generic_decode(p, lut, t, bx, by);
 }
 
 template <bool kShared, int kDom, bool kMma>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kThreads, 4)
 ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 FracParams p, CaArgs ca, const int* __restrict__ lut,
                 const int* __restrict__ perm, const int* __restrict__ ops,
                 unsigned char* __restrict__ scratch,
                 long long scratch_per_cta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ long long org_row[9], org_col[9];
-  unsigned char* base =
-      kShared ? smem : scratch + (long long)blockIdx.x * scratch_per_cta;
-  const int wid = ca.wid, h = ca.halo;
-  const int cells = wid * wid;
-  float* buf0 = reinterpret_cast<float*>(base);
-  float* buf1 = buf0 + cells;
-  unsigned char* ok = reinterpret_cast<unsigned char*>(buf1 + cells);
+  const int S = ca.stages, E = S + 1;
+  const int s = p.coarsen, nfine = p.nfine, block = p.block;
+  // the ring's entries and the CTA's tables (shared memory)
+  Entry* const ent = reinterpret_cast<Entry*>(smem);
+  long long* const gtab = reinterpret_cast<long long*>(ent + E);  // s * s
+  long long* const sdst = gtab + s * s;                           // nfine
+  int* const ssrc = reinterpret_cast<int*>(sdst + nfine);         // nfine
+  // the tiles (S slots, then the ping-pong buffer) and the masks
+  unsigned char* const base =
+      kShared ? smem + ca.meta_bytes
+              : scratch + (long long)blockIdx.x * scratch_per_cta;
+  float* const tiles = reinterpret_cast<float*>(base);
+  unsigned char* const masks =
+      reinterpret_cast<unsigned char*>(tiles + (long long)(S + 1) * ca.tile_floats);
+
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const unsigned nbf = p.n / (unsigned)p.block;  // fine blocks per side
-  const int s = p.coarsen;
-  const float alpha = ca.alpha;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int wid = ca.wid, h = ca.halo, stride = ca.stride, ngr = ca.ngr;
+  const int pad = ca.pad, pc = ca.pc;
+  const long long pitch = p.pitch;
+  const int bshift = pow2_shift(block), sshift = pow2_shift(s);
+  const unsigned nbf = p.n / (unsigned)block;  // fine blocks per side
+  const bool compact = p.storage == kCompact;
 
-  for (long long t = blockIdx.x; t < p.steps; t += gridDim.x) {
-    unsigned bx, by;
-    if (!ca_decode<kDom, kMma>(p, lut, ops, t, bx, by)) continue;
-    if constexpr (kMma && kDom == kFractalDom) {
-      if (p.storage == kCompact && tid < 32) {  // warp 0, converged
-        unsigned x, y, sx, sy;
-        fractal_chain(p, ops, (unsigned)t, tid, true, x, y, sx, sy);
-        if (tid == 0) {
-          org_row[4] = (long long)sy * p.th;
-          org_col[4] = (long long)sx * p.tw;
-        }
-        fractal_nbrs(p, ops, bx, by, tid, org_row, org_col);
-      }
-    } else if constexpr (kDom == kFractalDom) {
-      if (p.storage == kCompact && tid == 0)
-        resolve_origins(p, lut, t, bx, by, org_row, org_col);
-    } else {
-      if (p.storage == kCompact && tid == 0)
-        generic_origins(p, lut, t, bx, by, org_row, org_col);
+  // -- the CTA's tables: per embedded fine block (fy, fx) of a supertile
+  //    its storage offset from the supertile's origin (the gather), per
+  //    packed fine block q its tile offset and storage offset (the store)
+  for (int i = tid; i < s * s; i += nthreads) {
+    const int q = perm != nullptr ? perm[2 * nfine + i] : i;
+    gtab[i] = q < 0 ? 0
+                    : (long long)(q / p.bw) * block * pitch +
+                          (long long)(q % p.bw) * block;
+  }
+  for (int q = tid; q < nfine; q += nthreads) {
+    int ey, ex;
+    fine_offset(p, perm, q, ey, ex);
+    ssrc[q] = (h + ey * block) * stride + pad + h + ex * block;
+    sdst[q] = (long long)(q / p.bw) * block * pitch +
+              (long long)(q % p.bw) * block;
+  }
+
+  // -- resolve: the CTA's next step into ring entry k % E (warp 0; under
+  //    a row-major domain's mma chain the whole CTA, converged) ----------
+  long long cursor = blockIdx.x;
+  // warp 0, converged: the origins as linear offsets (embedded: the own
+  // block's, for the store)
+  auto finish = [&](Entry& e, unsigned bx, unsigned by) {
+    __syncwarp();
+    if (lane < kOriginSlots) {
+      const long long row = compact ? e.org_row[lane] : (long long)by * p.span;
+      const long long col = compact ? e.org_col[lane] : (long long)bx * p.span;
+      e.org_off[lane] = row * pitch + col;
     }
-    __syncthreads();
+  };
+  auto resolve = [&](int k) {
+    Entry& e = ent[k % E];
+    if constexpr (kMma && kDom == kGenericDom) {
+      const long long t = cursor;  // the same in every thread
+      cursor += gridDim.x;
+      unsigned bx = 0, by = 0;
+      if (t < p.steps) rows_chain_cta(p, ops, t, bx, by);
+      if (warp == 0) {
+        if (t < p.steps && compact && lane < kOriginSlots)
+          generic_origin_at(p, lut, t, bx, by, lane, e.org_row[lane],
+                            e.org_col[lane]);
+        if (lane == 0) {
+          e.t = t < p.steps ? t : -1;
+          e.bx = bx;
+          e.by = by;
+        }
+        finish(e, bx, by);
+      }
+    } else if (warp == 0) {
+      long long t = -1;
+      unsigned bx = 0, by = 0;
+      if constexpr (kMma) {  // a fractal's B7a / B7b chains
+        if (cursor < p.steps) {
+          t = cursor;
+          unsigned sx = 0, sy = 0;
+          fractal_chain(p, ops, (unsigned)t, lane, compact, bx, by, sx, sy);
+          if (compact) {
+            if (lane == 0) {
+              e.org_row[4] = (long long)sy * p.th;
+              e.org_col[4] = (long long)sx * p.tw;
+            }
+            fractal_nbrs(p, ops, bx, by, lane, e.org_row, e.org_col);
+          }
+        }
+        cursor += gridDim.x;
+      } else {
+        // bounding: 32 of the CTA's steps a test, the first member kept
+        const long long batch = p.lowering == kBounding ? 32 : 1;
+        while (cursor < p.steps) {
+          const long long c =
+              cursor + (batch > 1 ? (long long)lane * gridDim.x : 0);
+          unsigned cx = 0, cy = 0;
+          const bool ok = c < p.steps && decode_step<kDom>(p, lut, c, cx, cy);
+          const unsigned bal = __ballot_sync(kFullMask, ok);
+          if (bal) {
+            const int src_lane = __ffs(bal) - 1;
+            t = __shfl_sync(kFullMask, c, src_lane);
+            bx = __shfl_sync(kFullMask, cx, src_lane);
+            by = __shfl_sync(kFullMask, cy, src_lane);
+            cursor = t + gridDim.x;
+            break;
+          }
+          cursor += batch * gridDim.x;
+        }
+        if (t >= 0 && compact && lane < kOriginSlots) {
+          if constexpr (kDom == kFractalDom)
+            fractal_origin(p, lut, t, bx, by, lane, e.org_row[lane],
+                           e.org_col[lane]);
+          else
+            generic_origin_at(p, lut, t, bx, by, lane, e.org_row[lane],
+                              e.org_col[lane]);
+        }
+      }
+      if (lane == 0) {
+        e.t = t;
+        e.bx = bx;
+        e.by = by;
+      }
+      finish(e, bx, by);
+    }
+  };
 
-    // -- gather the working tile: block_ok at fine-block granularity,
-    //    cell_ok at cell granularity
-    const long long gx0 = (long long)bx * p.span - h;
-    const long long gy0 = (long long)by * p.span - h;
-    for (int c = tid; c < cells; c += nthreads) {
-      const int iy = c / wid, ix = c - iy * wid;
-      const long long gx = gx0 + ix, gy = gy0 + iy;
-      float v = 0.0f;
-      bool cell_ok = false;
-      if constexpr (kDom == kGenericDom) {
-        // every cell of the in-range square is live; values pass where
-        // the fine block is a member, read from its (clamped) tile
-        if (gx >= 0 && gy >= 0 && gx < p.n && gy < p.n) {
-          cell_ok = true;
-          const long long fbx = gx / p.block, fby = gy / p.block;
-          if (generic_contains(p, fbx, fby)) {
-            const long long ox = gx - fbx * p.block, oy = gy - fby * p.block;
-            if (p.storage == kEmbedded) {
-              const long long tx = fbx < p.nbx ? fbx : p.nbx - 1;
-              const long long ty = fby < p.nby ? fby : p.nby - 1;
-              v = src[(ty * p.block + oy) * p.pitch + tx * p.block + ox];
+  // -- gather: entry e's working tile into ring slot sl, pieces of rows
+  //    (zero-filled for out-of-range and non-member fine blocks), and the
+  //    mask bytes of the row's 4-column groups.  A lane keeps its piece
+  //    column for every row it takes (RowSplit), so the column's fine
+  //    block is found once a step and the row's once a row --------------
+  const int npieces = (pad + wid + pc - 1) / pc;
+  const int ngroups = (pad + wid + 3) >> 2;  // mask bytes a row fills
+  const RowSplit gsplit(npieces, lane), msplit(ngroups, lane);
+  auto mask_byte = [&](int gy, bool row_in, int gxg, int x0) {
+    // the 4 cells of working columns x0 .. x0 + 3 (global gxg .. + 3)
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gx = gxg + j;
+      bool live = x0 + j >= 0 && x0 + j < wid && row_in && gx >= 0 &&
+                  gx < (int)p.n;
+      if constexpr (kDom == kFractalDom)
+        live = live && block_member(p, (unsigned)gx, (unsigned)gy, p.n,
+                                    p.r_b + p.r_cell);
+      m |= (unsigned)live << j;
+    }
+    return m;
+  };
+  auto gather = [&](const Entry& e, int sl) {
+    float* const tile = tiles + (long long)sl * ca.tile_floats;
+    unsigned char* const mk = masks + (long long)sl * wid * ngr;
+    const int gx0 = (int)e.bx * (int)p.span - h;
+    const int gy0 = (int)e.by * (int)p.span - h;
+    for (int k = gsplit.li; gsplit.lr < gsplit.rows && k < npieces;
+         k += gsplit.step) {
+      // the column, once: its fine block, offset in it, supertile column
+      const int gx = gx0 - pad + k * pc;
+      const bool col_in = gx >= 0 && gx < (int)p.n;
+      const int fbx = col_in ? div_by(gx, block, bshift) : 0;
+      const int ox = gx - fbx * block;
+      const int cbx = div_by(fbx, s, sshift);
+      const int fx = fbx - cbx * s;
+      const int rdx = cbx - (int)e.bx;  // -1, 0 or 1
+      for (int iy = warp * gsplit.rows + gsplit.lr; iy < wid;
+           iy += nwarps * gsplit.rows) {
+        // the row: its fine-block row, offset in it and supertile row
+        const int gy = gy0 + iy;
+        const bool row_in = gy >= 0 && gy < (int)p.n;
+        bool ok = row_in && col_in;
+        long long off = 0;
+        if (ok) {
+          const int fby = div_by(gy, block, bshift);
+          const int oy = gy - fby * block;
+          if constexpr (kDom == kGenericDom) {
+            ok = generic_contains(p, fbx, fby);
+            if (!compact) {
+              const int tx = fbx < (int)p.nbx ? fbx : (int)p.nbx - 1;
+              const int ty = fby < (int)p.nby ? fby : (int)p.nby - 1;
+              off = (long long)(ty * block + oy) * pitch + tx * block + ox;
             } else {
-              const int slot = (int)(fby - by + 1) * 3 + (int)(fbx - bx + 1);
-              v = src[(org_row[slot] + oy) * p.pitch + org_col[slot] + ox];
+              const int slot = (fby - (int)e.by + 1) * 3 + rdx + 1;
+              off = e.org_off[slot] + (long long)oy * pitch + ox;
+            }
+          } else {
+            ok = block_member(p, (unsigned)fbx, (unsigned)fby, nbf, p.r_fine);
+            if (!compact) {
+              off = (long long)gy * pitch + gx;
+            } else if (ok) {
+              const int cby = div_by(fby, s, sshift);
+              const int slot = (cby - (int)e.by + 1) * 3 + rdx + 1;
+              off = e.org_off[slot] + (long long)oy * pitch +
+                    gtab[(fby - cby * s) * s + fx] + ox;
             }
           }
         }
-      } else if (gx >= 0 && gy >= 0 && gx < p.n && gy < p.n) {
-        const unsigned ux = (unsigned)gx, uy = (unsigned)gy;
-        cell_ok = block_member(p, ux, uy, p.n, p.r_b + p.r_cell);
-        const unsigned fbx = ux / p.block, fby = uy / p.block;
-        if (block_member(p, fbx, fby, nbf, p.r_fine)) {
-          if (p.storage == kEmbedded) {
-            v = src[(long long)uy * p.n + ux];
-          } else {
-            // which of the nine supertiles, and where inside it
-            const int rdx = (int)(fbx / s) - (int)bx;  // -1, 0 or 1
-            const int rdy = (int)(fby / s) - (int)by;
-            const int slot = (rdy + 1) * 3 + rdx + 1;
-            const int fx = (int)(fbx % s), fy = (int)(fby % s);
-            const int q = perm != nullptr ? perm[2 * p.nfine + fy * s + fx]
-                                          : 0;
-            const long long r = org_row[slot] +
-                                (long long)(q / p.bw) * p.block +
-                                uy % p.block;
-            const long long col = org_col[slot] +
-                                  (long long)(q % p.bw) * p.block +
-                                  ux % p.block;
-            v = src[r * p.pitch + col];
-          }
+        float* const to = tile + iy * stride + k * pc;
+        const float* const from = ok ? src + off : src;
+        if (pc == 4) {
+          if constexpr (kShared)
+            ring::copy16_zfill(to, from, ok);
+          else
+            *reinterpret_cast<float4*>(to) =
+                ok ? *reinterpret_cast<const float4*>(from)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+          // a piece is a mask group: its byte, with the copy
+          mk[iy * ngr + k] =
+              (unsigned char)mask_byte(gy, row_in, gx, 4 * k - pad);
+        } else if constexpr (kShared) {
+          ring::copy4_zfill(to, from, ok);
+        } else {
+          *to = ok ? *from : 0.0f;
         }
       }
-      buf0[c] = v;
-      ok[c] = cell_ok;
     }
-    __syncthreads();
+    if (pc == 1) {  // 4-byte copies: the mask bytes in a pass of their own
+      for (int iy = warp * msplit.rows + msplit.lr;
+           msplit.lr < msplit.rows && iy < wid; iy += nwarps * msplit.rows) {
+        const int gy = gy0 + iy;
+        const bool row_in = gy >= 0 && gy < (int)p.n;
+        for (int k = msplit.li; k < ngroups; k += msplit.step)
+          mk[iy * ngr + k] = (unsigned char)mask_byte(gy, row_in, gx0 + 4 * k,
+                                                      4 * k);
+      }
+    }
+  };
 
-    // -- the shrinking trapezoid: step i computes rings i+1 .. wid-2-i
-    float* cur = buf0;
-    float* nxt = buf1;
+  // -- compute: the shrinking trapezoid on slot sl, 4 cells a lane (one
+  //    16-byte group of a shared row and its mask byte), then the store --
+  auto compute = [&](const Entry& e, int sl) {
+    float* cur = tiles + (long long)sl * ca.tile_floats;
+    float* nxt = tiles + (long long)S * ca.tile_floats;
+    const unsigned char* const mk = masks + (long long)sl * wid * ngr;
+    const float alpha = ca.alpha;
+    const bool parity = ca.rule == kParity;
     for (int i = 0; i < ca.nsteps; ++i) {
-      const int lo = i + 1, side = wid - 2 * lo;
-      const int region = side * side;
-      for (int c = tid; c < region; c += nthreads) {
-        const int ry = c / side;
-        const int idx = (lo + ry) * wid + lo + (c - ry * side);
-        float out = 0.0f;
-        if (ok[idx]) {
-          const float pv = cur[idx];
-          const float nsum =
-              __fadd_rn(__fadd_rn(__fadd_rn(cur[idx - wid], cur[idx + wid]),
-                                  cur[idx - 1]),
-                        cur[idx + 1]);
-          if (ca.rule == kParity) {
-            // jnp.mod: floor-mod, fmod then + 2 where the sign differs
-            float r = fmodf(__fadd_rn(pv, nsum), 2.0f);
-            if (r != 0.0f && r < 0.0f) r = __fadd_rn(r, 2.0f);
-            out = r;
-          } else {
-            const float deg = (float)(ok[idx - wid] + ok[idx + wid] +
-                                      ok[idx - 1] + ok[idx + 1]);
-            out = __fadd_rn(
-                pv, __fmul_rn(alpha, __fsub_rn(nsum, __fmul_rn(deg, pv))));
+      // step i computes rows and columns lo .. hi - 1 (rings i+1 ..
+      // wid-2-i), in whole groups: a group's cells past the region are
+      // written too, and no later step reads them
+      const int lo = i + 1, hi = wid - lo;
+      const int g0 = (lo + pad) >> 2, per = ((hi - 1 + pad) >> 2) - g0 + 1;
+      const RowSplit sp(per, lane);
+      for (int r = lo + warp * sp.rows + sp.lr; sp.lr < sp.rows && r < hi;
+           r += nwarps * sp.rows) {
+        const float* const crow = cur + r * stride;  // the row, once
+        float* const nrow = nxt + r * stride;
+        const unsigned char* const mrow = mk + r * ngr;
+        for (int k = sp.li; k < per; k += sp.step) {
+          const int g = g0 + k, c = 4 * g;
+          const unsigned mb = mrow[g];
+          const float4 C = *reinterpret_cast<const float4*>(crow + c);
+          const float4 U = *reinterpret_cast<const float4*>(crow + c - stride);
+          const float4 Dn = *reinterpret_cast<const float4*>(crow + c + stride);
+          const float L = crow[c - 1], R = crow[c + 4];
+          const float v[6] = {L, C.x, C.y, C.z, C.w, R};
+          const float up[4] = {U.x, U.y, U.z, U.w};
+          const float dn[4] = {Dn.x, Dn.y, Dn.z, Dn.w};
+          unsigned nb = 0;  // diffusion: the 6 cells' bits left to right
+          if (!parity)
+            nb = ((unsigned)mrow[g - 1] >> 3 & 1u) | (mb << 1) |
+                 (((unsigned)mrow[g + 1] & 1u) << 5);
+          const unsigned mu = parity ? 0u : mrow[g - ngr],
+                         md = parity ? 0u : mrow[g + ngr];
+          float out[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float pv = v[j + 1];
+            const float nsum = __fadd_rn(
+                __fadd_rn(__fadd_rn(up[j], dn[j]), v[j]), v[j + 2]);
+            float o;
+            if (parity) {
+              o = mod2(__fadd_rn(pv, nsum));
+            } else {
+              const float deg =
+                  (float)((mu >> j & 1u) + (md >> j & 1u) + (nb >> j & 1u) +
+                          (nb >> (j + 2) & 1u));
+              o = __fadd_rn(
+                  pv, __fmul_rn(alpha, __fsub_rn(nsum, __fmul_rn(deg, pv))));
+            }
+            out[j] = (mb >> j & 1u) ? o : 0.0f;
           }
+          *reinterpret_cast<float4*>(nrow + c) =
+              make_float4(out[0], out[1], out[2], out[3]);
         }
-        nxt[idx] = out;
       }
       __syncthreads();
       float* tmp = cur;
       cur = nxt;
       nxt = tmp;
     }
+    // the span^2 interior in storage arrangement, pieces per fine-block row
+    float* const out = dst + e.org_off[4];
+    const int ppr = block / pc, pshift = pow2_shift(ppr);
+    const int items = nfine * block * ppr;
+    for (int c = tid; c < items; c += nthreads) {
+      const int fr = div_by(c, ppr, pshift);
+      const int q = div_by(fr, block, bshift);
+      const int cy = fr - q * block, x = (c - fr * ppr) * pc;
+      const float* from = cur + ssrc[q] + cy * stride + x;
+      float* to = out + sdst[q] + (long long)cy * pitch + x;
+      if (pc == 4)
+        *reinterpret_cast<float4*>(to) = *reinterpret_cast<const float4*>(from);
+      else
+        *to = *from;
+    }
+  };
 
-    // -- store the span^2 interior in storage arrangement
-    long long row0, col0;
-    if (p.storage == kCompact) {
-      row0 = org_row[4];
-      col0 = org_col[4];
-    } else {
-      row0 = (long long)by * p.span;
-      col0 = (long long)bx * p.span;
+  // -- the ring: prologue, then one step per iteration -------------------
+  for (int k = 0; k < S; ++k) resolve(k);
+  __syncthreads();  // the entries and tables are written
+  for (int k = 0; k + 1 < S; ++k) {
+    if (ent[k].t >= 0) gather(ent[k], k);
+    ring::commit();
+  }
+  for (int i = 0;; ++i) {
+    const Entry& e = ent[i % E];
+    if (S == 1) {
+      if (e.t >= 0) gather(e, 0);
+      ring::commit();
     }
-    const int fine_cells = p.block * p.block;
-    for (int c = tid; c < p.nfine * fine_cells; c += nthreads) {
-      const int q = c / fine_cells, e = c - q * fine_cells;
-      const int cy = e / p.block, cx = e - cy * p.block;
-      int ey, ex;
-      fine_offset(p, perm, q, ey, ex);
-      const float v =
-          cur[(h + ey * p.block + cy) * wid + h + ex * p.block + cx];
-      dst[(row0 + (long long)(q / p.bw) * p.block + cy) * p.pitch + col0 +
-          (long long)(q % p.bw) * p.block + cx] = v;
+    ring::wait_pending(S == 1 ? 0 : S - 2);
+    __syncthreads();  // slot i % S landed; every reader of step i - 1 is done
+    if (e.t < 0) break;
+    if (S > 1) {
+      const Entry& f = ent[(i + S - 1) % E];
+      if (f.t >= 0) gather(f, (i + S - 1) % S);
+      ring::commit();
     }
-    __syncthreads();  // the buffers and origins are reused by the next step
+    resolve(i + S);  // entry (i + S) % E held step i - 1, which is done
+    compute(e, i % S);
+    if (S == 1) __syncthreads();  // the store read the slot before the
+                                  // next gather refills it
   }
 }
 
-long long tile_bytes(int wid) {
-  const long long cells = (long long)wid * wid;
-  return (2 * cells * 4 + cells + 255) / 256 * 256;
+// A launch's geometry: the tiles' row stride and mask bytes, and the
+// bytes of the ring's entries and tables (shared memory) and of its tiles
+// and masks (shared or global) at depth `stages`.
+struct CaGeom {
+  int stride, ngr;
+  long long tile_floats;
+  long long meta_bytes(const FracParams& p, int stages) const {
+    const long long b = (long long)(stages + 1) * sizeof(Entry) +
+                        (long long)p.coarsen * p.coarsen * 8 +
+                        (long long)p.nfine * 12;
+    return (b + 15) / 16 * 16;
+  }
+  long long base_bytes(int wid, int stages) const {
+    const long long b = (long long)(stages + 1) * tile_floats * 4 +
+                        (long long)stages * wid * ngr;
+    return (b + 255) / 256 * 256;
+  }
+};
+
+CaGeom ca_geom(int wid) {
+  CaGeom g;
+  g.stride = (wid + 3 + 3) / 4 * 4;  // room for the pad, whole pieces
+  g.ngr = g.stride / 4;
+  g.tile_floats = (long long)wid * g.stride;
+  return g;
 }
 
-int threads_for(int wid) { return wid < 64 ? 256 : 512; }
 
-// Does a working tile of `bytes` fit the opt-in shared memory of one CTA
-// (less 1 KB for the kernel's static shared arrays)?
-bool fits_shared(long long bytes) {
+int optin_bytes() {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  return bytes <= optin - 1024;
+  return optin;
 }
 
-// Resident CTAs of the global-scratch path: two per SM.
-long long persistent_ctas(long long steps) {
+int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = 2LL * sms;
+  return sms;
+}
+
+// The deepest ring of at most `stages` slots whose tiles fit one CTA's
+// opt-in shared memory (less 1 KB for the kernel's static shared arrays),
+// or 0 when not even one does: then the tiles take the global-scratch
+// path at depth 1.
+int shared_depth(const FracParams& p, const CaGeom& g, int wid, int stages) {
+  const long long limit = optin_bytes() - 1024;
+  for (int st = stages; st >= 1; --st)
+    if (g.meta_bytes(p, st) + g.base_bytes(wid, st) <= limit) return st;
+  return 0;
+}
+
+// Resident CTAs of the global-scratch path: two per SM.
+long long scratch_ctas(long long steps) {
+  const long long want = 2LL * sm_count();
   return steps < want ? steps : want;
+}
+
+// The CTAs that walk the grid steps, from `ctas` resident ones: under
+// bounding the row-major box's steps go to CTAs by stride, so a stride
+// that shares a factor with the box's width would hand each CTA a fixed
+// set of columns -- the gasket's columns differ by powers of two in
+// their member count, which left some CTAs 32 times the work of others.
+// One CTA fewer at a time until the stride is coprime with the width.
+long long walk_ctas(const FracParams& p, long long ctas) {
+  if (p.lowering != kBounding) return ctas;
+  auto gcd = [](long long a, long long b) {
+    while (b) {
+      const long long r = a % b;
+      a = b;
+      b = r;
+    }
+    return a;
+  };
+  while (ctas > 1 && gcd(ctas, (long long)p.nbx) != 1) --ctas;
+  return ctas;
+}
+
+// The persistent grid of the shared-memory path at `bytes` a CTA: as
+// many CTAs as reside on the card at once (the occupancy calculator, per
+// SM, times the SMs), at most one a step (walk_ctas); 0 when none fits.
+template <int kDom, bool kMma>
+long long resident_ctas(const FracParams& p, int threads, int bytes) {
+  auto kernel = ca_fused_kernel<true, kDom, kMma>;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    threads, bytes) !=
+      cudaSuccess)
+    return 0;
+  const long long ctas = (long long)per_sm * sm_count();
+  return walk_ctas(p, ctas < p.steps ? ctas : p.steps);
+}
+
+// The launch's arguments completed from its geometry: the ring's depth
+// (the deepest that fits shared memory, else 1 on the global-scratch
+// path), strides and table bytes.  Returns the depth that fits (0: the
+// global-scratch path).
+int complete_args(const FracParams& p, CaArgs& ca) {
+  const CaGeom g = ca_geom(ca.wid);
+  const int depth = shared_depth(p, g, ca.wid, ca.stages);
+  ca.stages = depth > 0 ? depth : 1;
+  ca.stride = g.stride;
+  ca.ngr = g.ngr;
+  ca.tile_floats = g.tile_floats;
+  ca.meta_bytes = (int)g.meta_bytes(p, ca.stages);
+  return depth;
 }
 
 // One fused launch of the instantiation of the domain kind and lowering.
 template <int kDom, bool kMma>
 cudaError_t launch_ca(const float* src, float* dst, const FracParams& p,
-                      const CaArgs& ca, const int* lut, const int* perm,
+                      CaArgs ca, const int* lut, const int* perm,
                       const int* ops, unsigned char* scratch,
                       cudaStream_t s) {
-  const long long bytes = tile_bytes(ca.wid);
-  const int threads = threads_for(ca.wid);
-  if (fits_shared(bytes)) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ca_fused_kernel<true, kDom, kMma>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    ca_fused_kernel<true, kDom, kMma><<<grid_of(p.steps), threads, bytes,
-                                        s>>>(src, dst, p, ca, lut, perm, ops,
-                                             nullptr, 0);
+  const int depth = complete_args(p, ca);
+  const long long tile_bytes = ca_geom(ca.wid).base_bytes(ca.wid, ca.stages);
+  if (depth > 0) {
+    const int bytes = ca.meta_bytes + (int)tile_bytes;
+    const int threads = threads_for(ca.wid);
+    const long long ctas = resident_ctas<kDom, kMma>(p, threads, bytes);
+    if (ctas < 1) return cudaErrorInvalidConfiguration;
+    ca_fused_kernel<true, kDom, kMma><<<(unsigned)ctas, threads, bytes, s>>>(
+        src, dst, p, ca, lut, perm, ops, nullptr, 0);
   } else {
     if (scratch == nullptr) return cudaErrorInvalidValue;
-    ca_fused_kernel<false, kDom, kMma>
-        <<<dim3((unsigned)persistent_ctas(p.steps)), threads, 0, s>>>(
-            src, dst, p, ca, lut, perm, ops, scratch, bytes);
+    auto kernel = ca_fused_kernel<false, kDom, kMma>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ca.meta_bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)walk_ctas(p, scratch_ctas(p.steps)),
+             threads_for(ca.wid), ca.meta_bytes, s>>>(
+        src, dst, p, ca, lut, perm, ops, scratch, tile_bytes);
   }
   return cudaGetLastError();
+}
+
+bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of global scratch a launch with a (wid x wid) working tile over
-// `steps` grid steps needs: 0 when the working tile fits shared memory.
-long long sc_scratch_bytes(int wid, long long steps) {
-  const long long bytes = tile_bytes(wid);
-  if (fits_shared(bytes)) return 0;
-  return bytes * persistent_ctas(steps);
+// Bytes of global scratch a launch at params with halo h and a ring of
+// `stages` slots needs: 0 when its working tiles fit shared memory.
+long long sc_scratch_bytes(const long long* params, int halo, int stages) {
+  const FracParams p = make_params(params);
+  const int wid = (int)p.span + 2 * halo;
+  const CaGeom g = ca_geom(wid);
+  if (shared_depth(p, g, wid, stages) > 0) return 0;
+  return g.base_bytes(wid, 1) * scratch_ctas(p.steps);
+}
+
+// The ring's slots a launch at params with halo h and `stages` requested
+// runs: the deepest that fits shared memory, 0 on the global-scratch path.
+int sc_ring_depth(const long long* params, int halo, int stages) {
+  const FracParams p = make_params(params);
+  const int wid = (int)p.span + 2 * halo;
+  return shared_depth(p, ca_geom(wid), wid, stages);
+}
+
+// The CTAs a launch at params with halo h and `stages` requested runs.
+long long sc_grid_ctas(const long long* params, int halo, int stages) {
+  const FracParams p = make_params(params);
+  CaArgs ca;
+  ca.wid = (int)p.span + 2 * halo;
+  ca.stages = stages;
+  if (complete_args(p, ca) == 0) return walk_ctas(p, scratch_ctas(p.steps));
+  const int bytes = ca.meta_bytes +
+                    (int)ca_geom(ca.wid).base_bytes(ca.wid, ca.stages);
+  const int threads = threads_for(ca.wid);
+  const bool mma = p.lowering == kMma;
+  if (p.family == kTriangular || p.family == kBand || p.family == kBox)
+    return mma ? resident_ctas<kGenericDom, true>(p, threads, bytes)
+               : resident_ctas<kGenericDom, false>(p, threads, bytes);
+  return mma ? resident_ctas<kFractalDom, true>(p, threads, bytes)
+             : resident_ctas<kFractalDom, false>(p, threads, bytes);
 }
 
 // One fused launch: read the state `src`, write the advanced member
 // supertiles into `dst` (the stale buffer; unvisited blocks keep its
 // contents).  params: plan.C_PARAMS order; lut, perm and ops may be null
-// (see LaunchParams; ops is mma_ops); scratch holds
-// sc_scratch_bytes(wid, steps) bytes, or is null when that is 0.
+// (see LaunchParams; ops is mma_ops); stages: the ring's slots, 1 to
+// kMaxStages (a ring deeper than shared memory holds runs at the deepest
+// that fits: the same result); scratch holds sc_scratch_bytes(params,
+// halo, stages) bytes, or is null when that is 0.
 int sc_ca_launch(const float* src, float* dst, const long long* params,
                  const int* lut, const int* perm, const int* ops, int halo,
-                 int nsteps, int rule, float alpha, unsigned char* scratch,
-                 void* stream) {
+                 int nsteps, int rule, float alpha, int stages,
+                 unsigned char* scratch, void* stream) {
   const FracParams p = make_params(params);
   CaArgs ca;
   ca.halo = halo;
@@ -400,8 +797,16 @@ int sc_ca_launch(const float* src, float* dst, const long long* params,
   ca.rule = rule;
   ca.alpha = alpha;
   ca.wid = (int)p.span + 2 * halo;
-  if (nsteps < 1 || nsteps > halo || halo > (int)p.span)
+  ca.stages = stages;
+  if (nsteps < 1 || nsteps > halo || halo > (int)p.span || stages < 1 ||
+      stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
+  if (p.steps == 0) return (int)cudaSuccess;
+  // 16-byte pieces: fine blocks start on piece boundaries in both memories
+  const bool vec = p.block % 4 == 0 && p.pitch % 4 == 0 && aligned16(src) &&
+                   aligned16(dst);
+  ca.pc = vec ? 4 : 1;
+  ca.pad = vec ? (4 - halo % 4) % 4 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = p.lowering == kMma;
   const bool generic =

@@ -41,10 +41,10 @@ any launch: ``flash_decode_kernel`` (``"decode"``: single-token
 streamed through a cp.async ring, ``flash_fwd_tc_kernel`` (``"tc"``:
 bf16 with block_q, block_k and the head dim multiples of 16) and
 ``flash_fwd_tf32_kernel`` (``"tc_f32"``: f32 with block_q and block_k
-multiples of 16 and a head dim multiple of 8 up to 128, in 3xTF32); and
-``flash_fwd_kernel`` (``"cuda_core"``: every other call -- f32 past head
-dim 128, odd head dims, small blocks, block_q = 1 calls that are not
-decode -- in f32 on the CUDA cores).
+multiples of 16 and a head dim multiple of 8 up to 256, in 3xTF32); and
+``flash_fwd_kernel`` (``"cuda_core"``: every other call -- odd head dims,
+small blocks, misaligned views, block_q = 1 calls that are not decode --
+in f32 on the CUDA cores).
 
 Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
@@ -588,11 +588,13 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-#: the f32 tensor-core kernel's widest head dim: at d = 256 its query
-#: rows and one 64-key K/V slot (rows of 260 f32) would take 266 KB of
-#: shared memory, past the 227 KB a CTA may have, so f32 at d > 128 stays
-#: on the CUDA-core kernel
-TF32_MAX_HEAD_DIM = 128
+#: the f32 tensor-core kernel's widest head dim.  Up to d = 128 a warp
+#: owns 16 query rows (128 a pass, 64-key sub-tiles); past 128 a pair of
+#: warps shares them, each owning half of the output dims, 64 rows a pass
+#: in 32-key sub-tiles: at d = 256 Q (65 KB), two K/V slots (130 KB) and
+#: the pairs' partial scores (16 KB) take 211 KB of the 227 KB a CTA may
+#: have
+TF32_MAX_HEAD_DIM = 256
 
 
 def flash_route(sched: FlashSchedule, dtype, aligned: bool = True) -> str:

@@ -39,9 +39,15 @@ tensor runs the plain version.
 tile semantics: every cell of the in-range n x n square is live, and
 values pass at the granularity of the domain's member blocks.
 
+``num_stages=k`` is the depth of the kernel's ring, the JAX package's
+``stream_tiles`` schedule: persistent CTAs gather the working tile of
+step i + k - 1 with ``cp.async`` while step i's trapezoid runs (k = 1
+gathers, waits and computes).  Every depth gives the same bits; the plain
+version ignores it.
+
 Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13), the tuner's
-``"auto"`` knobs and ``num_stages`` (A8, which raise
-``NotImplementedError``), and CA states other than f32.
+``"auto"`` knobs (A8, which raise ``NotImplementedError``), and CA states
+other than f32.
 """
 from __future__ import annotations
 
@@ -58,6 +64,9 @@ from .sierpinski_write import (PLAIN_CHUNK_CELLS, resolve_storage_args,
                                storage_offsets, supertile_offsets)
 
 RULES = {"parity": 0, "diffusion": 1}
+#: the deepest ring of the kernel (csrc/sierpinski_ca.cu kMaxStages); the
+#: JAX package's gpu target clamps num_stages to the same 4
+MAX_STAGES = 4
 
 
 def effective_fuse(fuse: int, steps: int, block: int,
@@ -181,10 +190,14 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load("sierpinski_ca")
     if not getattr(lib, "_repro_bound", False):
         lib.sc_ca_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     ctypes.c_float, _P, _P]
+                                     ctypes.c_float, _I, _P, _P]
         lib.sc_ca_launch.restype = ctypes.c_int
-        lib.sc_scratch_bytes.argtypes = [_I, _LL]
+        lib.sc_scratch_bytes.argtypes = [_P, _I, _I]
         lib.sc_scratch_bytes.restype = _LL
+        lib.sc_ring_depth.argtypes = [_P, _I, _I]
+        lib.sc_ring_depth.restype = ctypes.c_int
+        lib.sc_grid_ctas.argtypes = [_P, _I, _I]
+        lib.sc_grid_ctas.restype = _LL
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -213,9 +226,12 @@ def _check_buffers(src: torch.Tensor, dst: torch.Tensor,
 
 
 def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
-            halo: int, steps: int, rule: str, alpha: float) -> torch.Tensor:
+            halo: int, steps: int, rule: str, alpha: float,
+            num_stages: int = 1) -> torch.Tensor:
     """Launch the fused CA kernel once: read ``src``, write the advanced
-    member supertiles into ``dst`` in place.  Returns ``dst``."""
+    member supertiles into ``dst`` in place, gathering the working tiles
+    through a ring of ``num_stages`` slots (1 to ``MAX_STAGES``).
+    Returns ``dst``."""
     if src.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel needs a CUDA tensor, got one on {src.device}")
@@ -225,17 +241,19 @@ def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
         raise ValueError(
             f"a launch takes 1 <= steps <= halo <= coarsen * block, got "
             f"steps={steps}, halo={halo}, span={p.span}")
+    if not 1 <= num_stages <= MAX_STAGES:
+        raise ValueError(f"the kernel's ring takes 1 to {MAX_STAGES} "
+                         f"slots, got num_stages={num_stages}")
     lib = _lib()
-    wid = p.span + 2 * halo
+    params = _cuda.param_array(p)
     with torch.cuda.device(src.device):
-        nbytes = lib.sc_scratch_bytes(wid, p.steps)
+        nbytes = lib.sc_scratch_bytes(params, halo, num_stages)
         scratch = (torch.empty(nbytes, dtype=torch.uint8, device=src.device)
                    if nbytes else None)
         status = lib.sc_ca_launch(
-            src.data_ptr(), dst.data_ptr(), _cuda.param_array(p),
+            src.data_ptr(), dst.data_ptr(), params,
             _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), _cuda.ptr(p.mma_ops),
-            halo, steps,
-            RULES[rule], alpha, _cuda.ptr(scratch),
+            halo, steps, RULES[rule], alpha, num_stages, _cuda.ptr(scratch),
             torch.cuda.current_stream(src.device).cuda_stream)
     ca_cuda.launches += 1
     _cuda.count_mma(p)
@@ -244,6 +262,19 @@ def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
 
 
 ca_cuda.launches = 0
+
+
+def ring_geometry(p: LaunchParams, halo: int, num_stages: int):
+    """(ring slots, persistent CTAs) of a launch of :func:`ca_cuda`: the
+    slots are ``num_stages``, or fewer where that many working tiles do
+    not fit one CTA's shared memory (the same result), 0 on the
+    global-scratch path (depth 1); the CTAs as many as reside on the
+    card, at most one a step."""
+    params = _cuda.param_array(p)
+    lib = _lib()
+    return (lib.sc_ring_depth(params, halo, num_stages),
+            lib.sc_grid_ctas(params, halo, num_stages))
+
 
 #: kernel name -> its CUDA wrapper (each carries ``launches``); the mma
 #: lowering's decode chains count the launches that run them
@@ -262,11 +293,13 @@ def launch_counts() -> dict:
 
 def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
                            plan: GridPlan, n: int, block: int, halo: int,
-                           steps: int, rule: str, alpha: float) -> None:
-    """Run one kernel launch and its plain version on copies of the same
-    buffers; raise AssertionError unless the results are bit-equal."""
+                           steps: int, rule: str, alpha: float,
+                           num_stages: int = 1) -> None:
+    """Run one kernel launch (a ring of ``num_stages`` slots) and its
+    plain version on copies of the same buffers; raise AssertionError
+    unless the results are bit-equal."""
     p = plan.launch_params(n, block, src.device)
-    got = ca_cuda(src, dst.clone(), p, halo, steps, rule, alpha)
+    got = ca_cuda(src, dst.clone(), p, halo, steps, rule, alpha, num_stages)
     want = ca_launch_plain(src, dst.clone(), plan, n, block, halo, steps,
                            rule, alpha)
     if not torch.equal(got, want):
@@ -275,7 +308,8 @@ def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
             f"CA kernel != plain version ({plan.domain.name}, "
             f"{plan.lowering}, {plan.storage}, "
             f"coarsen={plan.coarsen}, n={n}, block={block}, halo={halo}, "
-            f"steps={steps}, {rule}): max |diff| {float(diff)}")
+            f"steps={steps}, {rule}, num_stages={num_stages}): max |diff| "
+            f"{float(diff)}")
 
 
 # ---------------------------------------------------------------------------
@@ -283,18 +317,21 @@ def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_schedule(fuse, coarsen, grid_mode, num_stages):
-    """The tuner's knobs are not ported: ``"auto"`` and pipelining
-    raise, naming the roadmap item that brings them."""
+    """The tuner's knobs are not ported: ``"auto"`` raises, naming the
+    roadmap item that brings it.  Returns the ring depth: ``num_stages``
+    (an integer >= 1) clamped to ``MAX_STAGES``, as the JAX package's gpu
+    target clamps deeper requests."""
     for name, value in (("fuse", fuse), ("coarsen", coarsen),
-                        ("grid_mode", grid_mode)):
+                        ("grid_mode", grid_mode), ("num_stages", num_stages)):
         if value == "auto":
             raise NotImplementedError(
                 f"{name}='auto' needs the tuner, which is not ported yet "
                 f"(ROADMAP A8)")
-    if num_stages != 1:
-        raise NotImplementedError(
-            f"num_stages={num_stages!r}: software pipelining is not ported "
-            f"yet (ROADMAP A8; the port runs num_stages=1)")
+    if isinstance(num_stages, bool) or not isinstance(num_stages, int) \
+            or num_stages < 1:
+        raise ValueError(f"num_stages must be an integer >= 1, got "
+                         f"{num_stages!r}")
+    return min(num_stages, MAX_STAGES)
 
 
 def prepare_run(state: torch.Tensor, stale_buf: torch.Tensor, *,
@@ -334,11 +371,14 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     orthotope-resident (pass ``n=`` or ``domain=``).  ``grid_mode`` is
     closed_form (alias compact), prefetch_lut, bounding or mma.
 
+    ``num_stages`` (an integer >= 1, clamped to ``MAX_STAGES`` as the
+    JAX package's gpu target clamps it) is the depth of the kernel's
+    ``cp.async`` ring of working tiles; every depth is bit-identical.
+
     The port's defaults are the JAX package's untuned resolution
-    (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs and
-    ``num_stages`` other than 1 raise ``NotImplementedError`` naming the
-    roadmap item that brings them."""
-    _check_schedule(fuse, coarsen, grid_mode, num_stages)
+    (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs raise
+    ``NotImplementedError`` naming the roadmap item that brings them."""
+    stages = _check_schedule(fuse, coarsen, grid_mode, num_stages)
     if rule not in RULES:
         raise ValueError(f"unknown rule {rule!r}; expected one of "
                          f"{tuple(RULES)}")
@@ -357,7 +397,7 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     if plan.target.kernels:
         p = plan.launch_params(n, block, a.device)
         for k in sched:
-            ca_cuda(a, b, p, fuse, k, rule, alpha)
+            ca_cuda(a, b, p, fuse, k, rule, alpha, stages)
             a, b = b, a
     else:
         for k in sched:

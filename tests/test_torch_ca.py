@@ -116,6 +116,39 @@ def test_ca_run_generalized_fractals(fractal, storage, rule):
 
 
 # ---------------------------------------------------------------------------
+# num_stages: the depth of the kernel's ring
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("storage", TP.STORAGES)
+@pytest.mark.parametrize("num_stages", [2, 3])
+def test_num_stages_bit_equal_to_jax(num_stages, storage):
+    # the ring's depth changes no bit: the port's ca_run at num_stages=k
+    # equals tpu-interpret repro's ca_run at the same depth (its
+    # stream_tiles ring of async copies) and the port's one-stage run
+    n, block, steps = 16, 4, 5
+    x = fractal_state("sierpinski-gasket", n, True, seed=5 + num_stages)
+    ja, ta = pair(x, "sierpinski-gasket", n, block, storage)
+    kw = dict(rule="parity", block=block, storage=storage, n=n, fuse=2)
+    want = JO.ca_run(ja, jnp.zeros_like(ja), steps, num_stages=num_stages,
+                     backend="tpu-interpret", **kw)
+    got = TO.ca_run(ta, torch.zeros_like(ta), steps, num_stages=num_stages,
+                    **kw)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    one = TO.ca_run(ta, torch.zeros_like(ta), steps, num_stages=1, **kw)
+    assert torch.equal(got, one)
+
+
+def test_num_stages_validation():
+    x = torch.zeros(16, 16)
+    for bad in (0, -1, 1.5, True):
+        with pytest.raises(ValueError, match="num_stages"):
+            TO.ca_run(x, torch.zeros_like(x), 2, block=4, num_stages=bad)
+    # deeper requests clamp to the kernel's deepest ring, as the JAX
+    # package's gpu target clamps them
+    assert TCA._check_schedule(1, 1, "closed_form", 9) == TCA.MAX_STAGES
+
+
+# ---------------------------------------------------------------------------
 # ca_step and the dense oracles
 # ---------------------------------------------------------------------------
 
@@ -206,7 +239,7 @@ def test_plain_chunks_agree_with_one_pass(monkeypatch):
     (dict(fuse="auto"), NotImplementedError, "A8"),
     (dict(coarsen="auto"), NotImplementedError, "A8"),
     (dict(grid_mode="auto"), NotImplementedError, "A8"),
-    (dict(num_stages=2), NotImplementedError, "A8"),
+    (dict(num_stages="auto"), NotImplementedError, "A8"),
     (dict(grid_mode="mma", block=1, fractal="sierpinski-carpet",
           storage="compact", n=6561, shape=(4096, 4096)), ValueError,
      "2\\^24"),

@@ -158,14 +158,20 @@ def test_ca_kernel_matches_plain(dev, fractal, n, block, s, fuse, grid_mode,
                           binary=rule == "parity")
     a = packed if storage == "compact" else emb
     b = torch.zeros_like(a)
+    # every ring depth, the global-scratch path (rho 128 at fuse 128,
+    # coarsen 2 at fuse 64) included
     for coarsen in sorted({1, s}):
         plan, n_, blk = TC.prepare_run(a, b, block=block, grid_mode=grid_mode,
                                        fractal=fractal, storage=storage, n=n,
                                        coarsen=coarsen)
         h = TC.effective_fuse(fuse, fuse, blk, coarsen)
+        p = plan.launch_params(n_, blk, dev)
         for steps in sorted({1, h}):
-            TC.check_ca_against_plain(a, b, plan, n_, blk, h, steps, rule,
-                                      0.2)
+            want = TC.ca_launch_plain(a, b.clone(), plan, n_, blk, h, steps,
+                                      rule, 0.2)
+            for st in (1, 2, 3):
+                got = TC.ca_cuda(a, b.clone(), p, h, steps, rule, 0.2, st)
+                assert torch.equal(got, want), (coarsen, steps, st)
 
 
 def test_ca_entry_points_launch_the_kernel(dev):
@@ -186,6 +192,36 @@ def test_ca_entry_points_launch_the_kernel(dev):
     one = ops.ca_step(packed, torch.zeros_like(packed), block=block,
                       storage="compact", n=n)
     assert torch.equal(lay.unpack(one, block), ref.ca_step_ref(emb, "parity"))
+    # the ring's depth through the entry points: the same bits, counted
+    TC.reset_launch_counts()
+    for st in (2, 3, 9):  # 9 clamps to the deepest ring
+        deep = ops.ca_run(packed.clone(), torch.zeros_like(packed), 10,
+                          fuse=4, block=block, storage="compact", n=n,
+                          num_stages=st)
+        assert torch.equal(deep, got)
+    assert TC.launch_counts()["sierpinski_ca_fused"] == 9
+
+
+def test_ca_ring_geometry(dev):
+    # small working tiles: the requested depth on a persistent grid; a
+    # rho = 128 tile at fuse 4 (76 KB) fits two tiles but not four, so
+    # depth 3 runs at 1; at fuse 128 it takes the global-scratch path
+    # (depth 0)
+    n, block = 256, 16
+    _, packed = _packed("sierpinski-gasket", n, block, 5, dev)
+    plan, n_, blk = TC.prepare_run(packed, torch.zeros_like(packed),
+                                   block=block, storage="compact", n=n)
+    p = plan.launch_params(n_, blk, dev)
+    for st in (1, 2, 3):
+        slots, ctas = TC.ring_geometry(p, 4, st)
+        assert slots == st and 1 <= ctas <= p.steps
+    emb, _ = _packed("sierpinski-gasket", 512, 128, 5, dev)
+    plan, n_, blk = TC.prepare_run(emb, torch.zeros_like(emb), block=128)
+    p = plan.launch_params(n_, blk, dev)
+    assert TC.ring_geometry(p, 128, 3)[0] == 0
+    assert TC.ring_geometry(p, 4, 3)[0] == 1
+    with pytest.raises(ValueError, match="ring"):
+        TC.ca_cuda(emb, torch.zeros_like(emb), p, 1, 1, "parity", 0.2, 5)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +572,7 @@ def test_flash_misaligned_bf16_views_take_the_cuda_core_kernel(dev):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("block", [64, 128])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("heads", list(TC_HEADS))
 @pytest.mark.parametrize("kind", ["causal", "local", "full"])
 def test_flash_tc_f32_kernel_matches_plain(dev, kind, heads, d, block):
@@ -562,7 +598,9 @@ def test_flash_tc_f32_kernel_matches_plain(dev, kind, heads, d, block):
 
 
 @pytest.mark.parametrize("d,block,s", [(8, 16, 64), (40, 48, 96),
-                                       (96, 256, 512), (128, 16, 48)])
+                                       (96, 256, 512), (128, 16, 48),
+                                       (200, 64, 256), (136, 32, 96),
+                                       (256, 48, 96), (256, 256, 512)])
 def test_flash_tc_f32_kernel_odd_heads_and_blocks(dev, d, block, s):
     # head dims below the instantiation (k-steps and n-tiles skipped),
     # one-warp and two-pass query blocks, sub-tiles of 16 and 48 keys
@@ -613,9 +651,9 @@ def test_flash_tc_f32_kernel_compact_kv_and_seq_pos(dev, grid_mode):
 
 
 def test_flash_tc_f32_routing_on_the_card(dev):
-    # f32 prefill up to head dim 128 takes the 3xTF32 kernel; head dim 256
-    # stays on the CUDA-core kernel and decode takes the split-K decode
-    # kernel, and the tf32 entry point refuses them (and bf16)
+    # f32 prefill up to head dim 256 takes the 3xTF32 kernel; 8-row
+    # blocks stay on the CUDA-core kernel and decode takes the split-K
+    # decode kernel, and the tf32 entry point refuses them (and bf16)
     torch.backends.cuda.matmul.allow_tf32 = False
     q = _randn((1, 2, 128, 128), 52, dev, torch.float32)
     FA.reset_launch_counts()
@@ -623,17 +661,19 @@ def test_flash_tc_f32_routing_on_the_card(dev):
     wide = _randn((1, 2, 128, 256), 53, dev, torch.float32)
     ops.flash_attention(wide, wide, wide, kind="causal", block_q=64,
                         block_k=64)
+    ops.flash_attention(wide, wide, wide, kind="causal", block_q=8,
+                        block_k=8)
     ops.flash_attention(q[:, :, :1].contiguous(), q, q, kind="full",
                         block_q=1, block_k=64, seq_pos=100)
     assert FA.launch_counts() == {"flash_attention": 1,
                                   "flash_attention_decode": 1,
                                   "flash_attention_tc": 0,
-                                  "flash_attention_tc_f32": 1,
+                                  "flash_attention_tc_f32": 2,
                                   "paged_flash_attention": 0}
-    for t in (wide, q.to(torch.bfloat16)):
+    for t, blk in ((wide, 8), (q.to(torch.bfloat16), 64)):
         with pytest.raises(ValueError, match="f32 tensor-core"):
             FA.flash_tc_f32_cuda(t, t, t, FA.flash_schedule(
-                t.shape, t.shape, block_q=64, block_k=64))
+                t.shape, t.shape, block_q=blk, block_k=blk))
 
 
 def test_flash_misaligned_f32_views_take_the_cuda_core_kernel(dev):

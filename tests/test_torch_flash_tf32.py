@@ -7,11 +7,15 @@ flash_fwd_tf32_kernel, 3xTF32) without the card:
     permutation that feeds P's A fragment from the score fragments --
     over one warp's 16 query rows and a few 64-key sub-tiles, equal to
     dense float64 products of the same tf32 operands; V read at the
-    unpermuted rows gives another product;
+    unpermuted rows gives another product.  Past d = 128 a pair of warps
+    shares the 16 rows in 32-key sub-tiles: each multiplies its half of
+    the head dim, the halves are added dims 0-127 first, and each warp
+    keeps the outputs of its own half;
 (b) ``tf32x3_numerics``, an emulation of the kernel's arithmetic (Q
     scaled in f32, every operand split into tf32 hi = rna(x) and
     lo = rna(x - hi), products summing lo·hi + hi·lo + hi·hi, the online
-    softmax per 64-key sub-tile, p split the same way) within the f32
+    softmax per 64-key sub-tile -- 32-key sub-tiles and the scores as two
+    f32 halves added past d = 128 -- p split the same way) within the f32
     kernel tolerance 2e-5 of tpu-interpret ``repro.kernels.ops.
     flash_attention`` and of the port's plain version, the lowerings
     bit-equal to each other, compact KV bit-equal to embedded;
@@ -33,8 +37,15 @@ from torch_parity import as_f32, qkv_pair
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 
 #: the kernel's geometry (csrc/flash_attention.cu): 16 rows per warp,
-#: 64-key sub-tiles, shared rows padded by 4 f32
+#: 64-key sub-tiles, shared rows padded by 4 f32; past d = 128 a pair of
+#: warps each owns HALF of the head dim, in 32-key sub-tiles
 ROWS, SUB, PAD = 16, 64, 4
+HALF, SUB_WIDE = 128, 32
+
+
+def sub_keys(d):
+    """Keys per sub-tile at head dim d (csrc tf32_sub)."""
+    return SUB if d <= HALF else SUB_WIDE
 TOL = FA.TOLERANCE[torch.float32]
 
 
@@ -104,9 +115,14 @@ def _lane_offsets(lane):
 
 def _fragment_products(q, kk, vv, permuted=True):
     """S = Q K^T and O = tf32(S) V through the kernel's fragment maps, per
-    64-key sub-tile; ``permuted=False`` reads V at rows t and t + 4 (a
-    map without the key permutation).  Returns (S, O) dense."""
+    sub-tile: one warp owning every dim up to d = 128; past it a pair of
+    warps, each multiplying its half of the head dim (``dof`` = 0 or 128)
+    with the halves added dims 0-127 first, each keeping the outputs of
+    its half.  ``permuted=False`` reads V at rows t and t + 4 (a map
+    without the key permutation).  Returns (S, O) dense."""
     d, nkeys = q.shape[1], kk.shape[0]
+    sub = sub_keys(d)
+    halves = [(0, d)] if d <= HALF else [(0, HALF), (HALF, d)]
     stride = d + PAD
     sq = np.zeros((ROWS, stride))
     sq[:, :d] = q
@@ -114,35 +130,42 @@ def _fragment_products(q, kk, vv, permuted=True):
     s_all = []
     lanes = np.arange(32)
     g, t = lanes // 4, lanes % 4
-    for c in range(0, nkeys, SUB):
-        n = min(SUB, nkeys - c)
-        sk, sv = np.zeros((SUB, stride)), np.zeros((SUB, stride))
+    for c in range(0, nkeys, sub):
+        n = min(sub, nkeys - c)
+        sk, sv = np.zeros((sub, stride)), np.zeros((sub, stride))
         sk[:n, :d], sv[:n, :d] = kk[c:c + n], vv[c:c + n]
-        s = np.zeros((SUB // 8, 32, 4))
-        for ks in range(d // 8):
-            a = _ldmatrix32(sq, lambda ln: (
-                _lane_offsets(ln)[0][0], ks * 8 + _lane_offsets(ln)[0][1]))
-            for np_ in range(n // 16):
-                bb = _ldmatrix32(sk, lambda ln: (
-                    np_ * 16 + _lane_offsets(ln)[1][0],
-                    ks * 8 + _lane_offsets(ln)[1][1]))
-                _mma_k8(s[2 * np_], a, bb[:, 0], bb[:, 1])
-                _mma_k8(s[2 * np_ + 1], a, bb[:, 2], bb[:, 3])
-        s = s[:n // 8]
+        parts = []
+        for dof, dend in halves:  # each warp of the pair, its dims
+            s = np.zeros((sub // 8, 32, 4))
+            for ks in range((dend - dof) // 8):
+                col = dof + ks * 8
+                a = _ldmatrix32(sq, lambda ln: (
+                    _lane_offsets(ln)[0][0], col + _lane_offsets(ln)[0][1]))
+                for np_ in range(n // 16):
+                    bb = _ldmatrix32(sk, lambda ln: (
+                        np_ * 16 + _lane_offsets(ln)[1][0],
+                        col + _lane_offsets(ln)[1][1]))
+                    _mma_k8(s[2 * np_], a, bb[:, 0], bb[:, 1])
+                    _mma_k8(s[2 * np_ + 1], a, bb[:, 2], bb[:, 3])
+            parts.append(s[:n // 8])
+        s = parts[0] if len(parts) == 1 else parts[0] + parts[1]
         s_all.append(_dense(s))
         for kk_ in range(n // 8):
             # P's A fragment from the score fragment: d[0], d[2], d[1], d[3]
             pa = _tf32(np.stack([s[kk_][:, 0], s[kk_][:, 2], s[kk_][:, 1],
                                  s[kk_][:, 3]], 1))
             r0, r1 = (2 * t, 2 * t + 1) if permuted else (t, t + 4)
-            for ot in range(d // 8):
-                _mma_k8(o[ot], pa, sv[kk_ * 8 + r0, ot * 8 + g],
-                        sv[kk_ * 8 + r1, ot * 8 + g])
+            for dof, dend in halves:  # each warp its own output dims
+                for ot in range((dend - dof) // 8):
+                    col = dof + ot * 8
+                    _mma_k8(o[col // 8], pa, sv[kk_ * 8 + r0, col + g],
+                            sv[kk_ * 8 + r1, col + g])
     return np.concatenate(s_all, 1), _dense(o)
 
 
 @pytest.mark.parametrize("d,nkeys", [(64, 64), (64, 128), (64, 192),
-                                     (128, 64), (128, 128), (128, 192)])
+                                     (128, 64), (128, 128), (128, 192),
+                                     (256, 32), (256, 96), (200, 64)])
 def test_fragment_maps_give_the_dense_products(d, nkeys):
     rng = np.random.default_rng(d + nkeys)
     q, kk, vv = (_tf32(rng.normal(size=shape)).astype(np.float64)
@@ -152,7 +175,7 @@ def test_fragment_maps_give_the_dense_products(d, nkeys):
     np.testing.assert_allclose(s, s_dense, rtol=0, atol=1e-9)
     o_dense = _tf32(s_dense).astype(np.float64) @ vv
     np.testing.assert_allclose(o, o_dense, rtol=0, atol=1e-9)
-    if nkeys == 64:
+    if nkeys == sub_keys(d):
         # the same loads without the key permutation pair P's columns
         # with the wrong rows of V
         _, wrong = _fragment_products(q, kk, vv, permuted=False)
@@ -196,10 +219,11 @@ def _mm3(eq, a, b, terms=3):
 def tf32x3_numerics(q, k, v, sched, pos=None, terms=3):
     """What flash_fwd_tf32_kernel computes, as tensor math on f32 q, k, v:
     every query-block row walks its key blocks in order, each in 64-key
-    sub-tiles; s = (q * scale) k^T in 3xTF32, masked with -1e30; the
-    online softmax updates per sub-tile; O += p v in 3xTF32, l sums the
-    f32 p; out = acc / l (l == 0 -> 1).  ``terms=1`` drops the lo terms
-    (a planted fault)."""
+    sub-tiles (32-key past d = 128); s = (q * scale) k^T in 3xTF32 --
+    past d = 128 as two f32 halves over dims 0-127 and 128-d, added in
+    that order -- masked with -1e30; the online softmax updates per
+    sub-tile; O += p v in 3xTF32, l sums the f32 p; out = acc / l
+    (l == 0 -> 1).  ``terms=1`` drops the lo terms (a planted fault)."""
     b, h, sq, d = q.shape
     hkv, g, bq, bk = sched.hkv, sched.group, sched.block_q, sched.block_k
     qf = (q.float() * sched.scale).reshape(b, hkv, g, sched.m_q, bq, d)
@@ -226,9 +250,16 @@ def tf32x3_numerics(q, k, v, sched, pos=None, terms=3):
         kt = kf[bidx, :, kv].permute(0, 2, 1, 3, 4)
         vt = vf[bidx, :, kv].permute(0, 2, 1, 3, 4)
         upd = live[:, None, None, :, None, None]
-        for c in range(0, bk, SUB):
-            ks, vs = kt[..., c:c + SUB, :], vt[..., c:c + SUB, :]
-            s = _mm3("bhgrqd,bhrkd->bhgrqk", qf, ks, terms)
+        sub = sub_keys(d)
+        for c in range(0, bk, sub):
+            ks, vs = kt[..., c:c + sub, :], vt[..., c:c + sub, :]
+            if d <= HALF:
+                s = _mm3("bhgrqd,bhrkd->bhgrqk", qf, ks, terms)
+            else:  # the pair's halves, dims 0-127 first
+                s = (_mm3("bhgrqd,bhrkd->bhgrqk", qf[..., :HALF],
+                          ks[..., :HALF], terms)
+                     + _mm3("bhgrqd,bhrkd->bhgrqk", qf[..., HALF:],
+                            ks[..., HALF:], terms))
             kpos = (kb[:, :, None] * bk + c + torch.arange(ks.shape[-2]))[
                 :, None, None, :, None, :]
             mask = torch.ones_like(s, dtype=torch.bool)
@@ -325,11 +356,36 @@ def test_tf32x3_numerics_compact_kv_and_seq_pos(grid_mode):
         _close(got, FA.flash_attention_plain(tq, tk, tv, sched, pv))
 
 
+@pytest.mark.parametrize("d", [256, 200])
+@pytest.mark.parametrize("kind", ["causal", "local", "full"])
+def test_tf32x3_numerics_past_d128_match_jax_and_plain(kind, d):
+    # the pair layout (d 256, and d 200 below its instantiation): 32-key
+    # sub-tiles, the two halves' scores added in one order; the
+    # lowerings bit-equal to each other
+    block = 64
+    s = 4 * block if kind == "local" else 2 * block
+    window = 2 * block if kind == "local" else 0
+    (jq, jk, jv), (tq, tk, tv) = qkv_pair(1, 4, 2, s, s, d, seed=d + 7)
+    kw = dict(kind=kind, window=window, block_q=block, block_k=block)
+    want = jops.flash_attention(jq, jk, jv, grid_mode="closed_form", **kw)
+    plain = FA.flash_attention_plain(tq, tk, tv, FA.flash_schedule(
+        tq.shape, tk.shape, **kw))
+    outs = []
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(tq.shape, tk.shape, grid_mode=gm, **kw)
+        assert FA.flash_route(sched, tq.dtype) == "tc_f32"
+        outs.append(tf32x3_numerics(tq, tk, tv, sched))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    _close(outs[0], want)
+    _close(outs[0], plain)
+
+
 # ---------------------------------------------------------------------------
 # (c) a planted fault
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_dropping_the_lo_terms_fails_the_f32_tolerance(d):
     # 1xTF32 (hi x hi alone) keeps ~11 bits of each product: its outputs
     # leave rtol = atol = 2e-5 of the plain version, where 3xTF32 stays
@@ -354,8 +410,9 @@ def test_dropping_the_lo_terms_fails_the_f32_tolerance(d):
     ((1, 2, 256, 8), dict(block_q=16, block_k=16), "tc_f32"),
     ((1, 2, 1024, 64), dict(block_q=256, block_k=256), "tc_f32"),
     ((1, 2, 96, 48), dict(kind="full", block_q=48, block_k=48), "tc_f32"),
-    ((1, 2, 256, 256), dict(block_q=64, block_k=64), "cuda_core"),
-    ((1, 2, 256, 136), dict(), "cuda_core"),                   # d > 128
+    ((1, 2, 256, 256), dict(block_q=64, block_k=64), "tc_f32"),
+    ((1, 2, 256, 136), dict(), "tc_f32"),                      # d > 128
+    ((1, 2, 256, 264), dict(), "cuda_core"),                   # d > 256
     ((1, 2, 256, 36), dict(), "cuda_core"),                    # d % 8
     ((1, 2, 96, 64), dict(kind="full", block_q=24, block_k=24), "cuda_core"),
     ((1, 2, 64, 64), dict(kind="full", block_q=8, block_k=8), "cuda_core"),
