@@ -83,15 +83,22 @@ Phases, each printing its own lines:
              the domain's membership rule in bands; counts read; the
              partials against the plain version slot by slot, their f64
              total against the member total; timings beside
-             masked_fill_ and torch.masked.sum;
+             masked_fill_ and torch.masked.sum; on the packed triangle
+             the fused CA at fuse 8 (parity) under closed_form and mma
+             (the batched row chain B7c), bit-equal to each other and
+             timed;
 9. parity-attn -- flash_attention against its plain version over
              causal / local / full x four lowerings x {MHA, GQA 16/8,
              MQA} x D {64, 128, 256} x blocks {64, 128} x f32/bf16 (the
              lowerings bit-equal to each other; bf16 takes the bf16
              tensor-core kernel, f32 the 3xTF32 one, also at D 200 and
-             136 below its d 256 instantiation; the CUDA-core kernel takes
-             blocks of 8 and 24, bf16 at D 40 and misaligned views;
-             counted per kernel, each takes at least one case),
+             136 below its d 256 instantiation; the ragged calls on the
+             tile paths: blocks of 8, 24 and 72, block_q = 1 without
+             seq_pos, bf16 at D 40 and 72, f32 at D 36, D 256 at 72-token
+             blocks, misaligned views (copied to an aligned buffer); the
+             CUDA-core kernel takes head rows that are no whole number of
+             16-byte pieces (f32 D 62, bf16 D 60); counted per kernel,
+             each takes at least one case),
              rectangular local with compact KV (both
              dtypes, bit-equal to embedded), seq_pos scalar / vector and
              full + window at block_q 1 (the split-K decode kernel) and,
@@ -102,14 +109,15 @@ Phases, each printing its own lines:
              every bf16 case also holds each output row to a relative
              error of ROW_RTOL (its largest printed per kernel);
 10. attn  -- flash_attention at the widths of quickstart (causal S 4096,
-             B 4, f32: the 3xTF32 tensor-core kernel, also timed beside
-             the CUDA-core kernel on the same inputs; causal at S 4104,
+             B 4, f32: the 3xTF32 tensor-core kernel; causal at S 4104,
              a prompt length that is a multiple of 8 but not of 16, in
-             57 blocks of 72: the CUDA-core kernel) and gemma3-12b
-             (D 256 bf16: causal S 4096, local window 1024 at S 8192:
-             the bf16 tensor-core kernel; causal S 4096 in f32: the
-             3xTF32 kernel's d 256 form, beside the CUDA-core kernel)
-             under the four lowerings:
+             57 blocks of 72: its ragged instantiation; causal S 4096 at
+             D 62: the CUDA-core kernel) and gemma3-12b (D 256 bf16:
+             causal S 4096, local window 1024 at S 8192, causal S 4104 in
+             72-token blocks: the bf16 tensor-core kernel; causal S 4096
+             in f32: the 3xTF32 kernel's d 256 form) under the four
+             lowerings, every tile-path row also timing the CUDA-core
+             kernel on the same inputs (uncounted):
              counts set to 0, the entry point driven, counts read (each
              row's kernel launched once, the others not at all); kernel
              vs plain (bf16 rows also per row within ROW_RTOL: a fault in
@@ -143,9 +151,12 @@ Phases, each printing its own lines:
              contiguous kernel at block_k 16);
 13. kernels line (B1-B5 with B4 as the CUDA-core flash kernel and the
              split-K decode kernel flash_attention_decode, the mma chains
-             B7, and B4's tensor-core tile paths flash_attention_tc (bf16)
-             and flash_attention_tc_f32 (f32, 3xTF32, with its gemma3-12b
-             D 256 row)), then the result line.
+             B7 (with the CA under mma at fuse 1 and 8 and on the
+             triangle), and B4's tensor-core tile paths flash_attention_tc
+             (bf16, with its ragged gemma3-12b S 4104 row) and
+             flash_attention_tc_f32 (f32, 3xTF32, with its gemma3-12b
+             D 256 row and its ragged quickstart S 4104 row)), then the
+             result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -1151,16 +1162,18 @@ def domain_member_bands(dom, lay, block, storage, dev, band_rows=64):
                live.repeat_interleave(block, 0).repeat_interleave(block, 1))
 
 
-def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev, comp):
+def phase_domain_main(ops, TW, TC, D, LOWERINGS, compact_layout, dev, comp):
     """The n = 2**16, rho = 32 domain cells under the four lowerings:
     counted writes (checked against the membership rule band by band)
     and sums; then, not counted, the partials against the plain version
     slot by slot, their f64 total against the member total, and
     CUDA-event timings beside masked_fill_ / torch.masked.sum; a summary
     line per cell and lowering, and the packed gasket's masked_fill_
-    (timed in the compact phase) beside them."""
+    (timed in the compact phase) beside them.  On the packed triangle the
+    fused CA at fuse 8 (parity) under closed_form and mma (the batched
+    row chain), bit-equal, timed (``ca_rows``)."""
     rho = CA_RHO
-    rows, launches = [], {}
+    rows, launches, ca_rows = [], {}, []
     gasket = {r["lowering"]: r for r in comp["rows"]
               if (r["rho"], r["coarsen"]) == (rho, 1)}
     print(f"[domains] packed gasket n={N_MAIN} rho={rho}: masked_fill_ "
@@ -1258,10 +1271,49 @@ def phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev, comp):
                   f"{fill_ms:.4f}), partials {row['partials_ms']:.4f} ms "
                   f"(bound {row['partials_bound_ms']:.4f}, "
                   f"torch.masked.sum {msum_ms:.4f})")
+        if name == "triangular":
+            ca_rows = domain_ca_rows(TC, dom, m, mask, storage, members, dev)
         del m, mask
-    return {"rows": rows, "launches": launches,
+    return {"rows": rows, "launches": launches, "ca_rows": ca_rows,
             "packed_gasket_masked_fill_ms":
                 gasket["closed_form"]["write_library_ms"]}
+
+
+def domain_ca_rows(TC, dom, m, mask, storage, members, dev, fuse=8):
+    """The fused CA on a domain cell's state ``m`` (parity, fuse 8, ring
+    depth 1): a binary member state, one launch under closed_form and
+    one under mma (the row chain B7c, batched), bit-equal, then each
+    timed beside the byte bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    m.random_(0, 2, generator=gen)
+    m.masked_fill_(~mask, 0.0)
+    b = torch.zeros_like(m)
+    rows, first = [], None
+    for gm in ("closed_form", "mma"):
+        plan, n_, blk = TC.prepare_run(m, b, block=CA_RHO, grid_mode=gm,
+                                       storage=storage, domain=dom)
+        p = plan.launch_params(n_, blk, dev)
+        TC.ca_cuda(m, b, p, fuse, fuse, "parity", CA_ALPHA, 1)
+        if first is None:
+            first = b.clone()
+        else:
+            check(torch.equal(b, first), f"ca {dom} {gm}: differs from "
+                  f"closed_form")
+        lut_bytes = 0 if p.lut is None else p.lut.numel() * 4
+        row = {"domain": type(dom).__name__, "storage": storage,
+               "lowering": gm, "fuse": fuse, "rule": "parity",
+               "steps": p.steps, "ctas": TC.ring_geometry(p, fuse, 1)[1],
+               "launch_ms": time_ms(lambda: TC.ca_cuda(
+                   m, b, p, fuse, fuse, "parity", CA_ALPHA, 1), 5)}
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * members * 4 + lut_bytes, fuse * members * CA_OPS["parity"])
+        rows.append(row)
+        print(f"[domains] ca {json.dumps(row)}")
+    del b, first
+    print(f"[domains] ca on the packed triangle, fuse {fuse}: mma bit-equal "
+          f"to closed_form; ms " + ", ".join(
+              f"{r['lowering']} {r['launch_ms']:.4f}" for r in rows))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1278,16 +1330,22 @@ ATTN_DIMS, ATTN_BLOCKS = (64, 128, 256), (64, 128)
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
 #: attn: (name, B, H, Hkv, S, D, dtype, kind, window, block) at the widths
 #: of quickstart and gemma3-12b.  A prompt of 4104 tokens (a multiple of 8
-#: but not of 16) is split into 57 blocks of 72: the tile paths take
-#: 16-multiple blocks only, so the CUDA-core kernel serves it
+#: but not of 16) is split into 57 blocks of 72: the tile paths' ragged
+#: instantiations serve it.  A head dim of 62 f32 values (rows of 248
+#: bytes, no whole number of 16-byte pieces) is what the CUDA-core kernel
+#: still serves
 ATTN_TIMED = [("quickstart causal", 4, 12, 12, 4096, 64, torch.float32,
                "causal", 0, 128),
               ("quickstart causal S 4104", 4, 12, 12, 4104, 64,
                torch.float32, "causal", 0, 72),
+              ("quickstart causal D 62", 4, 12, 12, 4096, 62,
+               torch.float32, "causal", 0, 128),
               ("gemma3-12b causal", 1, 16, 8, 4096, 256, torch.bfloat16,
                "causal", 0, 128),
               ("gemma3-12b local", 1, 16, 8, 8192, 256, torch.bfloat16,
                "local", 1024, 128),
+              ("gemma3-12b causal S 4104", 1, 16, 8, 4104, 256,
+               torch.bfloat16, "causal", 0, 72),
               ("gemma3-12b causal f32", 1, 16, 8, 4096, 256, torch.float32,
                "causal", 0, 128)]
 #: serve: quickstart at full width, then gemma3-12b at full width cut to
@@ -1361,8 +1419,7 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
     cases = {name: 0 for name in FA.ROUTE_KERNELS.values()}
 
     def flash_check(q, k, v, sched, pos=None):
-        name = FA.ROUTE_KERNELS[FA.flash_route(sched, q.dtype,
-                                               FA._aligned(q, k, v))]
+        name = FA.ROUTE_KERNELS[FA.flash_route(sched, q.dtype)]
         out = FA.flash_cuda(q, k, v, sched, pos)
         want = FA.flash_attention_plain(q, k, v, sched, pos)
         err[name] = max(err[name], FA._compare(
@@ -1399,8 +1456,10 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
               f"layouts x D {ATTN_DIMS} x blocks {ATTN_BLOCKS} x f32/bf16 "
               f"within tolerance, lowerings bit-equal")
     # f32 below the 3xTF32 kernel's d 256 instantiation (its inexact
-    # form), then the calls the CUDA-core kernel takes: blocks of 8 and
-    # 24, bf16 at D 40, and f32 views 4 bytes past a 16-byte boundary
+    # form), then the ragged calls the tile paths take since they pad
+    # inside the kernel -- blocks of 8, 24 and 72, block_q = 1 without
+    # seq_pos, head dims of 8 (bf16) or 4 (f32) mod 16, views off a
+    # 16-byte boundary -- and what the CUDA-core kernel still takes
     for d in (200, 136):
         for kind in ("causal", "full"):
             seed += 1
@@ -1411,28 +1470,55 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                 grid_mode=gm)) for gm in LOWERINGS]
             check(all(torch.equal(o, outs[0]) for o in outs),
                   f"flash f32 {kind} d={d}: the lowerings differ")
-    for dtype in ATTN_DTYPES:
-        for blk, s, d in ((8, 64, 64), (24, 96, 256), (64, 128, 40)):
+    ragged = {name: 0 for name in FA.ROUTE_KERNELS.values()}
+    both, f32, bf16 = ATTN_DTYPES, (torch.float32,), (torch.bfloat16,)
+    for blk, s, d, kind, dtypes in (
+            (8, 64, 64, "causal", both), (24, 96, 256, "causal", both),
+            (64, 128, 40, "causal", both), (72, 216, 64, "causal", both),
+            (72, 216, 256, "causal", both), (24, 72, 72, "local", both),
+            (1, 64, 64, "full", both), (40, 120, 36, "causal", f32),
+            (64, 128, 62, "causal", f32), (64, 128, 60, "causal", bf16)):
+        for dtype in dtypes:
             seed += 1
-            q, k, v = attn_inputs([(2, 8, s, d), (2, 4, s, d),
+            sq = 1 if blk == 1 else s
+            q, k, v = attn_inputs([(2, 8, sq, d), (2, 4, s, d),
                                    (2, 4, s, d)], dtype, seed, dev)
+            outs = []
             for gm in LOWERINGS:
-                flash_check(q, k, v, FA.flash_schedule(
-                    q.shape, k.shape, kind="causal", block_q=blk,
-                    block_k=blk, grid_mode=gm))
-    for d in (64, 256):
-        shape = (1, 4, 128, d)
-        base = attn_inputs([(4 * 128 * d + 1,)] * 3, torch.float32, 550 + d,
-                           dev)
-        q, k, v = (t[1:].view(shape) for t in base)
-        for gm in LOWERINGS:
-            flash_check(q, k, v, FA.flash_schedule(
-                shape, shape, kind="causal", block_q=64, block_k=64,
-                grid_mode=gm))
+                sched = FA.flash_schedule(
+                    q.shape, k.shape, kind=kind,
+                    window=2 * blk if kind == "local" else 0, block_q=blk,
+                    block_k=64 if blk == 1 else blk, grid_mode=gm)
+                ragged[FA.ROUTE_KERNELS[FA.flash_route(sched, dtype)]] += 1
+                outs.append(flash_check(q, k, v, sched))
+            check(all(torch.equal(o, outs[0]) for o in outs),
+                  f"flash {dtype} {kind} d={d} blocks {blk}: the lowerings "
+                  f"differ")
+    for dtype in ATTN_DTYPES:
+        for d in (64, 256):
+            shape = (1, 4, 144, d)
+            base = attn_inputs([(4 * 144 * d + 1,)] * 3, dtype, 550 + d, dev)
+            q, k, v = (t[1:].view(shape) for t in base)
+            check(not FA._aligned(q), "the view is off a 16-byte boundary")
+            for gm in LOWERINGS:
+                for blk in (48, 72):
+                    sched = FA.flash_schedule(
+                        shape, shape, kind="causal", block_q=blk,
+                        block_k=blk, grid_mode=gm)
+                    ragged[FA.ROUTE_KERNELS[FA.flash_route(sched, dtype)]] \
+                        += 1
+                    flash_check(q, k, v, sched)
     torch.cuda.synchronize()
-    print("[parity-attn] f32 at D 200 / 136 (3xTF32, the inexact d 256 "
-          "form); blocks 8 / 24, bf16 D 40, misaligned f32 views (the "
-          "CUDA-core kernel): within tolerance")
+    check(ragged["flash_attention"] == 2 * len(LOWERINGS) and
+          ragged["flash_attention_tc"] > 0 and
+          ragged["flash_attention_tc_f32"] > 0,
+          f"the ragged cases took the wrong kernels: {ragged}")
+    print(f"[parity-attn] f32 at D 200 / 136 (3xTF32, the inexact d 256 "
+          f"form); ragged calls -- blocks 8 / 24 / 72, block_q 1 without "
+          f"seq_pos, bf16 D 40 / 72, f32 D 36, D 256 at 72-token blocks, "
+          f"misaligned views copied to an aligned buffer -- on the tile "
+          f"paths, f32 D 62 and bf16 D 60 on the CUDA-core kernel: within "
+          f"tolerance, lowerings bit-equal; cases per kernel {ragged}")
     # rectangular local: queries are the last 256 of 1024 positions, the
     # compact K/V hold only the band's key-block support
     for dtype in ATTN_DTYPES:
@@ -1621,12 +1707,13 @@ def phase_attn(FA, LOWERINGS, dev):
                    "max_row_rel_err": FA.row_rel_err(out, plain),
                    "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
                    "plain_ms": plain_ms}
-            if route == "tc_f32":
+            if route in ("tc", "tc_f32"):
                 # the CUDA-core kernel on the same inputs, through its C
                 # entry point (not a counted launch)
+                fn = FA._lib().fa_forward_f32 if dtype == torch.float32 \
+                    else FA._lib().fa_forward_bf16
                 row["cuda_core_ms"] = time_ms(lambda: FA._launch_flash(
-                    FA._lib().fa_forward_f32, q, k, v, sched, None,
-                    "flash attention kernel"), 5)
+                    fn, q, k, v, sched, None, "flash attention kernel"), 5)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             nops = 4 * d * b * h * needed_pairs(kind, s, window)
             row["bound_ms"], row["bound_by"], row["peak"] = attn_bound(
@@ -1652,6 +1739,11 @@ def phase_attn(FA, LOWERINGS, dev):
             row["library_kernels"] = lib_kernels
             print(f"[attn] {json.dumps(row)}")
         del q, k, v, plain, outs
+    for r in rows:
+        check(r["kernel"] == ("cuda_core" if r["d"] % 4 else "tc" if
+                              r["dtype"] == str(torch.bfloat16) else
+                              "tc_f32"),
+              f"attn {r['case']}: routed to {r['kernel']}")
     tc_rows = [r for r in rows if r["kernel"] == "tc"]
     print(f"[attn] tc rows ({len(tc_rows)}): max |err| "
           f"{max(r['max_abs_err'] for r in tc_rows)} (rtol = atol "
@@ -1663,11 +1755,11 @@ def phase_attn(FA, LOWERINGS, dev):
           f"{max(r['max_abs_err'] for r in f32_rows)} (rtol = atol "
           f"{FA.TOLERANCE[torch.float32]}), launches "
           f"{launches['flash_attention_tc_f32']}")
-    for case in dict.fromkeys(r["case"] for r in f32_rows):
-        cr = [r for r in f32_rows if r["case"] == case]
-        print(f"[attn] tc_f32 {case} (D {cr[0]['d']}): ms "
-              f"{[r['ms'] for r in cr]} against the CUDA-core kernel's "
-              f"{[r['cuda_core_ms'] for r in cr]}, bound "
+    for case in dict.fromkeys(r["case"] for r in tc_rows + f32_rows):
+        cr = [r for r in tc_rows + f32_rows if r["case"] == case]
+        print(f"[attn] {cr[0]['kernel']} {case} (D {cr[0]['d']}, blocks "
+              f"{cr[0]['blocks']}): ms {[r['ms'] for r in cr]} against the "
+              f"CUDA-core kernel's {[r['cuda_core_ms'] for r in cr]}, bound "
               f"{cr[0]['bound_ms']} ms ({cr[0]['peak']}), SDPA "
               f"{cr[0]['library_ms']} ms")
     print(f"[attn] launches of the counted entry-point runs: {launches}")
@@ -2168,7 +2260,7 @@ def main():
                        cell_neighbor_tables, TW, dev)
     comp = phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev)
     merge_err(errs, comp["err"])
-    doms = phase_domain_main(ops, TW, D, LOWERINGS, compact_layout, dev,
+    doms = phase_domain_main(ops, TW, TC, D, LOWERINGS, compact_layout, dev,
                              comp)
     t_attn = time.perf_counter()
     attn_err, attn_rel, attn_cases = phase_parity_attn(FA, LOWERINGS,
@@ -2264,16 +2356,29 @@ def main():
         "triangular_rows_chain_write_ms": tri["write_ms"],
         "triangular_closed_form_write_ms": tri_cf["write_ms"],
         "triangular_bound_ms": tri["write_bound_ms"],
+        # the chains inside the CA: compact parity at rho 32, depth 1, and
+        # the packed triangle's CA at fuse 8 (B7c), beside closed_form
+        "ca_ms": {f"fuse {r['fuse']} {r['lowering']}": r["launch_ms"]
+                  for r in ca["rows"]
+                  if r["rule"] == "parity" and r["num_stages"] == 1
+                  and r["lowering"] in ("mma", "closed_form")},
+        "triangular_ca_fuse8_ms": {r["lowering"]: r["launch_ms"]
+                                   for r in doms["ca_rows"]},
+        "triangular_ca_bound_ms": doms["ca_rows"][0]["bound_ms"],
     })
     serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
     serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
     # B4 on the CUDA cores (flash_fwd_kernel): the quickstart rows of the
-    # attn phase at a prompt length in 72-token blocks (counted there),
-    # closed_form; its gemma3-12b f32 time beside the 3xTF32 kernel's
+    # attn phase at a head dim of 62 (counted there), closed_form; its
+    # times on the tile paths' rows beside them
     cc = [r for r in attn_rows if r["kernel"] == "cuda_core"]
     cc_at = next(r for r in cc if r["lowering"] == "closed_form")
     g32 = next(r for r in attn_rows if r["case"] == "gemma3-12b causal f32"
                and r["lowering"] == "closed_form")
+    at_cf = {r["case"]: r for r in attn_rows
+             if r["lowering"] == "closed_form"}
+    ragged_keys = ("ms", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "max_abs_err", "blocks")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2289,6 +2394,8 @@ def main():
               f"{cc_at['h']}/{cc_at['hkv']} D {cc_at['d']} f32, blocks "
               f"{cc_at['blocks']}, closed_form",
         "gemma3_12b_causal_f32_ms": g32["cuda_core_ms"],
+        "quickstart_causal_s4104_ms":
+            at_cf["quickstart causal S 4104"]["cuda_core_ms"],
         "parity_cases": attn_cases["flash_attention"]})
     # the decode kernels (one routine, two front ends): timed at the
     # quickstart serving shapes, with the gemma3-12b decode shape beside
@@ -2341,6 +2448,10 @@ def main():
         "local_ms": tc["gemma3-12b local"]["ms"],
         "local_bound_ms": tc["gemma3-12b local"]["bound_ms"],
         "local_library_ms": tc["gemma3-12b local"]["library_ms"],
+        "cuda_core_ms": tc_at["cuda_core_ms"],
+        # the ragged instantiation: S 4104 in 72-token blocks
+        "ragged": {key: tc["gemma3-12b causal S 4104"][key]
+                   for key in ragged_keys + ("max_row_rel_err",)},
         "parity_cases": attn_cases["flash_attention_tc"]})
     # B4's f32 prefill on the tensor cores (3xTF32): the quickstart rows of
     # the attn phase (counted there), timed at closed_form
@@ -2364,6 +2475,9 @@ def main():
         "gemma3_12b": {key: g32[key] for key in (
             "ms", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err")},
+        # the ragged instantiation: S 4104 in 72-token blocks
+        "ragged": {key: at_cf["quickstart causal S 4104"][key]
+                   for key in ragged_keys},
         "parity_cases": attn_cases["flash_attention_tc_f32"]})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({

@@ -88,4 +88,29 @@ __device__ __forceinline__ void copy_rows(T* dst, int dst_stride,
            src + (size_t)r * src_stride + c);
 }
 
+// copy_rows into a padded shared tile: `rows_pad` rows of `cols_pad`
+// values land, the rows at or past `rows` and the pieces at or past
+// `cols` as zeros (src-size 0, nothing read past the tile).  A stale
+// slot row would not do: p = 0 times a stale NaN or Inf is NaN.
+template <typename T>
+__device__ __forceinline__ void copy_rows_zfill(T* dst, int dst_stride,
+                                                const T* src, int src_stride,
+                                                int rows, int rows_pad,
+                                                int cols, int cols_pad) {
+  constexpr int kShift = sizeof(T) == 2 ? 3 : 2;
+  static_assert(sizeof(T) << kShift == 16, "16-byte pieces of bf16 or f32");
+  const int chunks = cols_pad >> kShift;
+  const int sweep = blockDim.x / chunks;
+  const int r0 = threadIdx.x / chunks;
+  const int piece = threadIdx.x - r0 * chunks;
+  const int c = piece << kShift;
+  const bool col_live = c < cols;
+  if (r0 >= sweep) return;
+  for (int r = r0; r < rows_pad; r += sweep) {
+    const bool live = col_live && r < rows;
+    copy16_zfill(dst + (size_t)r * dst_stride + c,
+                 live ? src + (size_t)r * src_stride + c : src, live);
+  }
+}
+
 }  // namespace ring

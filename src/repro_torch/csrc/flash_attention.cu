@@ -14,12 +14,11 @@
 //
 // The wrapper (kernels/flash_attention.py flash_route) sends single-token
 // kind "full" calls with seq_pos (decode) to flash_decode_kernel, bf16
-// calls with block_q, block_k and d multiples of 16 to flash_fwd_tc_kernel,
-// f32 calls with block_q and block_k multiples of 16 and d a multiple of 8
-// up to 256 to flash_fwd_tf32_kernel (q, k, v 16-byte aligned for both),
-// and every other call (blocks that are not multiples of 16, misaligned
-// views, block_q = 1 calls that are not decode, bf16 with d % 16 != 0) to
-// flash_fwd_kernel.
+// calls with d a multiple of 8 to flash_fwd_tc_kernel, f32 calls with d a
+// multiple of 4 up to 256 to flash_fwd_tf32_kernel (any block_q and
+// block_k for both; q, k, v copied to 16-byte aligned buffers first where
+// a view starts off a boundary), and what is left (head rows that are not
+// 16-byte multiples) to flash_fwd_kernel.
 //
 // Every flash kernel: one CTA per (batch * head, query-block row), as the
 // gpu structure's grid; an in-kernel loop over that row's key blocks
@@ -146,8 +145,24 @@
 // it: every warp splits the K and V values it reads (the same sub-tile
 // in all 8 warps), so integer and f32 work issues beside each product.
 //
-// flash_fwd_kernel (small or odd blocks, misaligned views) is simple rather
-// than fast: scores and p v run in f32 on the CUDA cores, 8 warps own 4
+// Ragged calls (block_q or block_k not a multiple of 16, block_q = 1
+// without seq_pos, bf16 d % 16 != 0, f32 d % 8 != 0) run the tile paths'
+// kRagged instantiations, padded inside the kernel: a 72-row query block
+// is five warps of 16 rows, its last 8 rows zero-filled and never
+// stored; a row's key blocks run as one sequence of keys (run_keys: the
+// domains' rows are runs of blocks, and their K/V rows are consecutive)
+// in sub-tiles that cross block boundaries, so only the run's last
+// sub-tile is short: its keys past the run are zero-filled
+// (copy_rows_zfill: src-size 0, nothing read past the tile; a stale V
+// row would give p = 0 times NaN) and masked to -inf; the columns from d
+// to the k-step (16 bf16, 8 f32) are zero-filled.  Sub-tiles that cross
+// blocks round in another order than per-block ones: every lowering walks
+// the same run, so they stay bit-equal to each other.  The exact and
+// 16-multiple instantiations keep their code (run-time bounds in a loop
+// cost the f32 path its unrolling).
+//
+// flash_fwd_kernel (head rows that are not 16-byte multiples) is simple
+// rather than fast: scores and p v run in f32 on the CUDA cores, 8 warps own 4
 // query rows each per pass, K/V tiles are staged through shared memory
 // 32 keys at a time (so d = 256 with 128-key tiles fits: 32 q rows + 32
 // keys + 32 x 128 scores of f32 = 97 KB), and a query block of more than
@@ -266,6 +281,18 @@ __device__ __forceinline__ int next_live(const AttnParams& p, int kb, int qb,
   return kb;
 }
 
+// The keys of row qb's live key blocks, first (next_live(start)) to last,
+// as one run: the attention domains' rows are runs of blocks (bounding
+// skips to the same ones), and the run's K/V rows are consecutive.
+__device__ __forceinline__ int run_keys(const AttnParams& p, int start,
+                                        int end, int qb) {
+  const int first = next_live(p, start, qb, end);
+  int last = end;
+  if (p.lowering == kBounding)
+    while (last >= first && !in_domain(p, last, qb)) --last;
+  return last >= first ? (last - first + 1) * p.block_k : 0;
+}
+
 // The CTA's query-block row qb and (batch * head) bh: query-block rows
 // outermost (longest first under causal and local), then (batch, head),
 // so the q heads of one kv head are neighbours.
@@ -282,14 +309,22 @@ __device__ __forceinline__ void cta_tile(const AttnParams& p, int& qb,
 // -1e30, not -inf, by key_live, tested per element only in a warp-uniform
 // branch for the sub-tiles where the warp's rows meet a mask edge
 // (keys_all_live), so the other steps do no more than scale.  kScale: the
-// live scores are also multiplied by p.scale.
-template <int kNt, bool kScale>
+// live scores are also multiplied by p.scale.  kRagged: a sub-tile whose
+// nkeys live keys are fewer than the `covered` keys the loops read takes
+// the edge branch too, and its padded keys (index nkeys and up, whose
+// positions would alias the next key block's) become -inf, not -1e30:
+// exp(-inf - m) is 0 whatever m is, so a padded key adds nothing to l
+// even in a row whose every key is masked (where a -1e30 key has p = 1
+// and counts), and the sub-tile sums as if it held nkeys keys.
+template <int kNt, bool kScale, bool kRagged = false>
 __device__ __forceinline__ void mask_scores(const AttnParams& p,
                                             float (&s)[kNt][4], int qrow,
                                             int g, int t4, int kmin,
-                                            int nkeys, int pos) {
+                                            int nkeys, int pos,
+                                            int covered = 0) {
   const int qmin = qrow - g;
-  if (keys_all_live(p, qmin, qmin + kTcRowsPerWarp - 1, kmin,
+  if ((!kRagged || nkeys == covered) &&
+      keys_all_live(p, qmin, qmin + kTcRowsPerWarp - 1, kmin,
                     kmin + nkeys - 1, pos)) {
     if (kScale) {
 #pragma unroll
@@ -301,11 +336,13 @@ __device__ __forceinline__ void mask_scores(const AttnParams& p,
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[nt][e] = key_live(p, qrow + (e >> 1) * 8,
-                            kmin + 2 * t4 + nt * 8 + (e & 1), pos)
+      for (int e = 0; e < 4; ++e) {
+        const int kidx = 2 * t4 + nt * 8 + (e & 1);
+        s[nt][e] = kRagged && kidx >= nkeys ? -INFINITY
+                   : key_live(p, qrow + (e >> 1) * 8, kmin + kidx, pos)
                        ? (kScale ? __fmul_rn(s[nt][e], p.scale) : s[nt][e])
                        : kNegInf;
+      }
   }
 }
 
@@ -365,27 +402,33 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
 // out = O / l (l == 0 -> 1) for rows `row` and row + 8 of the pass, lane
 // (g, t4) writing columns 8 ot + 2 t4 and + 1 of each output n-tile
 // below ncols (o: the query block's first row at the warp's first output
-// column; rows of d values).
-template <int kOt, typename T>
+// column; rows of d values).  kRagged: rows at or past `nrows` (the
+// padding of a query block that is not a multiple of 16) are not stored,
+// and the test is per column pair (f32 head dims of 4 mod 8).
+template <int kOt, bool kRagged = false, typename T>
 __device__ __forceinline__ void store_o(T* __restrict__ o, int row, int d,
                                         int ncols, int t4,
                                         const float (&acc)[kOt][4],
-                                        const float (&l)[2]) {
+                                        const float (&l)[2], int nrows = 0) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float lt = l[i];
     lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 1));
     lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 2));
     if (lt == 0.0f) lt = 1.0f;
+    if (kRagged && row + 8 * i >= nrows) continue;
     T* dst = o + (size_t)(row + 8 * i) * d + 2 * t4;
 #pragma unroll
     for (int ot = 0; ot < kOt; ++ot) {
-      if (ot * 8 < ncols)
+      if ((kRagged ? ot * 8 + 2 * t4 : ot * 8) < ncols)
         store_pair(dst + ot * 8, __fdiv_rn(acc[ot][2 * i], lt),
                    __fdiv_rn(acc[ot][2 * i + 1], lt));
     }
   }
 }
+
+// 16-row (and 16-key) granularity of the tile paths' ragged instantiations.
+constexpr __host__ __device__ int round16(int x) { return (x + 15) & ~15; }
 
 // ---------------------------------------------------------------------------
 // flash_fwd_tc_kernel: the bf16 tile path on the tensor cores
@@ -404,14 +447,21 @@ constexpr __host__ __device__ int tc_stages(int dt) {
 }
 __host__ __device__ inline size_t tc_smem_bytes(int d, int block_q) {
   const int dt = tc_dt(d);
-  const int rows = block_q < kTcRowsPerPass ? block_q : kTcRowsPerPass;
+  const int rows =
+      round16(block_q) < kTcRowsPerPass ? round16(block_q) : kTcRowsPerPass;
   return ((size_t)rows + (size_t)tc_stages(dt) * 2 * kTcSub) *
          (size_t)(dt + kTcPad) * sizeof(__nv_bfloat16);
 }
 
 // d <= 64 fits two CTAs per SM (at most 128 registers a thread, 74 KB of
 // shared memory each); wider heads run one CTA of up to 255 registers.
-template <int DT>
+// kRagged: block_q, block_k or d is not a multiple of 16 (d a multiple of
+// 8).  The instantiation pads inside the kernel: Q rows past the block and
+// K/V rows past the row's key run arrive zero-filled up to the next 16,
+// and so do the columns from d up to the 16-column k-step; padded keys are
+// masked (mask_scores) and padded rows never stored (store_o).  The other
+// instantiations keep their code.
+template <int DT, bool kRagged>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -427,7 +477,9 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* const sq = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* const skv =
-      sq + (size_t)min(p.block_q, kTcRowsPerPass) * kStride;
+      sq + (size_t)min(kRagged ? round16(p.block_q) : p.block_q,
+                       kTcRowsPerPass) *
+               kStride;
 
   int qb, bh;
   cta_tile(p, qb, bh);
@@ -438,6 +490,7 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int d = p.d, bk = p.block_k;
+  const int dpad = kRagged ? round16(d) : d;  // columns a shared row holds
   const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
   // ldmatrix row offsets of this lane: A (Q) tiles take matrices
@@ -449,22 +502,35 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
   const int k_row = (mi >> 1) * 8 + lrow, k_col = (mi & 1) * 8;
   const int v_row = (mi & 1) * 8 + lrow, v_col = (mi >> 1) * 8;
 
-  // the ring's step cursor: key block kb, sub-tile offset c within it
+  // the ring's step cursor: key block kb, sub-tile offset c within it;
+  // kRagged: the row's keys as one run (run_keys) from its first block,
+  // in sub-tiles that cross block boundaries, only the run's last one
+  // short
+  const int nrun = kRagged ? run_keys(p, start, end, qb) : 0;
+  const int span = kRagged ? nrun : bk;  // keys from the cursor's block on
   auto advance = [&](int& kb, int& c) {
     c += kTcSub;
-    if (c >= bk) {
+    if (!kRagged && c >= bk) {
       c = 0;
       kb = next_live(p, kb + 1, qb, end);
     }
   };
+  auto pending = [&](int kb, int c) { return kRagged ? c < nrun : kb <= end; };
   auto issue = [&](int kb, int c, int slot) {
     const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
     const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
-    const int rows = min(kTcSub, bk - c);
+    const int rows = min(kTcSub, span - c);
     __nv_bfloat16* dst = skv + (size_t)slot * kSlot;
-    ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
-    ring::copy_rows(dst + (size_t)kTcSub * kStride, kStride, v + t_off, d,
-                    rows, d);
+    if constexpr (kRagged) {
+      ring::copy_rows_zfill(dst, kStride, k + t_off, d, rows, round16(rows),
+                            d, dpad);
+      ring::copy_rows_zfill(dst + (size_t)kTcSub * kStride, kStride,
+                            v + t_off, d, rows, round16(rows), d, dpad);
+    } else {
+      ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
+      ring::copy_rows(dst + (size_t)kTcSub * kStride, kStride, v + t_off, d,
+                      rows, d);
+    }
   };
 
   for (int row0 = 0; row0 < p.block_q; row0 += kTcRowsPerPass) {
@@ -473,12 +539,17 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
     const int qrow = p.off + qb * p.block_q + row0 + warp * kTcRowsPerWarp + g;
 
     // prologue: Q rides in the first group, then stages - 1 ring steps
-    ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows, d);
+    if constexpr (kRagged)
+      ring::copy_rows_zfill(sq, kStride, q + q_off + (size_t)row0 * d, d,
+                            nrows, round16(nrows), d, dpad);
+    else
+      ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows,
+                      d);
     int kb_c = next_live(p, start, qb, end), c_c = 0;
     int kb_p = kb_c, c_p = 0;
 #pragma unroll
     for (int st = 0; st < kStages - 1; ++st) {
-      if (kb_p <= end) {
+      if (pending(kb_p, c_p)) {
         issue(kb_p, c_p, st);
         advance(kb_p, c_p);
       }
@@ -493,10 +564,10 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) acc[ot][e] = 0.0f;
 
     int slot = 0;
-    while (kb_c <= end) {
+    while (pending(kb_c, c_c)) {
       ring::wait<kStages - 2>();
       __syncthreads();  // slot `slot` landed; slot - 1 is free again
-      if (kb_p <= end) {
+      if (pending(kb_p, c_p)) {
         issue(kb_p, c_p, slot == 0 ? kStages - 1 : slot - 1);
         advance(kb_p, c_p);
       }
@@ -506,7 +577,8 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* sk = skv + (size_t)slot * kSlot;
         const __nv_bfloat16* sv = sk + (size_t)kTcSub * kStride;
         const __nv_bfloat16* sqw = sq + (size_t)warp * kTcRowsPerWarp * kStride;
-        const int nkeys = min(kTcSub, bk - c_c);  // a multiple of 16
+        // live keys of the sub-tile: a multiple of 16 unless kRagged
+        const int nkeys = min(kTcSub, span - c_c);
 
         // -- S = Q K^T: 16 rows x nkeys, f32 ---------------------------
         // each k-step loads its A and B fragments before its products, so
@@ -538,9 +610,12 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
         }
 
         // -- scale after the product, then the masks ---------------------
-        mask_scores<kNt, true>(p, s, qrow, g, t4, kb_c * bk + c_c, nkeys,
-                               pos);
-        softmax_step<kNt, kOt>(s, m, l, acc, nkeys);
+        mask_scores<kNt, true, kRagged>(p, s, qrow, g, t4, kb_c * bk + c_c,
+                                        nkeys, pos, round16(nkeys));
+        // every n-tile of the 16-key steps P V reads gets its p (padded
+        // keys 0)
+        softmax_step<kNt, kOt>(s, m, l, acc,
+                               kRagged ? round16(nkeys) : nkeys);
 
         // -- O += P V: P in bf16 from the score fragments (C -> A) -------
         // V fragments load four at a time ahead of their products
@@ -582,8 +657,8 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
 
     // -- out = O / l (l == 0 -> 1), rounded to bf16 -----------------------
     if (busy)
-      store_o<kOt>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d, d, t4,
-                   acc, l);
+      store_o<kOt, kRagged>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d,
+                            d, t4, acc, l, row0 + nrows);
   }
 }
 
@@ -625,7 +700,7 @@ constexpr __host__ __device__ int tf32_rows_per_pass(int dt) {
 __host__ __device__ inline size_t tf32_smem_bytes(int d, int block_q) {
   const int dt = tf32_dt(d);
   const int pass = tf32_rows_per_pass(dt);
-  const int rows = block_q < pass ? block_q : pass;
+  const int rows = round16(block_q) < pass ? round16(block_q) : pass;
   const size_t xchg = tf32_halves(dt) > 1
                           ? (size_t)(rows / kTcRowsPerWarp) * 2 * 32 *
                                 (tf32_sub(dt) / 2)
@@ -663,8 +738,13 @@ __device__ __forceinline__ void pair_sync(int id) {
 // memory each); wider heads run one CTA of up to 255 registers.  kExact:
 // d is DT and block_k a multiple of the sub-tile, so the head dim and the
 // keys of a sub-tile are compile-time and the tile loops run without
-// branches.
-template <int DT, bool kExact>
+// branches.  kRagged: block_q or block_k is not a multiple of 16 or d not
+// a multiple of 8 (d a multiple of 4), padded as the bf16 kernel's
+// kRagged, columns up to the 8-column k-step.  Both (d is DT, the blocks
+// ragged): every sub-tile runs the exact loops over kSub keys, the run's
+// last one zero-filled up to kSub rows and its keys past the run masked
+// (a few wasted products a row, no run-time loop bound).
+template <int DT, bool kExact, bool kRagged>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -682,7 +762,7 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   constexpr size_t kSlot = (size_t)2 * kSub * kStride;  // K then V
   extern __shared__ __align__(16) unsigned char tf_smem[];
   float* const sq = reinterpret_cast<float*>(tf_smem);
-  const int qrows = min(p.block_q, kPass);
+  const int qrows = min(kRagged ? round16(p.block_q) : p.block_q, kPass);
   float* const skv = sq + (size_t)qrows * kStride;
   // each warp's partial scores (d = 256): lane-major, conflict-free
   float* const sx = skv + (size_t)kTfStages * kSlot;
@@ -698,6 +778,7 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   const int dof = half * kDw;  // this warp's first output dim
   const int g = lane >> 2, t4 = lane & 3;
   const int d = kExact ? DT : p.d, bk = p.block_k;
+  const int dpad = kRagged ? (d + 7) & ~7 : d;  // columns a shared row holds
   const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
   // ldmatrix row addresses of this lane (16-byte rows of 4 f32): Q's A
@@ -708,21 +789,32 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   const int k_row = (mi >> 1) * 8 + lrow, k_col = (mi & 1) * 4;
 
   // the ring's steps, as the bf16 kernel's
+  const int nrun = kRagged ? run_keys(p, start, end, qb) : 0;
+  const int span = kRagged ? nrun : bk;  // keys from the cursor's block on
   auto advance = [&](int& kb, int& c) {
     c += kSub;
-    if (c >= bk) {
+    if (!kRagged && c >= bk) {
       c = 0;
       kb = next_live(p, kb + 1, qb, end);
     }
   };
+  auto pending = [&](int kb, int c) { return kRagged ? c < nrun : kb <= end; };
   auto issue = [&](int kb, int c, int slot) {
     const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
     const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
-    const int rows = min(kSub, bk - c);
+    const int rows = min(kSub, span - c);
+    const int rows_pad = kExact ? kSub : round16(rows);  // rows the loops read
     float* dst = skv + (size_t)slot * kSlot;
-    ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
-    ring::copy_rows(dst + (size_t)kSub * kStride, kStride, v + t_off, d,
-                    rows, d);
+    if constexpr (kRagged) {
+      ring::copy_rows_zfill(dst, kStride, k + t_off, d, rows, rows_pad, d,
+                            dpad);
+      ring::copy_rows_zfill(dst + (size_t)kSub * kStride, kStride, v + t_off,
+                            d, rows, rows_pad, d, dpad);
+    } else {
+      ring::copy_rows(dst, kStride, k + t_off, d, rows, d);
+      ring::copy_rows(dst + (size_t)kSub * kStride, kStride, v + t_off, d,
+                      rows, d);
+    }
   };
 
   for (int row0 = 0; row0 < p.block_q; row0 += kPass) {
@@ -731,10 +823,15 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
     const int qrow = p.off + qb * p.block_q + row0 + rg * kTcRowsPerWarp + g;
 
     // prologue: Q and the first ring step in one group
-    ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows, d);
+    if constexpr (kRagged)
+      ring::copy_rows_zfill(sq, kStride, q + q_off + (size_t)row0 * d, d,
+                            nrows, round16(nrows), d, dpad);
+    else
+      ring::copy_rows(sq, kStride, q + q_off + (size_t)row0 * d, d, nrows,
+                      d);
     int kb_c = next_live(p, start, qb, end), c_c = 0;
     int kb_p = kb_c, c_p = 0;
-    if (kb_p <= end) {
+    if (pending(kb_p, c_p)) {
       issue(kb_p, c_p, 0);
       advance(kb_p, c_p);
     }
@@ -748,10 +845,10 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) acc[ot][e] = 0.0f;
 
     int slot = 0;
-    while (kb_c <= end) {
+    while (pending(kb_c, c_c)) {
       ring::wait<kTfStages - 2>();
       __syncthreads();  // slot `slot` landed; the other is free again
-      if (kb_p <= end) {
+      if (pending(kb_p, c_p)) {
         issue(kb_p, c_p, slot ^ 1);
         advance(kb_p, c_p);
       }
@@ -761,8 +858,10 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
         const float* sk = skv + (size_t)slot * kSlot;
         const float* sv = sk + (size_t)kSub * kStride;
         const float* sqw = sq + (size_t)rg * kTcRowsPerWarp * kStride;
-        // a multiple of 16
-        const int nkeys = kExact ? kSub : min(kSub, bk - c_c);
+        // keys of the run in the sub-tile (a multiple of 16 unless
+        // kRagged) and keys the loops cover
+        const int live = min(kSub, span - c_c);
+        const int nkeys = kExact ? kSub : live;
 
         // -- S = Q K^T: 16 rows x nkeys in 3xTF32, f32 sums --------------
         // over this warp's dims; Q is scaled in f32 before the split (as
@@ -820,8 +919,9 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
             }
         }
 
-        mask_scores<kNt, false>(p, s, qrow, g, t4, kb_c * bk + c_c, nkeys,
-                                pos);
+        mask_scores<kNt, false, kRagged>(p, s, qrow, g, t4, kb_c * bk + c_c,
+                                         kRagged ? live : nkeys, pos,
+                                         kExact ? kSub : round16(live));
         softmax_step<kNt, kOt>(s, m, l, acc, nkeys);
 
         // -- O += P V in 3xTF32, this warp's output dims -------------------
@@ -860,8 +960,8 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
     __syncthreads();  // every reader of sq and the ring is done
 
     if (busy)
-      store_o<kOt>(o + q_off + dof, row0 + rg * kTcRowsPerWarp + g, d,
-                   d - dof, t4, acc, l);
+      store_o<kOt, kRagged>(o + q_off + dof, row0 + rg * kTcRowsPerWarp + g,
+                            d, d - dof, t4, acc, l, row0 + nrows);
   }
 }
 
@@ -991,8 +1091,9 @@ int launch_flash(const AttnParams& p, const T* q, const T* k, const T* v,
 }
 
 // One tile-path kernel (flash_fwd_tc_kernel or flash_fwd_tf32_kernel) at
-// `bytes` of shared memory: `halves` warps per 16 query rows of a pass of
-// at most `pass` rows (at most 8 warps).
+// `bytes` of shared memory: `halves` warps per 16 query rows (a ragged
+// block's last 16 padded) of a pass of at most `pass` rows (at most 8
+// warps).
 template <typename T, typename K>
 int launch_tile_path(K kernel, size_t bytes, const AttnParams& p, const T* q,
                      const T* k, const T* v, const int* ext, const int* pos,
@@ -1000,7 +1101,7 @@ int launch_tile_path(K kernel, size_t bytes, const AttnParams& p, const T* q,
                      int halves = 1) {
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
-  const int rows = p.block_q < pass ? p.block_q : pass;
+  const int rows = round16(p.block_q) < pass ? round16(p.block_q) : pass;
   const int warps = rows / kTcRowsPerWarp * halves;
   const long long ctas = (long long)p.b * p.h * p.m_q;
   kernel<<<(unsigned)ctas, warps * 32, bytes, s>>>(p, q, k, v, ext, pos, o);
@@ -1097,38 +1198,54 @@ int flash(const long long* params, float scale, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tc kernel takes block_q, block_k and d multiples of 16, d <= 256.
+// A tile path's instantiation for its flags.
+template <int DT>
+auto tc_kernel(bool ragged) {
+  return ragged ? flash_fwd_tc_kernel<DT, true> : flash_fwd_tc_kernel<DT, false>;
+}
+template <int DT>
+auto tf32_kernel(bool exact, bool ragged) {
+  return exact ? (ragged ? flash_fwd_tf32_kernel<DT, true, true>
+                         : flash_fwd_tf32_kernel<DT, true, false>)
+               : (ragged ? flash_fwd_tf32_kernel<DT, false, true>
+                         : flash_fwd_tf32_kernel<DT, false, false>);
+}
+
+// The tile paths copy 16-byte pieces: q, k, v and o on 16-byte
+// boundaries, rows of a whole number of pieces.
+bool tile_aligned(const void* q, const void* k, const void* v,
+                  const void* o) {
+  return aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+}
+
+// The tc kernel takes any block_q and block_k and d a multiple of 8 up to
+// 256 (the ragged instantiation where one of the three is not a multiple
+// of 16).
 int flash_tc(const long long* params, float scale, const void* q,
              const void* k, const void* v, const int* ext, const int* pos,
              void* o, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
-  if (p.block_q % 16 || p.block_k % 16 || p.d % 16 || p.d > 256)
+  if (p.d % 8 || p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
   const auto *qq = static_cast<const __nv_bfloat16*>(q),
              *kk = static_cast<const __nv_bfloat16*>(k),
              *vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(o);
   const size_t bytes = tc_smem_bytes(p.d, p.block_q);
-  switch (tc_dt(p.d)) {
-    case 64:
-      return launch_tile_path(flash_fwd_tc_kernel<64>, bytes, p, qq, kk, vv,
-                              ext, pos, oo, s);
-    case 128:
-      return launch_tile_path(flash_fwd_tc_kernel<128>, bytes, p, qq, kk, vv,
-                              ext, pos, oo, s);
-    default:
-      return launch_tile_path(flash_fwd_tc_kernel<256>, bytes, p, qq, kk, vv,
-                              ext, pos, oo, s);
-  }
+  const bool ragged = p.block_q % 16 || p.block_k % 16 || p.d % 16;
+  auto kernel = tc_dt(p.d) == 64    ? tc_kernel<64>(ragged)
+                : tc_dt(p.d) == 128 ? tc_kernel<128>(ragged)
+                                    : tc_kernel<256>(ragged);
+  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s);
 }
 
-// The tf32 kernel takes block_q and block_k multiples of 16 and d a
-// multiple of 8, d <= 256.
+// The tf32 kernel takes any block_q and block_k and d a multiple of 4 up
+// to 256 (ragged where a block is not a multiple of 16 or d of 8).
 int flash_tf32(const long long* params, float scale, const void* q,
                const void* k, const void* v, const int* ext, const int* pos,
                void* o, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
-  if (p.block_q % 16 || p.block_k % 16 || p.d % 8 || p.d > 256)
+  if (p.d % 4 || p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
   const auto *qq = static_cast<const float*>(q),
              *kk = static_cast<const float*>(k),
@@ -1136,13 +1253,13 @@ int flash_tf32(const long long* params, float scale, const void* q,
   auto* oo = static_cast<float*>(o);
   const int dt = tf32_dt(p.d);
   const size_t bytes = tf32_smem_bytes(p.d, p.block_q);
-  const bool exact = p.d == dt && p.block_k % tf32_sub(dt) == 0;
-  auto kernel = dt == 64    ? (exact ? flash_fwd_tf32_kernel<64, true>
-                                     : flash_fwd_tf32_kernel<64, false>)
-                : dt == 128 ? (exact ? flash_fwd_tf32_kernel<128, true>
-                                     : flash_fwd_tf32_kernel<128, false>)
-                            : (exact ? flash_fwd_tf32_kernel<256, true>
-                                     : flash_fwd_tf32_kernel<256, false>);
+  const bool ragged = p.block_q % 16 || p.block_k % 16 || p.d % 8;
+  // ragged calls at d == dt pad their last sub-tile to a whole one
+  const bool exact =
+      p.d == dt && (ragged || p.block_k % tf32_sub(dt) == 0);
+  auto kernel = dt == 64    ? tf32_kernel<64>(exact, ragged)
+                : dt == 128 ? tf32_kernel<128>(exact, ragged)
+                            : tf32_kernel<256>(exact, ragged);
   return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s,
                           tf32_rows_per_pass(dt), tf32_halves(dt));
 }
@@ -1170,7 +1287,8 @@ int fa_forward_bf16(const long long* params, float scale, const void* q,
 }
 
 // The same on the tensor cores, bf16 only (flash_fwd_tc_kernel): params
-// as fa_forward_bf16, with block_q, block_k and d multiples of 16.
+// as fa_forward_bf16, with d a multiple of 8 and q, k, v, o on 16-byte
+// boundaries.
 int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
                        const void* k, const void* v, const int* ext,
                        const int* pos, void* o, void* stream) {
@@ -1179,8 +1297,8 @@ int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
 }
 
 // The same in f32 on the tensor cores (flash_fwd_tf32_kernel, 3xTF32):
-// params as fa_forward_f32, with block_q and block_k multiples of 16 and
-// d a multiple of 8 up to 256.
+// params as fa_forward_f32, with d a multiple of 4 up to 256 and q, k, v,
+// o on 16-byte boundaries.
 int fa_forward_tc_f32(const long long* params, float scale, const void* q,
                       const void* k, const void* v, const int* ext,
                       const int* pos, void* o, void* stream) {

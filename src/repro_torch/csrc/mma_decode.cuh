@@ -26,22 +26,23 @@
 //                   (column mu * k + c), B = the coords basis and, on
 //                   request, the slots basis (one more mma on the same A):
 //                   (bx, by) and the packed slot (sx, sy);
-//   fractal_nbrs    (B7b) A row j < 8 = neighbour j's base-m digit-pair
-//                   one-hots (column mu * m^2 + dy * m + dx) of its clamped
-//                   coords, B = the neighbour basis (pair match folded into
-//                   the slots basis, plus a match-count column): per
-//                   neighbour its slot and its matched-level count, a
-//                   member when the count is r_b; rows 8-15 idle;
-//   rows_chain_cta  (B7c) A row 0 = [t >= starts[rho]], row 1 = the
-//                   one-hot row [starts[rho] <= t < starts[rho + 1]],
-//                   B = (ones, diff): by = count - 1, bx = t + diff.  K is
-//                   the block-row count (2048 for the triangle at n = 2^16,
-//                   rho = 32: 128 k-steps), so the CTA's warps share the
-//                   k-steps and add their exact partials in shared memory
-//                   (the CA kernel's form);
-//   rows_chain_warp (B7c batched, the write and sum kernels) A rows 2j and
-//                   2j + 1 carry those two one-hots of step t + j * stride,
-//                   j < 8: one warp's chain decodes eight of its steps.
+//   fractal_chain_batch (B7a batched, the CA) A row j = the one-hots of
+//                   step t0 + j * stride, j < 16: one pass decodes sixteen
+//                   steps; digit mu of each step is found once, by lane mu
+//                   (multiply-high by ceil(2^64 / k^mu), no division), and
+//                   read by the lanes of its columns with a shuffle;
+//   fractal_nbrs_pair (B7b, the CA) A row j < 8 = neighbour j's base-m
+//                   digit-pair one-hots (column mu * m^2 + dy * m + dx) of
+//                   its clamped coords, rows 8-15 a second block's, B = the
+//                   neighbour basis (pair match folded into the slots basis,
+//                   plus a match-count column): per neighbour its slot and
+//                   its matched-level count, a member when the count is r_b;
+//   rows_chain_warp (B7c batched, every fractal kernel) A rows 2j and
+//                   2j + 1 carry [t_j >= starts[rho]] and the one-hot row
+//                   [starts[rho] <= t_j < starts[rho + 1]] of step t_j =
+//                   t + j * stride, j < 8, B = (ones, diff): by = count - 1,
+//                   bx = t_j + diff; one warp's chain decodes eight of its
+//                   steps over the block-row count K.
 //
 // What bounds them: latency.  A chain is a few to a few hundred dependent
 // mma.sync per grid step next to a tile of memory traffic; their tensor
@@ -96,19 +97,6 @@ __device__ __forceinline__ bool digit_hot(unsigned v, int base, int col,
   return (int)(v % (unsigned)base) == c;
 }
 
-// Is column `col` = mu * m^2 + dy * m + dx of the digit-pair one-hot row
-// of (x, y) set (dx, dy the mu-th base-m digits)?
-__device__ __forceinline__ bool pair_hot(unsigned x, unsigned y, int m,
-                                         int col, int ncols) {
-  if (col >= ncols) return false;
-  const int mm = m * m, mu = col / mm, pr = col - mu * mm;
-  for (int i = 0; i < mu; ++i) {
-    x /= (unsigned)m;
-    y /= (unsigned)m;
-  }
-  return (int)((y % (unsigned)m) * (unsigned)m + x % (unsigned)m) == pr;
-}
-
 // B7a: lambda of step t by the coords basis -> (bx, by), and with `slots`
 // the packed slot by the slots basis -> (sx, sy) (transposed under
 // p.swap, the odd-level coarsening).  Called by a whole warp; every lane
@@ -144,108 +132,38 @@ __device__ __forceinline__ void fractal_chain(const FracParams& p,
   }
 }
 
-// B7b: the storage origins of the 8 neighbour supertiles of scheduled
-// block (bx, by), into org[(dy + 1) * 3 + dx + 1] (-1 for an out-of-range
-// or non-member neighbour, whose cells are never read).  Called by a whole
-// warp: lanes 4j .. 4j + 3 work for neighbour j, lane 4j publishes it.
-__device__ __forceinline__ void fractal_nbrs(const FracParams& p,
-                                             const int* __restrict__ ops,
-                                             unsigned bx, unsigned by,
-                                             int lane, long long* org_row,
-                                             long long* org_col) {
-  const uint2* nfrag = reinterpret_cast<const uint2*>(ops) + 2 * p.mk * 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int ncols = p.r_b * p.m * p.m;
-  const long long x = (long long)bx + kNbrDx[g], y = (long long)by + kNbrDy[g];
-  const long long hi = (long long)p.nbx - 1;
-  const unsigned xc = (unsigned)(x < 0 ? 0 : (x > hi ? hi : x));
-  const unsigned yc = (unsigned)(y < 0 ? 0 : (y > hi ? hi : y));
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int ks = 0; ks < p.mk2; ++ks) {
-    const int c = ks * 16 + 2 * tq;
-    unsigned a[4];
-    a[0] = pack2(pair_hot(xc, yc, p.m, c, ncols),
-                 pair_hot(xc, yc, p.m, c + 1, ncols));
-    a[1] = 0u;  // rows 8-15 idle
-    a[2] = pack2(pair_hot(xc, yc, p.m, c + 8, ncols),
-                 pair_hot(xc, yc, p.m, c + 9, ncols));
-    a[3] = 0u;
-    __syncwarp();
-    mma_bf16(d, a, nfrag[ks * 32 + lane]);
-  }
-  // row g of D (this lane's neighbour): columns 2q, 2q + 1 in lane 4g + q
-  const int base = lane & ~3;
-  float v[7];
-#pragma unroll
-  for (int c = 0; c < 7; ++c)
-    v[c] = __shfl_sync(kFullMask, d[c & 1], base | (c >> 1));
-  unsigned sx = (unsigned)recombine(v[0], v[1], v[2]);
-  unsigned sy = (unsigned)recombine(v[3], v[4], v[5]);
-  if (p.swap) {
-    const unsigned tmp = sx;
-    sx = sy;
-    sy = tmp;
-  }
-  const bool ok = x >= 0 && y >= 0 && x <= hi && y <= hi &&
-                  (int)v[6] == p.r_b;
-  if (tq == 0) {
-    const int slot = (kNbrDy[g] + 1) * 3 + kNbrDx[g] + 1;
-    org_row[slot] = ok ? (long long)sy * p.th : -1;
-    org_col[slot] = ok ? (long long)sx * p.tw : -1;
-  }
+// ---------------------------------------------------------------------------
+// The CA's batched chains: digits without division, sixteen steps a pass
+// ---------------------------------------------------------------------------
+
+// Steps per batched fractal chain: B7a's 16 A rows, one a step.
+constexpr int kStepsBatch = 16;
+
+// ceil(2^32 / b) for 2 <= b <= 64: v / b == __umulhi(v, magic) for every
+// v < 2^26 (the error v (magic - 2^32 / b) / 2^32 stays below 1 / b).
+__host__ __device__ constexpr unsigned div_magic(unsigned b) {
+  return 0xffffffffu / b + 1u;
 }
 
-// B7c: step t of a row-major domain -> (bx, by).  Called by every thread
-// of the CTA (whole warps, from uniform control flow): warp w takes
-// k-steps w, w + nwarps, ...; the warps' recombined partials are exact
-// integers, added in shared memory.
-__device__ __forceinline__ void rows_chain_cta(const FracParams& p,
-                                               const int* __restrict__ ops,
-                                               long long t, unsigned& bx,
-                                               unsigned& by) {
-  __shared__ int part[2 * 32];
-  const int* starts = ops;
-  const uint2* frag = reinterpret_cast<const uint2*>(ops + p.mk * 16 + 2);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nwarps = (blockDim.x * blockDim.y) >> 5;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int ks = warp; ks < p.mk; ks += nwarps) {
-    unsigned a[4] = {0u, 0u, 0u, 0u};
-    if (g < 2) {  // row 0: t >= starts[rho]; row 1: t's own row
-      const int c = ks * 16 + 2 * tq;
-      bool h[4];
-      const int cols[4] = {c, c + 1, c + 8, c + 9};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ge = t >= (long long)starts[cols[e]];
-        h[e] = g == 0 ? ge : ge && t < (long long)starts[cols[e] + 1];
-      }
-      a[0] = pack2(h[0], h[1]);
-      a[2] = pack2(h[2], h[3]);
-    }
-    __syncwarp();
-    mma_bf16(d, a, frag[ks * 32 + lane]);
-  }
-  const int count = dout<0, 0>(d), diff = dout<1, 1>(d);
-  if (lane == 0) {
-    part[2 * warp] = count;
-    part[2 * warp + 1] = diff;
-  }
-  __syncthreads();
-  int c = 0, df = 0;
-  for (int w = 0; w < nwarps; ++w) {
-    c += part[2 * w];
-    df += part[2 * w + 1];
-  }
-  __syncthreads();  // part is reused by the next step
-  by = (unsigned)(c - 1);
-  bx = (unsigned)(t + df);
+// ceil(2^64 / b^mu) for the digit mu a lane holds (0 at mu = 0: the value
+// itself is its quotient): v / b^mu == __umul64hi(v, magic) for v < 2^24
+// and b^mu <= 2^28 (the error stays below 1 / b^mu).  Powers past 2^24
+// stop growing: no step or block index reaches them, so their digit is 0
+// either way.  Built once per CTA (pow_magics).
+__device__ __forceinline__ unsigned long long pow_magic(unsigned b, int mu) {
+  unsigned long long pw = 1;
+  for (int i = 0; i < mu && pw < (1ull << 24); ++i) pw *= b;
+  return mu == 0 ? 0ull : ~0ull / pw + 1ull;
 }
 
-// Steps per batched row chain: A's 16 rows, two per step.
-constexpr int kRowsBatch = 8;
+// Digit mu of v < 2^24 in base b (2 <= b <= 16), from lane mu's power
+// magic and b's division magic: no division.
+__device__ __forceinline__ unsigned lane_digit(unsigned v,
+                                               unsigned long long pmagic,
+                                               unsigned b, unsigned bmagic) {
+  const unsigned q = pmagic ? (unsigned)__umul64hi(v, pmagic) : v;
+  return q - __umulhi(q, bmagic) * b;
+}
 
 // Element (row, col) of the warp's D tile, each lane naming its own row
 // and col: lane 4 * (row % 8) + col / 2 holds it in register
@@ -260,6 +178,143 @@ __device__ __forceinline__ float dget_at(const float d[4], int row, int col) {
   const bool hi = row >= 8, odd = col & 1;
   return hi ? (odd ? r3 : r2) : (odd ? r1 : r0);
 }
+
+// Output w of D row `row`, each lane naming its own row: columns 3w ..
+// 3w + 2.
+__device__ __forceinline__ int row_out(const float d[4], int row, int w) {
+  return recombine(dget_at(d, row, 3 * w), dget_at(d, row, 3 * w + 1),
+                   dget_at(d, row, 3 * w + 2));
+}
+
+// B7a batched: lambda of the steps t0 + j * stride, j < nlive <= 16 (A row
+// j; rows past nlive decode t0 and are not read), by the coords basis
+// (dc) and, with `slots`, the slots basis (ds): one pass of mk k-steps for
+// sixteen steps.  Lane mu finds digit mu (base k) of every step once,
+// steps 0-7 in the nibbles of lo and 8-15 in those of hi (k <= 16); the
+// lanes that build column mu * k + c read it with one shuffle a half.
+// pmagic: this lane's pow_magic(k, lane).  Step j's outputs: row_out of
+// row j.  Called by a whole warp.
+__device__ __forceinline__ void fractal_chain_batch(
+    const FracParams& p, const int* __restrict__ ops, unsigned t0,
+    unsigned stride, int nlive, int lane, unsigned long long pmagic,
+    bool slots, float (&dc)[4], float (&ds)[4]) {
+  const uint2* cfrag = reinterpret_cast<const uint2*>(ops);
+  const uint2* sfrag = cfrag + p.mk * 32;
+  const unsigned k = (unsigned)p.k, kmagic = div_magic(k);
+  const int g = lane >> 2, tq = lane & 3, ncols = p.r_b * p.k;
+  unsigned lo = 0, hi = 0;
+#pragma unroll
+  for (int j = 0; j < kStepsBatch; ++j) {
+    const unsigned t = j < nlive ? t0 + (unsigned)j * stride : t0;
+    const unsigned dg = lane_digit(t, pmagic, k, kmagic);
+    if (j < 8)
+      lo |= dg << (4 * j);
+    else
+      hi |= dg << (4 * (j - 8));
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dc[e] = ds[e] = 0.f;
+  for (int ks = 0; ks < p.mk; ++ks) {
+    // columns c, c + 1 (A registers 0 and 1) and c + 8, c + 9 (2 and 3)
+    // of rows g (lo) and g + 8 (hi)
+    const int c = ks * 16 + 2 * tq;
+    bool hg[4], h8[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned col = (unsigned)(c + (e & 1) + (e >> 1) * 8);
+      const unsigned mu = __umulhi(col, kmagic), cd = col - mu * k;
+      const unsigned wl = __shfl_sync(kFullMask, lo, mu & 31);
+      const unsigned wh = __shfl_sync(kFullMask, hi, mu & 31);
+      const bool live = (int)col < ncols;
+      hg[e] = live && (wl >> (4 * g) & 15u) == cd;
+      h8[e] = live && (wh >> (4 * g) & 15u) == cd;
+    }
+    const unsigned a[4] = {pack2(hg[0], hg[1]), pack2(h8[0], h8[1]),
+                           pack2(hg[2], hg[3]), pack2(h8[2], h8[3])};
+    __syncwarp();
+    mma_bf16(dc, a, cfrag[ks * 32 + lane]);
+    if (slots) mma_bf16(ds, a, sfrag[ks * 32 + lane]);
+  }
+}
+
+// B7b for two steps at once: the packed slots of the 8 neighbour
+// supertiles of block (bxa, bya) (A rows 0-7) and of (bxb, byb) (rows
+// 8-15), by the neighbour basis (the pair match folded into the slots
+// basis, plus a match-count column).  Lane mu holds the base-m digits mu
+// of a block's clamped columns bx - 1, bx, bx + 1 (3 bits each, m <= 8)
+// and rows by - 1 .. by + 1 (bits 9 on): 18 bits a block, one shuffle a
+// block per column mu * m^2 + dy * m + dx.  Lane (g, tq) returns
+// neighbour g (kNbrDx/Dy[g]) of both blocks: its slot (sx, sy), swapped
+// under p.swap, and whether it is in range and a member (match count
+// r_b).  pmagic: this lane's pow_magic(m, lane).  Called by a whole warp.
+__device__ __forceinline__ void fractal_nbrs_pair(
+    const FracParams& p, const int* __restrict__ ops, unsigned bxa,
+    unsigned bya, unsigned bxb, unsigned byb, int lane,
+    unsigned long long pmagic, unsigned& sxa, unsigned& sya, bool& oka,
+    unsigned& sxb, unsigned& syb, bool& okb) {
+  const uint2* nfrag = reinterpret_cast<const uint2*>(ops) + 2 * p.mk * 32;
+  const unsigned m = (unsigned)p.m, mm = m * m;
+  const unsigned mmagic = div_magic(m), mmmagic = div_magic(mm);
+  const int g = lane >> 2, tq = lane & 3, ncols = p.r_b * p.m * p.m;
+  const long long hi = (long long)p.nbx - 1;
+  auto word = [&](unsigned bx, unsigned by) {
+    unsigned w = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const long long x = (long long)bx + i - 1, y = (long long)by + i - 1;
+      const unsigned xc = (unsigned)(x < 0 ? 0 : (x > hi ? hi : x));
+      const unsigned yc = (unsigned)(y < 0 ? 0 : (y > hi ? hi : y));
+      w |= lane_digit(xc, pmagic, m, mmagic) << (3 * i);
+      w |= lane_digit(yc, pmagic, m, mmagic) << (9 + 3 * i);
+    }
+    return w;
+  };
+  const unsigned wa = word(bxa, bya), wb = word(bxb, byb);
+  // this lane's neighbour: the fields of its column and row offsets
+  const int sxs = 3 * (kNbrDx[g] + 1), sys = 9 + 3 * (kNbrDy[g] + 1);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int ks = 0; ks < p.mk2; ++ks) {
+    const int c = ks * 16 + 2 * tq;
+    bool ha[4], hb[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned col = (unsigned)(c + (e & 1) + (e >> 1) * 8);
+      const unsigned mu = __umulhi(col, mmmagic), pr = col - mu * mm;
+      const unsigned dy = __umulhi(pr, mmagic), dx = pr - dy * m;
+      const unsigned ua = __shfl_sync(kFullMask, wa, mu & 31);
+      const unsigned ub = __shfl_sync(kFullMask, wb, mu & 31);
+      const bool live = (int)col < ncols;
+      ha[e] = live && (ua >> sxs & 7u) == dx && (ua >> sys & 7u) == dy;
+      hb[e] = live && (ub >> sxs & 7u) == dx && (ub >> sys & 7u) == dy;
+    }
+    const unsigned a[4] = {pack2(ha[0], ha[1]), pack2(hb[0], hb[1]),
+                           pack2(ha[2], ha[3]), pack2(hb[2], hb[3])};
+    __syncwarp();
+    mma_bf16(d, a, nfrag[ks * 32 + lane]);
+  }
+  // rows g and g + 8 of D: columns 2q, 2q + 1 in lane 4g + q
+  const int base = lane & ~3;
+  float va[7], vb[7];
+#pragma unroll
+  for (int c = 0; c < 7; ++c) {
+    va[c] = __shfl_sync(kFullMask, d[c & 1], base | (c >> 1));
+    vb[c] = __shfl_sync(kFullMask, d[2 | (c & 1)], base | (c >> 1));
+  }
+  auto out = [&](const float (&v)[7], unsigned bx, unsigned by,
+                 unsigned& sx, unsigned& sy, bool& ok) {
+    const unsigned wx = (unsigned)recombine(v[0], v[1], v[2]);
+    const unsigned wy = (unsigned)recombine(v[3], v[4], v[5]);
+    sx = p.swap ? wy : wx;
+    sy = p.swap ? wx : wy;
+    const long long x = (long long)bx + kNbrDx[g], y = (long long)by + kNbrDy[g];
+    ok = x >= 0 && y >= 0 && x <= hi && y <= hi && (int)v[6] == p.r_b;
+  };
+  out(va, bxa, bya, sxa, sya, oka);
+  out(vb, bxb, byb, sxb, syb, okb);
+}
+
+// Steps per batched row chain: A's 16 rows, two per step.
+constexpr int kRowsBatch = 8;
 
 // B7c batched: the steps t_j = t + j * stride, j < nlive <= kRowsBatch, of
 // a row-major domain -> (bx, by) of step lane % 8, in every lane.  A row

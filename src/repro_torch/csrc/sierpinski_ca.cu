@@ -41,10 +41,17 @@
 //     stages = 1 gathers, waits and computes;
 //   * a step's block, its nine supertile origins and its place in the
 //     ring are resolved one ring step ahead by warp 0, one origin a lane
-//     (lambda^-1 in registers, the LUT row's columns under prefetch_lut,
-//     the B7a/B7b chains under mma); a row-major domain's mma row chain
-//     (B7c, rows_chain_cta) is shared by all warps at that same point of
-//     the loop, where the CTA is converged;
+//     (lambda^-1 in registers, the LUT row's columns under prefetch_lut);
+//   * under mma the chains are latency, a few dependent mma.sync each, so
+//     the CTA resolves sixteen of its steps at a time, once every sixteen
+//     ring steps (a ring of S + 16 entries): one B7a pass decodes all
+//     sixteen (A row j: step j's digit one-hots, each digit found once by
+//     the lane of its position and shuffled to the lanes of its columns,
+//     by multiply-high, no division), then B7b two steps a pass (A rows
+//     8-15: the second step's neighbours), the eight passes spread over
+//     the warps; a row-major domain's B7c runs batched, eight steps a
+//     warp's chain (rows_chain_warp, no CTA barrier), and its origins a
+//     thread each;
 //   * the gather moves 16-byte pieces along fine-block rows: the working
 //     tile's column 0 sits at shared column pad = -h mod 4, so every fine
 //     block of a row starts on a piece boundary in both memories (block
@@ -120,15 +127,23 @@ struct CaArgs {
 };
 
 // One ring entry: a step the CTA will compute (t < 0: past its last),
-// its scheduled block and the storage origins of its nine supertiles
-// (compact storage; -1 for a fractal neighbour that is out of range or
-// not a member, whose cells are never read), also as linear offsets.
+// its scheduled block and the storage origins of its nine supertiles as
+// linear offsets row * pitch + col (compact storage; a fractal neighbour
+// that is out of range or not a member has row = col = -1 and its cells
+// are never read; embedded: the own block's in every slot).
 struct Entry {
   long long t;
   unsigned bx, by;
-  long long org_row[kOriginSlots], org_col[kOriginSlots];
-  long long org_off[kOriginSlots];  // row * pitch + col (embedded: own only)
+  long long org_off[kOriginSlots];
 };
+
+// Ring entries beyond the `stages` slots: the mma lowering resolves its
+// steps kStepsBatch at a time (one chain pass for sixteen steps), so its
+// ring holds S + kStepsBatch entries; the others resolve one step a ring
+// step, S + 1 entries.
+__host__ __device__ inline int ring_entries(bool mma, int stages) {
+  return stages + (mma ? kStepsBatch : 1);
+}
 
 // log2 of x when x is a power of two, else -1.
 __host__ __device__ inline int pow2_shift(int x) {
@@ -258,13 +273,17 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 unsigned char* __restrict__ scratch,
                 long long scratch_per_cta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = ca.stages, E = S + 1;
+  const int S = ca.stages, E = ring_entries(kMma, S);
   const int s = p.coarsen, nfine = p.nfine, block = p.block;
-  // the ring's entries and the CTA's tables (shared memory)
+  // the ring's entries and the CTA's tables (shared memory); under mma on
+  // a fractal, each lane's digit magics (pow_magic of k, then of m)
   Entry* const ent = reinterpret_cast<Entry*>(smem);
-  long long* const gtab = reinterpret_cast<long long*>(ent + E);  // s * s
-  long long* const sdst = gtab + s * s;                           // nfine
-  int* const ssrc = reinterpret_cast<int*>(sdst + nfine);         // nfine
+  unsigned long long* const dmag =
+      reinterpret_cast<unsigned long long*>(ent + E);       // 64 under mma
+  long long* const gtab =
+      reinterpret_cast<long long*>(dmag + (kMma ? 64 : 0));  // s * s
+  long long* const sdst = gtab + s * s;                       // nfine
+  int* const ssrc = reinterpret_cast<int*>(sdst + nfine);     // nfine
   // the tiles (S slots, then the ping-pong buffer) and the masks
   unsigned char* const base =
       kShared ? smem + ca.meta_bytes
@@ -298,89 +317,155 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
     sdst[q] = (long long)(q / p.bw) * block * pitch +
               (long long)(q % p.bw) * block;
   }
+  if constexpr (kMma && kDom == kFractalDom) {
+    if (tid < 64)
+      dmag[tid] = pow_magic((unsigned)(tid < 32 ? p.k : p.m), tid & 31);
+  }
 
-  // -- resolve: the CTA's next step into ring entry k % E (warp 0; under
-  //    a row-major domain's mma chain the whole CTA, converged) ----------
+  // -- resolve: the CTA's next step into ring entry k % E (warp 0), or
+  //    under mma the entries k .. k + 15 in one batch (the whole CTA,
+  //    converged) ----------------------------------------------------------
   long long cursor = blockIdx.x;
-  // warp 0, converged: the origins as linear offsets (embedded: the own
-  // block's, for the store)
-  auto finish = [&](Entry& e, unsigned bx, unsigned by) {
-    __syncwarp();
+  // warp 0, converged: lanes < 9 hold the origins of their slot (compact),
+  // stored as linear offsets (embedded: the own block's, for the store)
+  auto finish = [&](Entry& e, unsigned bx, unsigned by, long long row,
+                    long long col) {
     if (lane < kOriginSlots) {
-      const long long row = compact ? e.org_row[lane] : (long long)by * p.span;
-      const long long col = compact ? e.org_col[lane] : (long long)bx * p.span;
+      if (!compact) {
+        row = (long long)by * p.span;
+        col = (long long)bx * p.span;
+      }
       e.org_off[lane] = row * pitch + col;
     }
   };
   auto resolve = [&](int k) {
+    if (warp != 0) return;
     Entry& e = ent[k % E];
-    if constexpr (kMma && kDom == kGenericDom) {
-      const long long t = cursor;  // the same in every thread
-      cursor += gridDim.x;
-      unsigned bx = 0, by = 0;
-      if (t < p.steps) rows_chain_cta(p, ops, t, bx, by);
+    long long t = -1;
+    unsigned bx = 0, by = 0;
+    // bounding: 32 of the CTA's steps a test, the first member kept
+    const long long batch = p.lowering == kBounding ? 32 : 1;
+    while (cursor < p.steps) {
+      const long long c =
+          cursor + (batch > 1 ? (long long)lane * gridDim.x : 0);
+      unsigned cx = 0, cy = 0;
+      const bool ok = c < p.steps && decode_step<kDom>(p, lut, c, cx, cy);
+      const unsigned bal = __ballot_sync(kFullMask, ok);
+      if (bal) {
+        const int src_lane = __ffs(bal) - 1;
+        t = __shfl_sync(kFullMask, c, src_lane);
+        bx = __shfl_sync(kFullMask, cx, src_lane);
+        by = __shfl_sync(kFullMask, cy, src_lane);
+        cursor = t + gridDim.x;
+        break;
+      }
+      cursor += batch * gridDim.x;
+    }
+    long long row = 0, col = 0;
+    if (t >= 0 && compact && lane < kOriginSlots) {
+      if constexpr (kDom == kFractalDom)
+        fractal_origin(p, lut, t, bx, by, lane, row, col);
+      else
+        generic_origin_at(p, lut, t, bx, by, lane, row, col);
+    }
+    if (lane == 0) {
+      e.t = t;
+      e.bx = bx;
+      e.by = by;
+    }
+    finish(e, bx, by, row, col);
+  };
+  // mma: the CTA's steps blockIdx.x + j G of entries j = k0 .. k0 + 15
+  // (k0 a multiple of 16), decoded by one pass of a chain -- B7a for the
+  // fractals (warp 0, sixteen steps a pass), B7c for the row-major domains
+  // (warps 0 and 1, eight steps each) -- then, under compact storage and
+  // after a CTA barrier, their neighbour origins: B7b two steps a pass,
+  // the pairs spread over the warps, or a row-major domain's origins a
+  // thread each.
+  auto resolve_batch = [&](int k0) {
+    const long long t0 = blockIdx.x + (long long)k0 * gridDim.x;
+    const int nlive =
+        t0 >= p.steps
+            ? 0
+            : (int)min((long long)kStepsBatch,
+                       (p.steps - t0 + gridDim.x - 1) / gridDim.x);
+    auto put = [&](int j, unsigned bx, unsigned by) {
+      Entry& e = ent[(k0 + j) % E];
+      e.t = j < nlive ? t0 + (long long)j * gridDim.x : -1;
+      e.bx = bx;
+      e.by = by;
+      if (!compact) {
+        const long long off =
+            (long long)by * p.span * pitch + (long long)bx * p.span;
+        for (int o = 0; o < kOriginSlots; ++o) e.org_off[o] = off;
+      }
+      return &e;
+    };
+    if constexpr (kDom == kFractalDom) {
       if (warp == 0) {
-        if (t < p.steps && compact && lane < kOriginSlots)
-          generic_origin_at(p, lut, t, bx, by, lane, e.org_row[lane],
-                            e.org_col[lane]);
-        if (lane == 0) {
-          e.t = t < p.steps ? t : -1;
-          e.bx = bx;
-          e.by = by;
-        }
-        finish(e, bx, by);
-      }
-    } else if (warp == 0) {
-      long long t = -1;
-      unsigned bx = 0, by = 0;
-      if constexpr (kMma) {  // a fractal's B7a / B7b chains
-        if (cursor < p.steps) {
-          t = cursor;
-          unsigned sx = 0, sy = 0;
-          fractal_chain(p, ops, (unsigned)t, lane, compact, bx, by, sx, sy);
+        float dc[4], ds[4];
+        if (nlive > 0)
+          fractal_chain_batch(p, ops, (unsigned)t0, gridDim.x, nlive, lane,
+                              dmag[lane], compact, dc, ds);
+        const int j = lane & (kStepsBatch - 1);
+        unsigned bx = 0, by = 0, sx = 0, sy = 0;
+        if (nlive > 0) {
+          bx = (unsigned)row_out(dc, j, 0);
+          by = (unsigned)row_out(dc, j, 1);
           if (compact) {
-            if (lane == 0) {
-              e.org_row[4] = (long long)sy * p.th;
-              e.org_col[4] = (long long)sx * p.tw;
-            }
-            fractal_nbrs(p, ops, bx, by, lane, e.org_row, e.org_col);
+            const unsigned wx = (unsigned)row_out(ds, j, 0);
+            const unsigned wy = (unsigned)row_out(ds, j, 1);
+            sx = p.swap ? wy : wx;
+            sy = p.swap ? wx : wy;
           }
         }
-        cursor += gridDim.x;
-      } else {
-        // bounding: 32 of the CTA's steps a test, the first member kept
-        const long long batch = p.lowering == kBounding ? 32 : 1;
-        while (cursor < p.steps) {
-          const long long c =
-              cursor + (batch > 1 ? (long long)lane * gridDim.x : 0);
-          unsigned cx = 0, cy = 0;
-          const bool ok = c < p.steps && decode_step<kDom>(p, lut, c, cx, cy);
-          const unsigned bal = __ballot_sync(kFullMask, ok);
-          if (bal) {
-            const int src_lane = __ffs(bal) - 1;
-            t = __shfl_sync(kFullMask, c, src_lane);
-            bx = __shfl_sync(kFullMask, cx, src_lane);
-            by = __shfl_sync(kFullMask, cy, src_lane);
-            cursor = t + gridDim.x;
-            break;
-          }
-          cursor += batch * gridDim.x;
-        }
-        if (t >= 0 && compact && lane < kOriginSlots) {
-          if constexpr (kDom == kFractalDom)
-            fractal_origin(p, lut, t, bx, by, lane, e.org_row[lane],
-                           e.org_col[lane]);
-          else
-            generic_origin_at(p, lut, t, bx, by, lane, e.org_row[lane],
-                              e.org_col[lane]);
+        if (lane < kStepsBatch) {
+          Entry* e = put(lane, bx, by);
+          if (compact)
+            e->org_off[4] = (long long)sy * p.th * pitch + (long long)sx * p.tw;
         }
       }
-      if (lane == 0) {
-        e.t = t;
-        e.bx = bx;
-        e.by = by;
+      if (compact) {
+        __syncthreads();  // the batch's blocks are in the entries
+        for (int pr = warp; 2 * pr < nlive; pr += nwarps) {
+          Entry& ea = ent[(k0 + 2 * pr) % E];
+          Entry& eb = ent[(k0 + min(2 * pr + 1, nlive - 1)) % E];
+          unsigned sxa, sya, sxb, syb;
+          bool oka, okb;
+          fractal_nbrs_pair(p, ops, ea.bx, ea.by, eb.bx, eb.by, lane,
+                            dmag[32 + lane], sxa, sya, oka, sxb, syb, okb);
+          const int g = lane >> 2, tq = lane & 3;
+          const int slot = (kNbrDy[g] + 1) * 3 + kNbrDx[g] + 1;
+          if (tq == 0)
+            ea.org_off[slot] = oka ? (long long)sya * p.th * pitch +
+                                         (long long)sxa * p.tw
+                                   : -pitch - 1;
+          if (tq == 1 && 2 * pr + 1 < nlive)
+            eb.org_off[slot] = okb ? (long long)syb * p.th * pitch +
+                                         (long long)sxb * p.tw
+                                   : -pitch - 1;
+        }
       }
-      finish(e, bx, by);
+    } else {
+      if (warp < 2) {
+        const int j0 = warp * kRowsBatch;
+        const int nl = min(max(nlive - j0, 0), kRowsBatch);
+        unsigned bx = 0, by = 0;
+        if (nl > 0)
+          rows_chain_warp(p, ops, t0 + (long long)j0 * gridDim.x, gridDim.x,
+                          nl, lane, bx, by);
+        if (lane < kRowsBatch) put(j0 + lane, bx, by);
+      }
+      if (compact) {
+        __syncthreads();  // the batch's blocks are in the entries
+        for (int i = tid; i < nlive * kOriginSlots; i += nthreads) {
+          const int j = i / kOriginSlots, slot = i - j * kOriginSlots;
+          Entry& e = ent[(k0 + j) % E];
+          long long row, col;
+          generic_origin_at(p, lut, e.t, e.bx, e.by, slot, row, col);
+          e.org_off[slot] = row * pitch + col;
+        }
+      }
     }
   };
 
@@ -566,7 +651,12 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
   };
 
   // -- the ring: prologue, then one step per iteration -------------------
-  for (int k = 0; k < S; ++k) resolve(k);
+  if constexpr (kMma) {
+    __syncthreads();  // the digit magics are written
+    resolve_batch(0);  // S <= kStepsBatch entries are needed first
+  } else {
+    for (int k = 0; k < S; ++k) resolve(k);
+  }
   __syncthreads();  // the entries and tables are written
   for (int k = 0; k + 1 < S; ++k) {
     if (ent[k].t >= 0) gather(ent[k], k);
@@ -586,7 +676,13 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
       if (f.t >= 0) gather(f, (i + S - 1) % S);
       ring::commit();
     }
-    resolve(i + S);  // entry (i + S) % E held step i - 1, which is done
+    // entry (i + S) % E held step i - 1, which is done; a batch's entries
+    // (i + S .. i + S + 15) % E held steps i - 16 .. i - 1
+    if constexpr (kMma) {
+      if ((i + S) % kStepsBatch == 0) resolve_batch(i + S);
+    } else {
+      resolve(i + S);
+    }
     compute(e, i % S);
     if (S == 1) __syncthreads();  // the store read the slot before the
                                   // next gather refills it
@@ -600,7 +696,9 @@ struct CaGeom {
   int stride, ngr;
   long long tile_floats;
   long long meta_bytes(const FracParams& p, int stages) const {
-    const long long b = (long long)(stages + 1) * sizeof(Entry) +
+    const bool mma = p.lowering == kMma;
+    const long long b = (long long)ring_entries(mma, stages) * sizeof(Entry) +
+                        (mma ? 64 * 8 : 0) +
                         (long long)p.coarsen * p.coarsen * 8 +
                         (long long)p.nfine * 12;
     return (b + 15) / 16 * 16;

@@ -35,16 +35,15 @@ in split order in the same launch), so at ``block_k == page_size`` paged
 decode is bit-equal to the contiguous one.
 
 Four kernels compute ``flash_attention`` on the card, picked by
-:func:`flash_route` from the call's shape, dtype and alignment before
-any launch: ``flash_decode_kernel`` (``"decode"``: single-token
-``kind="full"`` calls with ``seq_pos``); on the tensor cores, with K/V
-streamed through a cp.async ring, ``flash_fwd_tc_kernel`` (``"tc"``:
-bf16 with block_q, block_k and the head dim multiples of 16) and
-``flash_fwd_tf32_kernel`` (``"tc_f32"``: f32 with block_q and block_k
-multiples of 16 and a head dim multiple of 8 up to 256, in 3xTF32); and
-``flash_fwd_kernel`` (``"cuda_core"``: every other call -- odd head dims,
-small blocks, misaligned views, block_q = 1 calls that are not decode --
-in f32 on the CUDA cores).
+:func:`flash_route` from the call's shape and dtype before any launch:
+``flash_decode_kernel`` (``"decode"``: single-token ``kind="full"``
+calls with ``seq_pos``); on the tensor cores, with K/V streamed through
+a cp.async ring and any block_q and block_k (padded to the next 16
+inside the kernel), ``flash_fwd_tc_kernel`` (``"tc"``: bf16 with a head
+dim multiple of 8) and ``flash_fwd_tf32_kernel`` (``"tc_f32"``: f32 with
+a head dim multiple of 4 up to 256, in 3xTF32), misaligned views copied
+to an aligned buffer first; and ``flash_fwd_kernel`` (``"cuda_core"``:
+head rows that are not 16-byte multiples, in f32 on the CUDA cores).
 
 Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
@@ -597,26 +596,29 @@ def _stream(device) -> int:
 TF32_MAX_HEAD_DIM = 256
 
 
-def flash_route(sched: FlashSchedule, dtype, aligned: bool = True) -> str:
-    """The flash kernel a launch takes, from shape, dtype and alignment
-    alone: ``"decode"`` (flash_decode_kernel) for single-token
-    ``kind="full"`` calls with seq_pos, whatever the dtype and alignment
-    (it loads 16-byte pieces where it can), so paged decode, which runs
-    the same routine, stays bit-equal to it; on the tensor cores when q,
-    k, v start on 16-byte boundaries (``aligned``: the tile paths copy
-    16-byte pieces) and block_q and block_k are multiples of 16:
-    ``"tc"`` (flash_fwd_tc_kernel) for bf16 with a head dim multiple of
-    16, ``"tc_f32"`` (flash_fwd_tf32_kernel, 3xTF32) for f32 with a head
-    dim multiple of 8 up to TF32_MAX_HEAD_DIM; ``"cuda_core"``
-    (flash_fwd_kernel) for every other call."""
+def flash_route(sched: FlashSchedule, dtype) -> str:
+    """The flash kernel a launch takes, from shape and dtype alone:
+    ``"decode"`` (flash_decode_kernel) for single-token ``kind="full"``
+    calls with seq_pos, whatever the dtype and alignment (it loads 16-byte
+    pieces where it can), so paged decode, which runs the same routine,
+    stays bit-equal to it; on the tensor cores, for any block_q and
+    block_k (a block that is not a multiple of 16 is padded to the next
+    16 inside the kernel, block_q = 1 without seq_pos included), when a
+    head row is a whole number of 16-byte pieces (the tile paths copy
+    such pieces): ``"tc"`` (flash_fwd_tc_kernel) for bf16 with a head dim
+    multiple of 8, ``"tc_f32"`` (flash_fwd_tf32_kernel, 3xTF32) for f32
+    with a head dim multiple of 4 up to TF32_MAX_HEAD_DIM; ``"cuda_core"``
+    (flash_fwd_kernel) for what is left: head rows that are not 16-byte
+    multiples (bf16 d % 8, f32 d % 4) and dtypes no tile path takes.  A
+    view that starts off a 16-byte boundary takes its route all the same:
+    :func:`flash_cuda` copies it to an aligned buffer first."""
     if sched.has_pos and sched.sq == 1 and sched.kind == "full":
         return "decode"
-    if aligned and sched.block_q % 16 == 0 and sched.block_k % 16 == 0:
-        if dtype == torch.bfloat16 and sched.d % 16 == 0:
-            return "tc"
-        if (dtype == torch.float32 and sched.d % 8 == 0
-                and sched.d <= TF32_MAX_HEAD_DIM):
-            return "tc_f32"
+    if dtype == torch.bfloat16 and sched.d % 8 == 0:
+        return "tc"
+    if (dtype == torch.float32 and sched.d % 4 == 0
+            and sched.d <= TF32_MAX_HEAD_DIM):
+        return "tc_f32"
     return "cuda_core"
 
 
@@ -647,11 +649,14 @@ def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
 def flash_cuda(q, k, v, sched: FlashSchedule,
                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the flash kernel :func:`flash_route` picks: (B, H, Sq, D) in
-    q's dtype.  Counts the CUDA-core kernel's launches; the others count
-    their own (:func:`decode_cuda`, :func:`flash_tc_cuda`,
-    :func:`flash_tc_f32_cuda`)."""
+    q's dtype.  A tile path's q, k or v that starts off a 16-byte boundary
+    is copied to an aligned buffer first.  Counts the CUDA-core kernel's
+    launches; the others count their own (:func:`decode_cuda`,
+    :func:`flash_tc_cuda`, :func:`flash_tc_f32_cuda`)."""
     _check_cuda("flash attention", q, k, v)
-    route = flash_route(sched, q.dtype, _aligned(q, k, v))
+    route = flash_route(sched, q.dtype)
+    if route in ("tc", "tc_f32"):
+        q, k, v = (t if _aligned(t) else t.clone() for t in (q, k, v))
     if route != "cuda_core":
         return _ROUTES[route](q, k, v, sched, pos)
     lib = _lib()
@@ -670,10 +675,11 @@ flash_cuda.launches = 0
 
 def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
     """Launch the tensor-core kernel of ``route`` ("tc" or "tc_f32") after
-    checking that :func:`flash_route` sends the call there (``takes``
-    says what it takes); returns the output."""
+    checking that :func:`flash_route` sends the call there and that q, k
+    and v start on 16-byte boundaries (``takes`` says what it takes);
+    returns the output."""
     _check_cuda("flash attention", q, k, v)
-    if flash_route(sched, q.dtype, _aligned(q, k, v)) != route:
+    if flash_route(sched, q.dtype) != route or not _aligned(q, k, v):
         raise ValueError(
             f"the {takes}, got {q.dtype}, blocks "
             f"{sched.block_q}/{sched.block_k}, head dim {sched.d}, "
@@ -691,13 +697,13 @@ def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
 
 def flash_tc_cuda(q, k, v, sched: FlashSchedule,
                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the bf16 tensor-core flash kernel (block_q, block_k and the
-    head dim multiples of 16, q, k and v 16-byte aligned, as
+    """Launch the bf16 tensor-core flash kernel (any block_q and block_k,
+    a head dim multiple of 8, q, k and v 16-byte aligned, as
     :func:`flash_route` sends them): (B, H, Sq, D) bf16."""
     out = _launch_tile_path(
         "tc", q, k, v, sched, pos,
-        "tensor-core flash kernel takes 16-byte aligned bf16 with block_q, "
-        "block_k and head dim multiples of 16")
+        "tensor-core flash kernel takes 16-byte aligned bf16 with a head "
+        "dim multiple of 8")
     if out.numel():
         flash_tc_cuda.launches += 1
     return out
@@ -708,15 +714,14 @@ flash_tc_cuda.launches = 0
 
 def flash_tc_f32_cuda(q, k, v, sched: FlashSchedule,
                       pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the f32 tensor-core flash kernel (3xTF32; block_q and
-    block_k multiples of 16, a head dim multiple of 8 up to
-    TF32_MAX_HEAD_DIM, q, k and v 16-byte aligned, as :func:`flash_route`
-    sends them): (B, H, Sq, D) f32."""
+    """Launch the f32 tensor-core flash kernel (3xTF32; any block_q and
+    block_k, a head dim multiple of 4 up to TF32_MAX_HEAD_DIM, q, k and v
+    16-byte aligned, as :func:`flash_route` sends them): (B, H, Sq, D)
+    f32."""
     out = _launch_tile_path(
         "tc_f32", q, k, v, sched, pos,
-        f"f32 tensor-core flash kernel takes 16-byte aligned f32 with "
-        f"block_q and block_k multiples of 16 and a head dim multiple of 8 "
-        f"up to {TF32_MAX_HEAD_DIM}")
+        f"f32 tensor-core flash kernel takes 16-byte aligned f32 with a "
+        f"head dim multiple of 4 up to {TF32_MAX_HEAD_DIM}")
     if out.numel():
         flash_tc_f32_cuda.launches += 1
     return out
@@ -904,7 +909,7 @@ def check_flash_against_plain(q, k, v, sched: FlashSchedule, pos=None):
     (max |err|, kernel output)."""
     got = flash_cuda(q, k, v, sched, pos)
     want = flash_attention_plain(q, k, v, sched, pos)
-    route = flash_route(sched, q.dtype, _aligned(q, k, v))
+    route = flash_route(sched, q.dtype)
     what = (f"flash ({route}) {sched.kind} "
             f"{sched.lowering} q {tuple(q.shape)} "
             f"k {tuple(k.shape)} blocks {sched.block_q}/{sched.block_k} "

@@ -10,7 +10,10 @@ index:
   resolves steps 0 .. S - 1 and issues 0 .. S - 2, one commit group
   each; iteration i issues step i + S - 1 (S = 1: step i itself), waits
   until at most S - 2 groups are pending and computes on slot i % S.
-  Copies land only when a wait retires their group;
+  Copies land only when a wait retires their group.  Under mma the
+  entries are S + 16 and resolved sixteen at a time (the batched
+  chains): the prologue resolves 0 .. 15, iteration i resolves i + S ..
+  i + S + 15 when i + S is a multiple of 16, never over a live entry;
 * the gather: per working row its fine-block row, offset and supertile
   row once; per piece (4 cells at pad = -h mod 4 when the block and the
   pitch are multiples of 4, else 1 cell) its fine block, a zero-filled
@@ -47,6 +50,7 @@ TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
 TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
 
 SCAN = 32     # steps a warp tests at a time under bounding
+BATCH = 16    # steps a batch of the mma chains resolves (kStepsBatch)
 PIECE = 4     # cells of a 16-byte copy
 ALPHA = 0.2
 
@@ -305,7 +309,9 @@ class Launch:
     # -- the CTA's ring ------------------------------------------------------
 
     def run_cta(self, c, rng):
-        S, E = self.S, self.S + 1
+        mma = self.plan.lowering == "mma"
+        S = self.S
+        E = S + (BATCH if mma else 1)
         size = self.wid * self.stride
         # shared memory starts out holding garbage
         tiles = rng.normal(size=(S + 1, size)).astype(np.float32)
@@ -330,7 +336,7 @@ class Launch:
                 for sl, idx, vals in pending.popleft():
                     tiles[sl, idx] = vals
 
-        for k in range(S):
+        for k in range(BATCH if mma else S):
             ent[k % E] = next(walk)
         for k in range(S - 1):
             if ent[k] >= 0:
@@ -351,9 +357,15 @@ class Launch:
                 if f >= 0:
                     issue(f, (i + S - 1) % S)
                 commit()
-            # the entry resolve overwrites held step i - 1, which is done
-            assert (i + S) % E not in {(i + j) % E for j in range(S)}
-            ent[(i + S) % E] = next(walk)
+            # the entries a resolve overwrites held steps that are done
+            live = {(i + j) % E for j in range(S)}
+            if not mma:
+                assert (i + S) % E not in live
+                ent[(i + S) % E] = next(walk)
+            elif (i + S) % BATCH == 0:
+                for j in range(BATCH):
+                    assert (i + S + j) % E not in live
+                    ent[(i + S + j) % E] = next(walk)
             sl = i % S
             self.events.append(("compute", t, sl))
             self.tiles_seen[t] = tiles[sl].copy()

@@ -432,18 +432,22 @@ def test_attention_entry_points_launch_the_kernels(dev):
 
 
 def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
-    # D 256 with 2048-key tiles needs more shared memory per CTA than the
-    # card's opt-in limit in the CUDA-core kernel (a block_q = 1 call that
-    # is not decode); its wrapper raises before launching.  The decode
-    # kernels stage no tile: the paged one takes 2048-key pages
+    # D 254 with 2048-key tiles needs more shared memory per CTA than the
+    # card's opt-in limit in the CUDA-core kernel (f32 rows of 254 values
+    # are no whole number of 16-byte pieces, so no tile path takes them);
+    # its wrapper raises before launching.  The tile paths stream any
+    # block_k in sub-tiles, and the decode kernels stage no tile: the
+    # paged one takes 2048-key pages
     FA.reset_launch_counts()
-    q = _randn((1, 1, 1, 256), 15, dev, torch.float32)
-    k = _randn((1, 1, 2048, 256), 16, dev, torch.float32)
-    pos = torch.tensor([2047], dtype=torch.int32, device=dev)
+    q = _randn((1, 1, 1, 254), 15, dev, torch.float32)
+    k = _randn((1, 1, 2048, 254), 16, dev, torch.float32)
     sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
                               block_k=2048)
+    assert FA.flash_route(sched, q.dtype) == "cuda_core"
     with pytest.raises(ValueError, match="shared memory"):
         FA.flash_cuda(q, k, k, sched)
+    q = _randn((1, 1, 1, 256), 15, dev, torch.float32)
+    pos = torch.tensor([2047], dtype=torch.int32, device=dev)
     pool = _randn((2, 2, 2048, 256), 17, dev, torch.float32)
     table = torch.tensor([[1]], dtype=torch.int32, device=dev)
     psched = FA.paged_schedule(q.shape, pool.shape, table.shape)
@@ -544,10 +548,11 @@ def test_flash_tc_routing_on_the_card(dev):
             q.shape, q.shape, block_q=64, block_k=64))
 
 
-def test_flash_misaligned_bf16_views_take_the_cuda_core_kernel(dev):
+def test_flash_misaligned_bf16_views_take_the_tc_kernel(dev):
     # the tc kernel copies 16-byte pieces: a contiguous bf16 view that
-    # starts 2 bytes past a boundary is routed to the CUDA-core kernel
-    # before any launch, and the tc entry point refuses it
+    # starts 2 bytes past a boundary keeps its route, flash_cuda copies it
+    # to an aligned buffer first, and the tc entry point refuses it as it
+    # is
     shape = (1, 2, 128, 64)
     n = 2 * 128 * 64
     base = _randn((3 * n + 1,), 31, dev, torch.bfloat16)
@@ -557,10 +562,12 @@ def test_flash_misaligned_bf16_views_take_the_cuda_core_kernel(dev):
                               block_k=64)
     assert FA.flash_route(sched, q.dtype) == "tc"
     FA.reset_launch_counts()
-    FA.check_flash_against_plain(q, k, v, sched)
-    assert FA.launch_counts() == {"flash_attention": 1,
+    _, out = FA.check_flash_against_plain(q, k, v, sched)
+    assert torch.equal(out, FA.flash_cuda(q.clone(), k.clone(), v.clone(),
+                                          sched))
+    assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_decode": 0,
-                                  "flash_attention_tc": 0,
+                                  "flash_attention_tc": 2,
                                   "flash_attention_tc_f32": 0,
                                   "paged_flash_attention": 0}
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -651,9 +658,10 @@ def test_flash_tc_f32_kernel_compact_kv_and_seq_pos(dev, grid_mode):
 
 
 def test_flash_tc_f32_routing_on_the_card(dev):
-    # f32 prefill up to head dim 256 takes the 3xTF32 kernel; 8-row
-    # blocks stay on the CUDA-core kernel and decode takes the split-K
-    # decode kernel, and the tf32 entry point refuses them (and bf16)
+    # f32 prefill up to head dim 256 takes the 3xTF32 kernel, 8-row
+    # blocks included; a head dim that is no multiple of 4 stays on the
+    # CUDA-core kernel, decode takes the split-K decode kernel, and the
+    # tf32 entry point refuses those (and bf16)
     torch.backends.cuda.matmul.allow_tf32 = False
     q = _randn((1, 2, 128, 128), 52, dev, torch.float32)
     FA.reset_launch_counts()
@@ -663,23 +671,26 @@ def test_flash_tc_f32_routing_on_the_card(dev):
                         block_k=64)
     ops.flash_attention(wide, wide, wide, kind="causal", block_q=8,
                         block_k=8)
+    odd = _randn((1, 2, 128, 62), 55, dev, torch.float32)
+    ops.flash_attention(odd, odd, odd, kind="causal", block_q=64,
+                        block_k=64)
     ops.flash_attention(q[:, :, :1].contiguous(), q, q, kind="full",
                         block_q=1, block_k=64, seq_pos=100)
     assert FA.launch_counts() == {"flash_attention": 1,
                                   "flash_attention_decode": 1,
                                   "flash_attention_tc": 0,
-                                  "flash_attention_tc_f32": 2,
+                                  "flash_attention_tc_f32": 3,
                                   "paged_flash_attention": 0}
-    for t, blk in ((wide, 8), (q.to(torch.bfloat16), 64)):
+    for t, blk in ((odd, 64), (q.to(torch.bfloat16), 64)):
         with pytest.raises(ValueError, match="f32 tensor-core"):
             FA.flash_tc_f32_cuda(t, t, t, FA.flash_schedule(
                 t.shape, t.shape, block_q=blk, block_k=blk))
 
 
-def test_flash_misaligned_f32_views_take_the_cuda_core_kernel(dev):
+def test_flash_misaligned_f32_views_take_the_tc_f32_kernel(dev):
     # a contiguous f32 view that starts 4 bytes past a 16-byte boundary
-    # is routed to the CUDA-core kernel before any launch, and the tf32
-    # entry point refuses it
+    # keeps its route, flash_cuda copies it to an aligned buffer first,
+    # and the tf32 entry point refuses it as it is
     torch.backends.cuda.matmul.allow_tf32 = False
     shape = (1, 2, 128, 64)
     n = 2 * 128 * 64
@@ -690,14 +701,134 @@ def test_flash_misaligned_f32_views_take_the_cuda_core_kernel(dev):
                               block_k=64)
     assert FA.flash_route(sched, q.dtype) == "tc_f32"
     FA.reset_launch_counts()
-    FA.check_flash_against_plain(q, k, v, sched)
-    assert FA.launch_counts() == {"flash_attention": 1,
+    _, out = FA.check_flash_against_plain(q, k, v, sched)
+    assert torch.equal(out, FA.flash_cuda(q.clone(), k.clone(), v.clone(),
+                                          sched))
+    assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
-                                  "flash_attention_tc_f32": 0,
+                                  "flash_attention_tc_f32": 2,
                                   "paged_flash_attention": 0}
     with pytest.raises(ValueError, match="16-byte aligned"):
         FA.flash_tc_f32_cuda(q, k, v, sched)
+
+
+# ---------------------------------------------------------------------------
+# ragged calls on the tile paths: blocks that are not multiples of 16,
+# block_q = 1 without seq_pos, head dims of 8 (bf16) or 4 (f32) mod 16
+# ---------------------------------------------------------------------------
+
+#: (kind, block_q, block_k, S, D): the kinds take square blocks but full
+RAGGED_CASES = [("causal", 72, 72, 288, 64), ("causal", 72, 72, 216, 256),
+                ("causal", 24, 24, 96, 40), ("causal", 8, 8, 64, 128),
+                ("causal", 1, 1, 24, 72), ("causal", 100, 100, 300, 64),
+                ("local", 40, 40, 240, 64), ("full", 24, 40, 120, 256),
+                ("full", 72, 16, 144, 136), ("full", 1, 64, 256, 64),
+                ("causal", 64, 64, 128, 200)]
+
+
+@pytest.mark.parametrize("kind,bq,bk,s,d", RAGGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_tile_paths_match_plain(dev, kind, bq, bk, s, d, dtype):
+    # every lowering within tolerance of the plain version (bf16 rows
+    # within ROW_RTOL) and bit-equal to the others, on a tile path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, hkv = 4, 2
+    sq = 1 if bq == 1 and kind == "full" else s
+    q = _randn((2, h, sq, d), 61, dev, dtype)
+    k = _randn((2, hkv, s, d), 62, dev, dtype)
+    v = _randn((2, hkv, s, d), 63, dev, dtype)
+    route = "tc" if dtype == torch.bfloat16 else "tc_f32"
+    FA.reset_launch_counts()
+    outs = []
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                  window=2 * bk if kind == "local" else 0,
+                                  block_q=bq, block_k=bk, grid_mode=gm)
+        assert FA.flash_route(sched, dtype) == route
+        outs.append(FA.check_flash_against_plain(q, k, v, sched)[1])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert FA.launch_counts()[FA.ROUTE_KERNELS[route]] == len(LOWERINGS)
+    assert FA.launch_counts()["flash_attention"] == 0
+
+
+def test_ragged_tile_paths_seq_pos_and_nan_past_the_block(dev):
+    # q, k and v end where NaN starts in their buffers: a 120-key run in
+    # 40-key blocks ends in a 56-key sub-tile, whose 8 padded rows (and the
+    # last query block's) lie past the tensors; they are zero-filled, never
+    # read
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def nan_tailed(shape, seed, dtype):
+        t = _randn(shape, seed, dev, dtype)
+        buf = torch.full((t.numel() + 4096,), float("nan"), dtype=dtype,
+                         device=dev)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(shape)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = nan_tailed((3, 4, 120, 64), 64, dtype)
+        k = nan_tailed((3, 2, 120, 64), 65, dtype)
+        v = nan_tailed((3, 2, 120, 64), 66, dtype)
+        sc = FA.flash_schedule(q.shape, k.shape, block_q=40, block_k=40)
+        assert torch.isfinite(FA.check_flash_against_plain(q, k, v, sc)[1]) \
+            .all()
+        for pos, win in ((100, 0), ([37, 119, 90], 0), ([37, 119, 90], 50)):
+            sp = FA.flash_schedule(q.shape, k.shape, kind="full", window=win,
+                                   block_q=40, block_k=40, has_pos=True)
+            out = FA.check_flash_against_plain(
+                q, k, v, sp, FA.seq_pos_vector(pos, 3, dev))[1]
+            assert torch.isfinite(out).all()
+
+
+#: (fractal, n, block): at least 16 steps a CTA on the persistent grid,
+#: so the batched chains resolve whole and short batches
+CA_MMA_CASES = [("sierpinski-gasket", 4096, 4), ("sierpinski-carpet", 729, 1),
+                ("vicsek-cross", 2187, 1)]
+
+
+@pytest.mark.parametrize("fractal,n,block", CA_MMA_CASES)
+@pytest.mark.parametrize("storage", ["compact", "embedded"])
+def test_ca_mma_bit_equal_to_closed_form_at_every_depth(dev, fractal, n,
+                                                        block, storage):
+    emb, packed = _packed(fractal, n, block, n + 7, dev, binary=True)
+    a = packed if storage == "compact" else emb
+    for fuse in (1, 3):
+        outs = {}
+        for gm in ("closed_form", "mma"):
+            plan, n_, blk = TC.prepare_run(a, torch.zeros_like(a), block=block,
+                                           grid_mode=gm, fractal=fractal,
+                                           storage=storage, n=n)
+            p = plan.launch_params(n_, blk, dev)
+            h = TC.effective_fuse(fuse, fuse, blk, 1)
+            for st in (1, 2, 3):
+                outs[gm, st] = TC.ca_cuda(a, torch.zeros_like(a), p, h, h,
+                                          "parity", 0.2, st)
+        assert p.steps > 16 * TC.ring_geometry(p, h, 1)[1]
+        for key, got in outs.items():
+            assert torch.equal(got, outs["closed_form", 1]), (fuse, key)
+
+
+@pytest.mark.parametrize("storage", ["compact", "embedded"])
+def test_ca_mma_row_chain_bit_equal_to_closed_form(dev, storage):
+    from repro_torch.core.domain import TriangularDomain
+    dom, block = TriangularDomain(600), 4
+    lay = compact_layout(dom)
+    shape = lay.array_shape(block) if storage == "compact" \
+        else lay.embedded_shape(block)
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randint(0, 2, shape, generator=g, device=dev).float()
+    outs = {}
+    for gm in ("closed_form", "mma"):
+        plan, n, blk = TC.prepare_run(a, torch.zeros_like(a), block=block,
+                                      grid_mode=gm, storage=storage,
+                                      domain=dom)
+        p = plan.launch_params(n, blk, dev)
+        for st in (1, 2, 3):
+            outs[gm, st] = TC.ca_cuda(a, torch.zeros_like(a), p, 2, 2,
+                                      "parity", 0.2, st)
+    assert p.steps > 16 * TC.ring_geometry(p, 2, 1)[1]
+    for key, got in outs.items():
+        assert torch.equal(got, outs["closed_form", 1]), key
 
 
 # ---------------------------------------------------------------------------

@@ -438,12 +438,11 @@ def test_flash_route_sends_decode_to_the_split_kernel():
                                           block_q=1, block_k=64,
                                           has_pos=True)
                 assert FA.flash_route(sched, dtype) == "decode"
-                assert FA.flash_route(sched, dtype, aligned=False) == \
-                    "decode"
-    # block_q = 1 without seq_pos is not decode: the CUDA-core kernel
+    # block_q = 1 without seq_pos is not decode: the 3xTF32 tile path,
+    # its query block padded to 16 rows
     sched = FA.flash_schedule((2, 4, 1, 64), (2, 4, 256, 64), kind="full",
                               block_q=1, block_k=64)
-    assert FA.flash_route(sched, torch.float32) == "cuda_core"
+    assert FA.flash_route(sched, torch.float32) == "tc_f32"
     assert FA.ROUTE_KERNELS["decode"] == "flash_attention_decode"
     assert FA.KERNELS["flash_attention_decode"] is FA.decode_cuda
     assert FA.DECODE_SPLIT_KEYS == SPLIT_KEYS

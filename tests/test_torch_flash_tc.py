@@ -320,11 +320,14 @@ def test_row_check_fails_a_stale_sub_tile_inside_the_elementwise_tolerance():
                                           block_k=48), "tc"),
     (torch.bfloat16, (1, 2, 1024, 64), dict(block_q=256, block_k=256), "tc"),
     (torch.float32, (1, 2, 256, 64), dict(), "tc_f32"),         # 3xTF32
-    (torch.bfloat16, (1, 2, 256, 40), dict(), "cuda_core"),      # d % 16
+    (torch.bfloat16, (1, 2, 256, 40), dict(), "tc"),             # d % 16 = 8
     (torch.bfloat16, (1, 2, 64, 64), dict(kind="full", block_q=8,
-                                          block_k=8), "cuda_core"),
+                                          block_k=8), "tc"),
     (torch.bfloat16, (1, 2, 96, 64), dict(kind="full", block_q=24,
-                                          block_k=24), "cuda_core"),
+                                          block_k=24), "tc"),
+    (torch.bfloat16, (1, 2, 1, 64), dict(kind="full", block_q=1,
+                                         block_k=64), "tc"),
+    (torch.bfloat16, (1, 2, 256, 36), dict(), "cuda_core"),      # d % 8
     (torch.float16, (1, 2, 256, 64), dict(), "cuda_core"),
 ])
 def test_flash_route_picks_the_tensor_core_kernel_by_rule(dtype, shape, kw,
@@ -350,14 +353,16 @@ def test_flash_route_keeps_decode_on_the_cuda_cores():
 
 def test_flash_route_sends_misaligned_tensors_to_the_cuda_cores():
     # the tc kernel copies 16-byte pieces: a bf16 view that starts off a
-    # 16-byte boundary takes the CUDA-core kernel, decided before launch
+    # 16-byte boundary keeps the tensor-core route, decided from shape and
+    # dtype alone before launch (flash_cuda copies such a view to an
+    # aligned buffer first, which _aligned detects)
     shape = (1, 2, 256, 64)
     sched = FA.flash_schedule(shape, shape)
     assert FA.flash_route(sched, torch.bfloat16) == "tc"
-    assert FA.flash_route(sched, torch.bfloat16, aligned=False) == "cuda_core"
     base = torch.zeros(1 + 2 * 256 * 64, dtype=torch.bfloat16)
     assert FA._aligned(base[:-1].view(shape))
     assert not FA._aligned(base[:-1].view(shape), base[1:].view(shape))
+    assert FA._aligned(base[1:].view(shape).clone())
 
 
 def test_cpu_tensors_run_the_plain_version_and_launch_nothing():

@@ -413,23 +413,30 @@ def test_dropping_the_lo_terms_fails_the_f32_tolerance(d):
     ((1, 2, 256, 256), dict(block_q=64, block_k=64), "tc_f32"),
     ((1, 2, 256, 136), dict(), "tc_f32"),                      # d > 128
     ((1, 2, 256, 264), dict(), "cuda_core"),                   # d > 256
-    ((1, 2, 256, 36), dict(), "cuda_core"),                    # d % 8
-    ((1, 2, 96, 64), dict(kind="full", block_q=24, block_k=24), "cuda_core"),
-    ((1, 2, 64, 64), dict(kind="full", block_q=8, block_k=8), "cuda_core"),
+    ((1, 2, 256, 36), dict(), "tc_f32"),                       # d % 8 = 4
+    ((1, 2, 96, 64), dict(kind="full", block_q=24, block_k=24), "tc_f32"),
+    ((1, 2, 64, 64), dict(kind="full", block_q=8, block_k=8), "tc_f32"),
+    ((1, 2, 256, 38), dict(), "cuda_core"),                    # d % 4
 ])
 def test_flash_route_sends_f32_prefill_to_the_tf32_kernel(shape, kw, route):
+    # the route follows shape and dtype alone: a misaligned view keeps it
+    # (flash_cuda copies it to an aligned buffer first)
     sched = FA.flash_schedule(shape, shape, **kw)
     assert FA.flash_route(sched, torch.float32) == route
-    assert FA.flash_route(sched, torch.float32, aligned=False) == "cuda_core"
 
 
 def test_f32_decode_and_misaligned_views_stay_on_the_cuda_cores():
+    # decode takes the split-K decode kernel on the CUDA cores; a
+    # misaligned f32 view is detected (flash_cuda then copies it to an
+    # aligned buffer for the 3xTF32 kernel)
     sched = FA.flash_schedule((4, 16, 1, 64), (4, 8, 1664, 64), kind="full",
                               block_q=1, block_k=128, has_pos=True)
     assert FA.flash_route(sched, torch.float32) == "decode"
     shape = (1, 2, 256, 64)
     base = torch.zeros(1 + 2 * 256 * 64, dtype=torch.float32)
     assert not FA._aligned(base[1:].view(shape))
+    assert FA.flash_route(FA.flash_schedule(shape, shape),
+                          torch.float32) == "tc_f32"
     assert FA.ROUTE_KERNELS["tc_f32"] == "flash_attention_tc_f32"
     assert FA.KERNELS["flash_attention_tc_f32"] is FA.flash_tc_f32_cuda
 

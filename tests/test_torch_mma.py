@@ -369,6 +369,242 @@ def test_device_chain_emulation_matches_the_closed_forms(name):
                 assert (_dout(dn, j, 0), _dout(dn, j, 1)) == (sx, sy)
 
 
+# ---------------------------------------------------------------------------
+# the CA's batched chains (csrc/mma_decode.cuh fractal_chain_batch and
+# fractal_nbrs_pair): digits found once by the lane of their position,
+# by multiply-high (no division), sixteen steps a B7a pass, two steps a
+# B7b pass
+# ---------------------------------------------------------------------------
+
+STEPS_BATCH = 16  # kStepsBatch: B7a's A rows, one a step
+
+
+def _div_magic(b):
+    """div_magic: ceil(2^32 / b)."""
+    return 0xFFFFFFFF // b + 1
+
+
+def _pow_magic(b, mu):
+    """pow_magic: ceil(2^64 / b^mu), the power capped once past 2^24; 0
+    at mu = 0."""
+    pw = 1
+    for _ in range(mu):
+        if pw >= 1 << 24:
+            break
+        pw *= b
+    return 0 if mu == 0 else ((1 << 64) - 1) // pw + 1
+
+
+def _lane_digit(v, pmagic, b, bmagic):
+    """lane_digit: digit mu of v in base b from two multiply-highs."""
+    q = (v * pmagic) >> 64 if pmagic else v
+    return q - ((q * bmagic) >> 32) * b
+
+
+def _a_rows(mk, hot):
+    """The 16 x 16 mk A of a batched chain: lane (g, tq) sets columns
+    c, c + 1, c + 8, c + 9 (c = 16 ks + 2 tq) of rows g and g + 8 (A
+    registers 0-3), ``hot(lane, col)`` -> (row g's bit, row g + 8's)."""
+    a = np.zeros((16, 16 * mk))
+    for ks in range(mk):
+        for lane in range(32):
+            g, tq = lane >> 2, lane & 3
+            for e in range(4):
+                col = ks * 16 + 2 * tq + (e & 1) + (e >> 1) * 8
+                a[g, col], a[g + 8, col] = hot(lane, col)
+    return a
+
+
+def _chain_batch(spec, r, frag, t0, stride, nlive):
+    """fractal_chain_batch: D (16 x 8) of the steps t0 + j stride, j <
+    nlive (rows past nlive decode t0).  Lane mu holds digit mu of every
+    step, steps 0-7 in lo's nibbles and 8-15 in hi's; a lane building
+    column mu * k + c reads lane mu's words (one shuffle each)."""
+    k = spec.k
+    kmag, ncols = _div_magic(k), r * k
+    ts = [t0 + j * stride if j < nlive else t0 for j in range(STEPS_BATCH)]
+    lo, hi = [0] * 32, [0] * 32
+    for lane in range(32):
+        pm = _pow_magic(k, lane)
+        for j, t in enumerate(ts):
+            dg = _lane_digit(t, pm, k, kmag)
+            assert 0 <= dg < 16
+            if j < 8:
+                lo[lane] |= dg << (4 * j)
+            else:
+                hi[lane] |= dg << (4 * (j - 8))
+
+    def hot(lane, col):
+        g = lane >> 2
+        mu = (col * kmag) >> 32
+        cd = col - mu * k
+        live = col < ncols
+        return (live and (lo[mu & 31] >> (4 * g) & 15) == cd,
+                live and (hi[mu & 31] >> (4 * g) & 15) == cd)
+    b = _b_from_fragments(frag)
+    return (_a_rows(frag.shape[0], hot) @ b.astype(np.float64)).astype(
+        np.float32)
+
+
+def _nbrs_pair(spec, r, nfrag, nb, blocks, swap):
+    """fractal_nbrs_pair: the 8 neighbours of blocks[0] (A rows 0-7) and
+    blocks[1] (rows 8-15).  Lane mu holds the base-m digits mu of a
+    block's clamped columns bx - 1 .. bx + 1 (3 bits each) and rows
+    by - 1 .. by + 1 (bits 9 on).  Returns per block and neighbour
+    (sx, sy, ok)."""
+    m = spec.m
+    mm, top = m * m, nb - 1
+    mmag, mmmag, ncols = _div_magic(m), _div_magic(mm), r * m * m
+
+    def word(lane, bx, by):
+        pm, w = _pow_magic(m, lane), 0
+        for i in range(3):
+            xc = min(max(bx + i - 1, 0), top)
+            yc = min(max(by + i - 1, 0), top)
+            w |= _lane_digit(xc, pm, m, mmag) << (3 * i)
+            w |= _lane_digit(yc, pm, m, mmag) << (9 + 3 * i)
+        return w
+    words = [[word(lane, *blk) for lane in range(32)] for blk in blocks]
+
+    def hot(lane, col):
+        g = lane >> 2
+        ndx, ndy = NBR8[g]
+        sxs, sys = 3 * (ndx + 1), 9 + 3 * (ndy + 1)
+        mu = (col * mmmag) >> 32
+        pr = col - mu * mm
+        dy = (pr * mmag) >> 32
+        dx = pr - dy * m
+        live = col < ncols
+        return tuple(live and (w[mu & 31] >> sxs & 7) == dx
+                     and (w[mu & 31] >> sys & 7) == dy for w in words)
+    b = _b_from_fragments(nfrag)
+    d = (_a_rows(nfrag.shape[0], hot) @ b.astype(np.float64)).astype(
+        np.float32)
+    out = []
+    for half, (bx, by) in enumerate(blocks):
+        for g, (ndx, ndy) in enumerate(NBR8):
+            row = 8 * half + g
+            wx, wy = _dout(d, row, 0), _dout(d, row, 1)
+            x, y = bx + ndx, by + ndy
+            ok = 0 <= x <= top and 0 <= y <= top and int(d[row, 6]) == r
+            out.append(((wy, wx) if swap else (wx, wy)) + (ok,))
+    return out
+
+
+#: kNbrDx / kNbrDy of csrc/fractal_common.cuh: neighbour j's offsets
+NBR8 = ((0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (1, -1), (-1, 1),
+        (1, 1))
+
+
+def _batched_decode(spec, r, ts_batches, swap):
+    """Run the batched chains over batches of (t0, stride, nlive): per
+    live step (bx, by, sx, sy) and its 8 neighbours' (sx, sy, ok), the
+    pairs of B7b taking steps 2 pr and 2 pr + 1 as the CA does."""
+    cfrag, sfrag, nfrag = TM.fractal_operands(spec, r)
+    nb = spec.m ** r
+    got = {}
+    for t0, stride, nlive in ts_batches:
+        dc = _chain_batch(spec, r, cfrag, t0, stride, nlive)
+        ds = _chain_batch(spec, r, sfrag, t0, stride, nlive)
+        blocks = []
+        for j in range(nlive):
+            wx, wy = _dout(ds, j, 0), _dout(ds, j, 1)
+            blocks.append((_dout(dc, j, 0), _dout(dc, j, 1)) +
+                          ((wy, wx) if swap else (wx, wy)))
+        for pr in range(0, nlive, 2):
+            pair = [blocks[pr][:2], blocks[min(pr + 1, nlive - 1)][:2]]
+            nbrs = _nbrs_pair(spec, r, nfrag, nb, pair, swap)
+            for half in range(2):
+                j = pr + half
+                if j < nlive:
+                    got[t0 + j * stride] = (blocks[j],
+                                            nbrs[8 * half:8 * half + 8])
+    return got
+
+
+def _jax_decode(js, name, r, ts, swap):
+    """The same from the JAX package's chains: decode_linear,
+    slots_of_linear and neighbor_slots."""
+    from repro.core.domain import make_fractal_domain as jdom
+    t = jnp.asarray(np.asarray(ts), jnp.int32)
+    bx, by = (np.asarray(a) for a in JM.decode_linear(js, r, t))
+    sx, sy = (np.asarray(a) for a in JM.slots_of_linear(js, r, t, swap))
+    dom = jdom(name, js.m ** r)
+    nbrs = [[np.asarray(a) for a in JM.neighbor_slots(
+        js, r, dom, jnp.asarray(bx), jnp.asarray(by), dx, dy, swap=swap)]
+        for dx, dy in NBR8]
+    return {int(t_): ((int(bx[i]), int(by[i]), int(sx[i]), int(sy[i])),
+                      [(int(n[0][i]), int(n[1][i]), bool(n[2][i]))
+                       for n in nbrs])
+            for i, t_ in enumerate(ts)}
+
+
+def _same_decode(got, want):
+    assert got.keys() == want.keys()
+    for t, (blk, nbrs) in want.items():
+        assert got[t][0] == blk, t
+        for (gx, gy, gok), (wx, wy, wok) in zip(got[t][1], nbrs):
+            assert gok == wok, t
+            if wok:  # an invalid neighbour's slot is never read
+                assert (gx, gy) == (wx, wy), t
+
+
+@pytest.mark.parametrize("base", range(2, 17))
+def test_lane_digits_need_no_division(base):
+    """digit mu of v < 2^24 from pow_magic / div_magic equals v //
+    base^mu % base at every lane, at the edges and at random values; the
+    column split col // k by div_magic too."""
+    rng = np.random.default_rng(base)
+    vs = [0, 1, base - 1, base, (1 << 24) - 1] + \
+        rng.integers(0, 1 << 24, 120).tolist()
+    bmag = _div_magic(base)
+    for mu in range(32):
+        pm = _pow_magic(base, mu)
+        for v in vs:
+            assert _lane_digit(v, pm, base, bmag) == v // base ** mu % base
+    for col in range(512):
+        assert (col * bmag) >> 32 == col // base
+    if base <= 8:  # the digit-pair column split by m^2
+        mag2 = _div_magic(base * base)
+        assert all((c * mag2) >> 32 == c // (base * base)
+                   for c in range(2048))
+
+
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("name", NAMES)
+def test_batched_chain_emulation_matches_the_jax_chains(name, swap):
+    """Every step of a small plan, walked as the CA's persistent CTAs
+    batch it (CTA c of G: steps c + j G, sixteen a B7a pass, B7b two
+    steps a pass), decodes to the JAX package's decode_linear /
+    slots_of_linear / neighbor_slots."""
+    js, ts = SPECS[name]
+    r = 3
+    steps = ts.k ** r
+    for ctas in (1, 5):
+        batches = []
+        for c in range(ctas):
+            own = len(range(c, steps, ctas))
+            for k0 in range(0, own, STEPS_BATCH):
+                batches.append((c + k0 * ctas, ctas,
+                                min(STEPS_BATCH, own - k0)))
+        got = _batched_decode(ts, r, batches, swap)
+        _same_decode(got, _jax_decode(js, name, r, range(steps), swap))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_batched_chain_emulation_exact_at_the_bound_edge(name):
+    """The last 48 steps at the deepest in-bound level (the largest
+    digits and coordinates the chains see), and a short last batch."""
+    js, ts = SPECS[name]
+    r = MAX_R[name]
+    steps = ts.k ** r
+    batches = [(steps - 45, 1, 16), (steps - 29, 1, 16), (steps - 13, 2, 7)]
+    got = _batched_decode(ts, r, batches, swap=r % 2 == 1)
+    want = _jax_decode(js, name, r, sorted(got), swap=r % 2 == 1)
+    _same_decode(got, want)
+    assert max(got) == steps - 1
+
+
 @pytest.mark.parametrize("name", ROW_DOMAINS)
 def test_device_row_chain_emulation_matches_the_closed_forms(name):
     """The row chain (B7c) of csrc/mma_decode.cuh, emulated, over the
