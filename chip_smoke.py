@@ -95,10 +95,12 @@ Phases, each printing its own lines:
              136 below its d 256 instantiation; the ragged calls on the
              tile paths: blocks of 8, 24 and 72, block_q = 1 without
              seq_pos, bf16 at D 40 and 72, f32 at D 36, D 256 at 72-token
-             blocks, misaligned views (copied to an aligned buffer); the
-             CUDA-core kernel takes head rows that are no whole number of
-             16-byte pieces (f32 D 62, bf16 D 60); counted per kernel,
-             each takes at least one case),
+             blocks, misaligned views (copied to an aligned buffer); head
+             rows that are no whole number of 16-byte pieces, copied in
+             8-, 4- or 2-byte pieces: f32 D 62 and 37, bf16 D 60, 37 and
+             250 at blocks of 64 and 72; counted per kernel, each takes at
+             least one case; no route takes the CUDA-core kernel, held to
+             its plain version by a direct launch per dtype),
              rectangular local with compact KV (both
              dtypes, bit-equal to embedded), seq_pos scalar / vector and
              full + window at block_q 1 (the split-K decode kernel) and,
@@ -112,12 +114,15 @@ Phases, each printing its own lines:
              B 4, f32: the 3xTF32 tensor-core kernel; causal at S 4104,
              a prompt length that is a multiple of 8 but not of 16, in
              57 blocks of 72: its ragged instantiation; causal S 4096 at
-             D 62: the CUDA-core kernel) and gemma3-12b (D 256 bf16:
-             causal S 4096, local window 1024 at S 8192, causal S 4104 in
-             72-token blocks: the bf16 tensor-core kernel; causal S 4096
-             in f32: the 3xTF32 kernel's d 256 form) under the four
-             lowerings, every tile-path row also timing the CUDA-core
-             kernel on the same inputs (uncounted):
+             D 62, rows of 248 bytes in 8-byte pieces: the same kernel,
+             also timed in its run-time-loop form) and gemma3-12b (D 256
+             bf16: causal S 4096, local window 1024 at S 8192, causal S
+             4104 in 72-token blocks: the bf16 tensor-core kernel; causal
+             S 4096 at D 250, rows of 500 bytes in 4-byte pieces: the
+             same; causal S 4096 in f32: the 3xTF32 kernel's d 256 form)
+             under the four lowerings, every row also timing the
+             CUDA-core kernel on the same inputs (launched directly, after
+             the counted run):
              counts set to 0, the entry point driven, counts read (each
              row's kernel launched once, the others not at all); kernel
              vs plain (bf16 rows also per row within ROW_RTOL: a fault in
@@ -125,7 +130,11 @@ Phases, each printing its own lines:
              2e-2), CUDA-event medians of the kernel, its plain version
              and scaled_dot_product_attention (a yardstick only, its
              device kernels named from a profiler trace); a summary line
-             per tensor-core kernel;
+             per tensor-core kernel; the clone flash_cuda makes of a view
+             that starts off a 16-byte boundary, timed at quickstart's and
+             gemma3-12b's shapes one element off; the causal rows over
+             head dims whose rows are copied in 16-, 8-, 4- and 2-byte
+             pieces (``[attn] dims``);
 11. serve -- launch counts set to 0, then Server.generate greedy on
              quickstart at full width (batch 8, prompt 128, 32 new,
              max_len 256) through the split-K decode kernel; counts read
@@ -149,23 +158,34 @@ Phases, each printing its own lines:
              scaled_dot_product_attention, each held to its plain version
              (gemma3-12b: window 1024 and none, paged bit-equal to the
              contiguous kernel at block_k 16);
-13. kernels line (B1-B5 with B4 as the CUDA-core flash kernel and the
-             split-K decode kernel flash_attention_decode, the mma chains
-             B7 (with the CA under mma at fuse 1 and 8 and on the
-             triangle), and B4's tensor-core tile paths flash_attention_tc
-             (bf16, with its ragged gemma3-12b S 4104 row) and
+13. kernels line (the kernels of the main paths: B1-B3, B4 as the
+             split-K decode kernel flash_attention_decode and the
+             tensor-core tile paths flash_attention_tc (bf16, with its
+             ragged gemma3-12b S 4104 row and its narrow D 250 row) and
              flash_attention_tc_f32 (f32, 3xTF32, with its gemma3-12b
-             D 256 row and its ragged quickstart S 4104 row)), then the
-             result line.
+             D 256 row, its ragged quickstart S 4104 row and its narrow
+             D 62 row), B5, the mma chains B7 (with the CA under mma at
+             fuse 1 and 8 and on the triangle); the CUDA-core kernel,
+             which no route takes, is not among them: its times sit
+             beside the tile paths' as cuda_core_ms), then the result
+             line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
-commit unpacked beside this script).  ``python3 chip_smoke.py
+commit unpacked beside this script); with ``--sass`` it also prints, for
+every flash kernel instantiation, the count of its SASS instructions and
+a hash of them (cuobjdump; addresses and encodings dropped), so a copy of
+this script run in an earlier tree's root shows which instantiations'
+code changed.  ``python3 chip_smoke.py
 --decode-only`` runs phases 1 and 2, then only the decode timings of
 phase 12, writes them to chiprun_out/chip_smoke.json and prints no result
 line: a copy of this script run from an earlier tree's root times that
 tree's kernels through the same entry points (flash_cuda, paged_cuda), so
-``--compare`` can pair them with this tree's full runs.
+``--compare`` can pair them with this tree's full runs.  ``python3
+chip_smoke.py --attn-only`` likewise runs phases 1 and 2, then only the
+attn rows of phase 10 and their head-dim sweep (for trees with this
+tree's flash entry points, e.g. two designs of a tile kernel side by
+side).
 ``python3 chip_smoke.py --compare CHANGE.json [...] --parent PARENT.json [...]`` reads the JSON of runs of
 two trees (written to chiprun_out/chip_smoke.json; runs taken in turns
 on one card) and prints every time the change moved outside 0.94-1.06x
@@ -336,6 +356,32 @@ def phase_build(_cuda):
             if "registers" in line or "spill" in line:
                 print(f"[build]   {entry}: {line.strip()}")
     return secs
+
+
+def phase_sass(_cuda, paths, lib="flash_attention"):
+    """[sass] lines: per kernel instantiation of library ``lib``, its
+    mangled name, the count of its SASS instructions and the first 16
+    hex digits of the sha256 of their text (cuobjdump -sass; addresses,
+    encodings and comments dropped, branch offsets kept)."""
+    import hashlib
+    import re
+    tool = Path(_cuda.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(paths[lib])],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            funcs[name] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if ins and name:
+            funcs[name].append(ins.group(1))
+    for name, ins in sorted(funcs.items()):
+        digest = hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16]
+        print(f"[sass] {lib} {name}: {len(ins)} instructions {digest}")
 
 
 def random_state(n, dtype, seed, integer, dev):
@@ -1331,9 +1377,10 @@ ATTN_DTYPES = (torch.float32, torch.bfloat16)
 #: attn: (name, B, H, Hkv, S, D, dtype, kind, window, block) at the widths
 #: of quickstart and gemma3-12b.  A prompt of 4104 tokens (a multiple of 8
 #: but not of 16) is split into 57 blocks of 72: the tile paths' ragged
-#: instantiations serve it.  A head dim of 62 f32 values (rows of 248
-#: bytes, no whole number of 16-byte pieces) is what the CUDA-core kernel
-#: still serves
+#: instantiations serve it.  Head rows that are no whole number of 16-byte
+#: pieces go the same way: 62 f32 values (248 bytes, 8-byte pieces) at
+#: quickstart's widths, 250 bf16 values (500 bytes, 4-byte pieces) at
+#: gemma3-12b's
 ATTN_TIMED = [("quickstart causal", 4, 12, 12, 4096, 64, torch.float32,
                "causal", 0, 128),
               ("quickstart causal S 4104", 4, 12, 12, 4104, 64,
@@ -1342,6 +1389,8 @@ ATTN_TIMED = [("quickstart causal", 4, 12, 12, 4096, 64, torch.float32,
                torch.float32, "causal", 0, 128),
               ("gemma3-12b causal", 1, 16, 8, 4096, 256, torch.bfloat16,
                "causal", 0, 128),
+              ("gemma3-12b causal D 250", 1, 16, 8, 4096, 250,
+               torch.bfloat16, "causal", 0, 128),
               ("gemma3-12b local", 1, 16, 8, 8192, 256, torch.bfloat16,
                "local", 1024, 128),
               ("gemma3-12b causal S 4104", 1, 16, 8, 4104, 256,
@@ -1458,8 +1507,10 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
     # f32 below the 3xTF32 kernel's d 256 instantiation (its inexact
     # form), then the ragged calls the tile paths take since they pad
     # inside the kernel -- blocks of 8, 24 and 72, block_q = 1 without
-    # seq_pos, head dims of 8 (bf16) or 4 (f32) mod 16, views off a
-    # 16-byte boundary -- and what the CUDA-core kernel still takes
+    # seq_pos, head dims of 8 (bf16) or 4 (f32) mod 16, head rows that
+    # are no whole number of 16-byte pieces (f32 D 62 and 37, bf16 D 60,
+    # 37 and 250: 8-, 4- and 2-byte pieces), views off a 16-byte
+    # boundary
     for d in (200, 136):
         for kind in ("causal", "full"):
             seed += 1
@@ -1477,7 +1528,10 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
             (64, 128, 40, "causal", both), (72, 216, 64, "causal", both),
             (72, 216, 256, "causal", both), (24, 72, 72, "local", both),
             (1, 64, 64, "full", both), (40, 120, 36, "causal", f32),
-            (64, 128, 62, "causal", f32), (64, 128, 60, "causal", bf16)):
+            (64, 128, 62, "causal", f32), (64, 128, 60, "causal", bf16),
+            (64, 128, 37, "causal", both), (72, 216, 37, "causal", both),
+            (72, 216, 62, "causal", f32), (72, 216, 60, "causal", bf16),
+            (64, 128, 250, "causal", bf16), (72, 216, 250, "causal", bf16)):
         for dtype in dtypes:
             seed += 1
             sq = 1 if blk == 1 else s
@@ -1508,17 +1562,32 @@ def phase_parity_attn(FA, LOWERINGS, pack_kv, P, dev):
                     ragged[FA.ROUTE_KERNELS[FA.flash_route(sched, dtype)]] \
                         += 1
                     flash_check(q, k, v, sched)
+    # the CUDA-core kernel, which no route takes, launched directly at the
+    # head dims it served last (f32 D 62, bf16 D 60)
+    for dtype, d in ((torch.float32, 62), (torch.bfloat16, 60)):
+        q, k, v = attn_inputs([(2, 8, 128, d), (2, 4, 128, d),
+                               (2, 4, 128, d)], dtype, 560 + d, dev)
+        sched = FA.flash_schedule(q.shape, k.shape, kind="causal",
+                                  block_q=64, block_k=64)
+        err["flash_attention"] = max(err["flash_attention"], FA._compare(
+            FA.flash_cuda_core(q, k, v, sched),
+            FA.flash_attention_plain(q, k, v, sched),
+            f"parity-attn flash_fwd_kernel (direct) D {d} {dtype}"))
+        cases["flash_attention"] += 1
     torch.cuda.synchronize()
-    check(ragged["flash_attention"] == 2 * len(LOWERINGS) and
+    check(ragged["flash_attention"] == 0 and
           ragged["flash_attention_tc"] > 0 and
           ragged["flash_attention_tc_f32"] > 0,
           f"the ragged cases took the wrong kernels: {ragged}")
     print(f"[parity-attn] f32 at D 200 / 136 (3xTF32, the inexact d 256 "
           f"form); ragged calls -- blocks 8 / 24 / 72, block_q 1 without "
           f"seq_pos, bf16 D 40 / 72, f32 D 36, D 256 at 72-token blocks, "
-          f"misaligned views copied to an aligned buffer -- on the tile "
-          f"paths, f32 D 62 and bf16 D 60 on the CUDA-core kernel: within "
-          f"tolerance, lowerings bit-equal; cases per kernel {ragged}")
+          f"misaligned views copied to an aligned buffer, head rows of no "
+          f"whole number of 16-byte pieces (f32 D 62 / 37, bf16 D 60 / 37 "
+          f"/ 250 at blocks 64 and 72) -- on the tile paths: within "
+          f"tolerance, lowerings bit-equal; cases per kernel {ragged}; the "
+          f"CUDA-core kernel launched directly at f32 D 62 and bf16 D 60: "
+          f"within tolerance")
     # rectangular local: queries are the last 256 of 1024 positions, the
     # compact K/V hold only the band's key-block support
     for dtype in ATTN_DTYPES:
@@ -1665,8 +1734,11 @@ def phase_attn(FA, LOWERINGS, dev):
     Then kernel vs plain (max |err| and the largest per-row relative
     error, bf16 held to FA.ROW_RTOL), and CUDA-event medians of the
     kernel, its plain version and scaled_dot_product_attention (whose
-    device kernels are named); rows of the 3xTF32 kernel also time the
-    CUDA-core kernel on the same inputs (``cuda_core_ms``, uncounted).
+    device kernels are named); every row also times the CUDA-core kernel,
+    which no route takes, on the same inputs (``cuda_core_ms``, launched
+    directly after the counted run), and narrow f32 rows whose head dim
+    pads up to the instantiation's the 3xTF32 kernel's run-time-loop form
+    (``runtime_loops_ms``) beside the exact loops the rule picks.
     Returns (rows, launches per kernel over the counted runs)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
@@ -1707,13 +1779,21 @@ def phase_attn(FA, LOWERINGS, dev):
                    "max_row_rel_err": FA.row_rel_err(out, plain),
                    "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
                    "plain_ms": plain_ms}
-            if route in ("tc", "tc_f32"):
-                # the CUDA-core kernel on the same inputs, through its C
-                # entry point (not a counted launch)
-                fn = FA._lib().fa_forward_f32 if dtype == torch.float32 \
-                    else FA._lib().fa_forward_bf16
-                row["cuda_core_ms"] = time_ms(lambda: FA._launch_flash(
-                    fn, q, k, v, sched, None, "flash attention kernel"), 5)
+            # the CUDA-core kernel on the same inputs, launched directly
+            # (after the counted run)
+            row["cuda_core_ms"] = time_ms(
+                lambda: FA.flash_cuda_core(q, k, v, sched), 5)
+            if route == "tc_f32" and d % 4 and (d + 7) // 8 * 8 in (
+                    64, 128, 256):
+                # the loop form the rule did not pick, on the same inputs
+                slow = FA.flash_tc_f32_cuda(q, k, v, sched,
+                                            exact_loops=False)
+                row["runtime_loops_max_abs_err"] = FA._compare(
+                    slow, plain, f"attn {name} {gm} run-time loops")
+                row["runtime_loops_ms"] = time_ms(
+                    lambda: FA.flash_tc_f32_cuda(q, k, v, sched,
+                                                 exact_loops=False), 5)
+                del slow
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             nops = 4 * d * b * h * needed_pairs(kind, s, window)
             row["bound_ms"], row["bound_by"], row["peak"] = attn_bound(
@@ -1740,9 +1820,8 @@ def phase_attn(FA, LOWERINGS, dev):
             print(f"[attn] {json.dumps(row)}")
         del q, k, v, plain, outs
     for r in rows:
-        check(r["kernel"] == ("cuda_core" if r["d"] % 4 else "tc" if
-                              r["dtype"] == str(torch.bfloat16) else
-                              "tc_f32"),
+        check(r["kernel"] == ("tc" if r["dtype"] == str(torch.bfloat16)
+                              else "tc_f32"),
               f"attn {r['case']}: routed to {r['kernel']}")
     tc_rows = [r for r in rows if r["kernel"] == "tc"]
     print(f"[attn] tc rows ({len(tc_rows)}): max |err| "
@@ -1757,13 +1836,97 @@ def phase_attn(FA, LOWERINGS, dev):
           f"{launches['flash_attention_tc_f32']}")
     for case in dict.fromkeys(r["case"] for r in tc_rows + f32_rows):
         cr = [r for r in tc_rows + f32_rows if r["case"] == case]
+        loops = (f", run-time loops {[r['runtime_loops_ms'] for r in cr]}"
+                 if "runtime_loops_ms" in cr[0] else "")
         print(f"[attn] {cr[0]['kernel']} {case} (D {cr[0]['d']}, blocks "
-              f"{cr[0]['blocks']}): ms {[r['ms'] for r in cr]} against the "
-              f"CUDA-core kernel's {[r['cuda_core_ms'] for r in cr]}, bound "
+              f"{cr[0]['blocks']}): ms {[r['ms'] for r in cr]}{loops} "
+              f"against the CUDA-core kernel's "
+              f"{[r['cuda_core_ms'] for r in cr]}, bound "
               f"{cr[0]['bound_ms']} ms ({cr[0]['peak']}), SDPA "
               f"{cr[0]['library_ms']} ms")
     print(f"[attn] launches of the counted entry-point runs: {launches}")
     return rows, launches
+
+
+#: attn_dims: head dims around the instantiations of the D 62 and D 250
+#: rows, by the piece their rows are copied in -- bf16 D 256 (16 bytes,
+#: the exact-width instantiation), 248 (16, ragged), 252 (8), 250 (4),
+#: 249 (2); f32 D 64 (16, exact), 60 (16, ragged), 62 (8), 63 (4) -- at
+#: the shapes of the gemma3-12b and quickstart causal rows
+DIM_SWEEP = [("gemma3-12b causal", 1, 16, 8, torch.bfloat16,
+              (256, 248, 252, 250, 249)),
+             ("quickstart causal", 4, 12, 12, torch.float32,
+              (64, 60, 62, 63))]
+
+
+def attn_dims(FA, dev, s=4096, block=128):
+    """The cost of narrow copy pieces: flash_attention (closed_form,
+    causal) over the head dims of DIM_SWEEP, each held to its plain
+    version and timed (CUDA-event medians) beside its bound."""
+    out = []
+    for name, b, h, hkv, dtype, dims in DIM_SWEEP:
+        for d in dims:
+            torch.cuda.empty_cache()
+            q, k, v = attn_inputs([(b, h, s, d), (b, hkv, s, d),
+                                   (b, hkv, s, d)], dtype, 810 + d, dev)
+            sched = FA.flash_schedule(q.shape, k.shape, kind="causal",
+                                      block_q=block, block_k=block)
+            route = FA.flash_route(sched, dtype)
+            err = FA._compare(FA.flash_cuda(q, k, v, sched),
+                              FA.flash_attention_plain(q, k, v, sched),
+                              f"attn dims {name} D {d}")
+            nops = 4 * d * b * h * needed_pairs("causal", s, 0)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            row = {"case": name, "d": d, "dtype": str(dtype),
+                   "kernel": route, "row_bytes": d * q.element_size(),
+                   "max_abs_err": err,
+                   "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
+                   "bound_ms": attn_bound(nbytes, nops, dtype, route)[0]}
+            print(f"[attn] dims {json.dumps(row)}")
+            out.append(row)
+            del q, k, v
+    return out
+
+
+#: the views clone_timings copies: (name, q shape, k/v shape, dtype) of
+#: the quickstart and gemma3-12b rows of ATTN_TIMED
+CLONE_SHAPES = [("quickstart", (4, 12, 4096, 64), (4, 12, 4096, 64),
+                 torch.float32),
+                ("gemma3-12b", (1, 16, 4096, 256), (1, 8, 4096, 256),
+                 torch.bfloat16)]
+
+
+def clone_timings(FA, dev):
+    """What flash_cuda's copy of a misaligned view costs: q, k and v
+    views that start one element past a 16-byte boundary, each cloned to
+    an aligned buffer as flash_cuda does before a tile path (CUDA-event
+    medians of the three clones), beside the bytes bound of the copies
+    (each value read and written once), the tile kernel's time on the
+    aligned tensors and the whole call on the views."""
+    out = []
+    for name, qs, ks, dtype in CLONE_SHAPES:
+        views = []
+        for shape in (qs, ks, ks):
+            n = int(np.prod(shape))
+            base = attn_inputs([(n + 1,)], dtype, 900, dev)[0]
+            views.append(base[1:].view(shape))
+        check(not FA._aligned(*views), "the views are off a boundary")
+        nbytes = sum(2 * t.numel() * t.element_size() for t in views)
+        sched = FA.flash_schedule(qs, ks, kind="causal", block_q=128,
+                                  block_k=128)
+        aligned = [t.clone() for t in views]
+        row = {"case": name, "q": qs, "kv": ks, "dtype": str(dtype),
+               "clone_ms": time_ms(lambda: [t.clone() for t in views], 10),
+               "clone_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "kernel_ms": time_ms(lambda: FA.flash_cuda(*aligned, sched),
+                                    5),
+               "misaligned_call_ms": time_ms(
+                   lambda: FA.flash_cuda(*views, sched), 5)}
+        print(f"[attn] clone {json.dumps(row)}")
+        out.append(row)
+        del views, aligned
+    return out
 
 
 def serve_run(S, cfg, model, prompts, max_new, max_len, kernel):
@@ -2238,7 +2401,18 @@ def main():
     card = phase_card()
     build_s = phase_build(_cuda)
     if "--build-only" in sys.argv[1:]:
+        if "--sass" in sys.argv[1:]:
+            phase_sass(_cuda, _cuda.build())
         print("[build-only] built and reported; no phase run, no result")
+        return
+    if "--attn-only" in sys.argv[1:]:
+        rows, _ = phase_attn(FA, LOWERINGS, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "attn": rows,
+                                   "attn_dims": attn_dims(FA, dev)},
+                                  indent=1))
+        print("[attn-only] attention timings written; no result")
         return
     if "--decode-only" in sys.argv[1:]:
         decode = decode_timings(FA, P, get_config("quickstart"), dev)
@@ -2266,6 +2440,8 @@ def main():
     attn_err, attn_rel, attn_cases = phase_parity_attn(FA, LOWERINGS,
                                                        pack_kv, P, dev)
     attn_rows, attn_launches = phase_attn(FA, LOWERINGS, dev)
+    clones = clone_timings(FA, dev)
+    dims = attn_dims(FA, dev)
     serve_runs, models = phase_serve(S, TM, get_config, FA, dev)
     qcfg, qmodel, _ = models["quickstart"]
     paged = phase_paged(S, FA, qcfg, qmodel, dev)
@@ -2368,35 +2544,22 @@ def main():
     })
     serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
     serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
-    # B4 on the CUDA cores (flash_fwd_kernel): the quickstart rows of the
-    # attn phase at a head dim of 62 (counted there), closed_form; its
-    # times on the tile paths' rows beside them
-    cc = [r for r in attn_rows if r["kernel"] == "cuda_core"]
-    cc_at = next(r for r in cc if r["lowering"] == "closed_form")
+    # the CUDA-core flash kernel (flash_fwd_kernel), which no route takes:
+    # held to its plain version by direct launches, timed beside every
+    # attn row (cuda_core_ms); not a kernel of the main paths, so not in
+    # the kernels line
     g32 = next(r for r in attn_rows if r["case"] == "gemma3-12b causal f32"
                and r["lowering"] == "closed_form")
     at_cf = {r["case"]: r for r in attn_rows
              if r["lowering"] == "closed_form"}
     ragged_keys = ("ms", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "max_abs_err", "blocks")
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:103",
-        "launches": attn_launches["flash_attention"],
-        "max_abs_err": max([attn_err["flash_attention"]]
-                           + [r["max_abs_err"] for r in cc]),
-        "ms": cc_at["ms"], "plain_ms": cc_at["plain_ms"],
-        "bound_ms": cc_at["bound_ms"], "bound_by": cc_at["bound_by"],
-        "library_ms": cc_at["library_ms"],
-        "library_kernels": cc_at["library_kernels"],
-        "at": f"{cc_at['case']}: S {cc_at['s']} B {cc_at['b']} heads "
-              f"{cc_at['h']}/{cc_at['hkv']} D {cc_at['d']} f32, blocks "
-              f"{cc_at['blocks']}, closed_form",
-        "gemma3_12b_causal_f32_ms": g32["cuda_core_ms"],
-        "quickstart_causal_s4104_ms":
-            at_cf["quickstart causal S 4104"]["cuda_core_ms"],
-        "parity_cases": attn_cases["flash_attention"]})
+    cuda_core = {
+        "kernel": "flash_fwd_kernel", "launches_main_paths":
+            attn_launches["flash_attention"],
+        "parity_cases": attn_cases["flash_attention"],
+        "max_abs_err": attn_err["flash_attention"],
+        "ms_by_case": {case: r["cuda_core_ms"] for case, r in at_cf.items()}}
     # the decode kernels (one routine, two front ends): timed at the
     # quickstart serving shapes, with the gemma3-12b decode shape beside
     for name, entry, replaces, launches, extra in [
@@ -2452,6 +2615,9 @@ def main():
         # the ragged instantiation: S 4104 in 72-token blocks
         "ragged": {key: tc["gemma3-12b causal S 4104"][key]
                    for key in ragged_keys + ("max_row_rel_err",)},
+        # rows of 500 bytes in 4-byte pieces: D 250
+        "narrow": {key: tc["gemma3-12b causal D 250"][key]
+                   for key in ragged_keys + ("max_row_rel_err", "d")},
         "parity_cases": attn_cases["flash_attention_tc"]})
     # B4's f32 prefill on the tensor cores (3xTF32): the quickstart rows of
     # the attn phase (counted there), timed at closed_form
@@ -2478,7 +2644,12 @@ def main():
         # the ragged instantiation: S 4104 in 72-token blocks
         "ragged": {key: at_cf["quickstart causal S 4104"][key]
                    for key in ragged_keys},
-        "parity_cases": attn_cases["flash_attention_tc_f32"]})
+        # rows of 248 bytes in 8-byte pieces: D 62, the exact loops over
+        # 64 columns, the run-time-loop form beside
+        "narrow": {key: at_cf["quickstart causal D 62"][key]
+                   for key in ragged_keys + ("runtime_loops_ms", "d")},
+        "parity_cases": attn_cases["flash_attention_tc_f32"],
+        "cuda_core_kernel": cuda_core})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2488,7 +2659,9 @@ def main():
         "attn_parity_max_abs_err": attn_err,
         "attn_parity_max_row_rel_err": attn_rel,
         "attn_parity_cases": attn_cases, "attn_launches": attn_launches,
-        "attn": attn_rows, "serve": serve_runs, "paged": paged,
+        "attn": attn_rows, "attn_clones": clones, "attn_dims": dims,
+        "serve": serve_runs,
+        "paged": paged,
         "decode": decode, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "

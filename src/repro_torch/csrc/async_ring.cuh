@@ -12,7 +12,9 @@
 // computes on slot t % stages.  The fused CA kernel runs the same ring at
 // a depth chosen at run time (wait_pending) and gathers its working tiles
 // with zero-filled copies (copy16_zfill / copy4_zfill: src-size 0 for the
-// cells of out-of-range or non-member blocks).
+// cells of out-of-range or non-member blocks).  The flash tile paths copy
+// head rows that are no whole number of 16-byte pieces in narrower ones
+// (copy_rows_pieces: 8, 4 or 2 bytes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +69,37 @@ __device__ __forceinline__ void copy4_zfill(void* smem, const void* gmem,
                "l"(gmem), "r"(valid ? 4 : 0));
 }
 
+// 8 bytes global -> shared (through L1, as copy4_zfill), or 8 zero bytes
+// when !valid.
+__device__ __forceinline__ void copy8_zfill(void* smem, const void* gmem,
+                                            bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 8 : 0));
+}
+
+// 2 bytes global -> shared through a register (cp.async copies 4 bytes
+// at the least: a bf16 row of an odd length starts on a 2-byte boundary
+// only), or 2 zero bytes when !valid.  A plain store: the CTA barrier
+// that makes a ring slot's async copies visible makes it visible too.
+__device__ __forceinline__ void copy2_zfill(void* smem, const void* gmem,
+                                            bool valid) {
+  unsigned short x = 0;
+  if (valid) x = __ldg(static_cast<const unsigned short*>(gmem));
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+}
+
+// The widest piece, in bytes, that a row of `row_bytes` (from a 16-byte
+// boundary) is a whole number of: 16, 8, 4, or 2 (bf16 rows of an odd
+// length).  Every row of such a tile then starts on a piece boundary.
+__host__ __device__ constexpr int piece_bytes(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16
+         : row_bytes % 8 == 0 ? 8
+         : row_bytes % 4 == 0 ? 4
+                              : 2;
+}
+
 // Copy `rows` rows of `cols` values of T (bf16 or f32; cols a whole number
 // of 16-byte pieces, at most blockDim.x of them) from a row-major global
 // tile of row stride `src_stride` into shared rows of stride `dst_stride`
@@ -110,6 +143,66 @@ __device__ __forceinline__ void copy_rows_zfill(T* dst, int dst_stride,
     const bool live = col_live && r < rows;
     copy16_zfill(dst + (size_t)r * dst_stride + c,
                  live ? src + (size_t)r * src_stride + c : src, live);
+  }
+}
+
+// One thread's share of copy_rows_pieces in pieces of kW bytes: piece
+// columns p0, p0 + lanes, ... of rows r0, r0 + sweep, ...
+template <int kW, typename T>
+__device__ __forceinline__ void copy_pieces(T* dst, int dst_stride,
+                                            const T* src, int src_stride,
+                                            int rows, int rows_pad, int cols,
+                                            int pieces, int lanes, int sweep,
+                                            int r0, int p0) {
+  constexpr int kVals = kW / (int)sizeof(T);  // values a piece
+  for (int piece = p0; piece < pieces; piece += lanes) {
+    const int c = piece * kVals;
+    const bool col_live = c < cols;
+    T* to = dst + (size_t)r0 * dst_stride + c;
+    const T* from = src + (size_t)r0 * src_stride + c;
+    for (int r = r0; r < rows_pad; r += sweep) {
+      const bool live = col_live && r < rows;
+      if constexpr (kW == 8)
+        copy8_zfill(to, live ? from : src, live);
+      else if constexpr (kW == 4)
+        copy4_zfill(to, live ? from : src, live);
+      else
+        copy2_zfill(to, live ? from : src, live);
+      to += (size_t)sweep * dst_stride;
+      from += (size_t)sweep * src_stride;
+    }
+  }
+}
+
+// copy_rows_zfill for rows that are no whole number of 16-byte pieces, in
+// pieces of `w` bytes (piece_bytes of a row of `cols` values, the same for
+// the whole CTA): 8 or 4 by cp.async.ca, 2 (bf16 rows of an odd length)
+// through a register (copy2_zfill).  The same rows and columns land as
+// copy_rows_zfill's, the padding zero-filled (cols_pad * sizeof(T) a
+// multiple of 16); lanes = min(pieces a row, blockDim.x) threads share a
+// row, thread i taking pieces i % lanes, + lanes, ... of every
+// (blockDim.x / lanes)-th row.
+template <typename T>
+__device__ __forceinline__ void copy_rows_pieces(T* dst, int dst_stride,
+                                                 const T* src,
+                                                 int src_stride, int rows,
+                                                 int rows_pad, int cols,
+                                                 int cols_pad, int w) {
+  const int pieces = (cols_pad * (int)sizeof(T)) >> (__ffs(w) - 1);
+  const int lanes = pieces < (int)blockDim.x ? pieces : (int)blockDim.x;
+  const int sweep = blockDim.x / lanes;
+  const int r0 = threadIdx.x / lanes;
+  const int p0 = threadIdx.x - r0 * lanes;
+  if (r0 >= sweep) return;
+  if (w == 8) {
+    copy_pieces<8>(dst, dst_stride, src, src_stride, rows, rows_pad, cols,
+                   pieces, lanes, sweep, r0, p0);
+  } else if (sizeof(T) == 4 || w == 4) {
+    copy_pieces<4>(dst, dst_stride, src, src_stride, rows, rows_pad, cols,
+                   pieces, lanes, sweep, r0, p0);
+  } else if constexpr (sizeof(T) == 2) {
+    copy_pieces<2>(dst, dst_stride, src, src_stride, rows, rows_pad, cols,
+                   pieces, lanes, sweep, r0, p0);
   }
 }
 

@@ -13,12 +13,12 @@
 //                            and its gpu structure _gpu_paged_call
 //
 // The wrapper (kernels/flash_attention.py flash_route) sends single-token
-// kind "full" calls with seq_pos (decode) to flash_decode_kernel, bf16
-// calls with d a multiple of 8 to flash_fwd_tc_kernel, f32 calls with d a
-// multiple of 4 up to 256 to flash_fwd_tf32_kernel (any block_q and
-// block_k for both; q, k, v copied to 16-byte aligned buffers first where
-// a view starts off a boundary), and what is left (head rows that are not
-// 16-byte multiples) to flash_fwd_kernel.
+// kind "full" calls with seq_pos (decode) to flash_decode_kernel, every
+// other bf16 call to flash_fwd_tc_kernel and every other f32 call to
+// flash_fwd_tf32_kernel (any block_q, block_k and d up to 256 for both;
+// q, k, v copied to 16-byte aligned buffers first where a view starts off
+// a boundary).  No route takes flash_fwd_kernel: it stays built as the
+// yardstick the tile paths are timed against.
 //
 // Every flash kernel: one CTA per (batch * head, query-block row), as the
 // gpu structure's grid; an in-kernel loop over that row's key blocks
@@ -126,7 +126,7 @@
 //     two CTAs per SM, and 198 KB at d = 128.  Q is not kept split
 //     (hi and lo planes would take a second 35 KB at d = 64, one CTA per
 //     SM); a lane re-splits 4 Q values per k-step;
-//   * d = 256 (past d = 128: d % 8 == 0 up to 256) would need 131 KB for
+//   * d = 256 (any d past 128 up to 256) would need 131 KB for
 //     128 Q rows and 131 KB for one 64-key slot, and 128 accumulators a
 //     lane: so a pair of warps shares 16 query rows, each warp owning 128
 //     of the output dims (64 accumulators), 64 rows a pass in 32-key
@@ -159,10 +159,21 @@
 // blocks round in another order than per-block ones: every lowering walks
 // the same run, so they stay bit-equal to each other.  The exact and
 // 16-multiple instantiations keep their code (run-time bounds in a loop
-// cost the f32 path its unrolling).
+// cost the f32 path its unrolling).  A head row of d values need not be a
+// whole number of 16-byte pieces: the kNarrow instantiations copy every
+// row in the widest piece its bytes are a whole number of
+// (ring::piece_bytes: f32 D 62 in 8-byte pieces, bf16 D 250 and f32 D 37
+// in 4-byte ones by cp.async.ca; bf16 rows of an odd d, 2-byte aligned
+// only, through a register), so no padded copy of q, k or v is made and
+// the default scale stays 1/sqrt(d); store_o writes single values where a
+// pair would straddle a row's end or sit off its alignment.  The f32
+// kernel runs its exact loops where a narrow d pads up to the
+// instantiation's (D 62 over 64 columns, the last two zero-filled).  The
+// narrow code has instantiations of its own: the piece width as a
+// run-time value in the ragged 16-byte instantiations cost them 4-15 %.
 //
-// flash_fwd_kernel (head rows that are not 16-byte multiples) is simple
-// rather than fast: scores and p v run in f32 on the CUDA cores, 8 warps own 4
+// flash_fwd_kernel is simple rather than fast: scores and p v run in f32
+// on the CUDA cores, 8 warps own 4
 // query rows each per pass, K/V tiles are staged through shared memory
 // 32 keys at a time (so d = 256 with 128-key tiles fits: 32 q rows + 32
 // keys + 32 x 128 scores of f32 = 97 KB), and a query block of more than
@@ -398,14 +409,23 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
+__device__ __forceinline__ void store_one(__nv_bfloat16* dst, float a) {
+  *dst = __float2bfloat16_rn(a);
+}
+__device__ __forceinline__ void store_one(float* dst, float a) { *dst = a; }
 
 // out = O / l (l == 0 -> 1) for rows `row` and row + 8 of the pass, lane
 // (g, t4) writing columns 8 ot + 2 t4 and + 1 of each output n-tile
 // below ncols (o: the query block's first row at the warp's first output
 // column; rows of d values).  kRagged: rows at or past `nrows` (the
 // padding of a query block that is not a multiple of 16) are not stored,
-// and the test is per column pair (f32 head dims of 4 mod 8).
-template <int kOt, bool kRagged = false, typename T>
+// and the test is per column pair (f32 head dims of 4 mod 8).  kNarrow
+// (rows of no whole number of 16-byte pieces): each column is tested
+// against ncols, and a pair is written as one store only where both
+// columns lie in the row and the row's pairs are aligned, else as single
+// values (at an odd d the last pair of a row would straddle the next
+// row's first column, and every other row starts off a pair boundary).
+template <int kOt, bool kRagged = false, bool kNarrow = false, typename T>
 __device__ __forceinline__ void store_o(T* __restrict__ o, int row, int d,
                                         int ncols, int t4,
                                         const float (&acc)[kOt][4],
@@ -418,6 +438,25 @@ __device__ __forceinline__ void store_o(T* __restrict__ o, int row, int d,
     if (lt == 0.0f) lt = 1.0f;
     if (kRagged && row + 8 * i >= nrows) continue;
     T* dst = o + (size_t)(row + 8 * i) * d + 2 * t4;
+    if constexpr (kNarrow) {
+      // n-tiles are 8 values apart: all of a row's pairs or none aligned
+      const bool pairs =
+          reinterpret_cast<uintptr_t>(dst) % (2 * sizeof(T)) == 0;
+#pragma unroll
+      for (int ot = 0; ot < kOt; ++ot) {
+        const int c = ot * 8 + 2 * t4;
+        if (c >= ncols) continue;
+        const float a = __fdiv_rn(acc[ot][2 * i], lt);
+        if (pairs && c + 1 < ncols) {
+          store_pair(dst + ot * 8, a, __fdiv_rn(acc[ot][2 * i + 1], lt));
+        } else {
+          store_one(dst + ot * 8, a);
+          if (c + 1 < ncols)
+            store_one(dst + ot * 8 + 1, __fdiv_rn(acc[ot][2 * i + 1], lt));
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int ot = 0; ot < kOt; ++ot) {
       if ((kRagged ? ot * 8 + 2 * t4 : ot * 8) < ncols)
@@ -436,7 +475,7 @@ constexpr __host__ __device__ int round16(int x) { return (x + 15) & ~15; }
 
 constexpr int kTcPad = 8;  // bf16 padding per shared row (16 bytes)
 
-// The instantiated head dim of d (a multiple of 16 up to 256), its ring
+// The instantiated head dim of d (any d up to 256), its ring
 // depth, and one CTA's dynamic shared memory: the pass's query rows and
 // `stages` slots of a K and a V sub-tile, rows of dt + kTcPad bf16.
 constexpr __host__ __device__ int tc_dt(int d) {
@@ -455,13 +494,16 @@ __host__ __device__ inline size_t tc_smem_bytes(int d, int block_q) {
 
 // d <= 64 fits two CTAs per SM (at most 128 registers a thread, 74 KB of
 // shared memory each); wider heads run one CTA of up to 255 registers.
-// kRagged: block_q, block_k or d is not a multiple of 16 (d a multiple of
-// 8).  The instantiation pads inside the kernel: Q rows past the block and
-// K/V rows past the row's key run arrive zero-filled up to the next 16,
-// and so do the columns from d up to the 16-column k-step; padded keys are
-// masked (mask_scores) and padded rows never stored (store_o).  The other
-// instantiations keep their code.
-template <int DT, bool kRagged>
+// kRagged: block_q, block_k or d is not a multiple of 16.  The
+// instantiation pads inside the kernel: Q rows past the block and K/V
+// rows past the row's key run arrive zero-filled up to the next 16, and so
+// do the columns from d up to the 16-column k-step; padded keys are masked
+// (mask_scores) and padded rows never stored (store_o).  kNarrow (with
+// kRagged): a row of d values is no whole number of 16-byte pieces (d
+// % 8 != 0), so it is copied in pieces of piece_bytes(2 d) -- 8, 4 or 2
+// bytes (copy_rows_pieces) -- and stored column by column where a pair
+// would not do (store_o).  The other instantiations keep their code.
+template <int DT, bool kRagged, bool kNarrow = false>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -491,6 +533,7 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t4 = lane & 3;
   const int d = p.d, bk = p.block_k;
   const int dpad = kRagged ? round16(d) : d;  // columns a shared row holds
+  const int w = kNarrow ? ring::piece_bytes(2 * d) : 16;  // copied pieces
   const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
   // ldmatrix row offsets of this lane: A (Q) tiles take matrices
@@ -521,7 +564,12 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
     const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
     const int rows = min(kTcSub, span - c);
     __nv_bfloat16* dst = skv + (size_t)slot * kSlot;
-    if constexpr (kRagged) {
+    if constexpr (kNarrow) {
+      ring::copy_rows_pieces(dst, kStride, k + t_off, d, rows, round16(rows),
+                             d, dpad, w);
+      ring::copy_rows_pieces(dst + (size_t)kTcSub * kStride, kStride,
+                             v + t_off, d, rows, round16(rows), d, dpad, w);
+    } else if constexpr (kRagged) {
       ring::copy_rows_zfill(dst, kStride, k + t_off, d, rows, round16(rows),
                             d, dpad);
       ring::copy_rows_zfill(dst + (size_t)kTcSub * kStride, kStride,
@@ -539,7 +587,10 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
     const int qrow = p.off + qb * p.block_q + row0 + warp * kTcRowsPerWarp + g;
 
     // prologue: Q rides in the first group, then stages - 1 ring steps
-    if constexpr (kRagged)
+    if constexpr (kNarrow)
+      ring::copy_rows_pieces(sq, kStride, q + q_off + (size_t)row0 * d, d,
+                             nrows, round16(nrows), d, dpad, w);
+    else if constexpr (kRagged)
       ring::copy_rows_zfill(sq, kStride, q + q_off + (size_t)row0 * d, d,
                             nrows, round16(nrows), d, dpad);
     else
@@ -657,8 +708,9 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
 
     // -- out = O / l (l == 0 -> 1), rounded to bf16 -----------------------
     if (busy)
-      store_o<kOt, kRagged>(o + q_off, row0 + warp * kTcRowsPerWarp + g, d,
-                            d, t4, acc, l, row0 + nrows);
+      store_o<kOt, kRagged, kNarrow>(o + q_off,
+                                     row0 + warp * kTcRowsPerWarp + g, d, d,
+                                     t4, acc, l, row0 + nrows);
   }
 }
 
@@ -669,7 +721,7 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
 constexpr int kTfPad = 4;     // f32 padding per shared row (16 bytes)
 constexpr int kTfStages = 2;  // ring depth
 
-// The instantiated head dim of d (a multiple of 8 up to 256) and its
+// The instantiated head dim of d (any d up to 256) and its
 // geometry.  Up to d = 128 a warp owns 16 query rows and every output
 // dim, 128 rows a pass, 64-key sub-tiles.  d = 256 does not fit that
 // form: 128 query rows and one 64-key K/V slot in rows of 260 f32 are
@@ -739,12 +791,15 @@ __device__ __forceinline__ void pair_sync(int id) {
 // d is DT and block_k a multiple of the sub-tile, so the head dim and the
 // keys of a sub-tile are compile-time and the tile loops run without
 // branches.  kRagged: block_q or block_k is not a multiple of 16 or d not
-// a multiple of 8 (d a multiple of 4), padded as the bf16 kernel's
-// kRagged, columns up to the 8-column k-step.  Both (d is DT, the blocks
-// ragged): every sub-tile runs the exact loops over kSub keys, the run's
-// last one zero-filled up to kSub rows and its keys past the run masked
-// (a few wasted products a row, no run-time loop bound).
-template <int DT, bool kExact, bool kRagged>
+// a multiple of 8, padded as the bf16 kernel's kRagged, columns up to the
+// 8-column k-step.  Both (d is DT, the blocks ragged): every sub-tile
+// runs the exact loops over kSub keys, the run's last one zero-filled up
+// to kSub rows and its keys past the run masked (a few wasted products a
+// row, no run-time loop bound).  kNarrow (with kRagged): d % 4 != 0, rows
+// copied and stored as the bf16 kernel's kNarrow; with kExact, d pads up
+// to DT (f32 D 62: the exact loops over 64 columns, the last two
+// zero-filled) and the tensors' rows are p.d values apart.
+template <int DT, bool kExact, bool kRagged, bool kNarrow = false>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -777,9 +832,13 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   const int rg = warp / kHalves, half = warp - rg * kHalves;
   const int dof = half * kDw;  // this warp's first output dim
   const int g = lane >> 2, t4 = lane & 3;
+  // d: the columns the loops cover; dr: the values of a global (and a
+  // stored) row, below d where kNarrow's exact loops pad d up to DT
   const int d = kExact ? DT : p.d, bk = p.block_k;
+  const int dr = kNarrow ? p.d : d;
   const int dpad = kRagged ? (d + 7) & ~7 : d;  // columns a shared row holds
-  const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
+  const int w = kNarrow ? ring::piece_bytes(4 * dr) : 16;  // copied pieces
+  const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * dr;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
   // ldmatrix row addresses of this lane (16-byte rows of 4 f32): Q's A
   // tiles (rows 0-7 | 8-15) x (cols 0-3 | 4-7) in register order, K's B
@@ -801,11 +860,16 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   auto pending = [&](int kb, int c) { return kRagged ? c < nrun : kb <= end; };
   auto issue = [&](int kb, int c, int slot) {
     const int kv = min(max(kb - p.s0, 0), p.kv_blocks - 1);
-    const size_t t_off = (kv_head + (size_t)kv * bk + c) * d;
+    const size_t t_off = (kv_head + (size_t)kv * bk + c) * dr;
     const int rows = min(kSub, span - c);
     const int rows_pad = kExact ? kSub : round16(rows);  // rows the loops read
     float* dst = skv + (size_t)slot * kSlot;
-    if constexpr (kRagged) {
+    if constexpr (kNarrow) {
+      ring::copy_rows_pieces(dst, kStride, k + t_off, dr, rows, rows_pad, dr,
+                             dpad, w);
+      ring::copy_rows_pieces(dst + (size_t)kSub * kStride, kStride,
+                             v + t_off, dr, rows, rows_pad, dr, dpad, w);
+    } else if constexpr (kRagged) {
       ring::copy_rows_zfill(dst, kStride, k + t_off, d, rows, rows_pad, d,
                             dpad);
       ring::copy_rows_zfill(dst + (size_t)kSub * kStride, kStride, v + t_off,
@@ -823,7 +887,10 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
     const int qrow = p.off + qb * p.block_q + row0 + rg * kTcRowsPerWarp + g;
 
     // prologue: Q and the first ring step in one group
-    if constexpr (kRagged)
+    if constexpr (kNarrow)
+      ring::copy_rows_pieces(sq, kStride, q + q_off + (size_t)row0 * dr, dr,
+                             nrows, round16(nrows), dr, dpad, w);
+    else if constexpr (kRagged)
       ring::copy_rows_zfill(sq, kStride, q + q_off + (size_t)row0 * d, d,
                             nrows, round16(nrows), d, dpad);
     else
@@ -960,8 +1027,9 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
     __syncthreads();  // every reader of sq and the ring is done
 
     if (busy)
-      store_o<kOt, kRagged>(o + q_off + dof, row0 + rg * kTcRowsPerWarp + g,
-                            d, d - dof, t4, acc, l, row0 + nrows);
+      store_o<kOt, kRagged, kNarrow>(o + q_off + dof,
+                                     row0 + rg * kTcRowsPerWarp + g, dr,
+                                     dr - dof, t4, acc, l, row0 + nrows);
   }
 }
 
@@ -1198,34 +1266,39 @@ int flash(const long long* params, float scale, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// A tile path's instantiation for its flags.
+// A tile path's instantiation for its flags (narrow implies ragged).
 template <int DT>
-auto tc_kernel(bool ragged) {
-  return ragged ? flash_fwd_tc_kernel<DT, true> : flash_fwd_tc_kernel<DT, false>;
+auto tc_kernel(bool ragged, bool narrow) {
+  return narrow   ? flash_fwd_tc_kernel<DT, true, true>
+         : ragged ? flash_fwd_tc_kernel<DT, true>
+                  : flash_fwd_tc_kernel<DT, false>;
 }
 template <int DT>
-auto tf32_kernel(bool exact, bool ragged) {
+auto tf32_kernel(bool exact, bool ragged, bool narrow) {
+  if (narrow)
+    return exact ? flash_fwd_tf32_kernel<DT, true, true, true>
+                 : flash_fwd_tf32_kernel<DT, false, true, true>;
   return exact ? (ragged ? flash_fwd_tf32_kernel<DT, true, true>
                          : flash_fwd_tf32_kernel<DT, true, false>)
                : (ragged ? flash_fwd_tf32_kernel<DT, false, true>
                          : flash_fwd_tf32_kernel<DT, false, false>);
 }
 
-// The tile paths copy 16-byte pieces: q, k, v and o on 16-byte
-// boundaries, rows of a whole number of pieces.
+// The tile paths copy rows in pieces of up to 16 bytes from q, k and v on
+// 16-byte boundaries (every row then starts on a boundary of its pieces).
 bool tile_aligned(const void* q, const void* k, const void* v,
                   const void* o) {
   return aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
 }
 
-// The tc kernel takes any block_q and block_k and d a multiple of 8 up to
-// 256 (the ragged instantiation where one of the three is not a multiple
-// of 16).
+// The tc kernel takes any block_q and block_k and any d up to 256 (the
+// ragged instantiation where one of the three is not a multiple of 16,
+// the narrow one where a row is no whole number of 16-byte pieces).
 int flash_tc(const long long* params, float scale, const void* q,
              const void* k, const void* v, const int* ext, const int* pos,
              void* o, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
-  if (p.d % 8 || p.d > 256 || !tile_aligned(q, k, v, o))
+  if (p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
   const auto *qq = static_cast<const __nv_bfloat16*>(q),
              *kk = static_cast<const __nv_bfloat16*>(k),
@@ -1233,19 +1306,26 @@ int flash_tc(const long long* params, float scale, const void* q,
   auto* oo = static_cast<__nv_bfloat16*>(o);
   const size_t bytes = tc_smem_bytes(p.d, p.block_q);
   const bool ragged = p.block_q % 16 || p.block_k % 16 || p.d % 16;
-  auto kernel = tc_dt(p.d) == 64    ? tc_kernel<64>(ragged)
-                : tc_dt(p.d) == 128 ? tc_kernel<128>(ragged)
-                                    : tc_kernel<256>(ragged);
+  const bool narrow = ring::piece_bytes(2 * p.d) < 16;
+  auto kernel = tc_dt(p.d) == 64    ? tc_kernel<64>(ragged, narrow)
+                : tc_dt(p.d) == 128 ? tc_kernel<128>(ragged, narrow)
+                                    : tc_kernel<256>(ragged, narrow);
   return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s);
 }
 
-// The tf32 kernel takes any block_q and block_k and d a multiple of 4 up
-// to 256 (ragged where a block is not a multiple of 16 or d of 8).
+// The tf32 kernel takes any block_q and block_k and any d up to 256
+// (ragged where a block is not a multiple of 16 or d of 8, narrow where d
+// is not a multiple of 4).  The exact loops (the instantiation's d, whole
+// sub-tiles) run where d is dt and block_k a multiple of the sub-tile or
+// the call ragged, and on narrow calls whose d pads up to dt (the columns
+// from d to dt zero-filled); exact_loops 0 / 1 forces the run-time loops
+// or the exact ones (-1: the rule; 1 where the rule could not take them
+// is refused).
 int flash_tf32(const long long* params, float scale, const void* q,
                const void* k, const void* v, const int* ext, const int* pos,
-               void* o, cudaStream_t s) {
+               void* o, cudaStream_t s, int exact_loops = -1) {
   const AttnParams p = make_params(params, scale);
-  if (p.d % 4 || p.d > 256 || !tile_aligned(q, k, v, o))
+  if (p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
   const auto *qq = static_cast<const float*>(q),
              *kk = static_cast<const float*>(k),
@@ -1254,12 +1334,14 @@ int flash_tf32(const long long* params, float scale, const void* q,
   const int dt = tf32_dt(p.d);
   const size_t bytes = tf32_smem_bytes(p.d, p.block_q);
   const bool ragged = p.block_q % 16 || p.block_k % 16 || p.d % 8;
-  // ragged calls at d == dt pad their last sub-tile to a whole one
-  const bool exact =
-      p.d == dt && (ragged || p.block_k % tf32_sub(dt) == 0);
-  auto kernel = dt == 64    ? tf32_kernel<64>(exact, ragged)
-                : dt == 128 ? tf32_kernel<128>(exact, ragged)
-                            : tf32_kernel<256>(exact, ragged);
+  const bool narrow = ring::piece_bytes(4 * p.d) < 16;
+  const bool fits = (narrow ? (p.d + 7) & ~7 : p.d) == dt &&
+                    (ragged || p.block_k % tf32_sub(dt) == 0);
+  const bool exact = exact_loops < 0 ? fits : exact_loops == 1;
+  if (exact && !fits) return (int)cudaErrorInvalidValue;
+  auto kernel = dt == 64    ? tf32_kernel<64>(exact, ragged, narrow)
+                : dt == 128 ? tf32_kernel<128>(exact, ragged, narrow)
+                            : tf32_kernel<256>(exact, ragged, narrow);
   return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s,
                           tf32_rows_per_pass(dt), tf32_halves(dt));
 }
@@ -1287,8 +1369,7 @@ int fa_forward_bf16(const long long* params, float scale, const void* q,
 }
 
 // The same on the tensor cores, bf16 only (flash_fwd_tc_kernel): params
-// as fa_forward_bf16, with d a multiple of 8 and q, k, v, o on 16-byte
-// boundaries.
+// as fa_forward_bf16, with q, k, v, o on 16-byte boundaries.
 int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
                        const void* k, const void* v, const int* ext,
                        const int* pos, void* o, void* stream) {
@@ -1297,13 +1378,23 @@ int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
 }
 
 // The same in f32 on the tensor cores (flash_fwd_tf32_kernel, 3xTF32):
-// params as fa_forward_f32, with d a multiple of 4 up to 256 and q, k, v,
-// o on 16-byte boundaries.
+// params as fa_forward_f32, with q, k, v, o on 16-byte boundaries.
 int fa_forward_tc_f32(const long long* params, float scale, const void* q,
                       const void* k, const void* v, const int* ext,
                       const int* pos, void* o, void* stream) {
   return flash_tf32(params, scale, q, k, v, ext, pos, o,
                     static_cast<cudaStream_t>(stream));
+}
+
+// fa_forward_tc_f32 in the loop form `exact_loops` names (0: run-time
+// loop bounds, 1: the exact loops, refused where d does not pad up to the
+// instantiation's), to time the two against each other.
+int fa_forward_tc_f32_loops(const long long* params, float scale,
+                            const void* q, const void* k, const void* v,
+                            const int* ext, const int* pos, void* o,
+                            void* stream, int exact_loops) {
+  return flash_tf32(params, scale, q, k, v, ext, pos, o,
+                    static_cast<cudaStream_t>(stream), exact_loops);
 }
 
 // o (B, H, 1, d) = single-token decode of q (B, H, 1, d) over the caches

@@ -34,16 +34,19 @@ serving the whole GQA group, splits of ``DECODE_SPLIT_KEYS`` keys merged
 in split order in the same launch), so at ``block_k == page_size`` paged
 decode is bit-equal to the contiguous one.
 
-Four kernels compute ``flash_attention`` on the card, picked by
+Three kernels compute ``flash_attention`` on the card, picked by
 :func:`flash_route` from the call's shape and dtype before any launch:
 ``flash_decode_kernel`` (``"decode"``: single-token ``kind="full"``
-calls with ``seq_pos``); on the tensor cores, with K/V streamed through
-a cp.async ring and any block_q and block_k (padded to the next 16
-inside the kernel), ``flash_fwd_tc_kernel`` (``"tc"``: bf16 with a head
-dim multiple of 8) and ``flash_fwd_tf32_kernel`` (``"tc_f32"``: f32 with
-a head dim multiple of 4 up to 256, in 3xTF32), misaligned views copied
-to an aligned buffer first; and ``flash_fwd_kernel`` (``"cuda_core"``:
-head rows that are not 16-byte multiples, in f32 on the CUDA cores).
+calls with ``seq_pos``); and on the tensor cores, with K/V streamed
+through a cp.async ring, any block_q and block_k (padded to the next 16
+inside the kernel) and any head dim up to 256 (rows copied in the widest
+pieces of 16, 8, 4 or 2 bytes they are a whole number of),
+``flash_fwd_tc_kernel`` (``"tc"``: every other bf16 call) and
+``flash_fwd_tf32_kernel`` (``"tc_f32"``: every other f32 call, in
+3xTF32), misaligned views copied to an aligned buffer first.  No route
+takes the CUDA-core kernel ``flash_fwd_kernel`` (f32 arithmetic on the
+CUDA cores): :func:`flash_cuda_core` launches it directly, as the
+yardstick the tile paths are timed and checked against.
 
 Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
@@ -512,6 +515,8 @@ _SIGNATURES = {
     "fa_forward_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
+    "fa_forward_tc_f32_loops": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
+                                _P, ctypes.c_int],
     "fa_decode_f32": [_P, ctypes.c_float] + [_P] * 9,
     "fa_decode_bf16": [_P, ctypes.c_float] + [_P] * 9,
     "fa_paged_decode_f32": [_P, ctypes.c_float] + [_P] * 8,
@@ -601,23 +606,22 @@ def flash_route(sched: FlashSchedule, dtype) -> str:
     ``"decode"`` (flash_decode_kernel) for single-token ``kind="full"``
     calls with seq_pos, whatever the dtype and alignment (it loads 16-byte
     pieces where it can), so paged decode, which runs the same routine,
-    stays bit-equal to it; on the tensor cores, for any block_q and
-    block_k (a block that is not a multiple of 16 is padded to the next
-    16 inside the kernel, block_q = 1 without seq_pos included), when a
-    head row is a whole number of 16-byte pieces (the tile paths copy
-    such pieces): ``"tc"`` (flash_fwd_tc_kernel) for bf16 with a head dim
-    multiple of 8, ``"tc_f32"`` (flash_fwd_tf32_kernel, 3xTF32) for f32
-    with a head dim multiple of 4 up to TF32_MAX_HEAD_DIM; ``"cuda_core"``
-    (flash_fwd_kernel) for what is left: head rows that are not 16-byte
-    multiples (bf16 d % 8, f32 d % 4) and dtypes no tile path takes.  A
-    view that starts off a 16-byte boundary takes its route all the same:
-    :func:`flash_cuda` copies it to an aligned buffer first."""
+    stays bit-equal to it; on the tensor cores every other call up to
+    head dim 256, for any block_q and block_k (a block that is not a
+    multiple of 16 is padded to the next 16 inside the kernel, block_q = 1
+    without seq_pos included) and any head dim (a row that is no whole
+    number of 16-byte pieces is copied in 8-, 4- or 2-byte ones):
+    ``"tc"`` (flash_fwd_tc_kernel) for bf16, ``"tc_f32"``
+    (flash_fwd_tf32_kernel, 3xTF32) for f32; ``"cuda_core"`` only for
+    what the entry points refuse before any launch (head dims past 256,
+    dtypes outside ``DTYPES``).  A view that starts off a 16-byte boundary
+    takes its route all the same: :func:`flash_cuda` copies it to an
+    aligned buffer first."""
     if sched.has_pos and sched.sq == 1 and sched.kind == "full":
         return "decode"
-    if dtype == torch.bfloat16 and sched.d % 8 == 0:
+    if dtype == torch.bfloat16 and sched.d <= MAX_HEAD_DIM:
         return "tc"
-    if (dtype == torch.float32 and sched.d % 4 == 0
-            and sched.d <= TF32_MAX_HEAD_DIM):
+    if dtype == torch.float32 and sched.d <= TF32_MAX_HEAD_DIM:
         return "tc_f32"
     return "cuda_core"
 
@@ -627,8 +631,10 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
-    """Run one flash kernel's C entry point ``fn``; returns the output."""
+def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str,
+                  *extra):
+    """Run one flash kernel's C entry point ``fn`` (``extra``: its
+    arguments after the stream); returns the output."""
     if pos is not None and (pos.device != q.device
                             or pos.dtype != torch.int32):
         raise ValueError("seq_pos must be an int32 tensor on q's device")
@@ -641,7 +647,7 @@ def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
         status = fn(sched.c_params(pos is not None), sched.scale,
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     _cuda.ptr(ext), _cuda.ptr(pos), out.data_ptr(),
-                    _stream(q.device))
+                    _stream(q.device), *extra)
     _cuda.raise_on(_lib(), status, what)
     return out
 
@@ -650,15 +656,25 @@ def flash_cuda(q, k, v, sched: FlashSchedule,
                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the flash kernel :func:`flash_route` picks: (B, H, Sq, D) in
     q's dtype.  A tile path's q, k or v that starts off a 16-byte boundary
-    is copied to an aligned buffer first.  Counts the CUDA-core kernel's
-    launches; the others count their own (:func:`decode_cuda`,
-    :func:`flash_tc_cuda`, :func:`flash_tc_f32_cuda`)."""
+    is copied to an aligned buffer first.  Each kernel's wrapper counts
+    its launches (:func:`decode_cuda`, :func:`flash_tc_cuda`,
+    :func:`flash_tc_f32_cuda`)."""
     _check_cuda("flash attention", q, k, v)
     route = flash_route(sched, q.dtype)
     if route in ("tc", "tc_f32"):
         q, k, v = (t if _aligned(t) else t.clone() for t in (q, k, v))
-    if route != "cuda_core":
-        return _ROUTES[route](q, k, v, sched, pos)
+    return _ROUTES[route](q, k, v, sched, pos)
+
+
+def flash_cuda_core(q, k, v, sched: FlashSchedule,
+                    pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA-core flash kernel (flash_fwd_kernel: f32 arithmetic
+    on the CUDA cores, K/V staged 32 keys at a time) on any call the
+    entry points take, whatever :func:`flash_route` says: (B, H, Sq, D) in
+    q's dtype.  No route takes it; it is the yardstick the tile paths are
+    timed and checked against.  Raises where block_k's tiles at this head
+    dim need more shared memory than the card has."""
+    _check_cuda("flash attention", q, k, v)
     lib = _lib()
     _check_smem(q.device, lib.fa_smem_bytes(sched.d, sched.block_k),
                 f"block_k={sched.block_k} at head dim {sched.d}")
@@ -666,18 +682,20 @@ def flash_cuda(q, k, v, sched: FlashSchedule,
         else lib.fa_forward_bf16
     out = _launch_flash(fn, q, k, v, sched, pos, "flash attention kernel")
     if out.numel():
-        flash_cuda.launches += 1
+        flash_cuda_core.launches += 1
     return out
 
 
-flash_cuda.launches = 0
+flash_cuda_core.launches = 0
 
 
-def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
+def _launch_tile_path(route, q, k, v, sched, pos, takes: str,
+                      c_fn: Optional[str] = None, *extra):
     """Launch the tensor-core kernel of ``route`` ("tc" or "tc_f32") after
     checking that :func:`flash_route` sends the call there and that q, k
     and v start on 16-byte boundaries (``takes`` says what it takes);
-    returns the output."""
+    ``c_fn`` names another C entry point of the kernel, taking ``extra``
+    after the stream; returns the output."""
     _check_cuda("flash attention", q, k, v)
     if flash_route(sched, q.dtype) != route or not _aligned(q, k, v):
         raise ValueError(
@@ -685,25 +703,26 @@ def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
             f"{sched.block_q}/{sched.block_k}, head dim {sched.d}, "
             f"16-byte aligned {_aligned(q, k, v)}")
     lib = _lib()
-    c_fn, smem_fn = (("fa_forward_tc_bf16", "fa_tc_smem_bytes")
+    name, smem_fn = (("fa_forward_tc_bf16", "fa_tc_smem_bytes")
                      if route == "tc" else
                      ("fa_forward_tc_f32", "fa_tc_f32_smem_bytes"))
     _check_smem(q.device, getattr(lib, smem_fn)(sched.d, sched.block_q),
                 f"block_q={sched.block_q} at head dim {sched.d} (tensor "
                 f"cores, {q.dtype})")
-    return _launch_flash(getattr(lib, c_fn), q, k, v, sched, pos,
-                         f"flash attention kernel (tensor cores, {q.dtype})")
+    return _launch_flash(getattr(lib, c_fn or name), q, k, v, sched, pos,
+                         f"flash attention kernel (tensor cores, {q.dtype})",
+                         *extra)
 
 
 def flash_tc_cuda(q, k, v, sched: FlashSchedule,
                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the bf16 tensor-core flash kernel (any block_q and block_k,
-    a head dim multiple of 8, q, k and v 16-byte aligned, as
-    :func:`flash_route` sends them): (B, H, Sq, D) bf16."""
+    """Launch the bf16 tensor-core flash kernel (any block_q, block_k and
+    head dim up to 256, q, k and v 16-byte aligned, as :func:`flash_route`
+    sends them): (B, H, Sq, D) bf16."""
     out = _launch_tile_path(
         "tc", q, k, v, sched, pos,
-        "tensor-core flash kernel takes 16-byte aligned bf16 with a head "
-        "dim multiple of 8")
+        f"tensor-core flash kernel takes 16-byte aligned bf16 prefill with "
+        f"a head dim up to {MAX_HEAD_DIM}")
     if out.numel():
         flash_tc_cuda.launches += 1
     return out
@@ -713,15 +732,23 @@ flash_tc_cuda.launches = 0
 
 
 def flash_tc_f32_cuda(q, k, v, sched: FlashSchedule,
-                      pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the f32 tensor-core flash kernel (3xTF32; any block_q and
-    block_k, a head dim multiple of 4 up to TF32_MAX_HEAD_DIM, q, k and v
-    16-byte aligned, as :func:`flash_route` sends them): (B, H, Sq, D)
-    f32."""
-    out = _launch_tile_path(
-        "tc_f32", q, k, v, sched, pos,
-        f"f32 tensor-core flash kernel takes 16-byte aligned f32 with a "
-        f"head dim multiple of 4 up to {TF32_MAX_HEAD_DIM}")
+                      pos: Optional[torch.Tensor] = None,
+                      exact_loops: Optional[bool] = None) -> torch.Tensor:
+    """Launch the f32 tensor-core flash kernel (3xTF32; any block_q,
+    block_k and head dim up to TF32_MAX_HEAD_DIM, q, k and v 16-byte
+    aligned, as :func:`flash_route` sends them): (B, H, Sq, D) f32.
+    ``exact_loops`` forces a loop form where the kernel's rule would pick
+    (True: the exact loops over the instantiation's head dim, refused
+    where the rule could not take them; False: run-time loop bounds), to
+    time the two against each other on rows that pad up to the
+    instantiation's head dim (f32 D 62)."""
+    takes = (f"f32 tensor-core flash kernel takes 16-byte aligned f32 "
+             f"prefill with a head dim up to {TF32_MAX_HEAD_DIM}")
+    if exact_loops is None:
+        out = _launch_tile_path("tc_f32", q, k, v, sched, pos, takes)
+    else:
+        out = _launch_tile_path("tc_f32", q, k, v, sched, pos, takes,
+                                "fa_forward_tc_f32_loops", int(exact_loops))
     if out.numel():
         flash_tc_f32_cuda.launches += 1
     return out
@@ -795,7 +822,7 @@ def decode_cuda(q, k, v, sched: FlashSchedule,
 
 decode_cuda.launches = 0
 _ROUTES = {"decode": decode_cuda, "tc": flash_tc_cuda,
-           "tc_f32": flash_tc_f32_cuda}
+           "tc_f32": flash_tc_f32_cuda, "cuda_core": flash_cuda_core}
 
 
 def paged_cuda(q, kv_pool, page_table, pos,
@@ -821,7 +848,7 @@ def paged_cuda(q, kv_pool, page_table, pos,
 paged_cuda.launches = 0
 
 #: kernel name -> its CUDA wrapper (each carries ``launches``)
-KERNELS = {"flash_attention": flash_cuda,
+KERNELS = {"flash_attention": flash_cuda_core,
            "flash_attention_decode": decode_cuda,
            "flash_attention_tc": flash_tc_cuda,
            "flash_attention_tc_f32": flash_tc_f32_cuda,

@@ -45,9 +45,10 @@ step i + k - 1 with ``cp.async`` while step i's trapezoid runs (k = 1
 gathers, waits and computes).  Every depth gives the same bits; the plain
 version ignores it.
 
-Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13), the tuner's
-``"auto"`` knobs (A8, which raise ``NotImplementedError``), and CA states
-other than f32.
+Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13) and the
+tuner's ``"auto"`` knobs (A8), which the entry points take and refuse
+with ``NotImplementedError`` naming the item (``shard_axis`` alone
+changes nothing), and CA states other than f32.
 """
 from __future__ import annotations
 
@@ -60,8 +61,9 @@ from repro_torch.core.domain import BlockDomain
 from repro_torch.core.plan import GridPlan, LaunchParams
 
 from . import _cuda
-from .sierpinski_write import (PLAIN_CHUNK_CELLS, resolve_storage_args,
-                               storage_offsets, supertile_offsets)
+from .sierpinski_write import (PLAIN_CHUNK_CELLS, check_unported,
+                               resolve_storage_args, storage_offsets,
+                               supertile_offsets)
 
 RULES = {"parity": 0, "diffusion": 1}
 #: the deepest ring of the kernel (csrc/sierpinski_ca.cu kMaxStages); the
@@ -316,17 +318,15 @@ def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
 # entry points
 # ---------------------------------------------------------------------------
 
-def _check_schedule(fuse, coarsen, grid_mode, num_stages):
-    """The tuner's knobs are not ported: ``"auto"`` raises, naming the
-    roadmap item that brings it.  Returns the ring depth: ``num_stages``
-    (an integer >= 1) clamped to ``MAX_STAGES``, as the JAX package's gpu
-    target clamps deeper requests."""
-    for name, value in (("fuse", fuse), ("coarsen", coarsen),
-                        ("grid_mode", grid_mode), ("num_stages", num_stages)):
-        if value == "auto":
-            raise NotImplementedError(
-                f"{name}='auto' needs the tuner, which is not ported yet "
-                f"(ROADMAP A8)")
+def _check_schedule(fuse, coarsen, grid_mode, num_stages, mesh=None,
+                    verify=False):
+    """The tuner's knobs, ``mesh=`` and ``verify=`` are not ported:
+    ``"auto"``, a mesh and ``verify=True`` raise, naming the roadmap item
+    that brings them (:func:`check_unported`).  Returns the ring depth:
+    ``num_stages`` (an integer >= 1) clamped to ``MAX_STAGES``, as the
+    JAX package's gpu target clamps deeper requests."""
+    check_unported(mesh=mesh, verify=verify, fuse=fuse, coarsen=coarsen,
+                   grid_mode=grid_mode, num_stages=num_stages)
     if isinstance(num_stages, bool) or not isinstance(num_stages, int) \
             or num_stages < 1:
         raise ValueError(f"num_stages must be an integer >= 1, got "
@@ -355,7 +355,8 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
            fractal: str = "sierpinski-gasket", storage: str = "embedded",
            n: int | None = None, domain: BlockDomain | None = None,
            coarsen: int = 1, num_stages: int = 1,
-           donate: bool | None = None) -> torch.Tensor:
+           donate: bool | None = None, mesh=None, shard_axis: str = "data",
+           verify: bool = False) -> torch.Tensor:
     """Advance the CA ``steps`` steps and return the final state.
 
     ``fuse=k`` executes k steps per kernel launch (one in-CTA trapezoid
@@ -376,9 +377,12 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     ``cp.async`` ring of working tiles; every depth is bit-identical.
 
     The port's defaults are the JAX package's untuned resolution
-    (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs raise
-    ``NotImplementedError`` naming the roadmap item that brings them."""
-    stages = _check_schedule(fuse, coarsen, grid_mode, num_stages)
+    (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs,
+    ``mesh=`` and ``verify=True`` raise ``NotImplementedError`` naming
+    the roadmap item that brings them (A8, A12, A13); ``shard_axis``
+    alone changes nothing."""
+    stages = _check_schedule(fuse, coarsen, grid_mode, num_stages, mesh,
+                             verify)
     if rule not in RULES:
         raise ValueError(f"unknown rule {rule!r}; expected one of "
                          f"{tuple(RULES)}")
@@ -411,7 +415,8 @@ def ca_step(state: torch.Tensor, stale_buf: torch.Tensor, *,
             grid_mode: str = "compact", fractal: str = "sierpinski-gasket",
             storage: str = "embedded", n: int | None = None,
             domain: BlockDomain | None = None, coarsen: int = 1,
-            num_stages: int = 1) -> torch.Tensor:
+            num_stages: int = 1, mesh=None, shard_axis: str = "data",
+            verify: bool = False) -> torch.Tensor:
     """One CA step (the ``steps=1`` case of :func:`ca_run`), functional
     as in the JAX package: neither argument is modified.
 
@@ -421,4 +426,5 @@ def ca_step(state: torch.Tensor, stale_buf: torch.Tensor, *,
     return ca_run(state, stale_buf, 1, fuse=1, rule=rule, alpha=alpha,
                   block=block, grid_mode=grid_mode, fractal=fractal,
                   storage=storage, n=n, domain=domain, coarsen=coarsen,
-                  num_stages=num_stages, donate=False)
+                  num_stages=num_stages, donate=False, mesh=mesh,
+                  shard_axis=shard_axis, verify=verify)

@@ -30,8 +30,12 @@ follow the state's device: a CUDA tensor launches the kernel of
 the plain version.  Each CUDA wrapper counts its launches in a plain
 integer attribute, ``launches``.
 
-Not ported yet: ``num_stages`` and the tuner (``grid_mode="auto"``,
-ROADMAP A8), ``mesh=`` (A12) and ``verify=`` (A13).
+The entry points take the JAX package's keywords.  ``num_stages`` is
+an integer >= 1: these kernels have no ring, so every depth gives the
+same bits.  Not ported yet, and raising ``NotImplementedError`` naming
+the roadmap item: the tuner (``"auto"`` for ``num_stages``, ``coarsen``
+or ``grid_mode``: ROADMAP A8), ``mesh=`` (A12; ``shard_axis`` alone
+changes nothing) and ``verify=True`` (A13).
 """
 from __future__ import annotations
 
@@ -133,6 +137,34 @@ def prepare_launch(m: torch.Tensor, *, block: int = 128,
     plan = GridPlan(domain, grid_mode, storage=storage, coarsen=coarsen,
                     backend=m)
     return plan, n, block
+
+
+def check_unported(*, mesh=None, verify: bool = False, **knobs) -> None:
+    """Raise NotImplementedError naming the roadmap item of an option the
+    port does not have yet: a tuner knob (``knobs``: name -> value) set
+    to ``"auto"`` (A8), a ``mesh`` (A12), ``verify=True`` (A13)."""
+    for name, value in knobs.items():
+        if isinstance(value, str) and value == "auto":
+            raise NotImplementedError(
+                f"{name}='auto' needs the tuner, which is not ported yet "
+                f"(ROADMAP A8)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sharded execution) is not ported yet (ROADMAP A12)")
+    if verify:
+        raise NotImplementedError(
+            "verify= (static plan verification) is not ported yet "
+            "(ROADMAP A13)")
+
+
+def _check_stages(num_stages) -> None:
+    """Write and sum have no ring: any integer depth >= 1 gives the same
+    bits; anything else but ``"auto"`` (see :func:`check_unported`) is
+    refused."""
+    if isinstance(num_stages, bool) or not isinstance(num_stages, int) \
+            or num_stages < 1:
+        raise ValueError(f"num_stages must be an integer >= 1, got "
+                         f"{num_stages!r}")
 
 
 def _value_of(value, dtype) -> torch.Tensor:
@@ -419,7 +451,9 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
                       fractal: str = "sierpinski-gasket",
                       storage: str = "embedded", n: int | None = None,
                       domain: BlockDomain | None = None,
-                      coarsen: int = 1) -> torch.Tensor:
+                      coarsen: int = 1, num_stages: int = 1, mesh=None,
+                      shard_axis: str = "data",
+                      verify: bool = False) -> torch.Tensor:
     """Write ``value`` to every fractal cell of the (n, n) state ``m``,
     **in place**, and return ``m``.  Cells outside the fractal are not
     touched.  This is the form the paper times.
@@ -427,8 +461,12 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
     grid_mode: closed_form (alias compact) | prefetch_lut | bounding |
     mma; fractal: any registered FractalSpec name; domain: an explicit
     block domain instead (triangular, band, bounding box, or a fractal).
-    A CUDA ``m`` launches the kernel; a CPU ``m`` runs the plain
-    version."""
+    ``num_stages``, ``mesh``, ``shard_axis`` and ``verify`` as in the
+    module docstring.  A CUDA ``m`` launches the kernel; a CPU ``m``
+    runs the plain version."""
+    check_unported(mesh=mesh, verify=verify, num_stages=num_stages,
+                   coarsen=coarsen, grid_mode=grid_mode)
+    _check_stages(num_stages)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
@@ -450,11 +488,16 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
                    fractal: str = "sierpinski-gasket",
                    storage: str = "embedded", n: int | None = None,
                    domain: BlockDomain | None = None,
-                   coarsen: int = 1) -> torch.Tensor:
+                   coarsen: int = 1, num_stages: int = 1, mesh=None,
+                   shard_axis: str = "data",
+                   verify: bool = False) -> torch.Tensor:
     """f32 sum over the fractal cells of ``m``, as a 0-d tensor on its
     device: each step's tile is reduced, then the tiles are added in
     grid-step order (lambda order, or row-major over the bounding box),
     the JAX package's order.  Options as :func:`sierpinski_write_`."""
+    check_unported(mesh=mesh, verify=verify, num_stages=num_stages,
+                   coarsen=coarsen, grid_mode=grid_mode)
+    _check_stages(num_stages)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)

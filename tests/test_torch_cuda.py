@@ -433,19 +433,21 @@ def test_attention_entry_points_launch_the_kernels(dev):
 
 def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
     # D 254 with 2048-key tiles needs more shared memory per CTA than the
-    # card's opt-in limit in the CUDA-core kernel (f32 rows of 254 values
-    # are no whole number of 16-byte pieces, so no tile path takes them);
-    # its wrapper raises before launching.  The tile paths stream any
-    # block_k in sub-tiles, and the decode kernels stage no tile: the
-    # paged one takes 2048-key pages
+    # card's opt-in limit in the CUDA-core kernel, launched directly (no
+    # route takes it); its wrapper raises before launching.  The tile
+    # paths stream any block_k in sub-tiles (the f32 one takes this call,
+    # its 1016-byte rows in 8-byte pieces), and the decode kernels stage
+    # no tile: the paged one takes 2048-key pages
+    torch.backends.cuda.matmul.allow_tf32 = False
     FA.reset_launch_counts()
     q = _randn((1, 1, 1, 254), 15, dev, torch.float32)
     k = _randn((1, 1, 2048, 254), 16, dev, torch.float32)
     sched = FA.flash_schedule(q.shape, k.shape, kind="full", block_q=1,
                               block_k=2048)
-    assert FA.flash_route(sched, q.dtype) == "cuda_core"
     with pytest.raises(ValueError, match="shared memory"):
-        FA.flash_cuda(q, k, k, sched)
+        FA.flash_cuda_core(q, k, k, sched)
+    assert FA.flash_route(sched, q.dtype) == "tc_f32"
+    FA.check_flash_against_plain(q, k, k, sched)
     q = _randn((1, 1, 1, 256), 15, dev, torch.float32)
     pos = torch.tensor([2047], dtype=torch.int32, device=dev)
     pool = _randn((2, 2, 2048, 256), 17, dev, torch.float32)
@@ -455,7 +457,7 @@ def test_flash_kernels_reject_tiles_past_the_shared_memory_limit(dev):
     assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_decode": 0,
                                   "flash_attention_tc": 0,
-                                  "flash_attention_tc_f32": 0,
+                                  "flash_attention_tc_f32": 1,
                                   "paged_flash_attention": 1}
 
 
@@ -659,9 +661,9 @@ def test_flash_tc_f32_kernel_compact_kv_and_seq_pos(dev, grid_mode):
 
 def test_flash_tc_f32_routing_on_the_card(dev):
     # f32 prefill up to head dim 256 takes the 3xTF32 kernel, 8-row
-    # blocks included; a head dim that is no multiple of 4 stays on the
-    # CUDA-core kernel, decode takes the split-K decode kernel, and the
-    # tf32 entry point refuses those (and bf16)
+    # blocks and head rows of no whole number of 16-byte pieces included;
+    # decode takes the split-K decode kernel, and the tf32 entry point
+    # refuses bf16
     torch.backends.cuda.matmul.allow_tf32 = False
     q = _randn((1, 2, 128, 128), 52, dev, torch.float32)
     FA.reset_launch_counts()
@@ -676,15 +678,15 @@ def test_flash_tc_f32_routing_on_the_card(dev):
                         block_k=64)
     ops.flash_attention(q[:, :, :1].contiguous(), q, q, kind="full",
                         block_q=1, block_k=64, seq_pos=100)
-    assert FA.launch_counts() == {"flash_attention": 1,
+    assert FA.launch_counts() == {"flash_attention": 0,
                                   "flash_attention_decode": 1,
                                   "flash_attention_tc": 0,
-                                  "flash_attention_tc_f32": 3,
+                                  "flash_attention_tc_f32": 4,
                                   "paged_flash_attention": 0}
-    for t, blk in ((odd, 64), (q.to(torch.bfloat16), 64)):
-        with pytest.raises(ValueError, match="f32 tensor-core"):
-            FA.flash_tc_f32_cuda(t, t, t, FA.flash_schedule(
-                t.shape, t.shape, block_q=blk, block_k=blk))
+    t = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 tensor-core"):
+        FA.flash_tc_f32_cuda(t, t, t, FA.flash_schedule(
+            t.shape, t.shape, block_q=64, block_k=64))
 
 
 def test_flash_misaligned_f32_views_take_the_tc_f32_kernel(dev):
@@ -778,6 +780,88 @@ def test_ragged_tile_paths_seq_pos_and_nan_past_the_block(dev):
             out = FA.check_flash_against_plain(
                 q, k, v, sp, FA.seq_pos_vector(pos, 3, dev))[1]
             assert torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# head rows that are no whole number of 16-byte pieces on the tile paths
+# (8-, 4- and 2-byte pieces), and the CUDA-core kernel no route takes
+# ---------------------------------------------------------------------------
+
+#: (dtype, D): f32 D 62 (8-byte pieces), D 37 (4), bf16 D 60 (8), D 250
+#: (4), D 37 (2: loaded through registers)
+NARROW_CASES = [(torch.float32, 62), (torch.float32, 37),
+                (torch.bfloat16, 60), (torch.bfloat16, 250),
+                (torch.bfloat16, 37)]
+
+
+@pytest.mark.parametrize("block", [64, 72])
+@pytest.mark.parametrize("dtype,d", NARROW_CASES)
+@pytest.mark.parametrize("kind", ["causal", "full"])
+def test_narrow_rows_take_the_tile_paths(dev, kind, dtype, d, block):
+    # every lowering within tolerance of the plain version (bf16 rows
+    # within ROW_RTOL) and bit-equal to the others, on a tile path; the
+    # tensors end where NaN starts in their buffers, so a read past a row
+    # or a store past the last would show
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def nan_tailed(shape, seed):
+        t = _randn(shape, seed, dev, dtype)
+        buf = torch.full((t.numel() + 4096,), float("nan"), dtype=dtype,
+                         device=dev)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(shape)
+    s = 2 * block
+    q, k, v = (nan_tailed(shape, seed) for shape, seed in (
+        ((2, 4, s, d), 70), ((2, 2, s, d), 71), ((2, 2, s, d), 72)))
+    route = "tc" if dtype == torch.bfloat16 else "tc_f32"
+    FA.reset_launch_counts()
+    outs = []
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(q.shape, k.shape, kind=kind, block_q=block,
+                                  block_k=block, grid_mode=gm)
+        assert FA.flash_route(sched, dtype) == route
+        outs.append(FA.check_flash_against_plain(q, k, v, sched)[1])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.isfinite(outs[0]).all()
+    assert FA.launch_counts()[FA.ROUTE_KERNELS[route]] == len(LOWERINGS)
+    assert FA.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("d", [62, 37])
+def test_f32_loop_forms_agree(dev, d):
+    # D 62 pads up to the d 64 instantiation: its exact loops (the rule)
+    # and the run-time ones both hold to the plain version; D 37 does not
+    # pad up to 64, and the exact form is refused there
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = _randn((1, 4, 256, d), 73, dev, torch.float32)
+    k = _randn((1, 2, 256, d), 74, dev, torch.float32)
+    sched = FA.flash_schedule(q.shape, k.shape, block_q=128, block_k=128)
+    want = FA.flash_attention_plain(q, k, k, sched)
+    runtime = FA.flash_tc_f32_cuda(q, k, k, sched, exact_loops=False)
+    FA._compare(runtime, want, f"f32 D {d} run-time loops")
+    if d == 62:
+        exact = FA.flash_tc_f32_cuda(q, k, k, sched, exact_loops=True)
+        FA._compare(exact, want, f"f32 D {d} exact loops")
+        assert torch.equal(exact, FA.flash_cuda(q, k, k, sched))
+    else:
+        with pytest.raises(RuntimeError):
+            FA.flash_tc_f32_cuda(q, k, k, sched, exact_loops=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_core_kernel_launched_directly_matches_plain(dev, dtype):
+    # no route takes flash_fwd_kernel; launched directly it still holds to
+    # the plain version, at a narrow head dim and at quickstart's 64
+    torch.backends.cuda.matmul.allow_tf32 = False
+    FA.reset_launch_counts()
+    for d in (62, 64):
+        q = _randn((2, 4, 256, d), 75, dev, dtype)
+        k = _randn((2, 2, 256, d), 76, dev, dtype)
+        sched = FA.flash_schedule(q.shape, k.shape, block_q=64, block_k=64)
+        FA._compare(FA.flash_cuda_core(q, k, k, sched),
+                    FA.flash_attention_plain(q, k, k, sched),
+                    f"CUDA-core kernel D {d} {dtype}")
+    assert FA.launch_counts()["flash_attention"] == 2
 
 
 #: (fractal, n, block): at least 16 steps a CTA on the persistent grid,

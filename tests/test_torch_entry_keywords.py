@@ -1,0 +1,88 @@
+"""The write, sum and CA entry points take the JAX package's keywords.
+
+``num_stages``, ``mesh``, ``shard_axis`` and ``verify`` are in the
+reference's signatures (``repro.kernels.sierpinski_write`` /
+``sierpinski_ca``).  The port takes them all: what it has not ported
+raises ``NotImplementedError`` naming the roadmap item that brings it
+(``"auto"``: A8, a mesh: A12, ``verify=True``: A13), ``shard_axis``
+alone changes nothing, and write and sum, which have no ring, give the
+bits of the call without ``num_stages`` at every integer depth.
+"""
+import importlib
+import inspect
+
+import pytest
+import torch
+
+JW = importlib.import_module("repro.kernels.sierpinski_write")
+JCA = importlib.import_module("repro.kernels.sierpinski_ca")
+TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
+TCA = importlib.import_module("repro_torch.kernels.sierpinski_ca")
+
+N, BLOCK = 16, 4
+KEYWORDS = ("num_stages", "mesh", "shard_axis", "verify")
+
+
+def _state():
+    g = torch.Generator().manual_seed(7)
+    return torch.randint(-8, 9, (N, N), generator=g).to(torch.float32)
+
+
+def _call(entry, **kw):
+    m = _state()
+    if entry == "sierpinski_write":
+        return TW.sierpinski_write(m, 2.5, block=BLOCK, **kw)
+    if entry == "sierpinski_write_":
+        return TW.sierpinski_write_(m, 2.5, block=BLOCK, **kw)
+    if entry == "sierpinski_sum":
+        return TW.sierpinski_sum(m, block=BLOCK, **kw)
+    zeros = torch.zeros_like(m)
+    if entry == "ca_run":
+        return TCA.ca_run(TCA.ca_step(m, zeros, block=BLOCK), zeros, 3,
+                          block=BLOCK, **kw)
+    return TCA.ca_step(m, zeros, block=BLOCK, **kw)
+
+
+ENTRIES = ("sierpinski_write", "sierpinski_write_", "sierpinski_sum",
+           "ca_run", "ca_step")
+#: (keywords, the roadmap item named, or None: the call's bits stand)
+CASES = [(dict(num_stages="auto"), "A8"), (dict(coarsen="auto"), "A8"),
+         (dict(mesh=object()), "A12"),
+         (dict(mesh=object(), shard_axis="model"), "A12"),
+         (dict(verify=True), "A13"), (dict(shard_axis="model"), None),
+         (dict(verify=False, mesh=None), None), (dict(num_stages=1), None),
+         (dict(num_stages=3), None)]
+
+
+@pytest.mark.parametrize("kw,item", CASES, ids=[
+    "-".join(f"{k}={'mesh' if k == 'mesh' and v is not None else v}"
+             for k, v in c.items()) for c, _ in CASES])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_unported_keywords_name_their_roadmap_item(entry, kw, item):
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            _call(entry, **kw)
+        return
+    # write and sum have no ring, and the CA's depths give the same bits
+    assert torch.equal(_call(entry, **kw), _call(entry))
+
+
+@pytest.mark.parametrize("entry", ["sierpinski_write", "sierpinski_sum"])
+def test_ring_free_entries_refuse_other_depths(entry):
+    for bad in (0, -2, 1.5, True):
+        with pytest.raises(ValueError, match="num_stages"):
+            _call(entry, num_stages=bad)
+
+
+@pytest.mark.parametrize("port,ref", [
+    (TW.sierpinski_write_, JW.sierpinski_write),
+    (TW.sierpinski_sum, JW.sierpinski_sum),
+    (TCA.ca_run, JCA.ca_run), (TCA.ca_step, JCA.ca_step)])
+def test_the_reference_keywords_are_taken(port, ref):
+    have = inspect.signature(port).parameters
+    for name in KEYWORDS:
+        assert name in inspect.signature(ref).parameters
+        assert name in have and have[name].kind == \
+            inspect.Parameter.KEYWORD_ONLY
+    assert have["shard_axis"].default == \
+        inspect.signature(ref).parameters["shard_axis"].default

@@ -327,7 +327,12 @@ def test_row_check_fails_a_stale_sub_tile_inside_the_elementwise_tolerance():
                                           block_k=24), "tc"),
     (torch.bfloat16, (1, 2, 1, 64), dict(kind="full", block_q=1,
                                          block_k=64), "tc"),
-    (torch.bfloat16, (1, 2, 256, 36), dict(), "cuda_core"),      # d % 8
+    (torch.bfloat16, (1, 2, 256, 36), dict(), "tc"),             # d % 8
+    (torch.bfloat16, (1, 2, 256, 37), dict(), "tc"),             # odd d
+    (torch.bfloat16, (1, 2, 256, 250), dict(), "tc"),            # 4-byte
+    (torch.bfloat16, (1, 2, 96, 1), dict(kind="full", block_q=24,
+                                         block_k=24), "tc"),
+    (torch.bfloat16, (1, 2, 256, 264), dict(), "cuda_core"),     # d > 256
     (torch.float16, (1, 2, 256, 64), dict(), "cuda_core"),
 ])
 def test_flash_route_picks_the_tensor_core_kernel_by_rule(dtype, shape, kw,

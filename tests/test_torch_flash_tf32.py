@@ -416,7 +416,10 @@ def test_dropping_the_lo_terms_fails_the_f32_tolerance(d):
     ((1, 2, 256, 36), dict(), "tc_f32"),                       # d % 8 = 4
     ((1, 2, 96, 64), dict(kind="full", block_q=24, block_k=24), "tc_f32"),
     ((1, 2, 64, 64), dict(kind="full", block_q=8, block_k=8), "tc_f32"),
-    ((1, 2, 256, 38), dict(), "cuda_core"),                    # d % 4
+    ((1, 2, 256, 38), dict(), "tc_f32"),                       # d % 4
+    ((1, 2, 256, 37), dict(), "tc_f32"),                       # odd d
+    ((1, 2, 256, 62), dict(), "tc_f32"),                       # 8-byte
+    ((1, 2, 96, 255), dict(kind="full", block_q=24, block_k=24), "tc_f32"),
 ])
 def test_flash_route_sends_f32_prefill_to_the_tf32_kernel(shape, kw, route):
     # the route follows shape and dtype alone: a misaligned view keeps it
