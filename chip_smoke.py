@@ -181,11 +181,7 @@ code changed.  ``python3 chip_smoke.py
 phase 12, writes them to chiprun_out/chip_smoke.json and prints no result
 line: a copy of this script run from an earlier tree's root times that
 tree's kernels through the same entry points (flash_cuda, paged_cuda), so
-``--compare`` can pair them with this tree's full runs.  ``python3
-chip_smoke.py --attn-only`` likewise runs phases 1 and 2, then only the
-attn rows of phase 10 and their head-dim sweep (for trees with this
-tree's flash entry points, e.g. two designs of a tile kernel side by
-side).
+``--compare`` can pair them with this tree's full runs.
 ``python3 chip_smoke.py --compare CHANGE.json [...] --parent PARENT.json [...]`` reads the JSON of runs of
 two trees (written to chiprun_out/chip_smoke.json; runs taken in turns
 on one card) and prints every time the change moved outside 0.94-1.06x
@@ -1736,9 +1732,8 @@ def phase_attn(FA, LOWERINGS, dev):
     kernel, its plain version and scaled_dot_product_attention (whose
     device kernels are named); every row also times the CUDA-core kernel,
     which no route takes, on the same inputs (``cuda_core_ms``, launched
-    directly after the counted run), and narrow f32 rows whose head dim
-    pads up to the instantiation's the 3xTF32 kernel's run-time-loop form
-    (``runtime_loops_ms``) beside the exact loops the rule picks.
+    directly after the counted run), and holds its output under the first
+    lowering against the plain version (``cuda_core_max_abs_err``).
     Returns (rows, launches per kernel over the counted runs)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
@@ -1780,20 +1775,13 @@ def phase_attn(FA, LOWERINGS, dev):
                    "ms": time_ms(lambda: FA.flash_cuda(q, k, v, sched), 5),
                    "plain_ms": plain_ms}
             # the CUDA-core kernel on the same inputs, launched directly
-            # (after the counted run)
+            # (after the counted run), checked once a row
+            if gm == LOWERINGS[0]:
+                row["cuda_core_max_abs_err"] = FA._compare(
+                    FA.flash_cuda_core(q, k, v, sched), plain,
+                    f"attn {name} {gm} CUDA-core kernel")
             row["cuda_core_ms"] = time_ms(
                 lambda: FA.flash_cuda_core(q, k, v, sched), 5)
-            if route == "tc_f32" and d % 4 and (d + 7) // 8 * 8 in (
-                    64, 128, 256):
-                # the loop form the rule did not pick, on the same inputs
-                slow = FA.flash_tc_f32_cuda(q, k, v, sched,
-                                            exact_loops=False)
-                row["runtime_loops_max_abs_err"] = FA._compare(
-                    slow, plain, f"attn {name} {gm} run-time loops")
-                row["runtime_loops_ms"] = time_ms(
-                    lambda: FA.flash_tc_f32_cuda(q, k, v, sched,
-                                                 exact_loops=False), 5)
-                del slow
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             nops = 4 * d * b * h * needed_pairs(kind, s, window)
             row["bound_ms"], row["bound_by"], row["peak"] = attn_bound(
@@ -1836,12 +1824,10 @@ def phase_attn(FA, LOWERINGS, dev):
           f"{launches['flash_attention_tc_f32']}")
     for case in dict.fromkeys(r["case"] for r in tc_rows + f32_rows):
         cr = [r for r in tc_rows + f32_rows if r["case"] == case]
-        loops = (f", run-time loops {[r['runtime_loops_ms'] for r in cr]}"
-                 if "runtime_loops_ms" in cr[0] else "")
         print(f"[attn] {cr[0]['kernel']} {case} (D {cr[0]['d']}, blocks "
-              f"{cr[0]['blocks']}): ms {[r['ms'] for r in cr]}{loops} "
-              f"against the CUDA-core kernel's "
-              f"{[r['cuda_core_ms'] for r in cr]}, bound "
+              f"{cr[0]['blocks']}): ms {[r['ms'] for r in cr]} against the "
+              f"CUDA-core kernel's {[r['cuda_core_ms'] for r in cr]} (max "
+              f"|err| {cr[0]['cuda_core_max_abs_err']}), bound "
               f"{cr[0]['bound_ms']} ms ({cr[0]['peak']}), SDPA "
               f"{cr[0]['library_ms']} ms")
     print(f"[attn] launches of the counted entry-point runs: {launches}")
@@ -2405,15 +2391,6 @@ def main():
             phase_sass(_cuda, _cuda.build())
         print("[build-only] built and reported; no phase run, no result")
         return
-    if "--attn-only" in sys.argv[1:]:
-        rows, _ = phase_attn(FA, LOWERINGS, dev)
-        OUT.parent.mkdir(parents=True, exist_ok=True)
-        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
-                                   "attn": rows,
-                                   "attn_dims": attn_dims(FA, dev)},
-                                  indent=1))
-        print("[attn-only] attention timings written; no result")
-        return
     if "--decode-only" in sys.argv[1:]:
         decode = decode_timings(FA, P, get_config("quickstart"), dev)
         OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -2545,9 +2522,9 @@ def main():
     serve_q = next(r for r in serve_runs if r["arch"] == "quickstart")
     serve_g = next(r for r in serve_runs if r["arch"] == "gemma3-12b")
     # the CUDA-core flash kernel (flash_fwd_kernel), which no route takes:
-    # held to its plain version by direct launches, timed beside every
-    # attn row (cuda_core_ms); not a kernel of the main paths, so not in
-    # the kernels line
+    # held to its plain version by direct launches and on every attn row,
+    # timed beside every attn row (cuda_core_ms); not a kernel of the main
+    # paths, so not in the kernels line
     g32 = next(r for r in attn_rows if r["case"] == "gemma3-12b causal f32"
                and r["lowering"] == "closed_form")
     at_cf = {r["case"]: r for r in attn_rows
@@ -2558,7 +2535,9 @@ def main():
         "kernel": "flash_fwd_kernel", "launches_main_paths":
             attn_launches["flash_attention"],
         "parity_cases": attn_cases["flash_attention"],
-        "max_abs_err": attn_err["flash_attention"],
+        "max_abs_err": max([attn_err["flash_attention"]]
+                           + [r["cuda_core_max_abs_err"] for r in attn_rows
+                              if "cuda_core_max_abs_err" in r]),
         "ms_by_case": {case: r["cuda_core_ms"] for case, r in at_cf.items()}}
     # the decode kernels (one routine, two front ends): timed at the
     # quickstart serving shapes, with the gemma3-12b decode shape beside
@@ -2645,9 +2624,9 @@ def main():
         "ragged": {key: at_cf["quickstart causal S 4104"][key]
                    for key in ragged_keys},
         # rows of 248 bytes in 8-byte pieces: D 62, the exact loops over
-        # 64 columns, the run-time-loop form beside
+        # 64 columns
         "narrow": {key: at_cf["quickstart causal D 62"][key]
-                   for key in ragged_keys + ("runtime_loops_ms", "d")},
+                   for key in ragged_keys + ("d",)},
         "parity_cases": attn_cases["flash_attention_tc_f32"],
         "cuda_core_kernel": cuda_core})
     OUT.parent.mkdir(parents=True, exist_ok=True)

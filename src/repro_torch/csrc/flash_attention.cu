@@ -1318,12 +1318,10 @@ int flash_tc(const long long* params, float scale, const void* q,
 // is not a multiple of 4).  The exact loops (the instantiation's d, whole
 // sub-tiles) run where d is dt and block_k a multiple of the sub-tile or
 // the call ragged, and on narrow calls whose d pads up to dt (the columns
-// from d to dt zero-filled); exact_loops 0 / 1 forces the run-time loops
-// or the exact ones (-1: the rule; 1 where the rule could not take them
-// is refused).
+// from d to dt zero-filled).
 int flash_tf32(const long long* params, float scale, const void* q,
                const void* k, const void* v, const int* ext, const int* pos,
-               void* o, cudaStream_t s, int exact_loops = -1) {
+               void* o, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
   if (p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
@@ -1335,10 +1333,8 @@ int flash_tf32(const long long* params, float scale, const void* q,
   const size_t bytes = tf32_smem_bytes(p.d, p.block_q);
   const bool ragged = p.block_q % 16 || p.block_k % 16 || p.d % 8;
   const bool narrow = ring::piece_bytes(4 * p.d) < 16;
-  const bool fits = (narrow ? (p.d + 7) & ~7 : p.d) == dt &&
-                    (ragged || p.block_k % tf32_sub(dt) == 0);
-  const bool exact = exact_loops < 0 ? fits : exact_loops == 1;
-  if (exact && !fits) return (int)cudaErrorInvalidValue;
+  const bool exact = (narrow ? (p.d + 7) & ~7 : p.d) == dt &&
+                     (ragged || p.block_k % tf32_sub(dt) == 0);
   auto kernel = dt == 64    ? tf32_kernel<64>(exact, ragged, narrow)
                 : dt == 128 ? tf32_kernel<128>(exact, ragged, narrow)
                             : tf32_kernel<256>(exact, ragged, narrow);
@@ -1384,17 +1380,6 @@ int fa_forward_tc_f32(const long long* params, float scale, const void* q,
                       const int* pos, void* o, void* stream) {
   return flash_tf32(params, scale, q, k, v, ext, pos, o,
                     static_cast<cudaStream_t>(stream));
-}
-
-// fa_forward_tc_f32 in the loop form `exact_loops` names (0: run-time
-// loop bounds, 1: the exact loops, refused where d does not pad up to the
-// instantiation's), to time the two against each other.
-int fa_forward_tc_f32_loops(const long long* params, float scale,
-                            const void* q, const void* k, const void* v,
-                            const int* ext, const int* pos, void* o,
-                            void* stream, int exact_loops) {
-  return flash_tf32(params, scale, q, k, v, ext, pos, o,
-                    static_cast<cudaStream_t>(stream), exact_loops);
 }
 
 // o (B, H, 1, d) = single-token decode of q (B, H, 1, d) over the caches

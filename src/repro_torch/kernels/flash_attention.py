@@ -515,8 +515,6 @@ _SIGNATURES = {
     "fa_forward_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_bf16": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
     "fa_forward_tc_f32": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
-    "fa_forward_tc_f32_loops": [_P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
-                                _P, ctypes.c_int],
     "fa_decode_f32": [_P, ctypes.c_float] + [_P] * 9,
     "fa_decode_bf16": [_P, ctypes.c_float] + [_P] * 9,
     "fa_paged_decode_f32": [_P, ctypes.c_float] + [_P] * 8,
@@ -631,10 +629,8 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str,
-                  *extra):
-    """Run one flash kernel's C entry point ``fn`` (``extra``: its
-    arguments after the stream); returns the output."""
+def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
+    """Run one flash kernel's C entry point ``fn``; returns the output."""
     if pos is not None and (pos.device != q.device
                             or pos.dtype != torch.int32):
         raise ValueError("seq_pos must be an int32 tensor on q's device")
@@ -647,7 +643,7 @@ def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str,
         status = fn(sched.c_params(pos is not None), sched.scale,
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     _cuda.ptr(ext), _cuda.ptr(pos), out.data_ptr(),
-                    _stream(q.device), *extra)
+                    _stream(q.device))
     _cuda.raise_on(_lib(), status, what)
     return out
 
@@ -689,13 +685,11 @@ def flash_cuda_core(q, k, v, sched: FlashSchedule,
 flash_cuda_core.launches = 0
 
 
-def _launch_tile_path(route, q, k, v, sched, pos, takes: str,
-                      c_fn: Optional[str] = None, *extra):
+def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
     """Launch the tensor-core kernel of ``route`` ("tc" or "tc_f32") after
     checking that :func:`flash_route` sends the call there and that q, k
     and v start on 16-byte boundaries (``takes`` says what it takes);
-    ``c_fn`` names another C entry point of the kernel, taking ``extra``
-    after the stream; returns the output."""
+    returns the output."""
     _check_cuda("flash attention", q, k, v)
     if flash_route(sched, q.dtype) != route or not _aligned(q, k, v):
         raise ValueError(
@@ -703,15 +697,14 @@ def _launch_tile_path(route, q, k, v, sched, pos, takes: str,
             f"{sched.block_q}/{sched.block_k}, head dim {sched.d}, "
             f"16-byte aligned {_aligned(q, k, v)}")
     lib = _lib()
-    name, smem_fn = (("fa_forward_tc_bf16", "fa_tc_smem_bytes")
+    c_fn, smem_fn = (("fa_forward_tc_bf16", "fa_tc_smem_bytes")
                      if route == "tc" else
                      ("fa_forward_tc_f32", "fa_tc_f32_smem_bytes"))
     _check_smem(q.device, getattr(lib, smem_fn)(sched.d, sched.block_q),
                 f"block_q={sched.block_q} at head dim {sched.d} (tensor "
                 f"cores, {q.dtype})")
-    return _launch_flash(getattr(lib, c_fn or name), q, k, v, sched, pos,
-                         f"flash attention kernel (tensor cores, {q.dtype})",
-                         *extra)
+    return _launch_flash(getattr(lib, c_fn), q, k, v, sched, pos,
+                         f"flash attention kernel (tensor cores, {q.dtype})")
 
 
 def flash_tc_cuda(q, k, v, sched: FlashSchedule,
@@ -732,23 +725,14 @@ flash_tc_cuda.launches = 0
 
 
 def flash_tc_f32_cuda(q, k, v, sched: FlashSchedule,
-                      pos: Optional[torch.Tensor] = None,
-                      exact_loops: Optional[bool] = None) -> torch.Tensor:
+                      pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the f32 tensor-core flash kernel (3xTF32; any block_q,
     block_k and head dim up to TF32_MAX_HEAD_DIM, q, k and v 16-byte
-    aligned, as :func:`flash_route` sends them): (B, H, Sq, D) f32.
-    ``exact_loops`` forces a loop form where the kernel's rule would pick
-    (True: the exact loops over the instantiation's head dim, refused
-    where the rule could not take them; False: run-time loop bounds), to
-    time the two against each other on rows that pad up to the
-    instantiation's head dim (f32 D 62)."""
-    takes = (f"f32 tensor-core flash kernel takes 16-byte aligned f32 "
-             f"prefill with a head dim up to {TF32_MAX_HEAD_DIM}")
-    if exact_loops is None:
-        out = _launch_tile_path("tc_f32", q, k, v, sched, pos, takes)
-    else:
-        out = _launch_tile_path("tc_f32", q, k, v, sched, pos, takes,
-                                "fa_forward_tc_f32_loops", int(exact_loops))
+    aligned, as :func:`flash_route` sends them): (B, H, Sq, D) f32."""
+    out = _launch_tile_path(
+        "tc_f32", q, k, v, sched, pos,
+        f"f32 tensor-core flash kernel takes 16-byte aligned f32 prefill "
+        f"with a head dim up to {TF32_MAX_HEAD_DIM}")
     if out.numel():
         flash_tc_f32_cuda.launches += 1
     return out
@@ -822,7 +806,7 @@ def decode_cuda(q, k, v, sched: FlashSchedule,
 
 decode_cuda.launches = 0
 _ROUTES = {"decode": decode_cuda, "tc": flash_tc_cuda,
-           "tc_f32": flash_tc_f32_cuda, "cuda_core": flash_cuda_core}
+           "tc_f32": flash_tc_f32_cuda}
 
 
 def paged_cuda(q, kv_pool, page_table, pos,

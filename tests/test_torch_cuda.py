@@ -827,27 +827,6 @@ def test_narrow_rows_take_the_tile_paths(dev, kind, dtype, d, block):
     assert FA.launch_counts()["flash_attention"] == 0
 
 
-@pytest.mark.parametrize("d", [62, 37])
-def test_f32_loop_forms_agree(dev, d):
-    # D 62 pads up to the d 64 instantiation: its exact loops (the rule)
-    # and the run-time ones both hold to the plain version; D 37 does not
-    # pad up to 64, and the exact form is refused there
-    torch.backends.cuda.matmul.allow_tf32 = False
-    q = _randn((1, 4, 256, d), 73, dev, torch.float32)
-    k = _randn((1, 2, 256, d), 74, dev, torch.float32)
-    sched = FA.flash_schedule(q.shape, k.shape, block_q=128, block_k=128)
-    want = FA.flash_attention_plain(q, k, k, sched)
-    runtime = FA.flash_tc_f32_cuda(q, k, k, sched, exact_loops=False)
-    FA._compare(runtime, want, f"f32 D {d} run-time loops")
-    if d == 62:
-        exact = FA.flash_tc_f32_cuda(q, k, k, sched, exact_loops=True)
-        FA._compare(exact, want, f"f32 D {d} exact loops")
-        assert torch.equal(exact, FA.flash_cuda(q, k, k, sched))
-    else:
-        with pytest.raises(RuntimeError):
-            FA.flash_tc_f32_cuda(q, k, k, sched, exact_loops=True)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_core_kernel_launched_directly_matches_plain(dev, dtype):
     # no route takes flash_fwd_kernel; launched directly it still holds to
