@@ -158,7 +158,24 @@ Phases, each printing its own lines:
              scaled_dot_product_attention, each held to its plain version
              (gemma3-12b: window 1024 and none, paged bit-equal to the
              contiguous kernel at block_k 16);
-13. kernels line (the kernels of the main paths: B1-B3, B4 as the
+13. tune   -- the tuner (repro_torch.core.tune) at full width, from a
+             fresh cache file that REPRO_TORCH_TUNE_CACHE points at
+             before any phase (so no file on the machine changes what the
+             earlier phases run): autotune_write (gasket n = 2**16, rho
+             32, both storages, coarsen up to 4: 24 candidates, a 16 GiB
+             embedded state), autotune_ca (the same problem, parity, 8
+             steps, both storages, fuse up to 8, coarsen up to 4, ring
+             depths 1 and 2: 192 candidates), autotune_flash
+             (quickstart's causal widths, S 4096, f32, blocks 64 / 128 /
+             256) and autotune_paged (quickstart's serving decode, 8
+             slots, 256 tokens, pages of 8 / 16 / 32 / 64); a [tune] line
+             per search (the winner, its us, trials, inviable candidates,
+             seconds) and its three fastest and slowest trials; then every
+             knob at "auto" held bit-equal to the winner spelled out
+             (flash within its tolerance), the kernel's launch count
+             risen, the call against its plain version, and a lookup
+             under another key giving the untuned defaults' bits;
+14. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -194,10 +211,14 @@ to chiprun_out/chip_smoke.json.
 
 Run:  python3 chip_smoke.py
 """
+import atexit
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1410,6 +1431,12 @@ SERVE_TOL = {"float32": 1e-4, "bfloat16": 0.25}
 PAGED_REQUESTS, PAGED_PROMPT, PAGED_NEW = 16, 128, 32
 PAGED_SLOTS, PAGED_PS, PAGED_PAGES = 8, 16, 49
 TIMING_KEYS = ("seconds", "tok_per_s", "ms_per_decode_step")
+#: the [tune] phase: the write/CA problem (gasket n = 2**16 at rho 32), the
+#: CA's steps per measured run, and the flash / paged widths (quickstart's
+#: causal prefill and serving decode, the longest serving length above)
+TUNE_RHO, TUNE_CA_STEPS = 32, 8
+TUNE_FLASH = dict(kind="causal", batch=4, sq=4096, blocks=(64, 128, 256))
+TUNE_PAGED = dict(batch=8, seq=SERVE_RUNS[0][5], page_sizes=(8, 16, 32, 64))
 
 
 def attn_bound(nbytes, nops, dtype, route="cuda_core"):
@@ -2292,6 +2319,266 @@ def decode_timings(FA, P, cfg, dev):
     return out
 
 
+def isolate_tune_cache():
+    """Point REPRO_TORCH_TUNE_CACHE at a fresh file in a temporary
+    directory (removed at exit): the entry points' defaults read the tune
+    cache, so a file left on the machine would change what the phases
+    run."""
+    d = tempfile.mkdtemp(prefix="repro-torch-tune-")
+    atexit.register(shutil.rmtree, d, True)
+    path = os.path.join(d, "tune.json")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = path
+    print(f"[tune] cache file {path} (fresh; REPRO_TORCH_TUNE_CACHE)")
+    return path
+
+
+def tune_search(name, search, n_candidates):
+    """Run one search; print its [tune] line and its three fastest and
+    slowest trials; return its record."""
+    t0 = time.perf_counter()
+    cfg, us, trials = search()
+    secs = time.perf_counter() - t0
+    check(us is not None, f"tune {name}: a fresh cache answered")
+    check(us == min(t for _, t in trials),
+          f"tune {name}: the winner is not the fastest trial")
+    ranked = sorted(trials, key=lambda t: t[1])
+    rec = {"winner": cfg, "us": us, "trials": len(trials),
+           "inviable": n_candidates - len(trials), "seconds": secs,
+           "all_trials": [{"config": c, "us": u} for c, u in trials]}
+    print(f"[tune] {name}: winner {json.dumps(cfg)} at {us:.1f} us; "
+          f"{len(trials)} trials, {rec['inviable']} inviable; {secs:.1f} s")
+    print(f"[tune] {name} trials: fastest "
+          f"{json.dumps([[c, round(u, 1)] for c, u in ranked[:3]])}; "
+          f"slowest {json.dumps([ranked[-1][0], round(ranked[-1][1], 1)])}")
+    return rec
+
+
+def launched(mod, name, before, what):
+    """Check that ``mod``'s kernel ``name`` launched since its counts
+    ``before``; returns how often."""
+    now = mod.launch_counts()[name]
+    check(now > before[name], f"{what}: kernel {name} not launched")
+    return now - before[name]
+
+
+def tune_check_write(tune, TW, lay, cfg, dev):
+    """write/sum at every knob "auto" against the winner spelled out, the
+    plain versions and, under another key, the untuned defaults."""
+    n, rho = N_MAIN, TUNE_RHO
+    shape = lay.array_shape(rho) if cfg["storage"] == "compact" \
+        else lay.embedded_shape(rho)
+    kw = dict(block=rho, storage=cfg["storage"], n=n)
+    auto = dict(grid_mode="auto", coarsen="auto", num_stages="auto")
+    spelled = dict(grid_mode=cfg["lowering"], coarsen=cfg["coarsen"],
+                   num_stages=1)
+    a = torch.zeros(shape, dtype=torch.float32, device=dev)
+    b = torch.zeros_like(a)
+    before = TW.launch_counts()
+    TW.sierpinski_write_(a, 1.0, **auto, **kw)
+    launched(TW, "sierpinski_write", before, "tune write auto")
+    TW.sierpinski_write_(b, 1.0, **spelled, **kw)
+    check(torch.equal(a, b), "tune write: auto != the winner spelled out")
+    plan, _, _ = TW.prepare_launch(a, grid_mode=cfg["lowering"],
+                                   coarsen=cfg["coarsen"], **kw)
+    b.zero_()
+    TW.sierpinski_write_plain(b, 1.0, plan, n, rho)
+    check(torch.equal(a, b), "tune write: auto != the plain version")
+    del b
+    before = TW.launch_counts()
+    total = TW.sierpinski_sum(a, **auto, **kw)
+    launched(TW, "sierpinski_sum_partials", before, "tune sum auto")
+    check(torch.equal(total, TW.sierpinski_sum(a, **spelled, **kw)),
+          "tune sum: auto != the winner spelled out")
+    check(torch.equal(total, TW.sierpinski_sum_plain(a, plan, n, rho)),
+          "tune sum: auto != the plain version")
+    del a
+    # another key (n = 2**10) is a miss: the untuned defaults' bits
+    small = 1 << 10
+    check(TW.resolve_auto_schedule(
+        "write", {"fractal": "sierpinski-gasket", "n": small, "block": rho},
+        device=dev, grid_mode=("auto", "lowering", "closed_form"),
+        coarsen=("auto", "coarsen", 1)) == ("closed_form", 1),
+        "tune write: another key answered")
+    m = torch.zeros((small, small), dtype=torch.float32, device=dev)
+    check(torch.equal(TW.sierpinski_write(m, 1.0, block=rho, **auto),
+                      TW.sierpinski_write(m, 1.0, block=rho)),
+          "tune write: a miss != the untuned defaults")
+    return {"total": float(total)}
+
+
+def tune_check_ca(tune, TC, lay, cfg, dev):
+    """ca_run at every knob "auto" against the winner spelled out (8
+    steps), one launch against the plain version, and a miss."""
+    n, rho, T = N_MAIN, TUNE_RHO, TUNE_CA_STEPS
+    src = tune.fractal_state("sierpinski-gasket", n, rho, dev, seed=SEED)
+    if cfg["storage"] == "compact":
+        src = lay.pack(src, rho)
+        torch.cuda.empty_cache()
+    kw = dict(block=rho, storage=cfg["storage"], n=n, rule="parity")
+    auto = dict(fuse="auto", grid_mode="auto", coarsen="auto",
+                num_stages="auto")
+    spelled = dict(fuse=cfg["fuse"], grid_mode=cfg["lowering"],
+                   coarsen=cfg["coarsen"], num_stages=cfg["stages"])
+    check(TC.auto_schedule(n=n, block=rho, device=dev) ==
+          (cfg["lowering"], cfg["fuse"], cfg["coarsen"], cfg["stages"]),
+          "tune ca: auto_schedule != the winner")
+    fuse = TC.effective_fuse(cfg["fuse"], T, rho, cfg["coarsen"])
+    before = TC.launch_counts()
+    got = TC.ca_run(src.clone(), torch.zeros_like(src), T, donate=True,
+                    **auto, **kw)
+    check(launched(TC, "sierpinski_ca_fused", before,
+                   "tune ca auto") == len(TC.launch_schedule(T, fuse)),
+          "tune ca: auto launched another schedule")
+    want = TC.ca_run(src, torch.zeros_like(src), T, donate=True, **spelled,
+                     **kw)
+    check(torch.equal(got, want), "tune ca: auto != the winner spelled out")
+    del src, want
+    torch.cuda.empty_cache()
+    # one launch of the auto call against the plain version, from the
+    # 8-step state (zero outside the fractal, as a state must be)
+    before = TC.launch_counts()
+    one = TC.ca_run(got.clone(), torch.zeros_like(got), fuse, donate=True,
+                    **auto, **kw)
+    check(launched(TC, "sierpinski_ca_fused", before,
+                   "tune ca auto, one launch") == 1,
+          "tune ca: one launch expected")
+    plan = TC.check_run(got, one, block=rho, grid_mode=cfg["lowering"],
+                        storage=cfg["storage"], n=n,
+                        coarsen=cfg["coarsen"])[0]
+    t0 = time.perf_counter()
+    plain = TC.ca_launch_plain(got, torch.zeros_like(got), plan, n, rho,
+                               fuse, fuse, "parity", 0.25)
+    plain_s = time.perf_counter() - t0
+    check(torch.equal(one, plain), "tune ca: auto != the plain version")
+    del got, one, plain
+    torch.cuda.empty_cache()
+    # another key (n = 2**10) is a miss: the untuned defaults' bits
+    small = 1 << 10
+    check(TC.auto_schedule(n=small, block=rho, device=dev) ==
+          ("closed_form", 1, 1, 1), "tune ca: another key answered")
+    x = tune.fractal_state("sierpinski-gasket", small, rho, dev, seed=SEED)
+    check(torch.equal(
+        TC.ca_run(x, torch.zeros_like(x), T, block=rho, donate=False,
+                  **auto),
+        TC.ca_run(x, torch.zeros_like(x), T, block=rho, donate=False,
+                  fuse=1, num_stages=1)),
+        "tune ca: a miss != the untuned defaults")
+    return {"plain_launch_s": plain_s}
+
+
+def tune_check_flash(tune, FA, cfg, h, d, dev):
+    """flash_attention at every knob "auto" against the winner spelled
+    out and the plain version (within TOLERANCE), and a miss."""
+    b, s = TUNE_FLASH["batch"], TUNE_FLASH["sq"]
+    q, k, v = attn_inputs([(b, h, s, d)] * 3, torch.float32, 903, dev)
+    auto = dict(grid_mode="auto", block_q="auto", block_k="auto",
+                num_warps="auto", num_stages="auto")
+    before = FA.launch_counts()
+    got = FA.flash_attention(q, k, v, kind="causal", **auto)
+    launched(FA, "flash_attention_tc_f32", before, "tune flash auto")
+    kw = dict(kind="causal", grid_mode=cfg["lowering"],
+              block_q=cfg["block_q"], block_k=cfg["block_k"])
+    err = FA._compare(got, FA.flash_attention(q, k, v, **kw),
+                      "tune flash: auto vs the winner spelled out")
+    sched = FA.flash_schedule(q.shape, k.shape, **kw)
+    err_plain = FA._compare(got, FA.flash_attention_plain(q, k, v, sched),
+                            "tune flash: auto vs the plain version")
+    # another key (S 2048) is a miss: the untuned defaults
+    q2, k2, v2 = (t[:, :, :s // 2].contiguous() for t in (q, k, v))
+    FA._compare(FA.flash_attention(q2, k2, v2, kind="causal", **auto),
+                FA.flash_attention(q2, k2, v2, kind="causal"),
+                "tune flash: a miss vs the untuned defaults")
+    return {"max_abs_err_spelled": err, "max_abs_err_plain": err_plain}
+
+
+def tune_check_paged(tune, FA, cfg, params, dev):
+    """The paged lookup (the page size is the caller's to apply): a pool
+    at the winner's page size decoded with the winner's lowering and the
+    knobs at "auto", against the plain version and bit-equal to the
+    contiguous decode at block_k == page_size; a miss."""
+    ps, b, seq = cfg["page_size"], params["batch"], params["seq"]
+    h, hkv, d = params["heads"], params["kv_heads"], params["d"]
+    check(tune.best("paged", params, device=dev) == cfg,
+          "tune paged: the lookup != the winner")
+    check(tune.best("paged", {**params, "seq": seq // 2}, device=dev)
+          is None, "tune paged: another key answered")
+    q, k, v = attn_inputs([(b, h, 1, d), (b, hkv, seq, d),
+                           (b, hkv, seq, d)], torch.float32, 904, dev)
+    pool, table = tune.paged_operands(k, v, ps)
+    pos = torch.arange(seq - b, seq, dtype=torch.int32, device=dev)
+    before = FA.launch_counts()
+    got = FA.paged_flash_attention(q, pool, table, pos,
+                                   grid_mode=cfg["lowering"],
+                                   num_warps="auto", num_stages="auto")
+    launched(FA, "paged_flash_attention", before, "tune paged")
+    sched = FA.paged_schedule(q.shape, pool.shape, table.shape)
+    err = FA._compare(got, FA.paged_attention_plain(q, pool, table, pos,
+                                                    sched),
+                      "tune paged: vs the plain version")
+    check(torch.equal(got, FA.flash_attention(
+        q, k, v, kind="full", block_q=1, block_k=ps, seq_pos=pos)),
+        "tune paged: != the contiguous decode at block_k == page_size")
+    return {"max_abs_err_plain": err}
+
+
+def phase_tune(tune, TW, TC, FA, compact_layout, qcfg, dev):
+    """The four searches on the card, then the "auto" paths held against
+    their winners (see the module docstring, phase 13)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[tune] {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"allocated before the searches")
+    n, rho = N_MAIN, TUNE_RHO
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   rho))
+    out = {}
+    grid = dict(fractal="sierpinski-gasket", n=n, block=rho, max_coarsen=4)
+    out["write"] = tune_search("write", lambda: tune.autotune_write(
+        device=dev, **grid), len(list(tune.write_candidates(
+            "sierpinski-gasket", n, rho, max_coarsen=4))))
+    torch.cuda.empty_cache()
+    out["ca"] = tune_search("ca", lambda: tune.autotune_ca(
+        rule="parity", steps=TUNE_CA_STEPS, max_fuse=8, device=dev,
+        **grid), len(list(tune.ca_candidates(
+            "sierpinski-gasket", n, rho, max_fuse=8, max_coarsen=4,
+            device=dev))))
+    torch.cuda.empty_cache()
+    h, d = qcfg.n_heads, qcfg.hd
+    fl = dict(TUNE_FLASH, heads=h, d=d)
+    out["flash"] = tune_search("flash", lambda: tune.autotune_flash(
+        device=dev, **fl), len(list(tune.flash_candidates(
+            fl["sq"], fl["sq"], blocks=fl["blocks"]))))
+    pg = dict(TUNE_PAGED, heads=h, kv_heads=qcfg.n_kv_heads, d=d)
+    out["paged"] = tune_search("paged", lambda: tune.autotune_paged(
+        device=dev, **pg), len(list(tune.paged_candidates(
+            pg["seq"], page_sizes=pg["page_sizes"]))))
+    searches_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out["write"]["check"] = tune_check_write(tune, TW, lay,
+                                             out["write"]["winner"], dev)
+    out["ca"]["check"] = tune_check_ca(tune, TC, lay, out["ca"]["winner"],
+                                       dev)
+    out["flash"]["check"] = tune_check_flash(tune, FA,
+                                             out["flash"]["winner"], h, d,
+                                             dev)
+    params = tune._axis_param(
+        {"batch": pg["batch"], "heads": h, "kv_heads": pg["kv_heads"],
+         "seq": pg["seq"], "d": d, "window": 0},
+        "page_sizes", pg["page_sizes"], tune.ALL_PAGE_SIZES)
+    out["paged"]["check"] = tune_check_paged(tune, FA,
+                                             out["paged"]["winner"], params,
+                                             dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["searches_s"], out["checks_s"] = searches_s, \
+        time.perf_counter() - t0
+    print(f"[tune] \"auto\" = the winner spelled out (write, sum, ca_run "
+          f"bit-equal; flash within {FA.TOLERANCE[torch.float32]}), each "
+          f"kernel launched, each against its plain version, every other "
+          f"key on the untuned defaults; searches {searches_s:.1f} s, "
+          f"checks {out['checks_s']:.1f} s, phase {out['seconds']:.1f} s")
+    return out
+
+
 #: keys of chip_smoke.json that hold a time (ms, ms per decode step, a
 #: serving run's seconds); throughputs and bounds are not compared
 TIME_KEY_SUFFIXES = ("_ms", "seconds", "ms_per_decode_step")
@@ -2362,6 +2649,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on a CUDA card")
+    isolate_tune_cache()
     sys.path.insert(0, str(ROOT / "src"))
     import importlib
 
@@ -2369,6 +2657,7 @@ def main():
     from repro_torch.core import domain as D
     from repro_torch.core import fractal as F
     from repro_torch.core import paged as P
+    from repro_torch.core import tune
     from repro_torch.core.compact import (cell_neighbor_tables,
                                           compact_layout, pack_kv)
     from repro_torch.core.plan import LOWERINGS
@@ -2424,6 +2713,8 @@ def main():
     paged = phase_paged(S, FA, qcfg, qmodel, dev)
     decode = decode_timings(FA, P, qcfg, dev)
     print(f"[attention phases] {time.perf_counter() - t_attn:.1f} s")
+    del models, qmodel
+    tuned = phase_tune(tune, TW, TC, FA, compact_layout, qcfg, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -2641,7 +2932,7 @@ def main():
         "attn": attn_rows, "attn_clones": clones, "attn_dims": dims,
         "serve": serve_runs,
         "paged": paged,
-        "decode": decode, "kernels": kernels,
+        "decode": decode, "tune": tuned, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "
           f"{OUT.relative_to(ROOT)}")

@@ -16,11 +16,15 @@ resolves its halo gathers through lambda^-1.  ``--storage embedded``
 keeps the dense layout for A/B.
 
 Runs on the card by default; ``--device cpu`` runs the kernel's plain
-PyTorch version.  The tuner's ``auto`` schedule is not ported yet, so
-the schedule defaults to the JAX package's untuned one (fuse 1,
-coarsen 1, closed_form).
+PyTorch version.  ``--fuse``, ``--coarsen`` and ``--grid-mode`` take
+``auto``: the schedule the tune cache holds for this problem on the
+device (:mod:`repro_torch.core.tune`), or the JAX package's untuned one
+(fuse 1, coarsen 1, closed_form).  ``--autotune`` first searches the
+schedule axes for this problem and storage, persists the winner and runs
+with it (on the CPU it times the plain version).
 
 Run:  PYTHONPATH=src python examples/torch_ca_simulation.py [--steps 16]
+      [--autotune]
 """
 import argparse
 
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.core import backend
 from repro_torch.core import fractal as F
+from repro_torch.core import tune
 from repro_torch.core.compact import CompactLayout
 from repro_torch.core.domain import make_fractal_domain
 from repro_torch.kernels import ops, sierpinski_ca
@@ -82,20 +87,44 @@ def main(argv=None):
                     choices=["parity", "diffusion"])
     ap.add_argument("--storage", default="compact",
                     choices=["embedded", "compact"])
-    ap.add_argument("--fuse", type=int, default=1,
-                    help="steps per kernel launch")
-    ap.add_argument("--coarsen", type=int, default=1,
-                    help="superblock side in blocks")
+    ap.add_argument("--fuse", default="1",
+                    help="steps per kernel launch (int, or 'auto' for the "
+                         "tuned value; untuned default 1)")
+    ap.add_argument("--coarsen", default="1",
+                    help="superblock side in blocks (int or 'auto')")
     ap.add_argument("--grid-mode", default="compact",
                     choices=["compact", "closed_form", "prefetch_lut",
-                             "bounding", "mma"])
+                             "bounding", "mma", "auto"])
+    ap.add_argument("--autotune", action="store_true",
+                    help="search the schedule axes for this problem "
+                         "first, persist the winner, and run with it")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
+    device = backend.default_device(args.device)
+    fuse = args.fuse if args.fuse == "auto" else int(args.fuse)
+    coarsen = args.coarsen if args.coarsen == "auto" else int(args.coarsen)
+    grid_mode = args.grid_mode
+    if args.autotune:
+        cfg, us, trials = tune.autotune_ca(
+            n=args.n, block=args.block, rule=args.rule,
+            storages=(args.storage,), device=device)
+        why = f"measured {us:.0f} us over {len(trials)} configs" \
+            if us is not None else "tune-cache hit"
+        print(f"autotuned: {cfg} ({why})")
+        grid_mode, fuse, coarsen = cfg["lowering"], cfg["fuse"], \
+            cfg["coarsen"]
+    # the same cache lookup ca_run performs, done here so the example can
+    # report the schedule it is about to run
+    grid_mode, fuse, coarsen, num_stages = sierpinski_ca.auto_schedule(
+        n=args.n, block=args.block, rule=args.rule, grid_mode=grid_mode,
+        fuse=fuse, coarsen=coarsen, device=device)
+    print(f"schedule: grid_mode={grid_mode} fuse={fuse} coarsen={coarsen} "
+          f"num_stages={num_stages}")
     final, info = simulate(n=args.n, steps=args.steps, block=args.block,
                            rule=args.rule, storage=args.storage,
-                           fuse=args.fuse, coarsen=args.coarsen,
-                           grid_mode=args.grid_mode, device=args.device,
+                           fuse=fuse, coarsen=coarsen,
+                           grid_mode=grid_mode, device=device,
                            verbose=True)
     print(f"{args.steps} steps in {info['launches']} fused launches on "
           f"{final.device}")

@@ -12,10 +12,10 @@ from .domain import (BandDomain, BlockDomain, BoundingBoxDomain,
                      TriangularDomain, make_attention_domain,
                      make_fractal_domain)
 from .fractal import (CARPET, FRACTALS, HAUSDORFF, SIERPINSKI, VICSEK,
-                      FractalSpec, deinterleave_linear, gasket_volume,
-                      is_member, lambda_inverse, lambda_map,
+                      FractalSpec, all_block_coords, deinterleave_linear,
+                      gasket_volume, is_member, lambda_inverse, lambda_map,
                       lambda_map_linear, membership_grid, orthotope_shape,
-                      scale_level)
+                      pack_to_orthotope, scale_level, unpack_from_orthotope)
 from .plan import (LOWERINGS, STORAGES, GridPlan, LaunchParams,
                    normalize_lowering, normalize_storage,
                    registered_domains)

@@ -28,6 +28,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .backend import default_device
+
 HAUSDORFF = math.log2(3.0)  # H = log2(3) ~ 1.5849625 (Lemma 1)
 
 
@@ -349,3 +351,57 @@ def membership_grid(n: int) -> np.ndarray:
     """Dense boolean occupancy of the embedded gasket via the bit test."""
     y, x = np.mgrid[0:n, 0:n]
     return (x & (n - 1 - y)) == 0
+
+
+# ---------------------------------------------------------------------------
+# Device utilities: the block table and the orthotope bridges
+# ---------------------------------------------------------------------------
+
+def all_block_coords(r: int, device=None) -> torch.Tensor:
+    """(3**r, 2) int32 tensor of embedded coords for every gasket block,
+    enumerated in linear lambda order (the canonical compact layout
+    order), on ``device`` (the card unless the caller names another)."""
+    i = torch.arange(3 ** r, dtype=torch.int64,
+                     device=default_device(device))
+    lx, ly = lambda_map_linear(i, r)
+    return torch.stack([lx, ly], dim=-1).to(torch.int32)
+
+
+def _orthotope_lambda(r: int, device):
+    """lambda of every orthotope cell (w_y, w_x), as int64 tensors shaped
+    like the (3**ceil(r/2), 3**floor(r/2)) orthotope."""
+    ox, oy = orthotope_shape(r)
+    wy = torch.arange(oy, dtype=torch.int64, device=device)[:, None]
+    wx = torch.arange(ox, dtype=torch.int64, device=device)[None, :]
+    return lambda_map(wx.expand(oy, ox), wy.expand(oy, ox), r)
+
+
+def _on_device(arr, device) -> torch.Tensor:
+    """``arr`` as a tensor on ``device``; with ``device=None`` a tensor
+    stays where it is and anything else goes to the card."""
+    if device is None and isinstance(arr, torch.Tensor):
+        return arr
+    return torch.as_tensor(arr, device=default_device(device))
+
+
+def pack_to_orthotope(grid, r: int, device=None) -> torch.Tensor:
+    """Gather an embedded n x n array into the compact (3**ceil, 3**floor)
+    orthotope layout (Lemma 2): grid[y, x] -> packed[w_y, w_x].  The
+    result lies on ``device``: the grid's own when it is a tensor and no
+    device is named, else the card unless the caller names another."""
+    grid = _on_device(grid, device)
+    lx, ly = _orthotope_lambda(r, grid.device)
+    return grid[ly, lx]
+
+
+def unpack_from_orthotope(packed, r: int, n: int, fill=0,
+                          device=None) -> torch.Tensor:
+    """Scatter the compact orthotope layout back into the embedded n x n
+    (trailing dims carried along); cells outside the gasket get
+    ``fill``.  ``device`` as in :func:`pack_to_orthotope`."""
+    packed = _on_device(packed, device)
+    lx, ly = _orthotope_lambda(r, packed.device)
+    out = torch.full((n, n) + tuple(packed.shape[2:]), fill,
+                     dtype=packed.dtype, device=packed.device)
+    out[ly, lx] = packed
+    return out

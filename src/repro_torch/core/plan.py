@@ -31,8 +31,9 @@ scalar launch parameters the CUDA kernels take.
     below 2**24 (a plan beyond that bound raises ``ValueError``).
 
 ``"compact"`` is accepted as an alias of ``closed_form``.  The tuner's
-``"auto"`` is not ported yet and raises ``NotImplementedError`` naming
-the roadmap item that brings it.
+``"auto"`` is not a lowering: the kernel entry points resolve it from
+the tune cache (:mod:`repro_torch.core.tune`) before a plan is made, and
+a plan given it raises ``ValueError``, as in the JAX package.
 
 Domains: the fractals (gasket, any FractalSpec) and the row-major
 domains of attention (triangular, band, bounding box) all have a
@@ -72,9 +73,6 @@ from .domain import (BandDomain, BlockDomain, BoundingBoxDomain,
 
 LOWERINGS = ("closed_form", "prefetch_lut", "bounding", "mma")
 _ALIASES = {"compact": "closed_form"}
-#: lowerings the JAX package has and this port does not yet, with the
-#: roadmap item that brings each.
-_UNPORTED_LOWERINGS = {"auto": "A8"}
 
 STORAGES = ("embedded", "compact")
 
@@ -105,10 +103,6 @@ C_PARAMS = ("family", "lowering", "r_b", "k", "m", "r_cell", "n", "block",
 def normalize_lowering(name: str) -> str:
     """Map user-facing lowering names (incl. the alias) to canonical."""
     name = _ALIASES.get(name, name)
-    if name in _UNPORTED_LOWERINGS:
-        raise NotImplementedError(
-            f"lowering {name!r} is not ported yet (ROADMAP "
-            f"{_UNPORTED_LOWERINGS[name]})")
     if name not in LOWERINGS:
         raise ValueError(
             f"unknown lowering {name!r}; expected one of {LOWERINGS} "

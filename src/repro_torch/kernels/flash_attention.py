@@ -55,8 +55,23 @@ launch the kernels of ``csrc/flash_attention.cu`` (or raise), CPU
 tensors run the plain versions.  Each CUDA wrapper counts its launches
 in ``launches``.
 
-Forward only.  Not ported yet: the tuner (``"auto"``, ``num_warps``,
-``num_stages``: ROADMAP A8), ``mesh=`` and the shard balances (A12),
+``flash_attention``'s ``grid_mode``, ``block_q``, ``block_k``,
+``num_warps`` and ``num_stages`` accept ``"auto"``: a lookup of the
+``"flash"`` entry of the tune cache (:mod:`repro_torch.core.tune`) under
+``{kind, batch, heads, kv_heads, sq, sk, d, window}`` and the tensors'
+target, never a measurement; an untuned problem gets the JAX package's
+defaults (closed_form, 128 x 128 blocks), an explicit value is never
+overridden.  ``num_warps`` and ``num_stages`` are taken, whatever their
+value, as the JAX package's TPU structure takes them, and give the same
+bits: the port's kernels fix their warps and their ring depth per
+instantiation (``tc_stages``, ``kTfStages`` in ``csrc/flash_attention.cu``),
+so the tuner does not search them.  ``paged_flash_attention`` takes them
+the same way and has no lookup of its own, as in the JAX package: its
+``grid_mode="auto"`` is an unknown lowering, and the page size
+:func:`repro_torch.core.tune.autotune_paged` picks is the caller's to
+apply to its pool.
+
+Forward only.  Not ported yet: ``mesh=`` and the shard balances (A12),
 ``verify=`` (A13), and the backward (A11).
 """
 from __future__ import annotations
@@ -76,6 +91,7 @@ from repro_torch.core.domain import BlockDomain, make_attention_domain
 from repro_torch.core.plan import GridPlan, normalize_lowering, normalize_storage
 
 from . import _cuda
+from .sierpinski_write import resolve_auto_schedule
 
 NEG_INF = float(-1e30)  # avoid true -inf so exp() stays nan-free
 
@@ -97,15 +113,9 @@ TABLE_LOWERINGS = ("prefetch_lut", "mma")
 DOM_ALL, DOM_TRIANGULAR, DOM_BAND = 0, 1, 2
 
 
-def _unported(num_warps=None, num_stages=None, mesh=None, verify=False,
-              block_q=None, block_k=None) -> None:
+def _unported(mesh=None, verify=False) -> None:
     """Raise NotImplementedError naming the roadmap item of an option
     the port does not have yet."""
-    if "auto" in (block_q, block_k) or num_warps not in (None,) or \
-            num_stages not in (None, 1):
-        raise NotImplementedError(
-            "the tuner's 'auto' geometry, num_warps and num_stages are "
-            "not ported yet (ROADMAP A8)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharded flash attention) is not ported yet (ROADMAP "
@@ -697,14 +707,50 @@ def _launch_tile_path(route, q, k, v, sched, pos, takes: str):
             f"{sched.block_q}/{sched.block_k}, head dim {sched.d}, "
             f"16-byte aligned {_aligned(q, k, v)}")
     lib = _lib()
-    c_fn, smem_fn = (("fa_forward_tc_bf16", "fa_tc_smem_bytes")
-                     if route == "tc" else
-                     ("fa_forward_tc_f32", "fa_tc_f32_smem_bytes"))
-    _check_smem(q.device, getattr(lib, smem_fn)(sched.d, sched.block_q),
-                f"block_q={sched.block_q} at head dim {sched.d} (tensor "
-                f"cores, {q.dtype})")
+    _check_tile_smem(lib, route, q.device, sched, q.dtype)
+    c_fn = "fa_forward_tc_bf16" if route == "tc" else "fa_forward_tc_f32"
     return _launch_flash(getattr(lib, c_fn), q, k, v, sched, pos,
                          f"flash attention kernel (tensor cores, {q.dtype})")
+
+
+def _check_tile_smem(lib, route, device, sched: FlashSchedule,
+                     dtype) -> None:
+    """Raise unless a tile path's CTA (``route`` "tc" or "tc_f32") at
+    this block_q and head dim fits the card's shared memory."""
+    smem_fn = lib.fa_tc_smem_bytes if route == "tc" \
+        else lib.fa_tc_f32_smem_bytes
+    _check_smem(device, smem_fn(sched.d, sched.block_q),
+                f"block_q={sched.block_q} at head dim {sched.d} (tensor "
+                f"cores, {dtype})")
+
+
+def _check_decode_smem(lib, device, params, elt: int, d: int) -> None:
+    """Raise unless a decode CTA (either front end) fits the card's
+    shared memory."""
+    _check_smem(device, lib.fa_decode_smem_bytes(params, elt),
+                f"decode at head dim {d}")
+
+
+def check_launch(sched, dtype, device) -> None:
+    """Every refusal a launch of ``sched`` (a :class:`FlashSchedule` or a
+    :class:`PagedSchedule`) on ``device`` raises after the entry point's
+    validation -- the shared memory of its kernel's CTA against the
+    card's -- without launching; nothing on the CPU, whose plain versions
+    have no such limit.  The tuner calls it while building a candidate,
+    so that a refused geometry counts as inviable."""
+    device = torch.device(device)
+    if not backend_lib.resolve(device).kernels:
+        return
+    lib = _lib()
+    elt = dtype.itemsize
+    if isinstance(sched, PagedSchedule):
+        _check_decode_smem(lib, device, sched.c_params(), elt, sched.d)
+        return
+    route = flash_route(sched, dtype)
+    if route in ("tc", "tc_f32"):
+        _check_tile_smem(lib, route, device, sched, dtype)
+    elif route == "decode":
+        _check_decode_smem(lib, device, sched.c_params(True), elt, sched.d)
 
 
 def flash_tc_cuda(q, k, v, sched: FlashSchedule,
@@ -753,8 +799,7 @@ def _decode_launch(fn, params, scale, q, ptrs, what: str) -> None:
     launch is refused."""
     lib = _lib()
     elt = q.element_size()
-    _check_smem(q.device, lib.fa_decode_smem_bytes(params, elt),
-                f"decode at head dim {q.shape[-1]}")
+    _check_decode_smem(lib, q.device, params, elt, q.shape[-1])
     key = (q.device, _stream(q.device))
     need = lib.fa_decode_scratch(params, elt, 1)
     cnt = _DECODE_COUNTERS.get(key)
@@ -954,7 +999,9 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
 
     kind:      "causal" | "local" (window tokens) | "full"
     grid_mode: "closed_form" (alias "compact") | "prefetch_lut" |
-               "bounding" | "mma"
+               "bounding" | "mma" | "auto" (the tuned lowering, and the
+               tuned blocks where block_q / block_k are "auto"; see the
+               module docstring, with num_warps / num_stages)
     storage:   "embedded" (k/v hold the full key sequence) | "compact"
                (k/v hold only the domain's key-block support; pass the
                true key length as ``kv_seq_len``)
@@ -966,8 +1013,20 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     causal requires Sq == Sk; local accepts Sq < Sk with the decode
     convention (queries are the last Sq positions).  CUDA tensors launch
     the kernel, CPU tensors run the plain version."""
-    _unported(num_warps, num_stages, mesh, verify, block_q, block_k)
+    _unported(mesh, verify)
     _check_qkv(q, k, v)
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    sk = kv_seq_len if kv_seq_len is not None else k.shape[2]
+    # num_warps / num_stages change nothing here, so only the geometry
+    # and the lowering are looked up
+    grid_mode, block_q, block_k = resolve_auto_schedule(
+        "flash", {"kind": kind, "batch": b, "heads": h, "kv_heads": hkv,
+                  "sq": sq, "sk": sk, "d": d, "window": window},
+        device=q.device,
+        grid_mode=(grid_mode, "lowering", "closed_form"),
+        block_q=(block_q, "block_q", 128),
+        block_k=(block_k, "block_k", 128))
     sched = flash_schedule(q.shape, k.shape, kind=kind, window=window,
                            scale=scale, block_q=block_q, block_k=block_k,
                            grid_mode=grid_mode, storage=storage,
@@ -997,11 +1056,12 @@ def paged_flash_attention(q, kv_pool, page_table, seq_pos, *,
     window:     optional run-time sliding window anchored at seq_pos.
 
     ``grid_mode`` is validated and, as on the JAX package's gpu
-    structure, does not change the launch.  Bit-equal to
-    ``flash_attention(..., kind="full", seq_pos=...)`` at
+    structure, does not change the launch; ``num_warps`` and
+    ``num_stages`` are taken and change nothing (module docstring).
+    Bit-equal to ``flash_attention(..., kind="full", seq_pos=...)`` at
     ``block_k == page_size`` when the mapped pages hold the same
     values."""
-    _unported(num_warps, num_stages, None, verify)
+    _unported(verify=verify)
     normalize_lowering(grid_mode)
     sched = paged_schedule(q.shape, kv_pool.shape, page_table.shape,
                            window=window, scale=scale)

@@ -45,10 +45,20 @@ step i + k - 1 with ``cp.async`` while step i's trapezoid runs (k = 1
 gathers, waits and computes).  Every depth gives the same bits; the plain
 version ignores it.
 
-Not ported yet: ``mesh=`` (ROADMAP A12), ``verify=`` (A13) and the
-tuner's ``"auto"`` knobs (A8), which the entry points take and refuse
-with ``NotImplementedError`` naming the item (``shard_axis`` alone
-changes nothing), and CA states other than f32.
+``fuse``, ``coarsen``, ``grid_mode`` and ``num_stages`` accept
+``"auto"`` (``fuse`` and ``num_stages`` by default, as in the JAX
+package): a lookup of the ``"ca"`` entry of the tune cache
+(:mod:`repro_torch.core.tune`, :func:`auto_schedule`) under ``{fractal,
+n, block, rule}`` and the state's target, never a measurement.  An
+untuned problem gets the JAX package's defaults (closed_form, fuse 1,
+coarsen 1, one stage), an explicit value is never overridden, a cached
+``storage`` is not applied, and a tuned depth is clamped to
+``MAX_STAGES`` like any other.
+
+Not ported yet: ``mesh=`` (ROADMAP A12) and ``verify=`` (A13), which the
+entry points take and refuse with ``NotImplementedError`` naming the
+item (``shard_axis`` alone changes nothing), and CA states other than
+f32.
 """
 from __future__ import annotations
 
@@ -62,8 +72,8 @@ from repro_torch.core.plan import GridPlan, LaunchParams
 
 from . import _cuda
 from .sierpinski_write import (PLAIN_CHUNK_CELLS, check_unported,
-                               resolve_storage_args, storage_offsets,
-                               supertile_offsets)
+                               resolve_auto_schedule, resolve_storage_args,
+                               storage_offsets, supertile_offsets)
 
 RULES = {"parity": 0, "diffusion": 1}
 #: the deepest ring of the kernel (csrc/sierpinski_ca.cu kMaxStages); the
@@ -318,15 +328,33 @@ def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
 # entry points
 # ---------------------------------------------------------------------------
 
-def _check_schedule(fuse, coarsen, grid_mode, num_stages, mesh=None,
-                    verify=False):
-    """The tuner's knobs, ``mesh=`` and ``verify=`` are not ported:
-    ``"auto"``, a mesh and ``verify=True`` raise, naming the roadmap item
-    that brings them (:func:`check_unported`).  Returns the ring depth:
-    ``num_stages`` (an integer >= 1) clamped to ``MAX_STAGES``, as the
-    JAX package's gpu target clamps deeper requests."""
-    check_unported(mesh=mesh, verify=verify, fuse=fuse, coarsen=coarsen,
-                   grid_mode=grid_mode, num_stages=num_stages)
+def auto_schedule(*, fractal: str = "sierpinski-gasket", n: int,
+                  block: int, rule: str = "parity",
+                  grid_mode: str = "auto", fuse: int | str = "auto",
+                  coarsen: int | str = "auto",
+                  num_stages: int | str = "auto", mesh=None,
+                  shard_axis: str = "data", device=None):
+    """Resolve the (grid_mode, fuse, coarsen, num_stages) schedule for a
+    CA problem from the tune cache -- the exact lookup :func:`ca_run` /
+    :func:`ca_step` perform for tensors on ``device`` (the card unless
+    the caller names another), exposed so callers can report the
+    schedule they are about to run without re-deriving the cache key."""
+    from repro_torch.core import tune
+    return resolve_auto_schedule(
+        "ca", tune.shard_params({"fractal": fractal, "n": n,
+                                 "block": block, "rule": rule},
+                                mesh, shard_axis),
+        device=device,
+        grid_mode=(grid_mode, "lowering", "closed_form"),
+        fuse=(fuse, "fuse", 1),
+        coarsen=(coarsen, "coarsen", 1),
+        num_stages=(num_stages, "stages", 1))
+
+
+def _check_stages(num_stages) -> int:
+    """The ring depth: ``num_stages`` (an integer >= 1) clamped to
+    ``MAX_STAGES``, as the JAX package's gpu target clamps deeper
+    requests."""
     if isinstance(num_stages, bool) or not isinstance(num_stages, int) \
             or num_stages < 1:
         raise ValueError(f"num_stages must be an integer >= 1, got "
@@ -349,12 +377,36 @@ def prepare_run(state: torch.Tensor, stale_buf: torch.Tensor, *,
     return plan, n, block
 
 
+def check_run(state: torch.Tensor, stale_buf: torch.Tensor, *,
+              rule: str = "parity", block: int = 128,
+              grid_mode: str = "compact",
+              fractal: str = "sierpinski-gasket", storage: str = "embedded",
+              n: int | None = None, domain: BlockDomain | None = None,
+              coarsen: int = 1, num_stages: int = 1):
+    """Every refusal a :func:`ca_run` of this explicit schedule raises
+    before its first launch (the options, the buffers, the plan and, on
+    the card, its launch parameters), without running a step.  Returns
+    ``(plan, n, block, ring depth, launch params or None)``."""
+    stages = _check_stages(num_stages)
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}; expected one of "
+                         f"{tuple(RULES)}")
+    plan, n, block = prepare_run(state, stale_buf, block=block,
+                                 grid_mode=grid_mode, fractal=fractal,
+                                 storage=storage, n=n, domain=domain,
+                                 coarsen=coarsen)
+    p = plan.launch_params(n, block, state.device) \
+        if plan.target.kernels else None
+    return plan, n, block, stages, p
+
+
 def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
-           fuse: int = 1, rule: str = "parity", alpha: float = 0.25,
-           block: int = 128, grid_mode: str = "compact",
+           fuse: int | str = "auto", rule: str = "parity",
+           alpha: float = 0.25, block: int = 128,
+           grid_mode: str = "compact",
            fractal: str = "sierpinski-gasket", storage: str = "embedded",
            n: int | None = None, domain: BlockDomain | None = None,
-           coarsen: int = 1, num_stages: int = 1,
+           coarsen: int | str = 1, num_stages: int | str = "auto",
            donate: bool | None = None, mesh=None, shard_axis: str = "data",
            verify: bool = False) -> torch.Tensor:
     """Advance the CA ``steps`` steps and return the final state.
@@ -376,20 +428,20 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     JAX package's gpu target clamps it) is the depth of the kernel's
     ``cp.async`` ring of working tiles; every depth is bit-identical.
 
-    The port's defaults are the JAX package's untuned resolution
-    (fuse 1, coarsen 1, closed_form, one stage); ``"auto"`` knobs,
-    ``mesh=`` and ``verify=True`` raise ``NotImplementedError`` naming
-    the roadmap item that brings them (A8, A12, A13); ``shard_axis``
-    alone changes nothing."""
-    stages = _check_schedule(fuse, coarsen, grid_mode, num_stages, mesh,
-                             verify)
-    if rule not in RULES:
-        raise ValueError(f"unknown rule {rule!r}; expected one of "
-                         f"{tuple(RULES)}")
-    plan, n, block = prepare_run(state, stale_buf, block=block,
-                                 grid_mode=grid_mode, fractal=fractal,
-                                 storage=storage, n=n, domain=domain,
-                                 coarsen=coarsen)
+    ``fuse`` / ``grid_mode`` / ``coarsen`` / ``num_stages`` set to
+    ``"auto"`` resolve from the tune cache (:func:`auto_schedule`;
+    untuned: fuse 1, closed_form, coarsen 1, one stage).  ``mesh=`` and
+    ``verify=True`` raise ``NotImplementedError`` naming the roadmap item
+    that brings them (A12, A13); ``shard_axis`` alone changes nothing."""
+    check_unported(mesh=mesh, verify=verify)
+    grid_mode, fuse, coarsen, num_stages = auto_schedule(
+        fractal=fractal, n=n or state.shape[0], block=block, rule=rule,
+        grid_mode=grid_mode, fuse=fuse, coarsen=coarsen,
+        num_stages=num_stages, device=state.device)
+    plan, n, block, stages, p = check_run(
+        state, stale_buf, rule=rule, block=block, grid_mode=grid_mode,
+        fractal=fractal, storage=storage, n=n, domain=domain,
+        coarsen=coarsen, num_stages=num_stages)
     fuse = effective_fuse(fuse, steps, block, plan.coarsen)
     sched = launch_schedule(steps, fuse)
     if not sched:
@@ -398,15 +450,12 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
         donate = plan.target.kernels
     a, b = (state, stale_buf) if donate else (state.clone(),
                                               stale_buf.clone())
-    if plan.target.kernels:
-        p = plan.launch_params(n, block, a.device)
-        for k in sched:
+    for k in sched:
+        if p is not None:
             ca_cuda(a, b, p, fuse, k, rule, alpha, stages)
-            a, b = b, a
-    else:
-        for k in sched:
+        else:
             ca_launch_plain(a, b, plan, n, block, fuse, k, rule, alpha)
-            a, b = b, a
+        a, b = b, a
     return a
 
 
@@ -414,8 +463,9 @@ def ca_step(state: torch.Tensor, stale_buf: torch.Tensor, *,
             rule: str = "parity", alpha: float = 0.25, block: int = 128,
             grid_mode: str = "compact", fractal: str = "sierpinski-gasket",
             storage: str = "embedded", n: int | None = None,
-            domain: BlockDomain | None = None, coarsen: int = 1,
-            num_stages: int = 1, mesh=None, shard_axis: str = "data",
+            domain: BlockDomain | None = None, coarsen: int | str = 1,
+            num_stages: int | str = "auto", mesh=None,
+            shard_axis: str = "data",
             verify: bool = False) -> torch.Tensor:
     """One CA step (the ``steps=1`` case of :func:`ca_run`), functional
     as in the JAX package: neither argument is modified.

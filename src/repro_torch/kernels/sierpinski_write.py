@@ -32,10 +32,16 @@ integer attribute, ``launches``.
 
 The entry points take the JAX package's keywords.  ``num_stages`` is
 an integer >= 1: these kernels have no ring, so every depth gives the
-same bits.  Not ported yet, and raising ``NotImplementedError`` naming
-the roadmap item: the tuner (``"auto"`` for ``num_stages``, ``coarsen``
-or ``grid_mode``: ROADMAP A8), ``mesh=`` (A12; ``shard_axis`` alone
-changes nothing) and ``verify=True`` (A13).
+same bits.  ``grid_mode``, ``coarsen`` and ``num_stages`` (its default)
+accept ``"auto"``: a lookup of the ``"write"`` entry of the tune cache
+(:mod:`repro_torch.core.tune`) under ``{fractal, n, block}`` and the
+state's target, never a measurement; an untuned problem gets the JAX
+package's defaults (closed_form, coarsen 1, one stage), an explicit
+value is never overridden, and a cached ``storage`` is not applied (the
+state's layout is given).  As in the JAX package the key names the
+``fractal`` argument even when ``domain=`` is given.  Not ported yet,
+and raising ``NotImplementedError`` naming the roadmap item: ``mesh=``
+(A12; ``shard_axis`` alone changes nothing) and ``verify=True`` (A13).
 """
 from __future__ import annotations
 
@@ -139,15 +145,9 @@ def prepare_launch(m: torch.Tensor, *, block: int = 128,
     return plan, n, block
 
 
-def check_unported(*, mesh=None, verify: bool = False, **knobs) -> None:
+def check_unported(*, mesh=None, verify: bool = False) -> None:
     """Raise NotImplementedError naming the roadmap item of an option the
-    port does not have yet: a tuner knob (``knobs``: name -> value) set
-    to ``"auto"`` (A8), a ``mesh`` (A12), ``verify=True`` (A13)."""
-    for name, value in knobs.items():
-        if isinstance(value, str) and value == "auto":
-            raise NotImplementedError(
-                f"{name}='auto' needs the tuner, which is not ported yet "
-                f"(ROADMAP A8)")
+    port does not have yet: a ``mesh`` (A12), ``verify=True`` (A13)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharded execution) is not ported yet (ROADMAP A12)")
@@ -157,10 +157,45 @@ def check_unported(*, mesh=None, verify: bool = False, **knobs) -> None:
             "(ROADMAP A13)")
 
 
+def resolve_auto_schedule(kernel: str, params: dict, *, device=None,
+                          **knobs):
+    """Resolve ``"auto"`` scheduling knobs from the tune cache.
+
+    ``knobs`` maps knob name -> (current value, config key, default);
+    returns the knob values with every ``"auto"`` replaced by the tuned
+    value for ``params`` on ``device``'s target (or the default when
+    this problem was never tuned there).  Values the caller fixed
+    explicitly are passed through untouched, so a tuned lowering never
+    overrides an explicit ``coarsen=``."""
+    def is_auto(v):
+        return isinstance(v, str) and v == "auto"
+
+    if not any(is_auto(v) for v, _, _ in knobs.values()):
+        return tuple(v for v, _, _ in knobs.values())
+    from repro_torch.core import tune
+    cfg = tune.best(kernel, params, device=device) or {}
+    return tuple(cfg.get(key, default) if is_auto(value) else value
+                 for value, key, default in knobs.values())
+
+
+def _write_schedule(m: torch.Tensor, fractal: str, n, block: int,
+                    grid_mode, coarsen, num_stages):
+    """The write/sum schedule with its ``"auto"`` knobs resolved from the
+    tune cache's ``"write"`` entry (the JAX package's key: ``fractal``,
+    ``n or m.shape[0]``, ``block``), the depth checked."""
+    grid_mode, coarsen, num_stages = resolve_auto_schedule(
+        "write", {"fractal": fractal, "n": n or m.shape[0], "block": block},
+        device=m.device,
+        grid_mode=(grid_mode, "lowering", "closed_form"),
+        coarsen=(coarsen, "coarsen", 1),
+        num_stages=(num_stages, "stages", 1))
+    _check_stages(num_stages)
+    return grid_mode, coarsen
+
+
 def _check_stages(num_stages) -> None:
     """Write and sum have no ring: any integer depth >= 1 gives the same
-    bits; anything else but ``"auto"`` (see :func:`check_unported`) is
-    refused."""
+    bits; anything else is refused."""
     if isinstance(num_stages, bool) or not isinstance(num_stages, int) \
             or num_stages < 1:
         raise ValueError(f"num_stages must be an integer >= 1, got "
@@ -451,7 +486,8 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
                       fractal: str = "sierpinski-gasket",
                       storage: str = "embedded", n: int | None = None,
                       domain: BlockDomain | None = None,
-                      coarsen: int = 1, num_stages: int = 1, mesh=None,
+                      coarsen: int | str = 1,
+                      num_stages: int | str = "auto", mesh=None,
                       shard_axis: str = "data",
                       verify: bool = False) -> torch.Tensor:
     """Write ``value`` to every fractal cell of the (n, n) state ``m``,
@@ -459,14 +495,14 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
     touched.  This is the form the paper times.
 
     grid_mode: closed_form (alias compact) | prefetch_lut | bounding |
-    mma; fractal: any registered FractalSpec name; domain: an explicit
-    block domain instead (triangular, band, bounding box, or a fractal).
-    ``num_stages``, ``mesh``, ``shard_axis`` and ``verify`` as in the
-    module docstring.  A CUDA ``m`` launches the kernel; a CPU ``m``
-    runs the plain version."""
-    check_unported(mesh=mesh, verify=verify, num_stages=num_stages,
-                   coarsen=coarsen, grid_mode=grid_mode)
-    _check_stages(num_stages)
+    mma | auto; fractal: any registered FractalSpec name; domain: an
+    explicit block domain instead (triangular, band, bounding box, or a
+    fractal).  ``"auto"``, ``num_stages``, ``mesh``, ``shard_axis`` and
+    ``verify`` as in the module docstring.  A CUDA ``m`` launches the
+    kernel; a CPU ``m`` runs the plain version."""
+    check_unported(mesh=mesh, verify=verify)
+    grid_mode, coarsen = _write_schedule(m, fractal, n, block, grid_mode,
+                                         coarsen, num_stages)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
@@ -488,16 +524,18 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
                    fractal: str = "sierpinski-gasket",
                    storage: str = "embedded", n: int | None = None,
                    domain: BlockDomain | None = None,
-                   coarsen: int = 1, num_stages: int = 1, mesh=None,
+                   coarsen: int | str = 1,
+                   num_stages: int | str = "auto", mesh=None,
                    shard_axis: str = "data",
                    verify: bool = False) -> torch.Tensor:
     """f32 sum over the fractal cells of ``m``, as a 0-d tensor on its
     device: each step's tile is reduced, then the tiles are added in
     grid-step order (lambda order, or row-major over the bounding box),
-    the JAX package's order.  Options as :func:`sierpinski_write_`."""
-    check_unported(mesh=mesh, verify=verify, num_stages=num_stages,
-                   coarsen=coarsen, grid_mode=grid_mode)
-    _check_stages(num_stages)
+    the JAX package's order.  Options (and the ``"write"`` tune entry) as
+    :func:`sierpinski_write_`."""
+    check_unported(mesh=mesh, verify=verify)
+    grid_mode, coarsen = _write_schedule(m, fractal, n, block, grid_mode,
+                                         coarsen, num_stages)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)

@@ -30,7 +30,8 @@ from repro_torch.core.domain import make_fractal_domain as t_fractal_domain
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import sierpinski_ca as TCA
-from torch_parity import assert_rule_close, fractal_state, pair
+from torch_parity import (assert_rule_close, fractal_state,
+                          isolate_tune_caches, pair)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -145,7 +146,7 @@ def test_num_stages_validation():
             TO.ca_run(x, torch.zeros_like(x), 2, block=4, num_stages=bad)
     # deeper requests clamp to the kernel's deepest ring, as the JAX
     # package's gpu target clamps them
-    assert TCA._check_schedule(1, 1, "closed_form", 9) == TCA.MAX_STAGES
+    assert TCA._check_stages(9) == TCA.MAX_STAGES
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +237,11 @@ def test_plain_chunks_agree_with_one_pass(monkeypatch):
     (dict(storage="compact", shape=(32, 32)), ValueError, "does not match"),
     (dict(coarsen=3), ValueError, "must be a power"),
     (dict(coarsen=32), ValueError, "exceeds"),
-    (dict(fuse="auto"), NotImplementedError, "A8"),
-    (dict(coarsen="auto"), NotImplementedError, "A8"),
-    (dict(grid_mode="auto"), NotImplementedError, "A8"),
-    (dict(num_stages="auto"), NotImplementedError, "A8"),
+    # the tuner's knobs: an untuned problem runs the reference's defaults
+    (dict(fuse="auto"), None, None),
+    (dict(coarsen="auto"), None, None),
+    (dict(grid_mode="auto"), None, None),
+    (dict(num_stages="auto"), None, None),
     (dict(grid_mode="mma", block=1, fractal="sierpinski-carpet",
           storage="compact", n=6561, shape=(4096, 4096)), ValueError,
      "2\\^24"),
@@ -250,9 +252,25 @@ def test_plain_chunks_agree_with_one_pass(monkeypatch):
     (dict(block=6), ValueError, "must divide"),
 ])
 @pytest.mark.parametrize("entry", ["ca_run", "ca_step"])
-def test_validation_errors(kw, exc, match, entry):
+def test_validation_errors(kw, exc, match, entry, monkeypatch, tmp_path):
     kw = dict(kw)
     n, block = 16, 4
+    if exc is None and not (entry == "ca_step" and "fuse" in kw):
+        # what the reference does with the same arguments and no tuned
+        # entry: the call runs, on its untuned defaults
+        isolate_tune_caches(monkeypatch, tmp_path)
+        x = fractal_state("sierpinski-gasket", n, True, seed=11)
+        ja, ta = pair(x, "sierpinski-gasket", n, block, "embedded")
+        if entry == "ca_run":
+            want = JO.ca_run(ja, jnp.zeros_like(ja), 3, block=block,
+                             backend="tpu-interpret", **kw)
+            got = TO.ca_run(ta, torch.zeros_like(ta), 3, block=block, **kw)
+        else:
+            want = JO.ca_step(ja, jnp.zeros_like(ja), block=block,
+                              backend="tpu-interpret", **kw)
+            got = TO.ca_step(ta, torch.zeros_like(ta), block=block, **kw)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+        return
     lay = TLayout(t_fractal_domain("sierpinski-gasket", n // block))
     compact = kw.get("storage") == "compact"
     shape = kw.pop("shape", lay.array_shape(block) if compact else (n, n))

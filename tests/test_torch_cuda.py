@@ -7,6 +7,7 @@ there and skips without one.  This file imports neither ``jax`` nor
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import importlib
+import json
 
 import pytest
 import torch
@@ -1147,3 +1148,91 @@ def test_float_partials_equal_across_lowerings_and_storages(dev, fractal, n,
                 got.append(TW.sum_partials_cuda(
                     m, plan.launch_params(n_, blk, dev)))
         assert all(torch.equal(got[0], x) for x in got[1:])
+
+
+# ---------------------------------------------------------------------------
+# the tuner on the card: keys carry the card's name, "auto" is the winner
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tune_cache(monkeypatch, tmp_path):
+    from repro_torch.core import tune
+    path = str(tmp_path / "repro-torch-tune.json")
+    monkeypatch.setenv(tune.CACHE_ENV, path)
+    return path
+
+
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+def test_autotune_write_on_the_card(dev, tune_cache, storage):
+    from repro_torch.core import tune
+    n, block = 256, 8
+    cfg, us, trials = tune.autotune_write(n=n, block=block, max_coarsen=2,
+                                          storages=(storage,), device=dev)
+    assert us > 0 and us == min(t for _, t in trials)
+    assert len(trials) == len(LOWERINGS) * 2
+    entry = next(iter(json.load(open(tune_cache))))
+    key = json.loads(entry)
+    assert key["backend"] == "cuda"
+    assert key["device"] == torch.cuda.get_device_name(dev)
+    # the unrestricted key the "auto" lookups read, then "auto" against
+    # the winner spelled out and the plain version
+    cfg, _, _ = tune.autotune_write(n=n, block=block, max_coarsen=2,
+                                    device=dev)
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   block))
+    m = _state(n, torch.float32, 5, dev)
+    if cfg["storage"] == "compact":
+        m = lay.pack(m, block)
+    kw = dict(block=block, storage=cfg["storage"], n=n)
+    TW.reset_launch_counts()
+    got = ops.sierpinski_write(m, 2.0, grid_mode="auto", coarsen="auto",
+                               num_stages="auto", **kw)
+    assert TW.launch_counts()["sierpinski_write"] == 1
+    want = ops.sierpinski_write(m, 2.0, grid_mode=cfg["lowering"],
+                                coarsen=cfg["coarsen"], num_stages=1, **kw)
+    assert torch.equal(got, want)
+    plan, _, _ = TW.prepare_launch(m, grid_mode=cfg["lowering"],
+                                   coarsen=cfg["coarsen"], **kw)
+    assert torch.equal(got, TW.sierpinski_write_plain(m.clone(), 2.0, plan,
+                                                      n, block))
+    assert torch.equal(
+        ops.sierpinski_sum(m, grid_mode="auto", coarsen="auto", **kw),
+        ops.sierpinski_sum(m, grid_mode=cfg["lowering"],
+                           coarsen=cfg["coarsen"], **kw))
+
+
+def test_autotune_ca_on_the_card(dev, tune_cache):
+    from repro_torch.core import tune
+    n, block = 256, 8
+    cfg, us, trials = tune.autotune_ca(n=n, block=block, steps=4,
+                                       max_fuse=2, max_coarsen=2,
+                                       device=dev)
+    assert us == min(t for _, t in trials)
+    # the ring depth is an axis on the card
+    assert {t["stages"] for t, _ in trials} == {1, 2}
+    assert tune.best("ca", {"fractal": "sierpinski-gasket", "n": n,
+                            "block": block, "rule": "parity"},
+                     device=dev) == cfg
+    assert tune.best("ca", {"fractal": "sierpinski-gasket", "n": n,
+                            "block": block, "rule": "parity"},
+                     device="cpu") is None
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   block))
+    a = tune.fractal_state("sierpinski-gasket", n, block, dev, seed=3)
+    if cfg["storage"] == "compact":
+        a = lay.pack(a, block)
+    kw = dict(block=block, storage=cfg["storage"], n=n, donate=False)
+    TC.reset_launch_counts()
+    got = ops.ca_run(a, torch.zeros_like(a), 5, fuse="auto",
+                     grid_mode="auto", coarsen="auto", num_stages="auto",
+                     **kw)
+    assert TC.launch_counts()["sierpinski_ca_fused"] == \
+        len(TC.launch_schedule(5, TC.effective_fuse(
+            cfg["fuse"], 5, block, cfg["coarsen"])))
+    want = ops.ca_run(a, torch.zeros_like(a), 5, fuse=cfg["fuse"],
+                      grid_mode=cfg["lowering"], coarsen=cfg["coarsen"],
+                      num_stages=cfg["stages"], **kw)
+    assert torch.equal(got, want)
+    plain = ops.ca_run(a.cpu(), torch.zeros_like(a.cpu()), 5, fuse=1,
+                       block=block, storage=cfg["storage"], n=n)
+    assert torch.equal(got.cpu(), plain)

@@ -16,7 +16,8 @@ from repro_torch.core.plan import LOWERINGS
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as TA
-from torch_parity import as_f32, assert_attn_close, qkv_pair
+from torch_parity import (as_f32, assert_attn_close, isolate_tune_caches,
+                          qkv_pair)
 
 import importlib
 
@@ -151,14 +152,34 @@ def test_flash_raises_the_jax_value_errors(what, kw, shape):
     assert str(terr.value) == str(jerr.value)
 
 
-def test_flash_unported_options_name_their_roadmap_item():
-    _, (tq, tk, tv) = qkv_pair(1, 1, 1, 64, 64, 16, seed=10)
-    for kw, item in ((dict(grid_mode="auto"), "A8"),
-                     (dict(grid_mode="auto", kind="local", window=16), "A8"),
-                     (dict(num_stages=2), "A8"), (dict(block_q="auto"), "A8"),
+def test_flash_unported_options_name_their_roadmap_item(monkeypatch,
+                                                        tmp_path):
+    isolate_tune_caches(monkeypatch, tmp_path)  # "auto" misses
+    (jq, jk, jv), (tq, tk, tv) = qkv_pair(1, 1, 1, 64, 64, 16, seed=10)
+    for kw, item in ((dict(grid_mode="auto"), None),
+                     (dict(grid_mode="auto", kind="local", window=16), None),
+                     (dict(num_stages=2), None), (dict(block_q="auto"), None),
                      (dict(mesh=object()), "A12"), (dict(verify=True), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tops.flash_attention(tq, tk, tv, **kw)
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=item):
+                tops.flash_attention(tq, tk, tv, **kw)
+            continue
+        # what the reference does: the untuned defaults (num_stages is
+        # taken and changes nothing); local at the default 128-blocks
+        # refuses a 16-token window, with the same error
+        try:
+            want = jops.flash_attention(jq, jk, jv, backend="tpu-interpret",
+                                        **kw)
+        except ValueError as e:
+            with pytest.raises(ValueError) as err:
+                tops.flash_attention(tq, tk, tv, **kw)
+            assert str(err.value) == str(e)
+            continue
+        got = tops.flash_attention(tq, tk, tv, **kw)
+        base = {key: val for key, val in kw.items()
+                if key in ("kind", "window")}
+        assert torch.equal(got, tops.flash_attention(tq, tk, tv, **base))
+        assert_attn_close(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -110,6 +110,32 @@ def test_gasket_lambda_tables_full(r):
     assert TF.gasket_volume(n) == JF.gasket_volume(n) == 3 ** r
 
 
+@pytest.mark.parametrize("r", range(1, 6))
+def test_orthotope_helpers_match_exactly(r):
+    # A16: repro.core's block table and orthotope bridges, exact as index
+    # tables are; the helpers default to the card, so the CPU is named
+    import jax.numpy as jnp
+    n = 2 ** r
+    got = TF.all_block_coords(r, device="cpu")
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    _eq(got, JF.all_block_coords(r))
+    g = RNG.normal(size=(n, n, 3)).astype(np.float32)
+    want = np.asarray(JF.pack_to_orthotope(jnp.asarray(g), r))
+    packed = TF.pack_to_orthotope(torch.from_numpy(g), r)
+    assert packed.dtype == torch.float32
+    _eq(packed, want)
+    _eq(TF.pack_to_orthotope(g, r, device="cpu"), want)
+    for fill in (0, -1.5):
+        _eq(TF.unpack_from_orthotope(packed, r, n, fill=fill),
+            JF.unpack_from_orthotope(jnp.asarray(want), r, n, fill=fill))
+    ints = np.arange(n * n, dtype=np.int32).reshape(n, n)
+    _eq(TF.unpack_from_orthotope(TF.pack_to_orthotope(ints, r,
+                                                      device="cpu"),
+                                 r, n, fill=-1),
+        JF.unpack_from_orthotope(JF.pack_to_orthotope(jnp.asarray(ints), r),
+                                 r, n, fill=-1))
+
+
 def test_gasket_lambda_spot_checks_r16():
     r = 16
     i = RNG.integers(0, 3 ** r, size=4096).astype(np.int64)

@@ -133,7 +133,9 @@ def test_paged_decode_validation():
     assert torch.equal(
         tops.paged_flash_attention(tq, tpool, ttab, tpos, grid_mode="mma"),
         tops.paged_flash_attention(tq, tpool, ttab, tpos))
-    with pytest.raises(NotImplementedError, match="A8"):
+    # as in the JAX package, the paged entry has no tune lookup of its
+    # own: "auto" is an unknown lowering
+    with pytest.raises(ValueError, match="unknown lowering 'auto'"):
         tops.paged_flash_attention(tq, tpool, ttab, tpos, grid_mode="auto")
     # a scalar position broadcasts to every slot
     assert torch.equal(tops.paged_flash_attention(tq, tpool, ttab, 9),

@@ -22,7 +22,7 @@ from repro.kernels import ops as JO
 from repro_torch.core import fractal as TF
 from repro_torch.core import plan as TP
 from repro_torch.kernels import ops as TO
-from torch_parity import TW
+from torch_parity import TW, isolate_tune_caches
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -78,20 +78,30 @@ def test_quickstart_slice_matches_reference(fractal, n, block, spec):
     (dict(grid_mode="mma", block=1, fractal="sierpinski-carpet",
           storage="compact", n=6561, shape=(4096, 4096)), ValueError,
      "2\\^24"),
-    (dict(grid_mode="auto"), NotImplementedError, "A8"),
+    # an untuned "auto" runs the reference's defaults
+    (dict(grid_mode="auto"), None, None),
     (dict(storage="compact"), ValueError, "needs the embedded size"),
     (dict(coarsen=3), ValueError, "must be a power"),
     (dict(shape=(16, 32)), ValueError, "square"),
     (dict(n=8), ValueError, "does not match"),
 ])
 @pytest.mark.parametrize("entry", ["write", "sum"])
-def test_validation_errors(kw, exc, match, entry):
+def test_validation_errors(kw, exc, match, entry, monkeypatch, tmp_path):
     kw = dict(kw)
     shape = kw.pop("shape", (16, 16))
     kw.setdefault("block", 4)
     m = torch.zeros(shape)
     call = (lambda: TO.sierpinski_write(m, 1.0, **kw)) if entry == "write" \
         else (lambda: TO.sierpinski_sum(m, **kw))
+    if exc is None:
+        # what the reference does with the same arguments
+        isolate_tune_caches(monkeypatch, tmp_path)
+        jm = jnp.zeros(shape)
+        want = JO.sierpinski_write(jm, 1.0, backend="tpu-interpret", **kw) \
+            if entry == "write" else JO.sierpinski_sum(
+                jm, backend="tpu-interpret", **kw)
+        assert np.array_equal(call().numpy(), np.asarray(want))
+        return
     with pytest.raises(exc, match=match):
         call()
 

@@ -139,3 +139,14 @@ def jax_model(arch, seed=0, **replace):
     params = j_init(jax.random.PRNGKey(seed), jcfg)
     tree = jax.tree.map(np.asarray, params)
     return jcfg, params, tcfg, params_from_jax(tree, tcfg, "cpu")
+
+
+def isolate_tune_caches(monkeypatch, tmp_path):
+    """Point both packages' tune caches at fresh files under ``tmp_path``
+    (each package has its own variable and file); returns their paths
+    ``(reference, port)``."""
+    ref, port = str(tmp_path / "repro-tune.json"), \
+        str(tmp_path / "repro-torch-tune.json")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", ref)
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", port)
+    return ref, port
