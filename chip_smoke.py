@@ -144,13 +144,37 @@ Phases, each printing its own lines:
              the plain decode; step logits compared within SERVE_TOL and
              the token streams equal wherever the top-2 margin exceeds
              it; the same for gemma3-12b (6 layers, batch 4, prompt
-             1536, 16 new, max_len 1664, bf16); timings in turns;
+             1536, 16 new, max_len 1664, bf16); timings in turns; every
+             run guarded (the default) must end at ladder level 0, state
+             healthy, with only ``ok`` guard events, and one more kernel
+             guarded and unguarded kernel runs in turns give the guard's
+             cost (guarded_ms_per_decode_step beside
+             unguarded_ms_per_decode_step, medians of three pairs, and
+             guard_screen_ms: the sync and NaN screen of one step's
+             output alone);
 12. paged -- counts set to 0, then PagedServer.run on quickstart: 16
              mixed-length requests, 8 slots, 16-token pages, a pool that
              forces preemptions, the page table verified at every step;
              counts read and held to layers x paged steps; streams
              against the single-request Server oracle and the paged
-             plain-decode run; then both decode kernels timed at their
+             plain-decode run; the same health checks and guarded /
+             unguarded step times as phase 11;
+13. chaos -- the guarded runtime (repro_torch.runtime): the chaos
+             matrix on the card (its poison_tile and corrupt_table faults
+             on the write kernel's launches, detected and recovered
+             bit-identically, the write count risen by exactly those
+             launches); then at quickstart full width, each run counted
+             from 0: transient errors and poisoned results recovered
+             bit-equal to the fault-free stream; the ladder forced from
+             blockspace to xla by rung-0 faults after 8 decode steps
+             (decode launches = layers x 8, the stream equal to the xla
+             run); a SIGTERM mid-decode drained into a decode checkpoint
+             and resumed by a second Server, bit-equal to the
+             uninterrupted run; the substrate canary every 4 steps (one
+             write launch each); the PagedServer's paged-blockspace ->
+             paged-xla step after 10 steps; a ``[chaos]`` JSON line with
+             each scenario and the phase's seconds;
+14. decode -- both decode kernels timed at their
              quickstart serving shapes and at the gemma3-12b decode shape
              (B 4, 16/8 heads of 256 bf16, cache 1664, positions
              1536-1551; contiguous at block_k 128, paged in 16-token
@@ -158,7 +182,7 @@ Phases, each printing its own lines:
              scaled_dot_product_attention, each held to its plain version
              (gemma3-12b: window 1024 and none, paged bit-equal to the
              contiguous kernel at block_k 16);
-13. tune   -- the tuner (repro_torch.core.tune) at full width, from a
+15. tune   -- the tuner (repro_torch.core.tune) at full width, from a
              fresh cache file that REPRO_TORCH_TUNE_CACHE points at
              before any phase (so no file on the machine changes what the
              earlier phases run): autotune_write (gasket n = 2**16, rho
@@ -175,7 +199,7 @@ Phases, each printing its own lines:
              (flash within its tolerance), the kernel's launch count
              risen, the call against its plain version, and a lookup
              under another key giving the untuned defaults' bits;
-14. kernels line (the kernels of the main paths: B1-B3, B4 as the
+16. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -195,7 +219,7 @@ a hash of them (cuobjdump; addresses and encodings dropped), so a copy of
 this script run in an earlier tree's root shows which instantiations'
 code changed.  ``python3 chip_smoke.py
 --decode-only`` runs phases 1 and 2, then only the decode timings of
-phase 12, writes them to chiprun_out/chip_smoke.json and prints no result
+phase 14, writes them to chiprun_out/chip_smoke.json and prints no result
 line: a copy of this script run from an earlier tree's root times that
 tree's kernels through the same entry points (flash_cuda, paged_cuda), so
 ``--compare`` can pair them with this tree's full runs.
@@ -212,6 +236,7 @@ to chiprun_out/chip_smoke.json.
 Run:  python3 chip_smoke.py
 """
 import atexit
+import dataclasses
 import json
 import os
 import shutil
@@ -327,13 +352,18 @@ def bound(nbytes, nops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: the card's name and power limit as nvidia-smi prints them (phase_card),
+#: written beside the serving and chaos timings
+CARD = None
+
+
 def phase_card():
-    global SM_CLOCK_HZ
+    global SM_CLOCK_HZ, CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = CARD = smi.stdout.strip().splitlines()[0]
     print(card)
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1942,11 +1972,46 @@ def clone_timings(FA, dev):
     return out
 
 
-def serve_run(S, cfg, model, prompts, max_new, max_len, kernel):
-    """One Server.generate; returns (tokens, step logits (B, T, V) f32,
-    seconds, ms per decode step).  The step time is the host clock
-    between the logits of consecutive steps (each step ends in a
-    device-to-host copy of its tokens)."""
+def check_healthy(srv, what):
+    """An un-injected run must not have stepped down: ladder level 0,
+    state healthy, no degrade event, and only ``ok`` guard events."""
+    from repro_torch.runtime.guard import GuardEvent, ServerState
+    kinds = sorted({e.kind for e in srv.events if isinstance(e, GuardEvent)})
+    degrades = [e for e in srv.events
+                if isinstance(e, dict) and e.get("kind") == "degrade"]
+    check(srv.ladder.level == 0 and srv.state == ServerState.HEALTHY
+          and not degrades and kinds in ([], ["ok"]),
+          f"{what}: an un-injected run left ladder level "
+          f"{srv.ladder.level}, state {srv.state.value}, guard events "
+          f"{kinds}, {len(degrades)} step(s) down")
+
+
+#: guarded / unguarded serving runs in turns for the guard's cost
+GUARD_PAIRS = 3
+
+
+def guard_screen_ms(out, reps=20):
+    """Host-clock median of the guard's per-call work on ``out`` (one
+    step's output): the stream sync and the NaN screen of every float
+    leaf, after one warm-up."""
+    from repro_torch.runtime.guard import synchronize, validate_finite
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synchronize(out)
+        validate_finite(out, "screen")
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
+
+
+def serve_run(S, cfg, model, prompts, max_new, max_len, kernel,
+              guard=True):
+    """One Server.generate (guarded unless ``guard=False``); returns
+    (tokens, step logits (B, T, V) f32, seconds, ms per decode step).
+    The step time is the host clock between the logits of consecutive
+    steps (each step ends in a device-to-host copy of its tokens).  The
+    run must end at ladder level 0 with only ``ok`` guard events."""
     steps, stamps = [], []
 
     def on_step(pos, lg):
@@ -1954,11 +2019,12 @@ def serve_run(S, cfg, model, prompts, max_new, max_len, kernel):
         steps.append(lg[:, 0].float())
 
     srv = S.Server(cfg.replace(attn_decode_kernel=kernel), model,
-                   S.ServeConfig(max_len=max_len))
+                   S.ServeConfig(max_len=max_len, guard=guard))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = srv.generate(prompts, max_new, on_step=on_step)
     torch.cuda.synchronize()
+    check_healthy(srv, f"serve {kernel} (guard={guard})")
     step_ms = 1e3 * (stamps[-1] - stamps[0]) / max(1, len(stamps) - 1)
     return toks, torch.stack(steps, 1), time.perf_counter() - t0, step_ms
 
@@ -2059,6 +2125,25 @@ def phase_serve(S, TM, get_config, FA, dev):
                                       max_len, "xla")[2:]
         secs2, step_ms2 = serve_run(S, cfg, model, prompts, max_new,
                                     max_len, "blockspace")[2:]
+        # the guard's cost: guarded and unguarded (no stream sync, no NaN
+        # screen a call) kernel runs in turns, and the screen alone
+        pairs = []
+        for i in range(GUARD_PAIRS):
+            ms = {}
+            for guard in ((False, True) if i % 2 == 0 else (True, False)):
+                ms[guard] = serve_run(S, cfg, model, prompts, max_new,
+                                      max_len, "blockspace", guard=guard)[3]
+            pairs.append((ms[True], ms[False]))
+        gms = statistics.median(p[0] for p in pairs)
+        ums = statistics.median(p[1] for p in pairs)
+        logits, cache = TM.prefill(model, torch.as_tensor(prompts,
+                                                          device=dev),
+                                   max_len=max_len, cfg=cfg)
+        screen = guard_screen_ms((logits, cache))
+        print(f"[serve] {arch} blockspace: guarded {gms:.3f} ms per decode "
+              f"step, unguarded {ums:.3f} (medians of {GUARD_PAIRS} pairs in "
+              f"turns); the NaN screen and sync of one step's output "
+              f"{screen:.3f} ms ({CARD})")
         check(tk.shape == (batch, max_new) and bool(torch.isfinite(lk).all()),
               f"{arch}: bad stream shape {tk.shape} or non-finite logits")
         tol = SERVE_TOL[cfg.dtype]
@@ -2069,6 +2154,10 @@ def phase_serve(S, TM, get_config, FA, dev):
                "dtype": cfg.dtype, "launches": launches,
                "seconds": [secs, secs2], "xla_seconds": [xsecs, xsecs2],
                "ms_per_decode_step": [step_ms, step_ms2],
+               "guarded_ms_per_decode_step": gms,
+               "unguarded_ms_per_decode_step": ums,
+               "guard_pairs_ms": pairs, "guard_screen_ms": screen,
+               "card": CARD,
                "xla_ms_per_decode_step": [xstep_ms, xstep_ms2],
                "tok_per_s": tk.size / secs2,
                "xla_tok_per_s": tx.size / xsecs2,
@@ -2120,6 +2209,7 @@ def phase_paged(S, FA, cfg, model, dev):
     check(rep["preemptions"] >= 1, "the pool was not small enough to "
           "preempt")
     check(srv.alloc.free_pages == PAGED_PAGES - 1, "pages leaked")
+    check_healthy(srv, "paged blockspace")
     out = srv.done
     # the paged plain-decode run, then both again for the timing in turns
     # (kernel, plain, plain, kernel)
@@ -2129,8 +2219,31 @@ def phase_paged(S, FA, cfg, model, dev):
     xla = xsrv.done
     xrep.append(S.paged_throughput_report(S.PagedServer(xcfg, model, scfg),
                                           reqs, max_new=PAGED_NEW))
-    again = S.paged_throughput_report(S.PagedServer(bcfg, model, scfg), reqs,
-                                      max_new=PAGED_NEW)
+    again_srv = S.PagedServer(bcfg, model, scfg)
+    again = S.paged_throughput_report(again_srv, reqs, max_new=PAGED_NEW)
+    check_healthy(again_srv, "paged blockspace, second run")
+    check_healthy(xsrv, "paged xla")
+    # the guard's cost: unguarded and guarded runs in turns (the second
+    # kernel run above is the first guarded one), and the screen alone
+    pairs = []
+    for i in range(GUARD_PAIRS - 1):
+        ms = {}
+        for guard in ((False, True) if i % 2 == 0 else (True, False)):
+            run_srv = S.PagedServer(bcfg, model,
+                                    dataclasses.replace(scfg, guard=guard))
+            ms[guard] = S.paged_throughput_report(
+                run_srv, reqs, max_new=PAGED_NEW)["ms_per_decode_step"]
+            check(all(np.array_equal(run_srv.done[r], out[r]) for r in out),
+                  f"the paged run (guard={guard}) differs from the first")
+        pairs.append((ms[True], ms[False]))
+    gms = statistics.median([again["ms_per_decode_step"]]
+                            + [p[0] for p in pairs])
+    ums = statistics.median(p[1] for p in pairs)
+    screen = guard_screen_ms((torch.zeros(PAGED_SLOTS, 1, cfg.padded_vocab,
+                                          device=dev), again_srv.pools))
+    print(f"[paged] guarded {gms:.3f} ms per decode step, unguarded "
+          f"{ums:.3f} (medians, runs in turns); the NaN screen and sync of "
+          f"one step's output {screen:.3f} ms ({CARD})")
     oracle = S.Server(cfg.replace(attn_decode_kernel="xla"), model,
                       S.ServeConfig(max_len=max_len))
     tol = SERVE_TOL[cfg.dtype]
@@ -2154,6 +2267,10 @@ def phase_paged(S, FA, cfg, model, dev):
                 "streams_diverged": diverged,
                 "streams_equal_oracle": diverged == 0,
                 "second_run": {k: again[k] for k in TIMING_KEYS},
+                "guarded_ms_per_decode_step": gms,
+                "unguarded_ms_per_decode_step": ums,
+                "guard_pairs_ms": pairs, "guard_screen_ms": screen,
+                "card": CARD,
                 "xla_runs": [{k: r[k] for k in TIMING_KEYS} for r in xrep]})
     print(f"[paged] {json.dumps(rep)}")
     print(f"[paged] {PAGED_REQUESTS} requests: streams equal the "
@@ -2161,6 +2278,165 @@ def phase_paged(S, FA, cfg, model, dev):
           f"({diverged} divergences, all at top-2 margins <= {tol}); "
           f"page table verified at every step")
     return rep
+
+
+#: the [chaos] phase at quickstart full width: the decode indices of the
+#: injected host faults, the decode step after which rung-0 faults force
+#: the ladder down (Server and PagedServer), the SIGTERM's decode index,
+#: and the canary period
+CHAOS_TRANSIENT = (("transient_error", "serve.prefill", 0, ""),
+                   ("transient_error", "serve.decode", 3, "jax"),
+                   ("poison_result", "serve.decode", 7, ""),
+                   ("transient_error", "serve.decode", 12, ""),
+                   ("poison_result", "serve.decode", 20, ""))
+CHAOS_LADDER_AT, CHAOS_PAGED_LADDER_AT = 8, 10
+CHAOS_SIGTERM_AT, CHAOS_CANARY_EVERY = 10, 4
+
+
+def phase_chaos(S, RC, TW, FA, cfg, model, prompts, dev):
+    """The guarded runtime on the card: the chaos matrix (its kernel
+    faults on the write kernel's launches), then at quickstart full width
+    recovered transient and poisoned steps, the ladder forced down by
+    rung-0 faults (Server and PagedServer), a SIGTERM drained and resumed
+    by a second Server, and the substrate canary every few steps."""
+    t0 = time.perf_counter()
+    res = {}
+    # the matrix (`python -m repro_torch.runtime.chaos --matrix --device
+    # cuda`): poison_tile and corrupt_table hit the write kernel's launches
+    TW.reset_launch_counts()
+    out_path = OUT.parent / "chaos_matrix.json"
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    rc = RC.main(["--matrix", "--device", "cuda", "--quiet", "--out",
+                  str(out_path)])
+    matrix = json.loads(out_path.read_text())
+    writes = TW.launch_counts()["sierpinski_write"]
+    status = {r["fault"]: r["status"] for r in matrix["results"]}
+    print(f"[chaos] matrix: {status}; write kernel launches {writes}")
+    check(rc == 0 and matrix["ok"], f"chaos matrix failed: {status}")
+    check(status.pop("drop_halo") == "skipped" and all(
+        v in ("recovered", "reported") for v in status.values()),
+        f"chaos matrix: {status}")
+    # each kernel scenario: the clean write, the faulted launch, the retry
+    kernel_launches = sum(r["launches"] for r in matrix["results"]
+                          if r["fault"] in RC.PALLAS_FAULTS)
+    check(kernel_launches == 4 and writes == kernel_launches + 2,
+          f"the write kernel launched {writes} times in the matrix, the "
+          f"hook saw {kernel_launches}: expected 4 faulted/retried + 2 "
+          f"clean")
+    res["matrix"] = {"statuses": {r["fault"]: r["status"]
+                                  for r in matrix["results"]},
+                     "write_launches": writes,
+                     "seconds": matrix["seconds"]}
+
+    layers, max_new = cfg.n_layers, SERVE_RUNS[0][4]
+    max_len = SERVE_RUNS[0][5]
+    bcfg = cfg.replace(attn_decode_kernel="blockspace")
+    scfg = S.ServeConfig(max_len=max_len, retries=2, backoff_base_s=0.0)
+    ref = S.Server(bcfg, model, scfg).generate(prompts, max_new)
+    xla = S.Server(cfg.replace(attn_decode_kernel="xla"), model,
+                   scfg).generate(prompts, max_new)
+
+    # transient errors and poisoned results, recovered bit-identically
+    plan = RC.FaultPlan(0, [RC.FaultSpec(k, site, i, mode=m)
+                            for k, site, i, m in CHAOS_TRANSIENT])
+    chaos = RC.ChaosInjector(plan)
+    FA.reset_launch_counts()
+    srv = S.Server(bcfg, model, scfg, chaos=chaos)
+    out = srv.generate(prompts, max_new)
+    n_poison = sum(k == "poison_result" for k, *_ in CHAOS_TRANSIENT)
+    decode = FA.launch_counts()["flash_attention_decode"]
+    check(np.array_equal(out, ref), "transient/poisoned run: the stream "
+          "differs from the fault-free run")
+    check(len(chaos.events) == len(CHAOS_TRANSIENT)
+          and srv.ladder.level == 0,
+          f"transient run: {len(chaos.events)} faults fired, ladder level "
+          f"{srv.ladder.level}")
+    # a poisoned step ran (and launched) before its retry
+    check(decode == layers * (max_new - 1 + n_poison),
+          f"transient run: {decode} decode launches, expected "
+          f"{layers * (max_new - 1 + n_poison)}")
+    res["transient"] = {"status": "recovered", "faults": len(chaos.events),
+                        "recoveries": srv._decode.recoveries
+                        + srv._prefill.recoveries,
+                        "decode_launches": decode}
+
+    # the ladder: every rung-0 attempt of one decode step faults, the
+    # guard exhausts, the server steps down to the plain decode
+    at = CHAOS_LADDER_AT
+    plan = RC.FaultPlan(0, [RC.FaultSpec("transient_error", "serve.decode",
+                                         at + i, rung=0)
+                            for i in range(scfg.retries + 1)])
+    FA.reset_launch_counts()
+    srv = S.Server(bcfg, model, scfg, chaos=RC.ChaosInjector(plan))
+    out = srv.generate(prompts, max_new)
+    decode = FA.launch_counts()["flash_attention_decode"]
+    check(srv.ladder.level == 1 and srv.state.value == "degraded"
+          and srv.ladder.transitions[0]["to"]["decode_kernel"] == "xla",
+          f"ladder: level {srv.ladder.level}, state {srv.state.value}")
+    check(decode == layers * at, f"ladder: {decode} decode launches, "
+          f"expected layers x steps before the transition = {layers * at}")
+    check(np.array_equal(out, xla), "ladder: the stream differs from the "
+          "plain-decode run")
+    res["ladder"] = {"status": "recovered", "level": srv.ladder.level,
+                     "decode_launches": decode, "steps_before": at}
+
+    # SIGTERM mid-decode: drain into a decode checkpoint, resume in a
+    # second Server
+    with tempfile.TemporaryDirectory() as d:
+        ck = dataclasses.replace(scfg, ckpt_dir=d, ckpt_every=1)
+        plan = RC.FaultPlan(0, [RC.FaultSpec("sigterm", "serve.decode",
+                                             CHAOS_SIGTERM_AT)])
+        srv = S.Server(bcfg, model, ck, chaos=RC.ChaosInjector(plan))
+        partial = srv.generate(prompts, max_new)
+        drained = srv.state.value == "draining"
+        out = S.Server(bcfg, model, ck).resume()
+    check(drained and partial.shape[1] < max_new,
+          f"sigterm: state {srv.state.value}, {partial.shape[1]} tokens")
+    check(np.array_equal(out, ref), "sigterm: the resumed stream differs "
+          "from the uninterrupted run")
+    res["sigterm"] = {"status": "recovered", "drained_at": partial.shape[1]}
+
+    # the substrate canary every few decode steps: one write launch each
+    TW.reset_launch_counts()
+    srv = S.Server(bcfg, model, dataclasses.replace(
+        scfg, spot_check_every=CHAOS_CANARY_EVERY))
+    out = srv.generate(prompts, max_new)
+    canaries = TW.launch_counts()["sierpinski_write"]
+    check(canaries == (max_new - 1) // CHAOS_CANARY_EVERY
+          and np.array_equal(out, ref),
+          f"canary: {canaries} write launches, expected "
+          f"{(max_new - 1) // CHAOS_CANARY_EVERY}")
+    check_healthy(srv, "canary run")
+    res["canary"] = {"status": "recovered", "write_launches": canaries}
+
+    # PagedServer: paged-blockspace -> paged-xla
+    reqs = paged_requests(cfg.vocab_size)
+    pcfg = S.PagedServeConfig(max_len=PAGED_PROMPT + PAGED_NEW,
+                              num_slots=PAGED_SLOTS, page_size=PAGED_PS,
+                              num_pages=PAGED_PAGES, retries=1,
+                              backoff_base_s=0.0)
+    want = S.PagedServer(cfg.replace(attn_decode_kernel="xla"), model,
+                         pcfg).run(reqs, max_new=PAGED_NEW)
+    at = CHAOS_PAGED_LADDER_AT
+    plan = RC.FaultPlan(0, [RC.FaultSpec("transient_error", "serve.decode",
+                                         at + i, rung=0)
+                            for i in range(pcfg.retries + 1)])
+    FA.reset_launch_counts()
+    psrv = S.PagedServer(bcfg, model, pcfg, chaos=RC.ChaosInjector(plan))
+    got = psrv.run(reqs, max_new=PAGED_NEW)
+    paged = FA.launch_counts()["paged_flash_attention"]
+    check(psrv.ladder.level == 1 and psrv.state.value == "degraded",
+          f"paged ladder: level {psrv.ladder.level}")
+    check(paged == layers * at, f"paged ladder: {paged} paged launches, "
+          f"expected {layers * at}")
+    check(all(np.array_equal(got[r], want[r]) for r in want),
+          "paged ladder: streams differ from the paged plain-decode run")
+    res["paged_ladder"] = {"status": "recovered", "paged_launches": paged,
+                           "steps_before": at}
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = CARD
+    print(f"[chaos] {json.dumps(res)}")
+    return res
 
 
 def decode_bound(q, hkv, keys):
@@ -2664,6 +2940,7 @@ def main():
     from repro_torch.kernels import _cuda, ops
     from repro_torch.launch import serve as S
     from repro_torch.models import model as TM
+    from repro_torch.runtime import chaos as RC
     TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
     TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
     FA = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -2711,6 +2988,8 @@ def main():
     serve_runs, models = phase_serve(S, TM, get_config, FA, dev)
     qcfg, qmodel, _ = models["quickstart"]
     paged = phase_paged(S, FA, qcfg, qmodel, dev)
+    chaos = phase_chaos(S, RC, TW, FA, qcfg, qmodel,
+                        models["quickstart"][2], dev)
     decode = decode_timings(FA, P, qcfg, dev)
     print(f"[attention phases] {time.perf_counter() - t_attn:.1f} s")
     del models, qmodel
@@ -2920,6 +3199,16 @@ def main():
                    for key in ragged_keys + ("d",)},
         "parity_cases": attn_cases["flash_attention_tc_f32"],
         "cuda_core_kernel": cuda_core})
+    # the [chaos] phase's launches of the kernels it drove, counted there
+    chaos_launches = {
+        "sierpinski_write": chaos["matrix"]["write_launches"]
+        + chaos["canary"]["write_launches"],
+        "flash_attention_decode": chaos["transient"]["decode_launches"]
+        + chaos["ladder"]["decode_launches"],
+        "paged_flash_attention": chaos["paged_ladder"]["paged_launches"]}
+    for entry in kernels:
+        if entry["name"] in chaos_launches:
+            entry["launches_chaos_phase"] = chaos_launches[entry["name"]]
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2931,7 +3220,7 @@ def main():
         "attn_parity_cases": attn_cases, "attn_launches": attn_launches,
         "attn": attn_rows, "attn_clones": clones, "attn_dims": dims,
         "serve": serve_runs,
-        "paged": paged,
+        "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "

@@ -1,0 +1,4 @@
+"""Atomic keep-k checkpoints in the JAX package's on-disk format."""
+from .manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

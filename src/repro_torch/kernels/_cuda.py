@@ -8,6 +8,11 @@ checkout (or ``$REPRO_TORCH_BUILD_DIR``), named by a hash of the
 sources and flags, so an edited source is rebuilt and a stale library
 is never loaded.  Nothing is built or imported at module import: the
 CPU tests import every module on machines without ``nvcc``.
+
+The module also holds the launch hook (:func:`set_launch_hook`), the
+counterpart of the JAX package's emit hook: the fault injector of
+:mod:`repro_torch.runtime.chaos` sees every launch of the write, sum and
+CA entry points through it, on the card and on the CPU alike.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -190,3 +195,50 @@ def check_tables(m, p) -> None:
                                     or p.tile_perm.numel() != want):
         raise ValueError("the tile permutation must be a contiguous "
                          f"int32 tensor of {want} entries")
+
+
+# ---------------------------------------------------------------------------
+# the launch hook
+# ---------------------------------------------------------------------------
+
+class LaunchRecord:
+    """What one launch of a fractal kernel is about to do, handed to the
+    installed launch hook.
+
+    kernel: ``"sierpinski_write"``, ``"sierpinski_sum"`` (the tile
+            reduce; its output is the (steps,) partials, before the
+            combine) or ``"sierpinski_ca"`` (one fused launch).
+    plan, block: the launch's grid plan and block side.
+    dst:    the tensor the launch writes in place (the state of a write,
+            the stale buffer of a CA launch), or None when the launch
+            returns a fresh tensor (the sum's partials).
+    """
+
+    __slots__ = ("kernel", "plan", "block", "dst")
+
+    def __init__(self, kernel: str, plan, block: int,
+                 dst: Optional[torch.Tensor] = None):
+        self.kernel, self.plan, self.block, self.dst = kernel, plan, block, dst
+
+
+#: ``hook(record, run) -> output``: called around each launch of the
+#: write, sum and CA entry points; ``run()`` performs the launch (the
+#: kernel on the card, its plain version on the CPU) and returns its
+#: output, which the hook returns, possibly edited.  None: no hook.
+LAUNCH_HOOK: Optional[Callable] = None
+
+
+def set_launch_hook(hook: Optional[Callable]) -> Optional[Callable]:
+    """Install a launch hook (see :data:`LAUNCH_HOOK`); returns the
+    previous one.  ``None`` uninstalls."""
+    global LAUNCH_HOOK
+    prev = LAUNCH_HOOK
+    LAUNCH_HOOK = hook
+    return prev
+
+
+def hooked(kernel: str, plan, block: int, dst, run: Callable):
+    """``run()`` through the installed launch hook.  Callers test
+    ``LAUNCH_HOOK is None`` first and launch directly then, so a launch
+    without a hook costs that one test."""
+    return LAUNCH_HOOK(LaunchRecord(kernel, plan, block, dst), run)

@@ -32,7 +32,8 @@ written in place, so unvisited blocks stay zero.
 The kernel (``repro_torch/csrc/sierpinski_ca.cu``) sits beside its plain
 PyTorch version :func:`ca_launch_plain`.  The entry points follow the
 state's device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version.
+tensor runs the plain version; each launch runs through the launch hook
+of :mod:`repro_torch.kernels._cuda` when one is installed.
 
 ``domain=`` runs the CA over any block domain with a device-side decode
 (triangular, band, bounding box, or a fractal), with the JAX package's
@@ -452,9 +453,16 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
                                               stale_buf.clone())
     for k in sched:
         if p is not None:
-            ca_cuda(a, b, p, fuse, k, rule, alpha, stages)
+            def run(a=a, b=b, k=k):
+                return ca_cuda(a, b, p, fuse, k, rule, alpha, stages)
         else:
-            ca_launch_plain(a, b, plan, n, block, fuse, k, rule, alpha)
+            def run(a=a, b=b, k=k):
+                return ca_launch_plain(a, b, plan, n, block, fuse, k, rule,
+                                       alpha)
+        if _cuda.LAUNCH_HOOK is None:
+            run()
+        else:
+            _cuda.hooked("sierpinski_ca", plan, block, b, run)
         a, b = b, a
     return a
 

@@ -28,7 +28,9 @@ Each kernel sits beside its plain PyTorch version.  The entry points
 follow the state's device: a CUDA tensor launches the kernel of
 ``repro_torch/csrc/sierpinski_write.cu`` (or raises), a CPU tensor runs
 the plain version.  Each CUDA wrapper counts its launches in a plain
-integer attribute, ``launches``.
+integer attribute, ``launches``.  When a launch hook is installed
+(:func:`repro_torch.kernels._cuda.set_launch_hook`, the fault injector's)
+each write, and each sum's tile reduce, runs through it.
 
 The entry points take the JAX package's keywords.  ``num_stages`` is
 an integer >= 1: these kernels have no ring, so every depth gives the
@@ -507,8 +509,16 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
     if not plan.target.kernels:
-        return sierpinski_write_plain(m, value, plan, n, block)
-    return write_cuda(m, value, plan.launch_params(n, block, m.device))
+        def run():
+            return sierpinski_write_plain(m, value, plan, n, block)
+    else:
+        p = plan.launch_params(n, block, m.device)
+
+        def run():
+            return write_cuda(m, value, p)
+    if _cuda.LAUNCH_HOOK is None:
+        return run()
+    return _cuda.hooked("sierpinski_write", plan, block, m, run)
 
 
 def sierpinski_write(m: torch.Tensor, value=1.0, **kw) -> torch.Tensor:
@@ -540,6 +550,15 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
     if not plan.target.kernels:
-        return sierpinski_sum_plain(m, plan, n, block)
-    p = plan.launch_params(n, block, m.device)
-    return sum_combine_cuda(sum_partials_cuda(m, p))
+        def run():
+            return sum_partials_plain(m, plan, n, block)
+        combine = sum_combine_plain
+    else:
+        p = plan.launch_params(n, block, m.device)
+
+        def run():
+            return sum_partials_cuda(m, p)
+        combine = sum_combine_cuda
+    if _cuda.LAUNCH_HOOK is None:
+        return combine(run())
+    return combine(_cuda.hooked("sierpinski_sum", plan, block, None, run))

@@ -1,4 +1,4 @@
-"""Batched and continuous-batching serving of the port's LM.
+"""Guarded batched and continuous-batching serving of the port's LM.
 
 ``Server``
     Fixed-batch serving: prefill, then one decode step per generated
@@ -15,144 +15,313 @@
     grow on demand, and when the pool runs dry the youngest request is
     preempted and later replayed (recompute-style preemption).
 
+Robustness model (see :mod:`repro_torch.runtime`), as in the JAX
+package:
+
+* every prefill/decode call runs under a
+  :class:`~repro_torch.runtime.guard.GuardedCall` -- per-call deadline,
+  NaN/inf output screens, transient-vs-fatal classification, jittered
+  backoff retries (``ServeConfig(guard=False)`` calls the steps bare);
+* sampling keys derive from ``(seed, slot or request id, position)``
+  (:func:`~repro_torch.runtime.guard.sample_key`), so a retried or
+  resumed decode step reproduces the identical stream;
+* repeated failure walks a :class:`DegradationLadder`
+  (blockspace -> xla decode, an exotic lowering -> closed_form; paged:
+  paged-blockspace -> paged-xla), switching the config the decode step
+  runs under and recording each transition.  A step down happens only
+  after the guard is exhausted; on the card the constructor builds the
+  kernel libraries first, so a build failure raises there and never
+  walks the ladder;
+* SIGTERM flips the state machine healthy -> draining: the decode state
+  (prompts + generated tokens + position) checkpoints atomically and a
+  successor resumes mid-generation (:meth:`Server.resume`),
+  bit-identical to an uninterrupted run;
+* ``spot_check_every`` reruns a 16 x 16 write on the model's device (the
+  write kernel on the card) every that many decode steps, bit-equal to
+  its first run (:meth:`Server.check_substrate`);
+* exhausted recovery emits a machine-readable
+  :class:`~repro_torch.runtime.guard.FailureReport`.
+
 Sampling: greedy at ``temperature == 0`` (the parity mode against the
 JAX package), else top-k sampling from a ``torch.Generator`` seeded by
-``(seed, slot or request id, position)``, so a replayed step draws the
-same token.  These streams differ from the JAX package's
-``jax.random`` streams.
-
-No guard, retries, degradation ladder, chaos, decode checkpoints or
-substrate spot checks yet (ROADMAP A10): a kernel that fails to build
-or launch raises.  No serving mesh (A12).
+the coordinates.  These streams differ from the JAX package's
+``jax.random`` streams.  No serving mesh yet (ROADMAP A12).
 
 Runnable directly:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch quickstart
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
+Chaos smoke (deterministic fault injection; see repro_torch.runtime.chaos):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --chaos-seed 7
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import dataclasses
+import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import paged as paged_lib
+from repro_torch.distributed.fault_tolerance import PreemptionGuard
 from repro_torch.models import ModelConfig, decode_step, prefill
 from repro_torch.models import model as model_lib
+from repro_torch.runtime.guard import (Backoff, DegradationLadder,
+                                       GuardedCall, GuardExhausted,
+                                       ServerState, coordinate_seed,
+                                       sample_key, spot_check,
+                                       validate_finite)
 
 
 @dataclasses.dataclass
 class ServeConfig:
-    """The JAX package's ServeConfig without its robustness fields
-    (``guard``, ``retries``, backoff, deadlines, ``spot_check_every``,
-    ``ckpt_dir``/``ckpt_every``, ``report_dir``), which come with
-    ROADMAP A10."""
+    """The JAX package's ServeConfig, with its defaults."""
     max_len: int = 256
     temperature: float = 0.0       # 0 = greedy
     top_k: int = 40
     seed: int = 0
     eos_id: int = -1               # -1 = never stop early
-    # NaN/inf screen of every step's logits (Server); page-table
-    # verification after every scheduler change (PagedServer)
+    # -- robustness ---------------------------------------------------------
+    guard: bool = True             # False = bare calls (no retries)
+    retries: int = 3
+    backoff_base_s: float = 0.05
+    deadline_s: Optional[float] = None
+    enforce_deadline: bool = False
+    # NaN/inf screen on every guarded output (ValidationError, retried);
+    # PagedServer also verifies its page table after every change
     validate: bool = True
+    spot_check_every: int = 0      # decode steps between substrate canaries
+    ckpt_dir: Optional[str] = None  # decode-state checkpoint directory
+    ckpt_every: int = 0            # decode steps between checkpoints
+    report_dir: Optional[str] = None  # failure reports land here
 
 
 def _sample_row(logits_row: torch.Tensor, scfg: ServeConfig,
-                key: tuple) -> int:
+                key: int) -> int:
     """One token from a (V,) logits row: argmax, or top-k sampling from
-    a CPU generator seeded by ``key`` = (seed, slot or request, pos)."""
+    a CPU generator seeded by ``key`` (a coordinate seed, see
+    :func:`~repro_torch.runtime.guard.sample_key`)."""
     if scfg.temperature <= 0:
         return int(torch.argmax(logits_row))
     scaled = logits_row.detach().to("cpu", torch.float32) / scfg.temperature
     if scfg.top_k:
         kth = torch.topk(scaled, scfg.top_k).values[-1]
         scaled = torch.where(scaled < kth, -1e30, scaled)
-    seed = int(np.random.SeedSequence(
-        [int(x) & 0xFFFFFFFF for x in key]).generate_state(1)[0])
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator().manual_seed(int(key))
     return int(torch.multinomial(torch.softmax(scaled, -1), 1,
                                  generator=g))
 
 
-def _check_finite(logits: torch.Tensor, what: str) -> None:
-    if not bool(torch.isfinite(logits).all()):
-        bad = int((~torch.isfinite(logits)).sum())
-        raise ValueError(f"{what}: {bad} non-finite logits")
-
-
-def _unported(mesh=None, chaos=None) -> None:
+def _unported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "serving on a mesh is not ported yet (ROADMAP A12)")
-    if chaos is not None:
-        raise NotImplementedError(
-            "chaos injection and the guarded runtime are not ported yet "
-            "(ROADMAP A10)")
+
+
+def _build_kernels(device) -> None:
+    """On the card, build the kernel libraries the servers launch (the
+    attention kernels of prefill and decode, and the write kernel of the
+    substrate canary) before any guarded call: a build failure raises
+    here instead of walking the ladder."""
+    if torch.device(device).type == "cuda":
+        from repro_torch.kernels import _cuda
+        _cuda.build(("flash_attention", "sierpinski_write"))
 
 
 class Server:
-    """Prefill + decode loop over a fixed batch, on the model's
-    device."""
+    """Guarded prefill + decode loop over a fixed batch, on the model's
+    device, with the serving state machine (healthy -> degraded ->
+    draining) and the degradation ladder."""
 
     def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig,
                  mesh=None, chaos=None):
-        _unported(mesh, chaos)
-        self.cfg, self.model, self.scfg = cfg, model, scfg
+        _unported(mesh)
+        self.cfg, self.model, self.scfg, self.mesh = cfg, model, scfg, mesh
+        self.chaos = chaos
+        self.state = ServerState.HEALTHY
+        self.events: list = []
+        self.ladder = DegradationLadder(
+            self._rungs(cfg),
+            on_transition=lambda rec: self.events.append(
+                {"kind": "degrade", **rec}))
+        self._canary_ref = None
+        self._ckpt = None
+        if scfg.ckpt_dir:
+            from repro_torch.checkpoint.manager import CheckpointManager
+            self._ckpt = CheckpointManager(scfg.ckpt_dir, keep=2)
+        _build_kernels(model.device)
+        self._decode_cfg = None
+        self._apply_rung(self.ladder.current())
+        self._prefill = self._guarded(
+            "serve.prefill", lambda model, prompts: prefill(
+                model, prompts, max_len=scfg.max_len, cfg=cfg))
+        self._decode = self._guarded(
+            "serve.decode", lambda model, tok, cache, pos: decode_step(
+                model, tok, cache, pos, self._decode_cfg))
+
+    # -- degradation ladder --------------------------------------------------
+
+    @staticmethod
+    def _rungs(cfg: ModelConfig) -> list:
+        """Fallback configs, as-configured first: blockspace decode
+        degrades to the plain decode path, an exotic attention lowering
+        (compact / prefetch_lut / mma) degrades to the closed form."""
+        top = {"decode_kernel": cfg.attn_decode_kernel,
+               "grid_lowering": cfg.grid_lowering}
+        rungs = [top]
+        if cfg.attn_decode_kernel == "blockspace":
+            rungs.append({**top, "decode_kernel": "xla"})
+        if cfg.grid_lowering in ("compact", "prefetch_lut", "mma"):
+            rungs.append({"decode_kernel": "xla",
+                          "grid_lowering": "closed_form"})
+        return rungs
+
+    def _apply_rung(self, rung: dict) -> None:
+        """Run the decode step under this rung's config from now on
+        (prefill and the cache layout are rung-independent)."""
+        self._decode_cfg = self.cfg.replace(
+            attn_decode_kernel=rung["decode_kernel"],
+            grid_lowering=rung["grid_lowering"])
+
+    # -- guard plumbing ------------------------------------------------------
+
+    def _guarded(self, site: str, fn):
+        if self.chaos is not None:
+            fn = self.chaos.wrap(site, fn, rung=lambda: self.ladder.level)
+        if not self.scfg.guard:
+            return fn
+        validators = []
+        if self.scfg.validate:
+            validators.append(lambda o, s=site: validate_finite(o, s))
+        return GuardedCall(
+            fn, site, retries=self.scfg.retries,
+            backoff=Backoff(base_s=self.scfg.backoff_base_s,
+                            seed=self.scfg.seed),
+            deadline_s=self.scfg.deadline_s,
+            enforce_deadline=self.scfg.enforce_deadline,
+            validators=validators,
+            on_event=self.events.append,
+            before_retry=(self.chaos.refresh if self.chaos is not None
+                          else None))
+
+    def _decode_step(self, *args):
+        """One guarded decode step on ``args`` (after the model); on
+        exhausted recovery, walk the degradation ladder and re-execute on
+        the lower rung."""
+        while True:
+            try:
+                return self._decode(self.model, *args)
+            except GuardExhausted as e:
+                if not self.ladder.step_down(reason=str(e)):
+                    e.report.transitions = list(self.ladder.transitions)
+                    self._write_report(e.report)
+                    raise
+                self.state = ServerState.DEGRADED
+                self._apply_rung(self.ladder.current())
+
+    def _write_report(self, report) -> Optional[str]:
+        if not self.scfg.report_dir:
+            return None
+        path = os.path.join(self.scfg.report_dir,
+                            f"failure_{report.name.replace('.', '_')}.json")
+        return report.write(path)
+
+    # -- substrate canary ----------------------------------------------------
 
     def check_substrate(self) -> None:
-        raise NotImplementedError(
-            "the substrate spot check is not ported yet (ROADMAP A10)")
+        """Spot-check the kernel substrate: rerun a tiny known-good
+        block-space write on the model's device (the write kernel on the
+        card) and demand a result bit-identical to the first canary's.
+        Raises ValidationError on mismatch."""
+        from repro_torch.kernels.sierpinski_write import sierpinski_write
+        out = sierpinski_write(
+            torch.zeros((16, 16), dtype=torch.float32,
+                        device=self.model.device), 1.0,
+            block=4, grid_mode="closed_form", coarsen=1, num_stages=1)
+        if self._canary_ref is None:
+            self._canary_ref = out
+            return
+        spot_check(self._canary_ref, "lambda canary")(out)
 
-    def resume(self):
-        raise NotImplementedError(
-            "decode-state checkpoints and resume are not ported yet "
-            "(ROADMAP A10)")
+    # -- sampling ------------------------------------------------------------
 
     def _sample(self, logits, pos: int):
-        """logits (B,1,V) -> tokens (B,1) int64 on the host."""
+        """logits (B,1,V) -> tokens (B,1) int64 on the host.  Keys are a
+        pure function of (seed, slot, position): a retried / replayed
+        step samples the identical token."""
         if self.scfg.temperature <= 0:
             return torch.argmax(logits[:, 0], dim=-1)[:, None].cpu()
-        rows = [_sample_row(logits[i, 0], self.scfg,
-                            (self.scfg.seed, i, pos))
+        keys = sample_key(self.scfg.seed, pos, logits.shape[0])
+        rows = [_sample_row(logits[i, 0], self.scfg, keys[i])
                 for i in range(logits.shape[0])]
         return torch.tensor(rows, dtype=torch.int64)[:, None]
+
+    # -- decode-state checkpointing ------------------------------------------
+
+    def _save_decode_state(self, prompts, out, pos: int,
+                           max_new: int) -> None:
+        if self._ckpt is None:
+            return
+        tokens = torch.cat(out, dim=1).numpy()
+        state = {"prompts": np.asarray(prompts, np.int32),
+                 "tokens": tokens.astype(np.int32)}
+        self._ckpt.save(len(out), state,
+                        extra={"pos": int(pos), "max_new": int(max_new),
+                               "batch": int(tokens.shape[0]),
+                               "prompt_len": int(np.shape(prompts)[1]),
+                               "num_tokens": int(tokens.shape[1])})
+
+    # -- generation ----------------------------------------------------------
 
     def generate(self, prompts, max_new: int = 32,
                  on_step=None) -> np.ndarray:
         """prompts: (B, S) int tokens.  Returns the generated (B, T)
-        continuation, T = max_new unless every slot hit ``eos_id``
-        earlier; finished slots pad with ``eos_id``.  ``on_step(pos,
-        logits)``, when given, sees the (B, 1, V) logits of every step
-        (prefill, then each decode) before sampling."""
+        continuation, T = max_new unless every slot hit ``eos_id`` (or a
+        preemption drained the server) earlier; finished slots pad with
+        ``eos_id``.  ``on_step(pos, logits)``, when given, sees the
+        (B, 1, V) logits of every step (prefill, then each decode)
+        before sampling."""
+        if self.state == ServerState.DRAINING:
+            raise RuntimeError("server is draining; start a successor "
+                               "and resume() from the decode checkpoint")
         scfg = self.scfg
         dev = self.model.device
-        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64)
-        logits, cache = prefill(self.model, prompts.to(dev),
-                                max_len=scfg.max_len, cfg=self.cfg)
-        if scfg.validate:
-            _check_finite(logits, "serve.prefill")
-        if on_step is not None:
-            on_step(prompts.shape[1] - 1, logits)
-        batch, pos = prompts.shape[0], prompts.shape[1] - 1
-        finished = np.zeros((batch,), bool)
-        tok, finished = self._next_token(logits, pos, finished)
-        out = [tok]
-        for _ in range(max_new - 1):
-            if scfg.eos_id >= 0 and finished.all():
-                break
-            pos += 1
-            logits, cache = decode_step(self.model, tok.to(dev), cache, pos,
-                                        self.cfg)
-            if scfg.validate:
-                _check_finite(logits, "serve.decode")
+        prompts = np.asarray(prompts)
+        with PreemptionGuard() as preempt:
+            logits, cache = self._prefill(
+                self.model, torch.as_tensor(prompts, dtype=torch.int64,
+                                            device=dev))
+            batch, pos = prompts.shape[0], prompts.shape[1] - 1
             if on_step is not None:
                 on_step(pos, logits)
+            finished = np.zeros((batch,), bool)
             tok, finished = self._next_token(logits, pos, finished)
-            out.append(tok)
+            out = [tok]
+            for i in range(max_new - 1):
+                if scfg.eos_id >= 0 and finished.all():
+                    break
+                if preempt.fired:
+                    self._drain(prompts, out, pos, max_new)
+                    break
+                pos += 1
+                logits, cache = self._decode_step(tok.to(dev), cache, pos)
+                if on_step is not None:
+                    on_step(pos, logits)
+                tok, finished = self._next_token(logits, pos, finished)
+                out.append(tok)
+                if (scfg.spot_check_every
+                        and (i + 1) % scfg.spot_check_every == 0):
+                    self.check_substrate()
+                if scfg.ckpt_every and len(out) % scfg.ckpt_every == 0:
+                    self._save_decode_state(prompts, out, pos, max_new)
+            else:
+                if preempt.fired:
+                    self._drain(prompts, out, pos, max_new)
         return torch.cat(out, dim=1).numpy()
 
     def _next_token(self, logits, pos: int, finished: np.ndarray):
@@ -165,6 +334,59 @@ class Server:
         t = np.where(finished[:, None], self.scfg.eos_id, t)
         finished = finished | (t[:, 0] == self.scfg.eos_id)
         return torch.from_numpy(t), finished
+
+    def _drain(self, prompts, out, pos: int, max_new: int) -> None:
+        self.state = ServerState.DRAINING
+        self.events.append({"kind": "drain", "pos": int(pos),
+                            "tokens": len(out), "time": time.time()})
+        self._save_decode_state(prompts, out, pos, max_new)
+
+    # -- resume --------------------------------------------------------------
+
+    def resume(self) -> np.ndarray:
+        """Resume a drained/preempted generation from the decode-state
+        checkpoint (either package's): replay the saved tokens through
+        prefill + decode to rebuild the KV cache (feeding the *saved*
+        token at each replayed position -- no re-sampling, no drift),
+        then keep sampling with the same (seed, slot, position) keys.
+        The full returned stream is bit-identical to an uninterrupted
+        run."""
+        if self._ckpt is None:
+            raise RuntimeError("resume() needs ServeConfig.ckpt_dir")
+        meta = self._ckpt.read_meta()
+        e = meta["extra"]
+        template = {
+            "prompts": np.zeros((e["batch"], e["prompt_len"]), np.int32),
+            "tokens": np.zeros((e["batch"], e["num_tokens"]), np.int32)}
+        _, state, _, _ = self._ckpt.restore(meta["step"], template)
+        prompts, saved = state["prompts"], state["tokens"].astype(np.int64)
+        max_new = e["max_new"]
+        dev = self.model.device
+        logits, cache = self._prefill(
+            self.model, torch.as_tensor(prompts, dtype=torch.int64,
+                                        device=dev))
+        pos = prompts.shape[1] - 1
+        finished = np.zeros((prompts.shape[0],), bool)
+        tok = torch.from_numpy(saved[:, 0:1])
+        out = [tok]
+        for i in range(1, saved.shape[1]):
+            pos += 1
+            logits, cache = self._decode_step(tok.to(dev), cache, pos)
+            tok = torch.from_numpy(saved[:, i:i + 1])
+            out.append(tok)
+        if self.scfg.eos_id >= 0:
+            finished = (saved == self.scfg.eos_id).any(axis=1)
+        for _ in range(saved.shape[1], max_new):
+            if self.scfg.eos_id >= 0 and finished.all():
+                break
+            pos += 1
+            logits, cache = self._decode_step(tok.to(dev), cache, pos)
+            tok, finished = self._next_token(logits, pos, finished)
+            out.append(tok)
+        self.state = ServerState.HEALTHY
+        self.events.append({"kind": "resume", "replayed": saved.shape[1],
+                            "total": len(out), "time": time.time()})
+        return torch.cat(out, dim=1).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -206,13 +428,25 @@ class PagedServer:
     page.  Pages are allocated as slots cross page boundaries; when the
     pool runs dry the youngest active request is preempted -- its pages
     freed, the request requeued with its generated tokens kept, to be
-    re-admitted by replaying prompt + generated through prefill."""
+    re-admitted by replaying prompt + generated through prefill.
+
+    Prefill and decode run guarded like :class:`Server`'s; repeated
+    decode failure walks the ladder paged-blockspace -> paged-xla (the
+    plain gather decode), switching the step's config as
+    :meth:`Server._apply_rung` does."""
+
+    _guarded = Server._guarded
+    _decode_step = Server._decode_step
+    _write_report = Server._write_report
+    check_substrate = Server.check_substrate
 
     def __init__(self, cfg: ModelConfig, model, scfg: PagedServeConfig,
                  chaos=None):
-        _unported(chaos=chaos)
         model_lib._check_paged(cfg)
         self.cfg, self.model, self.scfg = cfg, model, scfg
+        self.chaos = chaos
+        self.mesh = None
+        self.state = ServerState.HEALTHY
         self.events: list = []
         self.stats_history: list = []
         self.alloc = paged_lib.PagedKVPool(scfg.num_pages, scfg.page_size)
@@ -229,6 +463,34 @@ class PagedServer:
         #: call through the sampled tokens on the host)
         self.decode_steps = 0
         self.step_seconds = 0.0
+        self.ladder = DegradationLadder(
+            self._rungs(cfg),
+            on_transition=lambda rec: self.events.append(
+                {"kind": "degrade", **rec}))
+        self._canary_ref = None
+        _build_kernels(model.device)
+        self._decode_cfg = None
+        self._apply_rung(self.ladder.current())
+        self._prefill = self._guarded(
+            "serve.prefill",
+            lambda model, tokens: prefill(model, tokens, cfg=cfg))
+        self._decode = self._guarded(
+            "serve.decode",
+            lambda model, toks, pools, table, posv, act:
+            model_lib.decode_step_paged(model, toks, pools, table, posv,
+                                        act, self._decode_cfg))
+
+    @staticmethod
+    def _rungs(cfg: ModelConfig) -> list:
+        top = {"decode_kernel": cfg.attn_decode_kernel}
+        rungs = [top]
+        if cfg.attn_decode_kernel == "blockspace":
+            rungs.append({"decode_kernel": "xla"})  # paged-xla gather
+        return rungs
+
+    def _apply_rung(self, rung: dict) -> None:
+        self._decode_cfg = self.cfg.replace(
+            attn_decode_kernel=rung["decode_kernel"])
 
     # -- host bookkeeping ----------------------------------------------------
 
@@ -263,7 +525,8 @@ class PagedServer:
         """One token from a (V,) logits row, keyed on (seed, request id,
         position): a preempted and re-admitted request draws the
         identical stream."""
-        return _sample_row(logits_row, self.scfg, (self.scfg.seed, rid, pos))
+        return _sample_row(logits_row, self.scfg,
+                           coordinate_seed(self.scfg.seed, rid, pos))
 
     def _admit_one(self) -> bool:
         """Admit the head-of-line request if a slot and enough pages
@@ -283,9 +546,9 @@ class PagedServer:
         pages = self.alloc.alloc(need)
         slot = free_slots[0]
         dev = self.model.device
-        logits, caches = prefill(
+        logits, caches = self._prefill(
             self.model, torch.as_tensor(tokens[None], dtype=torch.int64,
-                                        device=dev), cfg=self.cfg)
+                                        device=dev))
         model_lib.scatter_prefill_pages(
             self.pools, caches, torch.as_tensor(pages, device=dev),
             self.cfg)
@@ -382,11 +645,10 @@ class PagedServer:
             act[i] = True
         dev = self.model.device
         t0 = time.perf_counter()
-        logits, self.pools = model_lib.decode_step_paged(
-            self.model, torch.from_numpy(toks).to(dev), self.pools,
+        logits, self.pools = self._decode_step(
+            torch.from_numpy(toks).to(dev), self.pools,
             torch.from_numpy(self.table).to(dev),
-            torch.from_numpy(posv).to(dev), torch.from_numpy(act).to(dev),
-            self.cfg)
+            torch.from_numpy(posv).to(dev), torch.from_numpy(act).to(dev))
         self.decode_steps += 1
         if self.scfg.temperature <= 0:
             # one device-to-host copy of the argmaxes for all slots
@@ -475,6 +737,18 @@ def main(argv=None):
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop a slot early when it samples this token "
                          "(-1 = never)")
+    ap.add_argument("--retries", type=int, default=3,
+                    help="guarded-call retry budget per step")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-call deadline in seconds (recorded; "
+                         "enforcement via ServeConfig)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="decode-state checkpoint directory (enables "
+                         "preemption-safe draining + resume)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="serve under deterministic randomized fault "
+                         "injection (repro_torch.runtime.chaos) with "
+                         "this seed")
     ap.add_argument("--grid-lowering", default="",
                     choices=("", "closed_form", "prefetch_lut", "bounding",
                              "mma", "compact"),
@@ -518,6 +792,15 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     model = model_lib.init(cfg, gen, dev)
     print(f"device: {dev} ({backend_lib.resolve(dev).name} target)")
+    chaos = None
+    if args.chaos_seed is not None:
+        from repro_torch.runtime.chaos import ChaosInjector, FaultPlan
+        plan = FaultPlan.from_seed(
+            args.chaos_seed, sites=("serve.prefill", "serve.decode"),
+            horizon=args.max_new)
+        chaos = ChaosInjector(plan)
+        print(f"chaos: {len(plan.faults)} faults scheduled "
+              f"(seed {plan.seed})")
     if args.paged:
         max_len = args.prompt_len + args.max_new
         num_pages = args.num_pages or (
@@ -525,8 +808,9 @@ def main(argv=None):
                                                      args.page_size))
         server = PagedServer(cfg, model, PagedServeConfig(
             max_len=max_len, temperature=args.temperature,
-            eos_id=args.eos_id, num_slots=args.num_slots,
-            page_size=args.page_size, num_pages=num_pages))
+            eos_id=args.eos_id, retries=args.retries,
+            deadline_s=args.deadline, num_slots=args.num_slots,
+            page_size=args.page_size, num_pages=num_pages), chaos=chaos)
         rng = np.random.default_rng(0)
         requests = [rng.integers(0, cfg.vocab_size,
                                  (int(rng.integers(4, args.prompt_len
@@ -535,17 +819,31 @@ def main(argv=None):
         print(f"paged: {args.num_slots} slots, {num_pages} pages of "
               f"{args.page_size} tokens, {args.batch} mixed-length "
               f"requests")
-        print(paged_throughput_report(server, requests,
-                                      max_new=args.max_new))
+        rep = paged_throughput_report(server, requests,
+                                      max_new=args.max_new)
+        if chaos is not None:
+            print(f"chaos: {len(chaos.events)} faults fired, "
+                  f"state {server.state.value}")
+        print(rep)
         return
     server = Server(cfg, model, ServeConfig(
         max_len=args.prompt_len + args.max_new,
-        temperature=args.temperature, eos_id=args.eos_id))
+        temperature=args.temperature, eos_id=args.eos_id,
+        retries=args.retries, deadline_s=args.deadline,
+        ckpt_dir=args.ckpt_dir or None,
+        ckpt_every=4 if args.ckpt_dir else 0), chaos=chaos)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len))
     out = server.generate(prompts, max_new=args.max_new)
     print("generated shape:", out.shape)
+    if chaos is not None:
+        recov = sum(getattr(g, "recoveries", 0)
+                    for g in (server._prefill, server._decode))
+        print(f"chaos: {len(chaos.events)} faults fired, "
+              f"{recov} recoveries, state {server.state.value}")
+        if (out < 0).any():
+            raise SystemExit("chaos smoke: corrupted output escaped")
     print(throughput_report(server, args.batch, args.prompt_len,
                             args.max_new))
 

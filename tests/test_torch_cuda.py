@@ -1236,3 +1236,73 @@ def test_autotune_ca_on_the_card(dev, tune_cache):
     plain = ops.ca_run(a.cpu(), torch.zeros_like(a.cpu()), 5, fuse=1,
                        block=block, storage=cfg["storage"], n=n)
     assert torch.equal(got.cpu(), plain)
+
+
+# ---------------------------------------------------------------------------
+# the guarded runtime on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode,grid_mode,fault", [
+    ("nan", "closed_form", "poison_tile"),
+    ("bitflip", "prefetch_lut", "poison_tile"),
+    ("", "prefetch_lut", "corrupt_table")])
+def test_launch_hook_fires_around_write_cuda(dev, mode, grid_mode, fault):
+    """The hook runs around the write kernel's launch: the faulted tile
+    equals the plain version's under the same fault, the kernel's own
+    count still rises, and the guard detects and recovers."""
+    from repro_torch.runtime import chaos as RC
+    from repro_torch.runtime.guard import (GuardedCall, spot_check,
+                                           validate_finite)
+    m = _state(64, torch.float32, 3, dev, integer=False)
+    kw = dict(block=8, grid_mode=grid_mode, coarsen=1, num_stages=1)
+    clean = ops.sierpinski_write(m, 2.0, **kw)
+    spec = RC.FaultSpec(fault, "pallas", 0, mode=mode, step=5)
+    TW.reset_launch_counts()
+    with RC.ChaosInjector(RC.FaultPlan(0, [spec])) as chaos:
+        bad = ops.sierpinski_write(m, 2.0, **kw)
+    assert TW.launch_counts()["sierpinski_write"] == 1
+    assert len(chaos.events) == 1
+    with RC.ChaosInjector(RC.FaultPlan(0, [spec])):
+        plain = ops.sierpinski_write(m.cpu(), 2.0, **kw)
+    assert torch.equal(bad.cpu().isnan(), plain.isnan())
+    assert torch.equal(bad.cpu().nan_to_num(), plain.nan_to_num())
+    assert not torch.equal(bad, clean)
+    validators = [spot_check(clean)] if mode != "nan" else \
+        [validate_finite]
+    with RC.ChaosInjector(RC.FaultPlan(0, [spec])) as chaos:
+        guard = GuardedCall(lambda: ops.sierpinski_write(m, 2.0, **kw),
+                            "write", retries=2, validators=validators,
+                            before_retry=chaos.refresh)
+        assert torch.equal(guard(), clean)
+    assert [e.kind for e in guard.events] == ["validation", "retry", "ok"]
+
+
+def test_real_out_of_memory_is_transient(dev):
+    from repro_torch.runtime.guard import classify_error
+    total = torch.cuda.get_device_properties(dev).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as e:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+    assert classify_error(e.value) == "transient"
+
+
+def test_server_on_the_card_serves_at_ladder_level_zero(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as TM
+    from repro_torch.runtime.guard import GuardEvent, ServerState
+    cfg = get_config("quickstart", smoke=True).replace(
+        attn_decode_kernel="blockspace")
+    model = TM.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8),
+                            generator=torch.Generator().manual_seed(0))
+    FA.reset_launch_counts()
+    srv = S.Server(cfg, model, S.ServeConfig(max_len=16,
+                                             spot_check_every=2))
+    out = srv.generate(prompts.numpy(), 6)
+    assert out.shape == (2, 6)
+    assert FA.launch_counts()["flash_attention_decode"] == \
+        cfg.n_layers * 5
+    assert srv.ladder.level == 0 and srv.state == ServerState.HEALTHY
+    kinds = {e.kind for e in srv.events if isinstance(e, GuardEvent)}
+    assert kinds == {"ok"}
+    assert not [e for e in srv.events if not isinstance(e, GuardEvent)]

@@ -2,8 +2,9 @@
 greedy token streams of Server equal the JAX Server's (on prompts whose
 top-2 logit margins the test asserts to be >= 100x the logit
 tolerance), PagedServer equals the single-request oracle, preemption is
-deterministic and leak-free, a too-small pool raises, and the reports
-carry their fields."""
+deterministic and leak-free, a too-small pool raises, the guarded
+runtime's entry points are there (only the mesh refuses, naming A12), and
+the reports carry their fields."""
 import numpy as np
 import pytest
 import torch
@@ -127,14 +128,19 @@ def test_paged_server_too_small_pool_raises(quickstart):
         srv.run([np.arange(6) % tcfg.vocab_size], max_new=16)
     with pytest.raises(ValueError, match="exceeds max_len"):
         srv.submit(0, np.arange(30), 8)
-    # the guarded runtime and the mesh come with later roadmap items
-    with pytest.raises(NotImplementedError, match="A10"):
-        S.PagedServer(tcfg, tm, S.PagedServeConfig(), chaos=object())
+    # the guarded runtime is ported; the serving mesh comes with A12
+    from repro_torch.runtime.chaos import ChaosInjector, FaultPlan
+    paged = S.PagedServer(tcfg, tm, S.PagedServeConfig(),
+                          chaos=ChaosInjector(FaultPlan(0)))
+    assert paged.chaos is not None and paged.ladder.level == 0
     with pytest.raises(NotImplementedError, match="A12"):
         S.Server(tcfg, tm, S.ServeConfig(), mesh=object())
-    for method in ("resume", "check_substrate"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            getattr(S.Server(tcfg, tm, S.ServeConfig()), method)()
+    srv = S.Server(tcfg, tm, S.ServeConfig())
+    with pytest.raises(RuntimeError, match="resume\\(\\) needs "
+                       "ServeConfig.ckpt_dir"):
+        srv.resume()
+    srv.check_substrate()        # the first canary is the reference...
+    srv.check_substrate()        # ...which a second one equals
 
 
 def test_throughput_reports_and_cli(quickstart, capsys):
