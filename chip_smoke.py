@@ -146,12 +146,12 @@ Phases, each printing its own lines:
              it; the same for gemma3-12b (6 layers, batch 4, prompt
              1536, 16 new, max_len 1664, bf16); timings in turns; every
              run guarded (the default) must end at ladder level 0, state
-             healthy, with only ``ok`` guard events, and one more kernel
-             guarded and unguarded kernel runs in turns give the guard's
-             cost (guarded_ms_per_decode_step beside
-             unguarded_ms_per_decode_step, medians of three pairs, and
-             guard_screen_ms: the sync and NaN screen of one step's
-             output alone);
+             healthy, with only ``ok`` guard events; one unguarded kernel
+             run gives unguarded_ms_per_decode_step beside the guarded
+             second kernel run's guarded_ms_per_decode_step, and the
+             guard's own work on one step's output is timed alone
+             (guard_call_ms: a GuardedCall's sync, NaN screen and event
+             log; guard_screen_ms: the sync and screen; medians of 200);
 12. paged -- counts set to 0, then PagedServer.run on quickstart: 16
              mixed-length requests, 8 slots, 16-token pages, a pool that
              forces preemptions, the page table verified at every step;
@@ -208,8 +208,8 @@ Phases, each printing its own lines:
              D 62 row), B5, the mma chains B7 (with the CA under mma at
              fuse 1 and 8 and on the triangle); the CUDA-core kernel,
              which no route takes, is not among them: its times sit
-             beside the tile paths' as cuda_core_ms), then the result
-             line.
+             beside the tile paths' as cuda_core_ms), a ``[phases]``
+             line (each phase's host seconds), then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -1986,23 +1986,35 @@ def check_healthy(srv, what):
           f"{kinds}, {len(degrades)} step(s) down")
 
 
-#: guarded / unguarded serving runs in turns for the guard's cost
-GUARD_PAIRS = 3
+#: calls of the guard timed on one step's output
+GUARD_REPS = 200
 
 
-def guard_screen_ms(out, reps=20):
-    """Host-clock median of the guard's per-call work on ``out`` (one
-    step's output): the stream sync and the NaN screen of every float
-    leaf, after one warm-up."""
-    from repro_torch.runtime.guard import synchronize, validate_finite
-    times = []
-    for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+def guard_cost(out, reps=GUARD_REPS):
+    """The guard's own work on one step's output (already on the card,
+    the device idle), host-clock medians over ``reps`` calls after one
+    warm-up: ``guard_call_ms`` a GuardedCall around a function returning
+    ``out`` (the stream sync, the NaN screen, the event log), the work
+    the guard adds to a decode step; ``guard_screen_ms`` the sync and
+    screen alone (the measure of earlier runs)."""
+    from repro_torch.runtime.guard import (GuardedCall, synchronize,
+                                           validate_finite)
+    guard = GuardedCall(lambda: out, "cost", validators=[validate_finite])
+
+    def screen():
         synchronize(out)
         validate_finite(out, "screen")
-        times.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times[1:])
+
+    res = {}
+    for key, fn in (("guard_call_ms", guard), ("guard_screen_ms", screen)):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        res[key] = statistics.median(times[1:])
+    return res
 
 
 def serve_run(S, cfg, model, prompts, max_new, max_len, kernel,
@@ -2125,25 +2137,20 @@ def phase_serve(S, TM, get_config, FA, dev):
                                       max_len, "xla")[2:]
         secs2, step_ms2 = serve_run(S, cfg, model, prompts, max_new,
                                     max_len, "blockspace")[2:]
-        # the guard's cost: guarded and unguarded (no stream sync, no NaN
-        # screen a call) kernel runs in turns, and the screen alone
-        pairs = []
-        for i in range(GUARD_PAIRS):
-            ms = {}
-            for guard in ((False, True) if i % 2 == 0 else (True, False)):
-                ms[guard] = serve_run(S, cfg, model, prompts, max_new,
-                                      max_len, "blockspace", guard=guard)[3]
-            pairs.append((ms[True], ms[False]))
-        gms = statistics.median(p[0] for p in pairs)
-        ums = statistics.median(p[1] for p in pairs)
+        # the guard's cost: an unguarded (no stream sync, no NaN screen a
+        # call) kernel run beside the guarded one just before it, and the
+        # guard's own work on one step's output, timed alone
+        ums = serve_run(S, cfg, model, prompts, max_new, max_len,
+                        "blockspace", guard=False)[3]
         logits, cache = TM.prefill(model, torch.as_tensor(prompts,
                                                           device=dev),
                                    max_len=max_len, cfg=cfg)
-        screen = guard_screen_ms((logits, cache))
-        print(f"[serve] {arch} blockspace: guarded {gms:.3f} ms per decode "
-              f"step, unguarded {ums:.3f} (medians of {GUARD_PAIRS} pairs in "
-              f"turns); the NaN screen and sync of one step's output "
-              f"{screen:.3f} ms ({CARD})")
+        cost = guard_cost((logits, cache))
+        print(f"[serve] {arch} blockspace: guarded {step_ms2:.3f} ms per "
+              f"decode step, unguarded {ums:.3f}; the guard's work on one "
+              f"step's output {cost['guard_call_ms']:.4f} ms (sync and "
+              f"screen {cost['guard_screen_ms']:.4f}; medians of "
+              f"{GUARD_REPS}) ({CARD})")
         check(tk.shape == (batch, max_new) and bool(torch.isfinite(lk).all()),
               f"{arch}: bad stream shape {tk.shape} or non-finite logits")
         tol = SERVE_TOL[cfg.dtype]
@@ -2154,9 +2161,8 @@ def phase_serve(S, TM, get_config, FA, dev):
                "dtype": cfg.dtype, "launches": launches,
                "seconds": [secs, secs2], "xla_seconds": [xsecs, xsecs2],
                "ms_per_decode_step": [step_ms, step_ms2],
-               "guarded_ms_per_decode_step": gms,
-               "unguarded_ms_per_decode_step": ums,
-               "guard_pairs_ms": pairs, "guard_screen_ms": screen,
+               "guarded_ms_per_decode_step": step_ms2,
+               "unguarded_ms_per_decode_step": ums, **cost,
                "card": CARD,
                "xla_ms_per_decode_step": [xstep_ms, xstep_ms2],
                "tok_per_s": tk.size / secs2,
@@ -2223,27 +2229,22 @@ def phase_paged(S, FA, cfg, model, dev):
     again = S.paged_throughput_report(again_srv, reqs, max_new=PAGED_NEW)
     check_healthy(again_srv, "paged blockspace, second run")
     check_healthy(xsrv, "paged xla")
-    # the guard's cost: unguarded and guarded runs in turns (the second
-    # kernel run above is the first guarded one), and the screen alone
-    pairs = []
-    for i in range(GUARD_PAIRS - 1):
-        ms = {}
-        for guard in ((False, True) if i % 2 == 0 else (True, False)):
-            run_srv = S.PagedServer(bcfg, model,
-                                    dataclasses.replace(scfg, guard=guard))
-            ms[guard] = S.paged_throughput_report(
-                run_srv, reqs, max_new=PAGED_NEW)["ms_per_decode_step"]
-            check(all(np.array_equal(run_srv.done[r], out[r]) for r in out),
-                  f"the paged run (guard={guard}) differs from the first")
-        pairs.append((ms[True], ms[False]))
-    gms = statistics.median([again["ms_per_decode_step"]]
-                            + [p[0] for p in pairs])
-    ums = statistics.median(p[1] for p in pairs)
-    screen = guard_screen_ms((torch.zeros(PAGED_SLOTS, 1, cfg.padded_vocab,
-                                          device=dev), again_srv.pools))
+    # the guard's cost: an unguarded run beside the guarded second kernel
+    # run above, and the guard's own work on one step's output alone
+    bare_srv = S.PagedServer(bcfg, model, dataclasses.replace(scfg,
+                                                              guard=False))
+    ums = S.paged_throughput_report(
+        bare_srv, reqs, max_new=PAGED_NEW)["ms_per_decode_step"]
+    check(all(np.array_equal(bare_srv.done[r], out[r]) for r in out),
+          "the unguarded paged run differs from the first")
+    gms = again["ms_per_decode_step"]
+    cost = guard_cost((torch.zeros(PAGED_SLOTS, 1, cfg.padded_vocab,
+                                   device=dev), again_srv.pools))
     print(f"[paged] guarded {gms:.3f} ms per decode step, unguarded "
-          f"{ums:.3f} (medians, runs in turns); the NaN screen and sync of "
-          f"one step's output {screen:.3f} ms ({CARD})")
+          f"{ums:.3f}; the guard's work on one step's output "
+          f"{cost['guard_call_ms']:.4f} ms (sync and screen "
+          f"{cost['guard_screen_ms']:.4f}; medians of {GUARD_REPS}) "
+          f"({CARD})")
     oracle = S.Server(cfg.replace(attn_decode_kernel="xla"), model,
                       S.ServeConfig(max_len=max_len))
     tol = SERVE_TOL[cfg.dtype]
@@ -2268,8 +2269,7 @@ def phase_paged(S, FA, cfg, model, dev):
                 "streams_equal_oracle": diverged == 0,
                 "second_run": {k: again[k] for k in TIMING_KEYS},
                 "guarded_ms_per_decode_step": gms,
-                "unguarded_ms_per_decode_step": ums,
-                "guard_pairs_ms": pairs, "guard_screen_ms": screen,
+                "unguarded_ms_per_decode_step": ums, **cost,
                 "card": CARD,
                 "xla_runs": [{k: r[k] for k in TIMING_KEYS} for r in xrep]})
     print(f"[paged] {json.dumps(rep)}")
@@ -2916,6 +2916,18 @@ def compare(change_paths, parent_paths, lo=0.94, hi=1.06):
     return len(keys), outside
 
 
+#: host seconds of each phase of this run, printed as ``[phases]``
+PHASE_S: dict = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its host seconds kept under ``name`` in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main():
     if "--compare" in sys.argv[1:]:
         args = sys.argv[sys.argv.index("--compare") + 1:]
@@ -2964,36 +2976,41 @@ def main():
                                    "decode": decode}, indent=1))
         print("[decode-only] decode timings written; no result")
         return
-    errs = phase_parity(TW, LOWERINGS, dev)
-    merge_err(errs, phase_parity_compact(TW, F, LOWERINGS, compact_layout,
-                                         dev))
-    ca_err = phase_parity_ca(TC, F, LOWERINGS, compact_layout, TW, dev)
-    merge_err(errs, phase_parity_domains(TW, TC, D, LOWERINGS,
-                                         compact_layout, dev))
-    rows, launches, main_errs, rho1, peak = phase_main(ops, TW, F,
-                                                       LOWERINGS, dev)
+    PHASE_S["build"] = round(build_s, 1)
+    errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
+    merge_err(errs, timed("parity_compact", phase_parity_compact, TW, F,
+                          LOWERINGS, compact_layout, dev))
+    ca_err = timed("parity_ca", phase_parity_ca, TC, F, LOWERINGS,
+                   compact_layout, TW, dev)
+    merge_err(errs, timed("parity_domains", phase_parity_domains, TW, TC, D,
+                          LOWERINGS, compact_layout, dev))
+    rows, launches, main_errs, rho1, peak = timed(
+        "main", phase_main, ops, TW, F, LOWERINGS, dev)
     merge_err(errs, main_errs)
-    ca = phase_ca_main(ops, TC, F, LOWERINGS, compact_layout,
-                       cell_neighbor_tables, TW, dev)
-    comp = phase_compact_main(ops, TW, F, LOWERINGS, compact_layout, dev)
+    ca = timed("ca", phase_ca_main, ops, TC, F, LOWERINGS, compact_layout,
+               cell_neighbor_tables, TW, dev)
+    comp = timed("compact", phase_compact_main, ops, TW, F, LOWERINGS,
+                 compact_layout, dev)
     merge_err(errs, comp["err"])
-    doms = phase_domain_main(ops, TW, TC, D, LOWERINGS, compact_layout, dev,
-                             comp)
+    doms = timed("domains", phase_domain_main, ops, TW, TC, D, LOWERINGS,
+                 compact_layout, dev, comp)
     t_attn = time.perf_counter()
-    attn_err, attn_rel, attn_cases = phase_parity_attn(FA, LOWERINGS,
-                                                       pack_kv, P, dev)
-    attn_rows, attn_launches = phase_attn(FA, LOWERINGS, dev)
-    clones = clone_timings(FA, dev)
-    dims = attn_dims(FA, dev)
-    serve_runs, models = phase_serve(S, TM, get_config, FA, dev)
+    attn_err, attn_rel, attn_cases = timed(
+        "parity_attn", phase_parity_attn, FA, LOWERINGS, pack_kv, P, dev)
+    attn_rows, attn_launches = timed("attn", phase_attn, FA, LOWERINGS, dev)
+    clones = timed("attn_clones", clone_timings, FA, dev)
+    dims = timed("attn_dims", attn_dims, FA, dev)
+    serve_runs, models = timed("serve", phase_serve, S, TM, get_config, FA,
+                               dev)
     qcfg, qmodel, _ = models["quickstart"]
-    paged = phase_paged(S, FA, qcfg, qmodel, dev)
-    chaos = phase_chaos(S, RC, TW, FA, qcfg, qmodel,
-                        models["quickstart"][2], dev)
-    decode = decode_timings(FA, P, qcfg, dev)
+    paged = timed("paged", phase_paged, S, FA, qcfg, qmodel, dev)
+    chaos = timed("chaos", phase_chaos, S, RC, TW, FA, qcfg, qmodel,
+                  models["quickstart"][2], dev)
+    decode = timed("decode", decode_timings, FA, P, qcfg, dev)
     print(f"[attention phases] {time.perf_counter() - t_attn:.1f} s")
     del models, qmodel
-    tuned = phase_tune(tune, TW, TC, FA, compact_layout, qcfg, dev)
+    tuned = timed("tune", phase_tune, tune, TW, TC, FA, compact_layout, qcfg,
+                  dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -3222,7 +3239,9 @@ def main():
         "serve": serve_runs,
         "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "kernels": kernels,
+        "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
+    print(f"[phases] host seconds: {json.dumps(PHASE_S)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "
           f"{OUT.relative_to(ROOT)}")
     print(card)

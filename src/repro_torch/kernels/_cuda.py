@@ -237,8 +237,13 @@ def set_launch_hook(hook: Optional[Callable]) -> Optional[Callable]:
     return prev
 
 
-def hooked(kernel: str, plan, block: int, dst, run: Callable):
-    """``run()`` through the installed launch hook.  Callers test
-    ``LAUNCH_HOOK is None`` first and launch directly then, so a launch
-    without a hook costs that one test."""
-    return LAUNCH_HOOK(LaunchRecord(kernel, plan, block, dst), run)
+def launch(kernel: str, plan, block: int, dst, fn: Callable, *args):
+    """``fn(*args)``: one launch of a fractal kernel (the kernel on the
+    card, its plain version on the CPU), through the installed launch
+    hook when there is one.  ``kernel``, ``plan``, ``block`` and ``dst``
+    are the hook's :class:`LaunchRecord`.  With no hook installed this
+    is one ``is None`` test and the call."""
+    if LAUNCH_HOOK is None:
+        return fn(*args)
+    return LAUNCH_HOOK(LaunchRecord(kernel, plan, block, dst),
+                       lambda: fn(*args))

@@ -453,16 +453,11 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
                                               stale_buf.clone())
     for k in sched:
         if p is not None:
-            def run(a=a, b=b, k=k):
-                return ca_cuda(a, b, p, fuse, k, rule, alpha, stages)
+            _cuda.launch("sierpinski_ca", plan, block, b, ca_cuda, a, b, p,
+                         fuse, k, rule, alpha, stages)
         else:
-            def run(a=a, b=b, k=k):
-                return ca_launch_plain(a, b, plan, n, block, fuse, k, rule,
-                                       alpha)
-        if _cuda.LAUNCH_HOOK is None:
-            run()
-        else:
-            _cuda.hooked("sierpinski_ca", plan, block, b, run)
+            _cuda.launch("sierpinski_ca", plan, block, b, ca_launch_plain, a,
+                         b, plan, n, block, fuse, k, rule, alpha)
         a, b = b, a
     return a
 

@@ -509,16 +509,11 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
     if not plan.target.kernels:
-        def run():
-            return sierpinski_write_plain(m, value, plan, n, block)
-    else:
-        p = plan.launch_params(n, block, m.device)
-
-        def run():
-            return write_cuda(m, value, p)
-    if _cuda.LAUNCH_HOOK is None:
-        return run()
-    return _cuda.hooked("sierpinski_write", plan, block, m, run)
+        return _cuda.launch("sierpinski_write", plan, block, m,
+                            sierpinski_write_plain, m, value, plan, n, block)
+    p = plan.launch_params(n, block, m.device)
+    return _cuda.launch("sierpinski_write", plan, block, m, write_cuda, m,
+                        value, p)
 
 
 def sierpinski_write(m: torch.Tensor, value=1.0, **kw) -> torch.Tensor:
@@ -550,15 +545,9 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
     if not plan.target.kernels:
-        def run():
-            return sum_partials_plain(m, plan, n, block)
-        combine = sum_combine_plain
-    else:
-        p = plan.launch_params(n, block, m.device)
-
-        def run():
-            return sum_partials_cuda(m, p)
-        combine = sum_combine_cuda
-    if _cuda.LAUNCH_HOOK is None:
-        return combine(run())
-    return combine(_cuda.hooked("sierpinski_sum", plan, block, None, run))
+        return sum_combine_plain(_cuda.launch(
+            "sierpinski_sum", plan, block, None, sum_partials_plain, m, plan,
+            n, block))
+    p = plan.launch_params(n, block, m.device)
+    return sum_combine_cuda(_cuda.launch(
+        "sierpinski_sum", plan, block, None, sum_partials_cuda, m, p))

@@ -28,10 +28,12 @@ package:
 * repeated failure walks a :class:`DegradationLadder`
   (blockspace -> xla decode, an exotic lowering -> closed_form; paged:
   paged-blockspace -> paged-xla), switching the config the decode step
-  runs under and recording each transition.  A step down happens only
-  after the guard is exhausted; on the card the constructor builds the
-  kernel libraries first, so a build failure raises there and never
-  walks the ladder;
+  runs under, recording each transition and warning.  A step down
+  happens only after the guard's retries of a transient failure are
+  exhausted; a fatal error is reported and re-raised on its own rung
+  (the JAX package steps down on it too), and on the card the
+  constructor builds the kernel libraries first, so a build failure
+  raises there;
 * SIGTERM flips the state machine healthy -> draining: the decode state
   (prompts + generated tokens + position) checkpoints atomically and a
   successor resumes mid-generation (:meth:`Server.resume`),
@@ -61,6 +63,7 @@ import collections
 import dataclasses
 import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -133,15 +136,14 @@ def _build_kernels(device) -> None:
         _cuda.build(("flash_attention", "sierpinski_write"))
 
 
-class Server:
-    """Guarded prefill + decode loop over a fixed batch, on the model's
-    device, with the serving state machine (healthy -> degraded ->
-    draining) and the degradation ladder."""
+class _GuardedServing:
+    """What both servers share: the guard around prefill and decode, the
+    degradation ladder the decode step walks, failure reports and the
+    substrate canary.  A subclass gives ``_rungs`` and ``_apply_rung``
+    and calls :meth:`_init_guarding` before building its guarded
+    calls."""
 
-    def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig,
-                 mesh=None, chaos=None):
-        _unported(mesh)
-        self.cfg, self.model, self.scfg, self.mesh = cfg, model, scfg, mesh
+    def _init_guarding(self, cfg: ModelConfig, model, chaos) -> None:
         self.chaos = chaos
         self.state = ServerState.HEALTHY
         self.events: list = []
@@ -150,13 +152,90 @@ class Server:
             on_transition=lambda rec: self.events.append(
                 {"kind": "degrade", **rec}))
         self._canary_ref = None
+        _build_kernels(model.device)
+        self._decode_cfg = None
+        self._apply_rung(self.ladder.current())
+
+    def _guarded(self, site: str, fn):
+        if self.chaos is not None:
+            fn = self.chaos.wrap(site, fn, rung=lambda: self.ladder.level)
+        if not self.scfg.guard:
+            return fn
+        validators = []
+        if self.scfg.validate:
+            validators.append(lambda o, s=site: validate_finite(o, s))
+        return GuardedCall(
+            fn, site, retries=self.scfg.retries,
+            backoff=Backoff(base_s=self.scfg.backoff_base_s,
+                            seed=self.scfg.seed),
+            deadline_s=self.scfg.deadline_s,
+            enforce_deadline=self.scfg.enforce_deadline,
+            validators=validators,
+            on_event=self.events.append,
+            before_retry=(self.chaos.refresh if self.chaos is not None
+                          else None))
+
+    def _decode_step(self, *args):
+        """One guarded decode step on ``args`` (after the model).  When
+        the guard's retries are exhausted, walk the degradation ladder
+        (with a warning) and re-execute on the lower rung.  A fatal
+        error -- a failed build, a sticky device error, a refused
+        argument -- is reported and re-raised on the rung it happened
+        on: a lower rung never hides it (the JAX package steps down on
+        those too)."""
+        while True:
+            try:
+                return self._decode(self.model, *args)
+            except GuardExhausted as e:
+                if (e.report.classification != "exhausted"
+                        or not self.ladder.step_down(reason=str(e))):
+                    e.report.transitions = list(self.ladder.transitions)
+                    self._write_report(e.report)
+                    raise
+                t = self.ladder.transitions[-1]
+                warnings.warn(
+                    f"serve.decode stepped down from {t['from']} to "
+                    f"{t['to']} after: {e}", RuntimeWarning, stacklevel=2)
+                self.state = ServerState.DEGRADED
+                self._apply_rung(self.ladder.current())
+
+    def _write_report(self, report) -> Optional[str]:
+        if not self.scfg.report_dir:
+            return None
+        path = os.path.join(self.scfg.report_dir,
+                            f"failure_{report.name.replace('.', '_')}.json")
+        return report.write(path)
+
+    def check_substrate(self) -> None:
+        """Spot-check the kernel substrate: rerun a tiny known-good
+        block-space write on the model's device (the write kernel on the
+        card) and demand a result bit-identical to the first canary's.
+        Raises ValidationError on mismatch."""
+        from repro_torch.kernels.sierpinski_write import sierpinski_write
+        out = sierpinski_write(
+            torch.zeros((16, 16), dtype=torch.float32,
+                        device=self.model.device), 1.0,
+            block=4, grid_mode="closed_form", coarsen=1, num_stages=1)
+        if self._canary_ref is None:
+            self._canary_ref = out
+            return
+        spot_check(self._canary_ref, "lambda canary")(out)
+
+
+class Server(_GuardedServing):
+    """Guarded prefill + decode loop over a fixed batch, on the model's
+    device, with the serving state machine (healthy -> degraded ->
+    draining) and the degradation ladder."""
+
+    def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig,
+                 mesh=None, chaos=None):
+        _unported(mesh)
+        self.cfg, self.model, self.scfg, self.mesh = cfg, model, scfg, mesh
         self._ckpt = None
         if scfg.ckpt_dir:
             from repro_torch.checkpoint.manager import CheckpointManager
             self._ckpt = CheckpointManager(scfg.ckpt_dir, keep=2)
-        _build_kernels(model.device)
-        self._decode_cfg = None
-        self._apply_rung(self.ladder.current())
+        self._init_guarding(cfg, model, chaos)
         self._prefill = self._guarded(
             "serve.prefill", lambda model, prompts: prefill(
                 model, prompts, max_len=scfg.max_len, cfg=cfg))
@@ -187,66 +266,6 @@ class Server:
         self._decode_cfg = self.cfg.replace(
             attn_decode_kernel=rung["decode_kernel"],
             grid_lowering=rung["grid_lowering"])
-
-    # -- guard plumbing ------------------------------------------------------
-
-    def _guarded(self, site: str, fn):
-        if self.chaos is not None:
-            fn = self.chaos.wrap(site, fn, rung=lambda: self.ladder.level)
-        if not self.scfg.guard:
-            return fn
-        validators = []
-        if self.scfg.validate:
-            validators.append(lambda o, s=site: validate_finite(o, s))
-        return GuardedCall(
-            fn, site, retries=self.scfg.retries,
-            backoff=Backoff(base_s=self.scfg.backoff_base_s,
-                            seed=self.scfg.seed),
-            deadline_s=self.scfg.deadline_s,
-            enforce_deadline=self.scfg.enforce_deadline,
-            validators=validators,
-            on_event=self.events.append,
-            before_retry=(self.chaos.refresh if self.chaos is not None
-                          else None))
-
-    def _decode_step(self, *args):
-        """One guarded decode step on ``args`` (after the model); on
-        exhausted recovery, walk the degradation ladder and re-execute on
-        the lower rung."""
-        while True:
-            try:
-                return self._decode(self.model, *args)
-            except GuardExhausted as e:
-                if not self.ladder.step_down(reason=str(e)):
-                    e.report.transitions = list(self.ladder.transitions)
-                    self._write_report(e.report)
-                    raise
-                self.state = ServerState.DEGRADED
-                self._apply_rung(self.ladder.current())
-
-    def _write_report(self, report) -> Optional[str]:
-        if not self.scfg.report_dir:
-            return None
-        path = os.path.join(self.scfg.report_dir,
-                            f"failure_{report.name.replace('.', '_')}.json")
-        return report.write(path)
-
-    # -- substrate canary ----------------------------------------------------
-
-    def check_substrate(self) -> None:
-        """Spot-check the kernel substrate: rerun a tiny known-good
-        block-space write on the model's device (the write kernel on the
-        card) and demand a result bit-identical to the first canary's.
-        Raises ValidationError on mismatch."""
-        from repro_torch.kernels.sierpinski_write import sierpinski_write
-        out = sierpinski_write(
-            torch.zeros((16, 16), dtype=torch.float32,
-                        device=self.model.device), 1.0,
-            block=4, grid_mode="closed_form", coarsen=1, num_stages=1)
-        if self._canary_ref is None:
-            self._canary_ref = out
-            return
-        spot_check(self._canary_ref, "lambda canary")(out)
 
     # -- sampling ------------------------------------------------------------
 
@@ -416,7 +435,7 @@ class _PagedRequest:
     preemptions: int = 0
 
 
-class PagedServer:
+class PagedServer(_GuardedServing):
     """Continuous-batching serving over the paged KV pool.
 
     The decode batch is a fixed set of ``num_slots`` slots; requests
@@ -435,19 +454,11 @@ class PagedServer:
     plain gather decode), switching the step's config as
     :meth:`Server._apply_rung` does."""
 
-    _guarded = Server._guarded
-    _decode_step = Server._decode_step
-    _write_report = Server._write_report
-    check_substrate = Server.check_substrate
-
     def __init__(self, cfg: ModelConfig, model, scfg: PagedServeConfig,
                  chaos=None):
         model_lib._check_paged(cfg)
         self.cfg, self.model, self.scfg = cfg, model, scfg
-        self.chaos = chaos
         self.mesh = None
-        self.state = ServerState.HEALTHY
-        self.events: list = []
         self.stats_history: list = []
         self.alloc = paged_lib.PagedKVPool(scfg.num_pages, scfg.page_size)
         self.max_pages = -(-scfg.max_len // scfg.page_size)
@@ -463,14 +474,7 @@ class PagedServer:
         #: call through the sampled tokens on the host)
         self.decode_steps = 0
         self.step_seconds = 0.0
-        self.ladder = DegradationLadder(
-            self._rungs(cfg),
-            on_transition=lambda rec: self.events.append(
-                {"kind": "degrade", **rec}))
-        self._canary_ref = None
-        _build_kernels(model.device)
-        self._decode_cfg = None
-        self._apply_rung(self.ladder.current())
+        self._init_guarding(cfg, model, chaos)
         self._prefill = self._guarded(
             "serve.prefill",
             lambda model, tokens: prefill(model, tokens, cfg=cfg))

@@ -30,7 +30,7 @@ compose bottom-up:
 
 Outputs are nested tuples / lists / dicts of tensors (numpy arrays and
 Python scalars are accepted as leaves too).  :func:`validate_finite` and
-:func:`spot_check` reduce each tensor on its own device; only a bool per
+:func:`spot_check` reduce on the tensors' own devices; only a bool per
 device crosses to the host.
 
 Sampling keys (:func:`sample_key`) are a pure function of (seed, slot,
@@ -254,17 +254,32 @@ def synchronize(out: Any) -> None:
 # validation
 # ---------------------------------------------------------------------------
 
+def _all_finite(tensors: List[torch.Tensor]) -> bool:
+    """Whether every value of ``tensors`` (non-empty, on one device) is
+    finite: one fused max-|x| over each dtype's tensors (a NaN or an inf
+    carries through it), then one stack and one reduction; a single
+    bool reaches the host."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    norms = [n for ts in by_dtype.values()
+             for n in torch._foreach_norm(ts, float("inf"))]
+    return bool(torch.isfinite(torch.stack(norms)).all())
+
+
 def validate_finite(out: Any, what: str = "output") -> None:
     """NaN/inf screen over every floating leaf of ``out``; raises
     :class:`ValidationError` naming the first offending leaf.  Each
-    device reduces its own leaves; one bool per device reaches the
-    host (the count of the message only on failure)."""
+    device reduces all its leaves in a few launches (see
+    :func:`_all_finite`); the leaf is looked for, and its count taken,
+    only on failure."""
     leaves = [(p, _as_tensor(x)) for p, x in tree_leaves_with_path(out)]
-    leaves = [(p, t) for p, t in leaves if t.is_floating_point()]
+    leaves = [(p, t) for p, t in leaves
+              if t.is_floating_point() and t.numel()]
     by_dev: Dict[torch.device, List[torch.Tensor]] = {}
     for _, t in leaves:
-        by_dev.setdefault(t.device, []).append(torch.isfinite(t).all())
-    if all(bool(torch.stack(oks).all()) for oks in by_dev.values()):
+        by_dev.setdefault(t.device, []).append(t)
+    if all(_all_finite(ts) for ts in by_dev.values()):
         return
     for path, t in leaves:
         fin = torch.isfinite(t)

@@ -1306,3 +1306,40 @@ def test_server_on_the_card_serves_at_ladder_level_zero(dev):
     kinds = {e.kind for e in srv.events if isinstance(e, GuardEvent)}
     assert kinds == {"ok"}
     assert not [e for e in srv.events if not isinstance(e, GuardEvent)]
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), float("-inf")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_screen_finds_one_bad_value_on_the_card(dev, bad, dtype):
+    """The guard's screen (one fused max-|x| a dtype on the card) finds a
+    single non-finite value in one of 25 cache-sized leaves."""
+    from repro_torch.runtime.guard import ValidationError, validate_finite
+    g = torch.Generator(device=dev).manual_seed(0)
+    leaves = [torch.randn(8, 1, 4096, device=dev, generator=g)] + [
+        torch.randn(8, 256, 12, 64, device=dev, generator=g).to(dtype)
+        for _ in range(24)]
+    validate_finite(leaves)
+    leaves[17].view(-1)[123457] = bad
+    with pytest.raises(ValidationError,
+                       match="1 non-finite values in leaf 17 "):
+        validate_finite(leaves, "decode")
+
+
+def test_fatal_decode_error_on_the_card_is_not_degraded(dev):
+    """A fatal error on the card's blockspace rung raises; the server
+    stays on the kernel's rung."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as TM
+    from repro_torch.runtime import chaos as RC
+    from repro_torch.runtime.guard import GuardExhausted
+    cfg = get_config("quickstart", smoke=True).replace(
+        attn_decode_kernel="blockspace")
+    model = TM.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    plan = RC.FaultPlan(0, [RC.FaultSpec("fatal_error", "serve.decode", 2,
+                                         rung=0)])
+    srv = S.Server(cfg, model, S.ServeConfig(max_len=16),
+                   chaos=RC.ChaosInjector(plan))
+    with pytest.raises(GuardExhausted, match="fatal"):
+        srv.generate(torch.zeros((2, 8), dtype=torch.int64).numpy(), 6)
+    assert srv.ladder.level == 0 and srv.ladder.transitions == []

@@ -158,6 +158,30 @@ def test_validate_finite_nested_trees_reference_messages():
             (2,), float("nan"), dtype=torch.bfloat16)]))
 
 
+@pytest.mark.parametrize("bad,dtype,at", [
+    (float("nan"), torch.float32, "2"), (float("inf"), torch.bfloat16, "1"),
+    (float("-inf"), torch.float16, "3/0"), (None, torch.float64, "")])
+def test_validate_finite_one_pass_over_mixed_dtypes(bad, dtype, at):
+    """The screen reduces each device's leaves by dtype in one fused
+    max-|x|: one bad value in any leaf of any float dtype is found, and
+    named as the per-leaf walk names it; empty leaves and huge finite
+    f64 values pass."""
+    tree = [torch.zeros(0), torch.ones(4, dtype=torch.bfloat16),
+            torch.full((64, 64), 3.0), [torch.ones(5, dtype=torch.float16),
+                                        torch.tensor([1e300, -1e300],
+                                                     dtype=torch.float64)],
+            torch.arange(6)]
+    if bad is None:
+        TG.validate_finite(tree)
+        return
+    leaf = {"1": tree[1], "2": tree[2], "3/0": tree[3][0]}[at]
+    assert leaf.dtype == dtype
+    leaf.view(-1)[leaf.numel() // 2] = bad
+    with pytest.raises(TG.ValidationError,
+                       match=f"1 non-finite values in leaf {at} "):
+        TG.validate_finite(tree, "decode")
+
+
 def test_spot_check_reference_messages():
     ref_np = {"w": np.arange(6, dtype=np.float32)}
     ref_t = {"w": torch.arange(6, dtype=torch.float32)}

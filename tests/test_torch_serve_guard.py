@@ -25,6 +25,21 @@ def quickstart():
     return jax_model("quickstart")
 
 
+@pytest.fixture(scope="module")
+def jax_greedy(quickstart):
+    """The JAX Server's uninterrupted greedy stream on prompts whose
+    top-2 margins are >= 100x the logit tolerance at every step."""
+    from repro.launch.serve import ServeConfig as JServeConfig
+    from repro.launch.serve import Server as JServer
+    jcfg, jp, tcfg, tm = quickstart
+    prompts = _prompts(jcfg, (2, 8), 2)
+    want = JServer(jcfg, jp, JServeConfig(max_len=16, guard=False)).generate(
+        prompts, max_new=MAX_NEW)
+    margins = _margins(tm, tcfg, prompts, want)
+    assert margins.min() >= 100 * LOGIT_ATOL, margins.min()
+    return prompts, want
+
+
 def _prompts(cfg, shape, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
 
@@ -70,7 +85,8 @@ def test_ladder_blockspace_to_xla(quickstart):
     srv = S.Server(tcfg.replace(attn_decode_kernel="blockspace"), tm, scfg,
                    chaos=TC.ChaosInjector(plan))
     assert srv.ladder.rungs[0]["decode_kernel"] == "blockspace"
-    out = srv.generate(prompts, MAX_NEW)
+    with pytest.warns(RuntimeWarning, match="stepped down"):
+        out = srv.generate(prompts, MAX_NEW)
     assert srv.state == ServerState.DEGRADED and srv.ladder.level == 1
     (t,) = srv.ladder.transitions
     assert (t["from"]["decode_kernel"], t["to"]["decode_kernel"]) == \
@@ -99,7 +115,8 @@ def test_paged_ladder_to_paged_xla(quickstart):
     srv = S.PagedServer(tcfg.replace(attn_decode_kernel="blockspace"), tm,
                         S.PagedServeConfig(**kw),
                         chaos=TC.ChaosInjector(plan))
-    out = srv.run(reqs, max_new=4)
+    with pytest.warns(RuntimeWarning, match="stepped down"):
+        out = srv.run(reqs, max_new=4)
     assert srv.state == ServerState.DEGRADED and srv.ladder.level == 1
     assert srv.ladder.transitions[0]["to"] == {"decode_kernel": "xla"}
     for rid in want:
@@ -123,6 +140,101 @@ def test_exhausted_ladder_writes_failure_report(quickstart, tmp_path):
     assert rep["name"] == "serve.decode" and rep["attempts"] == 2
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_fatal_decode_error_raises_on_its_rung(quickstart, tmp_path, paged):
+    """A fatal error on the blockspace rung is reported and re-raised:
+    the server never steps down to the plain decode over it."""
+    _, _, tcfg, tm = quickstart
+    cfg = tcfg.replace(attn_decode_kernel="blockspace")
+    plan = TC.FaultPlan(0, [TC.FaultSpec("fatal_error", "serve.decode", 1,
+                                         rung=0)])
+    kw = dict(max_len=16, backoff_base_s=0.0, report_dir=str(tmp_path))
+    if paged:
+        srv = S.PagedServer(cfg, tm, S.PagedServeConfig(
+            num_slots=2, page_size=8, num_pages=8, **kw),
+            chaos=TC.ChaosInjector(plan))
+        run = lambda: srv.run([_prompts(tcfg, (5,), 0)], max_new=4)
+    else:
+        srv = S.Server(cfg, tm, S.ServeConfig(**kw),
+                       chaos=TC.ChaosInjector(plan))
+        run = lambda: srv.generate(_prompts(tcfg, (2, 4), 0), max_new=4)
+    assert len(srv.ladder.rungs) == 2
+    with pytest.raises(GuardExhausted, match="fatal") as e:
+        run()
+    assert e.value.report.classification == "fatal"
+    assert srv.ladder.level == 0 and srv.ladder.transitions == []
+    assert srv.state == ServerState.HEALTHY
+    assert _kinds(srv) == ["ok", "ok", "fatal"]
+    rep = json.load(open(tmp_path / "failure_serve_decode.json"))
+    assert rep["classification"] == "fatal" and rep["attempts"] == 1
+    assert rep["transitions"] == []
+
+
+def _jax_kinds(events):
+    return [e["kind"] if isinstance(e, dict) else e.kind for e in events]
+
+
+def test_same_fault_plan_as_the_jax_server(quickstart, jax_greedy):
+    """One fault plan through ``repro``'s Server and the port's, greedy:
+    the same guard and ladder events, recoveries, transitions, failure
+    report and stream.  The first generation recovers a transient
+    prefill, steps blockspace -> xla after two rung-0 faults and recovers
+    a poisoned step; the second exhausts the bottom rung."""
+    from repro.launch.serve import ServeConfig as JServeConfig
+    from repro.launch.serve import Server as JServer
+    from repro.runtime import chaos as JC
+    jcfg, jp, tcfg, tm = quickstart
+    faults = [dict(kind="transient_error", site="serve.prefill", index=0),
+              dict(kind="transient_error", site="serve.decode", index=0,
+                   rung=0),
+              dict(kind="transient_error", site="serve.decode", index=1,
+                   mode="jax", rung=0),
+              dict(kind="poison_result", site="serve.decode", index=3),
+              dict(kind="transient_error", site="serve.decode", index=8),
+              dict(kind="transient_error", site="serve.decode", index=9)]
+    plan = {"seed": 0, "faults": [TC.FaultSpec(**f).to_json()
+                                  for f in faults]}
+    kw = dict(max_len=16, retries=1, backoff_base_s=0.0)
+    prompts, uninterrupted = jax_greedy
+    jsrv = JServer(jcfg.replace(attn_decode_kernel="blockspace"), jp,
+                   JServeConfig(**kw),
+                   chaos=JC.ChaosInjector(JC.FaultPlan.from_json(plan)))
+    tsrv = S.Server(tcfg.replace(attn_decode_kernel="blockspace"), tm,
+                    S.ServeConfig(**kw),
+                    chaos=TC.ChaosInjector(TC.FaultPlan.from_json(plan)))
+    want = jsrv.generate(prompts, max_new=MAX_NEW)
+    with pytest.warns(RuntimeWarning, match="stepped down"):
+        got = tsrv.generate(prompts, max_new=MAX_NEW)
+    assert np.array_equal(want, uninterrupted)
+    assert np.array_equal(got, want)
+    with pytest.raises(Exception) as ej:
+        jsrv.generate(prompts, max_new=MAX_NEW)
+    with pytest.raises(GuardExhausted) as et:
+        tsrv.generate(prompts, max_new=MAX_NEW)
+    assert type(ej.value).__name__ == "GuardExhausted"
+    assert _jax_kinds(tsrv.events) == _jax_kinds(jsrv.events)
+    assert "degrade" in _jax_kinds(tsrv.events)
+    for g in ("_prefill", "_decode"):
+        assert getattr(tsrv, g).recoveries == getattr(jsrv, g).recoveries
+    assert tsrv._decode.recoveries == 1 and tsrv._prefill.recoveries == 1
+
+    def moves(transitions):
+        return [(t["from_level"], t["to_level"], t["from"], t["to"])
+                for t in transitions]
+
+    assert moves(tsrv.ladder.transitions) == moves(jsrv.ladder.transitions)
+    assert tsrv.state == ServerState.DEGRADED
+    assert tsrv.state.value == jsrv.state.value
+    rt, rj = et.value.report.to_json(), ej.value.report.to_json()
+    assert sorted(rt) == sorted(rj)
+    for key in ("name", "classification", "attempts"):
+        assert rt[key] == rj[key], key
+    assert rt["classification"] == "exhausted"
+    assert [e["kind"] for e in rt["events"]] == \
+        [e["kind"] for e in rj["events"]]
+    assert moves(rt["transitions"]) == moves(rj["transitions"])
+
+
 def test_sigterm_drains_and_resume_is_uninterrupted(quickstart, tmp_path):
     _, _, tcfg, tm = quickstart
     kw = dict(max_len=16, temperature=0.7, seed=5, backoff_base_s=0.0)
@@ -143,7 +255,8 @@ def test_sigterm_drains_and_resume_is_uninterrupted(quickstart, tmp_path):
     assert successor.events[-1]["kind"] == "resume"
 
 
-def test_resume_of_a_jax_decode_checkpoint(quickstart, tmp_path):
+def test_resume_of_a_jax_decode_checkpoint(quickstart, jax_greedy,
+                                          tmp_path):
     """The JAX Server drains on SIGTERM into its decode checkpoint; the
     port's Server resumes it, greedy, to the JAX uninterrupted stream
     (on prompts whose top-2 margins are >= 100x the logit tolerance)."""
@@ -151,9 +264,7 @@ def test_resume_of_a_jax_decode_checkpoint(quickstart, tmp_path):
     from repro.launch.serve import Server as JServer
     from repro.runtime import chaos as JC
     jcfg, jp, tcfg, tm = quickstart
-    prompts = _prompts(jcfg, (2, 8), 2)
-    want = JServer(jcfg, jp, JServeConfig(max_len=16, guard=False)).generate(
-        prompts, max_new=MAX_NEW)
+    prompts, want = jax_greedy
     jsrv = JServer(jcfg, jp, JServeConfig(
         max_len=16, backoff_base_s=0.0, ckpt_dir=str(tmp_path),
         ckpt_every=1), chaos=JC.ChaosInjector(JC.FaultPlan(0, [
@@ -162,8 +273,6 @@ def test_resume_of_a_jax_decode_checkpoint(quickstart, tmp_path):
     assert jsrv.state.value == "draining" and partial.shape[1] < MAX_NEW
     out = S.Server(tcfg, tm, S.ServeConfig(
         max_len=16, ckpt_dir=str(tmp_path))).resume()
-    margins = _margins(tm, tcfg, prompts, want)
-    assert margins.min() >= 100 * LOGIT_ATOL, margins.min()
     assert np.array_equal(out, want)
 
 
