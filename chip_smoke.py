@@ -18,7 +18,12 @@ domains at the same size, and the LM's serving path at full model width:
 * serving: the contiguous Server (quickstart, and gemma3-12b with 6 of
   its 48 layers) and the continuous-batching PagedServer (quickstart),
   greedy, every decode attention through the split-K decode kernel or
-  the paged decode kernel (one device routine, two front ends).
+  the paged decode kernel (one device routine, two front ends);
+* training: the Trainer on quickstart at full width (resumed from a
+  checkpoint, then its weights served through the decode kernel) and on
+  gemma3-12b at full width with 6 of its 48 layers through the flash
+  VJP (a plain-PyTorch autograd Function: no TPU kernel lies on the
+  training path).
 
 The lowerings are closed_form, prefetch_lut, bounding and mma (the
 decode chains of csrc/mma_decode.cuh on the tensor cores); every loop
@@ -199,7 +204,28 @@ Phases, each printing its own lines:
              (flash within its tolerance), the kernel's launch count
              risen, the call against its plain version, and a lookup
              under another key giving the untuned defaults' bits;
-16. kernels line (the kernels of the main paths: B1-B3, B4 as the
+16. train  -- the trainer (repro_torch.launch.train): the flash VJP at
+             gemma3-12b's head shape (H 16/8, D 256, S 4096, f32,
+             chunk 1024; local window 1024 and causal, dense, and causal
+             triangular) against autograd through simple_attention,
+             each gradient within VJP_TOL of its largest magnitude, both
+             timed; quickstart at full width (batch 8, S 512, 21 steps
+             on the learnable pipeline, a checkpoint at step 10): finite
+             losses that fall, no attention kernel launched by
+             training; a second Trainer resumes the step-10 checkpoint
+             and its 10 steps equal the first run's within
+             TRAIN_RESUME_RTOL; the last checkpoint restored into a
+             Server: counts set to 0, greedy generation through the
+             decode kernel, counts read and held to layers x decode
+             steps, the stream against the plain decode's; gemma3-12b
+             at full width with 6 of its 48 layers (batch 1, S 4096,
+             bf16 compute, f32 parameters and AdamW state, remat,
+             logit chunks of 256): 3 steps of make_train_step, the
+             flash VJP's forward and backward counted; ms per step,
+             tokens/s and peak memory beside the card's name and power
+             limit (``python3 chip_smoke.py --train-only`` builds, then
+             runs only this phase and prints no result);
+17. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -1467,6 +1493,28 @@ TIMING_KEYS = ("seconds", "tok_per_s", "ms_per_decode_step")
 TUNE_RHO, TUNE_CA_STEPS = 32, 8
 TUNE_FLASH = dict(kind="causal", batch=4, sq=4096, blocks=(64, 128, 256))
 TUNE_PAGED = dict(batch=8, seq=SERVE_RUNS[0][5], page_sizes=(8, 16, 32, 64))
+#: the [train] phase.  quickstart at full width on the learnable
+#: pipeline: 21 steps with a checkpoint at step 10 (taken after 11
+#: updates, the pipeline at batch 11), a second Trainer resumes it and
+#: runs steps 10-19, which are the first run's 11-20; then a Server of the
+#: last checkpoint decodes a few requests.  gemma3-12b at full width with
+#: 6 of its 48 layers (one 5:1 local:global period), batch 1, S 4096:
+#: above flash_threshold 2048, so the flash VJP runs at chunk 1024, remat
+#: on, the loss over logit chunks of 256.
+TRAIN_QS = dict(batch=8, seq=512, steps=21, every=10, lr=1e-3, warmup=3)
+TRAIN_QS_SERVE = dict(batch=4, prompt=32, max_new=8, max_len=128)
+TRAIN_GEMMA = dict(layers=6, batch=1, seq=4096, steps=3, lr=1e-4)
+#: the resumed run's losses against the uninterrupted run's: the restored
+#: weights and moments are bit-equal, so only the order of the card's
+#: atomic adds (the embedding's backward) separates them;
+#: torch.use_deterministic_algorithms is not set
+TRAIN_RESUME_RTOL = 1e-4
+#: the flash VJP's gradients against autograd through simple_attention,
+#: f32, each error relative to that gradient's largest magnitude
+VJP_CASES = [("local", 1024, "dense"), ("causal", 0, "dense"),
+             ("causal", 0, "triangular")]
+VJP_SHAPE = dict(b=1, h=16, hkv=8, s=4096, d=256, chunk=1024)
+VJP_TOL = 2e-5
 
 
 def attn_bound(nbytes, nops, dtype, route="cuda_core"):
@@ -2861,6 +2909,243 @@ TIME_KEY_SUFFIXES = ("_ms", "seconds", "ms_per_decode_step")
 TIME_KEYS = ("ms",)
 
 
+def vjp_check(TA, dev):
+    """The flash VJP at gemma3-12b's head shape on the card, f32, against
+    autograd through simple_attention; both timed (forward + backward,
+    CUDA-event medians)."""
+    sh = VJP_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = [(sh["b"], sh["h"], sh["s"], sh["d"]),
+              (sh["b"], sh["hkv"], sh["s"], sh["d"]),
+              (sh["b"], sh["hkv"], sh["s"], sh["d"]),
+              (sh["b"], sh["h"], sh["s"], sh["d"])]
+    q, k, v, do = [torch.randn(x, generator=g, device=dev) for x in shapes]
+    rows = []
+    for kind, window, schedule in VJP_CASES:
+        def grads(fn):
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fn(*qkv), qkv, do)
+
+        def flash(q_, k_, v_):
+            return TA.flash_attention_xla(q_, k_, v_, kind=kind,
+                                          window=window, chunk=sh["chunk"],
+                                          schedule=schedule)
+
+        def plain(q_, k_, v_):
+            return TA.simple_attention(q_, k_, v_, kind=kind, window=window)
+        got, want = grads(flash), grads(plain)
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+        check(max(errs) <= VJP_TOL,
+              f"flash VJP {kind} {schedule}: gradient errors {errs} "
+              f"(relative to each gradient's max) > {VJP_TOL}")
+        del got, want
+        row = {"kind": kind, "window": window, "schedule": schedule,
+               "rel_err_dq_dk_dv": errs,
+               "ms": time_ms(lambda: grads(flash), 3),
+               "plain_ms": time_ms(lambda: grads(plain), 3)}
+        rows.append(row)
+        print(f"[train] vjp {json.dumps(row)}")
+    return rows
+
+
+def train_quickstart(S, TT, FA, get_config, dev, ckpt_root):
+    """quickstart at full width: the uninterrupted run, the resumed run,
+    then the Server of the last checkpoint through the decode kernel."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import convert
+    from repro_torch.models import model as TM
+    from repro_torch.optim.adamw import AdamWConfig
+    c = TRAIN_QS
+    cfg = get_config("quickstart")
+
+    def pipe():
+        return SyntheticPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=c["seq"],
+            global_batch=c["batch"]))
+
+    def trainer(d, steps):
+        return TT.Trainer(cfg, TT.TrainConfig(
+            steps=steps, log_every=5, ckpt_every=c["every"], ckpt_dir=d,
+            optimizer=AdamWConfig(lr=c["lr"], warmup_steps=c["warmup"],
+                                  total_steps=c["steps"])))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    da, db = os.path.join(ckpt_root, "a"), os.path.join(ckpt_root, "b")
+    t0 = time.perf_counter()
+    _, _, ha = trainer(da, c["steps"]).run(pipe())
+    secs_a = time.perf_counter() - t0
+    check(FA.launch_counts() == {k: 0 for k in FA.launch_counts()},
+          f"training launched an attention kernel: {FA.launch_counts()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h["loss"] for h in ha]
+    check(all(np.isfinite(losses)), f"quickstart train: losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"quickstart train: the loss did not fall "
+          f"({first} -> {last})")
+    every = f"step_{c['every']:010d}"
+    shutil.copytree(os.path.join(da, every), os.path.join(db, every))
+    p = pipe()
+    tb = trainer(db, c["steps"] - 1)
+    start, _, opt = tb.restore_or_init(p)
+    check(start == c["every"] and p.state_dict()["step"] == c["every"] + 1
+          and int(opt["count"]) == c["every"] + 1,
+          f"resume: step {start}, pipeline {p.state_dict()}, count "
+          f"{int(opt['count'])}")
+    del opt
+    model_b, _, hb = tb.run(pipe())
+    pairs = list(zip(ha[c["every"] + 1:], hb))
+    check(len(pairs) == len(hb) == c["steps"] - 1 - c["every"],
+          f"resume: {len(hb)} steps, {len(pairs)} to compare")
+    rel = max(abs(b["loss"] - a["loss"]) / abs(a["loss"]) for a, b in pairs)
+    check(rel <= TRAIN_RESUME_RTOL and all(
+        a["lr"] == b["lr"] for a, b in pairs),
+          f"resume: losses differ by {rel} (relative) > "
+          f"{TRAIN_RESUME_RTOL}, or the learning rates differ")
+    # serve the last checkpoint through the decode kernel
+    mgr = CheckpointManager(db)
+    shapes = dict(TM.Model(cfg, "meta").named_parameters())
+    step, tree, _, _ = mgr.restore(None, convert.tree_like_jax(shapes, cfg))
+    model = convert.params_from_jax(tree, cfg, dev)
+    check(all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                model_b.parameters())),
+          "the served checkpoint differs from the trained weights")
+    del model_b, tree
+    sv = TRAIN_QS_SERVE
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (sv["batch"], sv["prompt"]))
+    FA.reset_launch_counts()
+    toks, logits = serve_run(S, cfg, model, prompts, sv["max_new"],
+                             sv["max_len"], "blockspace")[:2]
+    launches = FA.launch_counts()
+    check(launches["flash_attention_decode"]
+          == cfg.n_layers * (sv["max_new"] - 1),
+          f"serve the trained weights: decode launches {launches}")
+    check(toks.shape == (sv["batch"], sv["max_new"]) and (toks >= 0).all()
+          and (toks < cfg.padded_vocab).all()
+          and bool(torch.isfinite(logits).all()), f"served tokens {toks}")
+    # the same requests through the plain decode: step logits within
+    # SERVE_TOL, tokens equal where the top-2 margin exceeds it
+    tx, lx = serve_run(S, cfg, model, prompts, sv["max_new"],
+                       sv["max_len"], "xla")[:2]
+    diff = compare_streams(toks, logits, tx, lx, SERVE_TOL[cfg.dtype],
+                           "serve the trained quickstart")[0]
+    step_s = [h["step_time_s"] for h in ha[1:]]
+    ms = 1e3 * statistics.median(step_s)
+    return {"arch": "quickstart", "layers": cfg.n_layers,
+            "batch": c["batch"], "seq": c["seq"], "dtype": cfg.dtype,
+            "steps": len(ha), "resumed_steps": len(hb),
+            "losses": losses, "resumed_losses": [h["loss"] for h in hb],
+            "loss_first5": first, "loss_last5": last,
+            "resume_max_rel_loss_diff": rel,
+            "ms_per_step": ms, "tokens_per_s": c["batch"] * c["seq"]
+            / (ms / 1e3), "first_step_s": ha[0]["step_time_s"],
+            "run_seconds": secs_a, "peak_gib": peak,
+            "served_step": step, "serve_launches": launches,
+            "served_tokens": toks.tolist(),
+            "serve_max_logit_diff_vs_plain_decode": diff}
+
+
+def train_gemma(TT, TA, get_config, dev, ckpt_root):
+    """gemma3-12b at full width, cut to TRAIN_GEMMA["layers"] layers: a
+    few steps of make_train_step from Trainer.init_params (no checkpoint:
+    it would write 40 GB), the flash VJP's forward and backward
+    counted."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.optim.adamw import AdamWConfig
+    c = TRAIN_GEMMA
+    cfg = get_config("gemma3-12b").replace(n_layers=c["layers"])
+    check(cfg.remat and c["seq"] > cfg.flash_threshold
+          and cfg.attn_chunk < c["seq"], "gemma3-12b train: not the flash "
+          "path under remat")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TT.TrainConfig(steps=c["steps"], ckpt_dir=ckpt_root,
+                          optimizer=AdamWConfig(lr=c["lr"], warmup_steps=1,
+                                                total_steps=c["steps"]))
+    tr = TT.Trainer(cfg, tcfg, device=dev)
+    step = TT.make_train_step(cfg, tcfg)
+    t0 = time.perf_counter()
+    model, opt = tr.init_params()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(p.numel() for p in model.parameters())
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=c["seq"],
+                                        global_batch=c["batch"]))
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = TA._flash_fwd_impl, TA._flash_vjp_bwd
+
+    def counted(key, fn):
+        def wrap(*a):
+            calls[key] += 1
+            return fn(*a)
+        return wrap
+    TA._flash_fwd_impl = counted("fwd", fwd)
+    TA._flash_vjp_bwd = counted("bwd", bwd)
+    hist = []
+    try:
+        for _ in range(c["steps"]):
+            batch = tr._device_batch(pipe.next_batch())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model, opt, met = step(model, opt, batch)
+            met = {k: float(v) for k, v in met.items()}
+            met["step_time_s"] = time.perf_counter() - t1
+            hist.append(met)
+            print(f"[train] gemma3-12b step: {json.dumps(met)}")
+    finally:
+        TA._flash_fwd_impl, TA._flash_vjp_bwd = fwd, bwd
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), f"gemma3-12b train: {hist}")
+    # remat runs each layer's forward twice (the forward, then again
+    # before its backward); one backward per layer and step
+    check(calls == {"fwd": 2 * cfg.n_layers * c["steps"],
+                    "bwd": cfg.n_layers * c["steps"]},
+          f"gemma3-12b train: flash VJP calls {calls}")
+    ms = 1e3 * statistics.median([h["step_time_s"] for h in hist[1:]])
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"arch": "gemma3-12b", "layers": cfg.n_layers,
+            "batch": c["batch"], "seq": c["seq"], "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "params": nparams,
+            "init_s": init_s, "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "flash_calls": calls, "ms_per_step": ms,
+            "first_step_s": hist[0]["step_time_s"],
+            "tokens_per_s": c["batch"] * c["seq"] / (ms / 1e3),
+            "peak_gib": peak}
+
+
+def phase_train(S, TT, TA, FA, get_config, dev):
+    """The trainer on the card: the flash VJP held to autograd through
+    simple_attention, quickstart trained, resumed and served, gemma3-12b
+    trained through the flash VJP."""
+    t0 = time.perf_counter()
+    ckpt_root = tempfile.mkdtemp(prefix="repro-torch-train-")
+    try:
+        vjp = vjp_check(TA, dev)
+        torch.cuda.empty_cache()
+        qs = train_quickstart(S, TT, FA, get_config, dev, ckpt_root)
+        print(f"[train] quickstart {json.dumps(qs)}")
+        gm = train_gemma(TT, TA, get_config, dev, ckpt_root)
+        print(f"[train] gemma3-12b {json.dumps(gm)}")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    out = {"card": CARD, "vjp": vjp, "quickstart": qs, "gemma3_12b": gm,
+           "seconds": time.perf_counter() - t0}
+    print(f"[train] quickstart {qs['ms_per_step']:.1f} ms/step, "
+          f"{qs['tokens_per_s']:.0f} tokens/s, peak {qs['peak_gib']:.1f} "
+          f"GiB; gemma3-12b ({gm['layers']} layers) "
+          f"{gm['ms_per_step']:.1f} ms/step, {gm['tokens_per_s']:.0f} "
+          f"tokens/s, peak {gm['peak_gib']:.1f} GiB; phase "
+          f"{out['seconds']:.1f} s ({CARD})")
+    return out
+
+
 def timings(node, path=""):
     """{path: [values]} of every time in a chip_smoke.json tree (a list
     of times under one key, as the serving runs keep them, stays one
@@ -2951,6 +3236,8 @@ def main():
     from repro_torch.core.plan import LOWERINGS
     from repro_torch.kernels import _cuda, ops
     from repro_torch.launch import serve as S
+    from repro_torch.launch import train as TT
+    from repro_torch.models import attention as TA
     from repro_torch.models import model as TM
     from repro_torch.runtime import chaos as RC
     TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
@@ -2977,6 +3264,13 @@ def main():
         print("[decode-only] decode timings written; no result")
         return
     PHASE_S["build"] = round(build_s, 1)
+    if "--train-only" in sys.argv[1:]:
+        train = timed("train", phase_train, S, TT, TA, FA, get_config, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "train": train}, indent=1))
+        print("[train-only] the train phase ran; no result")
+        return
     errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
     merge_err(errs, timed("parity_compact", phase_parity_compact, TW, F,
                           LOWERINGS, compact_layout, dev))
@@ -3011,6 +3305,7 @@ def main():
     del models, qmodel
     tuned = timed("tune", phase_tune, tune, TW, TC, FA, compact_layout, qcfg,
                   dev)
+    train = timed("train", phase_train, S, TT, TA, FA, get_config, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -3226,6 +3521,10 @@ def main():
     for entry in kernels:
         if entry["name"] in chaos_launches:
             entry["launches_chaos_phase"] = chaos_launches[entry["name"]]
+        if entry["name"] == "flash_attention_decode":
+            # the Server of the trained quickstart checkpoint
+            entry["launches_train_phase"] = train["quickstart"][
+                "serve_launches"]["flash_attention_decode"]
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3238,7 +3537,8 @@ def main():
         "attn": attn_rows, "attn_clones": clones, "attn_dims": dims,
         "serve": serve_runs,
         "paged": paged, "chaos": chaos,
-        "decode": decode, "tune": tuned, "kernels": kernels,
+        "decode": decode, "tune": tuned, "train": train,
+        "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[phases] host seconds: {json.dumps(PHASE_S)}")

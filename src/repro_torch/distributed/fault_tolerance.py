@@ -12,8 +12,8 @@
                           :func:`repro_torch.runtime.guard.classify_error`)
                           with seeded exponential backoff.
 
-The serving layer uses ``PreemptionGuard``; the trainer (ROADMAP A11)
-will use the other two.
+The serving layer uses ``PreemptionGuard``; the trainer
+(:mod:`repro_torch.launch.train`) uses all three.
 """
 from __future__ import annotations
 

@@ -71,8 +71,9 @@ the same way and has no lookup of its own, as in the JAX package: its
 :func:`repro_torch.core.tune.autotune_paged` picks is the caller's to
 apply to its pool.
 
-Forward only.  Not ported yet: ``mesh=`` and the shard balances (A12),
-``verify=`` (A13), and the backward (A11).
+Forward only, as in the JAX package, whose training path takes the
+plain-tensor flash VJP (:mod:`repro_torch.models.attention`).  Not
+ported yet: ``mesh=`` and the shard balances (A12), ``verify=`` (A13).
 """
 from __future__ import annotations
 

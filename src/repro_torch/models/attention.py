@@ -5,7 +5,10 @@ Strategies, selected by sequence length and config (as in the JAX
 package's ``repro.models.attention``):
 
 * ``simple``  -- full masked attention (prefill up to ``flash_threshold``)
-* ``flash``   -- chunked online softmax (prefill above it), forward only
+* ``flash``   -- chunked online softmax (above it), with a custom
+                 backward (:class:`_Flash`) that recomputes per-chunk
+                 scores, so training holds O(S * chunk) and never the
+                 S x S score matrix
 * ``decode``  -- one-token query against a KV cache: the plain masked
                  :func:`decode_attention`, or the block-space flash
                  kernel (:func:`decode_attention_flash`), or the paged
@@ -20,8 +23,8 @@ per-row k-extents from the block domain's ``GridPlan.row_extents()``
 ``plan.xla_schedule``.
 
 GQA groups q heads as (Hkv, G) so K/V are never repeated per q head.
-The flash backward (training) is not ported yet (ROADMAP A11); nor is
-the serving mesh (``set_decode_mesh``, ``mesh=``: A12).
+The serving mesh (``set_decode_mesh``, ``mesh=``) is not ported yet
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -121,6 +124,35 @@ def _chunk_fwd_scan(qg, k, v, kind, window, scale, chunk, q_offset):
     return acc / l, m + torch.log(l)
 
 
+def _chunk_bwd_scan(qg, k, v, o, lse, dog, kind, window, scale, chunk,
+                    q_offset):
+    """Backward of :func:`_chunk_fwd_scan` over the same k chunks,
+    recomputing each chunk's scores from ``lse``.  Shapes as there;
+    o / do / lse in the grouped layout, f32.  Returns dqg (f32), dk and
+    dv (f32, (B,Hkv,Sk,*))."""
+    b, hkv, g, sq, d = qg.shape
+    sk = k.shape[2]
+    nc = sk // chunk
+    qpos = torch.arange(sq, device=qg.device)[:, None] + q_offset
+    q32 = qg.to(F32)
+    delta = torch.sum(dog * o, dim=-1, keepdim=True)  # (B,Hkv,G,Sq,1)
+    dq = q32.new_zeros((b, hkv, g, sq, d))
+    dks, dvs = [], []
+    for ci in range(nc):
+        kci = k[:, :, ci * chunk:(ci + 1) * chunk].to(F32)
+        vci = v[:, :, ci * chunk:(ci + 1) * chunk].to(F32)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", q32, kci) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=qg.device)[None, :]
+        s = _apply_mask(s, _mask(qpos, kpos, kind, window))
+        p = torch.exp(s - lse)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, dog))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vci)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kci)
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, q32))
+    return dq, torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+
+
 def _tri_klen(i: int, chunk: int, sk: int, sq: int, kind: str,
               window: int) -> tuple[int, int]:
     """Static (k_start, k_len) for q chunk i under the compact schedule
@@ -178,11 +210,63 @@ def _flash_fwd_impl(q, k, v, kind, window, scale, chunk, schedule):
     return o.reshape(b, h, sq, v.shape[-1]).to(q.dtype), lse
 
 
+def _flash_vjp_bwd(kind, window, scale, chunk, schedule, res, do):
+    q, k, v, o, lse = res
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dvd = v.shape[-1]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, sq, d)
+    og = o.reshape(b, hkv, g, sq, dvd).to(F32)
+    dog = do.reshape(b, hkv, g, sq, dvd).to(F32)
+    q_offset = sk - sq
+    if schedule == "dense" or kind == "full":
+        dq, dk, dv = _chunk_bwd_scan(qg, k, v, og, lse, dog, kind, window,
+                                     scale, chunk, q_offset)
+    else:  # dk / dv add up over the q chunks whose extents overlap
+        nq = sq // chunk
+        extents = _compact_extents(kind, window, chunk, sq, sk)
+        dq = og.new_zeros((b, hkv, g, sq, d))
+        dk = og.new_zeros((b, hkv, sk, d))
+        dv = og.new_zeros((b, hkv, sk, dvd))
+        for i in range(nq):
+            lo, ln = extents[i]
+            sl = slice(i * chunk, (i + 1) * chunk)
+            dqi, dki, dvi = _chunk_bwd_scan(
+                qg[:, :, :, sl], k[:, :, lo:lo + ln], v[:, :, lo:lo + ln],
+                og[:, :, :, sl], lse[:, :, :, sl], dog[:, :, :, sl],
+                kind, window, scale, min(chunk, ln),
+                q_offset + i * chunk - lo)
+            dq[:, :, :, sl] = dqi
+            dk[:, :, lo:lo + ln] += dki
+            dv[:, :, lo:lo + ln] += dvi
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The JAX package's ``jax.custom_vjp`` ``_flash``: the forward saves
+    ``q, k, v, o, lse``; the backward recomputes the scores per chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind, window, scale, chunk, schedule):
+        o, lse = _flash_fwd_impl(q, k, v, kind, window, scale, chunk,
+                                 schedule)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (kind, window, scale, chunk, schedule)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _flash_vjp_bwd(*ctx.args, ctx.saved_tensors, do)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention_xla(q, k, v, *, kind="causal", window=0,
                         scale: Optional[float] = None, chunk=1024,
                         schedule="dense"):
-    """Chunked online-softmax attention (forward), the JAX package's
-    ``flash_attention_xla`` without its custom VJP."""
+    """Chunked online-softmax attention with the recomputing backward,
+    the JAX package's ``flash_attention_xla``."""
     schedule = _schedule_name(schedule)
     if scale is None:
         scale = float(1.0 / np.sqrt(q.shape[-1]))
@@ -191,9 +275,8 @@ def flash_attention_xla(q, k, v, *, kind="causal", window=0,
         raise ValueError("Sk must be divisible by chunk")
     if schedule == "triangular" and q.shape[2] % chunk:
         raise ValueError("Sq must be divisible by chunk for triangular")
-    o, _ = _flash_fwd_impl(q, k, v, kind, window, float(scale), chunk,
-                           schedule)
-    return o
+    return _Flash.apply(q, k, v, kind, window, float(scale), chunk,
+                        schedule)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Building blocks of the dense LM stack: norms, RoPE, the SwiGLU MLP,
-the GQA attention block (prefill, contiguous decode, paged decode),
+the GQA attention block (train, prefill, contiguous decode, paged
+decode),
 embeddings and the LM head.
 
 Parameters live in small ``nn.Module``\\ s whose parameter names are the
@@ -191,6 +192,11 @@ def attn_block_prefill(a: Attention, x, cfg, kind, positions):
         schedule=cfg.attn_schedule_resolved,
         flash_threshold=cfg.flash_threshold)
     return _out(a, o, cfg, b, s, x.dtype), (k, v)
+
+
+def attn_block(a: Attention, x, cfg, kind, positions):
+    """Self-attention over the full sequence (train, no cache)."""
+    return attn_block_prefill(a, x, cfg, kind, positions)[0]
 
 
 def attn_block_decode(a: Attention, x, cfg, kind, cache, pos: int):

@@ -9,7 +9,10 @@ pool) per layer.  Layer ``i`` of the list is the JAX package's layer
 ``i = prefix + g * period + s``).
 
 Entry points:
-  * ``forward`` / ``logits_fn`` -- full-sequence forward
+  * ``forward`` / ``logits_fn`` -- full-sequence forward (grad-enabled,
+                       no caches; ``cfg.remat`` recomputes each group of
+                       ``period`` layers in the backward)
+  * ``loss_fn``     -- the training forward + chunked cross-entropy
   * ``prefill``     -- forward returning per-layer caches + last logits
   * ``decode_step`` -- one token through all layers, caches updated in
                        place
@@ -17,7 +20,7 @@ Entry points:
     ``decode_step_paged`` -- the paged KV pool of continuous batching
 
 MLA, MoE, SSM and shared-attention blocks are not ported yet (ROADMAP
-A11), nor is training (``loss_fn``).
+A11).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import default_device
 
@@ -184,17 +188,90 @@ def _run(model: Model, inputs, max_len=None, cfg=None):
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps), caches
 
 
+def _layers(model: Model, h, cfg, positions, lo: int, hi: int):
+    """Layers ``lo`` .. ``hi - 1`` of the training forward (no caches)."""
+    for i in range(lo, hi):
+        layer = model.layers[i]
+        _, akind, _, _ = layer_sig(cfg, i)
+        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
+        h = _ffn(layer, h + L.attn_block(layer.mixer, hn, cfg, akind,
+                                         positions), cfg)
+    return h
+
+
 def forward(model: Model, inputs, cfg: ModelConfig | None = None):
-    """Full-sequence forward -> (hidden (B,S,D), aux_loss 0).  ``cfg``
-    (default: the model's) may change the execution knobs (attention
-    schedule, decode kernel), not the shapes."""
-    h, _ = _run(model, inputs, cfg=cfg)
+    """Full-sequence forward -> (hidden (B,S,D), aux_loss 0), the
+    training forward: grad-enabled, no caches.  Under ``cfg.remat`` each
+    group of ``period`` layers (the JAX package's ``jax.checkpoint``-ed
+    scan body) keeps only its input and is recomputed in the backward;
+    the prefix layers are not.  ``cfg`` (default: the model's) may change
+    the execution knobs (attention schedule, remat), not the shapes."""
+    cfg = cfg or model.cfg
+    prefix, period, n_groups = group_layout(cfg)
+    h = _embed_inputs(model, inputs, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h = _layers(model, h, cfg, positions, 0, prefix)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(n_groups):
+        lo = prefix + g * period
+        if remat:
+            h = checkpoint(_layers, model, h, cfg, positions, lo,
+                           lo + period, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _layers(model, h, cfg, positions, lo, lo + period)
+    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def logits_fn(model: Model, inputs, cfg: ModelConfig | None = None):
     h, aux = forward(model, inputs, cfg)
     return L.lm_head(model.lm_head, h), aux
+
+
+def _xent(logits, labels):
+    """f32 cross entropy; logits (..., V), labels (...) int."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    return lse - gold
+
+
+def _chunk_ce(h, w, labels):
+    return _xent(h @ w, labels)
+
+
+def loss_fn(model: Model, batch, cfg: ModelConfig | None = None):
+    """batch: {"inputs": (B,S) tokens, "labels": (B,S)}, tensors on the
+    model's device.  Returns (total, {"loss", "aux_loss", "tokens"}).
+
+    With ``cfg.logit_chunk`` dividing S the head and the cross-entropy
+    run per chunk of that many positions (the JAX package's
+    ``lax.map``), each chunk recomputed in the backward, so the full
+    (B, S, V) logits never exist: gemma3-12b's 262,144-entry vocabulary
+    would take 4 GiB of f32 logits per 4096 tokens."""
+    cfg = cfg or model.cfg
+    h, aux = forward(model, batch["inputs"], cfg)
+    labels = batch["labels"]
+    lc = cfg.logit_chunk
+    if lc and h.shape[1] % lc == 0:
+        w = model.lm_head.w.to(h.dtype)
+        ces = []
+        for c in range(0, h.shape[1], lc):
+            args = (h[:, c:c + lc], w, labels[:, c:c + lc])
+            ces.append(checkpoint(_chunk_ce, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+                       if torch.is_grad_enabled() else _chunk_ce(*args))
+        loss = torch.mean(torch.stack(ces))
+    else:
+        logits = L.lm_head(model.lm_head, h)
+        loss = torch.mean(_xent(logits, labels))
+    total = loss + aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": torch.tensor(float(labels.numel()),
+                                          dtype=torch.float32,
+                                          device=h.device)}
 
 
 # ---------------------------------------------------------------------------

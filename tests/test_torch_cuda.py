@@ -1343,3 +1343,31 @@ def test_fatal_decode_error_on_the_card_is_not_degraded(dev):
     with pytest.raises(GuardExhausted, match="fatal"):
         srv.generate(torch.zeros((2, 8), dtype=torch.int64).numpy(), 6)
     assert srv.ladder.level == 0 and srv.ladder.transitions == []
+
+
+def test_trainer_takes_two_steps_on_the_card(dev, tmp_path):
+    """Two train steps of the quickstart smoke config on the card, the
+    flash VJP on (S 32 above a threshold of 16, chunk 8): finite losses,
+    a checkpoint that resumes at step 2 with the next batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import train as TT
+    cfg = get_config("quickstart", smoke=True).replace(
+        flash_threshold=16, attn_chunk=8, remat=True, logit_chunk=8)
+
+    def pipe():
+        return SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=32, global_batch=4))
+    tcfg = TT.TrainConfig(steps=2, log_every=100, ckpt_dir=str(tmp_path))
+    tr = TT.Trainer(cfg, tcfg)
+    model, opt, hist = tr.run(pipe())
+    assert tr.device.type == "cuda" and model.device.type == "cuda"
+    assert len(hist) == 2 and all(torch.isfinite(torch.tensor(h["loss"]))
+                                  for h in hist)
+    p = pipe()
+    step, model2, opt2 = TT.Trainer(cfg, tcfg).restore_or_init(p)
+    assert step == 2 and p.state_dict() == {"step": 2}
+    assert int(opt2["count"]) == 2
+    for (_, a), (_, b) in zip(model.named_parameters(),
+                              model2.named_parameters()):
+        assert torch.equal(a, b)

@@ -22,6 +22,10 @@ from torch_parity import jax_model
 
 LOGIT_TOL = dict(rtol=1e-5, atol=2e-5)
 ARCHS = ["quickstart", "gemma3-12b"]
+#: the JAX package's decode steps compiled once per config (eagerly, every
+#: step would trace the interpreted kernel again; the bits are the same)
+J_DECODE_STEP = jax.jit(JM.decode_step, static_argnums=(4,))
+J_DECODE_STEP_PAGED = jax.jit(JM.decode_step_paged, static_argnums=(6,))
 
 
 def _close(got, want, tol=LOGIT_TOL):
@@ -89,8 +93,8 @@ def test_decode_steps_match_jax(stacks, decode_kernel):
     tok = np.argmax(np.asarray(jlog), -1)
     for step in range(8):
         pos = 24 + step
-        jlog, jcache = JM.decode_step(jp, jnp.asarray(tok), jcache,
-                                      jnp.asarray(pos, jnp.int32), jcfg)
+        jlog, jcache = J_DECODE_STEP(jp, jnp.asarray(tok), jcache,
+                                     jnp.asarray(pos, jnp.int32), jcfg)
         tlog, tcache = TM.decode_step(tm, torch.from_numpy(tok), tcache,
                                       pos, tcfg)
         _close(tlog, jlog)
@@ -120,7 +124,7 @@ def test_paged_decode_step_matches_jax(stacks, decode_kernel):
     act = np.asarray([True, True])
     tok = _tokens(jcfg, (2, 1), seed=7)
     for _ in range(3):
-        jlog, jpools = JM.decode_step_paged(
+        jlog, jpools = J_DECODE_STEP_PAGED(
             jp, jnp.asarray(tok), jpools, jnp.asarray(table),
             jnp.asarray(pos), jnp.asarray(act), jcfg)
         tlog, tpools = TM.decode_step_paged(

@@ -1,0 +1,106 @@
+"""The port's AdamW against the JAX package's ``repro.optim.adamw`` on
+the same numpy parameters and gradients: several steps under each
+schedule and moment dtype (clipping on some of them), the learning-rate
+schedule, and the decay mask on JAX paths.
+
+OPT_TOL: f32 updates computed in the same order; XLA may contract a
+multiply-add, so an ulp or two apart.  BF16_TOL: bf16 moments may round
+to neighbouring bf16 values where the f32 results straddle a rounding
+boundary (one bf16 ulp, 2^-8 relative)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.optim import adamw as JO
+from repro_torch.optim import adamw as TO
+
+OPT_TOL = dict(rtol=2e-6, atol=1e-7)
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-7)
+
+#: a JAX-layout tree whose paths cover the decay mask's exemptions
+SHAPES = {"blocks": {"slot_0": {"mixer": {"wq": (2, 6, 4), "bq": (2, 4)},
+                                "norm1": {"scale": (2, 6)}}},
+          "embed": {"table": (10, 6)}, "lm_head": {"w": (6, 10)}}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _nest(flat):
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = v
+    return tree
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
+def test_apply_updates_matches_jax(schedule, moments):
+    rng = np.random.default_rng(0)
+    shapes = _flat(SHAPES)
+    init = {k: rng.normal(size=s).astype(np.float32)
+            for k, s in shapes.items()}
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=6, schedule=schedule,
+              moment_dtype=moments, clip_norm=4.0)
+    jcfg, tcfg = JO.AdamWConfig(**kw), TO.AdamWConfig(**kw)
+    jp = _nest({k: jnp.asarray(v) for k, v in init.items()})
+    js = JO.init_state(jp, jcfg)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in init.items()}
+    ts = TO.init_state(tp, tcfg)
+    tol = BF16_TOL if moments == "bfloat16" else OPT_TOL
+    jstep = jax.jit(lambda p, g, st: JO.apply_updates(p, g, st, jcfg))
+    for step in range(5):
+        # gradients of norm ~2..8: clipped on some steps
+        g = {k: (rng.normal(size=s) * (0.3 + step)).astype(np.float32)
+             for k, s in shapes.items()}
+        jp, js, jm = jstep(
+            jp, _nest({k: jnp.asarray(v) for k, v in g.items()}), js)
+        _, ts, tm = TO.apply_updates(
+            tp, {k: torch.from_numpy(v.copy()) for k, v in g.items()}, ts,
+            tcfg)
+        assert int(ts["count"]) == int(js["count"]) == step + 1
+        for key in ("grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       **OPT_TOL)
+        for k, v in _flat(jax.tree.map(np.asarray, jp)).items():
+            np.testing.assert_allclose(tp[k].numpy(), v, **OPT_TOL,
+                                       err_msg=k)
+        for name in ("m", "v"):
+            for k, v in _flat(js[name]).items():
+                assert ts[name][k].dtype == getattr(torch, moments)
+                np.testing.assert_allclose(
+                    ts[name][k].float().numpy(),
+                    np.asarray(v.astype(jnp.float32)), **tol, err_msg=k)
+
+
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
+def test_schedule_lr_matches_jax(schedule):
+    kw = dict(lr=3e-4, warmup_steps=7, total_steps=40, schedule=schedule)
+    steps = np.arange(0, 50, dtype=np.int32)
+    want = np.asarray(JO.schedule_lr(JO.AdamWConfig(**kw),
+                                     jnp.asarray(steps)))
+    got = TO.schedule_lr(TO.AdamWConfig(**kw), torch.from_numpy(steps))
+    np.testing.assert_allclose(got.numpy(), want, **OPT_TOL)
+
+
+def test_decay_mask_reads_jax_paths():
+    for path in ("blocks/slot_0/mixer/bq", "prefix_0/norm1/scale",
+                 "final_norm/scale", "blocks/slot_0/mixer/bv"):
+        assert not TO._decay_mask(path) and not JO._decay_mask(path)
+    for path in ("blocks/slot_0/mixer/wq", "embed/table", "lm_head/w"):
+        assert TO._decay_mask(path) and JO._decay_mask(path)
+    # a module name never matches "/bq": the caller passes JAX paths
+    assert TO._decay_mask("layers.3.mixer.bq")

@@ -171,6 +171,9 @@ def test_port_import_loads_no_jax_or_repro_module():
         "import repro_torch.kernels.sierpinski_ca\n"
         "import repro_torch.core.compact\n"
         "import repro_torch.kernels._cuda\n"
+        "import repro_torch.data, repro_torch.data.pipeline\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'jaxlib', 'repro.'))]\n"
         "assert not bad, bad\n")

@@ -12,6 +12,13 @@ from repro.core.domain import make_fractal_domain as j_fractal_domain
 from repro_torch.core.compact import CompactLayout as TLayout
 from repro_torch.core.domain import make_fractal_domain as t_fractal_domain
 
+#: The tier-1 run drives six test workers on eight cores, and torch's
+#: OpenMP pool would give each worker eight threads that spin beside the
+#: other workers'.  The port's tests (small tensors, the kernels' CPU
+#: emulations) run torch on one thread instead; every worker imports
+#: every test module, so this holds for the whole run.
+torch.set_num_threads(1)
+
 #: the kernel module (``repro_torch.kernels.sierpinski_write`` the attribute
 #: is the re-exported function, as in the JAX package)
 TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
