@@ -5,10 +5,12 @@ checkpoint/restart, a straggler watchdog and a preemption-safe exit.
 The step is eager PyTorch: ``loss_fn``'s backward fills each parameter's
 ``.grad`` (adding up over the micro-batches under ``grad_accum``), then
 :func:`~repro_torch.optim.adamw.apply_updates` updates the parameters
-and moments in place.  Checkpoints hold the parameters and the
-optimizer state ``{m, v, count}`` in the JAX package's tree layout, and
-the pipeline's state beside them, so a checkpoint of either package's
-``Trainer`` resumes in the other.
+and moments in place.  The two parts are retried apart (a transient
+error, such as running out of memory, in the update would otherwise
+rerun the backward on weights already partly updated).  Checkpoints
+hold the parameters and the optimizer state ``{m, v, count}`` in the JAX
+package's tree layout, and the pipeline's state beside them, so a
+checkpoint of either package's ``Trainer`` resumes in the other.
 
 Kept from the JAX package, quirks included: under ``grad_accum > 1`` the
 metrics report ``aux_loss`` 0 and ``tokens`` 0; a checkpoint taken every
@@ -65,35 +67,47 @@ class TrainConfig:
     optimizer: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, retry=None):
     """Returns ``train_step(model, opt_state, batch) -> (model,
     opt_state, metrics)``; the parameters and moments are updated in
-    place.  Batch tensors have a leading grad_accum axis when accum > 1."""
+    place.  Batch tensors have a leading grad_accum axis when accum > 1.
 
-    def step(model, opt_state, batch):
-        params = dict(model.named_parameters())
-        for p in params.values():
+    ``retry(fn, *args)`` (default: one call) runs each of the step's two
+    parts, each of which a failed attempt leaves fit to run again: the
+    gradients (forward and backward from cleared ``.grad``), then the
+    update (:func:`apply_updates` with a ``done`` set, so each parameter
+    is updated once).  The step as a whole is not: its update is in
+    place, and a second attempt would take its gradients on weights
+    already partly updated."""
+    retry = retry or (lambda fn, *args: fn(*args))
+
+    def gradients(model, batch):
+        params = list(model.parameters())
+        for p in params:
             p.grad = None
         if tcfg.grad_accum == 1:
             loss, metrics = loss_fn(model, batch, cfg)
             loss.backward()
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            total = torch.zeros((), dtype=torch.float32, device=model.device)
-            for a in range(tcfg.grad_accum):
-                loss, _ = loss_fn(model, {k: v[a] for k, v in batch.items()},
-                                  cfg)
-                loss.backward()
-                total = total + loss.detach()
-            inv = 1.0 / tcfg.grad_accum
-            for p in params.values():
-                p.grad.mul_(inv)
-            zero = torch.zeros((), dtype=torch.float32, device=model.device)
-            metrics = {"loss": total * inv, "aux_loss": zero, "tokens": zero}
+            return {k: v.detach() for k, v in metrics.items()}
+        total = torch.zeros((), dtype=torch.float32, device=model.device)
+        for a in range(tcfg.grad_accum):
+            loss, _ = loss_fn(model, {k: v[a] for k, v in batch.items()},
+                              cfg)
+            loss.backward()
+            total = total + loss.detach()
+        inv = 1.0 / tcfg.grad_accum
+        for p in params:
+            p.grad.mul_(inv)
+        zero = torch.zeros((), dtype=torch.float32, device=model.device)
+        return {"loss": total * inv, "aux_loss": zero, "tokens": zero}
+
+    def step(model, opt_state, batch):
+        metrics = retry(gradients, model, batch)
+        params = dict(model.named_parameters())
         grads = {k: p.grad for k, p in params.items()}
-        _, opt_state, opt_metrics = apply_updates(
-            params, grads, opt_state, tcfg.optimizer,
-            convert.jax_paths(model))
+        _, opt_state, opt_metrics = retry(
+            apply_updates, params, grads, opt_state, tcfg.optimizer,
+            convert.jax_paths(model), set())
         for p in params.values():
             p.grad = None
         metrics.update(opt_metrics)
@@ -125,7 +139,14 @@ class Trainer:
         self.mesh = None
         self.device = default_device(device)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
-        self._step = make_train_step(cfg, tcfg)
+        self._step = make_train_step(cfg, tcfg, retry=self._retry)
+
+    def _retry(self, fn, *args):
+        return retry_step(fn, *args, retries=self.tcfg.step_retries,
+                          backoff_s=self.tcfg.retry_backoff_s,
+                          seed=self.tcfg.seed,
+                          on_retry=lambda a, e: print(
+                              f"[retry] {fn.__name__} attempt {a}: {e}"))
 
     # ------------------------------------------------------------------
     def init_params(self):
@@ -210,13 +231,8 @@ class Trainer:
                 batch = self._device_batch(pipeline.next_batch())
                 t0 = time.perf_counter()
                 try:
-                    model, opt_state, metrics = retry_step(
-                        self._step, model, opt_state, batch,
-                        retries=self.tcfg.step_retries,
-                        backoff_s=self.tcfg.retry_backoff_s,
-                        seed=self.tcfg.seed,
-                        on_retry=lambda a, e: print(
-                            f"[retry] step {step} attempt {a}: {e}"))
+                    model, opt_state, metrics = self._step(model, opt_state,
+                                                           batch)
                 except Exception as e:
                     self._write_failure(step, e)
                     raise

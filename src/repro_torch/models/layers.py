@@ -194,11 +194,6 @@ def attn_block_prefill(a: Attention, x, cfg, kind, positions):
     return _out(a, o, cfg, b, s, x.dtype), (k, v)
 
 
-def attn_block(a: Attention, x, cfg, kind, positions):
-    """Self-attention over the full sequence (train, no cache)."""
-    return attn_block_prefill(a, x, cfg, kind, positions)[0]
-
-
 def attn_block_decode(a: Attention, x, cfg, kind, cache, pos: int):
     """One-token step.  cache: (k, v) each (B,Hkv,Smax,hd), written at
     ``pos`` **in place**; pos: int.  Returns (out, cache)."""

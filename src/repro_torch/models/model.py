@@ -171,6 +171,24 @@ def _pad_seq(x, axis, max_len):
     return torch.nn.functional.pad(x, pad)
 
 
+def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
+            caches=None, max_len=None):
+    """Layers ``lo`` .. ``hi - 1`` over the full sequence.  With a
+    ``caches`` list each layer's (K, V), padded to ``max_len``, is
+    appended to it (serving's prefill); without one none are kept (the
+    training forward)."""
+    for i in range(lo, hi):
+        layer = model.layers[i]
+        _, akind, _, _ = layer_sig(cfg, i)
+        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
+        out, (k, v) = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
+                                           positions)
+        if caches is not None:
+            caches.append((_pad_seq(k, 2, max_len), _pad_seq(v, 2, max_len)))
+        h = _ffn(layer, h + out, cfg)
+    return h
+
+
 @torch.no_grad()
 def _run(model: Model, inputs, max_len=None, cfg=None):
     """Full-sequence forward; returns (final-normed hidden, caches)."""
@@ -178,25 +196,8 @@ def _run(model: Model, inputs, max_len=None, cfg=None):
     h = _embed_inputs(model, inputs, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     caches = []
-    for i, layer in enumerate(model.layers):
-        _, akind, _, _ = layer_sig(cfg, i)
-        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
-        out, (k, v) = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
-                                           positions)
-        caches.append((_pad_seq(k, 2, max_len), _pad_seq(v, 2, max_len)))
-        h = _ffn(layer, h + out, cfg)
+    h = _layers(model, h, cfg, positions, 0, cfg.n_layers, caches, max_len)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps), caches
-
-
-def _layers(model: Model, h, cfg, positions, lo: int, hi: int):
-    """Layers ``lo`` .. ``hi - 1`` of the training forward (no caches)."""
-    for i in range(lo, hi):
-        layer = model.layers[i]
-        _, akind, _, _ = layer_sig(cfg, i)
-        hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
-        h = _ffn(layer, h + L.attn_block(layer.mixer, hn, cfg, akind,
-                                         positions), cfg)
-    return h
 
 
 def forward(model: Model, inputs, cfg: ModelConfig | None = None):

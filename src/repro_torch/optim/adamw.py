@@ -7,8 +7,11 @@ names of ``nn.Module.named_parameters()``); the state is ``{"m": ...,
 "v": ..., "count": 0-d int32 tensor}``, which
 :func:`repro_torch.models.convert.tree_to_jax` lays out as the JAX
 package's ``{m, v, count}`` tree for a checkpoint.  An update runs in
-place under ``torch.no_grad()``, one parameter at a time, so its
-temporaries are a few copies of the largest parameter.
+place under ``torch.no_grad()``, one parameter at a time, in two f32
+temporaries the size of that parameter (and f32 copies of what is held
+in another dtype); a parameter is written only once they all exist, so
+a step that fails part-way can be retried exactly
+(:func:`apply_updates`).
 
 ``torch.optim.AdamW`` is not used: it decays before the moment update,
 and has no clip, schedule or ``moment_dtype`` of this kind.  The weight
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Set
 
 import torch
 
@@ -88,15 +91,58 @@ def _decay_mask(path_str: str) -> bool:
     return not any(t in path_str for t in _DECAY_EXEMPT)
 
 
+def _leaf_buffers(p, m, v):
+    """Every f32 temporary of one parameter's update: two scratch
+    tensors, and an f32 copy of each of ``p``, ``m`` and ``v`` that is
+    held in another dtype (the f32 ones are updated where they lie)."""
+    a = torch.empty(p.shape, dtype=F32, device=p.device)
+    return (a, torch.empty_like(a),
+            *(x if x.dtype == F32 else torch.empty_like(a) for x in (p, m, v)))
+
+
+def _update_leaf(p, g, m, v, scale, bc1, bc2, lr, decay: bool,
+                 cfg: AdamWConfig):
+    """One parameter's update, written into ``p``, ``m`` and ``v``.  Its
+    temporaries are all allocated before the first write, so running out
+    of memory leaves the parameter as it was; the arithmetic is the JAX
+    package's, operation for operation, in f32."""
+    a, b, p32, m32, v32 = _leaf_buffers(p, m, v)
+    # from here on nothing is allocated
+    for x32, x in ((p32, p), (m32, m), (v32, v)):
+        if x32 is not x:
+            x32.copy_(x)
+    a.copy_(g).mul_(scale)                       # g
+    m32.mul_(cfg.b1).add_(torch.mul(a, 1 - cfg.b1, out=b))
+    torch.mul(a, 1 - cfg.b2, out=b).mul_(a)      # (1 - b2) * g * g
+    v32.mul_(cfg.b2).add_(b)
+    torch.div(m32, bc1, out=a)
+    a.div_(torch.div(v32, bc2, out=b).sqrt_().add_(cfg.eps))
+    if decay:
+        a.add_(torch.mul(p32, cfg.weight_decay, out=b))
+    p32.sub_(a.mul_(lr))
+    for x32, x in ((p32, p), (m32, m), (v32, v)):
+        if x32 is not x:                         # round to its dtype
+            x.copy_(x32)
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state,
-                  cfg: AdamWConfig, paths: Optional[Mapping[str, str]] = None):
+                  cfg: AdamWConfig, paths: Optional[Mapping[str, str]] = None,
+                  done: Optional[Set[str]] = None):
     """One AdamW step, in place: the parameters and moments are updated
     (the gradients are left as they are).  ``paths`` maps a parameter's
     name to its JAX path for the decay mask (default: the name itself).
     Returns ``(params, new_state, {"grad_norm", "lr"})``, as the JAX
-    package."""
+    package.
+
+    A step that fails part-way (say, out of memory in one parameter's
+    temporaries) can be run again and gives what one run would: a
+    parameter is written only once all its temporaries exist, and its
+    name is then added to ``done``, a set the caller keeps across the
+    attempts of one step, whose names a later attempt skips.  The count,
+    the learning rate and the clip scale come from ``state`` and
+    ``grads``, which an attempt does not change."""
     count = state["count"] + 1
     lr = schedule_lr(cfg, count)
     gnorm = global_norm(grads)
@@ -105,18 +151,12 @@ def apply_updates(params: Dict[str, torch.Tensor],
     bc1 = 1 - torch.pow(cfg.b1, countf)
     bc2 = 1 - torch.pow(cfg.b2, countf)
     for name, p in params.items():
+        if done is not None and name in done:
+            continue
         m, v = state["m"][name], state["v"][name]
-        g = grads[name].to(F32) * scale
-        m32 = m.to(F32).mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v32 = v.to(F32).mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        del g
-        step = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
-        p32 = p.to(F32)
-        if _decay_mask(paths[name] if paths is not None else name):
-            step.add_(cfg.weight_decay * p32)
-        p32.sub_(step.mul_(lr))
-        for dst, src in ((p, p32), (m, m32), (v, v32)):
-            if dst is not src:   # another dtype: round the f32 result
-                dst.copy_(src)
+        decay = _decay_mask(paths[name] if paths is not None else name)
+        _update_leaf(p, grads[name], m, v, scale, bc1, bc2, lr, decay, cfg)
+        if done is not None:
+            done.add(name)
     new_state = {"m": state["m"], "v": state["v"], "count": count}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
