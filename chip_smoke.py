@@ -23,7 +23,12 @@ domains at the same size, and the LM's serving path at full model width:
   checkpoint, then its weights served through the decode kernel) and on
   gemma3-12b at full width with 6 of its 48 layers through the flash
   VJP (a plain-PyTorch autograd Function: no TPU kernel lies on the
-  training path).
+  training path);
+* the MoE and MLA families: llama4-maverick-400b-a17b at full width (2
+  of its 48 layers) served through both decode kernels at its group of
+  5 q heads per kv head, deepseek-v2-236b at full width (4 of its 60
+  layers) served through MLA's absorbed decode (no kernel on that path)
+  and trained (2 layers).
 
 The lowerings are closed_form, prefetch_lut, bounding and mma (the
 decode chains of csrc/mma_decode.cuh on the tensor cores); every loop
@@ -225,7 +230,35 @@ Phases, each printing its own lines:
              tokens/s and peak memory beside the card's name and power
              limit (``python3 chip_smoke.py --train-only`` builds, then
              runs only this phase and prints no result);
-17. kernels line (the kernels of the main paths: B1-B3, B4 as the
+17. families -- the MoE / MLA stacks (models/moe.py, models/mla.py):
+             both decode kernels at llama4-maverick's heads (B 4, 40/8
+             heads of 128, bf16, cache 2048, positions 63 / 256 / 511 /
+             1500 at tile and split edges) against their plain versions
+             and the model's plain decode_attention (FAM_DECODE), paged
+             bit-equal to contiguous, timed (profiler device time)
+             beside SDPA and the byte bound; llama4-maverick at full
+             width cut to 2 of its 48 layers (dense, then MoE: 18.7 B
+             bf16 parameters), each run counted from 0: Server batch 4,
+             prompt 1024, 16 new, under blockspace (decode launches =
+             layers x decode steps) and xla (none), streams compared as
+             phase 11, timed in turns; PagedServer 8 mixed requests over
+             4 slots in 16-token pages (paged launches = layers x paged
+             steps), streams against the single-request oracle;
+             deepseek-v2-236b cut to 4 of its 60 layers (the dense first
+             layer, 3 MoE: 13.3 B bf16 parameters): Server batch 4,
+             prompt 1024, 16 new, no kernel launched (none lies on the
+             path); the absorbed MLA decode against the prefill of the
+             extended sequence (the model's logits in f32 compute within
+             FAM_MLA_F32_TOL, the first layer's block in bf16 within the
+             attention kernels' bf16 tolerance); moe_block against
+             moe_block_dense_ref on 64 tokens at a capacity that drops
+             nothing (the same tolerance); deepseek-v2 trained
+             at 2 layers (batch 1 x 4096, bf16 parameters and AdamW
+             moments, remat, 3 steps): finite losses, aux_loss > 0, the
+             flash VJP's calls at V head dim 128 against QK 192, ms per
+             step and peak (``python3 chip_smoke.py --families-only``
+             builds, then runs only this phase and prints no result);
+18. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -234,8 +267,10 @@ Phases, each printing its own lines:
              D 62 row), B5, the mma chains B7 (with the CA under mma at
              fuse 1 and 8 and on the triangle); the CUDA-core kernel,
              which no route takes, is not among them: its times sit
-             beside the tile paths' as cuda_core_ms), a ``[phases]``
-             line (each phase's host seconds), then the result line.
+             beside the tile paths' as cuda_core_ms; the two decode
+             entries carry launches_families_phase and a llama4_maverick
+             object), a ``[phases]`` line (each phase's host seconds),
+             then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -262,7 +297,9 @@ to chiprun_out/chip_smoke.json.
 Run:  python3 chip_smoke.py
 """
 import atexit
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -1515,6 +1552,40 @@ VJP_CASES = [("local", 1024, "dense"), ("causal", 0, "dense"),
              ("causal", 0, "triangular")]
 VJP_SHAPE = dict(b=1, h=16, hkv=8, s=4096, d=256, chunk=1024)
 VJP_TOL = 2e-5
+#: the [families] phase.  The decode kernels at llama4-maverick's heads
+#: (40 q over 8 kv heads: a group of 5 in a head chunk of 8 rows, D 128,
+#: bf16), the positions at tile and split edges of 128-key blocks.  The
+#: depth cuts come from memory: one llama4 MoE layer holds 32.2 GB of
+#: bf16 experts (its training ~129 GB), one deepseek-v2 MoE layer 7.5 GB.
+FAM_DECODE = dict(arch="llama4-maverick-400b-a17b", b=4, h=40, hkv=8,
+                  d=128, max_len=2048, positions=(63, 256, 511, 1500))
+#: llama4-maverick at full width cut to 2 of its 48 layers (layer 0 dense,
+#: layer 1 MoE; 18.7 B bf16 parameters): the Server (max_len a multiple
+#: of 128, so every decode attention runs the kernel), then the
+#: PagedServer on mixed prompts of 64..512 tokens
+FAM_LLAMA = dict(layers=2, batch=4, prompt=1024, max_new=16, max_len=1152)
+FAM_PAGED = dict(requests=8, slots=4, ps=16, lo=64, hi=512, max_new=16)
+#: deepseek-v2 at full width cut to 4 of its 60 layers (the dense first
+#: layer and 3 MoE layers; 13.3 B bf16 parameters): the Server, the MLA
+#: check (the absorbed decode at positions prompt .. prompt + 7 against
+#: the prefill of the extended sequence) and the MoE check (moe_block
+#: against moe_block_dense_ref on 64 tokens)
+FAM_DEEPSEEK = dict(layers=4, batch=4, prompt=1024, max_new=16,
+                    max_len=1040, mla_steps=8, moe_tokens=64)
+#: deepseek-v2 trained at 2 of its 60 layers: batch 1 x 4096 (above
+#: flash_threshold 2048: MLA through the flash VJP at V head dim 128
+#: against QK 192), bf16 parameters and AdamW moments, remat
+FAM_TRAIN = dict(layers=2, batch=1, seq=4096, steps=3, lr=1e-4)
+#: the MLA check on the model, in f32 compute over the bf16 weights, one
+#: row, a capacity that drops nothing: what is left between the absorbed
+#: decode and the materialised prefill is f32 rounding (~1e-5 of logits
+#: of magnitude ~4).  In bf16 a near-tie of the router's 6th and 7th
+#: expert flips between the two paths (their inputs differ by bf16
+#: rounding), which moves whole logits; the bf16 check is held at the
+#: first layer's MLA block instead (no router before it), within the
+#: bf16 tolerance of the attention kernels (FA._compare: 2e-2, each row
+#: within ROW_RTOL of its norm; ~4 roundings of 2^-9 on each path)
+FAM_MLA_F32_TOL = 2e-3
 
 
 def attn_bound(nbytes, nops, dtype, route="cuda_core"):
@@ -2094,28 +2165,96 @@ def margin(logits):
     return top[..., 0] - top[..., 1]
 
 
-def compare_streams(ta, la, tb, lb, tol, what):
+def compare_streams(ta, la, tb, lb, tol, what, routes=None):
     """Streams a and b with their step logits (B, T, V): the logits of
     every step up to a row's first differing token are compared within
     ``tol``, and a token may differ only where b's top-2 margin is at
-    most ``tol``.  Returns (max |logit diff|, steps compared, steps with
-    a margin of at most tol, rows that diverged)."""
-    diff, ncmp, small, diverged = 0.0, 0, 0, 0
+    most ``tol``.  With ``routes`` (each run's MoE routing per step, see
+    :func:`recording_routes`), a row is compared only up to the step
+    before its first step whose experts differ between the runs, and
+    they may differ only where b's router margin there is at most
+    ROUTE_TOL.  Returns (max |logit diff|, steps compared, steps with a
+    margin of at most tol, rows that diverged by token, rows that
+    diverged by route)."""
+    diff, ncmp, small, diverged, flipped = 0.0, 0, 0, 0, 0
     mb = margin(lb)
     for r in range(ta.shape[0]):
         neq = (ta[r] != tb[r]).nonzero()[0]
         last = int(neq[0]) if len(neq) else ta.shape[1] - 1
+        flip = route_flip(routes, r, last) if routes else None
+        if flip is not None:
+            step, m = flip
+            check(m <= ROUTE_TOL, f"{what} row {r}: experts differ at step "
+                  f"{step} where the router margin is {m} > {ROUTE_TOL}")
+            flipped += 1
+            last = step - 1
         d = float((la[r, :last + 1] - lb[r, :last + 1]).abs().max())
         check(d <= tol, f"{what} row {r}: step logits differ by {d} > {tol}")
         diff = max(diff, d)
         ncmp += last + 1
         small += int((mb[r, :last + 1] <= tol).sum())
-        if len(neq):
+        if len(neq) and flip is None:
             m = float(mb[r, last])
             check(m <= tol, f"{what} row {r}: tokens differ at step "
                   f"{last} where the top-2 margin is {m} > {tol}")
             diverged += 1
-    return diff, ncmp, small, diverged
+    return diff, ncmp, small, diverged, flipped
+
+
+#: a decode step's MoE routing may differ between two runs only where the
+#: router's top-k boundary is this close (in router logits, which start
+#: ~N(0, 1)): the runs' router inputs differ by the bf16 rounding of
+#: their attention outputs (~1e-2 of a router logit), so a near-tie
+#: between the k-th and (k+1)-th expert can flip, and with top-1 routing
+#: (llama4-maverick) a flip swaps the token's whole routed expert
+ROUTE_TOL = 0.05
+
+
+@contextlib.contextmanager
+def recording_routes(moe_lib):
+    """Record every MoE routing while in the block: a list, one entry per
+    ``moe_lib.route`` call in order, of (expert indices (N, k), the
+    router margin (N,): the log-probability gap between the k-th and
+    (k+1)-th expert), on the host."""
+    real, calls = moe_lib.route, []
+
+    def route(m, xf, cfg):
+        probs, gates, idx = real(m, xf, cfg)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values.log()
+        calls.append((idx.cpu(), (top[:, -2] - top[:, -1]).cpu()))
+        return probs, gates, idx
+    moe_lib.route = route
+    try:
+        yield calls
+    finally:
+        moe_lib.route = real
+
+
+def step_routes(calls, n, b, step, r):
+    """Row ``r``'s routing at ``step`` of a Server run of batch ``b``
+    through ``n`` MoE layers (``calls`` from :func:`recording_routes`):
+    its prefill routes every prompt token (step 0 is the row's last),
+    each decode step one token a row, layer by layer.  Returns [(expert
+    indices (k,), router margin)] per layer."""
+    out = []
+    for layer in range(n):
+        idx, mrg = calls[step * n + layer]
+        row = (r + 1) * (idx.shape[0] // b) - 1
+        out.append((idx[row], float(mrg[row])))
+    return out
+
+
+def route_flip(routes, r, last):
+    """(step, b's router margin) of the first step <= ``last`` at which
+    row ``r``'s experts differ between runs a and b, or None.  ``routes``:
+    (calls of a, calls of b, MoE layers, batch)."""
+    ra, rb, n, b = routes
+    for step in range(last + 1):
+        for (ia, _), (ib, mb) in zip(step_routes(ra, n, b, step, r),
+                                     step_routes(rb, n, b, step, r)):
+            if not torch.equal(ia, ib):
+                return step, mb
+    return None
 
 
 def phase_serve(S, TM, get_config, FA, dev):
@@ -2202,7 +2341,7 @@ def phase_serve(S, TM, get_config, FA, dev):
         check(tk.shape == (batch, max_new) and bool(torch.isfinite(lk).all()),
               f"{arch}: bad stream shape {tk.shape} or non-finite logits")
         tol = SERVE_TOL[cfg.dtype]
-        diff, ncmp, small, diverged = compare_streams(
+        diff, ncmp, small, diverged, _ = compare_streams(
             tk, lk, tx, lx, tol, f"serve {arch}")
         run = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
                "prompt": plen, "max_new": max_new, "max_len": max_len,
@@ -2499,34 +2638,53 @@ def decode_bound(q, hkv, keys):
 def gemma_decode_check(FA, P, dev):
     """Both decode kernels at the decode shape of the gemma3-12b Server
     (B 4, 16/8 heads of 256, bf16, cache 1664, per-row positions past
-    1536): the contiguous caches at block_k 128 and the same caches copied
-    into 16-token pages, each held to its plain version under its local
-    layers' window of 1024 and its global layers' full range, the paged
-    kernel bit-equal to the contiguous one at block_k 16; then both timed
-    on the global layers' range beside their plain versions, their byte
-    bounds and scaled_dot_product_attention (enable_gqa, on the caches cut
-    to the longest row, a boolean mask per row).  Returns
-    {"flash_attention": row, "paged_flash_attention": row}."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    1536) under its local layers' window of 1024 and its global layers'
+    full range (:func:`decode_shape_check`)."""
     arch, cut, b, plen, max_new, max_len = SERVE_RUNS[1]
-    h, hkv, d, ps = 16, 8, 256, PAGED_PS
+    return decode_shape_check(
+        FA, P, dev, arch, b, 16, 8, 256, max_len,
+        [plen, plen + 3, plen + 7, plen + max_new - 1], (1024, 0), 902)
+
+
+def decode_shape_check(FA, P, dev, arch, b, h, hkv, d, max_len, positions,
+                       windows, seed, TA=None):
+    """Both decode kernels at one model's decode shape (bf16): the
+    contiguous caches at block_k 128 and the same caches copied into
+    16-token pages, each held to its plain version (and, given the
+    model's attention module ``TA``, to its plain ``decode_attention``:
+    within the bf16 tolerance and ROW_RTOL) under each of ``windows``
+    (0: the full range), the paged kernel bit-equal to the contiguous one
+    at block_k 16; then both timed over the full range beside their plain
+    versions, their byte bounds and scaled_dot_product_attention
+    (enable_gqa, on the caches cut to the longest row, a boolean mask per
+    row).  Returns {"flash_attention": row, "paged_flash_attention":
+    row}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ps = PAGED_PS
     q, k, v = attn_inputs([(b, h, 1, d), (b, hkv, max_len, d),
-                           (b, hkv, max_len, d)], torch.bfloat16, 902, dev)
-    pv = torch.tensor([plen, plen + 3, plen + 7, plen + max_new - 1],
-                      dtype=torch.int32, device=dev)
-    pool, table = paged_copy(k, v, ps, P, dev, 902)
+                           (b, hkv, max_len, d)], torch.bfloat16, seed, dev)
+    pv = torch.tensor(positions, dtype=torch.int32, device=dev)
+    pool, table = paged_copy(k, v, ps, P, dev, seed)
     err = {"flash_attention": 0.0, "paged_flash_attention": 0.0}
-    for window in (1024, 0):
+    for window in windows:
         sched = FA.flash_schedule(q.shape, k.shape, kind="full",
                                   window=window, block_q=1, block_k=128,
                                   has_pos=True)
-        err["flash_attention"] = max(err["flash_attention"],
-                                     FA.check_flash_against_plain(
-                                         q, k, v, sched, pv)[0])
+        e, got = FA.check_flash_against_plain(q, k, v, sched, pv)
+        err["flash_attention"] = max(err["flash_attention"], e)
         psched = FA.paged_schedule(q.shape, pool.shape, table.shape,
                                    window=window)
         e, paged = FA.check_paged_against_plain(q, pool, table, pv, psched)
         err["paged_flash_attention"] = max(err["paged_flash_attention"], e)
+        if TA is not None:
+            want = TA.decode_attention(
+                q, k, v, pv, kind="local" if window else "causal",
+                window=window)
+            for name, out in (("flash_attention", got),
+                              ("paged_flash_attention", paged)):
+                err[name] = max(err[name], FA._compare(
+                    out, want, f"{arch} {name} vs decode_attention, "
+                    f"window {window}"))
         s16 = FA.flash_schedule(q.shape, k.shape, kind="full", window=window,
                                 block_q=1, block_k=ps, has_pos=True)
         check(torch.equal(paged, FA.flash_cuda(q, k, v, s16, pv)),
@@ -2568,8 +2726,10 @@ def gemma_decode_check(FA, P, dev):
                      "max_abs_err": err[name], "at": f"{at}, {how}"}
         print(f"[decode] {arch} {name}: {json.dumps(out[name])}")
     print(f"[decode] {arch} decode shape: both kernels within tolerance of "
-          f"their plain versions under window 1024 and 0, paged bit-equal "
-          f"to the contiguous kernel at block_k {ps}")
+          f"their plain versions"
+          + (" and of decode_attention" if TA is not None else "")
+          + f" under window(s) {list(windows)}, paged bit-equal to the "
+          f"contiguous kernel at block_k {ps}")
     return out
 
 
@@ -3048,23 +3208,21 @@ def train_quickstart(S, TT, FA, get_config, dev, ckpt_root):
             "serve_max_logit_diff_vs_plain_decode": diff}
 
 
-def train_gemma(TT, TA, get_config, dev, ckpt_root):
-    """gemma3-12b at full width, cut to TRAIN_GEMMA["layers"] layers: a
-    few steps of make_train_step from Trainer.init_params (no checkpoint:
-    it would write 40 GB), the flash VJP's forward and backward
-    counted."""
+def train_steps(TT, TA, cfg, c, dev, ckpt_root, moments="float32"):
+    """``c["steps"]`` steps of make_train_step from Trainer.init_params at
+    batch ``c["batch"]`` x ``c["seq"]`` (no checkpoint: it would write
+    tens of GB), the flash VJP's forward and backward counted, with the
+    head dims (q, v) its forwards ran at.  Returns (metrics per step,
+    calls, head dims, parameters, init seconds, peak GiB, ms per
+    step)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.optim.adamw import AdamWConfig
-    c = TRAIN_GEMMA
-    cfg = get_config("gemma3-12b").replace(n_layers=c["layers"])
-    check(cfg.remat and c["seq"] > cfg.flash_threshold
-          and cfg.attn_chunk < c["seq"], "gemma3-12b train: not the flash "
-          "path under remat")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tcfg = TT.TrainConfig(steps=c["steps"], ckpt_dir=ckpt_root,
                           optimizer=AdamWConfig(lr=c["lr"], warmup_steps=1,
-                                                total_steps=c["steps"]))
+                                                total_steps=c["steps"],
+                                                moment_dtype=moments))
     tr = TT.Trainer(cfg, tcfg, device=dev)
     step = TT.make_train_step(cfg, tcfg)
     t0 = time.perf_counter()
@@ -3075,16 +3233,18 @@ def train_gemma(TT, TA, get_config, dev, ckpt_root):
     pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=c["seq"],
                                         global_batch=c["batch"]))
-    calls = {"fwd": 0, "bwd": 0}
+    calls, dims = {"fwd": 0, "bwd": 0}, set()
     fwd, bwd = TA._flash_fwd_impl, TA._flash_vjp_bwd
 
-    def counted(key, fn):
-        def wrap(*a):
-            calls[key] += 1
-            return fn(*a)
-        return wrap
-    TA._flash_fwd_impl = counted("fwd", fwd)
-    TA._flash_vjp_bwd = counted("bwd", bwd)
+    def counted_fwd(q, k, v, *a):
+        calls["fwd"] += 1
+        dims.add((q.shape[-1], v.shape[-1]))
+        return fwd(q, k, v, *a)
+
+    def counted_bwd(*a):
+        calls["bwd"] += 1
+        return bwd(*a)
+    TA._flash_fwd_impl, TA._flash_vjp_bwd = counted_fwd, counted_bwd
     hist = []
     try:
         for _ in range(c["steps"]):
@@ -3095,20 +3255,33 @@ def train_gemma(TT, TA, get_config, dev, ckpt_root):
             met = {k: float(v) for k, v in met.items()}
             met["step_time_s"] = time.perf_counter() - t1
             hist.append(met)
-            print(f"[train] gemma3-12b step: {json.dumps(met)}")
+            print(f"[train] {cfg.name} step: {json.dumps(met)}")
     finally:
         TA._flash_fwd_impl, TA._flash_vjp_bwd = fwd, bwd
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
-              for h in hist), f"gemma3-12b train: {hist}")
+              for h in hist), f"{cfg.name} train: {hist}")
+    ms = 1e3 * statistics.median([h["step_time_s"] for h in hist[1:]])
+    del model, opt
+    torch.cuda.empty_cache()
+    return hist, calls, sorted(dims), nparams, init_s, peak, ms
+
+
+def train_gemma(TT, TA, get_config, dev, ckpt_root):
+    """gemma3-12b at full width, cut to TRAIN_GEMMA["layers"] layers: a
+    few steps of make_train_step (:func:`train_steps`)."""
+    c = TRAIN_GEMMA
+    cfg = get_config("gemma3-12b").replace(n_layers=c["layers"])
+    check(cfg.remat and c["seq"] > cfg.flash_threshold
+          and cfg.attn_chunk < c["seq"], "gemma3-12b train: not the flash "
+          "path under remat")
+    hist, calls, _, nparams, init_s, peak, ms = train_steps(
+        TT, TA, cfg, c, dev, ckpt_root)
     # remat runs each layer's forward twice (the forward, then again
     # before its backward); one backward per layer and step
     check(calls == {"fwd": 2 * cfg.n_layers * c["steps"],
                     "bwd": cfg.n_layers * c["steps"]},
           f"gemma3-12b train: flash VJP calls {calls}")
-    ms = 1e3 * statistics.median([h["step_time_s"] for h in hist[1:]])
-    del model, opt
-    torch.cuda.empty_cache()
     return {"arch": "gemma3-12b", "layers": cfg.n_layers,
             "batch": c["batch"], "seq": c["seq"], "dtype": cfg.dtype,
             "param_dtype": cfg.param_dtype, "params": nparams,
@@ -3143,6 +3316,440 @@ def phase_train(S, TT, TA, FA, get_config, dev):
           f"{gm['ms_per_step']:.1f} ms/step, {gm['tokens_per_s']:.0f} "
           f"tokens/s, peak {gm['peak_gib']:.1f} GiB; phase "
           f"{out['seconds']:.1f} s ({CARD})")
+    return out
+
+
+def free_card():
+    """Give the card back what the phase's dropped objects held: a
+    Server and its guarded calls reference each other (the decode
+    closure reads the server's rung), so a dropped Server keeps its
+    model until the cyclic collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def step_profile(fn, reps=5, top=4):
+    """Where one call of ``fn`` (a decode step) spends the card's time:
+    a torch.profiler trace of ``reps`` calls after a warm-up, CUDA-event
+    ms per call beside the device kernels' summed time per call (their
+    difference: the card idle, waiting on the host), and the ``top``
+    kernels by device time.  device_ms is None when the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    span = time_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) is not None
+                   and "CUDA" in str(e.device_type)), reverse=True)
+    total = sum(ms for ms, _ in rows)
+    return {"ms": span, "device_ms": total or None,
+            "idle_share": 1 - total / span if total else None,
+            "top_kernels": [{"ms": ms, "kernel": key[:120]}
+                            for ms, key in rows[:top]]}
+
+
+def decode_step_profile(TM, cfg, model, prompts, max_len, dev):
+    """:func:`step_profile` of one batched decode step right after the
+    prompt (the step each Server run repeats)."""
+    with torch.no_grad():
+        toks = torch.as_tensor(prompts, device=dev)
+        logits, cache = TM.prefill(model, toks, max_len, cfg)
+        tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        pos = prompts.shape[1]
+        out = step_profile(lambda: TM.decode_step(model, tok, cache, pos,
+                                                  cfg))
+    print(f"[families] {cfg.name} decode step profile {json.dumps(out)}")
+    return out
+
+
+def family_model(TM, get_config, arch, layers, dev):
+    """``arch`` at full width cut to ``layers`` layers, seeded random
+    weights on the card; prints the cut.  Returns (cfg, model, info)."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = full.replace(n_layers=layers)
+    t0 = time.perf_counter()
+    model = TM.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    ffns = [TM.layer_sig(cfg, i)[2] for i in range(cfg.n_layers)]
+    info = {"arch": arch, "layers": layers, "of_layers": full.n_layers,
+            "ffn": ffns, "params": nparams, "param_gb": nbytes / 1e9,
+            "init_s": time.perf_counter() - t0}
+    print(f"[families] {arch}: full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"{'MLA' if cfg.use_mla else 'GQA'}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} + {cfg.n_shared_experts} shared) cut to "
+          f"{layers} of its {full.n_layers} layers (FFNs {ffns}): "
+          f"{nparams} {cfg.param_dtype} parameters ({nbytes / 1e9:.1f} GB; "
+          f"the router f32) in {info['init_s']:.1f} s")
+    return cfg, model, info
+
+
+def families_paged(S, FA, cfg, model, dev):
+    """PagedServer on llama4 at full width: FAM_PAGED's mixed requests
+    through its slots, counted; streams against the single-request
+    Server oracle (plain decode): a token may differ only where the
+    oracle's top-2 margin is at most the tolerance or, since the slots'
+    batched step rounds apart from the oracle's, where its router margin
+    is at most ROUTE_TOL."""
+    from repro_torch.models import moe as moe_lib
+    c = FAM_PAGED
+    n_moe = sum(isinstance(getattr(layer, "ffn", None), moe_lib.MoE)
+                for layer in model.layers)
+    rng = np.random.default_rng(SEED)
+    reqs = [rng.integers(0, cfg.vocab_size,
+                         (int(rng.integers(c["lo"], c["hi"] + 1)),))
+            for _ in range(c["requests"])]
+    max_len = c["hi"] + c["max_new"]
+    num_pages = 1 + c["slots"] * S.paged_lib.pages_for(max_len, c["ps"])
+    scfg = S.PagedServeConfig(max_len=max_len, num_slots=c["slots"],
+                              page_size=c["ps"], num_pages=num_pages)
+    FA.reset_launch_counts()
+    srv = S.PagedServer(cfg.replace(attn_decode_kernel="blockspace"), model,
+                        scfg)
+    rep = S.paged_throughput_report(srv, reqs, max_new=c["max_new"])
+    launches = FA.launch_counts()
+    check(launches["paged_flash_attention"]
+          == cfg.n_layers * rep["decode_steps"] > 0
+          and sum(launches.values()) == launches["paged_flash_attention"],
+          f"llama4 paged: launches {launches}, expected layers x paged "
+          f"steps = {cfg.n_layers * rep['decode_steps']} paged ones only")
+    check_healthy(srv, "llama4 paged")
+    check(srv.alloc.free_pages == num_pages - 1, "llama4 paged: pages "
+          "leaked")
+    oracle = S.Server(cfg.replace(attn_decode_kernel="xla"), model,
+                      S.ServeConfig(max_len=max_len))
+    tol = SERVE_TOL[cfg.dtype]
+    small = diverged = by_route = 0
+    for rid, prompt in enumerate(reqs):
+        steps = []
+        with recording_routes(moe_lib) as calls:
+            want = oracle.generate(prompt[None], c["max_new"],
+                                   on_step=lambda p, lg: steps.append(
+                                       lg[0, 0].float()))[0]
+        mo = margin(torch.stack(steps))
+        small += int((mo <= tol).sum())
+        neq = (srv.done[rid] != want).nonzero()[0]
+        if len(neq):
+            t = int(neq[0])
+            m = float(mo[t])
+            rm = min(mg for _, mg in step_routes(calls, n_moe, 1, t, 0))
+            check(m <= tol or rm <= ROUTE_TOL,
+                  f"llama4 paged request {rid} differs from the "
+                  f"single-request oracle at step {t} where the top-2 "
+                  f"margin is {m} > {tol} and the router margin {rm} > "
+                  f"{ROUTE_TOL}")
+            diverged += 1
+            by_route += m > tol
+    rep.update({"launches": launches, "requests": c["requests"],
+                "slots": c["slots"], "page_size": c["ps"],
+                "num_pages": num_pages,
+                "prompt_lens": [len(r) for r in reqs],
+                "oracle_steps_margin_le_tol": small,
+                "streams_diverged": diverged,
+                "streams_diverged_at_router_near_tie": by_route})
+    print(f"[families] llama4 paged {json.dumps(rep)}")
+    return rep
+
+
+def families_llama(S, TM, FA, get_config, dev):
+    """llama4-maverick at full width, cut: the Server under blockspace
+    (counted) and xla, streams compared, timed in turns; the
+    PagedServer."""
+    c = FAM_LLAMA
+    cfg, model, info = family_model(TM, get_config,
+                                    "llama4-maverick-400b-a17b",
+                                    c["layers"], dev)
+    check(info["ffn"] == ["dense", "moe"], f"llama4 layers {info['ffn']}")
+    prompts = torch.randint(
+        0, cfg.vocab_size, (c["batch"], c["prompt"]),
+        generator=torch.Generator().manual_seed(SEED)).numpy()
+    from repro_torch.models import moe as moe_lib
+    runs = {}
+    for kernel in ("blockspace", "xla", "xla", "blockspace"):
+        FA.reset_launch_counts()
+        with recording_routes(moe_lib) as calls:
+            toks, logits, secs, step_ms = serve_run(
+                S, cfg, model, prompts, c["max_new"], c["max_len"], kernel)
+        launches = FA.launch_counts()
+        want = (cfg.n_layers * (c["max_new"] - 1)
+                if kernel == "blockspace" else 0)
+        check(launches["flash_attention_decode"] == want
+              and sum(launches.values()) == want,
+              f"llama4 serve {kernel}: launches {launches}, expected "
+              f"{want} decode ones only")
+        check(toks.shape == (c["batch"], c["max_new"])
+              and bool(torch.isfinite(logits).all()),
+              f"llama4 serve {kernel}: stream {toks.shape} or non-finite "
+              f"logits")
+        run = runs.setdefault(kernel, {"launches": [], "seconds": [],
+                                       "ms_per_decode_step": []})
+        run["launches"].append(launches["flash_attention_decode"])
+        run["seconds"].append(secs)
+        run["ms_per_decode_step"].append(step_ms)
+        run.setdefault("stream", (toks, logits, calls))
+    (tk, lk, ck), (tx, lx, cx) = runs["blockspace"].pop("stream"), \
+        runs["xla"].pop("stream")
+    tol = SERVE_TOL[cfg.dtype]
+    diff, ncmp, small, diverged, flipped = compare_streams(
+        tk, lk, tx, lx, tol, "llama4 serve",
+        routes=(ck, cx, info["ffn"].count("moe"), c["batch"]))
+    serve = {"batch": c["batch"], "prompt": c["prompt"],
+             "max_new": c["max_new"], "max_len": c["max_len"], **runs,
+             "tol": tol, "route_tol": ROUTE_TOL, "max_logit_diff": diff,
+             "steps_compared": ncmp, "steps_margin_le_tol": small,
+             "rows_diverged": diverged, "rows_route_flipped": flipped,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "decode_step_profile": decode_step_profile(
+                 TM, cfg.replace(attn_decode_kernel="blockspace"), model,
+                 prompts, c["max_len"], dev)}
+    print(f"[families] llama4 serve {json.dumps(serve)}")
+    paged = families_paged(S, FA, cfg, model, dev)
+    del model
+    free_card()
+    return {**info, "serve": serve, "paged": paged}
+
+
+def mla_check(TM, FA, cfg, model, prompts, toks, dev):
+    """The absorbed MLA decode against the materialised prefill at full
+    width: (1) the model's logits at positions prompt .. prompt + steps -
+    1 by decode_step against those of one forward over the extended
+    sequence (row 0, f32 compute over the bf16 weights, a capacity that
+    drops nothing), within FAM_MLA_F32_TOL; (2) in bf16 as served, the
+    first layer's mla_decode against mla_block over the extended batch,
+    within the bf16 tolerance of FA._compare."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as mla_lib
+    c = FAM_DEEPSEEK
+    plen, n = c["prompt"], c["mla_steps"]
+    ext = torch.as_tensor(np.concatenate([prompts, toks[:, :n]], 1),
+                          device=dev)
+    cfg32 = cfg.replace(dtype="float32",
+                        capacity_factor=cfg.n_experts / cfg.top_k)
+    with torch.no_grad():
+        full, _ = TM.logits_fn(model, ext[:1], cfg32)
+        last, cache = TM.prefill(model, ext[:1, :plen], plen + n, cfg32)
+        dec = [last[:, 0]]
+        for j in range(n):
+            pos = plen + j
+            lg, cache = TM.decode_step(model, ext[:1, pos:pos + 1], cache,
+                                       pos, cfg32)
+            dec.append(lg[:, 0])
+    got = torch.stack(dec, 1)
+    want = full[:, plen - 1:plen + n]
+    err = (got - want).abs().amax(dim=(0, 2))
+    scale = float(want.abs().max())
+    check(float(err.max()) <= FAM_MLA_F32_TOL,
+          f"MLA f32: decode logits differ from the extended prefill's by "
+          f"{err.tolist()} > {FAM_MLA_F32_TOL} (logits up to {scale})")
+    del full, cache
+    # bf16, the first layer's MLA block as served
+    layer = model.layers[0]
+    with torch.no_grad():
+        hn = L.rmsnorm(layer.norm1, L.embed(model.embed, ext, cfg.tdtype()),
+                       cfg.norm_eps)
+        pre = mla_lib.mla_block(layer.mixer, hn, cfg,
+                                torch.arange(plen + n, device=dev))
+        _, (ck, kr) = mla_lib.mla_block(
+            layer.mixer, hn[:, :plen], cfg, torch.arange(plen, device=dev),
+            return_cache=True)
+        cache = tuple(torch.nn.functional.pad(t, (0, 0, 0, n))
+                      for t in (ck, kr))
+        outs = []
+        for j in range(n):
+            o, cache = mla_lib.mla_decode(layer.mixer,
+                                          hn[:, plen + j:plen + j + 1], cfg,
+                                          cache, plen + j)
+            outs.append(o)
+    got = torch.cat(outs, 1)
+    b_err = FA._compare(got, pre[:, plen:],
+                        "MLA bf16 layer 0: decode vs prefill")
+    b_rel = FA.row_rel_err(got, pre[:, plen:])
+    out = {"f32_max_abs_err_by_position": err.tolist(),
+           "f32_positions": [plen - 1 + j for j in range(n + 1)],
+           "f32_logit_max": scale, "f32_tol": FAM_MLA_F32_TOL,
+           "bf16_layer0_max_abs_err": b_err, "bf16_layer0_row_err": b_rel,
+           "bf16_layer0_out_max": float(pre[:, plen:].abs().max()),
+           "bf16_tol": FA.TOLERANCE[torch.bfloat16],
+           "bf16_row_rtol": FA.ROW_RTOL[torch.bfloat16]}
+    print(f"[families] deepseek MLA decode vs prefill {json.dumps(out)}")
+    return out
+
+
+def moe_check(FA, cfg, model, dev):
+    """The first MoE layer at full width: moe_block against
+    moe_block_dense_ref on FAM_DEEPSEEK["moe_tokens"] tokens of normal
+    inputs, bf16, a capacity that drops nothing (checked from the
+    routing), within the bf16 tolerance of FA._compare."""
+    from repro_torch.models import moe as moe_lib
+    n = FAM_DEEPSEEK["moe_tokens"]
+    ffn = next(layer.ffn for layer in model.layers
+               if isinstance(getattr(layer, "ffn", None), moe_lib.MoE))
+    nd = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((1, n, cfg.d_model), generator=g, device=dev).to(
+        cfg.tdtype())
+    with torch.no_grad():
+        _, _, idx = moe_lib.route(ffn, x[0], nd)
+        load = int(torch.bincount(idx.reshape(-1)).max())
+        cap = moe_lib._capacity(n, nd)
+        check(load <= cap, f"MoE check: an expert took {load} > capacity "
+              f"{cap}")
+        out, aux = moe_lib.moe_block(ffn, x, nd)
+        dense = moe_lib.moe_block_dense_ref(ffn, x, nd)
+    err = FA._compare(out, dense, "MoE: moe_block vs the dense oracle")
+    rel = FA.row_rel_err(out, dense)
+    res = {"tokens": n, "capacity": cap, "max_expert_load": load,
+           "aux_loss": float(aux), "max_abs_err": err, "row_err": rel,
+           "out_max": float(dense.abs().max())}
+    print(f"[families] deepseek MoE vs dense oracle {json.dumps(res)}")
+    return res
+
+
+def families_deepseek(S, TM, FA, get_config, dev):
+    """deepseek-v2 at full width, cut: the Server (no kernel on the
+    path), the MLA check and the MoE check."""
+    c = FAM_DEEPSEEK
+    cfg, model, info = family_model(TM, get_config, "deepseek-v2-236b",
+                                    c["layers"], dev)
+    check(info["ffn"] == ["dense"] + ["moe"] * (c["layers"] - 1),
+          f"deepseek layers {info['ffn']}")
+    prompts = torch.randint(
+        0, cfg.vocab_size, (c["batch"], c["prompt"]),
+        generator=torch.Generator().manual_seed(SEED)).numpy()
+    runs = []
+    for _ in range(2):
+        FA.reset_launch_counts()
+        toks, logits, secs, step_ms = serve_run(
+            S, cfg, model, prompts, c["max_new"], c["max_len"],
+            cfg.attn_decode_kernel)
+        launches = FA.launch_counts()
+        check(not any(launches.values()), f"deepseek serve launched "
+              f"{launches}")
+        check(toks.shape == (c["batch"], c["max_new"])
+              and bool(torch.isfinite(logits).all()),
+              f"deepseek serve: stream {toks.shape} or non-finite logits")
+        runs.append({"seconds": secs, "ms_per_decode_step": step_ms})
+    print(f"[families] deepseek serve: no kernel lies on this path (MLA's "
+          f"prefill is plain attention below flash_threshold "
+          f"{cfg.flash_threshold}, its absorbed decode plain einsums, the "
+          f"MoE plain bmm): launches {launches}; {json.dumps(runs)}")
+    serve = {"batch": c["batch"], "prompt": c["prompt"],
+             "max_new": c["max_new"], "max_len": c["max_len"],
+             "runs": runs, "launches": launches,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "decode_step_profile": decode_step_profile(
+                 TM, cfg, model, prompts, c["max_len"], dev)}
+    mla = mla_check(TM, FA, cfg, model, prompts, toks, dev)
+    moe = moe_check(FA, cfg, model, dev)
+    del model
+    free_card()
+    return {**info, "serve": serve, "mla": mla, "moe": moe}
+
+
+def families_train(TT, TA, get_config, dev):
+    """deepseek-v2 at full width, cut to FAM_TRAIN["layers"] layers, a
+    few steps (:func:`train_steps`): finite losses, aux_loss > 0, the
+    flash VJP at V head dim 128 against QK 192."""
+    c = FAM_TRAIN
+    cfg = get_config("deepseek-v2-236b").replace(n_layers=c["layers"])
+    check(cfg.remat and c["seq"] > cfg.flash_threshold,
+          "deepseek train: not the flash path under remat")
+    free_card()
+    ckpt_root = tempfile.mkdtemp(prefix="repro-torch-families-")
+    try:
+        hist, calls, dims, nparams, init_s, peak, ms = train_steps(
+            TT, TA, cfg, c, dev, ckpt_root, moments="bfloat16")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    from repro_torch.models.model import group_layout
+    prefix = group_layout(cfg)[0]
+    # remat runs each grouped layer's forward twice; the prefix (the
+    # dense first layer) once
+    want = {"fwd": (prefix + 2 * (cfg.n_layers - prefix)) * c["steps"],
+            "bwd": cfg.n_layers * c["steps"]}
+    dq, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    check(calls == want and dims == [(dq, dv)],
+          f"deepseek train: flash VJP calls {calls} at head dims {dims}, "
+          f"expected {want} at {[(dq, dv)]}")
+    check(all(h["aux_loss"] > 0 for h in hist),
+          f"deepseek train: aux losses {[h['aux_loss'] for h in hist]}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": c["batch"],
+           "seq": c["seq"], "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "moment_dtype": "bfloat16", "params": nparams, "init_s": init_s,
+           "losses": [h["loss"] for h in hist],
+           "aux_losses": [h["aux_loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "flash_calls": calls, "flash_head_dims": dims,
+           "ms_per_step": ms, "first_step_s": hist[0]["step_time_s"],
+           "tokens_per_s": c["batch"] * c["seq"] / (ms / 1e3),
+           "peak_gib": peak}
+    print(f"[families] deepseek train {json.dumps(out)}")
+    return out
+
+
+def families_kernel_entries(kernels, families):
+    """Add the [families] phase to the two decode entries of the kernels
+    line: launches_families_phase (llama4-maverick's blockspace Servers
+    and its PagedServer) and a llama4_maverick object (the kernel at its
+    heads, a group of 5: device times, plain version, bound, error)."""
+    entry_of = {"flash_attention_decode": "flash_attention",
+                "paged_flash_attention": "paged_flash_attention"}
+    for entry in kernels:
+        if entry["name"] not in entry_of:
+            continue
+        row = families["decode"][entry_of[entry["name"]]]
+        entry["launches_families_phase"] = families["decode_launches"][
+            entry["name"]]
+        entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+        entry["llama4_maverick"] = {
+            **device_times(row), **{key: row[key] for key in (
+                "plain_ms", "bound_ms", "bound_by", "max_abs_err", "at")}}
+
+
+def phase_families(S, TM, TT, TA, FA, P, get_config, dev):
+    """The MoE and MLA stacks on the card (see the module docstring,
+    phase 17); the decode launches of the phase's counted runs are
+    returned under "decode_launches"."""
+    t0 = time.perf_counter()
+    free_card()
+    k = FAM_DECODE
+    decode = decode_shape_check(FA, P, dev, k["arch"], k["b"], k["h"],
+                                k["hkv"], k["d"], k["max_len"],
+                                list(k["positions"]), (0,), 903, TA)
+    llama = families_llama(S, TM, FA, get_config, dev)
+    deepseek = families_deepseek(S, TM, FA, get_config, dev)
+    train = families_train(TT, TA, get_config, dev)
+    out = {"card": CARD, "decode": decode, "llama4": llama,
+           "deepseek": deepseek, "train": train,
+           "decode_launches": {
+               "flash_attention_decode": sum(
+                   llama["serve"]["blockspace"]["launches"]),
+               "paged_flash_attention": llama["paged"]["launches"][
+                   "paged_flash_attention"]},
+           "seconds": time.perf_counter() - t0}
+    med = {key: statistics.median(runs) for key, runs in (
+        ("llama4", llama["serve"]["blockspace"]["ms_per_decode_step"]),
+        ("llama4 xla", llama["serve"]["xla"]["ms_per_decode_step"]),
+        ("deepseek", [r["ms_per_decode_step"]
+                      for r in deepseek["serve"]["runs"]]))}
+    print(f"[families] ms per decode step: llama4 ({FAM_LLAMA['layers']} "
+          f"layers) {med['llama4']:.2f} (xla {med['llama4 xla']:.2f}, paged "
+          f"{llama['paged']['ms_per_decode_step']:.2f}), deepseek "
+          f"({FAM_DEEPSEEK['layers']} layers) {med['deepseek']:.2f}; "
+          f"deepseek train ({FAM_TRAIN['layers']} layers) "
+          f"{train['ms_per_step']:.1f} ms/step, peak "
+          f"{train['peak_gib']:.1f} GiB; phase {out['seconds']:.1f} s "
+          f"({CARD})")
     return out
 
 
@@ -3271,6 +3878,15 @@ def main():
                                    "train": train}, indent=1))
         print("[train-only] the train phase ran; no result")
         return
+    if "--families-only" in sys.argv[1:]:
+        families = timed("families", phase_families, S, TM, TT, TA, FA, P,
+                         get_config, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "families": families}, indent=1))
+        print(f"[families-only] the families phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
     errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
     merge_err(errs, timed("parity_compact", phase_parity_compact, TW, F,
                           LOWERINGS, compact_layout, dev))
@@ -3306,6 +3922,8 @@ def main():
     tuned = timed("tune", phase_tune, tune, TW, TC, FA, compact_layout, qcfg,
                   dev)
     train = timed("train", phase_train, S, TT, TA, FA, get_config, dev)
+    families = timed("families", phase_families, S, TM, TT, TA, FA, P,
+                     get_config, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -3525,6 +4143,7 @@ def main():
             # the Server of the trained quickstart checkpoint
             entry["launches_train_phase"] = train["quickstart"][
                 "serve_launches"]["flash_attention_decode"]
+    families_kernel_entries(kernels, families)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3538,7 +4157,7 @@ def main():
         "serve": serve_runs,
         "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "train": train,
-        "kernels": kernels,
+        "families": families, "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[phases] host seconds: {json.dumps(PHASE_S)}")

@@ -3,10 +3,11 @@ ported so far.
 
 Each ``<arch>.py`` exposes ``full()`` (the published config) and
 ``smoke()`` (a reduced same-family config for CPU tests), copied from
-the JAX package's ``repro.configs``: quickstart and the dense GQA
-stacks (gemma3-12b, qwen1.5-32b, qwen2.5-32b, phi3-mini-3.8b).  The JAX
-package's other architectures (MLA, MoE, SSM, hybrid and
-embedding-input stacks) come with ROADMAP A11.
+the JAX package's ``repro.configs``: quickstart, the dense GQA stacks
+(gemma3-12b, qwen1.5-32b, qwen2.5-32b, phi3-mini-3.8b) and the MoE
+stacks (deepseek-v2-236b with MLA, llama4-maverick-400b-a17b with GQA).
+The JAX package's other architectures (SSM, hybrid and embedding-input
+stacks) come with ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -17,11 +18,12 @@ from repro_torch.models import ModelConfig
 
 _MODULES = {"quickstart": "quickstart", "gemma3-12b": "gemma3_12b",
             "qwen1.5-32b": "qwen1_5_32b", "qwen2.5-32b": "qwen2_5_32b",
-            "phi3-mini-3.8b": "phi3_mini_3_8b"}
+            "phi3-mini-3.8b": "phi3_mini_3_8b",
+            "deepseek-v2-236b": "deepseek_v2_236b",
+            "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b"}
 
 #: the JAX package's other architectures, ported with ROADMAP A11
-NOT_PORTED = ("falcon-mamba-7b", "deepseek-v2-236b",
-              "llama4-maverick-400b-a17b", "musicgen-large", "zamba2-2.7b",
+NOT_PORTED = ("falcon-mamba-7b", "musicgen-large", "zamba2-2.7b",
               "internvl2-26b")
 
 

@@ -1,15 +1,20 @@
 """Guarded batched and continuous-batching serving of the port's LM.
 
 ``Server``
-    Fixed-batch serving: prefill, then one decode step per generated
-    token over the contiguous (K, V) caches, with EOS-aware slot
-    masking.  With ``cfg.attn_decode_kernel == "blockspace"`` every
-    decode attention runs the block-space flash kernel (``seq_pos``
-    truncation); with ``"xla"`` the plain masked decode.
+    Fixed-batch serving: prefill (all prompts at once, so an MoE
+    layer's capacity follows batch x prompt length, as in the JAX
+    package), then one decode step per generated token over the
+    contiguous caches ((K, V), or MLA's compressed pair), with EOS-aware
+    slot masking.  With ``cfg.attn_decode_kernel == "blockspace"`` every
+    GQA decode attention runs the block-space flash kernel (``seq_pos``
+    truncation); with ``"xla"`` the plain masked decode.  MLA's absorbed
+    decode runs no kernel under either.
 
 ``PagedServer``
-    Continuous batching over the paged KV pool: requests stream through
-    a fixed set of slots; admission prefills one request and scatters
+    Continuous batching over the paged KV pool (GQA stacks, dense or
+    MoE): requests stream through a fixed set of slots; admission
+    prefills one request (batch 1: another MoE capacity than a batched
+    prefill's, as in the JAX package) and scatters
     its KV into freshly allocated pages; every step advances all active
     slots at their own positions through the paged decode kernel; pages
     grow on demand, and when the pool runs dry the youngest request is

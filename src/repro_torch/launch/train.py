@@ -12,11 +12,14 @@ hold the parameters and the optimizer state ``{m, v, count}`` in the JAX
 package's tree layout, and the pipeline's state beside them, so a
 checkpoint of either package's ``Trainer`` resumes in the other.
 
-Kept from the JAX package, quirks included: under ``grad_accum > 1`` the
-metrics report ``aux_loss`` 0 and ``tokens`` 0; a checkpoint taken every
-``ckpt_every`` steps is labelled with the index of the step just taken
-(so a resume from it repeats no batch and takes one step more than the
-uninterrupted run); the final save happens at exit.  Training on a mesh
+The MoE stacks' aux loss (the MoE layers' Switch load-balance terms) is
+part of the loss and reported as ``aux_loss``.  Kept from the JAX
+package, quirks included: under ``grad_accum > 1`` the metrics report
+``aux_loss`` 0 and ``tokens`` 0 (the aux loss stays in the loss); a
+checkpoint taken every ``ckpt_every`` steps is labelled with the index
+of the step just taken (so a resume from it repeats no batch and takes
+one step more than the uninterrupted run); the final save happens at
+exit.  Training on a mesh
 (``mesh=``, ``fsdp``, ``seq_shard_acts``) comes with ROADMAP A12.
 
 Runnable directly (the card unless ``--device cpu``):

@@ -1,7 +1,7 @@
-"""Building blocks of the dense LM stack: norms, RoPE, the SwiGLU MLP,
-the GQA attention block (train, prefill, contiguous decode, paged
-decode),
-embeddings and the LM head.
+"""Building blocks of the LM stack: norms, RoPE, the SwiGLU MLP, the GQA
+attention block (train, prefill, contiguous decode, paged decode),
+embeddings and the LM head (MLA and MoE live in :mod:`.mla` and
+:mod:`.moe`).
 
 Parameters live in small ``nn.Module``\\ s whose parameter names are the
 JAX package's pytree leaves (``wq``, ``scale``, ``table``, ...), so a
@@ -106,11 +106,18 @@ def init_mlp(m: MLP, generator) -> None:
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(norm: RMSNorm, x, eps=1e-6):
+def rmsnorm_scale(scale: torch.Tensor, x, eps=1e-6):
+    """RMS norm over the last dim with a bare ``scale`` tensor (MLA's
+    ``q_norm`` / ``kv_norm``, which the JAX package keeps as leaves, not
+    as ``{"scale": ...}`` dicts)."""
     x32 = x.to(F32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * norm.scale.to(F32)).to(x.dtype)
+    return (y * scale.to(F32)).to(x.dtype)
+
+
+def rmsnorm(norm: RMSNorm, x, eps=1e-6):
+    return rmsnorm_scale(norm.scale, x, eps)
 
 
 # ---------------------------------------------------------------------------

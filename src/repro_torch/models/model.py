@@ -1,26 +1,31 @@
-"""Model assembly for the dense attention-only LM stack: embeddings ->
-layers -> head, and the serving entry points.
+"""Model assembly for the attention LM stacks (GQA or MLA mixers, dense
+or MoE FFNs): embeddings -> layers -> head, and the serving entry
+points.
 
 The JAX package groups layers by signature and runs ``lax.scan`` over
 stacked parameters; here the layers are an ``nn.ModuleList`` walked by
-a Python loop, so a layer's cache is one (K, V) pair (or one paged
-pool) per layer.  Layer ``i`` of the list is the JAX package's layer
-``i`` (``prefix_i``, or slot ``s`` of group ``g`` in ``blocks`` with
-``i = prefix + g * period + s``).
+a Python loop, so a layer's cache is one pair per layer: (K, V) of a GQA
+layer, (c_kv, k_rope) of an MLA layer (or one paged pool).  Layer ``i``
+of the list is the JAX package's layer ``i`` (``prefix_i``, or slot
+``s`` of group ``g`` in ``blocks`` with ``i = prefix + g * period +
+s``).
 
 Entry points:
   * ``forward`` / ``logits_fn`` -- full-sequence forward (grad-enabled,
                        no caches; ``cfg.remat`` recomputes each group of
-                       ``period`` layers in the backward)
+                       ``period`` layers in the backward) and the MoE
+                       layers' summed aux loss
   * ``loss_fn``     -- the training forward + chunked cross-entropy
+                       + the aux loss
   * ``prefill``     -- forward returning per-layer caches + last logits
   * ``decode_step`` -- one token through all layers, caches updated in
                        place
   * ``init_paged_cache`` / ``scatter_prefill_pages`` /
     ``decode_step_paged`` -- the paged KV pool of continuous batching
+                       (GQA stacks; MoE FFNs run over every slot)
 
-MLA, MoE, SSM and shared-attention blocks are not ported yet (ROADMAP
-A11).
+SSM mixers, shared-attention blocks and embedding inputs are not ported
+yet (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.backend import default_device
 
 from . import layers as L
+from . import mla as mla_lib
+from . import moe as moe_lib
 from .config import ModelConfig
 
 
@@ -76,19 +83,20 @@ def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer is a dense attention
-    layer (the stack this port runs)."""
+    """Raise NotImplementedError unless every layer is an attention (GQA
+    or MLA) layer with a dense or MoE FFN, fed tokens (the stacks this
+    port runs)."""
     if cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"input_mode {cfg.input_mode!r} is not ported yet (ROADMAP "
             f"A11)")
     for i in range(cfg.n_layers):
         mixer, _, ffn, shared = layer_sig(cfg, i)
-        if mixer != "attn" or ffn not in ("dense", "none") or shared:
+        if mixer not in ("attn", "mla") or shared:
             raise NotImplementedError(
                 f"layer {i} ({mixer}, ffn {ffn}"
                 + (", shared block" if shared else "")
-                + ") is not ported yet: MLA, MoE, SSM and shared blocks "
+                + ") is not ported yet: SSM mixers and shared blocks "
                   "come with ROADMAP A11")
 
 
@@ -99,17 +107,19 @@ def check_ported(cfg: ModelConfig) -> None:
 class Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, i: int, device=None):
         super().__init__()
-        _, _, ffn, _ = layer_sig(cfg, i)
+        mixer, _, ffn, _ = layer_sig(cfg, i)
         dt = cfg.tparam_dtype()
         self.norm1 = L.RMSNorm(cfg.d_model, dt, device)
-        self.mixer = L.Attention(cfg, device)
+        self.mixer = (mla_lib.MLA(cfg, device) if mixer == "mla"
+                      else L.Attention(cfg, device))
         if ffn != "none":
             self.norm2 = L.RMSNorm(cfg.d_model, dt, device)
-            self.ffn = L.MLP(cfg.d_model, cfg.d_ff, dt, device)
+            self.ffn = (moe_lib.MoE(cfg, device) if ffn == "moe"
+                        else L.MLP(cfg.d_model, cfg.d_ff, dt, device))
 
 
 class Model(nn.Module):
-    """Parameters of the dense LM; ``cfg`` rides along.  Built empty on
+    """Parameters of the LM; ``cfg`` rides along.  Built empty on
     ``device`` (the card unless the caller names another; raises without
     one): fill it with :func:`init` or
     :func:`repro_torch.models.convert.params_from_jax`."""
@@ -136,15 +146,23 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
     (``model.init``): normal matrices scaled by 1/sqrt(fan-in), the
     embedding by 0.01, norms at 1 and biases at 0, drawn from
     ``generator`` (which must live on ``device``: the card unless the
-    caller names another).  The numbers differ from ``jax.random``'s."""
+    caller names another) in place, in each parameter's dtype (one f32
+    draw of llama4's (128, 5120, 8192) experts would take 21.5 GB).  The
+    numbers differ from ``jax.random``'s."""
     model = Model(cfg, device)
     L._normal_(model.embed.table, generator, 0.01)
     for layer in model.layers:
         layer.norm1.scale.data.fill_(1.0)
-        L.init_attention(layer.mixer, generator)
+        if isinstance(layer.mixer, mla_lib.MLA):
+            mla_lib.init_mla(layer.mixer, generator)
+        else:
+            L.init_attention(layer.mixer, generator)
         if hasattr(layer, "ffn"):
             layer.norm2.scale.data.fill_(1.0)
-            L.init_mlp(layer.ffn, generator)
+            if isinstance(layer.ffn, moe_lib.MoE):
+                moe_lib.init_moe(layer.ffn, generator)
+            else:
+                L.init_mlp(layer.ffn, generator)
     model.final_norm.scale.data.fill_(1.0)
     L._normal_(model.lm_head.w, generator, 1.0 / math.sqrt(cfg.d_model))
     return model
@@ -159,9 +177,15 @@ def _embed_inputs(model: Model, inputs, cfg):
 
 
 def _ffn(layer: Layer, h, cfg):
-    if hasattr(layer, "ffn"):
-        h = h + L.mlp(layer.ffn, L.rmsnorm(layer.norm2, h, cfg.norm_eps))
-    return h
+    """The layer's FFN on the residual ``h``: returns (h, aux), aux the
+    MoE aux loss (None for a dense FFN)."""
+    if not hasattr(layer, "ffn"):
+        return h, None
+    hn = L.rmsnorm(layer.norm2, h, cfg.norm_eps)
+    if isinstance(layer.ffn, moe_lib.MoE):
+        out, aux = moe_lib.moe_block(layer.ffn, hn, cfg)
+        return h + out, aux
+    return h + L.mlp(layer.ffn, hn), None
 
 
 def _pad_seq(x, axis, max_len):
@@ -173,20 +197,30 @@ def _pad_seq(x, axis, max_len):
 
 def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
             caches=None, max_len=None):
-    """Layers ``lo`` .. ``hi - 1`` over the full sequence.  With a
-    ``caches`` list each layer's (K, V), padded to ``max_len``, is
-    appended to it (serving's prefill); without one none are kept (the
-    training forward)."""
+    """Layers ``lo`` .. ``hi - 1`` over the full sequence; returns (h,
+    aux summed over their MoE layers, f32).  With a ``caches`` list each
+    layer's cache pair, padded along its sequence axis to ``max_len``,
+    is appended to it (serving's prefill); without one none are kept
+    (the training forward)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(lo, hi):
         layer = model.layers[i]
-        _, akind, _, _ = layer_sig(cfg, i)
+        mixer, akind, _, _ = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
-        out, (k, v) = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
-                                           positions)
+        if mixer == "mla":
+            out, cache = mla_lib.mla_block(layer.mixer, hn, cfg, positions,
+                                           return_cache=True)
+            axis = 1
+        else:
+            out, cache = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
+                                              positions)
+            axis = 2
         if caches is not None:
-            caches.append((_pad_seq(k, 2, max_len), _pad_seq(v, 2, max_len)))
-        h = _ffn(layer, h + out, cfg)
-    return h
+            caches.append(tuple(_pad_seq(t, axis, max_len) for t in cache))
+        h, a = _ffn(layer, h + out, cfg)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 @torch.no_grad()
@@ -196,33 +230,36 @@ def _run(model: Model, inputs, max_len=None, cfg=None):
     h = _embed_inputs(model, inputs, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     caches = []
-    h = _layers(model, h, cfg, positions, 0, cfg.n_layers, caches, max_len)
+    h, _ = _layers(model, h, cfg, positions, 0, cfg.n_layers, caches,
+                   max_len)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps), caches
 
 
 def forward(model: Model, inputs, cfg: ModelConfig | None = None):
-    """Full-sequence forward -> (hidden (B,S,D), aux_loss 0), the
-    training forward: grad-enabled, no caches.  Under ``cfg.remat`` each
-    group of ``period`` layers (the JAX package's ``jax.checkpoint``-ed
-    scan body) keeps only its input and is recomputed in the backward;
-    the prefix layers are not.  ``cfg`` (default: the model's) may change
+    """Full-sequence forward -> (hidden (B,S,D), aux_loss), the training
+    forward: grad-enabled, no caches; aux_loss is the f32 sum of the MoE
+    layers' aux losses (0 without MoE).  Under ``cfg.remat`` each group
+    of ``period`` layers (the JAX package's ``jax.checkpoint``-ed scan
+    body) keeps only its input and is recomputed in the backward; the
+    prefix layers are not.  ``cfg`` (default: the model's) may change
     the execution knobs (attention schedule, remat), not the shapes."""
     cfg = cfg or model.cfg
     prefix, period, n_groups = group_layout(cfg)
     h = _embed_inputs(model, inputs, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _layers(model, h, cfg, positions, 0, prefix)
+    h, aux = _layers(model, h, cfg, positions, 0, prefix)
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(n_groups):
         lo = prefix + g * period
         if remat:
-            h = checkpoint(_layers, model, h, cfg, positions, lo,
-                           lo + period, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, a = checkpoint(_layers, model, h, cfg, positions, lo,
+                              lo + period, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            h = _layers(model, h, cfg, positions, lo, lo + period)
+            h, a = _layers(model, h, cfg, positions, lo, lo + period)
+        aux = aux + a
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def logits_fn(model: Model, inputs, cfg: ModelConfig | None = None):
@@ -281,14 +318,22 @@ def loss_fn(model: Model, batch, cfg: ModelConfig | None = None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Zero (K, V) caches, one pair per layer, on ``device`` (the card
-    unless the caller names another)."""
+    """Zero caches, one pair per layer, on ``device`` (the card unless
+    the caller names another): (K, V) each (B, Hkv, max_len, hd) of a
+    GQA layer, (c_kv (B, max_len, kv_lora_rank), k_rope (B, max_len,
+    qk_rope_dim)) of an MLA layer."""
     check_ported(cfg)
     device = default_device(device)
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
-    return [(torch.zeros(shape, dtype=cfg.tdtype(), device=device),
-             torch.zeros(shape, dtype=cfg.tdtype(), device=device))
-            for _ in range(cfg.n_layers)]
+    out = []
+    for i in range(cfg.n_layers):
+        if layer_sig(cfg, i)[0] == "mla":
+            shapes = ((batch, max_len, cfg.kv_lora_rank),
+                      (batch, max_len, cfg.qk_rope_dim))
+        else:
+            shapes = ((batch, cfg.n_kv_heads, max_len, cfg.hd),) * 2
+        out.append(tuple(torch.zeros(s, dtype=cfg.tdtype(), device=device)
+                         for s in shapes))
+    return out
 
 
 def prefill(model: Model, inputs, max_len: int | None = None,
@@ -311,12 +356,15 @@ def decode_step(model: Model, inputs, cache, pos,
     h = _embed_inputs(model, inputs, cfg)
     new_cache = []
     for i, layer in enumerate(model.layers):
-        _, akind, _, _ = layer_sig(cfg, i)
+        mixer, akind, _, _ = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
-        out, c = L.attn_block_decode(layer.mixer, hn, cfg, akind, cache[i],
-                                     pos)
+        if mixer == "mla":
+            out, c = mla_lib.mla_decode(layer.mixer, hn, cfg, cache[i], pos)
+        else:
+            out, c = L.attn_block_decode(layer.mixer, hn, cfg, akind,
+                                         cache[i], pos)
         new_cache.append(c)
-        h = _ffn(layer, h + out, cfg)
+        h, _ = _ffn(layer, h + out, cfg)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return L.lm_head(model.lm_head, h), new_cache
 
@@ -369,8 +417,9 @@ def decode_step_paged(model: Model, inputs, pools, page_table, pos,
 
     inputs: (B,1) tokens; page_table: (B, max_pages) int32; pos: (B,)
     per-slot positions; active: (B,) bool (inactive slots write to the
-    null page and their logits are garbage the scheduler ignores).  The
-    pools are written in place.  Returns (logits (B,1,V), pools)."""
+    null page and their logits are garbage the scheduler ignores; an MoE
+    FFN routes them with the rest, as in the JAX package).  The pools
+    are written in place.  Returns (logits (B,1,V), pools)."""
     cfg = cfg or model.cfg
     _check_paged(cfg)
     h = _embed_inputs(model, inputs, cfg)
@@ -379,6 +428,6 @@ def decode_step_paged(model: Model, inputs, pools, page_table, pos,
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
         out, pools[i] = L.attn_block_decode_paged(
             layer.mixer, hn, cfg, akind, pools[i], page_table, pos, active)
-        h = _ffn(layer, h + out, cfg)
+        h, _ = _ffn(layer, h + out, cfg)
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return L.lm_head(model.lm_head, h), pools

@@ -7,11 +7,11 @@ names of ``nn.Module.named_parameters()``); the state is ``{"m": ...,
 "v": ..., "count": 0-d int32 tensor}``, which
 :func:`repro_torch.models.convert.tree_to_jax` lays out as the JAX
 package's ``{m, v, count}`` tree for a checkpoint.  An update runs in
-place under ``torch.no_grad()``, one parameter at a time, in two f32
-temporaries the size of that parameter (and f32 copies of what is held
-in another dtype); a parameter is written only once they all exist, so
-a step that fails part-way can be retried exactly
-(:func:`apply_updates`).
+place under ``torch.no_grad()``, one parameter at a time and
+:data:`CHUNK` of its values at a time, in two f32 temporaries (and f32
+copies of what is held in another dtype) of at most that many values;
+a parameter is written only once they all exist, so a step that fails
+part-way can be retried exactly (:func:`apply_updates`).
 
 ``torch.optim.AdamW`` is not used: it decays before the moment update,
 and has no clip, schedule or ``moment_dtype`` of this kind.  The weight
@@ -91,38 +91,54 @@ def _decay_mask(path_str: str) -> bool:
     return not any(t in path_str for t in _DECAY_EXEMPT)
 
 
+#: values of one parameter updated at once: its f32 temporaries hold at
+#: most this many each (1.25 GiB in all for a bf16 parameter with bf16
+#: moments), so the update of deepseek-v2's (160, 5120, 1536) experts
+#: does not add 25 GB of temporaries to the step's peak
+CHUNK = 1 << 26
+
+
 def _leaf_buffers(p, m, v):
-    """Every f32 temporary of one parameter's update: two scratch
-    tensors, and an f32 copy of each of ``p``, ``m`` and ``v`` that is
-    held in another dtype (the f32 ones are updated where they lie)."""
-    a = torch.empty(p.shape, dtype=F32, device=p.device)
+    """Every f32 temporary of one parameter's update, flat, of at most
+    :data:`CHUNK` values: two scratch tensors, and a copy buffer for
+    each of ``p``, ``m`` and ``v`` that is held in another dtype (None
+    for the f32 ones, which are updated where they lie)."""
+    a = torch.empty(min(p.numel(), CHUNK), dtype=F32, device=p.device)
     return (a, torch.empty_like(a),
-            *(x if x.dtype == F32 else torch.empty_like(a) for x in (p, m, v)))
+            *(None if x.dtype == F32 else torch.empty_like(a)
+              for x in (p, m, v)))
 
 
 def _update_leaf(p, g, m, v, scale, bc1, bc2, lr, decay: bool,
                  cfg: AdamWConfig):
-    """One parameter's update, written into ``p``, ``m`` and ``v``.  Its
-    temporaries are all allocated before the first write, so running out
-    of memory leaves the parameter as it was; the arithmetic is the JAX
-    package's, operation for operation, in f32."""
-    a, b, p32, m32, v32 = _leaf_buffers(p, m, v)
+    """One parameter's update, written into ``p``, ``m`` and ``v``, one
+    chunk of :data:`CHUNK` values after another.  Its temporaries are
+    all allocated before the first write, so running out of memory
+    leaves the parameter as it was; the arithmetic is the JAX package's,
+    operation for operation, in f32 (elementwise, so the chunks do not
+    change it)."""
+    bufs = _leaf_buffers(p, m, v)
+    gf = g.reshape(-1)
+    flat = [x.view(-1) for x in (p, m, v)]
     # from here on nothing is allocated
-    for x32, x in ((p32, p), (m32, m), (v32, v)):
-        if x32 is not x:
-            x32.copy_(x)
-    a.copy_(g).mul_(scale)                       # g
-    m32.mul_(cfg.b1).add_(torch.mul(a, 1 - cfg.b1, out=b))
-    torch.mul(a, 1 - cfg.b2, out=b).mul_(a)      # (1 - b2) * g * g
-    v32.mul_(cfg.b2).add_(b)
-    torch.div(m32, bc1, out=a)
-    a.div_(torch.div(v32, bc2, out=b).sqrt_().add_(cfg.eps))
-    if decay:
-        a.add_(torch.mul(p32, cfg.weight_decay, out=b))
-    p32.sub_(a.mul_(lr))
-    for x32, x in ((p32, p), (m32, m), (v32, v)):
-        if x32 is not x:                         # round to its dtype
-            x.copy_(x32)
+    for lo in range(0, p.numel(), CHUNK):
+        hi = min(lo + CHUNK, p.numel())
+        a, b = bufs[0][:hi - lo], bufs[1][:hi - lo]
+        xs = [x[lo:hi] for x in flat]
+        p32, m32, v32 = (x if buf is None else buf[:hi - lo].copy_(x)
+                         for x, buf in zip(xs, bufs[2:]))
+        a.copy_(gf[lo:hi]).mul_(scale)               # g
+        m32.mul_(cfg.b1).add_(torch.mul(a, 1 - cfg.b1, out=b))
+        torch.mul(a, 1 - cfg.b2, out=b).mul_(a)      # (1 - b2) * g * g
+        v32.mul_(cfg.b2).add_(b)
+        torch.div(m32, bc1, out=a)
+        a.div_(torch.div(v32, bc2, out=b).sqrt_().add_(cfg.eps))
+        if decay:
+            a.add_(torch.mul(p32, cfg.weight_decay, out=b))
+        p32.sub_(a.mul_(lr))
+        for x32, x in zip((p32, m32, v32), xs):
+            if x32 is not x:                         # round to its dtype
+                x.copy_(x32)
 
 
 @torch.no_grad()

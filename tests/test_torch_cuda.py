@@ -289,13 +289,16 @@ def test_flash_kernel_compact_kv_and_decode(dev, grid_mode):
             qd, kd, vd, sched, FA.seq_pos_vector(pos, 3, dev))
 
 
-@pytest.mark.parametrize("ps,d,dtype", [(16, 64, torch.float32),
-                                        (128, 256, torch.bfloat16),
-                                        (64, 128, torch.float32)])
+@pytest.mark.parametrize("ps,d,dtype,heads", [
+    (16, 64, torch.float32, (8, 4)), (128, 256, torch.bfloat16, (8, 4)),
+    (64, 128, torch.float32, (8, 4)),
+    # llama4-maverick's heads: a group of 5 in a chunk of kMaxGroup 8
+    (16, 128, torch.bfloat16, (40, 8))])
 @pytest.mark.parametrize("window", [0, 100])
-def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, window):
+def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, heads,
+                                              window):
     from repro_torch.core import paged as P
-    b, h, hkv, smax = 3, 8, 4, 512
+    (h, hkv), b, smax = heads, 3, 512
     q = _randn((b, h, 1, d), 10, dev, dtype)
     k = _randn((b, hkv, smax, d), 11, dev, dtype)
     v = _randn((b, hkv, smax, d), 12, dev, dtype)
@@ -318,9 +321,11 @@ def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, window):
 
 
 #: decode cases (heads (H, Hkv), d, dtype): MHA, GQA 16/8 and 4/2, MQA
-#: 8/1, a group of 16 q heads (two head chunks), and head dims whose rows
-#: are not whole 16-byte pieces (element loads)
+#: 8/1, a group of 16 q heads (two head chunks), llama4-maverick's 40/8
+#: (a group of 5: 5 of a chunk's 8 rows), and head dims whose rows are
+#: not whole 16-byte pieces (element loads)
 DECODE_CASES = [((4, 4), 64, torch.float32), ((16, 8), 256, torch.bfloat16),
+                ((40, 8), 128, torch.bfloat16),
                 ((16, 8), 256, torch.float32), ((4, 2), 128, torch.bfloat16),
                 ((8, 1), 64, torch.bfloat16), ((8, 1), 256, torch.float32),
                 ((16, 1), 32, torch.float32), ((6, 2), 36, torch.bfloat16),

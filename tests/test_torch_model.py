@@ -1,7 +1,12 @@
 """The port's LM stack against the JAX package's, on the same weights
 (carried across with params_from_jax): quickstart and gemma3-12b smoke
 configs, full forward, prefill logits and caches, 8 decode steps under
-the plain and the block-space decode, and the paged decode step.
+the plain and the block-space decode, and the paged decode step; the MoE
+stacks (deepseek-v2-236b with MLA and a dense first layer,
+llama4-maverick-400b-a17b with GQA and MoE every 2nd layer) the same way
+with their aux losses, MLA caches and the absorbed decode, and llama4's
+paged decode (deepseek-v2's MLA stack refuses paged serving, as in the
+JAX package).
 
 LOGIT_TOL: f32 matmuls and reductions summed in another order, a few
 layers deep; the largest difference seen is ~5e-6 on logits of
@@ -148,12 +153,14 @@ def test_configs_and_init_match_jax():
                 {f: getattr(j, f) for f in j.__dataclass_fields__}
             assert t.param_count() == j.param_count()
     with pytest.raises(KeyError, match="A11"):
-        get_config("deepseek-v2-236b")
+        get_config("falcon-mamba-7b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-2")
     cfg = get_config("quickstart", smoke=True)
     with pytest.raises(NotImplementedError, match="A11"):
-        TM.Model(cfg.replace(moe=True, n_experts=4))
+        TM.Model(cfg.replace(ssm_kind="mamba1"))
+    with pytest.raises(NotImplementedError, match="A11"):
+        TM.Model(cfg.replace(input_mode="embeddings"))
     # init: the JAX package's shapes and scales, from a torch generator
     model = init(cfg, torch.Generator().manual_seed(0), "cpu")
     jp = jax.eval_shape(lambda: JM.init(jax.random.PRNGKey(0),
@@ -186,3 +193,115 @@ def test_builders_default_to_the_card(monkeypatch, make):
     cfg = get_config("quickstart", smoke=True)
     with pytest.raises(RuntimeError, match="no CUDA device available"):
         make(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the MoE / MLA stacks
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
+J_LOGITS = jax.jit(JM.logits_fn, static_argnums=(2,))
+J_PREFILL = jax.jit(JM.prefill, static_argnums=(2, 3))
+#: not ported yet: the SSM, hybrid and embedding-input stacks
+UNPORTED = ["falcon-mamba-7b", "zamba2-2.7b", "musicgen-large",
+            "internvl2-26b"]
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def families(request):
+    """The port's seeded init carried across to the JAX package (faster
+    than ``jax.random`` init of the MoE stacks on the CPU): (jax cfg,
+    jax params, torch cfg, torch model)."""
+    from repro.configs import get_config as j_get_config
+    arch = request.param
+    jcfg, tcfg = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    tm = init(tcfg, torch.Generator().manual_seed(0), "cpu")
+    return jcfg, jax.tree.map(jnp.asarray, params_to_jax(tm)), tcfg, tm
+
+
+def test_family_configs_match_jax_and_the_rest_refuse():
+    from repro.configs import get_config as j_get_config
+    for arch in FAMILIES:
+        for smoke in (True, False):
+            t = get_config(arch, smoke=smoke)
+            j = j_get_config(arch, smoke=smoke)
+            assert {f: getattr(t, f) for f in t.__dataclass_fields__} == \
+                {f: getattr(j, f) for f in j.__dataclass_fields__}
+            assert t.param_count() == j.param_count()
+            assert t.active_param_count() == j.active_param_count()
+    for arch in UNPORTED:
+        with pytest.raises(KeyError, match="A11"):
+            get_config(arch)
+
+
+def test_family_forward_prefill_and_decode_match_jax(families):
+    jcfg, jp, tcfg, tm = families
+    toks = _tokens(jcfg, (2, 24), seed=3)
+    jl, jaux = J_LOGITS(jp, jnp.asarray(toks), jcfg)
+    tl, taux = TM.logits_fn(tm, torch.from_numpy(toks))
+    _close(tl, jl)
+    assert float(jaux) > 0
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    jlog, jcache = J_PREFILL(jp, jnp.asarray(toks), jcfg, 32)
+    tlog, tcache = TM.prefill(tm, torch.from_numpy(toks), max_len=32)
+    _close(tlog, jlog)
+    prefix, period, _ = JM.group_layout(jcfg)
+    zeros = TM.init_cache(tcfg, 2, 32, "cpu")
+    for i, (pair, zero) in enumerate(zip(tcache, zeros)):
+        want = (jcache[f"prefix_{i}"]["mixer"] if i < prefix else [
+            t[(i - prefix) // period] for t in
+            jcache["blocks"][f"slot_{(i - prefix) % period}"]["mixer"]])
+        for got, z, w in zip(pair, zero, want):
+            assert got.shape == z.shape and not z.any()
+            _close(got, w)
+    if tcfg.use_mla:  # the compressed cache: L + dr values a token
+        assert tcache[0][0].shape == (2, 32, tcfg.kv_lora_rank)
+        assert tcache[0][1].shape == (2, 32, tcfg.qk_rope_dim)
+    tok = np.argmax(np.asarray(jlog), -1)
+    for step in range(8):
+        pos = 24 + step
+        jlog, jcache = J_DECODE_STEP(jp, jnp.asarray(tok), jcache,
+                                     jnp.asarray(pos, jnp.int32), jcfg)
+        tlog, tcache = TM.decode_step(tm, torch.from_numpy(tok), tcache,
+                                      pos)
+        _close(tlog, jlog)
+        tok = np.argmax(np.asarray(jlog), -1)
+
+
+def test_family_paged_decode_step_matches_jax(families):
+    jcfg, jp, tcfg, tm = families
+    if tcfg.use_mla:  # MLA caches are not (K, V) pages
+        with pytest.raises(ValueError, match="attention-only"):
+            TM.init_paged_cache(tcfg, 8, 8, "cpu")
+        return
+    jcfg = jcfg.replace(attn_decode_kernel="blockspace")
+    tcfg = tcfg.replace(attn_decode_kernel="blockspace")
+    ps, lens = 8, [12, 12]        # one prefill shape: one JAX compile
+    jpools = JM.init_paged_cache(jcfg, 8, ps)
+    tpools = TM.init_paged_cache(tcfg, 8, ps, "cpu")
+    table = np.zeros((2, 3), np.int32)
+    table[0, :2], table[1, :2] = [3, 1], [5, 2]
+    for slot, n in enumerate(lens):
+        toks = _tokens(jcfg, (1, n), seed=slot)
+        pages = table[slot, :TP.pages_for(n, ps)]
+        _, jc = J_PREFILL(jp, jnp.asarray(toks), jcfg, None)
+        jpools = JM.scatter_prefill_pages(jpools, jc, jnp.asarray(pages),
+                                          jcfg)
+        _, tc = TM.prefill(tm, torch.from_numpy(toks), cfg=tcfg)
+        TM.scatter_prefill_pages(tpools, tc, torch.from_numpy(pages), tcfg)
+    pos = np.asarray(lens, np.int32)
+    act = np.asarray([True, False])      # an inactive slot still routes
+    tok = _tokens(jcfg, (2, 1), seed=7)
+    for _ in range(3):
+        jlog, jpools = J_DECODE_STEP_PAGED(
+            jp, jnp.asarray(tok), jpools, jnp.asarray(table),
+            jnp.asarray(pos), jnp.asarray(act), jcfg)
+        tlog, tpools = TM.decode_step_paged(
+            tm, torch.from_numpy(tok), tpools, torch.from_numpy(table),
+            torch.from_numpy(pos), torch.from_numpy(act), tcfg)
+        _close(tlog[:1], jlog[:1])
+        tok, pos = np.argmax(np.asarray(jlog), -1), pos + act
+    _, period, _ = JM.group_layout(jcfg)
+    for i, pool in enumerate(tpools):
+        _close(pool[1:], jpools["blocks"][f"slot_{i % period}"]["mixer"][
+            i // period][1:])

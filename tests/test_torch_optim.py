@@ -104,3 +104,37 @@ def test_decay_mask_reads_jax_paths():
         assert TO._decay_mask(path) and JO._decay_mask(path)
     # a module name never matches "/bq": the caller passes JAX paths
     assert TO._decay_mask("layers.3.mixer.bq")
+
+
+@pytest.mark.parametrize("param_dtype,moments", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32")])
+def test_update_in_chunks_is_bit_equal(monkeypatch, param_dtype, moments):
+    # an update CHUNK values at a time (here 7, which divides no
+    # parameter) gives the bits of one pass over each whole parameter;
+    # its temporaries hold at most CHUNK values
+    rng = np.random.default_rng(3)
+    shapes = _flat(SHAPES)
+    dt = getattr(torch, param_dtype)
+    init = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        dt) for k, s in shapes.items()}
+    grads = [{k: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        dt) for k, s in shapes.items()} for _ in range(3)]
+    cfg = TO.AdamWConfig(lr=1e-2, warmup_steps=1, moment_dtype=moments)
+    runs = []
+    for chunk in (TO.CHUNK, 7):
+        monkeypatch.setattr(TO, "CHUNK", chunk)
+        p = {k: v.clone() for k, v in init.items()}
+        st = TO.init_state(p, cfg)
+        for g in grads:
+            _, st, _ = TO.apply_updates(p, g, st, cfg)
+        runs.append((p, st))
+        sizes = {b.numel() for b in TO._leaf_buffers(
+            p["embed/table"], st["m"]["embed/table"],
+            st["v"]["embed/table"]) if b is not None}
+        assert sizes == {min(chunk, 60)}
+    (p0, s0), (p1, s1) = runs
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+        assert torch.equal(s0["m"][k], s1["m"][k]), k
+        assert torch.equal(s0["v"][k], s1["v"][k]), k

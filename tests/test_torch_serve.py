@@ -4,7 +4,10 @@ top-2 logit margins the test asserts to be >= 100x the logit
 tolerance), PagedServer equals the single-request oracle, preemption is
 deterministic and leak-free, a too-small pool raises, the guarded
 runtime's entry points are there (only the mesh refuses, naming A12), and
-the reports carry their fields."""
+the reports carry their fields.  The MoE stacks (deepseek-v2-236b with
+MLA, llama4-maverick-400b-a17b with GQA) serve the same greedy streams as
+the JAX Server, llama4's PagedServer those of the single-request oracle,
+and the CLI takes both archs."""
 import numpy as np
 import pytest
 import torch
@@ -164,3 +167,72 @@ def test_throughput_reports_and_cli(quickstart, capsys):
             "8", "--max-new", "3", "--arch", "gemma3-12b"])
     out = capsys.readouterr().out
     assert "generated shape: (2, 3)" in out and "'requests': 3" in out
+
+
+# ---------------------------------------------------------------------------
+# the MoE / MLA stacks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["deepseek-v2-236b",
+                                        "llama4-maverick-400b-a17b"])
+def family(request):
+    """The port's seeded init carried across to the JAX package: (jax
+    cfg, jax params, torch cfg, torch model)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    from repro_torch.models.convert import params_to_jax
+    arch = request.param
+    tcfg = get_config(arch, smoke=True)
+    tm = init(tcfg, torch.Generator().manual_seed(1), "cpu")
+    return (j_get_config(arch, smoke=True),
+            jax.tree.map(jnp.asarray, params_to_jax(tm)), tcfg, tm)
+
+
+def test_family_server_greedy_streams_equal_jax(family):
+    """Both prefill all prompts at once, so the MoE capacity follows
+    batch x prompt alike; the streams are equal."""
+    from repro.launch.serve import ServeConfig as JServeConfig
+    from repro.launch.serve import Server as JServer
+    jcfg, jp, tcfg, tm = family
+    prompts = _prompts(jcfg, (3, 16), seed=4)
+    want = JServer(jcfg, jp, JServeConfig(max_len=32, temperature=0.0,
+                                          guard=False)).generate(
+        prompts, max_new=8)
+    cfg = tcfg.replace(attn_decode_kernel="blockspace")
+    got = S.Server(cfg, tm, S.ServeConfig(max_len=32)).generate(
+        prompts, max_new=8)
+    margins = _margins(tm, cfg, prompts, want)
+    assert margins.min() >= 100 * LOGIT_ATOL, margins.min()
+    assert np.array_equal(got, want)
+
+
+def test_family_paged_server_matches_single_request_oracle(family):
+    _, _, tcfg, tm = family
+    reqs = _mixed(tcfg)
+    if tcfg.use_mla:  # MLA caches are not (K, V) pages
+        with pytest.raises(ValueError, match="attention-only"):
+            S.PagedServer(tcfg, tm, S.PagedServeConfig())
+        return
+    out = S.PagedServer(tcfg.replace(attn_decode_kernel="blockspace"), tm,
+                        S.PagedServeConfig(max_len=32, num_slots=2,
+                                           page_size=8, num_pages=16)).run(
+        reqs, max_new=4)
+    oracle = S.Server(tcfg, tm, S.ServeConfig(max_len=32))
+    for rid, prompt in enumerate(reqs):
+        assert np.array_equal(out[rid], oracle.generate(prompt[None], 4)[0])
+
+
+def test_family_cli(capsys):
+    for arch in ("deepseek-v2-236b", "llama4-maverick-400b-a17b"):
+        S.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                "--prompt-len", "8", "--max-new", "3", "--decode-kernel",
+                "blockspace"])
+    S.main(["--device", "cpu", "--paged", "--arch",
+            "llama4-maverick-400b-a17b", "--batch", "3", "--prompt-len",
+            "8", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert out.count("generated shape: (2, 3)") == 2
+    assert "'requests': 3" in out

@@ -11,6 +11,12 @@ numpy):
   under remat and logit_chunk on and off, gemma3-12b in f32 and in its
   own bf16 compute over f32 parameters; the dense qwen / phi3 configs
   with one AdamW step) -- within GRAD_TOL (f32) or BF16_*;
+* the MoE stacks (deepseek-v2-236b: MLA through the flash VJP at V
+  head dim 16 against QK 24, a dense first layer; llama4-maverick: GQA,
+  MoE every 2nd layer): ``loss_fn``, its ``aux_loss`` and every
+  gradient against ``jax.grad`` under remat and logit chunks on and off,
+  and 3 ``Trainer`` steps (bf16 AdamW moments, ``repro``'s META
+  setting for both) against the JAX package's from one checkpoint;
 * ``Trainer``: 4 steps against the JAX package's ``Trainer`` from the
   same initial checkpoint (also at grad_accum 2, and 3 steps in bf16
   under chip_smoke.py's gemma3-12b optimizer), a JAX checkpoint
@@ -75,7 +81,12 @@ def _models(arch, seed=0, **replace):
                 for name in ("bq", "bk", "bv"):
                     getattr(layer.mixer, name).normal_(
                         0.0, 0.1, generator=torch.Generator().manual_seed(1))
-    jp = jax.tree.map(jnp.asarray, convert.params_to_jax(tm))
+    # JAX's own copy: on the CPU jnp.asarray aliases a numpy array, and
+    # params_to_jax's unstacked leaves are views of the port's parameters,
+    # which AdamW updates in place while a dispatched JAX step may still
+    # be reading them
+    jp = jax.tree.map(lambda a: jnp.asarray(np.array(a)),
+                      convert.params_to_jax(tm))
     return jcfg, jp, tcfg, tm
 
 
@@ -426,6 +437,67 @@ def test_bf16_first_steps_match_jax_trainer(tmp_path):
                np.array([float(h[key]) for h in want]), BF16_TRAIN_TOL)
 
 
+#: the MoE stacks at S 32 with the flash path on (chunk 8): deepseek-v2's
+#: MLA runs the flash VJP at V head dim 16 against QK 24
+MOE_GRAD_KNOBS = dict(flash_threshold=16, attn_chunk=8, remat=False,
+                      logit_chunk=0)
+
+
+@pytest.fixture(scope="module", params=["deepseek-v2-236b",
+                                        "llama4-maverick-400b-a17b"])
+def moe_grad_ref(request):
+    jcfg, jp, tcfg, tm = _models(request.param, **MOE_GRAD_KNOBS)
+    batch = _batch(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (total, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(p, jb, jcfg), has_aux=True))(jp)
+    return tcfg, tm, batch, float(total), float(metrics["aux_loss"]), \
+        jax.tree.map(np.asarray, grads)
+
+
+@pytest.mark.parametrize("remat,logit_chunk", [(True, 8), (False, 0)])
+def test_moe_loss_aux_and_grads_match_jax(moe_grad_ref, remat, logit_chunk):
+    tcfg, tm, batch, jloss, jaux, jgrads = moe_grad_ref
+    cfg = tcfg.replace(remat=remat, logit_chunk=logit_chunk)
+    total, metrics, grads = _port_grads(tm, batch, cfg)
+    assert jaux > 0
+    _close(metrics["aux_loss"], jaux, LOSS_TOL)
+    _close(total, jloss, LOSS_TOL)
+    _close(total, (metrics["loss"] + metrics["aux_loss"]).detach(),
+           LOSS_TOL)
+    grads = convert.tree_to_jax(grads, cfg)
+    _grads_close(grads, jgrads)
+    routers = [k for k in grads["blocks"]["slot_0" if tcfg.use_mla
+                                          else "slot_1"]["ffn"]]
+    assert "router" in routers
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
+def test_moe_trainer_matches_jax_trainer(arch, tmp_path):
+    """3 steps of each package's Trainer from one initial checkpoint,
+    bf16 AdamW moments: the same losses, aux losses and grad norms
+    (deepseek-v2: MLA and MoE behind a dense first layer; llama4's
+    period-2 groups are held by the gradient test above)."""
+    from repro.launch.train import TrainConfig as JTrainConfig
+    from repro.launch.train import Trainer as JTrainer
+    jcfg, jp, tcfg, _ = _models(arch, **MOE_GRAD_KNOBS)
+    JManager(str(tmp_path / "jax")).save(0, jax.tree.map(np.asarray, jp))
+    shutil.copytree(tmp_path / "jax", tmp_path / "port")
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=3,
+               moment_dtype="bfloat16")
+    _, _, want = JTrainer(jcfg, JTrainConfig(
+        steps=3, log_every=100, ckpt_dir=str(tmp_path / "jax"),
+        optimizer=JO.AdamWConfig(**opt))).run(
+        _pipe(JDataConfig, JPipeline, jcfg))
+    _, opt_state, got = TT.Trainer(tcfg, TT.TrainConfig(
+        steps=3, log_every=100, ckpt_dir=str(tmp_path / "port"),
+        optimizer=TO.AdamWConfig(**opt)), device="cpu").run(
+            _pipe(DataConfig, SyntheticPipeline, tcfg))
+    assert all(h["aux_loss"] > 0 for h in got)
+    assert opt_state["m"]["layers.1.ffn.wi"].dtype == torch.bfloat16
+    _metrics_close(got, [{k: float(v) for k, v in h.items()} for h in want])
+
+
 def test_checkpoints_cross_between_the_packages(jax_runs, tmp_path):
     jcfg, tcfg, _, runs = jax_runs
     jdir, jhist = runs[1]
@@ -604,9 +676,10 @@ def test_trainer_refusals_and_cli(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="A12"):
         TT.Trainer(cfg, TT.TrainConfig(ckpt_dir=str(tmp_path)),
                    mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.Trainer(cfg.replace(moe=True, n_experts=4),
-                   TT.TrainConfig(ckpt_dir=str(tmp_path)), device="cpu")
+    for bad in (dict(ssm_kind="mamba2"), dict(input_mode="embeddings")):
+        with pytest.raises(NotImplementedError, match="A11"):
+            TT.Trainer(cfg.replace(**bad),
+                       TT.TrainConfig(ckpt_dir=str(tmp_path)), device="cpu")
     args = ["--arch", "quickstart", "--smoke", "--steps", "2",
             "--global-batch", "2", "--seq-len", "16", "--ckpt-dir",
             str(tmp_path / "cli")]
