@@ -3321,9 +3321,9 @@ def phase_train(S, TT, TA, FA, get_config, dev):
 
 def free_card():
     """Give the card back what the phase's dropped objects held: a
-    Server and its guarded calls reference each other (the decode
-    closure reads the server's rung), so a dropped Server keeps its
-    model until the cyclic collector runs."""
+    dropped Server frees its model at once (its guarded calls hold no
+    reference to it); the collector runs for whatever else a phase left
+    in a cycle, then the allocator's cache is emptied."""
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -149,21 +149,33 @@ class _GuardedServing:
     calls."""
 
     def _init_guarding(self, cfg: ModelConfig, model, chaos) -> None:
+        """The guarded calls and the ladder's hook reach the server's
+        state through the objects they need (the event list, the ladder,
+        the one-slot ``_rung_cfg`` holder of the decode config), never
+        through ``self``: a server is not in a reference cycle with its
+        guarded calls, so dropping it frees its model at once."""
         self.chaos = chaos
         self.state = ServerState.HEALTHY
         self.events: list = []
+        events = self.events
         self.ladder = DegradationLadder(
             self._rungs(cfg),
-            on_transition=lambda rec: self.events.append(
+            on_transition=lambda rec: events.append(
                 {"kind": "degrade", **rec}))
         self._canary_ref = None
         _build_kernels(model.device)
-        self._decode_cfg = None
+        self._rung_cfg: list = [None]
         self._apply_rung(self.ladder.current())
+
+    @property
+    def _decode_cfg(self) -> ModelConfig:
+        """The config the decode step runs under (the ladder's rung)."""
+        return self._rung_cfg[0]
 
     def _guarded(self, site: str, fn):
         if self.chaos is not None:
-            fn = self.chaos.wrap(site, fn, rung=lambda: self.ladder.level)
+            ladder = self.ladder
+            fn = self.chaos.wrap(site, fn, rung=lambda: ladder.level)
         if not self.scfg.guard:
             return fn
         validators = []
@@ -244,9 +256,10 @@ class Server(_GuardedServing):
         self._prefill = self._guarded(
             "serve.prefill", lambda model, prompts: prefill(
                 model, prompts, max_len=scfg.max_len, cfg=cfg))
+        rung_cfg = self._rung_cfg
         self._decode = self._guarded(
             "serve.decode", lambda model, tok, cache, pos: decode_step(
-                model, tok, cache, pos, self._decode_cfg))
+                model, tok, cache, pos, rung_cfg[0]))
 
     # -- degradation ladder --------------------------------------------------
 
@@ -268,7 +281,7 @@ class Server(_GuardedServing):
     def _apply_rung(self, rung: dict) -> None:
         """Run the decode step under this rung's config from now on
         (prefill and the cache layout are rung-independent)."""
-        self._decode_cfg = self.cfg.replace(
+        self._rung_cfg[0] = self.cfg.replace(
             attn_decode_kernel=rung["decode_kernel"],
             grid_lowering=rung["grid_lowering"])
 
@@ -483,11 +496,12 @@ class PagedServer(_GuardedServing):
         self._prefill = self._guarded(
             "serve.prefill",
             lambda model, tokens: prefill(model, tokens, cfg=cfg))
+        rung_cfg = self._rung_cfg
         self._decode = self._guarded(
             "serve.decode",
             lambda model, toks, pools, table, posv, act:
             model_lib.decode_step_paged(model, toks, pools, table, posv,
-                                        act, self._decode_cfg))
+                                        act, rung_cfg[0]))
 
     @staticmethod
     def _rungs(cfg: ModelConfig) -> list:
@@ -498,7 +512,7 @@ class PagedServer(_GuardedServing):
         return rungs
 
     def _apply_rung(self, rung: dict) -> None:
-        self._decode_cfg = self.cfg.replace(
+        self._rung_cfg[0] = self.cfg.replace(
             attn_decode_kernel=rung["decode_kernel"])
 
     # -- host bookkeeping ----------------------------------------------------

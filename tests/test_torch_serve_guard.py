@@ -305,3 +305,47 @@ def test_chaos_seed_cli(capsys, tmp_path):
     assert "faults fired, state healthy" in out
     assert "generated shape: (2, 4)" in out
     assert os.listdir(tmp_path)           # decode-state checkpoints
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("with_chaos", [False, True])
+def test_dropped_server_frees_its_model_without_the_collector(paged,
+                                                               with_chaos):
+    """A server and its guarded calls hold no reference cycle: with the
+    cyclic collector off, dropping a server that has served (its model
+    referenced by it alone) frees the model's parameters at once, with
+    a chaos plan attached or not."""
+    import gc
+    import weakref
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    cfg = get_config("quickstart", smoke=True)
+    plan = TC.FaultPlan(0, [TC.FaultSpec("transient_error", "serve.decode",
+                                         1)])
+    chaos = TC.ChaosInjector(plan) if with_chaos else None
+    kw = dict(max_len=16, backoff_base_s=0.0)
+    prompts = _prompts(cfg, (2, 4), 0)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        model = init(cfg, torch.Generator().manual_seed(0), "cpu")
+        param = weakref.ref(model.lm_head.w)
+        if paged:
+            srv = S.PagedServer(cfg, model, S.PagedServeConfig(
+                num_slots=2, page_size=8, num_pages=8, **kw), chaos=chaos)
+            srv.run([p for p in prompts], max_new=3)
+        else:
+            srv = S.Server(cfg, model, S.ServeConfig(**kw), chaos=chaos)
+            srv.generate(prompts, 3)
+        if with_chaos:
+            assert chaos.events
+        del model
+        assert param() is not None
+        del srv
+        assert param() is None
+    finally:
+        if enabled:
+            gc.enable()
