@@ -28,7 +28,14 @@ domains at the same size, and the LM's serving path at full model width:
   of its 48 layers) served through both decode kernels at its group of
   5 q heads per kv head, deepseek-v2-236b at full width (4 of its 60
   layers) served through MLA's absorbed decode (no kernel on that path)
-  and trained (2 layers).
+  and trained (2 layers);
+* the SSM, hybrid and embedding-input stacks: the Mamba-1 and SSD scans
+  at full width against their sequential oracles, falcon-mamba-7b and
+  zamba2-2.7b served at full width and depth (zamba2's weight-shared
+  attention block through the split-K decode kernel at 32/32 heads of
+  80), musicgen-large (full depth) and internvl2-26b (12 of 48 layers)
+  decoded on embeddings through the same kernel at 32/32 x 64 and 48/8 x
+  128 (a group of 6), and the four trained at cut depth.
 
 The lowerings are closed_form, prefetch_lut, bounding and mma (the
 decode chains of csrc/mma_decode.cuh on the tensor cores); every loop
@@ -258,7 +265,35 @@ Phases, each printing its own lines:
              flash VJP's calls at V head dim 128 against QK 192, ms per
              step and peak (``python3 chip_smoke.py --families-only``
              builds, then runs only this phase and prints no result);
-18. kernels line (the kernels of the main paths: B1-B3, B4 as the
+18. ssm   -- the SSM, hybrid and embedding-input stacks (models/ssm.py,
+             the shared block and embedding inputs of models/model.py),
+             each model dropped before the next: (1) selective_scan and
+             ssd_scan at falcon-mamba-7b's / zamba2-2.7b's widths (b 1,
+             S 512, chunk 256; d_inner 8192 N 16; 80 heads of 64, N 64)
+             against their sequential oracles in f32 within rtol 1e-4 /
+             atol 1e-5 (SSM_TOL); (2) falcon-mamba-7b at full width and
+             depth (64 layers, 29.1 GB of f32 parameters): the Server at
+             batch 4, prompt 1024, 16 new, no kernel launched (none lies
+             on the path), its decode step's profile; an f32 copy at 2
+             layers: a prefill of 1024 tokens against a prefill of 768
+             and 256 decode steps, last logits and states within
+             SSM_DECODE_TOL; (3) zamba2-2.7b at full width and depth (54
+             layers, 9 shared-block applications): the decode kernels at
+             32/32 x 80 bf16 against their plain versions (as phase 17),
+             the Server at batch 4, prompt 2048, 16 new, under
+             blockspace (9 x decode steps launches) and xla (none) in
+             turns, streams compared as phase 11, its decode step's
+             profile; (4) musicgen-large at full depth and (5)
+             internvl2-26b at 12 of its 48 layers: the decode kernels at
+             their heads (32/32 x 64; 48/8 x 128, a group of 6), a
+             prefill of seeded (4, 2048, D) embeddings and 16 decode
+             steps on (4, 1, D) ones, blockspace (layers x steps
+             launches) against xla, step logits within SERVE_TOL; (6)
+             each trained 3 steps (batch 1 x 2048) at 2 / 6 / 4 / 2
+             layers: finite losses, ms a step, peak
+             (``python3 chip_smoke.py --ssm-only`` builds, then runs
+             only this phase and prints no result);
+19. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -269,8 +304,9 @@ Phases, each printing its own lines:
              which no route takes, is not among them: its times sit
              beside the tile paths' as cuda_core_ms; the two decode
              entries carry launches_families_phase and a llama4_maverick
-             object), a ``[phases]`` line (each phase's host seconds),
-             then the result line.
+             object, launches_ssm_phase and zamba2_2_7b, musicgen_large
+             and internvl2_26b objects), a ``[phases]`` line (each
+             phase's host seconds), then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -1586,6 +1622,46 @@ FAM_TRAIN = dict(layers=2, batch=1, seq=4096, steps=3, lr=1e-4)
 #: bf16 tolerance of the attention kernels (FA._compare: 2e-2, each row
 #: within ROW_RTOL of its norm; ~4 roundings of 2^-9 on each path)
 FAM_MLA_F32_TOL = 2e-3
+
+
+#: the [ssm] phase.  Phase 1: the scans at full width in f32 against
+#: their sequential oracles, within the reference's own tolerance
+#: (tests/test_ssm.py): selective_scan at falcon-mamba-7b's shapes, the
+#: SSD at zamba2-2.7b's (80 heads of 64, N 64), one batch row, S 512 in
+#: chunks of 256
+SSM_S6 = dict(b=1, s=512, di=8192, n=16, chunk=256)
+SSM_SSD = dict(b=1, s=512, nh=80, p=64, n=64, chunk=256)
+SSM_TOL = dict(rtol=1e-4, atol=1e-5)
+#: falcon-mamba-7b at full width and depth (64 layers, 7.27 B f32
+#: parameters, 29.1 GB): the Server; then an f32 copy cut to 2 layers
+#: holds the decode to the prefill: a prefill of ``check_prompt +
+#: check_steps`` tokens against a prefill of ``check_prompt`` and
+#: ``check_steps`` decode steps fed the same tokens, the last logits and
+#: every layer's states within SSM_DECODE_TOL
+SSM_FALCON = dict(batch=4, prompt=1024, max_new=16, max_len=1040,
+                  check_layers=2, check_batch=2, check_prompt=768,
+                  check_steps=256)
+SSM_DECODE_TOL = 2e-3
+#: zamba2-2.7b at full width and depth (54 Mamba-2 layers, 9
+#: applications of the shared block; 2.44 B f32 parameters): the Server
+#: under blockspace and xla in turns (max_len a multiple of 128, so every
+#: shared-block decode attention runs the kernel), streams compared as
+#: [serve] compares gemma3-12b's
+SSM_ZAMBA = dict(batch=4, prompt=2048, max_new=16, max_len=2176)
+#: the embedding-input stacks: musicgen-large at full depth (48 layers,
+#: 3.23 B), internvl2-26b cut to 12 of its 48 layers (21.0 GB of its 77
+#: GB of f32 parameters): a prefill of seeded (B, prompt, D) embeddings,
+#: then ``steps`` decode steps on (B, 1, D) embeddings, blockspace
+#: against xla (step logits within SERVE_TOL)
+SSM_EMB = {"musicgen-large": dict(layers=48, batch=4, prompt=2048, steps=16,
+                                  max_len=2176),
+           "internvl2-26b": dict(layers=12, batch=4, prompt=2048, steps=16,
+                                 max_len=2176)}
+#: each stack trained 3 steps at cut depth, batch 1 x 2048 (a multiple of
+#: ssd_chunk 256 and of logit_chunk 512)
+SSM_TRAIN = dict(batch=1, seq=2048, steps=3, lr=1e-4,
+                 layers={"falcon-mamba-7b": 2, "zamba2-2.7b": 6,
+                         "musicgen-large": 4, "internvl2-26b": 2})
 
 
 def attn_bound(nbytes, nops, dtype, route="cuda_core"):
@@ -3232,7 +3308,9 @@ def train_steps(TT, TA, cfg, c, dev, ckpt_root, moments="float32"):
     nparams = sum(p.numel() for p in model.parameters())
     pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=c["seq"],
-                                        global_batch=c["batch"]))
+                                        global_batch=c["batch"],
+                                        input_mode=cfg.input_mode,
+                                        d_model=cfg.d_model))
     calls, dims = {"fwd": 0, "bwd": 0}, set()
     fwd, bwd = TA._flash_fwd_impl, TA._flash_vjp_bwd
 
@@ -3354,7 +3432,8 @@ def step_profile(fn, reps=5, top=4):
                             for ms, key in rows[:top]]}
 
 
-def decode_step_profile(TM, cfg, model, prompts, max_len, dev):
+def decode_step_profile(TM, cfg, model, prompts, max_len, dev,
+                        tag="families"):
     """:func:`step_profile` of one batched decode step right after the
     prompt (the step each Server run repeats)."""
     with torch.no_grad():
@@ -3364,7 +3443,7 @@ def decode_step_profile(TM, cfg, model, prompts, max_len, dev):
         pos = prompts.shape[1]
         out = step_profile(lambda: TM.decode_step(model, tok, cache, pos,
                                                   cfg))
-    print(f"[families] {cfg.name} decode step profile {json.dumps(out)}")
+    print(f"[{tag}] {cfg.name} decode step profile {json.dumps(out)}")
     return out
 
 
@@ -3753,6 +3832,380 @@ def phase_families(S, TM, TT, TA, FA, P, get_config, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [ssm]: the SSM, hybrid and embedding-input stacks
+# ---------------------------------------------------------------------------
+
+def close_within(got, want, tol, what):
+    """``got`` within ``tol`` (rtol / atol) of ``want``; returns the
+    largest |got - want| and the largest excess over the bound."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    excess = float((err - tol["atol"] - tol["rtol"] * want.abs()).max())
+    check(bool(torch.isfinite(got).all()) and excess <= 0,
+          f"{what}: exceeds rtol {tol['rtol']} / atol {tol['atol']} by "
+          f"{excess} (max |err| {float(err.max())})")
+    return float(err.max()), excess
+
+
+def ssm_scans(TS, dev):
+    """Phase 1: both chunked scans at full width against their
+    sequential oracles, f32 (SSM_TOL), timed beside them."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def uni(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    def nrm(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    out = {}
+    c = SSM_S6
+    b, s, di, n = c["b"], c["s"], c["di"], c["n"]
+    s6 = (nrm((b, s, di)), uni((b, s, di), 0.001, 0.1),
+          -uni((di, n), 0.5, 2.0), nrm((b, s, n)), nrm((b, s, n)))
+    c2 = SSM_SSD
+    b2, s2, nh, pd, n2 = c2["b"], c2["s"], c2["nh"], c2["p"], c2["n"]
+    ssd = (nrm((b2, s2, nh, pd)), uni((b2, s2, nh), 0.001, 0.5),
+           -uni((nh,), 0.5, 2.0), nrm((b2, s2, n2)), nrm((b2, s2, n2)))
+    with torch.no_grad():
+        for name, scan, ref, args, cc, shape in (
+                ("selective_scan", TS.selective_scan, TS.selective_scan_ref,
+                 s6, c["chunk"], f"b {b}, S {s}, d_inner {di}, N {n}"),
+                ("ssd_scan", TS.ssd_scan, TS.ssd_scan_ref, ssd, c2["chunk"],
+                 f"b {b2}, S {s2}, {nh} heads x {pd}, N {n2}")):
+            got = scan(*args, chunk=cc)
+            want = ref(*args)
+            err, excess = close_within(got, want, SSM_TOL, name)
+            out[name] = {
+                "at": f"{shape}, chunk {cc}, f32", "max_abs_err": err,
+                "excess_over_tol": excess, "out_max": float(want.abs().max()),
+                "tol": SSM_TOL, "ms": time_ms(lambda: scan(*args, chunk=cc),
+                                              5),
+                "sequential_oracle_ms": time_ms(lambda: ref(*args), 2)}
+            print(f"[ssm] {name} vs its sequential oracle "
+                  f"{json.dumps(out[name])}")
+    return out
+
+
+def ssm_model(TM, get_config, arch, layers, dev, **replace):
+    """``arch`` at full width (cut to ``layers`` layers when fewer than
+    its own), seeded random weights on the card.  Returns (cfg, model,
+    info)."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = full.replace(n_layers=layers, **replace)
+    t0 = time.perf_counter()
+    model = TM.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mixers = sorted({TM.layer_sig(cfg, i)[0] for i in range(layers)})
+    shared = sum(TM.layer_sig(cfg, i)[3] for i in range(layers))
+    info = {"arch": arch, "layers": layers, "of_layers": full.n_layers,
+            "mixers": mixers, "shared_applications": shared,
+            "input_mode": cfg.input_mode, "params": nparams,
+            "param_gb": nbytes / 1e9, "init_s": time.perf_counter() - t0}
+    print(f"[ssm] {arch}: full width (d_model {cfg.d_model}, mixers "
+          f"{mixers}, {shared} shared-block applications, {cfg.input_mode} "
+          f"inputs) at {layers} of its {full.n_layers} layers: {nparams} "
+          f"{cfg.param_dtype} parameters ({nbytes / 1e9:.1f} GB), compute "
+          f"{cfg.dtype}, in {info['init_s']:.1f} s")
+    return cfg, model, info
+
+
+def ssm_prompts(cfg, c):
+    return torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt"]),
+                         generator=torch.Generator().manual_seed(SEED)
+                         ).numpy()
+
+
+def falcon_decode_check(TM, get_config, dev):
+    """falcon-mamba-7b's decode against its prefill, an f32 copy at
+    SSM_FALCON["check_layers"] layers: the last logits and every layer's
+    (ssm_state, conv_state) after a prefill of P + T tokens against
+    those after a prefill of P and T decode steps fed the same tokens,
+    within SSM_DECODE_TOL."""
+    c = SSM_FALCON
+    cfg, model, _ = ssm_model(TM, get_config, "falcon-mamba-7b",
+                              c["check_layers"], dev, dtype="float32")
+    p, t = c["check_prompt"], c["check_steps"]
+    toks = torch.randint(0, cfg.vocab_size, (c["check_batch"], p + t),
+                         generator=torch.Generator().manual_seed(SEED + 1)
+                         ).to(dev)
+    with torch.no_grad():
+        want, wcache = TM.prefill(model, toks, None, cfg)
+        lg, cache = TM.prefill(model, toks[:, :p], None, cfg)
+        for j in range(t):
+            lg, cache = TM.decode_step(model, toks[:, p + j:p + j + 1],
+                                       cache, p + j, cfg)
+    errs = {"logits": float((lg - want).abs().max())}
+    mags = {"logits": float(want.abs().max())}
+    for k, name in enumerate(("ssm_state", "conv_state")):
+        errs[name] = max(float((a[k] - b[k]).abs().max())
+                         for a, b in zip(cache, wcache))
+        mags[name] = max(float(b[k].abs().max()) for b in wcache)
+    check(max(errs.values()) <= SSM_DECODE_TOL,
+          f"falcon-mamba decode vs prefill: {errs} > {SSM_DECODE_TOL} "
+          f"(magnitudes {mags})")
+    out = {"layers": cfg.n_layers, "batch": c["check_batch"],
+           "prefill": p, "decode_steps": t, "dtype": cfg.dtype,
+           "max_abs_err": errs, "max_abs": mags, "tol": SSM_DECODE_TOL}
+    print(f"[ssm] falcon-mamba decode vs prefill {json.dumps(out)}")
+    del model, cache, wcache
+    free_card()
+    return out
+
+
+def ssm_server_runs(S, FA, cfg, model, prompts, c, kernels, want_launches,
+                    what):
+    """Server runs in turns (``kernels``), each counted from 0 and held
+    to ``want_launches(kernel)`` decode-kernel launches and nothing
+    else; returns ({kernel: launches, seconds, ms per decode step},
+    {kernel: (tokens, step logits)} of each kernel's first run)."""
+    runs, streams = {}, {}
+    for kernel in kernels:
+        FA.reset_launch_counts()
+        toks, logits, secs, step_ms = serve_run(
+            S, cfg, model, prompts, c["max_new"], c["max_len"], kernel)
+        launches = FA.launch_counts()
+        want = want_launches(kernel)
+        check(launches["flash_attention_decode"] == want
+              and sum(launches.values()) == want,
+              f"{what} serve {kernel}: launches {launches}, expected "
+              f"{want} decode ones only")
+        check(toks.shape == (c["batch"], c["max_new"])
+              and bool(torch.isfinite(logits).all()),
+              f"{what} serve {kernel}: stream {toks.shape} or non-finite "
+              f"logits")
+        run = runs.setdefault(kernel, {"launches": [], "seconds": [],
+                                       "ms_per_decode_step": []})
+        run["launches"].append(launches["flash_attention_decode"])
+        run["seconds"].append(secs)
+        run["ms_per_decode_step"].append(step_ms)
+        streams.setdefault(kernel, (toks, logits))
+    return runs, streams
+
+
+def ssm_falcon(S, TM, FA, get_config, dev):
+    """Phase 2: falcon-mamba-7b at full width and depth through the
+    Server (no kernel lies on its path), its decode step's profile; then
+    the decode held to the prefill (:func:`falcon_decode_check`)."""
+    c = SSM_FALCON
+    cfg, model, info = ssm_model(TM, get_config, "falcon-mamba-7b",
+                                 get_config("falcon-mamba-7b").n_layers, dev)
+    prompts = ssm_prompts(cfg, c)
+    runs, _ = ssm_server_runs(S, FA, cfg, model, prompts, c,
+                              (cfg.attn_decode_kernel,) * 2, lambda k: 0,
+                              "falcon-mamba")
+    serve = {"batch": c["batch"], "prompt": c["prompt"],
+             "max_new": c["max_new"], "max_len": c["max_len"],
+             "runs": runs[cfg.attn_decode_kernel],
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "decode_step_profile": decode_step_profile(
+                 TM, cfg, model, prompts, c["max_len"], dev, "ssm")}
+    print(f"[ssm] falcon-mamba serve {json.dumps(serve)}")
+    del model
+    free_card()
+    dvp = falcon_decode_check(TM, get_config, dev)
+    return {**info, "serve": serve, "decode_vs_prefill": dvp}
+
+
+def ssm_zamba(S, TM, TA, FA, P, get_config, dev):
+    """Phase 3: zamba2-2.7b at full width and depth: the decode kernel at
+    its shared block's heads (32/32 x 80 bf16) against its plain
+    version, the Server under blockspace (shared applications x decode
+    steps launches) and xla (none) in turns, streams compared; its
+    decode step's profile."""
+    c = SSM_ZAMBA
+    cfg, model, info = ssm_model(TM, get_config, "zamba2-2.7b",
+                                 get_config("zamba2-2.7b").n_layers, dev)
+    plen, b = c["prompt"], c["batch"]
+    decode = decode_shape_check(
+        FA, P, dev, cfg.name, b, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+        c["max_len"], [plen, plen + 3, plen + 7, plen + c["max_new"] - 1],
+        (0,), 904, TA)
+    prompts = ssm_prompts(cfg, c)
+    shared = info["shared_applications"]
+    runs, streams = ssm_server_runs(
+        S, FA, cfg, model, prompts, c, ("blockspace", "xla", "xla",
+                                        "blockspace"),
+        lambda k: shared * (c["max_new"] - 1) if k == "blockspace" else 0,
+        "zamba2")
+    (tk, lk), (tx, lx) = streams["blockspace"], streams["xla"]
+    tol = SERVE_TOL[cfg.dtype]
+    diff, ncmp, small, diverged, _ = compare_streams(tk, lk, tx, lx, tol,
+                                                     "zamba2 serve")
+    serve = {"batch": b, "prompt": plen, "max_new": c["max_new"],
+             "max_len": c["max_len"], **runs, "tol": tol,
+             "max_logit_diff": diff, "steps_compared": ncmp,
+             "steps_margin_le_tol": small, "rows_diverged": diverged,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "decode_step_profile": decode_step_profile(
+                 TM, cfg.replace(attn_decode_kernel="blockspace"), model,
+                 prompts, c["max_len"], dev, "ssm")}
+    print(f"[ssm] zamba2 serve {json.dumps(serve)}")
+    del model
+    free_card()
+    return {**info, "decode": decode, "serve": serve}
+
+
+def ssm_embeddings(TM, TA, FA, P, get_config, dev, arch):
+    """Phases 4 and 5: an embedding-input stack at full width (SSM_EMB's
+    depth): the decode kernel at its heads against its plain version;
+    a prefill of seeded (B, prompt, D) embeddings and ``steps`` decode
+    steps on (B, 1, D) ones under blockspace (layers x steps launches)
+    and xla (none), the step logits compared within SERVE_TOL."""
+    c = SSM_EMB[arch]
+    cfg, model, info = ssm_model(TM, get_config, arch, c["layers"], dev)
+    plen, b, n = c["prompt"], c["batch"], c["steps"]
+    decode = decode_shape_check(
+        FA, P, dev, arch, b, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+        c["max_len"], [plen, plen + 3, plen + 7, plen + n - 1], (0,),
+        905 + len(arch), TA)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    emb = torch.randn((b, plen + n, cfg.d_model), generator=g, device=dev)
+    runs, logits = {}, {}
+    for kernel in ("blockspace", "xla"):
+        kcfg = cfg.replace(attn_decode_kernel=kernel)
+        FA.reset_launch_counts()
+        steps, stamps = [], []
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = TM.prefill(model, emb[:, :plen], c["max_len"], kcfg)
+            steps.append(lg[:, 0].float())
+            stamps.append(time.perf_counter())
+            for j in range(n):
+                pos = plen + j
+                lg, cache = TM.decode_step(model, emb[:, pos:pos + 1], cache,
+                                           pos, kcfg)
+                steps.append(lg[:, 0].float())
+                stamps.append(time.perf_counter())
+            torch.cuda.synchronize()
+        launches = FA.launch_counts()
+        want = cfg.n_layers * n if kernel == "blockspace" else 0
+        check(launches["flash_attention_decode"] == want
+              and sum(launches.values()) == want,
+              f"{arch} {kernel}: launches {launches}, expected {want} "
+              f"decode ones only")
+        logits[kernel] = torch.stack(steps, 1)
+        check(bool(torch.isfinite(logits[kernel]).all()),
+              f"{arch} {kernel}: non-finite logits")
+        runs[kernel] = {"launches": launches["flash_attention_decode"],
+                        "seconds": time.perf_counter() - t0,
+                        "ms_per_decode_step": 1e3 * (stamps[-1] - stamps[0])
+                        / n}
+        del cache
+    tol = SERVE_TOL[cfg.dtype]
+    diff = float((logits["blockspace"] - logits["xla"]).abs().max())
+    check(diff <= tol, f"{arch}: blockspace step logits differ from xla's "
+          f"by {diff} > {tol}")
+    out = {**info, "decode": decode, "batch": b, "prompt": plen,
+           "steps": n, "max_len": c["max_len"], **runs, "tol": tol,
+           "max_logit_diff": diff,
+           "logit_max": float(logits["xla"].abs().max()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"[ssm] {arch} embeddings {json.dumps(out)}")
+    del model
+    free_card()
+    return out
+
+
+def ssm_train(TT, TA, get_config, dev):
+    """Phase 6: each stack trained SSM_TRAIN["steps"] steps at its cut
+    depth (:func:`train_steps`): finite losses, ms a step, peak."""
+    c = SSM_TRAIN
+    out = {}
+    ckpt_root = tempfile.mkdtemp(prefix="repro-torch-ssm-")
+    try:
+        for arch, layers in c["layers"].items():
+            free_card()
+            cfg = get_config(arch).replace(n_layers=layers)
+            hist, calls, dims, nparams, init_s, peak, ms = train_steps(
+                TT, TA, cfg, c, dev, ckpt_root)
+            out[arch] = {"layers": layers, "batch": c["batch"],
+                         "seq": c["seq"], "dtype": cfg.dtype,
+                         "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+                         "params": nparams, "init_s": init_s,
+                         "losses": [h["loss"] for h in hist],
+                         "grad_norms": [h["grad_norm"] for h in hist],
+                         "flash_calls": calls, "ms_per_step": ms,
+                         "first_step_s": hist[0]["step_time_s"],
+                         "tokens_per_s": c["batch"] * c["seq"] / (ms / 1e3),
+                         "peak_gib": peak}
+            print(f"[ssm] {arch} train {json.dumps(out[arch])}")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    return out
+
+
+def ssm_kernel_entries(kernels, ssm):
+    """Add the [ssm] phase to the two decode entries of the kernels line:
+    launches_ssm_phase (zamba2's blockspace Servers, musicgen's and
+    internvl2's blockspace decodes; no paged launch lies on the phase)
+    and an object per new head shape (device times, plain version,
+    bound, error)."""
+    entry_of = {"flash_attention_decode": "flash_attention",
+                "paged_flash_attention": "paged_flash_attention"}
+    for entry in kernels:
+        if entry["name"] not in entry_of:
+            continue
+        entry["launches_ssm_phase"] = ssm["decode_launches"][entry["name"]]
+        for key, arch in (("zamba2_2_7b", "zamba2"),
+                          ("musicgen_large", "musicgen-large"),
+                          ("internvl2_26b", "internvl2-26b")):
+            row = ssm[arch]["decode"][entry_of[entry["name"]]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       row["max_abs_err"])
+            entry[key] = {**device_times(row), **{k: row[k] for k in (
+                "plain_ms", "bound_ms", "bound_by", "max_abs_err", "at")}}
+
+
+def phase_ssm(S, TM, TT, TA, TS, FA, P, get_config, dev):
+    """The SSM, hybrid and embedding-input stacks on the card (see the
+    module docstring, phase 18); the decode launches of the phase's
+    counted runs are returned under "decode_launches", each part's peak
+    memory under its own key."""
+    t0 = time.perf_counter()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    scans = ssm_scans(TS, dev)
+    scans["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    falcon = ssm_falcon(S, TM, FA, get_config, dev)
+    zamba = ssm_zamba(S, TM, TA, FA, P, get_config, dev)
+    emb = {arch: ssm_embeddings(TM, TA, FA, P, get_config, dev, arch)
+           for arch in SSM_EMB}
+    train = ssm_train(TT, TA, get_config, dev)
+    out = {"card": CARD, "scans": scans, "falcon-mamba": falcon,
+           "zamba2": zamba, **emb, "train": train,
+           "decode_launches": {
+               "flash_attention_decode": sum(
+                   zamba["serve"]["blockspace"]["launches"])
+               + sum(e["blockspace"]["launches"] for e in emb.values()),
+               "paged_flash_attention": 0},
+           "seconds": time.perf_counter() - t0}
+    med = {key: statistics.median(runs) for key, runs in (
+        ("falcon", falcon["serve"]["runs"]["ms_per_decode_step"]),
+        ("zamba2", zamba["serve"]["blockspace"]["ms_per_decode_step"]),
+        ("zamba2 xla", zamba["serve"]["xla"]["ms_per_decode_step"]))}
+    idle = {k: v["serve"]["decode_step_profile"]["idle_share"]
+            for k, v in (("falcon", falcon), ("zamba2", zamba))}
+    print(f"[ssm] ms per decode step: falcon-mamba-7b ({falcon['layers']} "
+          f"layers, B {SSM_FALCON['batch']}) {med['falcon']:.2f} (idle share "
+          f"{idle['falcon']}), zamba2-2.7b ({zamba['layers']} layers, B "
+          f"{SSM_ZAMBA['batch']}) {med['zamba2']:.2f} (xla "
+          f"{med['zamba2 xla']:.2f}, idle share {idle['zamba2']}); "
+          + ", ".join(f"{a} {e['blockspace']['ms_per_decode_step']:.2f}"
+                      for a, e in emb.items())
+          + "; train ms/step "
+          + ", ".join(f"{a} {t['ms_per_step']:.1f}" for a, t in
+                      train.items())
+          + f"; phase {out['seconds']:.1f} s ({CARD})")
+    return out
+
+
 def timings(node, path=""):
     """{path: [values]} of every time in a chip_smoke.json tree (a list
     of times under one key, as the serving runs keep them, stays one
@@ -3846,6 +4299,7 @@ def main():
     from repro_torch.launch import train as TT
     from repro_torch.models import attention as TA
     from repro_torch.models import model as TM
+    from repro_torch.models import ssm as TS
     from repro_torch.runtime import chaos as RC
     TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
     TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
@@ -3887,6 +4341,15 @@ def main():
         print(f"[families-only] the families phase ran; no result "
               f"{json.dumps(PHASE_S)}")
         return
+    if "--ssm-only" in sys.argv[1:]:
+        ssm = timed("ssm", phase_ssm, S, TM, TT, TA, TS, FA, P, get_config,
+                    dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "ssm": ssm}, indent=1))
+        print(f"[ssm-only] the ssm phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
     errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
     merge_err(errs, timed("parity_compact", phase_parity_compact, TW, F,
                           LOWERINGS, compact_layout, dev))
@@ -3924,6 +4387,7 @@ def main():
     train = timed("train", phase_train, S, TT, TA, FA, get_config, dev)
     families = timed("families", phase_families, S, TM, TT, TA, FA, P,
                      get_config, dev)
+    ssm = timed("ssm", phase_ssm, S, TM, TT, TA, TS, FA, P, get_config, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -4144,6 +4608,7 @@ def main():
             entry["launches_train_phase"] = train["quickstart"][
                 "serve_launches"]["flash_attention_decode"]
     families_kernel_entries(kernels, families)
+    ssm_kernel_entries(kernels, ssm)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4157,7 +4622,7 @@ def main():
         "serve": serve_runs,
         "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "train": train,
-        "families": families, "kernels": kernels,
+        "families": families, "ssm": ssm, "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[phases] host seconds: {json.dumps(PHASE_S)}")

@@ -4,11 +4,15 @@
     Fixed-batch serving: prefill (all prompts at once, so an MoE
     layer's capacity follows batch x prompt length, as in the JAX
     package), then one decode step per generated token over the
-    contiguous caches ((K, V), or MLA's compressed pair), with EOS-aware
-    slot masking.  With ``cfg.attn_decode_kernel == "blockspace"`` every
-    GQA decode attention runs the block-space flash kernel (``seq_pos``
-    truncation); with ``"xla"`` the plain masked decode.  MLA's absorbed
-    decode runs no kernel under either.
+    contiguous caches ((K, V), MLA's compressed pair, a Mamba layer's
+    (ssm_state, conv_state), zamba2's shared block's (K, V)), with
+    EOS-aware slot masking.  With ``cfg.attn_decode_kernel ==
+    "blockspace"`` every GQA decode attention (the shared block's too)
+    runs the block-space flash kernel (``seq_pos`` truncation); with
+    ``"xla"`` the plain masked decode.  MLA's absorbed decode and the
+    Mamba recurrences run no kernel under either.  Prompts are tokens:
+    an embedding-input configuration is refused, as the JAX package's
+    Server takes token prompts only.
 
 ``PagedServer``
     Continuous batching over the paged KV pool (GQA stacks, dense or
@@ -131,6 +135,17 @@ def _unported(mesh=None) -> None:
             "serving on a mesh is not ported yet (ROADMAP A12)")
 
 
+def _check_tokens(cfg: ModelConfig) -> None:
+    """Both servers take token prompts (and sample tokens to feed back),
+    as in the JAX package: refuse an embedding-input configuration
+    before anything runs."""
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"serving takes token prompts; {cfg.name} has input_mode "
+            f"{cfg.input_mode!r} (call prefill / decode_step with "
+            f"embeddings directly)")
+
+
 def _build_kernels(device) -> None:
     """On the card, build the kernel libraries the servers launch (the
     attention kernels of prefill and decode, and the write kernel of the
@@ -247,6 +262,7 @@ class Server(_GuardedServing):
     def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig,
                  mesh=None, chaos=None):
         _unported(mesh)
+        _check_tokens(cfg)
         self.cfg, self.model, self.scfg, self.mesh = cfg, model, scfg, mesh
         self._ckpt = None
         if scfg.ckpt_dir:
@@ -383,9 +399,9 @@ class Server(_GuardedServing):
     def resume(self) -> np.ndarray:
         """Resume a drained/preempted generation from the decode-state
         checkpoint (either package's): replay the saved tokens through
-        prefill + decode to rebuild the KV cache (feeding the *saved*
-        token at each replayed position -- no re-sampling, no drift),
-        then keep sampling with the same (seed, slot, position) keys.
+        prefill + decode to rebuild the caches (KV and SSM states;
+        feeding the *saved* token at each replayed position -- no
+        re-sampling, no drift), then keep sampling with the same (seed, slot, position) keys.
         The full returned stream is bit-identical to an uninterrupted
         run."""
         if self._ckpt is None:
@@ -475,6 +491,7 @@ class PagedServer(_GuardedServing):
     def __init__(self, cfg: ModelConfig, model, scfg: PagedServeConfig,
                  chaos=None):
         model_lib._check_paged(cfg)
+        _check_tokens(cfg)
         self.cfg, self.model, self.scfg = cfg, model, scfg
         self.mesh = None
         self.stats_history: list = []

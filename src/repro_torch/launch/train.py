@@ -136,7 +136,6 @@ class Trainer:
             raise NotImplementedError(
                 "training on a mesh (mesh=, fsdp, seq_shard_acts) is not "
                 "ported yet (ROADMAP A12)")
-        model_lib.check_ported(cfg)
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = None

@@ -1,6 +1,7 @@
-"""The LM stacks of the port (GQA or MLA attention, dense or MoE FFNs):
-config, layers, the MLA and MoE blocks, model assembly (the training
-loss and the serving entry points) and the JAX parameter conversion."""
+"""The LM stacks of the port (GQA, MLA or Mamba mixers, dense or MoE
+FFNs, zamba2's shared block, token or embedding inputs): config, layers,
+the MLA, MoE and SSM blocks, model assembly (the training loss and the
+serving entry points) and the JAX parameter conversion."""
 from .config import ModelConfig
 from .mla import MLA, mla_block, mla_decode
 from .model import (Model, decode_step, decode_step_paged, forward, init,

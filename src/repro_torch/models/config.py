@@ -5,9 +5,8 @@ embedding-input (audio/vlm backbone) variants.
 
 The JAX package's ``ModelConfig``, whole, with torch dtypes
 (:meth:`ModelConfig.tdtype`, :meth:`ModelConfig.tparam_dtype`) in place
-of its jnp ones.  The port's model stack runs the attention families
-(GQA or MLA, dense or MoE FFNs) so far; the other fields are kept so
-configurations carry over unchanged.
+of its jnp ones.  The port's model stack runs every family the fields
+describe.
 """
 from __future__ import annotations
 

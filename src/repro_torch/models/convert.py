@@ -5,7 +5,12 @@ layers sit under ``prefix_i`` or, stacked along a leading group axis,
 under ``blocks/slot_s`` (layer ``prefix + g * period + s`` is row ``g``
 of slot ``s``).  :func:`params_from_jax` unstacks the groups into the
 port's per-layer modules; :func:`params_to_jax` rebuilds the JAX layout
-(the round trip is exact).  Gradients and the optimizer's moments,
+(the round trip is exact).  Names match the JAX tree's leaves, so the
+Mamba mixers (``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``,
+``dt_proj``, ``dt_bias``, ``A_log``, ``D``, ``norm_scale``,
+``out_proj``), zamba2's unstacked ``shared_attn`` subtree and an
+embedding-input stack's missing ``embed`` carry across as they are.
+Gradients and the optimizer's moments,
 dicts keyed by the port's parameter names, cross the same way
 (:func:`tree_to_jax`, :func:`fill_from_jax`), and :func:`jax_paths`
 gives each parameter's JAX path for AdamW's decay mask.  Arrays cross as

@@ -1,14 +1,16 @@
-"""Model assembly for the attention LM stacks (GQA or MLA mixers, dense
-or MoE FFNs): embeddings -> layers -> head, and the serving entry
+"""Model assembly of the LM stacks: GQA, MLA, Mamba-1 or Mamba-2 mixers,
+dense or MoE FFNs, zamba2's weight-shared attention block, token or
+embedding inputs: embeddings -> layers -> head, and the serving entry
 points.
 
 The JAX package groups layers by signature and runs ``lax.scan`` over
 stacked parameters; here the layers are an ``nn.ModuleList`` walked by
-a Python loop, so a layer's cache is one pair per layer: (K, V) of a GQA
-layer, (c_kv, k_rope) of an MLA layer (or one paged pool).  Layer ``i``
-of the list is the JAX package's layer ``i`` (``prefix_i``, or slot
-``s`` of group ``g`` in ``blocks`` with ``i = prefix + g * period +
-s``).
+a Python loop, so a layer's cache is one tuple per layer: (K, V) of a
+GQA layer, (c_kv, k_rope) of an MLA layer, (ssm_state, conv_state) of
+a Mamba layer (or one paged pool), followed by the shared block's (K,
+V) on a layer that applies it (:func:`init_cache`).  Layer ``i`` of the
+list is the JAX package's layer ``i`` (``prefix_i``, or slot ``s`` of
+group ``g`` in ``blocks`` with ``i = prefix + g * period + s``).
 
 Entry points:
   * ``forward`` / ``logits_fn`` -- full-sequence forward (grad-enabled,
@@ -24,8 +26,9 @@ Entry points:
     ``decode_step_paged`` -- the paged KV pool of continuous batching
                        (GQA stacks; MoE FFNs run over every slot)
 
-SSM mixers, shared-attention blocks and embedding inputs are not ported
-yet (ROADMAP A11).
+Embedding-input stacks (``input_mode="embeddings"``) take (B, S, D) and
+(B, 1, D) inputs, cast to the compute dtype, and have no embedding
+table, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from repro_torch.core.backend import default_device
 from . import layers as L
 from . import mla as mla_lib
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .config import ModelConfig
 
 
@@ -82,27 +86,17 @@ def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     return prefix, period, rest // period
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer is an attention (GQA
-    or MLA) layer with a dense or MoE FFN, fed tokens (the stacks this
-    port runs)."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode {cfg.input_mode!r} is not ported yet (ROADMAP "
-            f"A11)")
-    for i in range(cfg.n_layers):
-        mixer, _, ffn, shared = layer_sig(cfg, i)
-        if mixer not in ("attn", "mla") or shared:
-            raise NotImplementedError(
-                f"layer {i} ({mixer}, ffn {ffn}"
-                + (", shared block" if shared else "")
-                + ") is not ported yet: SSM mixers and shared blocks "
-                  "come with ROADMAP A11")
-
-
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
+
+#: the mixer module of each ``layer_sig`` mixer kind
+MIXERS = {"attn": L.Attention, "mla": mla_lib.MLA,
+          "mamba1": ssm_lib.Mamba1, "mamba2": ssm_lib.Mamba2}
+#: a Mamba mixer kind -> (its prefill block, its decode step)
+SSM_BLOCKS = {"mamba1": (ssm_lib.mamba1_block, ssm_lib.mamba1_decode),
+              "mamba2": (ssm_lib.mamba2_block, ssm_lib.mamba2_decode)}
+
 
 class Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, i: int, device=None):
@@ -110,35 +104,54 @@ class Layer(nn.Module):
         mixer, _, ffn, _ = layer_sig(cfg, i)
         dt = cfg.tparam_dtype()
         self.norm1 = L.RMSNorm(cfg.d_model, dt, device)
-        self.mixer = (mla_lib.MLA(cfg, device) if mixer == "mla"
-                      else L.Attention(cfg, device))
+        self.mixer = MIXERS[mixer](cfg, device)
         if ffn != "none":
             self.norm2 = L.RMSNorm(cfg.d_model, dt, device)
             self.ffn = (moe_lib.MoE(cfg, device) if ffn == "moe"
                         else L.MLP(cfg.d_model, cfg.d_ff, dt, device))
 
 
+class SharedAttn(nn.Module):
+    """zamba2's weight-shared attention + MLP block (the JAX package's
+    ``shared_attn_init``: one block, the hidden state concatenated with
+    the embedding output through ``in_proj`` (2 D, D), no LoRA
+    adapters)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt = cfg.tparam_dtype()
+        self.in_proj = L._param((2 * cfg.d_model, cfg.d_model), dt, device)
+        self.norm1 = L.RMSNorm(cfg.d_model, dt, device)
+        self.attn = L.Attention(cfg, device)
+        self.norm2 = L.RMSNorm(cfg.d_model, dt, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
 class Model(nn.Module):
     """Parameters of the LM; ``cfg`` rides along.  Built empty on
     ``device`` (the card unless the caller names another; raises without
     one): fill it with :func:`init` or
-    :func:`repro_torch.models.convert.params_from_jax`."""
+    :func:`repro_torch.models.convert.params_from_jax`.  An
+    embedding-input stack has no ``embed``; a hybrid one has one
+    ``shared_attn``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         device = default_device(device)
         self.cfg = cfg
         dt = cfg.tparam_dtype()
-        self.embed = L.Embed(cfg.padded_vocab, cfg.d_model, dt, device)
+        if cfg.input_mode == "tokens":
+            self.embed = L.Embed(cfg.padded_vocab, cfg.d_model, dt, device)
         self.layers = nn.ModuleList(Layer(cfg, i, device)
                                     for i in range(cfg.n_layers))
+        if cfg.hybrid_attn_period:
+            self.shared_attn = SharedAttn(cfg, device)
         self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
         self.lm_head = L.LMHead(cfg.d_model, cfg.padded_vocab, dt, device)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return self.final_norm.scale.device
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
@@ -150,19 +163,27 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
     draw of llama4's (128, 5120, 8192) experts would take 21.5 GB).  The
     numbers differ from ``jax.random``'s."""
     model = Model(cfg, device)
-    L._normal_(model.embed.table, generator, 0.01)
+    if hasattr(model, "embed"):
+        L._normal_(model.embed.table, generator, 0.01)
+    mixer_init = {L.Attention: L.init_attention, mla_lib.MLA:
+                  mla_lib.init_mla, ssm_lib.Mamba1: ssm_lib.init_mamba1,
+                  ssm_lib.Mamba2: ssm_lib.init_mamba2}
     for layer in model.layers:
         layer.norm1.scale.data.fill_(1.0)
-        if isinstance(layer.mixer, mla_lib.MLA):
-            mla_lib.init_mla(layer.mixer, generator)
-        else:
-            L.init_attention(layer.mixer, generator)
+        mixer_init[type(layer.mixer)](layer.mixer, generator)
         if hasattr(layer, "ffn"):
             layer.norm2.scale.data.fill_(1.0)
             if isinstance(layer.ffn, moe_lib.MoE):
                 moe_lib.init_moe(layer.ffn, generator)
             else:
                 L.init_mlp(layer.ffn, generator)
+    if hasattr(model, "shared_attn"):
+        sa = model.shared_attn
+        L._normal_(sa.in_proj, generator, 1.0 / math.sqrt(2 * cfg.d_model))
+        sa.norm1.scale.data.fill_(1.0)
+        L.init_attention(sa.attn, generator)
+        sa.norm2.scale.data.fill_(1.0)
+        L.init_mlp(sa.mlp, generator)
     model.final_norm.scale.data.fill_(1.0)
     L._normal_(model.lm_head.w, generator, 1.0 / math.sqrt(cfg.d_model))
     return model
@@ -173,7 +194,9 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(model: Model, inputs, cfg):
-    return L.embed(model.embed, inputs, cfg.tdtype())
+    if cfg.input_mode == "tokens":
+        return L.embed(model.embed, inputs, cfg.tdtype())
+    return inputs.to(cfg.tdtype())
 
 
 def _ffn(layer: Layer, h, cfg):
@@ -188,6 +211,23 @@ def _ffn(layer: Layer, h, cfg):
     return h + L.mlp(layer.ffn, hn), None
 
 
+def _shared_block(sa: SharedAttn, h, h0, cfg, positions=None, cache=None,
+                  pos=None):
+    """The weight-shared block on the residual ``h`` and the embedding
+    output ``h0``: over the full sequence (``positions``) or, given its
+    ``cache`` (K, V), one decode step at ``pos`` (K/V written there in
+    place, as a GQA layer's).  Returns (h, its (K, V))."""
+    u = torch.cat([h, h0], dim=-1) @ sa.in_proj.to(h.dtype)
+    un = L.rmsnorm(sa.norm1, u, cfg.norm_eps)
+    if cache is None:
+        a, kv = L.attn_block_prefill(sa.attn, un, cfg, "global", positions)
+    else:
+        a, kv = L.attn_block_decode(sa.attn, un, cfg, "global", cache, pos)
+    u = u + a
+    u = u + L.mlp(sa.mlp, L.rmsnorm(sa.norm2, u, cfg.norm_eps))
+    return h + u, kv
+
+
 def _pad_seq(x, axis, max_len):
     if max_len is None or x.shape[axis] >= max_len:
         return x
@@ -196,30 +236,41 @@ def _pad_seq(x, axis, max_len):
 
 
 def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
-            caches=None, max_len=None):
-    """Layers ``lo`` .. ``hi - 1`` over the full sequence; returns (h,
-    aux summed over their MoE layers, f32).  With a ``caches`` list each
-    layer's cache pair, padded along its sequence axis to ``max_len``,
-    is appended to it (serving's prefill); without one none are kept
-    (the training forward)."""
+            caches=None, max_len=None, h0=None):
+    """Layers ``lo`` .. ``hi - 1`` over the full sequence (``h0``: the
+    embedding output, which the shared block reads); returns (h, aux
+    summed over their MoE layers, f32).  With a ``caches`` list each
+    layer's cache tuple (:func:`init_cache`'s layout; the attention
+    pairs padded along their sequence axis to ``max_len``, the SSM
+    states as they are) is appended to it (serving's prefill); without
+    one none are kept (the training forward)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(lo, hi):
         layer = model.layers[i]
-        mixer, akind, _, _ = layer_sig(cfg, i)
+        mixer, akind, _, shared = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
-        if mixer == "mla":
+        if mixer in SSM_BLOCKS:
+            block = SSM_BLOCKS[mixer][0]
+            if caches is None:
+                out, cache = block(layer.mixer, hn, cfg), ()
+            else:
+                out, cache = block(layer.mixer, hn, cfg, return_cache=True)
+        elif mixer == "mla":
             out, cache = mla_lib.mla_block(layer.mixer, hn, cfg, positions,
                                            return_cache=True)
-            axis = 1
+            cache = tuple(_pad_seq(t, 1, max_len) for t in cache)
         else:
             out, cache = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
                                               positions)
-            axis = 2
-        if caches is not None:
-            caches.append(tuple(_pad_seq(t, axis, max_len) for t in cache))
+            cache = tuple(_pad_seq(t, 2, max_len) for t in cache)
         h, a = _ffn(layer, h + out, cfg)
         if a is not None:
             aux = aux + a
+        if shared:
+            h, kv = _shared_block(model.shared_attn, h, h0, cfg, positions)
+            cache = cache + tuple(_pad_seq(t, 2, max_len) for t in kv)
+        if caches is not None:
+            caches.append(cache)
     return h, aux
 
 
@@ -231,7 +282,7 @@ def _run(model: Model, inputs, max_len=None, cfg=None):
     positions = torch.arange(h.shape[1], device=h.device)
     caches = []
     h, _ = _layers(model, h, cfg, positions, 0, cfg.n_layers, caches,
-                   max_len)
+                   max_len, h)
     return L.rmsnorm(model.final_norm, h, cfg.norm_eps), caches
 
 
@@ -245,18 +296,19 @@ def forward(model: Model, inputs, cfg: ModelConfig | None = None):
     the execution knobs (attention schedule, remat), not the shapes."""
     cfg = cfg or model.cfg
     prefix, period, n_groups = group_layout(cfg)
-    h = _embed_inputs(model, inputs, cfg)
+    h0 = h = _embed_inputs(model, inputs, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, aux = _layers(model, h, cfg, positions, 0, prefix)
+    h, aux = _layers(model, h, cfg, positions, 0, prefix, h0=h0)
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(n_groups):
         lo = prefix + g * period
         if remat:
             h, a = checkpoint(_layers, model, h, cfg, positions, lo,
-                              lo + period, use_reentrant=False,
-                              preserve_rng_state=False)
+                              lo + period, None, None, h0,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            h, a = _layers(model, h, cfg, positions, lo, lo + period)
+            h, a = _layers(model, h, cfg, positions, lo, lo + period,
+                           h0=h0)
         aux = aux + a
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return h, aux
@@ -281,8 +333,8 @@ def _chunk_ce(h, w, labels):
 
 
 def loss_fn(model: Model, batch, cfg: ModelConfig | None = None):
-    """batch: {"inputs": (B,S) tokens, "labels": (B,S)}, tensors on the
-    model's device.  Returns (total, {"loss", "aux_loss", "tokens"}).
+    """batch: {"inputs": (B,S) | (B,S,D), "labels": (B,S)}, tensors on
+    the model's device.  Returns (total, {"loss", "aux_loss", "tokens"}).
 
     With ``cfg.logit_chunk`` dividing S the head and the cross-entropy
     run per chunk of that many positions (the JAX package's
@@ -317,22 +369,39 @@ def loss_fn(model: Model, batch, cfg: ModelConfig | None = None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Zero caches, one pair per layer, on ``device`` (the card unless
-    the caller names another): (K, V) each (B, Hkv, max_len, hd) of a
-    GQA layer, (c_kv (B, max_len, kv_lora_rank), k_rope (B, max_len,
-    qk_rope_dim)) of an MLA layer."""
-    check_ported(cfg)
+               device=None) -> List[Tuple[torch.Tensor, ...]]:
+    """Zero caches, one tuple per layer, on ``device`` (the card unless
+    the caller names another): the mixer's pair -- (K, V) each (B, Hkv,
+    max_len, hd) of a GQA layer; (c_kv (B, max_len, kv_lora_rank),
+    k_rope (B, max_len, qk_rope_dim)) of an MLA layer; (ssm_state f32,
+    conv_state (B, K-1, C)) of a Mamba layer, the state (B, d_inner, N)
+    under Mamba-1 and (B, heads, N, head_dim) under Mamba-2, C d_inner
+    or d_inner + 2 N, neither padded to ``max_len`` -- then, on a layer
+    that applies zamba2's shared block, that block's (K, V), as a GQA
+    layer's.  Caches are in the compute dtype but for the SSM states."""
     device = default_device(device)
+    dt = cfg.tdtype()
+    kv = ((batch, cfg.n_kv_heads, max_len, cfg.hd),) * 2
     out = []
     for i in range(cfg.n_layers):
-        if layer_sig(cfg, i)[0] == "mla":
+        mixer, _, _, shared = layer_sig(cfg, i)
+        if mixer == "mamba1":
+            shapes = ((batch, cfg.d_inner, cfg.d_state),
+                      (batch, cfg.conv_kernel - 1, cfg.d_inner))
+        elif mixer == "mamba2":
+            shapes = ((batch, cfg.ssd_heads, cfg.d_state, cfg.ssd_head_dim),
+                      (batch, cfg.conv_kernel - 1,
+                       cfg.d_inner + 2 * cfg.d_state))
+        elif mixer == "mla":
             shapes = ((batch, max_len, cfg.kv_lora_rank),
                       (batch, max_len, cfg.qk_rope_dim))
         else:
-            shapes = ((batch, cfg.n_kv_heads, max_len, cfg.hd),) * 2
-        out.append(tuple(torch.zeros(s, dtype=cfg.tdtype(), device=device)
-                         for s in shapes))
+            shapes = kv
+        dts = ((torch.float32, dt) if mixer in SSM_BLOCKS else (dt, dt))
+        if shared:
+            shapes, dts = shapes + kv, dts + (dt, dt)
+        out.append(tuple(torch.zeros(s, dtype=d, device=device)
+                         for s, d in zip(shapes, dts)))
     return out
 
 
@@ -348,23 +417,34 @@ def prefill(model: Model, inputs, max_len: int | None = None,
 @torch.no_grad()
 def decode_step(model: Model, inputs, cache, pos,
                 cfg: ModelConfig | None = None):
-    """One token for the whole batch.  inputs: (B,1) tokens; pos: the
-    current position (int).  The caches are written in place.  Returns
+    """One token for the whole batch.  inputs: (B,1) tokens or (B,1,D)
+    embeddings; pos: the current position (int).  The attention caches
+    (GQA, MLA, the shared block's) are written at ``pos`` in place; the
+    SSM states come back as new tensors, the ones passed in untouched,
+    so a step rerun on the same cache gives the same result.  Returns
     (logits (B,1,V), cache)."""
     cfg = cfg or model.cfg
     pos = int(pos)
-    h = _embed_inputs(model, inputs, cfg)
+    h0 = h = _embed_inputs(model, inputs, cfg)
     new_cache = []
     for i, layer in enumerate(model.layers):
-        mixer, akind, _, _ = layer_sig(cfg, i)
+        mixer, akind, _, shared = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
-        if mixer == "mla":
-            out, c = mla_lib.mla_decode(layer.mixer, hn, cfg, cache[i], pos)
+        if mixer in SSM_BLOCKS:
+            out, c = SSM_BLOCKS[mixer][1](layer.mixer, hn, cfg,
+                                          cache[i][:2])
+        elif mixer == "mla":
+            out, c = mla_lib.mla_decode(layer.mixer, hn, cfg, cache[i][:2],
+                                        pos)
         else:
             out, c = L.attn_block_decode(layer.mixer, hn, cfg, akind,
-                                         cache[i], pos)
-        new_cache.append(c)
+                                         cache[i][:2], pos)
         h, _ = _ffn(layer, h + out, cfg)
+        if shared:
+            h, kv = _shared_block(model.shared_attn, h, h0, cfg,
+                                  cache=cache[i][2:], pos=pos)
+            c = tuple(c) + tuple(kv)
+        new_cache.append(tuple(c))
     h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
     return L.lm_head(model.lm_head, h), new_cache
 

@@ -293,7 +293,9 @@ def test_flash_kernel_compact_kv_and_decode(dev, grid_mode):
     (16, 64, torch.float32, (8, 4)), (128, 256, torch.bfloat16, (8, 4)),
     (64, 128, torch.float32, (8, 4)),
     # llama4-maverick's heads: a group of 5 in a chunk of kMaxGroup 8
-    (16, 128, torch.bfloat16, (40, 8))])
+    (16, 128, torch.bfloat16, (40, 8)),
+    # internvl2-26b's: a group of 6
+    (16, 128, torch.bfloat16, (48, 8))])
 @pytest.mark.parametrize("window", [0, 100])
 def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, heads,
                                               window):
@@ -322,10 +324,15 @@ def test_paged_kernel_bit_equal_to_contiguous(dev, ps, d, dtype, heads,
 
 #: decode cases (heads (H, Hkv), d, dtype): MHA, GQA 16/8 and 4/2, MQA
 #: 8/1, a group of 16 q heads (two head chunks), llama4-maverick's 40/8
-#: (a group of 5: 5 of a chunk's 8 rows), and head dims whose rows are
-#: not whole 16-byte pieces (element loads)
+#: (a group of 5: 5 of a chunk's 8 rows), the decode heads of the
+#: hybrid and embedding-input stacks -- zamba2-2.7b's shared block 32/32
+#: x 80, musicgen-large's 32/32 x 64, internvl2-26b's 48/8 x 128 (a
+#: group of 6) -- and head dims whose rows are not whole 16-byte pieces
+#: (element loads)
 DECODE_CASES = [((4, 4), 64, torch.float32), ((16, 8), 256, torch.bfloat16),
                 ((40, 8), 128, torch.bfloat16),
+                ((32, 32), 80, torch.bfloat16), ((32, 32), 64, torch.bfloat16),
+                ((48, 8), 128, torch.bfloat16),
                 ((16, 8), 256, torch.float32), ((4, 2), 128, torch.bfloat16),
                 ((8, 1), 64, torch.bfloat16), ((8, 1), 256, torch.float32),
                 ((16, 1), 32, torch.float32), ((6, 2), 36, torch.bfloat16),

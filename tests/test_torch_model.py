@@ -6,7 +6,12 @@ stacks (deepseek-v2-236b with MLA and a dense first layer,
 llama4-maverick-400b-a17b with GQA and MoE every 2nd layer) the same way
 with their aux losses, MLA caches and the absorbed decode, and llama4's
 paged decode (deepseek-v2's MLA stack refuses paged serving, as in the
-JAX package).
+JAX package); the SSM, hybrid and embedding-input stacks (falcon-mamba-7b,
+zamba2-2.7b, musicgen-large, internvl2-26b) through forward, prefill
+(caches in the JAX layout) and 16 decode steps against the JAX package
+and against the port's own prefill of the extended sequence, decode steps
+that rerun bit-equal on the same cache, and their refusal of paged
+serving.
 
 LOGIT_TOL: f32 matmuls and reductions summed in another order, a few
 layers deep; the largest difference seen is ~5e-6 on logits of
@@ -152,15 +157,14 @@ def test_configs_and_init_match_jax():
             assert {f: getattr(t, f) for f in t.__dataclass_fields__} == \
                 {f: getattr(j, f) for f in j.__dataclass_fields__}
             assert t.param_count() == j.param_count()
-    with pytest.raises(KeyError, match="A11"):
-        get_config("falcon-mamba-7b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-2")
     cfg = get_config("quickstart", smoke=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TM.Model(cfg.replace(ssm_kind="mamba1"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        TM.Model(cfg.replace(input_mode="embeddings"))
+    # every mixer and input mode of the JAX package builds
+    assert isinstance(TM.Model(cfg.replace(ssm_kind="mamba1"), "cpu")
+                      .layers[0].mixer, TM.ssm_lib.Mamba1)
+    assert not hasattr(TM.Model(cfg.replace(input_mode="embeddings"),
+                                "cpu"), "embed")
     # init: the JAX package's shapes and scales, from a torch generator
     model = init(cfg, torch.Generator().manual_seed(0), "cpu")
     jp = jax.eval_shape(lambda: JM.init(jax.random.PRNGKey(0),
@@ -202,9 +206,9 @@ def test_builders_default_to_the_card(monkeypatch, make):
 FAMILIES = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
 J_LOGITS = jax.jit(JM.logits_fn, static_argnums=(2,))
 J_PREFILL = jax.jit(JM.prefill, static_argnums=(2, 3))
-#: not ported yet: the SSM, hybrid and embedding-input stacks
-UNPORTED = ["falcon-mamba-7b", "zamba2-2.7b", "musicgen-large",
-            "internvl2-26b"]
+#: the SSM, hybrid and embedding-input stacks
+SSM_ARCHS = ["falcon-mamba-7b", "zamba2-2.7b", "musicgen-large",
+             "internvl2-26b"]
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
@@ -220,8 +224,14 @@ def families(request):
 
 
 def test_family_configs_match_jax_and_the_rest_refuse():
+    """Every configuration of the JAX package is registered, equal field
+    for field; none refuses (the last four came with the SSM, hybrid and
+    embedding-input stacks)."""
+    from repro.configs import _MODULES as J_MODULES
     from repro.configs import get_config as j_get_config
-    for arch in FAMILIES:
+    from repro_torch.configs import _MODULES
+    assert sorted(_MODULES) == sorted(J_MODULES)
+    for arch in FAMILIES + SSM_ARCHS:
         for smoke in (True, False):
             t = get_config(arch, smoke=smoke)
             j = j_get_config(arch, smoke=smoke)
@@ -229,9 +239,6 @@ def test_family_configs_match_jax_and_the_rest_refuse():
                 {f: getattr(j, f) for f in j.__dataclass_fields__}
             assert t.param_count() == j.param_count()
             assert t.active_param_count() == j.active_param_count()
-    for arch in UNPORTED:
-        with pytest.raises(KeyError, match="A11"):
-            get_config(arch)
 
 
 def test_family_forward_prefill_and_decode_match_jax(families):
@@ -305,3 +312,132 @@ def test_family_paged_decode_step_matches_jax(families):
     for i, pool in enumerate(tpools):
         _close(pool[1:], jpools["blocks"][f"slot_{i % period}"]["mixer"][
             i // period][1:])
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and embedding-input stacks
+# ---------------------------------------------------------------------------
+
+#: the JAX package's decode step (plain decode attention) compiled once
+#: per config; the port's runs its block-space decode where attention
+#: lies (the path chip_smoke.py serves), so the two plain decodes are
+#: held to each other
+SSM_PREFILL, SSM_STEPS = 16, 16
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_stacks(request):
+    """The port's seeded init carried across to the JAX package, inputs
+    of SSM_PREFILL + SSM_STEPS positions (tokens, or normal embeddings)
+    and the JAX package's forward logits, prefill (logits, caches) and
+    decode logits and caches: (jax cfg, jax params, torch cfg, torch
+    model, inputs, reference)."""
+    from repro.configs import get_config as j_get_config
+    arch = request.param
+    jcfg, tcfg = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    tm = init(tcfg, torch.Generator().manual_seed(0), "cpu")
+    jp = jax.tree.map(lambda a: jnp.asarray(np.array(a)), params_to_jax(tm))
+    n = SSM_PREFILL + SSM_STEPS
+    rng = np.random.default_rng(5)
+    x = (rng.integers(0, tcfg.vocab_size, (2, n))
+         if tcfg.input_mode == "tokens"
+         else rng.normal(size=(2, n, tcfg.d_model)).astype(np.float32))
+    logits, _ = J_LOGITS(jp, jnp.asarray(x), jcfg)
+    plog, cache = J_PREFILL(jp, jnp.asarray(x[:, :SSM_PREFILL]), jcfg, n)
+    steps = []
+    for j in range(SSM_STEPS):
+        pos = SSM_PREFILL + j
+        lg, cache = J_DECODE_STEP(jp, jnp.asarray(x[:, pos:pos + 1]), cache,
+                                  jnp.asarray(pos, jnp.int32), jcfg)
+        steps.append(np.asarray(lg))
+    ref = {"logits": np.asarray(logits), "prefill": np.asarray(plog),
+           "cache": J_PREFILL(jp, jnp.asarray(x[:, :SSM_PREFILL]), jcfg,
+                              n)[1],
+           "steps": steps, "final_cache": cache}
+    return jcfg, jp, tcfg.replace(attn_decode_kernel="blockspace"), tm, x, \
+        ref
+
+
+def _jax_layer_cache(jcache, cfg, i):
+    """Layer ``i``'s cache in the JAX layout, as the port's tuple."""
+    prefix, period, _ = JM.group_layout(cfg)
+    node = (jcache[f"prefix_{i}"] if i < prefix else jax.tree.map(
+        lambda a: a[(i - prefix) // period],
+        jcache["blocks"][f"slot_{(i - prefix) % period}"]))
+    return tuple(node["mixer"]) + tuple(node.get("shared", ()))
+
+
+def test_ssm_conversion_round_trip_and_init(ssm_stacks):
+    jcfg, _, tcfg, tm, _, _ = ssm_stacks
+    tree = params_to_jax(tm)
+    want = jax.eval_shape(lambda: JM.init(jax.random.PRNGKey(0), jcfg))
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    assert jax.tree.map(lambda a: tuple(a.shape), tree) == \
+        jax.tree.map(lambda a: tuple(a.shape), want)
+    back = params_from_jax(tree, tcfg, "cpu")
+    for (name, a), (_, b) in zip(tm.named_parameters(),
+                                 back.named_parameters()):
+        assert torch.equal(a, b), name
+    assert hasattr(tm, "embed") == (tcfg.input_mode == "tokens")
+    assert hasattr(tm, "shared_attn") == bool(tcfg.hybrid_attn_period)
+    if tcfg.ssm_kind:
+        m = tm.layers[0].mixer
+        assert torch.equal(m.D, torch.ones_like(m.D))
+        np.testing.assert_allclose(
+            float(torch.nn.functional.softplus(m.dt_bias[0])), 0.01,
+            rtol=1e-5)
+
+
+def test_ssm_forward_prefill_and_decode_match_jax(ssm_stacks):
+    jcfg, _, tcfg, tm, x, ref = ssm_stacks
+    n = SSM_PREFILL + SSM_STEPS
+    tl, aux = TM.logits_fn(tm, torch.from_numpy(x))
+    _close(tl, ref["logits"])
+    assert float(aux) == 0.0
+    tlog, tcache = TM.prefill(tm, torch.from_numpy(x[:, :SSM_PREFILL]), n,
+                              tcfg)
+    _close(tlog, ref["prefill"])
+    zeros = TM.init_cache(tcfg, 2, n, "cpu")
+    for i, (got, zero) in enumerate(zip(tcache, zeros)):
+        want = _jax_layer_cache(ref["cache"], jcfg, i)
+        assert len(got) == len(zero) == len(want)
+        for g, z, w in zip(got, zero, want):
+            assert g.shape == z.shape == w.shape and g.dtype == z.dtype
+            assert not z.any()
+            _close(g, w)
+    for j in range(SSM_STEPS):
+        pos = SSM_PREFILL + j
+        tlog, tcache = TM.decode_step(tm, torch.from_numpy(
+            x[:, pos:pos + 1]), tcache, pos, tcfg)
+        _close(tlog, ref["steps"][j])
+        # the port's own prefill of the extended sequence
+        _close(tlog[:, 0], tl[:, pos].detach().numpy())
+    for i, got in enumerate(tcache):
+        for g, w in zip(got, _jax_layer_cache(ref["final_cache"], jcfg, i)):
+            _close(g, w)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_decode_step_reruns_bit_equal(arch):
+    """A decode step run twice on one cache (a guarded retry, the
+    ladder's next rung) gives bit-equal logits and states, and leaves
+    the SSM states it was given untouched (the attention caches are
+    written at pos in place, idempotently).  Paged serving refuses the
+    stack, as in the JAX package."""
+    tcfg = get_config(arch, smoke=True).replace(
+        attn_decode_kernel="blockspace")
+    tm = init(tcfg, torch.Generator().manual_seed(1), "cpu")
+    n = SSM_PREFILL + SSM_STEPS
+    x = _tokens(tcfg, (2, n), seed=6)
+    _, cache = TM.prefill(tm, torch.from_numpy(x[:, :SSM_PREFILL]), n, tcfg)
+    before = [tuple(t.clone() for t in c) for c in cache]
+    tok = torch.from_numpy(x[:, SSM_PREFILL:SSM_PREFILL + 1])
+    l1, c1 = TM.decode_step(tm, tok, cache, SSM_PREFILL, tcfg)
+    l2, c2 = TM.decode_step(tm, tok, cache, SSM_PREFILL, tcfg)
+    assert torch.equal(l1, l2)
+    for old, a, b, c in zip(before, c1, c2, cache):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        assert torch.equal(c[0], old[0]) and torch.equal(c[1], old[1])
+        assert not torch.equal(a[0], old[0])
+    with pytest.raises(ValueError, match="attention-only"):
+        TM.init_paged_cache(tcfg, 8, 8, "cpu")

@@ -1,7 +1,10 @@
 """The port's AdamW against the JAX package's ``repro.optim.adamw`` on
 the same numpy parameters and gradients: several steps under each
 schedule and moment dtype (clipping on some of them), the learning-rate
-schedule, and the decay mask on JAX paths.
+schedule, and the decay mask on JAX paths -- over every parameter of the
+SSM and hybrid stacks too (the Mamba mixers' ``dt_bias``, ``A_log``,
+``D`` and ``norm_scale``, zamba2's ``shared_attn`` subtree), whose JAX
+paths ``convert.jax_paths`` gives.
 
 OPT_TOL: f32 updates computed in the same order; XLA may contract a
 multiply-add, so an ulp or two apart.  BF16_TOL: bf16 moments may round
@@ -138,3 +141,29 @@ def test_update_in_chunks_is_bit_equal(monkeypatch, param_dtype, moments):
         assert torch.equal(p0[k], p1[k]), k
         assert torch.equal(s0["m"][k], s1["m"][k]), k
         assert torch.equal(s0["v"][k], s1["v"][k]), k
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_decay_mask_of_ssm_and_shared_parameters_matches_jax(arch):
+    """Each parameter's JAX path is its leaf's path in the JAX tree, and
+    the port's mask on it is the reference's: exactly the norms, biases,
+    dt_bias, A_log and D are exempt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, "meta")
+    paths = convert.jax_paths(model)
+    tree = convert.tree_like_jax(dict(model.named_parameters()), cfg)
+    want = {"/".join(str(getattr(k, "key", k)) for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert set(paths.values()) == want
+    exempt = {p for p in want if not JO._decay_mask(p)}
+    assert {p for p in want if not TO._decay_mask(p)} == exempt
+    leaves = {p.rsplit("/", 1)[1] for p in exempt}
+    assert {"dt_bias", "A_log", "D", "scale"} <= leaves
+    assert not {"in_proj", "conv_w", "out_proj", "x_proj", "wq"} & leaves
+    if cfg.hybrid_attn_period:
+        assert "shared_attn/norm1/scale" in exempt
+        assert "shared_attn/in_proj" in want - exempt
+        assert "blocks/slot_1/mixer/norm_scale" in exempt

@@ -7,7 +7,11 @@ runtime's entry points are there (only the mesh refuses, naming A12), and
 the reports carry their fields.  The MoE stacks (deepseek-v2-236b with
 MLA, llama4-maverick-400b-a17b with GQA) serve the same greedy streams as
 the JAX Server, llama4's PagedServer those of the single-request oracle,
-and the CLI takes both archs."""
+and the CLI takes both archs.  The SSM and hybrid stacks
+(falcon-mamba-7b, zamba2-2.7b) serve the JAX Server's greedy streams,
+also when drained mid-stream and resumed by a successor, and the CLI
+takes them; PagedServer refuses them and both servers refuse the
+embedding-input stacks (musicgen-large, internvl2-26b)."""
 import numpy as np
 import pytest
 import torch
@@ -236,3 +240,81 @@ def test_family_cli(capsys):
     out = capsys.readouterr().out
     assert out.count("generated shape: (2, 3)") == 2
     assert "'requests': 3" in out
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid stacks
+# ---------------------------------------------------------------------------
+
+SSM_SERVE = dict(shape=(3, 16), max_new=8, max_len=32)
+
+
+@pytest.fixture(scope="module", params=["falcon-mamba-7b", "zamba2-2.7b"])
+def ssm_serve(request):
+    """The port's seeded init carried across to the JAX package, prompts
+    and the JAX Server's greedy stream: (torch cfg, torch model,
+    prompts, stream)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as j_get_config
+    from repro.launch.serve import ServeConfig as JServeConfig
+    from repro.launch.serve import Server as JServer
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    from repro_torch.models.convert import params_to_jax
+    arch = request.param
+    tcfg = get_config(arch, smoke=True)
+    tm = init(tcfg, torch.Generator().manual_seed(2), "cpu")
+    jp = jax.tree.map(lambda a: jnp.asarray(np.array(a)), params_to_jax(tm))
+    prompts = _prompts(tcfg, SSM_SERVE["shape"], seed=4)
+    want = JServer(j_get_config(arch, smoke=True), jp, JServeConfig(
+        max_len=SSM_SERVE["max_len"], guard=False)).generate(
+        prompts, max_new=SSM_SERVE["max_new"])
+    return tcfg.replace(attn_decode_kernel="blockspace"), tm, prompts, want
+
+
+def test_ssm_server_streams_equal_jax_and_resume(ssm_serve, tmp_path):
+    """Greedy streams equal the JAX Server's (top-2 margins >= 100x the
+    logit tolerance at every step); a server drained by SIGTERM after
+    its second decode step checkpoints, and a successor's resume()
+    replays prompts and tokens through the SSM (and shared-block)
+    caches to the same stream."""
+    from repro_torch.runtime import chaos as TC
+    from repro_torch.runtime.guard import ServerState
+    cfg, tm, prompts, want = ssm_serve
+    c = SSM_SERVE
+    got = S.Server(cfg, tm, S.ServeConfig(max_len=c["max_len"])).generate(
+        prompts, max_new=c["max_new"])
+    margins = _margins(tm, cfg, prompts, want)
+    assert margins.min() >= 100 * LOGIT_ATOL, margins.min()
+    assert np.array_equal(got, want)
+    scfg = S.ServeConfig(max_len=c["max_len"], ckpt_dir=str(tmp_path),
+                         ckpt_every=1, backoff_base_s=0.0)
+    plan = TC.FaultPlan(0, [TC.FaultSpec("sigterm", "serve.decode", 2)])
+    srv = S.Server(cfg, tm, scfg, chaos=TC.ChaosInjector(plan))
+    partial = srv.generate(prompts, max_new=c["max_new"])
+    assert srv.state == ServerState.DRAINING
+    assert 0 < partial.shape[1] < c["max_new"]
+    assert np.array_equal(partial, want[:, :partial.shape[1]])
+    assert np.array_equal(S.Server(cfg, tm, scfg).resume(), want)
+
+
+def test_ssm_and_embedding_stacks_refuse_what_they_cannot_serve(capsys):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        cfg = get_config(arch, smoke=True)
+        model = init(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="attention-only"):
+            S.PagedServer(cfg, model, S.PagedServeConfig())
+        S.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                "--prompt-len", "8", "--max-new", "3", "--decode-kernel",
+                "blockspace"])
+    assert capsys.readouterr().out.count("generated shape: (2, 3)") == 2
+    for arch in ("musicgen-large", "internvl2-26b"):
+        cfg = get_config(arch, smoke=True)
+        model = init(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="input_mode 'embeddings'"):
+            S.Server(cfg, model, S.ServeConfig())
+        with pytest.raises(ValueError, match="input_mode 'embeddings'"):
+            S.PagedServer(cfg, model, S.PagedServeConfig())

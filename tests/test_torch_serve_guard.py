@@ -2,8 +2,11 @@
 bit-identically, the degradation ladders (blockspace -> xla,
 paged-blockspace -> paged-xla) serving the lower rung's streams, an
 exhausted ladder's failure report, SIGTERM drain and resume -- also from
-a decode checkpoint the JAX Server wrote -- the substrate canary, and
-the ``--chaos-seed`` CLI."""
+a decode checkpoint the JAX Server wrote -- the substrate canary, the ``--chaos-seed`` CLI, falcon-mamba-7b's
+guarded decode recovering a poisoned and a failed step to the unfaulted
+stream (an SSM decode step is not idempotent, so a retry must start
+from the states the failed attempt was given), and servers dropped with
+the cyclic collector off freeing their model."""
 import json
 import os
 
@@ -305,6 +308,31 @@ def test_chaos_seed_cli(capsys, tmp_path):
     assert "faults fired, state healthy" in out
     assert "generated shape: (2, 4)" in out
     assert os.listdir(tmp_path)           # decode-state checkpoints
+
+
+def test_ssm_decode_retries_give_the_unfaulted_stream():
+    """falcon-mamba-7b's smoke stack under a poisoned and a transient
+    decode step: each step's retry reruns it on the cache the faulted
+    attempt was given, and the stream equals an unfaulted server's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    model = init(cfg, torch.Generator().manual_seed(3), "cpu")
+    scfg = S.ServeConfig(max_len=32, backoff_base_s=0.0)
+    prompts = _prompts(cfg, (2, 16), 5)
+    want = S.Server(cfg, model, scfg).generate(prompts, MAX_NEW)
+    plan = TC.FaultPlan(0, [
+        TC.FaultSpec("poison_result", "serve.decode", 1),
+        TC.FaultSpec("transient_error", "serve.decode", 3)])
+    chaos = TC.ChaosInjector(plan)
+    srv = S.Server(cfg, model, scfg, chaos=chaos)
+    assert np.array_equal(srv.generate(prompts, MAX_NEW), want)
+    assert len(chaos.events) == 2 and srv._decode.recoveries == 2
+    kinds = _kinds(srv)
+    assert "validation" in kinds and "transient" in kinds
+    assert srv.state == ServerState.HEALTHY and srv.ladder.level == 0
 
 
 @pytest.mark.parametrize("paged", [False, True])

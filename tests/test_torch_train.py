@@ -17,6 +17,13 @@ numpy):
   gradient against ``jax.grad`` under remat and logit chunks on and off,
   and 3 ``Trainer`` steps (bf16 AdamW moments, ``repro``'s META
   setting for both) against the JAX package's from one checkpoint;
+* the SSM, hybrid and embedding-input stacks (falcon-mamba-7b: Mamba-1;
+  zamba2-2.7b: Mamba-2 with the shared block, whose remat groups hold
+  one application of it; musicgen-large and internvl2-26b on (B, S, D)
+  embeddings), the attention through the flash VJP: ``loss_fn`` and
+  every gradient against ``jax.grad`` under remat and logit chunks on
+  and off, and 3 ``Trainer`` steps against the JAX package's from one
+  checkpoint (embedding batches from the pipeline, as f32);
 * ``Trainer``: 4 steps against the JAX package's ``Trainer`` from the
   same initial checkpoint (also at grad_accum 2, and 3 steps in bf16
   under chip_smoke.py's gemma3-12b optimizer), a JAX checkpoint
@@ -676,10 +683,10 @@ def test_trainer_refusals_and_cli(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="A12"):
         TT.Trainer(cfg, TT.TrainConfig(ckpt_dir=str(tmp_path)),
                    mesh=object(), device="cpu")
-    for bad in (dict(ssm_kind="mamba2"), dict(input_mode="embeddings")):
-        with pytest.raises(NotImplementedError, match="A11"):
-            TT.Trainer(cfg.replace(**bad),
-                       TT.TrainConfig(ckpt_dir=str(tmp_path)), device="cpu")
+    for kw in (dict(ssm_kind="mamba2"), dict(input_mode="embeddings")):
+        # every mixer and input mode of the JAX package trains
+        TT.Trainer(cfg.replace(**kw), TT.TrainConfig(ckpt_dir=str(tmp_path)),
+                   device="cpu")
     args = ["--arch", "quickstart", "--smoke", "--steps", "2",
             "--global-batch", "2", "--seq-len", "16", "--ckpt-dir",
             str(tmp_path / "cli")]
@@ -690,3 +697,64 @@ def test_trainer_refusals_and_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "device: cpu" in out and "step 0: loss=" in out
     assert CheckpointManager(str(tmp_path / "cli")).all_steps() == [2]
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and embedding-input stacks
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["falcon-mamba-7b", "zamba2-2.7b", "musicgen-large",
+             "internvl2-26b"]
+#: S 32 in chunks of 16 (the smoke ssd_chunk), the attention through the
+#: flash path (chunk 8)
+SSM_KNOBS = dict(flash_threshold=16, attn_chunk=8, remat=False,
+                 logit_chunk=0)
+
+
+def _ssm_batch(cfg, seed=0):
+    batch = _batch(cfg, seed=seed)
+    if cfg.input_mode == "embeddings":
+        batch["inputs"] = np.random.default_rng(seed + 1).normal(
+            size=batch["inputs"].shape + (cfg.d_model,)).astype(np.float32)
+    return batch
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_grad_ref(request):
+    jcfg, jp, tcfg, tm = _models(request.param, **SSM_KNOBS)
+    batch = _ssm_batch(jcfg)
+    return tcfg, tm, batch, _jax_grads(jcfg, jp, batch)
+
+
+@pytest.mark.parametrize("remat,logit_chunk", [(True, 8), (False, 0)])
+def test_ssm_loss_and_grads_match_jax(ssm_grad_ref, remat, logit_chunk):
+    tcfg, tm, batch, (jloss, jgrads) = ssm_grad_ref
+    cfg = tcfg.replace(remat=remat, logit_chunk=logit_chunk)
+    total, metrics, grads = _port_grads(tm, batch, cfg)
+    assert float(metrics["tokens"]) == batch["labels"].size
+    _close(total, jloss, LOSS_TOL)
+    _grads_close(convert.tree_to_jax(grads, cfg), jgrads)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_trainer_matches_jax_trainer(arch, tmp_path):
+    """3 steps of each package's Trainer from one initial checkpoint:
+    the same losses and grad norms (remat on; embedding batches from
+    the pipeline's embeddings mode)."""
+    from repro.launch.train import TrainConfig as JTrainConfig
+    from repro.launch.train import Trainer as JTrainer
+    jcfg, jp, tcfg, _ = _models(arch, **{**SSM_KNOBS, "remat": True})
+    JManager(str(tmp_path / "jax")).save(0, jax.tree.map(np.asarray, jp))
+    shutil.copytree(tmp_path / "jax", tmp_path / "port")
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+    data = dict(vocab_size=jcfg.vocab_size, seq_len=32, global_batch=2,
+                input_mode=jcfg.input_mode, d_model=jcfg.d_model)
+    _, _, want = JTrainer(jcfg, JTrainConfig(
+        steps=3, log_every=100, ckpt_dir=str(tmp_path / "jax"),
+        optimizer=JO.AdamWConfig(**opt))).run(JPipeline(JDataConfig(**data)))
+    _, _, got = TT.Trainer(tcfg, TT.TrainConfig(
+        steps=3, log_every=100, ckpt_dir=str(tmp_path / "port"),
+        optimizer=TO.AdamWConfig(**opt)), device="cpu").run(
+            SyntheticPipeline(DataConfig(**data)))
+    assert len(got) == 3
+    _metrics_close(got, [{k: float(v) for k, v in h.items()} for h in want])
