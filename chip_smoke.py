@@ -274,7 +274,9 @@ Phases, each printing its own lines:
              atol 1e-5 (SSM_TOL); (2) falcon-mamba-7b at full width and
              depth (64 layers, 29.1 GB of f32 parameters): the Server at
              batch 4, prompt 1024, 16 new, no kernel launched (none lies
-             on the path), its decode step's profile; an f32 copy at 2
+             on the path), again under a poisoned and a failed decode
+             step (SSM_CHAOS: the unfaulted stream), its decode step's
+             profile; an f32 copy at 2
              layers: a prefill of 1024 tokens against a prefill of 768
              and 256 decode steps, last logits and states within
              SSM_DECODE_TOL; (3) zamba2-2.7b at full width and depth (54
@@ -1642,6 +1644,12 @@ SSM_FALCON = dict(batch=4, prompt=1024, max_new=16, max_len=1040,
                   check_layers=2, check_batch=2, check_prompt=768,
                   check_steps=256)
 SSM_DECODE_TOL = 2e-3
+#: falcon-mamba-7b's guarded Server under a poisoned and a failed decode
+#: step (site, call index): an SSM decode step is not idempotent, so each
+#: retry must rerun on the states the faulted attempt was given, and the
+#: stream must equal the unfaulted one
+SSM_CHAOS = (("poison_result", "serve.decode", 2),
+             ("transient_error", "serve.decode", 5))
 #: zamba2-2.7b at full width and depth (54 Mamba-2 layers, 9
 #: applications of the shared block; 2.44 B f32 parameters): the Server
 #: under blockspace and xla in turns (max_len a multiple of 128, so every
@@ -3988,20 +3996,53 @@ def ssm_server_runs(S, FA, cfg, model, prompts, c, kernels, want_launches,
     return runs, streams
 
 
+def falcon_chaos(S, cfg, model, prompts, want, want_logits):
+    """falcon-mamba-7b's guarded Server under SSM_CHAOS: the stream of
+    the unfaulted run ``want``, every fault fired and recovered on the
+    ladder's top rung; the largest difference of its step logits from
+    the unfaulted run's ``want_logits`` (B, T, V) is reported."""
+    from repro_torch.runtime import chaos as RC
+    c = SSM_FALCON
+    chaos = RC.ChaosInjector(RC.FaultPlan(0, [
+        RC.FaultSpec(k, site, i) for k, site, i in SSM_CHAOS]))
+    srv = S.Server(cfg, model, S.ServeConfig(max_len=c["max_len"],
+                                             backoff_base_s=0.0),
+                   chaos=chaos)
+    steps = []
+    out = srv.generate(prompts, c["max_new"], on_step=lambda pos, lg:
+                       steps.append(lg[:, 0].float()))
+    check(np.array_equal(out, np.asarray(want)),
+          "falcon-mamba chaos: the stream differs from the unfaulted run")
+    diff = float((torch.stack(steps, 1) - want_logits).abs().max())
+    check(len(chaos.events) == len(SSM_CHAOS) and srv.ladder.level == 0
+          and srv._decode.recoveries == len(SSM_CHAOS),
+          f"falcon-mamba chaos: {len(chaos.events)} faults fired, "
+          f"{srv._decode.recoveries} recoveries, ladder level "
+          f"{srv.ladder.level}")
+    res = {"faults": [list(f) for f in SSM_CHAOS], "status": "recovered",
+           "recoveries": srv._decode.recoveries, "stream_equal": True,
+           "max_logit_diff_from_unfaulted": diff}
+    print(f"[ssm] falcon-mamba chaos {json.dumps(res)}")
+    return res
+
+
 def ssm_falcon(S, TM, FA, get_config, dev):
     """Phase 2: falcon-mamba-7b at full width and depth through the
-    Server (no kernel lies on its path), its decode step's profile; then
-    the decode held to the prefill (:func:`falcon_decode_check`)."""
+    Server (no kernel lies on its path), under injected decode faults
+    (:func:`falcon_chaos`), its decode step's profile; then the decode
+    held to the prefill (:func:`falcon_decode_check`)."""
     c = SSM_FALCON
     cfg, model, info = ssm_model(TM, get_config, "falcon-mamba-7b",
                                  get_config("falcon-mamba-7b").n_layers, dev)
     prompts = ssm_prompts(cfg, c)
-    runs, _ = ssm_server_runs(S, FA, cfg, model, prompts, c,
-                              (cfg.attn_decode_kernel,) * 2, lambda k: 0,
-                              "falcon-mamba")
+    runs, streams = ssm_server_runs(S, FA, cfg, model, prompts, c,
+                                    (cfg.attn_decode_kernel,) * 2,
+                                    lambda k: 0, "falcon-mamba")
+    chaos = falcon_chaos(S, cfg, model, prompts,
+                         *streams[cfg.attn_decode_kernel])
     serve = {"batch": c["batch"], "prompt": c["prompt"],
              "max_new": c["max_new"], "max_len": c["max_len"],
-             "runs": runs[cfg.attn_decode_kernel],
+             "runs": runs[cfg.attn_decode_kernel], "chaos": chaos,
              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "decode_step_profile": decode_step_profile(
                  TM, cfg, model, prompts, c["max_len"], dev, "ssm")}

@@ -318,10 +318,10 @@ def test_family_paged_decode_step_matches_jax(families):
 # the SSM, hybrid and embedding-input stacks
 # ---------------------------------------------------------------------------
 
-#: the JAX package's decode step (plain decode attention) compiled once
-#: per config; the port's runs its block-space decode where attention
-#: lies (the path chip_smoke.py serves), so the two plain decodes are
-#: held to each other
+#: a prefill of SSM_PREFILL positions, then SSM_STEPS decode steps.  The
+#: JAX package decodes through its plain decode attention, the port
+#: through its block-space decode (the path chip_smoke.py serves; its
+#: plain version on the CPU)
 SSM_PREFILL, SSM_STEPS = 16, 16
 
 
@@ -343,17 +343,15 @@ def ssm_stacks(request):
          if tcfg.input_mode == "tokens"
          else rng.normal(size=(2, n, tcfg.d_model)).astype(np.float32))
     logits, _ = J_LOGITS(jp, jnp.asarray(x), jcfg)
-    plog, cache = J_PREFILL(jp, jnp.asarray(x[:, :SSM_PREFILL]), jcfg, n)
-    steps = []
+    plog, pcache = J_PREFILL(jp, jnp.asarray(x[:, :SSM_PREFILL]), jcfg, n)
+    cache, steps = pcache, []
     for j in range(SSM_STEPS):
         pos = SSM_PREFILL + j
         lg, cache = J_DECODE_STEP(jp, jnp.asarray(x[:, pos:pos + 1]), cache,
                                   jnp.asarray(pos, jnp.int32), jcfg)
         steps.append(np.asarray(lg))
     ref = {"logits": np.asarray(logits), "prefill": np.asarray(plog),
-           "cache": J_PREFILL(jp, jnp.asarray(x[:, :SSM_PREFILL]), jcfg,
-                              n)[1],
-           "steps": steps, "final_cache": cache}
+           "cache": pcache, "steps": steps, "final_cache": cache}
     return jcfg, jp, tcfg.replace(attn_decode_kernel="blockspace"), tm, x, \
         ref
 

@@ -313,7 +313,10 @@ def test_chaos_seed_cli(capsys, tmp_path):
 def test_ssm_decode_retries_give_the_unfaulted_stream():
     """falcon-mamba-7b's smoke stack under a poisoned and a transient
     decode step: each step's retry reruns it on the cache the faulted
-    attempt was given, and the stream equals an unfaulted server's."""
+    attempt was given, and the stream and every step's logits equal an
+    unfaulted server's, bit for bit (greedy tokens alone would hide a
+    state advanced twice: the smoke stack's dt ~ 0.01 moves logits
+    little)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -322,13 +325,23 @@ def test_ssm_decode_retries_give_the_unfaulted_stream():
     model = init(cfg, torch.Generator().manual_seed(3), "cpu")
     scfg = S.ServeConfig(max_len=32, backoff_base_s=0.0)
     prompts = _prompts(cfg, (2, 16), 5)
-    want = S.Server(cfg, model, scfg).generate(prompts, MAX_NEW)
+    logits = {"want": [], "got": []}
+
+    def keep(key):
+        return lambda pos, lg: logits[key].append(lg.clone())
+
+    want = S.Server(cfg, model, scfg).generate(prompts, MAX_NEW,
+                                               on_step=keep("want"))
     plan = TC.FaultPlan(0, [
         TC.FaultSpec("poison_result", "serve.decode", 1),
         TC.FaultSpec("transient_error", "serve.decode", 3)])
     chaos = TC.ChaosInjector(plan)
     srv = S.Server(cfg, model, scfg, chaos=chaos)
-    assert np.array_equal(srv.generate(prompts, MAX_NEW), want)
+    assert np.array_equal(srv.generate(prompts, MAX_NEW,
+                                       on_step=keep("got")), want)
+    assert len(logits["got"]) == len(logits["want"]) == MAX_NEW
+    assert all(torch.equal(a, b) for a, b in zip(logits["got"],
+                                                  logits["want"]))
     assert len(chaos.events) == 2 and srv._decode.recoveries == 2
     kinds = _kinds(srv)
     assert "validation" in kinds and "transient" in kinds
