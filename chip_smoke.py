@@ -486,7 +486,7 @@ def phase_build(_cuda):
         f"{name} {_cuda.BUILD_SECONDS.get(name, 0.0):.1f} s"
         for name in paths) + f" (in parallel, {secs:.1f} s in all)")
     kernels = ("write_kernel", "sum_partials_kernel", "sum_combine_kernel",
-               "ca_fused_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
+               "write_shard_kernel", "sum_shard_kernel", "ca_fused_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
                "flash_fwd_tf32_kernel", "flash_decode_kernel",
                "paged_decode_kernel")
     for name, path in paths.items():
@@ -2584,9 +2584,8 @@ def phase_chaos(S, RC, TW, FA, cfg, model, prompts, dev):
     status = {r["fault"]: r["status"] for r in matrix["results"]}
     print(f"[chaos] matrix: {status}; write kernel launches {writes}")
     check(rc == 0 and matrix["ok"], f"chaos matrix failed: {status}")
-    check(status.pop("drop_halo") == "skipped" and all(
-        v in ("recovered", "reported") for v in status.values()),
-        f"chaos matrix: {status}")
+    check(all(v in ("recovered", "reported") for v in status.values()),
+          f"chaos matrix: {status}")
     # each kernel scenario: the clean write, the faulted launch, the retry
     kernel_launches = sum(r["launches"] for r in matrix["results"]
                           if r["fault"] in RC.PALLAS_FAULTS)
@@ -4278,6 +4277,526 @@ def timings(node, path=""):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the block-space mesh -- sharded write, sum, CA and flash
+# ---------------------------------------------------------------------------
+
+#: per-rank parity (one process, each rank's launch held against its plain
+#: version): (fractal, n, block, coarsenings) on D = 2, 3, 4 ranks; the
+#: gasket at n 32 block 8 (a 3 x 3 orthotope) leaves rank 3 of 4 no rows
+MESH_SHARDS = (2, 3, 4)
+MESH_PARITY_CASES = [("sierpinski-gasket", 64, 8, (1, 2)),
+                     ("sierpinski-carpet", 81, 3, (1, 3)),
+                     ("sierpinski-gasket", 32, 8, (1,))]
+MESH_FUSES = (1, 3)
+MESH_STAGES = (1, 2)
+#: flash per-rank parity: (kind, window, S, block, D, dtype)
+MESH_ATTN_CASES = [("causal", 0, 768, 64, 128, torch.bfloat16),
+                   ("causal", 0, 768, 64, 64, torch.float32),
+                   ("local", 192, 768, 64, 256, torch.bfloat16),
+                   ("full", 0, 768, 64, 64, torch.float32)]
+#: end to end: D ranks spawned on cuda:0 over gloo
+MESH_E2E_SHARDS = (2, 4)
+MESH_N, MESH_RHO, MESH_CA_STEPS, MESH_CA_FUSES = 1 << 16, 32, 32, (1, 8)
+#: embedded storage replicates the n^2 state on every rank, and the ranks
+#: share one card: cut to n = 2^14 (1 GiB a copy)
+MESH_EMB_N, MESH_EMB_RHO, MESH_EMB_CA = 1 << 14, 32, dict(steps=4, fuse=2)
+#: flash at gemma3-12b's heads
+MESH_FLASH = dict(b=1, h=16, hkv=8, s=4096, d=256, block=128)
+#: the per-rank timing view of the kernels line: D 4, rank 0
+MESH_TIMED_D = 4
+
+
+def mesh_stand_in(D):
+    """A mesh of D ranks for the host geometry (no process group)."""
+    import types
+    return types.SimpleNamespace(shape={"data": D})
+
+
+def phase_mesh_parity(TW, TC, FA, F, LOWERINGS, compact_layout, dev):
+    """(a) Every rank's sharded write / partials / CA launch held against
+    its plain version in one process (D 2, 3, 4; the four lowerings x
+    embedded / compact x the coarsenings x fuse {1, 3} x num_stages
+    {1, 2}, and the interior / boundary phase launches, both rules, the
+    gasket and the carpet), and both tile paths under rows and zigzag."""
+    errs = {"sierpinski_write_sharded": 0.0,
+            "sierpinski_sum_partials_sharded": 0.0,
+            "sierpinski_ca_fused_sharded": 0.0,
+            "flash_attention_sharded": 0.0}
+    cases = dict.fromkeys(errs, 0)
+    rel = 0.0
+    for fractal, n, block, coarsenings in MESH_PARITY_CASES:
+        spec = F.FRACTALS[fractal]
+        lay = compact_layout(TW.resolve_fractal_domain(fractal, n, block))
+        emb, packed = member_state(lay, block, n, spec, dev, 7, "integer")
+        states = {"parity": member_state(lay, block, n, spec, dev, 8,
+                                         "binary"),
+                  "diffusion": member_state(lay, block, n, spec, dev, 9,
+                                            "normal")}
+        shards = MESH_SHARDS if n > 32 else (4,)
+        for D in shards:
+            for storage in ("embedded", "compact"):
+                m = packed if storage == "compact" else emb
+                for gm in LOWERINGS:
+                    for s in coarsenings:
+                        for rank in range(D):
+                            kw = dict(block=block, grid_mode=gm,
+                                      fractal=fractal, storage=storage, n=n,
+                                      domain=None, coarsen=s,
+                                      mesh=mesh_stand_in(D),
+                                      shard_axis="data", rank=rank)
+                            view, n_, blk = TW.shard_plan(m, **kw)
+                            local = view.slab(m, blk) \
+                                if storage == "compact" else m
+                            merge_err(errs, TW.check_shard_against_plain(
+                                local, 2.5, view, n_, blk))
+                            cases["sierpinski_write_sharded"] += 1
+                            cases["sierpinski_sum_partials_sharded"] += 1
+                            cv, _, _ = TW.shard_plan(
+                                m, **{**kw, "halo": storage == "compact"})
+                            for rule, (e_state, p_state) in states.items():
+                                x = p_state if storage == "compact" \
+                                    else e_state
+                                a = cv.extended(x, blk) \
+                                    if storage == "compact" else x
+                                b = torch.zeros_like(a)
+                                views = [(cv, MESH_STAGES)]
+                                if (storage == "compact" and gm != "bounding"
+                                        and cv.phase_tables_host()
+                                        is not None):
+                                    views += [(cv.phase_view(w), (2,)) for w
+                                              in ("interior", "boundary")]
+                                for fuse in MESH_FUSES:
+                                    if fuse > s * blk:
+                                        continue
+                                    for v_, stages in views:
+                                        for st in stages:
+                                            TC.check_ca_shard_against_plain(
+                                                a, b, v_, n_, blk, fuse,
+                                                fuse, rule, CA_ALPHA, st)
+                                            cases["sierpinski_ca_fused"
+                                                  "_sharded"] += 1
+    for kind, window, s, blk, d, dtype in MESH_ATTN_CASES:
+        for D in MESH_SHARDS:
+            if (s // blk) % D:
+                continue
+            q, k, v = attn_inputs([(1, 4, s, d), (1, 2, s, d),
+                                   (1, 2, s, d)], dtype, 11, dev)
+            for gm in LOWERINGS:
+                sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                          window=window, block_q=blk,
+                                          block_k=blk, grid_mode=gm)
+                for balance in ("contiguous", "zigzag"):
+                    if balance == "zigzag" and (
+                            kind != "causal" or (s // blk) % (2 * D)):
+                        continue
+                    for rank in range(D):
+                        band = FA.shard_band(sched, D, rank, balance)
+                        err, got = FA.check_flash_shard_against_plain(
+                            FA.band_queries(q, sched, band), k, v, sched,
+                            band)
+                        errs["flash_attention_sharded"] = max(
+                            errs["flash_attention_sharded"], err)
+                        if dtype == torch.bfloat16:
+                            rel = max(rel, FA.row_rel_err(
+                                got, FA.flash_attention_plain(
+                                    FA.band_queries(q, sched, band), k, v,
+                                    sched, rows=torch.from_numpy(
+                                        band.rows()))))
+                        cases["flash_attention_sharded"] += 1
+    torch.cuda.synchronize()
+    print(f"[mesh] per-rank parity: {json.dumps(cases)} launches against "
+          f"their plain versions, max |err| {json.dumps(errs)}, bf16 row "
+          f"error {rel:.3g} (bound {FA.ROW_RTOL[torch.bfloat16]})")
+    return errs, cases, rel
+
+
+def mesh_rank(rank, world, cfg):
+    """The body of one spawned rank of the end-to-end run: the port's
+    entry points with ``mesh=`` at the paper's size, each held bit-equal
+    to the unsharded kernels' result on the same card; returns the
+    rank's report (its launches, bytes, times and peak memory)."""
+    sys.path.insert(0, cfg["src"])
+    import importlib
+    from repro_torch.core import fractal as F
+    from repro_torch.core.compact import compact_layout
+    from repro_torch.core.shard import ShardedPlan
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as M
+    TW = importlib.import_module("repro_torch.kernels.sierpinski_write")
+    TC = importlib.import_module("repro_torch.kernels.sierpinski_ca")
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = M.make_mesh((world, 1), M.AXES)
+    dev = M.mesh_device(mesh)
+    group = M.axis_group(mesh, "data")
+    rep = {"rank": rank, "device": str(dev)}
+    n, rho = cfg["n"], cfg["rho"]
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   rho))
+    shape = lay.array_shape(rho)
+    mask = packed_gasket_mask(lay, rho, n, F, dev)
+    g = torch.Generator(device=dev)
+    kw = dict(block=rho, grid_mode="closed_form", storage="compact", n=n)
+    for mod in (TW, TC, FA):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.TRAFFIC.reset()
+
+    def wall(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # -- write and sum, compact: each rank's slab -------------------------
+    m = torch.zeros(shape, dtype=torch.float32, device=dev)
+    _, rep["write_ms"] = wall(lambda: TW.sierpinski_write_(m, 1.0, mesh=mesh,
+                                                           **kw))
+    want = TW.sierpinski_write_(torch.zeros_like(m), 1.0, **kw)
+    rep["write_equal"] = bool(torch.equal(m, want))
+    del m, want
+    torch.cuda.empty_cache()  # the ranks share one card: free as we go
+    x = torch.where(mask, torch.randint(-1, 2, shape, generator=g.manual_seed(
+        SEED), device=dev).float(), 0)
+    s_mesh, rep["sum_ms"] = wall(lambda: TW.sierpinski_sum(x, mesh=mesh,
+                                                           **kw))
+    s_one = TW.sierpinski_sum(x, **kw)
+    rep["sum_equal"] = bool(torch.equal(s_mesh, s_one))
+    rep["sum"] = float(s_mesh)
+    del x
+    torch.cuda.empty_cache()
+
+    # -- the CA, compact: exchange + launch per fused step ----------------
+    view = ShardedPlan(lay.domain, "closed_form", storage="compact",
+                       backend=dev, mesh=mesh, axis="data", halo=True
+                       ).for_rank(rank).bind_block(rho)
+    rep["slab_bytes"] = view.local_storage_shape(rho)[0] * shape[1] * 4
+    rep["ghost_rows"] = len(view.halo.ghost_rows[rank])
+    rep["h_max"] = view.halo.h_max
+    rep["ca"] = []
+    for rule in ("parity", "diffusion"):
+        x = torch.where(mask, torch.randint(0, 2, shape, generator=g.manual_seed(
+            SEED + 1), device=dev).float(), 0) if rule == "parity" else \
+            torch.where(mask, torch.randn(shape, generator=g.manual_seed(
+                SEED + 2), device=dev), 0)
+        stale = torch.zeros_like(x)
+        for fuse in cfg["fuses"]:
+            # the interior / boundary overlap at fuse > 1 (a ring of 2)
+            ca_kw = dict(fuse=fuse, rule=rule, alpha=CA_ALPHA,
+                         num_stages=2 if fuse > 1 else 1, **kw)
+            launches = len(TC.launch_schedule(cfg["steps"], fuse))
+            got, t_mesh = wall(lambda: TC.ca_run(x, stale, cfg["steps"],
+                                                 mesh=mesh, **ca_kw))
+            ref, t_one = wall(lambda: TC.ca_run(x, stale, cfg["steps"],
+                                                donate=False, **ca_kw))
+            rep["ca"].append({
+                "rule": rule, "fuse": fuse, "launches": launches,
+                "num_stages": ca_kw["num_stages"],
+                "equal": bool(torch.equal(got, ref)),
+                "wall_ms": t_mesh, "unsharded_wall_ms": t_one,
+                "wall_ms_per_launch": t_mesh / launches,
+                "unsharded_wall_ms_per_launch": t_one / launches})
+            del got, ref
+            torch.cuda.empty_cache()
+        del x, stale
+    # the exchange and the rank's launch alone, timed after the counted
+    # runs: one fuse-8 step of the parity state
+    rows = view.rpd * view.row_unit
+    x = torch.where(mask, torch.randint(0, 2, shape, generator=g.manual_seed(
+        SEED + 1), device=dev).float(), 0)
+    a = x.new_zeros(view.extended_shape(rho))
+    a[:rows] = view.slab(x, rho)
+    b = torch.zeros_like(a)
+    del x
+    fuse = max(cfg["fuses"])
+    ex_ms = []
+    for _ in range(5):
+        before = collectives.TRAFFIC.as_dict()
+        dist_barrier(group)
+        t0 = time.perf_counter()
+        view.halo.exchange(view, a[:rows], rank, fuse, group, out=a[rows:])
+        torch.cuda.synchronize(dev)
+        ex_ms.append((time.perf_counter() - t0) * 1e3)
+        after = collectives.TRAFFIC.as_dict()
+    rep["exchange_ms"] = statistics.median(ex_ms)
+    rep["exchange_traffic"] = {k: after[k] - before[k] for k in after}
+    rep["bytes_exchanged"] = view.halo.bytes_exchanged(view, rho, fuse)
+    dist_barrier(group)
+    rep["launch_ms"] = time_ms(lambda: TC.ca_rank(
+        a, b, view, n, rho, fuse, fuse, "parity", CA_ALPHA, 1), reps=5)
+    # the overlapped step's pieces (num_stages 2): the interior and the
+    # boundary launch alone, and the exchange with the interior launch in
+    # flight, then the boundary launch (host clock)
+    iv, bv = view.phase_view("interior"), view.phase_view("boundary")
+    for name, v in (("interior_ms", iv), ("boundary_ms", bv)):
+        dist_barrier(group)
+        rep[name] = time_ms(lambda: TC.ca_rank(
+            a, b, v, n, rho, fuse, fuse, "parity", CA_ALPHA, 2), reps=5)
+
+    def overlapped():
+        view.halo.exchange(view, a[:rows], rank, fuse, group, out=a[rows:],
+                           between=lambda: TC.ca_rank(
+                               a, b, iv, n, rho, fuse, fuse, "parity",
+                               CA_ALPHA, 2))
+        TC.ca_rank(a, b, bv, n, rho, fuse, fuse, "parity", CA_ALPHA, 2)
+    steps_ms = []
+    for _ in range(3):
+        dist_barrier(group)
+        steps_ms.append(wall(overlapped)[1])
+    rep["overlapped_step_ms"] = statistics.median(steps_ms)
+    del a, b, mask
+    torch.cuda.empty_cache()
+
+    # -- embedded storage, cut: the replicated state, masked combines -----
+    ne, rhoe = cfg["emb_n"], cfg["emb_rho"]
+    ekw = dict(block=rhoe, grid_mode="closed_form")
+    me = torch.zeros((ne, ne), dtype=torch.float32, device=dev)
+    TW.sierpinski_write_(me, 1.0, mesh=mesh, **ekw)
+    rep["emb_write_equal"] = bool(torch.equal(
+        me, TW.sierpinski_write_(torch.zeros_like(me), 1.0, **ekw)))
+    torch.cuda.empty_cache()
+    rep["emb_sum_equal"] = bool(torch.equal(
+        TW.sierpinski_sum(me, mesh=mesh, **ekw), TW.sierpinski_sum(me, **ekw)))
+    ca = cfg["emb_ca"]
+    ckw = dict(fuse=ca["fuse"], rule="parity", num_stages=1, **ekw)
+    got = TC.ca_run(me, torch.zeros_like(me), ca["steps"], mesh=mesh, **ckw)
+    ref = TC.ca_run(me, torch.zeros_like(me), ca["steps"], donate=False,
+                    **ckw)
+    rep["emb_ca_equal"] = bool(torch.equal(got, ref))
+    del me, got, ref
+    torch.cuda.empty_cache()
+
+    # -- flash at gemma3-12b's heads: rows and zigzag ---------------------
+    fl = cfg["flash"]
+    q, k, v = attn_inputs([(fl["b"], fl["h"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"])],
+                          torch.bfloat16, 21, dev)
+    fkw = dict(kind="causal", block_q=fl["block"], block_k=fl["block"])
+    one = FA.flash_attention(q, k, v, **fkw)
+    for balance in ("contiguous", "zigzag"):
+        got, t = wall(lambda: FA.flash_attention(q, k, v, mesh=mesh,
+                                                 shard_balance=balance,
+                                                 **fkw))
+        rep[f"flash_{balance}_equal"] = bool(torch.equal(got, one))
+        rep[f"flash_{balance}_ms"] = t
+    torch.cuda.synchronize(dev)
+    rep["launches"] = {**TW.launch_counts(), **TC.launch_counts(),
+                       **FA.launch_counts(), **TW.shard_launch_counts(),
+                       **TC.shard_launch_counts(), **FA.shard_launch_counts()}
+    rep["traffic"] = collectives.TRAFFIC.as_dict()
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return rep
+
+
+def dist_barrier(group):
+    import torch.distributed as dist
+    dist.barrier(group=group)
+
+
+def phase_mesh_e2e(dev):
+    """(b) D = 2 and 4 ranks spawned on cuda:0 over gloo: the port's
+    entry points with ``mesh=`` at the paper's size, each bit-equal to
+    the unsharded kernels on the same card."""
+    from repro_torch.launch import mesh as M
+    cfg = dict(src=str(ROOT / "src"), n=MESH_N, rho=MESH_RHO,
+               steps=MESH_CA_STEPS, fuses=MESH_CA_FUSES, emb_n=MESH_EMB_N,
+               emb_rho=MESH_EMB_RHO, emb_ca=MESH_EMB_CA, flash=MESH_FLASH)
+    out = {}
+    for D in MESH_E2E_SHARDS:
+        t0 = time.perf_counter()
+        reps = M.run_ranks(mesh_rank, D, cfg, threads=0, timeout=900)
+        secs = time.perf_counter() - t0
+        for r in reps:
+            oks = {k: v for k, v in r.items() if k.endswith("_equal")}
+            oks.update({f"ca {c['rule']} fuse {c['fuse']}": c["equal"]
+                        for c in r["ca"]})
+            check(all(oks.values()), f"[mesh] D={D} rank {r['rank']}: a "
+                  f"sharded result differs from the unsharded kernels': "
+                  f"{oks}")
+            print(f"[mesh] D={D} rank {r['rank']} ({r['device']}): slab "
+                  f"{r['slab_bytes']} B, ghost rows {r['ghost_rows']} "
+                  f"(h_max {r['h_max']}), exchange at fuse "
+                  f"{max(MESH_CA_FUSES)}: {r['exchange_ms']:.3f} ms host, "
+                  f"{json.dumps(r['exchange_traffic'])} B (plan: "
+                  f"{json.dumps(r['bytes_exchanged'])} over the mesh), "
+                  f"launch {r['launch_ms']:.4f} ms (interior "
+                  f"{r['interior_ms']:.4f}, boundary {r['boundary_ms']:.4f}; "
+                  f"an overlapped step {r['overlapped_step_ms']:.3f} ms "
+                  f"host), peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB; traffic "
+                  f"{json.dumps(r['traffic'])}")
+        for c0 in reps[0]["ca"]:
+            rows = [c for r in reps for c in r["ca"]
+                    if (c["rule"], c["fuse"]) == (c0["rule"], c0["fuse"])]
+            print(f"[mesh] D={D} ca {c0['rule']} fuse {c0['fuse']} "
+                  f"(num_stages {c0['num_stages']}): {c0['launches']} "
+                  f"launches in {max(c['wall_ms'] for c in rows):.1f} ms "
+                  f"(slowest rank, host; the slabs' copies and their final "
+                  f"gather included), "
+                  f"{max(c['wall_ms_per_launch'] for c in rows):.3f} ms a "
+                  f"launch; unsharded {min(c['unsharded_wall_ms'] for c in rows):.1f}"
+                  f" ms on the same card, the ranks' at once; bit-equal")
+        launches = {k: sum(r["launches"][k] for r in reps)
+                    for k in reps[0]["launches"]}
+        print(f"[mesh] D={D}: write {reps[0]['write_ms']:.1f} ms, sum "
+              f"{reps[0]['sum_ms']:.1f} ms (= {reps[0]['sum']}), flash rows "
+              f"{reps[0]['flash_contiguous_ms']:.1f} ms, zigzag "
+              f"{reps[0]['flash_zigzag_ms']:.1f} ms (host, every result "
+              f"bit-equal); launches {json.dumps(launches)}; "
+              f"{secs:.1f} s")
+        out[str(D)] = {"ranks": reps, "launches": launches, "seconds": secs}
+    return out
+
+
+def phase_mesh_times(TW, TC, FA, compact_layout, F, dev):
+    """The sharded kernels' times for the kernels line: rank 0 of
+    MESH_TIMED_D at the end-to-end sizes, one process, beside its plain
+    version, its bound and a library call."""
+    n, rho, D = MESH_N, MESH_RHO, MESH_TIMED_D
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   rho))
+    shape = lay.array_shape(rho)
+    mask = packed_gasket_mask(lay, rho, n, F, dev)
+    kw = dict(block=rho, grid_mode="closed_form", fractal="sierpinski-gasket",
+              storage="compact", n=n, domain=None, coarsen=1,
+              mesh=mesh_stand_in(D), shard_axis="data", rank=0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.where(mask, torch.randint(0, 2, shape, generator=g,
+                                        device=dev).float(), 0)
+    view, _, _ = TW.shard_plan(x, **kw)
+    local = view.slab(x, rho).clone()
+    lmask = view.slab(mask, rho)
+    members = int(lmask.sum())
+    p = view.launch_params(n, rho, dev)
+    out = {}
+    nb = members * 4
+    out["sierpinski_write_sharded"] = dict(
+        ms=time_ms(lambda: TW.write_shard_cuda(local, 1.0, p, view), 5),
+        plain_ms=time_ms(lambda: TW.sierpinski_write_plain(
+            local, 1.0, view, n, rho), 2),
+        library_ms=time_ms(lambda: local.masked_fill_(lmask, 1.0), 5),
+        bound=bound(nb))
+    out["sierpinski_sum_partials_sharded"] = dict(
+        ms=time_ms(lambda: TW.sum_partials_shard_cuda(local, p, view), 5),
+        plain_ms=time_ms(lambda: TW.sum_partials_plain(local, view, n, rho),
+                         2),
+        library_ms=time_ms(lambda: torch.masked.sum(local, mask=lmask), 5),
+        bound=bound(nb + view.steps_per_launch * 4))
+    cv, _, _ = TW.shard_plan(x, **{**kw, "halo": True})
+    a = cv.extended(x, rho)
+    b = torch.zeros_like(a)
+    cp = cv.launch_params(n, rho, dev)
+    ghosts = len(cv.halo.ghost_rows[0]) * cv.row_unit * shape[1] * 4
+    out["sierpinski_ca_fused_sharded"] = dict(
+        ms=time_ms(lambda: TC.ca_shard_cuda(a, b, cp, cv, 1, 1, "parity",
+                                            CA_ALPHA, 1), 5),
+        plain_ms=time_ms(lambda: TC.ca_launch_plain(
+            a, b, cv, n, rho, 1, 1, "parity", CA_ALPHA), 1),
+        library_ms=None,
+        bound=bound(2 * view.local_storage_shape(rho)[0] * shape[1] * 4
+                    + ghosts))
+    del x, local, a, b, mask, lmask
+    fl = MESH_FLASH
+    q, k, v = attn_inputs([(fl["b"], fl["h"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"])],
+                          torch.bfloat16, 21, dev)
+    sched = FA.flash_schedule(q.shape, k.shape, kind="causal",
+                              block_q=fl["block"], block_k=fl["block"])
+    band = FA.shard_band(sched, D, 0, "zigzag")
+    qb = FA.band_queries(q, sched, band)
+    rows = band.rows()
+    qpos = (torch.from_numpy(rows).to(dev)[:, None] * fl["block"]
+            + torch.arange(fl["block"], device=dev)).reshape(-1)
+    amask = qpos[:, None] >= torch.arange(fl["s"], device=dev)[None, :]
+    kr = k.repeat_interleave(fl["h"] // fl["hkv"], 1)
+    vr = v.repeat_interleave(fl["h"] // fl["hkv"], 1)
+    pairs = int(amask.sum())
+    nbytes = 2 * (qb.numel() + k.numel() + v.numel() + qb.numel())
+    nops = 4 * pairs * fl["d"] * fl["b"] * fl["h"]
+    t_b, by, _ = attn_bound(nbytes, nops, torch.bfloat16, "tc")
+    out["flash_attention_sharded"] = dict(
+        ms=time_ms(lambda: FA.flash_shard_cuda(qb, k, v, sched, band), 5),
+        plain_ms=time_ms(lambda: FA.flash_attention_plain(
+            qb, k, v, sched, rows=torch.from_numpy(rows)), 1),
+        library_ms=time_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qb, kr, vr,
+                                                         attn_mask=amask),
+                           5),
+        bound=(t_b, by))
+    for name, r in out.items():
+        t_b, by = r.pop("bound")
+        r.update(bound_ms=t_b, bound_by=by)
+        print(f"[mesh] {name} (rank 0 of {D}): {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {t_b:.4f} ms ({by}), library "
+              f"{r['library_ms']} ms")
+    return out
+
+
+def phase_mesh(TW, TC, FA, RC, F, LOWERINGS, compact_layout, dev):
+    """The [mesh] phase: (a) per-rank parity, (b) end to end on 2 and 4
+    spawned ranks, drop_halo detected and recovered on the card, and the
+    sharded kernels' times."""
+    t0 = time.perf_counter()
+    errs, cases, rel = phase_mesh_parity(TW, TC, FA, F, LOWERINGS,
+                                         compact_layout, dev)
+    t_par = time.perf_counter() - t0
+    free_card()  # the spawned ranks share the card with this process
+    print(f"[mesh] this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB before spawning")
+    e2e = phase_mesh_e2e(dev)
+    t_e2e = time.perf_counter() - t0 - t_par
+    halo = RC.scenario_drop_halo(SEED, True, device="cuda")
+    print(f"[mesh] drop_halo on 2 ranks of the card: {json.dumps(halo)}")
+    check(halo["status"] == "recovered" and halo["detected"]
+          and halo["bit_identical"], f"drop_halo on the card: {halo}")
+    times = phase_mesh_times(TW, TC, FA, compact_layout, F, dev)
+    secs = time.perf_counter() - t0
+    print(f"[mesh] phase {secs:.1f} s (parity {t_par:.1f} s, end to end "
+          f"{t_e2e:.1f} s)")
+    return {"parity_max_abs_err": errs, "parity_cases": cases,
+            "parity_max_row_rel_err": rel, "e2e": e2e, "drop_halo": halo,
+            "times": times, "card": CARD, "seconds": secs}
+
+
+def mesh_kernel_entries(kernels, mesh):
+    """The kernels line's sharded entries: launches summed over the
+    end-to-end runs' ranks, errors from the per-rank parity, times from
+    phase_mesh_times."""
+    sources = {"sierpinski_write_sharded": (
+        "src/repro_torch/csrc/sierpinski_write.cu",
+        "src/repro/kernels/sierpinski_write.py:171"),
+        "sierpinski_sum_partials_sharded": (
+            "src/repro_torch/csrc/sierpinski_write.cu",
+            "src/repro/kernels/sierpinski_write.py:418"),
+        "sierpinski_ca_fused_sharded": (
+            "src/repro_torch/csrc/sierpinski_ca.cu",
+            "src/repro/kernels/sierpinski_ca.py:212"),
+        "flash_attention_sharded": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:103")}
+    for name, (source, replaces) in sources.items():
+        t = mesh["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(e["launches"][name]
+                            for e in mesh["e2e"].values()),
+            "max_abs_err": mesh["parity_max_abs_err"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "at": f"rank 0 of {MESH_TIMED_D}: the compact gasket at "
+                  f"n={MESH_N} rho={MESH_RHO} (flash: gemma3-12b causal S "
+                  f"{MESH_FLASH['s']} bf16, the zigzag band)",
+            "parity_cases": mesh["parity_cases"][name],
+            "launches_by_shards": {D: e["launches"][name]
+                                   for D, e in mesh["e2e"].items()}})
+
+
 def compare(change_paths, parent_paths, lo=0.94, hi=1.06):
     """Print every time whose change median lies outside [lo, hi] x the
     parent median, with both sides' values; returns the count of times
@@ -4355,7 +4874,9 @@ def main():
     build_s = phase_build(_cuda)
     if "--build-only" in sys.argv[1:]:
         if "--sass" in sys.argv[1:]:
-            phase_sass(_cuda, _cuda.build())
+            paths = _cuda.build()
+            for lib in paths:
+                phase_sass(_cuda, paths, lib)
         print("[build-only] built and reported; no phase run, no result")
         return
     if "--decode-only" in sys.argv[1:]:
@@ -4389,6 +4910,15 @@ def main():
         OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
                                    "ssm": ssm}, indent=1))
         print(f"[ssm-only] the ssm phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
+    if "--mesh-only" in sys.argv[1:]:
+        mesh = timed("mesh", phase_mesh, TW, TC, FA, RC, F, LOWERINGS,
+                     compact_layout, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "mesh": mesh}, indent=1))
+        print(f"[mesh-only] the mesh phase ran; no result "
               f"{json.dumps(PHASE_S)}")
         return
     errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
@@ -4429,6 +4959,8 @@ def main():
     families = timed("families", phase_families, S, TM, TT, TA, FA, P,
                      get_config, dev)
     ssm = timed("ssm", phase_ssm, S, TM, TT, TA, TS, FA, P, get_config, dev)
+    mesh = timed("mesh", phase_mesh, TW, TC, FA, RC, F, LOWERINGS,
+                 compact_layout, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -4650,6 +5182,7 @@ def main():
                 "serve_launches"]["flash_attention_decode"]
     families_kernel_entries(kernels, families)
     ssm_kernel_entries(kernels, ssm)
+    mesh_kernel_entries(kernels, mesh)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4663,7 +5196,8 @@ def main():
         "serve": serve_runs,
         "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "train": train,
-        "families": families, "ssm": ssm, "kernels": kernels,
+        "families": families, "ssm": ssm, "mesh": mesh,
+        "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"[phases] host seconds: {json.dumps(PHASE_S)}")

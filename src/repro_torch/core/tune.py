@@ -34,8 +34,15 @@ the port's own: a winner measured by the JAX package (whose file and
 variable differ) never answers the port, nor the reverse.  Writes merge
 with the file under ``fcntl.flock`` and land atomically (tmp + rename).
 
-Not ported yet: ``mesh=`` (ROADMAP A12) and ``verify=True`` (A13) on the
-searchers, which raise ``NotImplementedError`` naming the item.
+``mesh=`` on :func:`autotune_ca` and :func:`autotune_write` tunes the
+sharded run (every rank of the mesh calls the searcher): the key names
+the shard count (:func:`shard_params`), the search warm-starts from the
+single-device winner when one is cached (only it and its one-knob
+neighbours are measured), and each trial's time is the slowest rank's,
+so every rank keeps the same winner.  Not ported yet, and raising
+``NotImplementedError`` naming the item: ``verify=True`` (A13) on the
+searchers, and ``mesh=`` on :func:`autotune_paged` (the slot-sharded
+decode comes with the serving mesh, A12).
 
 Run: ``python -m repro_torch.core.tune [--smoke] [--cache PATH] [--force]
 [--device cpu]``.
@@ -229,13 +236,44 @@ def _with_backend(params: dict, device=None) -> dict:
 
 
 def shard_params(params: dict, mesh, shard_axis: str) -> dict:
-    """Qualify a tuning key with the shard count of a sharded run.
-    Unsharded lookups (``mesh=None``) keep the unqualified key; sharded
-    execution is not ported yet."""
+    """Qualify a tuning key with the shard count a kernel will actually
+    run at (the size of the mesh's ``shard_axis``), so a single-device
+    winner never answers for a sharded run and different shard counts
+    never collide.  Unsharded lookups (``mesh=None``) keep the
+    unqualified key, so existing caches remain valid."""
     if mesh is None:
         return params
-    raise NotImplementedError(
-        "mesh= (sharded execution) is not ported yet (ROADMAP A12)")
+    from repro_torch.launch.mesh import axis_size
+    return {**params, "devices": axis_size(mesh, shard_axis)}
+
+
+def mesh_agree(mesh, shard_axis: str) -> Optional[Callable[[float], float]]:
+    """For a sharded search: the largest of the ranks' times of a trial
+    (a maximum over the axis's process group), so that every rank ranks
+    the trials alike and keeps the same winner -- a rank whose "auto"
+    resolved another schedule than its peers would desert their
+    collectives.  None for an unsharded search."""
+    if mesh is None:
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_group
+    group = axis_group(mesh, shard_axis)
+
+    def agree(us: float) -> float:
+        t = torch.tensor([us], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return float(t)
+    return agree
+
+
+def _search_device(device, mesh) -> torch.device:
+    """Where a search runs: the caller's device, else this rank's device
+    of ``mesh``, else the card."""
+    if device is None and mesh is not None:
+        from repro_torch.launch.mesh import mesh_device
+        return mesh_device(mesh)
+    return backend_lib.default_device(device)
 
 
 def _no_verify(verify: bool) -> None:
@@ -285,7 +323,7 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
              cache: Optional[TuneCache] = None, force: bool = False,
              warmup: int = MEASURE_WARMUP, iters: int = MEASURE_ITERS,
              verbose: bool = False, seed_config: Optional[dict] = None,
-             device=None):
+             device=None, agree: Optional[Callable[[float], float]] = None):
     """Generic search: measure every viable candidate, persist the winner.
 
     ``build(config)`` returns a zero-arg measurable callable, or raises
@@ -300,6 +338,8 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
 
     ``device`` (the card unless the caller names another) is where the
     candidates run: it stamps the key and clocks the measurement.
+    ``agree`` (a sharded search's) maps each trial's time to the time
+    every rank keeps (:func:`mesh_agree`).
 
     Returns ``(config, us, trials)`` where trials is the full
     [(config, us)] measurement log; on a cache hit ``(config, None,
@@ -331,6 +371,8 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
                 print(f"  skip {cfg}: {e}")
             continue
         us = measure(fn, warmup=warmup, iters=iters, device=device)
+        if agree is not None:
+            us = agree(us)
         trials.append((dict(cfg), us))
         if verbose:
             print(f"  {cfg} -> {us:.1f} us")
@@ -469,10 +511,14 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
     ca = _kernels("sierpinski_ca")
 
     _no_verify(verify)
-    params = shard_params(_axis_param(
+    base = _axis_param(
         {"fractal": fractal, "n": n, "block": block, "rule": rule},
-        "storages", storages, ALL_STORAGES), mesh, shard_axis)
-    dev = backend_lib.default_device(device)
+        "storages", storages, ALL_STORAGES)
+    params = shard_params(base, mesh, shard_axis)
+    dev = _search_device(device, mesh)
+    # warm-start a sharded search from the single-device winner
+    seed = best("ca", base, cache=cache, device=dev) \
+        if mesh is not None else None
     state = fractal_state(fractal, n, block, dev)
     operands = {"embedded": (state, torch.zeros_like(state))}
     if "compact" in storages:
@@ -491,13 +537,15 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
                   num_stages=cfg.get("stages", 1))
         ca.check_run(a, b, **kw)
         return lambda: ca.ca_run(a, b, steps, fuse=cfg["fuse"],
-                                 donate=True, **kw)
+                                 donate=True, mesh=mesh,
+                                 shard_axis=shard_axis, **kw)
 
     cands = ca_candidates(fractal, n, block, storages=storages,
                           max_fuse=max_fuse, max_coarsen=max_coarsen,
                           device=dev)
     return autotune("ca", params, cands, build, cache=cache, force=force,
-                    verbose=verbose, device=dev)
+                    verbose=verbose, device=dev, seed_config=seed,
+                    agree=mesh_agree(mesh, shard_axis))
 
 
 def write_candidates(fractal: str, n: int, block: int, *,
@@ -526,10 +574,12 @@ def autotune_write(*, fractal: str = "sierpinski-gasket", n: int = 256,
     sw = _kernels("sierpinski_write")
 
     _no_verify(verify)
-    params = shard_params(_axis_param(
-        {"fractal": fractal, "n": n, "block": block},
-        "storages", storages, ALL_STORAGES), mesh, shard_axis)
-    dev = backend_lib.default_device(device)
+    base = _axis_param({"fractal": fractal, "n": n, "block": block},
+                       "storages", storages, ALL_STORAGES)
+    params = shard_params(base, mesh, shard_axis)
+    dev = _search_device(device, mesh)
+    seed = best("write", base, cache=cache, device=dev) \
+        if mesh is not None else None
     lay = compact_layout(sw.resolve_fractal_domain(fractal, n, block))
     shapes = {"embedded": lay.embedded_shape(block),
               "compact": lay.array_shape(block)}
@@ -543,12 +593,14 @@ def autotune_write(*, fractal: str = "sierpinski-gasket", n: int = 256,
         plan, _, blk = sw.prepare_launch(m, **kw)
         if plan.target.kernels:
             plan.launch_params(n, blk, m.device)
-        return lambda: sw.sierpinski_write_(m, 1.0, num_stages=1, **kw)
+        return lambda: sw.sierpinski_write_(m, 1.0, num_stages=1, mesh=mesh,
+                                            shard_axis=shard_axis, **kw)
 
     cands = write_candidates(fractal, n, block, storages=storages,
                              max_coarsen=max_coarsen)
     return autotune("write", params, cands, build, cache=cache,
-                    force=force, verbose=verbose, device=dev)
+                    force=force, verbose=verbose, device=dev,
+                    seed_config=seed, agree=mesh_agree(mesh, shard_axis))
 
 
 def flash_candidates(sq: int, sk: int, *, blocks=ALL_FLASH_BLOCKS):
@@ -648,6 +700,10 @@ def autotune_paged(*, batch: int = 4, heads: int = 4,
     entry point takes a pool, not a page size."""
     fa = _kernels("flash_attention")
     _no_verify(verify)
+    if mesh is not None:
+        raise NotImplementedError(
+            "autotune_paged(mesh=) tunes the slot-sharded decode of the "
+            "serving mesh, which is not ported yet (ROADMAP A12)")
     kv_heads = heads if kv_heads is None else kv_heads
     params = shard_params(_axis_param(
         {"batch": batch, "heads": heads, "kv_heads": kv_heads,

@@ -50,6 +50,29 @@ enum Lowering { kClosedForm = 0, kPrefetchLut = 1, kBounding = 2, kMma = 3 };
 // the causal triangle, or the band of a BandDomain.
 enum Dom { kDomAll = 0, kDomTriangular = 1, kDomBand = 2 };
 
+// One rank's query-block band of a sharded launch (the tile paths' kShard
+// instantiations; kernels/flash_attention.py RowBand.c_params): band row l
+// is global row row_lo + l ("rows", part 1), or the causal snake's
+// (l / 2) 2D + (rank if l is even, else 2D - 1 - rank) ("zigzag", part 2;
+// core/shard.py _zz_global_row).
+struct RowShard {
+  int part, row_lo, rank, two_d;
+  __device__ __forceinline__ int global(int l) const {
+    if (part == 2)
+      return (l / 2) * two_d + ((l & 1) == 0 ? rank : two_d - 1 - rank);
+    return row_lo + l;
+  }
+};
+
+inline RowShard make_row_shard(const long long* a) {
+  RowShard r;
+  r.part = (int)a[0];
+  r.row_lo = (int)a[1];
+  r.rank = (int)a[2];
+  r.two_d = (int)a[3];
+  return r;
+}
+
 struct AttnParams {
   int b, h, hkv, sq, d, block_q, block_k, m_q, m_k, kind, window, off, s0,
       kv_blocks, sk_arr, lowering, dom, dom_w, dom_off, has_pos;

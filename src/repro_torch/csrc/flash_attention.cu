@@ -180,6 +180,20 @@
 // 32 rows re-reads its K/V tiles once per pass (from L2).  The online
 // softmax updates once per schedule tile: all block_k scores of a tile
 // are in shared memory before its row max is taken.
+//
+// Sharded (fa_forward_tc_bf16_sharded, fa_forward_tc_f32_sharded; this
+// source built with -DREPRO_SHARDED, a library of its own): the tile
+// paths instantiated with kShard, replacing _attn_kernel under the JAX
+// package's ShardedPlan(partition="rows" / "zigzag") (core/shard.py
+// _zz_global_row, _place_coords).  A launch is one rank's band of query
+// block rows: q and o hold the band, k and v the whole keys, and each
+// CTA's band row becomes its global row (RowShard: row_lo + l, or the
+// causal snake's) for the extent, the block mask and the key mask -- the
+// CTA then computes what the unsharded kernel's CTA of that row computes,
+// bit for bit.  The kShard = false instantiations compile to the SASS
+// they had before (the row map is one trailing argument they never
+// read).  Bound and design are the tile paths': a rank does 1 / D of the
+// work, in fewer CTAs.
 
 #include <cstdint>
 #include <type_traits>
@@ -503,14 +517,14 @@ __host__ __device__ inline size_t tc_smem_bytes(int d, int block_q) {
 // % 8 != 0), so it is copied in pieces of piece_bytes(2 d) -- 8, 4 or 2
 // bytes (copy_rows_pieces) -- and stored column by column where a pair
 // would not do (store_o).  The other instantiations keep their code.
-template <int DT, bool kRagged, bool kNarrow = false>
+template <int DT, bool kRagged, bool kNarrow = false, bool kShard = false>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     const int* __restrict__ ext,
                     const int* __restrict__ pos_vec,
-                    __nv_bfloat16* __restrict__ o) {
+                    __nv_bfloat16* __restrict__ o, RowShard rs) {
   constexpr int kStages = tc_stages(DT);
   constexpr int kStride = DT + kTcPad;  // shared row, bf16 elements
   constexpr int kNt = kTcSub / 8;       // score n-tiles of a sub-tile
@@ -525,6 +539,8 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
 
   int qb, bh;
   cta_tile(p, qb, bh);
+  const int ql = qb;  // the block row of q and o (a sharded band's own)
+  if constexpr (kShard) qb = rs.global(qb);  // masks and extents: global
   const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
   int start, end, pos;
   row_extent(p, qb, b, ext, pos_vec, start, end, pos);
@@ -534,7 +550,7 @@ flash_fwd_tc_kernel(AttnParams p, const __nv_bfloat16* __restrict__ q,
   const int d = p.d, bk = p.block_k;
   const int dpad = kRagged ? round16(d) : d;  // columns a shared row holds
   const int w = kNarrow ? ring::piece_bytes(2 * d) : 16;  // copied pieces
-  const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * d;
+  const size_t q_off = ((size_t)bh * p.sq + (size_t)ql * p.block_q) * d;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
   // ldmatrix row offsets of this lane: A (Q) tiles take matrices
   // (rows 0-7 | 8-15) x (cols 0-7 | 8-15) in register order, K's B tiles
@@ -799,14 +815,15 @@ __device__ __forceinline__ void pair_sync(int id) {
 // copied and stored as the bf16 kernel's kNarrow; with kExact, d pads up
 // to DT (f32 D 62: the exact loops over 64 columns, the last two
 // zero-filled) and the tensors' rows are p.d values apart.
-template <int DT, bool kExact, bool kRagged, bool kNarrow = false>
+template <int DT, bool kExact, bool kRagged, bool kNarrow = false,
+          bool kShard = false>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT > 64 ? 1 : 2)
 flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
                       const int* __restrict__ ext,
                       const int* __restrict__ pos_vec,
-                      float* __restrict__ o) {
+                      float* __restrict__ o, RowShard rs) {
   constexpr int kHalves = tf32_halves(DT);
   constexpr int kSub = tf32_sub(DT);
   constexpr int kPass = tf32_rows_per_pass(DT);
@@ -824,6 +841,8 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
 
   int qb, bh;
   cta_tile(p, qb, bh);
+  const int ql = qb;  // the block row of q and o (a sharded band's own)
+  if constexpr (kShard) qb = rs.global(qb);  // masks and extents: global
   const int b = bh / p.h, kvh = (bh % p.h) / (p.h / p.hkv);
   int start, end, pos;
   row_extent(p, qb, b, ext, pos_vec, start, end, pos);
@@ -838,7 +857,7 @@ flash_fwd_tf32_kernel(AttnParams p, const float* __restrict__ q,
   const int dr = kNarrow ? p.d : d;
   const int dpad = kRagged ? (d + 7) & ~7 : d;  // columns a shared row holds
   const int w = kNarrow ? ring::piece_bytes(4 * dr) : 16;  // copied pieces
-  const size_t q_off = ((size_t)bh * p.sq + (size_t)qb * p.block_q) * dr;
+  const size_t q_off = ((size_t)bh * p.sq + (size_t)ql * p.block_q) * dr;
   const size_t kv_head = ((size_t)b * p.hkv + kvh) * p.sk_arr;
   // ldmatrix row addresses of this lane (16-byte rows of 4 f32): Q's A
   // tiles (rows 0-7 | 8-15) x (cols 0-3 | 4-7) in register order, K's B
@@ -1165,14 +1184,15 @@ int launch_flash(const AttnParams& p, const T* q, const T* k, const T* v,
 template <typename T, typename K>
 int launch_tile_path(K kernel, size_t bytes, const AttnParams& p, const T* q,
                      const T* k, const T* v, const int* ext, const int* pos,
-                     T* o, cudaStream_t s, int pass = kTcRowsPerPass,
-                     int halves = 1) {
+                     T* o, const RowShard& rs, cudaStream_t s,
+                     int pass = kTcRowsPerPass, int halves = 1) {
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   const int rows = round16(p.block_q) < pass ? round16(p.block_q) : pass;
   const int warps = rows / kTcRowsPerWarp * halves;
   const long long ctas = (long long)p.b * p.h * p.m_q;
-  kernel<<<(unsigned)ctas, warps * 32, bytes, s>>>(p, q, k, v, ext, pos, o);
+  kernel<<<(unsigned)ctas, warps * 32, bytes, s>>>(p, q, k, v, ext, pos, o,
+                                                   rs);
   return (int)cudaGetLastError();
 }
 
@@ -1267,21 +1287,22 @@ int flash(const long long* params, float scale, const void* q, const void* k,
 }
 
 // A tile path's instantiation for its flags (narrow implies ragged).
-template <int DT>
+template <int DT, bool kShard>
 auto tc_kernel(bool ragged, bool narrow) {
-  return narrow   ? flash_fwd_tc_kernel<DT, true, true>
-         : ragged ? flash_fwd_tc_kernel<DT, true>
-                  : flash_fwd_tc_kernel<DT, false>;
+  return narrow   ? flash_fwd_tc_kernel<DT, true, true, kShard>
+         : ragged ? flash_fwd_tc_kernel<DT, true, false, kShard>
+                  : flash_fwd_tc_kernel<DT, false, false, kShard>;
 }
-template <int DT>
+template <int DT, bool kShard>
 auto tf32_kernel(bool exact, bool ragged, bool narrow) {
   if (narrow)
-    return exact ? flash_fwd_tf32_kernel<DT, true, true, true>
-                 : flash_fwd_tf32_kernel<DT, false, true, true>;
-  return exact ? (ragged ? flash_fwd_tf32_kernel<DT, true, true>
-                         : flash_fwd_tf32_kernel<DT, true, false>)
-               : (ragged ? flash_fwd_tf32_kernel<DT, false, true>
-                         : flash_fwd_tf32_kernel<DT, false, false>);
+    return exact ? flash_fwd_tf32_kernel<DT, true, true, true, kShard>
+                 : flash_fwd_tf32_kernel<DT, false, true, true, kShard>;
+  if (exact)
+    return ragged ? flash_fwd_tf32_kernel<DT, true, true, false, kShard>
+                  : flash_fwd_tf32_kernel<DT, true, false, false, kShard>;
+  return ragged ? flash_fwd_tf32_kernel<DT, false, true, false, kShard>
+                : flash_fwd_tf32_kernel<DT, false, false, false, kShard>;
 }
 
 // The tile paths copy rows in pieces of up to 16 bytes from q, k and v on
@@ -1294,9 +1315,10 @@ bool tile_aligned(const void* q, const void* k, const void* v,
 // The tc kernel takes any block_q and block_k and any d up to 256 (the
 // ragged instantiation where one of the three is not a multiple of 16,
 // the narrow one where a row is no whole number of 16-byte pieces).
+template <bool kShard>
 int flash_tc(const long long* params, float scale, const void* q,
              const void* k, const void* v, const int* ext, const int* pos,
-             void* o, cudaStream_t s) {
+             void* o, const RowShard& rs, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
   if (p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
@@ -1307,10 +1329,10 @@ int flash_tc(const long long* params, float scale, const void* q,
   const size_t bytes = tc_smem_bytes(p.d, p.block_q);
   const bool ragged = p.block_q % 16 || p.block_k % 16 || p.d % 16;
   const bool narrow = ring::piece_bytes(2 * p.d) < 16;
-  auto kernel = tc_dt(p.d) == 64    ? tc_kernel<64>(ragged, narrow)
-                : tc_dt(p.d) == 128 ? tc_kernel<128>(ragged, narrow)
-                                    : tc_kernel<256>(ragged, narrow);
-  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s);
+  auto kernel = tc_dt(p.d) == 64    ? tc_kernel<64, kShard>(ragged, narrow)
+                : tc_dt(p.d) == 128 ? tc_kernel<128, kShard>(ragged, narrow)
+                                    : tc_kernel<256, kShard>(ragged, narrow);
+  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, rs, s);
 }
 
 // The tf32 kernel takes any block_q and block_k and any d up to 256
@@ -1319,9 +1341,10 @@ int flash_tc(const long long* params, float scale, const void* q,
 // sub-tiles) run where d is dt and block_k a multiple of the sub-tile or
 // the call ragged, and on narrow calls whose d pads up to dt (the columns
 // from d to dt zero-filled).
+template <bool kShard>
 int flash_tf32(const long long* params, float scale, const void* q,
                const void* k, const void* v, const int* ext, const int* pos,
-               void* o, cudaStream_t s) {
+               void* o, const RowShard& rs, cudaStream_t s) {
   const AttnParams p = make_params(params, scale);
   if (p.d > 256 || !tile_aligned(q, k, v, o))
     return (int)cudaErrorInvalidValue;
@@ -1335,10 +1358,10 @@ int flash_tf32(const long long* params, float scale, const void* q,
   const bool narrow = ring::piece_bytes(4 * p.d) < 16;
   const bool exact = (narrow ? (p.d + 7) & ~7 : p.d) == dt &&
                      (ragged || p.block_k % tf32_sub(dt) == 0);
-  auto kernel = dt == 64    ? tf32_kernel<64>(exact, ragged, narrow)
-                : dt == 128 ? tf32_kernel<128>(exact, ragged, narrow)
-                            : tf32_kernel<256>(exact, ragged, narrow);
-  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, s,
+  auto kernel = dt == 64    ? tf32_kernel<64, kShard>(exact, ragged, narrow)
+                : dt == 128 ? tf32_kernel<128, kShard>(exact, ragged, narrow)
+                            : tf32_kernel<256, kShard>(exact, ragged, narrow);
+  return launch_tile_path(kernel, bytes, p, qq, kk, vv, ext, pos, oo, rs, s,
                           tf32_rows_per_pass(dt), tf32_halves(dt));
 }
 
@@ -1346,6 +1369,7 @@ int flash_tf32(const long long* params, float scale, const void* q,
 
 extern "C" {
 
+#ifndef REPRO_SHARDED
 // o = flash attention of q (B, H, Sq, d) over k, v (B, Hkv, Sk_arr, d),
 // all contiguous and of one dtype; params: ATTN_PARAMS order.  ext: the
 // (m_q, 2) int32 row extents under prefetch_lut, else null.  pos: the (B,)
@@ -1369,8 +1393,8 @@ int fa_forward_bf16(const long long* params, float scale, const void* q,
 int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
                        const void* k, const void* v, const int* ext,
                        const int* pos, void* o, void* stream) {
-  return flash_tc(params, scale, q, k, v, ext, pos, o,
-                  static_cast<cudaStream_t>(stream));
+  return flash_tc<false>(params, scale, q, k, v, ext, pos, o, RowShard{},
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The same in f32 on the tensor cores (flash_fwd_tf32_kernel, 3xTF32):
@@ -1378,8 +1402,8 @@ int fa_forward_tc_bf16(const long long* params, float scale, const void* q,
 int fa_forward_tc_f32(const long long* params, float scale, const void* q,
                       const void* k, const void* v, const int* ext,
                       const int* pos, void* o, void* stream) {
-  return flash_tf32(params, scale, q, k, v, ext, pos, o,
-                    static_cast<cudaStream_t>(stream));
+  return flash_tf32<false>(params, scale, q, k, v, ext, pos, o, RowShard{},
+                           static_cast<cudaStream_t>(stream));
 }
 
 // o (B, H, 1, d) = single-token decode of q (B, H, 1, d) over the caches
@@ -1452,6 +1476,33 @@ int fa_decode_split_keys() { return dec::kSplitKeys; }
 long long fa_smem_bytes(int d, int block_k) {
   return (long long)(smem_floats(d, block_k) * sizeof(float));
 }
+
+#else
+// One rank's band of a query-axis sharded call on the tile paths (the
+// kShard instantiations; this source built with -DREPRO_SHARDED, a
+// library of its own): q and o hold the band's m_q block rows (params'
+// m_q and sq are the band's), k and v the whole keys; shard is
+// [partition (1 rows, 2 zigzag), row_lo, rank, 2 D] (RowShard), which maps
+// a band row to the global row its masks and extents (ext: the global
+// (m_q, 2) table) follow.
+int fa_forward_tc_bf16_sharded(const long long* params, float scale,
+                               const void* q, const void* k, const void* v,
+                               const int* ext, const int* pos, void* o,
+                               const long long* shard, void* stream) {
+  return flash_tc<true>(params, scale, q, k, v, ext, pos, o,
+                        make_row_shard(shard),
+                        static_cast<cudaStream_t>(stream));
+}
+
+int fa_forward_tc_f32_sharded(const long long* params, float scale,
+                              const void* q, const void* k, const void* v,
+                              const int* ext, const int* pos, void* o,
+                              const long long* shard, void* stream) {
+  return flash_tf32<true>(params, scale, q, k, v, ext, pos, o,
+                          make_row_shard(shard),
+                          static_cast<cudaStream_t>(stream));
+}
+#endif  // REPRO_SHARDED
 
 // Dynamic shared memory of one CTA of the tc kernel at (d, block_q).
 long long fa_tc_smem_bytes(int d, int block_q) {

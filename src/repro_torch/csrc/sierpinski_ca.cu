@@ -90,10 +90,28 @@
 //     an invalid compact neighbour reads slot (0, 0), and only the
 //     in-range test and the domain's contains() (at block granularity)
 //     mask values.
+//
+// Sharded (sc_ca_launch_sharded; this source built with -DREPRO_SHARDED,
+// a library of its own): the same kernel instantiated with kShard, over
+// one rank's steps of a domain split by repro_torch.core.shard.
+// ShardedPlan (shard_common.cuh), resolved one ring step ahead as above
+// by shard_decode (resolve_shard; under mma: B7a for the block
+// and the own slot, B7b for the neighbours, one step a pass -- a phase
+// launch's steps are not an arithmetic run, so the sixteen-step batch
+// does not apply).  Under compact storage src and dst are the rank's
+// extended arrays [slab ++ ghost rows ++ dump row]: every slot's global
+// slot row goes through the ghost map (the own block's to its slab row,
+// a neighbour's to its slab or ghost row), and the store writes the slab.
+// Embedded storage reads and writes the replicated arrays as the
+// unsharded kernel does.  The kShard = false instantiations compile to
+// the SASS they had before: the shard parameters are one trailing kernel
+// argument that they never read, and resolve_shard is a lambda of its own
+// beside resolve.
 
 #include "async_ring.cuh"
 #include "fractal_common.cuh"
 #include "mma_decode.cuh"
+#include "shard_common.cuh"
 
 namespace {
 
@@ -265,15 +283,15 @@ __device__ __forceinline__ bool decode_step(const FracParams& p,
     return generic_decode(p, lut, t, bx, by);
 }
 
-template <bool kShared, int kDom, bool kMma>
+template <bool kShared, int kDom, bool kMma, bool kShard = false>
 __global__ void __launch_bounds__(kThreads, 4)
 ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 FracParams p, CaArgs ca, const int* __restrict__ lut,
                 const int* __restrict__ perm, const int* __restrict__ ops,
                 unsigned char* __restrict__ scratch,
-                long long scratch_per_cta) {
+                long long scratch_per_cta, ShardParams sh) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = ca.stages, E = ring_entries(kMma, S);
+  const int S = ca.stages, E = ring_entries(kMma && !kShard, S);
   const int s = p.coarsen, nfine = p.nfine, block = p.block;
   // the ring's entries and the CTA's tables (shared memory); under mma on
   // a fractal, each lane's digit magics (pow_magic of k, then of m)
@@ -367,6 +385,72 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
         fractal_origin(p, lut, t, bx, by, lane, row, col);
       else
         generic_origin_at(p, lut, t, bx, by, lane, row, col);
+    }
+    if (lane == 0) {
+      e.t = t;
+      e.bx = bx;
+      e.by = by;
+    }
+    finish(e, bx, by, row, col);
+  };
+  // a sharded launch: the rank's next step into entry k % E (warp 0,
+  // converged), decoded by shard_decode; under compact storage each
+  // slot's global slot row goes through the ghost map to its row of the
+  // extended arrays, and under mma the own slot comes from B7a and the
+  // neighbours from B7b (lane l < 9 takes slot l, neighbour g's result
+  // from lane 4 g)
+  auto resolve_shard = [&](int k) {
+    if (warp != 0) return;
+    Entry& e = ent[k % E];
+    long long t = -1;
+    unsigned bx = 0, by = 0;
+    // bounding: 32 of the CTA's steps a test, the first owned member kept
+    const long long batch = p.lowering == kBounding ? 32 : 1;
+    while (cursor < p.steps) {
+      const long long c =
+          cursor + (batch > 1 ? (long long)lane * gridDim.x : 0);
+      unsigned cx = 0, cy = 0;
+      const bool ok = c < p.steps &&
+                      shard_decode<kDom, kMma>(p, sh, lut, ops, c, lane, cx,
+                                               cy);
+      const unsigned bal = __ballot_sync(kFullMask, ok);
+      if (bal) {
+        const int src_lane = __ffs(bal) - 1;
+        t = __shfl_sync(kFullMask, c, src_lane);
+        bx = __shfl_sync(kFullMask, cx, src_lane);
+        by = __shfl_sync(kFullMask, cy, src_lane);
+        cursor = t + gridDim.x;
+        break;
+      }
+      cursor += batch * gridDim.x;
+    }
+    long long row = 0, col = 0;
+    if (t >= 0 && compact) {
+      const long long st = sched_step(sh, t);
+      if constexpr (kMma && kDom == kFractalDom) {
+        unsigned cbx, cby, sx, sy, sxa, sya, sxb, syb;
+        bool oka, okb;
+        fractal_chain(p, ops, (unsigned)canonical_step<kDom>(p, sh, st),
+                      lane, true, cbx, cby, sx, sy);
+        fractal_nbrs_pair(p, ops, bx, by, bx, by, lane, dmag[32 + lane],
+                          sxa, sya, oka, sxb, syb, okb);
+        const int dx = lane % 3 - 1, dy = lane / 3 % 3 - 1;
+        int g = 0;
+        for (int j = 0; j < 8; ++j)
+          if (kNbrDx[j] == dx && kNbrDy[j] == dy) g = j;
+        const unsigned nsx = __shfl_sync(kFullMask, sxa, 4 * g);
+        const unsigned nsy = __shfl_sync(kFullMask, sya, 4 * g);
+        const bool nok = __shfl_sync(kFullMask, (int)oka, 4 * g) != 0;
+        const bool own = lane == 4;
+        row = own ? (long long)sy * p.th : nok ? (long long)nsy * p.th : -1;
+        col = own ? (long long)sx * p.tw : nok ? (long long)nsx * p.tw : -1;
+      } else if (lane < kOriginSlots) {
+        if constexpr (kDom == kFractalDom)
+          fractal_origin(p, lut, st, bx, by, lane, row, col);
+        else
+          generic_origin_at(p, lut, st, bx, by, lane, row, col);
+      }
+      if (lane < kOriginSlots) row = ghost_row(p, sh, row);
     }
     if (lane == 0) {
       e.t = t;
@@ -651,7 +735,10 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
   };
 
   // -- the ring: prologue, then one step per iteration -------------------
-  if constexpr (kMma) {
+  if constexpr (kShard) {
+    if constexpr (kMma) __syncthreads();  // the digit magics are written
+    for (int k = 0; k < S; ++k) resolve_shard(k);
+  } else if constexpr (kMma) {
     __syncthreads();  // the digit magics are written
     resolve_batch(0);  // S <= kStepsBatch entries are needed first
   } else {
@@ -678,7 +765,9 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
     }
     // entry (i + S) % E held step i - 1, which is done; a batch's entries
     // (i + S .. i + S + 15) % E held steps i - 16 .. i - 1
-    if constexpr (kMma) {
+    if constexpr (kShard) {
+      resolve_shard(i + S);
+    } else if constexpr (kMma) {
       if ((i + S) % kStepsBatch == 0) resolve_batch(i + S);
     } else {
       resolve(i + S);
@@ -774,9 +863,9 @@ long long walk_ctas(const FracParams& p, long long ctas) {
 // The persistent grid of the shared-memory path at `bytes` a CTA: as
 // many CTAs as reside on the card at once (the occupancy calculator, per
 // SM, times the SMs), at most one a step (walk_ctas); 0 when none fits.
-template <int kDom, bool kMma>
+template <int kDom, bool kMma, bool kShard = false>
 long long resident_ctas(const FracParams& p, int threads, int bytes) {
-  auto kernel = ca_fused_kernel<true, kDom, kMma>;
+  auto kernel = ca_fused_kernel<true, kDom, kMma, kShard>;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes) != cudaSuccess)
@@ -805,33 +894,85 @@ int complete_args(const FracParams& p, CaArgs& ca) {
   return depth;
 }
 
-// One fused launch of the instantiation of the domain kind and lowering.
-template <int kDom, bool kMma>
+// One fused launch of the instantiation of the domain kind, lowering and
+// sharding.
+template <int kDom, bool kMma, bool kShard>
 cudaError_t launch_ca(const float* src, float* dst, const FracParams& p,
                       CaArgs ca, const int* lut, const int* perm,
                       const int* ops, unsigned char* scratch,
-                      cudaStream_t s) {
+                      const ShardParams& sh, cudaStream_t s) {
   const int depth = complete_args(p, ca);
   const long long tile_bytes = ca_geom(ca.wid).base_bytes(ca.wid, ca.stages);
   if (depth > 0) {
     const int bytes = ca.meta_bytes + (int)tile_bytes;
     const int threads = threads_for(ca.wid);
-    const long long ctas = resident_ctas<kDom, kMma>(p, threads, bytes);
+    const long long ctas =
+        resident_ctas<kDom, kMma, kShard>(p, threads, bytes);
     if (ctas < 1) return cudaErrorInvalidConfiguration;
-    ca_fused_kernel<true, kDom, kMma><<<(unsigned)ctas, threads, bytes, s>>>(
-        src, dst, p, ca, lut, perm, ops, nullptr, 0);
+    ca_fused_kernel<true, kDom, kMma, kShard>
+        <<<(unsigned)ctas, threads, bytes, s>>>(src, dst, p, ca, lut, perm,
+                                                ops, nullptr, 0, sh);
   } else {
     if (scratch == nullptr) return cudaErrorInvalidValue;
-    auto kernel = ca_fused_kernel<false, kDom, kMma>;
+    auto kernel = ca_fused_kernel<false, kDom, kMma, kShard>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ca.meta_bytes);
     if (err != cudaSuccess) return err;
     kernel<<<(unsigned)walk_ctas(p, scratch_ctas(p.steps)),
              threads_for(ca.wid), ca.meta_bytes, s>>>(
-        src, dst, p, ca, lut, perm, ops, scratch, tile_bytes);
+        src, dst, p, ca, lut, perm, ops, scratch, tile_bytes, sh);
   }
   return cudaGetLastError();
 }
+
+bool aligned16(const void* x);
+
+// One fused launch (sc_ca_launch and sc_ca_launch_sharded): the
+// arguments checked, the instantiation picked.
+template <bool kShard>
+int ca_entry(const float* src, float* dst, const long long* params,
+             const int* lut, const int* perm, const int* ops, int halo,
+             int nsteps, int rule, float alpha, int stages,
+             unsigned char* scratch, const ShardParams& sh, void* stream) {
+  const FracParams p = make_params(params);
+  CaArgs ca;
+  ca.halo = halo;
+  ca.nsteps = nsteps;
+  ca.rule = rule;
+  ca.alpha = alpha;
+  ca.wid = (int)p.span + 2 * halo;
+  ca.stages = stages;
+  if (nsteps < 1 || nsteps > halo || halo > (int)p.span || stages < 1 ||
+      stages > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  if (p.steps == 0) return (int)cudaSuccess;
+  // 16-byte pieces: fine blocks start on piece boundaries in both memories
+  const bool vec = p.block % 4 == 0 && p.pitch % 4 == 0 && aligned16(src) &&
+                   aligned16(dst);
+  ca.pc = vec ? 4 : 1;
+  ca.pad = vec ? (4 - halo % 4) % 4 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool mma = p.lowering == kMma;
+  const bool generic =
+      p.family == kTriangular || p.family == kBand || p.family == kBox;
+  cudaError_t err;
+  if (generic)
+    err = mma ? launch_ca<kGenericDom, true, kShard>(src, dst, p, ca, lut,
+                                                     perm, ops, scratch, sh,
+                                                     s)
+              : launch_ca<kGenericDom, false, kShard>(src, dst, p, ca, lut,
+                                                      perm, ops, scratch, sh,
+                                                      s);
+  else
+    err = mma ? launch_ca<kFractalDom, true, kShard>(src, dst, p, ca, lut,
+                                                     perm, ops, scratch, sh,
+                                                     s)
+              : launch_ca<kFractalDom, false, kShard>(src, dst, p, ca, lut,
+                                                      perm, ops, scratch, sh,
+                                                      s);
+  return (int)err;
+}
+
 
 bool aligned16(const void* x) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -851,6 +992,7 @@ long long sc_scratch_bytes(const long long* params, int halo, int stages) {
   return g.base_bytes(wid, 1) * scratch_ctas(p.steps);
 }
 
+#ifndef REPRO_SHARDED
 // The ring's slots a launch at params with halo h and `stages` requested
 // runs: the deepest that fits shared memory, 0 on the global-scratch path.
 int sc_ring_depth(const long long* params, int halo, int stages) {
@@ -888,40 +1030,29 @@ int sc_ca_launch(const float* src, float* dst, const long long* params,
                  const int* lut, const int* perm, const int* ops, int halo,
                  int nsteps, int rule, float alpha, int stages,
                  unsigned char* scratch, void* stream) {
-  const FracParams p = make_params(params);
-  CaArgs ca;
-  ca.halo = halo;
-  ca.nsteps = nsteps;
-  ca.rule = rule;
-  ca.alpha = alpha;
-  ca.wid = (int)p.span + 2 * halo;
-  ca.stages = stages;
-  if (nsteps < 1 || nsteps > halo || halo > (int)p.span || stages < 1 ||
-      stages > kMaxStages)
-    return (int)cudaErrorInvalidValue;
-  if (p.steps == 0) return (int)cudaSuccess;
-  // 16-byte pieces: fine blocks start on piece boundaries in both memories
-  const bool vec = p.block % 4 == 0 && p.pitch % 4 == 0 && aligned16(src) &&
-                   aligned16(dst);
-  ca.pc = vec ? 4 : 1;
-  ca.pad = vec ? (4 - halo % 4) % 4 : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = p.lowering == kMma;
-  const bool generic =
-      p.family == kTriangular || p.family == kBand || p.family == kBox;
-  cudaError_t err;
-  if (generic)
-    err = mma ? launch_ca<kGenericDom, true>(src, dst, p, ca, lut, perm, ops,
-                                             scratch, s)
-              : launch_ca<kGenericDom, false>(src, dst, p, ca, lut, perm,
-                                              ops, scratch, s);
-  else
-    err = mma ? launch_ca<kFractalDom, true>(src, dst, p, ca, lut, perm, ops,
-                                             scratch, s)
-              : launch_ca<kFractalDom, false>(src, dst, p, ca, lut, perm,
-                                              ops, scratch, s);
-  return (int)err;
+  return ca_entry<false>(src, dst, params, lut, perm, ops, halo, nsteps,
+                         rule, alpha, stages, scratch, ShardParams{},
+                         stream);
 }
+
+#else
+// sc_ca_launch over one rank's steps of a sharded domain: src and dst its
+// local buffers (the replicated arrays, or the extended arrays [slab ++
+// ghost rows ++ dump row] under storage-rows, whose slab rows dst
+// receives); shard holds the SHARD_PARAMS (core/shard.py), gmap the rank's
+// ghost map (storage-rows, else null), phase a phase launch's scheduled
+// steps (else null); params' steps are the rank's, lut its LUT chunk.
+int sc_ca_launch_sharded(const float* src, float* dst,
+                         const long long* params, const int* lut,
+                         const int* perm, const int* ops, int halo,
+                         int nsteps, int rule, float alpha, int stages,
+                         unsigned char* scratch, const long long* shard,
+                         const int* gmap, const int* phase, void* stream) {
+  return ca_entry<true>(src, dst, params, lut, perm, ops, halo, nsteps, rule,
+                        alpha, stages, scratch,
+                        make_shard(shard, gmap, phase), stream);
+}
+#endif  // REPRO_SHARDED
 
 const char* cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));

@@ -71,9 +71,21 @@
 //     a multiple of eight steps, so only the launch's last batch runs
 //     short);
 //   * cell offsets are 64-bit: an n = 2^16 state has 2^32 cells.
+//
+// Sharded (sw_write_sharded, sw_sum_partials_sharded; this source built
+// with -DREPRO_SHARDED, a library of its own): write_shard_kernel and
+// sum_shard_kernel, the same bodies over one rank's steps of a domain
+// split by repro_torch.core.shard.ShardedPlan (shard_common.cuh) -- its
+// range of the lambda enumeration on the replicated embedded state, or
+// its slab of packed rows.  A warp takes its steps one at a time
+// (shard_decode: the digit loop, a chain, or the rank's LUT chunk at the
+// step's canonical index; the bounding grid's ownership test), then visits
+// the tile with the unsharded kernels' cell loops, so a rank's partials
+// are the unsharded kernel's partials of its blocks, bit for bit.
 
 #include "fractal_common.cuh"
 #include "mma_decode.cuh"
+#include "shard_common.cuh"
 
 namespace {
 
@@ -274,6 +286,30 @@ __device__ __forceinline__ void for_each_step(const FracParams& p,
   }
 }
 
+// for_each_step for one rank of a sharded launch: a warp takes its steps
+// of a run one at a time (shard_decode; a chain's step is warp-uniform),
+// and the tile lies in the rank's local array (shard_origin).
+template <int kDom, bool kMma, typename Visit>
+__device__ __forceinline__ void for_each_shard_step(
+    const FracParams& p, const ShardParams& sh, const int* __restrict__ lut,
+    const int* __restrict__ ops, long long run, Visit&& visit) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long nruns = (p.steps + run - 1) / run;
+  for (long long r = blockIdx.x; r < nruns; r += gridDim.x) {
+    const long long end = min(r * run + run, p.steps);
+    for (long long t = r * run + warp; t < end; t += kWarps) {
+      unsigned bx = 0, by = 0;
+      const bool live = shard_decode<kDom, kMma>(p, sh, lut, ops, t, lane,
+                                                 bx, by);
+      Tile tl{};
+      if (live) shard_origin<kDom>(p, sh, t, bx, by, tl.row0, tl.col0);
+      tl.x0 = bx * p.span;
+      tl.y0 = by * p.span;
+      visit(t, live, tl);
+    }
+  }
+}
+
 // Call f(srow, scol, ox0, oy0) for each fine block of a supertile, in
 // embedded order: its storage row/col offset in the supertile and its
 // cell offset inside the superblock.  kTiled is false when the supertile
@@ -450,6 +486,77 @@ sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,
   });
 }
 
+// The sharded kernels: write_kernel's and sum_partials_kernel's bodies over
+// one rank's steps (for_each_shard_step).  They stand beside the unsharded
+// kernels instead of a kShard branch inside them, which moved the register
+// allocation of ten unsharded instantiations.
+template <int kDom, bool kMma, bool kTiled, typename W>
+__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+write_shard_kernel(W* __restrict__ m, W value, FracParams p, Cells L,
+                   long long run, const int* __restrict__ lut,
+                   const int* __restrict__ perm,
+                   const int* __restrict__ ops, ShardParams sh) {
+  constexpr int kV = 16 / sizeof(W);
+  constexpr bool kFrac = kDom == kFractalDom;
+  const int lane = threadIdx.x & 31;
+  const unsigned full = L.wide ? (1u << kV) - 1 : 1u;
+  const uint4 vv = splat(value);
+  for_each_shard_step<kDom, kMma>(p, sh, lut, ops, run,
+                                  [&](long long, bool live,
+                                      const Tile& tl) {
+    if (!live) return;
+    for_each_fine<kTiled>(p, perm, [&](long long srow, long long scol,
+                                       unsigned ox0, unsigned oy0) {
+      W* base = m + (tl.row0 + srow) * p.pitch + tl.col0 + scol;
+      for_each_chunk<kV, kFrac>(p, L, lane, tl.x0 + ox0, tl.y0 + oy0, ox0,
+                                oy0, [&](long long off, unsigned bits) {
+        W* cell = base + off;
+        if (L.vec && bits == full) {
+          *reinterpret_cast<uint4*>(cell) = vv;
+          return;
+        }
+#pragma unroll
+        for (int e = 0; e < kV; ++e)
+          if ((bits >> e) & 1u) cell[e] = value;
+      });
+    });
+  });
+}
+
+template <int kDom, bool kMma, bool kTiled, int DT>
+__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+sum_shard_kernel(const void* __restrict__ m, float* __restrict__ partials,
+                 FracParams p, Cells L, long long run,
+                 const int* __restrict__ lut, const int* __restrict__ perm,
+                 const int* __restrict__ ops, ShardParams sh) {
+  constexpr int kV = DT == kBF16 ? 8 : 4;
+  constexpr bool kFrac = kDom == kFractalDom;
+  const int lane = threadIdx.x & 31;
+  const int va = L.wide ? kV : 1;
+  for_each_shard_step<kDom, kMma>(p, sh, lut, ops, run,
+                                  [&](long long t, bool live,
+                                      const Tile& tl) {
+    float acc = 0.0f;
+    if (live) {
+      for_each_fine<kTiled>(p, perm, [&](long long srow, long long scol,
+                                         unsigned ox0, unsigned oy0) {
+        const long long base = (tl.row0 + srow) * p.pitch + tl.col0 + scol;
+        for_each_chunk<kV, kFrac>(p, L, lane, tl.x0 + ox0, tl.y0 + oy0,
+                                  ox0, oy0, [&](long long off,
+                                                unsigned bits) {
+          if (bits != 0) acc = add_chunk<DT, kV>(acc, m, base + off, L.vec,
+                                                 va, bits);
+        });
+      });
+      // fixed butterfly: every lane ends with the same bits (a + b == b + a)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(kFullMask, acc, o);
+    }
+    if (lane == 0) partials[t] = acc;  // 0 for a discarded bounding step
+  });
+}
+
 // One thread adds the partials in step order (the JAX package's order).
 // The other threads of the CTA stage the next chunk of partials into
 // shared memory while it adds the current one, so the chain waits on
@@ -525,115 +632,167 @@ cudaError_t persistent(const void* kernel, int& per_sm, long long steps,
   return cudaSuccess;
 }
 
-// One launch of write_kernel: the instantiation of the domain kind, the
-// lowering and the tiling (a supertile of more than one fine block).
-template <int kDom, bool kMma, bool kTiled, typename W>
-cudaError_t launch_write_as(W* m, W value, const FracParams& p,
-                            const int* lut, const int* perm, const int* ops,
-                            cudaStream_t s) {
-  static int per_sm = 0;  // one per instantiation
-  auto* kernel = write_kernel<kDom, kMma, kTiled, W>;
-  const Cells L = cells_of(p, sizeof(W), m);
+// The operands of one launch beside the state: the tables and, for a
+// sharded launch, the rank's shard parameters (kShard).
+struct Tables {
+  const int* lut;
+  const int* perm;
+  const int* ops;
+  ShardParams sh;
+};
+
+// Find the persistent grid of `kernel`, then go(grid, run).
+template <typename F>
+cudaError_t launch_persistent(const void* kernel, int& per_sm, long long steps,
+                              int batch, F&& go) {
   long long run = 0;
   unsigned grid = 0;
-  const int batch = kMma && kDom == kGenericDom ? kRowsBatch : 1;
-  const cudaError_t e = persistent((const void*)kernel, per_sm, p.steps,
-                                   batch, run, grid);
+  const cudaError_t e = persistent(kernel, per_sm, steps, batch, run, grid);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, 0, s>>>(m, value, p, L, run, lut, perm, ops);
+  go(grid, run);
   return cudaGetLastError();
 }
 
-template <int kDom, bool kMma, typename W>
-cudaError_t launch_write_tiled(W* m, W value, const FracParams& p,
-                               const int* lut, const int* perm,
-                               const int* ops, cudaStream_t s) {
-  if (kDom == kFractalDom && p.nfine > 1)
-    return launch_write_as<kDom, kMma, true>(m, value, p, lut, perm, ops, s);
-  return launch_write_as<kDom, kMma, false>(m, value, p, lut, perm, ops, s);
+// One launch of write_kernel (or write_shard_kernel): the instantiation of
+// the domain kind, the lowering, the tiling (a supertile of more than one
+// fine block) and the sharding.
+template <int kDom, bool kMma, bool kTiled, bool kShard, typename W>
+cudaError_t launch_write_as(W* m, W value, const FracParams& p,
+                            const Tables& tb, cudaStream_t s) {
+  static int per_sm = 0;  // one per instantiation
+  const Cells L = cells_of(p, sizeof(W), m);
+  if constexpr (kShard) {
+    auto* kernel = write_shard_kernel<kDom, kMma, kTiled, W>;
+    return launch_persistent(
+        (const void*)kernel, per_sm, p.steps, 1,
+        [&](unsigned grid, long long run) {
+          kernel<<<grid, kThreads, 0, s>>>(m, value, p, L, run, tb.lut,
+                                           tb.perm, tb.ops, tb.sh);
+        });
+  } else {
+    auto* kernel = write_kernel<kDom, kMma, kTiled, W>;
+    const int batch = kMma && kDom == kGenericDom ? kRowsBatch : 1;
+    return launch_persistent(
+        (const void*)kernel, per_sm, p.steps, batch,
+        [&](unsigned grid, long long run) {
+          kernel<<<grid, kThreads, 0, s>>>(m, value, p, L, run, tb.lut,
+                                           tb.perm, tb.ops);
+        });
+  }
 }
 
-template <typename W>
-cudaError_t launch_write(W* m, W value, const FracParams& p, const int* lut,
-                         const int* perm, const int* ops, cudaStream_t s) {
+template <int kDom, bool kMma, bool kShard, typename W>
+cudaError_t launch_write_tiled(W* m, W value, const FracParams& p,
+                               const Tables& tb, cudaStream_t s) {
+  if (kDom == kFractalDom && p.nfine > 1)
+    return launch_write_as<kDom, kMma, true, kShard>(m, value, p, tb, s);
+  return launch_write_as<kDom, kMma, false, kShard>(m, value, p, tb, s);
+}
+
+template <bool kShard, typename W>
+cudaError_t launch_write(W* m, W value, const FracParams& p,
+                         const Tables& tb, cudaStream_t s) {
   const bool mma = p.lowering == kMma;
   if (generic_family(p))
-    return mma ? launch_write_as<kGenericDom, true, false>(m, value, p, lut,
-                                                           perm, ops, s)
-               : launch_write_as<kGenericDom, false, false>(m, value, p,
-                                                            lut, perm, ops,
-                                                            s);
-  return mma ? launch_write_tiled<kFractalDom, true>(m, value, p, lut, perm,
-                                                     ops, s)
-             : launch_write_tiled<kFractalDom, false>(m, value, p, lut,
-                                                      perm, ops, s);
+    return mma ? launch_write_as<kGenericDom, true, false, kShard>(
+                     m, value, p, tb, s)
+               : launch_write_as<kGenericDom, false, false, kShard>(
+                     m, value, p, tb, s);
+  return mma ? launch_write_tiled<kFractalDom, true, kShard>(m, value, p, tb,
+                                                             s)
+             : launch_write_tiled<kFractalDom, false, kShard>(m, value, p,
+                                                              tb, s);
 }
 
-template <int kDom, bool kMma, bool kTiled, int DT>
+template <int kDom, bool kMma, bool kTiled, bool kShard, int DT>
 cudaError_t launch_sum_as(const void* m, float* partials, const FracParams& p,
-                          const int* lut, const int* perm, const int* ops,
-                          cudaStream_t s) {
+                          const Tables& tb, cudaStream_t s) {
   static int per_sm = 0;  // one per instantiation
-  auto* kernel = sum_partials_kernel<kDom, kMma, kTiled, DT>;
   const Cells L = cells_of(p, DT == kBF16 ? 2 : 4, m);
-  long long run = 0;
-  unsigned grid = 0;
-  const int batch = kMma && kDom == kGenericDom ? kRowsBatch : 1;
-  const cudaError_t e = persistent((const void*)kernel, per_sm, p.steps,
-                                   batch, run, grid);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, 0, s>>>(m, partials, p, L, run, lut, perm, ops);
-  return cudaGetLastError();
+  if constexpr (kShard) {
+    auto* kernel = sum_shard_kernel<kDom, kMma, kTiled, DT>;
+    return launch_persistent(
+        (const void*)kernel, per_sm, p.steps, 1,
+        [&](unsigned grid, long long run) {
+          kernel<<<grid, kThreads, 0, s>>>(m, partials, p, L, run, tb.lut,
+                                           tb.perm, tb.ops, tb.sh);
+        });
+  } else {
+    auto* kernel = sum_partials_kernel<kDom, kMma, kTiled, DT>;
+    const int batch = kMma && kDom == kGenericDom ? kRowsBatch : 1;
+    return launch_persistent(
+        (const void*)kernel, per_sm, p.steps, batch,
+        [&](unsigned grid, long long run) {
+          kernel<<<grid, kThreads, 0, s>>>(m, partials, p, L, run, tb.lut,
+                                           tb.perm, tb.ops);
+        });
+  }
 }
 
-template <int kDom, bool kMma, int DT>
+template <int kDom, bool kMma, bool kShard, int DT>
 cudaError_t launch_sum_tiled(const void* m, float* partials,
-                             const FracParams& p, const int* lut,
-                             const int* perm, const int* ops,
+                             const FracParams& p, const Tables& tb,
                              cudaStream_t s) {
   if (kDom == kFractalDom && p.nfine > 1)
-    return launch_sum_as<kDom, kMma, true, DT>(m, partials, p, lut, perm,
-                                               ops, s);
-  return launch_sum_as<kDom, kMma, false, DT>(m, partials, p, lut, perm, ops,
-                                              s);
+    return launch_sum_as<kDom, kMma, true, kShard, DT>(m, partials, p, tb, s);
+  return launch_sum_as<kDom, kMma, false, kShard, DT>(m, partials, p, tb, s);
 }
 
-template <int DT>
+template <bool kShard, int DT>
 cudaError_t launch_sum(const void* m, float* partials, const FracParams& p,
-                       const int* lut, const int* perm, const int* ops,
-                       cudaStream_t s) {
+                       const Tables& tb, cudaStream_t s) {
   const bool mma = p.lowering == kMma;
   if (generic_family(p))
-    return mma ? launch_sum_as<kGenericDom, true, false, DT>(
-                     m, partials, p, lut, perm, ops, s)
-               : launch_sum_as<kGenericDom, false, false, DT>(
-                     m, partials, p, lut, perm, ops, s);
-  return mma ? launch_sum_tiled<kFractalDom, true, DT>(m, partials, p, lut,
-                                                       perm, ops, s)
-             : launch_sum_tiled<kFractalDom, false, DT>(m, partials, p, lut,
-                                                        perm, ops, s);
+    return mma ? launch_sum_as<kGenericDom, true, false, kShard, DT>(
+                     m, partials, p, tb, s)
+               : launch_sum_as<kGenericDom, false, false, kShard, DT>(
+                     m, partials, p, tb, s);
+  return mma ? launch_sum_tiled<kFractalDom, true, kShard, DT>(m, partials, p,
+                                                               tb, s)
+             : launch_sum_tiled<kFractalDom, false, kShard, DT>(m, partials,
+                                                                p, tb, s);
+}
+
+template <bool kShard>
+int write_entry(void* m, int elem_bytes, unsigned int value_bits,
+                const FracParams& p, const Tables& tb, cudaStream_t s) {
+  if (p.steps <= 0) return (int)cudaSuccess;
+  if (elem_bytes == 4)
+    return (int)launch_write<kShard>(static_cast<uint32_t*>(m),
+                                     (uint32_t)value_bits, p, tb, s);
+  if (elem_bytes == 2)
+    return (int)launch_write<kShard>(static_cast<uint16_t*>(m),
+                                     (uint16_t)value_bits, p, tb, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kShard>
+int sum_entry(const void* m, int dtype, float* partials, const FracParams& p,
+              const Tables& tb, cudaStream_t s) {
+  if (p.steps <= 0) return (int)cudaSuccess;
+  if (dtype == kF32) return (int)launch_sum<kShard, kF32>(m, partials, p, tb,
+                                                          s);
+  if (dtype == kBF16) return (int)launch_sum<kShard, kBF16>(m, partials, p,
+                                                            tb, s);
+  if (dtype == kI32) return (int)launch_sum<kShard, kI32>(m, partials, p, tb,
+                                                          s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifndef REPRO_SHARDED
 // Write the value bits into every member cell of the state m, in place.
 // elem_bytes is 4 (f32, int32) or 2 (bf16).  params: plan.C_PARAMS order;
 // lut, perm and ops may be null (see LaunchParams; ops is mma_ops).
 int sw_write(void* m, int elem_bytes, unsigned int value_bits,
              const long long* params, const int* lut, const int* perm,
              const int* ops, void* stream) {
-  const FracParams p = make_params(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.steps <= 0) return (int)cudaSuccess;
-  if (elem_bytes == 4)
-    return (int)launch_write(static_cast<uint32_t*>(m), (uint32_t)value_bits,
-                             p, lut, perm, ops, s);
-  if (elem_bytes == 2)
-    return (int)launch_write(static_cast<uint16_t*>(m), (uint16_t)value_bits,
-                             p, lut, perm, ops, s);
-  return (int)cudaErrorInvalidValue;
+  return write_entry<false>(m, elem_bytes, value_bits, make_params(params),
+                            Tables{lut, perm, ops, ShardParams{}},
+                            static_cast<cudaStream_t>(stream));
 }
 
 // partials[t] = f32 sum of the member cells of grid step t's supertile (0
@@ -641,16 +800,9 @@ int sw_write(void* m, int elem_bytes, unsigned int value_bits,
 int sw_sum_partials(const void* m, int dtype, float* partials,
                     const long long* params, const int* lut, const int* perm,
                     const int* ops, void* stream) {
-  const FracParams p = make_params(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.steps <= 0) return (int)cudaSuccess;
-  if (dtype == kF32) return (int)launch_sum<kF32>(m, partials, p, lut, perm,
-                                                  ops, s);
-  if (dtype == kBF16) return (int)launch_sum<kBF16>(m, partials, p, lut,
-                                                    perm, ops, s);
-  if (dtype == kI32) return (int)launch_sum<kI32>(m, partials, p, lut, perm,
-                                                  ops, s);
-  return (int)cudaErrorInvalidValue;
+  return sum_entry<false>(m, dtype, partials, make_params(params),
+                          Tables{lut, perm, ops, ShardParams{}},
+                          static_cast<cudaStream_t>(stream));
 }
 
 // out[0] = partials[0] + partials[1] + ... in step order, in f32.
@@ -660,6 +812,35 @@ int sw_sum_combine(const float* partials, long long steps, float* out,
   sum_combine_kernel<<<1, kCombineThreads, 0, s>>>(partials, steps, out);
   return (int)cudaGetLastError();
 }
+#else
+// sw_write over one rank's steps of a sharded domain, on its local state
+// m (its slab, or the replicated array): shard holds the SHARD_PARAMS
+// (core/shard.py), gmap the rank's ghost map (storage-rows; unread here)
+// and phase its scheduled steps (null: every step); params' steps are the
+// rank's, lut its LUT chunk.
+int sw_write_sharded(void* m, int elem_bytes, unsigned int value_bits,
+                     const long long* params, const int* lut,
+                     const int* perm, const int* ops, const long long* shard,
+                     const int* gmap, const int* phase, void* stream) {
+  return write_entry<true>(m, elem_bytes, value_bits, make_params(params),
+                           Tables{lut, perm, ops,
+                                  make_shard(shard, gmap, phase)},
+                           static_cast<cudaStream_t>(stream));
+}
+
+// sw_sum_partials over one rank's steps: partials[t] of its local step t;
+// the rest as sw_write_sharded.
+int sw_sum_partials_sharded(const void* m, int dtype, float* partials,
+                            const long long* params, const int* lut,
+                            const int* perm, const int* ops,
+                            const long long* shard, const int* gmap,
+                            const int* phase, void* stream) {
+  return sum_entry<true>(m, dtype, partials, make_params(params),
+                         Tables{lut, perm, ops,
+                                make_shard(shard, gmap, phase)},
+                         static_cast<cudaStream_t>(stream));
+}
+#endif  // REPRO_SHARDED
 
 const char* cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));

@@ -30,10 +30,21 @@ import torch
 from repro_torch.core.plan import C_PARAMS, LOWERING_CODES
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: library name -> its one .cu source (headers: every .cuh in csrc/)
-SOURCES = {"sierpinski_write": "sierpinski_write.cu",
-           "sierpinski_ca": "sierpinski_ca.cu",
-           "flash_attention": "flash_attention.cu"}
+#: library name -> (its one .cu source, extra nvcc flags) (headers: every
+#: .cuh in csrc/).  Each source builds twice: its unsharded entry points,
+#: and with ``-DREPRO_SHARDED`` only its sharded ones (the kShard
+#: instantiations of core/shard.py's mesh), so that the two halves
+#: compile in parallel and the unsharded library holds what it held
+#: before the mesh came.
+SHARDED_FLAGS = ("-DREPRO_SHARDED",)
+SOURCES = {"sierpinski_write": ("sierpinski_write.cu", ()),
+           "sierpinski_ca": ("sierpinski_ca.cu", ()),
+           "flash_attention": ("flash_attention.cu", ()),
+           "sierpinski_write_sharded": ("sierpinski_write.cu",
+                                        SHARDED_FLAGS),
+           "sierpinski_ca_sharded": ("sierpinski_ca.cu", SHARDED_FLAGS),
+           "flash_attention_sharded": ("flash_attention.cu",
+                                       SHARDED_FLAGS)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -69,17 +80,18 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    source, flags = SOURCES[name]
     h = hashlib.sha256()
-    for path in [CSRC / SOURCES[name]] + sorted(CSRC.glob("*.cuh")):
+    for path in [CSRC / source] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     """Compile every named library that is not built yet, one ``nvcc``
-    per source, all started together.  Returns name -> library path;
+    per library, all started together.  Returns name -> library path;
     raises with the compiler's output when a build fails."""
     out = {name: library_path(name) for name in names}
     todo = {name: path for name, path in out.items() if not path.is_file()}
@@ -91,7 +103,9 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        source, flags = SOURCES[name]
+        cmd = [compiler, *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / source)]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -165,9 +179,11 @@ def raise_on(lib, status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 
 
-def check_tables(m, p) -> None:
+def check_tables(m, p, lut_rows: Optional[int] = None) -> None:
     """The decode tables and the mma operands of ``p`` must lie on the
-    state's device, as contiguous int32 tensors of the expected size."""
+    state's device, as contiguous int32 tensors of the expected size:
+    one LUT row a step, or at least ``lut_rows`` rows (a rank's LUT
+    chunk, which a sharded launch reads through its own step ids)."""
     for name, t in (("decode table", p.lut), ("tile permutation",
                                               p.tile_perm),
                     ("mma operand", p.mma_ops)):
@@ -177,9 +193,11 @@ def check_tables(m, p) -> None:
             raise ValueError(
                 f"state on {m.device} but the {name} on {t.device}: "
                 f"both must lie on the same device")
+    rows = None if p.lut is None else p.lut.shape[0]
     if p.lut is not None and (p.lut.dtype != torch.int32
                               or not p.lut.is_contiguous()
-                              or p.lut.shape[0] != p.steps):
+                              or (rows != p.steps if lut_rows is None
+                                  else rows < lut_rows)):
         raise ValueError("the decode table must be a contiguous "
                          f"({p.steps}, {p.lut_cols}) int32 tensor")
     if p.mma_ops is not None and (p.mma_ops.dtype != torch.int32

@@ -71,14 +71,29 @@ the same way and has no lookup of its own, as in the JAX package: its
 :func:`repro_torch.core.tune.autotune_paged` picks is the caller's to
 apply to its pool.
 
+``mesh=`` (a DeviceMesh, :mod:`repro_torch.launch.mesh`) shards the
+query-block axis over ``shard_axis``: each rank runs its band of whole
+query-block rows (``shard_balance="contiguous"``), or its rows of the
+causal snake (``"zigzag"``, Q permuted into snake order first and O
+back after, :func:`repro_torch.core.shard.zigzag_row_order`), with K
+and V replicated; the bands are then gathered along the sequence, and
+every rank gets the global output.  A row's online softmax never
+crosses ranks, so the result is bit-equal to the unsharded run.  On the
+card each rank launches its tile path's sharded instantiation, whose
+masks and extents read the band row's global row
+(``fa_forward_tc_*_sharded``); :func:`flash_rank` runs one rank's band
+without a process group.  Paged decode takes no mesh here (its
+slot-sharded form comes with the serving mesh, ROADMAP A12).
+
 Forward only, as in the JAX package, whose training path takes the
 plain-tensor flash VJP (:mod:`repro_torch.models.attention`).  Not
-ported yet: ``mesh=`` and the shard balances (A12), ``verify=`` (A13).
+ported yet: ``verify=`` (A13).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import types
 from typing import Optional, Tuple
 
 import numpy as np
@@ -114,13 +129,9 @@ TABLE_LOWERINGS = ("prefetch_lut", "mma")
 DOM_ALL, DOM_TRIANGULAR, DOM_BAND = 0, 1, 2
 
 
-def _unported(mesh=None, verify=False) -> None:
+def _unported(verify=False) -> None:
     """Raise NotImplementedError naming the roadmap item of an option
     the port does not have yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded flash attention) is not ported yet (ROADMAP "
-            "A12)")
     if verify:
         raise NotImplementedError(
             "verify= (static plan verification) is not ported yet "
@@ -387,22 +398,29 @@ def _extents(start, end, pos, kind, window, block_k, cap=None):
 
 
 def flash_attention_plain(q, k, v, sched: FlashSchedule,
-                          pos: Optional[torch.Tensor] = None):
+                          pos: Optional[torch.Tensor] = None,
+                          rows: Optional[torch.Tensor] = None):
     """Plain version of the flash kernel: every query-block row walks
-    its key-block extent in step order, all rows and heads at once."""
+    its key-block extent in step order, all rows and heads at once.
+    ``rows`` (a sharded band): the global query-block rows that ``q``'s
+    block rows are, in order (every row of the schedule by default)."""
     b, h, sq, d = q.shape
     hkv, g, bq, bk = sched.hkv, sched.group, sched.block_q, sched.block_k
     dev = q.device
-    qf = (q.to(torch.float32) * sched.scale).reshape(
-        b, hkv, g, sched.m_q, bq, d)
+    if rows is None:
+        rows = torch.arange(sched.m_q, device=dev)
+    rows = rows.to(dev, torch.int64)
+    m_q = rows.numel()
+    qf = (q.to(torch.float32) * sched.scale).reshape(b, hkv, g, m_q, bq, d)
     kf = k.to(torch.float32).reshape(b, hkv, sched.kv_blocks, bk, d)
     vf = v.to(torch.float32).reshape(b, hkv, sched.kv_blocks, bk, d)
     if sched.lowering == "mma":
         bounds = sched.row_extents(dev).to(torch.int64)
     else:
         bounds = torch.from_numpy(sched.row_bounds()).to(dev, torch.int64)
-    start = bounds[:, 0].expand(b, sched.m_q)
-    end = bounds[:, 1].expand(b, sched.m_q)
+    bounds = bounds[rows]
+    start = bounds[:, 0].expand(b, m_q)
+    end = bounds[:, 1].expand(b, m_q)
     start, end, nsteps = _extents(start, end, pos, sched.kind,
                                   sched.window, bk)
     bidx = torch.arange(b, device=dev)[:, None]
@@ -412,12 +430,12 @@ def flash_attention_plain(q, k, v, sched: FlashSchedule,
         return (kf[bidx, :, kv].permute(0, 2, 1, 3, 4).contiguous(),
                 vf[bidx, :, kv].permute(0, 2, 1, 3, 4).contiguous())
 
-    qb = torch.arange(sched.m_q, device=dev)[None, :]
+    qb = rows[None, :]
     member = None
     if sched.lowering == "bounding" and not getattr(
             sched.domain, "always_member", False):
         member = lambda kb: sched.member(kb, qb)  # noqa: E731
-    qpos = sched.off + torch.arange(sched.m_q, device=dev)[:, None] * bq \
+    qpos = sched.off + rows[:, None] * bq \
         + torch.arange(bq, device=dev)[None, :]
     acc, l = _attend_plain(qf, tiles, start, end, nsteps, kind=sched.kind,
                            window=sched.window, block_k=bk, qpos=qpos,
@@ -563,6 +581,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _shard_lib() -> ctypes.CDLL:
+    """The sharded half of the flash library (the tile paths' kShard
+    instantiations, built from the same source with -DREPRO_SHARDED)."""
+    lib = _cuda.load("flash_attention_sharded")
+    if not getattr(lib, "_repro_bound", False):
+        for name in ("fa_forward_tc_bf16_sharded",
+                     "fa_forward_tc_f32_sharded"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, ctypes.c_float] + [_P] * 8
+            fn.restype = ctypes.c_int
+        for name in ("fa_tc_smem_bytes", "fa_tc_f32_smem_bytes"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib._repro_bound = True
+    return lib
+
+
 def _check_cuda(what: str, *tensors) -> None:
     """The kernels take contiguous CUDA tensors of one supported dtype on
     one device, head dims up to 256."""
@@ -640,8 +677,12 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
-    """Run one flash kernel's C entry point ``fn``; returns the output."""
+def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str,
+                  band=None, lib=None):
+    """Run one flash kernel's C entry point ``fn`` (of ``lib``, the
+    unsharded library by default); returns the output.  ``band``: a
+    sharded launch's :class:`RowBand` (its shard parameters follow the
+    output's address)."""
     if pos is not None and (pos.device != q.device
                             or pos.dtype != torch.int32):
         raise ValueError("seq_pos must be an int32 tensor on q's device")
@@ -650,12 +691,14 @@ def _launch_flash(fn, q, k, v, sched: FlashSchedule, pos, what: str):
         return out
     ext = sched.row_extents(q.device) \
         if sched.lowering in TABLE_LOWERINGS else None
+    params = sched.c_params(pos is not None) if band is None \
+        else band.local(sched).c_params(False)
+    extra = () if band is None else (band.c_params(),)
     with torch.cuda.device(q.device):
-        status = fn(sched.c_params(pos is not None), sched.scale,
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    _cuda.ptr(ext), _cuda.ptr(pos), out.data_ptr(),
-                    _stream(q.device))
-    _cuda.raise_on(_lib(), status, what)
+        status = fn(params, sched.scale, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), _cuda.ptr(ext), _cuda.ptr(pos),
+                    out.data_ptr(), *extra, _stream(q.device))
+    _cuda.raise_on(lib or _lib(), status, what)
     return out
 
 
@@ -787,6 +830,68 @@ def flash_tc_f32_cuda(q, k, v, sched: FlashSchedule,
 
 flash_tc_f32_cuda.launches = 0
 
+
+@dataclasses.dataclass(frozen=True)
+class RowBand:
+    """One rank's query-block rows of a sharded flash launch:
+    ``partition`` "rows" (``rbd`` rows from ``row_lo``) or "zigzag" (band
+    row l is global row ``(l // 2) * 2D + (dev if l even else 2D-1-dev)``,
+    ``dev`` the rank, D = ``num_shards``)."""
+
+    partition: str
+    rank: int
+    num_shards: int
+    rbd: int
+    row_lo: int = 0
+
+    def rows(self) -> np.ndarray:
+        """The band's global query-block rows, in band order."""
+        l = np.arange(self.rbd)  # noqa: E741
+        if self.partition == "rows":
+            return self.row_lo + l
+        two_d = 2 * self.num_shards
+        return (l // 2) * two_d + np.where(l % 2 == 0, self.rank,
+                                           two_d - 1 - self.rank)
+
+    def local(self, sched: FlashSchedule) -> FlashSchedule:
+        """``sched`` cut to the band: its rows and queries."""
+        return dataclasses.replace(sched, m_q=self.rbd,
+                                   sq=self.rbd * sched.block_q)
+
+    def c_params(self) -> ctypes.Array:
+        """[partition (1 rows, 2 zigzag), row_lo, rank, 2D]: the sharded
+        kernels' ``RowShard``."""
+        return (ctypes.c_longlong * 4)(
+            1 if self.partition == "rows" else 2, self.row_lo, self.rank,
+            2 * self.num_shards)
+
+
+def flash_shard_cuda(q, k, v, sched: FlashSchedule,
+                     band: RowBand) -> torch.Tensor:
+    """Launch the sharded tile path of ``q``'s dtype for one rank's band:
+    ``q`` is the band's queries (B, H, rbd * block_q, D), ``k`` and ``v``
+    the whole (replicated) keys; masks and extents follow each band
+    row's global row.  Returns the band's output."""
+    _check_cuda("flash attention", q, k, v)
+    route = flash_route(sched, q.dtype)
+    if route not in ("tc", "tc_f32"):
+        raise ValueError(f"a sharded flash launch takes a tile path, got "
+                         f"route {route!r}")
+    q, k, v = (t if _aligned(t) else t.clone() for t in (q, k, v))
+    lib = _shard_lib()
+    _check_tile_smem(lib, route, q.device, sched, q.dtype)
+    name = "fa_forward_tc_bf16_sharded" if route == "tc" \
+        else "fa_forward_tc_f32_sharded"
+    out = _launch_flash(getattr(lib, name), q, k, v, sched, None,
+                        f"sharded flash attention kernel ({q.dtype})",
+                        band, lib)
+    if out.numel():
+        flash_shard_cuda.launches += 1
+    return out
+
+
+flash_shard_cuda.launches = 0
+
 #: the decode kernels' counters, one int32 tensor per (device, stream):
 #: allocated zeroed, grown when a launch needs more, left zero by every
 #: launch (the last CTA of each (slot, kv head, chunk) resets its own)
@@ -883,6 +988,8 @@ KERNELS = {"flash_attention": flash_cuda_core,
            "flash_attention_tc": flash_tc_cuda,
            "flash_attention_tc_f32": flash_tc_f32_cuda,
            "paged_flash_attention": paged_cuda}
+#: the sharded tile paths' wrapper (the mesh path), counted apart
+SHARDED_KERNELS = {"flash_attention_sharded": flash_shard_cuda}
 #: flash_route's answer -> the name of the kernel it launches
 ROUTE_KERNELS = {"decode": "flash_attention_decode",
                  "tc": "flash_attention_tc",
@@ -891,12 +998,16 @@ ROUTE_KERNELS = {"decode": "flash_attention_decode",
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values()):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def shard_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in SHARDED_KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -985,6 +1096,102 @@ def check_paged_against_plain(q, kv_pool, page_table, pos,
     return _compare(got, want, what), got
 
 
+def check_flash_shard_against_plain(q, k, v, sched: FlashSchedule,
+                                    band: RowBand):
+    """Run one rank's sharded launch and the plain version of its band;
+    raise AssertionError unless they agree (:func:`_compare`).  ``q`` is
+    the band's queries.  Returns (max |err|, kernel output)."""
+    got = flash_shard_cuda(q, k, v, sched, band)
+    want = flash_attention_plain(q, k, v, sched,
+                                 rows=torch.from_numpy(band.rows()))
+    what = (f"sharded flash ({band.partition} rank {band.rank} of "
+            f"{band.num_shards}) {sched.kind} {sched.lowering} q "
+            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    return _compare(got, want, what), got
+
+
+# ---------------------------------------------------------------------------
+# the sharded query axis
+# ---------------------------------------------------------------------------
+
+def shard_band(sched: FlashSchedule, num_shards: int, rank: int,
+               shard_balance: str = "contiguous") -> RowBand:
+    """Validate a sharded flash launch as the JAX package does (the same
+    ``ValueError``\\ s) and return rank ``rank``'s band."""
+    from repro_torch.core.shard import ShardedPlan
+    D = num_shards
+    if sched.m_q % D:
+        raise ValueError(
+            f"sharded flash needs the query-block grid divisible by "
+            f"the mesh axis: m_q={sched.m_q} blocks over {D} devices")
+    partition = "rows"
+    if shard_balance == "zigzag":
+        if sched.kind != "causal":
+            raise ValueError(
+                "shard_balance='zigzag' balances the causal "
+                "triangle; contiguous bands already balance "
+                f"kind={sched.kind!r}")
+        if sched.m_q % (2 * D):
+            raise ValueError(
+                f"zigzag needs the query-block grid ({sched.m_q}) "
+                f"divisible by 2 * mesh axis ({2 * D}) for an "
+                f"exactly balanced snake")
+        partition = "zigzag"
+    elif shard_balance != "contiguous":
+        raise ValueError(
+            f"unknown shard_balance {shard_balance!r}; expected "
+            f"'contiguous' or 'zigzag'")
+    plan = ShardedPlan(sched.domain, sched.lowering,
+                       batch_dims=(sched.b * sched.h,), backend="cpu",
+                       mesh=types.SimpleNamespace(shape={"data": D}),
+                       axis="data", partition=partition)
+    row_lo = int(plan._row_lo[rank]) if partition == "rows" else 0
+    return RowBand(partition, rank, D, plan.rbd, row_lo)
+
+
+def band_queries(q: torch.Tensor, sched: FlashSchedule,
+                 band: RowBand) -> torch.Tensor:
+    """The band's block rows of the global queries ``q``."""
+    b, h, _, d = q.shape
+    rows = torch.from_numpy(band.rows()).to(q.device)
+    return q.reshape(b, h, sched.m_q, sched.block_q, d)[:, :, rows] \
+        .reshape(b, h, band.rbd * sched.block_q, d)
+
+
+def flash_rank(q, k, v, sched: FlashSchedule, band: RowBand):
+    """One rank's share of a sharded flash call: the band's output from
+    its queries ``q`` (:func:`band_queries`) and the whole K and V --
+    the sharded kernel on the card, the plain version on the CPU."""
+    if not backend_lib.resolve(q).kernels:
+        return flash_attention_plain(q, k, v, sched,
+                                     rows=torch.from_numpy(band.rows()))
+    return flash_shard_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                            sched, band)
+
+
+def _flash_sharded(q, k, v, sched: FlashSchedule, mesh, shard_axis,
+                   shard_balance):
+    """The mesh call of :func:`flash_attention`."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    D = mesh_lib.axis_size(mesh, shard_axis)
+    shard_band(sched, D, 0, shard_balance)  # refusals before any collective
+    mesh_lib.check_mesh_device(mesh, q, k, v)
+    band = shard_band(sched, D, mesh_lib.axis_rank(mesh, shard_axis),
+                      shard_balance)
+    out = flash_rank(band_queries(q, sched, band), k, v, sched, band)
+    b, h, _, d = q.shape
+    # the bands, rank-major along the sequence: (D * rbd) block rows
+    rows = collectives.all_gather_cat(
+        out.reshape(b, h, band.rbd, sched.block_q, d).permute(2, 0, 1, 3, 4)
+        .contiguous(), mesh_lib.axis_group(mesh, shard_axis))
+    if band.partition == "zigzag":
+        from repro_torch.core.shard import zigzag_row_order
+        inv = np.argsort(zigzag_row_order(sched.m_q, band.num_shards))
+        rows = rows[torch.from_numpy(inv).to(rows.device)]
+    return rows.permute(1, 2, 0, 3, 4).reshape(b, h, sched.sq, d)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -995,6 +1202,8 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                     storage: str = "embedded",
                     kv_seq_len: int | None = None, seq_pos=None,
                     num_warps=None, num_stages=None, mesh=None,
+                    shard_axis: str = "data",
+                    shard_balance: str = "contiguous",
                     verify: bool = False) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) with Hkv | H.
 
@@ -1011,10 +1220,14 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                window anchored at seq_pos): keys past it are masked and
                key blocks past ``seq_pos // block_k`` are not read.
 
+    mesh:      shard the query-block axis over ``shard_axis`` with
+               ``shard_balance`` "contiguous" or "zigzag" (causal only;
+               module docstring)
+
     causal requires Sq == Sk; local accepts Sq < Sk with the decode
     convention (queries are the last Sq positions).  CUDA tensors launch
     the kernel, CPU tensors run the plain version."""
-    _unported(mesh, verify)
+    _unported(verify)
     _check_qkv(q, k, v)
     b, h, sq, d = q.shape
     hkv = k.shape[1]
@@ -1033,6 +1246,14 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                            grid_mode=grid_mode, storage=storage,
                            kv_seq_len=kv_seq_len,
                            has_pos=seq_pos is not None)
+    if mesh is not None:
+        if seq_pos is not None:
+            raise ValueError(
+                "seq_pos (decode) does not combine with the query-row mesh "
+                "partition; shard the batch axis instead (see "
+                "repro.models.attention.decode_attention_flash)")
+        return _flash_sharded(q, k, v, sched, mesh, shard_axis,
+                              shard_balance)
     pos = seq_pos_vector(seq_pos, sched.b, q.device)
     if not backend_lib.resolve(q).kernels:
         return flash_attention_plain(q, k, v, sched, pos)

@@ -56,10 +56,23 @@ coarsen 1, one stage), an explicit value is never overridden, a cached
 ``storage`` is not applied, and a tuned depth is clamped to
 ``MAX_STAGES`` like any other.
 
-Not ported yet: ``mesh=`` (ROADMAP A12) and ``verify=`` (A13), which the
-entry points take and refuse with ``NotImplementedError`` naming the
-item (``shard_axis`` alone changes nothing), and CA states other than
-f32.
+``mesh=`` (a DeviceMesh, :mod:`repro_torch.launch.mesh`) shards the run
+over its ``shard_axis`` (:class:`repro_torch.core.shard.ShardedPlan`);
+every rank passes the global buffers and gets the global result back.
+Compact storage: each rank holds only its slab of packed rows, in an
+extended array ``[slab ++ ghost rows ++ dump row]``, and every launch is
+a halo exchange (:class:`~repro_torch.core.shard.HaloPlan`) then a launch
+over the rank's slots; with ``num_stages > 1`` and a step-indexed
+lowering the rank runs its interior steps while the exchange is in
+flight and its boundary steps after it.  Embedded storage: the state
+stays replicated, and each launch is followed by an ownership-masked sum
+over the ranks.  Every block is computed by exactly one rank from the
+same operands, so the result is bit-identical to the single-device run.
+:func:`ca_rank` runs one rank's launch without a process group.
+
+Not ported yet: ``verify=`` (A13), which the entry points take and
+refuse with ``NotImplementedError`` naming the item, and CA states other
+than f32.
 """
 from __future__ import annotations
 
@@ -199,18 +212,31 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _cuda.load("sierpinski_ca")
+#: library -> its C entry points' (argument types, result type)
+_SIGNATURES = {
+    "sierpinski_ca": {
+        "sc_ca_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          ctypes.c_float, _I, _P, _P], ctypes.c_int),
+        "sc_scratch_bytes": ([_P, _I, _I], _LL),
+        "sc_ring_depth": ([_P, _I, _I], ctypes.c_int),
+        "sc_grid_ctas": ([_P, _I, _I], _LL)},
+    "sierpinski_ca_sharded": {
+        "sc_ca_launch_sharded": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  ctypes.c_float, _I] + [_P] * 5,
+                                 ctypes.c_int),
+        "sc_scratch_bytes": ([_P, _I, _I], _LL)},
+}
+
+
+def _lib(name: str = "sierpinski_ca") -> ctypes.CDLL:
+    """The loaded library ``name`` (or its sharded half,
+    ``"sierpinski_ca_sharded"``), its entry points typed."""
+    lib = _cuda.load(name)
     if not getattr(lib, "_repro_bound", False):
-        lib.sc_ca_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     ctypes.c_float, _I, _P, _P]
-        lib.sc_ca_launch.restype = ctypes.c_int
-        lib.sc_scratch_bytes.argtypes = [_P, _I, _I]
-        lib.sc_scratch_bytes.restype = _LL
-        lib.sc_ring_depth.argtypes = [_P, _I, _I]
-        lib.sc_ring_depth.restype = ctypes.c_int
-        lib.sc_grid_ctas.argtypes = [_P, _I, _I]
-        lib.sc_grid_ctas.restype = _LL
+        for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -238,18 +264,12 @@ def _check_buffers(src: torch.Tensor, dst: torch.Tensor,
         raise ValueError("the state and the stale buffer must be distinct")
 
 
-def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
-            halo: int, steps: int, rule: str, alpha: float,
-            num_stages: int = 1) -> torch.Tensor:
-    """Launch the fused CA kernel once: read ``src``, write the advanced
-    member supertiles into ``dst`` in place, gathering the working tiles
-    through a ring of ``num_stages`` slots (1 to ``MAX_STAGES``).
-    Returns ``dst``."""
-    if src.device.type != "cuda":
-        raise ValueError(
-            f"the CUDA kernel needs a CUDA tensor, got one on {src.device}")
-    _check_buffers(src, dst, (p.rows, p.pitch))
-    _cuda.check_tables(src, p)
+def _launch(lib, entry: str, src: torch.Tensor, dst: torch.Tensor,
+            p: LaunchParams, halo: int, steps: int, rule: str, alpha: float,
+            num_stages: int, shard=()) -> int:
+    """Check a launch's geometry and run the C entry point ``entry`` of
+    ``lib`` (``shard``: the sharded entry's extra arguments); returns its
+    status."""
     if not 1 <= steps <= halo <= p.span:
         raise ValueError(
             f"a launch takes 1 <= steps <= halo <= coarsen * block, got "
@@ -257,17 +277,38 @@ def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
     if not 1 <= num_stages <= MAX_STAGES:
         raise ValueError(f"the kernel's ring takes 1 to {MAX_STAGES} "
                          f"slots, got num_stages={num_stages}")
-    lib = _lib()
     params = _cuda.param_array(p)
     with torch.cuda.device(src.device):
         nbytes = lib.sc_scratch_bytes(params, halo, num_stages)
         scratch = (torch.empty(nbytes, dtype=torch.uint8, device=src.device)
                    if nbytes else None)
-        status = lib.sc_ca_launch(
+        return getattr(lib, entry)(
             src.data_ptr(), dst.data_ptr(), params,
             _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), _cuda.ptr(p.mma_ops),
             halo, steps, RULES[rule], alpha, num_stages, _cuda.ptr(scratch),
-            torch.cuda.current_stream(src.device).cuda_stream)
+            *shard, torch.cuda.current_stream(src.device).cuda_stream)
+
+
+def _check_cuda(src: torch.Tensor, dst: torch.Tensor,
+                p: LaunchParams) -> None:
+    if src.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs a CUDA tensor, got one on {src.device}")
+    _check_buffers(src, dst, (p.rows, p.pitch))
+
+
+def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
+            halo: int, steps: int, rule: str, alpha: float,
+            num_stages: int = 1) -> torch.Tensor:
+    """Launch the fused CA kernel once: read ``src``, write the advanced
+    member supertiles into ``dst`` in place, gathering the working tiles
+    through a ring of ``num_stages`` slots (1 to ``MAX_STAGES``).
+    Returns ``dst``."""
+    _check_cuda(src, dst, p)
+    _cuda.check_tables(src, p)
+    lib = _lib()
+    status = _launch(lib, "sc_ca_launch", src, dst, p, halo, steps, rule,
+                     alpha, num_stages)
     ca_cuda.launches += 1
     _cuda.count_mma(p)
     _cuda.raise_on(lib, status, "fused CA kernel")
@@ -275,6 +316,29 @@ def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
 
 
 ca_cuda.launches = 0
+
+
+def ca_shard_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
+                  view, halo: int, steps: int, rule: str, alpha: float,
+                  num_stages: int = 1) -> torch.Tensor:
+    """Launch the sharded CA kernel once for the rank ``view`` is bound
+    to (its phase's steps on a phase view): ``src`` and ``dst`` are the
+    rank's local buffers -- the replicated arrays (embedded), or the
+    extended arrays ``[slab ++ ghosts ++ dump]`` whose slab rows ``dst``
+    receives (compact).  Returns ``dst``."""
+    from .sierpinski_write import shard_args
+    _check_cuda(src, dst, p)
+    shard = shard_args(src, p, view)
+    lib = _lib("sierpinski_ca_sharded")
+    status = _launch(lib, "sc_ca_launch_sharded", src, dst, p, halo, steps,
+                     rule, alpha, num_stages, shard)
+    ca_shard_cuda.launches += 1
+    _cuda.count_mma(p)
+    _cuda.raise_on(lib, status, "sharded fused CA kernel")
+    return dst
+
+
+ca_shard_cuda.launches = 0
 
 
 def ring_geometry(p: LaunchParams, halo: int, num_stages: int):
@@ -293,15 +357,21 @@ def ring_geometry(p: LaunchParams, halo: int, num_stages: int):
 #: lowering's decode chains count the launches that run them
 KERNELS = {"sierpinski_ca_fused": ca_cuda,
            "mma_decode_chains": _cuda.MMA_CHAINS}
+#: the sharded kernel's wrapper (the mesh path), counted apart
+SHARDED_KERNELS = {"sierpinski_ca_fused_sharded": ca_shard_cuda}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values()):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def shard_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in SHARDED_KERNELS.items()}
 
 
 def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
@@ -323,6 +393,117 @@ def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
             f"coarsen={plan.coarsen}, n={n}, block={block}, halo={halo}, "
             f"steps={steps}, {rule}, num_stages={num_stages}): max |diff| "
             f"{float(diff)}")
+
+
+def check_ca_shard_against_plain(src: torch.Tensor, dst: torch.Tensor,
+                                 view, n: int, block: int, halo: int,
+                                 steps: int, rule: str, alpha: float,
+                                 num_stages: int = 1) -> None:
+    """Run the sharded kernel of the rank ``view`` is bound to and its
+    plain version on copies of the same local buffers; raise
+    AssertionError unless the results are bit-equal."""
+    p = view.launch_params(n, block, src.device)
+    got = ca_shard_cuda(src, dst.clone(), p, view, halo, steps, rule, alpha,
+                        num_stages)
+    want = ca_launch_plain(src, dst.clone(), view, n, block, halo, steps,
+                           rule, alpha)
+    if not torch.equal(got, want):
+        diff = (got - want).abs().max()
+        raise AssertionError(
+            f"sharded CA kernel != plain version ({view.domain.name}, "
+            f"{view.lowering}, {view.storage}, coarsen={view.coarsen}, "
+            f"{view.partition} rank {view.rank} of {view.num_shards}, "
+            f"phase {view.phase}, n={n}, block={block}, halo={halo}, "
+            f"steps={steps}, {rule}, num_stages={num_stages}): max |diff| "
+            f"{float(diff)}")
+
+
+# ---------------------------------------------------------------------------
+# the sharded run: one rank's launch, and the mesh run
+# ---------------------------------------------------------------------------
+
+def ca_rank(src: torch.Tensor, dst: torch.Tensor, view, n: int, block: int,
+            halo: int, steps: int, rule: str, alpha: float,
+            num_stages: int = 1) -> torch.Tensor:
+    """One rank's fused launch (its phase's steps on a phase view) on its
+    local buffers, into ``dst`` in place: the sharded kernel on the
+    card, the plain version on the CPU.  Returns ``dst``."""
+    if not view.target.kernels:
+        return _cuda.launch("sierpinski_ca", view, block, dst,
+                            ca_launch_plain, src, dst, view, n, block, halo,
+                            steps, rule, alpha)
+    p = view.launch_params(n, block, src.device)
+    return _cuda.launch("sierpinski_ca", view, block, dst, ca_shard_cuda,
+                        src, dst, p, view, halo, steps, rule, alpha,
+                        num_stages)
+
+
+def ca_run_rank_compact(a: torch.Tensor, b: torch.Tensor, view, n: int,
+                        block: int, sched, fuse: int, rule: str,
+                        alpha: float, stages: int,
+                        group=None) -> torch.Tensor:
+    """Advance one rank's extended buffers ``a`` (state) and ``b``
+    (stale) through the launches ``sched``: each an exchange of ghost
+    rows, then the launch; with ``stages > 1`` and a step-indexed
+    lowering the interior steps run while the exchange is in flight.
+    Returns the buffer holding the final state."""
+    halo, rank = view.halo, view.rank
+    rows = view.rpd * view.row_unit
+    phases = None
+    if stages > 1 and view.lowering != "bounding" \
+            and view.phase_tables_host() is not None:
+        phases = (view.phase_view("interior"), view.phase_view("boundary"))
+    for k in sched:
+        if phases is None:
+            halo.exchange(view, a[:rows], rank, fuse, group, out=a[rows:])
+        else:
+            x, y = a, b
+            halo.exchange(view, x[:rows], rank, fuse, group, out=x[rows:],
+                          between=lambda: ca_rank(x, y, phases[0], n, block,
+                                                  fuse, k, rule, alpha,
+                                                  stages))
+        ca_rank(a, b, view if phases is None else phases[1], n, block, fuse,
+                k, rule, alpha, stages)
+        a, b = b, a
+    return a
+
+
+def _ca_run_sharded(state, stale_buf, steps, *, fuse, rule, alpha, block,
+                    grid_mode, fractal, storage, n, domain, coarsen,
+                    stages, mesh, shard_axis):
+    """The mesh run of :func:`ca_run` (bit-identical to the
+    single-device run)."""
+    from repro_torch.distributed import collectives
+    from .sierpinski_write import _mesh_setup, masked_combine
+    _check_buffers(state, stale_buf)
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}; expected one of "
+                         f"{tuple(RULES)}")
+    view, n, block, group = _mesh_setup(
+        state, mesh, shard_axis, block=block, grid_mode=grid_mode,
+        fractal=fractal, storage=storage, n=n, domain=domain,
+        coarsen=coarsen, halo=storage == "compact")
+    fuse = effective_fuse(fuse, steps, block, view.coarsen)
+    sched = launch_schedule(steps, fuse)
+    if not sched:
+        return state
+    if view.storage == "compact":
+        rows = view.rpd * view.row_unit
+        a = state.new_zeros(view.extended_shape(block))
+        b = torch.zeros_like(a)
+        a[:rows] = view.slab(state, block)
+        b[:rows] = view.slab(stale_buf, block)
+        a = ca_run_rank_compact(a, b, view, n, block, sched, fuse, rule,
+                                alpha, stages, group)
+        return view.unpad_rows(collectives.all_gather_cat(a[:rows], group),
+                               block)
+    owned = view.owned_cell_mask(n, block, state.device)
+    a, b = state.clone(), stale_buf.clone()
+    for k in sched:
+        b = masked_combine(ca_rank(a, b, view, n, block, fuse, k, rule,
+                                   alpha, stages), owned, group)
+        a, b = b, a
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -431,14 +612,23 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
 
     ``fuse`` / ``grid_mode`` / ``coarsen`` / ``num_stages`` set to
     ``"auto"`` resolve from the tune cache (:func:`auto_schedule`;
-    untuned: fuse 1, closed_form, coarsen 1, one stage).  ``mesh=`` and
-    ``verify=True`` raise ``NotImplementedError`` naming the roadmap item
-    that brings them (A12, A13); ``shard_axis`` alone changes nothing."""
-    check_unported(mesh=mesh, verify=verify)
+    untuned: fuse 1, closed_form, coarsen 1, one stage; under a mesh the
+    key names the shard count).  ``mesh=`` shards the run (module
+    docstring; the result is a new tensor, the buffers are left as they
+    were); ``verify=True`` raises ``NotImplementedError`` naming A13."""
+    check_unported(verify=verify)
     grid_mode, fuse, coarsen, num_stages = auto_schedule(
         fractal=fractal, n=n or state.shape[0], block=block, rule=rule,
         grid_mode=grid_mode, fuse=fuse, coarsen=coarsen,
-        num_stages=num_stages, device=state.device)
+        num_stages=num_stages, mesh=mesh, shard_axis=shard_axis,
+        device=state.device)
+    if mesh is not None:
+        return _ca_run_sharded(
+            state, stale_buf, steps, fuse=fuse, rule=rule, alpha=alpha,
+            block=block, grid_mode=grid_mode, fractal=fractal,
+            storage=storage, n=n, domain=domain, coarsen=coarsen,
+            stages=_check_stages(num_stages), mesh=mesh,
+            shard_axis=shard_axis)
     plan, n, block, stages, p = check_run(
         state, stale_buf, rule=rule, block=block, grid_mode=grid_mode,
         fractal=fractal, storage=storage, n=n, domain=domain,

@@ -41,9 +41,25 @@ state's target, never a measurement; an untuned problem gets the JAX
 package's defaults (closed_form, coarsen 1, one stage), an explicit
 value is never overridden, and a cached ``storage`` is not applied (the
 state's layout is given).  As in the JAX package the key names the
-``fractal`` argument even when ``domain=`` is given.  Not ported yet,
-and raising ``NotImplementedError`` naming the roadmap item: ``mesh=``
-(A12; ``shard_axis`` alone changes nothing) and ``verify=True`` (A13).
+``fractal`` argument even when ``domain=`` is given; under ``mesh=`` it
+also names the shard count (``"devices"``, :func:`repro_torch.core.tune.
+shard_params`).
+
+``mesh=`` (a DeviceMesh, :mod:`repro_torch.launch.mesh`) shards the
+domain over its ``shard_axis`` (:class:`repro_torch.core.shard.
+ShardedPlan`).  Every rank passes the global state and gets the global
+result back, as with the JAX package's ``shard_map``.  Compact storage
+writes each rank's slab of packed rows in place, then gathers the slabs;
+embedded storage runs each rank's range of the lambda enumeration on a
+copy of the replicated state and combines the copies with an
+ownership-masked sum (every member block has exactly one owner;
+non-member cells pass through).  The sum runs each rank's partials and
+its in-order combine, then one sum over the ranks: exact on
+integer-valued states, a float reassociation otherwise.  On the card each
+rank launches the sharded kernels (``sw_write_sharded``,
+``sw_sum_partials_sharded``); :func:`write_rank` / :func:`sum_rank` run
+one rank's share without a process group.  Not ported yet, and raising
+``NotImplementedError`` naming the roadmap item: ``verify=True`` (A13).
 """
 from __future__ import annotations
 
@@ -147,12 +163,9 @@ def prepare_launch(m: torch.Tensor, *, block: int = 128,
     return plan, n, block
 
 
-def check_unported(*, mesh=None, verify: bool = False) -> None:
+def check_unported(*, verify: bool = False) -> None:
     """Raise NotImplementedError naming the roadmap item of an option the
-    port does not have yet: a ``mesh`` (A12), ``verify=True`` (A13)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded execution) is not ported yet (ROADMAP A12)")
+    port does not have yet: ``verify=True`` (A13)."""
     if verify:
         raise NotImplementedError(
             "verify= (static plan verification) is not ported yet "
@@ -181,12 +194,17 @@ def resolve_auto_schedule(kernel: str, params: dict, *, device=None,
 
 
 def _write_schedule(m: torch.Tensor, fractal: str, n, block: int,
-                    grid_mode, coarsen, num_stages):
+                    grid_mode, coarsen, num_stages, mesh=None,
+                    shard_axis: str = "data"):
     """The write/sum schedule with its ``"auto"`` knobs resolved from the
     tune cache's ``"write"`` entry (the JAX package's key: ``fractal``,
-    ``n or m.shape[0]``, ``block``), the depth checked."""
+    ``n or m.shape[0]``, ``block``, and the shard count under a mesh),
+    the depth checked."""
+    from repro_torch.core import tune
     grid_mode, coarsen, num_stages = resolve_auto_schedule(
-        "write", {"fractal": fractal, "n": n or m.shape[0], "block": block},
+        "write", tune.shard_params(
+            {"fractal": fractal, "n": n or m.shape[0], "block": block},
+            mesh, shard_axis),
         device=m.device,
         grid_mode=(grid_mode, "lowering", "closed_form"),
         coarsen=(coarsen, "coarsen", 1),
@@ -277,6 +295,8 @@ def sum_partials_plain(m: torch.Tensor, plan: GridPlan, n: int,
     for offs, mask in _tile_chunks(plan, n, block, m.device):
         tiles = torch.where(mask, flat[offs], 0).to(torch.float32)
         parts.append(tiles.sum(dim=(1, 2)))
+    if not parts:  # a rank of a sharded plan that owns nothing
+        return torch.zeros(0, dtype=torch.float32, device=m.device)
     return torch.cat(parts)
 
 
@@ -306,18 +326,25 @@ def sierpinski_sum_plain(m: torch.Tensor, plan: GridPlan, n: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+#: library -> its C entry points' argument types
 _SIGNATURES = {
-    "sw_write": [_P, _I, ctypes.c_uint, _P, _P, _P, _P, _P],
-    "sw_sum_partials": [_P, _I, _P, _P, _P, _P, _P, _P],
-    "sw_sum_combine": [_P, _LL, _P, _P],
+    "sierpinski_write": {
+        "sw_write": [_P, _I, ctypes.c_uint, _P, _P, _P, _P, _P],
+        "sw_sum_partials": [_P, _I, _P, _P, _P, _P, _P, _P],
+        "sw_sum_combine": [_P, _LL, _P, _P]},
+    "sierpinski_write_sharded": {
+        "sw_write_sharded": [_P, _I, ctypes.c_uint] + [_P] * 8,
+        "sw_sum_partials_sharded": [_P, _I] + [_P] * 9},
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _cuda.load("sierpinski_write")
+def _lib(name: str = "sierpinski_write") -> ctypes.CDLL:
+    """The loaded library ``name`` (or its sharded half,
+    ``"sierpinski_write_sharded"``), its entry points typed."""
+    lib = _cuda.load(name)
     if not getattr(lib, "_repro_bound", False):
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -344,13 +371,19 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _value_bits(m: torch.Tensor, value) -> int:
+    """The bits of ``value`` in ``m``'s dtype, as the kernels store
+    them."""
+    v = _value_of(value, m.dtype)
+    bits = int(v.view(torch.int32 if m.element_size() == 4 else torch.int16))
+    return bits & ((1 << (8 * m.element_size())) - 1)
+
+
 def write_cuda(m: torch.Tensor, value, p: LaunchParams) -> torch.Tensor:
     """Launch the write kernel on ``m`` in place (predicated stores of
     ``value`` into member cells; nothing else is read or written)."""
     _check_kernel_args(m, p)
-    v = _value_of(value, m.dtype)
-    bits = int(v.view(torch.int32 if m.element_size() == 4 else torch.int16))
-    bits &= (1 << (8 * m.element_size())) - 1
+    bits = _value_bits(m, value)
     lib = _lib()
     with torch.cuda.device(m.device):
         status = lib.sw_write(m.data_ptr(), m.element_size(), bits,
@@ -408,6 +441,66 @@ def sum_combine_cuda(partials: torch.Tensor) -> torch.Tensor:
 
 sum_combine_cuda.launches = 0
 
+
+def shard_args(m: torch.Tensor, p: LaunchParams, view) -> tuple:
+    """Check a sharded launch's operands and return its shard arguments
+    (the SHARD_PARAMS array, the ghost map's and the phase list's
+    addresses) for the rank ``view`` is bound to."""
+    arr, gmap, phase = view.shard_params(m.device)
+    _cuda.check_tables(m, p, lut_rows=int(view._count[view.rank]))
+    if m.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs a CUDA tensor, got one on {m.device}")
+    if tuple(m.shape) != (p.rows, p.pitch):
+        raise ValueError(
+            f"state shape {tuple(m.shape)} != ({p.rows}, {p.pitch})")
+    return arr, _cuda.ptr(gmap), _cuda.ptr(phase)
+
+
+def write_shard_cuda(m: torch.Tensor, value, p: LaunchParams,
+                     view) -> torch.Tensor:
+    """Launch the sharded write kernel: the steps of the rank ``view`` is
+    bound to, on that rank's local state ``m`` (its slab, or the
+    replicated array) in place."""
+    _check_state(m)
+    shard, gmap, phase = shard_args(m, p, view)
+    bits = _value_bits(m, value)
+    lib = _lib("sierpinski_write_sharded")
+    with torch.cuda.device(m.device):
+        status = lib.sw_write_sharded(
+            m.data_ptr(), m.element_size(), bits, _cuda.param_array(p),
+            _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), _cuda.ptr(p.mma_ops),
+            shard, gmap, phase, _stream(m.device))
+    write_shard_cuda.launches += 1
+    _cuda.count_mma(p)
+    _cuda.raise_on(lib, status, "sharded sierpinski write kernel")
+    return m
+
+
+write_shard_cuda.launches = 0
+
+
+def sum_partials_shard_cuda(m: torch.Tensor, p: LaunchParams,
+                            view) -> torch.Tensor:
+    """Launch the sharded tile-reduce kernel: the (steps,) f32 partials
+    of the rank ``view`` is bound to, in its step order."""
+    _check_state(m)
+    shard, gmap, phase = shard_args(m, p, view)
+    partials = torch.empty(p.steps, dtype=torch.float32, device=m.device)
+    lib = _lib("sierpinski_write_sharded")
+    with torch.cuda.device(m.device):
+        status = lib.sw_sum_partials_sharded(
+            m.data_ptr(), DTYPES[m.dtype], partials.data_ptr(),
+            _cuda.param_array(p), _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm),
+            _cuda.ptr(p.mma_ops), shard, gmap, phase, _stream(m.device))
+    sum_partials_shard_cuda.launches += 1
+    _cuda.count_mma(p)
+    _cuda.raise_on(lib, status, "sharded sierpinski sum partials kernel")
+    return partials
+
+
+sum_partials_shard_cuda.launches = 0
+
 #: kernel name -> its CUDA wrapper (each carries ``launches``); the mma
 #: lowering's decode chains count the write and partials launches that
 #: run them
@@ -415,15 +508,22 @@ KERNELS = {"sierpinski_write": write_cuda,
            "sierpinski_sum_partials": sum_partials_cuda,
            "sierpinski_sum_combine": sum_combine_cuda,
            "mma_decode_chains": _cuda.MMA_CHAINS}
+#: the sharded kernels' wrappers (the mesh paths), counted apart
+SHARDED_KERNELS = {"sierpinski_write_sharded": write_shard_cuda,
+                   "sierpinski_sum_partials_sharded": sum_partials_shard_cuda}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values()):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def shard_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in SHARDED_KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -479,6 +579,129 @@ def check_sum_against_plain(m: torch.Tensor, plan: GridPlan, n: int,
              "sierpinski_sum_combine": 0.0}, pc)
 
 
+def check_shard_against_plain(m: torch.Tensor, value, view, n: int,
+                              block: int) -> dict:
+    """Run the sharded write and partials kernels of the rank ``view`` is
+    bound to, and their plain versions, on its local state ``m`` (integer
+    valued); raise AssertionError unless both are bit-equal.  Returns
+    {kernel name: max |kernel - plain|}."""
+    p = view.launch_params(n, block, m.device)
+    what = (f"({_what(view, n, block, m)}, {view.partition} rank "
+            f"{view.rank} of {view.num_shards})")
+    got = write_shard_cuda(m.clone(), value, p, view)
+    want = sierpinski_write_plain(m.clone(), value, view, n, block)
+    if not torch.equal(got, want):
+        raise AssertionError(f"sharded write kernel != plain version {what}")
+    kp = sum_partials_shard_cuda(m, p, view)
+    pp = sum_partials_plain(m, view, n, block)
+    if not torch.equal(kp, pp):
+        raise AssertionError(f"sharded partials kernel != plain version "
+                             f"{what}: max |diff| "
+                             f"{float((kp - pp).abs().max())}")
+    return {"sierpinski_write_sharded": 0.0,
+            "sierpinski_sum_partials_sharded": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# sharded write / sum: one rank's share, and the mesh paths
+# ---------------------------------------------------------------------------
+
+def shard_plan(m: torch.Tensor, *, block: int, grid_mode: str,
+               fractal: str, storage: str, n, domain, coarsen: int, mesh,
+               shard_axis: str, rank: int, halo: bool = False):
+    """Validate a sharded write/sum/CA of the *global* state ``m`` and
+    return ``(plan bound to rank, n, block)``; ``mesh`` is a DeviceMesh
+    or any object whose ``shape`` maps ``shard_axis`` to its size."""
+    from repro_torch.core.shard import ShardedPlan
+    _check_state(m)
+    domain, n, block, storage = resolve_storage_args(
+        m, block, fractal, storage, n, domain)
+    plan = ShardedPlan(domain, grid_mode, storage=storage, coarsen=coarsen,
+                       backend=m, mesh=mesh, axis=shard_axis, halo=halo)
+    return plan.for_rank(rank).bind_block(block), n, block
+
+
+def write_rank(local: torch.Tensor, value, view, n: int,
+               block: int) -> torch.Tensor:
+    """One rank's share of a sharded write, in place on its local state
+    (its slab under compact storage, the replicated array under
+    embedded): the sharded kernel on the card, the plain version on the
+    CPU.  Returns ``local``."""
+    if not view.target.kernels:
+        return _cuda.launch("sierpinski_write", view, block, local,
+                            sierpinski_write_plain, local, value, view, n,
+                            block)
+    p = view.launch_params(n, block, local.device)
+    return _cuda.launch("sierpinski_write", view, block, local,
+                        write_shard_cuda, local, value, p, view)
+
+
+def sum_rank(local: torch.Tensor, view, n: int, block: int) -> torch.Tensor:
+    """One rank's share of a sharded sum: its partials, then their
+    in-order combine (a 0-d f32 tensor; 0 for a rank that owns
+    nothing)."""
+    if view.steps_per_launch == 0:
+        return torch.zeros((), dtype=torch.float32, device=local.device)
+    if not view.target.kernels:
+        return sum_combine_plain(_cuda.launch(
+            "sierpinski_sum", view, block, None, sum_partials_plain, local,
+            view, n, block))
+    p = view.launch_params(n, block, local.device)
+    return sum_combine_cuda(_cuda.launch("sierpinski_sum", view, block,
+                                         None, sum_partials_shard_cuda,
+                                         local, p, view))
+
+
+def _mesh_setup(m, mesh, shard_axis, **kw):
+    """(plan bound to this rank, n, block, the axis's process group)."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.check_mesh_device(mesh, m)
+    view, n, block = shard_plan(m, mesh=mesh, shard_axis=shard_axis,
+                                rank=mesh_lib.axis_rank(mesh, shard_axis),
+                                **kw)
+    return view, n, block, mesh_lib.axis_group(mesh, shard_axis)
+
+
+def masked_combine(part: torch.Tensor, owned: torch.Tensor,
+                   group) -> torch.Tensor:
+    """The sum over the ranks of ``where(owned, part, 0)``: exact, each
+    cell has one owner (bf16 is summed in f32, which holds it exactly)."""
+    from repro_torch.distributed import collectives
+    acc = torch.where(owned, part, torch.zeros((), dtype=part.dtype,
+                                               device=part.device))
+    if acc.dtype == torch.bfloat16:
+        acc = acc.to(torch.float32)
+    return collectives.all_reduce_sum(acc, group).to(part.dtype)
+
+
+def _write_sharded(m: torch.Tensor, value, mesh, shard_axis: str,
+                   **kw) -> torch.Tensor:
+    """The mesh write of :func:`sierpinski_write_`: ``m`` in place."""
+    from repro_torch.distributed import collectives
+    view, n, block, group = _mesh_setup(m, mesh, shard_axis, **kw)
+    if view.storage == "compact":
+        local = view.slab(m, block).clone()
+        write_rank(local, value, view, n, block)
+        out = view.unpad_rows(collectives.all_gather_cat(local, group),
+                              block)
+    else:
+        part = write_rank(m.clone(), value, view, n, block)
+        owned = view.owned_cell_mask(n, block, m.device)
+        member = view.member_cell_block_mask(n, block, m.device)
+        out = torch.where(member, masked_combine(part, owned, group), m)
+    return m.copy_(out)
+
+
+def _sum_sharded(m: torch.Tensor, mesh, shard_axis: str,
+                 **kw) -> torch.Tensor:
+    """The mesh sum of :func:`sierpinski_sum`."""
+    from repro_torch.distributed import collectives
+    view, n, block, group = _mesh_setup(m, mesh, shard_axis, **kw)
+    local = view.slab(m, block) if view.storage == "compact" else m
+    return collectives.all_reduce_sum(sum_rank(local, view, n, block),
+                                      group)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -502,9 +725,15 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
     fractal).  ``"auto"``, ``num_stages``, ``mesh``, ``shard_axis`` and
     ``verify`` as in the module docstring.  A CUDA ``m`` launches the
     kernel; a CPU ``m`` runs the plain version."""
-    check_unported(mesh=mesh, verify=verify)
+    check_unported(verify=verify)
     grid_mode, coarsen = _write_schedule(m, fractal, n, block, grid_mode,
-                                         coarsen, num_stages)
+                                         coarsen, num_stages, mesh,
+                                         shard_axis)
+    if mesh is not None:
+        return _write_sharded(m, value, mesh, shard_axis, block=block,
+                              grid_mode=grid_mode, fractal=fractal,
+                              storage=storage, n=n, domain=domain,
+                              coarsen=coarsen)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
@@ -538,9 +767,15 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
     grid-step order (lambda order, or row-major over the bounding box),
     the JAX package's order.  Options (and the ``"write"`` tune entry) as
     :func:`sierpinski_write_`."""
-    check_unported(mesh=mesh, verify=verify)
+    check_unported(verify=verify)
     grid_mode, coarsen = _write_schedule(m, fractal, n, block, grid_mode,
-                                         coarsen, num_stages)
+                                         coarsen, num_stages, mesh,
+                                         shard_axis)
+    if mesh is not None:
+        return _sum_sharded(m, mesh, shard_axis, block=block,
+                            grid_mode=grid_mode, fractal=fractal,
+                            storage=storage, n=n, domain=domain,
+                            coarsen=coarsen)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)

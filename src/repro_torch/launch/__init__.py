@@ -1,2 +1,3 @@
-"""Serving entry points of the port (``python -m
-repro_torch.launch.serve``)."""
+"""Entry points of the port: serving (``python -m
+repro_torch.launch.serve``), training (``launch.train``) and the meshes
+the sharded paths run on (``launch.mesh``)."""

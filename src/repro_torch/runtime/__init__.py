@@ -4,8 +4,8 @@
 (GuardedCall, classification, backoff, validators, degradation ladder,
 failure reports); :mod:`repro_torch.runtime.chaos` is the seeded fault
 injector and the ``python -m repro_torch.runtime.chaos --matrix`` proof
-that every fault class is caught (the collective faults wait for the
-mesh, ROADMAP A12).
+that every fault class is caught (the collective faults at the halo
+exchange of :mod:`repro_torch.core.shard`).
 """
 from .chaos import (ALL_FAULTS, ChaosInjector, FaultPlan, FaultSpec,
                     corrupt_tune_cache, tear_checkpoint)

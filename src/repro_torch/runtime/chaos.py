@@ -24,9 +24,18 @@ selects (:meth:`GridPlan.linear_step` order):
   is overwritten with NaN / inf / a sign-flip ("bitflip": finite
   garbage that only a spot-check catches, not the NaN screen).
 
-Collective layer (``drop_halo``, ``delay_halo``): these need a mesh,
-which comes with ROADMAP A12; their plans load, and the matrix reports
-the scenario ``skipped``.
+Collective layer (``drop_halo``, ``delay_halo``): every round of a
+compact CA's halo exchange (:meth:`repro_torch.core.shard.HaloPlan.
+exchange`, one point-to-point batch per round) passes through the
+injector's exchange hook, which counts it at :data:`PPERMUTE_SITE`:
+
+* ``drop_halo``  -- that round delivers zeros;
+* ``delay_halo`` -- that round is applied twice (what arrived is sent
+  through the same round again: ghost rows from two hops away).
+
+Each rank runs its own injector on the same plan, so a fault fires on
+every rank's round of the same index, and the ranks' rounds stay
+matched.
 
 Host layer (``wrap(site, fn)`` around prefill/decode steps):
 
@@ -74,6 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
+from repro_torch.core import shard
 from repro_torch.kernels import _cuda
 
 from .guard import (Backoff, GuardedCall, GuardExhausted, TransientFault,
@@ -100,7 +110,7 @@ class FaultSpec:
 
     kind:  one of :data:`ALL_FAULTS`.
     site:  call-site name -- :data:`PALLAS_SITE` (per kernel launch),
-           :data:`PPERMUTE_SITE` (per halo round, after A12), or any
+           :data:`PPERMUTE_SITE` (per halo round), or any
            host site a caller wraps (``"serve.decode"``, ...).
     index: 0-based call index at that site.
     mode:  kind-specific variant (poison: nan|inf|bitflip;
@@ -251,10 +261,12 @@ class ChaosInjector:
 
     def __enter__(self) -> "ChaosInjector":
         self._prev_hook = _cuda.set_launch_hook(self.around_launch)
+        self._prev_exchange = shard.set_exchange_hook(self.around_exchange)
         return self
 
     def __exit__(self, *exc):
         _cuda.set_launch_hook(self._prev_hook)
+        shard.set_exchange_hook(self._prev_exchange)
         return False
 
     def refresh(self) -> None:
@@ -305,6 +317,23 @@ class ChaosInjector:
                     tile.copy_(before)
             else:
                 tile.copy_(_poison_value(tile, f.mode))
+        return out
+
+    # -- exchange hook (collective layer) ------------------------------------
+
+    def around_exchange(self, round_fn: Callable, payload: torch.Tensor):
+        """The exchange hook: run one halo round (``round_fn(payload)``
+        returns what arrived), then apply this round index's collective
+        faults to what arrived."""
+        idx = self._count(PPERMUTE_SITE)
+        out = round_fn(payload)
+        for f in self.plan.for_call(PPERMUTE_SITE, idx):
+            if f.kind == "drop_halo":
+                self._event(f, PPERMUTE_SITE, idx, "round dropped")
+                out = torch.zeros_like(out)
+            elif f.kind == "delay_halo":
+                self._event(f, PPERMUTE_SITE, idx, "round delayed")
+                out = round_fn(out)
         return out
 
     # -- host layer ----------------------------------------------------------
@@ -477,11 +506,62 @@ def scenario_corrupt_table(seed: int, smoke: bool, device="cuda") -> dict:
         seed, smoke, device)
 
 
+def _drop_halo_rank(rank: int, world: int, seed: int, device: str) -> dict:
+    """One rank of :func:`scenario_drop_halo`: the sharded compact CA,
+    clean, then guarded under a plan that drops halo round 0."""
+    import importlib
+
+    from repro_torch.core import fractal as F
+    from repro_torch.core.compact import compact_layout
+    from repro_torch.core.domain import make_fractal_domain
+    from repro_torch.launch import mesh as mesh_lib
+    ca = importlib.import_module("repro_torch.kernels.sierpinski_ca")
+    n, block, steps = 32, 8, 4
+    mesh = mesh_lib.make_mesh((world, 1), mesh_lib.AXES, device=device)
+    dev = mesh_lib.mesh_device(mesh)
+    lay = compact_layout(make_fractal_domain("sierpinski-gasket",
+                                             n // block))
+    rng = np.random.default_rng(0)
+    emb = (rng.integers(0, 2, (n, n)) * F.membership_grid(n))
+    state = lay.pack(torch.from_numpy(emb.astype(np.float32)).to(dev), block)
+    buf = torch.zeros_like(state)
+
+    def run():
+        return ca.ca_run(state, buf, steps, fuse=2, rule="parity",
+                         block=block, grid_mode="closed_form",
+                         storage="compact", n=n, coarsen=1, num_stages=1,
+                         mesh=mesh, shard_axis="data")
+
+    clean = run()
+    plan = FaultPlan(seed, [FaultSpec("drop_halo", PPERMUTE_SITE, 0)])
+    with ChaosInjector(plan) as chaos:
+        guard = GuardedCall(
+            run, "ca_sharded", retries=2, backoff=_no_backoff(),
+            validators=[spot_check(clean, "halo spot check")],
+            before_retry=chaos.refresh)
+        out = guard()
+    return {"events": len(chaos.events),
+            "detected": any(e.kind == "validation" for e in guard.events),
+            "recovered": bool(torch.equal(out, clean)),
+            "rounds": chaos.counters[PPERMUTE_SITE]}
+
+
 def scenario_drop_halo(seed: int, smoke: bool, device="cuda") -> dict:
-    """A dropped halo round needs a mesh: skipped until ROADMAP A12."""
-    return _result("drop_halo", "skipped",
-                   reason="halo exchange needs a mesh, which is not "
-                          "ported yet (ROADMAP A12)")
+    """A dropped halo round of the sharded compact CA on a mesh of 2
+    ranks this scenario spawns (gloo; on the card both ranks share it)
+    -> spot check -> retry -> recover, bit-identical to the clean run on
+    every rank."""
+    from repro_torch.launch.mesh import run_ranks
+    reps = run_ranks(_drop_halo_rank, 2, seed, torch.device(device).type)
+    if not all(r["events"] for r in reps):
+        return _result("drop_halo", "skipped",
+                       reason="no halo round executed")
+    detected = all(r["detected"] for r in reps)
+    recovered = all(r["recovered"] for r in reps)
+    status = "recovered" if (detected and recovered) else "failed"
+    return _result("drop_halo", status, detected=detected,
+                   bit_identical=recovered,
+                   rounds=[r["rounds"] for r in reps])
 
 
 def _tiny_server(device, scfg=None, chaos=None, decode_kernel: str = ""):

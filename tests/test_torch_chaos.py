@@ -204,11 +204,13 @@ def test_matrix_cli_on_cpu(tmp_path, capsys):
     rep = json.load(open(path))
     assert rep["ok"] and rep["backend"] == "cpu" and rep["num_failed"] == 0
     status = {r["fault"]: r for r in rep["results"]}
-    assert status["drop_halo"]["status"] == "skipped"
-    assert "A12" in status["drop_halo"]["reason"]
+    # the halo round dropped on 2 gloo ranks this scenario spawns:
+    # detected by the spot check, recovered bit-identically
+    assert status["drop_halo"]["status"] == "recovered"
+    assert status["drop_halo"]["detected"] and \
+        status["drop_halo"]["bit_identical"]
     for name, r in status.items():
-        if name != "drop_halo":
-            assert r["status"] in ("recovered", "reported"), r
+        assert r["status"] in ("recovered", "reported"), r
     assert status["poison_tile"]["detected"] and \
         status["corrupt_table"]["bit_identical"]
-    assert "9 scenarios, 0 failed, 1 skipped" in capsys.readouterr().out
+    assert "9 scenarios, 0 failed, 0 skipped" in capsys.readouterr().out

@@ -1383,3 +1383,105 @@ def test_trainer_takes_two_steps_on_the_card(dev, tmp_path):
     for (_, a), (_, b) in zip(model.named_parameters(),
                               model2.named_parameters()):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the sharded lowering: each rank's launch against its plain version, in
+# one process (the plan's rank is explicit: no process group)
+# ---------------------------------------------------------------------------
+
+#: (fractal, n, block, coarsen): the gasket at n 32 block 8 (a 3 x 3
+#: orthotope) leaves rank 3 of 4 without rows
+MESH_CASES = [("sierpinski-gasket", 64, 8, 2), ("sierpinski-carpet", 81, 3, 3),
+              ("sierpinski-gasket", 32, 8, 1)]
+
+
+def _mesh(D):
+    import types
+    return types.SimpleNamespace(shape={"data": D})
+
+
+def _rank_views(m, fractal, n, block, storage, grid_mode, coarsen,
+                halo=False):
+    for D in (2, 3, 4):
+        for rank in range(D):
+            yield TW.shard_plan(m, block=block, grid_mode=grid_mode,
+                                fractal=fractal, storage=storage, n=n,
+                                domain=None, coarsen=coarsen, mesh=_mesh(D),
+                                shard_axis="data", rank=rank, halo=halo)[0]
+
+
+@pytest.mark.parametrize("fractal,n,block,coarsen", MESH_CASES)
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+def test_sharded_write_and_partials_match_plain(dev, fractal, n, block,
+                                                coarsen, storage,
+                                                grid_mode):
+    m = _state(n, torch.float32, 5, dev)
+    if storage == "compact":
+        m = compact_layout(TW.resolve_fractal_domain(fractal, n, block)) \
+            .pack(m, block)
+    for s in sorted({1, coarsen}):
+        for view in _rank_views(m, fractal, n, block, storage, grid_mode, s):
+            local = view.slab(m, block) if storage == "compact" else m
+            TW.check_shard_against_plain(local, 2.5, view, n, block)
+
+
+@pytest.mark.parametrize("fractal,n,block,coarsen", MESH_CASES)
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+def test_sharded_ca_matches_plain(dev, fractal, n, block, coarsen, storage,
+                                  grid_mode):
+    lay = compact_layout(TW.resolve_fractal_domain(fractal, n, block))
+    mask = torch.from_numpy(F.FRACTALS[fractal].membership_grid(n).copy()).to(dev)
+    states = {"parity": torch.where(mask, _state(n, torch.float32, 6, dev)
+                                    .abs() % 2, 0),
+              "diffusion": torch.where(mask, _state(n, torch.float32, 7,
+                                                    dev, integer=False), 0)}
+    compact = storage == "compact"
+    for s in sorted({1, coarsen}):
+        for rule, x in states.items():
+            x = lay.pack(x, block) if compact else x
+            for view in _rank_views(x, fractal, n, block, storage,
+                                    grid_mode, s, halo=compact):
+                a = view.extended(x, block) if compact else x
+                b = torch.zeros_like(a)
+                views = [(view, (1, 2))]
+                if compact and grid_mode != "bounding" and \
+                        view.phase_tables_host() is not None:
+                    views += [(view.phase_view(w), (2,))
+                              for w in ("interior", "boundary")]
+                for fuse in (1, 3):
+                    if fuse > s * block:
+                        continue
+                    for v, depths in views:
+                        for stages in depths:
+                            TC.check_ca_shard_against_plain(
+                                a, b, v, n, block, fuse, fuse, rule, 0.2,
+                                stages)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 72)])
+@pytest.mark.parametrize("kind,balance", [("causal", "contiguous"),
+                                          ("causal", "zigzag"),
+                                          ("local", "contiguous"),
+                                          ("full", "contiguous")])
+def test_sharded_flash_tile_paths_match_plain(dev, dtype, d, kind, balance):
+    s, blk = 512, 64
+    q, k, v = (_randn(shape, 21 + i, dev, dtype) for i, shape in enumerate(
+        [(1, 4, s, d), (1, 2, s, d), (1, 2, s, d)]))
+    FA.reset_launch_counts()
+    launches = 0
+    for gm in LOWERINGS:
+        sched = FA.flash_schedule(q.shape, k.shape, kind=kind,
+                                  window=128 if kind == "local" else 0,
+                                  block_q=blk, block_k=blk, grid_mode=gm)
+        for D in (2, 4):
+            for rank in range(D):
+                band = FA.shard_band(sched, D, rank, balance)
+                FA.check_flash_shard_against_plain(
+                    FA.band_queries(q, sched, band), k, v, sched, band)
+                launches += 1
+    assert FA.shard_launch_counts()["flash_attention_sharded"] == launches

@@ -3,11 +3,13 @@
 ``num_stages``, ``mesh``, ``shard_axis`` and ``verify`` are in the
 reference's signatures (``repro.kernels.sierpinski_write`` /
 ``sierpinski_ca``).  The port takes them all: what it has not ported
-raises ``NotImplementedError`` naming the roadmap item that brings it (a
-mesh: A12, ``verify=True``: A13), ``shard_axis`` alone changes nothing,
-``"auto"`` on an untuned problem gives the reference's defaults, and
-write and sum, which have no ring, give the bits of the call without
-``num_stages`` at every integer depth.
+raises ``NotImplementedError`` naming the roadmap item that brings it
+(``verify=True``: A13), a ``mesh`` that is not a mesh raises the
+reference's own error (an object with no ``shape``: ``AttributeError``),
+``shard_axis`` alone changes nothing, ``"auto"`` on an untuned problem
+gives the reference's defaults, and write and sum, which have no ring,
+give the bits of the call without ``num_stages`` at every integer depth.
+(Sharded runs on real meshes: ``tests/test_torch_mesh.py``.)
 """
 import importlib
 import inspect
@@ -48,10 +50,25 @@ def _call(entry, **kw):
 
 ENTRIES = ("sierpinski_write", "sierpinski_write_", "sierpinski_sum",
            "ca_run", "ca_step")
-#: (keywords, the roadmap item named, or None: the call's bits stand)
+def _call_ref(entry, **kw):
+    """The reference's call of ``entry`` on the same state."""
+    import jax.numpy as jnp
+    m = jnp.asarray(_state().numpy())
+    if entry in ("sierpinski_write", "sierpinski_write_"):
+        return JW.sierpinski_write(m, 2.5, block=BLOCK, **kw)
+    if entry == "sierpinski_sum":
+        return JW.sierpinski_sum(m, block=BLOCK, **kw)
+    zeros = jnp.zeros_like(m)
+    if entry == "ca_run":
+        return JCA.ca_run(m, zeros, 3, block=BLOCK, **kw)
+    return JCA.ca_step(m, zeros, block=BLOCK, **kw)
+
+
+#: (keywords, the roadmap item named or the reference's own error, or
+#: None: the call's bits stand)
 CASES = [(dict(num_stages="auto"), None), (dict(coarsen="auto"), None),
-         (dict(mesh=object()), "A12"),
-         (dict(mesh=object(), shard_axis="model"), "A12"),
+         (dict(mesh=object()), AttributeError),
+         (dict(mesh=object(), shard_axis="model"), AttributeError),
          (dict(verify=True), "A13"), (dict(shard_axis="model"), None),
          (dict(verify=False, mesh=None), None), (dict(num_stages=1), None),
          (dict(num_stages=3), None)]
@@ -64,6 +81,13 @@ CASES = [(dict(num_stages="auto"), None), (dict(coarsen="auto"), None),
 def test_unported_keywords_name_their_roadmap_item(entry, kw, item,
                                                    monkeypatch, tmp_path):
     isolate_tune_caches(monkeypatch, tmp_path)  # "auto" misses
+    if isinstance(item, type):
+        # an object that is not a mesh: the reference's own error
+        with pytest.raises(item):
+            _call_ref(entry, **kw)
+        with pytest.raises(item):
+            _call(entry, **kw)
+        return
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             _call(entry, **kw)

@@ -237,10 +237,49 @@ def test_searchers_name_the_unported_options():
                TT.autotune_paged):
         with pytest.raises(NotImplementedError, match="A13"):
             fn(verify=True, device="cpu")
-    for fn in (TT.autotune_ca, TT.autotune_write, TT.autotune_paged):
-        with pytest.raises(NotImplementedError, match="A12"):
+    # an object that is not a mesh: the reference's own error (its
+    # searchers read mesh.shape through shard_params)
+    for fn in (TT.autotune_ca, TT.autotune_write):
+        with pytest.raises(AttributeError):
             fn(mesh=object(), device="cpu")
+    # the paged searcher's mesh is the serving mesh's slot sharding
+    with pytest.raises(NotImplementedError, match="A12"):
+        TT.autotune_paged(mesh=object(), device="cpu")
     assert TT.shard_params({"n": 1}, None, "data") == {"n": 1}
+
+
+def test_tune_keys_qualified_by_shard_count(monkeypatch, tmp_path):
+    """tests/test_shard.py:408's: a sharded run consults the
+    shard-count-qualified key (the mesh axis size), unsharded runs keep
+    the unqualified key, so single-device winners never answer for
+    sharded runs and different shard counts never collide -- the same
+    keys as the reference's shard_params."""
+    import types
+
+    isolate_tune_caches(monkeypatch, tmp_path)
+    base = {"fractal": "sierpinski-gasket", "n": 32, "block": 8,
+            "rule": "parity"}
+    mesh2 = types.SimpleNamespace(shape={"data": 2})
+    mesh4 = types.SimpleNamespace(shape={"data": 4})
+    assert TT.shard_params(base, None, "data") == base
+    for mesh in (mesh2, mesh4):
+        assert TT.shard_params(base, mesh, "data") == \
+            JT.shard_params(base, mesh, "data")
+    assert TT.shard_params(base, mesh2, "data")["devices"] == 2
+    cache = TT.default_cache()
+    cache.put("ca", TT._with_backend(dict(base), "cpu"),
+              {"lowering": "bounding", "fuse": 1, "coarsen": 1}, 1.0,
+              save=False)
+    cache.put("ca", TT._with_backend({**base, "devices": 2}, "cpu"),
+              {"lowering": "prefetch_lut", "fuse": 4, "coarsen": 1}, 1.0,
+              save=False)
+    ca = importlib.import_module("repro_torch.kernels.sierpinski_ca")
+    assert ca.auto_schedule(n=32, block=8, device="cpu")[0] == "bounding"
+    assert ca.auto_schedule(n=32, block=8, mesh=mesh2, device="cpu") == \
+        ("prefetch_lut", 4, 1, 1)
+    # an untuned shard count: the defaults
+    assert ca.auto_schedule(n=32, block=8, mesh=mesh4, device="cpu") == \
+        ("closed_form", 1, 1, 1)
 
 
 # ---------------------------------------------------------------------------
