@@ -4501,8 +4501,51 @@ def mesh_rank(rank, world, cfg):
             del got, ref
             torch.cuda.empty_cache()
         del x, stale
-    # the exchange and the rank's launch alone, timed after the counted
-    # runs: one fuse-8 step of the parity state
+    # -- embedded storage, cut: the replicated state, masked combines -----
+    ne, rhoe = cfg["emb_n"], cfg["emb_rho"]
+    ekw = dict(block=rhoe, grid_mode="closed_form")
+    me = torch.zeros((ne, ne), dtype=torch.float32, device=dev)
+    TW.sierpinski_write_(me, 1.0, mesh=mesh, **ekw)
+    rep["emb_write_equal"] = bool(torch.equal(
+        me, TW.sierpinski_write_(torch.zeros_like(me), 1.0, **ekw)))
+    torch.cuda.empty_cache()
+    rep["emb_sum_equal"] = bool(torch.equal(
+        TW.sierpinski_sum(me, mesh=mesh, **ekw), TW.sierpinski_sum(me, **ekw)))
+    ca = cfg["emb_ca"]
+    ckw = dict(fuse=ca["fuse"], rule="parity", num_stages=1, **ekw)
+    got = TC.ca_run(me, torch.zeros_like(me), ca["steps"], mesh=mesh, **ckw)
+    ref = TC.ca_run(me, torch.zeros_like(me), ca["steps"], donate=False,
+                    **ckw)
+    rep["emb_ca_equal"] = bool(torch.equal(got, ref))
+    del me, got, ref
+    torch.cuda.empty_cache()
+
+    # -- flash at gemma3-12b's heads: rows and zigzag ---------------------
+    fl = cfg["flash"]
+    q, k, v = attn_inputs([(fl["b"], fl["h"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"])],
+                          torch.bfloat16, 21, dev)
+    fkw = dict(kind="causal", block_q=fl["block"], block_k=fl["block"])
+    one = FA.flash_attention(q, k, v, **fkw)
+    for balance in ("contiguous", "zigzag"):
+        got, t = wall(lambda: FA.flash_attention(q, k, v, mesh=mesh,
+                                                 shard_balance=balance,
+                                                 **fkw))
+        rep[f"flash_{balance}_equal"] = bool(torch.equal(got, one))
+        rep[f"flash_{balance}_ms"] = t
+    del q, k, v, one, got
+    torch.cuda.empty_cache()
+    # the main path's launches end here: the timing below launches the
+    # sharded CA too, and is not counted
+    torch.cuda.synchronize(dev)
+    rep["launches"] = {**TW.launch_counts(), **TC.launch_counts(),
+                       **FA.launch_counts(), **TW.shard_launch_counts(),
+                       **TC.shard_launch_counts(), **FA.shard_launch_counts()}
+    rep["traffic"] = collectives.TRAFFIC.as_dict()
+
+    # -- the exchange and the rank's launch alone: one fuse-8 step of the
+    # parity state
     rows = view.rpd * view.row_unit
     x = torch.where(mask, torch.randint(0, 2, shape, generator=g.manual_seed(
         SEED + 1), device=dev).float(), 0)
@@ -4549,44 +4592,6 @@ def mesh_rank(rank, world, cfg):
     del a, b, mask
     torch.cuda.empty_cache()
 
-    # -- embedded storage, cut: the replicated state, masked combines -----
-    ne, rhoe = cfg["emb_n"], cfg["emb_rho"]
-    ekw = dict(block=rhoe, grid_mode="closed_form")
-    me = torch.zeros((ne, ne), dtype=torch.float32, device=dev)
-    TW.sierpinski_write_(me, 1.0, mesh=mesh, **ekw)
-    rep["emb_write_equal"] = bool(torch.equal(
-        me, TW.sierpinski_write_(torch.zeros_like(me), 1.0, **ekw)))
-    torch.cuda.empty_cache()
-    rep["emb_sum_equal"] = bool(torch.equal(
-        TW.sierpinski_sum(me, mesh=mesh, **ekw), TW.sierpinski_sum(me, **ekw)))
-    ca = cfg["emb_ca"]
-    ckw = dict(fuse=ca["fuse"], rule="parity", num_stages=1, **ekw)
-    got = TC.ca_run(me, torch.zeros_like(me), ca["steps"], mesh=mesh, **ckw)
-    ref = TC.ca_run(me, torch.zeros_like(me), ca["steps"], donate=False,
-                    **ckw)
-    rep["emb_ca_equal"] = bool(torch.equal(got, ref))
-    del me, got, ref
-    torch.cuda.empty_cache()
-
-    # -- flash at gemma3-12b's heads: rows and zigzag ---------------------
-    fl = cfg["flash"]
-    q, k, v = attn_inputs([(fl["b"], fl["h"], fl["s"], fl["d"]),
-                           (fl["b"], fl["hkv"], fl["s"], fl["d"]),
-                           (fl["b"], fl["hkv"], fl["s"], fl["d"])],
-                          torch.bfloat16, 21, dev)
-    fkw = dict(kind="causal", block_q=fl["block"], block_k=fl["block"])
-    one = FA.flash_attention(q, k, v, **fkw)
-    for balance in ("contiguous", "zigzag"):
-        got, t = wall(lambda: FA.flash_attention(q, k, v, mesh=mesh,
-                                                 shard_balance=balance,
-                                                 **fkw))
-        rep[f"flash_{balance}_equal"] = bool(torch.equal(got, one))
-        rep[f"flash_{balance}_ms"] = t
-    torch.cuda.synchronize(dev)
-    rep["launches"] = {**TW.launch_counts(), **TC.launch_counts(),
-                       **FA.launch_counts(), **TW.shard_launch_counts(),
-                       **TC.shard_launch_counts(), **FA.shard_launch_counts()}
-    rep["traffic"] = collectives.TRAFFIC.as_dict()
     rep["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     return rep
 
@@ -4649,6 +4654,110 @@ def phase_mesh_e2e(dev):
               f"{secs:.1f} s")
         out[str(D)] = {"ranks": reps, "launches": launches, "seconds": secs}
     return out
+
+
+def phase_mesh_shapes(TW, TC, FA, compact_layout, F, dev):
+    """Every rank's sharded launch at the shapes the end-to-end runs give
+    it (D 2 and 4), held against its plain version on the same inputs:
+    write and partials on the rank's compact slab (the integer-valued
+    state of the sum), the CA on its extended buffers (fuse 1 parity on
+    every rank; rank 0 of 4 also the fuse-8 diffusion launch through the
+    interior and boundary phases at num_stages 2), the embedded cut's
+    write / partials / fuse-2 CA on the replicated state, and every
+    rank's flash band at gemma3-12b's heads under rows and zigzag.
+    Write, partials and CA bit-equal, flash within its tolerances."""
+    errs = {"sierpinski_write_sharded": 0.0,
+            "sierpinski_sum_partials_sharded": 0.0,
+            "sierpinski_ca_fused_sharded": 0.0,
+            "flash_attention_sharded": 0.0}
+    cases = dict.fromkeys(errs, 0)
+    n, rho = MESH_N, MESH_RHO
+    lay = compact_layout(TW.resolve_fractal_domain("sierpinski-gasket", n,
+                                                   rho))
+    shape = lay.array_shape(rho)
+    mask = packed_gasket_mask(lay, rho, n, F, dev)
+    g = torch.Generator(device=dev)
+    xi = torch.where(mask, torch.randint(-1, 2, shape, generator=g.manual_seed(
+        SEED), device=dev).float(), 0)
+    xp = torch.where(mask, torch.randint(0, 2, shape, generator=g.manual_seed(
+        SEED + 1), device=dev).float(), 0)
+    xd = torch.where(mask, torch.randn(shape, generator=g.manual_seed(
+        SEED + 2), device=dev), 0)
+    del mask
+    kw = dict(block=rho, grid_mode="closed_form", fractal="sierpinski-gasket",
+              storage="compact", n=n, domain=None, coarsen=1,
+              shard_axis="data")
+    fuse = max(MESH_CA_FUSES)
+    for D in MESH_E2E_SHARDS:
+        for rank in range(D):
+            rk = dict(kw, mesh=mesh_stand_in(D), rank=rank)
+            view, _, _ = TW.shard_plan(xi, **rk)
+            merge_err(errs, TW.check_shard_against_plain(
+                view.slab(xi, rho), 1.0, view, n, rho))
+            cases["sierpinski_write_sharded"] += 1
+            cases["sierpinski_sum_partials_sharded"] += 1
+            cv, _, _ = TW.shard_plan(xi, **rk, halo=True)
+            a = cv.extended(xp, rho)
+            TC.check_ca_shard_against_plain(a, torch.zeros_like(a), cv, n,
+                                            rho, 1, 1, "parity", CA_ALPHA, 1)
+            cases["sierpinski_ca_fused_sharded"] += 1
+            if (D, rank) == (MESH_TIMED_D, 0):
+                a = cv.extended(xd, rho)
+                for w in ("interior", "boundary"):
+                    TC.check_ca_shard_against_plain(
+                        a, torch.zeros_like(a), cv.phase_view(w), n, rho,
+                        fuse, fuse, "diffusion", CA_ALPHA, 2)
+                    cases["sierpinski_ca_fused_sharded"] += 1
+            del a
+    del xi, xp, xd
+    torch.cuda.empty_cache()
+    ne, rhoe = MESH_EMB_N, MESH_EMB_RHO
+    me = random_state(ne, torch.float32, SEED + 3, True, dev)
+    ca = MESH_EMB_CA
+    for D in MESH_E2E_SHARDS:
+        for rank in range(D):
+            view, _, _ = TW.shard_plan(
+                me, block=rhoe, grid_mode="closed_form",
+                fractal="sierpinski-gasket", storage="embedded", n=ne,
+                domain=None, coarsen=1, mesh=mesh_stand_in(D),
+                shard_axis="data", rank=rank)
+            merge_err(errs, TW.check_shard_against_plain(me, 1.0, view, ne,
+                                                         rhoe))
+            TC.check_ca_shard_against_plain(
+                me, torch.zeros_like(me), view, ne, rhoe, ca["fuse"],
+                ca["fuse"], "parity", CA_ALPHA, 1)
+            for name in ("sierpinski_write_sharded",
+                         "sierpinski_sum_partials_sharded",
+                         "sierpinski_ca_fused_sharded"):
+                cases[name] += 1
+    del me
+    torch.cuda.empty_cache()
+    fl = MESH_FLASH
+    q, k, v = attn_inputs([(fl["b"], fl["h"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"]),
+                           (fl["b"], fl["hkv"], fl["s"], fl["d"])],
+                          torch.bfloat16, 21, dev)
+    sched = FA.flash_schedule(q.shape, k.shape, kind="causal",
+                              block_q=fl["block"], block_k=fl["block"])
+    rel = 0.0
+    for D in MESH_E2E_SHARDS:
+        for balance in ("contiguous", "zigzag"):
+            for rank in range(D):
+                band = FA.shard_band(sched, D, rank, balance)
+                qb = FA.band_queries(q, sched, band)
+                err, got = FA.check_flash_shard_against_plain(qb, k, v, sched,
+                                                              band)
+                errs["flash_attention_sharded"] = max(
+                    errs["flash_attention_sharded"], err)
+                rel = max(rel, FA.row_rel_err(got, FA.flash_attention_plain(
+                    qb, k, v, sched, rows=torch.from_numpy(band.rows()))))
+                cases["flash_attention_sharded"] += 1
+    torch.cuda.synchronize()
+    print(f"[mesh] every rank at the end-to-end shapes (D "
+          f"{list(MESH_E2E_SHARDS)}): {json.dumps(cases)} launches against "
+          f"their plain versions, max |err| {json.dumps(errs)}, bf16 row "
+          f"error {rel:.3g} (bound {FA.ROW_RTOL[torch.bfloat16]})")
+    return errs, cases, rel
 
 
 def phase_mesh_times(TW, TC, FA, compact_layout, F, dev):
@@ -4738,8 +4847,9 @@ def phase_mesh_times(TW, TC, FA, compact_layout, F, dev):
 
 def phase_mesh(TW, TC, FA, RC, F, LOWERINGS, compact_layout, dev):
     """The [mesh] phase: (a) per-rank parity, (b) end to end on 2 and 4
-    spawned ranks, drop_halo detected and recovered on the card, and the
-    sharded kernels' times."""
+    spawned ranks, drop_halo detected and recovered on the card, every
+    rank's sharded launches at the end-to-end shapes against their plain
+    versions, and the sharded kernels' times."""
     t0 = time.perf_counter()
     errs, cases, rel = phase_mesh_parity(TW, TC, FA, F, LOWERINGS,
                                          compact_layout, dev)
@@ -4753,19 +4863,27 @@ def phase_mesh(TW, TC, FA, RC, F, LOWERINGS, compact_layout, dev):
     print(f"[mesh] drop_halo on 2 ranks of the card: {json.dumps(halo)}")
     check(halo["status"] == "recovered" and halo["detected"]
           and halo["bit_identical"], f"drop_halo on the card: {halo}")
+    t1 = time.perf_counter()
+    shape_errs, shape_cases, shape_rel = phase_mesh_shapes(
+        TW, TC, FA, compact_layout, F, dev)
+    t_shapes = time.perf_counter() - t1
     times = phase_mesh_times(TW, TC, FA, compact_layout, F, dev)
     secs = time.perf_counter() - t0
     print(f"[mesh] phase {secs:.1f} s (parity {t_par:.1f} s, end to end "
-          f"{t_e2e:.1f} s)")
+          f"{t_e2e:.1f} s, end-to-end shapes against the plain versions "
+          f"{t_shapes:.1f} s)")
     return {"parity_max_abs_err": errs, "parity_cases": cases,
             "parity_max_row_rel_err": rel, "e2e": e2e, "drop_halo": halo,
-            "times": times, "card": CARD, "seconds": secs}
+            "shapes_max_abs_err": shape_errs, "shapes_cases": shape_cases,
+            "shapes_max_row_rel_err": shape_rel, "times": times,
+            "card": CARD, "seconds": secs}
 
 
 def mesh_kernel_entries(kernels, mesh):
     """The kernels line's sharded entries: launches summed over the
-    end-to-end runs' ranks, errors from the per-rank parity, times from
-    phase_mesh_times."""
+    end-to-end runs' ranks (their counted runs only), errors the larger
+    of the per-rank parity's and the end-to-end shapes' checks, times
+    from phase_mesh_times."""
     sources = {"sierpinski_write_sharded": (
         "src/repro_torch/csrc/sierpinski_write.cu",
         "src/repro/kernels/sierpinski_write.py:171"),
@@ -4785,7 +4903,8 @@ def mesh_kernel_entries(kernels, mesh):
             "replaces": replaces,
             "launches": sum(e["launches"][name]
                             for e in mesh["e2e"].values()),
-            "max_abs_err": mesh["parity_max_abs_err"][name],
+            "max_abs_err": max(mesh["parity_max_abs_err"][name],
+                               mesh["shapes_max_abs_err"][name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
@@ -4793,6 +4912,8 @@ def mesh_kernel_entries(kernels, mesh):
                   f"n={MESH_N} rho={MESH_RHO} (flash: gemma3-12b causal S "
                   f"{MESH_FLASH['s']} bf16, the zigzag band)",
             "parity_cases": mesh["parity_cases"][name],
+            "shapes_cases": mesh["shapes_cases"][name],
+            "shapes_max_abs_err": mesh["shapes_max_abs_err"][name],
             "launches_by_shards": {D: e["launches"][name]
                                    for D, e in mesh["e2e"].items()}})
 

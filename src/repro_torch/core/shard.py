@@ -373,6 +373,8 @@ class ShardedPlan(GridPlan):
 
     mesh, axis:  the mesh (a DeviceMesh, or any object whose ``shape``
                  maps ``axis`` to its size) and the axis to shard over.
+    num_shards:  the shard count, in place of ``mesh`` (the host
+                 geometry alone, no process group).
     partition:   "storage-rows" | "linear" | "rows" | "zigzag" (default:
                  by storage -- compact shards its packed rows, embedded
                  the canonical enumeration).
@@ -389,13 +391,18 @@ class ShardedPlan(GridPlan):
 
     def __init__(self, domain: BlockDomain, lowering: str = "closed_form",
                  batch_dims: Sequence[int] = (), storage: str = "embedded",
-                 coarsen: int = 1, backend=None, *, mesh, axis: str,
+                 coarsen: int = 1, backend=None, *, mesh=None,
+                 axis: str = "data", num_shards: Optional[int] = None,
                  partition: Optional[str] = None, halo: bool = False,
                  rank: Optional[int] = None):
         super().__init__(domain, lowering, batch_dims, storage, coarsen,
                          backend)
+        if (mesh is None) == (num_shards is None):
+            raise ValueError("ShardedPlan takes a mesh or a shard count, "
+                             "not both or neither")
         self.mesh, self.axis = mesh, axis
-        self.num_shards = axis_size(mesh, axis)
+        self.num_shards = int(num_shards) if mesh is None \
+            else axis_size(mesh, axis)
         self.rank = rank
         if partition is None:
             partition = "storage-rows" if self.storage == "compact" \

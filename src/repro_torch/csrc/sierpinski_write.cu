@@ -382,6 +382,8 @@ __device__ __forceinline__ uint4 splat(W v) {
   return make_uint4(w, w, w, w);
 }
 
+// write_shard_kernel below repeats this body over one rank's steps: keep
+// the two in step.
 template <int kDom, bool kMma, bool kTiled, typename W>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 write_kernel(W* __restrict__ m, W value, FracParams p, Cells L, long long run,
@@ -452,6 +454,8 @@ __device__ __forceinline__ float add_chunk(float acc,
   return acc;
 }
 
+// sum_shard_kernel below repeats this body over one rank's steps: keep
+// the two in step.
 template <int kDom, bool kMma, bool kTiled, int DT>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,

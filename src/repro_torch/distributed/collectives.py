@@ -81,6 +81,17 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def masked_all_reduce(part: torch.Tensor, owned: torch.Tensor,
+                   group) -> torch.Tensor:
+    """The sum over the ranks of ``where(owned, part, 0)``: exact, each
+    cell has one owner (bf16 is summed in f32, which holds it exactly)."""
+    acc = torch.where(owned, part, torch.zeros((), dtype=part.dtype,
+                                               device=part.device))
+    if acc.dtype == torch.bfloat16:
+        acc = acc.to(torch.float32)
+    return all_reduce_sum(acc, group).to(part.dtype)
+
+
 def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` (one shape on every rank) concatenated along
     dim 0 in rank order, on ``t``'s device."""

@@ -255,6 +255,21 @@ def set_launch_hook(hook: Optional[Callable]) -> Optional[Callable]:
     return prev
 
 
+def shard_args(m: torch.Tensor, p, view) -> tuple:
+    """Check a sharded launch's operands and return its shard arguments
+    (the SHARD_PARAMS array, the ghost map's and the phase list's
+    addresses) for the rank ``view`` is bound to."""
+    arr, gmap, phase = view.shard_params(m.device)
+    check_tables(m, p, lut_rows=int(view._count[view.rank]))
+    if m.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs a CUDA tensor, got one on {m.device}")
+    if tuple(m.shape) != (p.rows, p.pitch):
+        raise ValueError(
+            f"state shape {tuple(m.shape)} != ({p.rows}, {p.pitch})")
+    return arr, ptr(gmap), ptr(phase)
+
+
 def launch(kernel: str, plan, block: int, dst, fn: Callable, *args):
     """``fn(*args)``: one launch of a fractal kernel (the kernel on the
     card, its plain version on the CPU), through the installed launch

@@ -93,7 +93,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import types
 from typing import Optional, Tuple
 
 import numpy as np
@@ -1143,8 +1142,7 @@ def shard_band(sched: FlashSchedule, num_shards: int, rank: int,
             f"'contiguous' or 'zigzag'")
     plan = ShardedPlan(sched.domain, sched.lowering,
                        batch_dims=(sched.b * sched.h,), backend="cpu",
-                       mesh=types.SimpleNamespace(shape={"data": D}),
-                       axis="data", partition=partition)
+                       num_shards=D, partition=partition)
     row_lo = int(plan._row_lo[rank]) if partition == "rows" else 0
     return RowBand(partition, rank, D, plan.rbd, row_lo)
 

@@ -85,7 +85,7 @@ from repro_torch.core.domain import BlockDomain
 from repro_torch.core.plan import GridPlan, LaunchParams
 
 from . import _cuda
-from .sierpinski_write import (PLAIN_CHUNK_CELLS, check_unported,
+from .sierpinski_write import (PLAIN_CHUNK_CELLS, check_unported, mesh_plan,
                                resolve_auto_schedule, resolve_storage_args,
                                storage_offsets, supertile_offsets)
 
@@ -326,9 +326,8 @@ def ca_shard_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
     rank's local buffers -- the replicated arrays (embedded), or the
     extended arrays ``[slab ++ ghosts ++ dump]`` whose slab rows ``dst``
     receives (compact).  Returns ``dst``."""
-    from .sierpinski_write import shard_args
     _check_cuda(src, dst, p)
-    shard = shard_args(src, p, view)
+    shard = _cuda.shard_args(src, p, view)
     lib = _lib("sierpinski_ca_sharded")
     status = _launch(lib, "sc_ca_launch_sharded", src, dst, p, halo, steps,
                      rule, alpha, num_stages, shard)
@@ -474,12 +473,11 @@ def _ca_run_sharded(state, stale_buf, steps, *, fuse, rule, alpha, block,
     """The mesh run of :func:`ca_run` (bit-identical to the
     single-device run)."""
     from repro_torch.distributed import collectives
-    from .sierpinski_write import _mesh_setup, masked_combine
     _check_buffers(state, stale_buf)
     if rule not in RULES:
         raise ValueError(f"unknown rule {rule!r}; expected one of "
                          f"{tuple(RULES)}")
-    view, n, block, group = _mesh_setup(
+    view, n, block, group = mesh_plan(
         state, mesh, shard_axis, block=block, grid_mode=grid_mode,
         fractal=fractal, storage=storage, n=n, domain=domain,
         coarsen=coarsen, halo=storage == "compact")
@@ -500,8 +498,9 @@ def _ca_run_sharded(state, stale_buf, steps, *, fuse, rule, alpha, block,
     owned = view.owned_cell_mask(n, block, state.device)
     a, b = state.clone(), stale_buf.clone()
     for k in sched:
-        b = masked_combine(ca_rank(a, b, view, n, block, fuse, k, rule,
-                                   alpha, stages), owned, group)
+        b = collectives.masked_all_reduce(
+            ca_rank(a, b, view, n, block, fuse, k, rule, alpha, stages),
+            owned, group)
         a, b = b, a
     return a
 
@@ -614,8 +613,9 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     ``"auto"`` resolve from the tune cache (:func:`auto_schedule`;
     untuned: fuse 1, closed_form, coarsen 1, one stage; under a mesh the
     key names the shard count).  ``mesh=`` shards the run (module
-    docstring; the result is a new tensor, the buffers are left as they
-    were); ``verify=True`` raises ``NotImplementedError`` naming A13."""
+    docstring); ``donate`` does not apply there: the result is always a
+    new tensor and both buffers are left as they were.  ``verify=True``
+    raises ``NotImplementedError`` naming A13."""
     check_unported(verify=verify)
     grid_mode, fuse, coarsen, num_stages = auto_schedule(
         fractal=fractal, n=n or state.shape[0], block=block, rule=rule,

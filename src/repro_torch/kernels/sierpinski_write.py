@@ -442,28 +442,13 @@ def sum_combine_cuda(partials: torch.Tensor) -> torch.Tensor:
 sum_combine_cuda.launches = 0
 
 
-def shard_args(m: torch.Tensor, p: LaunchParams, view) -> tuple:
-    """Check a sharded launch's operands and return its shard arguments
-    (the SHARD_PARAMS array, the ghost map's and the phase list's
-    addresses) for the rank ``view`` is bound to."""
-    arr, gmap, phase = view.shard_params(m.device)
-    _cuda.check_tables(m, p, lut_rows=int(view._count[view.rank]))
-    if m.device.type != "cuda":
-        raise ValueError(
-            f"the CUDA kernel needs a CUDA tensor, got one on {m.device}")
-    if tuple(m.shape) != (p.rows, p.pitch):
-        raise ValueError(
-            f"state shape {tuple(m.shape)} != ({p.rows}, {p.pitch})")
-    return arr, _cuda.ptr(gmap), _cuda.ptr(phase)
-
-
 def write_shard_cuda(m: torch.Tensor, value, p: LaunchParams,
                      view) -> torch.Tensor:
     """Launch the sharded write kernel: the steps of the rank ``view`` is
     bound to, on that rank's local state ``m`` (its slab, or the
     replicated array) in place."""
     _check_state(m)
-    shard, gmap, phase = shard_args(m, p, view)
+    shard, gmap, phase = _cuda.shard_args(m, p, view)
     bits = _value_bits(m, value)
     lib = _lib("sierpinski_write_sharded")
     with torch.cuda.device(m.device):
@@ -485,7 +470,7 @@ def sum_partials_shard_cuda(m: torch.Tensor, p: LaunchParams,
     """Launch the sharded tile-reduce kernel: the (steps,) f32 partials
     of the rank ``view`` is bound to, in its step order."""
     _check_state(m)
-    shard, gmap, phase = shard_args(m, p, view)
+    shard, gmap, phase = _cuda.shard_args(m, p, view)
     partials = torch.empty(p.steps, dtype=torch.float32, device=m.device)
     lib = _lib("sierpinski_write_sharded")
     with torch.cuda.device(m.device):
@@ -652,8 +637,9 @@ def sum_rank(local: torch.Tensor, view, n: int, block: int) -> torch.Tensor:
                                          local, p, view))
 
 
-def _mesh_setup(m, mesh, shard_axis, **kw):
-    """(plan bound to this rank, n, block, the axis's process group)."""
+def mesh_plan(m, mesh, shard_axis, **kw):
+    """A mesh run's :func:`shard_plan` for this process's rank: (plan
+    bound to the rank, n, block, the axis's process group)."""
     from repro_torch.launch import mesh as mesh_lib
     mesh_lib.check_mesh_device(mesh, m)
     view, n, block = shard_plan(m, mesh=mesh, shard_axis=shard_axis,
@@ -662,23 +648,11 @@ def _mesh_setup(m, mesh, shard_axis, **kw):
     return view, n, block, mesh_lib.axis_group(mesh, shard_axis)
 
 
-def masked_combine(part: torch.Tensor, owned: torch.Tensor,
-                   group) -> torch.Tensor:
-    """The sum over the ranks of ``where(owned, part, 0)``: exact, each
-    cell has one owner (bf16 is summed in f32, which holds it exactly)."""
-    from repro_torch.distributed import collectives
-    acc = torch.where(owned, part, torch.zeros((), dtype=part.dtype,
-                                               device=part.device))
-    if acc.dtype == torch.bfloat16:
-        acc = acc.to(torch.float32)
-    return collectives.all_reduce_sum(acc, group).to(part.dtype)
-
-
 def _write_sharded(m: torch.Tensor, value, mesh, shard_axis: str,
                    **kw) -> torch.Tensor:
     """The mesh write of :func:`sierpinski_write_`: ``m`` in place."""
     from repro_torch.distributed import collectives
-    view, n, block, group = _mesh_setup(m, mesh, shard_axis, **kw)
+    view, n, block, group = mesh_plan(m, mesh, shard_axis, **kw)
     if view.storage == "compact":
         local = view.slab(m, block).clone()
         write_rank(local, value, view, n, block)
@@ -688,7 +662,8 @@ def _write_sharded(m: torch.Tensor, value, mesh, shard_axis: str,
         part = write_rank(m.clone(), value, view, n, block)
         owned = view.owned_cell_mask(n, block, m.device)
         member = view.member_cell_block_mask(n, block, m.device)
-        out = torch.where(member, masked_combine(part, owned, group), m)
+        out = torch.where(
+            member, collectives.masked_all_reduce(part, owned, group), m)
     return m.copy_(out)
 
 
@@ -696,7 +671,7 @@ def _sum_sharded(m: torch.Tensor, mesh, shard_axis: str,
                  **kw) -> torch.Tensor:
     """The mesh sum of :func:`sierpinski_sum`."""
     from repro_torch.distributed import collectives
-    view, n, block, group = _mesh_setup(m, mesh, shard_axis, **kw)
+    view, n, block, group = mesh_plan(m, mesh, shard_axis, **kw)
     local = view.slab(m, block) if view.storage == "compact" else m
     return collectives.all_reduce_sum(sum_rank(local, view, n, block),
                                       group)

@@ -274,6 +274,9 @@ def test_sharded_refusals_and_meshes():
         assert "must equal the product" in m["errors"][0]
         assert "not divisible by tp=5" in m["errors"][1]
         assert "--mesh expects" in m["errors"][2]
+        # the production meshes need 256 / 512 ranks
+        assert "product of mesh_shape (16, 16)" in m["errors"][3]
+        assert "product of mesh_shape (2, 16, 16)" in m["errors"][4]
 
 
 class _ShapeMesh:

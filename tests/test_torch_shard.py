@@ -334,3 +334,27 @@ def test_sharded_plan_validation():
                        axis="data", halo=True).phase_view("interior")
     with pytest.raises(ValueError, match="unknown phase"):
         plan.phase_view("middle")
+
+
+@pytest.mark.parametrize("partition,storage,D", [
+    (None, "compact", 3), (None, "embedded", 4), ("rows", "embedded", 2),
+    ("zigzag", "embedded", 2)])
+def test_shard_count_in_place_of_a_mesh(partition, storage, D):
+    """``num_shards=D`` builds the plan a mesh of D ranks builds (the
+    host geometry without a process group), and a plan takes one of the
+    two, not both or neither."""
+    dom = TTri(8) if partition else TGasket(4)
+    kw = dict(storage=storage, partition=partition, backend="cpu",
+              halo=storage == "compact")
+    by_mesh = TS.ShardedPlan(dom, mesh=fake_mesh(D), axis="data", **kw)
+    by_count = TS.ShardedPlan(dom, num_shards=D, **kw)
+    assert by_count.num_shards == by_mesh.num_shards == D
+    assert by_count.partition == by_mesh.partition
+    _eq(by_count._count, by_mesh._count, "counts")
+    _eq(by_count.shard_table_host(), by_mesh.shard_table_host(), "table")
+    if partition == "rows":
+        _eq(by_count._row_lo, by_mesh._row_lo, "row_lo")
+    with pytest.raises(ValueError, match="not both or neither"):
+        TS.ShardedPlan(dom, **kw)
+    with pytest.raises(ValueError, match="not both or neither"):
+        TS.ShardedPlan(dom, mesh=fake_mesh(D), num_shards=D, **kw)

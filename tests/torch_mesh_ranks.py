@@ -101,16 +101,19 @@ def flash_refusals(rank, world, cases):
 
 
 def mesh_checks(rank, world):
-    """make_mesh / make_host_mesh / resolve_cli_mesh on a world of
-    ``world`` CPU ranks: (axis sizes, this rank's data coordinate, the
-    refusals' messages)."""
+    """make_mesh / make_host_mesh / resolve_cli_mesh /
+    make_production_mesh on a world of ``world`` CPU ranks: (axis
+    sizes, this rank's data coordinate, the refusals' messages)."""
     mesh = _mesh(world)
     host = M.make_host_mesh(device="cpu")
     cli = M.resolve_cli_mesh(f"{world}x1", device="cpu")
     errors = []
     for bad in (lambda: M.make_mesh((world + 1,), ("data",), device="cpu"),
                 lambda: M.make_host_mesh(world + 1, device="cpu"),
-                lambda: M.resolve_cli_mesh("2by2", device="cpu")):
+                lambda: M.resolve_cli_mesh("2by2", device="cpu"),
+                lambda: M.make_production_mesh(device="cpu"),
+                lambda: M.make_production_mesh(multi_pod=True,
+                                               device="cpu")):
         try:
             bad()
             errors.append(None)
