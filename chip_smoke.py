@@ -295,7 +295,24 @@ Phases, each printing its own lines:
              layers: finite losses, ms a step, peak
              (``python3 chip_smoke.py --ssm-only`` builds, then runs
              only this phase and prints no result);
-19. kernels line (the kernels of the main paths: B1-B3, B4 as the
+19. mesh  -- the block-space mesh (core/shard.py): per-rank parity of
+             the sharded kernels, then D = 2 and 4 ranks spawned on the
+             card over gloo end to end, bit-equal to the unsharded
+             kernels (``--mesh-only`` runs only this phase);
+20. serve-mesh -- the serving mesh: gemma3-12b at full width (6 of 48
+             layers) served by the single-device Server and PagedServer,
+             then by ranks spawned on the card over gloo on the (data,
+             model) meshes 2x1, 1x2 and 2x2 (tensor parallelism over
+             'model', the decode kernels' slots over 'data'), launch
+             counts and slot-group launches set to 0 before and read
+             after, tokens and step logits held against the
+             single-device run, every rank's decode and paged-decode
+             launch at its slot group's shape against its plain version
+             and timed; a quickstart checkpoint restore(shardings=)d
+             onto 1x2 and elastic_restore'd onto 3 ranks, served; the
+             SIGTERM scenario resumed on a 2-rank mesh
+             (``--serve-mesh-only`` runs only this phase);
+21. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -307,8 +324,10 @@ Phases, each printing its own lines:
              beside the tile paths' as cuda_core_ms; the two decode
              entries carry launches_families_phase and a llama4_maverick
              object, launches_ssm_phase and zamba2_2_7b, musicgen_large
-             and internvl2_26b objects), a ``[phases]`` line (each
-             phase's host seconds), then the result line.
+             and internvl2_26b objects, and a serve_mesh object: the
+             mesh runs' launches, the slot-sharded ones, every rank's
+             launch at its shape), a ``[phases]`` line (each phase's
+             host seconds), then the result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -4918,6 +4937,668 @@ def mesh_kernel_entries(kernels, mesh):
                                    for D, e in mesh["e2e"].items()}})
 
 
+# ---------------------------------------------------------------------------
+# [serve-mesh]: the serving mesh (tensor parallelism over 'model', the
+# decode kernels' slots over 'data') on ranks spawned on cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+#: gemma3-12b at full width cut to 6 of its 48 layers (SERVE_RUNS[1]: one
+#: 5:1 local:global period; bf16 compute, f32 parameters, 13.4 GB), the
+#: serve cell's traffic (batch 4, prompt 1536, 16 new, greedy), served on
+#: each (data, model) mesh of ranks; PagedServer on the meshes of
+#: SERVE_MESH_PAGED with FAM_PAGED's 8 mixed requests (64..512 tokens),
+#: 4 slots, 16-token pages
+SERVE_MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+SERVE_MESH_PAGED = ((2, 1), (1, 2))
+#: a quickstart checkpoint (full width, f32) restore(shardings=)d onto 1x2
+#: and elastic_restore'd onto 3 ranks ((3, 1): 32768 does not tile 3),
+#: served at a batch of 6 (which tiles 1, 2 and 3 slot groups)
+SERVE_MESH_RESTORE = dict(batch=6, prompt=128, max_new=16, max_len=256)
+#: step logits of a mesh run against the single-device run on the same
+#: weights, and the top-2 margin at or below which a greedy token may
+#: differ (SERVE_TOL's, per compute dtype).  bf16 under tensor
+#: parallelism: each rank's partial wo / MLP product is rounded to bf16
+#: before the f32 sum over the ranks, where one device rounds the whole
+#: sum once, so the residual stream moves by ~2**-8 relative a layer, as
+#: the kernel decode against the plain decode does
+SERVE_MESH_TOL = SERVE_TOL
+#: the device type of the spawned ranks
+SERVE_MESH_DEVICE = "cuda"
+#: a mesh run's medians a decode step (step_stats), printed for each mesh
+SERVE_MESH_STEP_KEYS = ("ms_per_decode_step", "collective_calls_per_step",
+                        "collective_bytes_sent_per_step",
+                        "staged_bytes_per_step", "collective_ms_per_step")
+
+
+def slot_slice(mesh, M, b):
+    """This rank's slot group of a batch of ``b`` on ``mesh`` (the whole
+    batch when the data axis does not shard it)."""
+    d = M.axis_size(mesh, "data")
+    if d == 1 or b % d:
+        return slice(0, b)
+    r = M.axis_rank(mesh, "data")
+    return slice(r * (b // d), (r + 1) * (b // d))
+
+
+@contextlib.contextmanager
+def recording_calls(TA, name):
+    """While in the block, keep the arguments of every call of
+    ``TA.<name>``; after it, ``calls`` maps each effective ``window``
+    (the local and the global layers) to the arguments of its call with
+    the most slots past position 0 (the latest such): the decode launch
+    the phase then repeats at the path's shape."""
+    real, seen, calls = getattr(TA, name), [], {}
+
+    def wrapped(*args, **kw):
+        window = kw.get("window", 0) if kw.get("kind", "local") == "local" \
+            else 0
+        seen.append((window, args))
+        return real(*args, **kw)
+    setattr(TA, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(TA, name, real)
+        best = {}
+        for window, args in seen:
+            live = int((torch.as_tensor(args[3]) > 0).sum())
+            if live >= best.get(window, -1):
+                best[window] = live
+                calls[window] = (args, live)
+
+
+def rank_decode_rows(FA, flash_calls, paged_calls, sl, psl, timed):
+    """Each recorded decode call's launch on this rank's slot group (``sl``
+    of the Server's batch, ``psl`` of the PagedServer's slots), held
+    against its plain version (bf16: 2e-2 and ROW_RTOL), and with
+    ``timed`` timed beside the plain version, the byte bound and
+    scaled_dot_product_attention over the same rows: {kernel name:
+    [row per window]}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"flash_attention_decode": [], "paged_flash_attention": []}
+    for window, (args, _) in sorted(flash_calls.items()):
+        q, k, v, pos = args
+        b = q.shape[0]
+        pv = torch.as_tensor(pos, device=q.device).to(torch.int32) \
+            .reshape(-1).expand(b)[sl].contiguous()
+        q, k, v = q[sl], k[sl], v[sl]
+        # a slot group is a leading slice of the caches and a TP rank's
+        # heads are tensors of its own: the entry point copies nothing
+        views = all(t.is_contiguous() for t in (q, k, v))
+        sched = FA.flash_schedule(q.shape, k.shape, kind="full",
+                                  window=window, block_q=1, block_k=128,
+                                  has_pos=True)
+        err, _ = FA.check_flash_against_plain(q, k, v, sched, pv)
+        run = lambda: FA.flash_cuda(q, k, v, sched, pv)  # noqa: E731
+        plain = lambda: FA.flash_attention_plain(q, k, v, sched, pv)  # noqa
+        out["flash_attention_decode"].append({**_decode_row(
+            run, plain, q, k, v, pv, window, err, sdpa, timed),
+            "views_contiguous": views})
+    for window, (args, _) in sorted(paged_calls.items()):
+        q, pool, table, pos = args
+        pv = torch.as_tensor(pos, device=q.device).to(torch.int32) \
+            .reshape(-1).expand(q.shape[0])[psl].contiguous()
+        q = q[psl]
+        table = torch.as_tensor(table, device=q.device).to(
+            torch.int32)[psl].contiguous()
+        psched = FA.paged_schedule(q.shape, pool.shape, table.shape,
+                                   window=window)
+        err, _ = FA.check_paged_against_plain(q, pool, table, pv, psched)
+        from repro_torch.core import paged as P
+        k, v = P.gather_kv(pool, table)
+        run = lambda: FA.paged_cuda(q, pool, table, pv, psched)  # noqa
+        plain = lambda: FA.paged_attention_plain(  # noqa: E731
+            q, pool, table, pv, psched)
+        out["paged_flash_attention"].append(_decode_row(
+            run, plain, q, k, v, pv, window, err, sdpa, timed))
+    return out
+
+
+def _decode_row(run, plain, q, k, v, pv, window, err, sdpa, timed):
+    """One decode launch's kernels-line numbers: its shape and error,
+    and with ``timed`` its device time, its plain version's, the byte
+    bound of the rows it reads and SDPA's on the same rows with a
+    boolean mask per row."""
+    span = int(pv.max()) + 1
+    kpos = torch.arange(span, device=q.device)[None, :]
+    live = kpos <= pv[:, None].long()
+    if window:
+        live &= kpos > pv[:, None].long() - window
+    mask = live[:, None, None, :]
+    kc, vc = k[:, :, :span].contiguous(), v[:, :, :span].contiguous()
+    lib = lambda: sdpa(q, kc, vc, attn_mask=mask,  # noqa: E731
+                       enable_gqa=True)
+    keys = int(live.sum())
+    bound_ms, bound_by = decode_bound(q, k.shape[1], keys)
+    row = {"window": window, "q": list(q.shape), "k": list(k.shape),
+           "positions": pv.tolist(), "max_abs_err": err,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if not timed:
+        return row
+    ms, lib_ms = device_ms(run), device_ms(lib)
+    by = "torch.profiler device time"
+    if ms is None or lib_ms is None:  # no device time in the trace
+        ms, lib_ms, by = time_ms(run, 20), time_ms(lib, 20), \
+            "CUDA events around one call"
+    return {**row, "ms": ms, "library_ms": lib_ms, "ms_by": by,
+            "call_ms": time_ms(run, 20), "plain_ms": time_ms(plain, 3)}
+
+
+def step_stats(stamps, traffic):
+    """Medians over the decode steps (consecutive ``on_step`` calls after
+    the prefill's) of the host ms a step and of the collectives' calls,
+    bytes sent, bytes staged and host ms a step."""
+    if len(stamps) < 3:
+        return {}
+    dt = [1e3 * (b - a) for a, b in zip(stamps[1:], stamps[2:])]
+    d = {k: [t1[k] - t0[k] for t0, t1 in zip(traffic[1:], traffic[2:])]
+         for k in traffic[0]}
+    return {"ms_per_decode_step": statistics.median(dt),
+            "ms_per_decode_step_all": dt,
+            "collective_calls_per_step": statistics.median(d["calls"]),
+            "collective_bytes_sent_per_step": statistics.median(d["sent"]),
+            "staged_bytes_per_step": statistics.median(d["staged"]),
+            "collective_ms_per_step": 1e3 * statistics.median(
+                d["seconds"])}
+
+
+def mesh_generate(srv, prompts, max_new, collectives):
+    """Server.generate with its step logits, the host stamps of its steps
+    and the collectives' counters at each."""
+    steps, stamps, traffic = [], [], []
+
+    def on_step(pos, lg):
+        stamps.append(time.perf_counter())
+        traffic.append(collectives.TRAFFIC.as_dict())
+        steps.append(lg[:, 0].float())
+    toks = srv.generate(prompts, max_new, on_step=on_step)
+    return toks, torch.stack(steps, 1), step_stats(stamps, traffic)
+
+
+def same_everywhere(t, group=None):
+    import torch.distributed as dist
+    first = t.clone()
+    dist.broadcast(first, 0, group=group)
+    return bool(torch.equal(first, t))
+
+
+def serve_mesh_rank(rank, world, c):
+    """One rank of a [serve-mesh] world: gemma3-12b laid out on the
+    mesh (built one rank at a time: each rank holds the full 13.4 GB
+    model only until it keeps its pieces), the Server counted (its
+    launches, slot-group calls, collectives a step, ms a step), the
+    PagedServer on the same model counted, every recorded decode launch
+    on this rank's slot group held against its plain version and timed
+    (the ranks in turn), and on the 1x2 mesh the quickstart checkpoint
+    restore(shardings=)d and served.  Rank 0 returns the step logits."""
+    sys.path.insert(0, c["src"])
+    import importlib
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as TA
+    from repro_torch.models import model as TM
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = tuple(c["shape"])
+    mesh = M.make_mesh(shape, M.AXES, device=SERVE_MESH_DEVICE)
+    dev = M.mesh_device(mesh)
+    cfg = get_config(c["arch"]).replace(**c["cut"],
+                                        attn_decode_kernel="blockspace")
+    rep = {"rank": rank, "shape": list(shape), "device": str(dev),
+           "data_rank": M.axis_rank(mesh, "data"),
+           "model_rank": M.axis_rank(mesh, "model")}
+    t0 = time.perf_counter()
+    model = None
+    for r in range(world):
+        if r == rank:
+            model = TM.init(cfg, torch.Generator(device=dev).manual_seed(
+                SEED), dev)
+            SH.shard_model(model, mesh)
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+    rep["build_s"] = time.perf_counter() - t0
+    rep["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+    rep["tp_modules"] = sum(hasattr(m, "_tp") for m in model.modules())
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts = np.asarray(c["prompts"])
+    b = prompts.shape[0]
+    sl = slot_slice(mesh, M, b)
+
+    # -- the Server: the main path, counted --------------------------------
+    srv = S.Server(cfg, model, S.ServeConfig(max_len=c["max_len"]),
+                   mesh=mesh)
+    FA.reset_launch_counts()
+    TA.reset_slot_calls()
+    collectives.TRAFFIC.reset()
+    dist.barrier()
+    t1 = time.perf_counter()
+    with recording_calls(TA, "decode_attention_flash") as fcalls:
+        toks, logits, stats = mesh_generate(srv, prompts, c["max_new"],
+                                            collectives)
+    torch.cuda.synchronize(dev)
+    rep["seconds"] = time.perf_counter() - t1
+    rep["launches"] = FA.launch_counts()
+    rep["slot_calls"] = dict(TA.SLOT_CALLS)
+    rep["traffic"] = collectives.TRAFFIC.as_dict()
+    rep.update(stats)
+    check_healthy(srv, f"serve-mesh {shape} rank {rank}")
+    rep["tokens"] = toks
+    rep["tokens_same_on_every_rank"] = same_everywhere(torch.from_numpy(toks))
+    ref = np.asarray(c["ref_tokens"])
+    if not np.array_equal(toks, ref):
+        # a row diverged: the logits of every step with the single-device
+        # tokens fed back (the same ranks take the same branch)
+        forced = []
+        with TA.decode_mesh(mesh):
+            lg, cache = TM.prefill(model, torch.as_tensor(prompts,
+                                                          device=dev),
+                                   max_len=c["max_len"], cfg=cfg)
+            forced.append(lg[:, 0].float())
+            pos = prompts.shape[1] - 1
+            for i in range(1, ref.shape[1]):
+                pos += 1
+                lg, cache = TM.decode_step(
+                    model, torch.as_tensor(ref[:, i - 1:i], device=dev),
+                    cache, pos, cfg)
+                forced.append(lg[:, 0].float())
+        del cache
+        if rank == 0:
+            rep["forced_logits"] = torch.stack(forced, 1).cpu().numpy()
+    if rank == 0:
+        rep["logits"] = logits.cpu().numpy()
+    del logits
+    rep["peak_bytes_serve"] = torch.cuda.max_memory_allocated(dev)
+
+    # -- the PagedServer on the same laid-out model, counted ---------------
+    pcalls = {}
+    t2 = time.perf_counter()
+    if c["paged"]:
+        reqs = [np.asarray(r) for r in c["requests"]]
+        TA.set_decode_mesh(mesh)
+        FA.reset_launch_counts()
+        TA.reset_slot_calls()
+        collectives.TRAFFIC.reset()
+        try:
+            psrv = S.PagedServer(cfg, model, S.PagedServeConfig(
+                **c["paged_kw"]))
+            dist.barrier()
+            with recording_calls(TA, "decode_attention_paged") as pcalls:
+                prep = S.paged_throughput_report(psrv, reqs,
+                                                 max_new=c["max_new"])
+            torch.cuda.synchronize(dev)
+        finally:
+            TA.set_decode_mesh(None)
+        check_healthy(psrv, f"serve-mesh paged {shape} rank {rank}")
+        rep["paged"] = {
+            **prep, "launches": FA.launch_counts(),
+            "slot_calls": dict(TA.SLOT_CALLS),
+            "traffic": collectives.TRAFFIC.as_dict(),
+            "pool_kv_heads": int(psrv.pools[0].shape[1]) // 2,
+            "done": {int(k): np.asarray(v) for k, v in psrv.done.items()}}
+    rep["paged_s"] = time.perf_counter() - t2
+
+    # -- this rank's decode launches at the path's shapes, against their
+    # plain versions; rank 0's timed alone on the card (not counted) ------
+    t2 = time.perf_counter()
+    psl = slot_slice(mesh, M, c["paged_kw"]["num_slots"])
+    rows = rank_decode_rows(FA, fcalls, pcalls, sl, psl, timed=False)
+    dist.barrier()
+    if rank == 0:
+        rows = rank_decode_rows(FA, fcalls, pcalls, sl, psl, timed=True)
+    dist.barrier()
+    rep["decode_rows"] = rows
+    rep["rows_s"] = time.perf_counter() - t2
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del srv, model, fcalls, pcalls
+    if c["paged"]:
+        del psrv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- restore(shardings=) of the quickstart checkpoint onto this mesh ---
+    if c.get("restore"):
+        t2 = time.perf_counter()
+        rep["restore"] = restore_and_serve(c, mesh, dev, rank, M, S, SH,
+                                           TM, CheckpointManager,
+                                           get_config, collectives)
+        rep["restore_s"] = time.perf_counter() - t2
+    return rep
+
+
+def restore_and_serve(c, mesh, dev, rank, M, S, SH, TM, CheckpointManager,
+                      get_config, collectives, elastic=False):
+    """The quickstart checkpoint restored onto ``mesh`` (restore with
+    shardings=, or elastic_restore onto the world's elastic mesh) and
+    served: tokens (step logits on rank 0), the mesh's shape, whether
+    the model holds pieces."""
+    r = c["restore_kw"]
+    qcfg = get_config("quickstart").replace(attn_decode_kernel="blockspace")
+    template = TM.Model(qcfg, dev)
+    mgr = CheckpointManager(c["qckpt"], keep=1)
+    if elastic:
+        from repro_torch.distributed.elastic import elastic_restore
+        mesh, _, qm, _ = elastic_restore(mgr, template, qcfg,
+                                         device=SERVE_MESH_DEVICE)
+    else:
+        shardings = SH.named_sharding_tree(
+            SH.param_spec_tree(template, qcfg), mesh)
+        _, qm, _, _ = mgr.restore(None, template, shardings=shardings)
+    srv = S.Server(qcfg, qm, S.ServeConfig(max_len=r["max_len"]), mesh=mesh)
+    toks, logits, stats = mesh_generate(srv, np.asarray(c["qprompts"]),
+                                        r["max_new"], collectives)
+    out = {"tokens": toks, "shape": [M.axis_size(mesh, "data"),
+                                     M.axis_size(mesh, "model")],
+           "pieces": any(hasattr(p, "_layout") for p in qm.parameters()),
+           "tokens_same_on_every_rank": same_everywhere(
+               torch.from_numpy(toks)), **stats}
+    if rank == 0:
+        out["logits"] = logits.cpu().numpy()
+    return out
+
+
+def serve_mesh_elastic_rank(rank, world, c):
+    """One rank of the 3-rank world: elastic_restore of the quickstart
+    checkpoint onto the elastic mesh, then served."""
+    sys.path.insert(0, c["src"])
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as TM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = M.rank_device(rank, SERVE_MESH_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return restore_and_serve(c, None, dev, rank, M, S, SH, TM,
+                             CheckpointManager, get_config, collectives,
+                             elastic=True)
+
+
+def paged_margins(TM, model, reqs, done):
+    """Each request's top-2 margin at every token it generated, from one
+    forward over its prompt and its generated tokens (the logits with
+    its own tokens fed back)."""
+    out = {}
+    with torch.no_grad():
+        for rid, prompt in enumerate(reqs):
+            gen = np.asarray(done[rid])
+            seq = np.concatenate([prompt, gen[:-1]])[None]
+            lg, _ = TM.logits_fn(model, torch.as_tensor(seq,
+                                                        device=model.device))
+            lg = lg[0, len(prompt) - 1:].float()
+            out[rid] = margin(lg).cpu().numpy()
+            del lg
+    return out
+
+
+def check_mesh_stream(what, toks, logits, ref_toks, ref_logits, tol,
+                      forced=None):
+    """A mesh run's stream against the single-device run's: tokens may
+    differ only where the single-device top-2 margin is at most ``tol``,
+    and the step logits agree within ``tol`` up to each row's first
+    differing token (compare_streams); with ``forced`` (the logits of
+    every step with the single-device tokens fed back), every step's.
+    Returns compare_streams' numbers."""
+    diff, ncmp, small, diverged, _ = compare_streams(
+        toks, torch.from_numpy(logits), ref_toks, ref_logits, tol, what)
+    if forced is not None:
+        d = float((torch.from_numpy(forced) - ref_logits).abs().max())
+        check(d <= tol, f"{what}: forced step logits differ by {d} > {tol}")
+        diff = max(diff, d)
+    return {"max_logit_diff": diff, "steps_compared": ncmp,
+            "steps_margin_le_tol": small, "rows_diverged": diverged,
+            "tokens_equal": bool(np.array_equal(toks, ref_toks)),
+            "logits_bit_equal": bool(torch.equal(torch.from_numpy(logits),
+                                                  ref_logits))}
+
+
+def phase_serve_mesh(S, TM, FA, RC, get_config, dev):
+    """The [serve-mesh] phase: the single-device runs on the same weights
+    first (gemma3-12b Server and PagedServer, the quickstart Server and
+    its checkpoint), then each mesh world spawned on cuda:0, the 3-rank
+    elastic world, and the SIGTERM scenario onto a 2-rank mesh at
+    quickstart width."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as M
+    t_phase = time.perf_counter()
+    free_card()
+    arch, cut, batch, plen, max_new, max_len = SERVE_RUNS[1]
+    cfg = get_config(arch).replace(**cut, attn_decode_kernel="blockspace")
+    tol = SERVE_MESH_TOL[cfg.dtype]
+    model = TM.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (batch, plen),
+        generator=torch.Generator().manual_seed(SEED)).numpy()
+    FA.reset_launch_counts()
+    toks, logits, secs, step_ms = serve_run(S, cfg, model, prompts, max_new,
+                                            max_len, "blockspace")
+    one = {"launches": FA.launch_counts(), "seconds": secs,
+           "ms_per_decode_step": step_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    logits = logits.cpu()
+    c = FAM_PAGED
+    rng = np.random.default_rng(SEED)
+    reqs = [rng.integers(0, cfg.vocab_size,
+                         (int(rng.integers(c["lo"], c["hi"] + 1)),))
+            for _ in range(c["requests"])]
+    pmax = c["hi"] + c["max_new"]
+    paged_kw = dict(max_len=pmax, num_slots=c["slots"], page_size=c["ps"],
+                    num_pages=1 + c["slots"] * S.paged_lib.pages_for(
+                        pmax, c["ps"]))
+    psrv = S.PagedServer(cfg, model, S.PagedServeConfig(**paged_kw))
+    one["paged"] = S.paged_throughput_report(psrv, reqs,
+                                             max_new=c["max_new"])
+    pdone = {rid: np.asarray(v) for rid, v in psrv.done.items()}
+    pmargins = paged_margins(TM, model, reqs, pdone)
+    del psrv, model
+    free_card()
+    # the quickstart checkpoint of the restore runs, and its tokens
+    r = SERVE_MESH_RESTORE
+    qcfg = get_config("quickstart").replace(attn_decode_kernel="blockspace")
+    qmodel = TM.init(qcfg, torch.Generator(device=dev).manual_seed(SEED),
+                     dev)
+    qprompts = torch.randint(
+        0, qcfg.vocab_size, (r["batch"], r["prompt"]),
+        generator=torch.Generator().manual_seed(SEED + 1)).numpy()
+    qtoks, qlogits, _, _ = serve_run(S, qcfg, qmodel, qprompts, r["max_new"],
+                                     r["max_len"], "blockspace")
+    qlogits = qlogits.cpu()
+    qckpt = tempfile.mkdtemp(prefix="serve_mesh_ckpt_")
+    atexit.register(shutil.rmtree, qckpt, True)
+    CheckpointManager(qckpt, keep=1).save(0, qmodel)
+    del qmodel
+    free_card()
+    print(f"[serve-mesh] single device ({CARD}): gemma3-12b {cfg.n_layers} "
+          f"layers, {json.dumps(one)}")
+    base = dict(src=str(ROOT / "src"), arch=arch, cut=cut, prompts=prompts,
+                max_new=max_new, max_len=max_len, ref_tokens=toks,
+                requests=reqs, paged_kw=paged_kw, qckpt=qckpt,
+                qprompts=qprompts, restore_kw=r)
+    out = {"single_device": one, "card": CARD, "tol": tol, "meshes": {}}
+    for shape in SERVE_MESH_SHAPES:
+        t0 = time.perf_counter()
+        reps = M.run_ranks(serve_mesh_rank, shape[0] * shape[1],
+                           {**base, "shape": shape,
+                            "paged": shape in SERVE_MESH_PAGED,
+                            "restore": shape == (1, 2)},
+                           threads=0, timeout=900)
+        wall = time.perf_counter() - t0
+        name = f"{shape[0]}x{shape[1]}"
+        r0 = reps[0]
+        for rep in reps:
+            check(rep["tokens_same_on_every_rank"]
+                  and np.array_equal(rep["tokens"], r0["tokens"]),
+                  f"[serve-mesh] {name}: ranks sampled different tokens")
+        cmp = check_mesh_stream(f"serve-mesh {name}", r0["tokens"],
+                                r0["logits"], toks, logits, tol,
+                                r0.get("forced_logits"))
+        launches = {k: sum(rep["launches"][k] for rep in reps)
+                    for k in r0["launches"]}
+        slots = {k: sum(rep["slot_calls"][k] for rep in reps)
+                 for k in r0["slot_calls"]}
+        want = cfg.n_layers * (max_new - 1)
+        check(all(rep["launches"]["flash_attention_decode"] == want
+                  for rep in reps)
+              and sum(launches.values())
+              == launches["flash_attention_decode"],
+              f"[serve-mesh] {name}: launches {launches}, expected "
+              f"layers x decode steps = {want} decode launches a rank")
+        check(slots["flash_attention_decode"]
+              == (len(reps) * want if shape[0] > 1 else 0),
+              f"[serve-mesh] {name}: slot-group calls {slots}")
+        entry = {"shape": list(shape), "ranks": len(reps),
+                 "wall_seconds": wall, **cmp, "launches": launches,
+                 "slot_sharded_launches": slots, "per_rank": []}
+        for rep in reps:
+            check(all(row["views_contiguous"] for row in
+                      rep["decode_rows"]["flash_attention_decode"]),
+                  f"[serve-mesh] {name}: a decode slot group is not "
+                  f"contiguous (the entry point would copy it)")
+            entry["per_rank"].append({k: v for k, v in rep.items()
+                                      if k not in ("tokens", "logits",
+                                                   "forced_logits",
+                                                   "restore")})
+            if "paged" in rep:
+                entry["per_rank"][-1]["paged"] = {
+                    k: v for k, v in rep["paged"].items() if k != "done"}
+        if shape in SERVE_MESH_PAGED:
+            p0 = r0["paged"]
+            for rep in reps:
+                check(all(np.array_equal(rep["paged"]["done"][rid],
+                                         p0["done"][rid]) for rid in pdone),
+                      f"[serve-mesh] {name} paged: ranks differ")
+            diverged = 0
+            for rid, want_toks in pdone.items():
+                got = p0["done"][rid]
+                neq = np.nonzero(got != want_toks)[0]
+                if len(neq):
+                    m = float(pmargins[rid][int(neq[0])])
+                    check(m <= tol, f"[serve-mesh] {name} paged request "
+                          f"{rid}: differs at token {int(neq[0])} where "
+                          f"the single-device margin is {m} > {tol}")
+                    diverged += 1
+            plaunch = {k: sum(rep["paged"]["launches"][k] for rep in reps)
+                       for k in p0["launches"]}
+            pslots = {k: sum(rep["paged"]["slot_calls"][k] for rep in reps)
+                      for k in p0["slot_calls"]}
+            check(all(rep["paged"]["launches"]["paged_flash_attention"]
+                      == cfg.n_layers * rep["paged"]["decode_steps"] > 0
+                      for rep in reps),
+                  f"[serve-mesh] {name} paged: launches {plaunch}")
+            entry["paged"] = {"launches": plaunch,
+                              "slot_sharded_launches": pslots,
+                              "requests_diverged": diverged,
+                              "tokens_equal": diverged == 0,
+                              "decode_steps": p0["decode_steps"],
+                              "ms_per_decode_step": [
+                                  rep["paged"]["ms_per_decode_step"]
+                                  for rep in reps],
+                              "pool_kv_heads": p0["pool_kv_heads"]}
+        if "restore" in r0:
+            rr = r0["restore"]
+            check(all(rep["restore"]["tokens_same_on_every_rank"]
+                      for rep in reps) and rr["pieces"]
+                  and rr["shape"] == list(shape),
+                  f"[serve-mesh] restore onto {name}: {rr['shape']}")
+            entry["restore"] = {
+                **check_mesh_stream(f"restore onto {name}", rr["tokens"],
+                                    rr["logits"], qtoks, qlogits,
+                                    SERVE_MESH_TOL[qcfg.dtype]),
+                "shape": rr["shape"],
+                **{k: rr.get(k) for k in SERVE_MESH_STEP_KEYS}}
+        out["meshes"][name] = entry
+        stats = {k: [rep.get(k) for rep in reps]
+                 for k in SERVE_MESH_STEP_KEYS + ("build_s",)}
+        peak = [rep["peak_bytes"] / 2 ** 30 for rep in reps]
+        print(f"[serve-mesh] {name} ({CARD}): tokens equal "
+              f"{cmp['tokens_equal']} (rows diverged {cmp['rows_diverged']}"
+              f", margin <= {tol} at {cmp['steps_margin_le_tol']} steps), "
+              f"max |logit diff| {cmp['max_logit_diff']:.4g}, logits "
+              f"bit-equal {cmp['logits_bit_equal']}; launches {launches}, "
+              f"slot-sharded {slots}; per rank {json.dumps(stats)}; peak "
+              f"{[round(p, 2) for p in peak]} GiB a rank; {wall:.1f} s")
+        for rep in reps:
+            for name_k, rows in rep["decode_rows"].items():
+                for row in rows:
+                    print(f"[serve-mesh] {name} rank {rep['rank']} {name_k} "
+                          f"{json.dumps(row)}")
+        secs = {k: [round(rep.get(k) or 0, 2) for rep in reps]
+                for k in ("build_s", "seconds", "paged_s", "rows_s",
+                          "restore_s")}
+        print(f"[serve-mesh] {name} rank seconds: {json.dumps(secs)}")
+        if "paged" in entry:
+            print(f"[serve-mesh] {name} paged: {json.dumps(entry['paged'])}")
+        if "restore" in entry:
+            print(f"[serve-mesh] restore onto {name}: "
+                  f"{json.dumps(entry['restore'])}")
+    # elastic_restore onto 3 ranks: the mesh it picks, served
+    t0 = time.perf_counter()
+    reps = M.run_ranks(serve_mesh_elastic_rank, 3, base, threads=0,
+                       timeout=600)
+    e0 = reps[0]
+    check(e0["shape"] == [3, 1] and all(
+        rep["tokens_same_on_every_rank"] for rep in reps),
+        f"[serve-mesh] elastic_restore onto 3 ranks picked {e0['shape']}")
+    out["elastic"] = {**check_mesh_stream(
+        "elastic restore onto 3 ranks", e0["tokens"], e0["logits"], qtoks,
+        qlogits, SERVE_MESH_TOL[qcfg.dtype]), "shape": e0["shape"],
+        **{k: e0.get(k) for k in SERVE_MESH_STEP_KEYS},
+        "wall_seconds": time.perf_counter() - t0}
+    print(f"[serve-mesh] elastic_restore onto 3 ranks: "
+          f"{json.dumps(out['elastic'])}")
+    # SIGTERM mid-decode, the successor on a 2-rank mesh, quickstart width
+    t0 = time.perf_counter()
+    sig = RC.scenario_sigterm_mid_decode(SEED, True, device=dev,
+                                         full_width=True)
+    sig["seconds"] = time.perf_counter() - t0
+    check(sig["status"] == "recovered" and sig["bit_identical"],
+          f"[serve-mesh] SIGTERM onto a 2-rank mesh: {sig}")
+    out["sigterm"] = sig
+    print(f"[serve-mesh] SIGTERM onto 2 ranks at quickstart width: "
+          f"{json.dumps(sig)}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[serve-mesh] phase {out['seconds']:.1f} s ({CARD})")
+    return out
+
+
+def serve_mesh_kernel_entries(kernels, sm):
+    """The decode entries' [serve-mesh] numbers: launches of the counted
+    mesh runs (summed over the ranks), the slot-sharded ones among them,
+    and every rank's launch at its slot group's shape against its plain
+    version (the errors into max_abs_err)."""
+    for entry in kernels:
+        name = entry["name"]
+        if name not in ("flash_attention_decode", "paged_flash_attention"):
+            continue
+        launches, slots, rows = {}, {}, []
+        for mesh_name, m in sm["meshes"].items():
+            src = m if name == "flash_attention_decode" else m.get("paged")
+            if src is None:
+                continue
+            launches[mesh_name] = src["launches"][name]
+            slots[mesh_name] = src["slot_sharded_launches"][name]
+            for rep in m["per_rank"]:
+                for row in rep["decode_rows"][name]:
+                    rows.append({"mesh": mesh_name, "rank": rep["rank"],
+                                 **row})
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in rows])
+        entry["serve_mesh"] = {"launches": launches,
+                               "slot_sharded_launches": slots,
+                               "per_rank": rows}
+
+
 def compare(change_paths, parent_paths, lo=0.94, hi=1.06):
     """Print every time whose change median lies outside [lo, hi] x the
     parent median, with both sides' values; returns the count of times
@@ -5042,6 +5723,15 @@ def main():
         print(f"[mesh-only] the mesh phase ran; no result "
               f"{json.dumps(PHASE_S)}")
         return
+    if "--serve-mesh-only" in sys.argv[1:]:
+        serve_mesh = timed("serve_mesh", phase_serve_mesh, S, TM, FA, RC,
+                           get_config, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "serve_mesh": serve_mesh}, indent=1))
+        print(f"[serve-mesh-only] the serve-mesh phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
     errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
     merge_err(errs, timed("parity_compact", phase_parity_compact, TW, F,
                           LOWERINGS, compact_layout, dev))
@@ -5082,6 +5772,8 @@ def main():
     ssm = timed("ssm", phase_ssm, S, TM, TT, TA, TS, FA, P, get_config, dev)
     mesh = timed("mesh", phase_mesh, TW, TC, FA, RC, F, LOWERINGS,
                  compact_layout, dev)
+    serve_mesh = timed("serve_mesh", phase_serve_mesh, S, TM, FA, RC,
+                       get_config, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -5304,6 +5996,7 @@ def main():
     families_kernel_entries(kernels, families)
     ssm_kernel_entries(kernels, ssm)
     mesh_kernel_entries(kernels, mesh)
+    serve_mesh_kernel_entries(kernels, serve_mesh)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5318,14 +6011,16 @@ def main():
         "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "train": train,
         "families": families, "ssm": ssm, "mesh": mesh,
-        "kernels": kernels,
+        "serve_mesh": serve_mesh, "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
+    # the kernels line is long: the phases' seconds come after it, so
+    # that the end of the output holds them
+    print(json.dumps({"kernels": kernels}))
     print(f"[phases] host seconds: {json.dumps(PHASE_S)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s; results in "
           f"{OUT.relative_to(ROOT)}")
     print(card)
-    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

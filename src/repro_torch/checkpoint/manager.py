@@ -14,8 +14,10 @@ Templates (what a restore fills) are nested dicts / lists / tuples of
 tensors or numpy arrays, or an ``nn.Module``.  Restored leaves take the
 template's device and dtype; bf16 tensors are stored as f32 (numpy has
 no bf16) and cast back, which is exact.  A module template is filled in
-place and returned.  ``shardings=`` (restoring onto a mesh) comes with
-ROADMAP A12.
+place and returned.  ``restore(shardings=)`` restores onto a mesh: each
+rank reads the full leaves and keeps its shard on its device.  A model
+laid out on a mesh is saved by gathering it first: saving its pieces
+raises.
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ def _to_numpy(leaf) -> np.ndarray:
 def _leaves(tree):
     """``(key, leaf)`` pairs of a template or a tree to save."""
     if isinstance(tree, nn.Module):
+        if getattr(tree, "mesh", None) is not None:
+            raise ValueError("the module is laid out on a mesh: a rank "
+                             "holds pieces of its parameters, not a "
+                             "template or a checkpoint of the model")
         return [(k.replace(".", "/"), v)
                 for k, v in tree.state_dict().items()]
     return [(path_name(p), x) for p, x in tree_leaves_with_path(tree)]
@@ -85,6 +91,26 @@ def _unflatten_like(template, flat: Dict[str, np.ndarray]):
         return _restore_leaf(key, flat[key], leaf)
 
     return tree_map_with_path(fill, template)
+
+
+def _place(params, shardings):
+    """``params`` (restored whole) on the mesh of ``shardings``."""
+    from repro_torch.distributed import sharding as shard_lib
+    if isinstance(params, nn.Module):
+        specs = {k: s.spec for k, s in shardings.items()}
+        meshes = {id(s.mesh) for s in shardings.values()}
+        if len(meshes) != 1:
+            raise ValueError("a model's shardings must share one mesh")
+        mesh = next(iter(shardings.values())).mesh
+        return shard_lib.shard_model(params, mesh, specs)
+
+    def cut(path, leaf):
+        sh = shardings
+        for k in path:
+            sh = sh[k]
+        return shard_lib.shard_tensor(torch.as_tensor(leaf), sh)
+
+    return tree_map_with_path(cut, params)
 
 
 class CheckpointManager:
@@ -181,12 +207,16 @@ class CheckpointManager:
         the restore falls back to the next older readable step and
         records the skipped steps under ``meta["skipped_torn_steps"]``.
         An explicitly requested step is never substituted -- a torn one
-        raises.  ``shardings=`` raises ``NotImplementedError``: restoring
-        onto a mesh comes with ROADMAP A12."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings=) is not ported yet "
-                "(ROADMAP A12)")
+        raises.
+
+        ``shardings`` (restoring onto a mesh): NamedShardings of the
+        *new* mesh (:func:`repro_torch.distributed.sharding.
+        named_sharding_tree`), keyed like the template -- for a
+        :class:`~repro_torch.models.model.Model` template a dict by
+        parameter name, which lays the filled model out on their mesh
+        (:func:`~repro_torch.distributed.sharding.shard_model`); for any
+        other tree the same structure, each leaf cut to this rank's
+        piece.  Each rank reads the full leaves."""
         explicit = step is not None
         candidates = [step] if explicit else list(reversed(self.all_steps()))
         if not candidates:
@@ -202,6 +232,8 @@ class CheckpointManager:
                     raise
                 skipped.append((s, f"{type(e).__name__}: {e}"))
                 continue
+            if shardings is not None:
+                params = _place(params, shardings)
             if skipped:
                 meta = dict(meta)
                 meta["skipped_torn_steps"] = [t for t, _ in skipped]

@@ -34,15 +34,15 @@ the port's own: a winner measured by the JAX package (whose file and
 variable differ) never answers the port, nor the reverse.  Writes merge
 with the file under ``fcntl.flock`` and land atomically (tmp + rename).
 
-``mesh=`` on :func:`autotune_ca` and :func:`autotune_write` tunes the
-sharded run (every rank of the mesh calls the searcher): the key names
-the shard count (:func:`shard_params`), the search warm-starts from the
-single-device winner when one is cached (only it and its one-knob
-neighbours are measured), and each trial's time is the slowest rank's,
-so every rank keeps the same winner.  Not ported yet, and raising
-``NotImplementedError`` naming the item: ``verify=True`` (A13) on the
-searchers, and ``mesh=`` on :func:`autotune_paged` (the slot-sharded
-decode comes with the serving mesh, A12).
+``mesh=`` on :func:`autotune_ca`, :func:`autotune_write` and
+:func:`autotune_paged` (the serving mesh's slot-sharded paged decode)
+tunes the sharded run (every rank of the mesh calls the searcher): the
+key names the shard count (:func:`shard_params`), the search
+warm-starts from the single-device winner when one is cached (only it
+and its one-knob neighbours are measured), and each trial's time is the
+slowest rank's, so every rank keeps the same winner.  Not ported yet,
+and raising ``NotImplementedError`` naming the item: ``verify=True``
+(A13) on the searchers.
 
 Run: ``python -m repro_torch.core.tune [--smoke] [--cache PATH] [--force]
 [--device cpu]``.
@@ -697,19 +697,24 @@ def autotune_paged(*, batch: int = 4, heads: int = 4,
     scattered into a pool at each candidate's page size
     (:func:`paged_operands`), so the measurement isolates the layout
     axis.  The winner's page size is the caller's to apply: the paged
-    entry point takes a pool, not a page size."""
+    entry point takes a pool, not a page size.
+
+    ``mesh=`` tunes the slot-sharded decode of the serving mesh
+    (:func:`repro_torch.models.attention.decode_attention_paged` with
+    ``mesh=``: each rank decodes its ``batch / D`` slots against the
+    whole pool, the groups gathered) under the key qualified by the
+    shard count, warm-started from the D = 1 winner."""
     fa = _kernels("flash_attention")
     _no_verify(verify)
-    if mesh is not None:
-        raise NotImplementedError(
-            "autotune_paged(mesh=) tunes the slot-sharded decode of the "
-            "serving mesh, which is not ported yet (ROADMAP A12)")
     kv_heads = heads if kv_heads is None else kv_heads
-    params = shard_params(_axis_param(
+    base = _axis_param(
         {"batch": batch, "heads": heads, "kv_heads": kv_heads,
          "seq": seq, "d": d, "window": window},
-        "page_sizes", page_sizes, ALL_PAGE_SIZES), mesh, shard_axis)
-    dev = backend_lib.default_device(device)
+        "page_sizes", page_sizes, ALL_PAGE_SIZES)
+    params = shard_params(base, mesh, shard_axis)
+    dev = _search_device(device, mesh)
+    seed = best("paged", base, cache=cache, device=dev) \
+        if mesh is not None else None
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
                for shape in ((batch, heads, 1, d),
@@ -723,12 +728,19 @@ def autotune_paged(*, batch: int = 4, heads: int = 4,
         pool, table = pools[cfg["page_size"]]
         fa.check_launch(fa.paged_schedule(q.shape, pool.shape, table.shape,
                                           window=window), q.dtype, dev)
-        return lambda: fa.paged_flash_attention(
-            q, pool, table, pos, window=window, grid_mode=cfg["lowering"])
+        if mesh is None:
+            return lambda: fa.paged_flash_attention(
+                q, pool, table, pos, window=window,
+                grid_mode=cfg["lowering"])
+        from repro_torch.models.attention import decode_attention_paged
+        return lambda: decode_attention_paged(
+            q, pool, table, pos, window=window, grid_mode=cfg["lowering"],
+            mesh=mesh, shard_axis=shard_axis)
 
     return autotune("paged", params,
                     paged_candidates(seq, page_sizes=page_sizes), build,
-                    cache=cache, force=force, verbose=verbose, device=dev)
+                    cache=cache, force=force, verbose=verbose, device=dev,
+                    seed_config=seed, agree=mesh_agree(mesh, shard_axis))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,7 @@
-"""The collectives of the sharded block-space paths, over a gloo group.
+"""The collectives of the sharded paths, over a gloo group: the
+block-space kernels' exchanges and gathers, and the serving mesh's
+tensor-parallel reductions and gathers (:func:`all_reduce`,
+:func:`all_gather` along any dimension, on a sub-group of the mesh).
 
 The H100 machine has one card, and NCCL will not put two ranks of one
 communicator on one GPU, so the ranks of a mesh share the card over
@@ -7,7 +10,9 @@ ones), so each collective here stages a CUDA tensor through a pinned
 host buffer: one copy to the host before, one back after.  Every byte
 is counted in :data:`TRAFFIC`: what crossed between ranks (``sent``,
 ``received``) and what crossed the PCIe link to get there (``staged``),
-so a run reports its host staging as bytes.
+so a run reports its host staging as bytes, and the host seconds spent
+in the all-reduces and all-gathers (``seconds``: staging, gloo and the
+wait for the stream's earlier work, which the copy to the host implies).
 
 CPU tensors (the CPU tests' gloo ranks) are handed to gloo as they are
 and stage nothing.
@@ -15,6 +20,7 @@ and stage nothing.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Sequence, Tuple
 
 import torch
@@ -29,9 +35,11 @@ class Traffic:
     received: int = 0
     staged: int = 0
     calls: int = 0
+    seconds: float = 0.0
 
     def reset(self) -> None:
         self.sent = self.received = self.staged = self.calls = 0
+        self.seconds = 0.0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -70,6 +78,7 @@ def _global(group, rank: int) -> int:
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over the group's ranks, in place; returns ``t``."""
+    t0 = time.perf_counter()
     host = to_host(t)
     dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
     nbytes = t.numel() * t.element_size()
@@ -78,24 +87,38 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     TRAFFIC.calls += 1
     if host is not t:
         t.copy_(from_host(host, t))
+    TRAFFIC.seconds += time.perf_counter() - t0
     return t
 
 
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the group's ranks, as a new tensor of
+    ``t``'s dtype; bf16 and f16 are summed in f32 and rounded once (a
+    tensor-parallel rank's partial product, or a masked piece of which
+    each element has one owner: exact)."""
+    acc = t.to(torch.float32) if t.dtype in (torch.bfloat16,
+                                             torch.float16) else t.clone()
+    return all_reduce_sum(acc, group).to(t.dtype)
+
+
 def masked_all_reduce(part: torch.Tensor, owned: torch.Tensor,
-                   group) -> torch.Tensor:
+                      group) -> torch.Tensor:
     """The sum over the ranks of ``where(owned, part, 0)``: exact, each
     cell has one owner (bf16 is summed in f32, which holds it exactly)."""
-    acc = torch.where(owned, part, torch.zeros((), dtype=part.dtype,
-                                               device=part.device))
-    if acc.dtype == torch.bfloat16:
-        acc = acc.to(torch.float32)
-    return all_reduce_sum(acc, group).to(part.dtype)
+    return all_reduce(torch.where(owned, part, torch.zeros(
+        (), dtype=part.dtype, device=part.device)), group)
 
 
-def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_gather(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     """Every rank's ``t`` (one shape on every rank) concatenated along
-    dim 0 in rank order, on ``t``'s device."""
+    ``dim`` in group-rank order, on ``t``'s device.  The bytes cross as
+    they are (as uint8, which every gloo build takes, whatever ``t``'s
+    dtype: concatenating the byte views along any dimension is
+    concatenating the values)."""
+    t0 = time.perf_counter()
     host = to_host(t)
+    if t.ndim:
+        host = host.view(torch.uint8)
     size = dist.get_world_size(group)
     parts = [torch.empty_like(host) for _ in range(size)]
     dist.all_gather(parts, host, group=group)
@@ -103,7 +126,9 @@ def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
     TRAFFIC.sent += nbytes
     TRAFFIC.received += nbytes * (size - 1)
     TRAFFIC.calls += 1
-    return from_host(torch.cat(parts, 0), t)
+    out = from_host(torch.cat(parts, dim).view(t.dtype), t)
+    TRAFFIC.seconds += time.perf_counter() - t0
+    return out
 
 
 class Pending:

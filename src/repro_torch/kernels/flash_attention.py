@@ -82,8 +82,11 @@ crosses ranks, so the result is bit-equal to the unsharded run.  On the
 card each rank launches its tile path's sharded instantiation, whose
 masks and extents read the band row's global row
 (``fa_forward_tc_*_sharded``); :func:`flash_rank` runs one rank's band
-without a process group.  Paged decode takes no mesh here (its
-slot-sharded form comes with the serving mesh, ROADMAP A12).
+without a process group.  Paged decode takes no mesh here: the serving
+mesh shards both decode kernels' slots over its data axis in
+:mod:`repro_torch.models.attention` (``decode_attention_flash`` /
+``decode_attention_paged`` with ``mesh=``), each rank launching the
+kernel on its slot group.
 
 Forward only, as in the JAX package, whose training path takes the
 plain-tensor flash VJP (:mod:`repro_torch.models.attention`).  Not
@@ -1180,9 +1183,9 @@ def _flash_sharded(q, k, v, sched: FlashSchedule, mesh, shard_axis,
     out = flash_rank(band_queries(q, sched, band), k, v, sched, band)
     b, h, _, d = q.shape
     # the bands, rank-major along the sequence: (D * rbd) block rows
-    rows = collectives.all_gather_cat(
+    rows = collectives.all_gather(
         out.reshape(b, h, band.rbd, sched.block_q, d).permute(2, 0, 1, 3, 4)
-        .contiguous(), mesh_lib.axis_group(mesh, shard_axis))
+        .contiguous(), 0, mesh_lib.axis_group(mesh, shard_axis))
     if band.partition == "zigzag":
         from repro_torch.core.shard import zigzag_row_order
         inv = np.argsort(zigzag_row_order(sched.m_q, band.num_shards))

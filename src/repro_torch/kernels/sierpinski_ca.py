@@ -493,7 +493,7 @@ def _ca_run_sharded(state, stale_buf, steps, *, fuse, rule, alpha, block,
         b[:rows] = view.slab(stale_buf, block)
         a = ca_run_rank_compact(a, b, view, n, block, sched, fuse, rule,
                                 alpha, stages, group)
-        return view.unpad_rows(collectives.all_gather_cat(a[:rows], group),
+        return view.unpad_rows(collectives.all_gather(a[:rows], 0, group),
                                block)
     owned = view.owned_cell_mask(n, block, state.device)
     a, b = state.clone(), stale_buf.clone()

@@ -656,7 +656,7 @@ def _write_sharded(m: torch.Tensor, value, mesh, shard_axis: str,
     if view.storage == "compact":
         local = view.slab(m, block).clone()
         write_rank(local, value, view, n, block)
-        out = view.unpad_rows(collectives.all_gather_cat(local, group),
+        out = view.unpad_rows(collectives.all_gather(local, 0, group),
                               block)
     else:
         part = write_rank(m.clone(), value, view, n, block)

@@ -56,11 +56,27 @@ package:
 Sampling: greedy at ``temperature == 0`` (the parity mode against the
 JAX package), else top-k sampling from a ``torch.Generator`` seeded by
 the coordinates.  These streams differ from the JAX package's
-``jax.random`` streams.  No serving mesh yet (ROADMAP A12).
+``jax.random`` streams.
+
+Serving on a mesh (every rank runs the same server, SPMD over
+``torch.distributed``): ``Server(mesh=)`` lays the model out on the
+``(data, model)`` mesh (:func:`repro_torch.distributed.sharding.
+shard_model`; the ``model`` axis is tensor parallelism,
+:mod:`repro_torch.distributed.tensor_parallel`) and registers the mesh
+for its decode steps, whose block-space decode kernel shards the slots
+over ``data`` (:func:`repro_torch.models.attention.set_decode_mesh`).
+``PagedServer`` takes no mesh, as in the JAX package: it serves a model
+laid out by the caller and shards its paged decode over the registered
+mesh.  Every rank samples the same token from the same logits and key,
+so no rank broadcasts; on a mesh only its first rank writes the decode
+checkpoints.
 
 Runnable directly:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch quickstart
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
+On a mesh, one process a rank (the ranks share the card over gloo):
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --mesh 2x2 --decode-kernel blockspace
 Chaos smoke (deterministic fault injection; see repro_torch.runtime.chaos):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --chaos-seed 7
@@ -69,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import os
 import time
@@ -80,8 +97,10 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import paged as paged_lib
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.distributed.fault_tolerance import PreemptionGuard
 from repro_torch.models import ModelConfig, decode_step, prefill
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.guard import (Backoff, DegradationLadder,
                                        GuardedCall, GuardExhausted,
@@ -129,10 +148,24 @@ def _sample_row(logits_row: torch.Tensor, scfg: ServeConfig,
                                  generator=g))
 
 
-def _unported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving on a mesh is not ported yet (ROADMAP A12)")
+def _lay_out(model, mesh) -> None:
+    """Lay ``model`` out on ``mesh`` unless it already is (on that mesh);
+    raises for a model laid out on another one."""
+    from repro_torch.distributed.sharding import shard_model
+    have = getattr(model, "mesh", None)
+    if have is None:
+        shard_model(model, mesh)
+    elif have is not mesh:
+        raise ValueError("the model is laid out on another mesh than the "
+                         "server's")
+
+
+def _first_rank(mesh) -> bool:
+    """Whether this process writes what the ranks of ``mesh`` share."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
 
 
 def _check_tokens(cfg: ModelConfig) -> None:
@@ -261,8 +294,9 @@ class Server(_GuardedServing):
 
     def __init__(self, cfg: ModelConfig, model, scfg: ServeConfig,
                  mesh=None, chaos=None):
-        _unported(mesh)
         _check_tokens(cfg)
+        if mesh is not None:
+            _lay_out(model, mesh)
         self.cfg, self.model, self.scfg, self.mesh = cfg, model, scfg, mesh
         self._ckpt = None
         if scfg.ckpt_dir:
@@ -318,7 +352,7 @@ class Server(_GuardedServing):
 
     def _save_decode_state(self, prompts, out, pos: int,
                            max_new: int) -> None:
-        if self._ckpt is None:
+        if self._ckpt is None or not _first_rank(self.mesh):
             return
         tokens = torch.cat(out, dim=1).numpy()
         state = {"prompts": np.asarray(prompts, np.int32),
@@ -330,6 +364,11 @@ class Server(_GuardedServing):
                                "num_tokens": int(tokens.shape[1])})
 
     # -- generation ----------------------------------------------------------
+
+    def _on_mesh(self):
+        """The decode mesh of this server's calls (a no-op off a mesh)."""
+        return (attn_lib.decode_mesh(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
 
     def generate(self, prompts, max_new: int = 32,
                  on_step=None) -> np.ndarray:
@@ -345,7 +384,7 @@ class Server(_GuardedServing):
         scfg = self.scfg
         dev = self.model.device
         prompts = np.asarray(prompts)
-        with PreemptionGuard() as preempt:
+        with PreemptionGuard() as preempt, self._on_mesh():
             logits, cache = self._prefill(
                 self.model, torch.as_tensor(prompts, dtype=torch.int64,
                                             device=dev))
@@ -415,27 +454,28 @@ class Server(_GuardedServing):
         prompts, saved = state["prompts"], state["tokens"].astype(np.int64)
         max_new = e["max_new"]
         dev = self.model.device
-        logits, cache = self._prefill(
-            self.model, torch.as_tensor(prompts, dtype=torch.int64,
-                                        device=dev))
-        pos = prompts.shape[1] - 1
-        finished = np.zeros((prompts.shape[0],), bool)
-        tok = torch.from_numpy(saved[:, 0:1])
-        out = [tok]
-        for i in range(1, saved.shape[1]):
-            pos += 1
-            logits, cache = self._decode_step(tok.to(dev), cache, pos)
-            tok = torch.from_numpy(saved[:, i:i + 1])
-            out.append(tok)
-        if self.scfg.eos_id >= 0:
-            finished = (saved == self.scfg.eos_id).any(axis=1)
-        for _ in range(saved.shape[1], max_new):
-            if self.scfg.eos_id >= 0 and finished.all():
-                break
-            pos += 1
-            logits, cache = self._decode_step(tok.to(dev), cache, pos)
-            tok, finished = self._next_token(logits, pos, finished)
-            out.append(tok)
+        with self._on_mesh():
+            logits, cache = self._prefill(
+                self.model, torch.as_tensor(prompts, dtype=torch.int64,
+                                            device=dev))
+            pos = prompts.shape[1] - 1
+            finished = np.zeros((prompts.shape[0],), bool)
+            tok = torch.from_numpy(saved[:, 0:1])
+            out = [tok]
+            for i in range(1, saved.shape[1]):
+                pos += 1
+                logits, cache = self._decode_step(tok.to(dev), cache, pos)
+                tok = torch.from_numpy(saved[:, i:i + 1])
+                out.append(tok)
+            if self.scfg.eos_id >= 0:
+                finished = (saved == self.scfg.eos_id).any(axis=1)
+            for _ in range(saved.shape[1], max_new):
+                if self.scfg.eos_id >= 0 and finished.all():
+                    break
+                pos += 1
+                logits, cache = self._decode_step(tok.to(dev), cache, pos)
+                tok, finished = self._next_token(logits, pos, finished)
+                out.append(tok)
         self.state = ServerState.HEALTHY
         self.events.append({"kind": "resume", "replayed": saved.shape[1],
                             "total": len(out), "time": time.time()})
@@ -486,7 +526,13 @@ class PagedServer(_GuardedServing):
     Prefill and decode run guarded like :class:`Server`'s; repeated
     decode failure walks the ladder paged-blockspace -> paged-xla (the
     plain gather decode), switching the step's config as
-    :meth:`Server._apply_rung` does."""
+    :meth:`Server._apply_rung` does.
+
+    It takes no mesh (the JAX package's does not): a model the caller
+    laid out on a mesh serves tensor-parallel, each rank's pools holding
+    its KV heads, and the paged decode kernel shards the slots over the
+    mesh registered with :func:`~repro_torch.models.attention.
+    set_decode_mesh`."""
 
     def __init__(self, cfg: ModelConfig, model, scfg: PagedServeConfig,
                  chaos=None):
@@ -497,8 +543,10 @@ class PagedServer(_GuardedServing):
         self.stats_history: list = []
         self.alloc = paged_lib.PagedKVPool(scfg.num_pages, scfg.page_size)
         self.max_pages = -(-scfg.max_len // scfg.page_size)
+        # a tensor-parallel rank's pools hold its KV heads
         self.pools = model_lib.init_paged_cache(
-            cfg, scfg.num_pages, scfg.page_size, model.device)
+            cfg, scfg.num_pages, scfg.page_size, model.device,
+            kv_heads=tp_lib.kv_heads(model.layers[0].mixer, cfg))
         self.table = np.full((scfg.num_slots, self.max_pages),
                              paged_lib.NULL_PAGE, np.int32)
         self.slots: list = [None] * scfg.num_slots
@@ -801,6 +849,13 @@ def main(argv=None):
                          "kernel with the run-time seq_pos block skip, "
                          "'xla' the plain masked decode (default: the "
                          "arch's setting, normally 'xla')")
+    ap.add_argument("--mesh", default="",
+                    help="serve on a mesh of the ranks this command runs "
+                         "as (python -m torch.distributed.run "
+                         "--nproc-per-node N ...): 'host' (every rank, "
+                         "tp=1) or 'DATAxMODEL' (e.g. '2x2').  The model "
+                         "axis is tensor parallelism; the blockspace "
+                         "decode kernels shard the slots over 'data'")
     ap.add_argument("--paged", action="store_true",
                     help="serve through the paged KV pool + continuous-"
                          "batching scheduler (PagedServer); --batch "
@@ -829,9 +884,27 @@ def main(argv=None):
     if args.decode_kernel:
         cfg = cfg.replace(attn_decode_kernel=args.decode_kernel)
         print(f"decode attention: {cfg.attn_decode_kernel}")
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_device, resolve_cli_mesh
+        if not dist.is_initialized():
+            dist.init_process_group("gloo")  # the launcher's environment
+        mesh = resolve_cli_mesh(args.mesh, device=dev.type)
+        dev = mesh_device(mesh)
+    if cfg.attn_decode_kernel == "blockspace":
+        attn_lib.set_decode_mesh(mesh)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = model_lib.init(cfg, gen, dev)
     print(f"device: {dev} ({backend_lib.resolve(dev).name} target)")
+    if mesh is not None:
+        from repro_torch.distributed.sharding import shard_model
+        shard_model(model, mesh)
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}, rank "
+              f"{dist.get_rank()} of {dist.get_world_size()} (the model "
+              f"axis tensor-parallel, the decode kernels' slots over "
+              f"'data')")
     chaos = None
     if args.chaos_seed is not None:
         from repro_torch.runtime.chaos import ChaosInjector, FaultPlan
@@ -871,7 +944,7 @@ def main(argv=None):
         temperature=args.temperature, eos_id=args.eos_id,
         retries=args.retries, deadline_s=args.deadline,
         ckpt_dir=args.ckpt_dir or None,
-        ckpt_every=4 if args.ckpt_dir else 0), chaos=chaos)
+        ckpt_every=4 if args.ckpt_dir else 0), mesh=mesh, chaos=chaos)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len))

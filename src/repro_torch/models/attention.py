@@ -23,11 +23,22 @@ per-row k-extents from the block domain's ``GridPlan.row_extents()``
 ``plan.xla_schedule``.
 
 GQA groups q heads as (Hkv, G) so K/V are never repeated per q head.
-The serving mesh (``set_decode_mesh``, ``mesh=``) is not ported yet
-(ROADMAP A12).
+
+The serving mesh: :func:`set_decode_mesh` registers a mesh (the model
+stack stays mesh-agnostic), and the two decode kernels' entry points
+shard the *slot* axis over its ``data`` axis (``mesh=`` /
+``shard_axis=`` override it per call), as the JAX package's
+``shard_map``: each rank launches the kernel on its contiguous group of
+``B / D`` slots -- the flash decode on its cache rows, the paged decode
+on its page-table rows against the pool, which every rank holds whole
+-- and the groups are gathered along the slots.  A batch that does not
+tile the axis runs the kernel unsharded.  The rest of a decode step
+runs on every rank over every slot.  A slot group is a leading slice of
+the caches, so it keeps their alignment.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -36,6 +47,7 @@ import torch
 
 from repro_torch.core.domain import make_attention_domain
 from repro_torch.core.plan import GridPlan, xla_schedule
+from repro_torch.distributed import collectives
 
 NEG_INF = float(-1e30)
 F32 = torch.float32
@@ -59,13 +71,6 @@ def _mask(qpos, kpos, kind: str, window: int):
 
 def _apply_mask(s, mask):
     return s if mask is None else torch.where(mask, s, NEG_INF)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the serving mesh (slot-sharded decode) is not ported yet "
-            "(ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
@@ -283,10 +288,68 @@ def flash_attention_xla(q, k, v, *, kind="causal", window=0,
 # decode: one new token against a KV cache
 # ---------------------------------------------------------------------------
 
+#: the mesh the block-space decode path shards its continuous-batching
+#: slot groups over; set by the serving layer (``set_decode_mesh``) so
+#: the model stack stays mesh-agnostic.
+_DECODE_MESH = None
+_DECODE_AXIS = "data"
+
+#: calls of each decode kernel's entry point on a rank's slot group (on
+#: the card one kernel launch each, also counted by the kernel's wrapper)
+SLOT_CALLS = {"flash_attention_decode": 0, "paged_flash_attention": 0}
+
+
+def set_decode_mesh(mesh, axis: str = "data") -> None:
+    """Register the serving mesh for :func:`decode_attention_flash` and
+    :func:`decode_attention_paged` (``None`` disables sharding); the
+    next decode step picks it up."""
+    global _DECODE_MESH, _DECODE_AXIS
+    _DECODE_MESH = mesh
+    _DECODE_AXIS = axis
+
+
+@contextlib.contextmanager
+def decode_mesh(mesh, axis: str = "data"):
+    """:func:`set_decode_mesh` for the duration of the block, the earlier
+    registration restored after (a ``Server(mesh=)``'s calls)."""
+    old = (_DECODE_MESH, _DECODE_AXIS)
+    set_decode_mesh(mesh, axis)
+    try:
+        yield
+    finally:
+        set_decode_mesh(*old)
+
+
+def reset_slot_calls() -> None:
+    for k in SLOT_CALLS:
+        SLOT_CALLS[k] = 0
+
+
+def _slot_group(b: int, mesh, shard_axis, *tensors):
+    """(slice of this rank's slots, the axis's process group) when
+    ``mesh`` (default: the registered one) shards ``b`` slots over its
+    axis, else None (no mesh, an axis of 1, or a batch that does not
+    tile the axis).  Raises when a tensor lies off this rank's device of
+    the mesh."""
+    from repro_torch.launch import mesh as mesh_lib
+    if mesh is None:
+        mesh = _DECODE_MESH
+    axis = shard_axis or _DECODE_AXIS
+    if mesh is None:
+        return None
+    size = mesh_lib.axis_size(mesh, axis)
+    if size == 1 or b % size:
+        return None
+    mesh_lib.check_mesh_device(mesh, *tensors)
+    n = b // size
+    r = mesh_lib.axis_rank(mesh, axis)
+    return slice(r * n, (r + 1) * n), mesh_lib.axis_group(mesh, axis)
+
+
 def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
                            scale: Optional[float] = None,
                            block_k: int = 128, grid_mode: str = "compact",
-                           mesh=None):
+                           mesh=None, shard_axis: Optional[str] = None):
     """Single-token decode through the block-space flash kernel.
 
     q: (B,H,1,D); k,v: (B,Hkv,Smax,D) caches; pos: () current position
@@ -296,8 +359,13 @@ def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
     ``grid_mode`` is the kernel's lowering (any GridPlan lowering; the
     result is the same under each).  A cache length that does not tile
     ``block_k`` runs the plain :func:`decode_attention` instead (the JAX
-    package's rule)."""
-    _no_mesh(mesh)
+    package's rule).
+
+    ``mesh`` (default: the registered serving mesh) shards the slot axis
+    over ``shard_axis`` (default: the registered axis, ``"data"``): each
+    rank decodes its contiguous slot group with its cache rows, and the
+    groups are gathered (module docstring)."""
+    b = q.shape[0]
     sk = k.shape[2]
     block_k = min(block_k, sk)
     if sk % block_k:
@@ -305,9 +373,18 @@ def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
                                 scale=scale)
     from repro_torch.kernels.flash_attention import flash_attention
     w = window if kind == "local" else 0
-    return flash_attention(q, k, v, kind="full", window=w, scale=scale,
-                           block_q=1, block_k=block_k, grid_mode=grid_mode,
-                           seq_pos=pos)
+    kw = dict(kind="full", window=w, scale=scale, block_q=1,
+              block_k=block_k, grid_mode=grid_mode)
+    group = _slot_group(b, mesh, shard_axis, q, k, v)
+    if group is None:
+        return flash_attention(q, k, v, seq_pos=pos, **kw)
+    sl, grp = group
+    posv = torch.as_tensor(pos, device=q.device).to(torch.int32) \
+        .reshape(-1).expand(b)
+    o = flash_attention(q[sl], k[sl], v[sl], seq_pos=posv[sl].contiguous(),
+                        **kw)
+    SLOT_CALLS["flash_attention_decode"] += 1
+    return collectives.all_gather(o, 0, grp)
 
 
 def decode_attention(q, k, v, pos, *, kind="causal", window=0,
@@ -338,18 +415,33 @@ def decode_attention(q, k, v, pos, *, kind="causal", window=0,
 def decode_attention_paged(q, kv_pool, page_table, pos, *,
                            window: int = 0,
                            scale: Optional[float] = None,
-                           grid_mode: str = "compact", mesh=None):
+                           grid_mode: str = "compact", mesh=None,
+                           shard_axis: Optional[str] = None):
     """Paged single-token decode through the block-space paged kernel.
 
     q: (B,H,1,D) slot queries; kv_pool: (P, 2*Hkv, page_size, D) fused
     page pool; page_table: (B, max_pages) int; pos: (B,) per-slot
     positions (a scalar broadcasts).  See
-    :func:`repro_torch.kernels.flash_attention.paged_flash_attention`."""
-    _no_mesh(mesh)
+    :func:`repro_torch.kernels.flash_attention.paged_flash_attention`.
+
+    ``mesh`` (default: the registered serving mesh) shards the slot
+    axis: each rank decodes its contiguous slot group against its
+    page-table rows, the pool whole on every rank, and the groups are
+    gathered.  A batch that does not tile the axis runs unsharded."""
     from repro_torch.kernels.flash_attention import paged_flash_attention
-    return paged_flash_attention(q, kv_pool, page_table, pos,
-                                 window=window, scale=scale,
-                                 grid_mode=grid_mode)
+    b = q.shape[0]
+    kw = dict(window=window, scale=scale, grid_mode=grid_mode)
+    group = _slot_group(b, mesh, shard_axis, q, kv_pool)
+    if group is None:
+        return paged_flash_attention(q, kv_pool, page_table, pos, **kw)
+    sl, grp = group
+    posv = torch.as_tensor(pos, device=q.device).to(torch.int32) \
+        .reshape(-1).expand(b)
+    table = torch.as_tensor(page_table, device=q.device)
+    o = paged_flash_attention(q[sl], kv_pool, table[sl].contiguous(),
+                              posv[sl].contiguous(), **kw)
+    SLOT_CALLS["paged_flash_attention"] += 1
+    return collectives.all_gather(o, 0, grp)
 
 
 def decode_attention_paged_xla(q, kv_pool, page_table, pos, *,

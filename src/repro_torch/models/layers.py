@@ -10,12 +10,23 @@ JAX parameter tree carries across by name
 and tensors, as the JAX functions take parameter dicts and arrays.
 Matrices are stored (d_in, d_out) and applied as ``x @ w``, cast to the
 activation dtype first, as in the JAX package.
+
+On a model laid out on a mesh (:func:`repro_torch.distributed.sharding.
+shard_model`) the attention block, the MLP, the embedding and the LM
+head of a module tagged tensor-parallel compute on the rank's pieces
+and add or gather over the model axis
+(:mod:`repro_torch.distributed.tensor_parallel`); head counts come from
+the projections' shapes, so a rank's attention runs over its own heads.
+Any other module is called with its gathered copy (``at_use``) and runs
+as on one device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed import tensor_parallel as tp_lib
 
 from . import attention as attn_lib
 
@@ -159,7 +170,7 @@ def rope_rows(x, positions, theta=10000.0):
 def mlp(ffn: MLP, x):
     h = torch.nn.functional.silu(x @ ffn.wg.to(x.dtype)) * (
         x @ ffn.wi.to(x.dtype))
-    return h @ ffn.wo.to(x.dtype)
+    return tp_lib.reduce(ffn, h @ ffn.wo.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +178,8 @@ def mlp(ffn: MLP, x):
 # ---------------------------------------------------------------------------
 
 def _qkv(a: Attention, x, cfg):
+    """q, k, v (B, heads, S, hd) over the module's heads (a tensor-
+    parallel rank's share, else all of them)."""
     b, s, _ = x.shape
     hd = cfg.hd
     q = x @ a.wq.to(x.dtype)
@@ -176,15 +189,15 @@ def _qkv(a: Attention, x, cfg):
         q = q + a.bq.to(x.dtype)
         k = k + a.bk.to(x.dtype)
         v = v + a.bv.to(x.dtype)
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = q.reshape(b, s, -1, hd).transpose(1, 2)
+    k = k.reshape(b, s, -1, hd).transpose(1, 2)
+    v = v.reshape(b, s, -1, hd).transpose(1, 2)
     return q, k, v
 
 
 def _out(a: Attention, o, cfg, b, s, dtype):
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return o @ a.wo.to(dtype)
+    o = o.transpose(1, 2).reshape(b, s, a.wo.shape[0])
+    return tp_lib.reduce(a, o @ a.wo.to(dtype))
 
 
 def attn_block_prefill(a: Attention, x, cfg, kind, positions):
@@ -256,8 +269,10 @@ def attn_block_decode_paged(a: Attention, x, cfg, kind, pool, page_table,
 
 def embed(e: Embed, tokens, dtype):
     # a row gather then the cast: the same values as casting the table
-    return e.table[tokens].to(dtype)
+    return tp_lib.embed_rows(e, tokens).to(dtype)
 
 
 def lm_head(head: LMHead, x):
-    return x @ head.w.to(x.dtype)
+    """Logits over the whole vocabulary (a tensor-parallel head's
+    columns gathered along it)."""
+    return tp_lib.gather(head, x @ head.w.to(x.dtype), -1)

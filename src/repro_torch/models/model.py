@@ -29,6 +29,12 @@ Entry points:
 Embedding-input stacks (``input_mode="embeddings"``) take (B, S, D) and
 (B, 1, D) inputs, cast to the compute dtype, and have no embedding
 table, as in the JAX package.
+
+A model laid out on a mesh (:func:`repro_torch.distributed.sharding.
+shard_model`) runs every entry point with each layer taken through
+:func:`~repro_torch.distributed.tensor_parallel.at_use`: its
+tensor-parallel modules compute on the rank's pieces, the rest on
+gathered copies.  A model on one device runs exactly as before.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import default_device
+from repro_torch.distributed.tensor_parallel import at_use
 
 from . import layers as L
 from . import mla as mla_lib
@@ -246,7 +253,7 @@ def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
     one none are kept (the training forward)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(lo, hi):
-        layer = model.layers[i]
+        layer = at_use(model.layers[i])
         mixer, akind, _, shared = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
         if mixer in SSM_BLOCKS:
@@ -267,7 +274,8 @@ def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
         if a is not None:
             aux = aux + a
         if shared:
-            h, kv = _shared_block(model.shared_attn, h, h0, cfg, positions)
+            h, kv = _shared_block(at_use(model.shared_attn), h, h0, cfg,
+                                  positions)
             cache = cache + tuple(_pad_seq(t, 2, max_len) for t in kv)
         if caches is not None:
             caches.append(cache)
@@ -428,6 +436,7 @@ def decode_step(model: Model, inputs, cache, pos,
     h0 = h = _embed_inputs(model, inputs, cfg)
     new_cache = []
     for i, layer in enumerate(model.layers):
+        layer = at_use(layer)
         mixer, akind, _, shared = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
         if mixer in SSM_BLOCKS:
@@ -441,7 +450,7 @@ def decode_step(model: Model, inputs, cache, pos,
                                          cache[i][:2], pos)
         h, _ = _ffn(layer, h + out, cfg)
         if shared:
-            h, kv = _shared_block(model.shared_attn, h, h0, cfg,
+            h, kv = _shared_block(at_use(model.shared_attn), h, h0, cfg,
                                   cache=cache[i][2:], pos=pos)
             c = tuple(c) + tuple(kv)
         new_cache.append(tuple(c))
@@ -466,15 +475,19 @@ def _check_paged(cfg: ModelConfig) -> None:
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device=None) -> List[torch.Tensor]:
+                     device=None, kv_heads: int | None = None
+                     ) -> List[torch.Tensor]:
     """Per-layer fused-KV page pools.  One *shared* (B, max_pages) page
     table (built by the scheduler) addresses every layer's pool: the
-    layers hold different values at identical page indices."""
+    layers hold different values at identical page indices.  A
+    tensor-parallel rank's pools hold its ``kv_heads`` (default: all of
+    the config's)."""
     from repro_torch.core import paged as paged_lib
 
     _check_paged(cfg)
-    return [paged_lib.init_pool(num_pages, cfg.n_kv_heads, page_size,
-                                cfg.hd, cfg.tdtype(), device)
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
+    return [paged_lib.init_pool(num_pages, hkv, page_size, cfg.hd,
+                                cfg.tdtype(), device)
             for _ in range(cfg.n_layers)]
 
 
@@ -504,6 +517,7 @@ def decode_step_paged(model: Model, inputs, pools, page_table, pos,
     _check_paged(cfg)
     h = _embed_inputs(model, inputs, cfg)
     for i, layer in enumerate(model.layers):
+        layer = at_use(layer)
         _, akind, _, _ = layer_sig(cfg, i)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
         out, pools[i] = L.attn_block_decode_paged(

@@ -564,11 +564,16 @@ def scenario_drop_halo(seed: int, smoke: bool, device="cuda") -> dict:
                    rounds=[r["rounds"] for r in reps])
 
 
-def _tiny_server(device, scfg=None, chaos=None, decode_kernel: str = ""):
+def _quickstart(full_width: bool = False):
     from repro_torch.configs import get_config
+    return get_config("quickstart", smoke=not full_width)
+
+
+def _tiny_server(device, scfg=None, chaos=None, decode_kernel: str = "",
+                 full_width: bool = False):
     from repro_torch.launch.serve import ServeConfig, Server
     from repro_torch.models import init
-    cfg = get_config("quickstart", smoke=True)
+    cfg = _quickstart(full_width)
     if decode_kernel:
         cfg = cfg.replace(attn_decode_kernel=decode_kernel)
     model = init(cfg, torch.Generator(device=device).manual_seed(0), device)
@@ -666,21 +671,52 @@ def scenario_corrupt_tune_cache(seed: int, smoke: bool,
                    entry_rejected=rejected, kernel_ran=ran)
 
 
-def scenario_sigterm_mid_decode(seed: int, smoke: bool,
-                                device="cuda") -> dict:
-    """SIGTERM mid-decode -> drain + decode-state checkpoint -> a new
-    server restores the parameters onto the device and resumes to a
-    bit-identical stream (restoring onto a mesh is ROADMAP A12)."""
+def _sigterm_successor(rank, world, d, device_type, full_width):
+    """One rank of the SIGTERM scenario's successor: elastic-restore the
+    parameters onto the mesh of the ranks that are there and resume the
+    drained generation on it; returns the rank's stream and the mesh's
+    (data, model) shape."""
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.launch.serve import ServeConfig, Server
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.launch.mesh import axis_size, rank_device
+    from repro_torch.launch.serve import Server
     from repro_torch.models import Model
+    cfg = _quickstart(full_width)
+    template = Model(cfg, rank_device(rank, device_type))
+    mesh, _, model, _ = elastic_restore(
+        CheckpointManager(os.path.join(d, "params"), keep=1), template, cfg,
+        device=device_type)
+    out = Server(cfg, model, _sigterm_scfg(d), mesh=mesh).resume()
+    return {"tokens": out,
+            "mesh": (axis_size(mesh, "data"), axis_size(mesh, "model"))}
+
+
+def _sigterm_scfg(d):
+    from repro_torch.launch.serve import ServeConfig
+    return ServeConfig(max_len=24, temperature=0.7, seed=5, retries=3,
+                       backoff_base_s=0.0, ckpt_dir=os.path.join(d, "decode"),
+                       ckpt_every=1)
+
+
+def scenario_sigterm_mid_decode(seed: int, smoke: bool, device="cuda",
+                                full_width: bool = False) -> dict:
+    """SIGTERM mid-decode -> drain + decode-state checkpoint -> a
+    successor of 2 processes this scenario spawns (gloo; on the
+    card they share it) elastic-restores the parameters onto the mesh of
+    the ranks that are there and resumes to a stream bit-identical to
+    the unfaulted run's on every rank.  quickstart's smoke config, or
+    its full width with ``full_width``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import ServeConfig, Server
     max_new = 6 if smoke else 8
     with tempfile.TemporaryDirectory() as d:
         # fault-free reference run (no decode checkpointing: the torn
         # run below must resume from ITS OWN checkpoints)
         cfg, model, server = _tiny_server(
             device, ServeConfig(max_len=24, temperature=0.7, seed=5,
-                                retries=3, backoff_base_s=0.0))
+                                retries=3, backoff_base_s=0.0),
+            full_width=full_width)
         prompts = np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, 8))
         ref = server.generate(prompts, max_new=max_new)
@@ -688,26 +724,25 @@ def scenario_sigterm_mid_decode(seed: int, smoke: bool,
         pmgr = CheckpointManager(os.path.join(d, "params"), keep=1)
         pmgr.save(0, model)
 
-        scfg = ServeConfig(max_len=24, temperature=0.7, seed=5,
-                           retries=3, backoff_base_s=0.0,
-                           ckpt_dir=os.path.join(d, "decode"),
-                           ckpt_every=1)
         plan = FaultPlan(seed, [FaultSpec("sigterm", "serve.decode", 2)])
-        faulty = Server(cfg, model, scfg, chaos=ChaosInjector(plan))
+        faulty = Server(cfg, model, _sigterm_scfg(d),
+                        chaos=ChaosInjector(plan))
         partial = faulty.generate(prompts, max_new=max_new)
         drained = (faulty.state.value == "draining"
                    and partial.shape[1] < max_new)
+        del model, server, faulty  # the successor's ranks share the card
 
-        # "restart": restore the parameters into a fresh model on the
-        # device and resume from the decode-state checkpoint
-        _, model2, _, _ = pmgr.restore(None, Model(cfg, device))
-        successor = Server(cfg, model2, scfg)
-        out = successor.resume()
-        recovered = bool(np.array_equal(out, ref))
+        # "restart": the successor's ranks restore the parameters onto
+        # their mesh and resume from the decode-state checkpoint
+        reps = run_ranks(_sigterm_successor, 2, d,
+                         torch.device(device).type, full_width)
+        outs = [r["tokens"] for r in reps]
+        recovered = all(bool(np.array_equal(o, ref)) for o in outs)
     status = "recovered" if (drained and recovered) else "failed"
     return _result("sigterm", status, drained=drained,
                    bit_identical=recovered,
-                   resumed_tokens=int(out.shape[1]))
+                   resumed_tokens=int(outs[0].shape[1]),
+                   mesh=list(reps[0]["mesh"]))
 
 
 def scenario_fatal_report(seed: int, smoke: bool, device="cuda") -> dict:

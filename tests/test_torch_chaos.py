@@ -2,8 +2,9 @@
 draw the same schedule and cross-load both ways, the kernel-layer
 faults (through the launch hook) leave the write, sum and CA outputs the
 reference's faulted tpu-interpret launches leave, the hook is restored
-on exit, and the CPU chaos matrix passes with the collective fault
-skipped naming A12."""
+on exit, and the CPU chaos matrix passes, none skipped: the collective
+fault (drop_halo) on 2 gloo ranks, and the SIGTERM successor resuming on
+the 2-rank elastic mesh ((1, 2): tensor-parallel) it restores onto."""
 import json
 
 import jax.numpy as jnp
@@ -209,6 +210,9 @@ def test_matrix_cli_on_cpu(tmp_path, capsys):
     assert status["drop_halo"]["status"] == "recovered"
     assert status["drop_halo"]["detected"] and \
         status["drop_halo"]["bit_identical"]
+    # the drained stream resumed bit-identically on the successor's mesh
+    assert status["sigterm"]["status"] == "recovered"
+    assert status["sigterm"]["mesh"] == [1, 2]
     for name, r in status.items():
         assert r["status"] in ("recovered", "reported"), r
     assert status["poison_tile"]["detected"] and \

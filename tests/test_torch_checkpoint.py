@@ -68,8 +68,16 @@ def test_atomic_save_keep_k_and_meta(tmp_path):
         mgr.restore(3, {"w": torch.zeros(4)})
     with pytest.raises(KeyError, match="missing leaf v"):
         mgr.restore(3, {"v": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="A12"):
-        mgr.restore(3, {"w": torch.zeros(3)}, shardings={"w": None})
+    # restoring onto a mesh: every leaf cut to this rank's piece, whole
+    # where its spec cuts nothing or its axis is 1 (the multi-rank cases
+    # are tests/test_torch_serve_mesh.py's)
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import P, NamedSharding
+    one = SimpleNamespace(shape={"data": 1, "model": 1})
+    _, got, _, _ = mgr.restore(3, {"w": torch.zeros(3)}, shardings={
+        "w": NamedSharding(one, P("model"))})
+    assert torch.equal(got["w"], torch.full((3,), 3.0))
 
 
 @pytest.mark.parametrize("mode", ["truncate", "meta"])

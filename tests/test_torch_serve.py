@@ -3,8 +3,8 @@ greedy token streams of Server equal the JAX Server's (on prompts whose
 top-2 logit margins the test asserts to be >= 100x the logit
 tolerance), PagedServer equals the single-request oracle, preemption is
 deterministic and leak-free, a too-small pool raises, the guarded
-runtime's entry points are there (only the mesh refuses, naming A12), and
-the reports carry their fields.  The MoE stacks (deepseek-v2-236b with
+runtime's entry points are there (the serving mesh too: a one-rank mesh
+serves the single-device stream), and the reports carry their fields.  The MoE stacks (deepseek-v2-236b with
 MLA, llama4-maverick-400b-a17b with GQA) serve the same greedy streams as
 the JAX Server, llama4's PagedServer those of the single-request oracle,
 and the CLI takes both archs.  The SSM and hybrid stacks
@@ -135,13 +135,21 @@ def test_paged_server_too_small_pool_raises(quickstart):
         srv.run([np.arange(6) % tcfg.vocab_size], max_new=16)
     with pytest.raises(ValueError, match="exceeds max_len"):
         srv.submit(0, np.arange(30), 8)
-    # the guarded runtime is ported; the serving mesh comes with A12
+    # the guarded runtime is ported, and so is the serving mesh: a
+    # one-rank (1, 1) mesh serves the single-device stream
     from repro_torch.runtime.chaos import ChaosInjector, FaultPlan
     paged = S.PagedServer(tcfg, tm, S.PagedServeConfig(),
                           chaos=ChaosInjector(FaultPlan(0)))
     assert paged.chaos is not None and paged.ladder.level == 0
-    with pytest.raises(NotImplementedError, match="A12"):
-        S.Server(tcfg, tm, S.ServeConfig(), mesh=object())
+    import torch_serve_mesh_ranks as R
+    from repro_torch.launch.mesh import run_ranks
+    prompts = _prompts(tcfg, (2, 8), 5)
+    want = S.Server(R.config("quickstart"), tm,
+                    S.ServeConfig(max_len=12)).generate(prompts, 4)
+    state = {n: p.detach().numpy() for n, p in tm.named_parameters()}
+    got = run_ranks(R.serve, 1, "quickstart", state, prompts, 4,
+                    [(1, 1)])[0][(1, 1)]
+    assert np.array_equal(got["tokens"], want) and got["same"]
     srv = S.Server(tcfg, tm, S.ServeConfig())
     with pytest.raises(RuntimeError, match="resume\\(\\) needs "
                        "ServeConfig.ckpt_dir"):

@@ -238,13 +238,12 @@ def test_searchers_name_the_unported_options():
         with pytest.raises(NotImplementedError, match="A13"):
             fn(verify=True, device="cpu")
     # an object that is not a mesh: the reference's own error (its
-    # searchers read mesh.shape through shard_params)
-    for fn in (TT.autotune_ca, TT.autotune_write):
+    # searchers read mesh.shape through shard_params); the paged searcher
+    # tunes the serving mesh's slot-sharded decode with a mesh
+    # (tests/test_torch_serve_mesh.py)
+    for fn in (TT.autotune_ca, TT.autotune_write, TT.autotune_paged):
         with pytest.raises(AttributeError):
             fn(mesh=object(), device="cpu")
-    # the paged searcher's mesh is the serving mesh's slot sharding
-    with pytest.raises(NotImplementedError, match="A12"):
-        TT.autotune_paged(mesh=object(), device="cpu")
     assert TT.shard_params({"n": 1}, None, "data") == {"n": 1}
 
 
