@@ -177,6 +177,9 @@ def _rank_main(fn, rank, world, init_method, threads, args, queue):
                                 world_size=world)
         try:
             out = fn(rank, world, *args)
+            # rank 0 hosts the TCP store: no rank tears the group down
+            # while another is still in a collective or a group handshake
+            dist.barrier()
         finally:
             dist.destroy_process_group()
         queue.put((rank, True, out))
