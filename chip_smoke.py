@@ -312,7 +312,22 @@ Phases, each printing its own lines:
              onto 1x2 and elastic_restore'd onto 3 ranks, served; the
              SIGTERM scenario resumed on a 2-rank mesh
              (``--serve-mesh-only`` runs only this phase);
-21. kernels line (the kernels of the main paths: B1-B3, B4 as the
+21. train-mesh -- the trainer on a mesh (launch/train.py's Trainer(mesh=),
+             ranks spawned on the card over gloo): quickstart at full
+             width from one step-0 checkpoint on 2x1, 1x2, 2x2, 1x2 under
+             seq_shard_acts and 2x1 under fsdp, per-step losses and final
+             parameters held to the one-device run; the 2x2 checkpoint
+             resumed on one device (bit-equal weights, its next step the
+             one-device run's) and restored onto a 1x2 serving mesh,
+             Server and PagedServer greedy through the decode kernels
+             (launch counts set to 0 before and read after, every rank's
+             launch held to its plain version, tokens to the one-device
+             servers'); compressed_psum_grads on 2 ranks; gemma3-12b (6
+             of 48 layers, 1 x 4096) on 1x2 under seq_shard_acts and
+             deepseek-v2 (2 layers, 2 x 1024, bf16 moments) on 2x1 under
+             fsdp against their one-device runs (``--train-mesh-only``
+             runs only this phase);
+22. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -326,6 +341,8 @@ Phases, each printing its own lines:
              object, launches_ssm_phase and zamba2_2_7b, musicgen_large
              and internvl2_26b objects, and a serve_mesh object: the
              mesh runs' launches, the slot-sharded ones, every rank's
+             launch at its shape, and a train_mesh object: the launches
+             of the trained checkpoint's serving on 1x2 and each rank's
              launch at its shape), a ``[phases]`` line (each phase's
              host seconds), then the result line.
 
@@ -5599,6 +5616,597 @@ def serve_mesh_kernel_entries(kernels, sm):
                                "per_rank": rows}
 
 
+# ---------------------------------------------------------------------------
+# [train-mesh]: the trainer on a mesh of ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+#: quickstart at full width (f32), a few steps on each mesh from one
+#: step-0 checkpoint, against the one-device run on the same weights and
+#: batches.  AdamW's eps is 1e-5, as in tests/test_torch_train_mesh.py:
+#: at 1e-8 an element whose gradient is near 1e-8 steps by up to lr with
+#: the sign of its gradient's rounding
+TRAIN_MESH_QS = dict(batch=8, seq=512, steps=3, lr=1e-3, warmup=1,
+                     eps=1e-5)
+#: (name, mesh shape, TrainConfig fields) of the quickstart runs; the
+#: 2x2 run (the 4-rank world) writes the checkpoint that is resumed on
+#: one device and served on 1x2
+TRAIN_MESH_QS_RUNS = [("2x1", (2, 1), {}), ("1x2", (1, 2), {}),
+                      ("1x2-sp", (1, 2), {"seq_shard_acts": True}),
+                      ("2x1-fsdp", (2, 1), {"fsdp": True})]
+#: the trained 2x2 checkpoint served on 1x2: Server and PagedServer
+TRAIN_MESH_SERVE = dict(batch=4, prompt=64, max_new=16, max_len=128,
+                        requests=6, lo=16, hi=96, slots=4, ps=16)
+#: per-step metrics (f32: tests/test_torch_train_mesh.py's METRIC_TOL;
+#: bf16 compute: test_torch_train.py's BF16_TRAIN_TOL) and final
+#: parameters (PARAM_TOL) against the one-device run
+TRAIN_MESH_RTOL = {"float32": 1e-4, "bfloat16": 5e-3}
+TRAIN_MESH_PARAM_TOL = 3e-5
+#: gemma3-12b at full width, 6 of 48 layers, 1 x 4096, bf16 compute over
+#: f32 weights, remat, on 1x2 under seq_shard_acts (its META)
+TRAIN_MESH_GEMMA = dict(layers=6, batch=1, seq=4096, steps=3, lr=1e-4)
+#: deepseek-v2 at full width, 2 layers, fsdp and bf16 moments (its META)
+#: on 2x1: a global batch of 2 x 1024 (one row a rank).  One device at
+#: 2 x 4096 peaks at 73.14 GiB, 39.9 of them weights, gradients and
+#: moments; a rank holds 25 GiB of those, so two ranks fit on 80 GB only
+#: with the activations of ~2 k tokens
+TRAIN_MESH_DEEPSEEK = dict(layers=2, batch=2, seq=1024, steps=3, lr=1e-4)
+#: compressed_psum_grads on 2 ranks: leaves of these sizes
+TRAIN_MESH_COMPRESS = ((4096, 1024), (3, 1000), (257,))
+#: the device type of the spawned ranks
+TRAIN_MESH_DEVICE = "cuda"
+
+
+def train_mesh_pipe(cfg, batch, seq):
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    return SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=seq, global_batch=batch,
+                                        input_mode=cfg.input_mode,
+                                        d_model=cfg.d_model))
+
+
+def train_mesh_opt(c, moments="float32"):
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=c["lr"], warmup_steps=c.get("warmup", 1),
+                       total_steps=c["steps"] + 1, eps=c.get("eps", 1e-8),
+                       moment_dtype=moments)
+
+
+def train_mesh_steps(tr, model, opt, pipe, steps, dev, collectives):
+    """``steps`` steps of the trainer's step on this rank (no
+    checkpoint), each timed on the host clock to its metrics' copy and
+    with the collectives' calls, bytes and host ms it took."""
+    hist = []
+    for _ in range(steps):
+        batch = tr._device_batch(pipe.next_batch())
+        torch.cuda.synchronize(dev)
+        before = collectives.TRAFFIC.as_dict()
+        t0 = time.perf_counter()
+        model, opt, met = tr._step(model, opt, batch)
+        met = {k: float(v) for k, v in met.items()}
+        met["step_time_s"] = time.perf_counter() - t0
+        after = collectives.TRAFFIC.as_dict()
+        met.update({f"collective_{k}": after[k] - before[k]
+                    for k in ("calls", "sent", "staged", "seconds")})
+        hist.append(met)
+    return model, opt, hist
+
+
+def train_mesh_param_err(SH, TM, convert, model, cfg, ref_dir):
+    """The largest |difference| of the laid-out ``model``'s parameters
+    (gathered) from the checkpoint in ``ref_dir``, and its leaf."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    shapes = dict(TM.Model(cfg, "meta").named_parameters())
+    _, tree, _, _ = CheckpointManager(ref_dir).restore(
+        None, convert.tree_like_jax(shapes, cfg))
+    whole = {k: torch.empty(s.shape) for k, s in shapes.items()}
+    convert.fill_from_jax(whole, tree, cfg)
+    worst, name = 0.0, ""
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            t = SH.gather_tensor(p, p._layout) if hasattr(p, "_layout") \
+                else p
+            err = float((t.float().cpu() - whole[k]).abs().max())
+            if err > worst:
+                worst, name = err, k
+    return worst, name
+
+
+def train_mesh_rank(rank, world, c):
+    """One rank of a [train-mesh] world: quickstart trained on each mesh
+    of ``c["qs_runs"]`` from the step-0 checkpoint (the 2x2 run through
+    Trainer.run, which writes its checkpoint), and in the 2-rank world
+    the 2x2 checkpoint restored onto 1x2 and served (Server, PagedServer:
+    the decode launches counted, each rank's held to its plain version),
+    compressed_psum_grads on the card's tensors, gemma3-12b on 1x2 under
+    seq_shard_acts and deepseek-v2 on 2x1 under fsdp."""
+    sys.path.insert(0, c["src"])
+    import importlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as S
+    from repro_torch.launch import train as TT
+    from repro_torch.models import attention as TA
+    from repro_torch.models import convert
+    from repro_torch.models import model as TM
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = M.rank_device(rank, TRAIN_MESH_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)  # before the first memory query
+    out = {"rank": rank, "qs": {}}
+    q = c["qs"]
+    qcfg = get_config("quickstart")
+
+    def qs_trainer(shape, tkw, d, steps):
+        mesh = M.make_mesh(shape, M.AXES, device=TRAIN_MESH_DEVICE)
+        return TT.Trainer(qcfg, TT.TrainConfig(
+            steps=steps, log_every=1000, ckpt_dir=d, **tkw,
+            optimizer=train_mesh_opt(q)), mesh=mesh)
+
+    for name, shape, tkw in c["qs_runs"]:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        d = os.path.join(c["root"], f"qs-{name}")
+        if rank == 0:
+            shutil.copytree(c["qs_init"], d)
+        dist.barrier()
+        tr = qs_trainer(shape, tkw, d, q["steps"])
+        pipe = train_mesh_pipe(qcfg, q["batch"], q["seq"])
+        collectives.TRAFFIC.reset()
+        if name == "2x2":  # through run(): its checkpoint is resumed
+            model, _, hist = tr.run(pipe)
+        else:
+            _, model, opt = tr.restore_or_init(pipe)
+            model, opt, hist = train_mesh_steps(tr, model, opt, pipe,
+                                                q["steps"], dev, collectives)
+            del opt
+        err, leaf = train_mesh_param_err(SH, TM, convert, model, qcfg,
+                                         c["qs_ref"])
+        out["qs"][name] = {"hist": hist, "param_err": err,
+                           "param_err_leaf": leaf,
+                           "peak_bytes": torch.cuda.max_memory_allocated(
+                               dev),
+                           "traffic": collectives.TRAFFIC.as_dict(),
+                           "seconds": time.perf_counter() - t0}
+        del model, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    if world == 4:
+        return out
+
+    # -- the 2x2 checkpoint restored onto a 1x2 serving mesh --------------
+    t0 = time.perf_counter()
+    sv = c["serve"]
+    scfg = qcfg.replace(attn_decode_kernel="blockspace")
+    mesh = M.make_mesh((1, 2), M.AXES, device=TRAIN_MESH_DEVICE)
+    tr = TT.Trainer(scfg, TT.TrainConfig(ckpt_dir=c["qs_2x2"]), mesh=mesh)
+    step, model, _ = tr.restore_or_init()
+    model.requires_grad_(False)
+    srv = S.Server(scfg, model, S.ServeConfig(max_len=sv["max_len"]),
+                   mesh=mesh)
+    prompts = np.asarray(c["prompts"])
+    FA.reset_launch_counts()
+    collectives.TRAFFIC.reset()
+    with recording_calls(TA, "decode_attention_flash") as fcalls:
+        toks, logits, stats = mesh_generate(srv, prompts, sv["max_new"],
+                                            collectives)
+    torch.cuda.synchronize(dev)
+    check_healthy(srv, f"train-mesh serve rank {rank}")
+    serve = {"step": step, "tokens": toks, "launches": FA.launch_counts(),
+             "same": same_everywhere(torch.from_numpy(toks)), **stats}
+    if rank == 0:
+        serve["logits"] = logits.cpu().numpy()
+    reqs = [np.asarray(r) for r in c["requests"]]
+    TA.set_decode_mesh(mesh)
+    FA.reset_launch_counts()
+    try:
+        psrv = S.PagedServer(scfg, model, S.PagedServeConfig(**c["paged_kw"]))
+        with recording_calls(TA, "decode_attention_paged") as pcalls:
+            prep = S.paged_throughput_report(psrv, reqs,
+                                             max_new=sv["max_new"])
+        torch.cuda.synchronize(dev)
+    finally:
+        TA.set_decode_mesh(None)
+    check_healthy(psrv, f"train-mesh paged rank {rank}")
+    serve["paged"] = {"launches": FA.launch_counts(),
+                      "decode_steps": prep["decode_steps"],
+                      "done": {int(k): np.asarray(v)
+                               for k, v in psrv.done.items()}}
+    sl = slot_slice(mesh, M, prompts.shape[0])
+    psl = slot_slice(mesh, M, c["paged_kw"]["num_slots"])
+    rows = rank_decode_rows(FA, fcalls, pcalls, sl, psl, timed=False)
+    dist.barrier()
+    if rank == 0:
+        rows = rank_decode_rows(FA, fcalls, pcalls, sl, psl, timed=True)
+    dist.barrier()
+    serve["decode_rows"] = rows
+    serve["seconds"] = time.perf_counter() - t0
+    out["serve"] = serve
+    del srv, psrv, model, tr, fcalls, pcalls, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- compressed_psum_grads over the 2 ranks, on the card --------------
+    from repro_torch.optim import compression as CMP
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    grads = {f"g{i}": torch.randn(s, generator=gen, device=dev)
+             for i, s in enumerate(TRAIN_MESH_COMPRESS)}
+    res = {k: 1e-3 * torch.randn(v.shape, generator=gen, device=dev)
+           for k, v in grads.items()}
+    synced, new_res = CMP.compressed_psum_grads(grads, res)
+    out["compress"] = {k: (synced[k].cpu().numpy(), new_res[k].cpu().numpy())
+                       for k in grads}
+
+    # -- gemma3-12b on 1x2 under seq_shard_acts, deepseek-v2 on 2x1 fsdp --
+    for key, arch, c2, shape, tkw, moments in c["big"]:
+        t0 = time.perf_counter()
+        free_card()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = get_config(arch).replace(n_layers=c2["layers"])
+        mesh = M.make_mesh(shape, M.AXES, device=TRAIN_MESH_DEVICE)
+        tr = TT.Trainer(cfg, TT.TrainConfig(
+            steps=c2["steps"], ckpt_dir=c["root"], **tkw,
+            optimizer=train_mesh_opt(c2, moments)), mesh=mesh)
+        model, opt = tr.init_params()
+        init_s = time.perf_counter() - t0
+        pipe = train_mesh_pipe(cfg, c2["batch"], c2["seq"])
+        collectives.TRAFFIC.reset()
+        model, opt, hist = train_mesh_steps(tr, model, opt, pipe,
+                                            c2["steps"], dev, collectives)
+        out[key] = {"hist": hist, "init_s": init_s,
+                    "param_bytes": sum(p.numel() * p.element_size()
+                                       for p in model.parameters()),
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "seconds": time.perf_counter() - t0}
+        del model, opt, tr
+    free_card()
+    return out
+
+
+def train_mesh_one_device(TT, cfg, c, dev, moments="float32"):
+    """The one-device reference of a big run: the same seeded weights,
+    batches and optimizer, ``c["steps"]`` steps of make_train_step."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    tr = TT.Trainer(cfg, TT.TrainConfig(
+        steps=c["steps"], ckpt_dir=tempfile.gettempdir(),
+        optimizer=train_mesh_opt(c, moments)), device=dev)
+    model, opt = tr.init_params()
+    pipe = train_mesh_pipe(cfg, c["batch"], c["seq"])
+    from repro_torch.distributed import collectives
+    model, opt, hist = train_mesh_steps(tr, model, opt, pipe,
+                                        c["steps"], dev, collectives)
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, tr
+    free_card()
+    return {"hist": hist, "peak_bytes": peak}
+
+
+def train_mesh_close(what, got, want, rtol, keys=("loss", "grad_norm",
+                                                  "aux_loss", "tokens")):
+    """Per-step metrics of a mesh run against the one-device run's
+    within ``rtol``; returns the largest relative difference a key."""
+    check(len(got) == len(want), f"{what}: {len(got)} steps, expected "
+          f"{len(want)}")
+    out = {}
+    for k in keys:
+        a = np.array([h[k] for h in got], np.float64)
+        b = np.array([h[k] for h in want], np.float64)
+        rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+        check(bool(np.all(np.isfinite(a))) and rel <= rtol,
+              f"{what}: {k} {a.tolist()} against one device {b.tolist()} "
+              f"(largest relative difference {rel} > {rtol})")
+        out[k] = rel
+    return out
+
+
+def train_mesh_step_stats(hist):
+    """Medians over the steps after the first: ms a step and the
+    collectives' calls, bytes sent, bytes staged and host ms a step."""
+    rest = hist[1:] or hist
+    med = lambda k: statistics.median(h[k] for h in rest)  # noqa: E731
+    return {"ms_per_step": 1e3 * med("step_time_s"),
+            "collective_calls_per_step": med("collective_calls"),
+            "collective_bytes_sent_per_step": med("collective_sent"),
+            "staged_bytes_per_step": med("collective_staged"),
+            "collective_ms_per_step": 1e3 * med("collective_seconds")}
+
+
+def phase_train_mesh(S, TT, TM, FA, get_config, dev):
+    """The [train-mesh] phase: the one-device references (quickstart from
+    a step-0 checkpoint, gemma3-12b and deepseek-v2 from the seeded init)
+    on cuda:0, then the 4-rank world (quickstart 2x2) and the 2-rank
+    world (quickstart 2x1, 1x2, 1x2 seq_shard_acts, 2x1 fsdp; the 2x2
+    checkpoint served on 1x2; compressed_psum_grads; gemma3-12b 1x2
+    seq_shard_acts; deepseek-v2 2x1 fsdp), every run held to its
+    one-device reference; the 2x2 checkpoint resumed on one device."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import convert
+    from repro_torch.optim import compression as CMP
+    t_phase = time.perf_counter()
+    free_card()
+    root = tempfile.mkdtemp(prefix="train_mesh_")
+    atexit.register(shutil.rmtree, root, True)
+    q = TRAIN_MESH_QS
+    qcfg = get_config("quickstart")
+    # -- quickstart on one device from the step-0 checkpoint --------------
+    init = os.path.join(root, "qs-init")
+    model = TM.init(qcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    CheckpointManager(init).save(0, convert.params_to_jax(model))
+    del model
+    one_dir = os.path.join(root, "qs-one")
+    shutil.copytree(init, one_dir)
+    one_tr = TT.Trainer(qcfg, TT.TrainConfig(
+        steps=q["steps"], log_every=1000, ckpt_dir=one_dir,
+        optimizer=train_mesh_opt(q)), device=dev)
+    _, model, opt = one_tr.restore_or_init()
+    pipe = train_mesh_pipe(qcfg, q["batch"], q["seq"])
+    model, opt, one_hist = train_mesh_steps(one_tr, model, opt, pipe,
+                                            q["steps"], dev, collectives)
+    one_tr.save(q["steps"], model, opt, pipe)
+    # the one-device run's 4th step, for the resumed 2x2 checkpoint's
+    batch = one_tr._device_batch(pipe.next_batch())
+    _, _, met = one_tr._step(model, opt, batch)
+    one_next = {k: float(v) for k, v in met.items()}
+    del model, opt, one_tr
+    free_card()
+    out = {"card": CARD, "quickstart": {"one_device": {
+        "hist": one_hist, **train_mesh_step_stats(one_hist)}}}
+    # -- the big one-device references -----------------------------------
+    g, ds = TRAIN_MESH_GEMMA, TRAIN_MESH_DEEPSEEK
+    gcfg = get_config("gemma3-12b").replace(n_layers=g["layers"])
+    dcfg = get_config("deepseek-v2-236b").replace(n_layers=ds["layers"])
+    t0 = time.perf_counter()
+    g_one = train_mesh_one_device(TT, gcfg, g, dev)
+    d_one = train_mesh_one_device(TT, dcfg, ds, dev, "bfloat16")
+    print(f"[train-mesh] one device ({CARD}): quickstart "
+          f"{json.dumps(out['quickstart']['one_device'], default=str)}; "
+          f"gemma3-12b {json.dumps(train_mesh_step_stats(g_one['hist']))} "
+          f"peak {g_one['peak_bytes'] / 2 ** 30:.2f} GiB; deepseek-v2 "
+          f"{json.dumps(train_mesh_step_stats(d_one['hist']))} peak "
+          f"{d_one['peak_bytes'] / 2 ** 30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = dict(src=str(ROOT / "src"), root=root, qs=q, qs_init=init,
+                qs_ref=one_dir)
+    # -- the 4-rank world: quickstart 2x2 -------------------------------
+    t0 = time.perf_counter()
+    reps4 = M.run_ranks(train_mesh_rank, 4,
+                        {**base, "qs_runs": [("2x2", (2, 2), {})]},
+                        threads=0, timeout=900)
+    wall4 = time.perf_counter() - t0
+    qs_2x2 = os.path.join(root, "qs-2x2")
+    # the 2x2 checkpoint resumed on one device: bit-equal weights, and its
+    # next step is the one-device run's
+    rs_dir = os.path.join(root, "qs-resume")
+    shutil.copytree(qs_2x2, rs_dir)
+    rs_tr = TT.Trainer(qcfg, TT.TrainConfig(
+        steps=q["steps"] + 1, log_every=1000, ckpt_dir=rs_dir,
+        optimizer=train_mesh_opt(q)), device=dev)
+    pipe = train_mesh_pipe(qcfg, q["batch"], q["seq"])
+    step, model, opt = rs_tr.restore_or_init(pipe)
+    shapes = dict(TM.Model(qcfg, "meta").named_parameters())
+    _, tree, _, _ = CheckpointManager(qs_2x2).restore(
+        None, convert.tree_like_jax(shapes, qcfg))
+    bit_equal = all(np.array_equal(a, b) for a, b in zip(
+        layout_leaves(convert.params_to_jax(model)), layout_leaves(tree)))
+    check(step == q["steps"] and bit_equal and pipe.state_dict()
+          == {"step": q["steps"]}, f"[train-mesh] the 2x2 checkpoint "
+          f"resumed on one device: step {step}, bit-equal {bit_equal}")
+    _, _, met = rs_tr._step(model, opt, rs_tr._device_batch(
+        pipe.next_batch()))
+    resumed = {k: float(v) for k, v in met.items()}
+    resume_rel = train_mesh_close("2x2 checkpoint resumed on one device",
+                                  [resumed], [one_next],
+                                  TRAIN_MESH_RTOL["float32"])
+    # the one-device Server and PagedServer on the 2x2 checkpoint
+    sv = TRAIN_MESH_SERVE
+    scfg = qcfg.replace(attn_decode_kernel="blockspace")
+    model = convert.params_from_jax(tree, scfg, dev)
+    del tree, rs_tr, opt
+    prompts = torch.randint(
+        0, qcfg.vocab_size, (sv["batch"], sv["prompt"]),
+        generator=torch.Generator().manual_seed(SEED + 2)).numpy()
+    ref_toks, ref_logits = serve_run(S, scfg, model, prompts, sv["max_new"],
+                                     sv["max_len"], "blockspace")[:2]
+    ref_logits = ref_logits.cpu()
+    rng = np.random.default_rng(SEED + 2)
+    reqs = [rng.integers(0, qcfg.vocab_size,
+                         (int(rng.integers(sv["lo"], sv["hi"] + 1)),))
+            for _ in range(sv["requests"])]
+    pmax = sv["hi"] + sv["max_new"]
+    paged_kw = dict(max_len=pmax, num_slots=sv["slots"],
+                    page_size=sv["ps"], num_pages=1 + sv["slots"] *
+                    S.paged_lib.pages_for(pmax, sv["ps"]))
+    psrv = S.PagedServer(scfg, model, S.PagedServeConfig(**paged_kw))
+    S.paged_throughput_report(psrv, reqs, max_new=sv["max_new"])
+    pdone = {rid: np.asarray(v) for rid, v in psrv.done.items()}
+    pmargins = paged_margins(TM, model, reqs, pdone)
+    del psrv, model
+    free_card()
+    # -- the 2-rank world ------------------------------------------------
+    t0 = time.perf_counter()
+    reps2 = M.run_ranks(train_mesh_rank, 2, {
+        **base, "qs_runs": TRAIN_MESH_QS_RUNS, "qs_2x2": qs_2x2,
+        "serve": sv, "prompts": prompts, "requests": reqs,
+        "paged_kw": paged_kw,
+        "big": [("gemma3_12b", "gemma3-12b", g, (1, 2),
+                 {"seq_shard_acts": True}, "float32"),
+                ("deepseek_v2", "deepseek-v2-236b", ds, (2, 1),
+                 {"fsdp": True}, "bfloat16")]},
+        threads=0, timeout=1200)
+    wall2 = time.perf_counter() - t0
+    # -- quickstart on every mesh against one device ---------------------
+    runs = {"2x2": (reps4, wall4)}
+    runs.update({name: (reps2, wall2) for name, _, _ in TRAIN_MESH_QS_RUNS})
+    meshes = {}
+    for name, (reps, wall) in runs.items():
+        r0 = reps[0]["qs"][name]
+        for rep in reps:
+            check(rep["qs"][name]["hist"][0]["loss"]
+                  == r0["hist"][0]["loss"],
+                  f"[train-mesh] quickstart {name}: ranks differ")
+        rel = train_mesh_close(f"quickstart {name}", r0["hist"], one_hist,
+                               TRAIN_MESH_RTOL["float32"])
+        err = max(rep["qs"][name]["param_err"] for rep in reps)
+        check(err <= TRAIN_MESH_PARAM_TOL, f"[train-mesh] quickstart {name}: "
+              f"parameters {err} from one device ({r0['param_err_leaf']}) "
+              f"> {TRAIN_MESH_PARAM_TOL}")
+        stats = (train_mesh_step_stats(r0["hist"]) if name != "2x2"
+                 else {"collectives": r0["traffic"]})
+        meshes[name] = {"max_rel_diff": rel, "param_err": err,
+                        "param_err_leaf": r0["param_err_leaf"],
+                        "peak_gib": [rep["qs"][name]["peak_bytes"] / 2 ** 30
+                                     for rep in reps],
+                        "seconds": [rep["qs"][name]["seconds"]
+                                    for rep in reps], **stats}
+        print(f"[train-mesh] quickstart {name} ({CARD}): "
+              f"{json.dumps(meshes[name])}")
+    out["quickstart"].update({"meshes": meshes, "wall_s": {
+        "4 ranks": wall4, "2 ranks": wall2}, "resumed_on_one_device": {
+        "bit_equal": bit_equal, "max_rel_diff": resume_rel}})
+    # -- the 2x2 checkpoint served on 1x2 ---------------------------------
+    s0 = reps2[0]["serve"]
+    check(all(rep["serve"]["same"] for rep in reps2)
+          and s0["step"] == q["steps"], "[train-mesh] serve on 1x2: ranks "
+          "sampled different tokens or the wrong step")
+    tol = SERVE_MESH_TOL[qcfg.dtype]
+    cmp = check_mesh_stream("train-mesh serve on 1x2", s0["tokens"],
+                            s0["logits"], ref_toks, ref_logits, tol)
+    want = qcfg.n_layers * (sv["max_new"] - 1)
+    launches = {k: sum(rep["serve"]["launches"][k] for rep in reps2)
+                for k in s0["launches"]}
+    check(all(rep["serve"]["launches"]["flash_attention_decode"] == want
+              for rep in reps2), f"[train-mesh] serve on 1x2: launches "
+          f"{launches}, expected {want} decode launches a rank")
+    p0 = s0["paged"]
+    plaunch = {k: sum(rep["serve"]["paged"]["launches"][k] for rep in reps2)
+               for k in p0["launches"]}
+    check(all(rep["serve"]["paged"]["launches"]["paged_flash_attention"]
+              == qcfg.n_layers * rep["serve"]["paged"]["decode_steps"] > 0
+              for rep in reps2), f"[train-mesh] paged on 1x2: launches "
+          f"{plaunch}")
+    diverged = 0
+    for rid, want_toks in pdone.items():
+        got = p0["done"][rid]
+        for rep in reps2:
+            check(np.array_equal(rep["serve"]["paged"]["done"][rid], got),
+                  f"[train-mesh] paged on 1x2: ranks differ on {rid}")
+        neq = np.nonzero(got != want_toks)[0]
+        if len(neq):
+            m = float(pmargins[rid][int(neq[0])])
+            check(m <= tol, f"[train-mesh] paged request {rid}: differs "
+                  f"at token {int(neq[0])} where the margin is {m} > {tol}")
+            diverged += 1
+    out["serve"] = {**cmp, "launches": launches, "paged_launches": plaunch,
+                    "paged_requests_diverged": diverged,
+                    "per_rank": [{"rank": rep["rank"],
+                                  "decode_rows": rep["serve"]["decode_rows"],
+                                  **{k: rep["serve"].get(k) for k in
+                                     SERVE_MESH_STEP_KEYS}}
+                                 for rep in reps2]}
+    print(f"[train-mesh] 2x2 checkpoint served on 1x2 ({CARD}): tokens "
+          f"equal {cmp['tokens_equal']}, max |logit diff| "
+          f"{cmp['max_logit_diff']:.4g}; launches {launches}; paged "
+          f"{plaunch}, requests diverged {diverged}")
+    for rep in reps2:
+        for name_k, rows in rep["serve"]["decode_rows"].items():
+            for row in rows:
+                print(f"[train-mesh] serve rank {rep['rank']} {name_k} "
+                      f"{json.dumps(row)}")
+    # -- compressed_psum_grads on the card --------------------------------
+    drawn = []  # each rank's gradients, then its residuals, as it drew them
+    for r in range(2):
+        gen = torch.Generator(device=dev).manual_seed(SEED + r)
+        gs = [torch.randn(s, generator=gen, device=dev)
+              for s in TRAIN_MESH_COMPRESS]
+        drawn.append((gs, [1e-3 * torch.randn(s, generator=gen, device=dev)
+                           for s in TRAIN_MESH_COMPRESS]))
+    cmp_out = {}
+    for i, s in enumerate(TRAIN_MESH_COMPRESS):
+        k = f"g{i}"
+        gs = [drawn[r][0][i] for r in range(2)]
+        rs = [drawn[r][1][i] for r in range(2)]
+        deqs = [CMP.compress_roundtrip(gg + rr) for gg, rr in zip(gs, rs)]
+        mean = ((deqs[0] + deqs[1]) / 2).cpu().numpy()
+        worst_ulp = 0.0
+        for r in range(2):
+            synced, res = reps2[r]["compress"][k]
+            want_res = (gs[r] + rs[r] - deqs[r]).cpu().numpy()
+            check(np.array_equal(res, want_res), f"[train-mesh] compress "
+                  f"{k} rank {r}: the residual is not bit-equal")
+            ulp = np.spacing(np.abs(mean).astype(np.float32))
+            worst_ulp = max(worst_ulp, float(np.max(np.abs(synced - mean)
+                                                    / ulp)))
+        check(worst_ulp <= 1.0, f"[train-mesh] compress {k}: the mean is "
+              f"{worst_ulp} ulp from the single-process one")
+        cmp_out[k] = {"shape": list(s), "max_ulp": worst_ulp}
+    out["compress"] = cmp_out
+    print(f"[train-mesh] compressed_psum_grads on 2 ranks: "
+          f"{json.dumps(cmp_out)}")
+    # -- gemma3-12b and deepseek-v2 against one device --------------------
+    for key, cfg, one, c2 in (("gemma3_12b", gcfg, g_one, g),
+                              ("deepseek_v2", dcfg, d_one, ds)):
+        r0 = reps2[0][key]
+        rel = train_mesh_close(f"{key} on a mesh", r0["hist"], one["hist"],
+                               TRAIN_MESH_RTOL[cfg.dtype])
+        if key == "deepseek_v2":
+            check(all(h["aux_loss"] > 0 for h in r0["hist"]),
+                  f"[train-mesh] deepseek-v2: aux {r0['hist']}")
+        out[key] = {"layers": c2["layers"], "batch": c2["batch"],
+                    "seq": c2["seq"], "max_rel_diff": rel,
+                    "losses": [h["loss"] for h in r0["hist"]],
+                    "one_device_losses": [h["loss"] for h in one["hist"]],
+                    "aux_losses": [h["aux_loss"] for h in r0["hist"]],
+                    "one_device": train_mesh_step_stats(one["hist"]),
+                    "one_device_peak_gib": one["peak_bytes"] / 2 ** 30,
+                    "peak_gib": [rep[key]["peak_bytes"] / 2 ** 30
+                                 for rep in reps2],
+                    "param_gib_a_rank": [rep[key]["param_bytes"] / 2 ** 30
+                                         for rep in reps2],
+                    "init_s": [rep[key]["init_s"] for rep in reps2],
+                    "seconds": [rep[key]["seconds"] for rep in reps2],
+                    **train_mesh_step_stats(r0["hist"])}
+        print(f"[train-mesh] {key} ({CARD}): {json.dumps(out[key])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[train-mesh] phase {out['seconds']:.1f} s ({CARD})")
+    return out
+
+
+def layout_leaves(tree):
+    """The leaves of a nested dict of arrays (a checkpoint's tree), in
+    key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += layout_leaves(v) if isinstance(v, dict) else [np.asarray(v)]
+    return out
+
+
+def train_mesh_kernel_entries(kernels, tm):
+    """The decode entries' [train-mesh] numbers: the launches of the
+    trained checkpoint's serving on 1x2 (summed over the ranks) and each
+    rank's launch at its shape against its plain version."""
+    for entry in kernels:
+        name = entry["name"]
+        if name not in ("flash_attention_decode", "paged_flash_attention"):
+            continue
+        src = tm["serve"]["launches"] if name == "flash_attention_decode" \
+            else tm["serve"]["paged_launches"]
+        rows = [{"rank": rep["rank"], **row} for rep in
+                tm["serve"]["per_rank"] for row in rep["decode_rows"][name]]
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in rows])
+        entry["train_mesh"] = {"launches": src[name], "per_rank": rows}
+
+
 def compare(change_paths, parent_paths, lo=0.94, hi=1.06):
     """Print every time whose change median lies outside [lo, hi] x the
     parent median, with both sides' values; returns the count of times
@@ -5723,6 +6331,16 @@ def main():
         print(f"[mesh-only] the mesh phase ran; no result "
               f"{json.dumps(PHASE_S)}")
         return
+    if "--train-mesh-only" in sys.argv[1:]:
+        train_mesh = timed("train_mesh", phase_train_mesh, S, TT, TM, FA,
+                           get_config, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "train_mesh": train_mesh}, indent=1,
+                                  default=str))
+        print(f"[train-mesh-only] the train-mesh phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
     if "--serve-mesh-only" in sys.argv[1:]:
         serve_mesh = timed("serve_mesh", phase_serve_mesh, S, TM, FA, RC,
                            get_config, dev)
@@ -5773,6 +6391,8 @@ def main():
     mesh = timed("mesh", phase_mesh, TW, TC, FA, RC, F, LOWERINGS,
                  compact_layout, dev)
     serve_mesh = timed("serve_mesh", phase_serve_mesh, S, TM, FA, RC,
+                       get_config, dev)
+    train_mesh = timed("train_mesh", phase_train_mesh, S, TT, TM, FA,
                        get_config, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
@@ -5997,6 +6617,7 @@ def main():
     ssm_kernel_entries(kernels, ssm)
     mesh_kernel_entries(kernels, mesh)
     serve_mesh_kernel_entries(kernels, serve_mesh)
+    train_mesh_kernel_entries(kernels, train_mesh)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -6011,7 +6632,8 @@ def main():
         "paged": paged, "chaos": chaos,
         "decode": decode, "tune": tuned, "train": train,
         "families": families, "ssm": ssm, "mesh": mesh,
-        "serve_mesh": serve_mesh, "kernels": kernels,
+        "serve_mesh": serve_mesh, "train_mesh": train_mesh,
+        "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     # the kernels line is long: the phases' seconds come after it, so

@@ -35,11 +35,23 @@ cut into pieces of ``ceil(n / k)``, the last ones shorter or empty, as a
 padded JAX shard).  What each rank then computes on them is
 :mod:`repro_torch.distributed.tensor_parallel`'s.
 
-The activation constraints (``activation_specs`` / ``constrain``) come
-with the trainer on a mesh (ROADMAP A12); the serving path needs none.
+Activation layouts (the trainer on a mesh): ``activation_specs``
+installs :func:`act_specs`' shardings in a ``contextvars.ContextVar``
+and the model code stays mesh-agnostic, as in the JAX package.  Where
+the JAX package's ``constrain(x, name)`` pins a layout for GSPMD, the
+port's moves the tensor: the only layout it changes is the
+``"residual"``'s under ``seq_shard`` (the rank keeps its piece of the
+sequence, :func:`constrain`), and :func:`whole_sequence` is its inverse
+before each block.  Every other name is a layout the rank's modules
+already compute in (a tensor-parallel module's hidden columns and heads
+are its own pieces; the MoE runs over the global batch's tokens,
+:func:`global_tokens`).  With no specs installed all of these are
+no-ops, so serving and one device run as before.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import re
 from typing import Any, Dict, List, Optional, Sequence
@@ -102,6 +114,16 @@ def axis_size(mesh, axis: str) -> int:
 
 def dp_axes(mesh):
     return tuple(a for a in DP_AXES if a in axis_names(mesh))
+
+
+def live_dp_axes(mesh) -> tuple:
+    """(the DP axes of ``mesh`` larger than 1, their product): the axes
+    a rank's share of the batch is cut over."""
+    axes = tuple(a for a in dp_axes(mesh) if axis_size(mesh, a) > 1)
+    size = 1
+    for a in axes:
+        size *= axis_size(mesh, a)
+    return axes, size
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +259,103 @@ def act_specs(mesh, *, seq_shard: bool = False, ep_data: bool = False):
             "attn_heads": NamedSharding(mesh, P(dp, "model", None, None))}
 
 
+_ACT_SPECS: contextvars.ContextVar[Optional[Dict[str, NamedSharding]]] = \
+    contextvars.ContextVar("activation_specs", default=None)
+
+
+@contextlib.contextmanager
+def activation_specs(specs: Dict[str, NamedSharding]):
+    """Install ``specs`` (:func:`act_specs`') for the block."""
+    tok = _ACT_SPECS.set(specs)
+    try:
+        yield
+    finally:
+        _ACT_SPECS.reset(tok)
+
+
+def recompute_context():
+    """``context_fn`` for ``torch.utils.checkpoint``: the recomputation
+    in the backward (on the autograd engine's thread, which does not see
+    this thread's context) runs under the specs installed now."""
+    return contextlib.nullcontext(), activation_specs(_ACT_SPECS.get())
+
+
+def _seq_cut(specs):
+    """(the group, its size) of the axis the residual spec cuts the
+    sequence (dim 1) over, when it is larger than 1; else None."""
+    if specs is None or "residual" not in specs:
+        return None
+    sh = specs["residual"]
+    from repro_torch.launch.mesh import axis_group
+    for dim, axis, size, _ in _dims(sh.spec, sh.mesh):
+        if dim == 1:
+            return axis_group(sh.mesh, axis), size
+    return None
+
+
+def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` laid out as the installed spec ``name`` says, from the
+    layout the one-device code gives it (the rank's batch rows, the whole
+    sequence).  ``"residual"`` under ``seq_shard``: the rank's piece of
+    the sequence (the gradient all-gathered back).  Any other name, or
+    no specs: ``x`` (see the module docstring)."""
+    if name != "residual":
+        return x
+    cut = _seq_cut(_ACT_SPECS.get())
+    if cut is None:
+        return x
+    from .tensor_parallel import split
+    group, size = cut
+    if x.shape[1] % size:
+        raise ValueError(f"seq_shard: a sequence of {x.shape[1]} does not "
+                         f"tile the model axis of {size}")
+    return split(x, 1, group)
+
+
+def whole_sequence(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`constrain` on the residual: the whole
+    sequence from the rank's piece (all-gathered over the model axis),
+    for a block that needs it; every rank of the axis then computes the
+    block alike, so the gradient is cut back to the piece.  ``x`` itself
+    without ``seq_shard``."""
+    cut = _seq_cut(_ACT_SPECS.get())
+    if cut is None:
+        return x
+    from .tensor_parallel import gather_along
+    group, size = cut
+    return gather_along(x, 1, group, x.shape[1] * size)
+
+
+def global_tokens(x: torch.Tensor):
+    """(the global batch's (B, S, ...) tensor on every DP rank, this
+    rank's rows) from its rows ``x``, while specs are installed on a
+    mesh whose DP axes are larger than 1; ``(x, None)`` otherwise.  The
+    MoE routes the global batch as the JAX package's GSPMD step does
+    (capacity, the within-expert ranks and the aux loss follow every
+    token); the gradient of the gathered tokens is summed over the DP
+    ranks (each adds its own loss's part)."""
+    specs = _ACT_SPECS.get()
+    if specs is None or "residual" not in specs:
+        return x, None
+    mesh = specs["residual"].mesh
+    axes, size = live_dp_axes(mesh)
+    if size == 1:
+        return x, None
+    from repro_torch.launch.mesh import axes_group, axes_rank
+    from .tensor_parallel import gather_along
+    b = x.shape[0]
+    index = axes_rank(mesh, axes)
+    xg = gather_along(x, 0, axes_group(mesh, axes), b * size,
+                      backward="sum")
+    return xg, (index * b, (index + 1) * b)
+
+
+def local_rows(x: torch.Tensor, rows) -> torch.Tensor:
+    """This rank's rows of a :func:`global_tokens` result (``x`` when
+    ``rows`` is None)."""
+    return x if rows is None else x[rows[0]:rows[1]]
+
+
 def _cache_spec(shape, cfg, bax, sax, tp) -> PartitionSpec:
     """The JAX package's cache rule for one unstacked cache leaf."""
     nd = len(shape)
@@ -308,20 +427,24 @@ def shard_bounds(n: int, size: int, index: int) -> tuple:
 
 def _dims(spec: PartitionSpec, mesh):
     """(dim, axis, size, this rank's coordinate) of every dimension of
-    ``spec`` sharded over an axis of ``mesh`` larger than 1."""
-    from repro_torch.launch.mesh import axis_rank
+    ``spec`` sharded over axes of ``mesh`` larger than 1.  An entry that
+    names several axes cuts its dimension over their product, the first
+    axis major (JAX's order): ``axis`` is then the tuple of those of
+    them larger than 1 (a name when one is left)."""
+    from repro_torch.launch.mesh import axes_rank
     out = []
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
-        if isinstance(entry, tuple):
-            raise NotImplementedError(
-                f"a dimension sharded over several axes {entry} (FSDP over "
-                f"pod and data) comes with the trainer on a mesh (ROADMAP "
-                f"A12)")
-        size = axis_size(mesh, entry)
-        if size > 1:
-            out.append((dim, entry, size, axis_rank(mesh, entry)))
+        names = entry if isinstance(entry, tuple) else (entry,)
+        names = tuple(a for a in names if axis_size(mesh, a) > 1)
+        if not names:
+            continue
+        axis = names if len(names) > 1 else names[0]
+        size = 1
+        for a in names:
+            size *= axis_size(mesh, a)
+        out.append((dim, axis, size, axes_rank(mesh, axis)))
     return out
 
 
@@ -348,21 +471,28 @@ def shard_tensor(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return out.contiguous().clone()
 
 
-def gather_tensor(t: torch.Tensor, layout: Layout) -> torch.Tensor:
+def gather_tensor(t: torch.Tensor, layout: Layout,
+                  keep=None) -> torch.Tensor:
     """The global tensor of ``layout`` from every rank's piece ``t``: an
     all-gather along each cut dimension over its axis (the pieces padded
-    to ``ceil(n / size)`` for the collective and trimmed after)."""
-    from repro_torch.distributed import collectives
+    to ``ceil(n / size)`` for the collective and trimmed after).  Its
+    gradient is ``t``'s piece of the global one: as it is over the model
+    axis (every rank of it computes alike), summed over the ranks of a
+    DP axis (each computes its own batch's part); a dimension cut over
+    DP and other axes together has none.  A dimension cut over ``keep``
+    (an axis name, or a tuple of them as ``_dims`` gives it) stays
+    cut."""
     from repro_torch.launch.mesh import axis_group
+    from .tensor_parallel import gather_along
     out = t
-    for dim, axis, size, _ in _dims(layout.spec, layout.mesh):
-        n = layout.shape[dim]
-        chunk = -(-n // size)
-        if out.shape[dim] < chunk:
-            pad = [0, 0] * (out.ndim - 1 - dim) + [0, chunk - out.shape[dim]]
-            out = torch.nn.functional.pad(out, pad)
-        out = collectives.all_gather(out, dim, axis_group(layout.mesh, axis))
-        out = out.narrow(dim, 0, n)
+    for dim, axis, _, _ in _dims(layout.spec, layout.mesh):
+        if keep is not None and axis == keep:
+            continue
+        names = axis if isinstance(axis, tuple) else (axis,)
+        dp = [a in DP_AXES for a in names]
+        mode = "sum" if all(dp) else "slice" if not any(dp) else "none"
+        out = gather_along(out, dim, axis_group(layout.mesh, axis),
+                           layout.shape[dim], backward=mode)
     return out
 
 
@@ -410,6 +540,8 @@ def shard_model(model, mesh, specs: Optional[Dict[str, PartitionSpec]] = None):
 
 
 __all__ = ["DP_AXES", "Layout", "NamedSharding", "P", "PartitionSpec",
-           "act_specs", "axis_names", "batch_specs", "cache_spec_tree",
-           "dp_axes", "gather_tensor", "is_sharded", "named_sharding_tree",
-           "param_spec_tree", "shard_bounds", "shard_model", "shard_tensor"]
+           "act_specs", "activation_specs", "axis_names", "batch_specs",
+           "cache_spec_tree", "constrain", "dp_axes", "gather_tensor",
+           "global_tokens", "is_sharded", "live_dp_axes", "local_rows",
+           "named_sharding_tree", "param_spec_tree", "recompute_context",
+           "shard_bounds", "shard_model", "shard_tensor", "whole_sequence"]

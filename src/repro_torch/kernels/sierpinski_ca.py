@@ -72,7 +72,8 @@ same operands, so the result is bit-identical to the single-device run.
 
 Not ported yet: ``verify=`` (A13), which the entry points take and
 refuse with ``NotImplementedError`` naming the item, and CA states other
-than f32.
+than f32 (the JAX package's CA follows the state's dtype; the port's
+runs f32 only for now, and bf16 states are ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -250,8 +251,8 @@ def _check_buffers(src: torch.Tensor, dst: torch.Tensor,
     for t in (src, dst):
         if t.dtype != torch.float32:
             raise TypeError(
-                f"CA states must be float32, got {t.dtype} (the JAX "
-                f"package's CA runs f32 only)")
+                f"CA states must be float32, got {t.dtype}: the port's CA "
+                f"runs f32 only for now (bf16 states are ROADMAP A16)")
         if not t.is_contiguous():
             raise ValueError("CA buffers must be contiguous")
     if src.shape != dst.shape or src.device != dst.device:

@@ -138,9 +138,53 @@ def axis_rank(mesh, axis: str) -> int:
     return int(mesh.get_local_rank(axis))
 
 
-def axis_group(mesh, axis: str):
-    """The process group of ``axis`` of a DeviceMesh."""
+def axis_group(mesh, axis):
+    """The process group of ``axis`` of a DeviceMesh, or of several axes
+    taken together (a tuple of names, in the mesh's order): its ranks
+    in the order of the combined coordinate, the first axis major
+    (:func:`axes_group`)."""
+    if isinstance(axis, tuple):
+        return axes_group(mesh, axis)
     return mesh.get_group(axis)
+
+
+def axes_rank(mesh, axes) -> int:
+    """This process's coordinate along several axes taken together (the
+    first axis major); its coordinate along one axis for a name."""
+    if isinstance(axes, str):
+        return axis_rank(mesh, axes)
+    index = 0
+    for a in axes:
+        index = index * axis_size(mesh, a) + axis_rank(mesh, a)
+    return index
+
+
+def axes_group(mesh, axes):
+    """The process group spanning ``axes`` of a DeviceMesh (the mesh's
+    own group for one axis).  A group of several axes is made once per
+    mesh: every rank creates every such group, in one order, so the
+    first call must be made on every rank.  ``axes`` must follow the
+    mesh's axis order, so that the group's ranks (which
+    ``torch.distributed`` sorts) run in the combined coordinate's
+    order."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = tuple(mesh.mesh_dim_names)
+    order = [names.index(a) for a in axes]
+    if order != sorted(order):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    cache = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in cache:
+        rest = [i for i in range(len(names)) if i not in order]
+        ids = mesh.mesh.permute(rest + order).reshape(
+            -1, math.prod(int(mesh.mesh.shape[i]) for i in order))
+        me = dist.get_rank()
+        for row in ids.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                cache[axes] = group
+    return cache[axes]
 
 
 def mesh_device(mesh) -> torch.device:

@@ -18,7 +18,9 @@ and add or gather over the model axis
 (:mod:`repro_torch.distributed.tensor_parallel`); head counts come from
 the projections' shapes, so a rank's attention runs over its own heads.
 Any other module is called with its gathered copy (``at_use``) and runs
-as on one device.
+as on one device.  Under ``cfg.megatron_sp`` the MLP hidden and the
+attention heads pass ``constrain`` where the JAX package pins them: a
+tensor-parallel module already holds them as the rank's pieces.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.distributed.sharding import constrain
 
 from . import attention as attn_lib
 
@@ -167,9 +170,12 @@ def rope_rows(x, positions, theta=10000.0):
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def mlp(ffn: MLP, x):
+def mlp(ffn: MLP, x, megatron_sp: bool = False):
+    x = tp_lib.enter(ffn, x)
     h = torch.nn.functional.silu(x @ ffn.wg.to(x.dtype)) * (
         x @ ffn.wi.to(x.dtype))
+    if megatron_sp:
+        h = constrain(h, "mlp_hidden")
     return tp_lib.reduce(ffn, h @ ffn.wo.to(x.dtype))
 
 
@@ -182,6 +188,7 @@ def _qkv(a: Attention, x, cfg):
     parallel rank's share, else all of them)."""
     b, s, _ = x.shape
     hd = cfg.hd
+    x = tp_lib.enter(a, x)
     q = x @ a.wq.to(x.dtype)
     k = x @ a.wk.to(x.dtype)
     v = x @ a.wv.to(x.dtype)
@@ -192,6 +199,10 @@ def _qkv(a: Attention, x, cfg):
     q = q.reshape(b, s, -1, hd).transpose(1, 2)
     k = k.reshape(b, s, -1, hd).transpose(1, 2)
     v = v.reshape(b, s, -1, hd).transpose(1, 2)
+    if cfg.megatron_sp:
+        q = constrain(q, "attn_heads")
+        k = constrain(k, "attn_heads")
+        v = constrain(v, "attn_heads")
     return q, k, v
 
 
@@ -275,4 +286,5 @@ def embed(e: Embed, tokens, dtype):
 def lm_head(head: LMHead, x):
     """Logits over the whole vocabulary (a tensor-parallel head's
     columns gathered along it)."""
+    x = tp_lib.enter(head, x)
     return tp_lib.gather(head, x @ head.w.to(x.dtype), -1)

@@ -35,6 +35,14 @@ shard_model`) runs every entry point with each layer taken through
 :func:`~repro_torch.distributed.tensor_parallel.at_use`: its
 tensor-parallel modules compute on the rank's pieces, the rest on
 gathered copies.  A model on one device runs exactly as before.
+
+Training on a mesh installs the activation specs
+(:func:`repro_torch.distributed.sharding.activation_specs`): the
+residual passes ``constrain(h, "residual")`` where the JAX package pins
+it (after the embedding, each mixer, FFN and shared block), which under
+``seq_shard`` keeps the rank's piece of the sequence, and each block
+starts from :func:`~repro_torch.distributed.sharding.whole_sequence`.
+Without specs both are no-ops.
 """
 from __future__ import annotations
 
@@ -46,6 +54,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import default_device
+from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.distributed.sharding import (constrain, recompute_context,
+                                              whole_sequence)
 from repro_torch.distributed.tensor_parallel import at_use
 
 from . import layers as L
@@ -170,6 +181,14 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Model:
     draw of llama4's (128, 5120, 8192) experts would take 21.5 GB).  The
     numbers differ from ``jax.random``'s."""
     model = Model(cfg, device)
+    init_into(model, generator)
+    return model
+
+
+def init_into(model: Model, generator: torch.Generator) -> Model:
+    """:func:`init`'s draws into the parameters of ``model`` (built
+    empty, on ``generator``'s device), in place; returns ``model``."""
+    cfg = model.cfg
     if hasattr(model, "embed"):
         L._normal_(model.embed.table, generator, 0.01)
     mixer_init = {L.Attention: L.init_attention, mla_lib.MLA:
@@ -211,11 +230,13 @@ def _ffn(layer: Layer, h, cfg):
     MoE aux loss (None for a dense FFN)."""
     if not hasattr(layer, "ffn"):
         return h, None
+    h = whole_sequence(h)
     hn = L.rmsnorm(layer.norm2, h, cfg.norm_eps)
     if isinstance(layer.ffn, moe_lib.MoE):
         out, aux = moe_lib.moe_block(layer.ffn, hn, cfg)
-        return h + out, aux
-    return h + L.mlp(layer.ffn, hn), None
+        return constrain(h + out, "residual"), aux
+    out = L.mlp(layer.ffn, hn, megatron_sp=cfg.megatron_sp)
+    return constrain(h + out, "residual"), None
 
 
 def _shared_block(sa: SharedAttn, h, h0, cfg, positions=None, cache=None,
@@ -231,7 +252,8 @@ def _shared_block(sa: SharedAttn, h, h0, cfg, positions=None, cache=None,
     else:
         a, kv = L.attn_block_decode(sa.attn, un, cfg, "global", cache, pos)
     u = u + a
-    u = u + L.mlp(sa.mlp, L.rmsnorm(sa.norm2, u, cfg.norm_eps))
+    u = u + L.mlp(sa.mlp, L.rmsnorm(sa.norm2, u, cfg.norm_eps),
+                  megatron_sp=cfg.megatron_sp)
     return h + u, kv
 
 
@@ -255,6 +277,7 @@ def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
     for i in range(lo, hi):
         layer = at_use(model.layers[i])
         mixer, akind, _, shared = layer_sig(cfg, i)
+        h = whole_sequence(h)
         hn = L.rmsnorm(layer.norm1, h, cfg.norm_eps)
         if mixer in SSM_BLOCKS:
             block = SSM_BLOCKS[mixer][0]
@@ -270,12 +293,14 @@ def _layers(model: Model, h, cfg, positions, lo: int, hi: int,
             out, cache = L.attn_block_prefill(layer.mixer, hn, cfg, akind,
                                               positions)
             cache = tuple(_pad_seq(t, 2, max_len) for t in cache)
-        h, a = _ffn(layer, h + out, cfg)
+        h, a = _ffn(layer, constrain(h + out, "residual"), cfg)
         if a is not None:
             aux = aux + a
         if shared:
-            h, kv = _shared_block(at_use(model.shared_attn), h, h0, cfg,
-                                  positions)
+            h, kv = _shared_block(at_use(model.shared_attn),
+                                  whole_sequence(h), whole_sequence(h0),
+                                  cfg, positions)
+            h = constrain(h, "residual")
             cache = cache + tuple(_pad_seq(t, 2, max_len) for t in kv)
         if caches is not None:
             caches.append(cache)
@@ -304,8 +329,9 @@ def forward(model: Model, inputs, cfg: ModelConfig | None = None):
     the execution knobs (attention schedule, remat), not the shapes."""
     cfg = cfg or model.cfg
     prefix, period, n_groups = group_layout(cfg)
-    h0 = h = _embed_inputs(model, inputs, cfg)
+    h = _embed_inputs(model, inputs, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
+    h0 = h = constrain(h, "residual")
     h, aux = _layers(model, h, cfg, positions, 0, prefix, h0=h0)
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(n_groups):
@@ -313,12 +339,13 @@ def forward(model: Model, inputs, cfg: ModelConfig | None = None):
         if remat:
             h, a = checkpoint(_layers, model, h, cfg, positions, lo,
                               lo + period, None, None, h0,
-                              use_reentrant=False, preserve_rng_state=False)
+                              use_reentrant=False, preserve_rng_state=False,
+                              context_fn=recompute_context)
         else:
             h, a = _layers(model, h, cfg, positions, lo, lo + period,
                            h0=h0)
         aux = aux + a
-    h = L.rmsnorm(model.final_norm, h, cfg.norm_eps)
+    h = L.rmsnorm(model.final_norm, whole_sequence(h), cfg.norm_eps)
     return h, aux
 
 
@@ -336,8 +363,10 @@ def _xent(logits, labels):
     return lse - gold
 
 
-def _chunk_ce(h, w, labels):
-    return _xent(h @ w, labels)
+def _chunk_ce(h, w, labels, head=None):
+    """A chunk's cross entropy (a tensor-parallel ``head``'s columns of
+    the logits gathered along the vocabulary)."""
+    return _xent(tp_lib.gather(head, h @ w), labels)
 
 
 def loss_fn(model: Model, batch, cfg: ModelConfig | None = None):
@@ -354,10 +383,12 @@ def loss_fn(model: Model, batch, cfg: ModelConfig | None = None):
     labels = batch["labels"]
     lc = cfg.logit_chunk
     if lc and h.shape[1] % lc == 0:
-        w = model.lm_head.w.to(h.dtype)
+        head = model.lm_head
+        h = tp_lib.enter(head, h)
+        w = head.w.to(h.dtype)
         ces = []
         for c in range(0, h.shape[1], lc):
-            args = (h[:, c:c + lc], w, labels[:, c:c + lc])
+            args = (h[:, c:c + lc], w, labels[:, c:c + lc], head)
             ces.append(checkpoint(_chunk_ce, *args, use_reentrant=False,
                                   preserve_rng_state=False)
                        if torch.is_grad_enabled() else _chunk_ce(*args))

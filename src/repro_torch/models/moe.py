@@ -13,6 +13,17 @@ tokens filled them (C >= 8), so a step reads all the experts' weights.
 
 The products are plain batched matrix products (``torch.bmm``), as the
 JAX package computes them outside any Pallas kernel.
+
+Training on a mesh routes the global batch, as the JAX package's GSPMD
+step does: every DP rank gathers every rank's tokens
+(:func:`~repro_torch.distributed.sharding.global_tokens`), so the
+capacity, each token's rank within its expert and the aux loss follow
+all of them, and keeps its own rows of the result; the shared experts
+run on its own rows.  Under ``fsdp`` the experts stay cut along their
+hidden dimension over the DP axes: each DP rank runs its part of every
+expert's SwiGLU on the same dispatch buffer and the parts are added
+(:func:`~repro_torch.distributed.tensor_parallel.expert_sum`), so no
+rank holds the whole experts.
 """
 from __future__ import annotations
 
@@ -20,6 +31,10 @@ import math
 
 import torch
 from torch import nn
+
+from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.distributed.sharding import (constrain, global_tokens,
+                                              local_rows)
 
 from . import layers as L
 
@@ -81,11 +96,13 @@ def _shared(m: MoE, xf, out):
 def moe_block(m: MoE, x, cfg):
     """x: (B,S,D) -> (out (B,S,D), aux_loss ()), the JAX package's
     ``moe_block``; the capacity follows B * S."""
+    x_rows = x
+    x, rows = global_tokens(x)
     b, s, d = x.shape
     n = b * s
     k, e = cfg.top_k, cfg.n_experts
     cap = _capacity(n, cfg)
-    xf = x.reshape(n, d)
+    xf = constrain(x.reshape(n, d), "moe_tokens")
     probs, gates, idx = route(m, xf, cfg)
 
     # load-balance aux loss (Switch): E * mean(frac_tokens * frac_probs)
@@ -109,19 +126,23 @@ def moe_block(m: MoE, x, cfg):
     token_id = torch.arange(n, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_add(0, slot, xf[token_id])
-    he = buf[:e * cap].reshape(e, cap, d)
+    he = constrain(buf[:e * cap].reshape(e, cap, d), "moe_experts")
 
     # --- expert SwiGLU ----------------------------------------------------
     gate = torch.nn.functional.silu(torch.bmm(he, m.wg.to(x.dtype)))
     up = torch.bmm(he, m.wi.to(x.dtype))
-    y = torch.bmm(gate * up, m.wo.to(x.dtype)).reshape(e * cap, d)
+    y = tp_lib.expert_sum(m, torch.bmm(gate * up, m.wo.to(x.dtype)))
+    y = constrain(y, "moe_experts")
+    y = y.reshape(e * cap, d)
     y = torch.cat([y, y.new_zeros((1, d))], dim=0)
 
     # --- combine ----------------------------------------------------------
     ys = y[slot] * (gates.reshape(-1)[:, None].to(y.dtype) * keep[:, None])
-    out = torch.sum(ys.reshape(n, k, d), dim=1)
-    out = _shared(m, xf, out)
-    return out.reshape(b, s, d), aux * cfg.router_aux_weight
+    ys = constrain(ys, "moe_tokens")
+    out = constrain(torch.sum(ys.reshape(n, k, d), dim=1), "moe_tokens")
+    out = local_rows(out.reshape(b, s, d), rows)
+    out = _shared(m, x_rows.reshape(-1, d), out.reshape(-1, d))
+    return out.reshape(x_rows.shape), aux * cfg.router_aux_weight
 
 
 def moe_block_dense_ref(m: MoE, x, cfg):

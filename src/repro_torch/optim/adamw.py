@@ -145,7 +145,8 @@ def _update_leaf(p, g, m, v, scale, bc1, bc2, lr, decay: bool,
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state,
                   cfg: AdamWConfig, paths: Optional[Mapping[str, str]] = None,
-                  done: Optional[Set[str]] = None):
+                  done: Optional[Set[str]] = None,
+                  gnorm: Optional[torch.Tensor] = None):
     """One AdamW step, in place: the parameters and moments are updated
     (the gradients are left as they are).  ``paths`` maps a parameter's
     name to its JAX path for the decay mask (default: the name itself).
@@ -158,10 +159,16 @@ def apply_updates(params: Dict[str, torch.Tensor],
     name is then added to ``done``, a set the caller keeps across the
     attempts of one step, whose names a later attempt skips.  The count,
     the learning rate and the clip scale come from ``state`` and
-    ``grads``, which an attempt does not change."""
+    ``grads``, which an attempt does not change.
+
+    ``gnorm`` is the gradients' global norm when ``grads`` are a rank's
+    pieces of a model laid out on a mesh (the norm over the whole mesh,
+    which the caller computes); by default :func:`global_norm` of
+    ``grads``."""
     count = state["count"] + 1
     lr = schedule_lr(cfg, count)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
     countf = count.to(F32)
     bc1 = 1 - torch.pow(cfg.b1, countf)
