@@ -46,7 +46,11 @@ Phases, each printing its own lines:
 1. card   -- name and power limit (nvidia-smi), torch and CUDA versions;
 2. build  -- nvcc builds every kernel library from the sources in the
              checkout, one nvcc per source, all started together; the
-             ptxas register line of every kernel instantiation;
+             ptxas register line of every kernel instantiation (the
+             -DREPRO_TRACE libraries, which only phase 22 launches, are
+             built in the background beside phases 3-21 and joined
+             before 22; phase 22's static checks, which launch nothing,
+             run beside this build on two torch threads);
 3. parity -- every kernel against its plain PyTorch version on the card:
              gasket, carpet and Vicsek x the four lowerings x several
              (n, rho); writes bit-equal in f32/bf16/int32, sums
@@ -291,7 +295,7 @@ Phases, each printing its own lines:
              prefill of seeded (4, 2048, D) embeddings and 16 decode
              steps on (4, 1, D) ones, blockspace (layers x steps
              launches) against xla, step logits within SERVE_TOL; (6)
-             each trained 3 steps (batch 1 x 2048) at 2 / 6 / 4 / 2
+             each trained 2 steps (batch 1 x 2048) at 2 / 6 / 4 / 2
              layers: finite losses, ms a step, peak
              (``python3 chip_smoke.py --ssm-only`` builds, then runs
              only this phase and prints no result);
@@ -327,7 +331,31 @@ Phases, each printing its own lines:
              deepseek-v2 (2 layers, 2 x 1024, bf16 moments) on 2x1 under
              fsdp against their one-device runs (``--train-mesh-only``
              runs only this phase);
-22. kernels line (the kernels of the main paths: B1-B3, B4 as the
+22. verify -- the plan verifier, the access sanitizer and verify=
+             (repro_torch/analysis): verify_plan (beside the build,
+             phase 2) with zero findings on
+             the gasket at n = 2**16, rho 32 under the four lowerings x
+             both storages (write, sum and ca models; coarsen 2), the
+             packed triangle of 2**11 block rows and BandDomain(2048,
+             32), the sharded compact gasket at D = 2 and 4 with halo
+             (every rank, the interior / boundary phase views) and flash
+             at gemma3-12b's S 4096, each plan's host seconds; seeded
+             faults on the card (a device LUT row: verify=True on write,
+             sum and ca_run refuses with 0 launches, the sanitizer flags
+             the row from the trace kernels' rows; a rank's device
+             ghost-map entry: its verify= refuses); verify=True on write,
+             sum, ca_step, ca_run, flash and paged at the main shapes,
+             bit-equal to verify=False, its extra host ms; the sanitizer
+             at full width (write, sum, CA fuse 1 and 8 x four lowerings
+             x both storages through the -DREPRO_TRACE builds: zero
+             findings, traced outputs bit-equal to untraced, the card's
+             rows equal to the plain version's, traced and untraced ms a
+             launch); autotune_write / autotune_ca with verify=True
+             against verify=False from fresh caches, and a failing plan
+             rejected; ``python -m repro_torch.analysis.verify --matrix
+             --device cuda`` exit 0 (``--verify-only`` runs only this
+             phase);
+23. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -343,8 +371,11 @@ Phases, each printing its own lines:
              mesh runs' launches, the slot-sharded ones, every rank's
              launch at its shape, and a train_mesh object: the launches
              of the trained checkpoint's serving on 1x2 and each rank's
-             launch at its shape), a ``[phases]`` line (each phase's
-             host seconds), then the result line.
+             launch at its shape; the write, partials and CA entries a
+             trace_build object: the trace instantiations' launches in
+             phase 22 and their times beside the untraced ones), a
+             ``[phases]`` line (each phase's host seconds), then the
+             result line.
 
 ``python3 chip_smoke.py --build-only`` stops after phase 2 and prints no
 result line (to read the register lines of a tree, e.g. of an earlier
@@ -514,13 +545,84 @@ def phase_card():
     return card
 
 
-def phase_build(_cuda):
+#: the trace builds (-DREPRO_TRACE) only [verify] launches: built in a
+#: thread of their own beside the first phases (off the build's critical
+#: path), joined before [verify]
+TRACE_BUILD = {}
+
+
+#: [verify]'s static checks, run beside the build (host work on the two
+#: cores the six nvcc leave): their rows and seconds, or their failure
+VERIFY_STATIC = {}
+#: torch's intra-op threads while the static checks run beside the build
+BESIDE_BUILD_THREADS = 2
+
+
+def phase_build(_cuda, beside=None):
+    """Build every library but the trace builds (one nvcc each, all
+    started together), with ``beside()`` (the [verify] phase's static
+    checks) in a thread meanwhile on BESIDE_BUILD_THREADS torch threads;
+    print the [build] lines, then start the trace builds in the
+    background (:func:`trace_build_done` joins them)."""
+    import threading
     t0 = time.perf_counter()
-    paths = _cuda.build()
+    names = [n for n in _cuda.SOURCES if not n.endswith("_trace")]
+    worker = None
+    if beside is not None:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(BESIDE_BUILD_THREADS)
+
+        def run_beside():
+            t1 = time.perf_counter()
+            try:
+                VERIFY_STATIC["rows"] = beside()
+            except BaseException as e:   # re-raised after the build
+                VERIFY_STATIC["error"] = e
+            VERIFY_STATIC["seconds"] = time.perf_counter() - t1
+        worker = threading.Thread(target=run_beside)
+        worker.start()
+    paths = _cuda.build(names)
+    if worker is not None:
+        worker.join()
+        torch.set_num_threads(threads)
+        if "error" in VERIFY_STATIC:
+            raise VERIFY_STATIC["error"]
     secs = time.perf_counter() - t0
     print(f"[build] " + ", ".join(
         f"{name} {_cuda.BUILD_SECONDS.get(name, 0.0):.1f} s"
         for name in paths) + f" (in parallel, {secs:.1f} s in all)")
+    print_build_lines(_cuda, paths)
+    traced = [n for n in _cuda.SOURCES if n.endswith("_trace")]
+
+    def go():
+        t1 = time.perf_counter()
+        try:
+            TRACE_BUILD["paths"] = _cuda.build(traced)
+        except BaseException as e:   # re-raised by trace_build_done
+            TRACE_BUILD["error"] = e
+        TRACE_BUILD["seconds"] = time.perf_counter() - t1
+    # not a daemon: the interpreter waits for it (and its nvcc) at exit
+    TRACE_BUILD["thread"] = threading.Thread(target=go)
+    TRACE_BUILD["thread"].start()
+    return secs
+
+
+def trace_build_done(_cuda):
+    """Join the background trace builds, raise their failure, print
+    their [build] lines; returns their paths."""
+    TRACE_BUILD["thread"].join()
+    if "error" in TRACE_BUILD:
+        raise TRACE_BUILD["error"]
+    paths = TRACE_BUILD["paths"]
+    print(f"[build] " + ", ".join(paths) + f" (in the background, "
+          f"{TRACE_BUILD['seconds']:.1f} s)")
+    print_build_lines(_cuda, paths)
+    return paths
+
+
+def print_build_lines(_cuda, paths):
+    """Each library's file and the ptxas register / spill line of every
+    kernel instantiation it holds."""
     kernels = ("write_kernel", "sum_partials_kernel", "sum_combine_kernel",
                "write_shard_kernel", "sum_shard_kernel", "ca_fused_kernel", "flash_fwd_kernel", "flash_fwd_tc_kernel",
                "flash_fwd_tf32_kernel", "flash_decode_kernel",
@@ -539,7 +641,6 @@ def phase_build(_cuda):
                     if hit else mangled
             if "registers" in line or "spill" in line:
                 print(f"[build]   {entry}: {line.strip()}")
-    return secs
 
 
 def phase_sass(_cuda, paths, lib="flash_attention"):
@@ -1701,9 +1802,9 @@ SSM_EMB = {"musicgen-large": dict(layers=48, batch=4, prompt=2048, steps=16,
                                   max_len=2176),
            "internvl2-26b": dict(layers=12, batch=4, prompt=2048, steps=16,
                                  max_len=2176)}
-#: each stack trained 3 steps at cut depth, batch 1 x 2048 (a multiple of
+#: each stack trained 2 steps at cut depth, batch 1 x 2048 (a multiple of
 #: ssd_chunk 256 and of logit_chunk 512)
-SSM_TRAIN = dict(batch=1, seq=2048, steps=3, lr=1e-4,
+SSM_TRAIN = dict(batch=1, seq=2048, steps=2, lr=1e-4,
                  layers={"falcon-mamba-7b": 2, "zamba2-2.7b": 6,
                          "musicgen-large": 4, "internvl2-26b": 2})
 
@@ -4318,13 +4419,15 @@ def timings(node, path=""):
 # ---------------------------------------------------------------------------
 
 #: per-rank parity (one process, each rank's launch held against its plain
-#: version): (fractal, n, block, coarsenings) on D = 2, 3, 4 ranks; the
-#: gasket at n 32 block 8 (a 3 x 3 orthotope) leaves rank 3 of 4 no rows
-MESH_SHARDS = (2, 3, 4)
+#: version): (fractal, n, block, coarsenings) on D = 2 and 4 ranks (3 in
+#: the CPU tests); the gasket at n 32 block 8 (a 3 x 3 orthotope) leaves
+#: rank 3 of 4 no rows
+MESH_SHARDS = (2, 4)
 MESH_PARITY_CASES = [("sierpinski-gasket", 64, 8, (1, 2)),
                      ("sierpinski-carpet", 81, 3, (1, 3)),
                      ("sierpinski-gasket", 32, 8, (1,))]
-MESH_FUSES = (1, 3)
+#: fuse 3 (a halo of 3); fuse 1 and 8 run end to end (MESH_CA_FUSES)
+MESH_FUSES = (3,)
 MESH_STAGES = (1, 2)
 #: flash per-rank parity: (kind, window, S, block, D, dtype)
 MESH_ATTN_CASES = [("causal", 0, 768, 64, 128, torch.bfloat16),
@@ -4333,7 +4436,7 @@ MESH_ATTN_CASES = [("causal", 0, 768, 64, 128, torch.bfloat16),
                    ("full", 0, 768, 64, 64, torch.float32)]
 #: end to end: D ranks spawned on cuda:0 over gloo
 MESH_E2E_SHARDS = (2, 4)
-MESH_N, MESH_RHO, MESH_CA_STEPS, MESH_CA_FUSES = 1 << 16, 32, 32, (1, 8)
+MESH_N, MESH_RHO, MESH_CA_STEPS, MESH_CA_FUSES = 1 << 16, 32, 16, (1, 8)
 #: embedded storage replicates the n^2 state on every rank, and the ranks
 #: share one card: cut to n = 2^14 (1 GiB a copy)
 MESH_EMB_N, MESH_EMB_RHO, MESH_EMB_CA = 1 << 14, 32, dict(steps=4, fuse=2)
@@ -4351,8 +4454,8 @@ def mesh_stand_in(D):
 
 def phase_mesh_parity(TW, TC, FA, F, LOWERINGS, compact_layout, dev):
     """(a) Every rank's sharded write / partials / CA launch held against
-    its plain version in one process (D 2, 3, 4; the four lowerings x
-    embedded / compact x the coarsenings x fuse {1, 3} x num_stages
+    its plain version in one process (D 2, 4; the four lowerings x
+    embedded / compact x the coarsenings x fuse 3 x num_stages
     {1, 2}, and the interior / boundary phase launches, both rules, the
     gasket and the carpet), and both tile paths under rows and zigzag."""
     errs = {"sierpinski_write_sharded": 0.0,
@@ -5625,7 +5728,7 @@ def serve_mesh_kernel_entries(kernels, sm):
 #: batches.  AdamW's eps is 1e-5, as in tests/test_torch_train_mesh.py:
 #: at 1e-8 an element whose gradient is near 1e-8 steps by up to lr with
 #: the sign of its gradient's rounding
-TRAIN_MESH_QS = dict(batch=8, seq=512, steps=3, lr=1e-3, warmup=1,
+TRAIN_MESH_QS = dict(batch=8, seq=512, steps=2, lr=1e-3, warmup=1,
                      eps=1e-5)
 #: (name, mesh shape, TrainConfig fields) of the quickstart runs; the
 #: 2x2 run (the 4-rank world) writes the checkpoint that is resumed on
@@ -5643,13 +5746,13 @@ TRAIN_MESH_RTOL = {"float32": 1e-4, "bfloat16": 5e-3}
 TRAIN_MESH_PARAM_TOL = 3e-5
 #: gemma3-12b at full width, 6 of 48 layers, 1 x 4096, bf16 compute over
 #: f32 weights, remat, on 1x2 under seq_shard_acts (its META)
-TRAIN_MESH_GEMMA = dict(layers=6, batch=1, seq=4096, steps=3, lr=1e-4)
+TRAIN_MESH_GEMMA = dict(layers=6, batch=1, seq=4096, steps=2, lr=1e-4)
 #: deepseek-v2 at full width, 2 layers, fsdp and bf16 moments (its META)
 #: on 2x1: a global batch of 2 x 1024 (one row a rank).  One device at
 #: 2 x 4096 peaks at 73.14 GiB, 39.9 of them weights, gradients and
 #: moments; a rank holds 25 GiB of those, so two ranks fit on 80 GB only
 #: with the activations of ~2 k tokens
-TRAIN_MESH_DEEPSEEK = dict(layers=2, batch=2, seq=1024, steps=3, lr=1e-4)
+TRAIN_MESH_DEEPSEEK = dict(layers=2, batch=2, seq=1024, steps=2, lr=1e-4)
 #: compressed_psum_grads on 2 ranks: leaves of these sizes
 TRAIN_MESH_COMPRESS = ((4096, 1024), (3, 1000), (257,))
 #: the device type of the spawned ranks
@@ -5952,7 +6055,7 @@ def phase_train_mesh(S, TT, TM, FA, get_config, dev):
     model, opt, one_hist = train_mesh_steps(one_tr, model, opt, pipe,
                                             q["steps"], dev, collectives)
     one_tr.save(q["steps"], model, opt, pipe)
-    # the one-device run's 4th step, for the resumed 2x2 checkpoint's
+    # the one-device run's next step, for the resumed 2x2 checkpoint's
     batch = one_tr._device_batch(pipe.next_batch())
     _, _, met = one_tr._step(model, opt, batch)
     one_next = {k: float(v) for k, v in met.items()}
@@ -6231,6 +6334,489 @@ def compare(change_paths, parent_paths, lo=0.94, hi=1.06):
     return len(keys), outside
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the plan verifier, the access sanitizer and verify= (A13)
+# ---------------------------------------------------------------------------
+
+#: the gasket of the verify phase: n = 2**16 at rho 32 (2048 block rows,
+#: 177,147 member blocks), the CA's main cell
+VERIFY_RHO = 32
+VERIFY_SHARDS = (2, 4)
+#: the packed triangle's block rows and the band's window (blocks)
+VERIFY_ROWS, VERIFY_BAND = 2048, 32
+#: the LUT rows the seeded fault swaps (two member blocks trade steps: every
+#: address stays valid, and the outputs are unchanged)
+VERIFY_FAULT_ROW = 1234
+#: flash at gemma3-12b's widths, S 4096 (causal, and local at its window)
+VERIFY_FLASH = dict(b=1, h=16, hkv=8, s=4096, d=256, block=128,
+                    window=1024)
+#: paged decode at gemma3-12b's widths over 1536-token slots
+VERIFY_PAGED = dict(b=4, h=16, hkv=8, seq=1536, d=256, page_size=16)
+#: the searchers run with and without verify= from fresh caches
+VERIFY_TUNE = dict(fractal="sierpinski-gasket", n=4096, block=32,
+                   max_coarsen=2)
+VERIFY_TUNE_CA = dict(rule="parity", steps=4, max_fuse=4)
+
+
+def verify_static(TV, FA, D, LOWERINGS, dev):
+    """[verify] static lines: verify_plan on the main path's plans, each
+    with zero findings, and its host seconds."""
+    from repro_torch.core.plan import GridPlan
+    from repro_torch.core.shard import ShardedPlan
+    gasket = D.SierpinskiDomain(N_MAIN // VERIFY_RHO)
+    plans = []
+    for lowering in LOWERINGS:
+        for storage in ("embedded", "compact"):
+            plans.append((f"gasket/{lowering}/{storage}", GridPlan(
+                gasket, lowering, storage=storage, backend=dev),
+                ("write", "sum", "ca")))
+            plans.append((f"gasket/{lowering}/{storage}/coarsen=2",
+                           GridPlan(gasket, lowering, storage=storage,
+                                    coarsen=2, backend=dev), ("ca",)))
+    # the packed triangle's own decodes (integer sqrt, the row chain; its
+    # LUT and box are the band's, checked there at a 64th of the steps)
+    for name, dom, lowerings in (
+            ("triangle", D.TriangularDomain(VERIFY_ROWS),
+             ("closed_form", "mma")),
+            ("band", D.BandDomain(VERIFY_ROWS, VERIFY_BAND), LOWERINGS)):
+        for lowering in lowerings:
+            plans.append((f"{name}/{lowering}/compact", GridPlan(
+                dom, lowering, storage="compact", backend=dev), ("ca",)))
+    # the step-indexed lowerings: a rank of the bounding lowering walks
+    # the whole 4.19 M-step box (the CPU matrix verifies those plans)
+    for shards in VERIFY_SHARDS:
+        for lowering in LOWERINGS:
+            if lowering == "bounding":
+                continue
+            sp = ShardedPlan(gasket, lowering, storage="compact",
+                             backend=dev, num_shards=shards,
+                             partition="storage-rows", halo=True)
+            tag = f"gasket/{lowering}/compact/D={shards}/halo=1"
+            plans.append((tag, sp, ("ca",)))
+            for phase in ("interior", "boundary"):
+                plans.append((f"{tag}/{phase}", sp.phase_view(phase),
+                              ("ca",)))
+    rows = []
+    for label, plan, kernels in plans:
+        t0 = time.perf_counter()
+        reports = TV.verify_models(plan, kernels, device=dev)
+        secs = time.perf_counter() - t0
+        for kernel, report in reports.items():
+            check(report.ok, f"verify {label} ({kernel}): "
+                  f"{[str(f) for f in report.findings][:5]}")
+        rows.append({"plan": label, "kernels": list(kernels),
+                     "seconds": secs, "ranks": TV.num_devices(plan)})
+        print(f"[verify] static {label} ({', '.join(kernels)}): 0 "
+              f"findings, {secs:.3f} s host")
+    f = VERIFY_FLASH
+    for kind in ("causal", "local"):
+        for lowering in LOWERINGS:
+            sched = FA.flash_schedule(
+                (f["b"], f["h"], f["s"], f["d"]),
+                (f["b"], f["hkv"], f["s"], f["d"]), kind=kind,
+                window=f["window"] if kind == "local" else 0,
+                block_q=f["block"], block_k=f["block"], grid_mode=lowering)
+            t0 = time.perf_counter()
+            FA.verify_schedule(sched, dev)
+            secs = time.perf_counter() - t0
+            label = f"flash gemma3-12b {kind} S {f['s']}/{lowering}"
+            rows.append({"plan": label, "kernels": ["flash"],
+                         "seconds": secs, "ranks": 1})
+            print(f"[verify] static {label} (flash): 0 findings, "
+                  f"{secs:.3f} s host")
+    total = sum(r["seconds"] for r in rows)
+    print(f"[verify] static: {len(rows)} plan checks, 0 findings, "
+          f"{total:.1f} s host in all, max "
+          f"{max(r['seconds'] for r in rows):.2f} s")
+    return rows
+
+
+def verify_faults(TV, TW, TC, D, compact_layout, dev):
+    """Seeded faults on the card: two rows of the device LUT a compact
+    launch reads swapped, and one ghost-map entry of a rank's device
+    table.
+    verify=True refuses before any launch; the sanitizer flags the LUT
+    row from the trace kernels' rows (verify=False)."""
+    from repro_torch.analysis import PlanVerificationError, verify_launches
+    from repro_torch.core.plan import GridPlan
+    from repro_torch.core.shard import ShardedPlan
+    n, rho = N_MAIN, VERIFY_RHO
+    dom = D.SierpinskiDomain(n // rho)
+    lay = compact_layout(dom)
+    a = torch.zeros(lay.array_shape(rho), dtype=torch.float32, device=dev)
+    b = torch.zeros_like(a)
+    kw = dict(block=rho, grid_mode="prefetch_lut", storage="compact", n=n)
+    calls = {
+        "sierpinski_write": lambda **v: TW.sierpinski_write_(a, 1.0, **kw,
+                                                             **v),
+        "sierpinski_sum": lambda **v: TW.sierpinski_sum(a, **kw, **v),
+        "ca_run": lambda **v: TC.ca_run(a, b, 1, fuse=1, donate=True, **kw,
+                                        **v)}
+    lut = GridPlan(dom, "prefetch_lut", storage="compact",
+                   backend=dev).launch_params(n, rho, dev).lut
+    row = VERIFY_FAULT_ROW
+    out = {"lut_rows": [row, row + 1]}
+
+    def swap():
+        keep = lut[row].clone()
+        lut[row] = lut[row + 1]
+        lut[row + 1] = keep
+    swap()
+    try:
+        TW.reset_launch_counts()
+        TC.reset_launch_counts()
+        for name, call in calls.items():
+            try:
+                call(verify=True)
+                raised = ""
+            except PlanVerificationError as e:
+                raised = str(e)
+            check("LUT row" in raised, f"verify=True on {name} let a "
+                  f"corrupt device LUT row through")
+        launches = sum(TW.launch_counts().values()) + \
+            sum(TC.launch_counts().values())
+        check(launches == 0, f"{launches} launches after verify= refused")
+        out["verify_refused"] = list(calls)
+        flagged = {}
+        for name, call in calls.items():
+            _, found = verify_launches(call, strict=False)
+            hit = [f.detail for f in found if f"step {row} decoded" in
+                   f.detail]
+            check(hit, f"the sanitizer did not flag LUT rows {row}, "
+                  f"{row + 1} on {name}")
+            flagged[name] = len(found)
+        out["sanitizer_findings"] = flagged
+    finally:
+        swap()
+    sp = ShardedPlan(dom, "closed_form", storage="compact", backend=dev,
+                     num_shards=2, partition="storage-rows", halo=True)
+    view = sp.for_rank(0).bind_block(rho)
+    gmap = view.shard_params(dev)[1]
+    ghost = int(torch.nonzero(gmap == sp.rpd)[0])   # rank 0's first ghost
+    gmap[ghost] = 0
+    try:
+        TC.reset_launch_counts()
+        try:
+            TW.verify_launch(view, "ca", dev)   # what ca_run(mesh=) runs
+            raised = ""
+        except PlanVerificationError as e:
+            raised = str(e)
+        check("launch ghost map" in raised,
+              "verify= let a corrupt device ghost map through")
+        check(sum(TC.shard_launch_counts().values()) == 0,
+              "a sharded launch ran after verify= refused")
+        out["ghost_map_row"] = ghost
+    finally:
+        gmap[ghost] = sp.rpd
+    check(TV.verify_plan(view, kernel="ca", device=dev).ok,
+          "the restored ghost map does not verify")
+    print(f"[verify] seeded faults on the card: LUT rows {row}, {row + 1} "
+          f"swapped, refused by "
+          f"verify=True on {', '.join(calls)} (0 launches) and flagged by "
+          f"the sanitizer ({json.dumps(out['sanitizer_findings'])} "
+          f"findings); ghost-map row {ghost} of rank 0 refused by the "
+          f"rank's verify= (0 sharded launches)")
+    return out
+
+
+def _host_ms(fn):
+    """Host milliseconds of one call of ``fn`` that ends synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def verify_entry_points(TW, TC, FA, P, tune, D, compact_layout, dev):
+    """verify=True on write, sum, the CA, flash and paged at the main
+    path's shapes: outputs bit-equal to verify=False, and the extra host
+    ms of the static check."""
+    n, rho = N_MAIN, VERIFY_RHO
+    dom = D.SierpinskiDomain(n // rho)
+    lay = compact_layout(dom)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randint(0, 2, lay.array_shape(rho), generator=g,
+                      device=dev).float()
+    z = torch.zeros_like(x)
+    kw = dict(block=rho, storage="compact", n=n, grid_mode="closed_form")
+    f, pg = VERIFY_FLASH, VERIFY_PAGED
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((f["b"], f["h"], f["s"], f["d"]),
+                             (f["b"], f["hkv"], f["s"], f["d"]),
+                             (f["b"], f["hkv"], f["s"], f["d"])))
+    pq, pk, pv = (torch.randn(shape, generator=g, device=dev)
+                  .to(torch.bfloat16) for shape in (
+                      (pg["b"], pg["h"], 1, pg["d"]),
+                      (pg["b"], pg["hkv"], pg["seq"], pg["d"]),
+                      (pg["b"], pg["hkv"], pg["seq"], pg["d"])))
+    pool, table = tune.paged_operands(pk, pv, pg["page_size"])
+    pos = torch.full((pg["b"],), pg["seq"] - 1, dtype=torch.int32,
+                     device=dev)
+    calls = {
+        "sierpinski_write": lambda **o: TW.sierpinski_write(x, 1.0, **kw,
+                                                            **o),
+        "sierpinski_sum": lambda **o: TW.sierpinski_sum(x, **kw, **o),
+        "ca_step": lambda **o: TC.ca_step(x, z, **kw, **o),
+        "ca_run": lambda **o: TC.ca_run(x, z, 8, fuse=8, donate=False,
+                                        **kw, **o),
+        "flash_attention": lambda **o: FA.flash_attention(
+            q, k, v, kind="causal", block_q=f["block"], block_k=f["block"],
+            **o),
+        "flash_attention_local": lambda **o: FA.flash_attention(
+            q, k, v, kind="local", window=f["window"], block_q=f["block"],
+            block_k=f["block"], grid_mode="prefetch_lut", **o),
+        "paged_flash_attention": lambda **o: FA.paged_flash_attention(
+            pq, pool, table, pos, **o)}
+    out = {}
+    for name, call in calls.items():
+        call()                                   # warm
+        plain_ms, want = _host_ms(call)
+        ver_ms, got = _host_ms(lambda: call(verify=True))
+        check(torch.equal(got, want), f"verify=True changed {name}")
+        out[name] = {"ms": plain_ms, "verify_ms": ver_ms,
+                     "extra_host_ms": ver_ms - plain_ms}
+        print(f"[verify] {name} verify=True: bit-equal to verify=False; "
+              f"{plain_ms:.1f} ms -> {ver_ms:.1f} ms host "
+              f"(+{ver_ms - plain_ms:.1f} ms)")
+    return out
+
+
+def verify_sanitizer(TW, TC, SAN, D, LOWERINGS, compact_layout, dev):
+    """The access sanitizer at full width: write, sum and the CA (parity,
+    fuse 1 and 8) on the gasket at n = 2**16, rho 32, under the four
+    lowerings x both storages through the trace builds; zero findings,
+    each traced output bit-equal to the untraced one, the card's rows
+    equal to the plain version's rows for the same plan; the trace and
+    untraced launches timed."""
+    n, rho = N_MAIN, VERIFY_RHO
+    dom = D.SierpinskiDomain(n // rho)
+    lay = compact_layout(dom)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows, counts = [], {}
+    TW.reset_launch_counts()
+    TC.reset_launch_counts()
+    for storage in ("embedded", "compact"):
+        shape = lay.array_shape(rho) if storage == "compact" else (n, n)
+        a = torch.randint(0, 2, shape, generator=g, device=dev).float()
+        outs = [torch.zeros_like(a), torch.zeros_like(a)]
+        for lowering in LOWERINGS:
+            kw = dict(block=rho, grid_mode=lowering, storage=storage, n=n,
+                      num_stages=1)
+            runs = [("write", lambda o: TW.sierpinski_write_(o, 1.0, **kw)),
+                    ("sum", lambda o: TW.sierpinski_sum(a, **kw))]
+            for fuse in (1, 8):
+                runs.append((f"ca fuse {fuse}",
+                             lambda o, fuse=fuse: TC.ca_run(
+                                 a, o, fuse, fuse=fuse, donate=True, **kw)))
+            static = {}
+            secs = {"runs": 0.0, "crosscheck": 0.0, "plain_rows": 0.0}
+            for what, run in runs:
+                t0 = time.perf_counter()
+                for o in outs:
+                    o.zero_()
+                want = run(outs[0])
+                with SAN.AccessTrace(static=static) as tr:
+                    got = run(outs[1])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                found = tr.crosscheck()
+                t2 = time.perf_counter()
+                secs["runs"] += t1 - t0
+                secs["crosscheck"] += t2 - t1
+                check(not found, f"sanitizer {what} {lowering} {storage}: "
+                      f"{[str(x) for x in found][:5]}")
+                check(torch.equal(got, want), f"traced {what} {lowering} "
+                      f"{storage} != untraced")
+                (launch,) = tr.launches
+                kind = what.split()[0]
+                t3 = time.perf_counter()
+                plain = SAN.plain_trace(launch.plan, kind, dev)
+                check(torch.equal(launch.trace, plain),
+                      f"trace rows of {what} {lowering} {storage} != the "
+                      f"plain version's")
+                secs["plain_rows"] += time.perf_counter() - t3
+                rows.append({"kernel": what, "lowering": lowering,
+                             "storage": storage,
+                             "steps": launch.plan.steps_per_launch})
+                del tr, launch, plain
+            print(f"[verify] sanitizer {lowering} {storage}: write, sum, "
+                  f"ca fuse 1 and 8 clean; host s "
+                  f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+        counts = {**TW.trace_launch_counts(), **TC.trace_launch_counts()}
+        del a, outs
+        free_card()
+    times = verify_trace_times(TW, TC, LOWERINGS, lay, dev)
+    print(f"[verify] sanitizer: {len(rows)} traced launches at n = {n}, "
+          f"rho {rho}, 0 findings, outputs bit-equal to the untraced "
+          f"launches, rows equal to the plain version's; trace launches "
+          f"{json.dumps(counts)}")
+    return {"runs": rows, "times": times, "trace_launches": counts}
+
+
+def verify_trace_times(TW, TC, LOWERINGS, lay, dev):
+    """The trace builds beside the untraced kernels: the median of 3
+    CUDA-event-timed launches of each, on the same operands."""
+    from repro_torch.kernels import _cuda
+    n, rho = N_MAIN, VERIFY_RHO
+    times = []
+    for storage in ("embedded", "compact"):
+        shape = lay.array_shape(rho) if storage == "compact" else (n, n)
+        a = torch.zeros(shape, dtype=torch.float32, device=dev)
+        b = torch.zeros_like(a)
+        for lowering in LOWERINGS:
+            plan = TW.prepare_launch(a, block=rho, grid_mode=lowering,
+                                     storage=storage, n=n)[0]
+            p = plan.launch_params(n, rho, dev)
+            trace = _cuda.trace_rows(p.steps, dev)
+            pairs = {
+                "write": (lambda: TW.write_cuda(a, 1.0, p),
+                          lambda: TW.write_trace_cuda(a, 1.0, p, trace)),
+                "sum": (lambda: TW.sum_partials_cuda(a, p),
+                        lambda: TW.sum_partials_trace_cuda(a, p, trace))}
+            for fuse in (1, 8):
+                pairs[f"ca fuse {fuse}"] = (
+                    lambda fuse=fuse: TC.ca_cuda(a, b, p, fuse, fuse,
+                                                 "parity", CA_ALPHA),
+                    lambda fuse=fuse: TC.ca_trace_cuda(
+                        a, b, p, fuse, fuse, "parity", CA_ALPHA, 1, trace))
+            for what, (bare, traced) in pairs.items():
+                t = {"kernel": what, "lowering": lowering,
+                     "storage": storage, "steps": p.steps,
+                     "ms": time_ms(bare, 3), "trace_ms": time_ms(traced, 3)}
+                times.append(t)
+                print(f"[verify] trace {what} {lowering} {storage}: "
+                      f"{t['trace_ms']:.3f} ms traced, {t['ms']:.3f} ms "
+                      f"untraced a launch ({p.steps} steps)")
+            del trace
+        del a, b
+        free_card()
+    return times
+
+
+def verify_searchers(tune, TV, dev):
+    """autotune_write / autotune_ca with verify=True from fresh caches:
+    the candidate set of verify=False; a candidate whose plan fails
+    verification (every mma plan, by a patched verifier) is rejected."""
+    d = tempfile.mkdtemp(prefix="repro-torch-verify-tune-")
+    atexit.register(shutil.rmtree, d, True)
+    grid = dict(VERIFY_TUNE, device=dev, force=True)
+    searches = {
+        "write": lambda **o: tune.autotune_write(**grid, **o),
+        "ca": lambda **o: tune.autotune_ca(**grid, **VERIFY_TUNE_CA, **o)}
+    out = {}
+    for name, search in searches.items():
+        trials = {}
+        for v in (False, True):
+            cache = tune.TuneCache(os.path.join(d, f"{name}-{v}.json"))
+            t0 = time.perf_counter()
+            _, _, tr = search(verify=v, cache=cache)
+            trials[v] = ([c for c, _ in tr], time.perf_counter() - t0)
+        check(trials[True][0] == trials[False][0],
+              f"autotune_{name}(verify=True) searched another candidate set")
+        real = TV.verify_plan
+
+        def fail_mma(plan, **kw):
+            report = real(plan, **kw)
+            if plan.lowering == "mma":
+                report.findings.append(TV.Finding("table", "seeded"))
+            return report
+        TV.verify_plan = fail_mma
+        try:
+            cache = tune.TuneCache(os.path.join(d, f"{name}-patched.json"))
+            _, _, tr = search(verify=True, cache=cache)
+        finally:
+            TV.verify_plan = real
+        kept = [c for c, _ in tr]
+        check(kept == [c for c in trials[False][0]
+                       if c["lowering"] != "mma"],
+              f"autotune_{name}: a failing candidate was not rejected")
+        out[name] = {"candidates": len(trials[True][0]),
+                     "seconds": trials[False][1],
+                     "verify_seconds": trials[True][1],
+                     "rejected_when_mma_fails": len(trials[True][0])
+                     - len(kept)}
+        print(f"[verify] autotune_{name}: verify=True measured the same "
+              f"{len(trials[True][0])} candidates as verify=False "
+              f"({trials[False][1]:.1f} s -> {trials[True][1]:.1f} s); "
+              f"with every mma plan failing, {out[name]['rejected_when_mma_fails']} "
+              f"rejected")
+    return out
+
+
+def verify_cli(device="cuda"):
+    """``python -m repro_torch.analysis.verify --matrix --device cuda``
+    in a process of its own: exit 0, its report's counts."""
+    report = ROOT / "chiprun_out" / "verify_matrix.json"
+    report.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.verify", "--matrix",
+         "--device", device, "--quiet", "--out", str(report)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the verify CLI exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    rep = json.loads(report.read_text())
+    out = {key: rep[key] for key in ("ok", "num_static", "num_sanitized",
+                                     "num_findings")}
+    out["seconds"] = secs
+    print(f"[verify] python -m repro_torch.analysis.verify --matrix "
+          f"--device {device}: exit 0, {json.dumps(out)}")
+    return out
+
+
+def phase_verify(TW, TC, FA, P, tune, D, LOWERINGS, compact_layout, dev):
+    """Phase 22 (see the module docstring); its static checks ran beside
+    the build (VERIFY_STATIC)."""
+    from repro_torch.analysis import sanitizer as SAN
+    from repro_torch.analysis import verifier as TV
+    free_card()
+    t = {"static_beside_build": round(VERIFY_STATIC["seconds"], 1)}
+    out = {"static": VERIFY_STATIC["rows"]}
+    for name, fn in (
+            ("faults", lambda: verify_faults(TV, TW, TC, D, compact_layout,
+                                             dev)),
+            ("entry_points", lambda: verify_entry_points(
+                TW, TC, FA, P, tune, D, compact_layout, dev)),
+            ("sanitizer", lambda: verify_sanitizer(
+                TW, TC, SAN, D, LOWERINGS, compact_layout, dev)),
+            ("searchers", lambda: verify_searchers(tune, TV, dev)),
+            ("cli", lambda: verify_cli(dev.type))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        t[name] = round(time.perf_counter() - t0, 1)
+        free_card()
+    out["seconds"] = t
+    print(f"[verify] part seconds {json.dumps(t)}")
+    return out
+
+
+def verify_kernel_entries(kernels, ver):
+    """The trace builds' launches of the [verify] phase beside their
+    untraced kernels' entries, with the traced and untraced times of
+    the main cell (closed_form, compact)."""
+    times = {(r["kernel"], r["lowering"], r["storage"]): r
+             for r in ver["sanitizer"]["times"]}
+    for entry in kernels:
+        for name, what, trace_name in (
+                ("sierpinski_write", "write", "sierpinski_write_trace"),
+                ("sierpinski_sum_partials", "sum",
+                 "sierpinski_sum_partials_trace"),
+                ("sierpinski_ca_fused", "ca fuse 8",
+                 "sierpinski_ca_fused_trace")):
+            if entry["name"] == name:
+                t = times[(what, "closed_form", "compact")]
+                entry["trace_build"] = {
+                    "name": trace_name,
+                    "launches_verify_phase":
+                        ver["sanitizer"]["trace_launches"][trace_name],
+                    "ms": t["trace_ms"], "untraced_ms": t["ms"],
+                    "at": f"gasket n={N_MAIN} rho={VERIFY_RHO} compact "
+                          f"closed_form, {what}"}
+
+
 #: host seconds of each phase of this run, printed as ``[phases]``
 PHASE_S: dict = {}
 
@@ -6281,8 +6867,16 @@ def main():
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = phase_card()
-    build_s = phase_build(_cuda)
+    # [verify]'s static checks need no kernel: they run beside the build
+    # wherever [verify] runs (the whole script, --verify-only)
+    only = [a for a in sys.argv[1:] if a.endswith("-only")]
+    beside = None
+    if only in ([], ["--verify-only"]):
+        from repro_torch.analysis import verifier as TV
+        beside = lambda: verify_static(TV, FA, D, LOWERINGS, dev)  # noqa: E731
+    build_s = phase_build(_cuda, beside)
     if "--build-only" in sys.argv[1:]:
+        trace_build_done(_cuda)
         if "--sass" in sys.argv[1:]:
             paths = _cuda.build()
             for lib in paths:
@@ -6341,6 +6935,16 @@ def main():
         print(f"[train-mesh-only] the train-mesh phase ran; no result "
               f"{json.dumps(PHASE_S)}")
         return
+    if "--verify-only" in sys.argv[1:]:
+        trace_build_done(_cuda)
+        ver = timed("verify", phase_verify, TW, TC, FA, P, tune, D,
+                    LOWERINGS, compact_layout, dev)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "verify": ver}, indent=1))
+        print(f"[verify-only] the verify phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
     if "--serve-mesh-only" in sys.argv[1:]:
         serve_mesh = timed("serve_mesh", phase_serve_mesh, S, TM, FA, RC,
                            get_config, dev)
@@ -6394,6 +6998,9 @@ def main():
                        get_config, dev)
     train_mesh = timed("train_mesh", phase_train_mesh, S, TT, TM, FA,
                        get_config, dev)
+    trace_build_done(_cuda)
+    ver = timed("verify", phase_verify, TW, TC, FA, P, tune, D, LOWERINGS,
+                compact_layout, dev)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -6618,6 +7225,7 @@ def main():
     mesh_kernel_entries(kernels, mesh)
     serve_mesh_kernel_entries(kernels, serve_mesh)
     train_mesh_kernel_entries(kernels, train_mesh)
+    verify_kernel_entries(kernels, ver)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -6633,7 +7241,7 @@ def main():
         "decode": decode, "tune": tuned, "train": train,
         "families": families, "ssm": ssm, "mesh": mesh,
         "serve_mesh": serve_mesh, "train_mesh": train_mesh,
-        "kernels": kernels,
+        "verify": ver, "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     # the kernels line is long: the phases' seconds come after it, so

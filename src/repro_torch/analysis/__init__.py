@@ -1,11 +1,28 @@
-"""Host-side verification of the port's execution tables.
+"""Static and dynamic verification of block-space execution plans.
 
-So far only the paged-KV page-table check of the serving scheduler
-(:func:`verify_page_table`); the plan verifier of the JAX package's
-``repro.analysis`` is not ported yet (ROADMAP A13).
+``verifier``  -- host-side static checks over any GridPlan/ShardedPlan:
+                 race freedom, exactly-once coverage, fidelity of the
+                 tables a launch reads, index bounds, aliasing safety,
+                 flash key windows; and the paged KV page-table check.
+``sanitizer`` -- the access sanitizer: the trace builds of the write,
+                 sum and CA kernels (the plain versions on the CPU) record
+                 what each grid step decoded, stored and loaded, and the
+                 rows are cross-checked against the static sets.
+``verify``    -- the CLI: ``python -m repro_torch.analysis.verify
+                 --matrix`` sweeps the feature matrix and emits a JSON
+                 report.
 """
+from .sanitizer import AccessTrace, verify_launches
 from .verifier import (Finding, PlanVerificationError, Report,
-                       verify_page_table)
+                       verify_or_raise, verify_page_table, verify_plan)
 
-__all__ = ["Finding", "PlanVerificationError", "Report",
-           "verify_page_table"]
+__all__ = [
+    "AccessTrace",
+    "Finding",
+    "PlanVerificationError",
+    "Report",
+    "verify_launches",
+    "verify_or_raise",
+    "verify_page_table",
+    "verify_plan",
+]

@@ -40,9 +40,13 @@ tunes the sharded run (every rank of the mesh calls the searcher): the
 key names the shard count (:func:`shard_params`), the search
 warm-starts from the single-device winner when one is cached (only it
 and its one-knob neighbours are measured), and each trial's time is the
-slowest rank's, so every rank keeps the same winner.  Not ported yet,
-and raising ``NotImplementedError`` naming the item: ``verify=True``
-(A13) on the searchers.
+slowest rank's, so every rank keeps the same winner.
+
+``verify=True`` on a searcher statically verifies each candidate's plan
+after ``build`` and before it is timed (the candidate's entry-point call
+once with its own ``verify=True``, :mod:`repro_torch.analysis`): a
+failing plan is rejected, never measured or persisted, as in the JAX
+package.
 
 Run: ``python -m repro_torch.core.tune [--smoke] [--cache PATH] [--force]
 [--device cpu]``.
@@ -276,13 +280,6 @@ def _search_device(device, mesh) -> torch.device:
     return backend_lib.default_device(device)
 
 
-def _no_verify(verify: bool) -> None:
-    if verify:
-        raise NotImplementedError(
-            "verify= (static plan verification) is not ported yet "
-            "(ROADMAP A13)")
-
-
 def measure(fn: Callable, *args, warmup: int = MEASURE_WARMUP,
             iters: int = MEASURE_ITERS, device=None) -> float:
     """Median microseconds per call of ``fn(*args)`` on ``device`` (the
@@ -323,7 +320,8 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
              cache: Optional[TuneCache] = None, force: bool = False,
              warmup: int = MEASURE_WARMUP, iters: int = MEASURE_ITERS,
              verbose: bool = False, seed_config: Optional[dict] = None,
-             device=None, agree: Optional[Callable[[float], float]] = None):
+             device=None, agree: Optional[Callable[[float], float]] = None,
+             verify: Optional[Callable[[dict], None]] = None):
     """Generic search: measure every viable candidate, persist the winner.
 
     ``build(config)`` returns a zero-arg measurable callable, or raises
@@ -331,6 +329,13 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
     for this problem (e.g. fuse > supertile, coarsen on a non-fractal
     domain, tiles past the card's shared memory) -- inviable candidates
     are skipped, not errors.
+
+    ``verify(config)``, when given, runs after ``build`` and before any
+    measurement; raising ValueError (the plan verifier's
+    ``PlanVerificationError`` is one) rejects the candidate, so a plan
+    that fails static analysis is never timed, let alone persisted as a
+    winner.  The kernel-specific searchers wire it to
+    :mod:`repro_torch.analysis` through their ``verify=True``.
 
     ``seed_config`` warm-starts the search from a related problem's
     winner: only the seed and its one-knob neighbours are measured, seed
@@ -370,6 +375,13 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
             if verbose:
                 print(f"  skip {cfg}: {e}")
             continue
+        if verify is not None:
+            try:
+                verify(cfg)
+            except (ValueError, NotImplementedError) as e:
+                if verbose:
+                    print(f"  reject {cfg}: plan verification failed: {e}")
+                continue
         us = measure(fn, warmup=warmup, iters=iters, device=device)
         if agree is not None:
             us = agree(us)
@@ -510,7 +522,6 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
     from .compact import compact_layout
     ca = _kernels("sierpinski_ca")
 
-    _no_verify(verify)
     base = _axis_param(
         {"fractal": fractal, "n": n, "block": block, "rule": rule},
         "storages", storages, ALL_STORAGES)
@@ -536,16 +547,24 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
                   storage=cfg["storage"], n=n, coarsen=cfg["coarsen"],
                   num_stages=cfg.get("stages", 1))
         ca.check_run(a, b, **kw)
-        return lambda: ca.ca_run(a, b, steps, fuse=cfg["fuse"],
-                                 donate=True, mesh=mesh,
-                                 shard_axis=shard_axis, **kw)
+        return lambda **o: ca.ca_run(a, b, steps, fuse=cfg["fuse"],
+                                     donate=True, mesh=mesh,
+                                     shard_axis=shard_axis, **kw, **o)
 
     cands = ca_candidates(fractal, n, block, storages=storages,
                           max_fuse=max_fuse, max_coarsen=max_coarsen,
                           device=dev)
     return autotune("ca", params, cands, build, cache=cache, force=force,
                     verbose=verbose, device=dev, seed_config=seed,
-                    agree=mesh_agree(mesh, shard_axis))
+                    agree=mesh_agree(mesh, shard_axis),
+                    verify=_verified(build) if verify else None)
+
+
+def _verified(build: Callable[[dict], Callable]) -> Callable[[dict], None]:
+    """The ``verify`` callback of a searcher whose ``build`` returns the
+    candidate's entry-point call: that call once with ``verify=True``
+    (the plan verified, then launched once, unmeasured)."""
+    return lambda cfg: build(cfg)(verify=True)
 
 
 def write_candidates(fractal: str, n: int, block: int, *,
@@ -573,7 +592,6 @@ def autotune_write(*, fractal: str = "sierpinski-gasket", n: int = 256,
     from .compact import compact_layout
     sw = _kernels("sierpinski_write")
 
-    _no_verify(verify)
     base = _axis_param({"fractal": fractal, "n": n, "block": block},
                        "storages", storages, ALL_STORAGES)
     params = shard_params(base, mesh, shard_axis)
@@ -593,14 +611,16 @@ def autotune_write(*, fractal: str = "sierpinski-gasket", n: int = 256,
         plan, _, blk = sw.prepare_launch(m, **kw)
         if plan.target.kernels:
             plan.launch_params(n, blk, m.device)
-        return lambda: sw.sierpinski_write_(m, 1.0, num_stages=1, mesh=mesh,
-                                            shard_axis=shard_axis, **kw)
+        return lambda **o: sw.sierpinski_write_(
+            m, 1.0, num_stages=1, mesh=mesh, shard_axis=shard_axis, **kw,
+            **o)
 
     cands = write_candidates(fractal, n, block, storages=storages,
                              max_coarsen=max_coarsen)
     return autotune("write", params, cands, build, cache=cache,
                     force=force, verbose=verbose, device=dev,
-                    seed_config=seed, agree=mesh_agree(mesh, shard_axis))
+                    seed_config=seed, agree=mesh_agree(mesh, shard_axis),
+                    verify=_verified(build) if verify else None)
 
 
 def flash_candidates(sq: int, sk: int, *, blocks=ALL_FLASH_BLOCKS):
@@ -627,7 +647,6 @@ def autotune_flash(*, kind: str = "causal", batch: int = 1, heads: int = 4,
     past the card's limit) is inviable: ``build`` runs the launch's
     checks."""
     fa = _kernels("flash_attention")
-    _no_verify(verify)
     sk = sq if sk is None else sk
     kv_heads = heads if kv_heads is None else kv_heads
     params = _axis_param(
@@ -647,11 +666,12 @@ def autotune_flash(*, kind: str = "causal", batch: int = 1, heads: int = 4,
                   block_k=cfg["block_k"], grid_mode=cfg["lowering"])
         fa.check_launch(fa.flash_schedule(q.shape, k.shape, **kw),
                         q.dtype, dev)
-        return lambda: fa.flash_attention(q, k, v, **kw)
+        return lambda **o: fa.flash_attention(q, k, v, **kw, **o)
 
     return autotune("flash", params,
                     flash_candidates(sq, sk, blocks=blocks), build,
-                    cache=cache, force=force, verbose=verbose, device=dev)
+                    cache=cache, force=force, verbose=verbose, device=dev,
+                    verify=_verified(build) if verify else None)
 
 
 def paged_candidates(seq: int, *, page_sizes=ALL_PAGE_SIZES):
@@ -705,7 +725,6 @@ def autotune_paged(*, batch: int = 4, heads: int = 4,
     whole pool, the groups gathered) under the key qualified by the
     shard count, warm-started from the D = 1 winner."""
     fa = _kernels("flash_attention")
-    _no_verify(verify)
     kv_heads = heads if kv_heads is None else kv_heads
     base = _axis_param(
         {"batch": batch, "heads": heads, "kv_heads": kv_heads,
@@ -729,18 +748,19 @@ def autotune_paged(*, batch: int = 4, heads: int = 4,
         fa.check_launch(fa.paged_schedule(q.shape, pool.shape, table.shape,
                                           window=window), q.dtype, dev)
         if mesh is None:
-            return lambda: fa.paged_flash_attention(
+            return lambda **o: fa.paged_flash_attention(
                 q, pool, table, pos, window=window,
-                grid_mode=cfg["lowering"])
+                grid_mode=cfg["lowering"], **o)
         from repro_torch.models.attention import decode_attention_paged
-        return lambda: decode_attention_paged(
+        return lambda **o: decode_attention_paged(
             q, pool, table, pos, window=window, grid_mode=cfg["lowering"],
-            mesh=mesh, shard_axis=shard_axis)
+            mesh=mesh, shard_axis=shard_axis, **o)
 
     return autotune("paged", params,
                     paged_candidates(seq, page_sizes=page_sizes), build,
                     cache=cache, force=force, verbose=verbose, device=dev,
-                    seed_config=seed, agree=mesh_agree(mesh, shard_axis))
+                    seed_config=seed, agree=mesh_agree(mesh, shard_axis),
+                    verify=_verified(build) if verify else None)
 
 
 # ---------------------------------------------------------------------------

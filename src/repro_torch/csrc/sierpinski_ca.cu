@@ -107,11 +107,23 @@
 // the SASS they had before: the shard parameters are one trailing kernel
 // argument that they never read, and resolve_shard is a lambda of its own
 // beside resolve.
+//
+// Traced (sc_ca_launch_trace; this source built with -DREPRO_TRACE, a
+// library of its own): the unsharded kernel instantiated with kTrace,
+// whose thread 0 writes each step's access-trace row (trace_rows.cuh)
+// when the ring reaches it, from the step's ring entry -- the block, and
+// the nine supertile origins the gather and the store address (compact
+// storage: the entry's origins; embedded: the neighbours of the entry's
+// block) -- before the step is computed.  A neighbour records -1 when
+// it is out of range or not a member (the gather reads nothing of it).
+// The body runs unchanged; the kTrace = false instantiations take the
+// rows as one more trailing argument that they never read.
 
 #include "async_ring.cuh"
 #include "fractal_common.cuh"
 #include "mma_decode.cuh"
 #include "shard_common.cuh"
+#include "trace_rows.cuh"
 
 namespace {
 
@@ -283,13 +295,44 @@ __device__ __forceinline__ bool decode_step(const FracParams& p,
     return generic_decode(p, lut, t, bx, by);
 }
 
-template <bool kShared, int kDom, bool kMma, bool kShard = false>
+// The trace row of the step of ring entry e (thread 0 of a traced
+// launch): its block, the supertile it stores, and the supertile each of
+// its nine origin slots reads.
+template <int kDom>
+__device__ __forceinline__ void trace_entry(int* rows, const FracParams& p,
+                                            const Entry& e, bool compact) {
+  int* r = trace::visit(rows, e.t, true, e.bx, e.by);
+  trace::tile_at(r + trace::kStoreRow, p, e.org_off[4]);
+  const long long side = kDom == kFractalDom ? p.nbx : p.nby;
+  for (int o = 0; o < kOriginSlots; ++o) {
+    int* d = r + trace::kLoads + 2 * o;
+    const long long x = (long long)e.bx + o % 3 - 1;
+    const long long y = (long long)e.by + o / 3 - 1;
+    bool ok = x >= 0 && y >= 0 && x < p.nbx && y < side;
+    if constexpr (kDom == kFractalDom)
+      ok = ok && block_member(p, (unsigned)x, (unsigned)y, p.nbx, p.r_b);
+    else
+      ok = ok && generic_contains(p, x, y);
+    if (!ok) continue;  // out of range or not a member: nothing read
+    if (!compact) {
+      trace::tile(d, p, y * p.span, x * p.span);
+    } else if (e.org_off[o] < 0) {
+      d[0] = d[1] = -2;  // a read through a missing origin
+    } else {
+      trace::tile_at(d, p, e.org_off[o]);
+    }
+  }
+}
+
+template <bool kShared, int kDom, bool kMma, bool kShard = false,
+          bool kTrace = false>
 __global__ void __launch_bounds__(kThreads, 4)
 ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 FracParams p, CaArgs ca, const int* __restrict__ lut,
                 const int* __restrict__ perm, const int* __restrict__ ops,
                 unsigned char* __restrict__ scratch,
-                long long scratch_per_cta, ShardParams sh) {
+                long long scratch_per_cta, ShardParams sh,
+                int* __restrict__ rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = ca.stages, E = ring_entries(kMma && !kShard, S);
   const int s = p.coarsen, nfine = p.nfine, block = p.block;
@@ -758,6 +801,9 @@ ca_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
     ring::wait_pending(S == 1 ? 0 : S - 2);
     __syncthreads();  // slot i % S landed; every reader of step i - 1 is done
     if (e.t < 0) break;
+    if constexpr (kTrace) {
+      if (tid == 0) trace_entry<kDom>(rows, p, e, compact);
+    }
     if (S > 1) {
       const Entry& f = ent[(i + S - 1) % E];
       if (f.t >= 0) gather(f, (i + S - 1) % S);
@@ -863,9 +909,9 @@ long long walk_ctas(const FracParams& p, long long ctas) {
 // The persistent grid of the shared-memory path at `bytes` a CTA: as
 // many CTAs as reside on the card at once (the occupancy calculator, per
 // SM, times the SMs), at most one a step (walk_ctas); 0 when none fits.
-template <int kDom, bool kMma, bool kShard = false>
+template <int kDom, bool kMma, bool kShard = false, bool kTrace = false>
 long long resident_ctas(const FracParams& p, int threads, int bytes) {
-  auto kernel = ca_fused_kernel<true, kDom, kMma, kShard>;
+  auto kernel = ca_fused_kernel<true, kDom, kMma, kShard, kTrace>;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes) != cudaSuccess)
@@ -894,46 +940,47 @@ int complete_args(const FracParams& p, CaArgs& ca) {
   return depth;
 }
 
-// One fused launch of the instantiation of the domain kind, lowering and
-// sharding.
-template <int kDom, bool kMma, bool kShard>
+// One fused launch of the instantiation of the domain kind, lowering,
+// sharding and trace.
+template <int kDom, bool kMma, bool kShard, bool kTrace>
 cudaError_t launch_ca(const float* src, float* dst, const FracParams& p,
                       CaArgs ca, const int* lut, const int* perm,
                       const int* ops, unsigned char* scratch,
-                      const ShardParams& sh, cudaStream_t s) {
+                      const ShardParams& sh, int* rows, cudaStream_t s) {
   const int depth = complete_args(p, ca);
   const long long tile_bytes = ca_geom(ca.wid).base_bytes(ca.wid, ca.stages);
   if (depth > 0) {
     const int bytes = ca.meta_bytes + (int)tile_bytes;
     const int threads = threads_for(ca.wid);
     const long long ctas =
-        resident_ctas<kDom, kMma, kShard>(p, threads, bytes);
+        resident_ctas<kDom, kMma, kShard, kTrace>(p, threads, bytes);
     if (ctas < 1) return cudaErrorInvalidConfiguration;
-    ca_fused_kernel<true, kDom, kMma, kShard>
+    ca_fused_kernel<true, kDom, kMma, kShard, kTrace>
         <<<(unsigned)ctas, threads, bytes, s>>>(src, dst, p, ca, lut, perm,
-                                                ops, nullptr, 0, sh);
+                                                ops, nullptr, 0, sh, rows);
   } else {
     if (scratch == nullptr) return cudaErrorInvalidValue;
-    auto kernel = ca_fused_kernel<false, kDom, kMma, kShard>;
+    auto kernel = ca_fused_kernel<false, kDom, kMma, kShard, kTrace>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ca.meta_bytes);
     if (err != cudaSuccess) return err;
     kernel<<<(unsigned)walk_ctas(p, scratch_ctas(p.steps)),
              threads_for(ca.wid), ca.meta_bytes, s>>>(
-        src, dst, p, ca, lut, perm, ops, scratch, tile_bytes, sh);
+        src, dst, p, ca, lut, perm, ops, scratch, tile_bytes, sh, rows);
   }
   return cudaGetLastError();
 }
 
 bool aligned16(const void* x);
 
-// One fused launch (sc_ca_launch and sc_ca_launch_sharded): the
-// arguments checked, the instantiation picked.
-template <bool kShard>
+// One fused launch (sc_ca_launch, sc_ca_launch_sharded and
+// sc_ca_launch_trace): the arguments checked, the instantiation picked.
+template <bool kShard, bool kTrace = false>
 int ca_entry(const float* src, float* dst, const long long* params,
              const int* lut, const int* perm, const int* ops, int halo,
              int nsteps, int rule, float alpha, int stages,
-             unsigned char* scratch, const ShardParams& sh, void* stream) {
+             unsigned char* scratch, const ShardParams& sh, void* stream,
+             int* rows = nullptr) {
   const FracParams p = make_params(params);
   CaArgs ca;
   ca.halo = halo;
@@ -957,19 +1004,15 @@ int ca_entry(const float* src, float* dst, const long long* params,
       p.family == kTriangular || p.family == kBand || p.family == kBox;
   cudaError_t err;
   if (generic)
-    err = mma ? launch_ca<kGenericDom, true, kShard>(src, dst, p, ca, lut,
-                                                     perm, ops, scratch, sh,
-                                                     s)
-              : launch_ca<kGenericDom, false, kShard>(src, dst, p, ca, lut,
-                                                      perm, ops, scratch, sh,
-                                                      s);
+    err = mma ? launch_ca<kGenericDom, true, kShard, kTrace>(
+                    src, dst, p, ca, lut, perm, ops, scratch, sh, rows, s)
+              : launch_ca<kGenericDom, false, kShard, kTrace>(
+                    src, dst, p, ca, lut, perm, ops, scratch, sh, rows, s);
   else
-    err = mma ? launch_ca<kFractalDom, true, kShard>(src, dst, p, ca, lut,
-                                                     perm, ops, scratch, sh,
-                                                     s)
-              : launch_ca<kFractalDom, false, kShard>(src, dst, p, ca, lut,
-                                                      perm, ops, scratch, sh,
-                                                      s);
+    err = mma ? launch_ca<kFractalDom, true, kShard, kTrace>(
+                    src, dst, p, ca, lut, perm, ops, scratch, sh, rows, s)
+              : launch_ca<kFractalDom, false, kShard, kTrace>(
+                    src, dst, p, ca, lut, perm, ops, scratch, sh, rows, s);
   return (int)err;
 }
 
@@ -992,7 +1035,20 @@ long long sc_scratch_bytes(const long long* params, int halo, int stages) {
   return g.base_bytes(wid, 1) * scratch_ctas(p.steps);
 }
 
-#ifndef REPRO_SHARDED
+#if defined(REPRO_TRACE)
+// sc_ca_launch, also writing each computed step's trace row into rows
+// (steps x trace::kCols int32, filled with the initial row by the
+// caller).
+int sc_ca_launch_trace(const float* src, float* dst, const long long* params,
+                       const int* lut, const int* perm, const int* ops,
+                       int halo, int nsteps, int rule, float alpha,
+                       int stages, unsigned char* scratch, int* rows,
+                       void* stream) {
+  return ca_entry<false, true>(src, dst, params, lut, perm, ops, halo,
+                               nsteps, rule, alpha, stages, scratch,
+                               ShardParams{}, stream, rows);
+}
+#elif !defined(REPRO_SHARDED)
 // The ring's slots a launch at params with halo h and `stages` requested
 // runs: the deepest that fits shared memory, 0 on the global-scratch path.
 int sc_ring_depth(const long long* params, int halo, int stages) {

@@ -82,10 +82,21 @@
 // step's canonical index; the bounding grid's ownership test), then visits
 // the tile with the unsharded kernels' cell loops, so a rank's partials
 // are the unsharded kernel's partials of its blocks, bit for bit.
+//
+// Traced (sw_write_trace, sw_sum_partials_trace; this source built with
+// -DREPRO_TRACE, a library of its own): write_kernel and
+// sum_partials_kernel instantiated with kTrace, which also write each
+// grid step's access-trace row (trace_rows.cuh) from lane 0 of its warp:
+// the step's block and the supertile origin its stores (write) or loads
+// (sum) address, and the sum's partial slot.  The body runs unchanged,
+// so a traced launch's output is the untraced one's, bit for bit.  The
+// kTrace = false instantiations take the rows as a trailing argument
+// they never read.
 
 #include "fractal_common.cuh"
 #include "mma_decode.cuh"
 #include "shard_common.cuh"
+#include "trace_rows.cuh"
 
 namespace {
 
@@ -384,18 +395,25 @@ __device__ __forceinline__ uint4 splat(W v) {
 
 // write_shard_kernel below repeats this body over one rank's steps: keep
 // the two in step.
-template <int kDom, bool kMma, bool kTiled, typename W>
+template <int kDom, bool kMma, bool kTiled, typename W, bool kTrace = false>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 write_kernel(W* __restrict__ m, W value, FracParams p, Cells L, long long run,
              const int* __restrict__ lut, const int* __restrict__ perm,
-             const int* __restrict__ ops) {
+             const int* __restrict__ ops, int* __restrict__ rows) {
   constexpr int kV = 16 / sizeof(W);
   constexpr bool kFrac = kDom == kFractalDom;
   const int lane = threadIdx.x & 31;
   const unsigned full = L.wide ? (1u << kV) - 1 : 1u;
   const uint4 vv = splat(value);
   for_each_step<kDom, kMma>(p, lut, ops, run,
-                            [&](long long, bool live, const Tile& tl) {
+                            [&](long long t, bool live, const Tile& tl) {
+    if constexpr (kTrace) {
+      if (lane == 0) {
+        int* r = trace::visit(rows, t, live, live ? tl.x0 / p.span : 0,
+                              live ? tl.y0 / p.span : 0);
+        if (live) trace::tile(r + trace::kStoreRow, p, tl.row0, tl.col0);
+      }
+    }
     if (!live) return;
     for_each_fine<kTiled>(p, perm, [&](long long srow, long long scol,
                                        unsigned ox0, unsigned oy0) {
@@ -456,19 +474,27 @@ __device__ __forceinline__ float add_chunk(float acc,
 
 // sum_shard_kernel below repeats this body over one rank's steps: keep
 // the two in step.
-template <int kDom, bool kMma, bool kTiled, int DT>
+template <int kDom, bool kMma, bool kTiled, int DT, bool kTrace = false>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 sum_partials_kernel(const void* __restrict__ m, float* __restrict__ partials,
                     FracParams p, Cells L, long long run,
                     const int* __restrict__ lut,
                     const int* __restrict__ perm,
-                    const int* __restrict__ ops) {
+                    const int* __restrict__ ops, int* __restrict__ rows) {
   constexpr int kV = DT == kBF16 ? 8 : 4;
   constexpr bool kFrac = kDom == kFractalDom;
   const int lane = threadIdx.x & 31;
   const int va = L.wide ? kV : 1;
   for_each_step<kDom, kMma>(p, lut, ops, run,
                             [&](long long t, bool live, const Tile& tl) {
+    if constexpr (kTrace) {
+      if (lane == 0) {
+        int* r = trace::visit(rows, t, live, live ? tl.x0 / p.span : 0,
+                              live ? tl.y0 / p.span : 0);
+        if (live) trace::tile(r + trace::kLoads + 2 * 4, p, tl.row0, tl.col0);
+        r[trace::kSlot] = (int)t;
+      }
+    }
     float acc = 0.0f;
     if (live) {
       for_each_fine<kTiled>(p, perm, [&](long long srow, long long scol,
@@ -636,13 +662,15 @@ cudaError_t persistent(const void* kernel, int& per_sm, long long steps,
   return cudaSuccess;
 }
 
-// The operands of one launch beside the state: the tables and, for a
-// sharded launch, the rank's shard parameters (kShard).
+// The operands of one launch beside the state: the tables, for a sharded
+// launch the rank's shard parameters (kShard), and for a traced one its
+// trace rows (kTrace).
 struct Tables {
   const int* lut;
   const int* perm;
   const int* ops;
   ShardParams sh;
+  int* rows;
 };
 
 // Find the persistent grid of `kernel`, then go(grid, run).
@@ -659,8 +687,9 @@ cudaError_t launch_persistent(const void* kernel, int& per_sm, long long steps,
 
 // One launch of write_kernel (or write_shard_kernel): the instantiation of
 // the domain kind, the lowering, the tiling (a supertile of more than one
-// fine block) and the sharding.
-template <int kDom, bool kMma, bool kTiled, bool kShard, typename W>
+// fine block), the sharding and the trace.
+template <int kDom, bool kMma, bool kTiled, bool kShard, bool kTrace,
+          typename W>
 cudaError_t launch_write_as(W* m, W value, const FracParams& p,
                             const Tables& tb, cudaStream_t s) {
   static int per_sm = 0;  // one per instantiation
@@ -674,41 +703,43 @@ cudaError_t launch_write_as(W* m, W value, const FracParams& p,
                                            tb.perm, tb.ops, tb.sh);
         });
   } else {
-    auto* kernel = write_kernel<kDom, kMma, kTiled, W>;
+    auto* kernel = write_kernel<kDom, kMma, kTiled, W, kTrace>;
     const int batch = kMma && kDom == kGenericDom ? kRowsBatch : 1;
     return launch_persistent(
         (const void*)kernel, per_sm, p.steps, batch,
         [&](unsigned grid, long long run) {
           kernel<<<grid, kThreads, 0, s>>>(m, value, p, L, run, tb.lut,
-                                           tb.perm, tb.ops);
+                                           tb.perm, tb.ops, tb.rows);
         });
   }
 }
 
-template <int kDom, bool kMma, bool kShard, typename W>
+template <int kDom, bool kMma, bool kShard, bool kTrace, typename W>
 cudaError_t launch_write_tiled(W* m, W value, const FracParams& p,
                                const Tables& tb, cudaStream_t s) {
   if (kDom == kFractalDom && p.nfine > 1)
-    return launch_write_as<kDom, kMma, true, kShard>(m, value, p, tb, s);
-  return launch_write_as<kDom, kMma, false, kShard>(m, value, p, tb, s);
+    return launch_write_as<kDom, kMma, true, kShard, kTrace>(m, value, p, tb,
+                                                             s);
+  return launch_write_as<kDom, kMma, false, kShard, kTrace>(m, value, p, tb,
+                                                            s);
 }
 
-template <bool kShard, typename W>
+template <bool kShard, bool kTrace, typename W>
 cudaError_t launch_write(W* m, W value, const FracParams& p,
                          const Tables& tb, cudaStream_t s) {
   const bool mma = p.lowering == kMma;
   if (generic_family(p))
-    return mma ? launch_write_as<kGenericDom, true, false, kShard>(
+    return mma ? launch_write_as<kGenericDom, true, false, kShard, kTrace>(
                      m, value, p, tb, s)
-               : launch_write_as<kGenericDom, false, false, kShard>(
+               : launch_write_as<kGenericDom, false, false, kShard, kTrace>(
                      m, value, p, tb, s);
-  return mma ? launch_write_tiled<kFractalDom, true, kShard>(m, value, p, tb,
-                                                             s)
-             : launch_write_tiled<kFractalDom, false, kShard>(m, value, p,
-                                                              tb, s);
+  return mma ? launch_write_tiled<kFractalDom, true, kShard, kTrace>(
+                   m, value, p, tb, s)
+             : launch_write_tiled<kFractalDom, false, kShard, kTrace>(
+                   m, value, p, tb, s);
 }
 
-template <int kDom, bool kMma, bool kTiled, bool kShard, int DT>
+template <int kDom, bool kMma, bool kTiled, bool kShard, bool kTrace, int DT>
 cudaError_t launch_sum_as(const void* m, float* partials, const FracParams& p,
                           const Tables& tb, cudaStream_t s) {
   static int per_sm = 0;  // one per instantiation
@@ -722,64 +753,66 @@ cudaError_t launch_sum_as(const void* m, float* partials, const FracParams& p,
                                            tb.perm, tb.ops, tb.sh);
         });
   } else {
-    auto* kernel = sum_partials_kernel<kDom, kMma, kTiled, DT>;
+    auto* kernel = sum_partials_kernel<kDom, kMma, kTiled, DT, kTrace>;
     const int batch = kMma && kDom == kGenericDom ? kRowsBatch : 1;
     return launch_persistent(
         (const void*)kernel, per_sm, p.steps, batch,
         [&](unsigned grid, long long run) {
           kernel<<<grid, kThreads, 0, s>>>(m, partials, p, L, run, tb.lut,
-                                           tb.perm, tb.ops);
+                                           tb.perm, tb.ops, tb.rows);
         });
   }
 }
 
-template <int kDom, bool kMma, bool kShard, int DT>
+template <int kDom, bool kMma, bool kShard, bool kTrace, int DT>
 cudaError_t launch_sum_tiled(const void* m, float* partials,
                              const FracParams& p, const Tables& tb,
                              cudaStream_t s) {
   if (kDom == kFractalDom && p.nfine > 1)
-    return launch_sum_as<kDom, kMma, true, kShard, DT>(m, partials, p, tb, s);
-  return launch_sum_as<kDom, kMma, false, kShard, DT>(m, partials, p, tb, s);
+    return launch_sum_as<kDom, kMma, true, kShard, kTrace, DT>(m, partials,
+                                                               p, tb, s);
+  return launch_sum_as<kDom, kMma, false, kShard, kTrace, DT>(m, partials,
+                                                              p, tb, s);
 }
 
-template <bool kShard, int DT>
+template <bool kShard, bool kTrace, int DT>
 cudaError_t launch_sum(const void* m, float* partials, const FracParams& p,
                        const Tables& tb, cudaStream_t s) {
   const bool mma = p.lowering == kMma;
   if (generic_family(p))
-    return mma ? launch_sum_as<kGenericDom, true, false, kShard, DT>(
+    return mma ? launch_sum_as<kGenericDom, true, false, kShard, kTrace, DT>(
                      m, partials, p, tb, s)
-               : launch_sum_as<kGenericDom, false, false, kShard, DT>(
-                     m, partials, p, tb, s);
-  return mma ? launch_sum_tiled<kFractalDom, true, kShard, DT>(m, partials, p,
-                                                               tb, s)
-             : launch_sum_tiled<kFractalDom, false, kShard, DT>(m, partials,
-                                                                p, tb, s);
+               : launch_sum_as<kGenericDom, false, false, kShard, kTrace,
+                               DT>(m, partials, p, tb, s);
+  return mma ? launch_sum_tiled<kFractalDom, true, kShard, kTrace, DT>(
+                   m, partials, p, tb, s)
+             : launch_sum_tiled<kFractalDom, false, kShard, kTrace, DT>(
+                   m, partials, p, tb, s);
 }
 
-template <bool kShard>
+template <bool kShard, bool kTrace = false>
 int write_entry(void* m, int elem_bytes, unsigned int value_bits,
                 const FracParams& p, const Tables& tb, cudaStream_t s) {
   if (p.steps <= 0) return (int)cudaSuccess;
   if (elem_bytes == 4)
-    return (int)launch_write<kShard>(static_cast<uint32_t*>(m),
-                                     (uint32_t)value_bits, p, tb, s);
+    return (int)launch_write<kShard, kTrace>(static_cast<uint32_t*>(m),
+                                             (uint32_t)value_bits, p, tb, s);
   if (elem_bytes == 2)
-    return (int)launch_write<kShard>(static_cast<uint16_t*>(m),
-                                     (uint16_t)value_bits, p, tb, s);
+    return (int)launch_write<kShard, kTrace>(static_cast<uint16_t*>(m),
+                                             (uint16_t)value_bits, p, tb, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool kShard>
+template <bool kShard, bool kTrace = false>
 int sum_entry(const void* m, int dtype, float* partials, const FracParams& p,
               const Tables& tb, cudaStream_t s) {
   if (p.steps <= 0) return (int)cudaSuccess;
-  if (dtype == kF32) return (int)launch_sum<kShard, kF32>(m, partials, p, tb,
-                                                          s);
-  if (dtype == kBF16) return (int)launch_sum<kShard, kBF16>(m, partials, p,
-                                                            tb, s);
-  if (dtype == kI32) return (int)launch_sum<kShard, kI32>(m, partials, p, tb,
-                                                          s);
+  if (dtype == kF32)
+    return (int)launch_sum<kShard, kTrace, kF32>(m, partials, p, tb, s);
+  if (dtype == kBF16)
+    return (int)launch_sum<kShard, kTrace, kBF16>(m, partials, p, tb, s);
+  if (dtype == kI32)
+    return (int)launch_sum<kShard, kTrace, kI32>(m, partials, p, tb, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -787,7 +820,28 @@ int sum_entry(const void* m, int dtype, float* partials, const FracParams& p,
 
 extern "C" {
 
-#ifndef REPRO_SHARDED
+#if defined(REPRO_TRACE)
+// sw_write, also writing each grid step's trace row into rows (steps x
+// trace::kCols int32, filled with the initial row by the caller).
+int sw_write_trace(void* m, int elem_bytes, unsigned int value_bits,
+                   const long long* params, const int* lut, const int* perm,
+                   const int* ops, int* rows, void* stream) {
+  return write_entry<false, true>(m, elem_bytes, value_bits,
+                                  make_params(params),
+                                  Tables{lut, perm, ops, ShardParams{}, rows},
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// sw_sum_partials, also writing each grid step's trace row into rows.
+int sw_sum_partials_trace(const void* m, int dtype, float* partials,
+                          const long long* params, const int* lut,
+                          const int* perm, const int* ops, int* rows,
+                          void* stream) {
+  return sum_entry<false, true>(m, dtype, partials, make_params(params),
+                                Tables{lut, perm, ops, ShardParams{}, rows},
+                                static_cast<cudaStream_t>(stream));
+}
+#elif !defined(REPRO_SHARDED)
 // Write the value bits into every member cell of the state m, in place.
 // elem_bytes is 4 (f32, int32) or 2 (bf16).  params: plan.C_PARAMS order;
 // lut, perm and ops may be null (see LaunchParams; ops is mma_ops).
@@ -795,7 +849,7 @@ int sw_write(void* m, int elem_bytes, unsigned int value_bits,
              const long long* params, const int* lut, const int* perm,
              const int* ops, void* stream) {
   return write_entry<false>(m, elem_bytes, value_bits, make_params(params),
-                            Tables{lut, perm, ops, ShardParams{}},
+                            Tables{lut, perm, ops, ShardParams{}, nullptr},
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -805,7 +859,7 @@ int sw_sum_partials(const void* m, int dtype, float* partials,
                     const long long* params, const int* lut, const int* perm,
                     const int* ops, void* stream) {
   return sum_entry<false>(m, dtype, partials, make_params(params),
-                          Tables{lut, perm, ops, ShardParams{}},
+                          Tables{lut, perm, ops, ShardParams{}, nullptr},
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -828,7 +882,7 @@ int sw_write_sharded(void* m, int elem_bytes, unsigned int value_bits,
                      const int* gmap, const int* phase, void* stream) {
   return write_entry<true>(m, elem_bytes, value_bits, make_params(params),
                            Tables{lut, perm, ops,
-                                  make_shard(shard, gmap, phase)},
+                                  make_shard(shard, gmap, phase), nullptr},
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -841,7 +895,7 @@ int sw_sum_partials_sharded(const void* m, int dtype, float* partials,
                             const int* phase, void* stream) {
   return sum_entry<true>(m, dtype, partials, make_params(params),
                          Tables{lut, perm, ops,
-                                make_shard(shard, gmap, phase)},
+                                make_shard(shard, gmap, phase), nullptr},
                          static_cast<cudaStream_t>(stream));
 }
 #endif  // REPRO_SHARDED

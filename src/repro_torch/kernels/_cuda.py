@@ -11,8 +11,12 @@ CPU tests import every module on machines without ``nvcc``.
 
 The module also holds the launch hook (:func:`set_launch_hook`), the
 counterpart of the JAX package's emit hook: the fault injector of
-:mod:`repro_torch.runtime.chaos` sees every launch of the write, sum and
-CA entry points through it, on the card and on the CPU alike.
+:mod:`repro_torch.runtime.chaos` and the access sanitizer of
+:mod:`repro_torch.analysis.sanitizer` see every launch of the write, sum
+and CA entry points through it, on the card and on the CPU alike.  A
+hook that sets a launch's ``trace`` rows (:func:`trace_rows`,
+:data:`TRACE_COLUMNS`) gets them filled by the kernel's trace build on
+the card, or by the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -35,8 +39,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: and with ``-DREPRO_SHARDED`` only its sharded ones (the kShard
 #: instantiations of core/shard.py's mesh), so that the two halves
 #: compile in parallel and the unsharded library holds what it held
-#: before the mesh came.
+#: before the mesh came.  The write and CA sources build a third time,
+#: with ``-DREPRO_TRACE``: only their trace entry points (the kTrace
+#: instantiations the access sanitizer launches).
 SHARDED_FLAGS = ("-DREPRO_SHARDED",)
+TRACE_FLAGS = ("-DREPRO_TRACE",)
 SOURCES = {"sierpinski_write": ("sierpinski_write.cu", ()),
            "sierpinski_ca": ("sierpinski_ca.cu", ()),
            "flash_attention": ("flash_attention.cu", ()),
@@ -44,7 +51,9 @@ SOURCES = {"sierpinski_write": ("sierpinski_write.cu", ()),
                                         SHARDED_FLAGS),
            "sierpinski_ca_sharded": ("sierpinski_ca.cu", SHARDED_FLAGS),
            "flash_attention_sharded": ("flash_attention.cu",
-                                       SHARDED_FLAGS)}
+                                       SHARDED_FLAGS),
+           "sierpinski_write_trace": ("sierpinski_write.cu", TRACE_FLAGS),
+           "sierpinski_ca_trace": ("sierpinski_ca.cu", TRACE_FLAGS)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -219,6 +228,40 @@ def check_tables(m, p, lut_rows: Optional[int] = None) -> None:
 # the launch hook
 # ---------------------------------------------------------------------------
 
+#: the columns of a launch's access-trace rows, one int32 row per grid
+#: step (csrc/trace_rows.cuh): the visits of the step, live (1) or
+#: discarded (0), its block, the (row, col) supertile it stored (write,
+#: CA), the partial it wrote (sum), then per origin slot
+#: (dy + 1) * 3 + dx + 1 the supertile it read (the sum's and the CA's
+#: centre 4, the CA's neighbours; -1: none).  Untouched entries keep the
+#: initial row of :func:`trace_rows`.
+TRACE_COLUMNS = ("visits", "live", "bx", "by", "store_row", "store_col",
+                 "slot") + tuple(f"load{o}_{rc}" for o in range(9)
+                                 for rc in ("row", "col"))
+TRACE_LOADS = TRACE_COLUMNS.index("load0_row")
+
+
+def check_trace(state: torch.Tensor, steps: int,
+                trace: torch.Tensor) -> None:
+    """Trace rows a wrapper hands its trace build: a contiguous (steps,
+    len(TRACE_COLUMNS)) int32 tensor on the state's device."""
+    if (trace.dtype != torch.int32 or not trace.is_contiguous()
+            or tuple(trace.shape) != (steps, len(TRACE_COLUMNS))
+            or trace.device != state.device):
+        raise ValueError(
+            f"trace rows must be a contiguous ({steps}, "
+            f"{len(TRACE_COLUMNS)}) int32 tensor on {state.device}")
+
+
+def trace_rows(steps: int, device) -> torch.Tensor:
+    """The initial trace rows of a launch of ``steps`` grid steps on
+    ``device``: visits and live 0, every other column -1."""
+    rows = torch.full((steps, len(TRACE_COLUMNS)), -1, dtype=torch.int32,
+                      device=device)
+    rows[:, :2] = 0
+    return rows
+
+
 class LaunchRecord:
     """What one launch of a fractal kernel is about to do, handed to the
     installed launch hook.
@@ -230,13 +273,18 @@ class LaunchRecord:
     dst:    the tensor the launch writes in place (the state of a write,
             the stale buffer of a CA launch), or None when the launch
             returns a fresh tensor (the sum's partials).
+    trace:  None, or the (steps, len(TRACE_COLUMNS)) int32 rows a hook
+            sets before ``run()`` on the launch's device: the launch then
+            fills them (the kernel's trace build on the card, the plain
+            version on the CPU).  Only unsharded launches take rows.
     """
 
-    __slots__ = ("kernel", "plan", "block", "dst")
+    __slots__ = ("kernel", "plan", "block", "dst", "trace")
 
     def __init__(self, kernel: str, plan, block: int,
                  dst: Optional[torch.Tensor] = None):
         self.kernel, self.plan, self.block, self.dst = kernel, plan, block, dst
+        self.trace: Optional[torch.Tensor] = None
 
 
 #: ``hook(record, run) -> output``: called around each launch of the
@@ -275,8 +323,14 @@ def launch(kernel: str, plan, block: int, dst, fn: Callable, *args):
     card, its plain version on the CPU), through the installed launch
     hook when there is one.  ``kernel``, ``plan``, ``block`` and ``dst``
     are the hook's :class:`LaunchRecord`.  With no hook installed this
-    is one ``is None`` test and the call."""
+    is one ``is None`` test and the call.  Rows a hook sets in the
+    record's ``trace`` reach ``fn`` as its ``trace`` keyword."""
     if LAUNCH_HOOK is None:
         return fn(*args)
-    return LAUNCH_HOOK(LaunchRecord(kernel, plan, block, dst),
-                       lambda: fn(*args))
+    record = LaunchRecord(kernel, plan, block, dst)
+
+    def run():
+        if record.trace is None:
+            return fn(*args)
+        return fn(*args, trace=record.trace)
+    return LAUNCH_HOOK(record, run)

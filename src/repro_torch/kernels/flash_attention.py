@@ -89,8 +89,15 @@ mesh shards both decode kernels' slots over its data axis in
 kernel on its slot group.
 
 Forward only, as in the JAX package, whose training path takes the
-plain-tensor flash VJP (:mod:`repro_torch.models.attention`).  Not
-ported yet: ``verify=`` (A13).
+plain-tensor flash VJP (:mod:`repro_torch.models.attention`).
+
+``verify=True`` statically verifies the launch's plan before any launch
+(:func:`verify_schedule`, the ``"flash"`` access model: coverage, tables
+and the per-row key windows, with the extents table the launch reads):
+the domain's plan, or under ``mesh=`` the sharded plan of the query rows;
+the paged decode verifies the ``"full"`` key-block plan of its page
+table.  A failing plan raises ``PlanVerificationError`` (a
+``ValueError``) with nothing launched.
 """
 from __future__ import annotations
 
@@ -131,13 +138,26 @@ TABLE_LOWERINGS = ("prefetch_lut", "mma")
 DOM_ALL, DOM_TRIANGULAR, DOM_BAND = 0, 1, 2
 
 
-def _unported(verify=False) -> None:
-    """Raise NotImplementedError naming the roadmap item of an option
-    the port does not have yet."""
-    if verify:
-        raise NotImplementedError(
-            "verify= (static plan verification) is not ported yet "
-            "(ROADMAP A13)")
+def verify_schedule(sched: "FlashSchedule", device, num_shards=None,
+                    shard_balance: str = "contiguous") -> None:
+    """``verify=True``: statically verify the plan a flash launch of
+    ``sched`` on ``device`` runs -- over the block domain with the
+    (batch * heads) batch axis, sharded over ``num_shards`` query-row
+    bands when given -- with the extents table the launch reads; raises
+    ``PlanVerificationError`` on any finding."""
+    from repro_torch.analysis.verifier import verify_or_raise
+    from repro_torch.core.shard import ShardedPlan
+    if num_shards is None:
+        plan = GridPlan(sched.domain, sched.lowering,
+                        batch_dims=(sched.b * sched.h,), backend=device)
+    else:
+        plan = ShardedPlan(
+            sched.domain, sched.lowering, batch_dims=(sched.b * sched.h,),
+            backend=device, num_shards=num_shards,
+            partition="zigzag" if shard_balance == "zigzag" else "rows")
+    ext = sched.row_extents(device) \
+        if sched.lowering in TABLE_LOWERINGS else None
+    verify_or_raise(plan, kernel="flash", device=device, row_extents=ext)
 
 
 # ---------------------------------------------------------------------------
@@ -1171,12 +1191,14 @@ def flash_rank(q, k, v, sched: FlashSchedule, band: RowBand):
 
 
 def _flash_sharded(q, k, v, sched: FlashSchedule, mesh, shard_axis,
-                   shard_balance):
+                   shard_balance, verify=False):
     """The mesh call of :func:`flash_attention`."""
     from repro_torch.distributed import collectives
     from repro_torch.launch import mesh as mesh_lib
     D = mesh_lib.axis_size(mesh, shard_axis)
     shard_band(sched, D, 0, shard_balance)  # refusals before any collective
+    if verify:
+        verify_schedule(sched, q.device, D, shard_balance)
     mesh_lib.check_mesh_device(mesh, q, k, v)
     band = shard_band(sched, D, mesh_lib.axis_rank(mesh, shard_axis),
                       shard_balance)
@@ -1227,8 +1249,8 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
 
     causal requires Sq == Sk; local accepts Sq < Sk with the decode
     convention (queries are the last Sq positions).  CUDA tensors launch
-    the kernel, CPU tensors run the plain version."""
-    _unported(verify)
+    the kernel, CPU tensors run the plain version.  ``verify=True``
+    statically verifies the plan first (module docstring)."""
     _check_qkv(q, k, v)
     b, h, sq, d = q.shape
     hkv = k.shape[1]
@@ -1254,7 +1276,9 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                 "partition; shard the batch axis instead (see "
                 "repro.models.attention.decode_attention_flash)")
         return _flash_sharded(q, k, v, sched, mesh, shard_axis,
-                              shard_balance)
+                              shard_balance, verify)
+    if verify:
+        verify_schedule(sched, q.device)
     pos = seq_pos_vector(seq_pos, sched.b, q.device)
     if not backend_lib.resolve(q).kernels:
         return flash_attention_plain(q, k, v, sched, pos)
@@ -1283,11 +1307,17 @@ def paged_flash_attention(q, kv_pool, page_table, seq_pos, *,
     ``num_stages`` are taken and change nothing (module docstring).
     Bit-equal to ``flash_attention(..., kind="full", seq_pos=...)`` at
     ``block_k == page_size`` when the mapped pages hold the same
-    values."""
-    _unported(verify=verify)
+    values.  ``verify=True`` statically verifies the ``"full"`` key-block
+    plan of the page table first (module docstring)."""
     normalize_lowering(grid_mode)
     sched = paged_schedule(q.shape, kv_pool.shape, page_table.shape,
                            window=window, scale=scale)
+    if verify:
+        from repro_torch.analysis.verifier import verify_or_raise
+        verify_or_raise(GridPlan(make_attention_domain(
+            "full", 1, page_table.shape[1], 0), grid_mode,
+            batch_dims=(sched.b * sched.h,), backend=q), kernel="flash",
+            device=q.device)
     table = torch.as_tensor(page_table).to(q.device, torch.int32)
     pos = torch.as_tensor(seq_pos).to(q.device, torch.int32).reshape(-1)
     if pos.numel() not in (1, sched.b):

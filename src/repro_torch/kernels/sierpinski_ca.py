@@ -70,10 +70,15 @@ over the ranks.  Every block is computed by exactly one rank from the
 same operands, so the result is bit-identical to the single-device run.
 :func:`ca_rank` runs one rank's launch without a process group.
 
-Not ported yet: ``verify=`` (A13), which the entry points take and
-refuse with ``NotImplementedError`` naming the item, and CA states other
-than f32 (the JAX package's CA follows the state's dtype; the port's
-runs f32 only for now, and bf16 states are ROADMAP A16).
+``verify=True`` statically verifies the plan (the ``"ca"`` access model:
+the stencil reads the state, writes the stale buffer, never reads it)
+against the tables its launches will read, before the first launch; a
+failing plan raises ``PlanVerificationError`` (a ``ValueError``) with
+nothing launched.  Under ``mesh=`` each rank verifies its sharded plan.
+
+Not ported yet: CA states other than f32 (the JAX package's CA follows
+the state's dtype; the port's runs f32 only for now, and bf16 states are
+ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -86,9 +91,10 @@ from repro_torch.core.domain import BlockDomain
 from repro_torch.core.plan import GridPlan, LaunchParams
 
 from . import _cuda
-from .sierpinski_write import (PLAIN_CHUNK_CELLS, check_unported, mesh_plan,
+from .sierpinski_write import (PLAIN_CHUNK_CELLS, mesh_plan, record_trace,
                                resolve_auto_schedule, resolve_storage_args,
-                               storage_offsets, supertile_offsets)
+                               storage_offsets, supertile_offsets,
+                               verify_launch)
 
 RULES = {"parity": 0, "diffusion": 1}
 #: the deepest ring of the kernel (csrc/sierpinski_ca.cu kMaxStages); the
@@ -142,14 +148,59 @@ def _nsum(a: torch.Tensor) -> torch.Tensor:
     return up + down + left + right
 
 
+def record_ca_trace(trace: torch.Tensor, plan: GridPlan, start: int, bx,
+                    by, valid, tiles) -> None:
+    """Fill the trace rows of a chunk of CA steps from the supertiles
+    its gather addresses, ``tiles`` = ((dx, dy, row, col), ...) with the
+    centre first, as the kernel's trace build fills them: a live step's
+    block, the centre as its store, and per origin slot the supertile
+    read, -1 for a neighbour out of range or not a member."""
+    dom = plan.sched_domain
+    nbx, nby = dom.bounding_box
+    loads = []
+    for dx, dy, row, col in tiles:
+        x, y = bx + dx, by + dy
+        ok = (x >= 0) & (x < nbx) & (y >= 0) & (y < nby) & torch.as_tensor(
+            dom.contains(torch.clamp(x, 0, nbx - 1),
+                         torch.clamp(y, 0, nby - 1)), device=bx.device)
+        loads.append(((dy + 1) * 3 + dx + 1, row, col, ok))
+    record_trace(trace, start, bx, by, valid, store=tiles[0][2:],
+                 loads=loads, live_only=True)
+
+
+def _ca_tiles(plan: GridPlan, start: int, stop: int, device):
+    """((dx, dy, row, col), ...): the centre's storage supertile, then the
+    8 neighbours' (NEIGHBOR_OFFSETS8 order) of the steps [start, stop)."""
+    out = [(0, 0) + tuple(plan.storage_index(start, stop, device))]
+    for j, (dx, dy) in enumerate(NEIGHBOR_OFFSETS8):
+        out.append((dx, dy) + tuple(plan.neighbor_index(j, start, stop,
+                                                        device)))
+    return out
+
+
+def ca_trace_plain(plan: GridPlan, device) -> torch.Tensor:
+    """The trace rows a launch of ``plan`` fills (:func:`record_ca_trace`,
+    the plain version's index tensors), without its arithmetic: what the
+    kernel's trace build must write for the same plan."""
+    trace = _cuda.trace_rows(plan.steps_per_launch, device)
+    per = 1 << 20   # index tensors only: no working tiles to bound
+    for start in range(0, plan.steps_per_launch, per):
+        stop = min(plan.steps_per_launch, start + per)
+        bx, by, valid = plan.step_coords(start, stop, device)
+        record_ca_trace(trace, plan, start, bx, by, valid,
+                        _ca_tiles(plan, start, stop, device))
+    return trace
+
+
 def ca_launch_plain(src: torch.Tensor, dst: torch.Tensor, plan: GridPlan,
                     n: int, block: int, halo: int, steps: int, rule: str,
-                    alpha: float) -> torch.Tensor:
+                    alpha: float, trace=None) -> torch.Tensor:
     """Plain version of one fused launch: for every scheduled
     (super)block gather the center + 8 neighbour supertiles into the
     (span + 2h)^2 working tile, mask it, advance ``steps`` iterations of
     the trapezoid, and scatter the span^2 interior into ``dst`` in
-    place (the stale buffer).  Returns ``dst``."""
+    place (the stale buffer); fills ``trace`` rows when given.  Returns
+    ``dst``."""
     dev = src.device
     span = plan.coarsen * block
     h = halo
@@ -170,9 +221,10 @@ def ca_launch_plain(src: torch.Tensor, dst: torch.Tensor, plan: GridPlan,
         bx, by, valid = plan.step_coords(start, stop, dev)
         T = stop - start
         P = torch.zeros((T, wid, wid), dtype=src.dtype, device=dev)
-        for j, (dx, dy) in [(None, (0, 0))] + list(enumerate(NEIGHBOR_OFFSETS8)):
-            row, col = (plan.storage_index(start, stop, dev) if j is None
-                        else plan.neighbor_index(j, start, stop, dev))
+        tiles = _ca_tiles(plan, start, stop, dev)
+        if trace is not None:
+            record_ca_trace(trace, plan, start, bx, by, valid, tiles)
+        for dx, dy, row, col in tiles:
             tile = flat_src[storage_offsets(plan, row, col, block, dev)]
             e = torch.zeros((T, span, span), dtype=src.dtype, device=dev)
             e[:, oy, ox] = tile  # packed -> embedded arrangement
@@ -226,12 +278,18 @@ _SIGNATURES = {
                                   ctypes.c_float, _I] + [_P] * 5,
                                  ctypes.c_int),
         "sc_scratch_bytes": ([_P, _I, _I], _LL)},
+    "sierpinski_ca_trace": {
+        "sc_ca_launch_trace": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                ctypes.c_float, _I, _P, _P, _P],
+                               ctypes.c_int),
+        "sc_scratch_bytes": ([_P, _I, _I], _LL)},
 }
 
 
 def _lib(name: str = "sierpinski_ca") -> ctypes.CDLL:
     """The loaded library ``name`` (or its sharded half,
-    ``"sierpinski_ca_sharded"``), its entry points typed."""
+    ``"sierpinski_ca_sharded"``, or its trace build,
+    ``"sierpinski_ca_trace"``), its entry points typed."""
     lib = _cuda.load(name)
     if not getattr(lib, "_repro_bound", False):
         for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
@@ -300,11 +358,15 @@ def _check_cuda(src: torch.Tensor, dst: torch.Tensor,
 
 def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
             halo: int, steps: int, rule: str, alpha: float,
-            num_stages: int = 1) -> torch.Tensor:
+            num_stages: int = 1, trace=None) -> torch.Tensor:
     """Launch the fused CA kernel once: read ``src``, write the advanced
     member supertiles into ``dst`` in place, gathering the working tiles
-    through a ring of ``num_stages`` slots (1 to ``MAX_STAGES``).
-    Returns ``dst``."""
+    through a ring of ``num_stages`` slots (1 to ``MAX_STAGES``); with
+    ``trace`` rows, its trace build (:func:`ca_trace_cuda`).  Returns
+    ``dst``."""
+    if trace is not None:
+        return ca_trace_cuda(src, dst, p, halo, steps, rule, alpha,
+                             num_stages, trace)
     _check_cuda(src, dst, p)
     _cuda.check_tables(src, p)
     lib = _lib()
@@ -317,6 +379,27 @@ def ca_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
 
 
 ca_cuda.launches = 0
+
+
+def ca_trace_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
+                  halo: int, steps: int, rule: str, alpha: float,
+                  num_stages: int, trace: torch.Tensor) -> torch.Tensor:
+    """Launch the fused CA kernel's trace build once: the launch of
+    :func:`ca_cuda`, bit for bit, which also fills the ``trace`` row of
+    every step it computes (:data:`_cuda.TRACE_COLUMNS`).  Returns
+    ``dst``."""
+    _check_cuda(src, dst, p)
+    _cuda.check_tables(src, p)
+    _cuda.check_trace(src, p.steps, trace)
+    lib = _lib("sierpinski_ca_trace")
+    status = _launch(lib, "sc_ca_launch_trace", src, dst, p, halo, steps,
+                     rule, alpha, num_stages, (trace.data_ptr(),))
+    ca_trace_cuda.launches += 1
+    _cuda.raise_on(lib, status, "fused CA trace kernel")
+    return dst
+
+
+ca_trace_cuda.launches = 0
 
 
 def ca_shard_cuda(src: torch.Tensor, dst: torch.Tensor, p: LaunchParams,
@@ -359,10 +442,13 @@ KERNELS = {"sierpinski_ca_fused": ca_cuda,
            "mma_decode_chains": _cuda.MMA_CHAINS}
 #: the sharded kernel's wrapper (the mesh path), counted apart
 SHARDED_KERNELS = {"sierpinski_ca_fused_sharded": ca_shard_cuda}
+#: the trace build's wrapper (the access sanitizer's), counted apart
+TRACE_KERNELS = {"sierpinski_ca_fused_trace": ca_trace_cuda}
 
 
 def reset_launch_counts() -> None:
-    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values()):
+    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values(),
+               *TRACE_KERNELS.values()):
         fn.launches = 0
 
 
@@ -372,6 +458,10 @@ def launch_counts() -> dict:
 
 def shard_launch_counts() -> dict:
     return {name: fn.launches for name, fn in SHARDED_KERNELS.items()}
+
+
+def trace_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in TRACE_KERNELS.items()}
 
 
 def check_ca_against_plain(src: torch.Tensor, dst: torch.Tensor,
@@ -470,7 +560,7 @@ def ca_run_rank_compact(a: torch.Tensor, b: torch.Tensor, view, n: int,
 
 def _ca_run_sharded(state, stale_buf, steps, *, fuse, rule, alpha, block,
                     grid_mode, fractal, storage, n, domain, coarsen,
-                    stages, mesh, shard_axis):
+                    stages, mesh, shard_axis, verify=False):
     """The mesh run of :func:`ca_run` (bit-identical to the
     single-device run)."""
     from repro_torch.distributed import collectives
@@ -482,6 +572,8 @@ def _ca_run_sharded(state, stale_buf, steps, *, fuse, rule, alpha, block,
         state, mesh, shard_axis, block=block, grid_mode=grid_mode,
         fractal=fractal, storage=storage, n=n, domain=domain,
         coarsen=coarsen, halo=storage == "compact")
+    if verify:
+        verify_launch(view, "ca", state.device)
     fuse = effective_fuse(fuse, steps, block, view.coarsen)
     sched = launch_schedule(steps, fuse)
     if not sched:
@@ -616,8 +708,8 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
     key names the shard count).  ``mesh=`` shards the run (module
     docstring); ``donate`` does not apply there: the result is always a
     new tensor and both buffers are left as they were.  ``verify=True``
-    raises ``NotImplementedError`` naming A13."""
-    check_unported(verify=verify)
+    statically verifies the plan before the first launch (module
+    docstring)."""
     grid_mode, fuse, coarsen, num_stages = auto_schedule(
         fractal=fractal, n=n or state.shape[0], block=block, rule=rule,
         grid_mode=grid_mode, fuse=fuse, coarsen=coarsen,
@@ -629,11 +721,13 @@ def ca_run(state: torch.Tensor, stale_buf: torch.Tensor, steps: int, *,
             block=block, grid_mode=grid_mode, fractal=fractal,
             storage=storage, n=n, domain=domain, coarsen=coarsen,
             stages=_check_stages(num_stages), mesh=mesh,
-            shard_axis=shard_axis)
+            shard_axis=shard_axis, verify=verify)
     plan, n, block, stages, p = check_run(
         state, stale_buf, rule=rule, block=block, grid_mode=grid_mode,
         fractal=fractal, storage=storage, n=n, domain=domain,
         coarsen=coarsen, num_stages=num_stages)
+    if verify:
+        verify_launch(plan, "ca", state.device)
     fuse = effective_fuse(fuse, steps, block, plan.coarsen)
     sched = launch_schedule(steps, fuse)
     if not sched:

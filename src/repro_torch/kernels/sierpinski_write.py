@@ -58,8 +58,15 @@ its in-order combine, then one sum over the ranks: exact on
 integer-valued states, a float reassociation otherwise.  On the card each
 rank launches the sharded kernels (``sw_write_sharded``,
 ``sw_sum_partials_sharded``); :func:`write_rank` / :func:`sum_rank` run
-one rank's share without a process group.  Not ported yet, and raising
-``NotImplementedError`` naming the roadmap item: ``verify=True`` (A13).
+one rank's share without a process group.
+
+``verify=True`` statically verifies the plan before any launch
+(:func:`repro_torch.analysis.verify_or_raise`, the ``"write"`` or
+``"sum"`` access model): the tables the launch will read are copied from
+the state's device and checked, and a failing plan raises
+``PlanVerificationError`` (a ``ValueError``) with nothing launched.
+Under ``mesh=`` each rank verifies the sharded plan it launches.  The
+flag never changes what is computed.
 """
 from __future__ import annotations
 
@@ -163,13 +170,12 @@ def prepare_launch(m: torch.Tensor, *, block: int = 128,
     return plan, n, block
 
 
-def check_unported(*, verify: bool = False) -> None:
-    """Raise NotImplementedError naming the roadmap item of an option the
-    port does not have yet: ``verify=True`` (A13)."""
-    if verify:
-        raise NotImplementedError(
-            "verify= (static plan verification) is not ported yet "
-            "(ROADMAP A13)")
+def verify_launch(plan: GridPlan, kernel: str, device) -> None:
+    """``verify=True``: statically verify ``plan`` under the access model
+    ``kernel`` against the tables its launch reads on ``device``; raises
+    ``PlanVerificationError`` on any finding."""
+    from repro_torch.analysis.verifier import verify_or_raise
+    verify_or_raise(plan, kernel=kernel, device=device)
 
 
 def resolve_auto_schedule(kernel: str, params: dict, *, device=None,
@@ -253,11 +259,77 @@ def storage_offsets(plan: GridPlan, row, col, block: int, device):
         + col[:, None, None] * tw + ix
 
 
-def _tile_chunks(plan: GridPlan, n: int, block: int, device):
+def record_trace(trace: torch.Tensor, start: int, bx, by, valid, *,
+                 store=None, loads=(), slot: bool = False,
+                 live_only: bool = False) -> None:
+    """Fill the trace rows of steps [start, start + len(bx)) from the
+    index tensors a plain version addresses memory with, as the trace
+    builds of the kernels fill them (:data:`_cuda.TRACE_COLUMNS`): one
+    visit a step (a live step only, with ``live_only``: the CA), live,
+    the block and ``store`` = (row, col) of a live step, ``loads`` =
+    ((origin slot, row, col, valid or None), ...) of a live step (-1
+    where not valid), and with ``slot`` the step's own id."""
+    stop = start + len(bx)
+    rows = trace[start:stop]
+    live = torch.ones(len(bx), dtype=torch.bool, device=bx.device) \
+        if valid is None else valid
+    if live_only:
+        rows[live, 0] += 1
+        rows[live, 1] = 1
+    else:
+        rows[:, 0] += 1
+        rows[:, 1] = live.to(torch.int32)
+    cols = [(2, bx), (3, by)]
+    if store is not None:
+        cols += [(4, store[0]), (5, store[1])]
+    for o, r, c, ok in loads:
+        k = _cuda.TRACE_LOADS + 2 * o
+        if ok is not None:
+            r = torch.where(ok, r, -1)
+            c = torch.where(ok, c, -1)
+        cols += [(k, r), (k + 1, c)]
+    for col, v in cols:
+        rows[live, col] = v[live].to(torch.int32)
+    if slot:
+        rows[:, 6] = torch.arange(start, stop, dtype=torch.int32,
+                                  device=bx.device)
+
+
+def _record_tiles(trace, kind: str, start: int, bx, by, valid, row,
+                  col) -> None:
+    """The trace rows of a chunk of write (``kind`` "write": the stored
+    tile) or sum steps (the read tile and the partial)."""
+    if kind == "write":
+        record_trace(trace, start, bx, by, valid, store=(row, col))
+    else:
+        record_trace(trace, start, bx, by, valid, slot=True,
+                     loads=((4, row, col, None),))
+
+
+def trace_plain(plan: GridPlan, kind: str, device) -> torch.Tensor:
+    """The trace rows a write (``kind`` "write") or sum launch of
+    ``plan`` fills, from the plain version's index tensors, without
+    touching a state: what the kernel's trace build must write for the
+    same plan."""
+    steps = plan.steps_per_launch
+    trace = _cuda.trace_rows(steps, device)
+    per = 1 << 20
+    for start in range(0, steps, per):
+        stop = min(steps, start + per)
+        bx, by, valid = plan.step_coords(start, stop, device)
+        row, col = plan.storage_index(start, stop, device)
+        _record_tiles(trace, kind, start, bx, by, valid, row, col)
+    return trace
+
+
+def _tile_chunks(plan: GridPlan, n: int, block: int, device, trace=None,
+                 kind: str = "write"):
     """Yield ``(flat, mask)`` per chunk of grid steps, in step order:
     the int64 offsets into the state array of every cell of each step's
     storage supertile, shaped (steps, th, tw), and its cell-membership
-    mask (all False for a discarded bounding step)."""
+    mask (all False for a discarded bounding step).  With ``trace``
+    rows, each chunk's rows are filled from the same index tensors: the
+    stored tile of a write, the read tile and the partial of a sum."""
     th, tw = plan.supertile_shape((block, block))
     span = plan.coarsen * block
     oy, ox = supertile_offsets(plan, block, device)
@@ -267,6 +339,8 @@ def _tile_chunks(plan: GridPlan, n: int, block: int, device):
         stop = min(steps, start + per)
         bx, by, valid = plan.step_coords(start, stop, device)
         row, col = plan.storage_index(start, stop, device)
+        if trace is not None:
+            _record_tiles(trace, kind, start, bx, by, valid, row, col)
         gx = bx[:, None, None] * span + ox
         gy = by[:, None, None] * span + oy
         mask = plan.domain.cell_member(gx, gy, n)
@@ -276,23 +350,26 @@ def _tile_chunks(plan: GridPlan, n: int, block: int, device):
 
 
 def sierpinski_write_plain(m: torch.Tensor, value, plan: GridPlan, n: int,
-                           block: int) -> torch.Tensor:
+                           block: int, trace=None) -> torch.Tensor:
     """Plain version of the write kernel, in place like it: decode every
-    step, mask its tile, scatter ``value`` into the member cells."""
+    step, mask its tile, scatter ``value`` into the member cells (and
+    fill ``trace`` rows, when given, as the trace build does)."""
     v = _value_of(value, m.dtype).item()
     flat = m.view(-1)
-    for offs, mask in _tile_chunks(plan, n, block, m.device):
+    for offs, mask in _tile_chunks(plan, n, block, m.device, trace,
+                                   "write"):
         flat.index_fill_(0, offs[mask], v)
     return m
 
 
 def sum_partials_plain(m: torch.Tensor, plan: GridPlan, n: int,
-                       block: int) -> torch.Tensor:
+                       block: int, trace=None) -> torch.Tensor:
     """Plain version of the tile-reduce kernel: the (steps,) f32 sums of
-    each step's member cells (0 for a discarded bounding step)."""
+    each step's member cells (0 for a discarded bounding step); fills
+    ``trace`` rows when given."""
     flat = m.view(-1)
     parts = []
-    for offs, mask in _tile_chunks(plan, n, block, m.device):
+    for offs, mask in _tile_chunks(plan, n, block, m.device, trace, "sum"):
         tiles = torch.where(mask, flat[offs], 0).to(torch.float32)
         parts.append(tiles.sum(dim=(1, 2)))
     if not parts:  # a rank of a sharded plan that owns nothing
@@ -335,12 +412,16 @@ _SIGNATURES = {
     "sierpinski_write_sharded": {
         "sw_write_sharded": [_P, _I, ctypes.c_uint] + [_P] * 8,
         "sw_sum_partials_sharded": [_P, _I] + [_P] * 9},
+    "sierpinski_write_trace": {
+        "sw_write_trace": [_P, _I, ctypes.c_uint, _P, _P, _P, _P, _P, _P],
+        "sw_sum_partials_trace": [_P, _I, _P, _P, _P, _P, _P, _P, _P]},
 }
 
 
 def _lib(name: str = "sierpinski_write") -> ctypes.CDLL:
     """The loaded library ``name`` (or its sharded half,
-    ``"sierpinski_write_sharded"``), its entry points typed."""
+    ``"sierpinski_write_sharded"``, or its trace build,
+    ``"sierpinski_write_trace"``), its entry points typed."""
     lib = _cuda.load(name)
     if not getattr(lib, "_repro_bound", False):
         for fn_name, argtypes in _SIGNATURES[name].items():
@@ -379,9 +460,13 @@ def _value_bits(m: torch.Tensor, value) -> int:
     return bits & ((1 << (8 * m.element_size())) - 1)
 
 
-def write_cuda(m: torch.Tensor, value, p: LaunchParams) -> torch.Tensor:
+def write_cuda(m: torch.Tensor, value, p: LaunchParams,
+               trace=None) -> torch.Tensor:
     """Launch the write kernel on ``m`` in place (predicated stores of
-    ``value`` into member cells; nothing else is read or written)."""
+    ``value`` into member cells; nothing else is read or written); with
+    ``trace`` rows, its trace build (:func:`write_trace_cuda`)."""
+    if trace is not None:
+        return write_trace_cuda(m, value, p, trace)
     _check_kernel_args(m, p)
     bits = _value_bits(m, value)
     lib = _lib()
@@ -399,8 +484,34 @@ def write_cuda(m: torch.Tensor, value, p: LaunchParams) -> torch.Tensor:
 write_cuda.launches = 0
 
 
-def sum_partials_cuda(m: torch.Tensor, p: LaunchParams) -> torch.Tensor:
-    """Launch the tile-reduce kernel: (steps,) f32 partial sums."""
+def write_trace_cuda(m: torch.Tensor, value, p: LaunchParams,
+                     trace: torch.Tensor) -> torch.Tensor:
+    """Launch the write kernel's trace build: the write of
+    :func:`write_cuda`, bit for bit, which also fills each grid step's
+    ``trace`` row (:data:`_cuda.TRACE_COLUMNS`)."""
+    _check_kernel_args(m, p)
+    _cuda.check_trace(m, p.steps, trace)
+    bits = _value_bits(m, value)
+    lib = _lib("sierpinski_write_trace")
+    with torch.cuda.device(m.device):
+        status = lib.sw_write_trace(
+            m.data_ptr(), m.element_size(), bits, _cuda.param_array(p),
+            _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm), _cuda.ptr(p.mma_ops),
+            trace.data_ptr(), _stream(m.device))
+    write_trace_cuda.launches += 1
+    _cuda.raise_on(lib, status, "sierpinski write trace kernel")
+    return m
+
+
+write_trace_cuda.launches = 0
+
+
+def sum_partials_cuda(m: torch.Tensor, p: LaunchParams,
+                      trace=None) -> torch.Tensor:
+    """Launch the tile-reduce kernel: (steps,) f32 partial sums; with
+    ``trace`` rows, its trace build (:func:`sum_partials_trace_cuda`)."""
+    if trace is not None:
+        return sum_partials_trace_cuda(m, p, trace)
     _check_kernel_args(m, p)
     partials = torch.empty(p.steps, dtype=torch.float32, device=m.device)
     lib = _lib()
@@ -417,6 +528,28 @@ def sum_partials_cuda(m: torch.Tensor, p: LaunchParams) -> torch.Tensor:
 
 
 sum_partials_cuda.launches = 0
+
+
+def sum_partials_trace_cuda(m: torch.Tensor, p: LaunchParams,
+                            trace: torch.Tensor) -> torch.Tensor:
+    """Launch the tile-reduce kernel's trace build: the partials of
+    :func:`sum_partials_cuda`, bit for bit, and each step's ``trace``
+    row."""
+    _check_kernel_args(m, p)
+    _cuda.check_trace(m, p.steps, trace)
+    partials = torch.empty(p.steps, dtype=torch.float32, device=m.device)
+    lib = _lib("sierpinski_write_trace")
+    with torch.cuda.device(m.device):
+        status = lib.sw_sum_partials_trace(
+            m.data_ptr(), DTYPES[m.dtype], partials.data_ptr(),
+            _cuda.param_array(p), _cuda.ptr(p.lut), _cuda.ptr(p.tile_perm),
+            _cuda.ptr(p.mma_ops), trace.data_ptr(), _stream(m.device))
+    sum_partials_trace_cuda.launches += 1
+    _cuda.raise_on(lib, status, "sierpinski sum partials trace kernel")
+    return partials
+
+
+sum_partials_trace_cuda.launches = 0
 
 
 def sum_combine_cuda(partials: torch.Tensor) -> torch.Tensor:
@@ -496,10 +629,14 @@ KERNELS = {"sierpinski_write": write_cuda,
 #: the sharded kernels' wrappers (the mesh paths), counted apart
 SHARDED_KERNELS = {"sierpinski_write_sharded": write_shard_cuda,
                    "sierpinski_sum_partials_sharded": sum_partials_shard_cuda}
+#: the trace builds' wrappers (the access sanitizer's), counted apart
+TRACE_KERNELS = {"sierpinski_write_trace": write_trace_cuda,
+                 "sierpinski_sum_partials_trace": sum_partials_trace_cuda}
 
 
 def reset_launch_counts() -> None:
-    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values()):
+    for fn in (*KERNELS.values(), *SHARDED_KERNELS.values(),
+               *TRACE_KERNELS.values()):
         fn.launches = 0
 
 
@@ -509,6 +646,10 @@ def launch_counts() -> dict:
 
 def shard_launch_counts() -> dict:
     return {name: fn.launches for name, fn in SHARDED_KERNELS.items()}
+
+
+def trace_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in TRACE_KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -649,10 +790,12 @@ def mesh_plan(m, mesh, shard_axis, **kw):
 
 
 def _write_sharded(m: torch.Tensor, value, mesh, shard_axis: str,
-                   **kw) -> torch.Tensor:
+                   verify: bool = False, **kw) -> torch.Tensor:
     """The mesh write of :func:`sierpinski_write_`: ``m`` in place."""
     from repro_torch.distributed import collectives
     view, n, block, group = mesh_plan(m, mesh, shard_axis, **kw)
+    if verify:
+        verify_launch(view, "write", m.device)
     if view.storage == "compact":
         local = view.slab(m, block).clone()
         write_rank(local, value, view, n, block)
@@ -668,10 +811,12 @@ def _write_sharded(m: torch.Tensor, value, mesh, shard_axis: str,
 
 
 def _sum_sharded(m: torch.Tensor, mesh, shard_axis: str,
-                 **kw) -> torch.Tensor:
+                 verify: bool = False, **kw) -> torch.Tensor:
     """The mesh sum of :func:`sierpinski_sum`."""
     from repro_torch.distributed import collectives
     view, n, block, group = mesh_plan(m, mesh, shard_axis, **kw)
+    if verify:
+        verify_launch(view, "sum", m.device)
     local = view.slab(m, block) if view.storage == "compact" else m
     return collectives.all_reduce_sum(sum_rank(local, view, n, block),
                                       group)
@@ -700,18 +845,19 @@ def sierpinski_write_(m: torch.Tensor, value=1.0, *, block: int = 128,
     fractal).  ``"auto"``, ``num_stages``, ``mesh``, ``shard_axis`` and
     ``verify`` as in the module docstring.  A CUDA ``m`` launches the
     kernel; a CPU ``m`` runs the plain version."""
-    check_unported(verify=verify)
     grid_mode, coarsen = _write_schedule(m, fractal, n, block, grid_mode,
                                          coarsen, num_stages, mesh,
                                          shard_axis)
     if mesh is not None:
-        return _write_sharded(m, value, mesh, shard_axis, block=block,
-                              grid_mode=grid_mode, fractal=fractal,
-                              storage=storage, n=n, domain=domain,
-                              coarsen=coarsen)
+        return _write_sharded(m, value, mesh, shard_axis, verify,
+                              block=block, grid_mode=grid_mode,
+                              fractal=fractal, storage=storage, n=n,
+                              domain=domain, coarsen=coarsen)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
+    if verify:
+        verify_launch(plan, "write", m.device)
     if not plan.target.kernels:
         return _cuda.launch("sierpinski_write", plan, block, m,
                             sierpinski_write_plain, m, value, plan, n, block)
@@ -742,18 +888,19 @@ def sierpinski_sum(m: torch.Tensor, *, block: int = 128,
     grid-step order (lambda order, or row-major over the bounding box),
     the JAX package's order.  Options (and the ``"write"`` tune entry) as
     :func:`sierpinski_write_`."""
-    check_unported(verify=verify)
     grid_mode, coarsen = _write_schedule(m, fractal, n, block, grid_mode,
                                          coarsen, num_stages, mesh,
                                          shard_axis)
     if mesh is not None:
-        return _sum_sharded(m, mesh, shard_axis, block=block,
+        return _sum_sharded(m, mesh, shard_axis, verify, block=block,
                             grid_mode=grid_mode, fractal=fractal,
                             storage=storage, n=n, domain=domain,
                             coarsen=coarsen)
     plan, n, block = prepare_launch(m, block=block, grid_mode=grid_mode,
                                     fractal=fractal, storage=storage, n=n,
                                     domain=domain, coarsen=coarsen)
+    if verify:
+        verify_launch(plan, "sum", m.device)
     if not plan.target.kernels:
         return sum_combine_plain(_cuda.launch(
             "sierpinski_sum", plan, block, None, sum_partials_plain, m, plan,

@@ -416,7 +416,8 @@ def decode_attention_paged(q, kv_pool, page_table, pos, *,
                            window: int = 0,
                            scale: Optional[float] = None,
                            grid_mode: str = "compact", mesh=None,
-                           shard_axis: Optional[str] = None):
+                           shard_axis: Optional[str] = None,
+                           verify: bool = False):
     """Paged single-token decode through the block-space paged kernel.
 
     q: (B,H,1,D) slot queries; kv_pool: (P, 2*Hkv, page_size, D) fused
@@ -427,10 +428,11 @@ def decode_attention_paged(q, kv_pool, page_table, pos, *,
     ``mesh`` (default: the registered serving mesh) shards the slot
     axis: each rank decodes its contiguous slot group against its
     page-table rows, the pool whole on every rank, and the groups are
-    gathered.  A batch that does not tile the axis runs unsharded."""
+    gathered.  A batch that does not tile the axis runs unsharded.
+    ``verify=True`` verifies each launch's plan first."""
     from repro_torch.kernels.flash_attention import paged_flash_attention
     b = q.shape[0]
-    kw = dict(window=window, scale=scale, grid_mode=grid_mode)
+    kw = dict(window=window, scale=scale, grid_mode=grid_mode, verify=verify)
     group = _slot_group(b, mesh, shard_axis, q, kv_pool)
     if group is None:
         return paged_flash_attention(q, kv_pool, page_table, pos, **kw)

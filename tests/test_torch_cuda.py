@@ -1485,3 +1485,91 @@ def test_sharded_flash_tile_paths_match_plain(dev, dtype, d, kind, balance):
                     FA.band_queries(q, sched, band), k, v, sched, band)
                 launches += 1
     assert FA.shard_launch_counts()["flash_attention_sharded"] == launches
+
+
+# ---------------------------------------------------------------------------
+# the access sanitizer's trace builds and verify= on the card
+# ---------------------------------------------------------------------------
+
+def _trace_case(kernel, grid_mode, storage, coarsen, domain, dev,
+                **extra):
+    """(entry call, block) of one launch at a small shape."""
+    from repro_torch.core.domain import SierpinskiDomain, TriangularDomain
+    block = 4
+    dom = SierpinskiDomain(16) if domain == "gasket" else TriangularDomain(8)
+    n = dom.bounding_box[1] * block
+    lay = compact_layout(dom)
+    x = _state(n, torch.float32, 5, dev).abs() % 2
+    m = lay.pack(x, block) if storage == "compact" else x
+    kw = dict(block=block, grid_mode=grid_mode, storage=storage, n=n,
+              domain=dom, coarsen=coarsen, num_stages=1, **extra)
+    if kernel == "write":
+        return lambda: TW.sierpinski_write(m, 3.0, **kw), block
+    if kernel == "sum":
+        return lambda: TW.sierpinski_sum(m, **kw), block
+    return lambda: TC.ca_run(m, torch.zeros_like(m), 1, fuse=1,
+                             donate=False, **kw), block
+
+
+@pytest.mark.parametrize("kernel", ["write", "sum", "ca"])
+@pytest.mark.parametrize("grid_mode", LOWERINGS)
+@pytest.mark.parametrize("storage,coarsen,domain", [
+    ("embedded", 1, "gasket"), ("compact", 1, "gasket"),
+    ("compact", 2, "gasket"), ("embedded", 1, "triangle"),
+    ("compact", 1, "triangle")])
+def test_trace_kernels_match_plain_rows(dev, kernel, grid_mode, storage,
+                                        coarsen, domain):
+    """The trace build's output is the untraced kernel's, bit for bit,
+    and its rows are the plain version's rows for the same plan."""
+    from repro_torch.analysis.sanitizer import AccessTrace, plain_trace
+    run, _ = _trace_case(kernel, grid_mode, storage, coarsen, domain, dev)
+    untraced = run()
+    TW.reset_launch_counts()
+    TC.reset_launch_counts()
+    with AccessTrace() as tr:
+        traced = run()
+    assert tr.crosscheck() == []
+    assert torch.equal(traced, untraced)
+    (launch,) = tr.launches
+    assert torch.equal(launch.trace,
+                       plain_trace(launch.plan, kernel, dev))
+    counts = {**TW.trace_launch_counts(), **TC.trace_launch_counts()}
+    name = {"write": "sierpinski_write_trace",
+            "sum": "sierpinski_sum_partials_trace",
+            "ca": "sierpinski_ca_fused_trace"}[kernel]
+    assert counts[name] == 1 and sum(counts.values()) == 1
+
+
+@pytest.mark.parametrize("kernel", ["write", "sum", "ca"])
+def test_verify_flag_refuses_a_corrupt_device_lut(dev, kernel):
+    """verify=True reads the LUT the launch would read on the card: two
+    swapped rows raise before any launch, and the sanitizer flags the
+    same rows from the trace kernel's rows (every address stays valid)."""
+    from repro_torch.analysis import PlanVerificationError, verify_launches
+    from repro_torch.core import memo
+    from repro_torch.core.domain import SierpinskiDomain
+    from repro_torch.core.plan import GridPlan
+    case = ("prefetch_lut", "compact", 1, "gasket", dev)
+    run, block = _trace_case(kernel, *case)
+    checked, _ = _trace_case(kernel, *case, verify=True)
+    want = run()
+    assert torch.equal(checked(), want)
+    memo.clear()
+    try:
+        plan = GridPlan(SierpinskiDomain(16), "prefetch_lut",
+                        storage="compact", backend=dev)
+        lut = plan.launch_params(64, block, dev).lut
+        row9 = lut[9].clone()    # steps 9 and 10 trade their blocks
+        lut[9] = lut[10]
+        lut[10] = row9
+        TW.reset_launch_counts()
+        TC.reset_launch_counts()
+        with pytest.raises(PlanVerificationError):
+            checked()
+        assert sum(TW.launch_counts().values()) == 0
+        assert sum(TC.launch_counts().values()) == 0
+        _, findings = verify_launches(run, strict=False)
+        assert any("step 9 decoded block" in f.detail for f in findings)
+    finally:
+        memo.clear()
+    assert torch.equal(run(), want)

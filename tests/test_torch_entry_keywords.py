@@ -2,13 +2,14 @@
 
 ``num_stages``, ``mesh``, ``shard_axis`` and ``verify`` are in the
 reference's signatures (``repro.kernels.sierpinski_write`` /
-``sierpinski_ca``).  The port takes them all: what it has not ported
-raises ``NotImplementedError`` naming the roadmap item that brings it
-(``verify=True``: A13), a ``mesh`` that is not a mesh raises the
-reference's own error (an object with no ``shape``: ``AttributeError``),
-``shard_axis`` alone changes nothing, ``"auto"`` on an untuned problem
-gives the reference's defaults, and write and sum, which have no ring,
-give the bits of the call without ``num_stages`` at every integer depth.
+``sierpinski_ca``).  The port takes them all: ``verify=True`` verifies
+the plan and gives the bits of the call without it (the reference's
+``verify=True`` call runs beside it), a ``mesh`` that is not a mesh
+raises the reference's own error (an object with no ``shape``:
+``AttributeError``), ``shard_axis`` alone changes nothing, ``"auto"`` on
+an untuned problem gives the reference's defaults, and write and sum,
+which have no ring, give the bits of the call without ``num_stages`` at
+every integer depth.
 (Sharded runs on real meshes: ``tests/test_torch_mesh.py``.)
 """
 import importlib
@@ -69,7 +70,7 @@ def _call_ref(entry, **kw):
 CASES = [(dict(num_stages="auto"), None), (dict(coarsen="auto"), None),
          (dict(mesh=object()), AttributeError),
          (dict(mesh=object(), shard_axis="model"), AttributeError),
-         (dict(verify=True), "A13"), (dict(shard_axis="model"), None),
+         (dict(verify=True), None), (dict(shard_axis="model"), None),
          (dict(verify=False, mesh=None), None), (dict(num_stages=1), None),
          (dict(num_stages=3), None)]
 
@@ -92,8 +93,11 @@ def test_unported_keywords_name_their_roadmap_item(entry, kw, item,
         with pytest.raises(NotImplementedError, match=item):
             _call(entry, **kw)
         return
-    # write and sum have no ring, the CA's depths give the same bits, and
-    # an untuned "auto" is the default
+    if kw.get("verify"):
+        # the reference verifies the same plan and runs
+        assert _call_ref(entry, **kw) is not None
+    # write and sum have no ring, the CA's depths give the same bits, an
+    # untuned "auto" is the default, and verify= changes nothing
     assert torch.equal(_call(entry, **kw), _call(entry))
 
 

@@ -160,7 +160,7 @@ def test_flash_unported_options_name_their_roadmap_item(monkeypatch,
                      (dict(grid_mode="auto", kind="local", window=16), None),
                      (dict(num_stages=2), None), (dict(block_q="auto"), None),
                      (dict(mesh=object()), AttributeError),
-                     (dict(verify=True), "A13")):
+                     (dict(verify=True), None)):
         if isinstance(item, type):
             # an object that is not a mesh: the reference's own error
             with pytest.raises(item):

@@ -18,7 +18,10 @@ same result.  Covered, after ``tests/test_shard.py``:
   and within 1e-5 relative on normal ones;
 * flash attention under ``rows`` and ``zigzag`` bit-equal to the
   unsharded plain run and within 2e-5 of tpu-interpret ``repro``;
-* the JAX package's refusals and the meshes themselves.
+* the JAX package's refusals and the meshes themselves;
+* ``verify=True`` on the mesh: the bits of ``verify=False``, the
+  sharded searches' candidates unchanged, and a corrupted ghost map
+  refused on every rank before any exchange.
 """
 import importlib
 import types
@@ -277,6 +280,21 @@ def test_sharded_refusals_and_meshes():
         # the production meshes need 256 / 512 ranks
         assert "product of mesh_shape (16, 16)" in m["errors"][3]
         assert "product of mesh_shape (2, 16, 16)" in m["errors"][4]
+
+
+@pytest.mark.parametrize("D", (2, 3))
+def test_verify_flag_on_the_mesh(D):
+    rng = np.random.default_rng(2)
+    m = _pack(rng.integers(-8, 9, (N, N)).astype(np.float32))
+    x = _pack(fractal_state("sierpinski-gasket", N, True))
+    q = rng.normal(size=(1, 2, 192, 8)).astype(np.float32)
+    got = run_ranks(R.verify_cases, D, m, x, q)
+    for runs, searched, refused in got:
+        assert [name for name, _, _ in runs] == ["write", "sum", "ca_run",
+                                                 "flash"]
+        assert all(equal and same for _, equal, same in runs), runs
+        assert searched == {"write": True, "ca": True}
+        assert refused is not None and "launch ghost map" in refused
 
 
 class _ShapeMesh:

@@ -232,11 +232,25 @@ def test_measure_times_on_the_cpu():
     assert us >= 0 and len(calls) == TT.MEASURE_WARMUP + TT.MEASURE_ITERS
 
 
-def test_searchers_name_the_unported_options():
-    for fn in (TT.autotune_ca, TT.autotune_write, TT.autotune_flash,
-               TT.autotune_paged):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn(verify=True, device="cpu")
+SEARCHES = {
+    "ca": lambda **k: TT.autotune_ca(n=16, block=8, steps=2, max_fuse=2,
+                                     max_coarsen=2, **k),
+    "write": lambda **k: TT.autotune_write(n=16, block=4, max_coarsen=2,
+                                           **k),
+    "flash": lambda **k: TT.autotune_flash(sq=64, d=8, heads=2,
+                                           blocks=(16, 32), **k),
+    "paged": lambda **k: TT.autotune_paged(batch=2, heads=2, seq=32, d=8,
+                                           page_sizes=(8, 16), **k)}
+
+
+def test_searchers_name_the_unported_options(tmp_path):
+    """``verify=True`` on each searcher: every candidate's plan verifies,
+    so the candidate set is the one searched without it."""
+    for name, search in SEARCHES.items():
+        runs = [search(verify=v, force=True, device="cpu",
+                       cache=TT.TuneCache(str(tmp_path / f"{name}{v}.json")))
+                for v in (False, True)]
+        assert [t for t, _ in runs[1][2]] == [t for t, _ in runs[0][2]], name
     # an object that is not a mesh: the reference's own error (its
     # searchers read mesh.shape through shard_params); the paged searcher
     # tunes the serving mesh's slot-sharded decode with a mesh
@@ -245,6 +259,63 @@ def test_searchers_name_the_unported_options():
         with pytest.raises(AttributeError):
             fn(mesh=object(), device="cpu")
     assert TT.shard_params({"n": 1}, None, "data") == {"n": 1}
+
+
+def test_autotune_rejects_failing_candidates(tmp_path):
+    # tests/test_analysis.py's case
+    from repro_torch.analysis import PlanVerificationError
+    measured = []
+
+    def build(cfg):
+        return lambda: measured.append(cfg["x"])
+
+    def vfy(cfg):
+        if cfg["x"] == "bad":
+            raise PlanVerificationError("seeded verification failure")
+
+    cfg, us, trials = TT.autotune(
+        "_test", {"p": 1}, [{"x": "bad"}, {"x": "good"}], build,
+        cache=TT.TuneCache(str(tmp_path / "t.json")), verify=vfy,
+        device="cpu")
+    assert cfg == {"x": "good"}
+    assert all(t[0] == {"x": "good"} for t in trials)
+    assert "bad" not in measured              # rejected before measuring
+
+
+def test_autotune_all_rejected_raises(tmp_path):
+    from repro_torch.analysis import PlanVerificationError
+
+    def vfy(cfg):
+        raise PlanVerificationError("seeded")
+
+    with pytest.raises(ValueError, match="no viable candidate"):
+        TT.autotune("_test", {"p": 1}, [{"x": 1}],
+                    lambda cfg: (lambda: None),
+                    cache=TT.TuneCache(str(tmp_path / "t.json")),
+                    verify=vfy, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["ca", "write", "flash", "paged"])
+def test_searchers_reject_a_plan_that_fails_verification(name, tmp_path,
+                                                         monkeypatch):
+    """A plan the verifier fails -- every mma plan, here -- is rejected by
+    ``verify=True`` and never measured; without it the same candidates
+    are timed."""
+    from repro_torch.analysis import verifier as TV
+    real = TV.verify_plan
+
+    def fail_mma(plan, **kw):
+        report = real(plan, **kw)
+        if plan.lowering == "mma":
+            report.findings.append(TV.Finding("table", "seeded"))
+        return report
+    monkeypatch.setattr(TV, "verify_plan", fail_mma)
+    cache = TT.TuneCache(str(tmp_path / "t.json"))
+    _, _, trials = SEARCHES[name](verify=True, cache=cache, device="cpu")
+    assert trials and all(t["lowering"] != "mma" for t, _ in trials)
+    _, _, every = SEARCHES[name](verify=False, cache=cache, force=True,
+                                 device="cpu")
+    assert any(t["lowering"] == "mma" for t, _ in every)
 
 
 def test_tune_keys_qualified_by_shard_count(monkeypatch, tmp_path):

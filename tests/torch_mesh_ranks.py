@@ -100,6 +100,66 @@ def flash_refusals(rank, world, cases):
     return out
 
 
+def verify_cases(rank, world, m, x, q):
+    """``verify=True`` on the mesh: write, sum, ca_run and flash give the
+    bits of ``verify=False`` [(name, bit-equal, same on every rank)]; the
+    sharded write and CA searches measure the candidates they measure
+    without it {name: same candidates}; then rank 0's launch ghost map
+    corrupted (in every rank's process) makes the sharded ca_run refuse
+    on every rank before any exchange: the refusal's message or None."""
+    import functools
+    import tempfile
+
+    from repro_torch.analysis import PlanVerificationError
+    from repro_torch.core import tune
+    from repro_torch.core.shard import ShardedPlan
+    mesh = _mesh(world)
+    m, x, q = (torch.from_numpy(t) for t in (m, x, q))
+    z = torch.zeros_like(x)
+    kw = dict(block=8, n=32)
+    calls = {
+        "write": lambda **o: SW.sierpinski_write(
+            m, 3.0, storage="compact", grid_mode="prefetch_lut", **kw, **o),
+        "sum": lambda **o: SW.sierpinski_sum(
+            m, storage="compact", grid_mode="mma", **kw, **o),
+        "ca_run": lambda **o: CA.ca_run(
+            x, z, 4, fuse=2, storage="compact", grid_mode="closed_form",
+            num_stages=2, **kw, **o),
+        "flash": lambda **o: FA.flash_attention(
+            q, q, q, kind="causal", block_q=16, block_k=16,
+            shard_balance="zigzag", **o)}
+    out = []
+    for name, call in calls.items():
+        want = call(mesh=mesh)
+        got = call(mesh=mesh, verify=True)
+        out.append((name, bool(torch.equal(got, want)),
+                    _same_on_every_rank(got.reshape(-1))))
+    searched = {}
+    for name in ("write", "ca"):
+        trials = []
+        for v in (False, True):
+            with tempfile.TemporaryDirectory() as d:
+                cache = tune.TuneCache(f"{d}/tune.json")
+                search = tune.autotune_write if name == "write" else \
+                    functools.partial(tune.autotune_ca, steps=2, max_fuse=2)
+                _, _, tr = search(n=32, block=8, max_coarsen=1,
+                                  storages=("compact",), mesh=mesh,
+                                  device="cpu", cache=cache, verify=v)
+            trials.append([c for c, _ in tr])
+        searched[name] = trials[0] == trials[1] and len(trials[0]) > 0
+    plan = ShardedPlan(SW.resolve_fractal_domain("sierpinski-gasket", 32, 8),
+                       "closed_form", storage="compact", backend="cpu",
+                       mesh=mesh, halo=True)
+    gmap = plan.for_rank(0).shard_params("cpu")[1]
+    gmap[int(torch.nonzero(gmap == plan.rpd)[0])] = 0
+    try:
+        calls["ca_run"](mesh=mesh, verify=True)
+        refused = None
+    except PlanVerificationError as e:
+        refused = str(e)
+    return out, searched, refused
+
+
 def mesh_checks(rank, world):
     """make_mesh / make_host_mesh / resolve_cli_mesh /
     make_production_mesh on a world of ``world`` CPU ranks: (axis
