@@ -295,7 +295,7 @@ Phases, each printing its own lines:
              prefill of seeded (4, 2048, D) embeddings and 16 decode
              steps on (4, 1, D) ones, blockspace (layers x steps
              launches) against xla, step logits within SERVE_TOL; (6)
-             each trained 2 steps (batch 1 x 2048) at 2 / 6 / 4 / 2
+             each trained 3 steps (batch 1 x 2048) at 2 / 6 / 4 / 2
              layers: finite losses, ms a step, peak
              (``python3 chip_smoke.py --ssm-only`` builds, then runs
              only this phase and prints no result);
@@ -352,9 +352,10 @@ Phases, each printing its own lines:
              rows equal to the plain version's, traced and untraced ms a
              launch); autotune_write / autotune_ca with verify=True
              against verify=False from fresh caches, and a failing plan
-             rejected; ``python -m repro_torch.analysis.verify --matrix
-             --device cuda`` exit 0 (``--verify-only`` runs only this
-             phase);
+             rejected; the verify CLI (``python -m
+             repro_torch.analysis.verify --matrix --device cuda``, its
+             main called in this process) exit 0 (``--verify-only`` runs
+             only this phase);
 23. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
@@ -373,7 +374,8 @@ Phases, each printing its own lines:
              of the trained checkpoint's serving on 1x2 and each rank's
              launch at its shape; the write, partials and CA entries a
              trace_build object: the trace instantiations' launches in
-             phase 22 and their times beside the untraced ones), a
+             phase 22's sanitizer runs and their times beside the
+             untraced ones), a
              ``[phases]`` line (each phase's host seconds), then the
              result line.
 
@@ -1802,9 +1804,9 @@ SSM_EMB = {"musicgen-large": dict(layers=48, batch=4, prompt=2048, steps=16,
                                   max_len=2176),
            "internvl2-26b": dict(layers=12, batch=4, prompt=2048, steps=16,
                                  max_len=2176)}
-#: each stack trained 2 steps at cut depth, batch 1 x 2048 (a multiple of
+#: each stack trained 3 steps at cut depth, batch 1 x 2048 (a multiple of
 #: ssd_chunk 256 and of logit_chunk 512)
-SSM_TRAIN = dict(batch=1, seq=2048, steps=2, lr=1e-4,
+SSM_TRAIN = dict(batch=1, seq=2048, steps=3, lr=1e-4,
                  layers={"falcon-mamba-7b": 2, "zamba2-2.7b": 6,
                          "musicgen-large": 4, "internvl2-26b": 2})
 
@@ -4419,15 +4421,13 @@ def timings(node, path=""):
 # ---------------------------------------------------------------------------
 
 #: per-rank parity (one process, each rank's launch held against its plain
-#: version): (fractal, n, block, coarsenings) on D = 2 and 4 ranks (3 in
-#: the CPU tests); the gasket at n 32 block 8 (a 3 x 3 orthotope) leaves
-#: rank 3 of 4 no rows
-MESH_SHARDS = (2, 4)
+#: version): (fractal, n, block, coarsenings) on D = 2, 3, 4 ranks; the
+#: gasket at n 32 block 8 (a 3 x 3 orthotope) leaves rank 3 of 4 no rows
+MESH_SHARDS = (2, 3, 4)
 MESH_PARITY_CASES = [("sierpinski-gasket", 64, 8, (1, 2)),
                      ("sierpinski-carpet", 81, 3, (1, 3)),
                      ("sierpinski-gasket", 32, 8, (1,))]
-#: fuse 3 (a halo of 3); fuse 1 and 8 run end to end (MESH_CA_FUSES)
-MESH_FUSES = (3,)
+MESH_FUSES = (1, 3)
 MESH_STAGES = (1, 2)
 #: flash per-rank parity: (kind, window, S, block, D, dtype)
 MESH_ATTN_CASES = [("causal", 0, 768, 64, 128, torch.bfloat16),
@@ -4436,7 +4436,7 @@ MESH_ATTN_CASES = [("causal", 0, 768, 64, 128, torch.bfloat16),
                    ("full", 0, 768, 64, 64, torch.float32)]
 #: end to end: D ranks spawned on cuda:0 over gloo
 MESH_E2E_SHARDS = (2, 4)
-MESH_N, MESH_RHO, MESH_CA_STEPS, MESH_CA_FUSES = 1 << 16, 32, 16, (1, 8)
+MESH_N, MESH_RHO, MESH_CA_STEPS, MESH_CA_FUSES = 1 << 16, 32, 32, (1, 8)
 #: embedded storage replicates the n^2 state on every rank, and the ranks
 #: share one card: cut to n = 2^14 (1 GiB a copy)
 MESH_EMB_N, MESH_EMB_RHO, MESH_EMB_CA = 1 << 14, 32, dict(steps=4, fuse=2)
@@ -4454,8 +4454,8 @@ def mesh_stand_in(D):
 
 def phase_mesh_parity(TW, TC, FA, F, LOWERINGS, compact_layout, dev):
     """(a) Every rank's sharded write / partials / CA launch held against
-    its plain version in one process (D 2, 4; the four lowerings x
-    embedded / compact x the coarsenings x fuse 3 x num_stages
+    its plain version in one process (D 2, 3, 4; the four lowerings x
+    embedded / compact x the coarsenings x fuse {1, 3} x num_stages
     {1, 2}, and the interior / boundary phase launches, both rules, the
     gasket and the carpet), and both tile paths under rows and zigzag."""
     errs = {"sierpinski_write_sharded": 0.0,
@@ -5728,7 +5728,7 @@ def serve_mesh_kernel_entries(kernels, sm):
 #: batches.  AdamW's eps is 1e-5, as in tests/test_torch_train_mesh.py:
 #: at 1e-8 an element whose gradient is near 1e-8 steps by up to lr with
 #: the sign of its gradient's rounding
-TRAIN_MESH_QS = dict(batch=8, seq=512, steps=2, lr=1e-3, warmup=1,
+TRAIN_MESH_QS = dict(batch=8, seq=512, steps=3, lr=1e-3, warmup=1,
                      eps=1e-5)
 #: (name, mesh shape, TrainConfig fields) of the quickstart runs; the
 #: 2x2 run (the 4-rank world) writes the checkpoint that is resumed on
@@ -5746,13 +5746,13 @@ TRAIN_MESH_RTOL = {"float32": 1e-4, "bfloat16": 5e-3}
 TRAIN_MESH_PARAM_TOL = 3e-5
 #: gemma3-12b at full width, 6 of 48 layers, 1 x 4096, bf16 compute over
 #: f32 weights, remat, on 1x2 under seq_shard_acts (its META)
-TRAIN_MESH_GEMMA = dict(layers=6, batch=1, seq=4096, steps=2, lr=1e-4)
+TRAIN_MESH_GEMMA = dict(layers=6, batch=1, seq=4096, steps=3, lr=1e-4)
 #: deepseek-v2 at full width, 2 layers, fsdp and bf16 moments (its META)
 #: on 2x1: a global batch of 2 x 1024 (one row a rank).  One device at
 #: 2 x 4096 peaks at 73.14 GiB, 39.9 of them weights, gradients and
 #: moments; a rank holds 25 GiB of those, so two ranks fit on 80 GB only
 #: with the activations of ~2 k tokens
-TRAIN_MESH_DEEPSEEK = dict(layers=2, batch=2, seq=1024, steps=2, lr=1e-4)
+TRAIN_MESH_DEEPSEEK = dict(layers=2, batch=2, seq=1024, steps=3, lr=1e-4)
 #: compressed_psum_grads on 2 ranks: leaves of these sizes
 TRAIN_MESH_COMPRESS = ((4096, 1024), (3, 1000), (257,))
 #: the device type of the spawned ranks
@@ -6055,7 +6055,7 @@ def phase_train_mesh(S, TT, TM, FA, get_config, dev):
     model, opt, one_hist = train_mesh_steps(one_tr, model, opt, pipe,
                                             q["steps"], dev, collectives)
     one_tr.save(q["steps"], model, opt, pipe)
-    # the one-device run's next step, for the resumed 2x2 checkpoint's
+    # the one-device run's 4th step, for the resumed 2x2 checkpoint's
     batch = one_tr._device_batch(pipe.next_batch())
     _, _, met = one_tr._step(model, opt, batch)
     one_next = {k: float(v) for k, v in met.items()}
@@ -6360,7 +6360,10 @@ VERIFY_TUNE_CA = dict(rule="parity", steps=4, max_fuse=4)
 
 def verify_static(TV, FA, D, LOWERINGS, dev):
     """[verify] static lines: verify_plan on the main path's plans, each
-    with zero findings, and its host seconds."""
+    with zero findings, and its host seconds.  The host views of the
+    gasket plans the sanitizer launches stay in VERIFY_STATIC["decodes"]
+    (keyed by geometry and the tables' digest), so the sanitizer's
+    static sets reuse their decodes."""
     from repro_torch.core.plan import GridPlan
     from repro_torch.core.shard import ShardedPlan
     gasket = D.SierpinskiDomain(N_MAIN // VERIFY_RHO)
@@ -6397,9 +6400,12 @@ def verify_static(TV, FA, D, LOWERINGS, dev):
                 plans.append((f"{tag}/{phase}", sp.phase_view(phase),
                               ("ca",)))
     rows = []
+    decodes = VERIFY_STATIC.setdefault("decodes", {})
     for label, plan, kernels in plans:
         t0 = time.perf_counter()
-        reports = TV.verify_models(plan, kernels, device=dev)
+        kept = label.startswith("gasket/") and label.count("/") == 2
+        reports = TV.verify_models(plan, kernels, device=dev,
+                                   decodes=decodes if kept else None)
         secs = time.perf_counter() - t0
         for kernel, report in reports.items():
             check(report.ok, f"verify {label} ({kernel}): "
@@ -6594,6 +6600,8 @@ def verify_sanitizer(TW, TC, SAN, D, LOWERINGS, compact_layout, dev):
     lay = compact_layout(dom)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, counts = [], {}
+    # the static checks' host views of these plans (verify_static)
+    static = VERIFY_STATIC.get("decodes", {})
     TW.reset_launch_counts()
     TC.reset_launch_counts()
     for storage in ("embedded", "compact"):
@@ -6609,7 +6617,6 @@ def verify_sanitizer(TW, TC, SAN, D, LOWERINGS, compact_layout, dev):
                 runs.append((f"ca fuse {fuse}",
                              lambda o, fuse=fuse: TC.ca_run(
                                  a, o, fuse, fuse=fuse, donate=True, **kw)))
-            static = {}
             secs = {"runs": 0.0, "crosscheck": 0.0, "plain_rows": 0.0}
             for what, run in runs:
                 t0 = time.perf_counter()
@@ -6646,6 +6653,7 @@ def verify_sanitizer(TW, TC, SAN, D, LOWERINGS, compact_layout, dev):
         counts = {**TW.trace_launch_counts(), **TC.trace_launch_counts()}
         del a, outs
         free_card()
+    static.clear()
     times = verify_trace_times(TW, TC, LOWERINGS, lay, dev)
     print(f"[verify] sanitizer: {len(rows)} traced launches at n = {n}, "
           f"rho {rho}, 0 findings, outputs bit-equal to the untraced "
@@ -6745,19 +6753,17 @@ def verify_searchers(tune, TV, dev):
 
 
 def verify_cli(device="cuda"):
-    """``python -m repro_torch.analysis.verify --matrix --device cuda``
-    in a process of its own: exit 0, its report's counts."""
+    """``python -m repro_torch.analysis.verify --matrix --device cuda``,
+    its ``main`` called in this process (no second start-up on the
+    card): exit 0, its report's counts."""
+    from repro_torch.analysis import verify as VCLI
     report = ROOT / "chiprun_out" / "verify_matrix.json"
     report.parent.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.analysis.verify", "--matrix",
-         "--device", device, "--quiet", "--out", str(report)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    rc = VCLI.main(["--matrix", "--device", device, "--quiet", "--out",
+                    str(report)])
     secs = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the verify CLI exited {proc.returncode}: "
-          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    check(rc == 0, f"the verify CLI exited {rc}")
     rep = json.loads(report.read_text())
     out = {key: rep[key] for key in ("ok", "num_static", "num_sanitized",
                                      "num_findings")}
@@ -6794,8 +6800,8 @@ def phase_verify(TW, TC, FA, P, tune, D, LOWERINGS, compact_layout, dev):
 
 
 def verify_kernel_entries(kernels, ver):
-    """The trace builds' launches of the [verify] phase beside their
-    untraced kernels' entries, with the traced and untraced times of
+    """The trace builds' launches of the [verify] phase's sanitizer runs
+    (verify_sanitizer) beside their untraced kernels' entries, with the traced and untraced times of
     the main cell (closed_form, compact)."""
     times = {(r["kernel"], r["lowering"], r["storage"]): r
              for r in ver["sanitizer"]["times"]}
@@ -6810,7 +6816,7 @@ def verify_kernel_entries(kernels, ver):
                 t = times[(what, "closed_form", "compact")]
                 entry["trace_build"] = {
                     "name": trace_name,
-                    "launches_verify_phase":
+                    "launches_sanitizer":
                         ver["sanitizer"]["trace_launches"][trace_name],
                     "ms": t["trace_ms"], "untraced_ms": t["ms"],
                     "at": f"gasket n={N_MAIN} rho={VERIFY_RHO} compact "

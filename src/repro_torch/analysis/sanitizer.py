@@ -24,9 +24,20 @@ host_tables`), never through the device copies the launch read:
   static decode's;
 * the stored tiles equal the static write set, pairwise distinct, and
   every stored or loaded tile lies in bounds;
-* every loaded tile lies in the static read set (the centre, plus the
-  neighbours for ``"ca"``);
+* the loads are held slot by slot: origin slot (dy + 1) * 3 + dx + 1 of
+  a step loads exactly when the block at offset (dx, dy) is in range
+  and a member, and it loads that slot's static tile (slot 4 the
+  centre's storage tile, the sum's only load; the others neighbour j of
+  ``NEIGHBOR_OFFSETS8``), in bounds;
 * the sum's partial slot of a step is the step's linear id.
+
+Under embedded storage the CA kernel gathers a halo window around its
+own block and keeps no origin per slot: its trace build writes the
+slots' tiles worked out from the step's block, (bx + dx, by + dy) where
+that block is a member, not addresses recorded from the gather.  For an
+embedded CA launch the load columns therefore check the decoded block
+and the membership test; the compact gather's nine origins are recorded
+as the ring loader resolved them.
 
 Launches of a :class:`~repro_torch.core.shard.ShardedPlan` are observed
 but not traced, as in the JAX package: the static verifier covers those
@@ -44,7 +55,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import memo
 from repro_torch.core.compact import NEIGHBOR_OFFSETS8
 from repro_torch.core.shard import ShardedPlan
 from repro_torch.kernels import _cuda
@@ -92,17 +102,18 @@ class AccessTrace:
     ...     out = sierpinski_write(m, 1.0, block=4)
     >>> findings = tr.crosscheck()
 
-    ``static``: a dict that keeps the static sets per plan geometry;
-    traces given the same dict compute them once.
+    ``static``: a dict that keeps each plan's host view and static sets
+    (keyed by its geometry and tables); traces, and
+    :func:`~repro_torch.analysis.verifier.verify_models` given it as
+    ``decodes``, decode a plan once.
     """
 
     def __init__(self, kernel: str = "generic",
-                 static: Optional[Dict[Any, Dict[str, np.ndarray]]] = None):
+                 static: Optional[Dict[Any, Any]] = None):
         self.kernel = kernel
         self.launches: List[TracedLaunch] = []
         self._prev_hook = None
-        #: the static sets per plan geometry (pass one dict to several
-        #: traces of the same plans to compute them once)
+        #: the host views and static sets per plan geometry and tables
         self._static = {} if static is None else static
 
     # -- lifecycle -----------------------------------------------------------
@@ -146,25 +157,22 @@ class AccessTrace:
 
     def static_sets(self, plan) -> Dict[str, np.ndarray]:
         """The static decode and tiles of ``plan``'s launch through
-        host-built tables, memoized per plan geometry for this trace."""
-        key = (memo.domain_key(plan.domain), plan.lowering, plan.storage,
-               plan.coarsen)
-        hit = self._static.get(key) if key[0] is not None else None
-        if hit is not None:
-            return hit
-        view = host_view(plan, host_tables(plan))
-        ids, bx, by, live = decode_steps(view)
-        r, c = storage_tiles(view)
-        out = {"bx": bx, "by": by, "live": live, "row": r, "col": c,
-               "nbrs": [neighbor_tiles(view, j)
-                        for j in range(len(NEIGHBOR_OFFSETS8))]}
-        if key[0] is not None:
-            self._static[key] = out
+        host-built tables, kept with the plan's host view in the
+        ``static`` dict (:func:`~repro_torch.analysis.verifier.
+        host_view`'s ``decodes``)."""
+        view = host_view(plan, host_tables(plan), self._static)
+        out = getattr(view, "_static_sets", None)
+        if out is None:
+            ids, bx, by, live = decode_steps(view)
+            r, c = storage_tiles(view)
+            out = {"bx": bx, "by": by, "live": live, "row": r, "col": c,
+                   "nbrs": [neighbor_tiles(view, j)
+                            for j in range(len(NEIGHBOR_OFFSETS8))]}
+            view._static_sets = out
         return out
 
     def _check(self, launch, model_name, findings):
         plan = launch.plan
-        model = ACCESS_MODELS[model_name]
         sig = plan_signature(plan)
         st = self.static_sets(plan)
         rows = launch.trace.detach().to("cpu").numpy().astype(np.int64)
@@ -225,31 +233,55 @@ class AccessTrace:
             add("static write tiles never stored", missing,
                 lambda i: f"static write set expects a store to tile "
                 f"({wr[i]}, {wc[i]}) that never happened")
-        reads = [(wr, wc)]
-        if model["neighbors"]:
-            reads += [(r[live], c[live]) for r, c in st["nbrs"]]
         hr, hc = neighbor_grid(plan)
-        slots = (4,) if model_name == "sum" else \
-            tuple(range(9)) if model_name == "ca" else ()
-        for o in slots:
-            lr = rows[ok, _LOADS + 2 * o]
-            lc = rows[ok, _LOADS + 2 * o + 1]
-            took = (lr != -1) | (lc != -1)
-            lr, lc = lr[took], lc[took]
-            bad = np.nonzero((lr < 0) | (lr >= hr) | (lc < 0) | (lc >= hc))[0]
-            add("out-of-bounds loads", bad,
-                lambda i: f"load of tile ({lr[i]}, {lc[i]}) at origin slot "
-                f"{o} out of bounds for the ({hr}, {hc}) tile grid")
-            kl, *kr = _keys((lr, lc), *reads)
-            extra = np.nonzero(~np.isin(kl, np.concatenate(kr)))[0]
-            add("loads outside the static read set", extra,
-                lambda i: f"load of tile ({lr[i]}, {lc[i]}) at origin slot "
-                f"{o} is outside the static read set")
+        step = np.nonzero(ok)[0]
+        for o in (4,) if model_name == "sum" else \
+                tuple(range(9)) if model_name == "ca" else ():
+            self._check_slot(plan, st, rows, step, o, (hr, hc), add)
         if model_name == "sum":
             slot = rows[:, _C["slot"]]
             add("partials in the wrong slot",
                 np.nonzero(seen & (slot != np.arange(n)))[0],
                 lambda i: f"step {i} wrote partial slot {slot[i]}")
+
+    @staticmethod
+    def _check_slot(plan, st, rows, step, o, grid, add):
+        """Origin slot ``o`` = (dy + 1) * 3 + dx + 1 of the checked steps
+        ``step``: it loads exactly when the block at offset (dx, dy) is
+        in range and a member, the tile it loads lies in the ``grid``
+        and is the static one of that slot (the centre's storage tile
+        for slot 4, else neighbour j of NEIGHBOR_OFFSETS8 = (dx, dy))."""
+        dx, dy = o % 3 - 1, o // 3 - 1
+        lr = rows[step, _LOADS + 2 * o]
+        lc = rows[step, _LOADS + 2 * o + 1]
+        took = (lr != -1) | (lc != -1)
+        if o == 4:
+            er, ec = st["row"][step], st["col"][step]
+            want = np.ones(len(step), bool)
+        else:
+            j = NEIGHBOR_OFFSETS8.index((dx, dy))
+            er, ec = st["nbrs"][j][0][step], st["nbrs"][j][1][step]
+            nbx, nby = plan.sched_domain.bounding_box
+            x, y = st["bx"][step] + dx, st["by"][step] + dy
+            member = np.broadcast_to(np.asarray(plan.sched_domain.contains(
+                np.clip(x, 0, nbx - 1), np.clip(y, 0, nby - 1))), x.shape)
+            want = (x >= 0) & (x < nbx) & (y >= 0) & (y < nby) & member
+        at = f"origin slot {o} ({dx:+d}, {dy:+d})"
+        add("slots loaded against the static decode",
+            np.nonzero(took != want)[0],
+            lambda i: f"step {step[i]} {'loaded' if took[i] else 'skipped'} "
+            f"{at}; the static decode "
+            f"{'has a member there' if want[i] else 'has no member there'}")
+        hr, hc = grid
+        bad = np.nonzero(took & ((lr < 0) | (lr >= hr) | (lc < 0) |
+                                 (lc >= hc)))[0]
+        add("out-of-bounds loads", bad,
+            lambda i: f"load of tile ({lr[i]}, {lc[i]}) at {at} out of "
+            f"bounds for the ({hr}, {hc}) tile grid")
+        wrong = np.nonzero(took & want & ((lr != er) | (lc != ec)))[0]
+        add("loads of another tile than the slot's", wrong,
+            lambda i: f"step {step[i]} loaded tile ({lr[i]}, {lc[i]}) at "
+            f"{at}; the static tile of that slot is ({er[i]}, {ec[i]})")
 
 
 def _keys(*pairs):

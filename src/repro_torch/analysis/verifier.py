@@ -66,12 +66,13 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import mma
+from repro_torch.core import memo, mma
 from repro_torch.core.compact import NEIGHBOR_OFFSETS8
 from repro_torch.core.plan import (_LUT_BX, _LUT_BY, _LUT_COLS, _LUT_NBR,
                                    _LUT_SX, _LUT_SY, GridPlan)
@@ -245,13 +246,39 @@ def host_tables(plan: GridPlan) -> Dict[str, Any]:
     return out
 
 
-def host_view(plan: GridPlan, tables: Dict[str, Any]) -> GridPlan:
+def _decode_key(plan: GridPlan, tables: Dict[str, Any]):
+    """What a host view of an unsharded ``plan`` decodes from: the plan's
+    geometry and a digest of the tables the view reads (None for a
+    sharded plan, or a domain without a cache key)."""
+    dk = memo.domain_key(plan.domain)
+    if _is_sharded(plan) or dk is None:
+        return None
+    digest = hashlib.blake2b(digest_size=16)
+    for name in ("lut", "gmap", "phase"):
+        if tables.get(name) is not None:
+            digest.update(name.encode())
+            digest.update(np.ascontiguousarray(tables[name]).tobytes())
+    return (dk, plan.lowering, plan.storage, plan.coarsen,
+            plan.batch_dims, digest.digest())
+
+
+def host_view(plan: GridPlan, tables: Dict[str, Any],
+              decodes: Optional[Dict[Any, GridPlan]] = None) -> GridPlan:
     """A copy of ``plan`` whose decodes (``step_coords``,
     ``storage_index``, ``neighbor_index`` on the CPU) read ``tables``:
     its LUT (or LUT chunk), ghost map and phase list.  The view keeps
     its decode of the whole grid and the tiles :func:`storage_tiles` /
     :func:`neighbor_tiles` evaluate, so the checks (and the index
-    functions, which decode first) share one evaluation."""
+    functions, which decode first) share one evaluation.
+
+    ``decodes``: a dict the caller keeps; an unsharded plan's view is
+    kept there under its geometry and the digest of ``tables``, so the
+    verifier and the access sanitizer (``AccessTrace(static=)``) given
+    one dict decode a plan once, and a corrupt table is never answered
+    by a clean table's decode."""
+    key = _decode_key(plan, tables) if decodes is not None else None
+    if key is not None and key in decodes:
+        return decodes[key]
     view = copy.copy(plan)
     view._host_tiles = {}
     # the view's own decode (reading the tables above), or a decode the
@@ -284,6 +311,8 @@ def host_view(plan: GridPlan, tables: Dict[str, Any]) -> GridPlan:
     if tables.get("phase") is not None:
         steps = [int(t) for t in tables["phase"]]
         view._phase_steps = lambda: steps
+    if key is not None:
+        decodes[key] = view
     return view
 
 
@@ -1149,7 +1178,7 @@ def _check_flash_hulls(plan, findings, extents=None):
 # entry points
 # ---------------------------------------------------------------------------
 
-def _rank(plan, rank, device):
+def _rank(plan, rank, device, decodes=None):
     """(host view, launch tables) of rank ``rank`` (or of the unsharded
     plan): the tables its launch reads on ``device`` for the plan's own
     rank (every rank of a plan bound to none), on the CPU for the other
@@ -1157,7 +1186,7 @@ def _rank(plan, rank, device):
     view = plan.for_rank(rank) if _is_sharded(plan) else plan
     own = not _is_sharded(plan) or plan.rank in (None, rank)
     tables = launch_tables(view, device if own else "cpu")
-    return host_view(view, tables), tables
+    return host_view(view, tables, decodes), tables
 
 
 def verify_plan(plan: GridPlan, *, kernel: str = "generic",
@@ -1177,13 +1206,17 @@ def verify_plan(plan: GridPlan, *, kernel: str = "generic",
 
 def verify_models(plan: GridPlan, kernels: Sequence[str], *,
                   checks: Optional[Sequence[str]] = None, device=None,
-                  row_extents=None) -> Dict[str, Report]:
+                  row_extents=None,
+                  decodes: Optional[Dict[Any, GridPlan]] = None
+                  ) -> Dict[str, Report]:
     """:func:`verify_plan` under each access model of ``kernels`` (one
     report each, as separate calls give), decoding the grid and running
-    the model-independent checks once."""
+    the model-independent checks once.  ``decodes``: as in
+    :func:`host_view` (an unsharded plan's decode kept for later
+    calls)."""
     selected = tuple(checks) if checks is not None else CHECKS
     dev = launch_device(plan, device)
-    views, rank_tables = zip(*[_rank(plan, d, dev)
+    views, rank_tables = zip(*[_rank(plan, d, dev, decodes)
                                for d in range(num_devices(plan))])
     per_device = [decode_steps(v) for v in views]
     head: List[Finding] = []

@@ -43,10 +43,10 @@ and its one-knob neighbours are measured), and each trial's time is the
 slowest rank's, so every rank keeps the same winner.
 
 ``verify=True`` on a searcher statically verifies each candidate's plan
-after ``build`` and before it is timed (the candidate's entry-point call
-once with its own ``verify=True``, :mod:`repro_torch.analysis`): a
-failing plan is rejected, never measured or persisted, as in the JAX
-package.
+after ``build`` and before it is timed (the plan the entry point would
+launch, through the check its own ``verify=True`` runs,
+:mod:`repro_torch.analysis`; nothing is launched for it): a failing
+plan is rejected, never measured or persisted, as in the JAX package.
 
 Run: ``python -m repro_torch.core.tune [--smoke] [--cache PATH] [--force]
 [--device cpu]``.
@@ -331,10 +331,11 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
     are skipped, not errors.
 
     ``verify(config)``, when given, runs after ``build`` and before any
-    measurement; raising ValueError (the plan verifier's
-    ``PlanVerificationError`` is one) rejects the candidate, so a plan
-    that fails static analysis is never timed, let alone persisted as a
-    winner.  The kernel-specific searchers wire it to
+    measurement; raising the plan verifier's ``PlanVerificationError``
+    rejects the candidate, so a plan that fails static analysis is never
+    timed, let alone persisted as a winner (any other error propagates).
+    Under ``agree`` a candidate any rank rejects is rejected on every
+    rank.  The kernel-specific searchers wire it to
     :mod:`repro_torch.analysis` through their ``verify=True``.
 
     ``seed_config`` warm-starts the search from a related problem's
@@ -376,11 +377,14 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
                 print(f"  skip {cfg}: {e}")
             continue
         if verify is not None:
-            try:
-                verify(cfg)
-            except (ValueError, NotImplementedError) as e:
+            refused = _refusal(verify, cfg)
+            if agree is not None and agree(float(refused is not None)) \
+                    and refused is None:
+                refused = "another rank's plan failed verification"
+            if refused is not None:
                 if verbose:
-                    print(f"  reject {cfg}: plan verification failed: {e}")
+                    print(f"  reject {cfg}: plan verification failed: "
+                          f"{refused}")
                 continue
         us = measure(fn, warmup=warmup, iters=iters, device=device)
         if agree is not None:
@@ -395,6 +399,17 @@ def autotune(kernel: str, params: dict, candidates: Iterable[dict],
                          f"for {params}")
     cache.put(kernel, params, best_cfg, best_us)
     return best_cfg, best_us, trials
+
+
+def _refusal(verify: Callable[[dict], None], cfg: dict) -> Optional[str]:
+    """``verify(cfg)``'s ``PlanVerificationError`` as a message, or None
+    when the plan verifies."""
+    from repro_torch.analysis.verifier import PlanVerificationError
+    try:
+        verify(cfg)
+    except PlanVerificationError as e:
+        return str(e)
+    return None
 
 
 def best(kernel: str, params: dict, default: Optional[dict] = None,
@@ -520,7 +535,7 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
     n x n embedded pair, and their packed copies when the compact
     storage is searched)."""
     from .compact import compact_layout
-    ca = _kernels("sierpinski_ca")
+    ca, sw = _kernels("sierpinski_ca"), _kernels("sierpinski_write")
 
     base = _axis_param(
         {"fractal": fractal, "n": n, "block": block, "rule": rule},
@@ -533,23 +548,37 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
     state = fractal_state(fractal, n, block, dev)
     operands = {"embedded": (state, torch.zeros_like(state))}
     if "compact" in storages:
-        lay = compact_layout(_kernels("sierpinski_write")
-                             .resolve_fractal_domain(fractal, n, block))
+        lay = compact_layout(sw.resolve_fractal_domain(fractal, n, block))
         operands["compact"] = tuple(lay.pack(t, block)
                                     for t in operands["embedded"])
     if "embedded" not in storages:
         del operands["embedded"]
     del state
 
+    def geometry(cfg):
+        return dict(block=block, grid_mode=cfg["lowering"],
+                    fractal=fractal, storage=cfg["storage"], n=n,
+                    coarsen=cfg["coarsen"])
+
     def build(cfg):
         a, b = operands[cfg["storage"]]
-        kw = dict(rule=rule, block=block, grid_mode=cfg["lowering"],
-                  storage=cfg["storage"], n=n, coarsen=cfg["coarsen"],
-                  num_stages=cfg.get("stages", 1))
+        kw = dict(geometry(cfg), rule=rule, num_stages=cfg.get("stages", 1))
         ca.check_run(a, b, **kw)
-        return lambda **o: ca.ca_run(a, b, steps, fuse=cfg["fuse"],
-                                     donate=True, mesh=mesh,
-                                     shard_axis=shard_axis, **kw, **o)
+        return lambda: ca.ca_run(a, b, steps, fuse=cfg["fuse"],
+                                 donate=True, mesh=mesh,
+                                 shard_axis=shard_axis, **kw)
+
+    def check(cfg):
+        """ca_run's ``verify=True`` without the run."""
+        a, b = operands[cfg["storage"]]
+        if mesh is None:
+            plan = ca.check_run(a, b, rule=rule, **geometry(cfg),
+                                num_stages=cfg.get("stages", 1))[0]
+        else:
+            plan = sw.mesh_plan(
+                a, mesh, shard_axis, **geometry(cfg), domain=None,
+                halo=cfg["storage"] == "compact")[0]
+        sw.verify_launch(plan, "ca", a.device)
 
     cands = ca_candidates(fractal, n, block, storages=storages,
                           max_fuse=max_fuse, max_coarsen=max_coarsen,
@@ -557,14 +586,7 @@ def autotune_ca(*, fractal: str = "sierpinski-gasket", n: int = 256,
     return autotune("ca", params, cands, build, cache=cache, force=force,
                     verbose=verbose, device=dev, seed_config=seed,
                     agree=mesh_agree(mesh, shard_axis),
-                    verify=_verified(build) if verify else None)
-
-
-def _verified(build: Callable[[dict], Callable]) -> Callable[[dict], None]:
-    """The ``verify`` callback of a searcher whose ``build`` returns the
-    candidate's entry-point call: that call once with ``verify=True``
-    (the plan verified, then launched once, unmeasured)."""
-    return lambda cfg: build(cfg)(verify=True)
+                    verify=check if verify else None)
 
 
 def write_candidates(fractal: str, n: int, block: int, *,
@@ -604,23 +626,33 @@ def autotune_write(*, fractal: str = "sierpinski-gasket", n: int = 256,
     operands = {s: torch.zeros(shapes[s], dtype=torch.float32, device=dev)
                 for s in storages}
 
+    def geometry(cfg):
+        return dict(block=block, grid_mode=cfg["lowering"], fractal=fractal,
+                    storage=cfg["storage"], n=n, coarsen=cfg["coarsen"])
+
     def build(cfg):
         m = operands[cfg["storage"]]
-        kw = dict(block=block, grid_mode=cfg["lowering"], fractal=fractal,
-                  storage=cfg["storage"], n=n, coarsen=cfg["coarsen"])
+        kw = geometry(cfg)
         plan, _, blk = sw.prepare_launch(m, **kw)
         if plan.target.kernels:
             plan.launch_params(n, blk, m.device)
-        return lambda **o: sw.sierpinski_write_(
-            m, 1.0, num_stages=1, mesh=mesh, shard_axis=shard_axis, **kw,
-            **o)
+        return lambda: sw.sierpinski_write_(
+            m, 1.0, num_stages=1, mesh=mesh, shard_axis=shard_axis, **kw)
+
+    def check(cfg):
+        """sierpinski_write_'s ``verify=True`` without the write."""
+        m = operands[cfg["storage"]]
+        plan = sw.prepare_launch(m, **geometry(cfg))[0] if mesh is None \
+            else sw.mesh_plan(m, mesh, shard_axis, **geometry(cfg),
+                              domain=None)[0]
+        sw.verify_launch(plan, "write", m.device)
 
     cands = write_candidates(fractal, n, block, storages=storages,
                              max_coarsen=max_coarsen)
     return autotune("write", params, cands, build, cache=cache,
                     force=force, verbose=verbose, device=dev,
                     seed_config=seed, agree=mesh_agree(mesh, shard_axis),
-                    verify=_verified(build) if verify else None)
+                    verify=check if verify else None)
 
 
 def flash_candidates(sq: int, sk: int, *, blocks=ALL_FLASH_BLOCKS):
@@ -661,17 +693,25 @@ def autotune_flash(*, kind: str = "causal", batch: int = 1, heads: int = 4,
                              (batch, kv_heads, sk, d),
                              (batch, kv_heads, sk, d)))
 
+    def schedule(cfg):
+        return dict(kind=kind, window=window, block_q=cfg["block_q"],
+                    block_k=cfg["block_k"], grid_mode=cfg["lowering"])
+
     def build(cfg):
-        kw = dict(kind=kind, window=window, block_q=cfg["block_q"],
-                  block_k=cfg["block_k"], grid_mode=cfg["lowering"])
+        kw = schedule(cfg)
         fa.check_launch(fa.flash_schedule(q.shape, k.shape, **kw),
                         q.dtype, dev)
-        return lambda **o: fa.flash_attention(q, k, v, **kw, **o)
+        return lambda: fa.flash_attention(q, k, v, **kw)
+
+    def check(cfg):
+        """flash_attention's ``verify=True`` without the launch."""
+        fa.verify_schedule(fa.flash_schedule(q.shape, k.shape,
+                                             **schedule(cfg)), dev)
 
     return autotune("flash", params,
                     flash_candidates(sq, sk, blocks=blocks), build,
                     cache=cache, force=force, verbose=verbose, device=dev,
-                    verify=_verified(build) if verify else None)
+                    verify=check if verify else None)
 
 
 def paged_candidates(seq: int, *, page_sizes=ALL_PAGE_SIZES):
@@ -748,19 +788,30 @@ def autotune_paged(*, batch: int = 4, heads: int = 4,
         fa.check_launch(fa.paged_schedule(q.shape, pool.shape, table.shape,
                                           window=window), q.dtype, dev)
         if mesh is None:
-            return lambda **o: fa.paged_flash_attention(
+            return lambda: fa.paged_flash_attention(
                 q, pool, table, pos, window=window,
-                grid_mode=cfg["lowering"], **o)
+                grid_mode=cfg["lowering"])
         from repro_torch.models.attention import decode_attention_paged
-        return lambda **o: decode_attention_paged(
+        return lambda: decode_attention_paged(
             q, pool, table, pos, window=window, grid_mode=cfg["lowering"],
-            mesh=mesh, shard_axis=shard_axis, **o)
+            mesh=mesh, shard_axis=shard_axis)
+
+    def check(cfg):
+        """The paged decode's ``verify=True`` without the launch: the
+        plan of this rank's slot group under ``mesh``."""
+        from repro_torch.models.attention import slot_group
+        pool, table = pools[cfg["page_size"]]
+        group = slot_group(batch, mesh, shard_axis, q, pool) \
+            if mesh is not None else None
+        sl = slice(None) if group is None else group[0]
+        fa.verify_paged(q[sl], pool, table[sl], window=window,
+                        grid_mode=cfg["lowering"])
 
     return autotune("paged", params,
                     paged_candidates(seq, page_sizes=page_sizes), build,
                     cache=cache, force=force, verbose=verbose, device=dev,
                     seed_config=seed, agree=mesh_agree(mesh, shard_axis),
-                    verify=_verified(build) if verify else None)
+                    verify=check if verify else None)
 
 
 # ---------------------------------------------------------------------------

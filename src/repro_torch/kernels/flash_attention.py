@@ -1286,6 +1286,21 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                       pos)
 
 
+def verify_paged(q, kv_pool, page_table, *, window: int = 0,
+                 grid_mode: str = "compact") -> None:
+    """``verify=True`` of :func:`paged_flash_attention`: statically
+    verify the ``"full"`` key-block plan of the page table (one row of
+    ``page_table.shape[1]`` pages, the (batch * heads) batch axis) on
+    ``q``'s device; raises ``PlanVerificationError`` on any finding."""
+    from repro_torch.analysis.verifier import verify_or_raise
+    sched = paged_schedule(q.shape, kv_pool.shape, page_table.shape,
+                           window=window)
+    verify_or_raise(GridPlan(make_attention_domain(
+        "full", 1, page_table.shape[1], 0), grid_mode,
+        batch_dims=(sched.b * sched.h,), backend=q), kernel="flash",
+        device=q.device)
+
+
 def paged_flash_attention(q, kv_pool, page_table, seq_pos, *,
                           window: int = 0, scale: float | None = None,
                           grid_mode: str = "compact", num_warps=None,
@@ -1313,11 +1328,8 @@ def paged_flash_attention(q, kv_pool, page_table, seq_pos, *,
     sched = paged_schedule(q.shape, kv_pool.shape, page_table.shape,
                            window=window, scale=scale)
     if verify:
-        from repro_torch.analysis.verifier import verify_or_raise
-        verify_or_raise(GridPlan(make_attention_domain(
-            "full", 1, page_table.shape[1], 0), grid_mode,
-            batch_dims=(sched.b * sched.h,), backend=q), kernel="flash",
-            device=q.device)
+        verify_paged(q, kv_pool, page_table, window=window,
+                     grid_mode=grid_mode)
     table = torch.as_tensor(page_table).to(q.device, torch.int32)
     pos = torch.as_tensor(seq_pos).to(q.device, torch.int32).reshape(-1)
     if pos.numel() not in (1, sched.b):

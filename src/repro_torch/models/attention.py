@@ -325,7 +325,7 @@ def reset_slot_calls() -> None:
         SLOT_CALLS[k] = 0
 
 
-def _slot_group(b: int, mesh, shard_axis, *tensors):
+def slot_group(b: int, mesh, shard_axis, *tensors):
     """(slice of this rank's slots, the axis's process group) when
     ``mesh`` (default: the registered one) shards ``b`` slots over its
     axis, else None (no mesh, an axis of 1, or a batch that does not
@@ -375,7 +375,7 @@ def decode_attention_flash(q, k, v, pos, *, kind="causal", window=0,
     w = window if kind == "local" else 0
     kw = dict(kind="full", window=w, scale=scale, block_q=1,
               block_k=block_k, grid_mode=grid_mode)
-    group = _slot_group(b, mesh, shard_axis, q, k, v)
+    group = slot_group(b, mesh, shard_axis, q, k, v)
     if group is None:
         return flash_attention(q, k, v, seq_pos=pos, **kw)
     sl, grp = group
@@ -433,7 +433,7 @@ def decode_attention_paged(q, kv_pool, page_table, pos, *,
     from repro_torch.kernels.flash_attention import paged_flash_attention
     b = q.shape[0]
     kw = dict(window=window, scale=scale, grid_mode=grid_mode, verify=verify)
-    group = _slot_group(b, mesh, shard_axis, q, kv_pool)
+    group = slot_group(b, mesh, shard_axis, q, kv_pool)
     if group is None:
         return paged_flash_attention(q, kv_pool, page_table, pos, **kw)
     sl, grp = group

@@ -164,6 +164,36 @@ def test_edited_store_and_slot_flagged():
     assert any("partial slot 9" in f.detail for f in tr.crosscheck())
 
 
+@pytest.mark.parametrize("storage", ["embedded", "compact"])
+@pytest.mark.parametrize("fault", ["swapped", "skipped", "extra"])
+def test_edited_ca_slot_flagged(storage, fault):
+    """The CA's loads are held slot by slot: a stencil that gathers its W
+    neighbour into E's slot (both tiles in the step's read set), skips a
+    member neighbour, or reads where the static decode has no member is
+    flagged."""
+    fn, args, kw = _run("ca", storage, "closed_form")
+    with AccessTrace() as tr:
+        fn(*args, **kw)
+    assert tr.crosscheck() == []
+    rows = tr.launches[0].trace
+    w, e = (_cuda.TRACE_LOADS + 2 * o for o in (3, 5))
+    both = (rows[:, w] != -1) & (rows[:, e] != -1) & \
+        ((rows[:, w] != rows[:, e]) | (rows[:, w + 1] != rows[:, e + 1]))
+    step = int(torch.nonzero(both)[0])
+    if fault == "swapped":
+        rows[step, e:e + 2] = rows[step, w:w + 2].clone()
+        want = f"step {step} loaded tile"
+    elif fault == "skipped":
+        rows[step, e:e + 2] = -1
+        want = f"step {step} skipped origin slot 5"
+    else:
+        step = int(torch.nonzero((rows[:, C["visits"]] == 1)
+                                 & (rows[:, w] == -1))[0])
+        rows[step, w:w + 2] = rows[step, C["store_row"]:C["store_row"] + 2]
+        want = f"step {step} loaded origin slot 3"
+    assert any(want in f.detail for f in tr.crosscheck())
+
+
 def test_strict_raises_plan_verification_error():
     from repro_torch.analysis import PlanVerificationError
     fn, args, kw = _run("write", "embedded", "prefetch_lut")

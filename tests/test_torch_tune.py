@@ -295,6 +295,41 @@ def test_autotune_all_rejected_raises(tmp_path):
                     verify=vfy, device="cpu")
 
 
+def test_autotune_verify_lets_other_errors_through(tmp_path):
+    """Only a plan that fails verification is rejected: any other error
+    of the ``verify`` callback surfaces."""
+    def vfy(cfg):
+        raise ValueError("not a verification failure")
+
+    with pytest.raises(ValueError, match="not a verification failure"):
+        TT.autotune("_test", {"p": 1}, [{"x": 1}],
+                    lambda cfg: (lambda: None),
+                    cache=TT.TuneCache(str(tmp_path / "t.json")),
+                    verify=vfy, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["ca", "write"])
+def test_searchers_verify_without_launching(name, tmp_path):
+    """``verify=True`` checks a candidate's plan without launching it:
+    a search makes the launches of ``verify=False``, no more."""
+    from repro_torch.kernels import _cuda
+    counts = []
+    for v in (False, True):
+        launches = []
+
+        def hook(record, run):
+            launches.append(record.kernel)
+            return run()
+        prev = _cuda.set_launch_hook(hook)
+        try:
+            SEARCHES[name](verify=v, force=True, device="cpu",
+                           cache=TT.TuneCache(str(tmp_path / f"{v}.json")))
+        finally:
+            _cuda.set_launch_hook(prev)
+        counts.append(len(launches))
+    assert counts[0] > 0 and counts[1] == counts[0]
+
+
 @pytest.mark.parametrize("name", ["ca", "write", "flash", "paged"])
 def test_searchers_reject_a_plan_that_fails_verification(name, tmp_path,
                                                          monkeypatch):
