@@ -50,7 +50,8 @@ Phases, each printing its own lines:
              -DREPRO_TRACE libraries, which only phase 22 launches, are
              built in the background beside phases 3-21 and joined
              before 22; phase 22's static checks, which launch nothing,
-             run beside this build on two torch threads);
+             run beside this build on two torch threads, and phase 23's
+             dry-run sweep starts beside it at nice 19);
 3. parity -- every kernel against its plain PyTorch version on the card:
              gasket, carpet and Vicsek x the four lowerings x several
              (n, rho); writes bit-equal in f32/bf16/int32, sums
@@ -356,7 +357,23 @@ Phases, each printing its own lines:
              repro_torch.analysis.verify --matrix --device cuda``, its
              main called in this process) exit 0 (``--verify-only`` runs
              only this phase);
-23. kernels line (the kernels of the main paths: B1-B3, B4 as the
+23. dryrun -- the dry run (repro_torch/launch/dryrun.py): the sweep of
+             all 66 cells (10 architectures x their shapes x the 16 x 16
+             and 2 x 16 x 16 meshes; ``python -m
+             repro_torch.launch.dryrun --all --mesh both``), started
+             beside the build at nice 19 and joined here, every cell OK,
+             a line per cell (rank 0's peak GiB, FLOPs, wire bytes, the
+             dominant roofline term); then three steps phases 15 and 16
+             measured, each beside its dry run on one device: quickstart
+             training (f32, 8 x 512), gemma3-12b training (6 layers, 1 x
+             4096, bf16, remat) and gemma3-12b's decode step (6 layers,
+             4 slots): counted FLOPs, model_flops, achieved TFLOP/s and
+             share of the peak of the products' dtype, and the dry run's
+             peak against the measured one less what was resident at the
+             phase's reset (it may fall short by DRYRUN_PEAK_UNDER at
+             most) (``--dryrun-only`` runs phase 2, the train phase and
+             one gemma3-12b serve run for the steps, then this phase);
+24. kernels line (the kernels of the main paths: B1-B3, B4 as the
              split-K decode kernel flash_attention_decode and the
              tensor-core tile paths flash_attention_tc (bf16, with its
              ragged gemma3-12b S 4104 row and its narrow D 250 row) and
@@ -2488,6 +2505,7 @@ def phase_serve(S, TM, get_config, FA, dev):
     for arch, cut, batch, plen, max_new, max_len in SERVE_RUNS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
         cfg = get_config(arch).replace(**cut)
         t0 = time.perf_counter()
         model = TM.init(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -2582,7 +2600,8 @@ def phase_serve(S, TM, get_config, FA, dev):
                "rows_diverged": diverged,
                "streams_equal": bool((tk == tx).all()),
                "mma": mma_run,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "resident_gib": resident}
         runs.append(run)
         print(f"[serve] {json.dumps(run)}")
         if arch == "quickstart":
@@ -3354,6 +3373,7 @@ def train_quickstart(S, TT, FA, get_config, dev, ckpt_root):
                                   total_steps=c["steps"])))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     FA.reset_launch_counts()
     da, db = os.path.join(ckpt_root, "a"), os.path.join(ckpt_root, "b")
     t0 = time.perf_counter()
@@ -3425,7 +3445,7 @@ def train_quickstart(S, TT, FA, get_config, dev, ckpt_root):
             "ms_per_step": ms, "tokens_per_s": c["batch"] * c["seq"]
             / (ms / 1e3), "first_step_s": ha[0]["step_time_s"],
             "run_seconds": secs_a, "peak_gib": peak,
-            "served_step": step, "serve_launches": launches,
+            "resident_gib": resident, "served_step": step, "serve_launches": launches,
             "served_tokens": toks.tolist(),
             "serve_max_logit_diff_vs_plain_decode": diff}
 
@@ -3499,6 +3519,8 @@ def train_gemma(TT, TA, get_config, dev, ckpt_root):
     check(cfg.remat and c["seq"] > cfg.flash_threshold
           and cfg.attn_chunk < c["seq"], "gemma3-12b train: not the flash "
           "path under remat")
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     hist, calls, _, nparams, init_s, peak, ms = train_steps(
         TT, TA, cfg, c, dev, ckpt_root)
     # remat runs each layer's forward twice (the forward, then again
@@ -3514,7 +3536,7 @@ def train_gemma(TT, TA, get_config, dev, ckpt_root):
             "flash_calls": calls, "ms_per_step": ms,
             "first_step_s": hist[0]["step_time_s"],
             "tokens_per_s": c["batch"] * c["seq"] / (ms / 1e3),
-            "peak_gib": peak}
+            "peak_gib": peak, "resident_gib": resident}
 
 
 def phase_train(S, TT, TA, FA, get_config, dev):
@@ -6824,6 +6846,195 @@ def verify_kernel_entries(kernels, ver):
 
 
 #: host seconds of each phase of this run, printed as ``[phases]``
+#: [dryrun]: the sweep of every (architecture x shape) cell on both
+#: production meshes (``python -m repro_torch.launch.dryrun --all --mesh
+#: both``), started beside the build at the lowest CPU priority and joined
+#: in [dryrun]; its records go to a fresh DRYRUN_DIR
+DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun"
+DRYRUN_JOBS = 3
+DRYRUN_CELLS = 66
+#: the longest [dryrun] waits for the sweep to end
+DRYRUN_JOIN_S = 600
+#: the dry run's peak of a measured step may fall short of the measured
+#: peak (less what was resident when the phase reset it) by at most this
+#: share of it (the caching allocator's 512-byte rounding, cuBLAS
+#: workspaces and the guard's screen are not in the count)
+DRYRUN_PEAK_UNDER = 0.05
+#: the card's peak for the dtype the step's products ran in: bf16 on the
+#: tensor cores; f32 on the CUDA cores (allow_tf32 is off)
+PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}
+DRYRUN_SWEEP = {}
+
+
+def start_dryrun_sweep():
+    """Start the dry-run sweep in a process group of its own at nice 19
+    (killed at exit if it is still running): its cells take CPU only
+    where the build and the phases leave it."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    log = open(DRYRUN_DIR / "sweep.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--jobs", str(DRYRUN_JOBS), "--results-dir",
+         str(DRYRUN_DIR)], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True,
+        preexec_fn=lambda: os.nice(19))
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    atexit.register(stop)
+    DRYRUN_SWEEP.update(proc=proc, log=log, t0=time.perf_counter())
+
+
+def dryrun_sweep_done(DR):
+    """Join the sweep; check its 66 records; print a line per cell."""
+    proc = DRYRUN_SWEEP["proc"]
+    try:
+        rc = proc.wait(timeout=DRYRUN_JOIN_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        check(False, f"[dryrun] the sweep did not end {DRYRUN_JOIN_S} s "
+              f"after [dryrun] began to wait")
+    DRYRUN_SWEEP["log"].close()
+    secs = time.perf_counter() - DRYRUN_SWEEP["t0"]
+    text = (DRYRUN_DIR / "sweep.log").read_text()
+    check(rc == 0, f"[dryrun] the sweep exited {rc}:\n{text[-4000:]}")
+    recs = [json.loads(p.read_text())
+            for p in sorted(DRYRUN_DIR.glob("*__*.json"))]
+    check(len(recs) == DRYRUN_CELLS and text.count("[OK]") == DRYRUN_CELLS
+          and "[FAIL]" not in text, f"[dryrun] {len(recs)} records, "
+          f"{text.count('[OK]')} cells OK of {DRYRUN_CELLS}")
+    for r in recs:
+        ops, roof, mem = r["ops"], r["roofline"], r["mem"]
+        check(ops["flops_per_dev"] > 0 and np.isfinite(mem["peak_est_gib"])
+              and mem["peak_est_gib"] > 0 and roof["model_flops_total"] > 0,
+              f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: {r}")
+        print(f"[dryrun] {DR.cell_line(r)} (useful "
+              f"{roof['useful_ratio']:.3f})")
+    trace = sum(r["trace_s"] for r in recs)
+    print(f"[dryrun] sweep: {len(recs)} cells OK, {secs:.1f} s from its "
+          f"start beside the build, {trace:.1f} s of counted programs")
+    return {"cells": len(recs), "seconds": secs, "trace_s": trace,
+            "records": {f"{r['arch']} {r['shape']} {r['mesh']}": {
+                "peak_est_gib": r["mem"]["peak_est_gib"],
+                "flops_per_dev": r["ops"]["flops_per_dev"],
+                "bytes_per_dev": r["ops"]["bytes_per_dev"],
+                "coll_wire_bytes_per_dev": r["ops"][
+                    "coll_wire_bytes_per_dev"],
+                "dominant": r["roofline"]["dominant"],
+                "useful_ratio": r["roofline"]["useful_ratio"],
+                "cache_gib": r["mem"].get("cache_gib"),
+                "cache_reference_gib": r["mem"].get("cache_reference_gib")}
+                for r in recs}}
+
+
+def dryrun_step(DR, name, cfg, kind, ms, peak_gib, resident_gib, **shape):
+    """One measured step beside its dry run on one device: the counted
+    FLOPs, model_flops, the achieved TFLOP/s and share of the peak of the
+    dtype its products ran in, and the dry run's peak against the
+    measured one (less what was resident when the phase reset it)."""
+    b, s = shape["batch"], shape["seq"]
+    if kind == "train":
+        cost, mem, _, secs = DR.dry_run(
+            cfg, "train", inputs=DR.step_inputs(cfg, "train", b, s))
+        dry_peak = mem["peak_est_gib"]
+        useful = DR.step_model_flops(cfg, "train", b, s)
+    else:
+        cost, peak, secs = DR.dry_serve(cfg, b, s, shape["max_len"])
+        dry_peak = peak / 2 ** 30
+        useful = DR.step_model_flops(cfg, "decode", b, s + 1)
+    tflops = cost.flops / (ms / 1e3) / 1e12
+    peak_tf = PEAK_TFLOPS[cfg.dtype]
+    measured = peak_gib - resident_gib
+    row = {"step": name, "kind": kind, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, **shape, "counted_flops": cost.flops,
+           "model_flops": useful, "counted_over_model": cost.flops / useful,
+           "flops_by_op": dict(cost.flops_by_op),
+           "bytes": cost.bytes_accessed, "ms": ms,
+           "achieved_tflops": tflops, "peak_tflops": peak_tf,
+           "share_of_peak": tflops / peak_tf,
+           "dry_peak_gib": dry_peak, "measured_peak_gib": peak_gib,
+           "resident_gib": resident_gib, "dry_over_measured":
+               dry_peak / measured, "trace_s": secs, "card": CARD}
+    print(f"[dryrun] {name}: counted {cost.flops:.4g} FLOPs, model_flops "
+          f"{useful:.4g} ({row['counted_over_model']:.3f}x); {ms:.2f} ms "
+          f"-> {tflops:.2f} TFLOP/s, {100 * row['share_of_peak']:.2f} % of "
+          f"{peak_tf:.0f} ({cfg.dtype}); peak: dry {dry_peak:.2f} GiB, "
+          f"measured {peak_gib:.2f} less {resident_gib:.2f} resident "
+          f"({row['dry_over_measured']:.3f}x) ({CARD})")
+    check(dry_peak >= (1 - DRYRUN_PEAK_UNDER) * measured,
+          f"[dryrun] {name}: the dry run's peak {dry_peak:.3f} GiB "
+          f"undercounts the measured {measured:.3f} GiB by more than "
+          f"{DRYRUN_PEAK_UNDER:.0%}")
+    check(cost.flops > 0 and np.isfinite(tflops), f"[dryrun] {name}: {row}")
+    return row
+
+
+def dryrun_measure(S, TT, TA, FA, TM, get_config, dev):
+    """``--dryrun-only``: the three steps [dryrun] sets beside their dry
+    runs, measured here as [train] and [serve] measure them (the train
+    phase, then one guarded serve run of gemma3-12b through the decode
+    kernel)."""
+    train = phase_train(S, TT, TA, FA, get_config, dev)
+    arch, cut, batch, plen, max_new, max_len = SERVE_RUNS[1]
+    cfg = get_config(arch).replace(**cut)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    model = TM.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen),
+                            generator=torch.Generator().manual_seed(SEED)
+                            ).numpy()
+    step_ms = serve_run(S, cfg, model, prompts, max_new, max_len,
+                        "blockspace")[3]
+    serve = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+             "prompt": plen, "max_len": max_len,
+             "guarded_ms_per_decode_step": step_ms,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "resident_gib": resident}
+    del model
+    torch.cuda.empty_cache()
+    return train, serve
+
+
+def phase_dryrun(train, serve_g, get_config):
+    """The dry run's sweep (joined here) and three measured steps beside
+    their dry runs on one device: quickstart and gemma3-12b (6 layers)
+    training, gemma3-12b's decode step."""
+    import importlib
+    DR = importlib.import_module("repro_torch.launch.dryrun")
+    t0 = time.perf_counter()
+    qs, gm = train["quickstart"], train["gemma3_12b"]
+    steps = [
+        dryrun_step(DR, "quickstart train", get_config("quickstart"),
+                    "train", qs["ms_per_step"], qs["peak_gib"],
+                    qs["resident_gib"], batch=qs["batch"], seq=qs["seq"]),
+        dryrun_step(DR, "gemma3-12b train",
+                    get_config("gemma3-12b").replace(n_layers=gm["layers"]),
+                    "train", gm["ms_per_step"], gm["peak_gib"],
+                    gm["resident_gib"], batch=gm["batch"], seq=gm["seq"]),
+        dryrun_step(DR, "gemma3-12b decode", get_config(
+            "gemma3-12b").replace(n_layers=serve_g["layers"],
+                                  attn_decode_kernel="blockspace"),
+                    "decode", serve_g["guarded_ms_per_decode_step"],
+                    serve_g["peak_gib"], serve_g["resident_gib"],
+                    batch=serve_g["batch"], seq=serve_g["prompt"],
+                    max_len=serve_g["max_len"])]
+    steps_s = time.perf_counter() - t0
+    sweep = dryrun_sweep_done(DR)
+    out = {"sweep": sweep, "steps": steps, "steps_seconds": steps_s,
+           "join_seconds": time.perf_counter() - t0 - steps_s,
+           "card": CARD}
+    print(f"[dryrun] the three steps' dry runs {steps_s:.1f} s; waited "
+          f"{out['join_seconds']:.1f} s for the sweep ({CARD})")
+    return out
+
+
 PHASE_S: dict = {}
 
 
@@ -6876,6 +7087,8 @@ def main():
     # [verify]'s static checks need no kernel: they run beside the build
     # wherever [verify] runs (the whole script, --verify-only)
     only = [a for a in sys.argv[1:] if a.endswith("-only")]
+    if only in ([], ["--dryrun-only"]):
+        start_dryrun_sweep()
     beside = None
     if only in ([], ["--verify-only"]):
         from repro_torch.analysis import verifier as TV
@@ -6960,6 +7173,17 @@ def main():
         print(f"[serve-mesh-only] the serve-mesh phase ran; no result "
               f"{json.dumps(PHASE_S)}")
         return
+    if "--dryrun-only" in sys.argv[1:]:
+        train, serve_g = timed("dryrun_measured", dryrun_measure, S, TT,
+                               TA, FA, TM, get_config, dev)
+        dry = timed("dryrun", phase_dryrun, train, serve_g, get_config)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                   "dryrun": dry, "train": train,
+                                   "serve_gemma3_12b": serve_g}, indent=1))
+        print(f"[dryrun-only] the dryrun phase ran; no result "
+              f"{json.dumps(PHASE_S)}")
+        return
     errs = timed("parity", phase_parity, TW, LOWERINGS, dev)
     merge_err(errs, timed("parity_compact", phase_parity_compact, TW, F,
                           LOWERINGS, compact_layout, dev))
@@ -7007,6 +7231,9 @@ def main():
     trace_build_done(_cuda)
     ver = timed("verify", phase_verify, TW, TC, FA, P, tune, D, LOWERINGS,
                 compact_layout, dev)
+    dry = timed("dryrun", phase_dryrun, train,
+                next(r for r in serve_runs if r["arch"] == "gemma3-12b"),
+                get_config)
     at = next(r for r in rows
               if (r["lowering"], r["rho"]) == REPORT_AT)
     source = "src/repro_torch/csrc/sierpinski_write.cu"
@@ -7247,7 +7474,7 @@ def main():
         "decode": decode, "tune": tuned, "train": train,
         "families": families, "ssm": ssm, "mesh": mesh,
         "serve_mesh": serve_mesh, "train_mesh": train_mesh,
-        "verify": ver, "kernels": kernels,
+        "verify": ver, "dryrun": dry, "kernels": kernels,
         "phase_seconds": PHASE_S,
         "seconds": time.perf_counter() - t_start}, indent=1))
     # the kernels line is long: the phases' seconds come after it, so

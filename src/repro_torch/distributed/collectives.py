@@ -16,6 +16,17 @@ wait for the stream's earlier work, which the copy to the host implies).
 
 CPU tensors (the CPU tests' gloo ranks) are handed to gloo as they are
 and stage nothing.
+
+``meta`` tensors (the dry run, :mod:`repro_torch.launch.dryrun`) move
+nothing: each collective records the call into the active cost counter
+(:func:`repro_torch.launch.op_analysis.charge_collective`: operand
+bytes, wire bytes by the group's size, the count by type; an
+all-gather's operand is the rank's piece, as in the JAX package's HLO)
+and returns an empty ``meta`` result of the right shape.  It stages
+nothing, calls no process group collective and leaves :data:`TRAFFIC`
+as it is; the group's size is read from the process group (the dry run
+runs on torch's ``fake`` backend).  :func:`all_reduce` and
+:func:`masked_all_reduce` take it through :func:`all_reduce_sum`.
 """
 from __future__ import annotations
 
@@ -76,8 +87,23 @@ def _global(group, rank: int) -> int:
     return dist.get_global_rank(group, rank)
 
 
+def _is_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def _record(op: str, operand: torch.Tensor, result_bytes: int,
+            group) -> None:
+    """A ``meta`` call's record in the dry run's cost counter."""
+    from repro_torch.launch.op_analysis import charge_collective, nbytes
+    charge_collective(op, nbytes(operand), result_bytes,
+                      dist.get_world_size(group))
+
+
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over the group's ranks, in place; returns ``t``."""
+    if _is_meta(t):
+        _record("all-reduce", t, t.numel() * t.element_size(), group)
+        return t
     t0 = time.perf_counter()
     host = to_host(t)
     dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
@@ -115,6 +141,12 @@ def all_gather(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     they are (as uint8, which every gloo build takes, whatever ``t``'s
     dtype: concatenating the byte views along any dimension is
     concatenating the values)."""
+    if _is_meta(t):
+        size = dist.get_world_size(group)
+        shape = list(t.shape)
+        shape[dim] *= size
+        _record("all-gather", t, t.numel() * t.element_size() * size, group)
+        return t.new_empty(shape)
     t0 = time.perf_counter()
     host = to_host(t)
     if t.ndim:
@@ -144,7 +176,7 @@ class Pending:
         for work in self._works:
             work.wait()
         self._keep = None
-        if self._device.type == "cpu":
+        if self._device.type in ("cpu", "meta"):
             return self._got
         out = []
         for buf in self._got:
@@ -159,7 +191,14 @@ def start(sends: Sequence[Tuple[int, torch.Tensor]],
     """Start one batch of point-to-point messages: ``sends`` are (group
     rank, tensor) pairs, ``recvs`` (group rank, shape) pairs, all in
     flight together (``batch_isend_irecv``); :meth:`Pending.wait`
-    returns what arrived."""
+    returns what arrived.  On ``meta`` each send is recorded as a
+    permute of its bytes and the receives come back empty."""
+    if torch.device(device).type == "meta":
+        for _, t in sends:
+            _record("collective-permute", t, t.numel() * t.element_size(),
+                    group)
+        return Pending([], [torch.empty(shape, dtype=dtype, device="meta")
+                            for _, shape in recvs], None, "meta")
     ops, keep, got = [], [], []
     pinned = torch.device(device).type == "cuda"
     for peer, t in sends:

@@ -52,7 +52,10 @@ Each kernel sits beside its plain PyTorch version (the same row bounds,
 tile order and masks as tensor index math, vectorized over rows and
 heads).  The entry points follow the tensors' device: CUDA tensors
 launch the kernels of ``csrc/flash_attention.cu`` (or raise), CPU
-tensors run the plain versions.  Each CUDA wrapper counts its launches
+tensors run the plain versions, and ``meta`` tensors (the dry run,
+:mod:`repro_torch.launch.dryrun`) launch nothing: they charge the
+routed kernel's work to the dry run's counter and return an empty
+output of the right shape.  Each CUDA wrapper counts its launches
 in ``launches``.
 
 ``flash_attention``'s ``grid_mode``, ``block_q``, ``block_k``,
@@ -1216,6 +1219,66 @@ def _flash_sharded(q, k, v, sched: FlashSchedule, mesh, shard_axis,
 
 
 # ---------------------------------------------------------------------------
+# meta tensors: the dry run's charge of a launch
+# ---------------------------------------------------------------------------
+
+def _decode_keys(seq_pos, b: int, sk: int, window: int) -> np.ndarray:
+    """(B,) keys each row's decode attends: those up to its position
+    (within ``window`` of it when set).  A position held on ``meta`` has
+    no value, so every row then counts the whole cache."""
+    if isinstance(seq_pos, torch.Tensor) and seq_pos.device.type == "meta":
+        pos = np.full(b, sk - 1)
+    else:
+        pos = np.broadcast_to(np.asarray(torch.as_tensor(seq_pos).cpu(),
+                                         np.int64).reshape(-1), (b,))
+    keys = np.minimum(pos, sk - 1) + 1
+    return np.minimum(keys, window) if window else keys
+
+
+def flash_meta(q, k, v, sched: FlashSchedule, seq_pos) -> torch.Tensor:
+    """A launch on ``meta`` tensors (the dry run): the work the routed
+    kernel's schedule does, charged under its name
+    (:func:`repro_torch.launch.op_analysis.charge_kernel`), and an empty
+    output.  A tile path computes every member (q block, k block) pair of
+    the domain whole, 2 * block_q * block_k * (d + dv) FLOPs a pair and
+    head (the causal diagonal blocks in full); the decode kernel 2 * (d +
+    dv) a key and head over the keys up to each row's position.  Bytes:
+    q, the K/V rows read and the output, each once."""
+    from repro_torch.launch.op_analysis import charge_kernel, nbytes
+    dv = v.shape[-1]
+    out = q.new_empty((sched.b, sched.h, sched.sq, dv))
+    name = ROUTE_KERNELS[flash_route(sched, q.dtype)]
+    if sched.has_pos:
+        keys = int(_decode_keys(seq_pos, sched.b, sched.sk,
+                                sched.window).sum())
+        flops = 2.0 * keys * sched.h * sched.sq * (sched.d + dv)
+        kv = keys * sched.hkv * (sched.d + dv) * k.element_size()
+    else:
+        pairs = sched.domain.num_blocks
+        flops = (2.0 * pairs * sched.b * sched.h * sched.block_q
+                 * sched.block_k * (sched.d + dv))
+        kv = nbytes(k) + nbytes(v)
+    charge_kernel(name, flops, nbytes(q) + kv + nbytes(out))
+    return out
+
+
+def paged_meta(q, kv_pool, sched: PagedSchedule, seq_pos) -> torch.Tensor:
+    """:func:`flash_meta` of a paged decode: the keys up to each slot's
+    position (every page of its table row when the positions are on
+    ``meta``), charged under ``paged_flash_attention``."""
+    from repro_torch.launch.op_analysis import charge_kernel, nbytes
+    out = torch.empty_like(q)
+    keys = int(_decode_keys(seq_pos, sched.b,
+                            sched.max_pages * sched.page_size,
+                            sched.window).sum())
+    flops = 4.0 * keys * sched.h * sched.d
+    kv = 2 * keys * sched.hkv * sched.d * kv_pool.element_size()
+    charge_kernel("paged_flash_attention", flops,
+                  nbytes(q) + kv + nbytes(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
@@ -1249,7 +1312,9 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
 
     causal requires Sq == Sk; local accepts Sq < Sk with the decode
     convention (queries are the last Sq positions).  CUDA tensors launch
-    the kernel, CPU tensors run the plain version.  ``verify=True``
+    the kernel, CPU tensors run the plain version, ``meta`` tensors (the
+    dry run) charge the kernel's work and return an empty output
+    (:func:`flash_meta`).  ``verify=True``
     statically verifies the plan first (module docstring)."""
     _check_qkv(q, k, v)
     b, h, sq, d = q.shape
@@ -1275,8 +1340,13 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                 "seq_pos (decode) does not combine with the query-row mesh "
                 "partition; shard the batch axis instead (see "
                 "repro.models.attention.decode_attention_flash)")
+        if q.device.type == "meta":
+            raise ValueError("a meta dry run charges unsharded launches "
+                             "only; mesh= takes real tensors")
         return _flash_sharded(q, k, v, sched, mesh, shard_axis,
                               shard_balance, verify)
+    if q.device.type == "meta":
+        return flash_meta(q, k, v, sched, seq_pos)
     if verify:
         verify_schedule(sched, q.device)
     pos = seq_pos_vector(seq_pos, sched.b, q.device)
@@ -1323,10 +1393,13 @@ def paged_flash_attention(q, kv_pool, page_table, seq_pos, *,
     Bit-equal to ``flash_attention(..., kind="full", seq_pos=...)`` at
     ``block_k == page_size`` when the mapped pages hold the same
     values.  ``verify=True`` statically verifies the ``"full"`` key-block
-    plan of the page table first (module docstring)."""
+    plan of the page table first (module docstring).  ``meta`` tensors
+    (the dry run) charge the kernel's work (:func:`paged_meta`)."""
     normalize_lowering(grid_mode)
     sched = paged_schedule(q.shape, kv_pool.shape, page_table.shape,
                            window=window, scale=scale)
+    if q.device.type == "meta":
+        return paged_meta(q, kv_pool, sched, seq_pos)
     if verify:
         verify_paged(q, kv_pool, page_table, window=window,
                      grid_mode=grid_mode)

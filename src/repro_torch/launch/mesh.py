@@ -194,10 +194,11 @@ def mesh_device(mesh) -> torch.device:
 
 def check_mesh_device(mesh, *tensors) -> None:
     """Raise unless every tensor lies on this rank's device of ``mesh``:
-    a cuda mesh computes nothing on the CPU."""
+    a cuda mesh computes nothing on the CPU.  ``meta`` tensors (the dry
+    run's, :mod:`repro_torch.launch.dryrun`) hold no data and pass."""
     want = mesh_device(mesh)
     for t in tensors:
-        if t.device != want:
+        if t.device != want and t.device.type != "meta":
             raise ValueError(f"a {mesh.device_type} mesh computes on "
                              f"{want}, got a tensor on {t.device}")
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import fractal as JF
 from repro.core import tune as JT
 from repro.core.domain import TriangularDomain as JTri
 from repro.kernels import ops as JO
@@ -747,3 +748,76 @@ def test_domain_calls_are_keyed_by_the_fractal_argument():
     # explicit defaults run
     assert float(TO.sierpinski_write(tm, 1.0, block=block, domain=td,
                                      coarsen=1).sum()) == 160.0
+
+
+# ---------------------------------------------------------------------------
+# the searchers on another fractal (ROADMAP C8): the port's time the named
+# fractal, the reference's time the gasket whatever ``fractal`` says
+# ---------------------------------------------------------------------------
+
+CARPET = "sierpinski-carpet"
+
+
+def _carpet_ref(state, n, steps=0, value=None):
+    """``repro.kernels.ref``'s write and parity step with the carpet's
+    membership in place of the gasket's (the oracles take the gasket's
+    ``membership_grid``): ``value`` written at every member cell, or
+    ``steps`` parity steps."""
+    from repro.kernels import ref as JR
+    member = jnp.asarray(JF.FRACTALS[CARPET].membership_grid(n))
+    s = jnp.asarray(state)
+    if value is not None:
+        return np.asarray(jnp.where(member, jnp.asarray(value, s.dtype), s))
+    for _ in range(steps):
+        nb = [JR._neighbor_shift(s, dy, dx)
+              for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1))]
+        s = jnp.where(member, jnp.mod(s + nb[0] + nb[1] + nb[2] + nb[3], 2),
+                      0).astype(s.dtype)
+    return np.asarray(s)
+
+
+def _unpacked(t, storage, n, block):
+    if storage == "embedded":
+        return t.numpy()
+    from repro_torch.core.compact import compact_layout
+    lay = compact_layout(TW.resolve_fractal_domain(CARPET, n, block))
+    return lay.unpack(t, block).numpy()
+
+
+def test_searchers_tune_the_named_fractal(tmp_path):
+    n, block, steps = 81, 9, 3
+    c = TT.TuneCache(str(tmp_path / "tune.json"))
+    x = fractal_state(CARPET, n, True, seed=81)
+    geo = dict(block=block, fractal=CARPET, n=n)
+
+    cfg, us, trials = TT.autotune_write(max_coarsen=2, cache=c,
+                                        device="cpu", **geo)
+    assert us > 0 and trials and cfg["lowering"] in LOWERINGS
+    assert cfg == TT.best("write", {"fractal": CARPET, "n": n,
+                                    "block": block}, cache=c, device="cpu")
+    _, ta = pair(x, CARPET, n, block, cfg["storage"])
+    got = TO.sierpinski_write(ta, 2.0, grid_mode=cfg["lowering"],
+                              storage=cfg["storage"],
+                              coarsen=cfg["coarsen"], **geo)
+    np.testing.assert_array_equal(_unpacked(got, cfg["storage"], n, block),
+                                  _carpet_ref(x, n, value=2.0))
+
+    cfg, us, trials = TT.autotune_ca(steps=2, max_fuse=2, max_coarsen=2,
+                                     cache=c, device="cpu", **geo)
+    assert us > 0 and trials and cfg["lowering"] in LOWERINGS
+    _, ta = pair(x, CARPET, n, block, cfg["storage"])
+    got = TO.ca_run(ta, torch.zeros_like(ta), steps, fuse=cfg["fuse"],
+                    grid_mode=cfg["lowering"], storage=cfg["storage"],
+                    coarsen=cfg["coarsen"], num_stages=cfg["stages"], **geo)
+    np.testing.assert_array_equal(_unpacked(got, cfg["storage"], n, block),
+                                  _carpet_ref(x, n, steps=steps))
+
+    # the reference's searchers run the gasket default on the carpet's
+    # geometry and refuse it (ROADMAP C8)
+    want = ("n/block = 9 blocks per side is not a valid scale level of "
+            "fractal 'sierpinski-gasket'")
+    for search in (JT.autotune_write, JT.autotune_ca):
+        with pytest.raises(ValueError, match=want):
+            search(storages=("embedded",), max_coarsen=1,
+                   cache=JT.TuneCache(str(tmp_path / "ref.json")),
+                   interpret=True, **geo)
