@@ -6901,7 +6901,7 @@ def dryrun_sweep_done(DR):
         check(False, f"[dryrun] the sweep did not end {DRYRUN_JOIN_S} s "
               f"after [dryrun] began to wait")
     DRYRUN_SWEEP["log"].close()
-    secs = time.perf_counter() - DRYRUN_SWEEP["t0"]
+    joined = time.perf_counter() - DRYRUN_SWEEP["t0"]
     text = (DRYRUN_DIR / "sweep.log").read_text()
     check(rc == 0, f"[dryrun] the sweep exited {rc}:\n{text[-4000:]}")
     recs = [json.loads(p.read_text())
@@ -6917,9 +6917,13 @@ def dryrun_sweep_done(DR):
         print(f"[dryrun] {DR.cell_line(r)} (useful "
               f"{roof['useful_ratio']:.3f})")
     trace = sum(r["trace_s"] for r in recs)
-    print(f"[dryrun] sweep: {len(recs)} cells OK, {secs:.1f} s from its "
-          f"start beside the build, {trace:.1f} s of counted programs")
-    return {"cells": len(recs), "seconds": secs, "trace_s": trace,
+    secs = float(text.rsplit(" cells OK in ", 1)[1].split(" s")[0])
+    print(f"[dryrun] sweep: {len(recs)} cells OK in {secs:.1f} s from its "
+          f"start beside the build ({DRYRUN_JOBS} jobs at nice 19), "
+          f"{trace:.1f} s of counted programs; joined {joined:.1f} s after "
+          f"its start")
+    return {"cells": len(recs), "seconds": secs, "joined_s": joined,
+            "trace_s": trace,
             "records": {f"{r['arch']} {r['shape']} {r['mesh']}": {
                 "peak_est_gib": r["mem"]["peak_est_gib"],
                 "flops_per_dev": r["ops"]["flops_per_dev"],

@@ -560,6 +560,7 @@ def main(argv=None):
                 jobs.append((arch, shape, mk, out))
         import concurrent.futures as cf
         import multiprocessing
+        t0 = time.perf_counter()
         ctx = multiprocessing.get_context("forkserver")
         ctx.set_forkserver_preload(PRELOAD)
         failed = 0
@@ -576,6 +577,8 @@ def main(argv=None):
                           f"{traceback.format_exc()[-4000:]}", flush=True)
                     continue
                 print(f"[OK] {line}", flush=True)
+        print(f"[all] {len(jobs) - failed} of {len(jobs)} cells OK in "
+              f"{time.perf_counter() - t0:.1f} s ({args.jobs} jobs)")
         if failed:
             raise SystemExit(f"{failed} of {len(jobs)} cells failed")
         return
